@@ -1,0 +1,11 @@
+"""Exceptions of the port (counterparts of the JAX package's
+``exceptions.py`` entries the ported modules raise)."""
+
+
+class DL4JException(Exception):
+    """Base of the framework's exceptions."""
+
+
+class DL4JInvalidConfigException(DL4JException, ValueError):
+    """A configuration that cannot be built or run."""
+

@@ -1,0 +1,21 @@
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+    ListBuilder,
+    MultiLayerConfiguration,
+    NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    FeedForwardToCnnPreProcessor,
+    InputPreProcessor,
+)
+
+__all__ = [
+    "CnnToFeedForwardPreProcessor",
+    "FeedForwardToCnnPreProcessor",
+    "InputPreProcessor",
+    "InputType",
+    "ListBuilder",
+    "MultiLayerConfiguration",
+    "NeuralNetConfiguration",
+]

@@ -1,0 +1,31 @@
+"""Layers ported so far (their names register for ``layer_from_json``)."""
+
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    LAYER_REGISTRY,
+    FeedForwardLayerSpec,
+    LayerSpec,
+    layer_from_json,
+    layer_to_json,
+    register_layer,
+)
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    ConvolutionLayer,
+    SubsamplingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    DenseLayer,
+    OutputLayer,
+)
+
+__all__ = [
+    "LAYER_REGISTRY",
+    "ConvolutionLayer",
+    "DenseLayer",
+    "FeedForwardLayerSpec",
+    "LayerSpec",
+    "OutputLayer",
+    "SubsamplingLayer",
+    "layer_from_json",
+    "layer_to_json",
+    "register_layer",
+]
