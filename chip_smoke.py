@@ -10,20 +10,28 @@ non-zero (nothing is caught):
 1. environment: the card's name and power limit (``nvidia-smi``), the
    PyTorch / CUDA versions, and the build of the hand-written kernels
    from ``deeplearning4j_tpu_torch/csrc`` (timed);
-2. kernels: every kernel at every shape the slice gives it (LeNet-5's
-   two convs and dense layer at the largest serving bucket, 32 rows;
-   AlexNet's five convs and two dense layers at batch 64), held against
-   its plain PyTorch version on the card, with TF32 off on both sides,
-   and timed (CUDA graphs of back-to-back launches, CUDA events) beside
-   its plain version, one PyTorch library call that computes the same
-   function (``library_ms``) and its bound on an H100 SXM;
-3. serving (the main path): ``ModelServer`` with a full-width LeNet-5
+2. kernels: every kernel at every shape the slices give it, held
+   against its plain PyTorch version on the card, with TF32 off on both
+   sides, and timed (CUDA graphs of back-to-back launches, CUDA events)
+   beside its plain version, one PyTorch library call that computes the
+   same function (``library_ms``) and its bound on an H100 SXM. The
+   forward kernels run at LeNet-5's largest serving bucket (32 rows) and
+   its training batch (256), and at AlexNet's batch of 64; the backward
+   kernels (``conv_bwd_data``, ``conv_bwd_w``) at LeNet-5's training
+   shapes (batch 256) and AlexNet's (batch 64: conv2-conv5 dx, conv1-5
+   dW, so the stride-4 and padded geometry run);
+3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
    ``/predict`` requests; every answer is checked against the plain
    path (the same weights on the CPU), the kernels' launch counters are
    zeroed just before and read just after, and latency and throughput
    are printed;
-4. AlexNet at 224x224x3 / 1000 classes through
+4. training (a main path): full-width LeNet-5 (Adam, MCXENT, batch 256)
+   fits synthetic MNIST through ``MultiLayerNetwork.fit``; one step's
+   launches are counted exactly, three steps are held against the CPU
+   twin (the plain path) and repeated bitwise, the score must fall over
+   about 50 steps, and examples/s and ms/step are printed;
+5. AlexNet at 224x224x3 / 1000 classes through
    ``MultiLayerNetwork.output``, checked against the plain path and
    timed.
 
@@ -46,6 +54,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 LENET_BUCKET = 32
+LENET_TRAIN_BATCH = 256
+LENET_TRAIN_STEPS = 50
 ALEXNET_BATCH = 64
 
 
@@ -88,6 +98,20 @@ def kernel_shapes(conf, batch):
     return out
 
 
+def backward_shapes(conf, batch):
+    """(name, kind, geometry) of the backward launches one training step
+    of ``conf`` at ``batch`` rows makes: dW for every fused conv, dx for
+    every one but the first (the network's input needs no gradient)."""
+    out = []
+    for name, kind, geo in kernel_shapes(conf, batch):
+        if kind != "conv_block":
+            continue
+        if name != "conv1":
+            out.append((name, "conv_bwd_data", geo))
+        out.append((name, "conv_bwd_w", geo))
+    return out
+
+
 def graph_ms(torch, fn, reps: int = 10) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in a
     CUDA graph, replayed until ~50 ms have run, timed with events (so
@@ -124,6 +148,89 @@ def bound(flops: float, nbytes: float):
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def conv_out(size, k, st, p):
+    return (size + 2 * p - k) // st + 1
+
+
+def useful_macs(geo):
+    """Multiply-adds of a conv that touch the input (taps that fall on
+    the padding do no work), over the whole batch."""
+    n, c, h, w_ = geo["x"]
+    o, _, kh, kw = geo["w"]
+    (sh, sw), (ph, pw) = geo["stride"], geo["padding"]
+
+    def taps(size, k, st, p):
+        return sum(1 for oy in range(conv_out(size, k, st, p))
+                   for d in range(k) if 0 <= oy * st - p + d < size)
+
+    return n * o * c * taps(h, kh, sh, ph) * taps(w_, kw, sw, pw)
+
+
+def check_bwd_kernel(torch, model, name, kind, geo, gen):
+    """A backward kernel vs its plain version on the card at ``geo``;
+    returns one record with the error, the times and the bound."""
+    from deeplearning4j_tpu_torch.ops import (
+        conv_bwd_data,
+        conv_bwd_data_reference,
+        conv_bwd_w,
+        conv_bwd_w_reference,
+    )
+
+    dev = torch.device("cuda")
+    xs, ws = tuple(geo["x"]), tuple(geo["w"])
+    st, pad = tuple(geo["stride"]), tuple(geo["padding"])
+    oh, ow = (conv_out(xs[2], ws[2], st[0], pad[0]),
+              conv_out(xs[3], ws[3], st[1], pad[1]))
+    x = torch.randn(xs, device=dev, generator=gen)
+    w = torch.randn(ws, device=dev, generator=gen) / (ws[1] * ws[2]
+                                                      * ws[3]) ** 0.5
+    dacc = torch.randn((xs[0], ws[0], oh, ow), device=dev, generator=gen)
+    if kind == "conv_bwd_data":
+        def kernel():
+            return conv_bwd_data(dacc, w, xs[2:], st, pad)
+
+        def plain():
+            return conv_bwd_data_reference(dacc, w, xs[2:], st, pad)
+
+        def library():
+            return torch.nn.grad.conv2d_input(xs, w, dacc, stride=st,
+                                              padding=pad)
+        nbytes = 4.0 * (dacc.numel() + w.numel() + x.numel())
+    else:
+        def kernel():
+            return conv_bwd_w(x, dacc, ws, st, pad)
+
+        def plain():
+            return conv_bwd_w_reference(x, dacc, ws, st, pad)
+
+        def library():
+            return torch.nn.grad.conv2d_weight(x, ws, dacc, stride=st,
+                                               padding=pad)
+        nbytes = 4.0 * (x.numel() + dacc.numel() + w.numel())
+    flops = 2.0 * useful_macs(geo)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    # f32 on both sides (TF32 off), sums in another order over up to
+    # 193,600 products of O(1) terms: held relative to the largest entry
+    torch.testing.assert_close(got, ref, rtol=0, atol=5e-5 * max(scale, 1.0))
+    again = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{model}.{name} {kind}: two launches differ")
+    ms = graph_ms(torch, kernel)
+    plain_ms = graph_ms(torch, plain)
+    library_ms = graph_ms(torch, library)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return {"kernel": kind, "shape_of": f"{model}.{name}", "x": list(xs),
+            "w": list(ws), "stride": list(st), "padding": list(pad),
+            "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "gflop": flops / 1e9, "mb": nbytes / 1e6}
 
 
 def check_kernel(torch, F, model, name, kind, geo, gen):
@@ -335,6 +442,117 @@ def serve_lenet(torch, card):
     return launches
 
 
+def train_lenet(torch, card):
+    """Full-width LeNet-5 fits synthetic MNIST on the card through
+    ``MultiLayerNetwork.fit``; returns the launch counts of that run."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * LENET_TRAIN_STEPS)
+    batches = list(data)
+    conf = lenet()
+    lr = conf.layers[0].learning_rate
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    twin = cpu_twin(torch, net)
+    print(f"[train] LeNet-5 full width ({net.num_params()} params), Adam "
+          f"lr {lr}, MCXENT, batch {LENET_TRAIN_BATCH}, synthetic MNIST "
+          f"({data.total_examples()} examples)")
+
+    # three steps on the card and on the CPU twin (the plain path). Adam
+    # moves a weight by about lr a step whatever its gradient's size, so
+    # a gradient at the f32 noise floor can move differently in the two:
+    # scores within rtol 1e-3, every weight within 3 lr, and at most 1 %
+    # of any parameter's entries beyond 1e-4 + 1e-3 |w|
+    card_scores, cpu_scores = [], []
+    for ds in batches[:3]:
+        net.fit(ds)
+        twin.fit(ds)
+        card_scores.append(net.score_value)
+        cpu_scores.append(twin.score_value)
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-3)
+    max_diff, max_off = 0.0, 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            d = (net.params[ln][pn].cpu() - ref).abs()
+            off = float((d > 1e-4 + 1e-3 * ref.abs()).float().mean())
+            max_diff, max_off = max(max_diff, float(d.max())), max(max_off,
+                                                                   off)
+            if float(d.max()) > 3 * lr or off > 0.01:
+                raise RuntimeError(f"card and CPU twin differ at {ln}/{pn}: "
+                                   f"max {float(d.max())}, {off:.2%} off")
+    # the same three steps again from the same start: the same bits
+    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    for ds in batches[:3]:
+        again.fit(ds)
+    torch.cuda.synchronize()
+    for ln, lp in net.params.items():
+        for pn, t in lp.items():
+            same = torch.equal(t, again.params[ln][pn]) and all(
+                torch.equal(a, b) for a, b in zip(
+                    net.updater_state[ln][pn], again.updater_state[ln][pn]))
+            if not same:
+                raise RuntimeError(f"two card runs differ at {ln}/{pn}")
+    # one step's launches, exactly: the forward's two convs and dense,
+    # each conv's f32 recompute, dW of both convs, dx of the second
+    dispatch.reset_launch_counts()
+    net.fit(batches[3])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    expected = {"conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
+                "matmul_block": 1}
+    if per_step != expected:
+        raise RuntimeError(f"one LeNet step launched {per_step}, expected "
+                           f"{expected}")
+
+    # the main path: a fresh network fits the iterator, timed
+    model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    probe = batches[0]
+    before = model.score(probe)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    steps = model.iteration_count
+    if launches != {k: v * steps for k, v in per_step.items()}:
+        raise RuntimeError(f"{steps} steps launched {launches}")
+    after = model.score(probe)
+    if not np.isfinite(after) or not after < 0.5 * before:
+        raise RuntimeError(f"the score did not fall: {before} -> {after}")
+    # one step's device time: the step replayed from a CUDA graph
+    step = model._train_step()
+    x = torch.from_numpy(probe.features).cuda()
+    y = torch.from_numpy(probe.labels).cuda()
+    lrs = model.updater_def.scheduled_lrs(model.iteration_count)
+    t = model.iteration_count + 1
+    device_ms = graph_ms(torch, lambda: step(
+        model.params, model.updater_state, model.state, x, y, None, lrs, t),
+        reps=3)
+    ms_per_step = wall / steps * 1e3
+    res = {"steps": steps, "batch": LENET_TRAIN_BATCH,
+           "examples_per_s": steps * LENET_TRAIN_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "score_before": before, "score_after": after,
+           "launches_per_step": per_step,
+           "twin_scores": {"card": card_scores, "cpu": cpu_scores},
+           "twin_max_abs_diff": max_diff, "twin_max_share_off": max_off}
+    print(f"[train] {json.dumps(res)} card={card}")
+    return launches
+
+
 def run_alexnet(torch, card):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
@@ -347,7 +565,8 @@ def run_alexnet(torch, card):
     out = net.output(x)
     torch.cuda.synchronize()
     per_forward = dispatch.launch_counts()
-    if per_forward != {"conv_block": 5, "matmul_block": 2}:
+    if per_forward != {"conv_block": 5, "conv_bwd_data": 0, "conv_bwd_w": 0,
+                       "matmul_block": 2}:
         raise RuntimeError(f"AlexNet forward launched {per_forward}")
     if out.shape != (ALEXNET_BATCH, 1000) or not torch.isfinite(out).all():
         raise RuntimeError(f"bad AlexNet output {tuple(out.shape)}")
@@ -381,7 +600,7 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
-    from deeplearning4j_tpu_torch.ops import _build, dispatch
+    from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.zoo import alexnet, lenet
 
     t_start = time.perf_counter()
@@ -401,32 +620,50 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for model, conf, batch in (("lenet", lenet(), LENET_BUCKET),
+                               ("lenet256", lenet(), LENET_TRAIN_BATCH),
                                ("alexnet", alexnet(), ALEXNET_BATCH)):
         for name, kind_, geo in kernel_shapes(conf, batch):
             rec = check_kernel(torch, F, model, name, kind_, geo, gen)
             records.append(rec)
             print(f"[kernel] {json.dumps(rec)}")
+    for model, conf, batch in (("lenet256", lenet(), LENET_TRAIN_BATCH),
+                               ("alexnet", alexnet(), ALEXNET_BATCH)):
+        for name, kind_, geo in backward_shapes(conf, batch):
+            rec = check_bwd_kernel(torch, model, name, kind_, geo, gen)
+            records.append(rec)
+            print(f"[kernel] {json.dumps(rec)}")
 
-    launches = serve_lenet(torch, card)
+    served = serve_lenet(torch, card)
+    trained = train_lenet(torch, card)
     run_alexnet(torch, card)
 
     kernels = []
-    sources = {"conv_block": ("deeplearning4j_tpu_torch/csrc/conv_block.cu",
-                              "deeplearning4j_tpu/ops/conv_block.py:104"),
-               "matmul_block": ("deeplearning4j_tpu_torch/csrc/"
-                                "matmul_block.cu",
-                                "deeplearning4j_tpu/ops/matmul_block.py:53")}
-    for k, (src, replaces) in sources.items():
+    csrc = "deeplearning4j_tpu_torch/csrc/"
+    # (source, TPU kernel, the main-path forward or step whose launches
+    # the times sum: LeNet's serving forward at bucket 32 for the forward
+    # kernels, one LeNet training step at batch 256 for the backward)
+    sources = {
+        "conv_block": (csrc + "conv_block.cu",
+                       "deeplearning4j_tpu/ops/conv_block.py:104", "lenet."),
+        "conv_bwd_data": (csrc + "conv_bwd.cu",
+                          "deeplearning4j_tpu/ops/conv_block.py:104",
+                          "lenet256."),
+        "conv_bwd_w": (csrc + "conv_bwd.cu",
+                       "deeplearning4j_tpu/ops/conv_block.py:184",
+                       "lenet256."),
+        "matmul_block": (csrc + "matmul_block.cu",
+                         "deeplearning4j_tpu/ops/matmul_block.py:53",
+                         "lenet."),
+    }
+    for k, (src, replaces, main_of) in sources.items():
         mine = [r for r in records if r["kernel"] == k]
-        # times: one LeNet forward's launches of this kernel at the
-        # serving bucket (the main path); error: every shape checked
-        main = [r for r in mine if r["shape_of"].startswith("lenet.")]
+        main = [r for r in mine if r["shape_of"].startswith(main_of)]
         flops = sum(r["gflop"] for r in main) * 1e9
         nbytes = sum(r["mb"] for r in main) * 1e6
         bound_ms, bound_by = bound(flops, nbytes)
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k],
+            "launches": served[k] + trained[k],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),

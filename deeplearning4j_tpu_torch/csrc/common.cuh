@@ -80,13 +80,41 @@ inline int plan_splits(long long tiles, int k_len) {
   return ceil_div(k_len, k_chunk_for(k_len, s));
 }
 
+// The conv weight gradient is the opposite case: a tiny output (LeNet's
+// first conv has 500 weights, one tile) over a huge reduction (n*oh*ow,
+// 147,456 deep at batch 256). Its own plan splits that reduction until
+// about two waves of blocks are in flight, each split at least
+// kMinRPerSplit deep, up to kMaxDwSplits; a fixed-order finish pass adds
+// the partial sums, so no atomics are needed and the result is bitwise
+// the same from run to run.
+constexpr int kMinRPerSplit = 128;
+constexpr int kMaxDwSplits = 1024;
+
+inline int plan_dw_splits(long long tiles, long long r_len) {
+  if (tiles >= kTargetBlocks || r_len < 2 * kMinRPerSplit) return 1;
+  long long s = ceil_div(kTargetBlocks, tiles);
+  const long long by_depth = r_len / kMinRPerSplit;
+  if (s > by_depth) s = by_depth;
+  if (s > kMaxDwSplits) s = kMaxDwSplits;
+  if (s < 1) s = 1;
+  const long long chunk =
+      (long long)ceil_div(ceil_div(r_len, s), kKSliceAll) * kKSliceAll;
+  return ceil_div(r_len, chunk);
+}
+
+inline long long r_chunk_for(long long r_len, int splits) {
+  return (long long)ceil_div(ceil_div(r_len, splits), kKSliceAll) *
+         kKSliceAll;
+}
+
 // Internal linkage: each kernel source gets its own copy of the finish
-// kernel, so the two objects register no shared kernel symbol.
+// kernel, so the objects register no shared kernel symbol.
 namespace {
 
 // out[i] = act(sum_z partial[z][i] * scale[ch] + shift[ch]), with
 // ch = (i / inner) % n_ch: NCHW conv output (inner = oh*ow, n_ch = o) or
-// a row-major matmul output (inner = 1, n_ch = n). scale may be null (1).
+// a row-major matmul output (inner = 1, n_ch = n). scale may be null (1),
+// and so may shift (0): the backward kernels' plain sums.
 template <typename T>
 __global__ void splitk_finish_kernel(const float* __restrict__ partial,
                                      int splits, long long total,
@@ -101,7 +129,8 @@ __global__ void splitk_finish_kernel(const float* __restrict__ partial,
     for (int s = 0; s < splits; ++s) z += partial[(long long)s * total + i];
     const int ch = (int)((i / inner) % n_ch);
     const float sc = scale != nullptr ? scale[ch] : 1.0f;
-    out[i] = from_f32<T>(apply_act(z * sc + shift[ch], act));
+    const float sf = shift != nullptr ? shift[ch] : 0.0f;
+    out[i] = from_f32<T>(apply_act(z * sc + sf, act));
   }
 }
 

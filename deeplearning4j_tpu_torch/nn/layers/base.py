@@ -9,14 +9,16 @@ packages unchanged.
 Contract:
 - ``init_params(gen, dtype) -> {name: tensor}`` on the CPU generator,
   named like the reference's param keys (``"W"``, ``"b"``).
-- ``apply(params, x, state) -> (y, state)``: the inference forward.
-  Dropout is the identity at inference, so the port's layers keep the
-  ``dropout`` field for the configuration and apply nothing; training
-  arrives with the training slice.
+- ``apply(params, x, state, *, train=False, gen=None) -> (y, state)``:
+  the forward; with ``train`` it is differentiable (autograd through
+  the kernels' backward). ``gen`` is the explicit ``torch.Generator``
+  that dropout will draw from. Dropout and drop-connect train with the
+  AlexNet-training slice: a training forward of a layer that sets a
+  dropout rate raises (``check_train``) instead of ignoring it.
 - ``output_type(input)`` / ``with_input_type(input)`` implement the
   reference's InputType shape inference.
-- Training hyperparameters (updater, learning rate, ...) are parsed and
-  kept, and not used yet.
+- ``updater_settings()`` / ``regularizable_params()``: what the updater
+  and the L1/L2 penalty read.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.updaters import UpdaterSettings
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
 LAYER_REGISTRY: Dict[str, Type["LayerSpec"]] = {}
@@ -103,8 +106,7 @@ class LayerSpec:
     bias_init: float = 0.0
     dropout: float = 0.0
     drop_connect: bool = False
-    # optimizer settings (per-layer overrides), kept for the training
-    # slice and for the configuration's JSON
+    # optimizer settings (per-layer overrides)
     updater: str = "SGD"
     learning_rate: float = 0.1
     bias_learning_rate: float | None = None
@@ -142,13 +144,52 @@ class LayerSpec:
     def init_state(self, dtype=torch.float32) -> dict:
         return {}
 
+    def regularizable_params(self) -> tuple:
+        return ("W",)
+
     # -- forward -----------------------------------------------------------
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False, gen=None):
         raise NotImplementedError
+
+    def check_train(self, train: bool) -> None:
+        """Dropout (on the input, or on the weights with drop-connect)
+        is not ported yet: refuse to train such a layer rather than
+        train it without its regularization."""
+        if train and self.dropout > 0.0:
+            kind = "drop-connect" if self.drop_connect else "dropout"
+            raise NotImplementedError(
+                f"{type(self).__name__} '{self.name}': training with "
+                f"{kind} (rate {self.dropout}) arrives with the "
+                "AlexNet-training slice"
+            )
 
     def activate_fn(self):
         return activations.get(self.activation)
+
+    def updater_settings(self) -> UpdaterSettings:
+        return UpdaterSettings(
+            updater=self.updater,
+            learning_rate=self.learning_rate,
+            bias_learning_rate=self.bias_learning_rate,
+            momentum=self.momentum,
+            adam_mean_decay=self.adam_mean_decay,
+            adam_var_decay=self.adam_var_decay,
+            rho=self.rho,
+            rms_decay=self.rms_decay,
+            epsilon=self.epsilon,
+            l1=self.l1,
+            l2=self.l2,
+            gradient_normalization=self.gradient_normalization,
+            gradient_normalization_threshold=(
+                self.gradient_normalization_threshold),
+            lr_policy=self.lr_policy,
+            lr_policy_decay_rate=self.lr_policy_decay_rate,
+            lr_policy_steps=self.lr_policy_steps,
+            lr_policy_power=self.lr_policy_power,
+            lr_schedule=self.lr_schedule,
+            regularizable=self.regularizable_params(),
+        )
 
     def has_loss(self) -> bool:
         return False

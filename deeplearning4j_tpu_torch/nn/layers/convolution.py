@@ -4,9 +4,12 @@ Counterpart of ``deeplearning4j_tpu/nn/layers/convolution.py`` for
 ``ConvolutionLayer`` and ``SubsamplingLayer``. Activations are NCHW and
 conv weights OIHW ``[n_out, n_in, kh, kw]``, so checkpoints map 1:1.
 ``ConvolutionLayer`` routes to the fused ``conv_block`` kernel when its
-activation is one of the kernel's epilogues. Pooling stays plain
-PyTorch, as it stays plain XLA in the JAX package: MAX pads with -inf,
-AVG divides by kh*kw with the padding counted, SUM is AVG's sum.
+activation is one of the kernel's epilogues, in training too (its
+backward is the kernels' backward). Pooling stays plain PyTorch, as it
+stays plain XLA in the JAX package: MAX pads with -inf, AVG divides by
+kh*kw with the padding counted, SUM is AVG's sum. MAX's gradient goes
+to the first maximum of a window in row-major order, as the VJP of
+XLA's ``reduce_window`` max does.
 BatchNormalization and LRN come with the VGG-16 slice.
 """
 
@@ -74,7 +77,8 @@ class ConvolutionLayer(LayerSpec):
                         stride=_pair(self.stride),
                         padding=_pair(self.padding))
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        self.check_train(train)
         act = self.activation.lower()
         if x.dim() == 4 and act in SUPPORTED_EPILOGUES:
             return conv_block(x, params["W"], params["b"],
@@ -108,7 +112,8 @@ class SubsamplingLayer(LayerSpec):
             it.channels,
         )
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        self.check_train(train)
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         ph, pw = _pair(self.padding)

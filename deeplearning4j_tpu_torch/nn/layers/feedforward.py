@@ -6,7 +6,8 @@ activation is one of the kernel's epilogues; the softmax
 ``OutputLayer`` keeps its pre-output product on ``torch.addmm`` (the
 JAX package leaves it to XLA: the row-wise softmax is no per-element
 epilogue), followed by the plain softmax. ``W`` is ``[n_in, n_out]``
-and ``y = x @ W + b``, as in the JAX package.
+and ``y = x @ W + b``, as in the JAX package. An output layer scores
+its pre-output with its loss (``compute_score``, ``nn/losses.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.layers.base import (
     FeedForwardLayerSpec,
     register_layer,
@@ -40,7 +42,8 @@ class DenseLayer(FeedForwardLayerSpec):
     def pre_output(self, params, x):
         return torch.addmm(params["b"], x, params["W"])
 
-    def apply(self, params, x, state):
+    def apply(self, params, x, state, *, train=False, gen=None):
+        self.check_train(train)
         act = self.activation.lower()
         if x.dim() == 2 and act in SUPPORTED_EPILOGUES:
             return matmul_block(x, params["W"], params["b"],
@@ -57,11 +60,16 @@ class BaseOutputLayerSpec(DenseLayer):
     def has_loss(self) -> bool:
         return True
 
+    def compute_score(self, params, x, labels, mask=None, average=True):
+        return losses_mod.score(self.loss, labels,
+                                self.pre_output(params, x),
+                                self.activation, mask, average)
+
 
 @register_layer
 @dataclass(frozen=True)
 class OutputLayer(BaseOutputLayerSpec):
-    """Standard classification/regression head. Default softmax+MCXENT
-    (the loss is kept for the training slice)."""
+    """Standard classification/regression head. Default
+    softmax+MCXENT."""
 
     activation: str = "softmax"

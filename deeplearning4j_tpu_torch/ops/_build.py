@@ -28,7 +28,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("conv_block.cu", "matmul_block.cu")
+SOURCES = ("conv_block.cu", "conv_bwd.cu", "matmul_block.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -106,6 +106,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_conv_block.restype = i
     lib.dl4j_conv_block_splits.argtypes = [i] * 7
     lib.dl4j_conv_block_splits.restype = i
+    for name in ("dl4j_conv_bwd_data", "dl4j_conv_bwd_w"):
+        getattr(lib, name).argtypes = [p] * 4 + [i] * 14 + [p]
+        getattr(lib, name).restype = i
+    lib.dl4j_conv_bwd_data_splits.argtypes = [i] * 7
+    lib.dl4j_conv_bwd_data_splits.restype = i
+    lib.dl4j_conv_bwd_w_splits.argtypes = [i] * 7
+    lib.dl4j_conv_bwd_w_splits.restype = i
     lib.dl4j_matmul_block.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.dl4j_matmul_block.restype = i
     lib.dl4j_matmul_block_splits.argtypes = [i] * 3

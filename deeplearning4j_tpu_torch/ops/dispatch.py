@@ -16,7 +16,7 @@ import torch
 # Launch counters, one plain integer per kernel wrapper. A wrapper adds
 # one where it launches its kernel and nowhere else, so a run can show
 # that its main path went through the kernels.
-KERNELS = ("conv_block", "matmul_block")
+KERNELS = ("conv_block", "conv_bwd_data", "conv_bwd_w", "matmul_block")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

@@ -11,8 +11,12 @@ scratch that the wrapper allocates (``_build.split_scratch``).
 
 ``matmul_block`` launches the kernel for a CUDA tensor and runs
 ``matmul_block_reference`` (the plain PyTorch version) for a CPU one.
-The residual variant of the TPU kernel has no caller yet and is not
-ported in this slice; a CUDA input that requires a gradient raises.
+When a gradient is wanted both run through ``_MatmulBlockFn``, whose
+backward is plain PyTorch through the reference math, as the JAX
+package's (``_matmul_block_bwd`` is ``jax.vjp`` of its XLA reference):
+recompute ``z = x @ w + b`` in f32, ``dz = g * act'(z)`` with relu's
+0.5 at z == 0, then ``dx = dz wᵀ``, ``dW = xᵀ dz``, ``db = Σ dz``. The
+residual variant of the TPU kernel has no caller yet and is not ported.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import _build, dispatch
 from deeplearning4j_tpu_torch.ops.conv_block import (
+    _EPILOGUE_GRADS,
     _EPILOGUES,
     EPILOGUE_CODES,
     check_epilogue,
-    check_inference_only,
     check_kernel_operand,
+    check_trainable,
+    wants_grad,
 )
 
 
@@ -37,38 +43,28 @@ def _bias_f32(b, n: int, device) -> torch.Tensor:
     return b.to(torch.float32).contiguous()
 
 
-def matmul_block_reference(x, w, b=None, *, activation="identity"):
-    """The plain PyTorch version: same semantics as the kernel (f32
-    sum, f32 epilogue, one final cast), on any device."""
-    check_epilogue("matmul_block", activation)
+def _plain_z(x, w, bias):
     xf, wf = x, w
     if x.dtype != torch.float32:
         xf, wf = x.float(), w.float()
-    z = torch.matmul(xf, wf) + _bias_f32(b, int(w.shape[1]), x.device)
-    return _EPILOGUES[activation](z).to(x.dtype)
+    return torch.matmul(xf, wf) + bias
 
 
-def matmul_block(x: torch.Tensor, w: torch.Tensor,
-                 b: Optional[torch.Tensor] = None, *,
-                 activation: str = "identity") -> torch.Tensor:
-    """Fused ``activation(x @ w + b)``: the CUDA kernel for a CUDA
-    ``x``, the plain version for a CPU one."""
-    check_epilogue("matmul_block", activation)
-    if not dispatch.is_kernel_tensor(x):
-        return matmul_block_reference(x, w, b, activation=activation)
+def _plain_forward(x, w, bias, activation):
+    return _EPILOGUES[activation](_plain_z(x, w, bias)).to(x.dtype)
+
+
+def _kernel_forward(x, w, bias, activation):
     kernel = "matmul_block"
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{kernel}: unsupported dtype {x.dtype}")
     check_kernel_operand(kernel, "x", x, x.device, x.dtype, 2)
     check_kernel_operand(kernel, "w", w, x.device, x.dtype, 2)
-    check_inference_only(kernel, x, w, b)
     m, k = (int(v) for v in x.shape)
     wk, n = (int(v) for v in w.shape)
     if wk != k:
         raise ValueError(f"{kernel}: x is [{m}, {k}] but w is [{wk}, {n}]")
-    if b is not None and (b.device != x.device or b.numel() != n):
-        raise ValueError(f"{kernel}: b must hold {n} values on {x.device}")
-    bias = _bias_f32(b, n, x.device)
+    check_kernel_operand(kernel, "b", bias, x.device, torch.float32, 1)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load()
     splits = lib.dl4j_matmul_block_splits(m, k, n)
@@ -82,3 +78,61 @@ def matmul_block(x: torch.Tensor, w: torch.Tensor,
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)
     return out
+
+
+class _MatmulBlockFn(torch.autograd.Function):
+    """The fused dense epilogue with the reference math's backward;
+    ``kernels`` picks the CUDA kernel or the plain version forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation, kernels):
+        ctx.save_for_backward(x, w, bias)
+        ctx.activation = activation
+        fwd = _kernel_forward if kernels else _plain_forward
+        return fwd(x, w, bias, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        f32 = torch.float32
+        xf, wf = x.to(f32), w.to(f32)
+        dz = g.to(f32) * _EPILOGUE_GRADS[ctx.activation](_plain_z(xf, wf,
+                                                                  bias))
+        dx = torch.matmul(dz, wf.t()).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        dw = torch.matmul(xf.t(), dz).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        db = dz.sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None
+
+
+def _matmul(x, w, b, activation, kernels: bool):
+    check_epilogue("matmul_block", activation)
+    n = int(w.shape[1])
+    if kernels and b is not None and (b.device != x.device
+                                      or b.numel() != n):
+        raise ValueError(f"matmul_block: b must hold {n} values on "
+                         f"{x.device}")
+    bias = _bias_f32(b, n, x.device)
+    if not wants_grad(x, w, bias):
+        fwd = _kernel_forward if kernels else _plain_forward
+        return fwd(x, w, bias, activation)
+    if kernels:
+        check_trainable("matmul_block", x)
+    return _MatmulBlockFn.apply(x, w, bias, activation, kernels)
+
+
+def matmul_block_reference(x, w, b=None, *, activation="identity"):
+    """The plain PyTorch version: same semantics as the kernel (f32
+    sum, f32 epilogue, one final cast, the same backward), on any
+    device."""
+    return _matmul(x, w, b, activation, kernels=False)
+
+
+def matmul_block(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, *,
+                 activation: str = "identity") -> torch.Tensor:
+    """Fused ``activation(x @ w + b)``: the CUDA kernel for a CUDA
+    ``x``, the plain version for a CPU one. Differentiable in x, w
+    and b."""
+    return _matmul(x, w, b, activation, kernels=dispatch.is_kernel_tensor(x))

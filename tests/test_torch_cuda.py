@@ -9,7 +9,10 @@ JAX):
 Tolerances: f32 kernels sum in another order than cuDNN / cuBLAS (both
 run in full f32 here: TF32 is switched off), so agreement is to f32
 rounding of sums up to 9216 terms (rtol/atol 1e-4 on O(1) outputs);
-bf16 inputs round once on the store, so bf16 eps (2e-2).
+bf16 inputs round once on the store, so bf16 eps (2e-2). The weight
+gradient sums up to 147,456 products of O(1) terms, so it is held
+relative to the largest entry (f32 eps times the depth's square root,
+about 5e-5 of the scale).
 """
 
 import numpy as np
@@ -20,6 +23,10 @@ from deeplearning4j_tpu_torch.ops import (
     SUPPORTED_EPILOGUES,
     conv_block,
     conv_block_reference,
+    conv_bwd_data,
+    conv_bwd_data_reference,
+    conv_bwd_w,
+    conv_bwd_w_reference,
     dispatch,
     matmul_block,
     matmul_block_reference,
@@ -155,10 +162,7 @@ def test_matmul_block_kernel_bf16_and_no_bias(cuda):
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
-    x = torch.randn(4, 8, device=cuda, requires_grad=True)
     w = torch.randn(8, 3, device=cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        matmul_block(x, w)
     with pytest.raises(ValueError, match="contiguous"):
         matmul_block(torch.randn(8, 4, device=cuda).t(), w)
     with pytest.raises(TypeError):
@@ -167,3 +171,179 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="channels"):
         conv_block(torch.randn(1, 3, 8, 8, device=cuda),
                    torch.randn(4, 2, 3, 3, device=cuda))
+
+
+# the backward kernels: CONV_CASES plus stride-2 and ragged geometry
+# (maps and channel counts off the 64-wide tiles, remainder rows the
+# strided forward never read), and LeNet's training shapes at batch 256
+BWD_CASES = CONV_CASES + [
+    ((3, 6, 11, 10), (9, 6, 3, 3), 2, 1),
+    ((2, 5, 12, 9), (70, 5, 4, 3), (2, 3), (1, 0)),
+    ((256, 1, 28, 28), (20, 1, 5, 5), 1, 0),
+    ((256, 20, 12, 12), (50, 20, 5, 5), 1, 0),
+]
+
+
+def _bwd_operands(xs, ws, stride, padding, seed):
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        _pair,
+        conv_output_size,
+    )
+
+    rng = np.random.RandomState(seed)
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    oh = conv_output_size(xs[2], ws[2], sh, ph)
+    ow = conv_output_size(xs[3], ws[3], sw, pw)
+    x = _t(rng.randn(*xs), "cuda")
+    w = _t(rng.randn(*ws) / np.sqrt(ws[1] * ws[2] * ws[3]), "cuda")
+    dacc = _t(rng.randn(xs[0], ws[0], oh, ow), "cuda")
+    return x, w, dacc
+
+
+def _close_to_scale(got, ref, rel):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=rel * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", BWD_CASES)
+def test_conv_bwd_data_kernel_matches_plain(cuda, xs, ws, stride, padding):
+    x, w, dacc = _bwd_operands(xs, ws, stride, padding, 5)
+    before = dispatch.launch_counts()["conv_bwd_data"]
+    got = conv_bwd_data(dacc, w, xs[2:], stride, padding)
+    ref = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_bwd_data"] == before + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    _close_to_scale(got, ref, 5e-5)
+    lib = torch.nn.grad.conv2d_input(xs, w, dacc, stride=stride,
+                                     padding=padding)
+    _close_to_scale(got, lib, 5e-5)
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", BWD_CASES)
+def test_conv_bwd_w_kernel_matches_plain(cuda, xs, ws, stride, padding):
+    x, w, dacc = _bwd_operands(xs, ws, stride, padding, 6)
+    before = dispatch.launch_counts()["conv_bwd_w"]
+    got = conv_bwd_w(x, dacc, ws, stride, padding)
+    ref = conv_bwd_w_reference(x, dacc, ws, stride, padding)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_bwd_w"] == before + 1
+    assert tuple(got.shape) == ws and got.dtype == torch.float32
+    _close_to_scale(got, ref, 5e-5)
+    lib = torch.nn.grad.conv2d_weight(x, ws, dacc, stride=stride,
+                                      padding=padding)
+    _close_to_scale(got, lib, 5e-5)
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", [BWD_CASES[1],
+                                                  BWD_CASES[-2]])
+def test_conv_bwd_kernels_are_bitwise_deterministic(cuda, xs, ws, stride,
+                                                    padding):
+    x, w, dacc = _bwd_operands(xs, ws, stride, padding, 7)
+    dx = [conv_bwd_data(dacc, w, xs[2:], stride, padding) for _ in range(2)]
+    dw = [conv_bwd_w(x, dacc, ws, stride, padding) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dx[0], dx[1])
+    assert torch.equal(dw[0], dw[1])
+
+
+@pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
+def test_conv_block_grads_match_plain_and_count_launches(cuda, activation):
+    rng = np.random.RandomState(8)
+    x0 = rng.rand(4, 3, 12, 12)
+    x0[0, :, :6, :6] = 0.0   # all-zero windows: z == 0 with zero bias
+    w0 = rng.randn(6, 3, 3, 3) * 0.3
+    g0 = rng.randn(4, 6, 12, 12)
+    grads = []
+    for fn in (conv_block, conv_block_reference):
+        x = _t(x0, cuda).requires_grad_(True)
+        w = _t(w0, cuda).requires_grad_(True)
+        b = torch.zeros(6, device=cuda, requires_grad=True)
+        dispatch.reset_launch_counts()
+        y = fn(x, w, b, stride=(1, 1), padding=(1, 1), activation=activation)
+        y.backward(_t(g0, cuda))
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        grads.append((x.grad, w.grad, b.grad))
+        if fn is conv_block:
+            assert counts == {"conv_block": 2, "conv_bwd_data": 1,
+                              "conv_bwd_w": 1, "matmul_block": 0}
+        else:
+            assert sum(counts.values()) == 0
+    for got, ref in zip(*grads):
+        _close_to_scale(got, ref, 5e-5)
+
+
+def test_conv_block_skips_dx_when_x_needs_none(cuda):
+    x = torch.rand(2, 1, 28, 28, device=cuda)
+    w = torch.randn(20, 1, 5, 5, device=cuda, requires_grad=True)
+    dispatch.reset_launch_counts()
+    conv_block(x, w, activation="relu").sum().backward()
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_bwd_data"] == 0
+    assert dispatch.launch_counts()["conv_bwd_w"] == 1
+    assert w.grad is not None
+
+
+def test_half_precision_training_raises_on_the_card(cuda):
+    x = torch.randn(2, 3, 8, 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(4, 3, 3, 3, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="mixed-precision"):
+        conv_block(x, w, activation="relu")
+    with pytest.raises(NotImplementedError, match="mixed-precision"):
+        matmul_block(x.reshape(2, -1), torch.randn(
+            192, 3, device=cuda, dtype=torch.bfloat16, requires_grad=True))
+
+
+def test_matmul_block_grads_match_plain(cuda):
+    rng = np.random.RandomState(9)
+    x0, w0 = rng.randn(64, 800), rng.randn(800, 512) * 0.03
+    grads = []
+    for fn in (matmul_block, matmul_block_reference):
+        x = _t(x0, cuda).requires_grad_(True)
+        w = _t(w0, cuda).requires_grad_(True)
+        b = torch.zeros(512, device=cuda, requires_grad=True)
+        fn(x, w, b, activation="relu").sum().backward()
+        grads.append((x.grad, w.grad, b.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_lenet_fit_step_on_the_card_matches_the_cpu_twin(cuda):
+    """One full-width LeNet-5 step (batch 256, Adam, MCXENT) through
+    ``fit`` on the card, with exact launch counts, against the same step
+    on the CPU (the plain path). Adam moves each weight by about lr at
+    step 1 whatever the gradient's size, so a gradient at the f32 noise
+    floor can move differently: weights are held at atol lr / 50 and
+    at most 1 % of any parameter's entries may exceed rtol 1e-4 /
+    atol 1e-5."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        ds = next(iter(MnistDataSetIterator(256, num_examples=256,
+                                            allow_synthetic=True)))
+    net = MultiLayerNetwork(lenet(), device=cuda).init()
+    twin = MultiLayerNetwork(lenet(), device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts() == {
+        "conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
+        "matmul_block": 1}
+    twin.fit(ds)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    lr = 0.01
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            got = net.params[ln][pn].cpu()
+            torch.testing.assert_close(got, ref, rtol=0, atol=lr / 50)
+            off = (got - ref).abs() > 1e-5 + 1e-4 * ref.abs()
+            assert float(off.float().mean()) <= 0.01, (ln, pn)

@@ -87,4 +87,6 @@ def test_cpu_forward_launches_no_kernel():
     dispatch.reset_launch_counts()
     net = MultiLayerNetwork(lenet(dense_width=16), device="cpu").init()
     net.output(torch.zeros(1, 784))
-    assert dispatch.launch_counts() == {"conv_block": 0, "matmul_block": 0}
+    assert dispatch.launch_counts() == {
+        "conv_block": 0, "conv_bwd_data": 0, "conv_bwd_w": 0,
+        "matmul_block": 0}

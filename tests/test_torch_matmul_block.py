@@ -101,3 +101,38 @@ def test_unknown_epilogue_raises():
     x, w, b = (torch.from_numpy(a) for a in _data(4, 6, 5))
     with pytest.raises(ValueError, match="unsupported epilogue"):
         matmul_block(x, w, b, activation="softmax")
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES[:2])
+@pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
+def test_matmul_block_grads_match_jax(m, k, n, activation):
+    """dx, dW and db against the JAX Pallas route (its backward is
+    jax.vjp of the XLA reference math), relu's z == 0 tie included:
+    some rows of x are zero and the bias is zero on half the columns."""
+    import jax
+
+    x, w, b = _data(m, k, n, seed=2)
+    x[::3] = 0.0
+    b[: n // 2] = 0.0
+    g = np.random.RandomState(3).randn(m, n).astype(np.float32)
+
+    def f(*a):
+        return jnp.sum(jax_mm_block(*a, activation=activation,
+                                    interpret=True) * jnp.asarray(g))
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, w, b)))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, b)]
+    matmul_block(*ts, activation=activation).backward(torch.from_numpy(g))
+    rtol, atol = kernel_tols()
+    for name, t, r in zip(("x", "w", "b"), ts, ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+def test_matmul_block_relu_tie_takes_half_the_gradient():
+    x = torch.zeros(2, 3, requires_grad=True)
+    w = torch.ones(3, 4, requires_grad=True)
+    b = torch.zeros(4, requires_grad=True)
+    matmul_block(x, w, b, activation="relu").sum().backward()
+    np.testing.assert_array_equal(b.grad.numpy(), np.full(4, 1.0))
+    np.testing.assert_array_equal(x.grad.numpy(), np.full((2, 3), 2.0))

@@ -184,7 +184,9 @@ def test_dense_without_epilogue_takes_plain_path():
     np.testing.assert_allclose(net.output(x).numpy(),
                                np.asarray(jnet.output(x)),
                                rtol=rtol, atol=atol)
-    assert dispatch.launch_counts() == {"conv_block": 0, "matmul_block": 0}
+    assert dispatch.launch_counts() == {
+        "conv_block": 0, "conv_bwd_data": 0, "conv_bwd_w": 0,
+        "matmul_block": 0}
 
 
 def test_checkpoint_from_port_restores_in_jax(tmp_path):
