@@ -41,6 +41,7 @@ a CUDA device, and when the port's package is not beside it.
 """
 
 import http.client
+import importlib
 import json
 import subprocess
 import sys
@@ -57,6 +58,53 @@ LENET_BUCKET = 32
 LENET_TRAIN_BATCH = 256
 LENET_TRAIN_STEPS = 50
 ALEXNET_BATCH = 64
+
+# the GravesLSTM char-RNN (BASELINE.json config #3, bench.py:533)
+CHAR_VOCAB = 77
+CHAR_HIDDEN = 200
+CHAR_BATCH = 32
+CHAR_SEGMENT = 200
+CHAR_TBPTT = 50
+CHAR_MINIBATCHES = 24
+CHAR_SAMPLE = 200
+# bench.py:596's saturated LSTM shape
+SATURATED = (128, 256, 1024)
+
+
+def survey_corpus(vocab=CHAR_VOCAB):
+    """The char-RNN's training text: the characters of ``SURVEY.md``
+    (beside this script) as ids. The ``vocab - 1`` most frequent
+    characters (ties by code point) map to ids 0 .. vocab - 2 in that
+    order, every other character to ``vocab - 1``. Returns ``(ids,
+    alphabet)``."""
+    from collections import Counter
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parent / "SURVEY.md").read_text(
+        encoding="utf-8")
+    counts = Counter(text)
+    alphabet = sorted(counts, key=lambda ch: (-counts[ch], ch))[:vocab - 1]
+    index = {ch: i for i, ch in enumerate(alphabet)}
+    ids = np.array([index.get(ch, vocab - 1) for ch in text], np.int64)
+    return ids, alphabet
+
+
+def char_batches(ids, batch, length, n_batches, seed, vocab=CHAR_VOCAB):
+    """``n_batches`` minibatches of ``batch`` segments of ``length``
+    characters at seeded random offsets, one-hot ``[batch, vocab,
+    length]``; the labels are each position's next character."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    out = []
+    for _ in range(n_batches):
+        starts = rng.randint(0, len(ids) - length - 1, batch)
+        seg = np.stack([ids[s:s + length + 1] for s in starts])
+        out.append(DataSet(
+            np.ascontiguousarray(eye[seg[:, :-1]].transpose(0, 2, 1)),
+            np.ascontiguousarray(eye[seg[:, 1:]].transpose(0, 2, 1))))
+    return out
 
 
 def card_line() -> str:
@@ -509,7 +557,8 @@ def train_lenet(torch, card):
     torch.cuda.synchronize()
     per_step = dispatch.launch_counts()
     expected = {"conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
-                "matmul_block": 1}
+                "matmul_block": 1, "lstm_cell": 0, "lstm_seq_fwd": 0,
+                "lstm_seq_bwd": 0}
     if per_step != expected:
         raise RuntimeError(f"one LeNet step launched {per_step}, expected "
                            f"{expected}")
@@ -566,7 +615,8 @@ def run_alexnet(torch, card):
     torch.cuda.synchronize()
     per_forward = dispatch.launch_counts()
     if per_forward != {"conv_block": 5, "conv_bwd_data": 0, "conv_bwd_w": 0,
-                       "matmul_block": 2}:
+                       "matmul_block": 2, "lstm_cell": 0, "lstm_seq_fwd": 0,
+                       "lstm_seq_bwd": 0}:
         raise RuntimeError(f"AlexNet forward launched {per_forward}")
     if out.shape != (ALEXNET_BATCH, 1000) or not torch.isfinite(out).all():
         raise RuntimeError(f"bad AlexNet output {tuple(out.shape)}")
@@ -590,6 +640,427 @@ def run_alexnet(torch, card):
            "launches_per_forward": per_forward,
            "max_abs_err_vs_plain": err, "params": net.num_params()}
     print(f"[alexnet] {json.dumps(res)} card={card}")
+
+
+def events_ms(torch, fn, reps: int = 20):
+    """Device time of one ``fn()`` call over ``reps`` back-to-back calls
+    timed with CUDA events, and the host's time to enqueue one: for
+    calls of a millisecond or so, no graph needed. The device time
+    holds while the host enqueues a call faster than the card runs it
+    (the second number says so)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def lstm_work(kind, T, b, n, variant):
+    """(FLOPs, bytes) an LSTM kernel launch needs: the FMAs of h @ RW
+    (and, backward, of dz @ RW^T) as 2 operations each, the gate
+    arithmetic left out (under 2 % at n 200); each input read once and
+    each output written once, in f32."""
+    step = 2.0 * b * n * 4 * n
+    if kind == "lstm_cell":
+        words = (b * 4 * n + 2 * b * n + n * 4 * n + 2 * b * n
+                 + (3 * n if variant == "peephole" else 0))
+        return step, 4.0 * words
+    if kind == "lstm_seq_fwd":
+        outs = T * b * n * (2 if variant == "c_seq" else 1) + 2 * b * n
+        return T * step, 4.0 * (T * b * 4 * n + n * 4 * n + 2 * b * n + outs)
+    words = (T * b * 4 * n + 4 * T * b * n + n * 4 * n + 2 * b * n  # in
+             + T * b * 4 * n + 2 * b * n)                          # out
+    return 2.0 * T * step, 4.0 * words
+
+
+def close_to_scale(torch, got, ref, rel: float) -> float:
+    """Hold ``got`` to ``ref`` within ``rel`` of ref's largest entry;
+    returns the largest absolute difference."""
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=rel * max(scale, 1.0))
+    return float((got - ref).abs().max())
+
+
+def check_lstm_kernels(torch, model, T, b, n, gen):
+    """The three LSTM kernels (both variants of the cell and of the
+    sequence forward) against their plain versions on the card at (T, b,
+    n), timed; returns one record each."""
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_cell,
+        lstm_cell_reference,
+        lstm_seq_bwd,
+        lstm_seq_bwd_reference,
+        lstm_seq_fwd,
+        lstm_seq_fwd_reference,
+    )
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_plan
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    xproj = randn(T, b, 4 * n, scale=0.5)
+    h0, c0 = randn(b, n, scale=0.1), randn(b, n, scale=0.1)
+    rw = randn(n, 4 * n, scale=n ** -0.5)
+    peeps = tuple(randn(n, scale=0.1) for _ in range(3))
+    hseq, cseq, _, _ = lstm_seq_fwd_reference(xproj, h0, c0, rw)
+    hprev = torch.cat([h0[None], hseq[:-1]]).contiguous()
+    cprev = torch.cat([c0[None], cseq[:-1]]).contiguous()
+    dhseq = randn(T, b, n)
+    dhT, dcT = randn(b, n), randn(b, n)
+    bwd_args = (xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT)
+    cases = []
+    for variant, p in (("plain", None), ("peephole", peeps)):
+        cases.append(("lstm_cell", variant,
+                      lambda p=p: lstm_cell(xproj[0], h0, c0, rw, p),
+                      lambda p=p: lstm_cell_reference(xproj[0], h0, c0, rw,
+                                                      p)))
+    for variant, save in (("c_seq", True), ("no_c_seq", False)):
+        cases.append(("lstm_seq_fwd", variant,
+                      lambda s=save: lstm_seq_fwd(xproj, h0, c0, rw, s),
+                      lambda s=save: lstm_seq_fwd_reference(xproj, h0, c0,
+                                                            rw, s)))
+    cases.append(("lstm_seq_bwd", "", lambda: lstm_seq_bwd(*bwd_args),
+                  lambda: lstm_seq_bwd_reference(*bwd_args)))
+    records = []
+    for kind, variant, kernel, plain in cases:
+        with torch.inference_mode():
+            got, ref, again = kernel(), plain(), kernel()
+            torch.cuda.synchronize()
+            # f32 on both sides (TF32 off); sums of up to n O(1) products
+            # in another order, carried through T steps: held within 1e-4
+            # of each output's largest entry
+            err = max(close_to_scale(torch, a, r, 1e-4)
+                      for a, r in zip(got, ref) if r is not None)
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)
+                       if a is not None):
+                raise RuntimeError(f"{model} {kind}: two launches differ")
+            if kind == "lstm_cell":
+                ms, host_ms = graph_ms(torch, kernel), None
+            else:
+                ms, host_ms = events_ms(torch, kernel)
+            plain_ms = graph_ms(torch, plain, reps=1)
+        flops, nbytes = lstm_work(kind, T, b, n, variant)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rec = {"kernel": kind, "variant": variant, "shape_of": model,
+               "T": T if kind != "lstm_cell" else 1, "b": b, "n": n,
+               "max_abs_err": err, "kernel_ms": ms,
+               "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "gflop": flops / 1e9,
+               "mb": nbytes / 1e6}
+        if kind != "lstm_cell":
+            rec["plan"] = lstm_seq_plan(b, n, bwd=kind == "lstm_seq_bwd")
+        records.append(rec)
+    return records
+
+
+def lstm_layer_vs_cudnn(torch, model, T, b, n_in, n, gen):
+    """Layer-level yardstick: the port's no-peephole GravesLSTM (the
+    input projection plus the sequence kernels) against one
+    ``torch.nn.LSTM`` (cuDNN, TF32 off) on the same weights, the gates
+    permuted from i, f, o, g to cuDNN's i, f, g, o and ``b_hh`` zero.
+    Forward times, and backward times of a retained graph (dx and every
+    weight's gradient)."""
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
+
+    dev = torch.device("cuda")
+    layer = GravesLSTM(n_in=n_in, n_out=n, peephole=False)
+    params = {k: v.to(dev) for k, v in layer.init_params(
+        torch.Generator().manual_seed(0)).items()}
+    x = torch.randn((b, n_in, T), device=dev, generator=gen)
+    lstm = torch.nn.LSTM(n_in, n).to(dev)
+    cols = torch.cat([torch.arange(0, 2 * n), torch.arange(3 * n, 4 * n),
+                      torch.arange(2 * n, 3 * n)]).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(params["W"][:, cols].t())
+        lstm.weight_hh_l0.copy_(params["RW"][:, cols].t())
+        lstm.bias_ih_l0.copy_(params["b"][cols])
+        lstm.bias_hh_l0.zero_()
+    x_tbi = x.permute(2, 0, 1).contiguous()
+    with torch.inference_mode():
+        ours = layer.apply(params, x, {})[0]
+        lib = lstm(x_tbi)[0].permute(1, 2, 0)
+        err = close_to_scale(torch, ours, lib, 1e-4)
+        port_fwd, _ = events_ms(torch, lambda: layer.apply(params, x, {}))
+        cudnn_fwd, _ = events_ms(torch, lambda: lstm(x_tbi))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xg = x.clone().requires_grad_(True)
+    y = layer.apply(leaves, xg, {}, train=True)[0]
+    g = torch.randn(y.shape, device=dev, generator=gen)
+    port_bwd, _ = events_ms(torch, lambda: torch.autograd.grad(
+        y, [xg, *leaves.values()], g, retain_graph=True))
+    xl = x_tbi.clone().requires_grad_(True)
+    out = lstm(xl)[0]
+    gl = g.permute(2, 0, 1).contiguous()
+    cudnn_bwd, _ = events_ms(torch, lambda: torch.autograd.grad(
+        out, [xl, *lstm.parameters()], gl, retain_graph=True))
+    return {"shape_of": model, "T": T, "b": b, "n_in": n_in, "n": n,
+            "max_abs_err_vs_cudnn": err, "port_fwd_ms": port_fwd,
+            "cudnn_fwd_ms": cudnn_fwd, "port_bwd_ms": port_bwd,
+            "cudnn_bwd_ms": cudnn_bwd}
+
+
+def charrnn_conf(peephole: bool):
+    """BASELINE.json config #3 as the zoo builds it (peepholes), or the
+    same widths with ``GravesLSTM(peephole=False)``."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.zoo import graves_lstm_char_rnn
+
+    if peephole:
+        return graves_lstm_char_rnn(vocab=CHAR_VOCAB, hidden=CHAR_HIDDEN,
+                                    tbptt_length=CHAR_TBPTT)
+    b = (NeuralNetConfiguration.Builder().seed(42).learning_rate(0.1)
+         .updater("RMSPROP").list())
+    n_in = CHAR_VOCAB
+    for _ in range(2):
+        b.layer(GravesLSTM(n_in=n_in, n_out=CHAR_HIDDEN, activation="tanh",
+                           peephole=False))
+        n_in = CHAR_HIDDEN
+    return (b.layer(RnnOutputLayer(n_out=CHAR_VOCAB, loss="MCXENT"))
+            .backprop_type("TruncatedBPTT")
+            .t_bptt_forward_length(CHAR_TBPTT)
+            .t_bptt_backward_length(CHAR_TBPTT).build())
+
+
+def profiled_device_ms(torch, fn):
+    """Device time of ``fn()`` under ``torch.profiler``: the sum of the
+    traced device activities' own times (kernels and copies), and the
+    five largest activities by name (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(evt, attr, None)
+            if v is not None:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + float(v) / 1e3
+                break
+    total = sum(by_name.values())
+    if total <= 0.0:
+        raise RuntimeError("the profiler traced no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return total, dict(top)
+
+
+def run_charrnn(torch, card, peephole: bool, ids, alphabet):
+    """The char-RNN on the card through its user entry points: ``fit``
+    under truncated BPTT on SURVEY.md segments, ``output`` and the
+    ``rnn_time_step`` sampling loop; returns the launch counts of that
+    run (the main path)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    # the module (the package's ``lstm_cell`` name is its function)
+    lstm_ops = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    tag = "charrnn" if peephole else "charrnn-seq"
+    conf = charrnn_conf(peephole)
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    twin = cpu_twin(torch, net)
+    chunks = CHAR_SEGMENT // CHAR_TBPTT
+    batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, CHAR_MINIBATCHES,
+                           seed=1)
+    probe = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, 1, seed=99)[0]
+    three = char_batches(ids, CHAR_BATCH, 3 * CHAR_TBPTT, 1, seed=2)[0]
+    print(f"[{tag}] 2 x GravesLSTM({CHAR_HIDDEN}, peephole={peephole}), "
+          f"vocab {CHAR_VOCAB}, RMSProp lr 0.1, batch {CHAR_BATCH}, "
+          f"{CHAR_SEGMENT}-char segments of SURVEY.md, TBPTT "
+          f"{CHAR_TBPTT} ({net.num_params()} params)")
+
+    # the sequence forward's variant per launch (c_seq written or not)
+    variants = []
+    kernel_fwd = lstm_ops._kernel_seq_fwd
+
+    def spy(xproj, h0, c0, rw, save_cseq):
+        variants.append(bool(save_cseq))
+        return kernel_fwd(xproj, h0, c0, rw, save_cseq)
+
+    lstm_ops._kernel_seq_fwd = spy
+    try:
+        # three chunks on the card and on the CPU twin (the plain path).
+        # RMSProp moves a weight by ~4.5 lr on its first step whatever
+        # its gradient above ~5e-4, and by up to 1e4 lr g below, so a
+        # small gradient summed over 50 steps in another order moves a
+        # few weights differently (0.04 % of RW's entries by up to 0.02
+        # lr on an H100): scores within rtol 1e-3, every weight within
+        # lr, and at most 1 % of any parameter's entries beyond 1e-4 +
+        # 1e-3 |w|
+        net.fit(three)
+        twin.fit(three)
+        np.testing.assert_allclose(net.score_value, twin.score_value,
+                                   rtol=1e-3)
+        max_diff, max_off = 0.0, 0.0
+        for ln, lp in twin.params.items():
+            for pn, ref in lp.items():
+                d = (net.params[ln][pn].cpu() - ref).abs()
+                off = float((d > 1e-4 + 1e-3 * ref.abs()).float().mean())
+                max_diff = max(max_diff, float(d.max()))
+                max_off = max(max_off, off)
+                if float(d.max()) > 0.1 or off > 0.01:
+                    raise RuntimeError(
+                        f"{tag}: card and CPU twin differ at {ln}/{pn}: "
+                        f"max {float(d.max())}, {off:.2%} off")
+        # the same three chunks again from the same start: the same bits
+        again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        again.fit(three)
+        torch.cuda.synchronize()
+        for ln, lp in net.params.items():
+            for pn, t in lp.items():
+                if not (torch.equal(t, again.params[ln][pn]) and all(
+                        torch.equal(a, b) for a, b in zip(
+                            net.updater_state[ln][pn],
+                            again.updater_state[ln][pn]))):
+                    raise RuntimeError(f"{tag}: two card runs differ at "
+                                       f"{ln}/{pn}")
+        # one minibatch's launches, exactly
+        dispatch.reset_launch_counts()
+        again.fit(batches[0])
+        torch.cuda.synchronize()
+        per_batch = dispatch.launch_counts()
+        steps = 2 * CHAR_TBPTT * chunks        # 2 layers x 200 steps
+        expected = {k: 0 for k in per_batch}
+        if peephole:
+            expected["lstm_cell"] = steps
+        else:
+            expected["lstm_seq_fwd"] = expected["lstm_seq_bwd"] = 2 * chunks
+        if per_batch != expected:
+            raise RuntimeError(f"{tag}: one minibatch launched {per_batch}, "
+                               f"expected {expected}")
+        if not peephole and variants[-2 * chunks:] != [True] * (2 * chunks):
+            raise RuntimeError(f"{tag}: training ran the c_seq-free forward")
+        mask = np.ones((CHAR_BATCH, CHAR_SEGMENT), np.float32)
+        mask[: CHAR_BATCH // 4, 3 * CHAR_SEGMENT // 4:] = 0.0
+        masked = DataSet(probe.features, probe.labels, features_mask=mask,
+                         labels_mask=mask)
+
+        # the main path: a fresh network fits the minibatches, then
+        # answers output and samples through rnn_time_step
+        model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        before = model.score(probe)
+        torch.cuda.synchronize()
+        del variants[:]
+        dispatch.reset_launch_counts()
+        scores = []
+        t0 = time.perf_counter()
+        for ds in batches:
+            model.fit(ds)
+            scores.append(model.score_value)  # waits for the card
+        wall = time.perf_counter() - t0
+        fit_counts = dispatch.launch_counts()
+        if not peephole:
+            # a features mask routes the same layers to the per-step cell
+            model.fit(masked)
+        seg = probe.features[:4]
+        out = model.output(seg)
+        n_out_fwd = len(variants)
+        sample, stepped = sample_chars(torch, model, CHAR_SAMPLE, seed=7)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+    finally:
+        lstm_ops._kernel_seq_fwd = kernel_fwd
+    n_chunks = CHAR_MINIBATCHES * chunks
+    want = {k: 0 for k in launches}
+    if peephole:
+        want["lstm_cell"] = (CHAR_MINIBATCHES * steps + 2 * CHAR_SEGMENT
+                             + 2 * CHAR_SAMPLE)
+    else:
+        want["lstm_cell"] = steps
+        want["lstm_seq_fwd"] = 2 * n_chunks + 2 + 2 * CHAR_SAMPLE
+        want["lstm_seq_bwd"] = 2 * n_chunks
+        # fit: the c_seq variant; output and sampling: the c_seq-free one
+        if variants != ([True] * 2 * n_chunks
+                        + [False] * (2 + 2 * CHAR_SAMPLE)):
+            raise RuntimeError(f"{tag}: sequence forward variants "
+                               f"{variants[:3]}... of {len(variants)}")
+    if launches != want:
+        raise RuntimeError(f"{tag}: the main path launched {launches}, "
+                           f"expected {want}")
+    # at the zoo's lr 0.1, RMSProp's first steps move every weight by
+    # ~0.45: the score leaps from ln(77) before it falls, so the run is
+    # held to its first minibatch's score
+    after = model.score(probe)
+    if not all(np.isfinite(scores)) or not scores[-1] < scores[0]:
+        raise RuntimeError(f"{tag}: the score did not fall: {scores}")
+    # output on a segment against the CPU twin (plain path, same weights)
+    ref = cpu_twin(torch, model).output(seg)
+    out_err = close_to_scale(torch, out.cpu(), ref, 1e-4)
+    if out.shape != (4, CHAR_VOCAB, CHAR_SEGMENT) or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"{tag}: bad output {tuple(out.shape)}")
+    # the sampled sequence fed whole through output: the same
+    # probabilities the streaming calls gave, step by step
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    whole = model.output(eye[sample[:-1]].T[None])[0]
+    sample_err = close_to_scale(torch, stepped, whole, 1e-4)
+    # device time of the fit, from the profiler, over two minibatches
+    prof_batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, 2, seed=3)
+    device_ms, top = profiled_device_ms(torch,
+                                        lambda: model.fit(prof_batches))
+    device_ms /= 2 * chunks
+    ms_per_chunk = wall / n_chunks * 1e3
+    res = {"minibatches": CHAR_MINIBATCHES, "chunks": n_chunks,
+           "chars_per_s": CHAR_MINIBATCHES * CHAR_BATCH * CHAR_SEGMENT / wall,
+           "host_ms_per_chunk": ms_per_chunk,
+           "device_ms_per_chunk": device_ms,
+           "device_busy_share": device_ms / ms_per_chunk,
+           "top_device_ms_per_chunk": {k[:60]: v / (2 * chunks)
+                                       for k, v in top.items()},
+           "minibatch_scores": scores,
+           "probe_score_before": before, "probe_score_after": after,
+           "launches_per_minibatch": {k: v for k, v in per_batch.items()
+                                      if v},
+           "fit_launches": {k: v for k, v in fit_counts.items() if v},
+           "main_path_launches": {k: v for k, v in launches.items() if v},
+           "output_c_seq_free_launches": n_out_fwd - 2 * n_chunks
+           if not peephole else 0,
+           "twin_scores": {"card": net.score_value, "cpu": twin.score_value},
+           "twin_max_abs_diff": max_diff, "twin_max_share_off": max_off,
+           "output_max_abs_err_vs_plain": out_err,
+           "sample_max_abs_err_vs_output": sample_err,
+           "sample_head": "".join(alphabet[i] if i < len(alphabet) else "?"
+                                  for i in sample[:60])}
+    print(f"[{tag}] {json.dumps(res)} card={card}")
+    return launches
+
+
+def sample_chars(torch, model, length: int, seed: int):
+    """``length`` characters drawn one at a time through
+    ``rnn_time_step`` (batch 1) from a seeded numpy generator after a
+    seeded start character; returns the ``length + 1`` ids and the
+    ``[vocab, length]`` probabilities the streaming calls gave."""
+    rng = np.random.RandomState(seed)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    model.rnn_clear_previous_state()
+    ids = [int(rng.randint(0, CHAR_VOCAB - 1))]
+    probs = []
+    for _ in range(length):
+        p = model.rnn_time_step(eye[ids[-1]][None])[0]
+        probs.append(p)
+        q = p.double().cpu().numpy()
+        ids.append(int(rng.choice(CHAR_VOCAB, p=q / q.sum())))
+    model.rnn_clear_previous_state()
+    return np.array(ids), torch.stack(probs, dim=1)
 
 
 def main() -> int:
@@ -633,9 +1104,27 @@ def main() -> int:
             records.append(rec)
             print(f"[kernel] {json.dumps(rec)}")
 
+    for model, (T, b, n) in (("charrnn", (CHAR_TBPTT, CHAR_BATCH,
+                                          CHAR_HIDDEN)),
+                             ("saturated", SATURATED)):
+        for rec in check_lstm_kernels(torch, model, T, b, n, gen):
+            records.append(rec)
+            print(f"[kernel] {json.dumps(rec)}")
+    layers = []
+    for model, n_in, (T, b, n) in (
+            ("charrnn", CHAR_VOCAB, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
+            ("charrnn", CHAR_HIDDEN, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
+            ("saturated", SATURATED[2], SATURATED)):
+        rec = lstm_layer_vs_cudnn(torch, model, T, b, n_in, n, gen)
+        layers.append(rec)
+        print(f"[layer] {json.dumps(rec)}")
+
     served = serve_lenet(torch, card)
     trained = train_lenet(torch, card)
     run_alexnet(torch, card)
+    ids, alphabet = survey_corpus()
+    char_peep = run_charrnn(torch, card, True, ids, alphabet)
+    char_seq = run_charrnn(torch, card, False, ids, alphabet)
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -669,6 +1158,30 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sum(r["library_ms"] for r in main),
+        })
+    # the LSTM kernels: one launch at the char-RNN's chunk (T 50, b 32,
+    # n 200) in the variant its training runs (the zoo model's peephole
+    # cell, the sequence forward that writes c_seq); launches of both
+    # char-RNN main paths. library_ms: torch.nn.LSTM (cuDNN), a
+    # layer-level time (input projection included) at n_in 200
+    cudnn = next(r for r in layers if r["shape_of"] == "charrnn"
+                 and r["n_in"] == CHAR_HIDDEN)
+    for k, src, line, variant, lib in (
+            ("lstm_cell", "lstm_cell.cu", 28, "peephole", None),
+            ("lstm_seq_fwd", "lstm_seq.cu", 202, "c_seq",
+             cudnn["cudnn_fwd_ms"]),
+            ("lstm_seq_bwd", "lstm_seq.cu", 217, "", cudnn["cudnn_bwd_ms"])):
+        mine = [r for r in records if r["kernel"] == k]
+        main = next(r for r in mine if r["shape_of"] == "charrnn"
+                    and r["variant"] == variant)
+        kernels.append({
+            "name": k, "route": "cuda", "source": csrc + src,
+            "replaces": f"deeplearning4j_tpu/ops/lstm_cell.py:{line}",
+            "launches": char_peep[k] + char_seq[k],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": lib,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

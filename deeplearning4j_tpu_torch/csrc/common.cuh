@@ -149,4 +149,106 @@ int launch_splitk_finish(const float* partial, int splits, long long total,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// LSTM (csrc/lstm_cell.cu, csrc/lstm_seq.cu)
+// ---------------------------------------------------------------------------
+//
+// Layouts are the JAX package's: xproj [.., b, 4n] (= x @ W + b, gate
+// column blocks i, f, o, g of n each), h / c [b, n], RW [n, 4n]. A block
+// owns kUnits hidden units (a "slice"): the 4 * kUnits gate columns
+// {g * n + unit} of RW. Its 256 threads are kRowGroups row groups by
+// kUnits units; a thread owns one unit and RPT batch rows (rg, rg + 32,
+// ...) of a tile of 32 * RPT rows, and accumulates all four gates of its
+// unit, so the gate nonlinearities and the c / h update run in its
+// registers: the [b, 4n] pre-activation never reaches device memory.
+namespace lstm {
+
+constexpr int kUnits = 8;
+constexpr int kCols = 4 * kUnits;              // gate columns of a slice
+constexpr int kThreads = 256;
+constexpr int kRowGroups = kThreads / kUnits;  // 32
+constexpr int kKTile = 32;                     // h_{t-1} @ RW depth slice
+constexpr int kHStride = kKTile + 1;           // h tile row stride (floats)
+constexpr int kJTile = 32;                     // dz @ RW^T depth slice
+constexpr int kJStride = kJTile + 4;           // 16-byte aligned rows
+
+__host__ __device__ inline int slices(int n) {
+  return (n + kUnits - 1) / kUnits;
+}
+
+// rows a thread owns: 1 for b <= 32, 2 for b <= 64, 4 for b <= 128, else 8
+inline int rows_per_thread(int b) {
+  return b <= 32 ? 1 : b <= 64 ? 2 : b <= 128 ? 4 : 8;
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The slice's gate columns of RW, unit-major and gate-minor
+// (dst[k][u][g] = RW[k][g * n + unit0 + u], zero past n), for depth rows
+// [k0, k0 + rows): a thread's four gates are then one 16-byte load.
+__device__ __forceinline__ void load_rw_cols(const float* __restrict__ rw,
+                                             int n, int unit0, int k0,
+                                             int rows, float* dst) {
+  for (int idx = threadIdx.x; idx < rows * kCols; idx += kThreads) {
+    const int kk = idx / kCols, c = idx % kCols;
+    const int g = c / kUnits, u = c % kUnits;  // 8 threads: 8 adjacent units
+    const int gk = k0 + kk, gu = unit0 + u;
+    dst[kk * kCols + u * 4 + g] =
+        (gk < n && gu < n) ? __ldg(rw + (size_t)gk * 4 * n + g * n + gu)
+                           : 0.0f;
+  }
+}
+
+// acc[i][g] = sum_k hprev[row0 + rg + 32 i][k] * RW[k][g * n + unit0 + u]
+// for this thread's unit u and rows. hprev is read through L2 (__ldcg):
+// in the sequence kernels other blocks wrote it in the previous step.
+// rw_res: the slice's columns resident in shared memory (all n depth
+// rows, load_rw_cols layout), or null to stream them from RW through
+// rw_stage one depth slice at a time.
+template <int RPT>
+__device__ __forceinline__ void gate_preacts(
+    const float* hprev, int b, int n, int row0,
+    const float* __restrict__ rw, int unit0, const float* rw_res,
+    float* rw_stage, float* h_s, float acc[RPT][4]) {
+  const int u = threadIdx.x % kUnits, rg = threadIdx.x / kUnits;
+  constexpr int br = kRowGroups * RPT;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int k0 = 0; k0 < n; k0 += kKTile) {
+    const int kt = min(kKTile, n - k0);
+    __syncthreads();  // the previous slice's readers are done
+    for (int idx = threadIdx.x; idx < br * kKTile; idx += kThreads) {
+      const int r = idx / kKTile, kk = idx % kKTile;
+      const int gr = row0 + r, gk = k0 + kk;
+      h_s[r * kHStride + kk] =
+          (gr < b && gk < n) ? __ldcg(hprev + (size_t)gr * n + gk) : 0.0f;
+    }
+    if (rw_res == nullptr) load_rw_cols(rw, n, unit0, k0, kt, rw_stage);
+    __syncthreads();
+    const float* w = rw_res != nullptr ? rw_res + (size_t)k0 * kCols
+                                       : rw_stage;
+#pragma unroll 4
+    for (int kk = 0; kk < kt; ++kk) {
+      const float4 wv =
+          *reinterpret_cast<const float4*>(w + kk * kCols + u * 4);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float hv = h_s[(rg + kRowGroups * i) * kHStride + kk];
+        acc[i][0] = fmaf(hv, wv.x, acc[i][0]);
+        acc[i][1] = fmaf(hv, wv.y, acc[i][1]);
+        acc[i][2] = fmaf(hv, wv.z, acc[i][2]);
+        acc[i][3] = fmaf(hv, wv.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// Shared memory (floats) of gate_preacts' h tile at RPT rows a thread.
+inline int h_tile_floats(int rpt) { return kRowGroups * rpt * kHStride; }
+
+}  // namespace lstm
+
 }  // namespace dl4j

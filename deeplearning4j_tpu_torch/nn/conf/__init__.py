@@ -7,15 +7,21 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
     FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
     InputPreProcessor,
+    RnnToFeedForwardPreProcessor,
+    ShapeContext,
 )
 
 __all__ = [
     "CnnToFeedForwardPreProcessor",
     "FeedForwardToCnnPreProcessor",
+    "FeedForwardToRnnPreProcessor",
     "InputPreProcessor",
     "InputType",
     "ListBuilder",
     "MultiLayerConfiguration",
     "NeuralNetConfiguration",
+    "RnnToFeedForwardPreProcessor",
+    "ShapeContext",
 ]

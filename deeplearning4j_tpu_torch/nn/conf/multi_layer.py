@@ -27,13 +27,14 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
     FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
     InputPreProcessor,
+    RnnToFeedForwardPreProcessor,
 )
-from deeplearning4j_tpu_torch.nn.layers.base import (
-    LayerSpec,
-    layer_from_json,
-    layer_to_json,
-)
+# a module reference, not names: importing the layers package imports
+# nn.conf (layers/base.py needs InputType), which lands here while
+# layers/base.py is still half-initialized
+from deeplearning4j_tpu_torch.nn.layers import base as layer_base
 
 FORMAT = "deeplearning4j_tpu.MultiLayerConfiguration"
 
@@ -54,7 +55,7 @@ _GLOBAL_LAYER_FIELDS = (
 class MultiLayerConfiguration:
     """Immutable resolved config."""
 
-    layers: Tuple[LayerSpec, ...]
+    layers: Tuple[layer_base.LayerSpec, ...]
     preprocessors: Dict[int, InputPreProcessor] = field(default_factory=dict)
     seed: int = 12345
     iterations: int = 1
@@ -78,7 +79,7 @@ class MultiLayerConfiguration:
     def to_dict(self) -> dict:
         return {
             "format": FORMAT,
-            "layers": [layer_to_json(l) for l in self.layers],
+            "layers": [layer_base.layer_to_json(l) for l in self.layers],
             "preprocessors": {
                 str(i): p.to_json() for i, p in self.preprocessors.items()
             },
@@ -105,7 +106,8 @@ class MultiLayerConfiguration:
         if fmt != FORMAT:
             raise ValueError(f"not a MultiLayerConfiguration: format {fmt!r}")
         return MultiLayerConfiguration(
-            layers=tuple(layer_from_json(l) for l in d["layers"]),
+            layers=tuple(layer_base.layer_from_json(l)
+                         for l in d["layers"]),
             preprocessors={
                 int(i): InputPreProcessor.from_json(p)
                 for i, p in d.get("preprocessors", {}).items()
@@ -147,20 +149,29 @@ def _auto_preprocessor(current: InputType,
             return CnnToFeedForwardPreProcessor(
                 current.height, current.width, current.channels
             )
+        if have == "recurrent":
+            return RnnToFeedForwardPreProcessor()
         if have == "convolutionalFlat":
             return None  # already flat rows
-    if wanted == "convolutional" and have in ("feedforward",
-                                              "convolutionalFlat"):
-        if current.height and current.width:
-            return FeedForwardToCnnPreProcessor(
-                current.height, current.width, max(current.channels, 1)
+    if wanted == "convolutional":
+        if have in ("feedforward", "convolutionalFlat"):
+            if current.height and current.width:
+                return FeedForwardToCnnPreProcessor(
+                    current.height, current.width, max(current.channels, 1)
+                )
+            raise ValueError(
+                "Cannot infer CNN input shape from a plain feed-forward "
+                "input; use InputType.convolutionalFlat(h, w, c)"
             )
-        raise ValueError(
-            "Cannot infer CNN input shape from a plain feed-forward "
-            "input; use InputType.convolutionalFlat(h, w, c)"
-        )
-    if "recurrent" in (have, wanted):
-        raise ValueError("recurrent input types are not ported yet")
+        if have == "recurrent":
+            raise ValueError("RnnToCnn requires explicit h/w/c preprocessor")
+    if wanted == "recurrent":
+        if have in ("feedforward", "convolutionalFlat"):
+            return FeedForwardToRnnPreProcessor()
+        if have == "convolutional":
+            raise ValueError(
+                "CnnToRnnPreProcessor is not ported yet (ROADMAP.md "
+                "queue 1: the CNN <-> RNN adapters)")
     return None
 
 
@@ -347,13 +358,14 @@ class NeuralNetConfiguration:
         def list(self) -> ListBuilder:
             return ListBuilder(self)
 
-        def _resolve_layer(self, layer: LayerSpec) -> LayerSpec:
+        def _resolve_layer(self, layer: layer_base.LayerSpec
+                           ) -> layer_base.LayerSpec:
             """Apply builder globals to fields the layer left at class
             default; a default the layer class redefined (e.g.
             OutputLayer.activation = "softmax") is protected."""
             updates = {}
             cls = type(layer)
-            base_fields = LayerSpec.__dataclass_fields__
+            base_fields = layer_base.LayerSpec.__dataclass_fields__
             for fname, value in self._globals.items():
                 fdef = cls.__dataclass_fields__.get(fname)
                 if fdef is None:

@@ -2,9 +2,11 @@
 network engines.
 
 Counterpart of ``deeplearning4j_tpu/nn/core.py`` for the sequential
-forward (inference and training), ``sequential_score`` with the L1/L2
-penalty, and the plain train step (``grad_step`` + ``finish_step``,
-assembled by ``build_step``). PyTorch runs eagerly, so the step is an
+forward (inference and training, with the features mask),
+``sequential_score`` with the L1/L2 penalty, the plain train step
+(``grad_step`` + ``finish_step``, assembled by ``build_step``) and the
+``rnn_time_step`` bookkeeping (``stream_guard_and_prime``,
+``extract_stream_state``). PyTorch runs eagerly, so the step is an
 ordinary function that returns new parameters and updater state; the
 JAX package's whole-net transforms (scan over layers, remat), its
 guarded / loss-scaled / accumulated / megastep step flavours and the
@@ -59,32 +61,40 @@ def sequential_forward(conf, layer_names: Sequence[str],
                        params: Dict[str, dict], state: Dict[str, dict],
                        x: torch.Tensor, *, train: bool = False,
                        gen: Optional[torch.Generator] = None,
-                       preout: bool = False):
+                       preout: bool = False,
+                       fmask: Optional[torch.Tensor] = None):
     """Forward through every layer of ``conf``; returns ``(y,
     new_state)``. ``y`` is the last layer's activation, or with
     ``preout`` its pre-activation when it carries a loss (what the
     score reads: the loss applies the activation in its stable form).
-    With a ``compute_dtype`` the floating params and the input are cast
-    to it first (mixed precision; gradients flow back through the cast
-    to the stored params)."""
+    ``fmask`` is the [batch, time] features mask, handed to every layer
+    (recurrent layers read it; reference ``setLayerMaskArrays``). With
+    a ``compute_dtype`` the floating params, the input and the mask are
+    cast to it first (mixed precision; gradients flow back through the
+    cast to the stored params)."""
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import ShapeContext
+
     cdt = compute_dtype_of(conf)
     if cdt != dtype_of(conf):
         params = {ln: {pn: (t.to(cdt) if t.is_floating_point() else t)
                        for pn, t in lp.items()}
                   for ln, lp in params.items()}
         x = x.to(cdt)
+        fmask = fmask.to(cdt) if fmask is not None else None
+    ctx = ShapeContext(batch=int(x.shape[0]),
+                       time=int(x.shape[2]) if x.dim() == 3 else -1)
     new_state = dict(state)
     last = len(conf.layers) - 1
     for i, (name, layer) in enumerate(zip(layer_names, conf.layers)):
         if i in conf.preprocessors:
-            x = conf.preprocessors[i].preprocess(x)
+            x = conf.preprocessors[i].preprocess(x, ctx)
         x = x.contiguous()
         if preout and i == last and layer.has_loss():
             layer.check_train(train)
             return layer.pre_output(params[name], x), new_state
         x, new_state[name] = layer.apply(params[name], x,
                                          state.get(name, {}), train=train,
-                                         gen=gen)
+                                         gen=gen, mask=fmask)
     return x, new_state
 
 
@@ -92,10 +102,13 @@ def sequential_score(conf, layer_names: Sequence[str],
                      params: Dict[str, dict], state: Dict[str, dict],
                      x: torch.Tensor, labels: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, *,
-                     train: bool, gen: Optional[torch.Generator] = None):
+                     train: bool, gen: Optional[torch.Generator] = None,
+                     fmask: Optional[torch.Tensor] = None):
     """Loss score plus the L1/L2 penalty (the reference's
     computeGradientAndScore adds calcL1/calcL2 to the loss); returns
-    ``(score, new_state)``."""
+    ``(score, new_state)``. ``mask`` is the labels mask; for 3-d labels
+    without one the features mask ``fmask`` masks the loss (the
+    reference's output-layer masking)."""
     from deeplearning4j_tpu_torch.nn import losses
 
     last = conf.layers[-1]
@@ -104,7 +117,9 @@ def sequential_score(conf, layer_names: Sequence[str],
             "Last layer has no loss function; use an OutputLayer/LossLayer")
     preout, new_state = sequential_forward(
         conf, layer_names, params, state, x, train=train, gen=gen,
-        preout=True)
+        preout=True, fmask=fmask)
+    if mask is None and labels.dim() == 3:
+        mask = fmask
     score = losses.score(last.loss, labels, preout, last.activation, mask,
                          True)
     reg = 0.0
@@ -113,16 +128,17 @@ def sequential_score(conf, layer_names: Sequence[str],
     return score + reg, new_state
 
 
-def grad_step(score_fn: Callable, params, state, x, labels, mask):
+def grad_step(score_fn: Callable, params, state, x, labels, mask,
+              fmask=None):
     """The forward and backward of one step: ``((score, new_state),
-    grads)`` of ``score_fn(params, state, x, labels, mask)``, with
-    ``grads`` shaped like ``params``. The parameters are taken as fresh
-    leaves, so the caller's tensors gain no graph."""
+    grads)`` of ``score_fn(params, state, x, labels, mask, fmask)``,
+    with ``grads`` shaped like ``params``. The parameters are taken as
+    fresh leaves, so the caller's tensors gain no graph."""
     leaves = {ln: {pn: t.detach().requires_grad_(True)
                    for pn, t in lp.items()}
               for ln, lp in params.items()}
     with torch.enable_grad():
-        score, new_state = score_fn(leaves, state, x, labels, mask)
+        score, new_state = score_fn(leaves, state, x, labels, mask, fmask)
         flat = [t for lp in leaves.values() for t in lp.values()]
         got = torch.autograd.grad(score, flat, allow_unused=True)
     it = iter(got)
@@ -146,13 +162,44 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
 
 def build_step(score_fn: Callable, updater) -> Callable:
     """One eager SGD-family train step: ``step(params, upd_state, state,
-    x, labels, mask, lrs, t) -> (params, upd_state, state, score)``."""
+    x, labels, mask, lrs, t, fmask=None) -> (params, upd_state, state,
+    score)``."""
 
-    def step(params, upd_state, state, x, labels, mask, lrs, t):
+    def step(params, upd_state, state, x, labels, mask, lrs, t, fmask=None):
         (score, new_state), grads = grad_step(score_fn, params, state, x,
-                                              labels, mask)
+                                              labels, mask, fmask)
         return finish_step(updater, grads, score, new_state, params,
                            upd_state, lrs, t)
 
     return step
 
+
+# --- streaming (rnn_time_step) bookkeeping ----------------------------------
+
+
+def stream_guard_and_prime(named_layers, rnn_state, stream_steps: int,
+                           t_new: int, batch: int, dtype, device) -> None:
+    """``rnn_time_step`` bookkeeping: raise before a finite streaming
+    cache would wrap, and prime the missing streaming state (zero
+    carries on ``device``). ``named_layers``: (name, layer) pairs."""
+    caps = [lc.stream_capacity() for _, lc in named_layers
+            if lc.streams_state() and lc.stream_capacity()]
+    if caps and stream_steps + t_new > min(caps):
+        raise ValueError(
+            f"rnn_time_step overflow: {stream_steps} + {t_new} timesteps "
+            f"exceeds the smallest streaming cache ({min(caps)}); call "
+            "rnn_clear_previous_state()")
+    for name, lc in named_layers:
+        if (lc.streams_state() and name not in rnn_state
+                and getattr(lc, "init_stream_state", None) is not None):
+            rnn_state[name] = lc.init_stream_state(batch, dtype, device)
+
+
+def extract_stream_state(named_layers, new_state, rnn_state) -> None:
+    """Pull each streaming layer's carry out of a forward's state into
+    the held ``rnn_state`` (the reference's stateMap)."""
+    for name, lc in named_layers:
+        if lc.streams_state():
+            rnn_state[name] = {k: new_state[name][k]
+                               for k in lc.stream_state_keys()
+                               if k in new_state[name]}

@@ -16,14 +16,22 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     DenseLayer,
     OutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+    RnnOutputLayer,
+)
 
 __all__ = [
     "LAYER_REGISTRY",
     "ConvolutionLayer",
     "DenseLayer",
     "FeedForwardLayerSpec",
+    "GravesBidirectionalLSTM",
+    "GravesLSTM",
     "LayerSpec",
     "OutputLayer",
+    "RnnOutputLayer",
     "SubsamplingLayer",
     "layer_from_json",
     "layer_to_json",

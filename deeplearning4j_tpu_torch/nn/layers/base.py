@@ -9,12 +9,17 @@ packages unchanged.
 Contract:
 - ``init_params(gen, dtype) -> {name: tensor}`` on the CPU generator,
   named like the reference's param keys (``"W"``, ``"b"``).
-- ``apply(params, x, state, *, train=False, gen=None) -> (y, state)``:
-  the forward; with ``train`` it is differentiable (autograd through
-  the kernels' backward). ``gen`` is the explicit ``torch.Generator``
-  that dropout will draw from. Dropout and drop-connect train with the
-  AlexNet-training slice: a training forward of a layer that sets a
-  dropout rate raises (``check_train``) instead of ignoring it.
+- ``apply(params, x, state, *, train=False, gen=None, mask=None) -> (y,
+  state)``: the forward; with ``train`` it is differentiable (autograd
+  through the kernels' backward). ``gen`` is the explicit
+  ``torch.Generator`` that dropout will draw from; ``mask`` the [batch,
+  time] features mask that recurrent layers read. Dropout and
+  drop-connect train with the AlexNet-training slice: a training
+  forward of a layer that sets a dropout rate raises (``check_train``)
+  instead of ignoring it.
+- ``is_recurrent`` / ``can_stream`` / ``streams_state`` /
+  ``stream_state_keys`` / ``stream_capacity``: what truncated BPTT and
+  ``rnn_time_step`` carry between calls.
 - ``output_type(input)`` / ``with_input_type(input)`` implement the
   reference's InputType shape inference.
 - ``updater_settings()`` / ``regularizable_params()``: what the updater
@@ -149,8 +154,34 @@ class LayerSpec:
 
     # -- forward -----------------------------------------------------------
 
-    def apply(self, params, x, state, *, train=False, gen=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+        """``mask``: optional [batch, time] features mask, consumed by
+        recurrent layers; the others ignore it."""
         raise NotImplementedError
+
+    def is_recurrent(self) -> bool:
+        """True for layers with a streaming / TBPTT carry (reference
+        ``RecurrentLayer`` interface)."""
+        return False
+
+    def can_stream(self) -> bool:
+        """False for layers that need the whole sequence (bidirectional
+        RNNs), which therefore cannot run under ``rnn_time_step``."""
+        return True
+
+    def streams_state(self) -> bool:
+        """True for layers that carry state across ``rnn_time_step``
+        calls."""
+        return self.is_recurrent()
+
+    def stream_state_keys(self) -> tuple:
+        """State keys ``rnn_time_step`` carries across calls."""
+        return ("h", "c")
+
+    def stream_capacity(self):
+        """Most timesteps this layer can stream (None: unbounded; a
+        recurrent carry is O(1))."""
+        return None
 
     def check_train(self, train: bool) -> None:
         """Dropout (on the input, or on the weights with drop-connect)

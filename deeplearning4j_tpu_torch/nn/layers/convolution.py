@@ -77,7 +77,7 @@ class ConvolutionLayer(LayerSpec):
                         stride=_pair(self.stride),
                         padding=_pair(self.padding))
 
-    def apply(self, params, x, state, *, train=False, gen=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
         self.check_train(train)
         act = self.activation.lower()
         if x.dim() == 4 and act in SUPPORTED_EPILOGUES:
@@ -112,7 +112,7 @@ class SubsamplingLayer(LayerSpec):
             it.channels,
         )
 
-    def apply(self, params, x, state, *, train=False, gen=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
         self.check_train(train)
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)

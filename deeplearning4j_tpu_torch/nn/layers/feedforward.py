@@ -42,7 +42,7 @@ class DenseLayer(FeedForwardLayerSpec):
     def pre_output(self, params, x):
         return torch.addmm(params["b"], x, params["W"])
 
-    def apply(self, params, x, state, *, train=False, gen=None):
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
         self.check_train(train)
         act = self.activation.lower()
         if x.dim() == 2 and act in SUPPORTED_EPILOGUES:

@@ -1,7 +1,8 @@
 """``MultiLayerNetwork``: the sequential-network engine.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` for ``init``,
-``output``, ``output_padded``, ``fit``, ``fit_minibatch`` and ``score``.
+``output``, ``output_padded``, ``fit``, ``fit_minibatch``, ``score``,
+truncated BPTT, ``rnn_time_step`` and ``rnn_clear_previous_state``.
 Parameters are a plain dictionary ``{layer name: {param name: tensor}}``
 on the network's device, keyed as in the JAX package (layer names are
 ``conf.layer_name(i)``), so a checkpoint's ``"<layer>/<param>"`` arrays
@@ -10,11 +11,16 @@ likewise maps onto ``"<layer>/<param>/<i>"``.
 
 Training is the plain per-step loop (``nn/core.py`` ``build_step``):
 each minibatch runs ``conf.iterations`` optimizer steps at the
-scheduled learning rates, with Adam's ``t = iteration + 1``. ``fit``
-raises, naming the slice that brings them, for what the port does not
-carry yet: dropout / drop-connect, truncated BPTT, the line-search
-solvers, layer-wise pretraining, gradient accumulation, megastep
-dispatch, the divergence guard and loss scaling.
+scheduled learning rates, with Adam's ``t = iteration + 1``, and the
+recurrent carry is reset after each. Under truncated BPTT a minibatch
+longer than ``tbptt_fwd_length`` is cut into chunks along time, one
+optimizer step and one iteration a chunk, with the carry handed from
+chunk to chunk outside the graph (the JAX package's chunk loop; its
+fused single-dispatch scan has the same trajectory and is not ported).
+``fit`` raises, naming the slice that brings them, for what the port
+does not carry yet: dropout / drop-connect, the line-search solvers,
+layer-wise pretraining, gradient accumulation, megastep dispatch, the
+divergence guard and loss scaling.
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ class MultiLayerNetwork:
         self.epoch_count = 0
         self._last_score = float("nan")
         self._step = None
+        # rnn_time_step's carried state (the reference's stateMap)
+        self._rnn_state: Dict[str, dict] = {}
+        self._stream_steps = 0
 
     @property
     def score_value(self) -> float:
@@ -106,17 +115,22 @@ class MultiLayerNetwork:
 
     # -- inference ---------------------------------------------------------
 
-    def output(self, x, train: bool = False) -> torch.Tensor:
+    def output(self, x, train: bool = False,
+               features_mask=None) -> torch.Tensor:
         """Activated network output for ``x`` (numpy array or tensor),
         as a tensor on the network's device. ``train=True`` runs the
-        training-mode forward (no graph is kept either way)."""
+        training-mode forward (no graph is kept either way);
+        ``features_mask`` is the [batch, time] RNN input mask."""
         if self.params is None:
             self.init()
+        dtype = core.dtype_of(self.conf)
         with torch.inference_mode():
-            xt = self._to_device(x, core.dtype_of(self.conf))
+            xt = self._to_device(x, dtype)
+            fm = (None if features_mask is None
+                  else self._to_device(features_mask, dtype))
             y, _ = core.sequential_forward(
                 self.conf, self.layer_names, self.params, self.state, xt,
-                train=train)
+                train=train, fmask=fm)
             return y
 
     def output_padded(self, x, n_valid: int) -> torch.Tensor:
@@ -139,18 +153,22 @@ class MultiLayerNetwork:
         (reference ``score(DataSet)``)."""
         if self.params is None:
             self.init()
-        mask = None
+        mask = fmask = None
         if ds is not None:
             x, labels = ds.features, ds.labels
             mask = getattr(ds, "labels_mask", None)
+            fmask = getattr(ds, "features_mask", None)
         dtype = core.dtype_of(self.conf)
         with torch.no_grad():
             s, _ = core.sequential_score(
                 self.conf, self.layer_names, self.params, self.state,
                 self._to_device(x, dtype), self._to_device(labels, dtype),
-                None if mask is None else self._to_device(mask, dtype),
-                train=False)
+                self._maybe_to_device(mask, dtype), train=False,
+                fmask=self._maybe_to_device(fmask, dtype))
         return float(s)
+
+    def _maybe_to_device(self, a, dtype) -> Optional[torch.Tensor]:
+        return None if a is None else self._to_device(a, dtype)
 
     # -- training ----------------------------------------------------------
 
@@ -159,8 +177,6 @@ class MultiLayerNetwork:
         training loop does not carry yet."""
         conf = self.conf
         missing = []
-        if conf.backprop_type == "TruncatedBPTT":
-            missing.append("truncated BPTT (char-RNN slice)")
         if conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
             missing.append(f"the {conf.optimization_algo} solver "
                            "(periphery: optimize/)")
@@ -188,9 +204,10 @@ class MultiLayerNetwork:
         if self._step is None:
             conf, names = self.conf, self.layer_names
 
-            def score_fn(params, state, x, labels, mask):
+            def score_fn(params, state, x, labels, mask, fmask):
                 return core.sequential_score(conf, names, params, state, x,
-                                             labels, mask, train=True)
+                                             labels, mask, train=True,
+                                             fmask=fmask)
 
             self._step = core.build_step(score_fn, self.updater_def)
         return self._step
@@ -233,28 +250,104 @@ class MultiLayerNetwork:
             self.epoch_count += 1
 
     def fit_minibatch(self, ds) -> torch.Tensor:
-        """One minibatch through ``conf.iterations`` optimizer steps;
-        returns the last step's score as a 0-d tensor on the device."""
+        """One minibatch through ``conf.iterations`` optimizer steps, or
+        under truncated BPTT one step a chunk; returns the last step's
+        score as a 0-d tensor on the device."""
         if self.params is None:
             self.init()
         self._check_trainable()
         dtype = core.dtype_of(self.conf)
         x = self._to_device(ds.features, dtype)
         y = self._to_device(ds.labels, dtype)
-        mask = getattr(ds, "labels_mask", None)
-        if mask is not None:
-            mask = self._to_device(mask, dtype)
-        step = self._train_step()
+        mask = self._maybe_to_device(getattr(ds, "labels_mask", None), dtype)
+        fmask = self._maybe_to_device(getattr(ds, "features_mask", None),
+                                      dtype)
+        if (self.conf.backprop_type == "TruncatedBPTT" and x.dim() == 3
+                and x.shape[2] > self.conf.tbptt_fwd_length):
+            return self._fit_tbptt(x, y, mask, fmask)
         score = None
         for _ in range(self.conf.iterations):
-            lrs = self.updater_def.scheduled_lrs(self.iteration_count)
-            t = self.iteration_count + 1
-            self.params, self.updater_state, self.state, score = step(
-                self.params, self.updater_state, self.state, x, y, mask,
-                lrs, t)
-            self.iteration_count += 1
-            self._last_score = score
+            score = self._one_step(x, y, mask, fmask)
+            # each pass over the minibatch starts from a zero carry
+            self._reset_recurrent_state()
         return score
+
+    def _one_step(self, x, y, mask, fmask) -> torch.Tensor:
+        step = self._train_step()
+        lrs = self.updater_def.scheduled_lrs(self.iteration_count)
+        t = self.iteration_count + 1
+        self.params, self.updater_state, self.state, score = step(
+            self.params, self.updater_state, self.state, x, y, mask, lrs, t,
+            fmask)
+        self.iteration_count += 1
+        self._last_score = score
+        return score
+
+    def _reset_recurrent_state(self) -> None:
+        """The recurrent carry does not persist across minibatches
+        (reference: reset per fit call)."""
+        for name, layer in zip(self.layer_names, self.conf.layers):
+            if layer.is_recurrent():
+                self.state[name] = {}
+
+    def _fit_tbptt(self, x, y, mask, fmask) -> torch.Tensor:
+        """Truncated BPTT: cut the time axis into ``tbptt_fwd_length``
+        chunks and carry the recurrent state from chunk to chunk
+        (reference ``doTruncatedBPTT:1210``, state carry ``:1259-1276``);
+        the layers hand the carry on detached, so each chunk
+        backpropagates through itself alone."""
+        fwd = self.conf.tbptt_fwd_length
+        self._reset_recurrent_state()
+        score = None
+        for start in range(0, int(x.shape[2]), fwd):
+            end = start + fwd
+            score = self._one_step(
+                x[:, :, start:end].contiguous(),
+                y[:, :, start:end].contiguous() if y.dim() == 3 else y,
+                None if mask is None else mask[:, start:end].contiguous(),
+                None if fmask is None else fmask[:, start:end].contiguous())
+        self._reset_recurrent_state()
+        return score
+
+    # -- streaming RNN inference (reference rnnTimeStep:2290) ------------
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Feed one (or a few) timesteps, carrying the recurrent state
+        across calls (reference ``rnnTimeStep``; state in
+        ``stateMap``). Input ``[b, size]`` or ``[b, size, t]``."""
+        if self.params is None:
+            self.init()
+        for name, layer in zip(self.layer_names, self.conf.layers):
+            if not layer.can_stream():
+                raise ValueError(
+                    f"Layer '{name}' ({type(layer).__name__}) cannot be "
+                    "used with rnn_time_step: it needs the full sequence "
+                    "(reference throws UnsupportedOperationException)")
+        dtype = core.dtype_of(self.conf)
+        named = list(zip(self.layer_names, self.conf.layers))
+        with torch.inference_mode():
+            xt = self._to_device(x, dtype)
+            squeeze = xt.dim() == 2
+            if squeeze:
+                xt = xt[:, :, None]
+            t_new = int(xt.shape[2])
+            core.stream_guard_and_prime(named, self._rnn_state,
+                                        self._stream_steps, t_new,
+                                        int(xt.shape[0]), dtype, self.device)
+            merged = dict(self.state)
+            for name, carry in self._rnn_state.items():
+                merged[name] = {**merged.get(name, {}), **carry}
+            out, new_state = core.sequential_forward(
+                self.conf, self.layer_names, self.params, merged, xt,
+                train=False)
+            core.extract_stream_state(named, new_state, self._rnn_state)
+        self._stream_steps += t_new
+        return out[:, :, 0] if squeeze else out
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference ``rnnClearPreviousState``."""
+        self._rnn_state = {}
+        self._stream_steps = 0
 
     def num_params(self) -> int:
         if self.params is None:

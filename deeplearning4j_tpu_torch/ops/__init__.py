@@ -14,6 +14,16 @@ from deeplearning4j_tpu_torch.ops.conv_block import (
     conv_bwd_w,
     conv_bwd_w_reference,
 )
+from deeplearning4j_tpu_torch.ops.lstm_cell import (
+    lstm_cell,
+    lstm_cell_diff,
+    lstm_cell_reference,
+    lstm_seq_bwd,
+    lstm_seq_bwd_reference,
+    lstm_seq_fwd,
+    lstm_seq_fwd_reference,
+    lstm_sequence,
+)
 from deeplearning4j_tpu_torch.ops.matmul_block import (
     matmul_block,
     matmul_block_reference,
@@ -28,6 +38,14 @@ __all__ = [
     "conv_bwd_w",
     "conv_bwd_w_reference",
     "dispatch",
+    "lstm_cell",
+    "lstm_cell_diff",
+    "lstm_cell_reference",
+    "lstm_seq_bwd",
+    "lstm_seq_bwd_reference",
+    "lstm_seq_fwd",
+    "lstm_seq_fwd_reference",
+    "lstm_sequence",
     "matmul_block",
     "matmul_block_reference",
 ]

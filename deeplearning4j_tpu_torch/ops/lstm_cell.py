@@ -1,0 +1,365 @@
+"""The fused LSTM: one timestep (``csrc/lstm_cell.cu``) and the whole
+sequence forward and backward (``csrc/lstm_seq.cu``), hand-written CUDA
+kernels, each with its plain PyTorch version.
+
+Counterpart of ``deeplearning4j_tpu/ops/lstm_cell.py``. Layouts are the
+JAX package's: xproj ``[b, 4n]`` a step or ``[T, b, 4n]`` a sequence
+(``x @ W + b``, gate column blocks i, f, o, g), h / c ``[b, n]``, RW
+``[n, 4n]``, the peepholes pI / pF / pO ``[n]`` each.
+
+- ``lstm_cell`` is one step (peepholes optional); ``lstm_cell_diff`` is
+  the same step as a ``torch.autograd.Function`` whose backward
+  recomputes through the plain cell (``lstm_cell_reference``), as the JAX
+  package's ``_cell_bwd`` takes ``jax.vjp`` of ``_reference_cell``.
+- ``lstm_sequence`` runs a whole sequence without peepholes or mask. As
+  the JAX custom_vjp does, its forward writes c_seq only when a gradient
+  is wanted (``lstm_seq_fwd(..., save_cseq=True)``); the backward builds
+  h_{t-1} and c_{t-1}, runs ``lstm_seq_bwd`` in reverse time and forms
+  dRW with one ``torch.matmul`` over the sequence.
+
+Routing follows the tensor's device alone: a CPU tensor takes the plain
+version, a CUDA tensor the kernel. The kernels take float32 only; a
+bf16 / f16 CUDA tensor raises (ROADMAP.md queue 1, item 3: bf16 / f16 LSTM
+kernels). The plain versions take every float type and compute in at
+least float32, as the kernels accumulate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.ops import _build, dispatch
+from deeplearning4j_tpu_torch.ops.conv_block import (
+    check_kernel_operand,
+    wants_grad,
+)
+
+Peepholes = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _check_kernel_dtype(kernel: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{kernel}: {t.dtype} on the card arrives with the bf16 / f16 "
+            "LSTM kernels (ROADMAP.md queue 1, item 3); run the LSTM "
+            "in float32")
+
+
+def _check_int32(kernel: str, *tensors) -> None:
+    for t in tensors:
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{kernel}: {tuple(t.shape)} exceeds the "
+                             "kernel's 32-bit sizes")
+
+
+def _gates(z, c, peepholes: Peepholes):
+    """The cell's nonlinearities on the pre-activation z [.., 4n]."""
+    zi, zf, zo, zg = z.chunk(4, dim=-1)
+    if peepholes is not None:
+        p_i, p_f, p_o = peepholes
+        zi = zi + c * p_i
+        zf = zf + c * p_f
+    i = torch.sigmoid(zi)
+    f = torch.sigmoid(zf)
+    g = torch.tanh(zg)
+    c_new = f * c + i * g
+    if peepholes is not None:
+        zo = zo + c_new * p_o
+    o = torch.sigmoid(zo)
+    return o * torch.tanh(c_new), c_new
+
+
+# --- one step (kernel 6) ------------------------------------------------------
+
+
+def lstm_cell_reference(xproj, h, c, rw, peepholes: Peepholes = None):
+    """The plain PyTorch version of one fused step, on any device: a
+    copy of the JAX package's ``_reference_cell``, in at least f32.
+    Returns ``(h_new, c_new)``."""
+    ct = _compute_dtype(h)
+    peeps = None if peepholes is None else tuple(p.to(ct) for p in peepholes)
+    h_new, c_new = _gates(xproj.to(ct) + h.to(ct) @ rw.to(ct), c.to(ct),
+                          peeps)
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def _kernel_cell(xproj, h, c, rw, peepholes: Peepholes):
+    kernel = "lstm_cell"
+    _check_kernel_dtype(kernel, h)
+    dev = h.device
+    b, n = (int(v) for v in h.shape)
+    for name, t, shape in (("xproj", xproj, (b, 4 * n)), ("h", h, (b, n)),
+                           ("c", c, (b, n)), ("rw", rw, (n, 4 * n))):
+        check_kernel_operand(kernel, name, t, dev, torch.float32, 2)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)}, "
+                             f"expected {shape}")
+    peeps = (None, None, None)
+    if peepholes is not None:
+        for name, p in zip(("pI", "pF", "pO"), peepholes):
+            check_kernel_operand(kernel, name, p, dev, torch.float32, 1)
+            if p.numel() != n:
+                raise ValueError(f"{kernel}: {name} must hold {n} values")
+        peeps = tuple(p.data_ptr() for p in peepholes)
+    _check_int32(kernel, xproj, rw)
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    rc = _build.load().dl4j_lstm_cell(
+        xproj.data_ptr(), h.data_ptr(), c.data_ptr(), rw.data_ptr(), *peeps,
+        h_out.data_ptr(), c_out.data_ptr(), b, n,
+        _build.current_stream_handle(dev))
+    _build.check(rc, kernel)
+    dispatch.note_launch(kernel)
+    return h_out, c_out
+
+
+def lstm_cell(xproj: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              rw: torch.Tensor, peepholes: Peepholes = None):
+    """One fused step ``(h_new, c_new)``: the CUDA kernel for a CUDA
+    ``h``, the plain version for a CPU one. Not differentiable; see
+    ``lstm_cell_diff``."""
+    if dispatch.is_kernel_tensor(h):
+        return _kernel_cell(xproj, h, c, rw, peepholes)
+    return lstm_cell_reference(xproj, h, c, rw, peepholes)
+
+
+class _CellFn(torch.autograd.Function):
+    """The fused step; the backward recomputes through the plain cell
+    and takes its vector-Jacobian product (the JAX ``_cell_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xproj, h, c, rw, p_i, p_f, p_o):
+        ctx.save_for_backward(xproj, h, c, rw, p_i, p_f, p_o)
+        peeps = None if p_i is None else (p_i, p_f, p_o)
+        return lstm_cell(xproj, h, c, rw, peeps)
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        saved = ctx.saved_tensors
+        leaves = [None if t is None else t.detach().requires_grad_(True)
+                  for t in saved]
+        xproj, h, c, rw, p_i, p_f, p_o = leaves
+        peeps = None if p_i is None else (p_i, p_f, p_o)
+        with torch.enable_grad():
+            h_new, c_new = lstm_cell_reference(xproj, h, c, rw, peeps)
+            wanted = [t for t, need in zip(leaves, ctx.needs_input_grad)
+                      if need and t is not None]
+            got = iter(torch.autograd.grad((h_new, c_new), wanted,
+                                           (g_h, g_c), allow_unused=True))
+        return tuple(next(got) if need and t is not None else None
+                     for t, need in zip(leaves, ctx.needs_input_grad))
+
+
+def lstm_cell_diff(xproj, h, c, rw, peepholes: Peepholes = None):
+    """``lstm_cell`` with a gradient in every input (the peepholes
+    included)."""
+    peeps = (None, None, None) if peepholes is None else tuple(peepholes)
+    if not wants_grad(xproj, h, c, rw, *peeps):
+        return lstm_cell(xproj, h, c, rw, peepholes)
+    return _CellFn.apply(xproj, h, c, rw, *peeps)
+
+
+# --- the whole sequence (kernels 7 and 8) ----------------------------------------
+
+
+def lstm_seq_fwd_reference(xproj, h0, c0, rw, save_cseq: bool = True):
+    """The plain sequence forward: a loop over T of the reference cell,
+    h and c carried in at least f32. Returns ``(h_seq, c_seq or None,
+    hT, cT)`` in h0's dtype."""
+    ct, dt = _compute_dtype(h0), h0.dtype
+    h, c, rwf = h0.to(ct), c0.to(ct), rw.to(ct)
+    hs, cs = [], []
+    for t in range(int(xproj.shape[0])):
+        h, c = _gates(xproj[t].to(ct) + h @ rwf, c, None)
+        hs.append(h)
+        cs.append(c)
+    hseq = torch.stack(hs).to(dt)
+    cseq = torch.stack(cs).to(dt) if save_cseq else None
+    return hseq, cseq, h.to(dt), c.to(dt)
+
+
+def _seq_dims(kernel, xproj, rw):
+    T, b, four_n = (int(v) for v in xproj.shape)
+    n = int(rw.shape[0])
+    if four_n != 4 * n or tuple(rw.shape) != (n, 4 * n):
+        raise ValueError(f"{kernel}: xproj {tuple(xproj.shape)} and rw "
+                         f"{tuple(rw.shape)} do not form [T, b, 4n], [n, 4n]")
+    if T == 0:
+        raise ValueError(f"{kernel}: the sequence is empty")
+    return T, b, n
+
+
+def _check_seq_operands(kernel, dev, named):
+    for name, t, shape in named:
+        check_kernel_operand(kernel, name, t, dev, torch.float32, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)}, "
+                             f"expected {shape}")
+
+
+def _barrier(dev) -> torch.Tensor:
+    """The two zeroed words of device memory a launch's grid barrier
+    uses (arrivals, generation)."""
+    return torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+def _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq: bool):
+    kernel = "lstm_seq_fwd"
+    _check_kernel_dtype(kernel, xproj)
+    T, b, n = _seq_dims(kernel, xproj, rw)
+    dev = xproj.device
+    _check_seq_operands(kernel, dev, (
+        ("xproj", xproj, (T, b, 4 * n)), ("rw", rw, (n, 4 * n)),
+        ("h0", h0, (b, n)), ("c0", c0, (b, n))))
+    _check_int32(kernel, xproj)
+    hseq = torch.empty((T, b, n), dtype=torch.float32, device=dev)
+    cseq = torch.empty_like(hseq) if save_cseq else None
+    hT = torch.empty((b, n), dtype=torch.float32, device=dev)
+    cT = torch.empty_like(hT)
+    bar = _barrier(dev)
+    rc = _build.load().dl4j_lstm_seq_fwd(
+        xproj.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        hseq.data_ptr(), None if cseq is None else cseq.data_ptr(),
+        hT.data_ptr(), cT.data_ptr(), bar.data_ptr(), T, b, n,
+        _build.current_stream_handle(dev))
+    _build.check(rc, kernel)
+    dispatch.note_launch(kernel)
+    return hseq, cseq, hT, cT
+
+
+def lstm_seq_fwd(xproj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                 rw: torch.Tensor, save_cseq: bool = True):
+    """The whole-sequence forward in one launch for a CUDA ``xproj`` (the
+    plain loop for a CPU one): ``(h_seq [T, b, n], c_seq or None, hT,
+    cT)``. ``save_cseq=False`` is the inference variant, which writes no
+    c_seq. Not differentiable; see ``lstm_sequence``."""
+    if dispatch.is_kernel_tensor(xproj):
+        return _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq)
+    return lstm_seq_fwd_reference(xproj, h0, c0, rw, save_cseq)
+
+
+def lstm_seq_bwd_reference(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
+    """The plain reverse-time loop with the TPU kernel's formulas
+    (``_seq_bwd_kernel``): recompute the gates from h_{t-1}, carry dh and
+    dc, collect dgates. Returns ``(dgates [T, b, 4n], dh0, dc0)``, all in
+    at least f32."""
+    ct = _compute_dtype(xproj)
+    rwf = rw.to(ct)
+    dh, dc = dhT.to(ct), dcT.to(ct)
+    T = int(xproj.shape[0])
+    dgates = torch.empty(xproj.shape, dtype=ct, device=xproj.device)
+    for t in range(T - 1, -1, -1):
+        z = xproj[t].to(ct) + hprev[t].to(ct) @ rwf
+        zi, zf, zo, zg = z.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+        g = torch.tanh(zg)
+        tc = torch.tanh(cseq[t].to(ct))
+        dht = dhseq[t].to(ct) + dh
+        d_o = dht * tc
+        dct = dht * o * (1.0 - tc * tc) + dc
+        dgates[t] = torch.cat([
+            (dct * g) * i * (1.0 - i),
+            (dct * cprev[t].to(ct)) * f * (1.0 - f),
+            d_o * o * (1.0 - o),
+            (dct * i) * (1.0 - g * g),
+        ], dim=-1)
+        dc = dct * f
+        dh = dgates[t] @ rwf.t()
+    return dgates, dh, dc
+
+
+def _kernel_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
+    kernel = "lstm_seq_bwd"
+    _check_kernel_dtype(kernel, xproj)
+    T, b, n = _seq_dims(kernel, xproj, rw)
+    dev = xproj.device
+    seq = (T, b, n)
+    _check_seq_operands(kernel, dev, (
+        ("xproj", xproj, (T, b, 4 * n)), ("hprev", hprev, seq),
+        ("cprev", cprev, seq), ("cseq", cseq, seq), ("rw", rw, (n, 4 * n)),
+        ("dhseq", dhseq, seq), ("dhT", dhT, (b, n)), ("dcT", dcT, (b, n))))
+    _check_int32(kernel, xproj)
+    dgates = torch.empty((T, b, 4 * n), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    dc0 = torch.empty_like(dh0)
+    bar = _barrier(dev)
+    rc = _build.load().dl4j_lstm_seq_bwd(
+        xproj.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
+        cseq.data_ptr(), rw.data_ptr(), dhseq.data_ptr(), dhT.data_ptr(),
+        dcT.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        bar.data_ptr(), T, b, n, _build.current_stream_handle(dev))
+    _build.check(rc, kernel)
+    dispatch.note_launch(kernel)
+    return dgates, dh0, dc0
+
+
+def lstm_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
+    """The whole-sequence backward in one launch for a CUDA ``xproj``
+    (the plain loop for a CPU one): ``(dgates, dh0, dc0)``. ``hprev`` /
+    ``cprev`` are h_{t-1} / c_{t-1} for t = 0 .. T-1."""
+    if dispatch.is_kernel_tensor(xproj):
+        return _kernel_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT,
+                               dcT)
+    return lstm_seq_bwd_reference(xproj, hprev, cprev, cseq, rw, dhseq, dhT,
+                                  dcT)
+
+
+def lstm_seq_plan(b: int, n: int, bwd: bool = False) -> dict:
+    """How the card would launch a sequence kernel at (b, n): the grid
+    and whether RW's columns stay resident in shared memory. Builds the
+    kernels; needs a card."""
+    grid, resident = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load().dl4j_lstm_seq_plan(int(bwd), int(b), int(n),
+                                          ctypes.byref(grid),
+                                          ctypes.byref(resident))
+    _build.check(rc, "lstm_seq_plan")
+    return {"grid": grid.value, "resident": bool(resident.value)}
+
+
+class _SequenceFn(torch.autograd.Function):
+    """The whole-sequence LSTM with the JAX custom_vjp's backward."""
+
+    @staticmethod
+    def forward(ctx, xproj, h0, c0, rw):
+        hseq, cseq, hT, cT = lstm_seq_fwd(xproj, h0, c0, rw, save_cseq=True)
+        ctx.save_for_backward(xproj, h0, c0, rw, hseq, cseq)
+        return hseq, hT, cT
+
+    @staticmethod
+    def backward(ctx, dhseq, dhT, dcT):
+        xproj, h0, c0, rw, hseq, cseq = ctx.saved_tensors
+        T, b, four_n = (int(v) for v in xproj.shape)
+        n = four_n // 4
+        f32 = torch.float32
+        hprev = torch.cat([h0[None].to(hseq.dtype), hseq[:-1]]).contiguous()
+        cprev = torch.cat([c0[None].to(cseq.dtype), cseq[:-1]]).contiguous()
+        dgates, dh0, dc0 = lstm_seq_bwd(
+            xproj, hprev, cprev, cseq, rw, dhseq.contiguous(),
+            dhT.to(f32).contiguous(), dcT.to(f32).contiguous())
+        drw = None
+        if ctx.needs_input_grad[3]:
+            # the weight gradient: one matmul over the whole sequence
+            drw = torch.matmul(hprev.reshape(T * b, n).t().to(dgates.dtype),
+                               dgates.reshape(T * b, four_n)).to(rw.dtype)
+        return (dgates.to(xproj.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype),
+                drw)
+
+
+def lstm_sequence(xproj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                  rw: torch.Tensor):
+    """Whole-sequence fused LSTM (no peephole, no mask): xproj ``[T, b,
+    4n]`` (``x @ W + b`` precomputed), h0 / c0 ``[b, n]``, rw ``[n, 4n]``.
+    Returns ``(h_seq [T, b, n], hT, cT)``, differentiable in all four
+    inputs. Without a gradient it runs the c_seq-free forward."""
+    _seq_dims("lstm_sequence", xproj, rw)
+    if not wants_grad(xproj, h0, c0, rw):
+        hseq, _, hT, cT = lstm_seq_fwd(xproj, h0, c0, rw, save_cseq=False)
+        return hseq, hT, cT
+    return _SequenceFn.apply(xproj, h0, c0, rw)

@@ -1,3 +1,7 @@
-from deeplearning4j_tpu_torch.zoo.models import alexnet, lenet
+from deeplearning4j_tpu_torch.zoo.models import (
+    alexnet,
+    graves_lstm_char_rnn,
+    lenet,
+)
 
-__all__ = ["alexnet", "lenet"]
+__all__ = ["alexnet", "graves_lstm_char_rnn", "lenet"]

@@ -1,7 +1,8 @@
 """Model zoo: builders for the configurations the port serves so far.
 
-Counterpart of ``deeplearning4j_tpu/zoo/models.py`` for ``lenet`` and
-``alexnet``, with the JAX package's defaults, so each builder here
+Counterpart of ``deeplearning4j_tpu/zoo/models.py`` for ``lenet``,
+``alexnet`` and ``graves_lstm_char_rnn``, with the JAX package's
+defaults, so each builder here
 gives the same ``configuration.json`` as its counterpart there. Callers
 wrap the configuration in ``MultiLayerNetwork(conf, device=...)`` and
 ``.init()`` it.
@@ -11,7 +12,9 @@ from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers import (
     ConvolutionLayer,
     DenseLayer,
+    GravesLSTM,
     OutputLayer,
+    RnnOutputLayer,
     SubsamplingLayer,
 )
 
@@ -73,3 +76,28 @@ def alexnet(height=224, width=224, channels=3, n_classes=1000, *,
         .set_input_type(InputType.convolutional(height, width, channels))
         .build()
     )
+
+
+def graves_lstm_char_rnn(vocab=77, hidden=200, n_layers=2, *,
+                         updater="RMSPROP", learning_rate=0.1, seed=42,
+                         tbptt_length=None, dtype="float32",
+                         compute_dtype=None):
+    """Stacked GravesLSTM character model (BASELINE.md config #3;
+    reference ``nn/layers/recurrent/LSTMHelpers.java``). The layers
+    keep GravesLSTM's default peepholes."""
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed).learning_rate(learning_rate).updater(updater)
+        .data_type(dtype).compute_data_type(compute_dtype)
+        .list()
+    )
+    n_in = vocab
+    for _ in range(n_layers):
+        b.layer(GravesLSTM(n_in=n_in, n_out=hidden, activation="tanh"))
+        n_in = hidden
+    b.layer(RnnOutputLayer(n_out=vocab, loss="MCXENT"))
+    if tbptt_length:
+        b.backprop_type("TruncatedBPTT")
+        b.t_bptt_forward_length(tbptt_length)
+        b.t_bptt_backward_length(tbptt_length)
+    return b.build()

@@ -267,7 +267,9 @@ def test_conv_block_grads_match_plain_and_count_launches(cuda, activation):
         grads.append((x.grad, w.grad, b.grad))
         if fn is conv_block:
             assert counts == {"conv_block": 2, "conv_bwd_data": 1,
-                              "conv_bwd_w": 1, "matmul_block": 0}
+                              "conv_bwd_w": 1, "matmul_block": 0,
+                              "lstm_cell": 0, "lstm_seq_fwd": 0,
+                              "lstm_seq_bwd": 0}
         else:
             assert sum(counts.values()) == 0
     for got, ref in zip(*grads):
@@ -337,7 +339,8 @@ def test_lenet_fit_step_on_the_card_matches_the_cpu_twin(cuda):
     torch.cuda.synchronize()
     assert dispatch.launch_counts() == {
         "conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
-        "matmul_block": 1}
+        "matmul_block": 1, "lstm_cell": 0, "lstm_seq_fwd": 0,
+        "lstm_seq_bwd": 0}
     twin.fit(ds)
     np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
     lr = 0.01
@@ -347,3 +350,281 @@ def test_lenet_fit_step_on_the_card_matches_the_cpu_twin(cuda):
             torch.testing.assert_close(got, ref, rtol=0, atol=lr / 50)
             off = (got - ref).abs() > 1e-5 + 1e-4 * ref.abs()
             assert float(off.float().mean()) <= 0.01, (ln, pn)
+
+
+# --- the LSTM kernels -------------------------------------------------------
+#
+# Shapes: the char-RNN's chunk (b 32, n 200), the saturated shape (b 256,
+# n 1024), and ragged b and n: units off the 8-unit slices, batch rows off
+# the 32-row groups, several row tiles (b 300), one row (b 1), and n 8500,
+# whose 1063 slices outnumber the blocks the card holds at once, so each
+# block of the sequence kernels walks more than one slice with RW's
+# columns streamed from L2. f32 on both sides (TF32 off); the kernels sum
+# h @ RW in another order than cuBLAS, over up to 8500 terms of O(1)
+# products, and the sequence carries that rounding through T steps, so
+# outputs are held relative to their largest entry (1e-4 of the scale).
+
+LSTM_CELL_CASES = [(32, 200), (256, 1024), (5, 13), (33, 17), (70, 9),
+                   (1, 200), (300, 40), (3, 8500)]
+LSTM_SEQ_CASES = [(50, 32, 200), (128, 256, 1024), (3, 5, 13), (7, 33, 17),
+                  (4, 300, 40), (2, 1, 200), (2, 3, 8500)]
+
+
+def _lstm_operands(T, b, n, seed, peephole=False):
+    rng = np.random.RandomState(seed)
+    lead = () if T is None else (T,)
+    xproj = _t(rng.randn(*lead, b, 4 * n) * 0.5, "cuda")
+    h = _t(rng.randn(b, n) * 0.1, "cuda")
+    c = _t(rng.randn(b, n) * 0.1, "cuda")
+    rw = _t(rng.randn(n, 4 * n) / np.sqrt(n), "cuda")
+    peeps = (tuple(_t(rng.randn(n) * 0.1, "cuda") for _ in range(3))
+             if peephole else None)
+    return xproj, h, c, rw, peeps
+
+
+@pytest.mark.parametrize("peephole", [False, True])
+@pytest.mark.parametrize("b,n", LSTM_CELL_CASES)
+def test_lstm_cell_kernel_matches_plain(cuda, b, n, peephole):
+    from deeplearning4j_tpu_torch.ops import lstm_cell, lstm_cell_reference
+
+    xproj, h, c, rw, peeps = _lstm_operands(None, b, n, 11, peephole)
+    before = dispatch.launch_counts()["lstm_cell"]
+    h_k, c_k = lstm_cell(xproj, h, c, rw, peeps)
+    h_r, c_r = lstm_cell_reference(xproj, h, c, rw, peeps)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["lstm_cell"] == before + 1
+    _close_to_scale(h_k, h_r, 1e-4)
+    _close_to_scale(c_k, c_r, 1e-4)
+
+
+@pytest.mark.parametrize("save_cseq", [True, False])
+@pytest.mark.parametrize("T,b,n", LSTM_SEQ_CASES)
+def test_lstm_seq_fwd_kernel_matches_plain(cuda, T, b, n, save_cseq):
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_seq_fwd,
+        lstm_seq_fwd_reference,
+    )
+
+    xproj, h0, c0, rw, _ = _lstm_operands(T, b, n, 12)
+    before = dispatch.launch_counts()["lstm_seq_fwd"]
+    got = lstm_seq_fwd(xproj, h0, c0, rw, save_cseq)
+    ref = lstm_seq_fwd_reference(xproj, h0, c0, rw, save_cseq)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["lstm_seq_fwd"] == before + 1
+    assert (got[1] is None) == (not save_cseq)
+    for a, r in zip(got, ref):
+        if r is not None:
+            _close_to_scale(a, r, 1e-4)
+
+
+@pytest.mark.parametrize("T,b,n", LSTM_SEQ_CASES)
+def test_lstm_seq_bwd_kernel_matches_plain(cuda, T, b, n):
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_reference,
+        lstm_seq_fwd_reference,
+    )
+
+    xproj, h0, c0, rw, _ = _lstm_operands(T, b, n, 13)
+    rng = np.random.RandomState(14)
+    hseq, cseq, _, _ = lstm_seq_fwd_reference(xproj, h0, c0, rw)
+    hprev = torch.cat([h0[None], hseq[:-1]]).contiguous()
+    cprev = torch.cat([c0[None], cseq[:-1]]).contiguous()
+    dhseq = _t(rng.randn(T, b, n), cuda)
+    dhT, dcT = _t(rng.randn(b, n), cuda), _t(rng.randn(b, n), cuda)
+    args = (xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT)
+    before = dispatch.launch_counts()["lstm_seq_bwd"]
+    got = lstm_seq_bwd(*args)
+    ref = lstm_seq_bwd_reference(*args)
+    again = lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["lstm_seq_bwd"] == before + 2
+    for a, r, a2 in zip(got, ref, again):
+        _close_to_scale(a, r, 1e-4)
+        assert torch.equal(a, a2)  # no atomics in the sums: same bits
+
+
+def test_lstm_sequence_grads_match_plain_and_count_launches(cuda):
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_seq_fwd_reference,
+        lstm_sequence,
+    )
+
+    T, b, n = 50, 32, 200
+    xproj0, h00, c00, rw0, _ = _lstm_operands(T, b, n, 15)
+    ws = _t(np.random.RandomState(16).randn(T, b, n), cuda)
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (xproj0, h00, c00, rw0)]
+        dispatch.reset_launch_counts()
+        if kernels:
+            hseq, hT, cT = lstm_sequence(*leaves)
+        else:
+            hseq, _, hT, cT = lstm_seq_fwd_reference(*leaves)
+        loss = (hseq * ws).sum() + (hT ** 2).sum() + (cT ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        assert (counts["lstm_seq_fwd"], counts["lstm_seq_bwd"]) == (
+            (1, 1) if kernels else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        _close_to_scale(got, ref, 1e-4)
+    # without a gradient: the c_seq-free forward, one launch
+    dispatch.reset_launch_counts()
+    with torch.inference_mode():
+        lstm_sequence(xproj0, h00, c00, rw0)
+    assert dispatch.launch_counts()["lstm_seq_fwd"] == 1
+
+
+def test_lstm_cell_diff_grads_match_plain(cuda):
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_cell_diff,
+        lstm_cell_reference,
+    )
+
+    xproj0, h0, c0, rw0, peeps0 = _lstm_operands(None, 32, 200, 17, True)
+    grads = []
+    for fn in (lstm_cell_diff, lstm_cell_reference):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (xproj0, h0, c0, rw0) + peeps0]
+        h, c = fn(*leaves[:4], tuple(leaves[4:]))
+        ((h * 1.5).sum() + (c ** 2).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        _close_to_scale(got, ref, 1e-4)
+
+
+def test_lstm_kernels_refuse_half_precision(cuda):
+    from deeplearning4j_tpu_torch.ops import lstm_cell, lstm_seq_fwd
+
+    xproj, h, c, rw, _ = _lstm_operands(4, 8, 16, 18)
+    bf = [t.bfloat16() for t in (xproj, h, c, rw)]
+    with pytest.raises(NotImplementedError, match="bf16 / f16 LSTM"):
+        lstm_seq_fwd(*bf)
+    with pytest.raises(NotImplementedError, match="bf16 / f16 LSTM"):
+        lstm_cell(bf[0][0], *bf[1:])
+
+
+@pytest.mark.parametrize("peephole,masked", [(True, False), (False, False),
+                                             (False, True)])
+def test_graves_lstm_layer_on_card_matches_cpu(cuda, peephole, masked):
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
+
+    layer = GravesLSTM(n_in=77, n_out=200, peephole=peephole)
+    params = layer.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(19)
+    x = rng.randn(32, 77, 50).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((32, 50), np.float32)
+        mask[:8, 30:] = 0.0
+    outs, launches = [], []
+    for dev in (cuda, "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        m = None if mask is None else _t(mask, dev)
+        dispatch.reset_launch_counts()
+        with torch.inference_mode():
+            y, st = layer.apply(p, _t(x, dev), {}, mask=m)
+        outs.append((y.cpu(), st["h"].cpu(), st["c"].cpu()))
+        launches.append(dispatch.launch_counts())
+    routed = "lstm_cell" if (peephole or masked) else "lstm_seq_fwd"
+    assert launches[0][routed] == (50 if routed == "lstm_cell" else 1)
+    assert sum(launches[1].values()) == 0
+    for got, ref in zip(*outs):
+        _close_to_scale(got, ref, 1e-4)
+
+
+def test_lstm_seq_plans(cuda):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_plan
+
+    # the char-RNN's chunk: a block a slice, RW's columns resident
+    for bwd in (False, True):
+        assert lstm_seq_plan(32, 200, bwd) == {"grid": 25, "resident": True}
+    # n 8500: 1063 slices, too many columns to keep: streamed, and more
+    # slices than blocks, so blocks walk several
+    plan = lstm_seq_plan(3, 8500)
+    assert not plan["resident"] and 0 < plan["grid"] < 1063
+
+
+def test_bidirectional_lstm_on_card_matches_cpu(cuda):
+    from deeplearning4j_tpu_torch.nn.layers import GravesBidirectionalLSTM
+
+    layer = GravesBidirectionalLSTM(n_in=7, n_out=24, peephole=False,
+                                    mode="concat")
+    params = layer.init_params(torch.Generator().manual_seed(1))
+    x = np.random.RandomState(20).randn(5, 7, 9).astype(np.float32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        dispatch.reset_launch_counts()
+        with torch.inference_mode():
+            y, _ = layer.apply({k: v.to(dev) for k, v in params.items()},
+                               _t(x, dev), {})
+        outs.append(y.cpu())
+    assert dispatch.launch_counts()["lstm_seq_fwd"] == 0  # the CPU's
+    _close_to_scale(outs[0], outs[1], 1e-4)
+
+
+@pytest.mark.parametrize("peephole", [True, False])
+def test_char_rnn_fit_on_card_matches_cpu(cuda, peephole):
+    """Three TBPTT chunks of a narrow char-RNN (RMSProp lr 0.1) on the
+    card and on its CPU twin, with the launches of the minibatch; the
+    tolerance is test_torch_char_rnn.py's (RMSProp's noise floor)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(0.1)
+            .updater("RMSPROP").list()
+            .layer(GravesLSTM(n_in=11, n_out=40, peephole=peephole))
+            .layer(GravesLSTM(n_in=40, n_out=40, peephole=peephole))
+            .layer(RnnOutputLayer(n_out=11, loss="MCXENT"))
+            .backprop_type("TruncatedBPTT").t_bptt_forward_length(5)
+            .t_bptt_backward_length(5).build())
+    net = MultiLayerNetwork(conf, device=cuda).init()
+    twin = MultiLayerNetwork(conf, device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    ids = np.random.RandomState(21).randint(0, 11, (6, 16))
+    eye = np.eye(11, dtype=np.float32)
+    ds = DataSet(np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+                 np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1)))
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    if peephole:   # 2 layers x 15 steps
+        assert (counts["lstm_cell"], counts["lstm_seq_fwd"]) == (30, 0)
+    else:          # 2 layers x 3 chunks, forward and backward
+        assert (counts["lstm_cell"], counts["lstm_seq_fwd"],
+                counts["lstm_seq_bwd"]) == (0, 6, 6)
+    twin.fit(ds)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            torch.testing.assert_close(net.params[ln][pn].cpu(), ref,
+                                       rtol=1e-3, atol=1e-4)
+
+
+def test_lstm_sequence_kernels_replay_in_a_cuda_graph(cuda):
+    """The cooperative sequence launches captured in a CUDA graph replay
+    to the eager result (what a graph-captured training step needs)."""
+    from deeplearning4j_tpu_torch.ops import lstm_seq_fwd
+
+    xproj, h0, c0, rw, _ = _lstm_operands(12, 32, 200, 22)
+    eager = lstm_seq_fwd(xproj, h0, c0, rw)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        lstm_seq_fwd(xproj, h0, c0, rw)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lstm_seq_fwd(xproj, h0, c0, rw)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)

@@ -65,6 +65,30 @@ def test_fresh_process_runs_lenet_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_fresh_process_imports_the_layers_package_first():
+    """``nn.layers`` imported before anything else (its base module needs
+    ``nn.conf``, whose package imports the layers back): no import
+    cycle, and the char-RNN trains a TBPTT chunk on the CPU."""
+    code = (
+        "import numpy as np\n"
+        "from deeplearning4j_tpu_torch.nn.layers import GravesLSTM\n"
+        "from deeplearning4j_tpu_torch.nn.multilayer import "
+        "MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.zoo import graves_lstm_char_rnn\n"
+        "net = MultiLayerNetwork(graves_lstm_char_rnn(vocab=5, hidden=4, "
+        "tbptt_length=3), device='cpu').init()\n"
+        "x = np.eye(5, dtype=np.float32)[np.arange(6) % 5].T[None]\n"
+        "net.fit(x, np.roll(x, -1, axis=2))\n"
+        "assert net.iteration_count == 2\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -89,4 +113,5 @@ def test_cpu_forward_launches_no_kernel():
     net.output(torch.zeros(1, 784))
     assert dispatch.launch_counts() == {
         "conv_block": 0, "conv_bwd_data": 0, "conv_bwd_w": 0,
-        "matmul_block": 0}
+        "matmul_block": 0, "lstm_cell": 0, "lstm_seq_fwd": 0,
+        "lstm_seq_bwd": 0}

@@ -337,8 +337,11 @@ def test_fit_refuses_what_it_does_not_carry():
         net.set_transforms(loss_scale=True)
     tbptt = MultiLayerConfiguration.from_dict(
         dict(lenet(dense_width=8).to_dict(), backprop_type="TruncatedBPTT"))
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        MultiLayerNetwork(tbptt, device="cpu").fit(x, y)
+    # truncated BPTT is carried now: input without a time axis trains
+    # with one standard step, as in the JAX package
+    flat = MultiLayerNetwork(tbptt, device="cpu")
+    flat.fit(np.zeros((2, 784), np.float32), y)
+    assert flat.iteration_count == 1
     lbfgs = MultiLayerConfiguration.from_dict(
         dict(lenet(dense_width=8).to_dict(), optimization_algo="LBFGS"))
     with pytest.raises(NotImplementedError, match="LBFGS"):
