@@ -19,7 +19,11 @@ non-zero (nothing is caught):
    its training batch (256), and at AlexNet's batch of 64; the backward
    kernels (``conv_bwd_data``, ``conv_bwd_w``) at LeNet-5's training
    shapes (batch 256) and AlexNet's (batch 64: conv2-conv5 dx, conv1-5
-   dW, so the stride-4 and padded geometry run);
+   dW, so the stride-4 and padded geometry run); the LSTM kernels at the
+   char-RNN's chunk and bench.py's saturated shape; flash attention (both
+   entries, f32 and bf16) at the transformer's training shape and the
+   streamed entry at t 16384; the dense kernel at the transformer's input
+   projection and its residual variant at the FFN's second product;
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
    ``/predict`` requests; every answer is checked against the plain
@@ -33,7 +37,19 @@ non-zero (nothing is caught):
    about 50 steps, and examples/s and ms/step are printed;
 5. AlexNet at 224x224x3 / 1000 classes through
    ``MultiLayerNetwork.output``, checked against the plain path and
-   timed.
+   timed;
+6. the GravesLSTM char-RNN (main paths), with and without peepholes:
+   truncated-BPTT ``fit`` on SURVEY.md's characters, ``output`` and
+   ``rnn_time_step`` sampling, held against the CPU twin;
+7. the transformer LM (main paths) at bench.py:866's widths (d 768, 12
+   layers, 12 heads, vocab 256): ``[transformer]`` 20 Adam steps of
+   ``fit`` at batch 16 x t 512 on SURVEY.md's bytes (tokens/s, ms/step,
+   device ms/step and busy share, launches exact);
+   ``[transformer-twin]`` the same model at batch 4, 2 steps against the
+   CPU twin;
+   ``[transformer-sample]`` KV-cache sampling through ``rnn_time_step``
+   held against ``output``; ``[transformer-long]`` ``output`` at t 16384
+   (the streamed entry) against ``output`` on its first 512 bytes.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -70,6 +86,18 @@ CHAR_SAMPLE = 200
 # bench.py:596's saturated LSTM shape
 SATURATED = (128, 256, 1024)
 
+# the transformer LM (bench.py:866 bench_transformer's configuration)
+TX = dict(vocab=256, d_model=768, n_layers=12, n_heads=12,
+          learning_rate=3e-4)
+TX_BATCH = 16
+TX_T = 512
+TX_STEPS = 20
+TX_PROMPT = 256
+TX_SAMPLE = 64
+TX_LONG_T = 16384
+# H100 SXM bf16 dense tensor-core peak (the bound of bf16 attention)
+PEAK_BF16_FLOPS = 989e12
+
 
 def survey_corpus(vocab=CHAR_VOCAB):
     """The char-RNN's training text: the characters of ``SURVEY.md``
@@ -105,6 +133,15 @@ def char_batches(ids, batch, length, n_batches, seed, vocab=CHAR_VOCAB):
             np.ascontiguousarray(eye[seg[:, :-1]].transpose(0, 2, 1)),
             np.ascontiguousarray(eye[seg[:, 1:]].transpose(0, 2, 1))))
     return out
+
+
+def survey_bytes():
+    """The transformer's token stream: the bytes of ``SURVEY.md``
+    (beside this script) as ids 0..255."""
+    from pathlib import Path
+
+    raw = (Path(__file__).resolve().parent / "SURVEY.md").read_bytes()
+    return np.frombuffer(raw, np.uint8).astype(np.int64)
 
 
 def card_line() -> str:
@@ -191,8 +228,8 @@ def graph_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / (n * reps)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -556,9 +593,9 @@ def train_lenet(torch, card):
     net.fit(batches[3])
     torch.cuda.synchronize()
     per_step = dispatch.launch_counts()
-    expected = {"conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
-                "matmul_block": 1, "lstm_cell": 0, "lstm_seq_fwd": 0,
-                "lstm_seq_bwd": 0}
+    expected = {k: 0 for k in dispatch.KERNELS}
+    expected.update(conv_block=4, conv_bwd_data=1, conv_bwd_w=2,
+                    matmul_block=1)
     if per_step != expected:
         raise RuntimeError(f"one LeNet step launched {per_step}, expected "
                            f"{expected}")
@@ -614,9 +651,9 @@ def run_alexnet(torch, card):
     out = net.output(x)
     torch.cuda.synchronize()
     per_forward = dispatch.launch_counts()
-    if per_forward != {"conv_block": 5, "conv_bwd_data": 0, "conv_bwd_w": 0,
-                       "matmul_block": 2, "lstm_cell": 0, "lstm_seq_fwd": 0,
-                       "lstm_seq_bwd": 0}:
+    expected = {k: 0 for k in dispatch.KERNELS}
+    expected.update(conv_block=5, matmul_block=2)
+    if per_forward != expected:
         raise RuntimeError(f"AlexNet forward launched {per_forward}")
     if out.shape != (ALEXNET_BATCH, 1000) or not torch.isfinite(out).all():
         raise RuntimeError(f"bad AlexNet output {tuple(out.shape)}")
@@ -1063,6 +1100,396 @@ def sample_chars(torch, model, length: int, seed: int):
     return np.array(ids), torch.stack(probs, dim=1)
 
 
+def attention_work(bh, t, d, causal=True):
+    """(FLOPs, bytes per element) of one attention forward: the two
+    products over the unmasked (query, key) pairs, 2 operations a
+    multiply-add; q, k, v read once and o written once (4 * bh * t * d
+    elements)."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 4.0 * d * pairs * bh, 4.0 * bh * t * d
+
+
+def check_flash_kernels(torch, F, gen):
+    """Both flash-attention entries against their plain version on the
+    card, in f32 and bf16: at the transformer's training shape (b 16,
+    h 12, t 512, d 64), and the streamed entry also at the long-context
+    shape (b 1, h 12, t 16384). Two launches must give the same bits.
+    Timed beside the plain version and ``scaled_dot_product_attention``
+    (the library yardstick, never called by the port)."""
+    fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+    dev = torch.device("cuda")
+    hd = TX["d_model"] // TX["n_heads"]
+    cases = (("transformer", (TX_BATCH, TX["n_heads"], TX_T, hd),
+              ("flash_attention", "flash_attention_streamed")),
+             ("long", (1, TX["n_heads"], TX_LONG_T, hd),
+              ("flash_attention_streamed",)))
+    records = []
+    for tag, shape, entries in cases:
+        b, h, t, d = shape
+        base = [torch.randn(shape, device=dev, generator=gen)
+                for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (a.to(dtype) for a in base)
+            for entry in entries:
+                streamed = entry == "flash_attention_streamed"
+
+                def kernel():
+                    return fa._kernel_forward(q, k, v, True, streamed)
+
+                def plain():
+                    return fa.flash_attention_reference(q, k, v, True,
+                                                        streamed=streamed)
+
+                def library():
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)
+                with torch.inference_mode():
+                    got, again, ref = kernel(), kernel(), plain()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise RuntimeError(f"{entry} {tag} {dtype}: two "
+                                           "launches differ")
+                    err = float((got.float() - ref.float()).abs().max())
+                    if dtype == torch.float32:
+                        # f32 both sides, sums over up to 16384 keys in
+                        # another order: to f32 rounding of O(1) outputs
+                        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                                   atol=2e-5)
+                    else:
+                        # the same bf16 inputs and f32 arithmetic on both
+                        # sides; each output rounds once to bf16
+                        torch.testing.assert_close(got.float(), ref.float(),
+                                                   rtol=1e-2, atol=1e-2)
+                    lib_err = float((library().float()
+                                     - ref.float()).abs().max())
+                    if t <= TX_T:
+                        ms, plain_ms = graph_ms(torch, kernel), graph_ms(
+                            torch, plain)
+                        library_ms = graph_ms(torch, library)
+                    else:
+                        ms = events_ms(torch, kernel, reps=5)[0]
+                        plain_ms = events_ms(torch, plain, reps=2)[0]
+                        library_ms = events_ms(torch, library, reps=5)[0]
+                flops, elems = attention_work(b * h, t, d)
+                nbytes = elems * q.element_size()
+                peak = (PEAK_FP32_FLOPS if dtype == torch.float32
+                        else PEAK_BF16_FLOPS)
+                bound_ms, bound_by = bound(flops, nbytes, peak)
+                records.append({
+                    "kernel": entry, "shape_of": tag, "b": b, "h": h, "t": t,
+                    "d": d, "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": err, "library_max_abs_err": lib_err,
+                    "kernel_ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "gflop": flops / 1e9,
+                    "mb": nbytes / 1e6})
+    return records
+
+
+def check_transformer_matmuls(torch, gen):
+    """The dense kernel at the transformer's two shapes: the input
+    projection (m 8192, k 256, n 768, identity) and the residual variant
+    at the FFN's second product (m 8192, k 3072, n 768, the block input
+    as r), against the plain version, f32 and bf16, timed beside
+    ``torch.addmm`` (+ the residual add)."""
+    from deeplearning4j_tpu_torch.ops import (
+        matmul_block,
+        matmul_block_reference,
+    )
+
+    dev = torch.device("cuda")
+    m, d = TX_BATCH * TX_T, TX["d_model"]
+    records = []
+    for name, k, with_res in (("input", TX["vocab"], False),
+                              ("ffn2", 4 * d, True)):
+        x = torch.randn(m, k, device=dev, generator=gen)
+        w = torch.randn(k, d, device=dev, generator=gen) / k ** 0.5
+        b = 0.1 * torch.randn(d, device=dev, generator=gen)
+        r = torch.randn(m, d, device=dev, generator=gen) if with_res else None
+
+        def kernel():
+            return matmul_block(x, w, b, r)
+
+        def plain():
+            return matmul_block_reference(x, w, b, r)
+
+        def library():
+            y = torch.addmm(b, x, w)
+            return y.add_(r) if with_res else y
+        with torch.inference_mode():
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"transformer.{name}: two launches differ")
+            err = float((got - ref).abs().max())
+            # f32 both sides (TF32 off), sums of up to 3072 O(1) products
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+            rb = None if r is None else r.bfloat16()
+            gb = matmul_block(x.bfloat16(), w.bfloat16(), b, rb)
+            pb = matmul_block_reference(x.bfloat16(), w.bfloat16(), b, rb)
+            torch.testing.assert_close(gb.float(), pb.float(), rtol=2e-2,
+                                       atol=2e-2)
+            ms, plain_ms = graph_ms(torch, kernel), graph_ms(torch, plain)
+            library_ms = graph_ms(torch, library)
+        flops = 2.0 * m * k * d
+        nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + m * d
+                        + (m * d if with_res else 0))
+        bound_ms, bound_by = bound(flops, nbytes)
+        records.append({
+            "kernel": "matmul_block_residual" if with_res else "matmul_block",
+            "shape_of": f"transformer.{name}", "m": m, "k": k, "n": d,
+            "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "gflop": flops / 1e9, "mb": nbytes / 1e6})
+    return records
+
+
+def tx_conf(n_layers=None):
+    """The zoo's transformer LM at bench.py:866's widths (depth cut to
+    ``n_layers`` where given)."""
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    kw = dict(TX)
+    if n_layers:
+        kw["n_layers"] = n_layers
+    return transformer_lm(**kw)
+
+
+def tx_expected(**counts):
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    want = {k: 0 for k in dispatch.KERNELS}
+    want.update(counts)
+    return want
+
+
+def run_transformer(torch, card, ids):
+    """[transformer] full width (d 768, 12 layers, 12 heads, t 512,
+    batch 16) fits 20 minibatches of SURVEY.md's bytes through
+    ``MultiLayerNetwork.fit`` (Adam lr 3e-4, MCXENT); returns the trained
+    network and the launch counts of the run (a main path)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    net = MultiLayerNetwork(tx_conf(), device="cuda").init()
+    layers = TX["n_layers"]
+    batches = char_batches(ids, TX_BATCH, TX_T, TX_STEPS, seed=5,
+                           vocab=TX["vocab"])
+    probe = batches[0]
+    print(f"[transformer] transformer_lm({TX}) ({net.num_params()} params), "
+          f"Adam, MCXENT, batch {TX_BATCH} x t {TX_T} of SURVEY.md's bytes, "
+          f"f32")
+    first = net.score(probe)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for ds in batches:
+        net.fit(ds)
+        scores.append(net.score_value)  # waits for the card
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    want = tx_expected(flash_attention=layers * TX_STEPS,
+                       matmul_block=TX_STEPS,
+                       matmul_block_residual=layers * TX_STEPS)
+    if launches != want:
+        raise RuntimeError(f"[transformer] {TX_STEPS} steps launched "
+                           f"{launches}, expected {want}")
+    # the step's score is the training forward on the weights before it:
+    # the inference score of the same batch, to f32 rounding. At this
+    # configuration's lr (3e-4, no warm-up) the score rises for the
+    # first steps in the JAX package too (the same trajectory to 5
+    # digits on the CPU), so the run is held to the CPU twin
+    # ([transformer-twin]) rather than to a falling score
+    if abs(scores[0] - first) > 1e-5 * abs(first):
+        raise RuntimeError(f"first step scored {scores[0]}, the batch "
+                           f"scores {first}")
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"[transformer] a score is not finite: {scores}")
+    device_ms, top = profiled_device_ms(torch, lambda: net.fit(batches[:2]))
+    device_ms /= 2
+    ms_per_step = wall / TX_STEPS * 1e3
+    res = {"steps": TX_STEPS, "batch": TX_BATCH, "t": TX_T,
+           "tokens_per_s": TX_STEPS * TX_BATCH * TX_T / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "first_score": first, "scores": scores,
+           "launches_per_step": {k: v // TX_STEPS for k, v in launches.items()
+                                 if v},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[transformer] {json.dumps(res)} card={card}")
+    return net, launches
+
+
+def run_transformer_twin(torch, card, ids):
+    """[transformer-twin] the full model (every width and all 12 layers)
+    at batch 4, t 512: two Adam steps on the card and on the CPU twin
+    (the plain path), scores and every weight held."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    layers = TX["n_layers"]
+    net = MultiLayerNetwork(tx_conf(), device="cuda").init()
+    twin = cpu_twin(torch, net)
+    lr = TX["learning_rate"]
+    batches = char_batches(ids, 4, TX_T, 2, seed=6, vocab=TX["vocab"])
+    dispatch.reset_launch_counts()
+    card_scores, cpu_scores = [], []
+    for ds in batches:
+        net.fit(ds)
+        twin.fit(ds)
+        card_scores.append(net.score_value)
+        cpu_scores.append(twin.score_value)
+    launches = dispatch.launch_counts()
+    want = tx_expected(flash_attention=2 * layers, matmul_block=2,
+                       matmul_block_residual=2 * layers)
+    if launches != want:
+        raise RuntimeError(f"[transformer-twin] launched {launches}")
+    # Adam moves a weight by about lr a step whatever its gradient's
+    # size, so a gradient at the f32 noise floor can move differently:
+    # scores within rtol 1e-3, every weight within 3 lr, and at most 1 %
+    # of any parameter's entries beyond 1e-4 + 1e-3 |w|
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-3)
+    max_diff, max_off = 0.0, 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            dlt = (net.params[ln][pn].cpu() - ref).abs()
+            off = float((dlt > 1e-4 + 1e-3 * ref.abs()).float().mean())
+            max_diff = max(max_diff, float(dlt.max()))
+            max_off = max(max_off, off)
+            if float(dlt.max()) > 3 * lr or off > 0.01:
+                raise RuntimeError(f"[transformer-twin] card and CPU differ "
+                                   f"at {ln}/{pn}: max {float(dlt.max())}, "
+                                   f"{off:.2%} off")
+    res = {"layers": layers, "batch": 4, "t": TX_T,
+           "scores": {"card": card_scores, "cpu": cpu_scores},
+           "max_abs_diff": max_diff, "max_share_off": max_off}
+    print(f"[transformer-twin] {json.dumps(res)} card={card}")
+
+
+def sample_transformer(torch, card, model, ids, seed):
+    """[transformer-sample] ``rnn_time_step`` on a 256-byte prompt of
+    SURVEY.md, then 64 bytes drawn one at a time (seeded numpy) through
+    the KV cache; the probabilities must match ``output`` on the same
+    320 bytes, and overflowing the cache must raise. Returns the launch
+    counts of the streaming calls (a main path)."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    vocab, layers = TX["vocab"], TX["n_layers"]
+    rng = np.random.RandomState(seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    start = rng.randint(0, len(ids) - TX_PROMPT)
+    fed = [int(i) for i in ids[start:start + TX_PROMPT]]
+
+    def draw(p):
+        q = p.double().cpu().numpy()
+        return int(rng.choice(vocab, p=q / q.sum()))
+
+    model.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.rnn_time_step(np.ascontiguousarray(eye[fed].T[None]))[0]
+    prompt_s = time.perf_counter() - t0
+    probs = [out]
+    nxt = draw(out[:, -1])
+    t0 = time.perf_counter()
+    for _ in range(TX_SAMPLE):
+        fed.append(nxt)
+        p = model.rnn_time_step(eye[nxt][None])[0]
+        probs.append(p[:, None])
+        nxt = draw(p)
+    step_ms = (time.perf_counter() - t0) / TX_SAMPLE * 1e3
+    launches = dispatch.launch_counts()
+    calls = 1 + TX_SAMPLE
+    want = tx_expected(matmul_block=calls,
+                       matmul_block_residual=layers * calls)
+    if launches != want:
+        raise RuntimeError(f"[transformer-sample] launched {launches}, "
+                           f"expected {want}")
+    # the cache holds kv_cache timesteps: one chunk more must raise
+    cap = model.conf.layers[2].kv_cache
+    over = np.zeros((1, vocab, cap - len(fed) + 1), np.float32)
+    try:
+        model.rnn_time_step(over)
+    except ValueError as e:
+        if "overflow" not in str(e):
+            raise
+    else:
+        raise RuntimeError("overflowing the KV cache did not raise")
+    model.rnn_clear_previous_state()
+    stepped = torch.cat(probs, dim=1)
+    whole = model.output(np.ascontiguousarray(eye[fed].T[None]))[0]
+    # the cache's materialized attention vs the flash kernel over 12
+    # layers, f32; after 20 steps at lr 3e-4 the logits span tens of
+    # units, so their f32 rounding moves a probability by up to ~1e-4 of
+    # the largest: held within 1e-3 of it
+    err = close_to_scale(torch, stepped, whole, 1e-3)
+    res = {"prompt": TX_PROMPT, "sampled": TX_SAMPLE,
+           "prompt_ms": prompt_s * 1e3, "ms_per_sampled_byte": step_ms,
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_abs_err_vs_output": err,
+           "sample": bytes(fed[TX_PROMPT:]).decode("utf-8", "replace")}
+    print(f"[transformer-sample] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_transformer_long(torch, card, model, ids, seed):
+    """[transformer-long] ``output`` on 16,384 bytes of SURVEY.md at
+    full depth: t * d = 1,048,576 > 524,288, so every layer launches the
+    streamed entry; its first 512 positions must match ``output`` on
+    those 512 bytes (the resident entry), by causality the same
+    function. Returns the launch counts of both calls (a main path)."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    vocab, layers = TX["vocab"], TX["n_layers"]
+    rng = np.random.RandomState(seed)
+    start = rng.randint(0, len(ids) - TX_LONG_T)
+    x = np.ascontiguousarray(
+        np.eye(vocab, dtype=np.float32)[ids[start:start + TX_LONG_T]].T[None])
+    xt = torch.from_numpy(x).cuda()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.output(xt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    long_counts = dispatch.launch_counts()
+    want = tx_expected(flash_attention_streamed=layers,
+                       matmul_block=1, matmul_block_residual=layers)
+    if long_counts != want:
+        raise RuntimeError(f"[transformer-long] launched {long_counts}, "
+                           f"expected {want}")
+    head = model.output(xt[:, :, :TX_T])
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    if launches["flash_attention"] != layers:
+        raise RuntimeError(f"[transformer-long] the 512-byte output "
+                           f"launched {launches}")
+    if out.shape != (1, vocab, TX_LONG_T) or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"bad long output {tuple(out.shape)}")
+    # same inputs up to position 512; the dense products of 16,384 and
+    # 512 rows sum in other orders (split-K at 512 rows): to f32 rounding
+    # of large logits, as in [transformer-sample]
+    err = close_to_scale(torch, out[:, :, :TX_T], head, 1e-3)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.output(xt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"t": TX_LONG_T, "layers": layers, "first_call_ms": wall * 1e3,
+           "ms_per_output": float(np.median(times)) * 1e3,
+           "tokens_per_s": TX_LONG_T / float(np.median(times)),
+           "launches": {k: v for k, v in launches.items() if v},
+           "head_max_abs_err_vs_t512": err}
+    print(f"[transformer-long] {json.dumps(res)} card={card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1110,6 +1537,10 @@ def main() -> int:
         for rec in check_lstm_kernels(torch, model, T, b, n, gen):
             records.append(rec)
             print(f"[kernel] {json.dumps(rec)}")
+    for rec in (check_flash_kernels(torch, F, gen)
+                + check_transformer_matmuls(torch, gen)):
+        records.append(rec)
+        print(f"[kernel] {json.dumps(rec)}")
     layers = []
     for model, n_in, (T, b, n) in (
             ("charrnn", CHAR_VOCAB, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
@@ -1125,6 +1556,12 @@ def main() -> int:
     ids, alphabet = survey_corpus()
     char_peep = run_charrnn(torch, card, True, ids, alphabet)
     char_seq = run_charrnn(torch, card, False, ids, alphabet)
+    tokens = survey_bytes()
+    lm, tx_fit = run_transformer(torch, card, tokens)
+    run_transformer_twin(torch, card, tokens)
+    tx_sample = sample_transformer(torch, card, lm, tokens, seed=7)
+    tx_long = run_transformer_long(torch, card, lm, tokens, seed=8)
+    tx_paths = (tx_fit, tx_sample, tx_long)
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -1152,7 +1589,7 @@ def main() -> int:
         bound_ms, bound_by = bound(flops, nbytes)
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": served[k] + trained[k],
+            "launches": served[k] + trained[k] + sum(c[k] for c in tx_paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -1182,6 +1619,31 @@ def main() -> int:
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": lib,
+        })
+    # the transformer's kernels: f32 at the main path's shapes (flash
+    # attention's resident entry and the residual matmul at the training
+    # shape, the streamed entry at t 16384); launches of the transformer's
+    # main paths (fit, sampling, long-context output). library_ms:
+    # scaled_dot_product_attention, torch.addmm + the residual add
+    for k, src, replaces, shape_of in (
+            ("flash_attention", "flash_attention.cu",
+             "deeplearning4j_tpu/ops/flash_attention.py:32", "transformer"),
+            ("flash_attention_streamed", "flash_attention.cu",
+             "deeplearning4j_tpu/ops/flash_attention.py:180", "long"),
+            ("matmul_block_residual", "matmul_block.cu",
+             "deeplearning4j_tpu/ops/matmul_block.py:59",
+             "transformer.ffn2")):
+        mine = [r for r in records if r["kernel"] == k
+                and r.get("dtype", "float32") == "float32"]
+        main = next(r for r in mine if r["shape_of"] == shape_of)
+        kernels.append({
+            "name": k, "route": "cuda", "source": csrc + src,
+            "replaces": replaces,
+            "launches": sum(c[k] for c in tx_paths),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

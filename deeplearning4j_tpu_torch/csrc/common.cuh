@@ -111,17 +111,19 @@ inline long long r_chunk_for(long long r_len, int splits) {
 // kernel, so the objects register no shared kernel symbol.
 namespace {
 
-// out[i] = act(sum_z partial[z][i] * scale[ch] + shift[ch]), with
-// ch = (i / inner) % n_ch: NCHW conv output (inner = oh*ow, n_ch = o) or
-// a row-major matmul output (inner = 1, n_ch = n). scale may be null (1),
-// and so may shift (0): the backward kernels' plain sums.
+// out[i] = act(sum_z partial[z][i] * scale[ch] + shift[ch] [+ res[i]]),
+// with ch = (i / inner) % n_ch: NCHW conv output (inner = oh*ow, n_ch =
+// o) or a row-major matmul output (inner = 1, n_ch = n). scale may be
+// null (1), and so may shift (0): the backward kernels' plain sums; res
+// (the matmul's pre-activation residual, output layout) may be null.
 template <typename T>
 __global__ void splitk_finish_kernel(const float* __restrict__ partial,
                                      int splits, long long total,
                                      const float* __restrict__ scale,
                                      const float* __restrict__ shift,
                                      long long inner, int n_ch, int act,
-                                     T* __restrict__ out) {
+                                     T* __restrict__ out,
+                                     const T* __restrict__ res) {
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += step) {
@@ -130,7 +132,9 @@ __global__ void splitk_finish_kernel(const float* __restrict__ partial,
     const int ch = (int)((i / inner) % n_ch);
     const float sc = scale != nullptr ? scale[ch] : 1.0f;
     const float sf = shift != nullptr ? shift[ch] : 0.0f;
-    out[i] = from_f32<T>(apply_act(z * sc + sf, act));
+    z = z * sc + sf;
+    if (res != nullptr) z += to_f32(res[i]);
+    out[i] = from_f32<T>(apply_act(z, act));
   }
 }
 
@@ -138,12 +142,12 @@ template <typename T>
 int launch_splitk_finish(const float* partial, int splits, long long total,
                          const float* scale, const float* shift,
                          long long inner, int n_ch, int act, T* out,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const T* res = nullptr) {
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 8 * kSmCount * 8) blocks = 8 * kSmCount * 8;
   splitk_finish_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      partial, splits, total, scale, shift, inner, n_ch, act, out);
+      partial, splits, total, scale, shift, inner, n_ch, act, out, res);
   return (int)cudaGetLastError();
 }
 

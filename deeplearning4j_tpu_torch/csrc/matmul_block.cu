@@ -1,12 +1,16 @@
-// Fused dense layer: out = act(x @ w + b).
+// Fused dense layer: out = act(x @ w + b [+ r]).
 //
-// Replaces deeplearning4j_tpu/ops/matmul_block.py::_matmul_kernel
-// (reached through _matmul_block_call from matmul_block).
+// Replaces deeplearning4j_tpu/ops/matmul_block.py::_matmul_kernel (:53)
+// and, with the residual operand, ::_matmul_res_kernel (:59), both
+// reached through _matmul_block_call from matmul_block.
 //
 // Layout: x [m, k], w [k, n] (the layer's W as stored, y = x @ W + b;
-// not nn.Linear's [out, in]), b f32 [n], out [m, n]. x, w and out share
-// one element type (f32, bf16 or f16); the sum is f32 in registers and
-// is cast once on the store, as the TPU kernel does.
+// not nn.Linear's [out, in]), b f32 [n], r and out [m, n]. x, w, r and
+// out share one element type (f32, bf16 or f16); the sum is f32 in
+// registers and is cast once on the store, as the TPU kernel does. The
+// residual r (nullable: the residual-free path is the same code with a
+// uniform branch) is added to the f32 sum after the bias and before the
+// activation, in the TPU kernel's order: act((x @ w + b) + r).
 //
 // What bounds it on an H100: at serving batch sizes the product is
 // skinny. AlexNet's 9216 -> 4096 layer at batch 64 does 4.8 GFLOP but
@@ -46,7 +50,8 @@ constexpr int kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     matmul_block_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        const float* __restrict__ bias, T* __restrict__ out,
+                        const float* __restrict__ bias,
+                        const T* __restrict__ res, T* __restrict__ out,
                         float* __restrict__ partial, int m, int k_len, int n,
                         int k_chunk, int act) {
   __shared__ float x_s[kKSlice][kMBlock + 4];
@@ -120,8 +125,9 @@ __global__ void __launch_bounds__(kThreads)
       if (partial != nullptr) {
         partial[(size_t)blockIdx.z * m * n + idx] = acc[i][j];
       } else {
-        const float z = dl4j::apply_act(acc[i][j] + bias[col], act);
-        out[idx] = dl4j::from_f32<T>(z);
+        float z = acc[i][j] + bias[col];
+        if (res != nullptr) z += dl4j::to_f32(res[idx]);
+        out[idx] = dl4j::from_f32<T>(dl4j::apply_act(z, act));
       }
     }
   }
@@ -132,9 +138,9 @@ long long tiles(int m, int n) {
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const float* bias, void* out,
-           float* partial, int m, int k, int n, int act, int splits,
-           cudaStream_t stream) {
+int launch(const void* x, const void* w, const float* bias, const void* res,
+           void* out, float* partial, int m, int k, int n, int act,
+           int splits, cudaStream_t stream) {
   const long long m_blocks = dl4j::ceil_div(m, kMBlock);
   const long long n_blocks = dl4j::ceil_div(n, kNBlock);
   if (m_blocks > 65535 || n_blocks > 0x7fffffffLL)
@@ -150,13 +156,13 @@ int launch(const void* x, const void* w, const float* bias, void* out,
   dim3 grid((unsigned)n_blocks, (unsigned)m_blocks, (unsigned)z);
   matmul_block_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), bias,
-      static_cast<T*>(out), z > 1 ? partial : nullptr, m, k, n, k_chunk,
-      act);
+      static_cast<const T*>(res), static_cast<T*>(out),
+      z > 1 ? partial : nullptr, m, k, n, k_chunk, act);
   const int rc = (int)cudaGetLastError();
   if (rc != 0 || z == 1) return rc;
   return dl4j::launch_splitk_finish<T>(partial, z, (long long)m * n, nullptr,
                                        bias, 1, n, act, static_cast<T*>(out),
-                                       stream);
+                                       stream, static_cast<const T*>(res));
 }
 
 }  // namespace
@@ -169,24 +175,26 @@ extern "C" int dl4j_matmul_block_splits(int m, int k, int n) {
 }
 
 // Returns the cudaError_t of the launch (0 on success). Shapes are
-// validated by the Python wrapper (ops/matmul_block.py); `partial` is
-// the split-K scratch (null when splits is 1).
+// validated by the Python wrapper (ops/matmul_block.py); `res` is the
+// [m, n] residual (null: none); `partial` is the split-K scratch (null
+// when splits is 1).
 extern "C" int dl4j_matmul_block(const void* x, const void* w,
-                                 const void* bias, void* out, void* partial,
-                                 int dtype, int m, int k, int n, int act,
-                                 int splits, void* stream) {
+                                 const void* bias, const void* res,
+                                 void* out, void* partial, int dtype, int m,
+                                 int k, int n, int act, int splits,
+                                 void* stream) {
   if (m <= 0 || n <= 0) return 0;
   const float* b = static_cast<const float*>(bias);
   float* ws = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case dl4j::kF32:
-      return launch<float>(x, w, b, out, ws, m, k, n, act, splits, st);
+      return launch<float>(x, w, b, res, out, ws, m, k, n, act, splits, st);
     case dl4j::kBF16:
-      return launch<__nv_bfloat16>(x, w, b, out, ws, m, k, n, act, splits,
-                                   st);
+      return launch<__nv_bfloat16>(x, w, b, res, out, ws, m, k, n, act,
+                                   splits, st);
     case dl4j::kF16:
-      return launch<__half>(x, w, b, out, ws, m, k, n, act, splits, st);
+      return launch<__half>(x, w, b, res, out, ws, m, k, n, act, splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

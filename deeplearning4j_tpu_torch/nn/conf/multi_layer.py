@@ -11,9 +11,10 @@ preprocessors, as there.
 
 The JAX package's whole-net transform hints (``scan_layers``,
 ``remat``, ``loss_scale``) change only its compiled programs and are
-not serialized; the port has no counterpart of them. Training fields
-(updater, learning rate, optimization algorithm) are parsed and kept
-for the training slice.
+not serialized. The port has no counterpart of them yet: the Builder
+takes their off values (``False``, ``"none"``, ``None``), which change
+nothing, and raises on any other, as ``MultiLayerNetwork.set_transforms``
+does.
 """
 
 from __future__ import annotations
@@ -175,6 +176,13 @@ def _auto_preprocessor(current: InputType,
     return None
 
 
+def _refuse_transform(name: str, value) -> None:
+    raise NotImplementedError(
+        f"Builder.{name}({value!r}): whole-net transforms (scan_layers, "
+        "remat, loss scaling) arrive with the runtime subsystems slice; "
+        "the off values are taken")
+
+
 class ListBuilder:
     """Reference ``NeuralNetConfiguration.ListBuilder``."""
 
@@ -328,6 +336,23 @@ class NeuralNetConfiguration:
 
         def minimize(self, m: bool):
             self._minimize = m
+            return self
+
+        def scan_layers(self, enabled: bool = True):
+            """Whole-net transform hint of the JAX package; only the off
+            value is taken."""
+            if enabled:
+                _refuse_transform("scan_layers", enabled)
+            return self
+
+        def remat(self, policy: str = "full"):
+            if policy != "none":
+                _refuse_transform("remat", policy)
+            return self
+
+        def loss_scale(self, scale=True):
+            if scale:
+                _refuse_transform("loss_scale", scale)
             return self
 
         def use_drop_connect(self, use: bool = True):

@@ -1,5 +1,11 @@
 """Layers ported so far (their names register for ``layer_from_json``)."""
 
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    LayerNormalization,
+    MultiHeadSelfAttention,
+    PositionalEncoding,
+    TransformerBlock,
+)
 from deeplearning4j_tpu_torch.nn.layers.base import (
     LAYER_REGISTRY,
     FeedForwardLayerSpec,
@@ -29,10 +35,14 @@ __all__ = [
     "FeedForwardLayerSpec",
     "GravesBidirectionalLSTM",
     "GravesLSTM",
+    "LayerNormalization",
     "LayerSpec",
+    "MultiHeadSelfAttention",
     "OutputLayer",
+    "PositionalEncoding",
     "RnnOutputLayer",
     "SubsamplingLayer",
+    "TransformerBlock",
     "layer_from_json",
     "layer_to_json",
     "register_layer",

@@ -14,6 +14,11 @@ from deeplearning4j_tpu_torch.ops.conv_block import (
     conv_bwd_w,
     conv_bwd_w_reference,
 )
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+    mha,
+)
 from deeplearning4j_tpu_torch.ops.lstm_cell import (
     lstm_cell,
     lstm_cell_diff,
@@ -38,6 +43,8 @@ __all__ = [
     "conv_bwd_w",
     "conv_bwd_w_reference",
     "dispatch",
+    "flash_attention",
+    "flash_attention_reference",
     "lstm_cell",
     "lstm_cell_diff",
     "lstm_cell_reference",
@@ -48,4 +55,5 @@ __all__ = [
     "lstm_sequence",
     "matmul_block",
     "matmul_block_reference",
+    "mha",
 ]

@@ -28,8 +28,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("conv_block.cu", "conv_bwd.cu", "lstm_cell.cu", "lstm_seq.cu",
-           "matmul_block.cu")
+SOURCES = ("conv_block.cu", "conv_bwd.cu", "flash_attention.cu",
+           "lstm_cell.cu", "lstm_seq.cu", "matmul_block.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -114,7 +114,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_conv_bwd_data_splits.restype = i
     lib.dl4j_conv_bwd_w_splits.argtypes = [i] * 7
     lib.dl4j_conv_bwd_w_splits.restype = i
-    lib.dl4j_matmul_block.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.dl4j_matmul_block.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.dl4j_matmul_block.restype = i
     lib.dl4j_matmul_block_splits.argtypes = [i] * 3
     lib.dl4j_matmul_block_splits.restype = i
@@ -124,6 +124,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_lstm_seq_fwd.restype = i
     lib.dl4j_lstm_seq_bwd.argtypes = [p] * 12 + [i] * 3 + [p]
     lib.dl4j_lstm_seq_bwd.restype = i
+    for name in ("dl4j_flash_attention", "dl4j_flash_attention_streamed"):
+        getattr(lib, name).argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
+        getattr(lib, name).restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.dl4j_lstm_seq_plan.argtypes = [i] * 3 + [ip, ip]
     lib.dl4j_lstm_seq_plan.restype = i

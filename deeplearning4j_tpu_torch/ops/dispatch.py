@@ -16,8 +16,12 @@ import torch
 # Launch counters, one plain integer per kernel wrapper. A wrapper adds
 # one where it launches its kernel and nowhere else, so a run can show
 # that its main path went through the kernels.
+# The two flash-attention entries (one kernel template) count apart, one
+# counter per TPU schedule; so does the residual variant of the dense
+# kernel, a TPU kernel of its own.
 KERNELS = ("conv_block", "conv_bwd_data", "conv_bwd_w", "matmul_block",
-           "lstm_cell", "lstm_seq_fwd", "lstm_seq_bwd")
+           "lstm_cell", "lstm_seq_fwd", "lstm_seq_bwd", "flash_attention",
+           "flash_attention_streamed", "matmul_block_residual")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

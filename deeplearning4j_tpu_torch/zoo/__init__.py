@@ -2,6 +2,7 @@ from deeplearning4j_tpu_torch.zoo.models import (
     alexnet,
     graves_lstm_char_rnn,
     lenet,
+    transformer_lm,
 )
 
-__all__ = ["alexnet", "graves_lstm_char_rnn", "lenet"]
+__all__ = ["alexnet", "graves_lstm_char_rnn", "lenet", "transformer_lm"]

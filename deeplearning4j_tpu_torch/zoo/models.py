@@ -1,8 +1,8 @@
 """Model zoo: builders for the configurations the port serves so far.
 
 Counterpart of ``deeplearning4j_tpu/zoo/models.py`` for ``lenet``,
-``alexnet`` and ``graves_lstm_char_rnn``, with the JAX package's
-defaults, so each builder here
+``alexnet``, ``transformer_lm`` and ``graves_lstm_char_rnn``, with the
+JAX package's defaults, so each builder here
 gives the same ``configuration.json`` as its counterpart there. Callers
 wrap the configuration in ``MultiLayerNetwork(conf, device=...)`` and
 ``.init()`` it.
@@ -14,8 +14,10 @@ from deeplearning4j_tpu_torch.nn.layers import (
     DenseLayer,
     GravesLSTM,
     OutputLayer,
+    PositionalEncoding,
     RnnOutputLayer,
     SubsamplingLayer,
+    TransformerBlock,
 )
 
 
@@ -76,6 +78,37 @@ def alexnet(height=224, width=224, channels=3, n_classes=1000, *,
         .set_input_type(InputType.convolutional(height, width, channels))
         .build()
     )
+
+
+def transformer_lm(vocab=77, d_model=256, n_layers=4, n_heads=8, *,
+                   ffn_hidden=None, n_experts=0, updater="ADAM",
+                   learning_rate=1e-3, seed=42, dtype="float32",
+                   compute_dtype=None, scan_layers=False, remat="none",
+                   loss_scale=None):
+    """Decoder-only transformer language model: a dense input
+    projection of the ``[b, vocab, t]`` one-hots, sinusoidal positional
+    encoding, ``n_layers`` causal pre-norm TransformerBlocks (flash
+    attention), a softmax head over the vocabulary. The transform hints
+    take only their off values, and ``n_experts > 0`` raises (neither
+    is ported yet)."""
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed).learning_rate(learning_rate).updater(updater)
+        .data_type(dtype).compute_data_type(compute_dtype)
+        .scan_layers(scan_layers).remat(remat).loss_scale(loss_scale)
+        .list()
+        .layer(DenseLayer(n_out=d_model, activation="identity"))
+        .layer(PositionalEncoding())
+    )
+    for _ in range(n_layers):
+        b.layer(TransformerBlock(
+            n_heads=n_heads, causal=True,
+            ffn_hidden=ffn_hidden or 4 * d_model,
+            n_experts=n_experts,
+        ))
+    b.layer(RnnOutputLayer(n_out=vocab, loss="MCXENT"))
+    b.set_input_type(InputType.recurrent(vocab))
+    return b.build()
 
 
 def graves_lstm_char_rnn(vocab=77, hidden=200, n_layers=2, *,

@@ -28,8 +28,10 @@ from deeplearning4j_tpu_torch.ops import (
     conv_bwd_w,
     conv_bwd_w_reference,
     dispatch,
+    flash_attention,
     matmul_block,
     matmul_block_reference,
+    mha,
 )
 
 pytestmark = pytest.mark.cuda
@@ -269,7 +271,9 @@ def test_conv_block_grads_match_plain_and_count_launches(cuda, activation):
             assert counts == {"conv_block": 2, "conv_bwd_data": 1,
                               "conv_bwd_w": 1, "matmul_block": 0,
                               "lstm_cell": 0, "lstm_seq_fwd": 0,
-                              "lstm_seq_bwd": 0}
+                              "lstm_seq_bwd": 0, "flash_attention": 0,
+                              "flash_attention_streamed": 0,
+                              "matmul_block_residual": 0}
         else:
             assert sum(counts.values()) == 0
     for got, ref in zip(*grads):
@@ -340,7 +344,8 @@ def test_lenet_fit_step_on_the_card_matches_the_cpu_twin(cuda):
     assert dispatch.launch_counts() == {
         "conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
         "matmul_block": 1, "lstm_cell": 0, "lstm_seq_fwd": 0,
-        "lstm_seq_bwd": 0}
+        "lstm_seq_bwd": 0, "flash_attention": 0,
+        "flash_attention_streamed": 0, "matmul_block_residual": 0}
     twin.fit(ds)
     np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
     lr = 0.01
@@ -628,3 +633,229 @@ def test_lstm_sequence_kernels_replay_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+# flash attention (b, h, t, d): the transformer's head dimension at a
+# few q tiles, ragged t (a partial last tile; t 1), every head-dimension
+# padding (8 -> 32, 48 -> 64, 128), and the long-context schedule's d
+FLASH_CASES = [(2, 3, 128, 64), (1, 2, 100, 64), (2, 2, 17, 8),
+               (1, 1, 130, 128), (1, 2, 1, 32), (1, 2, 300, 48)]
+
+
+def _qkv(shape, device, dtype=torch.float32, seed=30):
+    rng = np.random.RandomState(seed)
+    return tuple(_t(rng.randn(*shape), device, dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("shape", FLASH_CASES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_flash_attention_kernel_matches_plain(cuda, shape, causal, streamed):
+    import importlib
+
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    entry = "flash_attention_streamed" if streamed else "flash_attention"
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        q, k, v = _qkv(shape, cuda, dtype)
+        before = dispatch.launch_counts()[entry]
+        with torch.inference_mode():
+            out = fa._kernel_forward(q, k, v, causal, streamed)
+            again = fa._kernel_forward(q, k, v, causal, streamed)
+            ref = fa.flash_attention_reference(q, k, v, causal,
+                                               streamed=streamed)
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts()[entry] == before + 2
+        assert out.dtype == dtype and torch.equal(out, again)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_attention_picks_the_entry_by_t_times_d(cuda, monkeypatch):
+    import importlib
+
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    q, k, v = _qkv((1, 2, 64, 16), cuda)
+    dispatch.reset_launch_counts()
+    with torch.inference_mode():
+        resident = flash_attention(q, k, v, causal=True)
+        monkeypatch.setattr(fa, "_RESIDENT_TD_LIMIT", 63)
+        streamed = flash_attention(q, k, v, causal=True)
+    counts = dispatch.launch_counts()
+    assert (counts["flash_attention"],
+            counts["flash_attention_streamed"]) == (1, 1)
+    assert torch.equal(resident, streamed)  # f32: the same function
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    """A launch the kernel refuses raises; it never runs the plain
+    version instead."""
+    dispatch.reset_launch_counts()
+    q, k, v = _qkv((1, 2, 16, 136), cuda)
+    with pytest.raises(ValueError, match="head dimension 136"):
+        flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head dimension"):
+        mha(q, k, v, causal=True)
+    qd, kd, vd = _qkv((1, 2, 16, 8), cuda, torch.float64)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        flash_attention(qd, kd, vd)
+    q, k, v = _qkv((1, 2, 16, 8), cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.cpu(), v)
+    assert sum(dispatch.launch_counts().values()) == 0
+
+
+def test_mha_routes_every_mask_free_card_call_to_the_kernel(cuda):
+    from deeplearning4j_tpu_torch.parallel.sequence import attention
+
+    q, k, v = _qkv((2, 2, 24, 16), cuda)   # t 24: not attention_seq_ok
+    mask = torch.ones(2, 24, device=cuda)
+    mask[0, 10:] = 0
+    dispatch.reset_launch_counts()
+    with torch.inference_mode():
+        out = mha(q, k, v, causal=True)
+        assert dispatch.launch_counts()["flash_attention"] == 1
+        masked = mha(q, k, v, causal=True, mask=mask)
+        assert dispatch.launch_counts()["flash_attention"] == 1
+        torch.testing.assert_close(out, attention(q, k, v, causal=True),
+                                   rtol=1e-4, atol=2e-5)
+        torch.testing.assert_close(
+            masked, attention(q, k, v, causal=True, mask=mask))
+
+
+def test_flash_attention_grads_match_the_cpu(cuda, monkeypatch):
+    """The backward (the reference recompute; above the limit the
+    blockwise loop) on the card against the same on the CPU."""
+    import importlib
+
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    shape = (2, 2, 96, 32)
+    g = np.random.RandomState(31).randn(*shape)
+    for limit in (2048, 63):
+        monkeypatch.setattr(fa, "_BWD_MATERIALIZE_T_LIMIT", limit)
+        grads = []
+        for dev in (cuda, "cpu"):
+            leaves = [a.requires_grad_(True) for a in _qkv(shape, dev)]
+            out = flash_attention(*leaves, causal=True)
+            grads.append(torch.autograd.grad(out, leaves, _t(g, dev)))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+# (m, k, n) of the residual variant: the FFN's second product of a narrow
+# block, a split-K shape (few tiles, deep k; the finish pass adds r) and
+# ragged edges
+RES_CASES = [(96, 128, 32), (16, 3072, 64), (70, 33, 129)]
+
+
+@pytest.mark.parametrize("m,k,n", RES_CASES)
+@pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
+def test_residual_matmul_kernel_matches_plain(cuda, m, k, n, activation):
+    rng = np.random.RandomState(32)
+    x = _t(rng.randn(m, k), cuda)
+    w = _t(rng.randn(k, n) / np.sqrt(k), cuda)
+    b = _t(rng.randn(n) * 0.1, cuda)
+    r = _t(rng.randn(m, n), cuda)
+    before = dispatch.launch_counts()
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation=activation)
+        ref = matmul_block_reference(x, w, b, r, activation=activation)
+        outb = matmul_block(x.bfloat16(), w.bfloat16(), b, r.bfloat16(),
+                            activation=activation)
+        refb = matmul_block_reference(x.bfloat16(), w.bfloat16(), b,
+                                      r.bfloat16(), activation=activation)
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()
+    assert after["matmul_block_residual"] == before[
+        "matmul_block_residual"] + 2
+    assert after["matmul_block"] == before["matmul_block"]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outb.float(), refb.float(), rtol=2e-2,
+                               atol=2e-2)
+    with pytest.raises(ValueError, match="residual"):
+        matmul_block(x, w, b, r[:-1].contiguous())
+
+
+def test_residual_matmul_grads_match_plain(cuda):
+    rng = np.random.RandomState(33)
+    arrays = (rng.randn(40, 64), rng.randn(64, 24) / 8, rng.randn(24) * 0.1,
+              rng.randn(40, 24))
+    g = rng.randn(40, 24)
+    grads = []
+    for fn in (matmul_block, matmul_block_reference):
+        leaves = [_t(a, cuda).requires_grad_(True) for a in arrays]
+        out = fn(*leaves, activation="tanh")
+        grads.append(torch.autograd.grad(out, leaves, _t(g, cuda)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _narrow_transformer():
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    return transformer_lm(vocab=11, d_model=64, n_layers=2, n_heads=4)
+
+
+def test_transformer_fit_on_card_matches_cpu(cuda):
+    """Two Adam steps of a narrow transformer LM on the card and on its
+    CPU twin, with one step's launches: 2 flash attention (one a block),
+    1 dense (the input projection), 2 residual (the FFN's second
+    products)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    net = MultiLayerNetwork(_narrow_transformer(), device=cuda).init()
+    twin = MultiLayerNetwork(net.conf, device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    ids = np.random.RandomState(34).randint(0, 11, (3, 97))
+    eye = np.eye(11, dtype=np.float32)
+    ds = DataSet(np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+                 np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1)))
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "flash_attention": 2, "matmul_block": 1, "matmul_block_residual": 2}
+    twin.fit(ds)
+    net.fit(ds)
+    twin.fit(ds)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            torch.testing.assert_close(net.params[ln][pn].cpu(), ref,
+                                       rtol=1e-3, atol=1e-5)
+
+
+def test_transformer_streaming_on_card_matches_output(cuda):
+    """rnn_time_step through the KV cache launches no flash attention
+    and gives output's probabilities; the long-context entry's first
+    positions equal a short output (causality)."""
+    import importlib
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    net = MultiLayerNetwork(_narrow_transformer(), device=cuda).init()
+    ids = np.random.RandomState(35).randint(0, 11, 40)
+    x = np.ascontiguousarray(np.eye(11, dtype=np.float32)[ids].T[None])
+    full = net.output(x)
+    dispatch.reset_launch_counts()
+    head = net.rnn_time_step(x[:, :, :30])
+    steps = [net.rnn_time_step(x[:, :, t]) for t in range(30, 40)]
+    assert dispatch.launch_counts()["flash_attention"] == 0
+    stepped = torch.cat([head, torch.stack(steps, dim=2)], dim=2)
+    _close_to_scale(stepped, full, 1e-4)
+    old = fa._RESIDENT_TD_LIMIT
+    try:
+        fa._RESIDENT_TD_LIMIT = 16 * 16
+        dispatch.reset_launch_counts()
+        long = net.output(x)
+        assert dispatch.launch_counts()["flash_attention_streamed"] == 2
+    finally:
+        fa._RESIDENT_TD_LIMIT = old
+    torch.testing.assert_close(long, full)

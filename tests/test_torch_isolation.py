@@ -89,6 +89,37 @@ def test_fresh_process_imports_the_layers_package_first():
     assert out.stdout.strip() == "ok"
 
 
+def test_port_files_cover_the_transformer_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("parallel/__init__.py", "parallel/sequence.py",
+                   "ops/flash_attention.py", "nn/layers/attention.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+def test_fresh_process_runs_the_transformer_without_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "from deeplearning4j_tpu_torch.nn.multilayer import "
+        "MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.zoo import transformer_lm\n"
+        "net = MultiLayerNetwork(transformer_lm(vocab=7, d_model=16, "
+        "n_layers=1, n_heads=2), device='cpu').init()\n"
+        "x = np.eye(7, dtype=np.float32)[np.arange(9) % 7].T[None]\n"
+        "net.fit(x, np.roll(x, -1, axis=2))\n"
+        "y = net.rnn_time_step(x[:, :, 0])\n"
+        "assert tuple(y.shape) == (1, 7)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -114,4 +145,5 @@ def test_cpu_forward_launches_no_kernel():
     assert dispatch.launch_counts() == {
         "conv_block": 0, "conv_bwd_data": 0, "conv_bwd_w": 0,
         "matmul_block": 0, "lstm_cell": 0, "lstm_seq_fwd": 0,
-        "lstm_seq_bwd": 0}
+        "lstm_seq_bwd": 0, "flash_attention": 0,
+        "flash_attention_streamed": 0, "matmul_block_residual": 0}

@@ -187,7 +187,8 @@ def test_dense_without_epilogue_takes_plain_path():
     assert dispatch.launch_counts() == {
         "conv_block": 0, "conv_bwd_data": 0, "conv_bwd_w": 0,
         "matmul_block": 0, "lstm_cell": 0, "lstm_seq_fwd": 0,
-        "lstm_seq_bwd": 0}
+        "lstm_seq_bwd": 0, "flash_attention": 0,
+        "flash_attention_streamed": 0, "matmul_block_residual": 0}
 
 
 def test_checkpoint_from_port_restores_in_jax(tmp_path):
