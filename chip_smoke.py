@@ -23,7 +23,10 @@ non-zero (nothing is caught):
    char-RNN's chunk and bench.py's saturated shape; flash attention (both
    entries, f32 and bf16) at the transformer's training shape and the
    streamed entry at t 16384; the dense kernel at the transformer's input
-   projection and its residual variant at the FFN's second product;
+   projection and its residual variant at the FFN's second product.
+   Each record names the kernel route its shape took; the run fails
+   when a main-path shape of ``conv_bwd_data`` or the dense kernel took
+   another route than the one designed for it (``INTENDED_ROUTES``);
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
    ``/predict`` requests; every answer is checked against the plain
@@ -262,6 +265,7 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
         conv_bwd_w,
         conv_bwd_w_reference,
     )
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
 
     dev = torch.device("cuda")
     xs, ws = tuple(geo["x"]), tuple(geo["w"])
@@ -310,7 +314,11 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
     plain_ms = graph_ms(torch, plain)
     library_ms = graph_ms(torch, library)
     bound_ms, bound_by = bound(flops, nbytes)
-    return {"kernel": kind, "shape_of": f"{model}.{name}", "x": list(xs),
+    route = "gemm"  # conv_bwd_w has the one implicit GEMM
+    if kind == "conv_bwd_data":
+        route = conv_bwd_data_route(*xs, ws[0], ws[2], ws[3], st, pad).route
+    return {"kernel": kind, "kernel_route": route,
+            "shape_of": f"{model}.{name}", "x": list(xs),
             "w": list(ws), "stride": list(st), "padding": list(pad),
             "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -327,6 +335,7 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         matmul_block,
         matmul_block_reference,
     )
+    from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
     dev = torch.device("cuda")
     act = geo["activation"]
@@ -394,7 +403,10 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         plain_ms = graph_ms(torch, plain)
         library_ms = graph_ms(torch, library)
     bound_ms, bound_by = bound(flops, nbytes)
-    return {"kernel": kind, "shape_of": f"{model}.{name}", **shape,
+    route = ("direct" if kind == "conv_block"
+             else matmul_route(geo["m"], geo["n"]))
+    return {"kernel": kind, "kernel_route": route,
+            "shape_of": f"{model}.{name}", **shape,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "gflop": flops / 1e9, "mb": nbytes / 1e6}
@@ -788,7 +800,8 @@ def check_lstm_kernels(torch, model, T, b, n, gen):
             plain_ms = graph_ms(torch, plain, reps=1)
         flops, nbytes = lstm_work(kind, T, b, n, variant)
         bound_ms, bound_by = bound(flops, nbytes)
-        rec = {"kernel": kind, "variant": variant, "shape_of": model,
+        rec = {"kernel": kind, "kernel_route": "single", "variant": variant,
+               "shape_of": model,
                "T": T if kind != "lstm_cell" else 1, "b": b, "n": n,
                "max_abs_err": err, "kernel_ms": ms,
                "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
@@ -1176,7 +1189,8 @@ def check_flash_kernels(torch, F, gen):
                         else PEAK_BF16_FLOPS)
                 bound_ms, bound_by = bound(flops, nbytes, peak)
                 records.append({
-                    "kernel": entry, "shape_of": tag, "b": b, "h": h, "t": t,
+                    "kernel": entry, "kernel_route": "single",
+                    "shape_of": tag, "b": b, "h": h, "t": t,
                     "d": d, "dtype": str(dtype).replace("torch.", ""),
                     "max_abs_err": err, "library_max_abs_err": lib_err,
                     "kernel_ms": ms, "plain_ms": plain_ms,
@@ -1196,6 +1210,7 @@ def check_transformer_matmuls(torch, gen):
         matmul_block,
         matmul_block_reference,
     )
+    from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
     dev = torch.device("cuda")
     m, d = TX_BATCH * TX_T, TX["d_model"]
@@ -1237,11 +1252,34 @@ def check_transformer_matmuls(torch, gen):
         bound_ms, bound_by = bound(flops, nbytes)
         records.append({
             "kernel": "matmul_block_residual" if with_res else "matmul_block",
+            "kernel_route": matmul_route(m, d),
             "shape_of": f"transformer.{name}", "m": m, "k": k, "n": d,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "gflop": flops / 1e9, "mb": nbytes / 1e6})
     return records
+
+
+# The route each main-path shape of the two routed kernels must take
+# (ops.conv_block.conv_bwd_data_route, ops.matmul_block.matmul_route),
+# by the prefix of the record's shape_of.
+INTENDED_ROUTES = {
+    "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm")),
+    "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
+                     ("alexnet.", "tiled")),
+    "matmul_block_residual": (("transformer.", "wide"),),
+}
+
+
+def check_routes(records):
+    """Fail when a main-path shape of a routed kernel took another route
+    than the one it was designed for."""
+    for r in records:
+        for prefix, want in INTENDED_ROUTES.get(r["kernel"], ()):
+            if r["shape_of"].startswith(prefix) and r["kernel_route"] != want:
+                raise RuntimeError(
+                    f"{r['shape_of']} {r['kernel']}: took the "
+                    f"{r['kernel_route']} route, expected {want}")
 
 
 def tx_conf(n_layers=None):
@@ -1541,6 +1579,7 @@ def main() -> int:
                 + check_transformer_matmuls(torch, gen)):
         records.append(rec)
         print(f"[kernel] {json.dumps(rec)}")
+    check_routes(records)
     layers = []
     for model, n_in, (T, b, n) in (
             ("charrnn", CHAR_VOCAB, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
@@ -1587,7 +1626,7 @@ def main() -> int:
         flops = sum(r["gflop"] for r in main) * 1e9
         nbytes = sum(r["mb"] for r in main) * 1e6
         bound_ms, bound_by = bound(flops, nbytes)
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": served[k] + trained[k] + sum(c[k] for c in tx_paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -1595,7 +1634,17 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": sum(r["library_ms"] for r in main),
-        })
+        }
+        if k in INTENDED_ROUTES:  # the kernel route its main path took
+            entry["kernel_route"] = "+".join(sorted(
+                {r["kernel_route"] for r in main}))
+        if k == "matmul_block":  # the transformer's input projection
+            tx_in = next(r for r in mine
+                         if r["shape_of"] == "transformer.input")
+            entry.update(transformer_route=tx_in["kernel_route"],
+                         transformer_ms=tx_in["kernel_ms"],
+                         transformer_library_ms=tx_in["library_ms"])
+        kernels.append(entry)
     # the LSTM kernels: one launch at the char-RNN's chunk (T 50, b 32,
     # n 200) in the variant its training runs (the zoo model's peephole
     # cell, the sequence forward that writes c_seq); launches of both
@@ -1636,7 +1685,7 @@ def main() -> int:
         mine = [r for r in records if r["kernel"] == k
                 and r.get("dtype", "float32") == "float32"]
         main = next(r for r in mine if r["shape_of"] == shape_of)
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": replaces,
             "launches": sum(c[k] for c in tx_paths),
@@ -1644,7 +1693,10 @@ def main() -> int:
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
-        })
+        }
+        if k in INTENDED_ROUTES:
+            entry["kernel_route"] = main["kernel_route"]
+        kernels.append(entry)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

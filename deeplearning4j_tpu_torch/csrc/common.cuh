@@ -50,6 +50,65 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
+// Asynchronous global -> shared copies (cp.async, sm_80 and later): the
+// copy bypasses registers, and the issuing thread goes on until it
+// waits for its committed groups. A src_bytes of 0 fills the
+// destination with zeros and reads nothing (the masked edge of a
+// tile); `src` must still be a valid address.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `Pending` committed groups are still in flight
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// The shared memory a block can use on an H100 (227 KB); above 48 KB a
+// kernel takes it only as dynamic shared memory, after
+// cudaFuncSetAttribute raises its cap.
+constexpr int kMaxSmemBytes = 232448;
+
+// Raise `kernel`'s dynamic shared-memory cap to `bytes` and ask for the
+// largest shared-memory carveout, once per device (the attribute is a
+// property of the function in the device's context); returns the
+// cudaError_t of the calls (0 on success). `done` is the caller's
+// per-kernel bit mask of devices already set.
+template <typename Kernel>
+inline int allow_dynamic_smem(Kernel kernel, int bytes, unsigned* done) {
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  const unsigned bit = dev < 32 ? (1u << dev) : 0u;
+  if (bit != 0 && (__atomic_load_n(done, __ATOMIC_ACQUIRE) & bit)) return 0;
+  rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != 0) return rc;
+  rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (rc != 0) return rc;
+  __atomic_fetch_or(done, bit, __ATOMIC_ACQ_REL);
+  return 0;
+}
+
 // Split-K. When the output has too few tiles to fill the card, the
 // reduction axis (length k_len) is cut into `splits` chunks of k_chunk
 // (a multiple of the kernels' 16-deep k slice), one per blockIdx.z.

@@ -6,41 +6,71 @@
 //     and dacc.
 //
 // Replace deeplearning4j_tpu/ops/conv_block.py::_conv_kernel as launched
-// for the backward-data pass (_conv_block_bwd: the forward kernel on the
-// interior-dilated, edge-padded gradient and the flipped weights) and
-// ::_conv_bwd_w_kernel (batch as the innermost revisited grid axis, an
-// f32 [kh, kw, c, oc_b] block accumulated across it).
+// for the backward-data pass (_conv_block_bwd, :465: the forward kernel
+// on the interior-dilated, edge-padded gradient and the flipped
+// weights) and ::_conv_bwd_w_kernel (batch as the innermost revisited
+// grid axis, an f32 [kh, kw, c, oc_b] block accumulated across it).
 //
 // Everything is f32 (inputs, accumulators, outputs): the backward of the
-// port trains in f32. Layouts are NCHW / OIHW as at the public API, so
-// no transposed, padded or dilated copy of any operand is made: padding,
-// stride and the transposition are index arithmetic while staging.
+// port trains in f32. Layouts are NCHW / OIHW as at the public API, and
+// no padded or dilated copy of any operand is made in device memory:
+// padding and stride are index arithmetic (the one copy is the resident
+// route's transposed weights, kh*kw*o*c f32). No tensor cores: TF32 would not hold f32 parity. Nothing
+// uses atomics, so two launches give the same bits.
 //
-// What bounds them on an H100: at LeNet's training shapes (batch 256)
-// both are small (conv2 dx: 0.82 GFLOP useful; conv1 dW: 0.15 GFLOP over
-// 12 MB); at AlexNet's they are FP32-FMA bound like the forward
-// (conv2 dW at batch 64: 57 GFLOP). No tensor cores: TF32 would not hold
-// f32 parity. So operations bound them, except conv1 dW (bytes).
+// conv_bwd_data has two routes, picked by the wrapper from the shape
+// alone (ops/conv_block.py conv_bwd_data_route):
 //
-// Design: both are implicit GEMMs on the forward kernel's tile shape
-// (64 x 64 output tile, 16-deep reduction slices staged in shared
-// memory, 256 threads with 4 x 4 f32 accumulators each).
-//
-// - Backward-data is a gather: the output is [c, n*h*w] (input channels
-//   by input pixels, flattened over the batch) and the reduction runs
-//   over k = (o, dh, dw). For input pixel (iy, ix) and tap (dh, dw) the
+// - resident, for convolutions whose gradient map, weights and dx fit in
+//   shared memory: LeNet conv2 at batch 256 (dacc [256, 50, 8, 8], w
+//   [50, 20, 5, 5]: 0.82 GFLOP of useful multiply-adds, an FP32 bound of
+//   12 us). The implicit GEMM below spent 0.58 ms there: c = 20 channels
+//   on its 64-row tile left 44 rows computing zeros (3.2x), it
+//   multiplied the taps that fall outside the 8 x 8 gradient map
+//   (2.25x), it paid integer divisions for every staged element, and
+//   nothing overlapped its staging. Here the gather turns into a scatter
+//   by tap: for a tap (dh, dw) every gradient pixel (oy, ox) feeds
+//   exactly one input pixel, (oy*sh - ph + dh, ox*sw - pw + dw), so a
+//   tap is a small product [c x o] by [o x oh*ow] added into a shifted
+//   window of dx, and no product falls outside the map (only those that
+//   land on the padding are skipped). One block owns one image and a
+//   group of at most 32 input channels (more groups where the weights
+//   would not fit). It stages the image's gradient (o*oh*ow f32, 12.8
+//   KB at LeNet conv2) and the group's weights (100 KB), both in 16-byte
+//   cp.async copies into dynamic shared memory: a one-pass kernel first
+//   writes the weights transposed to [group][tap][oc][channel], so no
+//   block divides an index to stage them (two divisions an element,
+//   in every block, cost more than the transpose). A thread owns one
+//   (channel quad, gradient pixel) item of a tap: the loop over o is
+//   innermost, one
+//   shared load of the gradient (a warp's lanes on consecutive pixels)
+//   and one broadcast float4 of weights per 4 FMAs, and the 4 sums are
+//   added to the dx tile in shared memory, which a barrier between taps
+//   keeps race-free. The block's threads form up to kh*kw tap groups,
+//   each with a dx tile of its own over a run of the taps, added in
+//   order at the end: LeNet conv2 runs 3 groups of 320 threads (147 KB
+//   of shared memory, one block an SM). Shared-load latency bounds it:
+//   the time fell with the threads an SM holds (0.092 ms at 320, 0.068
+//   at 640 and 960 on an NVIDIA H100 80GB HBM3, scripts/torch_route_ab.py
+//   --groups).
+// - gemm, for the rest (AlexNet's conv2-conv5, whose maps do not fit):
+//   an implicit GEMM on the forward kernel's tile shape (64 x 64 output
+//   tile, 16-deep reduction slices staged in shared memory, 256 threads
+//   with 4 x 4 f32 accumulators), the output [c, n*h*w] over a reduction
+//   k = (o, dh, dw). For input pixel (iy, ix) and tap (dh, dw) the
 //   gradient element is dacc[oy, ox] with oy*sh = iy + ph - dh (and the
-//   same for x); a tap with no such (oy, ox) (outside the map, or between
-//   strides) stages a zero and reads nothing. Unlike the TPU route there
-//   is no dilated, padded copy of the gradient in memory; the zero taps
-//   are still multiplied in shared memory (at LeNet conv2, 8x8 gradient
-//   maps under 12x12 inputs, 2.25x the useful FMAs).
-// - Backward-weights is [o, c*kh*kw] over a reduction r = (n, oy, ox).
-//   The output is tiny and the reduction deep, so the reduction is split
-//   over blockIdx.z by its own plan (common.cuh plan_dw_splits: about
-//   two waves of blocks on 132 SMs). Each split writes f32 partial sums
-//   to a scratch the wrapper allocates and splitk_finish adds them in a
-//   fixed order: no atomics, so two runs give the same bits.
+//   same for x); a tap with no such (oy, ox) stages a zero and reads
+//   nothing. FP32 FMA bounds it at AlexNet's shapes. With few tiles the
+//   reduction splits (common.cuh plan_splits) into a scratch that
+//   splitk_finish adds in a fixed order.
+//
+// conv_bwd_w is [o, c*kh*kw] over a reduction r = (n, oy, ox) on the same
+// tile. The output is tiny and the reduction deep (LeNet conv1 dW:
+// 0.15 GFLOP over 12 MB, bytes bound it; AlexNet conv2 dW at batch 64:
+// 57 GFLOP, FP32 FMA does), so the reduction is split over blockIdx.z by
+// its own plan (common.cuh plan_dw_splits: about two waves of blocks on
+// 132 SMs); each split writes f32 partial sums to a scratch the wrapper
+// allocates and splitk_finish adds them in a fixed order.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -282,6 +312,189 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- conv_bwd_data, resident route -------------------------------------------
+
+constexpr int kResidentMaxThreads = 1024;
+constexpr int kResidentMaxGroup = 32;  // channels of a block
+
+// Shared-memory floats of a resident block (the formula of
+// ops/conv_block.py resident_smem_bytes): the gradient map, padded so
+// the weights after it start 16-byte aligned; the group's weights,
+// kh*kw*o for each channel of the group padded to 4; one dx tile of the
+// group for each tap group.
+long long resident_g_floats(int o, int oh, int ow) {
+  return ((long long)o * oh * ow + 3) / 4 * 4;
+}
+long long resident_floats(int h, int wd, int o, int kh, int kw, int oh,
+                          int ow, int group, int tap_groups) {
+  const long long cgp = (group + 3) / 4 * 4;
+  return resident_g_floats(o, oh, ow) + (long long)kh * kw * o * cgp +
+         tap_groups * cgp * h * wd;
+}
+// threads of a tap group: one an item (channel quad, gradient pixel),
+// whole warps, at most a block
+int resident_per_group(int group, int oh, int ow) {
+  const long long items = (long long)(group + 3) / 4 * oh * ow;
+  const long long per = (items + 31) / 32 * 32;
+  return per < kResidentMaxThreads ? (int)per : kResidentMaxThreads;
+}
+
+// The weights of every channel group, transposed for the resident
+// blocks: wt[grp][tap][oc][j] = w[oc][grp*group + j][tap], zero for j
+// past the layer's channels or the group (j < 4 * ceil(group / 4)).
+// One pass over the weights a call, so a block stages its group's
+// slice in 16-byte copies without an index division.
+__global__ void transpose_weights_kernel(const float* __restrict__ w,
+                                         float* __restrict__ wt, int c,
+                                         int o, int khw, int group,
+                                         long long total) {
+  const int cgp = (group + 3) / 4 * 4;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += step) {
+    const int j = (int)(i % cgp);
+    long long r = i / cgp;
+    const int oc = (int)(r % o);
+    r /= o;
+    const int tap = (int)(r % khw);
+    const int ci = (int)(r / khw) * group + j;
+    wt[i] = (j < group && ci < c) ? w[((size_t)oc * c + ci) * khw + tap]
+                                  : 0.0f;
+  }
+}
+
+// Block (img, channel group): dx[img, c0 + j, :, :] for the group's cn
+// channels. Per tap (dh, dw), dx[:, iy, ix] += w[:, :, dh, dw]^T g[:, oy,
+// ox] with (iy, ix) = (oy*sh - ph + dh, ox*sw - pw + dw): a [4 x o] by
+// [o x 1] product for each item (channel quad q, gradient pixel p), its
+// sum added to a dx tile in shared memory. The block's threads form
+// tap_groups groups, each taking a contiguous run of the taps into a dx
+// tile of its own. Within a tap no two items touch one dx element, and
+// a barrier separates a group's taps, so no element is updated twice at
+// once; the end adds the groups' tiles in order. So each element sums
+// its taps and each tap's o products in a fixed order: two launches give
+// the same bits.
+// Shared memory: g_s [o][oh*ow] (g_floats), w_s [tap][oc][cq] float4,
+// dx_s [tap_groups][4*cq][h*w].
+__global__ void __launch_bounds__(kResidentMaxThreads)
+    conv_bwd_data_resident_kernel(const float* __restrict__ dacc,
+                                  const float* __restrict__ wt,
+                                  float* __restrict__ dx, int c, int h,
+                                  int wd, int o, int kh, int kw, int sh,
+                                  int sw, int ph, int pw, int oh, int ow,
+                                  int group, int tap_groups, int g_floats) {
+  extern __shared__ __align__(16) float smem[];
+  const int cq = (group + 3) / 4;
+  const int cgp = 4 * cq;
+  const int khw = kh * kw;
+  const int ohw = oh * ow;
+  const int hw = h * wd;
+  float* g_s = smem;
+  float* w_f = smem + g_floats;
+  float* dx_s = w_f + (size_t)khw * o * cgp;
+  const int img = blockIdx.x;
+  const int c0 = blockIdx.y * group;
+  const int cn = min(group, c - c0);
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+
+  // the image's gradient, contiguous in dacc, and the group's weights,
+  // contiguous in wt
+  const float* g_src = dacc + (size_t)img * o * ohw;
+  const int g_len = o * ohw;
+  if ((g_len & 3) == 0 && (reinterpret_cast<uintptr_t>(g_src) & 15) == 0) {
+    for (int i = tid; i < g_len / 4; i += nt)
+      dl4j::cp_async16(g_s + 4 * i, g_src + 4 * i, 16);
+  } else {
+    for (int i = tid; i < g_len; i += nt)
+      dl4j::cp_async4(g_s + i, g_src + i, 4);
+  }
+  const float* w_src = wt + (size_t)blockIdx.y * khw * o * cgp;
+  for (int i = tid; i < khw * o * cq; i += nt)
+    dl4j::cp_async16(w_f + 4 * i, w_src + 4 * i, 16);
+  for (int i = tid; i < tap_groups * cgp * hw; i += nt) dx_s[i] = 0.0f;
+  dl4j::cp_async_commit();
+  dl4j::cp_async_wait<0>();
+  __syncthreads();
+
+  const float4* w_s = reinterpret_cast<const float4*>(w_f);
+  const int per = nt / tap_groups;  // threads of a tap group
+  const int tg = tid / per;
+  const int lt = tid - tg * per;
+  const int tap_lo = tg * khw / tap_groups;
+  const int tap_hi = (tg + 1) * khw / tap_groups;
+  const int steps = (khw + tap_groups - 1) / tap_groups;
+  float* dx_g = dx_s + (size_t)tg * cgp * hw;
+  const int items = cq * ohw;  // lanes: consecutive pixels of one quad
+  for (int s = 0; s < steps; ++s) {
+    const int tap = tap_lo + s;
+    if (tap < tap_hi) {
+      const int dh = tap / kw;
+      const int dw = tap - dh * kw;
+      const float4* w_tap = w_s + (size_t)tap * o * cq;
+      for (int it = lt; it < items; it += per) {
+        const int q = it / ohw;
+        const int p = it - q * ohw;
+        const int oy = p / ow;
+        const int iy = oy * sh - ph + dh;
+        const int ix = (p - oy * ow) * sw - pw + dw;
+        if (iy < 0 || iy >= h || ix < 0 || ix >= wd) continue;  // padding
+        const float* gp = g_s + p;
+        const float4* wp = w_tap + q;
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 4
+        for (int oc = 0; oc < o; ++oc) {
+          const float gv = gp[oc * ohw];
+          const float4 wv = wp[oc * cq];
+          a0 = fmaf(wv.x, gv, a0);
+          a1 = fmaf(wv.y, gv, a1);
+          a2 = fmaf(wv.z, gv, a2);
+          a3 = fmaf(wv.w, gv, a3);
+        }
+        float* d = dx_g + (size_t)(4 * q) * hw + iy * wd + ix;
+        d[0] += a0;
+        d[hw] += a1;
+        d[2 * hw] += a2;
+        d[3 * hw] += a3;
+      }
+    }
+    __syncthreads();  // the next tap adds to other threads' elements
+  }
+
+  float* dst = dx + ((size_t)img * c + c0) * hw;
+  for (int i = tid; i < cn * hw; i += nt) {
+    float v = dx_s[i];
+    for (int t = 1; t < tap_groups; ++t) v += dx_s[(size_t)t * cgp * hw + i];
+    dst[i] = v;
+  }
+}
+
+int launch_resident(const float* dacc, const float* w, float* wt, float* dx,
+                    int n, int c, int h, int wd, int o, int kh, int kw,
+                    int sh, int sw, int ph, int pw, int oh, int ow,
+                    int group, int tap_groups, int g_floats, int smem_bytes,
+                    cudaStream_t stream) {
+  static unsigned smem_set = 0;  // devices whose cap is raised
+  int rc = dl4j::allow_dynamic_smem(conv_bwd_data_resident_kernel,
+                                    dl4j::kMaxSmemBytes, &smem_set);
+  if (rc != 0) return rc;
+  const int groups = dl4j::ceil_div(c, group);
+  const long long total =
+      (long long)groups * kh * kw * o * ((group + 3) / 4 * 4);
+  long long blocks = (total + 255) / 256;
+  if (blocks > 4 * dl4j::kSmCount) blocks = 4 * dl4j::kSmCount;
+  transpose_weights_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      w, wt, c, o, kh * kw, group, total);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int threads = tap_groups * resident_per_group(group, oh, ow);
+  dim3 grid((unsigned)n, (unsigned)groups);
+  conv_bwd_data_resident_kernel<<<grid, threads, smem_bytes, stream>>>(
+      dacc, wt, dx, c, h, wd, o, kh, kw, sh, sw, ph, pw, oh, ow, group,
+      tap_groups, g_floats);
+  return (int)cudaGetLastError();
+}
+
 long long data_tiles(int n, int c, int h, int wd) {
   const long long n_px = (long long)n * h * wd;
   return ((n_px + kColBlock - 1) / kColBlock) * dl4j::ceil_div(c, kRowBlock);
@@ -302,6 +515,38 @@ bool bad_geometry(int n, int c, int h, int wd, int o, int kh, int kw, int sh,
 
 }  // namespace
 
+// dL/dx (f32) on the resident route: `group` input channels a block,
+// `tap_groups` groups of its threads (ops/conv_block.py
+// conv_bwd_data_route picks both); `wt` is a scratch of
+// ceil(c / group) * kh * kw * o * 4 * ceil(group / 4) f32 for the
+// transposed weights. Returns the cudaError_t of the launches (0 on
+// success); a group above 32 channels, more threads than a block takes
+// or a working set above the H100's 227 KB of shared memory a block is
+// refused (cudaErrorInvalidValue), never shrunk.
+extern "C" int dl4j_conv_bwd_data_resident(const void* dacc, const void* w,
+                                           void* wt, void* dx, int n, int c,
+                                           int h, int wd, int o, int kh,
+                                           int kw, int sh, int sw, int ph,
+                                           int pw, int oh, int ow, int group,
+                                           int tap_groups, void* stream) {
+  if (bad_geometry(n, c, h, wd, o, kh, kw, sh, sw, ph, pw, oh, ow) ||
+      group <= 0 || group > kResidentMaxGroup ||
+      dl4j::ceil_div(c, group) > 65535 || tap_groups <= 0 ||
+      tap_groups > kh * kw ||
+      (long long)tap_groups * resident_per_group(group, oh, ow) >
+          kResidentMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long g_floats = resident_g_floats(o, oh, ow);
+  const long long smem =
+      4 * resident_floats(h, wd, o, kh, kw, oh, ow, group, tap_groups);
+  if (smem > dl4j::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  return launch_resident(
+      static_cast<const float*>(dacc), static_cast<const float*>(w),
+      static_cast<float*>(wt), static_cast<float*>(dx), n, c, h, wd, o, kh,
+      kw, sh, sw, ph, pw, oh, ow, group, tap_groups, (int)g_floats,
+      (int)smem, static_cast<cudaStream_t>(stream));
+}
+
 // The number of k chunks for dL/dx (1: no split); the wrapper allocates
 // an f32 scratch of splits * n * c * h * w when it is > 1.
 extern "C" int dl4j_conv_bwd_data_splits(int n, int c, int h, int wd, int o,
@@ -310,7 +555,8 @@ extern "C" int dl4j_conv_bwd_data_splits(int n, int c, int h, int wd, int o,
   return dl4j::plan_splits(data_tiles(n, c, h, wd), o * kh * kw);
 }
 
-// dL/dx (f32). Returns the cudaError_t of the launches (0 on success).
+// dL/dx (f32) on the gemm route. Returns the cudaError_t of the launches
+// (0 on success).
 // Shapes are validated by the Python wrapper (ops/conv_block.py);
 // `partial` is the split scratch (null when splits is 1).
 extern "C" int dl4j_conv_bwd_data(const void* dacc, const void* w, void* dx,

@@ -110,11 +110,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("dl4j_conv_bwd_data", "dl4j_conv_bwd_w"):
         getattr(lib, name).argtypes = [p] * 4 + [i] * 14 + [p]
         getattr(lib, name).restype = i
+    lib.dl4j_conv_bwd_data_resident.argtypes = [p] * 4 + [i] * 15 + [p]
+    lib.dl4j_conv_bwd_data_resident.restype = i
     lib.dl4j_conv_bwd_data_splits.argtypes = [i] * 7
     lib.dl4j_conv_bwd_data_splits.restype = i
     lib.dl4j_conv_bwd_w_splits.argtypes = [i] * 7
     lib.dl4j_conv_bwd_w_splits.restype = i
-    lib.dl4j_matmul_block.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.dl4j_matmul_block.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.dl4j_matmul_block.restype = i
     lib.dl4j_matmul_block_splits.argtypes = [i] * 3
     lib.dl4j_matmul_block_splits.restype = i

@@ -23,14 +23,18 @@ f32 out), apply the epilogue gradient in f32 (``_EPILOGUE_GRADS``:
 relu's gradient at z == 0 is 0.5, the TPU kernel route's value, where
 autograd through ``torch.relu`` would give 0), sum dscale and dshift,
 then one launch each of ``conv_bwd_data`` (only when x needs a
-gradient) and ``conv_bwd_w``. Under ``no_grad`` / ``inference_mode``
+gradient) and ``conv_bwd_w``. ``conv_bwd_data`` takes one of two kernel
+routes, picked from the shape alone by ``conv_bwd_data_route``: the
+resident kernel (one image's gradient, a channel group's weights and
+its dx held in shared memory) where they fit, the implicit GEMM
+elsewhere. Under ``no_grad`` / ``inference_mode``
 the forward is the direct launch alone. The backward kernels take f32:
 training in bf16 / f16 on the card raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -232,6 +236,86 @@ def _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, stride, padding, oh, ow):
     return (n, c, h, wd, o, kh, kw, sh, sw, ph, pw, oh, ow)
 
 
+# The resident route of conv_bwd_data (csrc/conv_bwd.cu): a block holds
+# one image's gradient map, a group of at most RESIDENT_MAX_GROUP input
+# channels' weights and the group's dx (channels padded to 4) in shared
+# memory, which must fit in the H100's 232,448 bytes a block. Groups
+# below RESIDENT_MIN_GROUP channels (of a layer with more) would stage
+# each gradient map so many times that the implicit GEMM is the better
+# route. A block's threads are one per (channel quad, gradient pixel),
+# in whole warps, repeated for up to kh*kw tap groups (each a run of the
+# taps into a dx tile of its own), within RESIDENT_MAX_THREADS and the
+# shared memory: the more threads, the more of each SM's latency hidden.
+RESIDENT_SMEM_BYTES = 232_448
+RESIDENT_MAX_GROUP = 32
+RESIDENT_MIN_GROUP = 16
+RESIDENT_MAX_THREADS = 1024
+
+
+class BwdDataRoute(NamedTuple):
+    """``route`` is ``"resident"`` or ``"gemm"``; ``group`` (input
+    channels a block), ``tap_groups``, ``threads`` (a block) and
+    ``smem_bytes`` are the resident route's, 0 on the gemm route."""
+    route: str
+    group: int = 0
+    tap_groups: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def resident_smem_bytes(h: int, w: int, o: int, oh: int, ow: int, kh: int,
+                        kw: int, group: int, tap_groups: int = 1) -> int:
+    """Shared memory of a resident block: the gradient map (o·oh·ow f32,
+    padded to 16 bytes), the group's weights (kh·kw·o f32 for each of
+    its channels padded to 4) and a dx tile (h·w f32 a padded channel)
+    for each tap group."""
+    cgp = _round4(group)
+    return 4 * (_round4(o * oh * ow) + kh * kw * o * cgp
+                + tap_groups * cgp * h * w)
+
+
+def _resident_plan(h, w, o, oh, ow, kh, kw, group) -> BwdDataRoute:
+    items = _round4(group) // 4 * oh * ow  # (channel quad, pixel)
+    per = min(RESIDENT_MAX_THREADS, -(-items // 32) * 32)
+    tap_groups = max(1, min(kh * kw, RESIDENT_MAX_THREADS // per))
+    while (tap_groups > 1 and resident_smem_bytes(
+            h, w, o, oh, ow, kh, kw, group, tap_groups)
+           > RESIDENT_SMEM_BYTES):
+        tap_groups -= 1
+    return BwdDataRoute("resident", group, tap_groups, tap_groups * per,
+                        resident_smem_bytes(h, w, o, oh, ow, kh, kw, group,
+                                            tap_groups))
+
+
+def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
+                        kw: int, stride=(1, 1), padding=(0, 0)
+                        ) -> BwdDataRoute:
+    """The kernel route of dL/dx for an ``[n, c, h, w]`` input under
+    ``[o, c, kh, kw]`` weights: resident with the fewest channel groups
+    whose working set fits (and as many tap groups as then fit), else
+    the implicit GEMM. Decided from the shape alone."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    oh = conv_output_size(h, kh, sh, ph)
+    ow = conv_output_size(w, kw, sw, pw)
+    floor = min(_round4(c), RESIDENT_MIN_GROUP)
+    groups = -(-c // RESIDENT_MAX_GROUP)
+    while True:
+        group = -(-c // groups)
+        padded = _round4(group)
+        if padded < floor:
+            return BwdDataRoute("gemm")
+        if (resident_smem_bytes(h, w, o, oh, ow, kh, kw, group)
+                <= RESIDENT_SMEM_BYTES):
+            return _resident_plan(h, w, o, oh, ow, kh, kw, group)
+        if padded == 4:
+            return BwdDataRoute("gemm")
+        groups = -(-c // (padded - 4))  # the next smaller padded group
+
+
 def conv_bwd_data(dacc: torch.Tensor, w: torch.Tensor, x_hw,
                   stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
     """dL/dx (f32 ``[n, c, h, w]``, ``x_hw = (h, w)``) from the f32
@@ -253,12 +337,23 @@ def conv_bwd_data(dacc: torch.Tensor, w: torch.Tensor, x_hw,
                         _pair(padding), oh, ow)
     dx = torch.empty((n, c, h, wd), dtype=f32, device=dacc.device)
     lib = _build.load()
-    splits = lib.dl4j_conv_bwd_data_splits(n, c, h, wd, o, kh, kw)
-    scratch = _build.split_scratch(splits, dx.numel(), dacc.device)
-    rc = lib.dl4j_conv_bwd_data(
-        dacc.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), *geo, splits,
-        _build.current_stream_handle(dacc.device))
+    stream = _build.current_stream_handle(dacc.device)
+    plan = conv_bwd_data_route(n, c, h, wd, o, kh, kw, stride, padding)
+    if plan.route == "resident":
+        # the weights, transposed per channel group (one pass a call)
+        wt = torch.empty(-(-c // plan.group) * kh * kw * o
+                         * _round4(plan.group), dtype=f32,
+                         device=dacc.device)
+        rc = lib.dl4j_conv_bwd_data_resident(
+            dacc.data_ptr(), w.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+            *geo, plan.group, plan.tap_groups, stream)
+    else:
+        splits = lib.dl4j_conv_bwd_data_splits(n, c, h, wd, o, kh, kw)
+        scratch = _build.split_scratch(splits, dx.numel(), dacc.device)
+        rc = lib.dl4j_conv_bwd_data(
+            dacc.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), *geo, splits,
+            stream)
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)
     return dx

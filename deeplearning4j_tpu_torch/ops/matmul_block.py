@@ -9,8 +9,11 @@ variant, ``_matmul_res_kernel``; it counts its launches apart, as
 ``matmul_block_residual``). Any m, k, n is taken: the kernel
 masks ragged edges, so there is no counterpart of ``matmul_block_ok``.
 f32, bf16 and f16 inputs are taken; the sum is f32 and is cast once.
-A skinny product (few output tiles, deep K) splits K over an f32
-scratch that the wrapper allocates (``_build.split_scratch``).
+The kernel has two routes, picked from the shape alone by
+``matmul_route``: ``"wide"`` (128 x 192 tiles, a cp.async ring) for
+products whose grid fills the card, ``"tiled"`` (64 x 64 tiles) for the
+rest, where a skinny product (few output tiles, deep K) splits K over
+an f32 scratch that the wrapper allocates (``_build.split_scratch``).
 
 ``matmul_block`` launches the kernel for a CUDA tensor and runs
 ``matmul_block_reference`` (the plain PyTorch version) for a CPU one.
@@ -38,6 +41,24 @@ from deeplearning4j_tpu_torch.ops.conv_block import (
     check_trainable,
     wants_grad,
 )
+
+
+# The wide route's output tile (rows, columns), and the tiles its grid
+# must hold: one wave of blocks (one an SM) on the H100's 132 SMs. Below
+# that the 64 x 64 tiled route (with its split-K plan) keeps more blocks
+# in flight.
+WIDE_TILE = (128, 192)
+WIDE_MIN_TILES = 132
+# route codes of csrc/matmul_block.cu (enum Route)
+ROUTE_CODES = {"tiled": 0, "wide": 1}
+
+
+def matmul_route(m: int, n: int) -> str:
+    """The kernel route of an ``[m, k] @ [k, n]`` product: ``"wide"``
+    when its 128 x 192 grid holds at least one wave of blocks, else
+    ``"tiled"``. Depth and element type do not change it."""
+    tiles = -(-m // WIDE_TILE[0]) * -(-n // WIDE_TILE[1])
+    return "wide" if tiles >= WIDE_MIN_TILES else "tiled"
 
 
 def _bias_f32(b, n: int, device) -> torch.Tensor:
@@ -79,14 +100,15 @@ def _kernel_forward(x, w, bias, residual, activation):
                              f"{list(residual.shape)}, expected [{m}, {n}]")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load()
-    splits = lib.dl4j_matmul_block_splits(m, k, n)
+    route = matmul_route(m, n)
+    splits = 1 if route == "wide" else lib.dl4j_matmul_block_splits(m, k, n)
     scratch = _build.split_scratch(splits, out.numel(), x.device)
     rc = lib.dl4j_matmul_block(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         _build.DTYPE_CODES[x.dtype], m, k, n, EPILOGUE_CODES[activation],
-        splits, _build.current_stream_handle(x.device),
+        splits, ROUTE_CODES[route], _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)

@@ -238,3 +238,93 @@ def test_backward_plain_versions_match_torch_grad(xs, ws, stride, padding):
         dw.numpy(), torch.nn.grad.conv2d_weight(
             tx, ws, dacc, stride=stride, padding=padding).numpy(),
         rtol=rtol, atol=atol)
+
+
+# (path, x shape, w shape, stride, padding, route): conv_bwd_data on the
+# main paths. LeNet-5's conv2 at the training batch (its conv1 has no
+# dx) takes the resident route, one block an image with all 20 channels;
+# AlexNet's conv2-conv5 at batch 64, whose gradient maps and weights do
+# not fit in shared memory, the implicit GEMM.
+BWD_ROUTE_CASES = [
+    ("lenet256.conv2", (256, 20, 12, 12), (50, 20, 5, 5), 1, 0, "resident"),
+    ("alexnet.conv2", (64, 96, 27, 27), (256, 96, 5, 5), 1, 2, "gemm"),
+    ("alexnet.conv3", (64, 256, 13, 13), (384, 256, 3, 3), 1, 1, "gemm"),
+    ("alexnet.conv4", (64, 384, 13, 13), (384, 384, 3, 3), 1, 1, "gemm"),
+    ("alexnet.conv5", (64, 384, 13, 13), (256, 384, 3, 3), 1, 1, "gemm"),
+]
+
+
+@pytest.mark.parametrize("path,xs,ws,stride,padding,route", BWD_ROUTE_CASES,
+                         ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_conv_bwd_data_route_pins_the_main_paths(path, xs, ws, stride,
+                                                 padding, route):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
+
+    n, c, h, w = xs
+    o, _, kh, kw = ws
+    plan = conv_bwd_data_route(n, c, h, w, o, kh, kw, stride, padding)
+    assert plan.route == route
+    if route == "resident":
+        # one group of all 20 channels; 5 quads x 64 gradient pixels =
+        # 320 threads a tap group, 3 tap groups
+        assert (plan.group, plan.tap_groups, plan.threads,
+                plan.smem_bytes) == (20, 3, 960, 147_360)
+
+
+# (x shape, w shape, stride, padding, group): resident plans with one
+# group and with channel groups: over 32 channels (40 -> 2 x 20), and
+# weights too large for one block (32 channels of 80 x 5 x 5 taps ->
+# 2 x 16)
+@pytest.mark.parametrize("xs,ws,stride,padding,group", [
+    ((3, 6, 11, 10), (9, 6, 3, 3), 2, 1, 6),
+    ((2, 3, 9, 7), (7, 3, 3, 2), (2, 1), (2, 0), 3),
+    ((2, 40, 12, 12), (64, 40, 5, 5), 1, 0, 20),
+    ((2, 32, 12, 12), (80, 32, 5, 5), 1, 0, 16),
+])
+def test_conv_bwd_data_route_groups_channels(xs, ws, stride, padding, group):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
+
+    n, c, h, w = xs
+    o, _, kh, kw = ws
+    plan = conv_bwd_data_route(n, c, h, w, o, kh, kw, stride, padding)
+    assert plan.route == "resident" and plan.group == group
+
+
+def test_conv_bwd_data_resident_reckoning_stays_within_shared_memory():
+    """Over a sweep of geometries, every resident plan fits the H100's
+    232,448 bytes a block, holds at most 32 channels a group, covers
+    every channel, takes at most 1024 threads, and reckons the bytes the
+    kernel holds: the gradient map padded to 16 bytes, then kh*kw*o
+    weights for each channel of the group padded to 4 and h*w of dx for
+    each of them and each tap group."""
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        RESIDENT_MAX_GROUP,
+        RESIDENT_MAX_THREADS,
+        RESIDENT_SMEM_BYTES,
+        conv_bwd_data_route,
+        resident_smem_bytes,
+    )
+
+    assert RESIDENT_SMEM_BYTES == 232_448
+    seen = {"resident": 0, "gemm": 0}
+    for c in (1, 3, 5, 20, 33, 64, 96, 200):
+        for o in (1, 7, 50, 128, 384):
+            for hw, k, s, p in ((12, 5, 1, 0), (28, 5, 1, 2), (13, 3, 1, 1),
+                                (11, 3, 2, 1), (56, 11, 4, 2)):
+                plan = conv_bwd_data_route(2, c, hw, hw, o, k, k, s, p)
+                seen[plan.route] += 1
+                if plan.route != "resident":
+                    continue
+                oh = (hw + 2 * p - k) // s + 1
+                assert plan.smem_bytes <= RESIDENT_SMEM_BYTES
+                assert 1 <= plan.group <= min(c, RESIDENT_MAX_GROUP)
+                assert 1 <= plan.tap_groups <= k * k
+                assert plan.threads <= RESIDENT_MAX_THREADS
+                assert plan.threads % (32 * plan.tap_groups) == 0
+                assert plan.smem_bytes == resident_smem_bytes(
+                    hw, hw, o, oh, oh, k, k, plan.group, plan.tap_groups)
+                cgp = -(-plan.group // 4) * 4
+                assert plan.smem_bytes == 4 * (
+                    -(-o * oh * oh // 4) * 4 + k * k * o * cgp
+                    + plan.tap_groups * cgp * hw * hw)
+    assert seen["resident"] > 0 and seen["gemm"] > 0

@@ -15,6 +15,8 @@ relative to the largest entry (f32 eps times the depth's square root,
 about 5e-5 of the scale).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -859,3 +861,155 @@ def test_transformer_streaming_on_card_matches_output(cuda):
     finally:
         fa._RESIDENT_TD_LIMIT = old
     torch.testing.assert_close(long, full)
+
+
+# --- the routed kernels' routes ----------------------------------------------
+#
+# The dense kernel's wide route (128 x 192 tiles, a cp.async ring) and
+# conv_bwd_data's resident route (an image's gradient and a channel
+# group's weights in shared memory). Each case names the route it must
+# take; the wide cases below a wave of tiles lower the route's threshold
+# (matmul_block.WIDE_MIN_TILES) to reach the wide kernel at a small m.
+
+# (m, k, n, residual, forced): the transformer's input projection; the
+# FFN's second product at a narrower m with its residual; ragged m, n
+# and k with k and n off multiples of 4 (4-byte staging, scalar stores)
+WIDE_CASES = [(8192, 256, 768, False, False), (1024, 3072, 768, True, True),
+              (1100, 1001, 770, True, True), (300, 40, 200, False, True)]
+
+
+def _wide_route(monkeypatch, forced):
+    mb = importlib.import_module("deeplearning4j_tpu_torch.ops.matmul_block")
+    if forced:
+        monkeypatch.setattr(mb, "WIDE_MIN_TILES", 1)
+    return mb.matmul_route
+
+
+def _wide_operands(m, k, n, residual, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    x = _t(rng.randn(m, k), "cuda", dtype)
+    w = _t(rng.randn(k, n) / np.sqrt(k), "cuda", dtype)
+    b = _t(rng.randn(n) * 0.1, "cuda")
+    r = _t(rng.randn(m, n), "cuda", dtype) if residual else None
+    return x, w, b, r
+
+
+@pytest.mark.parametrize("m,k,n,residual,forced", WIDE_CASES)
+@pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
+def test_wide_matmul_kernel_matches_plain(cuda, monkeypatch, m, k, n,
+                                          residual, forced, activation):
+    route = _wide_route(monkeypatch, forced)
+    assert route(m, n) == "wide"
+    x, w, b, r = _wide_operands(m, k, n, residual, 40)
+    name = "matmul_block_residual" if residual else "matmul_block"
+    before = dispatch.launch_counts()[name]
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation=activation)
+        again = matmul_block(x, w, b, r, activation=activation)
+        ref = matmul_block_reference(x, w, b, r, activation=activation)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()[name] == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n,residual,forced", WIDE_CASES[1:3])
+def test_wide_matmul_kernel_half_inputs(cuda, monkeypatch, dtype, m, k, n,
+                                        residual, forced):
+    route = _wide_route(monkeypatch, forced)
+    assert route(m, n) == "wide"
+    x, w, b, r = _wide_operands(m, k, n, residual, 41, dtype)
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation="relu")
+        ref = matmul_block_reference(x, w, b, r, activation="relu")
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_wide_matmul_unaligned_operands(cuda, monkeypatch):
+    """Views that start 4 bytes into their storage: the launcher stages
+    w in 4-byte copies and stores one float at a time."""
+    route = _wide_route(monkeypatch, True)
+    m, k, n = 260, 96, 132
+    assert route(m, n) == "wide"
+    rng = np.random.RandomState(43)
+    x = _t(rng.randn(m, k), cuda)
+    w = _t(rng.randn(k * n + 1) / np.sqrt(k), cuda)[1:].view(k, n)
+    b = _t(rng.randn(n + 1) * 0.1, cuda)[1:]
+    r = _t(rng.randn(m * n + 1), cuda)[1:].view(m, n)
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation="tanh")
+        ref = matmul_block_reference(x, w, b, r, activation="tanh")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_wide_matmul_grads_match_plain(cuda, monkeypatch, residual):
+    route = _wide_route(monkeypatch, True)
+    m, k, n = 520, 200, 260
+    assert route(m, n) == "wide"
+    rng = np.random.RandomState(44)
+    arrays = [rng.randn(m, k), rng.randn(k, n) / np.sqrt(k),
+              rng.randn(n) * 0.1] + ([rng.randn(m, n)] if residual else [])
+    g = _t(rng.randn(m, n), cuda)
+    grads = []
+    for fn in (matmul_block, matmul_block_reference):
+        leaves = [_t(a, cuda).requires_grad_(True) for a in arrays]
+        out = fn(*leaves, activation="leakyrelu")
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# (x shape, w shape, stride, padding, group): conv_bwd_data's resident
+# route at LeNet conv2 (batch 256, c 20), stride 2 with padding, c 3
+# under an asymmetric stride, and two channel-grouped cases (40 channels
+# in 2 x 20; 32 channels whose weights need 2 x 16)
+RESIDENT_CASES = [
+    ((256, 20, 12, 12), (50, 20, 5, 5), 1, 0, 20),
+    ((3, 6, 11, 10), (9, 6, 3, 3), 2, 1, 6),
+    ((2, 3, 9, 7), (7, 3, 3, 2), (2, 1), (2, 0), 3),
+    ((2, 40, 12, 12), (64, 40, 5, 5), 1, 0, 20),
+    ((2, 32, 12, 12), (80, 32, 5, 5), 1, 0, 16),
+]
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding,group", RESIDENT_CASES)
+def test_conv_bwd_data_resident_route_matches_plain(cuda, xs, ws, stride,
+                                                    padding, group):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
+
+    plan = conv_bwd_data_route(*xs, ws[0], ws[2], ws[3], stride, padding)
+    assert plan.route == "resident" and plan.group == group
+    _, w, dacc = _bwd_operands(xs, ws, stride, padding, 45)
+    got = conv_bwd_data(dacc, w, xs[2:], stride, padding)
+    again = conv_bwd_data(dacc, w, xs[2:], stride, padding)
+    ref = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+    lib = torch.nn.grad.conv2d_input(xs, w, dacc, stride=stride,
+                                     padding=padding)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_to_scale(got, ref, 5e-5)
+    _close_to_scale(got, lib, 5e-5)
+
+
+def test_conv_bwd_data_gemm_route_matches_plain(cuda):
+    """AlexNet's conv3 (at batch 4): its gradient maps and weights do not
+    fit a block, so it keeps the implicit GEMM."""
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
+
+    xs, ws, stride, padding = (4, 256, 13, 13), (384, 256, 3, 3), 1, 1
+    assert conv_bwd_data_route(*xs, ws[0], ws[2], ws[3], stride,
+                               padding).route == "gemm"
+    _, w, dacc = _bwd_operands(xs, ws, stride, padding, 46)
+    got = conv_bwd_data(dacc, w, xs[2:], stride, padding)
+    ref = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+    lib = torch.nn.grad.conv2d_input(xs, w, dacc, stride=stride,
+                                     padding=padding)
+    torch.cuda.synchronize()
+    _close_to_scale(got, ref, 5e-5)
+    _close_to_scale(got, lib, 5e-5)

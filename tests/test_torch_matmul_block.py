@@ -136,3 +136,51 @@ def test_matmul_block_relu_tie_takes_half_the_gradient():
     matmul_block(x, w, b, activation="relu").sum().backward()
     np.testing.assert_array_equal(b.grad.numpy(), np.full(4, 1.0))
     np.testing.assert_array_equal(x.grad.numpy(), np.full((2, 3), 2.0))
+
+
+# (path, m, k, n, route): the dense kernel's products on the main paths.
+# The transformer LM (d 768, batch 16 x t 512 = 8192 rows; t 16384 in
+# the long-context output) takes the wide 128 x 192 route; LeNet-5's
+# dense layers (800 -> 500 -> 10) at serving buckets 1 / 32 and the
+# training batch 256, AlexNet's (9216 -> 4096 -> 4096 -> 1000) at batch
+# 64 and KV-cache sampling (one byte, or the 256-byte prompt, a call)
+# keep the 64 x 64 tiled route and its split-K plan.
+ROUTE_CASES = [
+    ("transformer.input", 8192, 256, 768, "wide"),
+    ("transformer.ffn2", 8192, 3072, 768, "wide"),
+    ("transformer-long.ffn2", 16384, 3072, 768, "wide"),
+    ("lenet.dense1@1", 1, 800, 500, "tiled"),
+    ("lenet.dense1@32", 32, 800, 500, "tiled"),
+    ("lenet.dense1@256", 256, 800, 500, "tiled"),
+    ("lenet.output@256", 256, 500, 10, "tiled"),
+    ("alexnet.dense1", 64, 9216, 4096, "tiled"),
+    ("alexnet.dense2", 64, 4096, 4096, "tiled"),
+    ("alexnet.output", 64, 4096, 1000, "tiled"),
+    ("sample.ffn2@byte", 1, 3072, 768, "tiled"),
+    ("sample.ffn2@prompt", 256, 3072, 768, "tiled"),
+]
+
+
+@pytest.mark.parametrize("path,m,k,n,route", ROUTE_CASES,
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_matmul_route_pins_the_main_paths(path, m, k, n, route):
+    from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
+
+    assert matmul_route(m, n) == route
+
+
+def test_matmul_route_turns_wide_at_one_wave_of_tiles():
+    from deeplearning4j_tpu_torch.ops.matmul_block import (
+        WIDE_MIN_TILES,
+        WIDE_TILE,
+        matmul_route,
+    )
+
+    assert WIDE_MIN_TILES == 132  # the H100's SMs
+    rows, cols = WIDE_TILE
+    assert (rows, cols) == (128, 192)
+    # 11 x 12 = 132 tiles of 128 x 192: one wave; one row less is short
+    assert matmul_route(11 * rows, 12 * cols) == "wide"
+    assert matmul_route(10 * rows, 12 * cols) == "tiled"
+    # a ragged edge counts as a tile
+    assert matmul_route(10 * rows + 1, 12 * cols) == "wide"
