@@ -25,8 +25,10 @@ non-zero (nothing is caught):
    streamed entry at t 16384; the dense kernel at the transformer's input
    projection and its residual variant at the FFN's second product.
    Each record names the kernel route its shape took; the run fails
-   when a main-path shape of ``conv_bwd_data`` or the dense kernel took
-   another route than the one designed for it (``INTENDED_ROUTES``);
+   when a main-path shape of ``conv_bwd_data``, ``conv_bwd_w`` or the
+   dense kernel took another route than the one designed for it
+   (``INTENDED_ROUTES``). The LSTM layers are also timed against
+   ``torch.nn.LSTM`` (cuDNN) on the device clock;
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
    ``/predict`` requests; every answer is checked against the plain
@@ -265,7 +267,10 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
         conv_bwd_w,
         conv_bwd_w_reference,
     )
-    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_data_route
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        conv_bwd_data_route,
+        conv_bwd_w_route,
+    )
 
     dev = torch.device("cuda")
     xs, ws = tuple(geo["x"]), tuple(geo["w"])
@@ -314,9 +319,9 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
     plain_ms = graph_ms(torch, plain)
     library_ms = graph_ms(torch, library)
     bound_ms, bound_by = bound(flops, nbytes)
-    route = "gemm"  # conv_bwd_w has the one implicit GEMM
-    if kind == "conv_bwd_data":
-        route = conv_bwd_data_route(*xs, ws[0], ws[2], ws[3], st, pad).route
+    pick = conv_bwd_data_route if kind == "conv_bwd_data" else \
+        conv_bwd_w_route
+    route = pick(*xs, ws[0], ws[2], ws[3], st, pad).route
     return {"kernel": kind, "kernel_route": route,
             "shape_of": f"{model}.{name}", "x": list(xs),
             "w": list(ws), "stride": list(st), "padding": list(pad),
@@ -820,7 +825,9 @@ def lstm_layer_vs_cudnn(torch, model, T, b, n_in, n, gen):
     ``torch.nn.LSTM`` (cuDNN, TF32 off) on the same weights, the gates
     permuted from i, f, o, g to cuDNN's i, f, g, o and ``b_hh`` zero.
     Forward times, and backward times of a retained graph (dx and every
-    weight's gradient)."""
+    weight's gradient), all on the device clock: the profiler's sum of
+    the device activities of 5 calls (``profiled_device_ms``; the port's
+    cooperative launches and cuDNN's RNN calls alike), over 5."""
     from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
 
     dev = torch.device("cuda")
@@ -841,23 +848,36 @@ def lstm_layer_vs_cudnn(torch, model, T, b, n_in, n, gen):
         ours = layer.apply(params, x, {})[0]
         lib = lstm(x_tbi)[0].permute(1, 2, 0)
         err = close_to_scale(torch, ours, lib, 1e-4)
-        port_fwd, _ = events_ms(torch, lambda: layer.apply(params, x, {}))
-        cudnn_fwd, _ = events_ms(torch, lambda: lstm(x_tbi))
+        port_fwd = device_ms(torch, lambda: layer.apply(params, x, {}))
+        cudnn_fwd = device_ms(torch, lambda: lstm(x_tbi))
     leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     xg = x.clone().requires_grad_(True)
     y = layer.apply(leaves, xg, {}, train=True)[0]
     g = torch.randn(y.shape, device=dev, generator=gen)
-    port_bwd, _ = events_ms(torch, lambda: torch.autograd.grad(
+    port_bwd = device_ms(torch, lambda: torch.autograd.grad(
         y, [xg, *leaves.values()], g, retain_graph=True))
     xl = x_tbi.clone().requires_grad_(True)
     out = lstm(xl)[0]
     gl = g.permute(2, 0, 1).contiguous()
-    cudnn_bwd, _ = events_ms(torch, lambda: torch.autograd.grad(
+    cudnn_bwd = device_ms(torch, lambda: torch.autograd.grad(
         out, [xl, *lstm.parameters()], gl, retain_graph=True))
     return {"shape_of": model, "T": T, "b": b, "n_in": n_in, "n": n,
+            "clock": "device (torch.profiler kernel sum)",
             "max_abs_err_vs_cudnn": err, "port_fwd_ms": port_fwd,
             "cudnn_fwd_ms": cudnn_fwd, "port_bwd_ms": port_bwd,
             "cudnn_bwd_ms": cudnn_bwd}
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of one ``fn()`` call: the profiler's sum of the device
+    activities of ``reps`` calls (after two warm-up calls), over reps."""
+    for _ in range(2):
+        fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return profiled_device_ms(torch, run)[0] / reps
 
 
 def charrnn_conf(peephole: bool):
@@ -1260,11 +1280,13 @@ def check_transformer_matmuls(torch, gen):
     return records
 
 
-# The route each main-path shape of the two routed kernels must take
-# (ops.conv_block.conv_bwd_data_route, ops.matmul_block.matmul_route),
+# The route each main-path shape of the routed kernels must take
+# (ops.conv_block.conv_bwd_data_route and conv_bwd_w_route,
+# ops.matmul_block.matmul_route),
 # by the prefix of the record's shape_of.
 INTENDED_ROUTES = {
     "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm")),
+    "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
                      ("alexnet.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
@@ -1623,9 +1645,10 @@ def main() -> int:
     for k, (src, replaces, main_of) in sources.items():
         mine = [r for r in records if r["kernel"] == k]
         main = [r for r in mine if r["shape_of"].startswith(main_of)]
-        flops = sum(r["gflop"] for r in main) * 1e9
-        nbytes = sum(r["mb"] for r in main) * 1e6
-        bound_ms, bound_by = bound(flops, nbytes)
+        # the launches run one after another: the least time is the sum
+        # of their bounds, named by the launch that bounds the most
+        bound_ms = sum(r["bound_ms"] for r in main)
+        bound_by = max(main, key=lambda r: r["bound_ms"])["bound_by"]
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": served[k] + trained[k] + sum(c[k] for c in tx_paths),
@@ -1638,6 +1661,12 @@ def main() -> int:
         if k in INTENDED_ROUTES:  # the kernel route its main path took
             entry["kernel_route"] = "+".join(sorted(
                 {r["kernel_route"] for r in main}))
+        if k == "conv_bwd_w":  # each layer of the step, library beside
+            for r in main:
+                layer = r["shape_of"].split(".")[1]
+                entry.update({f"{layer}_ms": r["kernel_ms"],
+                              f"{layer}_library_ms": r["library_ms"],
+                              f"{layer}_bound_ms": r["bound_ms"]})
         if k == "matmul_block":  # the transformer's input projection
             tx_in = next(r for r in mine
                          if r["shape_of"] == "transformer.input")

@@ -64,13 +64,45 @@
 //   reduction splits (common.cuh plan_splits) into a scratch that
 //   splitk_finish adds in a fixed order.
 //
-// conv_bwd_w is [o, c*kh*kw] over a reduction r = (n, oy, ox) on the same
-// tile. The output is tiny and the reduction deep (LeNet conv1 dW:
-// 0.15 GFLOP over 12 MB, bytes bound it; AlexNet conv2 dW at batch 64:
-// 57 GFLOP, FP32 FMA does), so the reduction is split over blockIdx.z by
-// its own plan (common.cuh plan_dw_splits: about two waves of blocks on
-// 132 SMs); each split writes f32 partial sums to a scratch the wrapper
-// allocates and splitk_finish adds them in a fixed order.
+// conv_bwd_w replaces ::_conv_bwd_w_kernel (:184), which keeps an f32
+// [kh, kw, c, oc_b] block of dW resident while whole images stream past
+// and runs one per-tap contraction an image, over a grid whose batch
+// axis is revisited in order. dW is tiny and its reduction deep: at
+// LeNet's step, conv1 dW [20, 1, 5, 5] sums 147,456 products an entry
+// (0.147 GFLOP over 12.6 MB, 11.8 of it the gradient map: bytes bound
+// it, 3.76 us at 3.35 TB/s) and conv2 dW [50, 20, 5, 5] 16,384 (0.819
+// GFLOP, operations: 12.2 us at 67 TFLOP/s). It has two routes, picked
+// by the wrapper from the shape alone (ops/conv_block.py
+// conv_bwd_w_route):
+//
+// - image_resident, for square kernels up to 5 x 5 whose two staged
+//   images fit in shared memory: LeNet's conv1 and conv2. The TPU
+//   kernel's idea carries over (whole images pass a resident sum), its
+//   schedule does not: blocks run in parallel and in no order, so a
+//   block owns a chunk of images and a group of input channels, stages
+//   each image's x slab and gradient map with cp.async (two buffers, the
+//   next image in flight) and sums into registers; a fixed-order finish
+//   (dw_finish_kernel) adds the chunks' partial dW. The first version,
+//   the implicit GEMM below, ran 0.152 ms over LeNet's step on an H100:
+//   its 64 x 64 tile was 12 % full at conv1 (20 x 25) and 76 % at conv2,
+//   it gathered each x element from device memory once per tap, split
+//   conv1 264 ways through a one-load-at-a-time finish, and issued 8
+//   shared loads per 16 FMAs. Here a thread's item is one (output quad,
+//   tap row, channel): 4 x kw sums, fed along each gradient row by a
+//   kw-wide window that slides over the input row (one new load a
+//   pixel) and 4 gradient broadcasts, so no FMA falls outside dW and x
+//   is read from device memory once. Odd and padded shared strides keep
+//   a warp's loads free of bank conflicts; the block's dW slice leaves
+//   through shared memory as whole runs. Two blocks an SM. At conv2 it
+//   runs at 16 TFLOP/s (0.052 ms on an H100): a pixel's 20 FMAs share
+//   the issue slots with the window moves, the five loads, addressing
+//   and the loop.
+// - gemm, for the rest (AlexNet's dW: one conv1 image is 602 KB, its
+//   gradient maps 173-746 KB): [o, c*kh*kw] over a reduction r = (n, oy,
+//   ox) on the implicit GEMM's 64 x 64 tile, split over blockIdx.z by
+//   its own plan (common.cuh plan_dw_splits: about two waves of blocks
+//   on 132 SMs); each split writes f32 partial sums to a scratch the
+//   wrapper allocates and splitk_finish adds them in a fixed order.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -495,6 +527,306 @@ int launch_resident(const float* dacc, const float* w, float* wt, float* dx,
   return (int)cudaGetLastError();
 }
 
+// --- conv_bwd_w, image-resident route ----------------------------------------
+
+constexpr int kDwMaxThreads = 384;
+constexpr int kDwMaxK = 5;  // square kernels up to 5 x 5
+constexpr int kDwFinishThreads = 256;  // 8 warps: chunk strides of 8
+
+// Shared-memory layout of an image-resident dW block (the formula of
+// ops/conv_block.py bwd_w_smem_bytes). A staging buffer holds an image's
+// x slab for the channel group, each channel at an odd stride (so the
+// lanes of a warp, on consecutive channels, hit distinct banks), then its
+// gradient map, each output channel at a stride of its map padded to 16
+// bytes plus 16 (so the two output quads of a warp hit other banks).
+// Two buffers; after the image loop the same memory holds the pixel
+// groups' partial sums (if more than one: pixel_groups x items x 4 x k),
+// or else the block's dW slice (o x group x k x k).
+__host__ __device__ inline int dw_x_stride(int h, int wd) {
+  return (h * wd) | 1;
+}
+__host__ __device__ inline int dw_g_stride(int oh, int ow) {
+  return (oh * ow + 3) / 4 * 4 + 4;
+}
+__host__ __device__ inline long long dw_x_floats(int group, int h, int wd) {
+  return ((long long)group * dw_x_stride(h, wd) + 3) / 4 * 4;
+}
+__host__ __device__ inline long long dw_stage_floats(int group, int h,
+                                                     int wd, int o, int oh,
+                                                     int ow) {
+  return dw_x_floats(group, h, wd) + (long long)o * dw_g_stride(oh, ow);
+}
+// items: (output-channel quad, tap row, channel)
+__host__ __device__ inline long long dw_items(int o, int group, int k) {
+  return (long long)((o + 3) / 4) * k * group;
+}
+long long dw_floats(int group, int h, int wd, int o, int oh, int ow, int k,
+                    int pixel_groups) {
+  const long long stage = 2 * dw_stage_floats(group, h, wd, o, oh, ow);
+  if (pixel_groups == 1) {  // the block's dW slice, staged for the store
+    const long long out = (long long)o * group * k * k;
+    return stage > out ? stage : out;
+  }
+  const long long red =
+      (long long)pixel_groups * dw_items(o, group, k) * 4 * k;
+  return stage > red ? stage : red;
+}
+
+// acc[j][e] += g[j] * win[e]: one gradient pixel of 4 output channels
+// against the K inputs of one tap row under it
+template <int K>
+__device__ __forceinline__ void dw_fma(float (&acc)[4][K],
+                                       const float (&g)[4],
+                                       const float (&win)[K]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < K; ++e) acc[j][e] = fmaf(g[j], win[e], acc[j][e]);
+}
+
+// Block (chunk of images, channel group): dW[oc, c0 + ci, dh, :] summed
+// over the chunk's images, into partial[chunk] (or dw for one chunk).
+// An item is (output-channel quad oq, tap row dh, channel ci), channels
+// fastest across a warp's lanes: its thread holds the 4 x K sums in
+// registers and walks its pixel group's gradient rows; along a row it
+// slides a K-wide window over the input row under it (stride 1: one new
+// shared load a pixel), so one pixel costs 4 gradient loads (broadcasts)
+// and 1 input load for 4 K FMAs, and no product falls outside the map.
+// Images are staged whole (x slab and gradient map) by cp.async, the
+// next one in flight while this one is summed. Pixel groups (runs of
+// gradient rows) add their sums in order at the end, so every dW entry
+// sums its images, rows and pixels in a fixed order: two launches give
+// the same bits. (A thread holding all K tap rows, 4 K^2 sums and K
+// input loads a pixel, ran slower at LeNet's conv2 on an H100: 164
+// registers left 9 warps an SM.)
+template <int K>
+__global__ void __launch_bounds__(kDwMaxThreads, 2)
+    conv_bwd_w_resident_kernel(const float* __restrict__ x,
+                               const float* __restrict__ dacc,
+                               float* __restrict__ dw,
+                               float* __restrict__ partial, int n, int c,
+                               int h, int wd, int o, int sh, int sw, int ph,
+                               int pw, int oh, int ow, int group,
+                               int pixel_groups, int images_per_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int hw = h * wd;
+  const int ohw = oh * ow;
+  const int xs_stride = dw_x_stride(h, wd);
+  const int gs_stride = dw_g_stride(oh, ow);
+  const int x_floats = (int)dw_x_floats(group, h, wd);
+  const int stage_len = x_floats + o * gs_stride;
+  const int c0 = blockIdx.y * group;
+  const int cn = min(group, c - c0);
+  const int img0 = blockIdx.x * images_per_chunk;
+  const int cnt = min(n - img0, images_per_chunk);
+  const int items = (o + 3) / 4 * K * group;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int pg = tid / items;  // pixel group
+  const int it = tid - pg * items;
+  const int oq = it / (K * group);
+  const int dh = (it - oq * K * group) / group;
+  const int ci = it - (oq * K + dh) * group;
+  const bool active = pg < pixel_groups && ci < cn;
+  const int oy_lo = pg * oh / pixel_groups;
+  const int oy_hi = (pg + 1) * oh / pixel_groups;
+  // the quad's channels, clamped to the last real one (its sums dropped)
+  int g_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) g_off[j] = min(4 * oq + j, o - 1) * gs_stride;
+
+  float acc[4][K];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < K; ++e) acc[j][e] = 0.0f;
+
+  const bool g_vec = (ohw & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dacc) & 15) == 0;
+  auto stage = [&](int img, int buf) {
+    float* xs = smem + (size_t)buf * stage_len;
+    const float* x_src = x + ((size_t)img * c + c0) * hw;
+    for (int i = tid; i < cn * hw; i += nt) {
+      const int ch = i / hw;
+      dl4j::cp_async4(xs + ch * xs_stride + (i - ch * hw), x_src + i, 4);
+    }
+    float* gs = xs + x_floats;
+    const float* g_src = dacc + (size_t)img * o * ohw;
+    if (g_vec) {
+      const int q4 = ohw / 4;
+      for (int i = tid; i < o * q4; i += nt) {
+        const int ch = i / q4;
+        dl4j::cp_async16(gs + ch * gs_stride + 4 * (i - ch * q4),
+                         g_src + 4 * i, 16);
+      }
+    } else {
+      for (int i = tid; i < o * ohw; i += nt) {
+        const int ch = i / ohw;
+        dl4j::cp_async4(gs + ch * gs_stride + (i - ch * ohw), g_src + i, 4);
+      }
+    }
+    dl4j::cp_async_commit();
+  };
+  stage(img0, 0);
+  for (int i = 0; i < cnt; ++i) {
+    if (i + 1 < cnt) {
+      stage(img0 + i + 1, (i + 1) & 1);
+      dl4j::cp_async_wait<1>();
+    } else {
+      dl4j::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* xs = smem + (size_t)(i & 1) * stage_len;
+      const float* x_ch = xs + ci * xs_stride;
+      const float* gs = xs + x_floats;
+      for (int oy = oy_lo; oy < oy_hi; ++oy) {
+        const int iy = oy * sh - ph + dh;
+        if (iy < 0 || iy >= h) continue;  // the row lies on the padding
+        const float* x_row = x_ch + iy * wd;
+        const float* g_row = gs + oy * ow;
+        float win[K];
+        float g[4];
+        if (sw == 1) {
+          win[0] = 0.0f;
+#pragma unroll
+          for (int e = 0; e < K - 1; ++e) {
+            const int ix = e - pw;
+            win[e + 1] = ix >= 0 && ix < wd ? x_row[ix] : 0.0f;
+          }
+#pragma unroll 4
+          for (int ox = 0; ox < ow; ++ox) {
+#pragma unroll
+            for (int e = 0; e < K - 1; ++e) win[e] = win[e + 1];
+            const int ix = ox - pw + K - 1;
+            win[K - 1] = ix >= 0 && ix < wd ? x_row[ix] : 0.0f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) g[j] = g_row[g_off[j] + ox];
+            dw_fma<K>(acc, g, win);
+          }
+        } else {
+          for (int ox = 0; ox < ow; ++ox) {
+#pragma unroll
+            for (int e = 0; e < K; ++e) {
+              const int ix = ox * sw - pw + e;
+              win[e] = ix >= 0 && ix < wd ? x_row[ix] : 0.0f;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) g[j] = g_row[g_off[j] + ox];
+            dw_fma<K>(acc, g, win);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next stage overwrites this buffer
+  }
+
+  constexpr int kPerItem = 4 * K;
+  float* dst = partial != nullptr
+                   ? partial + (size_t)blockIdx.x * o * c * K * K
+                   : dw;
+  if (pixel_groups == 1) {
+    // the block's dW slice [o][cn][K][K] through shared memory, so the
+    // stores to device memory are whole runs (oc's cn * K * K entries
+    // are contiguous there) instead of a lane's 4 * K scattered ones
+    float* out_s = smem;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int oc = 4 * oq + j;
+        if (oc >= o) continue;
+        float* d = out_s + (((size_t)oc * cn + ci) * K + dh) * K;
+#pragma unroll
+        for (int e = 0; e < K; ++e) d[e] = acc[j][e];
+      }
+    }
+    __syncthreads();
+    const int run = cn * K * K;
+    for (int idx = tid; idx < o * run; idx += nt) {
+      const int oc = idx / run;
+      dst[((size_t)oc * c + c0) * K * K + (idx - oc * run)] = out_s[idx];
+    }
+    return;
+  }
+  // pixel groups: every thread parks its sums, then each (item, j, tap)
+  // adds the groups in order (the staging buffers are free: the loop
+  // ended on a barrier after its last wait)
+  float* red = smem;
+  if (pg < pixel_groups) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < K; ++e)
+        red[(size_t)tid * kPerItem + j * K + e] = acc[j][e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < items * kPerItem; idx += nt) {
+    const int item = idx / kPerItem;
+    const int jt = idx - item * kPerItem;
+    const int q = item / (K * group);
+    const int row = (item - q * K * group) / group;
+    const int cc = item - (q * K + row) * group;
+    const int oc = 4 * q + jt / K;
+    if (cc >= cn || oc >= o) continue;
+    float v = 0.0f;
+    for (int p = 0; p < pixel_groups; ++p)
+      v += red[((size_t)p * items + item) * kPerItem + jt];
+    dst[(((size_t)oc * c + c0 + cc) * K + row) * K + jt % K] = v;
+  }
+}
+
+// out[i] = the sum over chunks z of partial[z][i]: warp w of a block
+// adds z = w, w + 8, ... in order, then the 8 warp sums are added in
+// order. A fixed order, so the same bits every launch, with eight loads
+// of an element in flight where the split-K finish has one: the chunks
+// are many and dW small.
+__global__ void __launch_bounds__(kDwFinishThreads)
+    dw_finish_kernel(const float* __restrict__ partial, int chunks,
+                     long long total, float* __restrict__ out) {
+  constexpr int kWarps = kDwFinishThreads / 32;
+  __shared__ float sums[kWarps][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const long long i = (long long)blockIdx.x * 32 + lane;
+  float z = 0.0f;
+  if (i < total) {
+#pragma unroll 4
+    for (int s = warp; s < chunks; s += kWarps)
+      z += partial[(size_t)s * total + i];
+  }
+  sums[warp][lane] = z;
+  __syncthreads();
+  if (warp == 0 && i < total) {
+    float v = sums[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += sums[w][lane];
+    out[i] = v;
+  }
+}
+
+template <int K>
+int launch_dw_resident(const float* x, const float* dacc, float* dw,
+                       float* partial, int n, int c, int h, int wd, int o,
+                       int sh, int sw, int ph, int pw, int oh, int ow,
+                       int group, int pixel_groups, int images_per_chunk,
+                       int chunks, int threads, int smem_bytes,
+                       cudaStream_t stream) {
+  static unsigned smem_set = 0;  // devices whose cap is raised
+  int rc = dl4j::allow_dynamic_smem(conv_bwd_w_resident_kernel<K>,
+                                    dl4j::kMaxSmemBytes, &smem_set);
+  if (rc != 0) return rc;
+  dim3 grid((unsigned)chunks, (unsigned)dl4j::ceil_div(c, group));
+  conv_bwd_w_resident_kernel<K><<<grid, threads, smem_bytes, stream>>>(
+      x, dacc, dw, chunks > 1 ? partial : nullptr, n, c, h, wd, o, sh, sw,
+      ph, pw, oh, ow, group, pixel_groups, images_per_chunk);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || chunks == 1) return rc;
+  const long long total = (long long)o * c * K * K;
+  dw_finish_kernel<<<(unsigned)((total + 31) / 32), kDwFinishThreads, 0,
+                     stream>>>(partial, chunks, total, dw);
+  return (int)cudaGetLastError();
+}
+
 long long data_tiles(int n, int c, int h, int wd) {
   const long long n_px = (long long)n * h * wd;
   return ((n_px + kColBlock - 1) / kColBlock) * dl4j::ceil_div(c, kRowBlock);
@@ -641,4 +973,58 @@ extern "C" int dl4j_conv_bwd_w(const void* x, const void* dacc, void* dw,
   return dl4j::launch_splitk_finish<float>(ws, z, (long long)o * k2_len,
                                            nullptr, nullptr, 1, 1,
                                            dl4j::kIdentity, out, st);
+}
+
+// dL/dW (f32, OIHW) on the image-resident route: `group` input channels
+// a block, `pixel_groups` runs of gradient rows a block's threads split,
+// `images_per_chunk` images a block (ops/conv_block.py conv_bwd_w_route
+// picks all three); `partial` is a scratch of chunks * o * c * kh * kw
+// f32, chunks = ceil(n / images_per_chunk), needed when chunks > 1.
+// Returns the cudaError_t of the launches (0 on success); a kernel that
+// is not square or above 5 x 5, more threads than 384 or a working set
+// above the H100's 227 KB of shared memory a block is refused
+// (cudaErrorInvalidValue), never shrunk.
+extern "C" int dl4j_conv_bwd_w_resident(const void* x, const void* dacc,
+                                        void* dw, void* partial, int n,
+                                        int c, int h, int wd, int o, int kh,
+                                        int kw, int sh, int sw, int ph,
+                                        int pw, int oh, int ow, int group,
+                                        int pixel_groups,
+                                        int images_per_chunk, void* stream) {
+  if (bad_geometry(n, c, h, wd, o, kh, kw, sh, sw, ph, pw, oh, ow) ||
+      kh != kw || kw > kDwMaxK || group <= 0 || group > c ||
+      dl4j::ceil_div(c, group) > 65535 || pixel_groups <= 0 ||
+      pixel_groups > oh || images_per_chunk <= 0 ||
+      (long long)n * c * h * wd > 0x7fffffffLL ||
+      (long long)n * o * oh * ow > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long threads =
+      (dw_items(o, group, kw) * pixel_groups + 31) / 32 * 32;
+  const long long smem =
+      4 * dw_floats(group, h, wd, o, oh, ow, kw, pixel_groups);
+  const int chunks = dl4j::ceil_div(n, images_per_chunk);
+  if (threads > kDwMaxThreads || smem > dl4j::kMaxSmemBytes ||
+      (chunks > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* gp = static_cast<const float*>(dacc);
+  float* out = static_cast<float*>(dw);
+  float* ws = static_cast<float*>(partial);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DL4J_DW_RESIDENT(K)                                                  \
+  case K:                                                                    \
+    return launch_dw_resident<K>(xp, gp, out, ws, n, c, h, wd, o, sh, sw,    \
+                                 ph, pw, oh, ow, group, pixel_groups,        \
+                                 images_per_chunk, chunks, (int)threads,     \
+                                 (int)smem, st);
+  switch (kw) {
+    DL4J_DW_RESIDENT(1)
+    DL4J_DW_RESIDENT(2)
+    DL4J_DW_RESIDENT(3)
+    DL4J_DW_RESIDENT(4)
+    DL4J_DW_RESIDENT(5)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_DW_RESIDENT
 }

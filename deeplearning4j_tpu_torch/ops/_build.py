@@ -111,6 +111,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).argtypes = [p] * 4 + [i] * 14 + [p]
         getattr(lib, name).restype = i
     lib.dl4j_conv_bwd_data_resident.argtypes = [p] * 4 + [i] * 15 + [p]
+    lib.dl4j_conv_bwd_w_resident.argtypes = [p] * 4 + [i] * 16 + [p]
+    lib.dl4j_conv_bwd_w_resident.restype = i
     lib.dl4j_conv_bwd_data_resident.restype = i
     lib.dl4j_conv_bwd_data_splits.argtypes = [i] * 7
     lib.dl4j_conv_bwd_data_splits.restype = i
@@ -130,6 +132,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
         getattr(lib, name).restype = i
     ip = ctypes.POINTER(ctypes.c_int)
+    lib.dl4j_flash_smem_bytes.argtypes = [i, i, ip]
+    lib.dl4j_flash_smem_bytes.restype = i
     lib.dl4j_lstm_seq_plan.argtypes = [i] * 3 + [ip, ip]
     lib.dl4j_lstm_seq_plan.restype = i
     return lib

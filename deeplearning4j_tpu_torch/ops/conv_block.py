@@ -27,9 +27,11 @@ gradient) and ``conv_bwd_w``. ``conv_bwd_data`` takes one of two kernel
 routes, picked from the shape alone by ``conv_bwd_data_route``: the
 resident kernel (one image's gradient, a channel group's weights and
 its dx held in shared memory) where they fit, the implicit GEMM
-elsewhere. Under ``no_grad`` / ``inference_mode``
-the forward is the direct launch alone. The backward kernels take f32:
-training in bf16 / f16 on the card raises.
+elsewhere; ``conv_bwd_w`` likewise, by ``conv_bwd_w_route``: the
+image-resident kernel (whole images staged, dW summed in registers)
+where two images fit, the implicit GEMM elsewhere. Under ``no_grad`` /
+``inference_mode`` the forward is the direct launch alone. The backward
+kernels take f32: training in bf16 / f16 on the card raises.
 """
 
 from __future__ import annotations
@@ -316,6 +318,96 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
         groups = -(-c // (padded - 4))  # the next smaller padded group
 
 
+# The image-resident route of conv_bwd_w (csrc/conv_bwd.cu): a block
+# holds two images' x slabs (a group of input channels) and gradient
+# maps in shared memory, the next in flight while this one is summed,
+# and a thread owns one (output-channel quad, tap row, channel) item of
+# dW: 4 × k sums in registers, for square kernels up to BWD_W_MAX_K. A
+# block takes at most BWD_W_MAX_THREADS (its __launch_bounds__ keeps two
+# blocks an SM: BWD_W_REGISTERS a thread). Items a block beyond the
+# channel group are split over pixel groups (runs of gradient rows, a
+# divisor of oh, added in order at the end). The images are cut into
+# chunks, one a block, for about one wave of blocks, as long as the
+# chunks' f32 partial sums stay within BWD_W_MAX_SCRATCH bytes.
+BWD_W_MAX_THREADS = 384
+BWD_W_REGISTERS = 85
+BWD_W_MAX_K = 5
+BWD_W_MAX_SCRATCH = 16 << 20
+SM_COUNT = 132  # H100 SXM
+SM_SMEM_BYTES = 233_472  # an SM's shared memory for blocks (228 KB)
+SM_THREADS = 2048
+SM_REGISTERS = 65_536
+
+
+class BwdWRoute(NamedTuple):
+    """``route`` is ``"image_resident"`` or ``"gemm"``; the rest are the
+    image-resident route's (0 on the gemm route): input channels a
+    block (``group``), ``pixel_groups``, ``threads`` and ``smem_bytes``
+    a block, and the images a block (``images_per_chunk``) with the
+    ``chunks`` they make."""
+    route: str
+    group: int = 0
+    pixel_groups: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+    images_per_chunk: int = 0
+    chunks: int = 0
+
+
+def bwd_w_smem_bytes(h: int, w: int, o: int, oh: int, ow: int, k: int,
+                     group: int, pixel_groups: int = 1) -> int:
+    """Shared memory of an image-resident dW block: two staging buffers,
+    each an x slab of ``group`` channels at the odd stride ``h·w | 1``
+    (padded to 16 bytes) and ``o`` gradient maps at a stride of
+    ``oh·ow`` padded to 4 floats plus 4; after the image loop the same
+    memory takes the pixel groups' sums where there is more than one
+    (pixel_groups × items × 4·k f32, items = ceil(o / 4)·k·group), else
+    the block's dW slice (o·group·k² f32) on its way out."""
+    stage = 2 * (_round4(group * ((h * w) | 1)) + o * (_round4(oh * ow) + 4))
+    red = pixel_groups * (-(-o // 4) * k * group) * 4 * k
+    out = o * group * k * k
+    return 4 * max(stage, red if pixel_groups > 1 else out)
+
+
+def conv_bwd_w_route(n: int, c: int, h: int, w: int, o: int, kh: int,
+                     kw: int, stride=(1, 1), padding=(0, 0)) -> BwdWRoute:
+    """The kernel route of dL/dW for an ``[n, c, h, w]`` input under
+    ``[o, c, kh, kw]`` weights: image-resident (square kernels up to 5 ×
+    5) with the fewest channel groups whose items fit a block and whose
+    two staged images fit in shared memory, else the implicit GEMM.
+    Decided from the shape alone."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    oh = conv_output_size(h, kh, sh, ph)
+    ow = conv_output_size(w, kw, sw, pw)
+    k = kw
+    per_channel = -(-o // 4) * k  # items a channel
+    if kh != kw or k > BWD_W_MAX_K or per_channel > BWD_W_MAX_THREADS:
+        return BwdWRoute("gemm")
+    groups = -(-c // (BWD_W_MAX_THREADS // per_channel))
+    while True:
+        group = -(-c // groups)
+        if bwd_w_smem_bytes(h, w, o, oh, ow, k, group) <= RESIDENT_SMEM_BYTES:
+            break
+        if group == 1:
+            return BwdWRoute("gemm")
+        groups = -(-c // (group - 1))
+    items = per_channel * group
+    pixel_groups = max(p for p in range(1, oh + 1) if oh % p == 0
+                       and items * p <= BWD_W_MAX_THREADS
+                       and bwd_w_smem_bytes(h, w, o, oh, ow, k, group, p)
+                       <= RESIDENT_SMEM_BYTES)
+    threads = -(-items * pixel_groups // 32) * 32
+    smem = bwd_w_smem_bytes(h, w, o, oh, ow, k, group, pixel_groups)
+    per_sm = max(1, min(SM_SMEM_BYTES // (smem + 1024),
+                        SM_THREADS // threads,
+                        SM_REGISTERS // (BWD_W_REGISTERS * threads)))
+    chunks = max(1, min(n, -(-SM_COUNT * per_sm // groups),
+                        BWD_W_MAX_SCRATCH // (4 * o * c * k * k)))
+    per_chunk = -(-n // chunks)
+    return BwdWRoute("image_resident", group, pixel_groups, threads, smem,
+                     per_chunk, -(-n // per_chunk))
+
+
 def conv_bwd_data(dacc: torch.Tensor, w: torch.Tensor, x_hw,
                   stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
     """dL/dx (f32 ``[n, c, h, w]``, ``x_hw = (h, w)``) from the f32
@@ -381,12 +473,21 @@ def conv_bwd_w(x: torch.Tensor, dacc: torch.Tensor, w_shape,
                         _pair(padding), oh, ow)
     dw = torch.empty((o, c, kh, kw), dtype=f32, device=x.device)
     lib = _build.load()
-    splits = lib.dl4j_conv_bwd_w_splits(n, c, o, kh, kw, oh, ow)
-    scratch = _build.split_scratch(splits, dw.numel(), x.device)
-    rc = lib.dl4j_conv_bwd_w(
-        x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), *geo, splits,
-        _build.current_stream_handle(x.device))
+    stream = _build.current_stream_handle(x.device)
+    plan = conv_bwd_w_route(n, c, h, wd, o, kh, kw, stride, padding)
+    if plan.route == "image_resident":
+        scratch = _build.split_scratch(plan.chunks, dw.numel(), x.device)
+        rc = lib.dl4j_conv_bwd_w_resident(
+            x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), *geo,
+            plan.group, plan.pixel_groups, plan.images_per_chunk, stream)
+    else:
+        splits = lib.dl4j_conv_bwd_w_splits(n, c, o, kh, kw, oh, ow)
+        scratch = _build.split_scratch(splits, dw.numel(), x.device)
+        rc = lib.dl4j_conv_bwd_w(
+            x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), *geo, splits,
+            stream)
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)
     return dw

@@ -36,10 +36,16 @@ over key blocks with a logsumexp pre-pass that never builds ``[t, t]``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from deeplearning4j_tpu_torch.ops import _build, dispatch
-from deeplearning4j_tpu_torch.ops.conv_block import wants_grad
+from deeplearning4j_tpu_torch.ops.conv_block import (
+    RESIDENT_SMEM_BYTES,
+    SM_SMEM_BYTES,
+    wants_grad,
+)
 from deeplearning4j_tpu_torch.parallel.sequence import NEG, attention
 
 # above this many K/V elements (t * d) a head takes the streamed TPU
@@ -51,6 +57,44 @@ _RESIDENT_TD_LIMIT = 8192 * 64
 _BWD_MATERIALIZE_T_LIMIT = 2048
 MAX_HEAD_DIM = 128
 _BLOCK = 128  # the plain version's key block (the TPU kernels' default)
+
+
+# The kernel's tile (csrc/flash_attention.cu Layout): 128 query rows and
+# 64 keys a block, q and p rows padded by 4 f32, K and V rows by 16
+# bytes; 128 threads (two blocks an SM) up to d 64, 256 (one) at d 128;
+# a ring of two K/V stages where the SM's blocks still fit in its
+# shared memory, else one K and one V buffer refilled in turn.
+FLASH_BLOCK_Q = 128
+FLASH_BLOCK_K = 64
+FLASH_SMEM_BYTES = RESIDENT_SMEM_BYTES  # a block's most
+
+
+class FlashPlan(NamedTuple):
+    """``padded_d`` (32, 64 or 128), ``threads`` a block, K/V ``stages``
+    and the dynamic shared memory a block takes, in bytes."""
+    padded_d: int
+    threads: int
+    stages: int
+    smem_bytes: int
+
+
+def flash_smem_plan(d: int, element_size: int = 4) -> FlashPlan:
+    """The flash kernel's plan at head dimension ``d`` for inputs of
+    ``element_size`` bytes: q and p tiles in f32, then ``stages`` × (K
+    tile, V tile) in the input type, two stages where the blocks an SM
+    holds (two of 128 threads, or one of 256 at d 128) fit."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dimension {d} outside "
+                         f"1..{MAX_HEAD_DIM}")
+    dp = 32 if d <= 32 else 64 if d <= 64 else 128
+    threads = 256 if dp == 128 else 128
+    budget = FLASH_SMEM_BYTES if threads == 256 else (
+        SM_SMEM_BYTES // 2 - 1024)
+    fixed = 4 * FLASH_BLOCK_Q * (dp + 4) + 4 * FLASH_BLOCK_Q * (
+        FLASH_BLOCK_K + 4)
+    tile = FLASH_BLOCK_K * (dp * element_size + 16)
+    stages = 2 if fixed + 4 * tile <= budget else 1
+    return FlashPlan(dp, threads, stages, fixed + 2 * stages * tile)
 
 
 def pow2_divisor_leq(n: int, cap: int) -> int:

@@ -254,3 +254,36 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
     matmul_block(x, w, b, r)
     leaves = [a.requires_grad_(True) for a in (q, k, v)]
     flash_attention(*leaves, causal=True).sum().backward()
+
+
+@pytest.mark.parametrize("d,element_size,plan", [
+    (32, 4, (32, 128, 2, 90_112)),
+    (64, 4, (64, 128, 1, 104_448)),
+    (128, 4, (128, 256, 1, 169_984)),
+    (100, 4, (128, 256, 1, 169_984)),
+    (32, 2, (32, 128, 2, 73_728)),
+    (64, 2, (64, 128, 2, 106_496)),
+    (128, 2, (128, 256, 2, 172_032)),
+])
+def test_flash_smem_plan_pins_the_head_dims(d, element_size, plan):
+    """The kernel's tile at each padded head dimension: q and p in f32
+    (128 rows of dp + 4 and of 68), K and V tiles of 64 rows of dp
+    elements + 16 bytes; two stages where two 128-thread blocks (d <= 64)
+    or one 256-thread block (d 128) still fit an SM's 233,472 bytes,
+    and never above the 232,448 a block has."""
+    got = fa.flash_smem_plan(d, element_size)
+    assert tuple(got) == plan
+    assert got.smem_bytes <= fa.FLASH_SMEM_BYTES
+    if got.threads == 128:
+        assert 2 * (got.smem_bytes + 1024) <= 233_472
+    dp = got.padded_d
+    two = (4 * 128 * (dp + 4) + 4 * 128 * 68
+           + 4 * 64 * (dp * element_size + 16))
+    budget = 232_448 if got.threads == 256 else 233_472 // 2 - 1024
+    assert (two <= budget) == (got.stages == 2)
+
+
+def test_flash_smem_plan_refuses_head_dims_the_kernel_does_not_take():
+    for d in (0, 129):
+        with pytest.raises(ValueError, match="head dimension"):
+            fa.flash_smem_plan(d)

@@ -328,3 +328,102 @@ def test_conv_bwd_data_resident_reckoning_stays_within_shared_memory():
                     -(-o * oh * oh // 4) * 4 + k * k * o * cgp
                     + plan.tap_groups * cgp * hw * hw)
     assert seen["resident"] > 0 and seen["gemm"] > 0
+
+
+# (path, x shape, w shape, stride, padding, route): conv_bwd_w on the
+# main paths. LeNet-5's two convs at the training batch stage whole
+# images in shared memory; AlexNet's five at batch 64 keep the implicit
+# GEMM (one conv1 image is 602 KB, the conv2-conv5 gradient maps
+# 173-746 KB, two of which no block holds).
+DW_ROUTE_CASES = [
+    ("lenet256.conv1", (256, 1, 28, 28), (20, 1, 5, 5), 1, 0,
+     "image_resident"),
+    ("lenet256.conv2", (256, 20, 12, 12), (50, 20, 5, 5), 1, 0,
+     "image_resident"),
+    ("alexnet.conv1", (64, 3, 224, 224), (96, 3, 11, 11), 4, 2, "gemm"),
+    ("alexnet.conv2", (64, 96, 27, 27), (256, 96, 5, 5), 1, 2, "gemm"),
+    ("alexnet.conv3", (64, 256, 13, 13), (384, 256, 3, 3), 1, 1, "gemm"),
+    ("alexnet.conv4", (64, 384, 13, 13), (384, 384, 3, 3), 1, 1, "gemm"),
+    ("alexnet.conv5", (64, 384, 13, 13), (256, 384, 3, 3), 1, 1, "gemm"),
+]
+
+
+@pytest.mark.parametrize("path,xs,ws,stride,padding,route", DW_ROUTE_CASES,
+                         ids=[c[0] for c in DW_ROUTE_CASES])
+def test_conv_bwd_w_route_pins_the_main_paths(path, xs, ws, stride, padding,
+                                              route):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_w_route
+
+    n, c, h, w = xs
+    o, _, kh, kw = ws
+    assert conv_bwd_w_route(n, c, h, w, o, kh, kw, stride,
+                            padding).route == route
+
+
+def test_conv_bwd_w_route_plans_lenet():
+    """conv1: 25 items (5 output quads x 5 tap rows of the one channel)
+    times 12 pixel groups of two gradient rows, one image a block, 256
+    chunks; conv2: 4 groups of 5 channels (13 quads x 5 rows x 5 = 325
+    items), 4 images a block, 64 chunks (6.4 MB of partial sums)."""
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_w_route
+
+    assert tuple(conv_bwd_w_route(256, 1, 28, 28, 20, 5, 5)) == (
+        "image_resident", 1, 12, 320, 99_104, 1, 256)
+    assert tuple(conv_bwd_w_route(256, 20, 12, 12, 50, 5, 5)) == (
+        "image_resident", 5, 1, 352, 33_024, 4, 64)
+
+
+def test_conv_bwd_w_resident_reckoning_stays_within_shared_memory():
+    """Over a sweep of geometries, every image-resident plan (square
+    kernels up to 5 x 5) fits the H100's 232,448 bytes a block and 384
+    threads, covers every channel and image, splits the gradient rows
+    evenly, keeps its partial sums within 16 MB, and reckons the bytes
+    the kernel holds: two buffers of an x slab at an odd channel stride
+    and gradient maps at a padded one (each padded to 16 bytes), or what
+    the block leaves there at its end where that is larger (the pixel
+    groups' sums, or its dW slice)."""
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        BWD_W_MAX_K,
+        BWD_W_MAX_SCRATCH,
+        BWD_W_MAX_THREADS,
+        RESIDENT_SMEM_BYTES,
+        bwd_w_smem_bytes,
+        conv_bwd_w_route,
+    )
+
+    assert RESIDENT_SMEM_BYTES == 232_448
+    seen = {"image_resident": 0, "gemm": 0}
+    for n in (1, 7, 256):
+        for c in (1, 3, 20, 96):
+            for o in (1, 7, 50, 384):
+                for hw, k, s, p in ((12, 5, 1, 0), (28, 5, 1, 2),
+                                    (13, 3, 1, 1), (11, 3, 2, 1),
+                                    (56, 11, 4, 2), (9, 1, 1, 0)):
+                    plan = conv_bwd_w_route(n, c, hw, hw, o, k, k, s, p)
+                    seen[plan.route] += 1
+                    if plan.route != "image_resident":
+                        continue
+                    oh = (hw + 2 * p - k) // s + 1
+                    assert k <= BWD_W_MAX_K
+                    assert plan.smem_bytes <= RESIDENT_SMEM_BYTES
+                    assert 1 <= plan.group <= c
+                    assert oh % plan.pixel_groups == 0
+                    items = -(-o // 4) * k * plan.group
+                    assert plan.threads == -(-items * plan.pixel_groups
+                                             // 32) * 32
+                    assert plan.threads <= BWD_W_MAX_THREADS
+                    assert plan.smem_bytes == bwd_w_smem_bytes(
+                        hw, hw, o, oh, oh, k, plan.group, plan.pixel_groups)
+                    stage = 2 * (-(-plan.group * (hw * hw | 1) // 4) * 4
+                                 + o * (-(-oh * oh // 4) * 4 + 4))
+                    end = (plan.pixel_groups * items * 4 * k
+                           if plan.pixel_groups > 1
+                           else o * plan.group * k * k)
+                    assert plan.smem_bytes == 4 * max(stage, end)
+                    assert plan.chunks == -(-n // plan.images_per_chunk)
+                    assert (plan.chunks - 1) * plan.images_per_chunk < n
+                    assert (plan.chunks == 1 or plan.chunks * 4 * o * c * k
+                            * k <= BWD_W_MAX_SCRATCH)
+    assert seen["image_resident"] > 0 and seen["gemm"] > 0
+    # a kernel that is not square keeps the GEMM
+    assert conv_bwd_w_route(2, 3, 9, 7, 7, 3, 2).route == "gemm"

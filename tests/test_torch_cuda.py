@@ -239,6 +239,42 @@ def test_conv_bwd_w_kernel_matches_plain(cuda, xs, ws, stride, padding):
     _close_to_scale(got, lib, 5e-5)
 
 
+# (x shape, w shape, stride, padding, route) of conv_bwd_w: LeNet-5's
+# convs at the training batch and an odd batch (image-resident), three
+# input channels, stride 2 with padding 1 and a ragged output-channel
+# quad (image-resident), and AlexNet's conv2 (the implicit GEMM: its
+# gradient map alone takes 746 KB an image)
+DW_ROUTE_CASES = [
+    ((256, 1, 28, 28), (20, 1, 5, 5), 1, 0, "image_resident"),
+    ((256, 20, 12, 12), (50, 20, 5, 5), 1, 0, "image_resident"),
+    ((7, 20, 12, 12), (50, 20, 5, 5), 1, 0, "image_resident"),
+    ((5, 3, 32, 32), (16, 3, 3, 3), 1, 0, "image_resident"),
+    ((6, 5, 15, 13), (10, 5, 3, 3), 2, 1, "image_resident"),
+    ((4, 96, 27, 27), (256, 96, 5, 5), 1, 2, "gemm"),
+]
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding,route", DW_ROUTE_CASES)
+def test_conv_bwd_w_routes_match_plain_library_and_repeat(
+        cuda, xs, ws, stride, padding, route):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_w_route
+
+    plan = conv_bwd_w_route(*xs, ws[0], ws[2], ws[3], stride, padding)
+    assert plan.route == route
+    x, _, dacc = _bwd_operands(xs, ws, stride, padding, 8)
+    before = dispatch.launch_counts()["conv_bwd_w"]
+    got = conv_bwd_w(x, dacc, ws, stride, padding)
+    again = conv_bwd_w(x, dacc, ws, stride, padding)
+    ref = conv_bwd_w_reference(x, dacc, ws, stride, padding)
+    lib = torch.nn.grad.conv2d_weight(x, ws, dacc, stride=stride,
+                                      padding=padding)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_bwd_w"] == before + 2
+    assert torch.equal(got, again)
+    _close_to_scale(got, ref, 5e-5)
+    _close_to_scale(got, lib, 5e-5)
+
+
 @pytest.mark.parametrize("xs,ws,stride,padding", [BWD_CASES[1],
                                                   BWD_CASES[-2]])
 def test_conv_bwd_kernels_are_bitwise_deterministic(cuda, xs, ws, stride,
@@ -671,6 +707,50 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, streamed):
         assert out.dtype == dtype and torch.equal(out, again)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 512, 4097])
+@pytest.mark.parametrize("d", [32, 64, 100, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_flash_attention_kernel_over_tiles_and_head_dims(cuda, t, d, causal,
+                                                         streamed):
+    """Both entries around the 64-key and 128-row tiles (t 1, 63-65, a
+    ragged last tile at 4097), every head-dimension padding and K/V ring
+    (d 100 and 128 take one f32 stage, two in half precision), in f32,
+    bf16 and f16, each launch repeated bitwise."""
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    for dtype, rtol, atol in ((torch.float32, 1e-4, 2e-5),
+                              (torch.bfloat16, 1e-2, 1e-2),
+                              (torch.float16, 1e-2, 1e-2)):
+        q, k, v = _qkv((1, 2, t, d), cuda, dtype, seed=t + d)
+        with torch.inference_mode():
+            out = fa._kernel_forward(q, k, v, causal, streamed)
+            again = fa._kernel_forward(q, k, v, causal, streamed)
+            ref = fa.flash_attention_reference(q, k, v, causal,
+                                               streamed=streamed)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.equal(out, again)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
+
+
+def test_flash_smem_plan_matches_the_kernel(cuda):
+    import ctypes
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.ops.flash_attention")
+    lib = _build.load()
+    for dtype, code in _build.DTYPE_CODES.items():
+        size = torch.empty((), dtype=dtype).element_size()
+        for d in (1, 32, 33, 64, 100, 128):
+            stages = ctypes.c_int(0)
+            smem = lib.dl4j_flash_smem_bytes(code, d, ctypes.byref(stages))
+            plan = fa.flash_smem_plan(d, size)
+            assert (smem, stages.value) == (plan.smem_bytes, plan.stages)
 
 
 def test_flash_attention_picks_the_entry_by_t_times_d(cuda, monkeypatch):
