@@ -20,14 +20,15 @@ non-zero (nothing is caught):
    kernels (``conv_bwd_data``, ``conv_bwd_w``) at LeNet-5's training
    shapes (batch 256) and AlexNet's (batch 64: conv2-conv5 dx, conv1-5
    dW, so the stride-4 and padded geometry run); the LSTM kernels at the
-   char-RNN's chunk and bench.py's saturated shape; flash attention (both
+   char-RNN's chunk, its T 1 sampling launch and bench.py's saturated
+   shape; flash attention (both
    entries, f32 and bf16) at the transformer's training shape and the
    streamed entry at t 16384; the dense kernel at the transformer's input
    projection and its residual variant at the FFN's second product.
    Each record names the kernel route its shape took; the run fails
-   when a main-path shape of ``conv_bwd_data``, ``conv_bwd_w`` or the
-   dense kernel took another route than the one designed for it
-   (``INTENDED_ROUTES``). The LSTM layers are also timed against
+   when a main-path shape of ``conv_bwd_data``, ``conv_bwd_w``, the
+   dense kernel or the LSTM sequence kernels took another route than the
+   one designed for it (``INTENDED_ROUTES``). The LSTM layers are also timed against
    ``torch.nn.LSTM`` (cuDNN) on the device clock;
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
@@ -805,16 +806,19 @@ def check_lstm_kernels(torch, model, T, b, n, gen):
             plain_ms = graph_ms(torch, plain, reps=1)
         flops, nbytes = lstm_work(kind, T, b, n, variant)
         bound_ms, bound_by = bound(flops, nbytes)
-        rec = {"kernel": kind, "kernel_route": "single", "variant": variant,
-               "shape_of": model,
+        plan = (None if kind == "lstm_cell" else
+                lstm_seq_plan(b, n, kind == "lstm_seq_bwd", T))
+        rec = {"kernel": kind,
+               "kernel_route": plan["route"] if plan else "single",
+               "variant": variant, "shape_of": model,
                "T": T if kind != "lstm_cell" else 1, "b": b, "n": n,
                "max_abs_err": err, "kernel_ms": ms,
                "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": flops / 1e9,
                "mb": nbytes / 1e6}
-        if kind != "lstm_cell":
-            rec["plan"] = lstm_seq_plan(b, n, bwd=kind == "lstm_seq_bwd")
+        if plan:
+            rec["plan"] = plan
         records.append(rec)
     return records
 
@@ -827,7 +831,8 @@ def lstm_layer_vs_cudnn(torch, model, T, b, n_in, n, gen):
     Forward times, and backward times of a retained graph (dx and every
     weight's gradient), all on the device clock: the profiler's sum of
     the device activities of 5 calls (``profiled_device_ms``; the port's
-    cooperative launches and cuDNN's RNN calls alike), over 5."""
+    cluster or cooperative launches and cuDNN's RNN calls alike), over
+    5."""
     from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
 
     dev = torch.device("cuda")
@@ -1282,7 +1287,7 @@ def check_transformer_matmuls(torch, gen):
 
 # The route each main-path shape of the routed kernels must take
 # (ops.conv_block.conv_bwd_data_route and conv_bwd_w_route,
-# ops.matmul_block.matmul_route),
+# ops.matmul_block.matmul_route, ops.lstm_cell.lstm_seq_route),
 # by the prefix of the record's shape_of.
 INTENDED_ROUTES = {
     "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm")),
@@ -1290,6 +1295,10 @@ INTENDED_ROUTES = {
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
                      ("alexnet.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
+    # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
+    # launch on a cluster, bench.py's saturated shape on the grid
+    "lstm_seq_fwd": (("charrnn", "cluster"), ("saturated", "grid")),
+    "lstm_seq_bwd": (("charrnn", "cluster"), ("saturated", "grid")),
 }
 
 
@@ -1593,6 +1602,7 @@ def main() -> int:
 
     for model, (T, b, n) in (("charrnn", (CHAR_TBPTT, CHAR_BATCH,
                                           CHAR_HIDDEN)),
+                             ("charrnn-sample", (1, 1, CHAR_HIDDEN)),
                              ("saturated", SATURATED)):
         for rec in check_lstm_kernels(torch, model, T, b, n, gen):
             records.append(rec)
@@ -1678,7 +1688,9 @@ def main() -> int:
     # n 200) in the variant its training runs (the zoo model's peephole
     # cell, the sequence forward that writes c_seq); launches of both
     # char-RNN main paths. library_ms: torch.nn.LSTM (cuDNN), a
-    # layer-level time (input projection included) at n_in 200
+    # layer-level time (input projection included) at n_in 200, beside
+    # the port's own layer time (port_fwd_ms / port_bwd_ms) from the same
+    # [layer] record
     cudnn = next(r for r in layers if r["shape_of"] == "charrnn"
                  and r["n_in"] == CHAR_HIDDEN)
     for k, src, line, variant, lib in (
@@ -1689,7 +1701,7 @@ def main() -> int:
         mine = [r for r in records if r["kernel"] == k]
         main = next(r for r in mine if r["shape_of"] == "charrnn"
                     and r["variant"] == variant)
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": f"deeplearning4j_tpu/ops/lstm_cell.py:{line}",
             "launches": char_peep[k] + char_seq[k],
@@ -1697,7 +1709,12 @@ def main() -> int:
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": lib,
-        })
+        }
+        if k in INTENDED_ROUTES:  # the sequence kernels
+            side = k[-3:]  # fwd / bwd
+            entry["kernel_route"] = main["kernel_route"]
+            entry[f"port_{side}_ms"] = cudnn[f"port_{side}_ms"]
+        kernels.append(entry)
     # the transformer's kernels: f32 at the main path's shapes (flash
     # attention's resident entry and the residual matmul at the training
     # shape, the streamed entry at t 16384); launches of the transformer's

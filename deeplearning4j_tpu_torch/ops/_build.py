@@ -124,9 +124,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_matmul_block_splits.restype = i
     lib.dl4j_lstm_cell.argtypes = [p] * 9 + [i] * 2 + [p]
     lib.dl4j_lstm_cell.restype = i
-    lib.dl4j_lstm_seq_fwd.argtypes = [p] * 9 + [i] * 3 + [p]
+    lib.dl4j_lstm_seq_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.dl4j_lstm_seq_fwd.restype = i
-    lib.dl4j_lstm_seq_bwd.argtypes = [p] * 12 + [i] * 3 + [p]
+    lib.dl4j_lstm_seq_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
     lib.dl4j_lstm_seq_bwd.restype = i
     for name in ("dl4j_flash_attention", "dl4j_flash_attention_streamed"):
         getattr(lib, name).argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, p]
@@ -136,6 +136,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_flash_smem_bytes.restype = i
     lib.dl4j_lstm_seq_plan.argtypes = [i] * 3 + [ip, ip]
     lib.dl4j_lstm_seq_plan.restype = i
+    lib.dl4j_lstm_cluster_plan.argtypes = [i] * 5 + [ip, ip]
+    lib.dl4j_lstm_cluster_plan.restype = i
     return lib
 
 

@@ -18,8 +18,12 @@ JAX package's: xproj ``[b, 4n]`` a step or ``[T, b, 4n]`` a sequence
   dRW with one ``torch.matmul`` over the sequence.
 
 Routing follows the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor the kernel. The kernels take float32 only; a
-bf16 / f16 CUDA tensor raises (ROADMAP.md queue 1, item 3: bf16 / f16 LSTM
+version, a CUDA tensor the kernel. The sequence kernels have two routes,
+picked from the shape alone by ``lstm_seq_route``: a thread-block
+cluster owning a few batch rows for the whole sequence, RW's columns
+resident across its blocks (n <= 256), else the cooperative grid split
+by hidden units. A refused cluster launch raises; it never falls back.
+The kernels take float32 only; a bf16 / f16 CUDA tensor raises (ROADMAP.md queue 1, item 3: bf16 / f16 LSTM
 kernels). The plain versions take every float type and compute in at
 least float32, as the kernels accumulate.
 """
@@ -27,7 +31,7 @@ least float32, as the kernels accumulate.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -205,9 +209,96 @@ def _check_seq_operands(kernel, dev, named):
 
 
 def _barrier(dev) -> torch.Tensor:
-    """The two zeroed words of device memory a launch's grid barrier
-    uses (arrivals, generation)."""
+    """The two zeroed words of device memory a grid-route launch's grid
+    barrier uses (arrivals, generation)."""
     return torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+# The cluster route (csrc/lstm_seq.cu): C blocks a cluster (at most 8,
+# the portable size), block k owning units [k U, (k+1) U), U = ceil(n /
+# C); a cluster owns `rows` batch rows; each block keeps its units' 4
+# gate columns of RW resident in shared memory. A block has 256 threads,
+# and the backward's dh product gives a thread one depth row of the
+# block's columns in registers: U <= 32 and n <= 256, so n <= 256 at C 8.
+LSTM_CLUSTER = 8
+LSTM_CLUSTER_MAX_UNITS = 32
+LSTM_CLUSTER_ROWS = (1, 2, 4, 8)
+# clusters a launch aims at: rows a cluster is the fewest that keep b
+# within 8 clusters. The backward's 256 threads of 210-255 registers
+# take an SM each, and fewer than 16 such clusters of 8 fit an H100 at
+# once (scripts/torch_route_ab.py --rows times each rows a cluster)
+LSTM_CLUSTER_SLOTS = 8
+LSTM_CLUSTER_MAX_SPLITS = 16
+LSTM_THREADS = 256
+MAX_SMEM_BYTES = 232448  # a block's shared memory on an H100
+
+
+class LstmSeqRoute(NamedTuple):
+    """``route`` is ``"cluster"`` or ``"grid"``; the rest are the
+    cluster route's (0 on the grid route): blocks a cluster
+    (``cluster``), batch rows a cluster (``rows``), the ``clusters`` that
+    cover b, and one block's dynamic shared memory (``smem_bytes``)."""
+    route: str
+    cluster: int = 0
+    rows: int = 0
+    clusters: int = 0
+    smem_bytes: int = 0
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def lstm_cluster_blocks(n: int) -> int:
+    """Blocks a cluster at width n: the fewest that keep U = ceil(n / 8)
+    units a block, so that every block owns at least one unit (at n 13,
+    7 blocks of 2 units, not 8 with the last one empty)."""
+    return -(-n // -(-n // LSTM_CLUSTER))
+
+
+def lstm_cluster_smem_bytes(n: int, cluster: int, rows: int,
+                            bwd: bool) -> int:
+    """Dynamic shared memory of one cluster block (csrc/lstm_seq.cu
+    ``cluster_smem_floats``, which ``lstm_seq_plan`` reports on the card):
+    the block's gate columns of RW (n rows at a stride of 4·(U | 1)
+    floats), two h buffers (n × rows) and the gate product's partial sums
+    (KS × rows × U × 4, KS = min(16, 256 // U, n) depth splits); backward
+    also dz (rows × U × 4) and two buffers of dh partials (2 × C × rows ×
+    U). U <= 32 bounds it: the largest plan (n 256, rows 8, backward)
+    takes 204,800 bytes, under ``MAX_SMEM_BYTES`` (pinned by the tests),
+    and the route rule needs no check of its own."""
+    u = -(-n // cluster)
+    ks = min(LSTM_CLUSTER_MAX_SPLITS, LSTM_THREADS // u, n)
+    floats = n * 4 * (u | 1) + _round4(2 * n * rows) + ks * rows * u * 4
+    if bwd:
+        floats += rows * u * 4 + _round4(2 * cluster * rows * u)
+    return 4 * floats
+
+
+def lstm_seq_route(T: int, b: int, n: int, bwd: bool) -> LstmSeqRoute:
+    """The kernel route of a whole-sequence launch at (T, b, n): the
+    cluster route where a cluster's blocks can hold RW's columns (U <=
+    32 at C 8), with ``lstm_cluster_blocks(n)`` blocks a cluster and the
+    fewest rows a cluster (1, 2, 4, 8) that keep b within
+    ``LSTM_CLUSTER_SLOTS`` clusters; else the grid route. Decided from
+    the shape alone (T changes nothing: every step runs in the same
+    cluster)."""
+    del T
+    if -(-n // LSTM_CLUSTER) > LSTM_CLUSTER_MAX_UNITS:
+        return LstmSeqRoute("grid")
+    c = lstm_cluster_blocks(n)
+    rows = next((r for r in LSTM_CLUSTER_ROWS
+                 if -(-b // r) <= LSTM_CLUSTER_SLOTS), LSTM_CLUSTER_ROWS[-1])
+    return LstmSeqRoute("cluster", c, rows, -(-b // rows),
+                        lstm_cluster_smem_bytes(n, c, rows, bwd))
+
+
+def _route_args(route: LstmSeqRoute, dev):
+    """(barrier or None, cluster, rows) for the C entries: the grid
+    route's barrier words, or the cluster plan (no barrier)."""
+    if route.route == "cluster":
+        return None, route.cluster, route.rows
+    return _barrier(dev), 0, 0
 
 
 def _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq: bool):
@@ -223,12 +314,12 @@ def _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq: bool):
     cseq = torch.empty_like(hseq) if save_cseq else None
     hT = torch.empty((b, n), dtype=torch.float32, device=dev)
     cT = torch.empty_like(hT)
-    bar = _barrier(dev)
+    bar, cluster, rows = _route_args(lstm_seq_route(T, b, n, False), dev)
     rc = _build.load().dl4j_lstm_seq_fwd(
         xproj.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         hseq.data_ptr(), None if cseq is None else cseq.data_ptr(),
-        hT.data_ptr(), cT.data_ptr(), bar.data_ptr(), T, b, n,
-        _build.current_stream_handle(dev))
+        hT.data_ptr(), cT.data_ptr(), None if bar is None else bar.data_ptr(),
+        T, b, n, cluster, rows, _build.current_stream_handle(dev))
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)
     return hseq, cseq, hT, cT
@@ -289,12 +380,13 @@ def _kernel_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
     dgates = torch.empty((T, b, 4 * n), dtype=torch.float32, device=dev)
     dh0 = torch.empty((b, n), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
-    bar = _barrier(dev)
+    bar, cluster, rows = _route_args(lstm_seq_route(T, b, n, True), dev)
     rc = _build.load().dl4j_lstm_seq_bwd(
         xproj.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
         cseq.data_ptr(), rw.data_ptr(), dhseq.data_ptr(), dhT.data_ptr(),
         dcT.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        bar.data_ptr(), T, b, n, _build.current_stream_handle(dev))
+        None if bar is None else bar.data_ptr(), T, b, n, cluster, rows,
+        _build.current_stream_handle(dev))
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)
     return dgates, dh0, dc0
@@ -311,16 +403,31 @@ def lstm_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
                                   dcT)
 
 
-def lstm_seq_plan(b: int, n: int, bwd: bool = False) -> dict:
-    """How the card would launch a sequence kernel at (b, n): the grid
-    and whether RW's columns stay resident in shared memory. Builds the
-    kernels; needs a card."""
+def lstm_seq_plan(b: int, n: int, bwd: bool = False, T: int = 1) -> dict:
+    """How the card would launch a sequence kernel at (T, b, n): the
+    route (``lstm_seq_route``) and, on the cluster route, its plan, one
+    block's shared memory as the C source reckons it and the clusters
+    the card holds at once; on the grid route, the grid and whether RW's
+    columns stay resident in shared memory. Builds the kernels; needs a
+    card."""
+    route = lstm_seq_route(T, b, n, bwd)
+    lib = _build.load()
+    if route.route == "cluster":
+        smem, active = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.dl4j_lstm_cluster_plan(int(bwd), int(b), int(n),
+                                        route.cluster, route.rows,
+                                        ctypes.byref(smem),
+                                        ctypes.byref(active))
+        _build.check(rc, "lstm_seq_plan")
+        return {"route": "cluster", "cluster": route.cluster,
+                "rows": route.rows, "clusters": route.clusters,
+                "smem_bytes": smem.value, "max_active_clusters": active.value}
     grid, resident = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _build.load().dl4j_lstm_seq_plan(int(bwd), int(b), int(n),
-                                          ctypes.byref(grid),
-                                          ctypes.byref(resident))
+    rc = lib.dl4j_lstm_seq_plan(int(bwd), int(b), int(n), ctypes.byref(grid),
+                                ctypes.byref(resident))
     _build.check(rc, "lstm_seq_plan")
-    return {"grid": grid.value, "resident": bool(resident.value)}
+    return {"route": "grid", "grid": grid.value,
+            "resident": bool(resident.value)}
 
 
 class _SequenceFn(torch.autograd.Function):

@@ -4,9 +4,12 @@ shapes on one CUDA card: ``conv_bwd_data`` at LeNet-5's conv2 (batch 256,
 the resident route), ``conv_bwd_w`` at LeNet-5's conv1 and conv2 (batch
 256, the image-resident route), the dense kernel at the transformer's
 input projection and, with the residual, its FFN's second product (the
-wide route), and flash attention's two entries at the transformer's
+wide route), flash attention's two entries at the transformer's
 shapes (f32, causal: b·h 192 × t 512 for ``flash_attention``, b·h 12 × t
-16384 for ``flash_attention_streamed``).
+16384 for ``flash_attention_streamed``), and the LSTM sequence kernels
+at the char-RNN's TBPTT chunk (T 50, b 32, n 200; the cluster route),
+its T 1 sampling launch (b 1, the c_seq-free forward) and bench.py's
+saturated shape (T 128, b 256, n 1024; the grid route).
 
     python3 scripts/torch_route_ab.py --check
     python3 scripts/torch_route_ab.py --parent DIR [--rounds N]
@@ -23,14 +26,25 @@ channels; 10 and 4: two and five groups, smaller blocks) and tap-group
 counts (more threads a block), in turns, the launch made directly, and
 prints one JSON line.
 
+``--rows`` times the LSTM sequence kernels' cluster route at the
+char-RNN's chunk (T 50, b 32, n 200) for each batch-row count a cluster
+(1, 2, 4, 8: 32, 16, 8 and 4 clusters of 8 blocks), the launch made
+directly, with the clusters of that shape the card holds at once, and
+prints one JSON line.
+
 ``--parent DIR`` times the kernels of a second tree (an unpacked
 ``git archive`` of another commit, whose ``deeplearning4j_tpu_torch``
 takes the same calls) against this one's, in turns (parent, this, this,
 parent, ``--rounds`` times), one process a turn, with CUDA events around
 CUDA-graph replays, and the PyTorch library call beside each
 (``conv2d_input``, ``conv2d_weight``; ``addmm`` plus the residual add;
-``scaled_dot_product_attention``). TF32 is off. Prints one JSON line per
-turn and one with the medians and the card's name and power limit.
+``scaled_dot_product_attention``; for the LSTM kernels
+``torch.nn.LSTM``'s whole layer, cuDNN, forward or backward). The LSTM
+kernels and their library layer are timed on the device clock instead
+(``torch.profiler``'s sum of the device activities of 5 calls: a
+grid-route launch's barrier memset included), with the host's time to
+enqueue one call beside (``host_ms``). TF32 is off. Prints one JSON line
+per turn and one with the medians and the card's name and power limit.
 Exits non-zero without a card.
 """
 
@@ -54,8 +68,58 @@ SHAPES = (
     ("transformer.ffn2", "matmul_block_residual", (8192, 3072, 768, True)),
     ("transformer", "flash_attention", (16, 12, 512, 64)),
     ("long", "flash_attention_streamed", (1, 12, 16384, 64)),
+    ("charrnn", "lstm_seq_fwd", (50, 32, 200, True)),
+    ("charrnn", "lstm_seq_bwd", (50, 32, 200, True)),
+    ("charrnn-sample", "lstm_seq_fwd", (1, 1, 200, False)),
+    ("saturated", "lstm_seq_fwd", (128, 256, 1024, True)),
+    ("saturated", "lstm_seq_bwd", (128, 256, 1024, True)),
 )
-SOURCES = ("matmul_block.cu", "conv_bwd.cu", "flash_attention.cu")
+SOURCES = ("matmul_block.cu", "conv_bwd.cu", "flash_attention.cu",
+           "lstm_seq.cu")
+
+
+def _lstm_operands(torch, kind, shape, gen):
+    """(kernel, plain, library) calls of an LSTM sequence kernel at (T,
+    b, n); library: ``torch.nn.LSTM(n, n)``'s layer (cuDNN), forward, or
+    the backward of a retained graph (dx and every weight's gradient)."""
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_reference,
+        lstm_seq_fwd,
+        lstm_seq_fwd_reference,
+    )
+
+    T, b, n, save = shape
+    dev = torch.device("cuda")
+
+    def randn(*dims, scale=1.0):
+        return torch.randn(dims, device=dev, generator=gen) * scale
+
+    xproj = randn(T, b, 4 * n, scale=0.5)
+    h0, c0 = randn(b, n, scale=0.1), randn(b, n, scale=0.1)
+    rw = randn(n, 4 * n, scale=n ** -0.5)
+    lstm = torch.nn.LSTM(n, n).to(dev)
+    x = randn(T, b, n)
+    if kind == "lstm_seq_fwd":
+        def layer_fwd():
+            with torch.inference_mode():
+                return lstm(x)
+        return (lambda: lstm_seq_fwd(xproj, h0, c0, rw, save),
+                lambda: lstm_seq_fwd_reference(xproj, h0, c0, rw, save),
+                layer_fwd)
+    hseq, cseq, _, _ = lstm_seq_fwd_reference(xproj, h0, c0, rw)
+    hprev = torch.cat([h0[None], hseq[:-1]]).contiguous()
+    cprev = torch.cat([c0[None], cseq[:-1]]).contiguous()
+    args = (xproj, hprev, cprev, cseq, rw, randn(T, b, n), randn(b, n),
+            randn(b, n))
+    xl = x.clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = lstm(xl)[0]
+    g = randn(T, b, n)
+    return (lambda: lstm_seq_bwd(*args),
+            lambda: lstm_seq_bwd_reference(*args),
+            lambda: torch.autograd.grad(out, [xl, *lstm.parameters()], g,
+                                        retain_graph=True))
 
 
 def _operands(torch, kind, shape, gen):
@@ -72,6 +136,8 @@ def _operands(torch, kind, shape, gen):
     )
 
     dev = torch.device("cuda")
+    if kind.startswith("lstm"):
+        return _lstm_operands(torch, kind, shape, gen)
     if kind.startswith("flash"):
         fa = importlib.import_module(
             "deeplearning4j_tpu_torch.ops.flash_attention")
@@ -115,8 +181,12 @@ def _route(kind, shape):
         conv_bwd_data_route,
         conv_bwd_w_route,
     )
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_route
     from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
+    if kind.startswith("lstm"):
+        return lstm_seq_route(shape[0], shape[1], shape[2],
+                              kind == "lstm_seq_bwd").route
     if kind.startswith("flash"):
         return "single"
     if kind.startswith("conv"):
@@ -162,29 +232,49 @@ def check(torch):
     for name, kind, shape in SHAPES:
         kernel, plain, library = _operands(torch, kind, shape, gen)
         dispatch.reset_launch_counts()
+        lstm = kind.startswith("lstm")
         with torch.inference_mode():
-            got, again, ref, lib = kernel(), kernel(), plain(), library()
+            got, again, ref = kernel(), kernel(), plain()
+            # the LSTM layer runs on weights of its own: timed, not held
+            lib = None if lstm else library()
         torch.cuda.synchronize()
-        scale = max(float(ref.abs().max()), 1.0)
         launches = dispatch.launch_counts()[kind]
         with torch.inference_mode():
             _, by_kernel = profiled_device_ms(torch, kernel)
+        # the LSTM kernels return several outputs (c_seq may be None):
+        # each is held to its own scale
+        outs = [(a, r, a2) for a, r, a2 in (zip(got, ref, again) if lstm
+                                            else [(got, ref, again)])
+                if r is not None]
         rec = {"shape_of": name, "kernel": kind,
                "kernel_route": _route(kind, shape),
                "launches": launches,
-               "bitwise_repeat": bool(torch.equal(got, again)),
-               "max_abs_err": float((got - ref).abs().max()),
-               "library_max_abs_err": float((got - lib).abs().max()),
-               "scale": scale, "device_ms_by_kernel": by_kernel}
+               "bitwise_repeat": all(torch.equal(a, a2)
+                                     for a, _, a2 in outs),
+               "max_abs_err": max(float((a - r).abs().max())
+                                  for a, r, _ in outs),
+               "rel_err": max(float((a - r).abs().max())
+                              / max(float(r.abs().max()), 1.0)
+                              for a, r, _ in outs),
+               "library_max_abs_err": None if lib is None
+               else float((got - lib).abs().max()),
+               "scale": max(max(float(r.abs().max()), 1.0)
+                            for _, r, _ in outs),
+               "device_ms_by_kernel": by_kernel}
         out.append(rec)
         print(f"[check] {json.dumps(rec)}")
     for rec in out:
         # conv gradients: sums of up to 147,456 products, held to their
-        # scale; dense and attention: f32 rounding of O(1) outputs
-        tol = (5e-5 * rec["scale"] if rec["kernel"].startswith("conv")
-               else 1e-4)
-        if (rec["max_abs_err"] > tol or not rec["bitwise_repeat"]
-                or rec["launches"] != 2):
+        # scale; dense and attention: f32 rounding of O(1) outputs; the
+        # LSTM kernels: sums of up to n products carried through T steps,
+        # each output within 1e-4 of its largest entry (as chip_smoke.py)
+        if rec["kernel"].startswith("lstm"):
+            bad = rec["rel_err"] > 1e-4
+        else:
+            bad = rec["max_abs_err"] > (
+                5e-5 * rec["scale"] if rec["kernel"].startswith("conv")
+                else 1e-4)
+        if bad or not rec["bitwise_repeat"] or rec["launches"] != 2:
             raise RuntimeError(f"{rec['shape_of']}: {rec}")
     return 0
 
@@ -230,8 +320,61 @@ def groups(torch):
     return 0
 
 
+def rows(torch):
+    """The cluster route's rows a cluster at the char-RNN's chunk."""
+    import ctypes
+
+    from chip_smoke import card_line, events_ms
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops.lstm_cell import LSTM_CLUSTER
+
+    T, b, n = 50, 32, 200
+    lib = _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+
+    def randn(*dims):
+        return torch.randn(dims, device=dev, generator=gen) * 0.1
+
+    xproj, rw = randn(T, b, 4 * n), randn(n, 4 * n)
+    h0, c0, dhT, dcT = (randn(b, n) for _ in range(4))
+    hprev, cprev, cseq, dhseq, hseq = (randn(T, b, n) for _ in range(5))
+    dgates = torch.empty_like(xproj)
+    hT, cT = torch.empty_like(h0), torch.empty_like(h0)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for r in (1, 2, 4, 8):
+        def fwd(r=r):
+            _build.check(lib.dl4j_lstm_seq_fwd(
+                xproj.data_ptr(), rw.data_ptr(), h0.data_ptr(),
+                c0.data_ptr(), hseq.data_ptr(), cseq.data_ptr(),
+                hT.data_ptr(), cT.data_ptr(), None, T, b, n, LSTM_CLUSTER,
+                r, stream), "lstm_seq_fwd")
+
+        def bwd(r=r):
+            _build.check(lib.dl4j_lstm_seq_bwd(
+                xproj.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
+                cseq.data_ptr(), rw.data_ptr(), dhseq.data_ptr(),
+                dhT.data_ptr(), dcT.data_ptr(), dgates.data_ptr(),
+                hT.data_ptr(), cT.data_ptr(), None, T, b, n, LSTM_CLUSTER,
+                r, stream), "lstm_seq_bwd")
+        rec = {"clusters": -(-b // r)}
+        for name, fn, is_bwd in (("fwd", fwd, 0), ("bwd", bwd, 1)):
+            smem, active = ctypes.c_int(0), ctypes.c_int(0)
+            _build.check(lib.dl4j_lstm_cluster_plan(
+                is_bwd, b, n, LSTM_CLUSTER, r, ctypes.byref(smem),
+                ctypes.byref(active)), "lstm_seq_plan")
+            rec[f"{name}_ms"] = [events_ms(torch, fn)[0] for _ in range(2)]
+            rec[f"{name}_max_active_clusters"] = active.value
+            rec[f"{name}_smem_bytes"] = smem.value
+        out[f"rows {r}"] = rec
+    print(json.dumps({"card": card_line(), "T": T, "b": b, "n": n,
+                      "cluster": LSTM_CLUSTER, "rows": out}))
+    return 0
+
+
 def worker(torch):
-    from chip_smoke import graph_ms
+    from chip_smoke import device_ms, events_ms, graph_ms
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,6 +382,16 @@ def worker(torch):
     times = {}
     for name, kind, shape in SHAPES:
         kernel, _, library = _operands(torch, kind, shape, gen)
+        if kind.startswith("lstm"):
+            with torch.inference_mode():
+                ms = device_ms(torch, kernel)
+                host_ms = events_ms(torch, kernel)[1]
+            # the library backward needs its retained graph: no
+            # inference mode
+            times[f"{kind}@{name}"] = {
+                "ms": ms, "library_ms": device_ms(torch, library),
+                "host_ms": host_ms}
+            continue
         with torch.inference_mode():
             times[f"{kind}@{name}"] = {
                 "ms": graph_ms(torch, kernel),
@@ -266,7 +419,7 @@ def compare(parent: str, rounds: int) -> int:
             print(json.dumps({"tree": tag, **times}))
     medians = {tag: {name: {key: statistics.median(r[name][key]
                                                    for r in runs[tag])
-                            for key in ("ms", "library_ms")}
+                            for key in runs[tag][0][name]}
                      for name in runs[tag][0]}
                for tag in runs}
     print(json.dumps({"card": card_line(), "medians": medians,
@@ -278,6 +431,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--groups", action="store_true")
+    ap.add_argument("--rows", action="store_true")
     ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", metavar="ROOT")
@@ -295,8 +449,10 @@ def main() -> int:
         return check(torch)
     if args.groups:
         return groups(torch)
+    if args.rows:
+        return rows(torch)
     if not args.parent:
-        ap.error("give --check or --parent DIR")
+        ap.error("give --check, --groups, --rows or --parent DIR")
     return compare(args.parent, args.rounds)
 
 

@@ -406,11 +406,37 @@ def test_lenet_fit_step_on_the_card_matches_the_cpu_twin(cuda):
 # h @ RW in another order than cuBLAS, over up to 8500 terms of O(1)
 # products, and the sequence carries that rounding through T steps, so
 # outputs are held relative to their largest entry (1e-4 of the scale).
+#
+# The sequence kernels' cluster route (n <= 256) also meets n off the
+# 8-block cluster (13 and 17: 7 and 6 blocks, so that none is empty;
+# 201: 8 blocks, the last with fewer units), b off the rows
+# a cluster owns (33, 300: a last cluster with rows past b, and 38
+# clusters, more than one wave), the T 1 launch at the sampling batch of
+# 1, and n at the route's limit (256) and one past it (257: the grid).
 
 LSTM_CELL_CASES = [(32, 200), (256, 1024), (5, 13), (33, 17), (70, 9),
                    (1, 200), (300, 40), (3, 8500)]
 LSTM_SEQ_CASES = [(50, 32, 200), (128, 256, 1024), (3, 5, 13), (7, 33, 17),
-                  (4, 300, 40), (2, 1, 200), (2, 3, 8500)]
+                  (4, 300, 40), (2, 1, 200), (2, 3, 8500), (5, 33, 201),
+                  (3, 300, 13), (1, 1, 200), (4, 32, 256), (4, 32, 257)]
+
+
+def _assert_lstm_route(T, b, n, bwd):
+    """The launch at (T, b, n) takes the route its shape calls for, and
+    the C source reckons the cluster plan's shared memory as the route
+    rule does."""
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        lstm_seq_plan,
+        lstm_seq_route,
+    )
+
+    plan = lstm_seq_plan(b, n, bwd, T)
+    assert plan["route"] == ("cluster" if n <= 256 else "grid")
+    if plan["route"] == "cluster":
+        route = lstm_seq_route(T, b, n, bwd)
+        assert plan["cluster"] == route.cluster
+        assert plan["smem_bytes"] == route.smem_bytes
+        assert plan["max_active_clusters"] > 0
 
 
 def _lstm_operands(T, b, n, seed, peephole=False):
@@ -448,16 +474,19 @@ def test_lstm_seq_fwd_kernel_matches_plain(cuda, T, b, n, save_cseq):
         lstm_seq_fwd_reference,
     )
 
+    _assert_lstm_route(T, b, n, False)
     xproj, h0, c0, rw, _ = _lstm_operands(T, b, n, 12)
     before = dispatch.launch_counts()["lstm_seq_fwd"]
     got = lstm_seq_fwd(xproj, h0, c0, rw, save_cseq)
     ref = lstm_seq_fwd_reference(xproj, h0, c0, rw, save_cseq)
+    again = lstm_seq_fwd(xproj, h0, c0, rw, save_cseq)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts()["lstm_seq_fwd"] == before + 1
+    assert dispatch.launch_counts()["lstm_seq_fwd"] == before + 2
     assert (got[1] is None) == (not save_cseq)
-    for a, r in zip(got, ref):
+    for a, r, a2 in zip(got, ref, again):
         if r is not None:
             _close_to_scale(a, r, 1e-4)
+            assert torch.equal(a, a2)  # fixed-order sums: same bits
 
 
 @pytest.mark.parametrize("T,b,n", LSTM_SEQ_CASES)
@@ -468,6 +497,7 @@ def test_lstm_seq_bwd_kernel_matches_plain(cuda, T, b, n):
         lstm_seq_fwd_reference,
     )
 
+    _assert_lstm_route(T, b, n, True)
     xproj, h0, c0, rw, _ = _lstm_operands(T, b, n, 13)
     rng = np.random.RandomState(14)
     hseq, cseq, _, _ = lstm_seq_fwd_reference(xproj, h0, c0, rw)
@@ -582,13 +612,76 @@ def test_graves_lstm_layer_on_card_matches_cpu(cuda, peephole, masked):
 def test_lstm_seq_plans(cuda):
     from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_plan
 
-    # the char-RNN's chunk: a block a slice, RW's columns resident
+    # the char-RNN's chunk: 8 clusters of 8 blocks, 4 batch rows each,
+    # RW's columns resident across each cluster, all 8 at once
     for bwd in (False, True):
-        assert lstm_seq_plan(32, 200, bwd) == {"grid": 25, "resident": True}
-    # n 8500: 1063 slices, too many columns to keep: streamed, and more
-    # slices than blocks, so blocks walk several
+        plan = lstm_seq_plan(32, 200, bwd, 50)
+        assert {k: plan[k] for k in ("route", "cluster", "rows",
+                                     "clusters")} == {
+            "route": "cluster", "cluster": 8, "rows": 4, "clusters": 8}
+        assert plan["max_active_clusters"] >= 8
+        # bench.py's saturated shape: the grid route, RW's columns resident
+        # on one block a slice of 8 units
+        assert lstm_seq_plan(256, 1024, bwd, 128) == {
+            "route": "grid", "grid": 128, "resident": True}
+    # n 13: 7 blocks of 2 units, none empty
+    assert lstm_seq_plan(5, 13, True, 8)["cluster"] == 7
+    # n 8500: the grid route; 1063 slices, too many columns to keep:
+    # streamed, and more slices than blocks, so blocks walk several
     plan = lstm_seq_plan(3, 8500)
+    assert plan["route"] == "grid"
     assert not plan["resident"] and 0 < plan["grid"] < 1063
+
+
+@pytest.mark.parametrize("T,b,n", [(12, 5, 13), (9, 33, 33), (8, 3, 9),
+                                   (8, 2, 1), (10, 4, 41)])
+def test_lstm_seq_cluster_route_repeats_at_uneven_splits(cuda, T, b, n):
+    """n where 8 blocks of ceil(n / 8) units would leave a block empty
+    (the route takes fewer blocks): many launches of both kernels, each
+    bitwise equal to the first, which matches the plain version. An empty
+    block would fall out of step with its peers' mbarrier phases (a hang
+    or stale h) depending on which warp reached its wait last, so one
+    launch proves little."""
+    from deeplearning4j_tpu_torch.ops import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_reference,
+        lstm_seq_fwd,
+        lstm_seq_fwd_reference,
+    )
+
+    _assert_lstm_route(T, b, n, False)
+    _assert_lstm_route(T, b, n, True)
+    xproj, h0, c0, rw, _ = _lstm_operands(T, b, n, 15)
+    hseq, cseq, _, _ = lstm_seq_fwd_reference(xproj, h0, c0, rw)
+    hprev = torch.cat([h0[None], hseq[:-1]])
+    cprev = torch.cat([c0[None], cseq[:-1]])
+    rng = np.random.RandomState(16)
+    dhseq = _t(rng.randn(T, b, n) * 0.1, cuda)
+    dhT, dcT = (_t(rng.randn(b, n) * 0.1, cuda) for _ in range(2))
+    bwd_args = (xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT)
+    fwd0, bwd0 = lstm_seq_fwd(xproj, h0, c0, rw), lstm_seq_bwd(*bwd_args)
+    for got, ref in ((fwd0, lstm_seq_fwd_reference(xproj, h0, c0, rw)),
+                     (bwd0, lstm_seq_bwd_reference(*bwd_args))):
+        for a, r in zip(got, ref):
+            _close_to_scale(a, r, 1e-4)
+    for _ in range(40):
+        fwd, bwd = lstm_seq_fwd(xproj, h0, c0, rw), lstm_seq_bwd(*bwd_args)
+        for a, a0 in zip(fwd + bwd, fwd0 + bwd0):
+            assert torch.equal(a, a0)
+    torch.cuda.synchronize()
+
+
+def test_lstm_cluster_plan_refused_raises(cuda, monkeypatch):
+    """A cluster plan the kernels do not take is refused by the C entry
+    and raises: no fallback to the grid route or the plain loop."""
+    lstm_ops = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    xproj, h0, c0, rw, _ = _lstm_operands(3, 4, 16, 21)
+    bad = lstm_ops.LstmSeqRoute("cluster", 16, 3, 2, 1)  # 16 blocks, 3 rows
+    monkeypatch.setattr(lstm_ops, "lstm_seq_route", lambda *a: bad)
+    before = dict(dispatch.launch_counts())
+    with pytest.raises(RuntimeError, match="lstm_seq_fwd"):
+        lstm_ops.lstm_seq_fwd(xproj, h0, c0, rw)
+    assert dispatch.launch_counts() == before
 
 
 def test_bidirectional_lstm_on_card_matches_cpu(cuda):

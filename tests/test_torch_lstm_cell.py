@@ -174,3 +174,86 @@ def test_sequence_shapes_are_checked():
     xproj, h0, c0, rw = (torch.from_numpy(a) for a in _seq_data(T=2))
     with pytest.raises(ValueError, match="4n"):
         lstm_sequence(xproj[:, :, :-1], h0, c0, rw)
+
+
+# --- the sequence kernels' route rule (ops/lstm_cell.py lstm_seq_route) --
+#
+# Decided from the shape alone, so it is pinned here on the CPU: the
+# char-RNN's chunk (T 50, b 32, n 200) and its T 1 sampling launch take
+# the cluster route; bench.py's saturated shape (T 128, b 256, n 1024)
+# and n 8500 keep the cooperative grid.
+
+ROUTE_CASES = [
+    ("charrnn.chunk", 50, 32, 200, "cluster"),
+    ("charrnn.sample", 1, 1, 200, "cluster"),
+    ("charrnn.output", 200, 4, 200, "cluster"),
+    ("saturated", 128, 256, 1024, "grid"),
+    ("wide", 2, 3, 8500, "grid"),
+]
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("path,T,b,n,route", ROUTE_CASES,
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_lstm_seq_route_pins_the_main_paths(path, T, b, n, route, bwd):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_route
+
+    assert lstm_seq_route(T, b, n, bwd).route == route
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 16, 17, 32, 33, 64, 65, 128,
+                               129, 256, 300])
+def test_lstm_cluster_plans_fit_and_cover_b(b, bwd):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        LSTM_CLUSTER_SLOTS,
+        MAX_SMEM_BYTES,
+        lstm_cluster_smem_bytes,
+        lstm_seq_route,
+    )
+
+    for n in (1, 8, 13, 17, 40, 200, 201, 255, 256):
+        r = lstm_seq_route(50, b, n, bwd)
+        assert r.route == "cluster", n
+        assert r.smem_bytes == lstm_cluster_smem_bytes(n, r.cluster, r.rows,
+                                                       bwd)
+        assert r.smem_bytes <= MAX_SMEM_BYTES
+        # the clusters cover b, none of them empty
+        assert (r.clusters - 1) * r.rows < b <= r.clusters * r.rows
+        # the fewest rows a cluster that keep one wave of clusters
+        assert r.clusters <= LSTM_CLUSTER_SLOTS or r.rows == 8
+        assert r.rows == 1 or -(-b // (r.rows // 2)) > LSTM_CLUSTER_SLOTS
+        # rows x units owner threads in a block of 256
+        u = -(-n // r.cluster)
+        assert r.rows * u <= 256
+        # every block owns a unit, at the units a block of 8 would have
+        assert (r.cluster - 1) * u < n and u == -(-n // 8)
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (8, 8), (9, 5), (13, 7),
+                                      (17, 6), (33, 7), (41, 7), (49, 7),
+                                      (200, 8), (201, 8), (256, 8)])
+def test_lstm_cluster_blocks_leave_no_block_empty(n, blocks):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        lstm_cluster_blocks,
+        lstm_seq_route,
+    )
+
+    assert lstm_cluster_blocks(n) == blocks
+    for bwd in (False, True):
+        assert lstm_seq_route(50, 32, n, bwd).cluster == blocks
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("b", [1, 32, 256])
+def test_lstm_seq_route_turns_grid_past_its_limit(b, bwd):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        LSTM_CLUSTER,
+        LSTM_CLUSTER_MAX_UNITS,
+        lstm_seq_route,
+    )
+
+    limit = LSTM_CLUSTER * LSTM_CLUSTER_MAX_UNITS  # 256
+    assert lstm_seq_route(1, b, limit, bwd).route == "cluster"
+    assert lstm_seq_route(1, b, limit + 1, bwd).route == "grid"
+    assert lstm_seq_route(1, b, limit + 1, bwd).smem_bytes == 0
