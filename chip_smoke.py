@@ -26,9 +26,10 @@ non-zero (nothing is caught):
    streamed entry at t 16384; the dense kernel at the transformer's input
    projection and its residual variant at the FFN's second product.
    Each record names the kernel route its shape took; the run fails
-   when a main-path shape of ``conv_bwd_data``, ``conv_bwd_w``, the
-   dense kernel or the LSTM sequence kernels took another route than the
-   one designed for it (``INTENDED_ROUTES``). The LSTM layers are also timed against
+   when a main-path shape of the conv forward, ``conv_bwd_data``,
+   ``conv_bwd_w``, the dense kernel, the LSTM cell or the LSTM sequence
+   kernels took another route than the one designed for it
+   (``INTENDED_ROUTES``). The LSTM layers are also timed against
    ``torch.nn.LSTM`` (cuDNN) on the device clock;
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
    (random weights from a seed) on the card answers solo and concurrent
@@ -341,6 +342,7 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         matmul_block,
         matmul_block_reference,
     )
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
     from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
     dev = torch.device("cuda")
@@ -409,8 +411,11 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         plain_ms = graph_ms(torch, plain)
         library_ms = graph_ms(torch, library)
     bound_ms, bound_by = bound(flops, nbytes)
-    route = ("direct" if kind == "conv_block"
-             else matmul_route(geo["m"], geo["n"]))
+    if kind == "conv_block":
+        route = conv_block_route(*geo["x"], geo["w"][0], *geo["w"][2:],
+                                 geo["stride"], geo["padding"]).route
+    else:
+        route = matmul_route(geo["m"], geo["n"])
     return {"kernel": kind, "kernel_route": route,
             "shape_of": f"{model}.{name}", **shape,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -756,7 +761,10 @@ def check_lstm_kernels(torch, model, T, b, n, gen):
         lstm_seq_fwd,
         lstm_seq_fwd_reference,
     )
-    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_plan
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        lstm_cell_plan,
+        lstm_seq_plan,
+    )
 
     dev = torch.device("cuda")
 
@@ -806,10 +814,9 @@ def check_lstm_kernels(torch, model, T, b, n, gen):
             plain_ms = graph_ms(torch, plain, reps=1)
         flops, nbytes = lstm_work(kind, T, b, n, variant)
         bound_ms, bound_by = bound(flops, nbytes)
-        plan = (None if kind == "lstm_cell" else
+        plan = (lstm_cell_plan(b, n) if kind == "lstm_cell" else
                 lstm_seq_plan(b, n, kind == "lstm_seq_bwd", T))
-        rec = {"kernel": kind,
-               "kernel_route": plan["route"] if plan else "single",
+        rec = {"kernel": kind, "kernel_route": plan["route"],
                "variant": variant, "shape_of": model,
                "T": T if kind != "lstm_cell" else 1, "b": b, "n": n,
                "max_abs_err": err, "kernel_ms": ms,
@@ -817,8 +824,7 @@ def check_lstm_kernels(torch, model, T, b, n, gen):
                "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": flops / 1e9,
                "mb": nbytes / 1e6}
-        if plan:
-            rec["plan"] = plan
+        rec["plan"] = plan
         records.append(rec)
     return records
 
@@ -1286,10 +1292,17 @@ def check_transformer_matmuls(torch, gen):
 
 
 # The route each main-path shape of the routed kernels must take
-# (ops.conv_block.conv_bwd_data_route and conv_bwd_w_route,
-# ops.matmul_block.matmul_route, ops.lstm_cell.lstm_seq_route),
+# (ops.conv_block.conv_block_route, conv_bwd_data_route and
+# conv_bwd_w_route, ops.matmul_block.matmul_route, ops.lstm_cell
+# lstm_cell_route and lstm_seq_route),
 # by the prefix of the record's shape_of.
 INTENDED_ROUTES = {
+    # ops.conv_block.conv_block_route: the wide implicit GEMM for
+    # AlexNet's five convs at batch 64, LeNet's two at the training
+    # batch and its first at the serving bucket; the direct tile (split
+    # k) for LeNet's second at the bucket
+    "conv_block": (("alexnet.", "wide"), ("lenet256.", "wide"),
+                   ("lenet.conv1", "wide"), ("lenet.conv2", "direct")),
     "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm")),
     "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
@@ -1298,6 +1311,9 @@ INTENDED_ROUTES = {
     # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
     # launch on a cluster, bench.py's saturated shape on the grid
     "lstm_seq_fwd": (("charrnn", "cluster"), ("saturated", "grid")),
+    # ops.lstm_cell.lstm_cell_route: the char-RNN's step and sampling
+    # launch on the latency route, the saturated shape on the slices
+    "lstm_cell": (("charrnn", "latency"), ("saturated", "slice")),
     "lstm_seq_bwd": (("charrnn", "cluster"), ("saturated", "grid")),
 }
 
@@ -1671,6 +1687,13 @@ def main() -> int:
         if k in INTENDED_ROUTES:  # the kernel route its main path took
             entry["kernel_route"] = "+".join(sorted(
                 {r["kernel_route"] for r in main}))
+        if k == "conv_block":  # AlexNet's five convs at batch 64, summed
+            alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
+            entry.update(alexnet_route="+".join(sorted(
+                {r["kernel_route"] for r in alex})),
+                alexnet_ms=sum(r["kernel_ms"] for r in alex),
+                alexnet_library_ms=sum(r["library_ms"] for r in alex),
+                alexnet_bound_ms=sum(r["bound_ms"] for r in alex))
         if k == "conv_bwd_w":  # each layer of the step, library beside
             for r in main:
                 layer = r["shape_of"].split(".")[1]
@@ -1710,9 +1733,9 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": lib,
         }
-        if k in INTENDED_ROUTES:  # the sequence kernels
+        entry["kernel_route"] = main["kernel_route"]
+        if k != "lstm_cell":  # the sequence kernels' own layer time
             side = k[-3:]  # fwd / bwd
-            entry["kernel_route"] = main["kernel_route"]
             entry[f"port_{side}_ms"] = cudnn[f"port_{side}_ms"]
         kernels.append(entry)
     # the transformer's kernels: f32 at the main path's shapes (flash

@@ -103,8 +103,10 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_conv_block.argtypes = [p] * 6 + [i] * 16 + [p]
+    lib.dl4j_conv_block.argtypes = [p] * 8 + [i] * 20 + [p]
     lib.dl4j_conv_block.restype = i
+    lib.dl4j_conv_wide_smem_bytes.argtypes = [i] * 3
+    lib.dl4j_conv_wide_smem_bytes.restype = i
     lib.dl4j_conv_block_splits.argtypes = [i] * 7
     lib.dl4j_conv_block_splits.restype = i
     for name in ("dl4j_conv_bwd_data", "dl4j_conv_bwd_w"):
@@ -122,7 +124,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_matmul_block.restype = i
     lib.dl4j_matmul_block_splits.argtypes = [i] * 3
     lib.dl4j_matmul_block_splits.restype = i
-    lib.dl4j_lstm_cell.argtypes = [p] * 9 + [i] * 2 + [p]
+    lib.dl4j_lstm_cell.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.dl4j_lstm_cell.restype = i
     lib.dl4j_lstm_seq_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.dl4j_lstm_seq_fwd.restype = i
@@ -138,6 +140,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_lstm_seq_plan.restype = i
     lib.dl4j_lstm_cluster_plan.argtypes = [i] * 5 + [ip, ip]
     lib.dl4j_lstm_cluster_plan.restype = i
+    lib.dl4j_lstm_cell_plan.argtypes = [i] * 5 + [ip, ip]
+    lib.dl4j_lstm_cell_plan.restype = i
     return lib
 
 

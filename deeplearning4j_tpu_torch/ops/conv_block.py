@@ -16,8 +16,12 @@ scratch for the partial sums (``_build.split_scratch``).
 
 ``conv_block`` launches the kernel for a CUDA tensor and runs
 ``conv_block_reference`` (the plain PyTorch version, same semantics)
-for a CPU tensor. When a gradient is wanted, both run through
-``_ConvBlockFn``, the backward of the JAX package's ``_conv_block_bwd``:
+for a CPU tensor. The forward kernel takes one of two routes, picked
+from the shape alone by ``conv_block_route``: the wide implicit GEMM
+(large tiles fed by a ``cp.async`` ring, f32) where its grid fills the
+card, the direct 64 x 64 tile with split-K elsewhere and in bf16 / f16.
+When a gradient is wanted, the kernels and the plain version alike
+run through ``_ConvBlockFn``, the backward of the JAX package's ``_conv_block_bwd``:
 recompute the f32 accumulator (the forward kernel, identity epilogue,
 f32 out), apply the epilogue gradient in f32 (``_EPILOGUE_GRADS``:
 relu's gradient at z == 0 is 0.5, the TPU kernel route's value, where
@@ -30,12 +34,13 @@ its dx held in shared memory) where they fit, the implicit GEMM
 elsewhere; ``conv_bwd_w`` likewise, by ``conv_bwd_w_route``: the
 image-resident kernel (whole images staged, dW summed in registers)
 where two images fit, the implicit GEMM elsewhere. Under ``no_grad`` /
-``inference_mode`` the forward is the direct launch alone. The backward
+``inference_mode`` the forward is its one launch alone. The backward
 kernels take f32: training in bf16 / f16 on the card raises.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -154,6 +159,140 @@ def _plain_forward(x, w, scale, shift, stride, padding, activation,
     return _EPILOGUES[activation](z).to(out_dtype)
 
 
+# The forward's two kernel routes (csrc/conv_block.cu), picked from the
+# shape alone by conv_block_route. The wide route's tiles (output
+# channels, pixels), each with the blocks an SM it keeps (its
+# __launch_bounds__: the 96 x 256 tile's 96 accumulators a thread take
+# one block an SM) and whether a thread's pixels are float4 groups (the
+# wide tiles' shared loads) or lanes 32 apart (the narrow tiles' stores,
+# coalesced: their small depths make the epilogue count). A conv takes
+# the wide route in f32 where its tile with the least wave-quantised
+# work has at least WIDE_MIN_TILES tiles (LeNet-5's first conv at the
+# bucket of 32: 72 tiles, 3 % under the direct route's time) and the
+# ring plus the tap table fit a block's shared memory. Elsewhere, and
+# in bf16 / f16, the direct route. The tiles, their layouts and the cost
+# model are fitted to scripts/torch_route_ab.py --sweep (PERF.md).
+ROUTE_CODES = {"direct": 0, "wide": 1}
+WIDE_TILES = {(96, 256): (1, True), (128, 128): (2, True),
+              (96, 128): (2, False), (32, 256): (2, False)}
+WIDE_K_SLICE = 16
+WIDE_STAGES = 4
+WIDE_MIN_TILES = 64
+WIDE_SOLO_ROWS = 64
+WIDE_PAD_TAP = 0x7FFF  # a tap-table dh that fails every bounds check
+BLOCK_SMEM_BYTES = 232_448  # a block's shared memory on an H100
+SM_COUNT = 132  # H100 SXM
+SM_SMEM_BYTES = 233_472  # an SM's shared memory for blocks (228 KB)
+
+
+class ConvRoute(NamedTuple):
+    """``route`` is ``"direct"`` or ``"wide"``; the rest are the wide
+    route's (0 on the direct route): its tile (``tile_o`` channels x
+    ``tile_px`` pixels), the depth padded to the k slice (``k_pad``),
+    the ``tiles`` of its grid and one block's dynamic shared memory
+    (``smem_bytes``: the ring and the tap table)."""
+    route: str
+    tile_o: int = 0
+    tile_px: int = 0
+    k_pad: int = 0
+    tiles: int = 0
+    smem_bytes: int = 0
+
+
+def conv_wide_smem_bytes(tile_o: int, tile_px: int, k_pad: int) -> int:
+    """Dynamic shared memory of a wide block (csrc/conv_block.cu
+    ``wide_smem_bytes``): WIDE_STAGES ring slots of a 16-deep slice of
+    the transposed weights (16 x tile_o f32) and of the im2col operand
+    (16 x tile_px f32), then the tap table (k_pad int2 entries)."""
+    ring = WIDE_STAGES * WIDE_K_SLICE * (tile_o + tile_px) * 4
+    return ring + 8 * k_pad
+
+
+def _wide_issue_share(to: int, tp: int, vec: bool) -> float:
+    """The share of a wide thread's issue slots that are FMAs, a k row
+    at a time: (to / 8) x (tp / 32) FMAs against to / 32 float4 shared
+    loads of channels and tp / 128 float4 (vec) or tp / 32 scalar ones
+    of pixels, and the staging (about 8 instructions a gathered
+    element, tp / 256 of them a row, and 6 a 16-byte weight copy)."""
+    fma = (to // 8) * (tp // 32)
+    loads = to // 32 + (tp // 128 if vec else tp // 32)
+    copies = -(-WIDE_K_SLICE * to // 4 // 256)
+    staging = 8 * tp / 256 + 6 * copies / WIDE_K_SLICE
+    return fma / (fma + loads + staging)
+
+
+def _wide_cost(tile, n_px, o, k_pad):
+    """(wave-quantised issue, tiles) of a wide tile: the rounds of
+    132 x blocks-an-SM slots its tiles take, each round one tile's FMAs
+    (WIDE_SOLO_ROWS more rows of depth where a block runs alone on its
+    SM: nothing hides its prologue and epilogue) times the blocks an SM
+    runs side by side, over the tile's FMA share of the issue."""
+    (to, tp), (per_sm, vec) = tile, WIDE_TILES[tile]
+    smem = conv_wide_smem_bytes(to, tp, k_pad)
+    per_sm = max(1, min(per_sm, SM_SMEM_BYTES // (smem + 1024)))
+    tiles = -(-n_px // tp) * -(-o // to)
+    rounds = -(-tiles // (SM_COUNT * per_sm))
+    depth = k_pad + (WIDE_SOLO_ROWS if per_sm == 1 else 0)
+    return (rounds * per_sm * to * tp * depth
+            / _wide_issue_share(to, tp, vec), tiles)
+
+
+def wide_plan(tile, n_px: int, o: int, k_pad: int) -> ConvRoute:
+    """The wide route's plan in ``tile`` for ``n_px`` output pixels of
+    ``o`` channels at a padded depth of ``k_pad``."""
+    return ConvRoute("wide", tile[0], tile[1], k_pad,
+                     _wide_cost(tile, n_px, o, k_pad)[1],
+                     conv_wide_smem_bytes(*tile, k_pad))
+
+
+@functools.lru_cache(maxsize=256)
+def conv_block_route(n: int, c: int, h: int, w: int, o: int, kh: int,
+                     kw: int, stride=(1, 1), padding=(0, 0),
+                     dtype=torch.float32) -> ConvRoute:
+    """The forward's kernel route for an ``[n, c, h, w]`` input under
+    ``[o, c, kh, kw]`` weights: ``"wide"`` in f32 where the wide tile
+    with the least wave-quantised work (ties: the larger tile) has at
+    least WIDE_MIN_TILES tiles and its ring and tap table fit a block,
+    else ``"direct"``. Decided from the shape alone (and kept per shape:
+    it runs at every launch)."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    oh = conv_output_size(h, kh, sh, ph)
+    ow = conv_output_size(w, kw, sw, pw)
+    k_pad = -(-c * kh * kw // WIDE_K_SLICE) * WIDE_K_SLICE
+    fits = [t for t in WIDE_TILES
+            if conv_wide_smem_bytes(*t, k_pad) <= BLOCK_SMEM_BYTES]
+    if (dtype != torch.float32 or h + ph >= WIDE_PAD_TAP or not fits
+            or c * h * w >= 2 ** 31):  # the tap table's int32 offsets
+        return ConvRoute("direct")
+    n_px = n * oh * ow
+    tile = min(fits, key=lambda t: (_wide_cost(t, n_px, o, k_pad)[0],
+                                    -t[0] * t[1]))
+    plan = wide_plan(tile, n_px, o, k_pad)
+    return plan if plan.tiles >= WIDE_MIN_TILES else ConvRoute("direct")
+
+
+def conv_tap_table(c: int, h: int, w: int, kh: int, kw: int,
+                   k_pad: int) -> torch.Tensor:
+    """The wide route's tap table, int32 ``[k_pad, 2]``: for each k =
+    (ci, dh, dw) of the reduction, the input offset ``ci*h*w + dh*w +
+    dw`` from a pixel's top-left tap and ``dh << 16 | dw`` for the
+    kernel's bounds checks; rows past ``c*kh*kw`` carry a dh of
+    WIDE_PAD_TAP, which no bounds check passes (zero-filled)."""
+    k = torch.arange(k_pad, dtype=torch.int64)
+    ci, r = k // (kh * kw), k % (kh * kw)
+    dh, dw = r // kw, r % kw
+    live = k < c * kh * kw
+    off = torch.where(live, ci * h * w + dh * w + dw, 0)
+    packed = torch.where(live, dh * 65536 + dw, WIDE_PAD_TAP * 65536)
+    return torch.stack([off, packed], 1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tap_table(geometry, device) -> torch.Tensor:
+    """conv_tap_table on ``device``, made once per geometry and kept."""
+    return conv_tap_table(*geometry).to(device)
+
+
 def _kernel_forward(x, w, scale, shift, stride, padding, activation,
                     out_dtype):
     kernel = "conv_block"
@@ -181,13 +320,25 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
             raise ValueError(f"{kernel}: {name} must hold {o} values")
     out = torch.empty((n, o, oh, ow), dtype=x.dtype, device=x.device)
     lib = _build.load()
-    splits = lib.dl4j_conv_block_splits(n, c, o, kh, kw, oh, ow)
-    scratch = _build.split_scratch(splits, out.numel(), x.device)
+    plan = conv_block_route(n, c, h, wd, o, kh, kw, stride, padding, x.dtype)
+    wt = taps = scratch = None
+    splits = 1
+    if plan.route == "wide":
+        o_pad = -(-o // plan.tile_o) * plan.tile_o
+        wt = torch.empty(plan.k_pad * o_pad, dtype=torch.float32,
+                         device=x.device)
+        taps = _device_tap_table((c, h, wd, kh, kw, plan.k_pad), x.device)
+    else:
+        splits = lib.dl4j_conv_block_splits(n, c, o, kh, kw, oh, ow)
+        scratch = _build.split_scratch(splits, out.numel(), x.device)
     rc = lib.dl4j_conv_block(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        x.data_ptr(), w.data_ptr(), None if wt is None else wt.data_ptr(),
+        None if taps is None else taps.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         _build.DTYPE_CODES[x.dtype], n, c, h, wd, o, kh, kw, sh, sw, ph, pw,
-        oh, ow, EPILOGUE_CODES[activation], splits,
+        oh, ow, EPILOGUE_CODES[activation], splits, ROUTE_CODES[plan.route],
+        plan.tile_o, plan.tile_px, plan.k_pad,
         _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
@@ -248,7 +399,7 @@ def _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, stride, padding, oh, ow):
 # in whole warps, repeated for up to kh*kw tap groups (each a run of the
 # taps into a dx tile of its own), within RESIDENT_MAX_THREADS and the
 # shared memory: the more threads, the more of each SM's latency hidden.
-RESIDENT_SMEM_BYTES = 232_448
+RESIDENT_SMEM_BYTES = BLOCK_SMEM_BYTES
 RESIDENT_MAX_GROUP = 32
 RESIDENT_MIN_GROUP = 16
 RESIDENT_MAX_THREADS = 1024
@@ -333,8 +484,6 @@ BWD_W_MAX_THREADS = 384
 BWD_W_REGISTERS = 85
 BWD_W_MAX_K = 5
 BWD_W_MAX_SCRATCH = 16 << 20
-SM_COUNT = 132  # H100 SXM
-SM_SMEM_BYTES = 233_472  # an SM's shared memory for blocks (228 KB)
 SM_THREADS = 2048
 SM_REGISTERS = 65_536
 

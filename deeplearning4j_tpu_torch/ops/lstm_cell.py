@@ -18,7 +18,11 @@ JAX package's: xproj ``[b, 4n]`` a step or ``[T, b, 4n]`` a sequence
   dRW with one ``torch.matmul`` over the sequence.
 
 Routing follows the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor the kernel. The sequence kernels have two routes,
+version, a CUDA tensor the kernel. The cell has two kernel routes,
+picked from the shape alone by ``lstm_cell_route``: ``latency`` (blocks
+of 2 hidden units, every copy in flight before one wait) where a
+block's h rows and RW columns fit 48 KB, ``slice`` (8 units a block,
+the depth streamed) elsewhere. The sequence kernels have two routes,
 picked from the shape alone by ``lstm_seq_route``: a thread-block
 cluster owning a few batch rows for the whole sequence, RW's columns
 resident across its blocks (n <= 256), else the cooperative grid split
@@ -31,6 +35,7 @@ least float32, as the kernels accumulate.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -94,6 +99,88 @@ def lstm_cell_reference(xproj, h, c, rw, peepholes: Peepholes = None):
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
 
+# The cell's two kernel routes (csrc/lstm_cell.cu), picked from the
+# shape alone by lstm_cell_route. The latency route: a block owns
+# CELL_UNITS hidden units for up to CELL_ROWS batch rows, its h rows and
+# RW columns staged at once in at most CELL_SMEM_BYTES of shared memory
+# (no opt-in) by all its CELL_MAX_THREADS threads; rows x units x splits
+# of them sum, splitting the depth CELL_MAX_SPLITS ways at most (the
+# lanes of one warp). Elsewhere the slice route (8 units a block,
+# the depth streamed in 32-deep slices).
+CELL_ROUTE_CODES = {"slice": 0, "latency": 1}
+CELL_UNITS = 2
+CELL_ROWS = 32
+CELL_MAX_THREADS = 256
+CELL_MAX_SPLITS = 32
+CELL_SMEM_BYTES = 48 * 1024
+
+
+class CellRoute(NamedTuple):
+    """``route`` is ``"latency"`` or ``"slice"``; the rest are the
+    latency route's (0 on the slice route): batch ``rows`` and hidden
+    ``units`` a block, the depth ``splits`` of a (row, unit), the grid
+    (``unit_blocks`` x ``row_blocks``), a block's ``threads`` and its
+    dynamic shared memory (``smem_bytes``)."""
+    route: str
+    rows: int = 0
+    units: int = 0
+    splits: int = 0
+    unit_blocks: int = 0
+    row_blocks: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+
+
+def lstm_cell_smem_bytes(n: int, rows: int, units: int) -> int:
+    """Dynamic shared memory of a latency block (csrc/lstm_cell.cu
+    ``latency_smem_bytes``): ``rows`` h rows at a stride of n rounded up
+    to 4 floats, then n depth rows of the block's 4 x units RW
+    columns."""
+    return 4 * (rows * _round4(n) + n * units * 4)
+
+
+def latency_plan(b: int, n: int, rows: int, units: int) -> CellRoute:
+    """The latency route's plan at (b, n) with ``rows`` batch rows and
+    ``units`` hidden units a block: the most depth splits (a power of
+    two up to CELL_MAX_SPLITS) that keep rows x units x splits within a
+    block's CELL_MAX_THREADS."""
+    splits = 1
+    while (splits * 2 <= CELL_MAX_SPLITS
+           and rows * units * splits * 2 <= CELL_MAX_THREADS):
+        splits *= 2
+    return CellRoute("latency", rows, units, splits, -(-n // units),
+                     -(-b // rows), CELL_MAX_THREADS,
+                     lstm_cell_smem_bytes(n, rows, units))
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_cell_route(b: int, n: int) -> CellRoute:
+    """The kernel route of one step at (b, n): ``"latency"`` with up to
+    CELL_ROWS rows and CELL_UNITS units a block where its rows of h and
+    columns of RW fit CELL_SMEM_BYTES, else ``"slice"``. Decided from
+    the shape alone (and kept per shape: the per-step route asks at
+    every timestep)."""
+    plan = latency_plan(b, n, min(b, CELL_ROWS), CELL_UNITS)
+    return plan if plan.smem_bytes <= CELL_SMEM_BYTES else CellRoute("slice")
+
+
+def lstm_cell_plan(b: int, n: int) -> dict:
+    """How the card would launch one step at (b, n): the route
+    (``lstm_cell_route``) and, on the latency route, one block's shared
+    memory and threads as the C source reckons them. Builds the
+    kernels; needs a card."""
+    route = lstm_cell_route(b, n)
+    if route.route != "latency":
+        return {"route": route.route}
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load().dl4j_lstm_cell_plan(
+        b, n, route.rows, route.units, route.splits, ctypes.byref(smem),
+        ctypes.byref(threads))
+    _build.check(rc, "lstm_cell_plan")
+    return {"route": "latency", "smem_bytes": smem.value,
+            "threads": threads.value}
+
+
 def _kernel_cell(xproj, h, c, rw, peepholes: Peepholes):
     kernel = "lstm_cell"
     _check_kernel_dtype(kernel, h)
@@ -115,9 +202,11 @@ def _kernel_cell(xproj, h, c, rw, peepholes: Peepholes):
     _check_int32(kernel, xproj, rw)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
+    route = lstm_cell_route(b, n)
     rc = _build.load().dl4j_lstm_cell(
         xproj.data_ptr(), h.data_ptr(), c.data_ptr(), rw.data_ptr(), *peeps,
         h_out.data_ptr(), c_out.data_ptr(), b, n,
+        CELL_ROUTE_CODES[route.route], route.rows, route.units, route.splits,
         _build.current_stream_handle(dev))
     _build.check(rc, kernel)
     dispatch.note_launch(kernel)

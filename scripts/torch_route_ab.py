@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """The routed and redesigned kernels of the port at their main-path
-shapes on one CUDA card: ``conv_bwd_data`` at LeNet-5's conv2 (batch 256,
-the resident route), ``conv_bwd_w`` at LeNet-5's conv1 and conv2 (batch
+shapes on one CUDA card: the conv forward at LeNet-5's convs (the
+serving bucket of 32 and the training batch of 256) and AlexNet's five
+(batch 64), the LSTM cell at the char-RNN's step (b 32, n 200, with
+peepholes), its sampling launch (b 1) and bench.py's saturated shape
+(b 256, n 1024), ``conv_bwd_data`` at LeNet-5's conv2 (batch 256, the
+resident route), ``conv_bwd_w`` at LeNet-5's conv1 and conv2 (batch
 256, the image-resident route), the dense kernel at the transformer's
 input projection and, with the residual, its FFN's second product (the
 wide route), flash attention's two entries at the transformer's
@@ -12,13 +16,22 @@ its T 1 sampling launch (b 1, the c_seq-free forward) and bench.py's
 saturated shape (T 128, b 256, n 1024; the grid route).
 
     python3 scripts/torch_route_ab.py --check
+    python3 scripts/torch_route_ab.py --sweep
     python3 scripts/torch_route_ab.py --parent DIR [--rounds N]
 
 ``--check`` prints what ``nvcc -Xptxas -v`` reports for the kernel
 sources (registers, shared memory, spills), then runs each kernel once
-at each shape, holds it against its plain PyTorch version and a second
-launch (bitwise), and prints one JSON line with the device time of
-each CUDA kernel one call launches (``torch.profiler``).
+at each shape (in processes of CHECK_CHUNK shapes), holds it against
+its plain PyTorch version and a second launch (bitwise), and prints one
+JSON line with the device time of each CUDA kernel one call launches
+(``torch.profiler``).
+
+``--sweep`` times the conv forward at each of its shapes on every route
+and wide tile, and the cell on the slice route and on latency plans of
+several rows and units a block, each forced through the wrapper (the
+route function patched), in turns, each held to its plain version, with
+``F.conv2d`` + relu and the bound beside the convs, and prints one JSON
+line: the data the route rules are fitted to.
 
 ``--groups`` times the resident ``conv_bwd_data`` kernel at LeNet-5's
 conv2 with several channel-group sizes (20: one group of all the
@@ -37,15 +50,16 @@ prints one JSON line.
 takes the same calls) against this one's, in turns (parent, this, this,
 parent, ``--rounds`` times), one process a turn, with CUDA events around
 CUDA-graph replays, and the PyTorch library call beside each
-(``conv2d_input``, ``conv2d_weight``; ``addmm`` plus the residual add;
-``scaled_dot_product_attention``; for the LSTM kernels
-``torch.nn.LSTM``'s whole layer, cuDNN, forward or backward). The LSTM
-kernels and their library layer are timed on the device clock instead
-(``torch.profiler``'s sum of the device activities of 5 calls: a
-grid-route launch's barrier memset included), with the host's time to
-enqueue one call beside (``host_ms``). TF32 is off. Prints one JSON line
-per turn and one with the medians and the card's name and power limit.
-Exits non-zero without a card.
+(``F.conv2d`` + relu, ``conv2d_input``, ``conv2d_weight``; ``addmm``
+plus the residual add; ``scaled_dot_product_attention``; for the LSTM
+sequence kernels ``torch.nn.LSTM``'s whole layer, cuDNN, forward or
+backward; none for the cell, which no one PyTorch call computes). The
+LSTM sequence kernels and their library layer are timed on the device
+clock instead (``torch.profiler``'s sum of the device activities of 5
+calls: a grid-route launch's barrier memset included), with the host's
+time to enqueue one call beside (``host_ms``, the cell's too). TF32 is
+off. Prints one JSON line per turn and one with the medians and the
+card's name and power limit. Exits non-zero without a card.
 """
 
 import argparse
@@ -61,6 +75,25 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # transformer LM (d 768, batch 16 x t 512) input projection and FFN2;
 # its attention (12 heads of 64) at t 512 and, streamed, at t 16384
 SHAPES = (
+    ("lenet.conv1", "conv_block", ((32, 1, 28, 28), (20, 1, 5, 5), 1, 0)),
+    ("lenet.conv2", "conv_block", ((32, 20, 12, 12), (50, 20, 5, 5), 1, 0)),
+    ("lenet256.conv1", "conv_block", ((256, 1, 28, 28), (20, 1, 5, 5), 1,
+                                      0)),
+    ("lenet256.conv2", "conv_block", ((256, 20, 12, 12), (50, 20, 5, 5), 1,
+                                      0)),
+    ("alexnet.conv1", "conv_block", ((64, 3, 224, 224), (96, 3, 11, 11), 4,
+                                     2)),
+    ("alexnet.conv2", "conv_block", ((64, 96, 27, 27), (256, 96, 5, 5), 1,
+                                     2)),
+    ("alexnet.conv3", "conv_block", ((64, 256, 13, 13), (384, 256, 3, 3), 1,
+                                     1)),
+    ("alexnet.conv4", "conv_block", ((64, 384, 13, 13), (384, 384, 3, 3), 1,
+                                     1)),
+    ("alexnet.conv5", "conv_block", ((64, 384, 13, 13), (256, 384, 3, 3), 1,
+                                     1)),
+    ("charrnn", "lstm_cell", (32, 200, True)),
+    ("charrnn-sample", "lstm_cell", (1, 200, True)),
+    ("saturated", "lstm_cell", (256, 1024, True)),
     ("lenet256.conv2", "conv_bwd_data", ((256, 20, 12, 12), (50, 20, 5, 5))),
     ("lenet256.conv1", "conv_bwd_w", ((256, 1, 28, 28), (20, 1, 5, 5))),
     ("lenet256.conv2", "conv_bwd_w", ((256, 20, 12, 12), (50, 20, 5, 5))),
@@ -74,8 +107,8 @@ SHAPES = (
     ("saturated", "lstm_seq_fwd", (128, 256, 1024, True)),
     ("saturated", "lstm_seq_bwd", (128, 256, 1024, True)),
 )
-SOURCES = ("matmul_block.cu", "conv_bwd.cu", "flash_attention.cu",
-           "lstm_seq.cu")
+SOURCES = ("conv_block.cu", "matmul_block.cu", "conv_bwd.cu",
+           "flash_attention.cu", "lstm_cell.cu", "lstm_seq.cu")
 
 
 def _lstm_operands(torch, kind, shape, gen):
@@ -122,6 +155,45 @@ def _lstm_operands(torch, kind, shape, gen):
                                         retain_graph=True))
 
 
+def _conv_operands(torch, shape, gen):
+    """(kernel, plain, library) calls of the conv forward at (x shape, w
+    shape, stride, padding), relu epilogue; library: ``F.conv2d`` +
+    relu (cuDNN, TF32 off)."""
+    from deeplearning4j_tpu_torch.ops import conv_block, conv_block_reference
+
+    xs, ws, st, pad = shape
+    dev = torch.device("cuda")
+    x = torch.randn(xs, device=dev, generator=gen)
+    w = torch.randn(ws, device=dev, generator=gen) / (
+        ws[1] * ws[2] * ws[3]) ** 0.5
+    b = 0.1 * torch.randn(ws[0], device=dev, generator=gen)
+    kw = dict(stride=st, padding=pad, activation="relu")
+    return (lambda: conv_block(x, w, b, **kw),
+            lambda: conv_block_reference(x, w, b, **kw),
+            lambda: torch.relu_(torch.nn.functional.conv2d(
+                x, w, b, stride=st, padding=pad)))
+
+
+def _cell_operands(torch, shape, gen):
+    """(kernel, plain, None) calls of one LSTM step at (b, n, peephole):
+    no one PyTorch call computes this cell."""
+    from deeplearning4j_tpu_torch.ops import lstm_cell, lstm_cell_reference
+
+    b, n, peephole = shape
+    dev = torch.device("cuda")
+
+    def randn(*dims, scale=1.0):
+        return torch.randn(dims, device=dev, generator=gen) * scale
+
+    xproj = randn(b, 4 * n, scale=0.5)
+    h, c = randn(b, n, scale=0.1), randn(b, n, scale=0.1)
+    rw = randn(n, 4 * n, scale=n ** -0.5)
+    peeps = (tuple(randn(n, scale=0.1) for _ in range(3)) if peephole
+             else None)
+    return (lambda: lstm_cell(xproj, h, c, rw, peeps),
+            lambda: lstm_cell_reference(xproj, h, c, rw, peeps), None)
+
+
 def _operands(torch, kind, shape, gen):
     """(kernel, plain, library) calls of ``kind`` at ``shape``."""
     import importlib
@@ -136,8 +208,12 @@ def _operands(torch, kind, shape, gen):
     )
 
     dev = torch.device("cuda")
+    if kind == "lstm_cell":
+        return _cell_operands(torch, shape, gen)
     if kind.startswith("lstm"):
         return _lstm_operands(torch, kind, shape, gen)
+    if kind == "conv_block":
+        return _conv_operands(torch, shape, gen)
     if kind.startswith("flash"):
         fa = importlib.import_module(
             "deeplearning4j_tpu_torch.ops.flash_attention")
@@ -178,12 +254,21 @@ def _operands(torch, kind, shape, gen):
 
 def _route(kind, shape):
     from deeplearning4j_tpu_torch.ops.conv_block import (
+        conv_block_route,
         conv_bwd_data_route,
         conv_bwd_w_route,
     )
-    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_seq_route
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        lstm_cell_route,
+        lstm_seq_route,
+    )
     from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
+    if kind == "lstm_cell":
+        return lstm_cell_route(shape[0], shape[1]).route
+    if kind == "conv_block":
+        (n, c, h, w), (o, _, kh, kw), st, pad = shape
+        return conv_block_route(n, c, h, w, o, kh, kw, st, pad).route
     if kind.startswith("lstm"):
         return lstm_seq_route(shape[0], shape[1], shape[2],
                               kind == "lstm_seq_bwd").route
@@ -219,17 +304,34 @@ def _ptxas_report():
     return lines
 
 
+# shapes a --check process profiles: past about twenty profiler sessions
+# in one process the CUDA activities came back empty
+CHECK_CHUNK = 12
+
+
 def check(torch):
+    for line in _ptxas_report():
+        print(line, flush=True)
+    for start in range(0, len(SHAPES), CHECK_CHUNK):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--check-from", str(start)], cwd=HERE,
+                            timeout=900).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
+def check_from(torch, start):
+    """--check's held-and-timed launches of SHAPES[start:start +
+    CHECK_CHUNK]."""
     from chip_smoke import profiled_device_ms
     from deeplearning4j_tpu_torch.ops import dispatch
 
-    for line in _ptxas_report():
-        print(line)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    for name, kind, shape in SHAPES:
+    for name, kind, shape in SHAPES[start:start + CHECK_CHUNK]:
         kernel, plain, library = _operands(torch, kind, shape, gen)
         dispatch.reset_launch_counts()
         lstm = kind.startswith("lstm")
@@ -260,16 +362,22 @@ def check(torch):
                else float((got - lib).abs().max()),
                "scale": max(max(float(r.abs().max()), 1.0)
                             for _, r, _ in outs),
+               "close": kind != "conv_block" or all(
+                   torch.allclose(a, r, rtol=1e-4, atol=1e-4)
+                   for a, r, _ in outs),
                "device_ms_by_kernel": by_kernel}
         out.append(rec)
-        print(f"[check] {json.dumps(rec)}")
+        print(f"[check] {json.dumps(rec)}", flush=True)
     for rec in out:
         # conv gradients: sums of up to 147,456 products, held to their
-        # scale; dense and attention: f32 rounding of O(1) outputs; the
-        # LSTM kernels: sums of up to n products carried through T steps,
-        # each output within 1e-4 of its largest entry (as chip_smoke.py)
+        # scale; the conv forward (sums of up to 3456 O(1) products),
+        # dense and attention: f32 rounding of O(1) outputs; the LSTM
+        # kernels: sums of up to n products carried through T steps, each
+        # output within 1e-4 of its largest entry (as chip_smoke.py)
         if rec["kernel"].startswith("lstm"):
             bad = rec["rel_err"] > 1e-4
+        elif rec["kernel"] == "conv_block":
+            bad = not rec["close"]
         else:
             bad = rec["max_abs_err"] > (
                 5e-5 * rec["scale"] if rec["kernel"].startswith("conv")
@@ -289,7 +397,9 @@ def groups(torch):
 
     torch.backends.cudnn.allow_tf32 = False
     lib = _build.load()
-    (n, c, h, w), (o, _, kh, kw) = SHAPES[0][2]
+    (n, c, h, w), (o, _, kh, kw) = next(
+        shape for name, kind, shape in SHAPES
+        if (name, kind) == ("lenet256.conv2", "conv_bwd_data"))
     oh, ow = h - kh + 1, w - kw + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     wt = torch.randn((o, c, kh, kw), device="cuda", generator=gen) / 500 ** 0.5
@@ -373,6 +483,82 @@ def rows(torch):
     return 0
 
 
+def sweep(torch):
+    """Every route and wide tile of the conv forward at each of its
+    shapes, and both cell routes where each takes the shape, forced
+    through the wrappers (the route functions patched), in turns, each
+    held to its plain version; the data the route rules are fitted to."""
+    import importlib
+
+    from chip_smoke import bound, card_line, graph_ms
+
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    chosen_conv, chosen_cell = cb.conv_block_route, lc.lstm_cell_route
+    for name, kind, shape in SHAPES:
+        if kind not in ("conv_block", "lstm_cell"):
+            continue
+        kernel, plain, library = _operands(torch, kind, shape, gen)
+        with torch.inference_mode():
+            ref = plain()
+        if kind == "conv_block":
+            (n, c, h, w), (o, _, kh, kw), st, pad = shape
+            rule = chosen_conv(n, c, h, w, o, kh, kw, st, pad)
+            k_pad = -(-c * kh * kw // cb.WIDE_K_SLICE) * cb.WIDE_K_SLICE
+            plans = {"direct": cb.ConvRoute("direct")}
+            for tile in cb.WIDE_TILES:
+                plan = cb.wide_plan(tile, n * ref.shape[2] * ref.shape[3],
+                                    o, k_pad)
+                if plan.smem_bytes <= cb.BLOCK_SMEM_BYTES:
+                    plans[f"wide {tile[0]}x{tile[1]}"] = plan
+            flops = 2.0 * ref.numel() * c * kh * kw
+            nbytes = 4.0 * (n * c * h * w + o * c * kh * kw + o
+                            + ref.numel())
+            with torch.inference_mode():
+                rec = {"rule": rule._asdict(),
+                       "library_ms": graph_ms(torch, library),
+                       "bound_ms": bound(flops, nbytes)[0]}
+        else:
+            b, n_ = shape[0], shape[1]
+            rule = chosen_cell(b, n_)
+            plans = {"slice": lc.CellRoute("slice")}
+            for rows in sorted({min(r, b) for r in (32, 16, 8, 4, 1)}):
+                for units in (1, 2, 4):
+                    plan = lc.latency_plan(b, n_, rows, units)
+                    if plan.smem_bytes <= lc.CELL_SMEM_BYTES:
+                        plans[f"latency r{rows} u{units}"] = plan
+            rec = {"rule": rule._asdict()}
+        for turn in range(2):
+            for label, plan in (list(plans.items()) if turn == 0
+                                else list(plans.items())[::-1]):
+                if kind == "conv_block":
+                    cb.conv_block_route = lambda *a, p=plan, **k: p
+                else:
+                    lc.lstm_cell_route = lambda *a, p=plan, **k: p
+                try:
+                    with torch.inference_mode():
+                        got = kernel()
+                        torch.cuda.synchronize()
+                        pairs = ([(got, ref)] if kind == "conv_block"
+                                 else zip(got, ref))
+                        err = max(float((a - r).abs().max())
+                                  for a, r in pairs)
+                        ms = graph_ms(torch, kernel)
+                finally:
+                    cb.conv_block_route = chosen_conv
+                    lc.lstm_cell_route = chosen_cell
+                r = rec.setdefault(label, {"max_abs_err": err, "ms": []})
+                r["ms"].append(ms)
+        out[f"{kind}@{name}"] = rec
+        print(f"[sweep] {kind}@{name} {json.dumps(rec)}", flush=True)
+    print(json.dumps({"card": card_line(), "sweep": out}))
+    return 0
+
+
 def worker(torch):
     from chip_smoke import device_ms, events_ms, graph_ms
 
@@ -382,6 +568,12 @@ def worker(torch):
     times = {}
     for name, kind, shape in SHAPES:
         kernel, _, library = _operands(torch, kind, shape, gen)
+        if kind == "lstm_cell":  # no library call computes the cell
+            with torch.inference_mode():
+                times[f"{kind}@{name}"] = {
+                    "ms": graph_ms(torch, kernel),
+                    "host_ms": events_ms(torch, kernel)[1]}
+            continue
         if kind.startswith("lstm"):
             with torch.inference_mode():
                 ms = device_ms(torch, kernel)
@@ -430,8 +622,10 @@ def compare(parent: str, rounds: int) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check-from", type=int, metavar="I")
     ap.add_argument("--groups", action="store_true")
     ap.add_argument("--rows", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", metavar="ROOT")
@@ -447,12 +641,16 @@ def main() -> int:
         return worker(torch)
     if args.check:
         return check(torch)
+    if args.check_from is not None:
+        return check_from(torch, args.check_from)
     if args.groups:
         return groups(torch)
     if args.rows:
         return rows(torch)
+    if args.sweep:
+        return sweep(torch)
     if not args.parent:
-        ap.error("give --check, --groups, --rows or --parent DIR")
+        ap.error("give --check, --groups, --rows, --sweep or --parent DIR")
     return compare(args.parent, args.rounds)
 
 

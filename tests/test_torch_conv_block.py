@@ -427,3 +427,142 @@ def test_conv_bwd_w_resident_reckoning_stays_within_shared_memory():
     assert seen["image_resident"] > 0 and seen["gemm"] > 0
     # a kernel that is not square keeps the GEMM
     assert conv_bwd_w_route(2, 3, 9, 7, 7, 3, 2).route == "gemm"
+
+
+# The forward's routes (conv_block_route), decided from the shape alone
+# and fitted to scripts/torch_route_ab.py --sweep on the card: AlexNet's
+# five convs at batch 64 take the wide implicit GEMM (96 x 256 tiles at
+# conv1 and conv5, 128 x 128 at conv2-conv4); so do LeNet-5's first
+# conv at the serving bucket of 32 (72 tiles of 32 x 256) and both its
+# convs at the training batch (32 x 256); LeNet-5's second conv at the
+# bucket (8 such tiles) keeps the direct tile with its split k.
+FWD_ROUTE_CASES = [
+    ("lenet.conv1", (32, 1, 28, 28), (20, 1, 5, 5), 1, 0, "wide"),
+    ("lenet.conv2", (32, 20, 12, 12), (50, 20, 5, 5), 1, 0, "direct"),
+    ("lenet256.conv1", (256, 1, 28, 28), (20, 1, 5, 5), 1, 0, "wide"),
+    ("lenet256.conv2", (256, 20, 12, 12), (50, 20, 5, 5), 1, 0, "wide"),
+    ("alexnet.conv1", (64, 3, 224, 224), (96, 3, 11, 11), 4, 2, "wide"),
+    ("alexnet.conv2", (64, 96, 27, 27), (256, 96, 5, 5), 1, 2, "wide"),
+    ("alexnet.conv3", (64, 256, 13, 13), (384, 256, 3, 3), 1, 1, "wide"),
+    ("alexnet.conv4", (64, 384, 13, 13), (384, 384, 3, 3), 1, 1, "wide"),
+    ("alexnet.conv5", (64, 384, 13, 13), (256, 384, 3, 3), 1, 1, "wide"),
+]
+
+
+@pytest.mark.parametrize("path,xs,ws,stride,padding,route", FWD_ROUTE_CASES,
+                         ids=[c[0] for c in FWD_ROUTE_CASES])
+def test_conv_block_route_pins_the_main_paths(path, xs, ws, stride, padding,
+                                              route):
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        WIDE_MIN_TILES,
+        WIDE_TILES,
+        conv_block_route,
+    )
+
+    n, c, h, w = xs
+    o, _, kh, kw = ws
+    plan = conv_block_route(n, c, h, w, o, kh, kw, stride, padding)
+    assert plan.route == route
+    if route == "wide":
+        assert (plan.tile_o, plan.tile_px) in WIDE_TILES
+        assert plan.k_pad == -(-c * kh * kw // 16) * 16
+        oh = (h + 2 * padding - kh) // stride + 1
+        assert plan.tiles == (-(-n * oh * oh // plan.tile_px)
+                              * -(-o // plan.tile_o))
+        assert plan.tiles >= WIDE_MIN_TILES
+    # half precision keeps the direct tile at every shape
+    assert conv_block_route(n, c, h, w, o, kh, kw, stride, padding,
+                            torch.bfloat16).route == "direct"
+
+
+def test_conv_wide_reckoning_stays_within_shared_memory():
+    """Over a sweep of geometries, every wide plan fits the H100's
+    232,448 bytes a block and reckons the bytes the kernel holds: 4
+    ring slots of a 16-deep slice of the transposed weights and of the
+    im2col operand, then the tap table of k_pad int2 entries. A depth
+    whose table cannot fit keeps the direct route."""
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        BLOCK_SMEM_BYTES,
+        conv_block_route,
+        conv_wide_smem_bytes,
+    )
+
+    assert BLOCK_SMEM_BYTES == 232_448
+    seen = {"wide": 0, "direct": 0}
+    for n in (1, 8, 64, 256):
+        for c in (1, 3, 20, 96, 384, 2048):
+            for o in (1, 20, 50, 96, 100, 384):
+                for hw, k, s, p in ((12, 5, 1, 0), (28, 5, 1, 2),
+                                    (13, 3, 1, 1), (224, 11, 4, 2),
+                                    (27, 5, 1, 2)):
+                    plan = conv_block_route(n, c, hw, hw, o, k, k, s, p)
+                    seen[plan.route] += 1
+                    if plan.route != "wide":
+                        continue
+                    ring = 4 * 16 * (plan.tile_o + plan.tile_px) * 4
+                    assert plan.smem_bytes == ring + 8 * plan.k_pad
+                    assert plan.smem_bytes == conv_wide_smem_bytes(
+                        plan.tile_o, plan.tile_px, plan.k_pad)
+                    assert plan.smem_bytes <= BLOCK_SMEM_BYTES
+    assert seen["wide"] > 0 and seen["direct"] > 0
+    # c 2048 under 7 x 7 taps: a 100,352-entry table, so direct
+    assert conv_block_route(64, 2048, 14, 14, 512, 7, 7, 1,
+                            3).route == "direct"
+    # an image of 2^31 elements: the table's int32 offsets cannot
+    # address it, so direct
+    assert 3 * 32766 * 21846 < 2 ** 31 <= 3 * 32766 * 21847
+    assert conv_block_route(1, 3, 32766, 21846, 96, 3, 3, 2,
+                            0).route == "wide"
+    assert conv_block_route(1, 3, 32766, 21847, 96, 3, 3, 2,
+                            0).route == "direct"
+
+
+def _gather_like_the_kernel(x, table, stride, padding, oh, ow):
+    """The wide route's im2col operand as the kernel gathers it, in
+    plain PyTorch: for pixel (img, oy, ox) and reduction row k, the
+    table's offset from the pixel's top-left tap where (oy*s - p + dh,
+    ox*s - p + dw) lies inside the image, else zero. Returns [n, k_pad,
+    oh*ow]."""
+    n, c, h, w = x.shape
+    (sh, sw), (ph, pw) = stride, padding
+    off, packed = table[:, 0].long(), table[:, 1].long()
+    dh, dw = packed >> 16, packed & 0xFFFF
+    oy = torch.arange(oh).repeat_interleave(ow)
+    ox = torch.arange(ow).repeat(oh)
+    iy0, ix0 = oy * sh - ph, ox * sw - pw
+    iy = iy0[None, :] + dh[:, None]
+    ix = ix0[None, :] + dw[:, None]
+    ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    idx = (iy0 * w + ix0)[None, :] + off[:, None]
+    flat = x.reshape(n, -1)
+    vals = flat[:, idx.clamp(0, c * h * w - 1).reshape(-1)].reshape(
+        n, *idx.shape)
+    return torch.where(ok[None], vals, torch.zeros(()))
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", [
+    ((2, 3, 224, 224), (96, 3, 11, 11), (4, 4), (2, 2)),  # AlexNet conv1
+    ((2, 5, 9, 7), (7, 5, 3, 2), (2, 1), (2, 0)),  # padded, odd, asymmetric
+    ((1, 13, 33, 31), (70, 13, 3, 5), (2, 1), (1, 2)),
+])
+def test_conv_tap_table_gathers_im2col(xs, ws, stride, padding):
+    """The tap table, gathered as the kernel gathers it, is F.unfold's
+    im2col (the naive index of every tap), with zero rows past c*kh*kw
+    up to the padded depth."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_tap_table
+
+    n, c, h, w = xs
+    _, _, kh, kw = ws
+    k_len = c * kh * kw
+    k_pad = -(-k_len // 16) * 16
+    table = conv_tap_table(c, h, w, kh, kw, k_pad)
+    assert table.dtype == torch.int32 and tuple(table.shape) == (k_pad, 2)
+    x = torch.arange(n * c * h * w, dtype=torch.float32).reshape(xs) + 1.0
+    oh = (h + 2 * padding[0] - kh) // stride[0] + 1
+    ow = (w + 2 * padding[1] - kw) // stride[1] + 1
+    got = _gather_like_the_kernel(x, table, stride, padding, oh, ow)
+    want = F.unfold(x, (kh, kw), padding=padding, stride=stride)
+    assert torch.equal(got[:, :k_len], want)
+    assert not got[:, k_len:].any()

@@ -52,9 +52,25 @@ def _t(a, device, dtype=torch.float32):
     return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
 
 
+# (x shape, w shape, stride, padding) of the forward's wide route
+# (conv_block_route): AlexNet's conv1 (stride 4, padding 2, k 363) at
+# batch 64 and 12, its conv2 at batch 16 and its conv5 at batch 64 (o
+# 256, not a multiple of a 96-channel tile), a ragged o of 100 under
+# padding, and o 40 under padding 2; every pixel count but one is
+# ragged against its tile
+WIDE_CONV_CASES = [
+    ((64, 3, 224, 224), (96, 3, 11, 11), 4, 2),
+    ((12, 3, 224, 224), (96, 3, 11, 11), 4, 2),
+    ((16, 96, 27, 27), (256, 96, 5, 5), 1, 2),
+    ((64, 384, 13, 13), (256, 384, 3, 3), 1, 1),
+    ((8, 16, 40, 40), (100, 16, 3, 3), 1, 1),
+    ((48, 3, 32, 32), (40, 3, 5, 5), 1, 2),
+]
+
 # (x shape, w shape, stride, padding): LeNet's two convs at bucket 32
 # (the second splits its k axis), AlexNet's five at batch 4, odd
-# geometry, and a split-K case whose last k chunk is ragged
+# geometry, a split-K case whose last k chunk is ragged, and the wide
+# route's cases
 CONV_CASES = [
     ((32, 1, 28, 28), (20, 1, 5, 5), 1, 0),
     ((32, 20, 12, 12), (50, 20, 5, 5), 1, 0),
@@ -65,7 +81,7 @@ CONV_CASES = [
     ((4, 384, 13, 13), (256, 384, 3, 3), 1, 1),
     ((3, 5, 9, 7), (7, 5, 3, 2), (2, 1), (2, 0)),
     ((2, 37, 9, 9), (11, 37, 3, 3), 1, 1),
-]
+] + WIDE_CONV_CASES
 
 
 @pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
@@ -86,6 +102,117 @@ def test_conv_block_kernel_matches_plain(cuda, xs, ws, stride, padding,
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["conv_block"] == before + 1
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def _conv_operands(xs, ws, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    x = _t(rng.randn(*xs), "cuda", dtype)
+    w = _t(rng.randn(*ws) / np.sqrt(ws[1] * ws[2] * ws[3]), "cuda", dtype)
+    b = _t(rng.randn(ws[0]) * 0.1, "cuda")
+    return x, w, b
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", WIDE_CONV_CASES)
+def test_conv_block_wide_route_matches_plain_and_repeats(cuda, xs, ws,
+                                                         stride, padding):
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
+
+    plan = conv_block_route(*xs, ws[0], ws[2], ws[3], stride, padding)
+    assert plan.route == "wide"
+    x, w, b = _conv_operands(xs, ws, 30)
+    kw = dict(stride=stride, padding=padding, activation="relu")
+    before = dispatch.launch_counts()["conv_block"]
+    with torch.inference_mode():
+        out = conv_block(x, w, b, **kw)
+        again = conv_block(x, w, b, **kw)
+        ref = conv_block_reference(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_block"] == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile", [(96, 256), (128, 128), (96, 128),
+                                  (32, 256)])
+@pytest.mark.parametrize("activation", ["identity", "tanh"])
+def test_conv_block_every_wide_tile_matches_plain(cuda, monkeypatch, tile,
+                                                  activation):
+    """Each wide tile forced (the route function patched) on an odd
+    geometry: asymmetric stride and padding, c 13 (k 195, padded to
+    208), o 70 off every tile, a ragged pixel count."""
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    assert tile in cb.WIDE_TILES
+    xs, ws, stride, padding = (7, 13, 33, 31), (70, 13, 3, 5), (2, 1), (1, 2)
+    k_pad = 208
+    plan = cb.ConvRoute("wide", tile[0], tile[1], k_pad, 0,
+                        cb.conv_wide_smem_bytes(*tile, k_pad))
+    monkeypatch.setattr(cb, "conv_block_route", lambda *a, **k: plan)
+    x, w, b = _conv_operands(xs, ws, 31)
+    kw = dict(stride=stride, padding=padding, activation=activation)
+    with torch.inference_mode():
+        out = conv_block(x, w, b, **kw)
+        again = conv_block(x, w, b, **kw)
+        ref = conv_block_reference(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_conv_block_wide_shapes_take_the_direct_route_in_bf16(cuda):
+    """The wide route takes f32 only: a wide shape in bf16 goes to the
+    direct tile, by the route rule, and still matches."""
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
+
+    xs, ws, stride, padding = WIDE_CONV_CASES[2]
+    geo = (*xs, ws[0], ws[2], ws[3], stride, padding)
+    assert conv_block_route(*geo).route == "wide"
+    assert conv_block_route(*geo, dtype=torch.bfloat16).route == "direct"
+    x, w, b = _conv_operands(xs, ws, 32, torch.bfloat16)
+    kw = dict(stride=stride, padding=padding, activation="relu")
+    with torch.inference_mode():
+        out = conv_block(x, w, b, **kw)
+        ref = conv_block_reference(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_conv_wide_smem_plan_matches_the_kernel(cuda):
+    """The route's shared-memory reckoning is the C source's, for every
+    tile at the AlexNet depths; a tile the build lacks is refused."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops.conv_block import (
+        WIDE_TILES,
+        conv_wide_smem_bytes,
+    )
+
+    lib = _build.load()
+    for tile in WIDE_TILES:
+        for k_pad in (32, 368, 2400, 3456):
+            assert lib.dl4j_conv_wide_smem_bytes(*tile, k_pad) == \
+                conv_wide_smem_bytes(*tile, k_pad)
+    assert lib.dl4j_conv_wide_smem_bytes(48, 256, 32) == -1
+
+
+def test_refused_wide_and_latency_plans_raise(cuda, monkeypatch):
+    """No fallback: a plan the kernels refuse (a wide tile the build
+    lacks; a latency block past its shared memory) raises."""
+    from deeplearning4j_tpu_torch.ops import lstm_cell
+
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    monkeypatch.setattr(cb, "conv_block_route", lambda *a, **k:
+                        cb.ConvRoute("wide", 48, 256, 32, 1, 0))
+    x, w, b = _conv_operands((2, 3, 9, 9), (5, 3, 3, 3), 33)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        with torch.inference_mode():
+            conv_block(x, w, b)
+    monkeypatch.setattr(lc, "lstm_cell_route", lambda *a:
+                        lc.CellRoute("latency", 32, 2, 4, 512, 8, 256, 0))
+    xproj, h, c, rw, _ = _lstm_operands(None, 256, 1024, 13)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        lstm_cell(xproj, h, c, rw)
 
 
 def test_conv_block_kernel_bn_terms_and_bf16(cuda):
@@ -451,11 +578,23 @@ def _lstm_operands(T, b, n, seed, peephole=False):
     return xproj, h, c, rw, peeps
 
 
+@pytest.mark.parametrize("forced_slice", [False, True])
 @pytest.mark.parametrize("peephole", [False, True])
 @pytest.mark.parametrize("b,n", LSTM_CELL_CASES)
-def test_lstm_cell_kernel_matches_plain(cuda, b, n, peephole):
+def test_lstm_cell_kernel_matches_plain(cuda, monkeypatch, b, n, peephole,
+                                        forced_slice):
+    """Each shape on the route lstm_cell_route gives it, and on the
+    slice route forced (the route function patched), so both routes
+    meet every shape the latency route takes."""
     from deeplearning4j_tpu_torch.ops import lstm_cell, lstm_cell_reference
 
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    route = lc.lstm_cell_route(b, n).route
+    assert route == ("slice" if (b, n) in ((256, 1024), (3, 8500))
+                     else "latency")
+    if forced_slice:
+        monkeypatch.setattr(lc, "lstm_cell_route",
+                            lambda *a: lc.CellRoute("slice"))
     xproj, h, c, rw, peeps = _lstm_operands(None, b, n, 11, peephole)
     before = dispatch.launch_counts()["lstm_cell"]
     h_k, c_k = lstm_cell(xproj, h, c, rw, peeps)
@@ -464,6 +603,51 @@ def test_lstm_cell_kernel_matches_plain(cuda, b, n, peephole):
     assert dispatch.launch_counts()["lstm_cell"] == before + 1
     _close_to_scale(h_k, h_r, 1e-4)
     _close_to_scale(c_k, c_r, 1e-4)
+
+
+@pytest.mark.parametrize("peephole", [False, True])
+@pytest.mark.parametrize("b,n", [(32, 200), (1, 200)])
+def test_lstm_cell_latency_route_repeats_bitwise(cuda, b, n, peephole):
+    """The char-RNN's step and its sampling launch: 40 launches give the
+    same bits, the first held to the plain version."""
+    from deeplearning4j_tpu_torch.ops import lstm_cell, lstm_cell_reference
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell_route
+
+    assert lstm_cell_route(b, n).route == "latency"
+    xproj, h, c, rw, peeps = _lstm_operands(None, b, n, 12, peephole)
+    outs = [lstm_cell(xproj, h, c, rw, peeps) for _ in range(40)]
+    h_r, c_r = lstm_cell_reference(xproj, h, c, rw, peeps)
+    torch.cuda.synchronize()
+    _close_to_scale(outs[0][0], h_r, 1e-4)
+    _close_to_scale(outs[0][1], c_r, 1e-4)
+    for h_k, c_k in outs[1:]:
+        assert torch.equal(h_k, outs[0][0]) and torch.equal(c_k, outs[0][1])
+
+
+def test_lstm_cell_plans_match_the_kernel(cuda):
+    """The latency route's shared memory and threads as the C source
+    reckons them, at every latency shape of LSTM_CELL_CASES; a plan past
+    the route's 48 KB is refused there."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        lstm_cell_plan,
+        lstm_cell_route,
+    )
+
+    for b, n in LSTM_CELL_CASES:
+        route = lstm_cell_route(b, n)
+        plan = lstm_cell_plan(b, n)
+        assert plan["route"] == route.route
+        if route.route == "latency":
+            assert plan["smem_bytes"] == route.smem_bytes
+            assert plan["threads"] == route.threads
+    import ctypes
+
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    _build.load().dl4j_lstm_cell_plan(256, 1024, 32, 2, 4,
+                                      ctypes.byref(smem),
+                                      ctypes.byref(threads))
+    assert (smem.value, threads.value) == (-1, -1)
 
 
 @pytest.mark.parametrize("save_cseq", [True, False])

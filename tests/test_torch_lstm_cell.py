@@ -257,3 +257,55 @@ def test_lstm_seq_route_turns_grid_past_its_limit(b, bwd):
     assert lstm_seq_route(1, b, limit, bwd).route == "cluster"
     assert lstm_seq_route(1, b, limit + 1, bwd).route == "grid"
     assert lstm_seq_route(1, b, limit + 1, bwd).smem_bytes == 0
+
+
+# The cell's routes (lstm_cell_route), decided from the shape alone: the
+# char-RNN's step (b 32, n 200) and its sampling launch (b 1) take the
+# latency route, 100 blocks of 2 units; bench.py's saturated shape (b
+# 256, n 1024) and n 8500 keep the slice route. The shapes are those of
+# the card tests' LSTM_CELL_CASES.
+CELL_CASES = [(32, 200), (256, 1024), (5, 13), (33, 17), (70, 9), (1, 200),
+              (300, 40), (3, 8500)]
+
+
+@pytest.mark.parametrize("b,n", CELL_CASES)
+def test_lstm_cell_route_covers_every_unit_and_row(b, n):
+    from deeplearning4j_tpu_torch.ops.lstm_cell import (
+        CELL_MAX_SPLITS,
+        CELL_MAX_THREADS,
+        CELL_SMEM_BYTES,
+        lstm_cell_route,
+        lstm_cell_smem_bytes,
+    )
+
+    r = lstm_cell_route(b, n)
+    if (b, n) in ((256, 1024), (3, 8500)):
+        assert r.route == "slice" and r.smem_bytes == 0
+        assert lstm_cell_smem_bytes(n, min(b, 32), 2) > CELL_SMEM_BYTES
+        return
+    assert r.route == "latency"
+    # the grid covers every unit and row, and no block is empty
+    assert (r.unit_blocks - 1) * r.units < n <= r.unit_blocks * r.units
+    assert (r.row_blocks - 1) * r.rows < b <= r.row_blocks * r.rows
+    # a (row, unit)'s depth lanes: a power of two within one warp, the
+    # most that fit the block
+    assert r.splits & (r.splits - 1) == 0 and r.splits <= CELL_MAX_SPLITS
+    assert r.rows * r.units * r.splits <= CELL_MAX_THREADS
+    assert (r.splits == CELL_MAX_SPLITS
+            or r.rows * r.units * r.splits * 2 > CELL_MAX_THREADS)
+    assert r.threads == CELL_MAX_THREADS
+    # h rows at a 16-byte stride, then the block's 4 x units RW columns
+    assert r.smem_bytes == 4 * (r.rows * (-(-n // 4) * 4) + n * r.units * 4)
+    assert r.smem_bytes == lstm_cell_smem_bytes(n, r.rows, r.units)
+    assert r.smem_bytes <= CELL_SMEM_BYTES
+
+
+def test_lstm_cell_route_spreads_the_char_rnn_step():
+    from deeplearning4j_tpu_torch.ops.lstm_cell import lstm_cell_route
+
+    step = lstm_cell_route(32, 200)
+    assert (step.route, step.unit_blocks * step.row_blocks, step.threads,
+            step.splits) == ("latency", 100, 256, 4)
+    sample = lstm_cell_route(1, 200)
+    assert (sample.route, sample.unit_blocks, sample.threads,
+            sample.splits) == ("latency", 100, 256, 32)
