@@ -21,7 +21,10 @@ non-zero (nothing is caught):
    shapes (batch 256) and AlexNet's (batch 64: conv2-conv5 dx, conv1-5
    dW, so the stride-4 and padded geometry run); the LSTM kernels at the
    char-RNN's chunk, its T 1 sampling launch and bench.py's saturated
-   shape; flash attention (both
+   shape; the conv forward, both conv backward kernels and the dense
+   kernel at every distinct shape of VGG-16's training step (batch 128,
+   the ``vgg16.`` records, with their launches a step); flash attention
+   (both
    entries, f32 and bf16) at the transformer's training shape and the
    streamed entry at t 16384; the dense kernel at the transformer's input
    projection and its residual variant at the FFN's second product.
@@ -56,7 +59,19 @@ non-zero (nothing is caught):
    CPU twin;
    ``[transformer-sample]`` KV-cache sampling through ``rnn_time_step``
    held against ``output``; ``[transformer-long]`` ``output`` at t 16384
-   (the streamed entry) against ``output`` on its first 512 bytes.
+   (the streamed entry) against ``output`` on its first 512 bytes;
+8. VGG-16 (main paths): ``[vgg16]`` the zoo's VGG-16 at full depth and
+   width (f32) as a ``ComputationGraph`` on synthetic CIFAR-10
+   (``CifarDataSetIterator``): ``output`` at batch 128 against the CPU
+   twin, one step's launches exact (26 ``conv_block``, 12
+   ``conv_bwd_data``, 13 ``conv_bwd_w``, 2 ``matmul_block``), three
+   steps at batch 32 against the twin and repeated bitwise, 20 NESTEROVS
+   steps of ``fit`` over which the score falls (examples/s, ms/step,
+   device ms/step and busy share); ``[conv-bn]`` a MultiLayer
+   Conv(identity) -> BatchNormalization(relu) block at VGG-16's first
+   widths: the inference forward folded into one ``conv_block`` launch
+   against the unfused plain path, and a training step's running
+   statistics against the CPU twin's.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -104,6 +119,16 @@ TX_SAMPLE = 64
 TX_LONG_T = 16384
 # H100 SXM bf16 dense tensor-core peak (the bound of bf16 attention)
 PEAK_BF16_FLOPS = 989e12
+
+# VGG-16 on CIFAR-10 (BASELINE.json config #2; bench.py:480's batch)
+VGG_BATCH = 128
+VGG_TWIN_BATCH = 32
+VGG_BATCHES = 4
+VGG_EPOCHS = 5
+# the conv -> BN fold at VGG-16's first widths
+CONV_BN_BATCH = 128
+CONV_BN_CHANNELS = 64
+CONV_BN_HW = 32
 
 
 def survey_corpus(vocab=CHAR_VOCAB):
@@ -181,7 +206,7 @@ def kernel_shapes(conf, batch):
                 x=(batch, it.channels, it.height, it.width),
                 w=(layer.n_out, layer.n_in) + tuple(layer.kernel_size),
                 stride=tuple(layer.stride), padding=tuple(layer.padding),
-                activation=act)))
+                activation=act, input_is_data=i == 0)))
         elif isinstance(layer, DenseLayer) and act in SUPPORTED_EPILOGUES:
             n_dense += 1
             out.append((f"dense{n_dense}", "matmul_block", dict(
@@ -190,18 +215,79 @@ def kernel_shapes(conf, batch):
     return out
 
 
-def backward_shapes(conf, batch):
-    """(name, kind, geometry) of the backward launches one training step
-    of ``conf`` at ``batch`` rows makes: dW for every fused conv, dx for
-    every one but the first (the network's input needs no gradient)."""
+def graph_kernel_shapes(conf, batch):
+    """(vertex, kind, geometry) of every kernel launch one forward of the
+    ComputationGraph ``conf`` at ``batch`` rows makes, in topological
+    order, from its InputType inference."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+    )
+    from deeplearning4j_tpu_torch.ops import SUPPORTED_EPILOGUES
+
+    types = dict(zip(conf.inputs, conf.input_types))
     out = []
-    for name, kind, geo in kernel_shapes(conf, batch):
+    for name in conf.topological_order():
+        v = conf.vertices[name]
+        in_types = [types[s] for s in conf.vertex_inputs[name]]
+        types[name] = v.output_type(in_types)
+        layer = v.layer()
+        if layer is None:
+            continue
+        it = in_types[0]
+        if v.preprocessor is not None:
+            it = v.preprocessor.output_type(it)
+        act = layer.activation.lower()
+        if isinstance(layer, ConvolutionLayer) and act in SUPPORTED_EPILOGUES:
+            out.append((name, "conv_block", dict(
+                x=(batch, it.channels, it.height, it.width),
+                w=(layer.n_out, layer.n_in) + tuple(layer.kernel_size),
+                stride=tuple(layer.stride), padding=tuple(layer.padding),
+                activation=act,
+                input_is_data=conf.vertex_inputs[name][0] in conf.inputs)))
+        elif isinstance(layer, DenseLayer) and act in SUPPORTED_EPILOGUES:
+            out.append((name, "matmul_block", dict(
+                m=batch, k=layer.n_in, n=layer.n_out, activation=act)))
+    return out
+
+
+def step_shapes(shapes):
+    """The launches of one training step from a forward's
+    (name, kind, geometry) list: each forward launch, dW of every fused
+    conv and dx of every one whose input is not the data (the data
+    needs no gradient). The conv forward's f32 recompute in the backward
+    is a second conv_block launch at the same shape."""
+    out = []
+    for name, kind, geo in shapes:
+        out.append((name, kind, geo))
         if kind != "conv_block":
             continue
-        if name != "conv1":
+        if not geo.get("input_is_data"):
             out.append((name, "conv_bwd_data", geo))
         out.append((name, "conv_bwd_w", geo))
     return out
+
+
+def distinct_shapes(shapes):
+    """(first name, kind, geometry, names) for each distinct (kind,
+    geometry) of ``shapes``, in order: a kernel is timed once a shape."""
+    seen = {}
+    for name, kind, geo in shapes:
+        key = (kind, json.dumps({k: v for k, v in geo.items()
+                                 if k != "input_is_data"}, sort_keys=True))
+        if key in seen:
+            seen[key][3].append(name)
+        else:
+            seen[key] = [name, kind, geo, [name]]
+    return [tuple(v) for v in seen.values()]
+
+
+def vgg_shapes(batch=VGG_BATCH):
+    """The distinct kernel shapes of one VGG-16 training step at
+    ``batch``: (first vertex, kind, geometry, vertices)."""
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    return distinct_shapes(step_shapes(graph_kernel_shapes(vgg16(), batch)))
 
 
 def graph_ms(torch, fn, reps: int = 10) -> float:
@@ -441,12 +527,15 @@ def post(port: int, feats):
 
 
 def cpu_twin(torch, model):
-    """The same network and weights on the CPU: the plain path."""
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-
-    return MultiLayerNetwork(model.conf, device="cpu").init(params={
+    """The same network (a ``MultiLayerNetwork`` or a
+    ``ComputationGraph``), weights and layer state on the CPU: the plain
+    path."""
+    twin = type(model)(model.conf, device="cpu").init(params={
         ln: {pn: t.cpu() for pn, t in lp.items()}
         for ln, lp in model.params.items()})
+    twin.state = {ln: {k: t.cpu() for k, t in st.items()}
+                  for ln, st in model.state.items()}
+    return twin
 
 
 def serve_lenet(torch, card):
@@ -700,6 +789,280 @@ def run_alexnet(torch, card):
            "launches_per_forward": per_forward,
            "max_abs_err_vs_plain": err, "params": net.num_params()}
     print(f"[alexnet] {json.dumps(res)} card={card}")
+
+
+def run_vgg16(torch, card):
+    """[vgg16] the zoo's VGG-16 at full depth and width (f32) as a
+    ``ComputationGraph`` on synthetic CIFAR-10: ``output`` on a batch of
+    128 held against the CPU twin, one ``fit`` step's launches counted
+    exactly, three steps at batch 32 held against the twin and repeated
+    bitwise, then the main path: a fresh network fits 4 minibatches of
+    128 for 5 epochs (20 NESTEROVS steps at the zoo's lr 0.01) and its
+    score on the first must fall. (The untrained VGG-16, no BN, XAVIER
+    weights, leaves ln 10 only slowly: over 20 fresh minibatches its
+    score moves in the fourth decimal, up or down.) Returns the launch
+    counts of the main path (the ``output`` call and the fit)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        CifarDataSetIterator,
+        DataSet,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = CifarDataSetIterator(VGG_BATCH, allow_synthetic=True,
+                                    num_examples=VGG_BATCH * VGG_BATCHES)
+    batches = list(data)
+    conf = vgg16()
+    lr = conf.vertices["conv0"].layer_conf.learning_rate
+    net = ComputationGraph(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    print(f"[vgg16] zoo.vgg16() as a ComputationGraph ({net.num_params()} "
+          f"params), NESTEROVS lr {lr}, MCXENT, batch {VGG_BATCH}, f32, "
+          f"synthetic CIFAR-10 ({data.total_examples()} examples)")
+    main = {k: 0 for k in dispatch.KERNELS}
+
+    def expect(**counts):
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(counts)
+        return want
+
+    # output on one batch against the CPU twin (the plain path); deep f32
+    # sums in another order: rtol 1e-3 on the probabilities
+    probe = batches[0]
+    dispatch.reset_launch_counts()
+    out = net.output(probe.features)[0]
+    torch.cuda.synchronize()
+    per_output = dispatch.launch_counts()
+    if per_output != expect(conv_block=13, matmul_block=2):
+        raise RuntimeError(f"[vgg16] output launched {per_output}")
+    for k, v in per_output.items():
+        main[k] += v
+    if out.shape != (VGG_BATCH, 10) or not torch.isfinite(out).all():
+        raise RuntimeError(f"[vgg16] bad output {tuple(out.shape)}")
+    ref = cpu_twin(torch, net).output(probe.features)[0]
+    out_err = float((out.cpu() - ref).abs().max())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-3, atol=1e-6)
+
+    # three steps at batch 32 on the card and on the CPU twin. Momentum
+    # SGD moves a weight by lr times its (accumulated) gradient, so
+    # gradients that differ in the last bits move the weights apart by
+    # far less than lr: scores within rtol 1e-3, every weight within
+    # lr / 100, and at most 1 % of any parameter's entries beyond 1e-5 +
+    # 1e-3 |w| (a max-pool tie or a relu kink decided the other way)
+    small = [DataSet(b.features[:VGG_TWIN_BATCH], b.labels[:VGG_TWIN_BATCH])
+             for b in batches[1:4]]
+    a = ComputationGraph(conf, device="cuda").init(params=init)
+    twin = cpu_twin(torch, a)
+    card_scores, cpu_scores = [], []
+    for ds in small:
+        a.fit(ds)
+        twin.fit(ds)
+        card_scores.append(a.score_value)
+        cpu_scores.append(twin.score_value)
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-3)
+    max_diff, max_off = 0.0, 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref_w in lp.items():
+            d = (a.params[ln][pn].cpu() - ref_w).abs()
+            off = float((d > 1e-5 + 1e-3 * ref_w.abs()).float().mean())
+            max_diff, max_off = max(max_diff, float(d.max())), max(max_off,
+                                                                   off)
+            if float(d.max()) > lr / 100 or off > 0.01:
+                raise RuntimeError(f"[vgg16] card and CPU twin differ at "
+                                   f"{ln}/{pn}: max {float(d.max())}, "
+                                   f"{off:.2%} off")
+    again = ComputationGraph(conf, device="cuda").init(params=init)
+    for ds in small:
+        again.fit(ds)
+    torch.cuda.synchronize()
+    for ln, lp in a.params.items():
+        for pn, t in lp.items():
+            same = torch.equal(t, again.params[ln][pn]) and all(
+                torch.equal(u, v) for u, v in zip(
+                    a.updater_state[ln][pn], again.updater_state[ln][pn]))
+            if not same:
+                raise RuntimeError(f"[vgg16] two card runs differ at "
+                                   f"{ln}/{pn}")
+    del a, again, twin
+
+    # one step's launches, exactly: 13 forwards and 13 f32 recomputes of
+    # the convs, dW of all 13, dx of all but conv0 (its input is the
+    # data), and the two dense layers' forwards
+    dispatch.reset_launch_counts()
+    net.fit(batches[1])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    if per_step != expect(conv_block=26, conv_bwd_data=12, conv_bwd_w=13,
+                          matmul_block=2):
+        raise RuntimeError(f"[vgg16] one step launched {per_step}")
+
+    # the main path: a fresh network fits the iterator, timed
+    model = ComputationGraph(conf, device="cuda").init(params=init)
+    del net
+    before = model.score(probe)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(data, epochs=VGG_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    steps = model.iteration_count
+    if steps != VGG_BATCHES * VGG_EPOCHS or launches != {k: v * steps
+                                          for k, v in per_step.items()}:
+        raise RuntimeError(f"[vgg16] {steps} steps launched {launches}")
+    for k, v in launches.items():
+        main[k] += v
+    after = model.score(probe)
+    if not np.isfinite(after) or not after < before:
+        raise RuntimeError(f"[vgg16] the score did not fall: {before} -> "
+                           f"{after}")
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches[:2]))
+    device_ms /= 2
+    ms_per_step = wall / steps * 1e3
+    res = {"steps": steps, "epochs": VGG_EPOCHS, "batch": VGG_BATCH,
+           "examples_per_s": steps * VGG_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "score_before": before, "score_after": after,
+           "launches_per_output": {k: v for k, v in per_output.items() if v},
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "output_max_abs_err_vs_plain": out_err,
+           "twin_scores": {"card": card_scores, "cpu": cpu_scores},
+           "twin_max_abs_diff": max_diff, "twin_max_share_off": max_off,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[vgg16] {json.dumps(res)} card={card}")
+    return main
+
+
+def conv_bn_conf():
+    """Conv 3x3 pad 1 (identity) -> BatchNormalization(relu) -> max pool
+    -> softmax 10 on [b, 64, 32, 32]: VGG-16's first widths."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization,
+        ConvolutionLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    return (NeuralNetConfiguration.Builder().seed(42).learning_rate(0.01)
+            .updater("NESTEROVS").list()
+            .layer(ConvolutionLayer(n_out=CONV_BN_CHANNELS,
+                                    kernel_size=(3, 3), padding=(1, 1),
+                                    activation="identity"))
+            .layer(BatchNormalization(activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="MAX"))
+            .layer(OutputLayer(n_out=10, loss="MCXENT"))
+            .set_input_type(InputType.convolutional(
+                CONV_BN_HW, CONV_BN_HW, CONV_BN_CHANNELS))
+            .build())
+
+
+def unfused_output(torch, model, x):
+    """Inference through a ``MultiLayerNetwork``'s layers one at a time:
+    the walk without the conv -> BN fold."""
+    from deeplearning4j_tpu_torch.nn.conf import ShapeContext
+
+    conf = model.conf
+    ctx = ShapeContext(batch=int(x.shape[0]))
+    with torch.inference_mode():
+        for i, (name, layer) in enumerate(zip(model.layer_names,
+                                              conf.layers)):
+            if i in conf.preprocessors:
+                x = conf.preprocessors[i].preprocess(x, ctx)
+            x, _ = layer.apply(model.params[name], x.contiguous(),
+                               model.state[name])
+    return x
+
+
+def run_conv_bn(torch, card):
+    """[conv-bn] a MultiLayer Conv(identity) -> BN(relu) block at VGG-16's
+    first widths (c 64 -> 64, 32 x 32, batch 128) with nonzero running
+    statistics: the inference forward folds the pair into one
+    ``conv_block`` launch (counted) and is held against the unfused
+    plain path (the CPU twin walked layer by layer); one ``fit`` step
+    (no fold) moves the running statistics as the CPU twin's step does.
+    Returns the launch counts of the two calls."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import conv_block, dispatch
+
+    net = MultiLayerNetwork(conv_bn_conf(), device="cuda").init()
+    rng = np.random.RandomState(3)
+    c = CONV_BN_CHANNELS
+    net.state["1"] = {
+        "mean": torch.from_numpy(rng.randn(c).astype(np.float32) * 0.2).cuda(),
+        "var": torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).cuda()}
+    x = torch.from_numpy(rng.rand(CONV_BN_BATCH, c, CONV_BN_HW,
+                                  CONV_BN_HW).astype(np.float32)).cuda()
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, CONV_BN_BATCH)]
+    twin = cpu_twin(torch, net)
+    main = {k: 0 for k in dispatch.KERNELS}
+    dispatch.reset_launch_counts()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    fused = dispatch.launch_counts()
+    want = {k: 0 for k in dispatch.KERNELS}
+    want.update(conv_block=1)
+    if fused != want:
+        raise RuntimeError(f"[conv-bn] the folded output launched {fused}")
+    for k, v in fused.items():
+        main[k] += v
+    ref = unfused_output(torch, twin, x.cpu())
+    err = float((out.cpu() - ref).abs().max())
+    # f32 on both sides, the BN affine applied in the epilogue instead of
+    # after the store: one rounding less, sums of 576 O(1) products
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-6)
+    # the conv -> BN pair alone, folded (one launch) and unfused (the
+    # identity conv launch, then the BN layer in plain torch)
+    conv, bn = net.conf.layers[0], net.conf.layers[1]
+    cp, bp, st = net.params["0"], net.params["1"], net.state["1"]
+    a, b = bn.folded_affine(bp, st)
+    with torch.inference_mode():
+        fused_ms = graph_ms(torch, lambda: conv_block(
+            x, cp["W"], cp["b"], a, b, padding=(1, 1), activation="relu"))
+        unfused_ms = graph_ms(torch, lambda: bn.apply(bp, conv_block(
+            x, cp["W"], cp["b"], padding=(1, 1)), st)[0])
+    # one training step: batch statistics, no fold
+    dispatch.reset_launch_counts()
+    net.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    step = dispatch.launch_counts()
+    want = {k: 0 for k in dispatch.KERNELS}
+    want.update(conv_block=2, conv_bwd_w=1)
+    if step != want:
+        raise RuntimeError(f"[conv-bn] one step launched {step}")
+    for k, v in step.items():
+        main[k] += v
+    twin.fit(DataSet(x.cpu(), y))
+    # the batch statistics average 131,072 values a channel, in another
+    # order: rtol 1e-4
+    state_err = 0.0
+    for k in ("mean", "var"):
+        got, ref_s = net.state["1"][k].cpu(), twin.state["1"][k]
+        torch.testing.assert_close(got, ref_s, rtol=1e-4, atol=1e-6)
+        state_err = max(state_err, float((got - ref_s).abs().max()))
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    res = {"batch": CONV_BN_BATCH, "channels": c, "hw": CONV_BN_HW,
+           "launches_per_output": {k: v for k, v in fused.items() if v},
+           "launches_per_step": {k: v for k, v in step.items() if v},
+           "max_abs_err_vs_unfused_plain": err,
+           "running_state_max_abs_err_vs_twin": state_err,
+           "fused_ms": fused_ms, "unfused_ms": unfused_ms,
+           "score": {"card": net.score_value, "cpu": twin.score_value}}
+    print(f"[conv-bn] {json.dumps(res)} card={card}")
+    return main
 
 
 def events_ms(torch, fn, reps: int = 20):
@@ -1299,14 +1662,21 @@ def check_transformer_matmuls(torch, gen):
 INTENDED_ROUTES = {
     # ops.conv_block.conv_block_route: the wide implicit GEMM for
     # AlexNet's five convs at batch 64, LeNet's two at the training
-    # batch and its first at the serving bucket; the direct tile (split
-    # k) for LeNet's second at the bucket
+    # batch and its first at the serving bucket, VGG-16's convs down to
+    # 4 x 4 at batch 128; the direct tile (split k) for LeNet's second
+    # at the bucket and VGG-16's 2 x 2 convs
     "conv_block": (("alexnet.", "wide"), ("lenet256.", "wide"),
-                   ("lenet.conv1", "wide"), ("lenet.conv2", "direct")),
-    "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm")),
-    "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm")),
+                   ("lenet.conv1", "wide"), ("lenet.conv2", "direct"),
+                   ("vgg16.conv10", "direct"), ("vgg16.", "wide")),
+    # VGG-16: the resident route at 16 x 16 and 8 x 8 (conv2-conv6), the
+    # implicit GEMM at 32 x 32 and below 8 x 8; dW on the implicit GEMM
+    "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm"),
+                      ("vgg16.conv1", "gemm"), ("vgg16.conv7", "gemm"),
+                      ("vgg16.conv8", "gemm"), ("vgg16.", "resident")),
+    "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm"),
+                   ("vgg16.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
-                     ("alexnet.", "tiled")),
+                     ("alexnet.", "tiled"), ("vgg16.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
     # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
     # launch on a cluster, bench.py's saturated shape on the grid
@@ -1320,13 +1690,17 @@ INTENDED_ROUTES = {
 
 def check_routes(records):
     """Fail when a main-path shape of a routed kernel took another route
-    than the one it was designed for."""
+    than the one it was designed for: the first entry whose prefix the
+    record's shape_of starts with decides."""
     for r in records:
         for prefix, want in INTENDED_ROUTES.get(r["kernel"], ()):
-            if r["shape_of"].startswith(prefix) and r["kernel_route"] != want:
+            if not r["shape_of"].startswith(prefix):
+                continue
+            if r["kernel_route"] != want:
                 raise RuntimeError(
                     f"{r['shape_of']} {r['kernel']}: took the "
                     f"{r['kernel_route']} route, expected {want}")
+            break
 
 
 def tx_conf(n_layers=None):
@@ -1611,10 +1985,23 @@ def main() -> int:
             print(f"[kernel] {json.dumps(rec)}")
     for model, conf, batch in (("lenet256", lenet(), LENET_TRAIN_BATCH),
                                ("alexnet", alexnet(), ALEXNET_BATCH)):
-        for name, kind_, geo in backward_shapes(conf, batch):
+        for name, kind_, geo in step_shapes(kernel_shapes(conf, batch)):
+            if not kind_.startswith("conv_bwd"):
+                continue
             rec = check_bwd_kernel(torch, model, name, kind_, geo, gen)
             records.append(rec)
             print(f"[kernel] {json.dumps(rec)}")
+
+    for name, kind_, geo, names in vgg_shapes():
+        if kind_.startswith("conv_bwd"):
+            rec = check_bwd_kernel(torch, "vgg16", name, kind_, geo, gen)
+        else:
+            rec = check_kernel(torch, F, "vgg16", name, kind_, geo, gen)
+        # a step launches the conv forward twice (the f32 recompute)
+        rec.update(vertices=names, launches_per_step=len(names) * (
+            2 if kind_ == "conv_block" else 1))
+        records.append(rec)
+        print(f"[kernel] {json.dumps(rec)}")
 
     for model, (T, b, n) in (("charrnn", (CHAR_TBPTT, CHAR_BATCH,
                                           CHAR_HIDDEN)),
@@ -1649,6 +2036,8 @@ def main() -> int:
     tx_sample = sample_transformer(torch, card, lm, tokens, seed=7)
     tx_long = run_transformer_long(torch, card, lm, tokens, seed=8)
     tx_paths = (tx_fit, tx_sample, tx_long)
+    vgg = run_vgg16(torch, card)
+    conv_bn = run_conv_bn(torch, card)
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -1677,7 +2066,8 @@ def main() -> int:
         bound_by = max(main, key=lambda r: r["bound_ms"])["bound_by"]
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": served[k] + trained[k] + sum(c[k] for c in tx_paths),
+            "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
+                         + vgg[k] + conv_bn[k]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -1687,6 +2077,15 @@ def main() -> int:
         if k in INTENDED_ROUTES:  # the kernel route its main path took
             entry["kernel_route"] = "+".join(sorted(
                 {r["kernel_route"] for r in main}))
+        # VGG-16's training step at batch 128: each shape's time by its
+        # launches a step, summed
+        vgg_recs = [r for r in mine if r["shape_of"].startswith("vgg16.")]
+        entry.update({f"vgg16_{key}_per_step": sum(
+            r[key] * r["launches_per_step"] for r in vgg_recs)
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")})
+        entry.update(vgg16_launches_per_step=sum(
+            r["launches_per_step"] for r in vgg_recs), vgg16_route="+".join(
+            sorted({r["kernel_route"] for r in vgg_recs})))
         if k == "conv_block":  # AlexNet's five convs at batch 64, summed
             alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
             entry.update(alexnet_route="+".join(sorted(

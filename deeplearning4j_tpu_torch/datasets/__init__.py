@@ -5,6 +5,9 @@ from deeplearning4j_tpu_torch.datasets.api import (  # noqa: F401
     DataSetIterator,
     ListDataSetIterator,
 )
+from deeplearning4j_tpu_torch.datasets.cifar import (  # noqa: F401
+    CifarDataSetIterator,
+)
 from deeplearning4j_tpu_torch.datasets.mnist import (  # noqa: F401
     MnistDataSetIterator,
 )

@@ -1,3 +1,7 @@
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ComputationGraphConfiguration,
+    GraphBuilder,
+)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     ListBuilder,
@@ -15,8 +19,10 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
 
 __all__ = [
     "CnnToFeedForwardPreProcessor",
+    "ComputationGraphConfiguration",
     "FeedForwardToCnnPreProcessor",
     "FeedForwardToRnnPreProcessor",
+    "GraphBuilder",
     "InputPreProcessor",
     "InputType",
     "ListBuilder",

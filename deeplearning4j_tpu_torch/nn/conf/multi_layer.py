@@ -383,6 +383,16 @@ class NeuralNetConfiguration:
         def list(self) -> ListBuilder:
             return ListBuilder(self)
 
+        def graph_builder(self):
+            """Reference ``NeuralNetConfiguration.Builder.graphBuilder()``:
+            a ``GraphBuilder`` that resolves these globals into its
+            layers."""
+            from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+                GraphBuilder,
+            )
+
+            return GraphBuilder(self)
+
         def _resolve_layer(self, layer: layer_base.LayerSpec
                            ) -> layer_base.LayerSpec:
             """Apply builder globals to fields the layer left at class

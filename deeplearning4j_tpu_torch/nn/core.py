@@ -7,10 +7,13 @@ forward (inference and training, with the features mask),
 (``grad_step`` + ``finish_step``, assembled by ``build_step``) and the
 ``rnn_time_step`` bookkeeping (``stream_guard_and_prime``,
 ``extract_stream_state``). PyTorch runs eagerly, so the step is an
-ordinary function that returns new parameters and updater state; the
-JAX package's whole-net transforms (scan over layers, remat), its
-guarded / loss-scaled / accumulated / megastep step flavours and the
-conv->BatchNorm peephole have no counterpart yet (ROADMAP).
+ordinary function that returns new parameters, updater state and layer
+state (BatchNormalization's running statistics). The inference forward
+folds a Conv(identity) -> BatchNormalization pair into one conv kernel
+launch, as the JAX package's does. The JAX package's whole-net
+transforms (scan over layers, remat) and its guarded / loss-scaled /
+accumulated / megastep step flavours have no counterpart yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -84,17 +87,36 @@ def sequential_forward(conf, layer_names: Sequence[str],
     ctx = ShapeContext(batch=int(x.shape[0]),
                        time=int(x.shape[2]) if x.dim() == 3 else -1)
     new_state = dict(state)
-    last = len(conf.layers) - 1
-    for i, (name, layer) in enumerate(zip(layer_names, conf.layers)):
+    n = len(conf.layers)
+    i = 0
+    while i < n:
+        name, layer = layer_names[i], conf.layers[i]
         if i in conf.preprocessors:
             x = conf.preprocessors[i].preprocess(x, ctx)
         x = x.contiguous()
-        if preout and i == last and layer.has_loss():
+        if (not train and i + 1 < n and (i + 1) not in conf.preprocessors
+                and getattr(layer, "kernel_size", None) is not None):
+            # the inference peephole: Conv(identity) -> BN(act) as one
+            # conv_block launch (None: the pair does not fold)
+            from deeplearning4j_tpu_torch.nn.layers.convolution import (
+                maybe_fused_conv_bn,
+            )
+
+            nxt = layer_names[i + 1]
+            fused = maybe_fused_conv_bn(
+                layer, conf.layers[i + 1], params.get(name, {}),
+                params.get(nxt, {}), state.get(nxt, {}), x)
+            if fused is not None:
+                x = fused
+                i += 2
+                continue
+        if preout and i == n - 1 and layer.has_loss():
             layer.check_train(train)
             return layer.pre_output(params[name], x), new_state
         x, new_state[name] = layer.apply(params[name], x,
                                          state.get(name, {}), train=train,
                                          gen=gen, mask=fmask)
+        i += 1
     return x, new_state
 
 

@@ -15,7 +15,9 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     register_layer,
 )
 from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    BatchNormalization,
     ConvolutionLayer,
+    LocalResponseNormalization,
     SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
@@ -30,6 +32,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 
 __all__ = [
     "LAYER_REGISTRY",
+    "BatchNormalization",
     "ConvolutionLayer",
     "DenseLayer",
     "FeedForwardLayerSpec",
@@ -37,6 +40,7 @@ __all__ = [
     "GravesLSTM",
     "LayerNormalization",
     "LayerSpec",
+    "LocalResponseNormalization",
     "MultiHeadSelfAttention",
     "OutputLayer",
     "PositionalEncoding",

@@ -7,7 +7,10 @@ Parameters are a plain dictionary ``{layer name: {param name: tensor}}``
 on the network's device, keyed as in the JAX package (layer names are
 ``conf.layer_name(i)``), so a checkpoint's ``"<layer>/<param>"`` arrays
 map onto it 1:1; the updater state ``{layer: {param: (tensor, ...)}}``
-likewise maps onto ``"<layer>/<param>/<i>"``.
+likewise maps onto ``"<layer>/<param>/<i>"``, and the layer state
+``{layer: {key: tensor}}`` (BatchNormalization's running ``mean`` and
+``var``) onto ``"<layer>/<key>"``. At inference a Conv(identity) ->
+BatchNormalization pair runs as one conv kernel launch (``nn/core.py``).
 
 Training is the plain per-step loop (``nn/core.py`` ``build_step``):
 each minibatch runs ``conf.iterations`` optimizer steps at the
@@ -107,7 +110,8 @@ class MultiLayerNetwork:
                 for name, layer in zip(self.layer_names, self.conf.layers)
             }
         self.state = {
-            name: layer.init_state(dtype)
+            name: {k: t.to(self.device)
+                   for k, t in layer.init_state(dtype).items()}
             for name, layer in zip(self.layer_names, self.conf.layers)
         }
         self.updater_state = self.updater_def.init(self.params)

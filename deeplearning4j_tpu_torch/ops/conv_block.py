@@ -224,16 +224,20 @@ def _wide_issue_share(to: int, tp: int, vec: bool) -> float:
 def _wide_cost(tile, n_px, o, k_pad):
     """(wave-quantised issue, tiles) of a wide tile: the rounds of
     132 x blocks-an-SM slots its tiles take, each round one tile's FMAs
-    (WIDE_SOLO_ROWS more rows of depth where a block runs alone on its
+    (WIDE_SOLO_ROWS more rows of depth where the tile runs alone on its
     SM: nothing hides its prologue and epilogue) times the blocks an SM
-    runs side by side, over the tile's FMA share of the issue."""
+    runs side by side, over the tile's FMA share of the issue. A grid
+    short of one full round puts fewer blocks on an SM than it could
+    hold (VGG-16's 8 x 8 convs: 128 tiles of 128 x 128, one an SM), and
+    is charged for those alone."""
     (to, tp), (per_sm, vec) = tile, WIDE_TILES[tile]
     smem = conv_wide_smem_bytes(to, tp, k_pad)
     per_sm = max(1, min(per_sm, SM_SMEM_BYTES // (smem + 1024)))
     tiles = -(-n_px // tp) * -(-o // to)
     rounds = -(-tiles // (SM_COUNT * per_sm))
+    side_by_side = min(per_sm, -(-tiles // SM_COUNT))
     depth = k_pad + (WIDE_SOLO_ROWS if per_sm == 1 else 0)
-    return (rounds * per_sm * to * tp * depth
+    return (rounds * side_by_side * to * tp * depth
             / _wide_issue_share(to, tp, vec), tiles)
 
 
@@ -403,6 +407,13 @@ RESIDENT_SMEM_BYTES = BLOCK_SMEM_BYTES
 RESIDENT_MAX_GROUP = 32
 RESIDENT_MIN_GROUP = 16
 RESIDENT_MAX_THREADS = 1024
+# A block that does few sums a staged float (VGG-16's 8 x 8 convs: 44,
+# 16-channel groups at 229 KB, one block an SM) is bound by its staging,
+# which a second block on the SM hides: there 4-channel groups, two
+# blocks an SM, ran 1.12-1.14x faster. At 57 (LeNet-5's conv2) and 92
+# (VGG-16's 16 x 16 convs) the fewest groups stay ahead or within 6 %
+# (scripts/torch_route_ab.py --sweep and --groups, PERF.md).
+RESIDENT_OVERLAP_SUMS = 48
 
 
 class BwdDataRoute(NamedTuple):
@@ -450,7 +461,11 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     """The kernel route of dL/dx for an ``[n, c, h, w]`` input under
     ``[o, c, kh, kw]`` weights: resident with the fewest channel groups
     whose working set fits (and as many tap groups as then fit), else
-    the implicit GEMM. Decided from the shape alone."""
+    the implicit GEMM. Where that plan's block holds its SM alone and
+    does fewer than RESIDENT_OVERLAP_SUMS multiply-adds a float it
+    stages, and 4-channel groups would keep two blocks on an SM, it takes
+    the 4-channel groups: the second block's staging then overlaps the
+    first one's sums. Decided from the shape alone."""
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     oh = conv_output_size(h, kh, sh, ph)
     ow = conv_output_size(w, kw, sw, pw)
@@ -463,10 +478,19 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
             return BwdDataRoute("gemm")
         if (resident_smem_bytes(h, w, o, oh, ow, kh, kw, group)
                 <= RESIDENT_SMEM_BYTES):
-            return _resident_plan(h, w, o, oh, ow, kh, kw, group)
+            break
         if padded == 4:
             return BwdDataRoute("gemm")
         groups = -(-c // (padded - 4))  # the next smaller padded group
+    plan = _resident_plan(h, w, o, oh, ow, kh, kw, group)
+    sums = group * oh * ow * kh * kw * o
+    staged = o * oh * ow + kh * kw * o * group  # gradient map, weights
+    alone = 2 * (plan.smem_bytes + 1024) > SM_SMEM_BYTES
+    if group > 4 and alone and sums < RESIDENT_OVERLAP_SUMS * staged:
+        quad = _resident_plan(h, w, o, oh, ow, kh, kw, -(-c // -(-c // 4)))
+        if 2 * (quad.smem_bytes + 1024) <= SM_SMEM_BYTES:
+            return quad
+    return plan
 
 
 # The image-resident route of conv_bwd_w (csrc/conv_bwd.cu): a block
@@ -484,6 +508,13 @@ BWD_W_MAX_THREADS = 384
 BWD_W_REGISTERS = 85
 BWD_W_MAX_K = 5
 BWD_W_MAX_SCRATCH = 16 << 20
+# Where the channel groups alone fill the grid, the chunks collapse and
+# each block walks tens of images in series: VGG-16's 3 x 3 convs at c
+# 128-512 and batch 128 (43-128 images a block) ran 1.14-4.24x the
+# implicit GEMM's time there, LeNet-5's (1-4 images a block) 0.45x
+# (scripts/torch_route_ab.py --sweep, PERF.md). Past this many images a
+# block, the implicit GEMM.
+BWD_W_MAX_IMAGES = 16
 SM_THREADS = 2048
 SM_REGISTERS = 65_536
 
@@ -523,8 +554,9 @@ def conv_bwd_w_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     """The kernel route of dL/dW for an ``[n, c, h, w]`` input under
     ``[o, c, kh, kw]`` weights: image-resident (square kernels up to 5 ×
     5) with the fewest channel groups whose items fit a block and whose
-    two staged images fit in shared memory, else the implicit GEMM.
-    Decided from the shape alone."""
+    two staged images fit in shared memory, as long as a block walks at
+    most BWD_W_MAX_IMAGES images; else the implicit GEMM. Decided from
+    the shape alone."""
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     oh = conv_output_size(h, kh, sh, ph)
     ow = conv_output_size(w, kw, sw, pw)
@@ -553,6 +585,8 @@ def conv_bwd_w_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     chunks = max(1, min(n, -(-SM_COUNT * per_sm // groups),
                         BWD_W_MAX_SCRATCH // (4 * o * c * k * k)))
     per_chunk = -(-n // chunks)
+    if per_chunk > BWD_W_MAX_IMAGES:
+        return BwdWRoute("gemm")
     return BwdWRoute("image_resident", group, pixel_groups, threads, smem,
                      per_chunk, -(-n // per_chunk))
 

@@ -169,12 +169,17 @@ class ModelServer:
         self.device = resolve_device(device)
         if isinstance(model_or_path, str):
             from deeplearning4j_tpu_torch.util.model_serializer import (
-                restore_model,
+                restore_multi_layer_network,
             )
 
-            model = restore_model(model_or_path, device=self.device)
+            model = restore_multi_layer_network(model_or_path,
+                                                device=self.device)
         else:
             model = model_or_path
+        if not hasattr(model, "output_padded"):
+            raise NotImplementedError(
+                f"ModelServer over a {type(model).__name__} is not ported "
+                "yet: it serves a MultiLayerNetwork")
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"the model lives on {model.device}; this "
                              f"server runs on {self.device}")

@@ -6,10 +6,13 @@ checkpoint is the same zip, holding ``configuration.json``
 (``{"model_type", "configuration", "iteration_count", "epoch_count"}``),
 ``coefficients.npz`` (one array per ``"<layer>/<param>"``) and
 ``updaterState.npz`` (one array per ``"<layer>/<param>/<i>"``, the i-th
-moment of that parameter's updater), so a zip written by either package
-restores, and resumes training, in the other. The layer-state member
-(BatchNormalization) arrives with the VGG-16 slice. Writes are atomic
-and durable: temp file, fsync, rename, directory fsync.
+moment of that parameter's updater) and, where a layer keeps state,
+``layerState.npz`` (``"<layer>/<key>"``: BatchNormalization's running
+``mean`` and ``var``), so a zip written by either package restores, and
+resumes training, in the other. A ``ComputationGraph`` is written the
+same way, keyed by vertex name, with ``"model_type":
+"ComputationGraph"``. Writes are atomic and durable: temp file, fsync,
+rename, directory fsync.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch
 CONFIG_NAME = "configuration.json"
 COEFFICIENTS_NAME = "coefficients.npz"
 UPDATER_NAME = "updaterState.npz"
+LAYER_STATE_NAME = "layerState.npz"
 MODEL_TYPE = "MultiLayerNetwork"
+GRAPH_MODEL_TYPE = "ComputationGraph"
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], device
@@ -90,22 +95,34 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def write_model(model, path) -> None:
-    """Write ``model`` (a ``MultiLayerNetwork``) as a checkpoint zip,
-    its updater state included."""
+def _model_type(model) -> str:
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-    if not isinstance(model, MultiLayerNetwork):
-        raise ValueError(f"Cannot serialize {type(model).__name__}")
+    if isinstance(model, MultiLayerNetwork):
+        return MODEL_TYPE
+    if isinstance(model, ComputationGraph):
+        return GRAPH_MODEL_TYPE
+    raise ValueError(f"Cannot serialize {type(model).__name__}")
+
+
+def write_model(model, path) -> None:
+    """Write ``model`` (a ``MultiLayerNetwork`` or a
+    ``ComputationGraph``) as a checkpoint zip, its layer state and
+    updater state included."""
+    model_type = _model_type(model)
     if model.params is None:
         model.init()
     doc = {
-        "model_type": MODEL_TYPE,
+        "model_type": model_type,
         "configuration": model.conf.to_dict(),
         "iteration_count": model.iteration_count,
         "epoch_count": model.epoch_count,
     }
     members = {COEFFICIENTS_NAME: _npz_bytes(params_to_numpy(model.params))}
+    state = {ln: st for ln, st in model.state.items() if st}
+    if state:
+        members[LAYER_STATE_NAME] = _npz_bytes(params_to_numpy(state))
     if model.updater_state is not None:
         members[UPDATER_NAME] = _npz_bytes(
             updater_state_to_numpy(model.updater_state))
@@ -136,31 +153,42 @@ def _read_npz(zf: zipfile.ZipFile, name: str) -> Dict[str, np.ndarray]:
         return {k: npz[k] for k in npz.files}
 
 
-def restore_multi_layer_network(path, device=None):
-    """Reference ``ModelSerializer.restoreMultiLayerNetwork``: the
-    network on ``device`` (default ``"cuda"``, raising without a card),
-    with its updater state when the zip holds one (else the updater
-    starts at zero)."""
+def _restore(path, device, expect):
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration,
+    )
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
         MultiLayerConfiguration,
     )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     with zipfile.ZipFile(path, "r") as zf:
         doc = json.loads(zf.read(CONFIG_NAME))
-        if doc.get("model_type") != MODEL_TYPE:
-            raise ValueError(
-                f"Checkpoint holds a {doc.get('model_type')}; the port "
-                f"restores only a {MODEL_TYPE} so far"
-            )
+        model_type = doc.get("model_type")
+        if model_type not in (MODEL_TYPE, GRAPH_MODEL_TYPE):
+            raise ValueError(f"Checkpoint holds a {model_type}; the port "
+                             f"restores a {MODEL_TYPE} or a "
+                             f"{GRAPH_MODEL_TYPE}")
+        if expect is not None and model_type != expect:
+            raise ValueError(f"Checkpoint holds a {model_type}, not a "
+                             f"{expect}")
+        names = set(zf.namelist())
         flat = _read_npz(zf, COEFFICIENTS_NAME)
-        upd = (_read_npz(zf, UPDATER_NAME)
-               if UPDATER_NAME in zf.namelist() else None)
-    model = MultiLayerNetwork(
-        MultiLayerConfiguration.from_dict(doc["configuration"]),
-        device=device,
-    )
+        state = (_read_npz(zf, LAYER_STATE_NAME)
+                 if LAYER_STATE_NAME in names else {})
+        upd = _read_npz(zf, UPDATER_NAME) if UPDATER_NAME in names else None
+    if model_type == MODEL_TYPE:
+        model = MultiLayerNetwork(
+            MultiLayerConfiguration.from_dict(doc["configuration"]),
+            device=device)
+    else:
+        model = ComputationGraph(
+            ComputationGraphConfiguration.from_dict(doc["configuration"]),
+            device=device)
     model.init(params=params_from_numpy(flat, model.device))
+    for ln, st in params_from_numpy(state, model.device).items():
+        model.state[ln] = st
     if upd is not None:
         model.updater_state = updater_state_from_numpy(
             upd, model.updater_state)
@@ -169,4 +197,20 @@ def restore_multi_layer_network(path, device=None):
     return model
 
 
-restore_model = restore_multi_layer_network
+def restore_multi_layer_network(path, device=None):
+    """Reference ``ModelSerializer.restoreMultiLayerNetwork``: the
+    network on ``device`` (default ``"cuda"``, raising without a card),
+    with its layer state and updater state where the zip holds them
+    (else they start fresh)."""
+    return _restore(path, device, MODEL_TYPE)
+
+
+def restore_computation_graph(path, device=None):
+    """Reference ``ModelSerializer.restoreComputationGraph``: as
+    ``restore_multi_layer_network``, for a ``ComputationGraph``."""
+    return _restore(path, device, GRAPH_MODEL_TYPE)
+
+
+def restore_model(path, device=None):
+    """Either kind of model, as the zip's ``model_type`` says."""
+    return _restore(path, device, None)

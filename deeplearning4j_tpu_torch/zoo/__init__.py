@@ -3,6 +3,8 @@ from deeplearning4j_tpu_torch.zoo.models import (
     graves_lstm_char_rnn,
     lenet,
     transformer_lm,
+    vgg16,
 )
 
-__all__ = ["alexnet", "graves_lstm_char_rnn", "lenet", "transformer_lm"]
+__all__ = ["alexnet", "graves_lstm_char_rnn", "lenet", "transformer_lm",
+           "vgg16"]

@@ -1,11 +1,11 @@
 """Model zoo: builders for the configurations the port serves so far.
 
 Counterpart of ``deeplearning4j_tpu/zoo/models.py`` for ``lenet``,
-``alexnet``, ``transformer_lm`` and ``graves_lstm_char_rnn``, with the
-JAX package's defaults, so each builder here
-gives the same ``configuration.json`` as its counterpart there. Callers
-wrap the configuration in ``MultiLayerNetwork(conf, device=...)`` and
-``.init()`` it.
+``alexnet``, ``vgg16``, ``transformer_lm`` and ``graves_lstm_char_rnn``,
+with the JAX package's defaults, so each builder here gives the same
+``configuration.json`` as its counterpart there. Callers wrap the
+configuration in ``MultiLayerNetwork(conf, device=...)`` (``vgg16``: in
+``ComputationGraph(conf, device=...)``) and ``.init()`` it.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
@@ -78,6 +78,44 @@ def alexnet(height=224, width=224, channels=3, n_classes=1000, *,
         .set_input_type(InputType.convolutional(height, width, channels))
         .build()
     )
+
+
+def vgg16(height=32, width=32, channels=3, n_classes=10, *,
+          dense_width=512, updater="NESTEROVS", learning_rate=0.01,
+          seed=42, dtype="float32", compute_dtype=None):
+    """VGG-16 as a ComputationGraph (BASELINE.md config #2): five blocks
+    of 3x3 pad-1 relu convs (2 x 64, 2 x 128, 3 x 256, 3 x 512, 3 x
+    512), each closed by a 2x2 max pool, then two dense relu layers of
+    ``dense_width`` and a softmax output."""
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed).learning_rate(learning_rate).updater(updater)
+        .data_type(dtype).compute_data_type(compute_dtype)
+        .graph_builder()
+        .add_inputs("in")
+    )
+    prev = "in"
+    idx = 0
+    for block, (n_layers, width_) in enumerate(
+            [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]):
+        for _ in range(n_layers):
+            name = f"conv{idx}"
+            b.add_layer(name, ConvolutionLayer(
+                n_out=width_, kernel_size=(3, 3), padding=(1, 1),
+                activation="relu"), prev)
+            prev = name
+            idx += 1
+        pname = f"pool{block}"
+        b.add_layer(pname, SubsamplingLayer(pooling_type="MAX"), prev)
+        prev = pname
+    b.add_layer("fc0", DenseLayer(n_out=dense_width, activation="relu"),
+                prev)
+    b.add_layer("fc1", DenseLayer(n_out=dense_width, activation="relu"),
+                "fc0")
+    b.add_layer("out", OutputLayer(n_out=n_classes, loss="MCXENT"), "fc1")
+    b.set_outputs("out")
+    b.set_input_types(InputType.convolutional(height, width, channels))
+    return b.build()
 
 
 def transformer_lm(vocab=77, d_model=256, n_layers=4, n_heads=8, *,

@@ -226,19 +226,22 @@ def _operands(torch, kind, shape, gen):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True))
     if kind.startswith("conv"):
-        xs, ws = shape
-        oh, ow = xs[2] - ws[2] + 1, xs[3] - ws[3] + 1
+        xs, ws, st, pad = _bwd_shape(shape)
+        oh = (xs[2] + 2 * pad[0] - ws[2]) // st[0] + 1
+        ow = (xs[3] + 2 * pad[1] - ws[3]) // st[1] + 1
         x = torch.randn(xs, device=dev, generator=gen)
         w = torch.randn(ws, device=dev, generator=gen) / (
             ws[1] * ws[2] * ws[3]) ** 0.5
         dacc = torch.randn((xs[0], ws[0], oh, ow), device=dev, generator=gen)
         if kind == "conv_bwd_w":
-            return (lambda: conv_bwd_w(x, dacc, ws),
-                    lambda: conv_bwd_w_reference(x, dacc, ws),
-                    lambda: torch.nn.grad.conv2d_weight(x, ws, dacc))
-        return (lambda: conv_bwd_data(dacc, w, xs[2:]),
-                lambda: conv_bwd_data_reference(dacc, w, xs[2:]),
-                lambda: torch.nn.grad.conv2d_input(xs, w, dacc))
+            return (lambda: conv_bwd_w(x, dacc, ws, st, pad),
+                    lambda: conv_bwd_w_reference(x, dacc, ws, st, pad),
+                    lambda: torch.nn.grad.conv2d_weight(
+                        x, ws, dacc, stride=st, padding=pad))
+        return (lambda: conv_bwd_data(dacc, w, xs[2:], st, pad),
+                lambda: conv_bwd_data_reference(dacc, w, xs[2:], st, pad),
+                lambda: torch.nn.grad.conv2d_input(xs, w, dacc, stride=st,
+                                                   padding=pad))
     m, k, n, with_res = shape
     x = torch.randn(m, k, device=dev, generator=gen)
     w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
@@ -250,6 +253,27 @@ def _operands(torch, kind, shape, gen):
         return y.add_(r) if with_res else y
     return (lambda: matmul_block(x, w, b, r),
             lambda: matmul_block_reference(x, w, b, r), library)
+
+
+def _bwd_shape(shape):
+    """A backward shape, (x shape, w shape) or (x shape, w shape,
+    stride, padding), as the latter with pairs."""
+    xs, ws, st, pad = shape if len(shape) == 4 else (*shape, 1, 0)
+    pair = (lambda v: tuple(v) if isinstance(v, (tuple, list))
+            else (int(v), int(v)))
+    return tuple(xs), tuple(ws), pair(st), pair(pad)
+
+
+def vgg_sweep_shapes():
+    """(name, kind, shape) of every distinct kernel shape of VGG-16's
+    training step at batch 128 (chip_smoke.vgg_shapes), the dense layers
+    left out (no routed choice is swept for them)."""
+    from chip_smoke import vgg_shapes
+
+    return [(f"vgg16.{name}", kind, (tuple(geo["x"]), tuple(geo["w"]),
+                                     tuple(geo["stride"]),
+                                     tuple(geo["padding"])))
+            for name, kind, geo, _ in vgg_shapes() if kind != "matmul_block"]
 
 
 def _route(kind, shape):
@@ -275,10 +299,10 @@ def _route(kind, shape):
     if kind.startswith("flash"):
         return "single"
     if kind.startswith("conv"):
-        (n, c, h, w), (o, _, kh, kw) = shape
+        (n, c, h, w), (o, _, kh, kw), st, pad = _bwd_shape(shape)
         pick = conv_bwd_w_route if kind == "conv_bwd_w" else \
             conv_bwd_data_route
-        return pick(n, c, h, w, o, kh, kw).route
+        return pick(n, c, h, w, o, kh, kw, st, pad).route
     return matmul_route(shape[0], shape[2])
 
 
@@ -483,14 +507,63 @@ def rows(torch):
     return 0
 
 
-def sweep(torch):
-    """Every route and wide tile of the conv forward at each of its
-    shapes, and both cell routes where each takes the shape, forced
-    through the wrappers (the route functions patched), in turns, each
-    held to its plain version; the data the route rules are fitted to."""
+def _sweep_plans(cb, lc, kind, shape, ref):
+    """(the rule's plan, {label: plan}) of every route ``kind`` has at
+    ``shape``: the conv forward's direct route and each wide tile whose
+    ring fits; ``conv_bwd_data``'s gemm route and the resident route at
+    channel groups of up to 32, 16, 8 and 4 (each with as many tap groups
+    as fit); ``conv_bwd_w``'s gemm and image-resident routes; the cell's
+    slice route and latency plans of several rows and units a block."""
+    if kind == "lstm_cell":
+        b, n_ = shape[0], shape[1]
+        plans = {"slice": lc.CellRoute("slice")}
+        for rows in sorted({min(r, b) for r in (32, 16, 8, 4, 1)}):
+            for units in (1, 2, 4):
+                plan = lc.latency_plan(b, n_, rows, units)
+                if plan.smem_bytes <= lc.CELL_SMEM_BYTES:
+                    plans[f"latency r{rows} u{units}"] = plan
+        return lc.lstm_cell_route(b, n_), plans
+    if kind == "conv_block":
+        (n, c, h, w), (o, _, kh, kw), st, pad = shape
+        k_pad = -(-c * kh * kw // cb.WIDE_K_SLICE) * cb.WIDE_K_SLICE
+        plans = {"direct": cb.ConvRoute("direct")}
+        for tile in cb.WIDE_TILES:
+            plan = cb.wide_plan(tile, n * ref.shape[2] * ref.shape[3], o,
+                                k_pad)
+            if plan.smem_bytes <= cb.BLOCK_SMEM_BYTES:
+                plans[f"wide {tile[0]}x{tile[1]}"] = plan
+        return cb.conv_block_route(n, c, h, w, o, kh, kw, st, pad), plans
+    (n, c, h, w), (o, _, kh, kw), st, pad = _bwd_shape(shape)
+    oh = (h + 2 * pad[0] - kh) // st[0] + 1
+    ow = (w + 2 * pad[1] - kw) // st[1] + 1
+    if kind == "conv_bwd_w":
+        rule = cb.conv_bwd_w_route(n, c, h, w, o, kh, kw, st, pad)
+        plans = {"gemm": cb.BwdWRoute("gemm")}
+        if rule.route != "gemm":
+            plans["image_resident"] = rule
+        return rule, plans
+    rule = cb.conv_bwd_data_route(n, c, h, w, o, kh, kw, st, pad)
+    plans = {"gemm": cb.BwdDataRoute("gemm")}
+    for most in (32, 16, 8, 4):
+        group = -(-c // -(-c // most))  # c in equal groups of <= most
+        if cb.resident_smem_bytes(h, w, o, oh, ow, kh, kw,
+                                  group) <= cb.RESIDENT_SMEM_BYTES:
+            plans.setdefault(f"resident g{group}", cb._resident_plan(
+                h, w, o, oh, ow, kh, kw, group))
+    return rule, plans
+
+
+def sweep(torch, only=None):
+    """Every route (and wide tile or plan) of the conv forward, both
+    conv backward kernels and the cell at each of their shapes (LeNet-5's,
+    AlexNet's, the char-RNN's and VGG-16's; ``only``: the shapes whose
+    name starts so), forced through the wrappers (the route functions
+    patched), in turns, each held to its plain version, with the library
+    call and the bound beside; the data the route rules are fitted
+    to."""
     import importlib
 
-    from chip_smoke import bound, card_line, graph_ms
+    from chip_smoke import bound, card_line, conv_out, graph_ms, useful_macs
 
     cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
     lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
@@ -498,59 +571,50 @@ def sweep(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    chosen_conv, chosen_cell = cb.conv_block_route, lc.lstm_cell_route
-    for name, kind, shape in SHAPES:
-        if kind not in ("conv_block", "lstm_cell"):
+    route_fn = {"conv_block": (cb, "conv_block_route"),
+                "conv_bwd_data": (cb, "conv_bwd_data_route"),
+                "conv_bwd_w": (cb, "conv_bwd_w_route"),
+                "lstm_cell": (lc, "lstm_cell_route")}
+    for name, kind, shape in tuple(SHAPES) + tuple(vgg_sweep_shapes()):
+        if kind not in route_fn or (only and not name.startswith(only)):
             continue
         kernel, plain, library = _operands(torch, kind, shape, gen)
         with torch.inference_mode():
             ref = plain()
-        if kind == "conv_block":
-            (n, c, h, w), (o, _, kh, kw), st, pad = shape
-            rule = chosen_conv(n, c, h, w, o, kh, kw, st, pad)
-            k_pad = -(-c * kh * kw // cb.WIDE_K_SLICE) * cb.WIDE_K_SLICE
-            plans = {"direct": cb.ConvRoute("direct")}
-            for tile in cb.WIDE_TILES:
-                plan = cb.wide_plan(tile, n * ref.shape[2] * ref.shape[3],
-                                    o, k_pad)
-                if plan.smem_bytes <= cb.BLOCK_SMEM_BYTES:
-                    plans[f"wide {tile[0]}x{tile[1]}"] = plan
-            flops = 2.0 * ref.numel() * c * kh * kw
-            nbytes = 4.0 * (n * c * h * w + o * c * kh * kw + o
-                            + ref.numel())
+        rule, plans = _sweep_plans(cb, lc, kind, shape, ref)
+        rec = {"rule": rule._asdict()}
+        if kind != "lstm_cell":
+            (n, c, h, w), (o, _, kh, kw), st, pad = _bwd_shape(shape)
+            geo = {"x": (n, c, h, w), "w": (o, c, kh, kw), "stride": st,
+                   "padding": pad}
+            out_elems = n * o * conv_out(h, kh, st[0], pad[0]) * conv_out(
+                w, kw, st[1], pad[1])
+            # the forward counts every tap (as chip_smoke.check_kernel), the
+            # backward the taps that touch the input (check_bwd_kernel)
+            flops = (2.0 * out_elems * c * kh * kw if kind == "conv_block"
+                     else 2.0 * useful_macs(geo))
+            nbytes = 4.0 * (n * c * h * w + o * c * kh * kw + out_elems
+                            + (o if kind == "conv_block" else 0))
             with torch.inference_mode():
-                rec = {"rule": rule._asdict(),
-                       "library_ms": graph_ms(torch, library),
-                       "bound_ms": bound(flops, nbytes)[0]}
-        else:
-            b, n_ = shape[0], shape[1]
-            rule = chosen_cell(b, n_)
-            plans = {"slice": lc.CellRoute("slice")}
-            for rows in sorted({min(r, b) for r in (32, 16, 8, 4, 1)}):
-                for units in (1, 2, 4):
-                    plan = lc.latency_plan(b, n_, rows, units)
-                    if plan.smem_bytes <= lc.CELL_SMEM_BYTES:
-                        plans[f"latency r{rows} u{units}"] = plan
-            rec = {"rule": rule._asdict()}
+                rec["library_ms"] = graph_ms(torch, library)
+            rec["bound_ms"] = bound(flops, nbytes)[0]
+        module, attr = route_fn[kind]
+        chosen = getattr(module, attr)
         for turn in range(2):
             for label, plan in (list(plans.items()) if turn == 0
                                 else list(plans.items())[::-1]):
-                if kind == "conv_block":
-                    cb.conv_block_route = lambda *a, p=plan, **k: p
-                else:
-                    lc.lstm_cell_route = lambda *a, p=plan, **k: p
+                setattr(module, attr, lambda *a, p=plan, **k: p)
                 try:
                     with torch.inference_mode():
                         got = kernel()
                         torch.cuda.synchronize()
-                        pairs = ([(got, ref)] if kind == "conv_block"
-                                 else zip(got, ref))
+                        pairs = (zip(got, ref) if kind == "lstm_cell"
+                                 else [(got, ref)])
                         err = max(float((a - r).abs().max())
                                   for a, r in pairs)
                         ms = graph_ms(torch, kernel)
                 finally:
-                    cb.conv_block_route = chosen_conv
-                    lc.lstm_cell_route = chosen_cell
+                    setattr(module, attr, chosen)
                 r = rec.setdefault(label, {"max_abs_err": err, "ms": []})
                 r["ms"].append(ms)
         out[f"{kind}@{name}"] = rec
@@ -626,6 +690,8 @@ def main() -> int:
     ap.add_argument("--groups", action="store_true")
     ap.add_argument("--rows", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--only", metavar="PREFIX",
+                    help="--sweep: only the shapes whose name starts so")
     ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", metavar="ROOT")
@@ -648,7 +714,7 @@ def main() -> int:
     if args.rows:
         return rows(torch)
     if args.sweep:
-        return sweep(torch)
+        return sweep(torch, args.only)
     if not args.parent:
         ap.error("give --check, --groups, --rows, --sweep or --parent DIR")
     return compare(args.parent, args.rounds)

@@ -71,6 +71,23 @@ WIDE_CONV_CASES = [
 # (the second splits its k axis), AlexNet's five at batch 4, odd
 # geometry, a split-K case whose last k chunk is ragged, and the wide
 # route's cases
+# VGG-16's distinct convs at batch 128 (3 x 3, padding 1): the wide
+# forward with 32 x 256 and 128 x 128 tiles and the direct one at 2 x 2
+# (in test_conv_block_kernel_matches_plain), the resident dx route (16-
+# and 4-channel groups) and the implicit GEMMs (every dW; in
+# test_vgg_conv_bwd_kernels_match_plain_and_repeat)
+VGG_CONV_CASES = [
+    ((128, 3, 32, 32), (64, 3, 3, 3), 1, 1),
+    ((128, 64, 32, 32), (64, 64, 3, 3), 1, 1),
+    ((128, 64, 16, 16), (128, 64, 3, 3), 1, 1),
+    ((128, 128, 16, 16), (128, 128, 3, 3), 1, 1),
+    ((128, 128, 8, 8), (256, 128, 3, 3), 1, 1),
+    ((128, 256, 8, 8), (256, 256, 3, 3), 1, 1),
+    ((128, 256, 4, 4), (512, 256, 3, 3), 1, 1),
+    ((128, 512, 4, 4), (512, 512, 3, 3), 1, 1),
+    ((128, 512, 2, 2), (512, 512, 3, 3), 1, 1),
+]
+
 CONV_CASES = [
     ((32, 1, 28, 28), (20, 1, 5, 5), 1, 0),
     ((32, 20, 12, 12), (50, 20, 5, 5), 1, 0),
@@ -84,7 +101,8 @@ CONV_CASES = [
 ] + WIDE_CONV_CASES
 
 
-@pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
+@pytest.mark.parametrize("xs,ws,stride,padding",
+                         CONV_CASES + VGG_CONV_CASES)
 @pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
 def test_conv_block_kernel_matches_plain(cuda, xs, ws, stride, padding,
                                          activation):
@@ -238,7 +256,7 @@ def test_conv_block_kernel_bn_terms_and_bf16(cuda):
 # (m, k, n): LeNet's dense at bucket 32, AlexNet's two at batch 64
 # (all three split K), and ragged edges on every axis
 MATMUL_CASES = [(32, 800, 512), (64, 9216, 4096), (64, 4096, 4096),
-                (1, 7, 3), (70, 33, 129), (5, 1000, 65)]
+                (1, 7, 3), (70, 33, 129), (5, 1000, 65), (128, 512, 512)]
 
 
 @pytest.mark.parametrize("m,k,n", MATMUL_CASES)
@@ -1370,3 +1388,135 @@ def test_conv_bwd_data_gemm_route_matches_plain(cuda):
     torch.cuda.synchronize()
     _close_to_scale(got, ref, 5e-5)
     _close_to_scale(got, lib, 5e-5)
+
+
+# --- VGG-16 on CIFAR-10 ------------------------------------------------------
+#
+# VGG-16's convs at batch 128 run in test_conv_block_kernel_matches_plain
+# above (its dense layers in MATMUL_CASES); here both backward kernels
+# at each of them, the conv forward with a BN scale / shift at two, the
+# conv -> BN fold, and one full-width VGG-16 training step against the
+# CPU.
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", VGG_CONV_CASES)
+def test_vgg_conv_bwd_kernels_match_plain_and_repeat(cuda, xs, ws, stride,
+                                                     padding):
+    """dx and dW against their plain versions, and bitwise on a second
+    launch. Held to the plain version alone: at these depths (dW sums
+    131,072 products at conv1) cuDNN's own dW (conv2d_weight, TF32 off)
+    was measured 0.099 off the kernel in one of conv1's 36,864 entries
+    (4e-4 of that entry), past 5e-5 of the scale, where the kernel
+    holds to the plain version within it."""
+    x, w, dacc = _bwd_operands(xs, ws, stride, padding, 12)
+    dx = [conv_bwd_data(dacc, w, xs[2:], stride, padding) for _ in range(2)]
+    dw = [conv_bwd_w(x, dacc, ws, stride, padding) for _ in range(2)]
+    dx_ref = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+    dw_ref = conv_bwd_w_reference(x, dacc, ws, stride, padding)
+    torch.cuda.synchronize()
+    assert torch.equal(dx[0], dx[1]) and torch.equal(dw[0], dw[1])
+    _close_to_scale(dx[0], dx_ref, 5e-5)
+    _close_to_scale(dw[0], dw_ref, 5e-5)
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", [VGG_CONV_CASES[1],
+                                                  VGG_CONV_CASES[-1]])
+def test_vgg_conv_block_with_bn_terms_matches_plain(cuda, xs, ws, stride,
+                                                    padding):
+    x, w, b = _conv_operands(xs, ws, 15)
+    rng = np.random.RandomState(16)
+    scale = _t(rng.rand(ws[0]) + 0.5, cuda)
+    shift = _t(rng.randn(ws[0]) * 0.3, cuda)
+    kw = dict(stride=stride, padding=padding, activation="relu")
+    with torch.inference_mode():
+        out = conv_block(x, w, b, scale, shift, **kw)
+        ref = conv_block_reference(x, w, b, scale, shift, **kw)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_conv_bn_fold_on_the_card_matches_the_unfused_cpu_walk(cuda):
+    """A MultiLayer Conv(identity) -> BN(relu) network: its inference
+    forward is one conv_block launch (the fold) and equals the CPU twin
+    walked layer by layer; a training step (no fold) moves the running
+    statistics as the CPU twin's does."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+        ShapeContext,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization,
+        ConvolutionLayer,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(1).updater("NESTEROVS")
+            .learning_rate(0.01).list()
+            .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                    padding=(1, 1)))
+            .layer(BatchNormalization(activation="relu"))
+            .layer(OutputLayer(n_out=5, loss="MCXENT"))
+            .set_input_type(InputType.convolutional(8, 8, 8)).build())
+    rng = np.random.RandomState(17)
+    net = MultiLayerNetwork(conf, device=cuda).init()
+    net.state["1"] = {"mean": _t(rng.randn(16) * 0.2, cuda),
+                      "var": _t(rng.rand(16) + 0.5, cuda)}
+    twin = MultiLayerNetwork(conf, device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    twin.state = {ln: {k: t.cpu() for k, t in st.items()}
+                  for ln, st in net.state.items()}
+    x = rng.rand(32, 8, 8, 8).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.randint(0, 5, 32)]
+    dispatch.reset_launch_counts()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_block"] == 1
+    h = torch.from_numpy(x)
+    ctx = ShapeContext(batch=32)
+    with torch.inference_mode():
+        for i, name in enumerate(twin.layer_names):
+            if i in conf.preprocessors:
+                h = conf.preprocessors[i].preprocess(h, ctx)
+            h, _ = conf.layers[i].apply(twin.params[name], h.contiguous(),
+                                        twin.state[name])
+    torch.testing.assert_close(out.cpu(), h, rtol=1e-4, atol=1e-6)
+    dispatch.reset_launch_counts()
+    net.fit(DataSet(x, y))
+    twin.fit(DataSet(x, y))
+    assert dispatch.launch_counts()["conv_block"] == 2
+    for k in ("mean", "var"):
+        torch.testing.assert_close(net.state["1"][k].cpu(),
+                                   twin.state["1"][k], rtol=1e-4, atol=1e-6)
+
+
+def test_vgg16_graph_step_on_the_card_matches_the_cpu_twin(cuda):
+    """One full-width VGG-16 step (batch 8, NESTEROVS) through
+    ``ComputationGraph.fit`` on the card, with exact launch counts (no
+    dx at conv0), against the same step on the CPU."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    net = ComputationGraph(vgg16(), device=cuda).init()
+    twin = ComputationGraph(vgg16(), device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    rng = np.random.RandomState(18)
+    ds = DataSet(rng.rand(8, 3, 32, 32).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[rng.randint(0, 10, 8)])
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv_block": 26, "conv_bwd_data": 12, "conv_bwd_w": 13,
+        "matmul_block": 2}
+    twin.fit(ds)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            torch.testing.assert_close(net.params[ln][pn].cpu(), ref,
+                                       rtol=1e-4, atol=1e-6)
