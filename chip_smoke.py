@@ -22,10 +22,9 @@ non-zero (nothing is caught):
    dW, so the stride-4 and padded geometry run); the LSTM kernels at the
    char-RNN's chunk, its T 1 sampling launch and bench.py's saturated
    shape; the conv forward, both conv backward kernels and the dense
-   kernel at every distinct shape of VGG-16's training step (batch 128,
-   the ``vgg16.`` records, with their launches a step); flash attention
-   (both
-   entries, f32 and bf16) at the transformer's training shape and the
+   kernel at every distinct shape of VGG-16's and ResNet-50's training
+   steps (batch 128, the ``vgg16.`` and ``resnet50.`` records, with their
+   launches a step); flash attention (both entries, f32 and bf16) at the transformer's training shape and the
    streamed entry at t 16384; the dense kernel at the transformer's input
    projection and its residual variant at the FFN's second product.
    Each record names the kernel route its shape took; the run fails
@@ -71,7 +70,21 @@ non-zero (nothing is caught):
    Conv(identity) -> BatchNormalization(relu) block at VGG-16's first
    widths: the inference forward folded into one ``conv_block`` launch
    against the unfused plain path, and a training step's running
-   statistics against the CPU twin's.
+   statistics against the CPU twin's;
+9. ResNet-50 (main paths): ``[resnet50]`` the zoo's ResNet-50 at 224 x
+   224, 1000 classes, full depth and width (f32) as a
+   ``ComputationGraph`` on synthetic uint8 pixels: ``output`` at batch
+   128 against the CPU twin, two batch-4 steps each held to the twin
+   from the same state with every conv kernel call held to its plain
+   version on the same operands, one step's launches exact (106
+   ``conv_block``, 52 ``conv_bwd_data``, 53 ``conv_bwd_w``), 6 NESTEROVS
+   steps at batch 128 over which the score falls (examples/s, ms/step,
+   device ms/step and busy share, peak memory); every distinct kernel
+   shape of its step is among the ``[kernel]`` records (``resnet50.``);
+   ``[resnet50-dp]`` ``DistributedTrainer(batch_stats="sync")`` over an
+   NCCL world of one formed through a file rendezvous: three steps
+   bitwise equal to the plain graph's, one ZeRO-1 step bitwise equal to
+   the replicated one, and the two step times.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -126,6 +139,10 @@ VGG_TWIN_BATCH = 32
 VGG_BATCHES = 4
 VGG_EPOCHS = 5
 # the conv -> BN fold at VGG-16's first widths
+RESNET_BATCH = 128  # bench.py:823, cut to f32
+RESNET_TWIN_BATCH = 4
+RESNET_STEPS = 6
+
 CONV_BN_BATCH = 128
 CONV_BN_CHANNELS = 64
 CONV_BN_HW = 32
@@ -290,6 +307,15 @@ def vgg_shapes(batch=VGG_BATCH):
     return distinct_shapes(step_shapes(graph_kernel_shapes(vgg16(), batch)))
 
 
+def resnet_shapes(batch=RESNET_BATCH):
+    """The distinct kernel shapes of one ResNet-50 training step at
+    ``batch`` (224 x 224): (first vertex, kind, geometry, vertices)."""
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    return distinct_shapes(step_shapes(graph_kernel_shapes(resnet50(),
+                                                           batch)))
+
+
 def graph_ms(torch, fn, reps: int = 10) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in a
     CUDA graph, replayed until ~50 ms have run, timed with events (so
@@ -448,8 +474,9 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
             return conv_block_reference(x, w, b, **kw)
 
         def library():
-            return torch.relu_(F.conv2d(x, w, b, stride=geo["stride"],
-                                        padding=geo["padding"]))
+            y = F.conv2d(x, w, b, stride=geo["stride"],
+                         padding=geo["padding"])
+            return torch.relu_(y) if act == "relu" else y
         out_shape = kernel().shape
         flops = 2.0 * out_shape.numel() * w[0].numel()
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel()
@@ -474,8 +501,9 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         flops = 2.0 * m * k * n
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + m * n)
         shape = {"m": m, "k": k, "n": n}
-    if act != "relu":
-        raise ValueError(f"{name}: library yardstick assumes relu, got {act}")
+    if act not in ("relu", "identity") or (kind != "conv_block"
+                                           and act != "relu"):
+        raise ValueError(f"{name}: no library yardstick for {act}")
     with torch.inference_mode():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
@@ -497,12 +525,16 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
         plain_ms = graph_ms(torch, plain)
         library_ms = graph_ms(torch, library)
     bound_ms, bound_by = bound(flops, nbytes)
+    tile = None
     if kind == "conv_block":
-        route = conv_block_route(*geo["x"], geo["w"][0], *geo["w"][2:],
-                                 geo["stride"], geo["padding"]).route
+        plan = conv_block_route(*geo["x"], geo["w"][0], *geo["w"][2:],
+                                geo["stride"], geo["padding"])
+        route = plan.route
+        if route == "wide":
+            tile = f"{plan.tile_o}x{plan.tile_px}"
     else:
         route = matmul_route(geo["m"], geo["n"])
-    return {"kernel": kind, "kernel_route": route,
+    return {"kernel": kind, "kernel_route": route, "kernel_tile": tile,
             "shape_of": f"{model}.{name}", **shape,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -1062,6 +1094,352 @@ def run_conv_bn(torch, card):
            "fused_ms": fused_ms, "unfused_ms": unfused_ms,
            "score": {"card": net.score_value, "cpu": twin.score_value}}
     print(f"[conv-bn] {json.dumps(res)} card={card}")
+    return main
+
+
+def resnet_batches(n_batches, batch, seed):
+    """Synthetic ImageNet minibatches from a seed, as bench.py makes
+    them: uint8 pixels (cast on the card) and uint8 one-hot labels over
+    1000 classes."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    return [DataSet(rng.randint(0, 256, (batch, 3, 224, 224), dtype=np.uint8),
+                    np.eye(1000, dtype=np.uint8)[rng.randint(0, 1000, batch)])
+            for _ in range(n_batches)]
+
+
+class held_on_operands:
+    """Within the block, every call of the three conv kernels is held
+    against its plain version on the same operands on the card:
+    ``errors[kernel]`` is (calls, largest error relative to the plain
+    result's largest entry), and a call past ``rel`` raises."""
+
+    def __init__(self, rel: float = 5e-5):
+        self.rel = rel
+        self.errors = {}
+
+    def __enter__(self):
+        cb = importlib.import_module(
+            "deeplearning4j_tpu_torch.ops.conv_block")
+        self._cb = cb
+        self._saved = (cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w)
+        kfwd, kdx, kdw = self._saved
+
+        def held(name, kernel, plain):
+            def call(*args):
+                got = kernel(*args)
+                ref = plain(*args)
+                scale = max(float(ref.abs().max()), 1e-30)
+                rel = float((got.float() - ref.float()).abs().max()) / scale
+                n, worst = self.errors.get(name, (0, 0.0))
+                self.errors[name] = (n + 1, max(worst, rel))
+                if rel > self.rel:
+                    raise RuntimeError(f"{name} {tuple(args[0].shape)}: "
+                                       f"{rel:.2e} of the plain result")
+                return got
+            return call
+
+        cb._kernel_forward = held("conv_block", kfwd, cb._plain_forward)
+        cb.conv_bwd_data = held("conv_bwd_data", kdx,
+                                cb.conv_bwd_data_reference)
+        cb.conv_bwd_w = held("conv_bwd_w", kdw, cb.conv_bwd_w_reference)
+        return self
+
+    def __exit__(self, *exc):
+        cb = self._cb
+        cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w = self._saved
+        return False
+
+
+def check_twin_step(tag, model, twin, before, share: float = 0.5):
+    """The card's weights against the CPU twin's after one step from the
+    same state (``before``: the weights both started from): each
+    parameter within ``share`` of its largest move in the step, plus
+    1e-6. At ResNet-50's init the backward runs through 53 BNs whose
+    mean subtraction cancels most of a gradient that the global average
+    pool makes nearly constant over a channel, so rounding in the
+    forward reaches the weight updates amplified: from the same state,
+    card and CPU updates differed by up to 27 % of a parameter's move
+    (an H100 80GB HBM3 at 700 W, batch 4), while every conv kernel call
+    of the step held its plain version on the same operands within 5e-5
+    of scale (``held_on_operands``). Returns the largest share."""
+    worst = 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref_w in lp.items():
+            move = float((ref_w - before[ln][pn]).abs().max())
+            d = float((model.params[ln][pn].cpu() - ref_w).abs().max())
+            if d > share * move + 1e-6:
+                raise RuntimeError(f"[{tag}] {ln}/{pn} differs by {d}, "
+                                   f"its step moved it {move}")
+            if move > 1e-6:
+                worst = max(worst, d / move)
+    return worst
+
+
+def run_resnet50(torch, card):
+    """[resnet50] the zoo's ResNet-50 at 224 x 224 x 3, 1000 classes,
+    full depth and width (f32, NESTEROVS lr 0.01 as bench.py:823) as a
+    ``ComputationGraph`` on synthetic uint8 ImageNet batches: ``output``
+    at batch 128 against the CPU twin, two steps at batch 4 each held
+    against the twin from the same state and repeated bitwise, one step's launches counted exactly, then
+    the main path: a fresh network fits 2 minibatches of 128 for 3
+    epochs (6 steps) and its training score on the first minibatch must
+    fall. Returns the launch counts of the main path and the trained
+    network's initial weights."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    conf = resnet50(learning_rate=0.01)
+    lr = 0.01
+    net = ComputationGraph(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    print(f"[resnet50] zoo.resnet50() as a ComputationGraph "
+          f"({net.num_params()} params), 224x224x3, 1000 classes, "
+          f"NESTEROVS lr {lr}, batch {RESNET_BATCH}, f32, synthetic uint8 "
+          f"pixels")
+    main = {k: 0 for k in dispatch.KERNELS}
+
+    def expect(**counts):
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(counts)
+        return want
+
+    batches = resnet_batches(2, RESNET_BATCH, seed=11)
+    # output at batch 128 against the CPU twin (the plain path): 53 conv
+    # launches (the graph engine folds no BN); deep f32 sums in another
+    # order: rtol 1e-3 on the probabilities
+    probe = batches[0]
+    dispatch.reset_launch_counts()
+    out = net.output(probe.features)[0]
+    torch.cuda.synchronize()
+    per_output = dispatch.launch_counts()
+    if per_output != expect(conv_block=53):
+        raise RuntimeError(f"[resnet50] output launched {per_output}")
+    for k, v in per_output.items():
+        main[k] += v
+    if out.shape != (RESNET_BATCH, 1000) or not torch.isfinite(out).all():
+        raise RuntimeError(f"[resnet50] bad output {tuple(out.shape)}")
+    ref = cpu_twin(torch, net).output(probe.features)[0]
+    out_err = float((out.cpu() - ref).abs().max())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-3, atol=1e-6)
+
+    # two steps at batch 4 on the card and on the CPU twin, each from
+    # the same state (the twin takes the card's weights, velocities and
+    # running statistics before each): scores within rtol 1e-4, BN's
+    # running statistics (forward sums) within rtol 1e-3, weights as
+    # check_twin_step, and every conv kernel call of the card's steps
+    # held against its plain version on the same operands. The twin
+    # steps take standardized pixels ((p - 127.5) / 73.9, as an ImageNet
+    # pipeline feeds them)
+    small = [DataSet(((b.features[:RESNET_TWIN_BATCH].astype(np.float32)
+                       - 127.5) / 73.9),
+                     b.labels[:RESNET_TWIN_BATCH]) for b in batches]
+    a = ComputationGraph(conf, device="cuda").init(params=init)
+    twin = cpu_twin(torch, a)
+    card_scores, cpu_scores = [], []
+    worst_share = state_err = 0.0
+    held = held_on_operands()
+    for ds in small:
+        before = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                  for ln, lp in a.params.items()}
+        twin.params = before
+        twin.updater_state = {ln: {pn: tuple(t.cpu() for t in tup)
+                                   for pn, tup in lp.items()}
+                              for ln, lp in a.updater_state.items()}
+        twin.state = {ln: {k: t.cpu() for k, t in st.items()}
+                      for ln, st in a.state.items()}
+        with held:
+            a.fit(ds)
+        twin.fit(ds)
+        card_scores.append(a.score_value)
+        cpu_scores.append(twin.score_value)
+        worst_share = max(worst_share,
+                          check_twin_step("resnet50", a, twin, before))
+        for ln, st in twin.state.items():
+            for k, ref_s in st.items():
+                got = a.state[ln][k].cpu()
+                torch.testing.assert_close(got, ref_s, rtol=1e-3, atol=1e-5)
+                state_err = max(state_err, float((got - ref_s).abs().max()))
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-4)
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "conv_block": 212, "conv_bwd_data": 104, "conv_bwd_w": 106}:
+        raise RuntimeError(f"[resnet50] held calls: {held.errors}")
+    again = ComputationGraph(conf, device="cuda").init(params=init)
+    for ds in small:
+        again.fit(ds)
+    torch.cuda.synchronize()
+    for ln, lp in a.params.items():
+        for pn, t in lp.items():
+            if not torch.equal(t, again.params[ln][pn]):
+                raise RuntimeError(f"[resnet50] two card runs differ at "
+                                   f"{ln}/{pn}")
+    del a, again, twin
+
+    # one step's launches, exactly: 53 forwards and 53 f32 recomputes,
+    # dW of all 53, dx of all but the stem (its input is the data)
+    dispatch.reset_launch_counts()
+    net.fit(batches[1])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    if per_step != expect(conv_block=106, conv_bwd_data=52, conv_bwd_w=53):
+        raise RuntimeError(f"[resnet50] one step launched {per_step}")
+    del net
+
+    # the main path: a fresh network fits the minibatches, timed
+    model = ComputationGraph(conf, device="cuda").init(params=init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS // len(batches)):
+        for ds in batches:
+            scores.append(model.fit_minibatch(ds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    steps = model.iteration_count
+    if steps != RESNET_STEPS or launches != {k: v * steps
+                                             for k, v in per_step.items()}:
+        raise RuntimeError(f"[resnet50] {steps} steps launched {launches}")
+    for k, v in launches.items():
+        main[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    scores = [float(s) for s in scores]
+    # the training score of the first minibatch, first and last epoch
+    if not all(np.isfinite(scores)) or not scores[-2] < scores[0]:
+        raise RuntimeError(f"[resnet50] the score did not fall: {scores}")
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches))
+    device_ms /= 2
+    ms_per_step = wall / steps * 1e3
+    res = {"steps": steps, "batch": RESNET_BATCH,
+           "examples_per_s": steps * RESNET_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "scores": scores, "max_memory_allocated_gb": peak / 1e9,
+           "launches_per_output": {k: v for k, v in per_output.items() if v},
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "output_max_abs_err_vs_plain": out_err,
+           "twin_scores": {"card": card_scores, "cpu": cpu_scores},
+           "twin_max_share_of_move": worst_share,
+           "twin_running_stats_max_abs_err": state_err,
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[resnet50] {json.dumps(res)} card={card}")
+    return main, init, batches
+
+
+def run_resnet50_dp(torch, card, init, batches):
+    """[resnet50-dp] ``DistributedTrainer(ComputationGraph(resnet50()),
+    batch_stats="sync")`` over an NCCL group of world size 1 (formed
+    here through a file rendezvous in a temporary directory): three
+    steps from the same weights as a plain graph's ``fit_minibatch``,
+    held to it bit for bit (scores, weights, running statistics: the
+    all-reduces of a world of one add nothing), and one ``zero=True``
+    step held bitwise to the replicated step. Returns the launch counts
+    of the trainer's steps."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    conf = resnet50(learning_rate=0.01)
+    steps = 3
+    tmp = tempfile.mkdtemp(prefix="dl4j_rdv_")
+    main = {k: 0 for k in dispatch.KERNELS}
+    try:
+        dev = init_distributed(f"file://{tmp}/rdv", 1, 0, device="cuda",
+                               timeout_s=120)
+        mesh = build_mesh()
+        if dist.get_backend() != "nccl" or mesh.backend != "nccl":
+            raise RuntimeError(f"[resnet50-dp] formed {dist.get_backend()}")
+        print(f"[resnet50-dp] NCCL world of {mesh.data} on {dev}, "
+              f"batch_stats='sync', batch {RESNET_BATCH}")
+        plain = ComputationGraph(conf, device="cuda").init(params=init)
+        plain_scores, plain_ms = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_scores.append(float(plain.fit_minibatch(
+                batches[i % len(batches)])))
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        model = ComputationGraph(conf, device="cuda").init(params=init)
+        tr = DistributedTrainer(model, mesh=mesh, batch_stats="sync")
+        dp_scores, dp_ms = [], []
+        dispatch.reset_launch_counts()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp_scores.append(float(tr.fit_minibatch(
+                batches[i % len(batches)])))
+            dp_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dispatch.launch_counts()
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(conv_block=106 * steps, conv_bwd_data=52 * steps,
+                    conv_bwd_w=53 * steps)
+        if launches != want:
+            raise RuntimeError(f"[resnet50-dp] {steps} steps launched "
+                               f"{launches}")
+        for k, v in launches.items():
+            main[k] += v
+        if any(t.device.type != "cuda" for lp in model.params.values()
+               for t in lp.values()):
+            raise RuntimeError("[resnet50-dp] a parameter left the card")
+        # a world of one: the all-reduces add nothing and BN's statistics
+        # are the same sums over the same count, so the same bits
+        same = dp_scores == plain_scores and all(
+            torch.equal(t, plain.params[ln][pn])
+            for ln, lp in model.params.items() for pn, t in lp.items()
+        ) and all(torch.equal(t, plain.state[ln][k])
+                  for ln, st in model.state.items() for k, t in st.items())
+        if not same:
+            raise RuntimeError("[resnet50-dp] the trainer's steps differ "
+                               "from the plain graph's")
+        del plain, model, tr
+        # one step with ZeRO-1 against the replicated step, from the
+        # same weights: the same bits (every updater rule is elementwise)
+        pair = []
+        for zero in (False, True):
+            g = ComputationGraph(conf, device="cuda").init(params=init)
+            t = DistributedTrainer(g, mesh=mesh, batch_stats="sync",
+                                   zero=zero)
+            s = float(t.fit_minibatch(batches[0]))
+            pair.append((g, t, s))
+        (rep, _, s_rep), (zro, ztr, s_zero) = pair
+        if s_rep != s_zero or any(
+                not torch.equal(t, zro.params[ln][pn])
+                for ln, lp in rep.params.items() for pn, t in lp.items()):
+            raise RuntimeError("[resnet50-dp] zero=True differs from the "
+                               "replicated step")
+        res = {"world": mesh.data, "backend": mesh.backend,
+               "batch": RESNET_BATCH, "steps": steps,
+               "scores": dp_scores, "plain_scores": plain_scores,
+               "trainer_ms_per_step": dp_ms, "plain_ms_per_step": plain_ms,
+               "bitwise_vs_plain": True, "zero_bitwise": True,
+               "updater_state_bytes_per_device":
+                   ztr.updater_state_bytes_per_device,
+               "zero_shard_bytes": ztr.zero_shard_bytes,
+               "launches_per_step": {k: v // steps for k, v in
+                                     launches.items() if v}}
+        print(f"[resnet50-dp] {json.dumps(res)} card={card}")
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(tmp, ignore_errors=True)
     return main
 
 
@@ -1663,18 +2041,28 @@ INTENDED_ROUTES = {
     # ops.conv_block.conv_block_route: the wide implicit GEMM for
     # AlexNet's five convs at batch 64, LeNet's two at the training
     # batch and its first at the serving bucket, VGG-16's convs down to
-    # 4 x 4 at batch 128; the direct tile (split k) for LeNet's second
-    # at the bucket and VGG-16's 2 x 2 convs
+    # 4 x 4 at batch 128 and all of ResNet-50's; the direct tile (split
+    # k) for LeNet's second at the bucket and VGG-16's 2 x 2 convs
     "conv_block": (("alexnet.", "wide"), ("lenet256.", "wide"),
                    ("lenet.conv1", "wide"), ("lenet.conv2", "direct"),
-                   ("vgg16.conv10", "direct"), ("vgg16.", "wide")),
+                   ("vgg16.conv10", "direct"), ("vgg16.", "wide"),
+                   ("resnet50.", "wide")),
     # VGG-16: the resident route at 16 x 16 and 8 x 8 (conv2-conv6), the
     # implicit GEMM at 32 x 32 and below 8 x 8; dW on the implicit GEMM
+    # ResNet-50 (batch 128): the resident route at 14 x 14, c 1024 (16-
+    # channel groups), at the 3 x 3 stride-2 conv onto 7 x 7 (4-channel
+    # groups: the GEMM multiplies the taps no output reaches) and at 7 x
+    # 7, c 2048 (32-channel groups); the implicit GEMM elsewhere, and for
+    # every dW
     "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm"),
                       ("vgg16.conv1", "gemm"), ("vgg16.conv7", "gemm"),
-                      ("vgg16.conv8", "gemm"), ("vgg16.", "resident")),
+                      ("vgg16.conv8", "gemm"), ("vgg16.", "resident"),
+                      ("resnet50.s2b1_c1", "resident"),
+                      ("resnet50.s3b0_c2", "resident"),
+                      ("resnet50.s3b1_c1", "resident"),
+                      ("resnet50.", "gemm")),
     "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm"),
-                   ("vgg16.", "gemm")),
+                   ("vgg16.", "gemm"), ("resnet50.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
                      ("alexnet.", "tiled"), ("vgg16.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
@@ -1992,16 +2380,18 @@ def main() -> int:
             records.append(rec)
             print(f"[kernel] {json.dumps(rec)}")
 
-    for name, kind_, geo, names in vgg_shapes():
-        if kind_.startswith("conv_bwd"):
-            rec = check_bwd_kernel(torch, "vgg16", name, kind_, geo, gen)
-        else:
-            rec = check_kernel(torch, F, "vgg16", name, kind_, geo, gen)
-        # a step launches the conv forward twice (the f32 recompute)
-        rec.update(vertices=names, launches_per_step=len(names) * (
-            2 if kind_ == "conv_block" else 1))
-        records.append(rec)
-        print(f"[kernel] {json.dumps(rec)}")
+    for model, shapes in (("vgg16", vgg_shapes()),
+                          ("resnet50", resnet_shapes())):
+        for name, kind_, geo, names in shapes:
+            if kind_.startswith("conv_bwd"):
+                rec = check_bwd_kernel(torch, model, name, kind_, geo, gen)
+            else:
+                rec = check_kernel(torch, F, model, name, kind_, geo, gen)
+            # a step launches the conv forward twice (the f32 recompute)
+            rec.update(vertices=names, launches_per_step=len(names) * (
+                2 if kind_ == "conv_block" else 1))
+            records.append(rec)
+            print(f"[kernel] {json.dumps(rec)}")
 
     for model, (T, b, n) in (("charrnn", (CHAR_TBPTT, CHAR_BATCH,
                                           CHAR_HIDDEN)),
@@ -2038,6 +2428,9 @@ def main() -> int:
     tx_paths = (tx_fit, tx_sample, tx_long)
     vgg = run_vgg16(torch, card)
     conv_bn = run_conv_bn(torch, card)
+    resnet, resnet_init, resnet_data = run_resnet50(torch, card)
+    resnet_dp = run_resnet50_dp(torch, card, resnet_init, resnet_data)
+    del resnet_init, resnet_data
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -2067,7 +2460,7 @@ def main() -> int:
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
-                         + vgg[k] + conv_bn[k]),
+                         + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -2077,15 +2470,20 @@ def main() -> int:
         if k in INTENDED_ROUTES:  # the kernel route its main path took
             entry["kernel_route"] = "+".join(sorted(
                 {r["kernel_route"] for r in main}))
-        # VGG-16's training step at batch 128: each shape's time by its
-        # launches a step, summed
-        vgg_recs = [r for r in mine if r["shape_of"].startswith("vgg16.")]
-        entry.update({f"vgg16_{key}_per_step": sum(
-            r[key] * r["launches_per_step"] for r in vgg_recs)
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")})
-        entry.update(vgg16_launches_per_step=sum(
-            r["launches_per_step"] for r in vgg_recs), vgg16_route="+".join(
-            sorted({r["kernel_route"] for r in vgg_recs})))
+        # VGG-16's and ResNet-50's training steps at batch 128: each
+        # shape's time by its launches a step, summed
+        for model in ("vgg16", "resnet50"):
+            recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
+            if not recs:
+                continue
+            entry.update({f"{model}_{key}_per_step": sum(
+                r[key] * r["launches_per_step"] for r in recs)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")})
+            entry.update({f"{model}_launches_per_step": sum(
+                r["launches_per_step"] for r in recs),
+                f"{model}_route": "+".join(
+                    sorted({r["kernel_route"] for r in recs}))})
         if k == "conv_block":  # AlexNet's five convs at batch 64, summed
             alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
             entry.update(alexnet_route="+".join(sorted(

@@ -1,9 +1,10 @@
 """DataSet container and the iterator SPI.
 
 Counterpart of ``deeplearning4j_tpu/datasets/api.py`` for ``DataSet``,
-``DataSetIterator``, ``ListDataSetIterator`` and
+``MultiDataSet``, ``DataSetIterator``, ``ListDataSetIterator`` and
 ``resolve_synthetic_opt_in``. Containers hold numpy arrays on the host;
-the network moves each minibatch to its device in ``fit_minibatch``.
+the network moves each minibatch to its device in ``fit_minibatch``
+(uint8 / int8 / int16 arrays at their own width, cast on the device).
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ class DataSet:
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
+
+
+@dataclass
+class MultiDataSet:
+    """Multi-input/multi-output container (reference nd4j MultiDataSet,
+    consumed by ComputationGraph): one array per graph input and per
+    output, and optionally one mask (or None) per input and per
+    output."""
+
+    features: Sequence[np.ndarray]
+    labels: Sequence[np.ndarray]
+    features_masks: Optional[Sequence[Optional[np.ndarray]]] = None
+    labels_masks: Optional[Sequence[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
 
 
 class DataSetIterator:

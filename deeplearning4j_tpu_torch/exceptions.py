@@ -9,3 +9,8 @@ class DL4JException(Exception):
 class DL4JInvalidConfigException(DL4JException, ValueError):
     """A configuration that cannot be built or run."""
 
+
+
+class DL4JFaultException(DL4JException):
+    """A runtime fault (a process group that cannot be formed or is
+    formed twice, a lost peer)."""

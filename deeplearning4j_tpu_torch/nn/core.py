@@ -1,10 +1,12 @@
 """The sequential forward, the score and the train step shared by the
 network engines.
 
-Counterpart of ``deeplearning4j_tpu/nn/core.py`` for the sequential
+Counterpart of ``deeplearning4j_tpu/nn/core.py`` for the host-to-device
+move with its cast on the device (``to_device``), the sequential
 forward (inference and training, with the features mask),
 ``sequential_score`` with the L1/L2 penalty, the plain train step
-(``grad_step`` + ``finish_step``, assembled by ``build_step``) and the
+(``grad_step`` + ``finish_step``, assembled by ``build_step``), gradient
+accumulation over contiguous microbatches (``accum_grad_step``) and the
 ``rnn_time_step`` bookkeeping (``stream_guard_and_prime``,
 ``extract_stream_state``). PyTorch runs eagerly, so the step is an
 ordinary function that returns new parameters, updater state and layer
@@ -12,14 +14,14 @@ state (BatchNormalization's running statistics). The inference forward
 folds a Conv(identity) -> BatchNormalization pair into one conv kernel
 launch, as the JAX package's does. The JAX package's whole-net
 transforms (scan over layers, remat) and its guarded / loss-scaled /
-accumulated / megastep step flavours have no counterpart yet
-(ROADMAP).
+megastep step flavours have no counterpart yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 _DTYPES = {
@@ -44,6 +46,22 @@ def dtype_of(conf) -> torch.dtype:
 
 def compute_dtype_of(conf) -> torch.dtype:
     return torch_dtype(conf.compute_dtype or conf.dtype)
+
+
+# integer types that cross to the device at their own width (uint8
+# pixels and one-hots: a quarter of the f32 bytes) and are cast there
+NARROW_INTS = (torch.uint8, torch.int8, torch.int16)
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A host array or tensor as a contiguous tensor on ``device`` in
+    ``dtype`` (JAX ``core.to_device``): uint8 / int8 / int16 data moves
+    at its own width and is cast on the device, everything else is
+    cast first."""
+    t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
+    if dtype is not None and t.dtype in NARROW_INTS:
+        t = t.to(device=device)
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
 def reg_penalty(layer, layer_params):
@@ -125,12 +143,15 @@ def sequential_score(conf, layer_names: Sequence[str],
                      x: torch.Tensor, labels: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, *,
                      train: bool, gen: Optional[torch.Generator] = None,
-                     fmask: Optional[torch.Tensor] = None):
+                     fmask: Optional[torch.Tensor] = None,
+                     weights=None):
     """Loss score plus the L1/L2 penalty (the reference's
     computeGradientAndScore adds calcL1/calcL2 to the loss); returns
     ``(score, new_state)``. ``mask`` is the labels mask; for 3-d labels
     without one the features mask ``fmask`` masks the loss (the
-    reference's output-layer masking)."""
+    reference's output-layer masking). ``weights`` = ``([loss weight],
+    penalty weight)`` scales the two terms (a data-parallel rank's share
+    of the global score); None: both 1."""
     from deeplearning4j_tpu_torch.nn import losses
 
     last = conf.layers[-1]
@@ -147,6 +168,9 @@ def sequential_score(conf, layer_names: Sequence[str],
     reg = 0.0
     for lname, layer in zip(layer_names, conf.layers):
         reg = reg + reg_penalty(layer, params[lname])
+    if weights is not None:
+        (w_out,), w_reg = weights
+        return score * w_out + reg * w_reg, new_state
     return score + reg, new_state
 
 
@@ -182,14 +206,112 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
     return new_params, new_upd, new_state, score
 
 
-def build_step(score_fn: Callable, updater) -> Callable:
+def split_rows(tree, k: int) -> list:
+    """``k`` contiguous row blocks of every tensor in ``tree`` (a
+    tensor, a list of tensors or Nones, or None): block j holds rows
+    ``[j*n/k, (j+1)*n/k)``."""
+    if tree is None:
+        return [None] * k
+    if isinstance(tree, (list, tuple)):
+        parts = [split_rows(t, k) for t in tree]
+        return [[p[j] for p in parts] for j in range(k)]
+    n = int(tree.shape[0])
+    m = n // k
+    return [tree[j * m:(j + 1) * m] for j in range(k)]
+
+
+def accum_grad_step(micro_grads: Callable, k: int, state,
+                    recurrent_names: Sequence[str] = ()):
+    """Gradient accumulation (JAX ``core.accum_grad_step``): ``k``
+    microbatches, ``micro_grads(j, state) -> ((score, new_state),
+    grads)`` for microbatch j, their gradients and scores summed in f32
+    and averaged. The layer state threads from microbatch to microbatch;
+    recurrent carries are restored to the incoming ones after each.
+    Returns ``((score, last_state), grads)``, the contract of
+    ``grad_step``."""
+    acc = ssum = None
+    st = state
+    for j in range(k):
+        (score, new_st), grads = micro_grads(j, st)
+        new_st = dict(new_st)
+        for name in recurrent_names:
+            if name in new_st:
+                new_st[name] = st.get(name, {})
+        st = new_st
+        f32 = {ln: {pn: g.float() for pn, g in lg.items()}
+               for ln, lg in grads.items()}
+        if acc is None:
+            acc, ssum = f32, score.float()
+        else:
+            acc = {ln: {pn: acc[ln][pn] + g for pn, g in lg.items()}
+                   for ln, lg in f32.items()}
+            ssum = ssum + score.float()
+    inv = 1.0 / k
+    out = {ln: {pn: (a * inv).to(grads[ln][pn].dtype)
+                for pn, a in la.items()} for ln, la in acc.items()}
+    return (ssum * inv, st), out
+
+
+def check_grad_accum(layers, k) -> int:
+    """A positive microbatch count, and no batch-statistics layer when
+    it is above 1 (each microbatch would compute its own
+    BatchNormalization statistics: other math than the whole batch's);
+    JAX ``core.check_grad_accum``."""
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {k}")
+    if k > 1 and any(layer.uses_batch_statistics() for layer in layers):
+        raise ValueError(
+            "grad_accum > 1 is incompatible with batch-statistics "
+            "layers (BatchNormalization): each microbatch would "
+            "compute its own batch stats, changing the math vs the "
+            "single-big-batch step")
+    return k
+
+
+def set_grad_accum(model, k) -> None:
+    """Each optimizer step of ``model`` (either engine) accumulates ``k``
+    contiguous microbatches' gradients (JAX ``core.set_grad_accum``);
+    persists until changed, and a change drops the cached step."""
+    if int(k) > 1 and model.conf.backprop_type == "TruncatedBPTT":
+        raise ValueError(
+            "grad_accum > 1 is incompatible with TBPTT: the recurrent "
+            "carry threads between chunks, so a chunk cannot split into "
+            "independent microbatches")
+    k = check_grad_accum(model.layer_confs(), k)
+    if k != model.grad_accum:
+        model.grad_accum = k
+        model._step = None
+
+
+def check_grad_accum_batch(k: int, batch_n: int) -> None:
+    if k > 1 and batch_n % k != 0:
+        raise ValueError(
+            f"grad_accum={k} needs the batch to split into equal "
+            f"microbatches; got batch size {batch_n}")
+
+
+def build_step(score_fn: Callable, updater, grad_accum: int = 1,
+               recurrent_names: Sequence[str] = ()) -> Callable:
     """One eager SGD-family train step: ``step(params, upd_state, state,
     x, labels, mask, lrs, t, fmask=None) -> (params, upd_state, state,
-    score)``."""
+    score)``. With ``grad_accum`` = K > 1 the batch runs as K contiguous
+    microbatches (``accum_grad_step``) before the one update."""
 
     def step(params, upd_state, state, x, labels, mask, lrs, t, fmask=None):
-        (score, new_state), grads = grad_step(score_fn, params, state, x,
-                                              labels, mask, fmask)
+        if grad_accum > 1:
+            micro = list(zip(*(split_rows(a, grad_accum)
+                               for a in (x, labels, mask, fmask))))
+
+            def micro_grads(j, st):
+                return grad_step(score_fn, params, st, *micro[j][:3],
+                                 micro[j][3])
+
+            (score, new_state), grads = accum_grad_step(
+                micro_grads, grad_accum, state, recurrent_names)
+        else:
+            (score, new_state), grads = grad_step(score_fn, params, state,
+                                                  x, labels, mask, fmask)
         return finish_step(updater, grads, score, new_state, params,
                            upd_state, lrs, t)
 

@@ -13,11 +13,14 @@ arrays map onto them 1:1.
 
 Training is the plain per-step loop of ``nn/core.py`` (``build_step``):
 each minibatch runs ``conf.iterations`` optimizer steps at the scheduled
-learning rates. The JAX engine's ``scan_chunk`` fuses 16 minibatches
-into one dispatch with the same trajectory; it is not ported. Neither
-are graph truncated BPTT, ``rnn_time_step``, AOT export, megastep,
-``grad_accum``, the whole-net transforms, ``pretrain``, ``evaluate`` and
-the divergence guard: each raises, naming the slice that brings it.
+learning rates, with ``fit(grad_accum=K)`` as K contiguous microbatches
+a step. Inputs cross to the device at their own width where they are
+uint8 / int8 / int16 and are cast there (``core.to_device``). The JAX
+engine's ``scan_chunk`` fuses 16 minibatches into one dispatch with the
+same trajectory; it is not ported. Neither are graph truncated BPTT,
+``rnn_time_step``, AOT export, megastep, the whole-net transforms,
+``pretrain``, ``evaluate`` and the divergence guard: each raises, naming
+the slice that brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
@@ -78,6 +81,8 @@ class ComputationGraph:
         self.iteration_count = 0
         self.epoch_count = 0
         self._last_score = float("nan")
+        self._last_batch_rows = 0
+        self.grad_accum = 1
         self._step = None
 
     @property
@@ -86,16 +91,17 @@ class ComputationGraph:
         return float(self._last_score)
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
-        return t.to(device=self.device, dtype=dtype).contiguous()
+        return core.to_device(a, self.device, dtype)
 
-    def _tensors(self, arrays) -> Optional[List[Optional[torch.Tensor]]]:
-        """Host or device arrays -> tensors on the device in the
-        configuration's dtype; None stays None."""
+    def _tensors(self, arrays, device=None
+                 ) -> Optional[List[Optional[torch.Tensor]]]:
+        """Host or device arrays -> tensors on the device (or
+        ``device``) in the configuration's dtype; None stays None."""
         if arrays is None:
             return None
         dtype = core.dtype_of(self.conf)
-        return [None if a is None else self._to_device(a, dtype)
+        dev = self.device if device is None else device
+        return [None if a is None else core.to_device(a, dev, dtype)
                 for a in arrays]
 
     def _layer(self, name: str):
@@ -200,9 +206,11 @@ class ComputationGraph:
         return values, preouts, new_state
 
     def _score_pure(self, params, state, inputs, labels, lmasks, *,
-                    train: bool, fmasks=None):
+                    train: bool, fmasks=None, weights=None):
         """The sum of the output vertices' losses plus the L1/L2 penalty;
-        returns ``(score, new_state)``."""
+        returns ``(score, new_state)``. ``weights`` = ``([one weight an
+        output], penalty weight)`` scales the terms (a data-parallel
+        rank's share of the global score); None: all 1."""
         from deeplearning4j_tpu_torch.nn import losses
 
         _, preouts, new_state = self._forward_values(
@@ -215,12 +223,15 @@ class ComputationGraph:
                 raise ValueError(
                     f"Output vertex '{out_name}' has no loss function")
             m = lmasks[i] if lmasks is not None else None
-            score = score + losses.score(layer.loss, labels[i],
-                                         preouts[out_name], layer.activation,
-                                         m, True)
+            term = losses.score(layer.loss, labels[i], preouts[out_name],
+                                layer.activation, m, True)
+            score = score + (term if weights is None
+                             else term * weights[0][i])
         reg = 0.0
         for n in self.layer_vertex_names:
             reg = reg + core.reg_penalty(self._layer(n), params[n])
+        if weights is not None:
+            reg = reg * weights[1]
         return score + reg, new_state
 
     # -- inference ---------------------------------------------------------
@@ -277,13 +288,22 @@ class ComputationGraph:
         for n in self.layer_vertex_names:
             self._layer(n).check_train(True)
 
+    def recurrent_names(self) -> List[str]:
+        return [n for n in self.layer_vertex_names
+                if self._layer(n).is_recurrent()]
+
+    def layer_confs(self) -> list:
+        return [self._layer(n) for n in self.layer_vertex_names]
+
     def _train_step(self):
         if self._step is None:
             def score_fn(params, state, inputs, labels, lmasks, fmasks):
                 return self._score_pure(params, state, inputs, labels,
                                         lmasks, train=True, fmasks=fmasks)
 
-            self._step = core.build_step(score_fn, self.updater_def)
+            self._step = core.build_step(score_fn, self.updater_def,
+                                         self.grad_accum,
+                                         self.recurrent_names())
         return self._step
 
     def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
@@ -293,10 +313,11 @@ class ComputationGraph:
         iterable of objects with ``.features`` / ``.labels`` (a list of
         arrays each, or one array), one such object, or the inputs of an
         (inputs, labels) pair. An iterator with ``reset()`` is reset
-        after each epoch."""
-        if grad_accum is not None and int(grad_accum) != 1:
-            raise NotImplementedError(
-                "fit: grad_accum arrives with the distribution slice")
+        after each epoch. ``grad_accum=K``: each optimizer step
+        accumulates K equal microbatches (persists until changed;
+        BatchNormalization configurations refuse it)."""
+        if grad_accum is not None:
+            core.set_grad_accum(self, grad_accum)
         if megastep is not None and int(megastep) != 1:
             raise NotImplementedError(
                 "fit: megastep arrives with the runtime subsystems slice")
@@ -331,9 +352,9 @@ class ComputationGraph:
         if self.params is None:
             self.init()
         self._check_trainable()
-        f, l, fm, lm = _ds_arrays(ds)
-        inputs, labels = self._tensors(f), self._tensors(l)
-        fmasks, lmasks = self._tensors(fm), self._tensors(lm)
+        inputs, labels, lmasks, fmasks = self.batch_tensors(ds)
+        core.check_grad_accum_batch(self.grad_accum, int(inputs[0].shape[0]))
+        self._last_batch_rows = int(inputs[0].shape[0])
         if (self.conf.backprop_type == "TruncatedBPTT" and any(
                 x.dim() == 3 and x.shape[2] > self.conf.tbptt_fwd_length
                 for x in inputs)):
@@ -350,11 +371,21 @@ class ComputationGraph:
                 lmasks, lrs, t, fmasks)
             self.iteration_count += 1
             self._last_score = score
-            # each pass over the minibatch starts from a zero carry
-            for n in self.layer_vertex_names:
-                if self._layer(n).is_recurrent():
-                    self.state[n] = {}
+            self._reset_recurrent_state()
         return score
+
+    def batch_tensors(self, ds, device=None):
+        """(inputs, labels, labels masks, features masks) of a DataSet
+        or MultiDataSet as the step takes them: lists of tensors on the
+        graph's device (or ``device``) in the configuration's dtype
+        (masks: None or lists)."""
+        f, l, fm, lm = _ds_arrays(ds)
+        return tuple(self._tensors(a, device) for a in (f, l, lm, fm))
+
+    def _reset_recurrent_state(self) -> None:
+        """Each pass over a minibatch starts from a zero carry."""
+        for n in self.recurrent_names():
+            self.state[n] = {}
 
     # -- what the port does not carry yet ------------------------------------
 

@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
     SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    ActivationLayer,
     DenseLayer,
     OutputLayer,
 )
@@ -32,6 +33,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 
 __all__ = [
     "LAYER_REGISTRY",
+    "ActivationLayer",
     "BatchNormalization",
     "ConvolutionLayer",
     "DenseLayer",

@@ -225,6 +225,12 @@ class LayerSpec:
     def has_loss(self) -> bool:
         return False
 
+    def uses_batch_statistics(self) -> bool:
+        """True for layers whose training forward couples the rows of a
+        batch (BatchNormalization): data-parallel and accumulated steps
+        treat them apart."""
+        return False
+
     def input_kind(self) -> str:
         """Data family this layer consumes: feedforward | convolutional
         | recurrent | any. Drives auto-preprocessor insertion."""

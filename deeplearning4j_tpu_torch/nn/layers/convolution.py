@@ -14,15 +14,19 @@ XLA's ``reduce_window`` max does. BatchNormalization keeps its running
 mean and variance in the layer state and normalizes through one
 per-channel affine; at inference a Conv(identity) -> BN pair folds into
 one ``conv_block`` launch whose epilogue takes that affine
-(``maybe_fused_conv_bn``). LRN is plain PyTorch (the JAX package has no
-kernel for it either).
+(``maybe_fused_conv_bn``). Under ``global_batch_statistics`` (the
+data-parallel trainer's ``batch_stats="sync"``) a training forward
+takes its statistics over every rank's rows. LRN is plain PyTorch (the
+JAX package has no kernel for it either).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -138,6 +142,25 @@ class SubsamplingLayer(LayerSpec):
         raise ValueError(f"Unknown pooling type '{self.pooling_type}'")
 
 
+# (all-reduce sum, ranks) while a data-parallel step wants global batch
+# statistics; None: each forward's own batch
+_GLOBAL_STATS: contextvars.ContextVar = contextvars.ContextVar(
+    "dl4j_global_batch_statistics", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_statistics(reduce_sum: Callable, ranks: int):
+    """Within the block, a BatchNormalization training forward takes its
+    mean and variance over the rows of all ``ranks`` ranks (equal
+    shards): ``reduce_sum`` sums a tensor over the ranks and is
+    differentiable, so the backward sees the global statistics too."""
+    token = _GLOBAL_STATS.set((reduce_sum, int(ranks)))
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.reset(token)
+
+
 @register_layer
 @dataclass(frozen=True)
 class BatchNormalization(LayerSpec):
@@ -172,6 +195,9 @@ class BatchNormalization(LayerSpec):
     def regularizable_params(self) -> tuple:
         return ()  # gamma and beta take no L1/L2 penalty
 
+    def uses_batch_statistics(self) -> bool:
+        return True
+
     def init_params(self, gen, dtype=torch.float32) -> dict:
         if self.lock_gamma_beta:
             return {}
@@ -191,16 +217,7 @@ class BatchNormalization(LayerSpec):
         else:
             axes, bshape = (0,), (1, -1)
         if train:
-            if x.dtype in (torch.bfloat16, torch.float16):
-                # one pass: the sums and the sums of squares in f32
-                cnt = float(x.numel() // x.shape[1])
-                xf = x.float()
-                mean = xf.sum(axes) / cnt
-                var = torch.clamp(
-                    (xf * xf).sum(axes) / cnt - mean * mean, min=0.0)
-            else:
-                mean = x.mean(axes)
-                var = torch.square(x - mean.reshape(bshape)).mean(axes)
+            mean, var = self._batch_stats(x, axes, bshape)
             new_state = {
                 k: (self.decay * state[k]
                     + (1 - self.decay) * v.detach().to(state[k].dtype))
@@ -212,6 +229,32 @@ class BatchNormalization(LayerSpec):
         a, b = self._affine_from_stats(params, mean, var)
         y = x * a.to(x.dtype).reshape(bshape) + b.to(x.dtype).reshape(bshape)
         return self.activate_fn()(y), new_state
+
+    def _batch_stats(self, x, axes, bshape):
+        """(mean, variance) of the training batch: f32 / f64 in two
+        passes (the centred variance), bf16 / f16 in one f32 pass of
+        sums and sums of squares. Under ``global_batch_statistics`` the
+        sums run over every rank's rows."""
+        glob = _GLOBAL_STATS.get()
+        if x.dtype in (torch.bfloat16, torch.float16):
+            # one pass: the sums and the sums of squares in f32
+            xf = x.float()
+            sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
+            cnt = float(x.numel() // x.shape[1])
+            if glob is not None:
+                sums, cnt = glob[0](sums), cnt * glob[1]
+            mean = sums[0] / cnt
+            return mean, torch.clamp(sums[1] / cnt - mean * mean, min=0.0)
+        # sums over the count, the same ops with and without the ranks:
+        # a world of one gives the single-device bits
+        reduce_sum, ranks = glob if glob is not None else (None, 1)
+        cnt = float(x.numel() // x.shape[1]) * ranks
+        total = x.sum(axes)
+        mean = (total if reduce_sum is None else reduce_sum(total)) / cnt
+        centred = torch.square(x - mean.reshape(bshape)).sum(axes)
+        if reduce_sum is not None:
+            centred = reduce_sum(centred)
+        return mean, centred / cnt
 
     def _affine_from_stats(self, params, mean, var):
         """The normalization as a per-channel ``(a, b)``, ``y = a*x +

@@ -1,4 +1,4 @@
-"""Feed-forward layers: Dense and Output.
+"""Feed-forward layers: Dense, Output and Activation.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py``.
 ``DenseLayer`` routes to the fused ``matmul_block`` kernel when its
@@ -8,6 +8,8 @@ JAX package leaves it to XLA: the row-wise softmax is no per-element
 epilogue), followed by the plain softmax. ``W`` is ``[n_in, n_out]``
 and ``y = x @ W + b``, as in the JAX package. An output layer scores
 its pre-output with its loss (``compute_score``, ``nn/losses.py``).
+``ActivationLayer`` applies its activation alone, to any input family
+(ResNet's ReLU after each residual add).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.layers.base import (
     FeedForwardLayerSpec,
+    LayerSpec,
     register_layer,
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
@@ -73,3 +76,18 @@ class OutputLayer(BaseOutputLayerSpec):
     softmax+MCXENT."""
 
     activation: str = "softmax"
+
+
+@register_layer
+@dataclass(frozen=True)
+class ActivationLayer(LayerSpec):
+    """Pure activation (reference ``nn/conf/layers/ActivationLayer``).
+    Shape-agnostic: consumes any input family unchanged (e.g. the ReLU
+    after a residual ElementWiseVertex add in conv stacks)."""
+
+    def input_kind(self) -> str:
+        return "any"
+
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+        self.check_train(train)
+        return self.activate_fn()(x), state

@@ -14,16 +14,19 @@ BatchNormalization pair runs as one conv kernel launch (``nn/core.py``).
 
 Training is the plain per-step loop (``nn/core.py`` ``build_step``):
 each minibatch runs ``conf.iterations`` optimizer steps at the
-scheduled learning rates, with Adam's ``t = iteration + 1``, and the
-recurrent carry is reset after each. Under truncated BPTT a minibatch
+scheduled learning rates, with Adam's ``t = iteration + 1`` (with
+``fit(grad_accum=K)`` each step runs K contiguous microbatches), and
+the recurrent carry is reset after each. Inputs cross to the device at
+their own width where they are uint8 / int8 / int16 and are cast there
+(``core.to_device``). Under truncated BPTT a minibatch
 longer than ``tbptt_fwd_length`` is cut into chunks along time, one
 optimizer step and one iteration a chunk, with the carry handed from
 chunk to chunk outside the graph (the JAX package's chunk loop; its
 fused single-dispatch scan has the same trajectory and is not ported).
 ``fit`` raises, naming the slice that brings them, for what the port
 does not carry yet: dropout / drop-connect, the line-search solvers,
-layer-wise pretraining, gradient accumulation, megastep dispatch, the
-divergence guard and loss scaling.
+layer-wise pretraining, megastep dispatch, the divergence guard and
+loss scaling.
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ class MultiLayerNetwork:
         self.iteration_count = 0
         self.epoch_count = 0
         self._last_score = float("nan")
+        self._last_batch_rows = 0
+        self.grad_accum = 1
         self._step = None
         # rnn_time_step's carried state (the reference's stateMap)
         self._rnn_state: Dict[str, dict] = {}
@@ -76,8 +81,7 @@ class MultiLayerNetwork:
         return float(self._last_score)
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
-        return t.to(device=self.device, dtype=dtype).contiguous()
+        return core.to_device(a, self.device, dtype)
 
     def init(self, params: Optional[dict] = None) -> "MultiLayerNetwork":
         """Fresh weights from ``conf.seed`` (drawn on a CPU
@@ -204,16 +208,30 @@ class MultiLayerNetwork:
             "whole-net transforms (scan_layers, remat, loss scaling, "
             "megastep) arrive with the runtime subsystems slice")
 
+    def _score_pure(self, params, state, x, labels, mask, *, train: bool,
+                    fmask=None, weights=None):
+        """The loss plus the L1/L2 penalty of ``x`` (``core.
+        sequential_score``); returns ``(score, new_state)``."""
+        return core.sequential_score(self.conf, self.layer_names, params,
+                                     state, x, labels, mask, train=train,
+                                     fmask=fmask, weights=weights)
+
+    def recurrent_names(self) -> List[str]:
+        return [n for n, layer in zip(self.layer_names, self.conf.layers)
+                if layer.is_recurrent()]
+
+    def layer_confs(self) -> list:
+        return list(self.conf.layers)
+
     def _train_step(self):
         if self._step is None:
-            conf, names = self.conf, self.layer_names
-
             def score_fn(params, state, x, labels, mask, fmask):
-                return core.sequential_score(conf, names, params, state, x,
-                                             labels, mask, train=True,
-                                             fmask=fmask)
+                return self._score_pure(params, state, x, labels, mask,
+                                        train=True, fmask=fmask)
 
-            self._step = core.build_step(score_fn, self.updater_def)
+            self._step = core.build_step(score_fn, self.updater_def,
+                                         self.grad_accum,
+                                         self.recurrent_names())
         return self._step
 
     def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
@@ -222,10 +240,12 @@ class MultiLayerNetwork:
         ``fit:1048``). ``data`` may be an iterable of objects with
         ``.features`` / ``.labels`` (and optional ``.labels_mask``),
         one such object, or the features of an (x, y) pair. An iterator
-        with ``reset()`` is reset after each epoch."""
-        if grad_accum is not None and int(grad_accum) != 1:
-            raise NotImplementedError(
-                "fit: grad_accum arrives with the distribution slice")
+        with ``reset()`` is reset after each epoch. ``grad_accum=K``:
+        each optimizer step accumulates K equal microbatches (persists
+        until changed; BatchNormalization configurations and truncated
+        BPTT refuse it)."""
+        if grad_accum is not None:
+            core.set_grad_accum(self, grad_accum)
         if megastep is not None and int(megastep) != 1:
             raise NotImplementedError(
                 "fit: megastep arrives with the runtime subsystems slice")
@@ -260,21 +280,29 @@ class MultiLayerNetwork:
         if self.params is None:
             self.init()
         self._check_trainable()
-        dtype = core.dtype_of(self.conf)
-        x = self._to_device(ds.features, dtype)
-        y = self._to_device(ds.labels, dtype)
-        mask = self._maybe_to_device(getattr(ds, "labels_mask", None), dtype)
-        fmask = self._maybe_to_device(getattr(ds, "features_mask", None),
-                                      dtype)
+        x, y, mask, fmask = self.batch_tensors(ds)
+        self._last_batch_rows = int(x.shape[0])
         if (self.conf.backprop_type == "TruncatedBPTT" and x.dim() == 3
                 and x.shape[2] > self.conf.tbptt_fwd_length):
             return self._fit_tbptt(x, y, mask, fmask)
+        core.check_grad_accum_batch(self.grad_accum, int(x.shape[0]))
         score = None
         for _ in range(self.conf.iterations):
             score = self._one_step(x, y, mask, fmask)
             # each pass over the minibatch starts from a zero carry
             self._reset_recurrent_state()
         return score
+
+    def batch_tensors(self, ds, device=None):
+        """(features, labels, labels mask, features mask) of a DataSet as
+        the step takes them: tensors on the network's device (or
+        ``device``) in the configuration's dtype (masks may be None)."""
+        dtype = core.dtype_of(self.conf)
+        dev = self.device if device is None else device
+        return tuple(None if a is None else core.to_device(a, dev, dtype)
+                     for a in (ds.features, ds.labels,
+                               getattr(ds, "labels_mask", None),
+                               getattr(ds, "features_mask", None)))
 
     def _one_step(self, x, y, mask, fmask) -> torch.Tensor:
         step = self._train_step()

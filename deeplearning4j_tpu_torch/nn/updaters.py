@@ -202,6 +202,26 @@ class MultiLayerUpdaterDef:
         return {ln: scheduled_lr(s, iteration)
                 for ln, s in self.settings.items()}
 
+    def param_lr(self, ln: str, pn: str, lrs: Dict[str, float]) -> float:
+        """The learning rate of one parameter: biases (names in
+        ``bias_params``) take ``bias_learning_rate`` when it is set."""
+        s = self.settings[ln]
+        if (pn in s.bias_params and s.bias_learning_rate is not None
+                and s.learning_rate != 0):
+            return lrs[ln] * (s.bias_learning_rate / s.learning_rate)
+        return lrs[ln]
+
+    @torch.no_grad()
+    def update_param(self, ln: str, pn: str, g: torch.Tensor, state: tuple,
+                     p: torch.Tensor, lrs: Dict[str, float], t: int):
+        """The rule on one parameter (or any slice of it: every rule is
+        elementwise); returns ``(new_param, new_state)`` in the dtypes
+        of ``p`` and ``state``."""
+        step, st = apply_updater(self.settings[ln], g, state,
+                                 self.param_lr(ln, pn, lrs), t)
+        return ((p - step).to(p.dtype),
+                tuple(a.to(o.dtype) for a, o in zip(st, state)))
+
     @torch.no_grad()
     def update(self, grads: Params, state: State, params: Params,
                lrs: Dict[str, float], t: int) -> Tuple[Params, State]:
@@ -214,20 +234,11 @@ class MultiLayerUpdaterDef:
         new_params: Params = {}
         new_state: State = {}
         for ln, lgrads in grads.items():
-            s = self.settings[ln]
-            lgrads = normalize_layer_grads(s, lgrads)
-            lr = lrs[ln]
-            bias_scale = (s.bias_learning_rate / s.learning_rate
-                          if (s.bias_learning_rate is not None
-                              and s.learning_rate != 0) else 1.0)
+            lgrads = normalize_layer_grads(self.settings[ln], lgrads)
             np_, ns_ = {}, {}
             for pn, g in lgrads.items():
-                p = params[ln][pn]
-                p_lr = lr * bias_scale if pn in s.bias_params else lr
-                step, st = apply_updater(s, g, state[ln][pn], p_lr, t)
-                np_[pn] = (p - step).to(p.dtype)
-                ns_[pn] = tuple(a.to(o.dtype)
-                                for a, o in zip(st, state[ln][pn]))
+                np_[pn], ns_[pn] = self.update_param(
+                    ln, pn, g, state[ln][pn], params[ln][pn], lrs, t)
             new_params[ln] = np_
             new_state[ln] = ns_
         return new_params, new_state

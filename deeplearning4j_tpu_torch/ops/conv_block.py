@@ -170,8 +170,12 @@ def _plain_forward(x, w, scale, shift, stride, padding, activation,
 # work has at least WIDE_MIN_TILES tiles (LeNet-5's first conv at the
 # bucket of 32: 72 tiles, 3 % under the direct route's time) and the
 # ring plus the tap table fit a block's shared memory. Elsewhere, and
-# in bf16 / f16, the direct route. The tiles, their layouts and the cost
-# model are fitted to scripts/torch_route_ab.py --sweep (PERF.md).
+# in bf16 / f16, the direct route. Where the reduction is at most
+# WIDE_SHALLOW_K deep, the epilogue's stores weigh as much as the sums,
+# and only the tiles with coalesced lane stores compete (ResNet-50's 1 x
+# 1 convs over 64 channels at batch 128: 96 x 128 ran 0.556 ms where
+# 128 x 128 ran 0.661). The tiles, their layouts and the cost model are
+# fitted to scripts/torch_route_ab.py --sweep (PERF.md).
 ROUTE_CODES = {"direct": 0, "wide": 1}
 WIDE_TILES = {(96, 256): (1, True), (128, 128): (2, True),
               (96, 128): (2, False), (32, 256): (2, False)}
@@ -179,6 +183,7 @@ WIDE_K_SLICE = 16
 WIDE_STAGES = 4
 WIDE_MIN_TILES = 64
 WIDE_SOLO_ROWS = 64
+WIDE_SHALLOW_K = 64
 WIDE_PAD_TAP = 0x7FFF  # a tap-table dh that fails every bounds check
 BLOCK_SMEM_BYTES = 232_448  # a block's shared memory on an H100
 SM_COUNT = 132  # H100 SXM
@@ -255,7 +260,8 @@ def conv_block_route(n: int, c: int, h: int, w: int, o: int, kh: int,
                      dtype=torch.float32) -> ConvRoute:
     """The forward's kernel route for an ``[n, c, h, w]`` input under
     ``[o, c, kh, kw]`` weights: ``"wide"`` in f32 where the wide tile
-    with the least wave-quantised work (ties: the larger tile) has at
+    with the least wave-quantised work (ties: the larger tile; at a
+    depth of at most WIDE_SHALLOW_K the lane-store tiles alone) has at
     least WIDE_MIN_TILES tiles and its ring and tap table fit a block,
     else ``"direct"``. Decided from the shape alone (and kept per shape:
     it runs at every launch)."""
@@ -264,7 +270,8 @@ def conv_block_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     ow = conv_output_size(w, kw, sw, pw)
     k_pad = -(-c * kh * kw // WIDE_K_SLICE) * WIDE_K_SLICE
     fits = [t for t in WIDE_TILES
-            if conv_wide_smem_bytes(*t, k_pad) <= BLOCK_SMEM_BYTES]
+            if conv_wide_smem_bytes(*t, k_pad) <= BLOCK_SMEM_BYTES
+            and not (k_pad <= WIDE_SHALLOW_K and WIDE_TILES[t][1])]
     if (dtype != torch.float32 or h + ph >= WIDE_PAD_TAP or not fits
             or c * h * w >= 2 ** 31):  # the tap table's int32 offsets
         return ConvRoute("direct")
@@ -399,7 +406,11 @@ def _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, stride, padding, oh, ow):
 # memory, which must fit in the H100's 232,448 bytes a block. Groups
 # below RESIDENT_MIN_GROUP channels (of a layer with more) would stage
 # each gradient map so many times that the implicit GEMM is the better
-# route. A block's threads are one per (channel quad, gradient pixel),
+# route at stride 1; at a larger stride the implicit GEMM multiplies
+# stride² times the useful taps (zeros for the taps no output reaches),
+# and any group that fits takes the resident route (ResNet-50's 3 x 3
+# stride-2 conv at 14 x 14, c 512: 4-channel groups 2.41 ms, the GEMM
+# 9.27). A block's threads are one per (channel quad, gradient pixel),
 # in whole warps, repeated for up to kh*kw tap groups (each a run of the
 # taps into a dx tile of its own), within RESIDENT_MAX_THREADS and the
 # shared memory: the more threads, the more of each SM's latency hidden.
@@ -412,8 +423,13 @@ RESIDENT_MAX_THREADS = 1024
 # which a second block on the SM hides: there 4-channel groups, two
 # blocks an SM, ran 1.12-1.14x faster. At 57 (LeNet-5's conv2) and 92
 # (VGG-16's 16 x 16 convs) the fewest groups stay ahead or within 6 %
-# (scripts/torch_route_ab.py --sweep and --groups, PERF.md).
+# (scripts/torch_route_ab.py --sweep and --groups, PERF.md). The
+# 4-channel groups must themselves do RESIDENT_QUAD_MIN_SUMS multiply-
+# adds a staged float: at ResNet-50's 1 x 1 conv from 2048 channels at 7
+# x 7 they would do 3.7, 512 blocks an image each staging its 100 KB
+# gradient map, and ran 3.2x the 32-channel groups' time (VGG-16: 23).
 RESIDENT_OVERLAP_SUMS = 48
+RESIDENT_QUAD_MIN_SUMS = 16
 
 
 class BwdDataRoute(NamedTuple):
@@ -455,21 +471,30 @@ def _resident_plan(h, w, o, oh, ow, kh, kw, group) -> BwdDataRoute:
                                             tap_groups))
 
 
+def _sums_per_staged(group, o, oh, ow, khw) -> float:
+    """Multiply-adds a resident dx block does for each float it stages
+    (the image's gradient map and the group's weights)."""
+    return group * oh * ow * khw * o / (o * oh * ow + khw * o * group)
+
+
 def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
                         kw: int, stride=(1, 1), padding=(0, 0)
                         ) -> BwdDataRoute:
     """The kernel route of dL/dx for an ``[n, c, h, w]`` input under
     ``[o, c, kh, kw]`` weights: resident with the fewest channel groups
-    whose working set fits (and as many tap groups as then fit), else
-    the implicit GEMM. Where that plan's block holds its SM alone and
-    does fewer than RESIDENT_OVERLAP_SUMS multiply-adds a float it
-    stages, and 4-channel groups would keep two blocks on an SM, it takes
-    the 4-channel groups: the second block's staging then overlaps the
-    first one's sums. Decided from the shape alone."""
+    whose working set fits (and as many tap groups as then fit; at
+    stride 1 groups of at least RESIDENT_MIN_GROUP channels), else the
+    implicit GEMM. Where that plan's block holds its SM alone and does
+    fewer than RESIDENT_OVERLAP_SUMS multiply-adds a float it stages,
+    and 4-channel groups would keep two blocks on an SM while doing at
+    least RESIDENT_QUAD_MIN_SUMS, it takes the 4-channel groups: the
+    second block's staging then overlaps the first one's sums. Decided
+    from the shape alone."""
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     oh = conv_output_size(h, kh, sh, ph)
     ow = conv_output_size(w, kw, sw, pw)
-    floor = min(_round4(c), RESIDENT_MIN_GROUP)
+    floor = (min(_round4(c), RESIDENT_MIN_GROUP) if sh * sw == 1
+             else 4)
     groups = -(-c // RESIDENT_MAX_GROUP)
     while True:
         group = -(-c // groups)
@@ -488,7 +513,9 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     alone = 2 * (plan.smem_bytes + 1024) > SM_SMEM_BYTES
     if group > 4 and alone and sums < RESIDENT_OVERLAP_SUMS * staged:
         quad = _resident_plan(h, w, o, oh, ow, kh, kw, -(-c // -(-c // 4)))
-        if 2 * (quad.smem_bytes + 1024) <= SM_SMEM_BYTES:
+        if (2 * (quad.smem_bytes + 1024) <= SM_SMEM_BYTES
+                and _sums_per_staged(quad.group, o, oh, ow, kh * kw)
+                >= RESIDENT_QUAD_MIN_SUMS):
             return quad
     return plan
 

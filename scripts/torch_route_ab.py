@@ -27,11 +27,17 @@ JSON line with the device time of each CUDA kernel one call launches
 (``torch.profiler``).
 
 ``--sweep`` times the conv forward at each of its shapes on every route
-and wide tile, and the cell on the slice route and on latency plans of
-several rows and units a block, each forced through the wrapper (the
-route function patched), in turns, each held to its plain version, with
-``F.conv2d`` + relu and the bound beside the convs, and prints one JSON
-line: the data the route rules are fitted to.
+and wide tile, both conv backward kernels on each of their routes (the
+resident dx route at several channel groups, the image-resident dW
+route also past the rule's cap on the images a block walks), and the
+cell on the slice route and on latency plans of several rows and units
+a block, each forced through the wrapper (the route function patched),
+in turns, each held to its plain version, with the library call and the
+bound beside the convs, and prints one JSON line: the data the route
+rules are fitted to. The conv shapes include every distinct kernel
+shape of VGG-16's and ResNet-50's training steps at batch 128;
+``--only PREFIX`` keeps the shapes whose name starts so (``vgg16``,
+``resnet50``).
 
 ``--groups`` times the resident ``conv_bwd_data`` kernel at LeNet-5's
 conv2 with several channel-group sizes (20: one group of all the
@@ -264,16 +270,19 @@ def _bwd_shape(shape):
     return tuple(xs), tuple(ws), pair(st), pair(pad)
 
 
-def vgg_sweep_shapes():
+def model_sweep_shapes():
     """(name, kind, shape) of every distinct kernel shape of VGG-16's
-    training step at batch 128 (chip_smoke.vgg_shapes), the dense layers
+    training step at batch 128 (chip_smoke.vgg_shapes) and ResNet-50's at
+    224 x 224, batch 128 (chip_smoke.resnet_shapes), the dense layers
     left out (no routed choice is swept for them)."""
-    from chip_smoke import vgg_shapes
+    from chip_smoke import resnet_shapes, vgg_shapes
 
-    return [(f"vgg16.{name}", kind, (tuple(geo["x"]), tuple(geo["w"]),
-                                     tuple(geo["stride"]),
-                                     tuple(geo["padding"])))
-            for name, kind, geo, _ in vgg_shapes() if kind != "matmul_block"]
+    return [(f"{model}.{name}", kind, (tuple(geo["x"]), tuple(geo["w"]),
+                                       tuple(geo["stride"]),
+                                       tuple(geo["padding"])))
+            for model, shapes in (("vgg16", vgg_shapes()),
+                                  ("resnet50", resnet_shapes()))
+            for name, kind, geo, _ in shapes if kind != "matmul_block"]
 
 
 def _route(kind, shape):
@@ -539,8 +548,16 @@ def _sweep_plans(cb, lc, kind, shape, ref):
     if kind == "conv_bwd_w":
         rule = cb.conv_bwd_w_route(n, c, h, w, o, kh, kw, st, pad)
         plans = {"gemm": cb.BwdWRoute("gemm")}
-        if rule.route != "gemm":
-            plans["image_resident"] = rule
+        # the image-resident plan also where the rule's cap on the images
+        # a block walks turns it down
+        cap = cb.BWD_W_MAX_IMAGES
+        cb.BWD_W_MAX_IMAGES = n
+        try:
+            plan = cb.conv_bwd_w_route(n, c, h, w, o, kh, kw, st, pad)
+        finally:
+            cb.BWD_W_MAX_IMAGES = cap
+        if plan.route != "gemm":
+            plans["image_resident"] = plan
         return rule, plans
     rule = cb.conv_bwd_data_route(n, c, h, w, o, kh, kw, st, pad)
     plans = {"gemm": cb.BwdDataRoute("gemm")}
@@ -556,8 +573,8 @@ def _sweep_plans(cb, lc, kind, shape, ref):
 def sweep(torch, only=None):
     """Every route (and wide tile or plan) of the conv forward, both
     conv backward kernels and the cell at each of their shapes (LeNet-5's,
-    AlexNet's, the char-RNN's and VGG-16's; ``only``: the shapes whose
-    name starts so), forced through the wrappers (the route functions
+    AlexNet's, the char-RNN's, VGG-16's and ResNet-50's; ``only``: the
+    shapes whose name starts so), forced through the wrappers (the route functions
     patched), in turns, each held to its plain version, with the library
     call and the bound beside; the data the route rules are fitted
     to."""
@@ -575,7 +592,7 @@ def sweep(torch, only=None):
                 "conv_bwd_data": (cb, "conv_bwd_data_route"),
                 "conv_bwd_w": (cb, "conv_bwd_w_route"),
                 "lstm_cell": (lc, "lstm_cell_route")}
-    for name, kind, shape in tuple(SHAPES) + tuple(vgg_sweep_shapes()):
+    for name, kind, shape in tuple(SHAPES) + tuple(model_sweep_shapes()):
         if kind not in route_fn or (only and not name.startswith(only)):
             continue
         kernel, plain, library = _operands(torch, kind, shape, gen)

@@ -1520,3 +1520,179 @@ def test_vgg16_graph_step_on_the_card_matches_the_cpu_twin(cuda):
         for pn, ref in lp.items():
             torch.testing.assert_close(net.params[ln][pn].cpu(), ref,
                                        rtol=1e-4, atol=1e-6)
+
+
+# ResNet-50's new conv geometry (1 x 1 stride-2 projections, 3 x 3
+# stride-2 padding-1 convs on an even side, the 7 x 7 stride-2 stem, 1 x
+# 1 convs at c 2048): the resident dx plan a small case takes when
+# forced, and the full-width shapes at a small batch on the routes their
+# rules pick
+def _resident_dx_plan(xs, ws, stride, padding):
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    (sh, sw), (ph, pw) = cb._pair(stride), cb._pair(padding)
+    oh = cb.conv_output_size(xs[2], ws[2], sh, ph)
+    ow = cb.conv_output_size(xs[3], ws[3], sw, pw)
+    c = xs[1]
+    group = -(-c // -(-c // cb.RESIDENT_MAX_GROUP))
+    plan = cb._resident_plan(xs[2], xs[3], ws[0], oh, ow, ws[2], ws[3], group)
+    assert plan.smem_bytes <= cb.RESIDENT_SMEM_BYTES
+    return plan
+
+
+def _dx_on_dirty_memory(dacc, w, xs, stride, padding):
+    """conv_bwd_data with the caching allocator handing it a block that
+    last held NaN: every dx element must be written, the ones no output
+    reaches with 0."""
+    junk = torch.full((int(np.prod(xs)),), float("nan"), device=dacc.device)
+    del junk
+    return conv_bwd_data(dacc, w, xs[2:], stride, padding)
+
+
+@pytest.mark.parametrize("route", ["resident", "gemm"])
+@pytest.mark.parametrize("xs,ws", [((4, 64, 14, 14), (128, 64, 1, 1)),
+                                   ((3, 20, 16, 12), (36, 20, 1, 1))])
+def test_conv_bwd_data_one_by_one_stride_two_writes_untouched_zeros(
+        cuda, monkeypatch, route, xs, ws):
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    plan = (_resident_dx_plan(xs, ws, 2, 0) if route == "resident"
+            else cb.BwdDataRoute("gemm"))
+    monkeypatch.setattr(cb, "conv_bwd_data_route", lambda *a, **k: plan)
+    _, w, dacc = _bwd_operands(xs, ws, 2, 0, 30)
+    got = _dx_on_dirty_memory(dacc, w, xs, 2, 0)
+    ref = conv_bwd_data_reference(dacc, w, xs[2:], 2, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # three quarters of dx: odd rows or odd columns, which no output reads
+    untouched = torch.ones(xs[2:], dtype=torch.bool, device=cuda)
+    untouched[::2, ::2] = False
+    assert torch.equal(got[:, :, untouched],
+                       torch.zeros_like(got[:, :, untouched]))
+    _close_to_scale(got, ref, 5e-5)
+
+
+@pytest.mark.parametrize("route", ["resident", "gemm"])
+def test_conv_bwd_three_by_three_stride_two_even_side(cuda, monkeypatch,
+                                                      route):
+    """3 x 3, stride 2, padding 1 on an even side: the last input row and
+    column are reached by the last output's third tap alone."""
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    xs, ws = (4, 16, 16, 16), (24, 16, 3, 3)
+    plan = (_resident_dx_plan(xs, ws, 2, 1) if route == "resident"
+            else cb.BwdDataRoute("gemm"))
+    monkeypatch.setattr(cb, "conv_bwd_data_route", lambda *a, **k: plan)
+    x, w, dacc = _bwd_operands(xs, ws, 2, 1, 31)
+    got = _dx_on_dirty_memory(dacc, w, xs, 2, 1)
+    ref = conv_bwd_data_reference(dacc, w, xs[2:], 2, 1)
+    dw = conv_bwd_w(x, dacc, ws, 2, 1)
+    dw_ref = conv_bwd_w_reference(x, dacc, ws, 2, 1)
+    torch.cuda.synchronize()
+    assert float(ref[:, :, -1, :].abs().max()) > 0
+    assert float(ref[:, :, :, -1].abs().max()) > 0
+    _close_to_scale(got, ref, 5e-5)
+    torch.testing.assert_close(got[:, :, -1, :], ref[:, :, -1, :],
+                               rtol=0, atol=5e-5 * float(ref.abs().max()))
+    _close_to_scale(dw, dw_ref, 5e-5)
+
+
+# (x shape, w shape, stride, padding) at ResNet-50's widths, small batch
+RESNET_CONV_CASES = [
+    ((8, 3, 224, 224), (64, 3, 7, 7), 2, 3),        # the stem
+    ((8, 256, 56, 56), (512, 256, 1, 1), 2, 0),     # a stride-2 projection
+    ((8, 128, 56, 56), (128, 128, 3, 3), 2, 1),     # a stride-2 3 x 3
+    ((16, 2048, 7, 7), (512, 2048, 1, 1), 1, 0),    # 1 x 1 at c 2048 @ 7
+    ((16, 512, 7, 7), (2048, 512, 1, 1), 1, 0),
+]
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", RESNET_CONV_CASES)
+def test_resnet_conv_kernels_match_plain_and_repeat(cuda, xs, ws, stride,
+                                                    padding):
+    """The forward (identity epilogue, as ResNet's convs run before their
+    BN), dx (not at the stem: its input is the data) and dW against their
+    plain versions, each bitwise on a second launch, dx on dirty
+    memory."""
+    x, w, b = _conv_operands(xs, ws, 32)
+    kw = dict(stride=stride, padding=padding, activation="identity")
+    with torch.inference_mode():
+        out = [conv_block(x, w, b, **kw) for _ in range(2)]
+        ref = conv_block_reference(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    torch.testing.assert_close(out[0], ref, rtol=1e-4, atol=1e-4)
+    x, w, dacc = _bwd_operands(xs, ws, stride, padding, 33)
+    if xs[1] != 3:
+        dx = [_dx_on_dirty_memory(dacc, w, xs, stride, padding)
+              for _ in range(2)]
+        dx_ref = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+        torch.cuda.synchronize()
+        assert torch.equal(dx[0], dx[1])
+        _close_to_scale(dx[0], dx_ref, 5e-5)
+    dw = [conv_bwd_w(x, dacc, ws, stride, padding) for _ in range(2)]
+    dw_ref = conv_bwd_w_reference(x, dacc, ws, stride, padding)
+    torch.cuda.synchronize()
+    assert torch.equal(dw[0], dw[1])
+    _close_to_scale(dw[0], dw_ref, 5e-5)
+
+
+def test_resnet50_graph_step_on_the_card_matches_the_cpu_twin(cuda,
+                                                              monkeypatch):
+    """One full-width ResNet-50 step (224 x 224, batch 4, NESTEROVS)
+    through ``ComputationGraph.fit`` on the card, with exact launch
+    counts (53 convs: forward and f32 recompute each, dW of all, dx of
+    all but the stem), against the same step on the CPU. Every conv
+    kernel call of the step is held against its plain version on the
+    same operands (5e-5 of scale). The weights are held within half of
+    each parameter's move: at ResNet-50's init the 53 BNs' backward
+    cancels most of a gradient that the global average pool makes
+    nearly constant over a channel, so f32 rounding in the forward
+    reaches the updates amplified (up to 27 % of a move between card and
+    CPU from the same state, measured), though the scores and the
+    running statistics (forward sums) agree closely."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    held = []
+
+    def holding(kernel, plain):
+        def call(*args):
+            got = kernel(*args)
+            ref = plain(*args)
+            held.append(float((got - ref).abs().max())
+                        / max(float(ref.abs().max()), 1e-30))
+            return got
+        return call
+
+    monkeypatch.setattr(cb, "_kernel_forward",
+                        holding(cb._kernel_forward, cb._plain_forward))
+    monkeypatch.setattr(cb, "conv_bwd_data",
+                        holding(cb.conv_bwd_data, cb.conv_bwd_data_reference))
+    monkeypatch.setattr(cb, "conv_bwd_w",
+                        holding(cb.conv_bwd_w, cb.conv_bwd_w_reference))
+    net = ComputationGraph(resnet50(learning_rate=0.01), device=cuda).init()
+    before = {ln: {pn: t.cpu() for pn, t in lp.items()}
+              for ln, lp in net.params.items()}
+    twin = ComputationGraph(net.conf, device="cpu").init(params=before)
+    rng = np.random.RandomState(34)
+    # standardized pixels, as an ImageNet pipeline feeds them
+    ds = DataSet(rng.randn(4, 3, 224, 224).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, 4)])
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv_block": 106, "conv_bwd_data": 52, "conv_bwd_w": 53}
+    assert len(held) == 211 and max(held) <= 5e-5
+    twin.fit(ds)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            move = float((ref - before[ln][pn]).abs().max())
+            diff = float((net.params[ln][pn].cpu() - ref).abs().max())
+            assert diff <= 0.5 * move + 1e-6, (ln, pn, diff, move)
+    for ln, st in twin.state.items():
+        for k, ref in st.items():
+            torch.testing.assert_close(net.state[ln][k].cpu(), ref,
+                                       rtol=1e-3, atol=1e-5)

@@ -327,8 +327,10 @@ def test_fit_refuses_what_it_does_not_carry():
     with pytest.raises(NotImplementedError, match="AlexNet-training"):
         net.fit(x, y)
     net = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        net.fit(x, y, grad_accum=2)
+    # gradient accumulation is carried now: two microbatches, one step
+    acc = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
+    acc.fit(np.zeros((2, 784), np.float32), y, grad_accum=2)
+    assert acc.iteration_count == 1 and acc.grad_accum == 2
     with pytest.raises(NotImplementedError, match="megastep"):
         net.fit(x, y, megastep=4)
     with pytest.raises(NotImplementedError, match="divergence guard"):
