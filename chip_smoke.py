@@ -26,11 +26,12 @@ non-zero (nothing is caught):
    steps (batch 128, the ``vgg16.`` and ``resnet50.`` records, with their
    launches a step); flash attention (both entries, f32 and bf16) at the transformer's training shape and the
    streamed entry at t 16384; the dense kernel at the transformer's input
-   projection and its residual variant at the FFN's second product.
-   Each record names the kernel route its shape took; the run fails
-   when a main-path shape of the conv forward, ``conv_bwd_data``,
-   ``conv_bwd_w``, the dense kernel, the LSTM cell or the LSTM sequence
-   kernels took another route than the one designed for it
+   projection and its residual variant at the FFN's second product, and
+   at the embedding MLP's dense layer (``embedding-mlp.dense``: m 1024,
+   k 128, n 256, relu). Each record names the kernel route its shape
+   took; the run fails when a main-path shape of the conv forward,
+   ``conv_bwd_data``, ``conv_bwd_w``, the dense kernel, the LSTM cell or
+   the LSTM sequence kernels took another route than the one designed for it
    (``INTENDED_ROUTES``). The LSTM layers are also timed against
    ``torch.nn.LSTM`` (cuDNN) on the device clock;
 3. serving (a main path): ``ModelServer`` with a full-width LeNet-5
@@ -84,7 +85,24 @@ non-zero (nothing is caught):
    ``[resnet50-dp]`` ``DistributedTrainer(batch_stats="sync")`` over an
    NCCL world of one formed through a file rendezvous: three steps
    bitwise equal to the plain graph's, one ZeRO-1 step bitwise equal to
-   the replicated one, and the two step times.
+   the replicated one, and the two step times;
+10. the NLP / embeddings slice (main paths): ``[word2vec]`` bench.py's
+   Word2Vec configuration exactly (a Zipf corpus of 200,000 words over
+   2,000, D 128, W 5, K 5, B 16,384) through ``Word2Vec.fit`` with
+   on-device epoch generation: words/s (best of 3 windows of 20
+   epochs), the cold rate, device ms an epoch and busy share, peak
+   memory, two fits from the seed equal bit for bit and one epoch held
+   to the CPU twin on the card's draws; ``[word2vec-host]`` one epoch of
+   the chunked host-pair route against its CPU twin; ``[deepwalk]``
+   (a graph of BlogCatalog's counts), ``[glove]`` and
+   ``[paragraph-vectors]``, each with its rate and a CPU twin (every
+   twin holds what the run changed in each table, ``hold_change``);
+   ``[embedding-mlp]`` EmbeddingLayer -> Dense (``matmul_block``, held
+   to its plain version at the dense shape, ``embedding-mlp.dense``) ->
+   softmax, 5 Adam steps, launches exact; on an NCCL world of one,
+   ``[word2vec-sharded]`` (``ShardedWord2Vec`` against the host route,
+   save/restore bitwise) and ``[zero]`` (a ``zero=True`` checkpoint
+   equal to the replicated one's, parameter-shaped).
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -146,6 +164,38 @@ RESNET_STEPS = 6
 CONV_BN_BATCH = 128
 CONV_BN_CHANNELS = 64
 CONV_BN_HW = 32
+
+# Word2Vec skip-gram (BASELINE.json config #4; bench.py:699 bench_word2vec)
+W2V_SENTENCES = 5000
+W2V_SENT_LEN = 40
+W2V_VOCAB = 2000
+W2V_DIM = 128
+W2V_WINDOW = 5
+W2V_NEG = 5
+W2V_BATCH = 16384
+W2V_SEED = 1
+W2V_REPS = 20  # epochs a timed window
+W2V_TWIN_SENTENCES = 1000  # the host route's CPU twin, cut
+# DeepWalk on a graph of BlogCatalog's counts (the DeepWalk paper's)
+DW_VERTICES = 10312
+DW_EDGES = 333983
+DW_DIM = 128
+DW_WINDOW = 10
+DW_WALK = 40
+DW_SEED = 7
+DW_TWIN_WALKS = 256
+GLOVE_EPOCHS = 5
+PV_DOCS = 1000
+PV_EPOCHS = 5
+# the embedding MLP: EmbeddingLayer(2000 -> 128) -> Dense 256 -> softmax
+MLP_VOCAB = 2000
+MLP_BATCH = 1024
+MLP_HIDDEN = 256
+MLP_STEPS = 5
+# a CPU twin holds each table's change within this share of the twin's
+# largest change (f32 both sides, sums in another order)
+TWIN_REL = 1e-3
+TWIN_TOLERANCE = f"each table's change within {TWIN_REL:g} of the twin's"
 
 
 def survey_corpus(vocab=CHAR_VOCAB):
@@ -2064,7 +2114,8 @@ INTENDED_ROUTES = {
     "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm"),
                    ("vgg16.", "gemm"), ("resnet50.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
-                     ("alexnet.", "tiled"), ("vgg16.", "tiled")),
+                     ("alexnet.", "tiled"), ("vgg16.", "tiled"),
+                     ("embedding-mlp.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
     # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
     # launch on a cluster, bench.py's saturated shape on the grid
@@ -2337,6 +2388,575 @@ def run_transformer_long(torch, card, model, ids, seed):
     return launches
 
 
+# -- the NLP / embeddings slice ------------------------------------------
+
+
+def zipf_sentences(n_sentences, sent_len, vocab, seed):
+    """bench.py:699's corpus: ``n_sentences`` of ``sent_len`` words drawn
+    from a Zipf distribution over ``vocab`` words (``RandomState(seed)``)."""
+    rng = np.random.RandomState(seed)
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    probs = zipf / zipf.sum()
+    words = [f"w{i}" for i in range(vocab)]
+    return [[words[i] for i in rng.choice(vocab, size=sent_len, p=probs)]
+            for _ in range(n_sentences)]
+
+
+def w2v_corpus():
+    """bench.py's Word2Vec corpus, vocabulary and id sequences."""
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+
+    sentences = zipf_sentences(W2V_SENTENCES, W2V_SENT_LEN, W2V_VOCAB, 0)
+    cache = VocabConstructor(min_word_frequency=1).build_vocab_from_tokens(
+        sentences)
+    ids = [np.asarray([cache.index_of(w) for w in s if w in cache],
+                      np.int32) for s in sentences]
+    return cache, ids
+
+
+def make_w2v(cache, ids, device="cuda", epochs=1, **kw):
+    """bench.py's trainer: D 128, W 5, K 5, B 16384, seed 1."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    return Word2Vec(cache, ids, layer_size=W2V_DIM, window=W2V_WINDOW,
+                    negative=W2V_NEG, batch_size=W2V_BATCH, epochs=epochs,
+                    seed=W2V_SEED, device=device, **kw)
+
+
+def w2v_tables(torch, sv):
+    lk = sv.lookup
+    return [t.detach().cpu().clone() for t in (lk.syn0, lk.syn1, lk.syn1neg)
+            if t is not None]
+
+
+def hold_change(torch, tag, got, want, start, rel=TWIN_REL):
+    """Hold what a run changed: each of ``got``'s tables minus its
+    ``start`` against ``want``'s minus the same start, within ``rel`` of
+    the largest entry of ``want``'s change (no floor), so a run that
+    left a table as it was, or moved it by another amount, fails.
+    Returns the largest difference of the tables and the tightest
+    tolerance that held them."""
+    err, atol = 0.0, float("inf")
+    for g, w, s in zip(got, want, start):
+        g, w, s = g.cpu(), w.cpu(), s.cpu()
+        moved = w - s
+        scale = float(moved.abs().max())
+        if scale == 0.0:
+            raise RuntimeError(f"[{tag}] the CPU twin left a table as it was")
+        try:
+            torch.testing.assert_close(g - s, moved, rtol=0, atol=rel * scale)
+        except AssertionError as e:
+            raise RuntimeError(f"[{tag}] card and CPU twin differ: {e}")
+        err = max(err, float((g - w).abs().max()))
+        atol = min(atol, rel * scale)
+    return err, atol
+
+
+def run_word2vec(torch, card, cache, ids):
+    """[word2vec] bench.py:699's configuration exactly (200,000 words of
+    a Zipf corpus over 2,000 words, D 128, W 5, K 5, B 16,384, seed 1)
+    through ``Word2Vec.fit`` with on-device epoch generation: a warm fit,
+    then words/s as the best of 3 windows of 20 epochs; the cold rate
+    (a fresh trainer's corpus upload + one epoch, best of 3); the device
+    time of 2 epochs (``torch.profiler``) and its share of a window's
+    epoch; peak memory. Two fresh trainers from the seed must give the
+    same tables bit for bit, and one epoch's draws taken on the card, fed
+    to the CPU from the same tables, must change the tables as on the
+    card (``hold_change``)."""
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+
+    total_words = sum(len(s) for s in ids)
+    torch.cuda.reset_peak_memory_stats()
+    sv = make_w2v(cache, ids)
+    if not sv._use_device_gen():
+        raise RuntimeError("[word2vec] device generation is off on the card")
+
+    def sync(v):
+        torch.cuda.synchronize()
+        float(v.lookup.syn0[0, 0])
+
+    sv.fit()  # warm-up: the corpus upload and the first launches
+    sync(sv)
+    cold = []
+    for _ in range(3):
+        sv2 = make_w2v(cache, ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv2.fit()
+        sync(sv2)
+        cold.append(time.perf_counter() - t0)
+    upload = sv2._dev_upload_bytes
+    del sv2
+    sv.epochs = W2V_REPS
+    sv.fit()
+    sync(sv)
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sv.fit()
+        sync(sv)
+        windows.append(time.perf_counter() - t0)
+    sv.epochs = 2
+    device_ms, top = profiled_device_ms(torch, sv.fit)
+    best = min(windows)
+    corpus = sv.device_corpus()
+    n_batches = corpus.ids.shape[0] // W2V_BATCH
+    rows = W2V_BATCH * (1 + 2 * W2V_WINDOW + W2V_NEG)
+    # the step's own traffic: each gathered row read, its gradient
+    # written and read back, each updated row read and written
+    reckoned = n_batches * 4 * rows * W2V_DIM * 4
+    dev_epoch_ms = device_ms / 2
+    for t in w2v_tables(torch, sv):
+        if not torch.isfinite(t).all():
+            raise RuntimeError("[word2vec] a table is not finite")
+    near = sv.words_nearest("w3", 10)
+    if len(near) != 10 or "w3" in near:
+        raise RuntimeError(f"[word2vec] words_nearest: {near}")
+
+    # repeatability: two fresh trainers, two epochs each
+    runs = []
+    for _ in range(2):
+        r = make_w2v(cache, ids, epochs=2)
+        r.fit()
+        runs.append(w2v_tables(torch, r))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise RuntimeError("[word2vec] two fits from the same seed differ")
+
+    # the CPU twin: one epoch's draws on the card, from the same tables
+    t_twin = time.perf_counter()
+    start = w2v_tables(torch, sv)
+    gen = torch.Generator(device="cuda").manual_seed(W2V_SEED + 100)
+    draws = w2v.epoch_draws(gen, corpus)
+    alphas = torch.from_numpy(w2v.alpha_schedule(
+        sv.learning_rate, sv.min_learning_rate, n_batches * W2V_BATCH, 0, 1,
+        n_batches, W2V_BATCH))[0]
+    w2v.sg_device_epoch(sv.lookup.syn0, sv.lookup.syn1neg, corpus, draws,
+                        alphas.cuda(), negative=W2V_NEG, batch=W2V_BATCH)
+    twin = make_w2v(cache, ids, device="cpu")
+    twin.lookup.load_numpy(start[0], None, start[1])
+    cpu_corpus = twin.device_corpus()
+    w2v.sg_device_epoch(twin.lookup.syn0, twin.lookup.syn1neg, cpu_corpus,
+                        tuple(d.cpu() for d in draws), alphas,
+                        negative=W2V_NEG, batch=W2V_BATCH)
+    twin_err, twin_atol = hold_change(torch, "word2vec",
+                                      w2v_tables(torch, sv),
+                                      w2v_tables(torch, twin), start)
+    res = {"words": total_words, "vocab": len(cache), "dim": W2V_DIM,
+           "window": W2V_WINDOW, "negative": W2V_NEG, "batch": W2V_BATCH,
+           "batches_per_epoch": n_batches, "epochs_per_window": W2V_REPS,
+           "words_per_s": W2V_REPS * total_words / best,
+           "window_s": windows,
+           "cold_words_per_s": total_words / min(cold), "cold_s": cold,
+           "cold_upload_bytes": upload,
+           "device_ms_per_epoch": dev_epoch_ms,
+           "host_ms_per_epoch": best / W2V_REPS * 1e3,
+           "device_busy_share": dev_epoch_ms / (best / W2V_REPS * 1e3),
+           "top_device_ms_per_epoch": {k[:60]: v / 2
+                                       for k, v in top.items()},
+           "reckoned_bytes_per_epoch": reckoned,
+           "reckoned_hbm_share": reckoned / PEAK_HBM_BYTES * 1e3
+           / dev_epoch_ms,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "repeat_bitwise": True, "twin_max_abs_diff": twin_err,
+           "twin_tolerance": TWIN_TOLERANCE, "twin_tightest_atol": twin_atol,
+           "twin_s": time.perf_counter() - t_twin, "nearest_w3": near}
+    print(f"[word2vec] {json.dumps(res)} card={card}")
+    return sv
+
+
+def run_word2vec_host(torch, card, cache, ids):
+    """[word2vec-host] the same corpus with ``device_epoch_gen=False``:
+    one epoch of the chunked host-pair route (numpy pairs, negatives and
+    alphas, prepared chunks on the card), timed. The CPU twin is cut to
+    the corpus's first ``W2V_TWIN_SENTENCES`` sentences: the same epoch
+    on the card and on the CPU, on the same numpy draws, changes the
+    tables alike (``hold_change``). Returns the full-corpus trainer."""
+    sv = make_w2v(cache, ids)
+    sv.device_epoch_gen = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sv.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    part = ids[:W2V_TWIN_SENTENCES]
+    small = make_w2v(cache, part)
+    small.device_epoch_gen = False
+    small.fit()
+    twin = make_w2v(cache, part, device="cpu")
+    start = w2v_tables(torch, twin)
+    twin.fit()
+    err, atol = hold_change(torch, "word2vec-host",
+                            w2v_tables(torch, small),
+                            w2v_tables(torch, twin), start)
+    res = {"words": sum(len(s) for s in ids), "epochs": 1,
+           "words_per_s": sum(len(s) for s in ids) / wall,
+           "wall_s": wall, "twin_sentences": W2V_TWIN_SENTENCES,
+           "twin_max_abs_diff": err, "twin_tolerance": TWIN_TOLERANCE,
+           "twin_tightest_atol": atol}
+    print(f"[word2vec-host] {json.dumps(res)} card={card}")
+    return sv
+
+
+def run_word2vec_sharded(torch, card, cache, ids, host, mesh, tmp):
+    """[word2vec-sharded] ``ShardedWord2Vec`` on the NCCL world of one:
+    one epoch, its tables held to the plain host route's (the same
+    pairs, negatives and alphas; ``hold_change``); ``save`` then
+    ``restore`` into a fresh trainer gives the same rows bit for bit."""
+    from deeplearning4j_tpu_torch.embeddings import ShardedWord2Vec
+
+    kw = dict(layer_size=W2V_DIM, window=W2V_WINDOW, negative=W2V_NEG,
+              batch_size=W2V_BATCH, epochs=1, seed=W2V_SEED, mesh=mesh)
+    sw = ShardedWord2Vec(cache, ids, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lk = sw.lookup
+    got = [torch.from_numpy(lk.t0.to_host()),
+           torch.from_numpy(lk.t1n.to_host())]
+    want = [host.lookup.syn0.cpu(), host.lookup.syn1neg.cpu()]
+    init = make_w2v(cache, ids, device="cpu").lookup
+    err, atol = hold_change(torch, "word2vec-sharded", got, want,
+                            [init.syn0, init.syn1neg])
+    path = f"{tmp}/w2v-sharded.npz"
+    sw.save(path)
+    back = ShardedWord2Vec(cache, ids, **kw)
+    back.restore(path)
+    same = (np.array_equal(back.lookup.t0.to_host(), got[0].numpy())
+            and np.array_equal(back.lookup.t1n.to_host(), got[1].numpy()))
+    if not same:
+        raise RuntimeError("[word2vec-sharded] save/restore changed rows")
+    res = {"world": mesh.data, "backend": mesh.backend,
+           "words_per_s": sum(len(s) for s in ids) / wall,
+           "max_abs_diff_vs_host_route": err, "tolerance": TWIN_TOLERANCE,
+           "tightest_atol": atol, "restore_bitwise": True,
+           "shard_bytes": lk.t0.shard_bytes(),
+           "quarantined": sw._quarantined}
+    print(f"[word2vec-sharded] {json.dumps(res)} card={card}")
+
+
+def blogcatalog_graph():
+    """A graph with BlogCatalog's counts (the DeepWalk paper's evaluation
+    graph, not in the repo): 10,312 vertices and 333,983 distinct
+    undirected edges drawn from ``RandomState(0)``."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    rng = np.random.RandomState(0)
+    n, m = DW_VERTICES, DW_EDGES
+    pairs = np.zeros((0, 2), np.int64)
+    while len(pairs) < m:
+        u = rng.randint(0, n, 2 * m)
+        v = rng.randint(0, n, 2 * m)
+        e = np.stack([np.minimum(u, v), np.maximum(u, v)], 1)
+        e = e[e[:, 0] != e[:, 1]]
+        pairs = np.unique(np.concatenate([pairs, e]), axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:m]]
+    g = Graph(n, allow_multiple_edges=True)
+    for a, b in pairs.tolist():
+        g.add_edge(a, b)
+    return g
+
+
+def run_deepwalk(torch, card):
+    """[deepwalk] ``DeepWalk.fit`` on the BlogCatalog-sized graph:
+    vector 128, window 10, walk length 40, one walk a vertex (pairs/s);
+    its CPU twin trains the first 256 walks from the same tables on the
+    CPU and on the card, which must change them alike
+    (``hold_change``)."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.graph.api import NoEdgeHandling
+    from deeplearning4j_tpu_torch.graph.graph import generate_random_walks
+
+    t0 = time.perf_counter()
+    g = blogcatalog_graph()
+    build_s = time.perf_counter() - t0
+    kw = dict(vector_size=DW_DIM, window_size=DW_WINDOW, seed=DW_SEED)
+    dw = DeepWalk(device="cuda", **kw)
+    dw.initialize(g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dw.fit(g, walk_length=DW_WALK, epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pairs = DW_VERTICES * (DW_WALK + 1 - 2 * DW_WINDOW) * 2 * DW_WINDOW
+    vecs = dw.lookup_table.get_vertex_vectors()
+    if not np.isfinite(vecs).all():
+        raise RuntimeError("[deepwalk] vertex vectors are not finite")
+    walks = generate_random_walks(g, DW_WALK, np.arange(DW_TWIN_WALKS),
+                                  seed=DW_SEED + 7,
+                                  mode=NoEdgeHandling.SELF_LOOP_ON_DISCONNECTED)
+    card_dw, cpu_dw = DeepWalk(device="cuda", **kw), DeepWalk(device="cpu",
+                                                             **kw)
+    for d in (card_dw, cpu_dw):
+        d.initialize(g)
+    start = [cpu_dw.lookup_table.vertex_vectors.clone(),
+             cpu_dw.lookup_table.out_weights.clone()]
+    for d in (card_dw, cpu_dw):
+        d.fit_walks(walks)
+    err, atol = hold_change(torch, "deepwalk", [
+        card_dw.lookup_table.vertex_vectors, card_dw.lookup_table.out_weights],
+        [cpu_dw.lookup_table.vertex_vectors, cpu_dw.lookup_table.out_weights],
+        start)
+    res = {"vertices": DW_VERTICES, "edges": DW_EDGES, "dim": DW_DIM,
+           "window": DW_WINDOW, "walk_length": DW_WALK,
+           "batch": dw.batch_size, "pairs": pairs,
+           "pairs_per_s": pairs / wall, "fit_s": wall,
+           "graph_build_s": build_s, "twin_walks": DW_TWIN_WALKS,
+           "twin_max_abs_diff": err, "twin_tolerance": TWIN_TOLERANCE,
+           "twin_tightest_atol": atol}
+    print(f"[deepwalk] {json.dumps(res)} card={card}")
+
+
+def run_glove(torch, card):
+    """[glove] ``Glove.fit`` on a Zipf corpus from ``RandomState(3)``
+    (1,000 sentences of 40 words over 1,000), D 100, window 5, 5 epochs
+    (cut from the reference's 25), triples/s; the CPU twin fits the same
+    triples from the same state, which must change W, W̃ and the two
+    biases as on the card (``hold_change``)."""
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+
+    sents = zipf_sentences(1000, 40, 1000, 3)
+    cache = VocabConstructor(1).build_vocab_from_tokens(sents)
+    ids = [np.asarray(cache.id_stream(s), np.int64) for s in sents]
+    kw = dict(layer_size=100, window=5, epochs=GLOVE_EPOCHS, seed=5)
+    gl = Glove(cache, ids, device="cuda", **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gl.fit()
+    wall = time.perf_counter() - t0
+    twin = Glove(cache, ids, device="cpu", **kw)
+    start = [torch.from_numpy(a.copy()) for a in twin.state_numpy()[:4]]
+    twin.fit()
+    err, atol = hold_change(torch, "glove", [
+        torch.from_numpy(a) for a in gl.state_numpy()[:4]],
+        [torch.from_numpy(a) for a in twin.state_numpy()[:4]], start)
+    n = len(gl.co.triples()[0])
+    res = {"triples": n, "epochs": GLOVE_EPOCHS,
+           "triples_per_s": n * GLOVE_EPOCHS / wall, "fit_s": wall,
+           "loss": gl.last_loss, "twin_loss": twin.last_loss,
+           "twin_max_abs_diff": err, "twin_tolerance": TWIN_TOLERANCE,
+           "twin_tightest_atol": atol}
+    print(f"[glove] {json.dumps(res)} card={card}")
+
+
+def run_paragraph_vectors(torch, card):
+    """[paragraph-vectors] DBOW ``ParagraphVectors`` over 1,000 labelled
+    documents of 40 Zipf words (``RandomState(4)``), D 100, 5 epochs,
+    words/s, and ``infer_vector`` of an unseen document; the CPU twin
+    must change the tables and the inferred vector (from its start,
+    ``epochs=0``) as the card does (``hold_change``)."""
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors,
+    )
+    from deeplearning4j_tpu_torch.nlp.tokenization import LabelAwareIterator
+
+    texts = [" ".join(s) for s in zipf_sentences(PV_DOCS, 40, 1000, 4)]
+    labels = [f"doc{i}" for i in range(PV_DOCS)]
+
+    def build(device):
+        return (ParagraphVectors.Builder().layer_size(100).epochs(PV_EPOCHS)
+                .batch_size(1024).seed(6).device(device)
+                .iterate(LabelAwareIterator.from_texts(texts, labels))
+                .build())
+
+    pv = build("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pv.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    unseen = " ".join(zipf_sentences(1, 40, 1000, 99)[0])
+    inferred = pv.infer_vector(unseen)
+    twin = build("cpu")
+    start = w2v_tables(torch, twin)
+    twin.fit()
+    err, atol = hold_change(
+        torch, "paragraph-vectors",
+        w2v_tables(torch, pv) + [torch.from_numpy(inferred)],
+        w2v_tables(torch, twin) + [torch.from_numpy(
+            twin.infer_vector(unseen))],
+        start + [torch.from_numpy(twin.infer_vector(unseen, epochs=0))])
+    words = PV_DOCS * 40
+    res = {"documents": PV_DOCS, "epochs": PV_EPOCHS,
+           "words_per_s": words * PV_EPOCHS / wall, "fit_s": wall,
+           "nearest_labels_doc0": pv.nearest_labels("doc0", 3),
+           "twin_max_abs_diff": err, "twin_tolerance": TWIN_TOLERANCE,
+           "twin_tightest_atol": atol}
+    print(f"[paragraph-vectors] {json.dumps(res)} card={card}")
+
+
+def mlp_conf():
+    """EmbeddingLayer(2000 -> 128) -> Dense 256 relu -> softmax output
+    over 10 classes, Adam."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer,
+        EmbeddingLayer,
+        OutputLayer,
+    )
+
+    return (NeuralNetConfiguration.Builder().seed(12).learning_rate(1e-2)
+            .updater("ADAM").list()
+            .layer(EmbeddingLayer(n_in=MLP_VOCAB, n_out=W2V_DIM))
+            .layer(DenseLayer(n_in=W2V_DIM, n_out=MLP_HIDDEN,
+                              activation="relu"))
+            .layer(OutputLayer(n_in=MLP_HIDDEN, n_out=10))
+            .build())
+
+
+def mlp_batch(seed):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, MLP_VOCAB, (MLP_BATCH, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[x[:, 0].astype(np.int64) % 10]
+    return DataSet(x, y)
+
+
+def run_embedding_mlp(torch, card):
+    """[embedding-mlp] EmbeddingLayer -> Dense(relu, the dense kernel) ->
+    softmax at batch 1024: 5 Adam steps on one minibatch on the card
+    (the score falls),
+    each step launching ``matmul_block`` once, held to the CPU twin's
+    scores within 1e-4 and repeated bitwise. Returns the launch counts
+    of the steps (a main path)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    conf = mlp_conf()
+    batches = [mlp_batch(0)] * MLP_STEPS
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    init = {ln: {pn: t.cpu() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = [float(net.fit_minibatch(b)) for b in batches]
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    want = {k: 0 for k in dispatch.KERNELS}
+    want["matmul_block"] = MLP_STEPS
+    if launches != want:
+        raise RuntimeError(f"[embedding-mlp] {MLP_STEPS} steps launched "
+                           f"{launches}")
+    if not scores[-1] < scores[0]:
+        raise RuntimeError(f"[embedding-mlp] the score did not fall: "
+                           f"{scores}")
+    twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+    cpu = [float(twin.fit_minibatch(b)) for b in batches]
+    np.testing.assert_allclose(scores, cpu, rtol=1e-4)
+    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    if [float(again.fit_minibatch(b)) for b in batches] != scores or any(
+            not torch.equal(t, again.params[ln][pn])
+            for ln, lp in net.params.items() for pn, t in lp.items()):
+        raise RuntimeError("[embedding-mlp] two card runs differ")
+    res = {"batch": MLP_BATCH, "steps": MLP_STEPS, "scores": scores,
+           "cpu_scores": cpu, "ms_per_step": wall / MLP_STEPS * 1e3,
+           "launches": {k: v for k, v in launches.items() if v},
+           "repeat_bitwise": True}
+    print(f"[embedding-mlp] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_zero(torch, card, mesh, tmp):
+    """[zero] ``DistributedTrainer(zero=True)`` on the NCCL world of one
+    over the embedding MLP: two steps, ``write_model``, restore. The
+    checkpoint's updater state is parameter-shaped and equal bit for bit
+    to the replicated run's checkpoint; the restored model continues."""
+    import io
+    import zipfile
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import DistributedTrainer
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+
+    conf = mlp_conf()
+    init = MultiLayerNetwork(conf, device="cpu").init().params
+    paths = {}
+    for zero in (False, True):
+        net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        tr = DistributedTrainer(net, mesh=mesh, zero=zero)
+        for s in range(2):
+            tr.fit_minibatch(mlp_batch(s))
+        if zero and net._zero_layout != {"shards": 1}:
+            raise RuntimeError(f"[zero] layout {net._zero_layout}")
+        paths[zero] = f"{tmp}/zero-{zero}.zip"
+        write_model(net, paths[zero])
+
+    def npz(path):
+        with zipfile.ZipFile(path) as zf:
+            with np.load(io.BytesIO(zf.read("updaterState.npz"))) as f:
+                return {k: f[k] for k in f.files}
+
+    rep, zro = npz(paths[False]), npz(paths[True])
+    if set(rep) != set(zro) or any(not np.array_equal(rep[k], zro[k])
+                                   for k in rep):
+        raise RuntimeError("[zero] the checkpoints' updater states differ")
+    back = restore_model(paths[True], device="cuda")
+    for ln, lp in back.params.items():
+        for pn, p in lp.items():
+            if any(m.shape != p.shape for m in back.updater_state[ln][pn]):
+                raise RuntimeError(f"[zero] {ln}/{pn}'s moments are not "
+                                   "parameter-shaped")
+    score = float(back.fit_minibatch(mlp_batch(2)))
+    if not np.isfinite(score):
+        raise RuntimeError("[zero] the restored model's step is not finite")
+    res = {"world": mesh.data, "steps": 2, "updater_leaves": len(rep),
+           "checkpoint_bitwise_vs_replicated": True,
+           "moments_parameter_shaped": True, "continued_score": score}
+    print(f"[zero] {json.dumps(res)} card={card}")
+
+
+def run_nlp(torch, card):
+    """The NLP / embeddings slice: ``[word2vec]`` and ``[word2vec-host]``
+    on bench.py's corpus, ``[deepwalk]``, ``[glove]``,
+    ``[paragraph-vectors]``, ``[embedding-mlp]``, then
+    ``[word2vec-sharded]`` and ``[zero]`` on an NCCL world of one formed
+    through a file rendezvous in a temporary directory. Returns the
+    launch counts of the main paths (the embedding MLP's steps)."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import (
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    def timed(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, card, *args)
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+        return out
+
+    cache, ids = w2v_corpus()
+    timed("word2vec", run_word2vec, cache, ids)
+    host = timed("word2vec-host", run_word2vec_host, cache, ids)
+    timed("deepwalk", run_deepwalk)
+    timed("glove", run_glove)
+    timed("paragraph-vectors", run_paragraph_vectors)
+    launches = timed("embedding-mlp", run_embedding_mlp)
+    tmp = tempfile.mkdtemp(prefix="dl4j_nlp_")
+    try:
+        init_distributed(f"file://{tmp}/rdv", 1, 0, device="cuda",
+                         timeout_s=120)
+        mesh = build_mesh()
+        if mesh.backend != "nccl":
+            raise RuntimeError(f"[word2vec-sharded] formed {mesh.backend}")
+        timed("word2vec-sharded", run_word2vec_sharded, cache, ids, host,
+              mesh, tmp)
+        timed("zero", run_zero, mesh, tmp)
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2361,7 +2981,6 @@ def main() -> int:
           f" 0 = library already built)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for model, conf, batch in (("lenet", lenet(), LENET_BUCKET),
@@ -2404,6 +3023,13 @@ def main() -> int:
                 + check_transformer_matmuls(torch, gen)):
         records.append(rec)
         print(f"[kernel] {json.dumps(rec)}")
+    # the embedding MLP's dense layer, launched once a step
+    rec = check_kernel(torch, F, "embedding-mlp", "dense", "matmul_block",
+                       {"m": MLP_BATCH, "k": W2V_DIM, "n": MLP_HIDDEN,
+                        "activation": "relu"}, gen)
+    rec["launches_per_step"] = 1
+    records.append(rec)
+    print(f"[kernel] {json.dumps(rec)}")
     check_routes(records)
     layers = []
     for model, n_in, (T, b, n) in (
@@ -2431,6 +3057,7 @@ def main() -> int:
     resnet, resnet_init, resnet_data = run_resnet50(torch, card)
     resnet_dp = run_resnet50_dp(torch, card, resnet_init, resnet_data)
     del resnet_init, resnet_data
+    nlp = run_nlp(torch, card)
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -2460,7 +3087,8 @@ def main() -> int:
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
-                         + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]),
+                         + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
+                         + nlp[k]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -2503,6 +3131,12 @@ def main() -> int:
             entry.update(transformer_route=tx_in["kernel_route"],
                          transformer_ms=tx_in["kernel_ms"],
                          transformer_library_ms=tx_in["library_ms"])
+            # and the embedding MLP's dense layer (one launch a step)
+            mlp = next(r for r in mine
+                       if r["shape_of"] == "embedding-mlp.dense")
+            entry.update({f"embedding_mlp_{key}": mlp[key] for key in (
+                "kernel_route", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "max_abs_err")})
         kernels.append(entry)
     # the LSTM kernels: one launch at the char-RNN's chunk (T 50, b 32,
     # n 200) in the variant its training runs (the zoo model's peephole

@@ -347,3 +347,43 @@ def extract_stream_state(named_layers, new_state, rnn_state) -> None:
             rnn_state[name] = {k: new_state[name][k]
                                for k in lc.stream_state_keys()
                                if k in new_state[name]}
+
+
+def zero_gather_updater_state(upd_state, params, shards: int):
+    """ZeRO-1's flat layout back to the canonical one (JAX
+    ``zero_gather_updater_state``): each rank holds the ``ceil(n /
+    shards)`` slice of every flattened, zero-padded moment; the slices
+    are all-gathered over the default group (every rank must call this,
+    in lockstep), the padding dropped and the parameter's shape
+    restored."""
+    shards = int(shards)
+    if shards > 1 and not (torch.distributed.is_available()
+                           and torch.distributed.is_initialized()):
+        raise RuntimeError(
+            f"the updater state is sharded over {shards} ranks and "
+            "torch.distributed is not initialized: gather it (write_model, "
+            "fit) before leaving the world")
+
+    def gather(s, p):
+        if shards > 1:
+            parts = [torch.empty_like(s) for _ in range(shards)]
+            torch.distributed.all_gather(parts, s.contiguous())
+            s = torch.cat(parts)
+        return s[:p.numel()].view_as(p).clone()
+
+    return {ln: {pn: tuple(gather(s, params[ln][pn]) for s in tup)
+                 for pn, tup in lp.items()}
+            for ln, lp in upd_state.items()}
+
+
+def canonicalize_updater_state(model) -> None:
+    """Bring a model whose updater state is in ZeRO-1's flat layout
+    (``model._zero_layout = {"shards": n}``, set by the distributed
+    trainer) back to parameter-shaped moments, in place. A collective
+    on more than one rank: the engines' ``fit`` and a new trainer call
+    it on every rank."""
+    layout = getattr(model, "_zero_layout", None)
+    if layout:
+        model.updater_state = zero_gather_updater_state(
+            model.updater_state, model.params, layout["shards"])
+    model._zero_layout = None

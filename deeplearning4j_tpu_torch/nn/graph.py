@@ -84,6 +84,9 @@ class ComputationGraph:
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        # {"shards": n} while the updater state lies in ZeRO-1's flat
+        # layout (set by the distributed trainer); None: parameter-shaped
+        self._zero_layout = None
 
     @property
     def score_value(self) -> float:
@@ -140,6 +143,7 @@ class ComputationGraph:
                 self.conf.vertices[n].init_state(dtype).items()}
             for n in self.layer_vertex_names}
         self.updater_state = self.updater_def.init(self.params)
+        self._zero_layout = None
         return self
 
     # ------------------------------------------------------------------
@@ -352,6 +356,8 @@ class ComputationGraph:
         if self.params is None:
             self.init()
         self._check_trainable()
+        # a model left sharded by a zero=True trainer steps canonical
+        core.canonicalize_updater_state(self)
         inputs, labels, lmasks, fmasks = self.batch_tensors(ds)
         core.check_grad_accum_batch(self.grad_accum, int(inputs[0].shape[0]))
         self._last_batch_rows = int(inputs[0].shape[0])

@@ -23,7 +23,9 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     ActivationLayer,
     DenseLayer,
+    EmbeddingLayer,
     OutputLayer,
+    SparseEmbeddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GravesBidirectionalLSTM,
@@ -37,6 +39,7 @@ __all__ = [
     "BatchNormalization",
     "ConvolutionLayer",
     "DenseLayer",
+    "EmbeddingLayer",
     "FeedForwardLayerSpec",
     "GravesBidirectionalLSTM",
     "GravesLSTM",
@@ -47,6 +50,7 @@ __all__ = [
     "OutputLayer",
     "PositionalEncoding",
     "RnnOutputLayer",
+    "SparseEmbeddingLayer",
     "SubsamplingLayer",
     "TransformerBlock",
     "layer_from_json",

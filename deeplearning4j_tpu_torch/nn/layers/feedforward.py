@@ -1,4 +1,5 @@
-"""Feed-forward layers: Dense, Output and Activation.
+"""Feed-forward layers: Dense, Output, Activation and the embedding
+lookups.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py``.
 ``DenseLayer`` routes to the fused ``matmul_block`` kernel when its
@@ -9,7 +10,13 @@ epilogue), followed by the plain softmax. ``W`` is ``[n_in, n_out]``
 and ``y = x @ W + b``, as in the JAX package. An output layer scores
 its pre-output with its loss (``compute_score``, ``nn/losses.py``).
 ``ActivationLayer`` applies its activation alone, to any input family
-(ResNet's ReLU after each residual add).
+(ResNet's ReLU after each residual add). ``EmbeddingLayer`` maps a
+column of integer indices to rows of ``W`` (plus ``b``, then the
+activation); its gradient is autograd's indexed accumulate, which sums
+duplicate indices in a fixed order on the card. ``SparseEmbeddingLayer``
+is the same layer marked for row sharding: under a data-parallel world
+of more than one rank it raises until the trainer's row-sharded branch
+is ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -91,3 +98,42 @@ class ActivationLayer(LayerSpec):
     def apply(self, params, x, state, *, train=False, gen=None, mask=None):
         self.check_train(train)
         return self.activate_fn()(x), state
+
+
+@register_layer
+@dataclass(frozen=True)
+class EmbeddingLayer(FeedForwardLayerSpec):
+    """Index -> row lookup (reference
+    ``nn/layers/feedforward/embedding/EmbeddingLayer.java:41``): the
+    input is a column of integer indices (any dtype; widened on the
+    device), the forward ``W[idx] + b`` and the activation."""
+
+    activation: str = "identity"
+
+    def init_params(self, gen, dtype=torch.float32) -> dict:
+        w = init_weights(
+            gen, (self.n_in, self.n_out), self.weight_init,
+            fan_in=self.n_in, fan_out=self.n_out,
+            distribution=self.dist, dtype=dtype,
+        )
+        b = torch.full((self.n_out,), float(self.bias_init), dtype=dtype)
+        return {"W": w, "b": b}
+
+    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+        self.check_train(train)
+        idx = x.reshape(-1).long()
+        return self.activate_fn()(params["W"][idx] + params["b"]), state
+
+
+@register_layer
+@dataclass(frozen=True)
+class SparseEmbeddingLayer(EmbeddingLayer):
+    """``EmbeddingLayer`` whose ``[vocab, dim]`` table is meant to shard
+    its rows over the data-parallel world (the ``embeddings/``
+    subsystem's layout). The forward is the base layer's gather. The
+    JAX trainer's row-sharded branch is not ported yet:
+    ``DistributedTrainer`` over more than one rank refuses a layer with
+    ``row_sharded=True`` (ROADMAP queue 1); at one rank, or with
+    ``row_sharded=False``, it trains as the base layer does."""
+
+    row_sharded: bool = True

@@ -71,6 +71,9 @@ class MultiLayerNetwork:
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        # {"shards": n} while the updater state lies in ZeRO-1's flat
+        # layout (set by the distributed trainer); None: parameter-shaped
+        self._zero_layout = None
         # rnn_time_step's carried state (the reference's stateMap)
         self._rnn_state: Dict[str, dict] = {}
         self._stream_steps = 0
@@ -119,6 +122,7 @@ class MultiLayerNetwork:
             for name, layer in zip(self.layer_names, self.conf.layers)
         }
         self.updater_state = self.updater_def.init(self.params)
+        self._zero_layout = None
         return self
 
     # -- inference ---------------------------------------------------------
@@ -280,6 +284,8 @@ class MultiLayerNetwork:
         if self.params is None:
             self.init()
         self._check_trainable()
+        # a model left sharded by a zero=True trainer steps canonical
+        core.canonicalize_updater_state(self)
         x, y, mask, fmask = self.batch_tensors(ds)
         self._last_batch_rows = int(x.shape[0])
         if (self.conf.backprop_type == "TruncatedBPTT" and x.dim() == 3

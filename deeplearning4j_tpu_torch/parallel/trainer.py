@@ -136,11 +136,15 @@ class DistributedTrainer:
         self.mesh = mesh if mesh is not None else build_mesh(
             device=model.device)
         self._check_device()
+        self._check_row_sharded()
         self.batch_stats = batch_stats
         self.zero = bool(zero)
         self._is_graph = hasattr(model.conf, "vertices")
         if model.params is None:
             model.init()
+        # a model that arrives sharded (an earlier zero=True trainer) is
+        # gathered to parameter shapes first, never sliced twice
+        core.canonicalize_updater_state(model)
         self._broadcast_model()
         self._zero_ranges: Dict[str, Dict[str, tuple]] = {}
         if self.zero:
@@ -166,6 +170,23 @@ class DistributedTrainer:
         if m.device != mesh.device:
             raise RuntimeError(f"the model lies on {m.device}, this rank "
                                f"drives {mesh.device}")
+
+    def _check_row_sharded(self) -> None:
+        """The JAX trainer shards a ``SparseEmbeddingLayer``'s rows over
+        the data axis; that branch is not ported, so a world of several
+        ranks refuses such a layer rather than replicate it silently."""
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            SparseEmbeddingLayer,
+        )
+
+        if self.mesh.data > 1 and any(
+                isinstance(lc, SparseEmbeddingLayer) and lc.row_sharded
+                for lc in self.model.layer_confs()):
+            raise NotImplementedError(
+                "SparseEmbeddingLayer(row_sharded=True) over more than one "
+                "rank: the trainer's row-sharded embedding branch is not "
+                "ported yet (ROADMAP queue 1: the row-sharded trainer "
+                "branch for SparseEmbeddingLayer); use row_sharded=False")
 
     @property
     def _collective(self) -> bool:
@@ -204,7 +225,9 @@ class DistributedTrainer:
     def _shard_updater_state(self) -> None:
         """ZeRO-1: every updater leaf flattened, zero-padded to a
         multiple of the ranks, and this rank's 1/N slice kept
-        (``_zero_ranges``: (start, stop, numel) of each parameter)."""
+        (``_zero_ranges``: (start, stop, numel) of each parameter). The
+        model is marked ``_zero_layout = {"shards": N}``: ``write_model``
+        and the engines' ``fit`` gather it back."""
         m, n, r = self.model, self.mesh.data, self.mesh.rank
         sharded = {}
         for ln, lp in m.params.items():
@@ -218,6 +241,7 @@ class DistributedTrainer:
                     self._flat_slice(a, ln, pn).clone()
                     for a in m.updater_state[ln][pn])
         m.updater_state = sharded
+        m._zero_layout = {"shards": n}
 
     def _flat_slice(self, a: torch.Tensor, ln: str, pn: str) -> torch.Tensor:
         lo, hi, numel = self._zero_ranges[ln][pn]
@@ -237,26 +261,14 @@ class DistributedTrainer:
 
     def gather_updater_state(self):
         """The updater state in the canonical (parameter-shaped) layout:
-        the model's own under replication, all-gathered under zero."""
+        the model's own where it is not sharded, all-gathered (on every
+        rank) where it is."""
         m = self.model
-        if not self.zero:
+        layout = getattr(m, "_zero_layout", None)
+        if not layout:
             return m.updater_state
-        out = {}
-        for ln, lp in m.updater_state.items():
-            out[ln] = {}
-            for pn, tup in lp.items():
-                p = m.params[ln][pn]
-                out[ln][pn] = tuple(
-                    self._gather_flat(s)[:p.numel()].view_as(p).clone()
-                    for s in tup)
-        return out
-
-    def _gather_flat(self, s: torch.Tensor) -> torch.Tensor:
-        if not self._collective:
-            return s
-        parts = [torch.empty_like(s) for _ in range(self.mesh.data)]
-        dist.all_gather(parts, s.contiguous())
-        return torch.cat(parts)
+        return core.zero_gather_updater_state(m.updater_state, m.params,
+                                              layout["shards"])
 
     # -- the batch ------------------------------------------------------------
 
@@ -449,6 +461,10 @@ class DistributedTrainer:
         as a 0-d tensor on the device."""
         m = self.model
         m._check_trainable()
+        if self.zero and m._zero_layout != {"shards": self.mesh.data}:
+            # the engine's own fit gathered the moments in between
+            core.canonicalize_updater_state(m)
+            self._shard_updater_state()
         fields = self._fields(ds)
         batch_n = int(fields[0][0].shape[0])
         n, k = self.mesh.data, int(m.grad_accum)

@@ -109,7 +109,12 @@ def _model_type(model) -> str:
 def write_model(model, path) -> None:
     """Write ``model`` (a ``MultiLayerNetwork`` or a
     ``ComputationGraph``) as a checkpoint zip, its layer state and
-    updater state included."""
+    updater state included. A model whose updater state a ``zero=True``
+    trainer sharded over several ranks is written in the canonical
+    layout: every rank calls this (one all-gather), each writes the same
+    zip."""
+    from deeplearning4j_tpu_torch.nn import core
+
     model_type = _model_type(model)
     if model.params is None:
         model.init()
@@ -124,18 +129,32 @@ def write_model(model, path) -> None:
     if state:
         members[LAYER_STATE_NAME] = _npz_bytes(params_to_numpy(state))
     if model.updater_state is not None:
-        members[UPDATER_NAME] = _npz_bytes(
-            updater_state_to_numpy(model.updater_state))
+        upd = model.updater_state
+        layout = getattr(model, "_zero_layout", None)
+        if layout:
+            # ZeRO-1 slices: gathered (a collective every rank joins) to
+            # the parameter-shaped moments, so the zip is world-free
+            upd = core.zero_gather_updater_state(upd, model.params,
+                                                 layout["shards"])
+        members[UPDATER_NAME] = _npz_bytes(updater_state_to_numpy(upd))
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(CONFIG_NAME, json.dumps(doc, indent=2))
+        for name, data in members.items():
+            zf.writestr(name, data)
+    atomic_write_bytes(path, buf.getvalue())
+
+
+def atomic_write_bytes(path, data: bytes) -> None:
+    """Write ``data`` to ``path`` atomically and durably: temp file,
+    fsync, rename, directory fsync."""
     path = os.fspath(path)
     d = os.path.dirname(path) or "."
     fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".",
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as zf:
-                zf.writestr(CONFIG_NAME, json.dumps(doc, indent=2))
-                for name, data in members.items():
-                    zf.writestr(name, data)
+            f.write(data)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)

@@ -1696,3 +1696,69 @@ def test_resnet50_graph_step_on_the_card_matches_the_cpu_twin(cuda,
         for k, ref in st.items():
             torch.testing.assert_close(net.state[ln][k].cpu(), ref,
                                        rtol=1e-3, atol=1e-5)
+
+
+# -- the embeddings subsystem on the card --------------------------------
+
+
+def _w2v_corpus(n=400, length=20, vocab=300, seed=0):
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p /= p.sum()
+    sents = [[f"w{i}" for i in rng.choice(vocab, size=length, p=p)]
+             for _ in range(n)]
+    cache = VocabConstructor(1).build_vocab_from_tokens(sents)
+    return cache, [np.asarray([cache.index_of(w) for w in s], np.int32)
+                   for s in sents]
+
+
+def test_word2vec_device_generation_is_bitwise_repeatable(cuda):
+    """Two device-generation fits from one seed: the same tables bit for
+    bit (the row fold sums duplicates in a fixed order), and the route
+    launches no atomics-ordered accumulation that could differ."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    cache, ids = _w2v_corpus()
+    runs = []
+    for _ in range(2):
+        w = Word2Vec(cache, ids, layer_size=32, window=5, negative=5,
+                     batch_size=1024, epochs=2, seed=1, device=cuda)
+        assert w._use_device_gen()
+        w.fit()
+        runs.append((w.lookup.syn0.clone(), w.lookup.syn1neg.clone()))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_sparse_fold_on_the_card_equals_the_cpu(cuda):
+    from deeplearning4j_tpu_torch.embeddings import sparse
+
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy((rng.zipf(1.2, 50000) - 1).clip(0, 99))
+    g = torch.from_numpy(rng.randn(50000, 64).astype(np.float32))
+    u, s, n = sparse.dedup_segment_sum(ids.to(cuda), g.to(cuda))
+    cu, cs, cn = sparse.dedup_segment_sum(ids, g)
+    assert int(n) == int(cn) and torch.equal(u.cpu(), cu)
+    torch.testing.assert_close(s.cpu(), cs, rtol=1e-5, atol=1e-4)
+    again = sparse.dedup_segment_sum(ids.to(cuda), g.to(cuda))[1]
+    assert torch.equal(again, s)
+
+
+def test_sharded_lookup_on_the_card_equals_unsharded(cuda):
+    from deeplearning4j_tpu_torch.embeddings import ShardedEmbeddingTable
+
+    rng = np.random.RandomState(1)
+    rows = rng.randn(257, 16).astype(np.float32)
+    t = ShardedEmbeddingTable.from_rows(rows, device=cuda)
+    assert t.table.is_cuda
+    ids = rng.randint(0, 257, (33, 7))
+    assert np.array_equal(t.lookup(ids).cpu().numpy(), rows[ids])
+    grads = rng.randn(300, 16).astype(np.float32)
+    hot = (rng.zipf(1.3, 300) - 1).clip(0, 256)
+    t.apply_sparse_grads(hot, grads, 0.1)
+    plain = ShardedEmbeddingTable.from_rows(rows, device="cpu")
+    plain.apply_sparse_grads(hot, grads, 0.1)
+    np.testing.assert_allclose(t.to_host(), plain.to_host(), rtol=1e-5,
+                               atol=1e-6)

@@ -120,6 +120,70 @@ def test_fresh_process_runs_the_transformer_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_port_files_cover_the_nlp_and_embeddings_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("nlp/tokenization.py", "nlp/vocab.py", "nlp/word2vec.py",
+                   "nlp/serializer.py", "nlp/glove.py",
+                   "nlp/paragraph_vectors.py", "embeddings/sparse.py",
+                   "embeddings/table.py", "embeddings/word2vec.py",
+                   "embeddings/deepwalk.py", "graph/api.py", "graph/graph.py",
+                   "graph/walks.py", "graph/deepwalk.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("first", ["nlp", "embeddings", "graph"])
+def test_fresh_process_runs_the_embeddings_subsystem_without_jax(first):
+    """``nlp``, ``embeddings`` and ``graph`` import in a fresh process
+    (each one first: no import cycle) without JAX, and a Word2Vec, a
+    DeepWalk and a sharded table run on the CPU."""
+    code = (
+        "import sys, numpy as np\n"
+        f"import deeplearning4j_tpu_torch.{first}\n"
+        "from deeplearning4j_tpu_torch.nlp import VocabConstructor, "
+        "Word2Vec\n"
+        "from deeplearning4j_tpu_torch.graph import DeepWalk, Graph\n"
+        "from deeplearning4j_tpu_torch.embeddings import "
+        "ShardedEmbeddingTable, ShardedWord2Vec\n"
+        "s = [['a', 'b', 'c', 'a', 'd']] * 20\n"
+        "c = VocabConstructor(1).build_vocab_from_tokens(s)\n"
+        "ids = [np.asarray([c.index_of(w) for w in x]) for x in s]\n"
+        "w = Word2Vec(c, ids, layer_size=4, batch_size=16, device='cpu')\n"
+        "w.device_epoch_gen = True\n"
+        "w.fit()\n"
+        "assert len(w.words_nearest('a', 2)) == 2\n"
+        "g = Graph(4)\n"
+        "[g.add_edge(i, (i + 1) % 4) for i in range(4)]\n"
+        "d = DeepWalk(vector_size=4, batch_size=8, device='cpu')\n"
+        "d.fit(g, walk_length=4)\n"
+        "t = ShardedEmbeddingTable(5, 3, device='cpu')\n"
+        "assert t.lookup(np.array([1, 4])).shape == (2, 3)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_embeddings_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from deeplearning4j_tpu_torch.embeddings import ShardedEmbeddingTable
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import Glove, VocabConstructor, Word2Vec
+
+    cache = VocabConstructor(1).build_vocab_from_tokens([["a", "b"]])
+    for make in (lambda: Word2Vec(cache, [[0, 1]]), lambda: DeepWalk(),
+                 lambda: Glove(cache, [[0, 1]]),
+                 lambda: ShardedEmbeddingTable(3, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -77,7 +77,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel import (
     DistributedTrainer, build_mesh, init_distributed, shutdown_distributed)
 from deeplearning4j_tpu_torch.util.model_serializer import (
-    params_from_numpy, params_to_numpy, updater_state_to_numpy)
+    params_from_numpy, params_to_numpy, updater_state_to_numpy, write_model)
 from deeplearning4j_tpu_torch.nn.conf import (
     ComputationGraphConfiguration, MultiLayerConfiguration)
 
@@ -122,6 +122,24 @@ try:
     for ln, st in model.state.items():
         for k, v in st.items():
             out["s:" + ln + "/" + k] = v.numpy()
+    # ZeRO-1's layout follow-ups: a checkpoint, a second trainer over the
+    # same model, then the engine's own fit, each on every rank
+    if spec.get("ckpt"):
+        write_model(model, spec["ckpt"])
+    if spec.get("trainer2_steps"):
+        tr = DistributedTrainer(model, mesh=mesh,
+                                batch_stats=spec.get("batch_stats", "auto"),
+                                zero=spec.get("zero", False))
+        out["scores2"] = np.asarray([float(tr.fit_minibatch(ds))
+                                     for _ in range(spec["trainer2_steps"])])
+    if spec.get("engine_steps"):
+        out["scores3"] = np.asarray([float(model.fit_minibatch(ds))
+                                     for _ in range(spec["engine_steps"])])
+        out["layout"] = np.asarray(str(model._zero_layout))
+        for k, v in params_to_numpy(model.params).items():
+            out["p3:" + k] = v
+        for k, v in updater_state_to_numpy(model.updater_state).items():
+            out["u3:" + k] = v
 except ValueError as e:
     out["error"] = np.asarray(str(e))
 np.savez(spec["out"], **out)
@@ -150,7 +168,9 @@ def run_ranks(tmp_path, world, conf, arrays, steps=1, init=None, **opts):
         spec = dict(rank=r, world=world, rdv=str(run / "rdv"),
                     conf=_save_conf(run, conf), data=str(run / "data.npz"),
                     init=str(run / "init.npz") if init is not None else "",
-                    out=str(run / f"out{r}.npz"), steps=steps, **opts)
+                    out=str(run / f"out{r}.npz"), steps=steps,
+                    **{k: (v.format(rank=r) if isinstance(v, str) else v)
+                       for k, v in opts.items()})
         logs.append(run / f"err{r}.txt")
         with open(logs[-1], "w") as err:
             procs.append(subprocess.Popen(
@@ -473,6 +493,59 @@ def test_zero_is_bitwise_equal_to_replicated(tmp_path, rng, conf_name):
     for r in zero:
         assert int(r["zero_bytes"]) == int(r["upd_bytes"])
         assert total / 2 <= int(r["zero_bytes"]) <= total / 2 + 4 * 64
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_zero_layout_checkpoint_second_trainer_and_engine_fit(
+        tmp_path, rng, world):
+    """ZeRO-1's flat updater layout never leaks: after a ``zero=True``
+    fit, ``write_model`` (every rank) writes the parameter-shaped moments,
+    equal bit for bit to the replicated run's and loadable by the JAX
+    package; a second ``zero=True`` trainer over the same model gathers
+    before it re-shards (no slice of a slice) and continues the
+    replicated trajectory bit for bit on every rank; the engine's own
+    ``fit_minibatch`` then gathers and continues with the replicated
+    scores. Held bitwise: every updater rule is elementwise."""
+    import zipfile
+
+    from deeplearning4j_tpu.util.model_serializer import (
+        restore_multi_layer_network as jrestore,
+    )
+
+    conf = mlp_conf(updater="ADAM", lr=0.05)
+    x, y = blob_data(rng, n=32)
+    runs = {}
+    for zero in (False, True):
+        ckpt = str(tmp_path / f"ckpt-{zero}-{{rank}}.zip")
+        runs[zero] = run_ranks(tmp_path, world, conf, {"x0": x, "y0": y},
+                               steps=2, batch_stats="sync", zero=zero,
+                               ckpt=ckpt, trainer2_steps=2, engine_steps=2)
+    rep, zero = runs[False], runs[True]
+    for r in range(world):
+        for key, v in rep[0].items():
+            if key.startswith(("p:", "u:", "p3:", "u3:", "scores")):
+                np.testing.assert_array_equal(zero[r][key], v,
+                                              err_msg=f"rank {r} {key}")
+        assert str(zero[r]["layout"]) == "None"
+
+    def npz(path, name):
+        with zipfile.ZipFile(path) as zf:
+            with np.load(__import__("io").BytesIO(zf.read(name))) as f:
+                return {k: f[k] for k in f.files}
+
+    want = tmp_path / "ckpt-False-0.zip"
+    for r in range(world):
+        got = tmp_path / f"ckpt-True-{r}.zip"
+        for name in ("coefficients.npz", "updaterState.npz"):
+            w, g = npz(want, name), npz(got, name)
+            assert set(g) == set(w)
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    jnet = jrestore(str(tmp_path / f"ckpt-True-{world - 1}.zip"))
+    for ln, lp in jnet.params.items():
+        for pn, p in lp.items():
+            for leaf in jax.tree_util.tree_leaves(jnet.updater_state[ln][pn]):
+                assert leaf.shape == p.shape, (ln, pn, leaf.shape)
 
 
 def test_dp_grad_accum_matches_the_unaccumulated_step(tmp_path, rng):
