@@ -102,7 +102,24 @@ non-zero (nothing is caught):
    softmax, 5 Adam steps, launches exact; on an NCCL world of one,
    ``[word2vec-sharded]`` (``ShardedWord2Vec`` against the host route,
    save/restore bitwise) and ``[zero]`` (a ``zero=True`` checkpoint
-   equal to the replicated one's, parameter-shaped).
+   equal to the replicated one's, parameter-shaped);
+11. half-precision training (main paths), after the kernels' bf16
+   variants are held against their plain versions at every distinct
+   conv shape of a ResNet-50 step (the forward half in / half out and
+   half in / f32 out, dW on a bf16 image; beside cuDNN's bf16 calls):
+   ``[resnet50-bf16]`` bench.py's pure-bf16 ResNet-50 (NESTEROVS lr
+   0.01, batch 128; two batch-4 steps held to the CPU twin with every
+   conv kernel call held on its operands, then 6 steps, launches exact
+   by dtype variant, peak memory); ``[vgg16-bf16]`` bench.py's pure-bf16
+   VGG-16 (4 minibatches x 2 epochs); ``[transformer-bf16]`` the LM
+   with bf16 compute over f32 masters (20 Adam steps: masters and
+   moments f32, activations and kernels bf16); ``[f16-loss-scale]`` the
+   LM in f16 compute from a loss scale of 2**24 (12 steps: each overflow
+   step skipped bitwise with the scale halved, then clean steps);
+   ``[guard]`` [train]'s LeNet-5 under ``DivergenceGuard("skip")`` with
+   a ``StatGuardConfig``, a NaN minibatch and a mislabelled one both
+   skipped bitwise, the guarded step's device time beside the
+   unguarded one's.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -148,8 +165,10 @@ TX_STEPS = 20
 TX_PROMPT = 256
 TX_SAMPLE = 64
 TX_LONG_T = 16384
-# H100 SXM bf16 dense tensor-core peak (the bound of bf16 attention)
+# H100 SXM dense tensor-core peaks: bf16 / f16 operands, and TF32 (the
+# rate of a product with an f32 operand on the tensor cores)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 # VGG-16 on CIFAR-10 (BASELINE.json config #2; bench.py:480's batch)
 VGG_BATCH = 128
@@ -1160,33 +1179,42 @@ def resnet_batches(n_batches, batch, seed):
 
 
 class held_on_operands:
-    """Within the block, every call of the three conv kernels is held
+    """Within the block, every call of the three conv kernels (and with
+    ``dense`` of the dense kernel and its residual variant) is held
     against its plain version on the same operands on the card:
     ``errors[kernel]`` is (calls, largest error relative to the plain
-    result's largest entry), and a call past ``rel`` raises."""
+    result's largest entry), and a call past ``rel`` raises (an f32
+    result; a bf16 or f16 one, rounded once to its type on each side,
+    past ``HALF_REL`` of its dtype)."""
 
-    def __init__(self, rel: float = 5e-5):
+    def __init__(self, rel: float = 5e-5, dense: bool = False):
         self.rel = rel
+        self.dense = dense
         self.errors = {}
 
     def __enter__(self):
         cb = importlib.import_module(
             "deeplearning4j_tpu_torch.ops.conv_block")
-        self._cb = cb
-        self._saved = (cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w)
-        kfwd, kdx, kdw = self._saved
+        mb = importlib.import_module(
+            "deeplearning4j_tpu_torch.ops.matmul_block")
+        self._cb, self._mb = cb, mb
+        self._saved = (cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w,
+                       mb._kernel_forward)
+        kfwd, kdx, kdw, kmm = self._saved
 
         def held(name, kernel, plain):
             def call(*args):
                 got = kernel(*args)
                 ref = plain(*args)
-                scale = max(float(ref.abs().max()), 1e-30)
+                key = name(args) if callable(name) else name
+                scale = max(float(ref.float().abs().max()), 1e-30)
                 rel = float((got.float() - ref.float()).abs().max()) / scale
-                n, worst = self.errors.get(name, (0, 0.0))
-                self.errors[name] = (n + 1, max(worst, rel))
-                if rel > self.rel:
-                    raise RuntimeError(f"{name} {tuple(args[0].shape)}: "
-                                       f"{rel:.2e} of the plain result")
+                n, worst = self.errors.get(key, (0, 0.0))
+                self.errors[key] = (n + 1, max(worst, rel))
+                if rel > HALF_REL.get(str(got.dtype), self.rel):
+                    raise RuntimeError(f"{key} {tuple(args[0].shape)} "
+                                       f"{got.dtype}: {rel:.2e} of the "
+                                       "plain result")
                 return got
             return call
 
@@ -1194,11 +1222,17 @@ class held_on_operands:
         cb.conv_bwd_data = held("conv_bwd_data", kdx,
                                 cb.conv_bwd_data_reference)
         cb.conv_bwd_w = held("conv_bwd_w", kdw, cb.conv_bwd_w_reference)
+        if self.dense:  # args: x, w, bias, residual, activation
+            mb._kernel_forward = held(
+                lambda args: ("matmul_block" if args[3] is None
+                              else "matmul_block_residual"),
+                kmm, mb._plain_forward)
         return self
 
     def __exit__(self, *exc):
-        cb = self._cb
-        cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w = self._saved
+        cb, mb = self._cb, self._mb
+        (cb._kernel_forward, cb.conv_bwd_data, cb.conv_bwd_w,
+         mb._kernel_forward) = self._saved
         return False
 
 
@@ -1491,6 +1525,569 @@ def run_resnet50_dp(torch, card, init, batches):
         shutdown_distributed()
         shutil.rmtree(tmp, ignore_errors=True)
     return main
+
+
+# --- half-precision training (the mixed-precision slice) -------------------
+
+# a half (bf16 / f16) kernel output against its plain version, relative
+# to the plain result's largest entry: each output rounds once to the
+# half type, and the two sum the same exact products in other orders,
+# so they differ by at most one rounding of the type (2**-8 / 2**-11)
+HALF_REL = {"torch.bfloat16": 8e-3, "torch.float16": 1e-3}
+HALF_TWIN_RTOL, HALF_TWIN_ATOL = 2e-2, 8e-3  # bf16 scores, card vs CPU
+
+
+def check_half_kernels(torch, F, gen):
+    """The conv kernels' half-precision variants at every distinct conv
+    shape of a ResNet-50 training step (224 x 224, batch 128) in bf16:
+    the forward half in / half out (each layer's launch), half in / f32
+    out (the backward's recompute of the accumulator), and dW on a half
+    image with the f32 dacc; each against its plain version on the same
+    operands, repeated bitwise, timed (CUDA graphs) beside the plain
+    version and the library's bf16 call (``F.conv2d``,
+    ``torch.nn.grad.conv2d_weight`` with a bf16 gradient; cuDNN, on
+    tensor cores). ``bound_ms`` is at the tensor-core rate of the
+    operands' type: bf16 for the forward (both operands bf16), TF32 for
+    dW (its dacc is f32); ``bound_fp32_simt_ms`` beside it is at the
+    FP32 rate outside the tensor cores, what the SIMT kernels can
+    reach."""
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    dtype, tag = torch.bfloat16, "bf16"
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    records = []
+    for name, kind, geo, names in resnet_shapes():
+        if kind not in ("conv_block", "conv_bwd_w"):
+            continue
+        xs, ws = tuple(geo["x"]), tuple(geo["w"])
+        st, pad = tuple(geo["stride"]), tuple(geo["padding"])
+        n, c = xs[:2]
+        o, _, kh, kw = ws
+        oh, ow = conv_out(xs[2], kh, st[0], pad[0]), conv_out(xs[3], kw, st[1],
+                                                             pad[1])
+        x = torch.randn(xs, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(ws, device=dev, generator=gen)
+             / (c * kh * kw) ** 0.5).to(dtype)
+        if kind == "conv_block":
+            act = geo["activation"]
+            one = torch.ones(o, device=dev)
+            zero = torch.zeros(o, device=dev)
+            flops = 2.0 * n * o * oh * ow * c * kh * kw
+            variants = ((tag, dtype), (f"{tag}->f32", f32))
+            peak = PEAK_BF16_FLOPS
+        else:
+            dacc = torch.randn((n, o, oh, ow), device=dev, generator=gen)
+            dacc_h = dacc.to(dtype)
+            flops = 2.0 * useful_macs(geo)
+            variants = ((tag, f32),)
+            peak = PEAK_TF32_FLOPS
+        for variant, out_dtype in variants:
+            if kind == "conv_block":
+                def kernel(out_dtype=out_dtype):
+                    return cb._kernel_forward(x, w, one, zero, st, pad, act,
+                                              out_dtype)
+
+                def plain(out_dtype=out_dtype):
+                    return cb._plain_forward(x, w, one, zero, st, pad, act,
+                                             out_dtype)
+
+                def library():
+                    return F.conv2d(x, w, stride=st, padding=pad)
+                out_elems = n * o * oh * ow
+                nbytes = (x.element_size() * (x.numel() + w.numel())
+                          + out_elems * (2 if out_dtype == dtype else 4))
+                route = cb.conv_block_route(*xs, o, kh, kw, st, pad,
+                                            dtype).route
+            else:
+                def kernel():
+                    return cb.conv_bwd_w(x, dacc, ws, st, pad)
+
+                def plain():
+                    return cb.conv_bwd_w_reference(x, dacc, ws, st, pad)
+
+                def library():
+                    return torch.nn.grad.conv2d_weight(x, ws, dacc_h,
+                                                       stride=st,
+                                                       padding=pad)
+                nbytes = (x.element_size() * x.numel() + 4 * dacc.numel()
+                          + 4 * w.numel())
+                route = cb.conv_bwd_w_route(*xs, o, kh, kw, st, pad).route
+            with torch.inference_mode():
+                got, again, ref = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise RuntimeError(f"{kind}[{variant}] resnet50.{name}: "
+                                       "two launches differ")
+                if got.dtype != out_dtype:
+                    raise RuntimeError(f"{kind}[{variant}] wrote {got.dtype}")
+                err = float((got.float() - ref.float()).abs().max())
+                scale = max(float(ref.float().abs().max()), 1e-30)
+                rel = HALF_REL[str(dtype)] if out_dtype == dtype else 5e-5
+                if err > rel * max(scale, 1.0):
+                    raise RuntimeError(f"{kind}[{variant}] resnet50.{name}: "
+                                       f"{err} against scale {scale}")
+                ms = graph_ms(torch, kernel)
+                plain_ms = graph_ms(torch, plain)
+                library_ms = graph_ms(torch, library)
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            records.append({
+                "kernel": kind, "variant": variant, "kernel_route": route,
+                "shape_of": f"resnet50.{name}", "x": list(xs), "w": list(ws),
+                "stride": list(st), "padding": list(pad),
+                "max_abs_err": err, "rel_err": err / scale,
+                "kernel_ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "bound_fp32_simt_ms": bound(flops, nbytes)[0],
+                "gflop": flops / 1e9, "mb": nbytes / 1e6,
+                "launches_per_step": len(names)})
+    return records
+
+
+def snapshot(model):
+    """Copies on the device of every parameter, updater moment and layer
+    state tensor of ``model``, keyed ``"kind:layer/name/i"``."""
+    import torch
+
+    out = {}
+    for kind, tree in (("p", model.params), ("u", model.updater_state),
+                       ("s", model.state)):
+        for ln, lp in tree.items():
+            for k, v in lp.items():
+                for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                    if torch.is_tensor(t):
+                        out[f"{kind}:{ln}/{k}/{i}"] = t.clone()
+    return out
+
+
+def unchanged(before, model) -> bool:
+    """Every tensor of ``before`` (``snapshot``) bitwise equal to the
+    model's now."""
+    import torch
+
+    now = snapshot(model)
+    return now.keys() == before.keys() and all(
+        torch.equal(now[k], before[k]) for k in before)
+
+
+def expect_variants(counts, want):
+    """``counts`` (``dispatch.variant_counts()``), checked to be exactly
+    ``want`` (``{"kernel[variant]": launches}``)."""
+    if counts != want:
+        raise RuntimeError(f"launched {counts}, expected {want}")
+    return counts
+
+
+def run_resnet50_bf16(torch, card):
+    """[resnet50-bf16] bench.py:824-845's configuration: the zoo's
+    ResNet-50 in pure bf16 (parameters, velocities, activations;
+    BatchNormalization's statistics f32), NESTEROVS lr 0.01, batch 128 x
+    224 x 224 x 3, 1000 classes, synthetic uint8 pixels. Two steps at
+    batch 4 held against the CPU twin from the same state, with every
+    conv kernel call held against its plain version on its own operands;
+    then the main path: a fresh network fits 2 minibatches of 128 for 3
+    epochs (6 steps; bench.py: 4 epochs x 2), launches exact by dtype
+    variant, the score on the first minibatch falling. Returns the
+    launch counts and variant counts of the main path."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    conf = resnet50(dtype="bfloat16", learning_rate=0.01)
+    init_net = ComputationGraph(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in init_net.params.items()}
+    print(f"[resnet50-bf16] zoo.resnet50(dtype='bfloat16') "
+          f"({init_net.num_params()} params), NESTEROVS lr 0.01, batch "
+          f"{RESNET_BATCH}, synthetic uint8 pixels")
+    del init_net
+    batches = resnet_batches(2, RESNET_BATCH, seed=12)
+    small = [DataSet(((b.features[:RESNET_TWIN_BATCH].astype(np.float32)
+                       - 127.5) / 73.9),
+                     b.labels[:RESNET_TWIN_BATCH]) for b in batches]
+    a = ComputationGraph(conf, device="cuda").init(params=init)
+    twin = cpu_twin(torch, a)
+    card_scores, cpu_scores = [], []
+    held = held_on_operands()
+    for ds in small:
+        twin.params = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                       for ln, lp in a.params.items()}
+        twin.updater_state = {ln: {pn: tuple(t.cpu() for t in tup)
+                                   for pn, tup in lp.items()}
+                              for ln, lp in a.updater_state.items()}
+        twin.state = {ln: {k: t.cpu() for k, t in st.items()}
+                      for ln, st in a.state.items()}
+        with held:
+            a.fit(ds)
+        twin.fit(ds)
+        card_scores.append(a.score_value)
+        cpu_scores.append(twin.score_value)
+    # the same bf16 weights and pixels: the scores agree to bf16 rounding
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=HALF_TWIN_RTOL,
+                               atol=HALF_TWIN_ATOL)
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "conv_block": 212, "conv_bwd_data": 104, "conv_bwd_w": 106}:
+        raise RuntimeError(f"[resnet50-bf16] held calls: {held.errors}")
+    del a, twin
+
+    model = ComputationGraph(conf, device="cuda").init(params=init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS // len(batches)):
+        for ds in batches:
+            scores.append(model.fit_minibatch(ds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = model.iteration_count
+    launches = dispatch.launch_counts()
+    variants = expect_variants(dispatch.variant_counts(), {
+        "conv_block[bf16]": 53 * steps, "conv_block[bf16->f32]": 53 * steps,
+        "conv_bwd_data[f32]": 52 * steps, "conv_bwd_w[bf16]": 53 * steps})
+    peak = torch.cuda.max_memory_allocated()
+    if any(t.dtype != torch.bfloat16 for lp in model.params.values()
+           for t in lp.values()):
+        raise RuntimeError("[resnet50-bf16] a parameter is not bf16")
+    scores = [float(s) for s in scores]
+    if not all(np.isfinite(scores)) or not scores[-2] < scores[0]:
+        raise RuntimeError(f"[resnet50-bf16] the score did not fall: "
+                           f"{scores}")
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches))
+    device_ms /= 2
+    ms_per_step = wall / steps * 1e3
+    res = {"steps": steps, "batch": RESNET_BATCH,
+           "examples_per_s": steps * RESNET_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "scores": scores, "max_memory_allocated_gb": peak / 1e9,
+           "launches_per_step_by_variant": {k: v // steps
+                                            for k, v in variants.items()},
+           "twin_scores": {"card": card_scores, "cpu": cpu_scores},
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[resnet50-bf16] {json.dumps(res)} card={card}")
+    return launches, variants
+
+
+def run_vgg16_bf16(torch, card):
+    """[vgg16-bf16] bench.py:470-480's configuration: the zoo's VGG-16
+    in pure bf16, NESTEROVS, batch 128 of synthetic CIFAR-10, 4
+    minibatches x 2 epochs (cut from bench.py's epochs). One step with
+    every conv and dense kernel call held against its plain version on
+    its own operands, then the main path, launches exact by dtype variant.
+    Returns the launch counts and variant counts of the main path."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import CifarDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    epochs = 2
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = CifarDataSetIterator(VGG_BATCH, allow_synthetic=True,
+                                    num_examples=VGG_BATCH * VGG_BATCHES)
+    batches = list(data)
+    conf = vgg16(dtype="bfloat16")
+    net = ComputationGraph(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    print(f"[vgg16-bf16] zoo.vgg16(dtype='bfloat16') ({net.num_params()} "
+          f"params), NESTEROVS, batch {VGG_BATCH}, synthetic CIFAR-10")
+    held = held_on_operands(dense=True)
+    with held:
+        net.fit(batches[0])
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "conv_block": 26, "conv_bwd_data": 12, "conv_bwd_w": 13,
+            "matmul_block": 2}:
+        raise RuntimeError(f"[vgg16-bf16] held calls: {held.errors}")
+    del net
+    model = ComputationGraph(conf, device="cuda").init(params=init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(data, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = model.iteration_count
+    launches = dispatch.launch_counts()
+    variants = expect_variants(dispatch.variant_counts(), {
+        "conv_block[bf16]": 13 * steps, "conv_block[bf16->f32]": 13 * steps,
+        "conv_bwd_data[f32]": 12 * steps, "conv_bwd_w[bf16]": 13 * steps,
+        "matmul_block[bf16]": 2 * steps})
+    if steps != VGG_BATCHES * epochs or not np.isfinite(model.score_value):
+        raise RuntimeError(f"[vgg16-bf16] {steps} steps, score "
+                           f"{model.score_value}")
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches[:2]))
+    device_ms /= 2
+    ms_per_step = wall / steps * 1e3
+    res = {"steps": steps, "epochs": epochs, "batch": VGG_BATCH,
+           "examples_per_s": steps * VGG_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "score": model.score_value,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step_by_variant": {k: v // steps
+                                            for k, v in variants.items()},
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[vgg16-bf16] {json.dumps(res)} card={card}")
+    return launches, variants
+
+
+def run_transformer_bf16(torch, card, ids):
+    """[transformer-bf16] bench.py:866-881's configuration: the
+    transformer LM at full width (d 768, 12 layers, 12 heads) with bf16
+    compute over f32 master weights (``compute_dtype="bfloat16"``), Adam
+    lr 3e-4, batch 16 x t 512 of SURVEY.md's bytes, 20 steps: tokens/s,
+    host and device ms a step; the masters and the Adam moments stay
+    f32, the activations are bf16, and the flash-attention and dense
+    kernels launch in bf16 (by dtype variant). Returns the launch counts
+    and variant counts of the run."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    net = MultiLayerNetwork(transformer_lm(compute_dtype="bfloat16", **TX),
+                            device="cuda").init()
+    layers = TX["n_layers"]
+    batches = char_batches(ids, TX_BATCH, TX_T, TX_STEPS, seed=6,
+                           vocab=TX["vocab"])
+    print(f"[transformer-bf16] transformer_lm({TX}, compute_dtype="
+          f"'bfloat16') ({net.num_params()} params), Adam, batch "
+          f"{TX_BATCH} x t {TX_T}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for ds in batches:
+        net.fit(ds)
+        scores.append(net.score_value)  # waits for the card
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    variants = expect_variants(dispatch.variant_counts(), {
+        "flash_attention[bf16]": layers * TX_STEPS,
+        "matmul_block[bf16]": TX_STEPS,
+        "matmul_block_residual[bf16]": layers * TX_STEPS})
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"[transformer-bf16] a score is not finite: "
+                           f"{scores}")
+    for ln, lp in net.params.items():
+        for pn, t in lp.items():
+            if t.dtype != torch.float32 or any(
+                    m.dtype != torch.float32
+                    for m in net.updater_state[ln][pn]):
+                raise RuntimeError(f"[transformer-bf16] {ln}/{pn}: the "
+                                   "master or a moment is not f32")
+    out = net.output(batches[0].features[:2])
+    if out.dtype != torch.bfloat16:
+        raise RuntimeError(f"[transformer-bf16] the output is {out.dtype}")
+    device_ms, top = profiled_device_ms(torch, lambda: net.fit(batches[:2]))
+    device_ms /= 2
+    ms_per_step = wall / TX_STEPS * 1e3
+    res = {"steps": TX_STEPS, "batch": TX_BATCH, "t": TX_T,
+           "tokens_per_s": TX_STEPS * TX_BATCH * TX_T / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "scores": scores, "output_dtype": str(out.dtype),
+           "launches_per_step_by_variant": {
+               k: v // TX_STEPS for k, v in variants.items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[transformer-bf16] {json.dumps(res)} card={card}")
+    return launches, variants
+
+
+F16_STEPS = 12
+F16_SCALE = 2.0 ** 24
+
+
+def run_f16_loss_scale(torch, card, ids):
+    """[f16-loss-scale] the transformer LM at [transformer-bf16]'s width
+    in f16 compute with dynamic loss scaling from an initial scale of
+    2**24 (set so that the first steps overflow the f16 gradients), 12
+    Adam steps: the (scale, good_steps, overflows) sequence; on each
+    overflow step the parameters, the Adam moments and the layer state
+    are bitwise unchanged and the scale halves; on each clean step the
+    count rises; at least one clean step follows the overflows. The
+    first step's dense-kernel calls (every f16 product shape of the
+    step) are held against their plain version on their own operands.
+    Returns the launch counts and variant counts of the run."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    net = MultiLayerNetwork(transformer_lm(
+        compute_dtype="float16", loss_scale=F16_SCALE, **TX),
+        device="cuda").init()
+    if not net._loss_scale_active:
+        raise RuntimeError("[f16-loss-scale] loss scaling is not active")
+    batches = char_batches(ids, TX_BATCH, TX_T, F16_STEPS, seed=7,
+                           vocab=TX["vocab"])
+    print(f"[f16-loss-scale] transformer_lm({TX}, compute_dtype='float16', "
+          f"loss_scale=2**24), Adam, batch {TX_BATCH} x t {TX_T}")
+    layers = TX["n_layers"]
+    dispatch.reset_launch_counts()
+    seq, scores = [], []
+    prev = (F16_SCALE, 0, 0)
+    held = held_on_operands(dense=True)
+    for i, ds in enumerate(batches):
+        before = snapshot(net)
+        if i == 0:
+            with held:
+                net.fit(ds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()  # the held step is not timed
+        else:
+            net.fit(ds)
+        st = net._loss_scale_state
+        now = (float(st["scale"]), int(st["good_steps"]),
+               int(st["overflows"]))
+        if now[2] == prev[2] + 1:  # an overflow: skipped, scale halved
+            if not unchanged(before, net) or now[:2] != (prev[0] / 2, 0):
+                raise RuntimeError(f"[f16-loss-scale] overflow step "
+                                   f"{len(seq)}: {prev} -> {now}")
+        elif now != (prev[0], prev[1] + 1, prev[2]):
+            raise RuntimeError(f"[f16-loss-scale] clean step {len(seq)}: "
+                               f"{prev} -> {now}")
+        seq.append(now)
+        scores.append(net.score_value)
+        prev = now
+    wall = time.perf_counter() - t0
+    del before
+    launches = dispatch.launch_counts()
+    variants = expect_variants(dispatch.variant_counts(), {
+        "flash_attention[f16]": layers * F16_STEPS,
+        "matmul_block[f16]": F16_STEPS,
+        "matmul_block_residual[f16]": layers * F16_STEPS})
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "matmul_block": 1, "matmul_block_residual": layers}:
+        raise RuntimeError(f"[f16-loss-scale] held calls: {held.errors}")
+    first_clean = next((i for i, s in enumerate(seq) if s[1] > 0), None)
+    if seq[0][2] != 1 or first_clean is None:
+        raise RuntimeError(f"[f16-loss-scale] no overflow first or no clean "
+                           f"step after: {seq}")
+    if not np.isfinite(scores[-1]):
+        raise RuntimeError(f"[f16-loss-scale] scores {scores}")
+    res = {"steps": F16_STEPS, "initial_scale": F16_SCALE,
+           "loss_scale_sequence": seq, "overflows": seq[-1][2],
+           "first_clean_step": first_clean, "scores": scores,
+           "ms_per_step": wall / (F16_STEPS - 1) * 1e3,
+           "launches_per_step_by_variant": {
+               k: v // F16_STEPS for k, v in variants.items()},
+           "dense_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[f16-loss-scale] {json.dumps(res)} card={card}")
+    return launches, variants
+
+
+GUARD_STEPS = 20
+GUARD_NAN_STEP = 8
+GUARD_SPIKE_STEP = 14
+# the anomalous minibatch's one-hot labels scaled by this: its loss and
+# gradients that many times a clean step's (x50 hid under the running
+# mean of the still-falling loss on the card: 14 steps in, LeNet-5's
+# loss is ~0.02)
+GUARD_SPIKE = 1000.0
+
+
+def run_guard(torch, card, device="cuda", steps=GUARD_STEPS, dense=None):
+    """[guard] [train]'s LeNet-5 run (Adam lr 0.01, batch 256, synthetic
+    MNIST) under ``DivergenceGuard("skip")`` with a ``StatGuardConfig``,
+    20 steps: minibatch 8 poisoned with a NaN and minibatch 14 anomalous
+    (its one-hot labels scaled by GUARD_SPIKE: a loss spike). Both bad steps
+    leave the parameters, the Adam moments and the layer state bitwise
+    unchanged and are the guard's skipped steps; the other steps train
+    (the score falls). The guarded step's device time (CUDA-graph
+    replays) beside the unguarded step's. Returns the launch counts of
+    the run. ``device`` / ``steps`` / ``dense`` cut it for a rehearsal
+    on the CPU."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.resilience.guard import (
+        DivergenceGuard,
+        StatGuardConfig,
+    )
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(LENET_TRAIN_BATCH, allow_synthetic=True,
+                                    num_examples=LENET_TRAIN_BATCH * steps)
+    batches = list(data)
+    x = batches[GUARD_NAN_STEP].features.copy()
+    x[3, 100] = np.nan
+    batches[GUARD_NAN_STEP] = DataSet(x, batches[GUARD_NAN_STEP].labels)
+    batches[GUARD_SPIKE_STEP] = DataSet(
+        batches[GUARD_SPIKE_STEP].features,
+        batches[GUARD_SPIKE_STEP].labels * GUARD_SPIKE)
+    conf = lenet() if dense is None else lenet(dense_width=dense)
+    net = MultiLayerNetwork(conf, device=device).init()
+    # the loss falls fast at lr 0.01, so a z-score trip would flag good
+    # steps: the spike test (10x the running mean) does the work
+    cfg = StatGuardConfig(alpha=0.1, z_threshold=50.0, spike_factor=10.0,
+                          warmup=5)
+    guard = DivergenceGuard("skip", stats=cfg)
+    net.set_divergence_guard(guard)
+    print(f"[guard] LeNet-5 ({net.num_params()} params), Adam, batch "
+          f"{LENET_TRAIN_BATCH}, DivergenceGuard('skip', stats={cfg}); NaN "
+          f"at step {GUARD_NAN_STEP}, labels x{GUARD_SPIKE:g} at step "
+          f"{GUARD_SPIKE_STEP}")
+    dispatch.reset_launch_counts()
+    scores, kept = [], []
+    t0 = time.perf_counter()
+    for i, ds in enumerate(batches):
+        bad = i in (GUARD_NAN_STEP, GUARD_SPIKE_STEP)
+        before = snapshot(net) if bad else None
+        net.fit(ds)
+        if bad and not unchanged(before, net):
+            raise RuntimeError(f"[guard] bad step {i} changed the model")
+        scores.append(net.score_value)
+        kept.append(not bad)
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    if guard.skipped_batches != [GUARD_NAN_STEP, GUARD_SPIKE_STEP]:
+        raise RuntimeError(f"[guard] skipped {guard.skipped_batches}")
+    clean = [s for s, k in zip(scores, kept) if k]
+    if not (np.isfinite(clean).all() and clean[-1] < 0.5 * clean[0]):
+        raise RuntimeError(f"[guard] training did not go on: {scores}")
+    # one step's device time, guarded and not, from CUDA-graph replays
+    res = {"steps": steps, "skipped_batches": guard.skipped_batches,
+           "skipped_steps": guard.skipped_steps, "metrics": guard.metrics,
+           "stat_guard_state": {k: float(v) for k, v in
+                                net._stat_guard_state.items()},
+           "scores": scores, "ms_per_step": wall / steps * 1e3}
+    if device == "cuda":
+        x = torch.from_numpy(batches[0].features).cuda()
+        y = torch.from_numpy(batches[0].labels).cuda()
+        lrs = net.updater_def.scheduled_lrs(net.iteration_count)
+        t = net.iteration_count + 1
+        guarded = net._train_step()
+        sg = net._stat_guard_state
+        net.set_divergence_guard(None)
+        plain = net._train_step()
+        res["guarded_device_ms_per_step"] = graph_ms(torch, lambda: guarded(
+            net.params, net.updater_state, net.state, x, y, None, lrs, t,
+            sg=sg), reps=3)
+        res["unguarded_device_ms_per_step"] = graph_ms(torch, lambda: plain(
+            net.params, net.updater_state, net.state, x, y, None, lrs, t),
+            reps=3)
+    print(f"[guard] {json.dumps(res)} card={card}")
+    return launches
 
 
 def events_ms(torch, fn, reps: int = 20):
@@ -1946,7 +2543,8 @@ def attention_work(bh, t, d, causal=True):
 
 def check_flash_kernels(torch, F, gen):
     """Both flash-attention entries against their plain version on the
-    card, in f32 and bf16: at the transformer's training shape (b 16,
+    card, in f32 and bf16 (and f16, which [f16-loss-scale] trains in, at
+    the training shape): at the transformer's training shape (b 16,
     h 12, t 512, d 64), and the streamed entry also at the long-context
     shape (b 1, h 12, t 16384). Two launches must give the same bits.
     Timed beside the plain version and ``scaled_dot_product_attention``
@@ -1963,7 +2561,9 @@ def check_flash_kernels(torch, F, gen):
         b, h, t, d = shape
         base = [torch.randn(shape, device=dev, generator=gen)
                 for _ in range(3)]
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if tag == "transformer" else ())
+        for dtype in dtypes:
             q, k, v = (a.to(dtype) for a in base)
             for entry in entries:
                 streamed = entry == "flash_attention_streamed"
@@ -1991,8 +2591,9 @@ def check_flash_kernels(torch, F, gen):
                         torch.testing.assert_close(got, ref, rtol=1e-4,
                                                    atol=2e-5)
                     else:
-                        # the same bf16 inputs and f32 arithmetic on both
-                        # sides; each output rounds once to bf16
+                        # the same half inputs and f32 arithmetic on both
+                        # sides; each output rounds once to its type (the
+                        # card tests' half tolerance)
                         torch.testing.assert_close(got.float(), ref.float(),
                                                    rtol=1e-2, atol=1e-2)
                     lib_err = float((library().float()
@@ -2026,8 +2627,9 @@ def check_transformer_matmuls(torch, gen):
     """The dense kernel at the transformer's two shapes: the input
     projection (m 8192, k 256, n 768, identity) and the residual variant
     at the FFN's second product (m 8192, k 3072, n 768, the block input
-    as r), against the plain version, f32 and bf16, timed beside
-    ``torch.addmm`` (+ the residual add)."""
+    as r), against the plain version, f32, bf16 and f16 (the dtypes the
+    transformer phases train in), timed in f32 beside ``torch.addmm``
+    (+ the residual add)."""
     from deeplearning4j_tpu_torch.ops import (
         matmul_block,
         matmul_block_reference,
@@ -2061,11 +2663,20 @@ def check_transformer_matmuls(torch, gen):
             err = float((got - ref).abs().max())
             # f32 both sides (TF32 off), sums of up to 3072 O(1) products
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-            rb = None if r is None else r.bfloat16()
-            gb = matmul_block(x.bfloat16(), w.bfloat16(), b, rb)
-            pb = matmul_block_reference(x.bfloat16(), w.bfloat16(), b, rb)
-            torch.testing.assert_close(gb.float(), pb.float(), rtol=2e-2,
-                                       atol=2e-2)
+            half_err = {}
+            for half in (torch.bfloat16, torch.float16):
+                rh = None if r is None else r.to(half)
+                gh = matmul_block(x.to(half), w.to(half), b, rh)
+                ph = matmul_block_reference(x.to(half), w.to(half), b, rh)
+                if gh.dtype != half:
+                    raise RuntimeError(f"transformer.{name}: wrote "
+                                       f"{gh.dtype} for {half}")
+                # f32 sums on both sides, each output rounded once to
+                # its type (the card tests' half tolerance)
+                torch.testing.assert_close(gh.float(), ph.float(),
+                                           rtol=2e-2, atol=2e-2)
+                half_err[str(half).replace("torch.", "")] = float(
+                    (gh.float() - ph.float()).abs().max())
             ms, plain_ms = graph_ms(torch, kernel), graph_ms(torch, plain)
             library_ms = graph_ms(torch, library)
         flops = 2.0 * m * k * d
@@ -2076,7 +2687,8 @@ def check_transformer_matmuls(torch, gen):
             "kernel": "matmul_block_residual" if with_res else "matmul_block",
             "kernel_route": matmul_route(m, d),
             "shape_of": f"transformer.{name}", "m": m, "k": k, "n": d,
-            "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "half_max_abs_err": half_err,
+            "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "gflop": flops / 1e9, "mb": nbytes / 1e6})
     return records
@@ -3031,6 +3643,10 @@ def main() -> int:
     records.append(rec)
     print(f"[kernel] {json.dumps(rec)}")
     check_routes(records)
+    # the conv kernels' half-precision variants at ResNet-50's shapes
+    half_records = check_half_kernels(torch, F, gen)
+    for rec in half_records:
+        print(f"[kernel] {json.dumps(rec)}")
     layers = []
     for model, n_in, (T, b, n) in (
             ("charrnn", CHAR_VOCAB, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
@@ -3057,7 +3673,17 @@ def main() -> int:
     resnet, resnet_init, resnet_data = run_resnet50(torch, card)
     resnet_dp = run_resnet50_dp(torch, card, resnet_init, resnet_data)
     del resnet_init, resnet_data
+    # half-precision training (each returns launches and variant counts)
+    half_paths = [run_resnet50_bf16(torch, card), run_vgg16_bf16(torch, card),
+                  run_transformer_bf16(torch, card, tokens),
+                  run_f16_loss_scale(torch, card, tokens)]
+    guarded = run_guard(torch, card)
     nlp = run_nlp(torch, card)
+    half_launches = [launches for launches, _ in half_paths] + [guarded]
+    half_variants = {}
+    for _, variants in half_paths:
+        for k, v in variants.items():
+            half_variants[k] = half_variants.get(k, 0) + v
 
     kernels = []
     csrc = "deeplearning4j_tpu_torch/csrc/"
@@ -3088,7 +3714,7 @@ def main() -> int:
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
                          + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
-                         + nlp[k]),
+                         + nlp[k] + sum(c[k] for c in half_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -3188,7 +3814,8 @@ def main() -> int:
         entry = {
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": replaces,
-            "launches": sum(c[k] for c in tx_paths),
+            "launches": (sum(c[k] for c in tx_paths)
+                         + sum(c[k] for c in half_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -3197,6 +3824,35 @@ def main() -> int:
         if k in INTENDED_ROUTES:
             entry["kernel_route"] = main["kernel_route"]
         kernels.append(entry)
+    # the conv kernels' half-precision variants: ResNet-50's step at
+    # batch 128 in bf16, each shape's time by its launches a step; the
+    # launches of every half-precision main path by variant
+    for k, variant, src, replaces in (
+            ("conv_block", "bf16", "conv_block.cu",
+             "deeplearning4j_tpu/ops/conv_block.py:104"),
+            ("conv_block", "bf16->f32", "conv_block.cu",
+             "deeplearning4j_tpu/ops/conv_block.py:104"),
+            ("conv_bwd_w", "bf16", "conv_bwd.cu",
+             "deeplearning4j_tpu/ops/conv_block.py:184")):
+        mine = [r for r in half_records
+                if r["kernel"] == k and r["variant"] == variant]
+
+        def per_step(key, recs=mine):
+            return sum(r[key] * r["launches_per_step"] for r in recs)
+        kernels.append({
+            "name": f"{k}[{variant}]", "route": "cuda",
+            "source": csrc + src, "replaces": replaces,
+            "launches": half_variants.get(f"{k}[{variant}]", 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": per_step("library_ms"),
+            "bound_fp32_simt_ms": per_step("bound_fp32_simt_ms"),
+            "shape_of": "resnet50-bf16 step, batch 128",
+            "launches_per_step": sum(r["launches_per_step"] for r in mine),
+            "kernel_route": "+".join(sorted({r["kernel_route"]
+                                             for r in mine}))})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@
 // forward, reached through _direct_conv_call from conv_block).
 //
 // Layout: x NCHW [n, c, h, w], w OIHW [o, c, kh, kw], scale/shift f32
-// [o], out NCHW [n, o, oh, ow]. x, w and out share one element type
-// (f32, bf16 or f16); products accumulate in f32 registers and are cast
+// [o], out NCHW [n, o, oh, ow]. x and w share one element type (f32,
+// bf16 or f16); out is that type or f32 (the backward's recompute of the
+// f32 accumulator from half operands, as JAX's _conv_block_bwd asks of
+// the TPU kernel); products accumulate in f32 registers and are cast
 // once on the store, as the TPU kernel does.
 //
 // What bounds it on an H100: at the slice's shapes the conv is
@@ -36,8 +38,9 @@
 //   loads: AlexNet's convs run at 13-17 TFLOP/s on it (H100 SXM,
 //   PERF.md).
 //
-// - wide (kRouteWide): f32 convs whose grid fills the card (AlexNet's
-//   five at batch 64, LeNet-5's at the training batch). A block owns
+// - wide (kRouteWide): convs whose grid fills the card (AlexNet's five
+//   at batch 64, LeNet-5's at the training batch, ResNet-50's), in any
+//   of the three dtypes. A block owns
 //   TO = 32*MI output channels x TP = 128*PJ pixels (96 x 256,
 //   128 x 128, 96 x 128 or 32 x 256: the wrapper picks the tile with
 //   the least wave-quantised work), 256 threads as 8 channel
@@ -52,13 +55,17 @@
 //   computes: the weights, transposed once a call into a zero-padded
 //   [k_pad, o_pad] matrix (prep kernel below), in 16-byte copies with
 //   no masks; the im2col slice gathered in 4-byte copies, the padding
-//   zero-filled (src-size 0) so no branch reaches shared memory. The
+//   zero-filled (src-size 0) so no branch reaches shared memory (a half
+//   image is loaded, converted to f32 and stored instead: the ring is
+//   f32 in every dtype, and those loads are not overlapped). The
 //   gather's addresses come from a per-shape tap table k -> (ci*h*w +
 //   dh*w + dw, dh, dw) (ops/conv_block.py conv_tap_table, copied into
 //   shared memory once a block), so the main loop does no integer
 //   division; each stager thread owns one pixel for the whole loop. No
 //   atomics and no split: bitwise repeatable.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -69,11 +76,11 @@ constexpr int kPxBlock = 64;   // output pixels (over n*oh*ow) per block
 constexpr int kKSlice = 16;    // reduction slice staged per iteration
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
     conv_block_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const float* __restrict__ scale,
-                      const float* __restrict__ shift, T* __restrict__ out,
+                      const float* __restrict__ shift, TO* __restrict__ out,
                       float* __restrict__ partial, int n, int c, int h,
                       int wd, int o, int kh, int kw, int sh, int sw, int ph,
                       int pw, int oh, int ow, int k_chunk, int act) {
@@ -179,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
         partial[(size_t)blockIdx.z * n_px * o + idx] = acc[i][j];
       } else {
         const float z = dl4j::apply_act(acc[i][j] * s + t, act);
-        out[idx] = dl4j::from_f32<T>(z);
+        out[idx] = dl4j::from_f32<TO>(z);
       }
     }
   }
@@ -190,7 +197,7 @@ long long tiles(int n, int o, int oh, int ow) {
   return ((n_px + kPxBlock - 1) / kPxBlock) * dl4j::ceil_div(o, kOcBlock);
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch(const void* x, const void* w, const float* scale,
            const float* shift, void* out, float* partial, int n, int c,
            int h, int wd, int o, int kh, int kw, int sh, int sw, int ph,
@@ -210,15 +217,15 @@ int launch(const void* x, const void* w, const float* scale,
     if (z > splits) return (int)cudaErrorInvalidValue;
   }
   dim3 grid((unsigned)px_blocks, (unsigned)oc_blocks, (unsigned)z);
-  conv_block_kernel<T><<<grid, kThreads, 0, stream>>>(
+  conv_block_kernel<T, TO><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
-      static_cast<T*>(out), z > 1 ? partial : nullptr, n, c, h, wd, o, kh,
+      static_cast<TO*>(out), z > 1 ? partial : nullptr, n, c, h, wd, o, kh,
       kw, sh, sw, ph, pw, oh, ow, k_chunk, act);
   const int rc = (int)cudaGetLastError();
   if (rc != 0 || z == 1) return rc;
-  return dl4j::launch_splitk_finish<T>(partial, z, n_px * o, scale, shift,
-                                       (long long)oh * ow, o, act,
-                                       static_cast<T*>(out), stream);
+  return dl4j::launch_splitk_finish<TO>(partial, z, n_px * o, scale, shift,
+                                        (long long)oh * ow, o, act,
+                                        static_cast<TO*>(out), stream);
 }
 
 // --- the wide route ---------------------------------------------------------
@@ -254,10 +261,11 @@ int wide_smem_bytes(int k_pad) {
   return WideTile<MI, PJ>::kRingBytes + k_pad * 8;
 }
 
-// wt[k][oc] = w[oc][k] for k < k_len and oc < o, zero elsewhere in the
-// [k_pad, o_pad] matrix: the wide route's B operand, padded so that its
-// 16-byte copies need no mask.
-__global__ void wide_prep_kernel(const float* __restrict__ w,
+// wt[k][oc] = w[oc][k] (as f32) for k < k_len and oc < o, zero elsewhere
+// in the [k_pad, o_pad] matrix: the wide route's B operand, padded so
+// that its 16-byte copies need no mask.
+template <typename TW>
+__global__ void wide_prep_kernel(const TW* __restrict__ w,
                                  float* __restrict__ wt, int o, int k_len,
                                  int o_pad, long long total) {
   const long long step = (long long)gridDim.x * blockDim.x;
@@ -265,21 +273,28 @@ __global__ void wide_prep_kernel(const float* __restrict__ w,
        i < total; i += step) {
     const int k = (int)(i / o_pad);
     const int oc = (int)(i - (long long)k * o_pad);
-    wt[i] = (k < k_len && oc < o) ? w[(size_t)oc * k_len + k] : 0.0f;
+    wt[i] = (k < k_len && oc < o) ? dl4j::to_f32(w[(size_t)oc * k_len + k])
+                                  : 0.0f;
   }
 }
 
 // One TO x TP output tile. Thread (ty, tx) = (tid / 32, tid % 32) owns
 // channels o0 + 32*mi + 4*ty + {0..3} (mi < MI) and pixels px0 + 32*j +
 // tx (j < 4*PJ), or with kVecB px0 + 128*pj + 4*tx + {0..3} (pj < PJ).
-// taps: [k_pad] int2 {ci*h*w + dh*w + dw, dh << 16 | dw}.
-template <int MI, int PJ, int kMinBlocks, bool kVecB>
+// taps: [k_pad] int2 {ci*h*w + dh*w + dw, dh << 16 | dw}. The image is
+// TX (f32, bf16 or f16) and the output TO (f32 or TX); the ring holds
+// f32 either way: an f32 image is staged by 4-byte cp.async, a half one
+// is loaded, converted and stored (synchronously: the slot it writes
+// was freed by the barrier before the stage, and the barrier before its
+// slice is summed publishes it).
+template <typename TX, typename TO, int MI, int PJ, int kMinBlocks,
+          bool kVecB>
 __global__ void __launch_bounds__(wide::kThreads, kMinBlocks)
-    conv_wide_kernel(const float* __restrict__ x,
+    conv_wide_kernel(const TX* __restrict__ x,
                      const float* __restrict__ wt,
                      const int2* __restrict__ taps,
                      const float* __restrict__ scale,
-                     const float* __restrict__ shift, float* __restrict__ out,
+                     const float* __restrict__ shift, TO* __restrict__ out,
                      int n, int c, int h, int wd, int o, int o_pad, int sh,
                      int sw, int ph, int pw, int oh, int ow, int k_pad,
                      int act) {
@@ -347,8 +362,12 @@ __global__ void __launch_bounds__(wide::kThreads, kMinBlocks)
       const int iy = iy0 + (e.y >> 16);
       const int ix = ix0 + (e.y & 0xffff);
       const bool ok = (unsigned)iy < (unsigned)h && (unsigned)ix < (unsigned)wd;
-      const float* src = ok ? x + (xoff + e.x) : x;
-      dl4j::cp_async4(xs + kk * kTP + ap, src, ok ? 4 : 0);
+      if constexpr (std::is_same_v<TX, float>) {
+        const float* src = ok ? x + (xoff + e.x) : x;
+        dl4j::cp_async4(xs + kk * kTP + ap, src, ok ? 4 : 0);
+      } else {
+        xs[kk * kTP + ap] = ok ? dl4j::to_f32(x[xoff + e.x]) : 0.0f;
+      }
     }
   };
 
@@ -427,26 +446,27 @@ __global__ void __launch_bounds__(wide::kThreads, kMinBlocks)
     if (p >= n_px) continue;
     const int img = (int)(p / ohw);
     const int r = (int)(p - (long long)img * ohw);
-    float* dst = out + (size_t)img * o * ohw + r;
+    TO* dst = out + (size_t)img * o * ohw + r;
 #pragma unroll
     for (int i = 0; i < kMR; ++i) {
       const int oc = o0 + 32 * (i / 4) + 4 * ty + (i % 4);
       if (oc < o)
-        dst[(size_t)oc * ohw] = dl4j::apply_act(acc[i][j] * sc[i] + sf[i],
-                                                act);
+        dst[(size_t)oc * ohw] = dl4j::from_f32<TO>(
+            dl4j::apply_act(acc[i][j] * sc[i] + sf[i], act));
     }
   }
 }
 
-template <int MI, int PJ, int kMinBlocks, bool kVecB>
-int launch_wide_as(const float* x, const float* w, float* wt,
+template <typename TX, typename TO, int MI, int PJ, int kMinBlocks,
+          bool kVecB>
+int launch_wide_as(const TX* x, const TX* w, float* wt,
                    const int2* taps, const float* scale, const float* shift,
-                   float* out, int n, int c, int h, int wd, int o, int kh,
+                   TO* out, int n, int c, int h, int wd, int o, int kh,
                    int kw, int sh, int sw, int ph, int pw, int oh, int ow,
                    int k_pad, int act, cudaStream_t stream) {
   using Tile = WideTile<MI, PJ>;
   static unsigned smem_set = 0;  // devices whose cap is raised
-  auto kernel = conv_wide_kernel<MI, PJ, kMinBlocks, kVecB>;
+  auto kernel = conv_wide_kernel<TX, TO, MI, PJ, kMinBlocks, kVecB>;
   // the cap is raised once, to all a block may take; a launch asks for
   // its own ring and table
   const int smem = wide_smem_bytes<MI, PJ>(k_pad);
@@ -458,8 +478,8 @@ int launch_wide_as(const float* x, const float* w, float* wt,
   const long long total = (long long)k_pad * o_pad;
   long long blocks = (total + 255) / 256;
   if (blocks > 4 * dl4j::kSmCount * 8) blocks = 4 * dl4j::kSmCount * 8;
-  wide_prep_kernel<<<(unsigned)blocks, 256, 0, stream>>>(w, wt, o, k_len,
-                                                         o_pad, total);
+  wide_prep_kernel<TX><<<(unsigned)blocks, 256, 0, stream>>>(
+      w, wt, o, k_len, o_pad, total);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const long long n_px = (long long)n * oh * ow;
@@ -481,6 +501,7 @@ int launch_wide_as(const float* x, const float* w, float* wt,
   X(96, 128, 3, 1, 2, false) \
   X(32, 256, 1, 2, 2, false)
 
+template <typename TX, typename TO>
 int launch_wide(const void* x, const void* w, void* wt, const void* taps,
                 const float* scale, const float* shift, void* out, int n,
                 int c, int h, int wd, int o, int kh, int kw, int sh, int sw,
@@ -490,12 +511,12 @@ int launch_wide(const void* x, const void* w, void* wt, const void* taps,
       k_pad < c * kh * kw || h + ph >= wide::kPadTap || kw > 0xffff ||
       (long long)c * h * wd >= (1LL << 31))  // the table's int32 offsets
     return (int)cudaErrorInvalidValue;
-#define DL4J_WIDE_CASE(TO, TP, MI, PJ, MINB, VEC)                          \
-  if (tile_o == TO && tile_px == TP)                                       \
-    return launch_wide_as<MI, PJ, MINB, VEC>(                              \
-        static_cast<const float*>(x), static_cast<const float*>(w),        \
+#define DL4J_WIDE_CASE(TILE_O, TILE_P, MI, PJ, MINB, VEC)                  \
+  if (tile_o == TILE_O && tile_px == TILE_P)                               \
+    return launch_wide_as<TX, TO, MI, PJ, MINB, VEC>(                      \
+        static_cast<const TX*>(x), static_cast<const TX*>(w),              \
         static_cast<float*>(wt), static_cast<const int2*>(taps), scale,    \
-        shift, static_cast<float*>(out), n, c, h, wd, o, kh, kw, sh, sw,   \
+        shift, static_cast<TO*>(out), n, c, h, wd, o, kh, kw, sh, sw,      \
         ph, pw, oh, ow, k_pad, act, stream);
   DL4J_WIDE_TILES(DL4J_WIDE_CASE)
 #undef DL4J_WIDE_CASE
@@ -525,16 +546,19 @@ extern "C" int dl4j_conv_wide_smem_bytes(int tile_o, int tile_px,
 
 // Returns the cudaError_t of the launch (0 on success). Shapes are
 // validated by the Python wrapper (ops/conv_block.py), which also picks
-// `route` (enum Route) from the shape. Direct route: `partial` is the
-// split-K scratch (null when splits is 1); wt, taps, tile_o, tile_px
-// and k_pad are unused. Wide route (f32 only, splits 1): `wt` is an f32
-// scratch of k_pad * o_pad (o rounded up to tile_o) for the transposed
-// weights, `taps` the [k_pad] int2 tap table (ops/conv_block.py
-// conv_tap_table), k_pad the depth rounded up to 16.
+// `route` (enum Route) from the shape. x and w are `dtype` (enum DType),
+// out is `out_dtype`: `dtype` or f32 (the backward's f32 recompute of a
+// half conv). Direct route: `partial` is the split-K scratch (null when
+// splits is 1); wt, taps, tile_o, tile_px and k_pad are unused. Wide
+// route (splits 1): `wt` is an f32 scratch of k_pad * o_pad (o rounded
+// up to tile_o) for the transposed weights, `taps` the [k_pad] int2 tap
+// table (ops/conv_block.py conv_tap_table), k_pad the depth rounded up
+// to 16.
 extern "C" int dl4j_conv_block(const void* x, const void* w, void* wt,
                                const void* taps, const void* scale,
                                const void* shift, void* out, void* partial,
-                               int dtype, int n, int c, int h, int wd, int o,
+                               int dtype, int out_dtype, int n, int c, int h,
+                               int wd, int o,
                                int kh, int kw, int sh, int sw, int ph, int pw,
                                int oh, int ow, int act, int splits, int route,
                                int tile_o, int tile_px, int k_pad,
@@ -544,25 +568,30 @@ extern "C" int dl4j_conv_block(const void* x, const void* w, void* wt,
   const float* sf = static_cast<const float*>(shift);
   float* ws = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == kRouteWide) {
-    if (dtype != dl4j::kF32 || splits != 1) return (int)cudaErrorInvalidValue;
-    return launch_wide(x, w, wt, taps, sc, sf, out, n, c, h, wd, o, kh, kw,
-                       sh, sw, ph, pw, oh, ow, act, tile_o, tile_px, k_pad,
-                       st);
-  }
-  if (route != kRouteDirect) return (int)cudaErrorInvalidValue;
+  if (route != kRouteWide && route != kRouteDirect)
+    return (int)cudaErrorInvalidValue;
+  if (route == kRouteWide && splits != 1) return (int)cudaErrorInvalidValue;
+  if (out_dtype != dtype && out_dtype != dl4j::kF32)
+    return (int)cudaErrorInvalidValue;
+  const bool f32_out = out_dtype == dl4j::kF32;
+#define DL4J_CONV_ROUTE(T, TO)                                                \
+  return route == kRouteWide                                                 \
+             ? launch_wide<T, TO>(x, w, wt, taps, sc, sf, out, n, c, h, wd, o, \
+                                  kh, kw, sh, sw, ph, pw, oh, ow, act,       \
+                                  tile_o, tile_px, k_pad, st)                \
+             : launch<T, TO>(x, w, sc, sf, out, ws, n, c, h, wd, o, kh, kw,  \
+                             sh, sw, ph, pw, oh, ow, act, splits, st);
   switch (dtype) {
     case dl4j::kF32:
-      return launch<float>(x, w, sc, sf, out, ws, n, c, h, wd, o, kh, kw, sh,
-                           sw, ph, pw, oh, ow, act, splits, st);
+      DL4J_CONV_ROUTE(float, float)
     case dl4j::kBF16:
-      return launch<__nv_bfloat16>(x, w, sc, sf, out, ws, n, c, h, wd, o, kh,
-                                   kw, sh, sw, ph, pw, oh, ow, act, splits,
-                                   st);
+      if (f32_out) DL4J_CONV_ROUTE(__nv_bfloat16, float)
+      DL4J_CONV_ROUTE(__nv_bfloat16, __nv_bfloat16)
     case dl4j::kF16:
-      return launch<__half>(x, w, sc, sf, out, ws, n, c, h, wd, o, kh, kw, sh,
-                            sw, ph, pw, oh, ow, act, splits, st);
+      if (f32_out) DL4J_CONV_ROUTE(__half, float)
+      DL4J_CONV_ROUTE(__half, __half)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DL4J_CONV_ROUTE
 }

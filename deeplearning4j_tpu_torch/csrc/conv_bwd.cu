@@ -11,8 +11,9 @@
 // weights) and ::_conv_bwd_w_kernel (batch as the innermost revisited
 // grid axis, an f32 [kh, kw, c, oc_b] block accumulated across it).
 //
-// Everything is f32 (inputs, accumulators, outputs): the backward of the
-// port trains in f32. Layouts are NCHW / OIHW as at the public API, and
+// Accumulators, dacc, the weights, dx and dW are f32, as in the JAX
+// backward; the image x of conv_bwd_w is in the forward's dtype (f32,
+// bf16 or f16), converted to f32 as it is staged. Layouts are NCHW / OIHW as at the public API, and
 // no padded or dilated copy of any operand is made in device memory:
 // padding and stride are index arithmetic (the one copy is the resident
 // route's transposed weights, kh*kw*o*c f32). No tensor cores: TF32 would not hold f32 parity. Nothing
@@ -104,6 +105,8 @@
 //   on 132 SMs); each split writes f32 partial sums to a scratch the
 //   wrapper allocates and splitk_finish adds them in a fixed order.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -235,9 +238,11 @@ __global__ void __launch_bounds__(kThreads)
 // dW[oc, k2] = sum over r = (img, oy, ox) of dacc[img, oc, oy, ox] *
 //   x[img, ci, oy*sh - ph + dh, ox*sw - pw + dw], k2 = (ci, dh, dw),
 // zero where the window leaves the image. This block sums r in
-// [r_lo, r_lo + r_chunk).
+// [r_lo, r_lo + r_chunk). x is TX (f32, bf16 or f16), converted to f32
+// as it is staged; dacc and dW are f32.
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-    conv_bwd_w_kernel(const float* __restrict__ x,
+    conv_bwd_w_kernel(const TX* __restrict__ x,
                       const float* __restrict__ dacc, float* __restrict__ dw,
                       float* __restrict__ partial, int n, int c, int h,
                       int wd, int o, int kh, int kw, int sh, int sw, int ph,
@@ -292,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
       ix0 = (q - oy * ow) * sw - pw;
     }
     const float* g_img = dacc + (size_t)img * o * ohw + q;
-    const float* x_img = x + (size_t)img * c * h * wd;
+    const TX* x_img = x + (size_t)img * c * h * wd;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int oc = o0 + lc + 16 * i;
@@ -307,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
         const int iy = iy0 + col_dh[i];
         const int ix = ix0 + col_dw[i];
         if (iy >= 0 && iy < h && ix >= 0 && ix < wd)
-          v = x_img[((size_t)col_ci[i] * h + iy) * wd + ix];
+          v = dl4j::to_f32(x_img[((size_t)col_ci[i] * h + iy) * wd + ix]);
       }
       x_s[lr][lc + 16 * i] = v;
     }
@@ -598,10 +603,13 @@ __device__ __forceinline__ void dw_fma(float (&acc)[4][K],
 // sums its images, rows and pixels in a fixed order: two launches give
 // the same bits. (A thread holding all K tap rows, 4 K^2 sums and K
 // input loads a pixel, ran slower at LeNet's conv2 on an H100: 164
-// registers left 9 warps an SM.)
-template <int K>
+// registers left 9 warps an SM.) x is TX (f32, bf16 or f16); the slab
+// is f32 in shared memory either way: a half image is loaded, converted
+// and stored as it is staged (synchronously, into the buffer the last
+// barrier freed), an f32 one copied by cp.async.
+template <int K, typename TX>
 __global__ void __launch_bounds__(kDwMaxThreads, 2)
-    conv_bwd_w_resident_kernel(const float* __restrict__ x,
+    conv_bwd_w_resident_kernel(const TX* __restrict__ x,
                                const float* __restrict__ dacc,
                                float* __restrict__ dw,
                                float* __restrict__ partial, int n, int c,
@@ -645,10 +653,13 @@ __global__ void __launch_bounds__(kDwMaxThreads, 2)
                      (reinterpret_cast<uintptr_t>(dacc) & 15) == 0;
   auto stage = [&](int img, int buf) {
     float* xs = smem + (size_t)buf * stage_len;
-    const float* x_src = x + ((size_t)img * c + c0) * hw;
+    const TX* x_src = x + ((size_t)img * c + c0) * hw;
     for (int i = tid; i < cn * hw; i += nt) {
       const int ch = i / hw;
-      dl4j::cp_async4(xs + ch * xs_stride + (i - ch * hw), x_src + i, 4);
+      if constexpr (std::is_same_v<TX, float>)
+        dl4j::cp_async4(xs + ch * xs_stride + (i - ch * hw), x_src + i, 4);
+      else
+        xs[ch * xs_stride + (i - ch * hw)] = dl4j::to_f32(x_src[i]);
     }
     float* gs = xs + x_floats;
     const float* g_src = dacc + (size_t)img * o * ohw;
@@ -804,19 +815,19 @@ __global__ void __launch_bounds__(kDwFinishThreads)
   }
 }
 
-template <int K>
-int launch_dw_resident(const float* x, const float* dacc, float* dw,
+template <int K, typename TX>
+int launch_dw_resident(const TX* x, const float* dacc, float* dw,
                        float* partial, int n, int c, int h, int wd, int o,
                        int sh, int sw, int ph, int pw, int oh, int ow,
                        int group, int pixel_groups, int images_per_chunk,
                        int chunks, int threads, int smem_bytes,
                        cudaStream_t stream) {
   static unsigned smem_set = 0;  // devices whose cap is raised
-  int rc = dl4j::allow_dynamic_smem(conv_bwd_w_resident_kernel<K>,
+  int rc = dl4j::allow_dynamic_smem(conv_bwd_w_resident_kernel<K, TX>,
                                     dl4j::kMaxSmemBytes, &smem_set);
   if (rc != 0) return rc;
   dim3 grid((unsigned)chunks, (unsigned)dl4j::ceil_div(c, group));
-  conv_bwd_w_resident_kernel<K><<<grid, threads, smem_bytes, stream>>>(
+  conv_bwd_w_resident_kernel<K, TX><<<grid, threads, smem_bytes, stream>>>(
       x, dacc, dw, chunks > 1 ? partial : nullptr, n, c, h, wd, o, sh, sw,
       ph, pw, oh, ow, group, pixel_groups, images_per_chunk);
   rc = (int)cudaGetLastError();
@@ -936,9 +947,11 @@ extern "C" int dl4j_conv_bwd_w_splits(int n, int c, int o, int kh, int kw,
                               (long long)n * oh * ow);
 }
 
-// dL/dW (f32, OIHW). Returns the cudaError_t of the launches.
+// dL/dW (f32, OIHW) from x of `x_dtype` (enum DType) and the f32 dacc.
+// Returns the cudaError_t of the launches.
 extern "C" int dl4j_conv_bwd_w(const void* x, const void* dacc, void* dw,
-                               void* partial, int n, int c, int h, int wd,
+                               void* partial, int x_dtype, int n, int c,
+                               int h, int wd,
                                int o, int kh, int kw, int sh, int sw, int ph,
                                int pw, int oh, int ow, int splits,
                                void* stream) {
@@ -964,10 +977,26 @@ extern "C" int dl4j_conv_bwd_w(const void* x, const void* dacc, void* dw,
   float* ws = static_cast<float*>(partial);
   float* out = static_cast<float*>(dw);
   dim3 grid((unsigned)k2_blocks, (unsigned)o_blocks, (unsigned)z);
-  conv_bwd_w_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dacc), out,
-      z > 1 ? ws : nullptr, n, c, h, wd, o, kh, kw, sh, sw, ph, pw, oh, ow,
-      r_chunk);
+  const float* g = static_cast<const float*>(dacc);
+  float* part = z > 1 ? ws : nullptr;
+#define DL4J_DW_GEMM(TX)                                                   \
+  conv_bwd_w_kernel<TX><<<grid, kThreads, 0, st>>>(                        \
+      static_cast<const TX*>(x), g, out, part, n, c, h, wd, o, kh, kw, sh, \
+      sw, ph, pw, oh, ow, r_chunk);
+  switch (x_dtype) {
+    case dl4j::kF32:
+      DL4J_DW_GEMM(float)
+      break;
+    case dl4j::kBF16:
+      DL4J_DW_GEMM(__nv_bfloat16)
+      break;
+    case dl4j::kF16:
+      DL4J_DW_GEMM(__half)
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_DW_GEMM
   const int rc = (int)cudaGetLastError();
   if (rc != 0 || z == 1) return rc;
   return dl4j::launch_splitk_finish<float>(ws, z, (long long)o * k2_len,
@@ -985,8 +1014,9 @@ extern "C" int dl4j_conv_bwd_w(const void* x, const void* dacc, void* dw,
 // above the H100's 227 KB of shared memory a block is refused
 // (cudaErrorInvalidValue), never shrunk.
 extern "C" int dl4j_conv_bwd_w_resident(const void* x, const void* dacc,
-                                        void* dw, void* partial, int n,
-                                        int c, int h, int wd, int o, int kh,
+                                        void* dw, void* partial, int x_dtype,
+                                        int n, int c, int h, int wd, int o,
+                                        int kh,
                                         int kw, int sh, int sw, int ph,
                                         int pw, int oh, int ow, int group,
                                         int pixel_groups,
@@ -1006,25 +1036,36 @@ extern "C" int dl4j_conv_bwd_w_resident(const void* x, const void* dacc,
   if (threads > kDwMaxThreads || smem > dl4j::kMaxSmemBytes ||
       (chunks > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* xp = static_cast<const float*>(x);
   const float* gp = static_cast<const float*>(dacc);
   float* out = static_cast<float*>(dw);
   float* ws = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DL4J_DW_RESIDENT(K)                                                  \
+#define DL4J_DW_RESIDENT(K, TX)                                              \
   case K:                                                                    \
-    return launch_dw_resident<K>(xp, gp, out, ws, n, c, h, wd, o, sh, sw,    \
-                                 ph, pw, oh, ow, group, pixel_groups,        \
-                                 images_per_chunk, chunks, (int)threads,     \
-                                 (int)smem, st);
-  switch (kw) {
-    DL4J_DW_RESIDENT(1)
-    DL4J_DW_RESIDENT(2)
-    DL4J_DW_RESIDENT(3)
-    DL4J_DW_RESIDENT(4)
-    DL4J_DW_RESIDENT(5)
+    return launch_dw_resident<K, TX>(                                        \
+        static_cast<const TX*>(x), gp, out, ws, n, c, h, wd, o, sh, sw, ph,  \
+        pw, oh, ow, group, pixel_groups, images_per_chunk, chunks,           \
+        (int)threads, (int)smem, st);
+#define DL4J_DW_RESIDENT_KS(TX) \
+  switch (kw) {                 \
+    DL4J_DW_RESIDENT(1, TX)     \
+    DL4J_DW_RESIDENT(2, TX)     \
+    DL4J_DW_RESIDENT(3, TX)     \
+    DL4J_DW_RESIDENT(4, TX)     \
+    DL4J_DW_RESIDENT(5, TX)     \
+    default:                    \
+      return (int)cudaErrorInvalidValue; \
+  }
+  switch (x_dtype) {
+    case dl4j::kF32:
+      DL4J_DW_RESIDENT_KS(float)
+    case dl4j::kBF16:
+      DL4J_DW_RESIDENT_KS(__nv_bfloat16)
+    case dl4j::kF16:
+      DL4J_DW_RESIDENT_KS(__half)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DL4J_DW_RESIDENT_KS
 #undef DL4J_DW_RESIDENT
 }

@@ -11,9 +11,9 @@ layer's nIn and inserts the shape preprocessors. ``to_dict`` /
 (same ``format`` tag, same keys), so a graph saved by either package
 loads in the other.
 
-The JAX configuration's whole-net transform hints (``scan_layers``,
-``remat``, ``loss_scale``) are not serialized there and have no
-counterpart here, as in ``multi_layer.py``.
+The whole-net transform hints (``scan_layers``, ``remat``,
+``loss_scale``) ride on the configuration unserialized, as in
+``multi_layer.py``.
 """
 
 from __future__ import annotations
@@ -384,6 +384,10 @@ class ComputationGraphConfiguration:
     input_types: Optional[Tuple[InputType, ...]] = None
     optimization_algo: str = "STOCHASTIC_GRADIENT_DESCENT"
     max_num_line_search_iterations: int = 5
+    # whole-net transform hints (nn/core.py), not serialized
+    scan_layers: bool = False
+    remat: str = "none"  # none | dots_saveable | full
+    loss_scale: Optional[float] = None  # f16 dynamic loss scaling
 
     def topological_order(self) -> List[str]:
         """Kahn order of the vertex names: the sources in sorted order,
@@ -583,6 +587,9 @@ class GraphBuilder:
                          if self._input_types else None),
             optimization_algo=p._optimization_algo,
             max_num_line_search_iterations=p._max_num_line_search_iterations,
+            scan_layers=p._scan_layers,
+            remat=p._remat,
+            loss_scale=p._loss_scale,
         )
         if self._input_types is not None:
             conf = _infer_shapes(conf)

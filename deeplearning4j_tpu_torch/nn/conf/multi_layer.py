@@ -9,12 +9,12 @@ globals resolve into every layer that kept its class default, and
 InputType shape inference fills each layer's nIn and inserts the shape
 preprocessors, as there.
 
-The JAX package's whole-net transform hints (``scan_layers``,
-``remat``, ``loss_scale``) change only its compiled programs and are
-not serialized. The port has no counterpart of them yet: the Builder
-takes their off values (``False``, ``"none"``, ``None``), which change
-nothing, and raises on any other, as ``MultiLayerNetwork.set_transforms``
-does.
+The whole-net transform hints (``scan_layers``, ``remat``,
+``loss_scale``) ride on the configuration as in the JAX package and are
+deliberately not serialized: they change how a step runs, never the
+model, so a checkpoint trained with them off restores into a model
+running them on (``nn/core.py`` ``set_transforms`` overrides them at
+run time).
 """
 
 from __future__ import annotations
@@ -73,6 +73,10 @@ class MultiLayerConfiguration:
     optimization_algo: str = "STOCHASTIC_GRADIENT_DESCENT"
     max_num_line_search_iterations: int = 5
     minimize: bool = True
+    # whole-net transform hints (nn/core.py), not serialized
+    scan_layers: bool = False
+    remat: str = "none"  # none | dots_saveable | full
+    loss_scale: Optional[float] = None  # f16 dynamic loss scaling
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)
@@ -174,13 +178,6 @@ def _auto_preprocessor(current: InputType,
                 "CnnToRnnPreProcessor is not ported yet (ROADMAP.md "
                 "queue 1: the CNN <-> RNN adapters)")
     return None
-
-
-def _refuse_transform(name: str, value) -> None:
-    raise NotImplementedError(
-        f"Builder.{name}({value!r}): whole-net transforms (scan_layers, "
-        "remat, loss scaling) arrive with the runtime subsystems slice; "
-        "the off values are taken")
 
 
 class ListBuilder:
@@ -290,6 +287,9 @@ class ListBuilder:
             max_num_line_search_iterations=(
                 p._max_num_line_search_iterations),
             minimize=p._minimize,
+            scan_layers=p._scan_layers,
+            remat=p._remat,
+            loss_scale=p._loss_scale,
         )
 
 
@@ -306,6 +306,9 @@ class NeuralNetConfiguration:
             self._optimization_algo = "STOCHASTIC_GRADIENT_DESCENT"
             self._max_num_line_search_iterations = 5
             self._minimize = True
+            self._scan_layers = False
+            self._remat = "none"
+            self._loss_scale = None
             self._globals: dict = {}
 
         def seed(self, s: int):
@@ -339,20 +342,26 @@ class NeuralNetConfiguration:
             return self
 
         def scan_layers(self, enabled: bool = True):
-            """Whole-net transform hint of the JAX package; only the off
-            value is taken."""
-            if enabled:
-                _refuse_transform("scan_layers", enabled)
+            """Whole-net transform hint: the JAX package runs homogeneous
+            layer runs under one ``lax.scan``; the port's eager layer
+            loop is the same either way. Trajectory-neutral."""
+            self._scan_layers = bool(enabled)
             return self
 
         def remat(self, policy: str = "full"):
-            if policy != "none":
-                _refuse_transform("remat", policy)
+            """Whole-net transform hint: activation rematerialization
+            (``none | dots_saveable | full``), recompute for memory in
+            the backward."""
+            from deeplearning4j_tpu_torch.nn.core import check_remat_policy
+
+            self._remat = check_remat_policy(policy)
             return self
 
         def loss_scale(self, scale=True):
-            if scale:
-                _refuse_transform("loss_scale", scale)
+            """Dynamic loss scaling for ``compute_data_type("float16")``
+            (True: the default 2**15 initial scale; a number: the
+            initial scale; None / 0: off). bf16 is unaffected."""
+            self._loss_scale = scale
             return self
 
         def use_drop_connect(self, use: bool = True):

@@ -4,25 +4,30 @@ network engines.
 Counterpart of ``deeplearning4j_tpu/nn/core.py`` for the host-to-device
 move with its cast on the device (``to_device``), the sequential
 forward (inference and training, with the features mask),
-``sequential_score`` with the L1/L2 penalty, the plain train step
-(``grad_step`` + ``finish_step``, assembled by ``build_step``), gradient
-accumulation over contiguous microbatches (``accum_grad_step``) and the
+``sequential_score`` with the L1/L2 penalty, the train step
+(``grad_step`` + ``finish_step``, assembled by ``build_step``) with its
+flavours: dynamic loss scaling for f16 compute, the divergence guard
+and the statistical guard, each a select on the device; gradient
+accumulation over contiguous microbatches (``accum_grad_step``), the
+whole-net transforms (``set_transforms``: ``remat`` through
+``torch.utils.checkpoint``, ``scan_layers`` accepted) and the
 ``rnn_time_step`` bookkeeping (``stream_guard_and_prime``,
 ``extract_stream_state``). PyTorch runs eagerly, so the step is an
 ordinary function that returns new parameters, updater state and layer
 state (BatchNormalization's running statistics). The inference forward
 folds a Conv(identity) -> BatchNormalization pair into one conv kernel
-launch, as the JAX package's does. The JAX package's whole-net
-transforms (scan over layers, remat) and its guarded / loss-scaled /
-megastep step flavours have no counterpart yet (ROADMAP).
+launch, as the JAX package's does. ``megastep`` (several optimizer
+steps a dispatch) has no counterpart yet (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 _DTYPES = {
     "float32": torch.float32,
@@ -64,6 +69,38 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype).contiguous()
 
 
+# --- whole-net transform: activation rematerialization ----------------------
+
+REMAT_POLICIES = ("none", "dots_saveable", "full")
+
+
+def check_remat_policy(policy: str) -> str:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    return policy
+
+
+def maybe_remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` per the remat policy (JAX
+    ``maybe_remat``): the backward recomputes ``fn``'s forward from its
+    inputs instead of keeping its activations. ``"full"`` recomputes
+    everything; ``"dots_saveable"`` in JAX keeps the matmul and conv
+    outputs, but here those come from hand-written kernels that a
+    selective-checkpoint policy (which sees ATen operators) cannot
+    name, so it recomputes everything too, as ``"full"``. ``"none"`` is
+    the identity. The forward's values are the same, and so are the
+    gradients: the recompute runs the same operations on the same
+    inputs."""
+    if check_remat_policy(policy) == "none":
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return remat
+
+
 def reg_penalty(layer, layer_params):
     """L1/L2 penalty for one layer (reference calcL1/calcL2)."""
     reg = 0.0
@@ -83,7 +120,8 @@ def sequential_forward(conf, layer_names: Sequence[str],
                        x: torch.Tensor, *, train: bool = False,
                        gen: Optional[torch.Generator] = None,
                        preout: bool = False,
-                       fmask: Optional[torch.Tensor] = None):
+                       fmask: Optional[torch.Tensor] = None,
+                       remat: str = "none"):
     """Forward through every layer of ``conf``; returns ``(y,
     new_state)``. ``y`` is the last layer's activation, or with
     ``preout`` its pre-activation when it carries a loss (what the
@@ -92,7 +130,9 @@ def sequential_forward(conf, layer_names: Sequence[str],
     (recurrent layers read it; reference ``setLayerMaskArrays``). With
     a ``compute_dtype`` the floating params, the input and the mask are
     cast to it first (mixed precision; gradients flow back through the
-    cast to the stored params)."""
+    cast to the stored params). ``remat`` (training only) recomputes
+    each layer's forward in the backward instead of keeping its
+    activations (``maybe_remat``)."""
     from deeplearning4j_tpu_torch.nn.conf.preprocessors import ShapeContext
 
     cdt = compute_dtype_of(conf)
@@ -131,9 +171,10 @@ def sequential_forward(conf, layer_names: Sequence[str],
         if preout and i == n - 1 and layer.has_loss():
             layer.check_train(train)
             return layer.pre_output(params[name], x), new_state
-        x, new_state[name] = layer.apply(params[name], x,
-                                         state.get(name, {}), train=train,
-                                         gen=gen, mask=fmask)
+        apply_one = maybe_remat(functools.partial(
+            layer.apply, train=train, gen=gen, mask=fmask),
+            remat if train and not layer.has_loss() else "none")
+        x, new_state[name] = apply_one(params[name], x, state.get(name, {}))
         i += 1
     return x, new_state
 
@@ -144,7 +185,7 @@ def sequential_score(conf, layer_names: Sequence[str],
                      mask: Optional[torch.Tensor] = None, *,
                      train: bool, gen: Optional[torch.Generator] = None,
                      fmask: Optional[torch.Tensor] = None,
-                     weights=None):
+                     weights=None, remat: str = "none"):
     """Loss score plus the L1/L2 penalty (the reference's
     computeGradientAndScore adds calcL1/calcL2 to the loss); returns
     ``(score, new_state)``. ``mask`` is the labels mask; for 3-d labels
@@ -160,7 +201,7 @@ def sequential_score(conf, layer_names: Sequence[str],
             "Last layer has no loss function; use an OutputLayer/LossLayer")
     preout, new_state = sequential_forward(
         conf, layer_names, params, state, x, train=train, gen=gen,
-        preout=True, fmask=fmask)
+        preout=True, fmask=fmask, remat=remat)
     if mask is None and labels.dim() == 3:
         mask = fmask
     score = losses.score(last.loss, labels, preout, last.activation, mask,
@@ -174,17 +215,51 @@ def sequential_score(conf, layer_names: Sequence[str],
     return score + reg, new_state
 
 
+# --- dynamic loss scaling (compute_dtype="float16") --------------------------
+
+DEFAULT_LOSS_SCALE = 2.0 ** 15
+LOSS_SCALE_GROWTH_INTERVAL = 2000
+MAX_LOSS_SCALE = 2.0 ** 24
+
+
+def loss_scale_state(initial: float = DEFAULT_LOSS_SCALE,
+                     device=None) -> dict:
+    """The dynamic loss-scale state threaded through the step on the
+    device: the current scale (f32), the clean steps since its last
+    change and the overflows so far (int32); nothing reads it back on
+    the host unless asked."""
+    return {
+        "scale": torch.tensor(float(initial), dtype=torch.float32,
+                              device=device),
+        "good_steps": torch.zeros((), dtype=torch.int32, device=device),
+        "overflows": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _scale_tree(tree, factor):
+    """Every floating tensor of ``{layer: {param: tensor}}`` times
+    ``factor`` cast to its dtype."""
+    return {ln: {pn: (g * factor.to(g.dtype) if g.is_floating_point()
+                      else g) for pn, g in lp.items()}
+            for ln, lp in tree.items()}
+
+
 def grad_step(score_fn: Callable, params, state, x, labels, mask,
-              fmask=None):
+              fmask=None, scale=None):
     """The forward and backward of one step: ``((score, new_state),
     grads)`` of ``score_fn(params, state, x, labels, mask, fmask)``,
     with ``grads`` shaped like ``params``. The parameters are taken as
-    fresh leaves, so the caller's tensors gain no graph."""
+    fresh leaves, so the caller's tensors gain no graph. With ``scale``
+    (dynamic loss scaling) the score is cast to f32 and scaled before
+    the backward, so small f16 gradients stay representable; the score
+    and gradients come back scaled, and ``finish_step`` unscales."""
     leaves = {ln: {pn: t.detach().requires_grad_(True)
                    for pn, t in lp.items()}
               for ln, lp in params.items()}
     with torch.enable_grad():
         score, new_state = score_fn(leaves, state, x, labels, mask, fmask)
+        if scale is not None:
+            score = score.float() * scale
         flat = [t for lp in leaves.values() for t in lp.values()]
         got = torch.autograd.grad(score, flat, allow_unused=True)
     it = iter(got)
@@ -197,13 +272,91 @@ def grad_step(score_fn: Callable, params, state, x, labels, mask,
     return (score.detach(), new_state), grads
 
 
+class StepOut(NamedTuple):
+    """One train step's outputs: the new trees and score, then the new
+    loss-scale state, the new statistical-guard state and the guard's
+    ok flag (a 0-d bool tensor on the device), each None where that
+    flavour is off."""
+    params: dict
+    upd_state: dict
+    state: dict
+    score: torch.Tensor
+    loss_scale: Optional[dict] = None
+    stat_guard: Optional[dict] = None
+    ok: Optional[torch.Tensor] = None
+
+
 def finish_step(updater, grads, score, new_state, params, upd_state,
-                lrs: Dict[str, float], t: int):
-    """The post-gradient half: the updater rule on every parameter.
-    Returns ``(params, upd_state, state, score)``. Unguarded and
-    without loss scaling (those step flavours are not ported yet)."""
-    new_params, new_upd = updater.update(grads, upd_state, params, lrs, t)
-    return new_params, new_upd, new_state, score
+                state, lrs: Dict[str, float], t: int, *,
+                guarded: bool = False, ls=None, sg=None, sg_cfg=None,
+                update: Optional[Callable] = None) -> StepOut:
+    """The post-gradient half shared by the engine steps and the
+    distributed trainer's (JAX ``finish_step``): with ``ls`` (the
+    incoming loss-scale state; the caller scaled the loss through
+    ``grad_step``'s ``scale``) unscale the score and gradients, probe
+    the gradients' finiteness, keep the old trees on an overflow,
+    halve the scale on an overflow (at least 1) and double it after
+    LOSS_SCALE_GROWTH_INTERVAL clean steps (at most MAX_LOSS_SCALE);
+    then the updater rule (``update(grads) -> (params, upd_state)``, by
+    default ``updater.update``), and with ``guarded`` the divergence
+    guard's select, the statistical guard's too with ``sg`` / ``sg_cfg``
+    (the incoming EWMA state and its ``StatGuardConfig``). Every branch
+    is a select on the device: nothing is read back on the host."""
+    from deeplearning4j_tpu_torch.resilience.guard import (
+        divergence_ok,
+        grad_global_norm_sq,
+        select_updates,
+        stat_guard_update,
+    )
+
+    if update is None:
+        def update(g):
+            return updater.update(g, upd_state, params, lrs, t)
+    new_ls = nsq = None
+    if ls is not None:
+        scale = ls["scale"]
+        inv = 1.0 / scale
+        grads = _scale_tree(grads, inv)
+        score = score * inv
+    if ls is not None or guarded:
+        # the squared global norm of the (unscaled) gradients, taken
+        # once: the overflow probe, the divergence guard's and the
+        # statistical guard's gradient norm all read it
+        nsq = grad_global_norm_sq(grads)
+    if ls is not None:
+        # the overflow probe: a non-finite gradient skips the update and
+        # halves the scale; LOSS_SCALE_GROWTH_INTERVAL clean steps double
+        # it back
+        finite = torch.isfinite(nsq)
+        new_params, new_upd = update(grads)
+        new_params, new_upd, new_state = select_updates(
+            finite, new_params, params, new_upd, upd_state, new_state,
+            state)
+        good = torch.where(finite, ls["good_steps"] + 1,
+                           torch.zeros_like(ls["good_steps"]))
+        grow = good >= LOSS_SCALE_GROWTH_INTERVAL
+        new_ls = {
+            "scale": torch.where(
+                finite,
+                torch.where(grow, torch.clamp(scale * 2.0,
+                                              max=MAX_LOSS_SCALE), scale),
+                torch.clamp(scale * 0.5, min=1.0)),
+            "good_steps": torch.where(grow, torch.zeros_like(good), good),
+            "overflows": ls["overflows"] + (~finite).to(torch.int32),
+        }
+    else:
+        new_params, new_upd = update(grads)
+    if not guarded:
+        return StepOut(new_params, new_upd, new_state, score, new_ls)
+    ok = divergence_ok(score, norm_sq=nsq)
+    new_sg = None
+    if sg is not None:
+        sg_ok, new_sg = stat_guard_update(sg, sg_cfg, score,
+                                          torch.sqrt(nsq), ok)
+        ok = torch.logical_and(ok, sg_ok)
+    new_params, new_upd, new_state = select_updates(
+        ok, new_params, params, new_upd, upd_state, new_state, state)
+    return StepOut(new_params, new_upd, new_state, score, new_ls, new_sg, ok)
 
 
 def split_rows(tree, k: int) -> list:
@@ -292,30 +445,182 @@ def check_grad_accum_batch(k: int, batch_n: int) -> None:
 
 
 def build_step(score_fn: Callable, updater, grad_accum: int = 1,
-               recurrent_names: Sequence[str] = ()) -> Callable:
+               recurrent_names: Sequence[str] = (), *,
+               guarded: bool = False, loss_scale: bool = False,
+               stat_guard=None) -> Callable:
     """One eager SGD-family train step: ``step(params, upd_state, state,
-    x, labels, mask, lrs, t, fmask=None) -> (params, upd_state, state,
-    score)``. With ``grad_accum`` = K > 1 the batch runs as K contiguous
-    microbatches (``accum_grad_step``) before the one update."""
+    x, labels, mask, lrs, t, fmask=None, ls=None, sg=None) -> StepOut``.
+    With ``grad_accum`` = K > 1 the batch runs as K contiguous
+    microbatches (``accum_grad_step``) before the one update. With
+    ``loss_scale`` the step takes the loss-scale state ``ls``, scales
+    the loss by it, and skips the update on a non-finite gradient; with
+    ``guarded`` it returns the divergence guard's ok flag, and with
+    ``stat_guard`` (a ``StatGuardConfig``; needs ``guarded``) it takes
+    and returns the statistical guard's EWMA state ``sg``."""
+    if stat_guard is not None and not guarded:
+        raise ValueError("stat_guard requires guarded=True (it shares the "
+                         "divergence guard's select and ok flag)")
 
-    def step(params, upd_state, state, x, labels, mask, lrs, t, fmask=None):
+    def step(params, upd_state, state, x, labels, mask, lrs, t, fmask=None,
+             ls=None, sg=None):
+        if loss_scale and ls is None:
+            raise ValueError("a loss-scaled step needs its loss-scale state")
+        if stat_guard is not None and sg is None:
+            raise ValueError("a stat-guarded step needs its EWMA state")
+        scale = ls["scale"] if loss_scale else None
         if grad_accum > 1:
             micro = list(zip(*(split_rows(a, grad_accum)
                                for a in (x, labels, mask, fmask))))
 
             def micro_grads(j, st):
                 return grad_step(score_fn, params, st, *micro[j][:3],
-                                 micro[j][3])
+                                 micro[j][3], scale=scale)
 
             (score, new_state), grads = accum_grad_step(
                 micro_grads, grad_accum, state, recurrent_names)
         else:
             (score, new_state), grads = grad_step(score_fn, params, state,
-                                                  x, labels, mask, fmask)
+                                                  x, labels, mask, fmask,
+                                                  scale=scale)
         return finish_step(updater, grads, score, new_state, params,
-                           upd_state, lrs, t)
+                           upd_state, state, lrs, t, guarded=guarded,
+                           ls=ls if loss_scale else None,
+                           sg=sg if stat_guard is not None else None,
+                           sg_cfg=stat_guard)
 
     return step
+
+
+# --- the model's transform knobs and step flavours -------------------------
+
+
+def init_transforms(model) -> None:
+    """The whole-net transform knobs from the configuration's hints (JAX
+    ``core.init_transforms``): ``scan_layers``, ``remat``, ``loss_scale``
+    (True: DEFAULT_LOSS_SCALE), and no loss-scale or EWMA state yet.
+    Called from both engines' constructors."""
+    conf = model.conf
+    model.scan_layers = bool(getattr(conf, "scan_layers", False))
+    model.remat = check_remat_policy(getattr(conf, "remat", None) or "none")
+    ls = getattr(conf, "loss_scale", None)
+    model.loss_scale = DEFAULT_LOSS_SCALE if ls is True else (ls or None)
+    model._loss_scale_state = None
+    model._stat_guard_state = None
+    model.divergence_guard = None
+
+
+def set_transforms(model, scan_layers=None, remat=None, loss_scale=None,
+                   megastep=None) -> None:
+    """Runtime (re)configuration of the whole-net transforms on either
+    engine (JAX ``core.set_transforms``); None leaves a knob unchanged.
+    ``scan_layers`` changes only the JAX package's compiled program
+    (its layers under one ``lax.scan``); the port's eager layer loop is
+    the same with it on or off. ``remat`` (``none | dots_saveable |
+    full``) recomputes activations in the backward (``maybe_remat``).
+    ``loss_scale`` arms dynamic loss scaling for f16 compute (True:
+    DEFAULT_LOSS_SCALE; a number: the initial scale; 0 / False: off); a
+    change drops the scale state. No transform changes the trajectory.
+    ``megastep > 1`` (several optimizer steps a dispatch) raises: its
+    counterpart on the card is a CUDA-graph step (ROADMAP queue 1 item
+    2)."""
+    if megastep is not None:
+        if int(megastep) < 1:
+            raise ValueError(f"megastep must be >= 1, got {megastep}")
+        if int(megastep) != 1:
+            raise NotImplementedError(
+                "megastep > 1 is not ported: several optimizer steps a "
+                "dispatch arrive with the CUDA-graph step (ROADMAP queue 1 "
+                "item 2)")
+    if scan_layers is not None:
+        model.scan_layers = bool(scan_layers)
+    if remat is not None:
+        model.remat = check_remat_policy(remat)
+    if loss_scale is not None:
+        ls = DEFAULT_LOSS_SCALE if loss_scale is True else (
+            loss_scale or None)
+        if ls != model.loss_scale:
+            model.loss_scale = ls
+            model._loss_scale_state = None
+            model._step = None
+
+
+def loss_scale_active(model) -> bool:
+    """Dynamic loss scaling engages only for f16 compute: bf16 has f32's
+    exponent range and needs none of it."""
+    return (model.loss_scale is not None
+            and compute_dtype_of(model.conf) == torch.float16)
+
+
+def ensure_loss_scale_state(model) -> dict:
+    if model._loss_scale_state is None:
+        model._loss_scale_state = loss_scale_state(model.loss_scale,
+                                                   model.device)
+    return model._loss_scale_state
+
+
+def stat_guard_config(model):
+    """The ``StatGuardConfig`` of the model's installed guard, or
+    None."""
+    guard = getattr(model, "divergence_guard", None)
+    return getattr(guard, "stats", None) if guard is not None else None
+
+
+def ensure_stat_guard_state(model) -> dict:
+    from deeplearning4j_tpu_torch.resilience.guard import stat_guard_state
+
+    if model._stat_guard_state is None:
+        model._stat_guard_state = stat_guard_state(model.device)
+    return model._stat_guard_state
+
+
+def set_divergence_guard(model, guard) -> None:
+    """(Un)install a ``DivergenceGuard`` on an engine's step; the step
+    is rebuilt (the guarded step returns its ok flag)."""
+    model.divergence_guard = guard
+    model._step = None
+
+
+def model_step(model, score_fn: Callable) -> Callable:
+    """The engine's cached step with its flavours: the guard and the
+    statistical guard as installed, loss scaling where it is active."""
+    if model._step is None:
+        guard = model.divergence_guard
+        model._step = build_step(
+            score_fn, model.updater_def, model.grad_accum,
+            model.recurrent_names(), guarded=guard is not None,
+            loss_scale=loss_scale_active(model),
+            stat_guard=stat_guard_config(model))
+    return model._step
+
+
+def run_step(model, step, x, labels, mask, fmask):
+    """One optimizer step of ``model`` (either engine) through ``step``:
+    the scheduled learning rates, Adam's ``t``, the loss-scale and EWMA
+    state in, the new trees, states and score out onto the model, then
+    the guard's host policy (one read of its ok flag). Returns the
+    score, a 0-d tensor on the device."""
+    lrs = model.updater_def.scheduled_lrs(model.iteration_count)
+    out = step(model.params, model.updater_state, model.state, x, labels,
+               mask, lrs, model.iteration_count + 1, fmask,
+               ls=(ensure_loss_scale_state(model)
+                   if loss_scale_active(model) else None),
+               sg=(ensure_stat_guard_state(model)
+                   if stat_guard_config(model) is not None else None))
+    apply_step_out(model, out)
+    model.iteration_count += 1
+    model._last_score = out.score
+    if model.divergence_guard is not None:
+        model.divergence_guard.consult(model, out.ok)
+    return out.score
+
+
+def apply_step_out(model, out: StepOut) -> None:
+    """The step's trees and flavour states onto the model."""
+    model.params, model.updater_state, model.state = out[:3]
+    if out.loss_scale is not None:
+        model._loss_scale_state = out.loss_scale
+    if out.stat_guard is not None:
+        model._stat_guard_state = out.stat_guard
 
 
 # --- streaming (rnn_time_step) bookkeeping ----------------------------------

@@ -17,16 +17,19 @@ learning rates, with ``fit(grad_accum=K)`` as K contiguous microbatches
 a step. Inputs cross to the device at their own width where they are
 uint8 / int8 / int16 and are cast there (``core.to_device``). The JAX
 engine's ``scan_chunk`` fuses 16 minibatches into one dispatch with the
-same trajectory; it is not ported. Neither are graph truncated BPTT,
-``rnn_time_step``, AOT export, megastep, the whole-net transforms,
-``pretrain``, ``evaluate`` and the divergence guard: each raises, naming
-the slice that brings it.
+same trajectory; it is not ported. The step's flavours (loss scaling
+under f16 compute, the divergence and statistical guards) and the
+whole-net transforms (``remat`` per layer vertex, ``scan_layers``) are
+the sequential engine's (``nn/core.py``). Graph truncated BPTT,
+``rnn_time_step``, AOT export, megastep, ``pretrain`` and ``evaluate``
+are not ported: each raises, naming the slice that brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,6 +87,8 @@ class ComputationGraph:
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        # the transform knobs, the guard and their device states
+        core.init_transforms(self)
         # {"shards": n} while the updater state lies in ZeRO-1's flat
         # layout (set by the distributed trainer); None: parameter-shaped
         self._zero_layout = None
@@ -149,11 +154,14 @@ class ComputationGraph:
     # ------------------------------------------------------------------
 
     def _forward_values(self, params, state, inputs, *, train: bool,
-                        fmasks=None, preout: bool = False):
+                        fmasks=None, preout: bool = False,
+                        remat: str = "none"):
         """Walk the topological order; returns ``({vertex: value},
         preouts, new_state)``. With ``preout`` an output vertex that
         carries a loss gives its pre-activation (what its loss reads)
-        and runs its own forward only where another vertex reads it."""
+        and runs its own forward only where another vertex reads it.
+        ``remat`` (training only) recomputes each layer vertex's forward
+        in the backward (``core.maybe_remat``)."""
         conf = self.conf
         cdt = core.compute_dtype_of(conf)
         if cdt != core.dtype_of(conf):
@@ -190,9 +198,11 @@ class ComputationGraph:
                         vparams, v.layer_input(vin[0], gctx).contiguous())
                     if name not in read:
                         continue
-                out, new_state[name] = v.apply(
-                    vparams, vin, state.get(name, {}), train=train,
-                    mask=mask, ctx=gctx)
+                apply_vertex = core.maybe_remat(functools.partial(
+                    v.apply, train=train, mask=mask, ctx=gctx),
+                    remat if train and not layer.has_loss() else "none")
+                out, new_state[name] = apply_vertex(
+                    vparams, vin, state.get(name, {}))
                 vmask[name] = mask
             elif isinstance(v, DuplicateToTimeSeriesVertex):
                 ref = values[v.reference_input]
@@ -218,7 +228,8 @@ class ComputationGraph:
         from deeplearning4j_tpu_torch.nn import losses
 
         _, preouts, new_state = self._forward_values(
-            params, state, inputs, train=train, fmasks=fmasks, preout=True)
+            params, state, inputs, train=train, fmasks=fmasks, preout=True,
+            remat=self.remat if train else "none")
         score = 0.0
         for i, out_name in enumerate(self.conf.outputs):
             v = self.conf.vertices[out_name]
@@ -300,15 +311,11 @@ class ComputationGraph:
         return [self._layer(n) for n in self.layer_vertex_names]
 
     def _train_step(self):
-        if self._step is None:
-            def score_fn(params, state, inputs, labels, lmasks, fmasks):
-                return self._score_pure(params, state, inputs, labels,
-                                        lmasks, train=True, fmasks=fmasks)
+        def score_fn(params, state, inputs, labels, lmasks, fmasks):
+            return self._score_pure(params, state, inputs, labels,
+                                    lmasks, train=True, fmasks=fmasks)
 
-            self._step = core.build_step(score_fn, self.updater_def,
-                                         self.grad_accum,
-                                         self.recurrent_names())
-        return self._step
+        return core.model_step(self, score_fn)
 
     def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
             megastep=None) -> None:
@@ -322,9 +329,8 @@ class ComputationGraph:
         BatchNormalization configurations refuse it)."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
-        if megastep is not None and int(megastep) != 1:
-            raise NotImplementedError(
-                "fit: megastep arrives with the runtime subsystems slice")
+        if megastep is not None:
+            core.set_transforms(self, megastep=megastep)
         if self.params is None:
             self.init()
         if labels is not None:
@@ -370,13 +376,7 @@ class ComputationGraph:
         step = self._train_step()
         score = None
         for _ in range(self.conf.iterations):
-            lrs = self.updater_def.scheduled_lrs(self.iteration_count)
-            t = self.iteration_count + 1
-            self.params, self.updater_state, self.state, score = step(
-                self.params, self.updater_state, self.state, inputs, labels,
-                lmasks, lrs, t, fmasks)
-            self.iteration_count += 1
-            self._last_score = score
+            score = core.run_step(self, step, inputs, labels, lmasks, fmasks)
             self._reset_recurrent_state()
         return score
 
@@ -407,14 +407,18 @@ class ComputationGraph:
 
     def set_transforms(self, scan_layers=None, remat=None, loss_scale=None,
                        megastep=None) -> "ComputationGraph":
-        raise NotImplementedError(
-            "whole-net transforms (scan_layers, remat, loss scaling, "
-            "megastep) arrive with the runtime subsystems slice")
+        """As ``MultiLayerNetwork.set_transforms`` (``core.
+        set_transforms``)."""
+        core.set_transforms(self, scan_layers, remat, loss_scale, megastep)
+        return self
+
+    @property
+    def _loss_scale_active(self) -> bool:
+        return core.loss_scale_active(self)
 
     def set_divergence_guard(self, guard) -> None:
-        raise NotImplementedError(
-            "the divergence guard arrives with the runtime subsystems "
-            "slice (resilience/guard.py)")
+        """As ``MultiLayerNetwork.set_divergence_guard``."""
+        core.set_divergence_guard(self, guard)
 
     def pretrain(self, data, epochs: int = 1) -> None:
         raise NotImplementedError(

@@ -46,7 +46,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerSpec, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops import matmul_block, mha
-from deeplearning4j_tpu_torch.parallel.sequence import NEG
+from deeplearning4j_tpu_torch.parallel.sequence import neg_fill
 
 _ATTN_PARAMS = ("Wq", "Wk", "Wv", "Wo", "bo")
 
@@ -163,7 +163,7 @@ class MultiHeadSelfAttention(LayerSpec):
         s = torch.einsum("bhqd,bhkd->bhqk", q, kc) * scale
         key_idx = torch.arange(self.kv_cache, device=q.device)
         q_idx = pos + torch.arange(t, device=q.device)
-        s = s.masked_fill(key_idx[None, :] > q_idx[:, None], NEG)
+        s = s.masked_fill(key_idx[None, :] > q_idx[:, None], neg_fill(s))
         o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vc)
         return o, {**state, "k_cache": kc, "v_cache": vc, "pos": pos + t}
 

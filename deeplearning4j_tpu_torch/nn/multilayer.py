@@ -23,10 +23,16 @@ longer than ``tbptt_fwd_length`` is cut into chunks along time, one
 optimizer step and one iteration a chunk, with the carry handed from
 chunk to chunk outside the graph (the JAX package's chunk loop; its
 fused single-dispatch scan has the same trajectory and is not ported).
-``fit`` raises, naming the slice that brings them, for what the port
-does not carry yet: dropout / drop-connect, the line-search solvers,
-layer-wise pretraining, megastep dispatch, the divergence guard and
-loss scaling.
+The step's flavours are the JAX engine's: dynamic loss scaling under
+f16 compute (``set_transforms(loss_scale=...)`` or the Builder's
+``loss_scale``), the divergence guard and the statistical guard
+(``set_divergence_guard``), each a select on the device, with the
+guard's host policy applied after each step (one read of its ok flag);
+``remat`` recomputes each layer's activations in the backward and
+``scan_layers`` is taken (``nn/core.py``). ``fit`` raises, naming the
+slice that brings them, for what the port does not carry yet: dropout /
+drop-connect, the line-search solvers, layer-wise pretraining and
+megastep dispatch.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ class MultiLayerNetwork:
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        # the transform knobs, the guard and their device states
+        core.init_transforms(self)
         # {"shards": n} while the updater state lies in ZeRO-1's flat
         # layout (set by the distributed trainer); None: parameter-shaped
         self._zero_layout = None
@@ -202,23 +210,35 @@ class MultiLayerNetwork:
             layer.check_train(True)
 
     def set_divergence_guard(self, guard) -> None:
-        raise NotImplementedError(
-            "the divergence guard arrives with the runtime subsystems "
-            "slice (resilience/guard.py)")
+        """(Un)install a ``resilience.DivergenceGuard`` on the train step
+        (NaN/Inf suppression on the device and the host's skip policy;
+        with ``guard.stats`` also the statistical guard, whose EWMA
+        state threads through the step)."""
+        core.set_divergence_guard(self, guard)
 
     def set_transforms(self, scan_layers=None, remat=None, loss_scale=None,
                        megastep=None) -> "MultiLayerNetwork":
-        raise NotImplementedError(
-            "whole-net transforms (scan_layers, remat, loss scaling, "
-            "megastep) arrive with the runtime subsystems slice")
+        """(Re)configure the whole-net transforms (``core.
+        set_transforms``): ``scan_layers``, ``remat`` (``none |
+        dots_saveable | full``), ``loss_scale`` (f16 compute; True: 2**15)
+        and ``megastep`` (only 1). The trajectory is the same with them
+        on or off."""
+        core.set_transforms(self, scan_layers, remat, loss_scale, megastep)
+        return self
+
+    @property
+    def _loss_scale_active(self) -> bool:
+        return core.loss_scale_active(self)
 
     def _score_pure(self, params, state, x, labels, mask, *, train: bool,
                     fmask=None, weights=None):
         """The loss plus the L1/L2 penalty of ``x`` (``core.
-        sequential_score``); returns ``(score, new_state)``."""
+        sequential_score``, training under the model's ``remat``);
+        returns ``(score, new_state)``."""
         return core.sequential_score(self.conf, self.layer_names, params,
                                      state, x, labels, mask, train=train,
-                                     fmask=fmask, weights=weights)
+                                     fmask=fmask, weights=weights,
+                                     remat=self.remat if train else "none")
 
     def recurrent_names(self) -> List[str]:
         return [n for n, layer in zip(self.layer_names, self.conf.layers)
@@ -228,15 +248,11 @@ class MultiLayerNetwork:
         return list(self.conf.layers)
 
     def _train_step(self):
-        if self._step is None:
-            def score_fn(params, state, x, labels, mask, fmask):
-                return self._score_pure(params, state, x, labels, mask,
-                                        train=True, fmask=fmask)
+        def score_fn(params, state, x, labels, mask, fmask):
+            return self._score_pure(params, state, x, labels, mask,
+                                    train=True, fmask=fmask)
 
-            self._step = core.build_step(score_fn, self.updater_def,
-                                         self.grad_accum,
-                                         self.recurrent_names())
-        return self._step
+        return core.model_step(self, score_fn)
 
     def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
             megastep=None) -> None:
@@ -250,9 +266,8 @@ class MultiLayerNetwork:
         BPTT refuse it)."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
-        if megastep is not None and int(megastep) != 1:
-            raise NotImplementedError(
-                "fit: megastep arrives with the runtime subsystems slice")
+        if megastep is not None:
+            core.set_transforms(self, megastep=megastep)
         if self.params is None:
             self.init()
         if labels is not None:
@@ -311,15 +326,7 @@ class MultiLayerNetwork:
                                getattr(ds, "features_mask", None)))
 
     def _one_step(self, x, y, mask, fmask) -> torch.Tensor:
-        step = self._train_step()
-        lrs = self.updater_def.scheduled_lrs(self.iteration_count)
-        t = self.iteration_count + 1
-        self.params, self.updater_state, self.state, score = step(
-            self.params, self.updater_state, self.state, x, y, mask, lrs, t,
-            fmask)
-        self.iteration_count += 1
-        self._last_score = score
-        return score
+        return core.run_step(self, self._train_step(), x, y, mask, fmask)
 
     def _reset_recurrent_state(self) -> None:
         """The recurrent carry does not persist across minibatches

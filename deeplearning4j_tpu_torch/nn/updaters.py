@@ -112,6 +112,13 @@ def _bias_correction(decay: float, t: int, like: torch.Tensor) -> float:
     return float(1.0 - torch.tensor(decay, dtype=like.dtype) ** t)
 
 
+def _lr_times(lr: float, t: torch.Tensor) -> torch.Tensor:
+    """``lr * t`` as the JAX package computes it: its learning rate is
+    an f32 array, so a half-precision ``t`` is promoted to f32 (a Python
+    float would keep the product in bf16 / f16 and round it twice)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32)) * lr
+
+
 @torch.no_grad()
 def apply_updater(s: UpdaterSettings, grad: torch.Tensor, state: tuple,
                   lr: float, t: int) -> Tuple[torch.Tensor, tuple]:
@@ -120,23 +127,24 @@ def apply_updater(s: UpdaterSettings, grad: torch.Tensor, state: tuple,
     correction)."""
     u = s.updater.upper()
     if u == "SGD":
-        return lr * grad, ()
+        return _lr_times(lr, grad), ()
     if u == "NONE":
         return grad, ()
     if u == "NESTEROVS":
         (v,) = state
-        v_new = s.momentum * v - lr * grad
+        v_new = s.momentum * v - _lr_times(lr, grad)
         # reference Nesterovs: ret = -(mu * v_prev - (1 + mu) * v_new)
         step = s.momentum * v - (1.0 + s.momentum) * v_new
         return step, (v_new,)
     if u == "ADAGRAD":
         (h,) = state
         h_new = h + grad * grad
-        return lr * grad / (torch.sqrt(h_new) + s.epsilon), (h_new,)
+        return (_lr_times(lr, grad) / (torch.sqrt(h_new) + s.epsilon),
+                (h_new,))
     if u == "RMSPROP":
         (h,) = state
         h_new = s.rms_decay * h + (1.0 - s.rms_decay) * grad * grad
-        return lr * grad / torch.sqrt(h_new + s.epsilon), (h_new,)
+        return _lr_times(lr, grad) / torch.sqrt(h_new + s.epsilon), (h_new,)
     if u == "ADAM":
         m, v = state
         b1, b2 = s.adam_mean_decay, s.adam_var_decay
@@ -144,7 +152,8 @@ def apply_updater(s: UpdaterSettings, grad: torch.Tensor, state: tuple,
         v_new = b2 * v + (1.0 - b2) * grad * grad
         m_hat = m_new / _bias_correction(b1, t, m_new)
         v_hat = v_new / _bias_correction(b2, t, v_new)
-        return lr * m_hat / (torch.sqrt(v_hat) + s.epsilon), (m_new, v_new)
+        return (_lr_times(lr, m_hat) / (torch.sqrt(v_hat) + s.epsilon),
+                (m_new, v_new))
     if u == "ADADELTA":
         eg, ex = state
         rho = s.rho

@@ -103,17 +103,18 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_conv_block.argtypes = [p] * 8 + [i] * 20 + [p]
+    lib.dl4j_conv_block.argtypes = [p] * 8 + [i] * 21 + [p]
     lib.dl4j_conv_block.restype = i
     lib.dl4j_conv_wide_smem_bytes.argtypes = [i] * 3
     lib.dl4j_conv_wide_smem_bytes.restype = i
     lib.dl4j_conv_block_splits.argtypes = [i] * 7
     lib.dl4j_conv_block_splits.restype = i
-    for name in ("dl4j_conv_bwd_data", "dl4j_conv_bwd_w"):
-        getattr(lib, name).argtypes = [p] * 4 + [i] * 14 + [p]
-        getattr(lib, name).restype = i
+    lib.dl4j_conv_bwd_data.argtypes = [p] * 4 + [i] * 14 + [p]
+    lib.dl4j_conv_bwd_data.restype = i
+    lib.dl4j_conv_bwd_w.argtypes = [p] * 4 + [i] * 15 + [p]
+    lib.dl4j_conv_bwd_w.restype = i
     lib.dl4j_conv_bwd_data_resident.argtypes = [p] * 4 + [i] * 15 + [p]
-    lib.dl4j_conv_bwd_w_resident.argtypes = [p] * 4 + [i] * 16 + [p]
+    lib.dl4j_conv_bwd_w_resident.argtypes = [p] * 4 + [i] * 17 + [p]
     lib.dl4j_conv_bwd_w_resident.restype = i
     lib.dl4j_conv_bwd_data_resident.restype = i
     lib.dl4j_conv_bwd_data_splits.argtypes = [i] * 7

@@ -12,14 +12,17 @@ padding is done inside the kernel by bounds checks, so no padded copy
 of x is made. f32, bf16 and f16 inputs are taken; the sum is f32 and is
 cast once, as on the TPU. When the output has too few tiles to fill the
 card, the library splits the reduction and the wrapper hands it an f32
-scratch for the partial sums (``_build.split_scratch``).
+scratch for the partial sums (``_build.split_scratch``). The output is
+x's dtype, or f32 for the backward's recompute of the accumulator (half
+in, f32 out, as the JAX backward asks of its Pallas kernel).
 
 ``conv_block`` launches the kernel for a CUDA tensor and runs
 ``conv_block_reference`` (the plain PyTorch version, same semantics)
 for a CPU tensor. The forward kernel takes one of two routes, picked
 from the shape alone by ``conv_block_route``: the wide implicit GEMM
-(large tiles fed by a ``cp.async`` ring, f32) where its grid fills the
-card, the direct 64 x 64 tile with split-K elsewhere and in bf16 / f16.
+(large tiles fed by a ring of staged slices, the image converted to f32
+as it is staged) where its grid fills the card, the direct 64 x 64 tile
+with split-K elsewhere.
 When a gradient is wanted, the kernels and the plain version alike
 run through ``_ConvBlockFn``, the backward of the JAX package's ``_conv_block_bwd``:
 recompute the f32 accumulator (the forward kernel, identity epilogue,
@@ -27,15 +30,17 @@ f32 out), apply the epilogue gradient in f32 (``_EPILOGUE_GRADS``:
 relu's gradient at z == 0 is 0.5, the TPU kernel route's value, where
 autograd through ``torch.relu`` would give 0), sum dscale and dshift,
 then one launch each of ``conv_bwd_data`` (only when x needs a
-gradient) and ``conv_bwd_w``. ``conv_bwd_data`` takes one of two kernel
+gradient; f32 dacc and weights, as in JAX) and ``conv_bwd_w`` (on x in
+its own dtype, f32 dacc and dW). ``conv_bwd_data`` takes one of two kernel
 routes, picked from the shape alone by ``conv_bwd_data_route``: the
 resident kernel (one image's gradient, a channel group's weights and
 its dx held in shared memory) where they fit, the implicit GEMM
 elsewhere; ``conv_bwd_w`` likewise, by ``conv_bwd_w_route``: the
 image-resident kernel (whole images staged, dW summed in registers)
 where two images fit, the implicit GEMM elsewhere. Under ``no_grad`` /
-``inference_mode`` the forward is its one launch alone. The backward
-kernels take f32: training in bf16 / f16 on the card raises.
+``inference_mode`` the forward is its one launch alone. Every kernel
+sums products of the (half or f32) values in f32 and casts once, as the
+plain versions do.
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ _EPILOGUE_GRADS = {
     "tanh": lambda z: 1.0 - torch.square(torch.tanh(z)),
 }
 
-TRAINING_DTYPES = (torch.float32,)
+TRAINING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def check_epilogue(kernel: str, activation: str) -> None:
@@ -89,13 +94,12 @@ def wants_grad(*tensors) -> bool:
 
 
 def check_trainable(kernel: str, x: torch.Tensor) -> None:
-    """The backward kernels take f32: refuse a half-precision training
-    call on the card instead of falling back."""
+    """The backward kernels take f32, bf16 and f16 images: refuse any
+    other training dtype on the card instead of falling back."""
     if x.dtype not in TRAINING_DTYPES:
         raise NotImplementedError(
-            f"{kernel}: training in {x.dtype} on the card arrives with "
-            "the mixed-precision training slice; train in float32"
-        )
+            f"{kernel}: the kernels train in {TRAINING_DTYPES}, not "
+            f"{x.dtype}")
 
 
 def check_kernel_operand(kernel: str, name: str, t: torch.Tensor,
@@ -166,16 +170,21 @@ def _plain_forward(x, w, scale, shift, stride, padding, activation,
 # one block an SM) and whether a thread's pixels are float4 groups (the
 # wide tiles' shared loads) or lanes 32 apart (the narrow tiles' stores,
 # coalesced: their small depths make the epilogue count). A conv takes
-# the wide route in f32 where its tile with the least wave-quantised
-# work has at least WIDE_MIN_TILES tiles (LeNet-5's first conv at the
-# bucket of 32: 72 tiles, 3 % under the direct route's time) and the
-# ring plus the tap table fit a block's shared memory. Elsewhere, and
-# in bf16 / f16, the direct route. Where the reduction is at most
-# WIDE_SHALLOW_K deep, the epilogue's stores weigh as much as the sums,
-# and only the tiles with coalesced lane stores compete (ResNet-50's 1 x
-# 1 convs over 64 channels at batch 128: 96 x 128 ran 0.556 ms where
-# 128 x 128 ran 0.661). The tiles, their layouts and the cost model are
-# fitted to scripts/torch_route_ab.py --sweep (PERF.md).
+# the wide route where its tile with the least wave-quantised work has
+# at least WIDE_MIN_TILES tiles (LeNet-5's first conv at the bucket of
+# 32: 72 tiles, 3 % under the direct route's time) and the ring plus
+# the tap table fit a block's shared memory; elsewhere the direct route.
+# The ring holds f32 in every dtype (a half image is converted as it is
+# staged), so one rule serves f32, bf16 and f16 (in bf16 it stays within
+# 10 % of the best route at LeNet-5's, AlexNet's, VGG-16's and
+# ResNet-50's shapes but at ResNet-50's three stage-0 1 x 1 convs,
+# 1.16-1.27x: scripts/torch_route_ab.py --sweep --dtype bfloat16,
+# PERF.md). Where the reduction is at most WIDE_SHALLOW_K deep, the
+# epilogue's stores weigh as much as the sums, and only the tiles with
+# coalesced lane stores compete (ResNet-50's 1 x 1 convs over 64
+# channels at batch 128: 96 x 128 ran 0.556 ms where 128 x 128 ran
+# 0.661). The tiles, their layouts and the cost model are fitted to
+# scripts/torch_route_ab.py --sweep (PERF.md).
 ROUTE_CODES = {"direct": 0, "wide": 1}
 WIDE_TILES = {(96, 256): (1, True), (128, 128): (2, True),
               (96, 128): (2, False), (32, 256): (2, False)}
@@ -259,7 +268,8 @@ def conv_block_route(n: int, c: int, h: int, w: int, o: int, kh: int,
                      kw: int, stride=(1, 1), padding=(0, 0),
                      dtype=torch.float32) -> ConvRoute:
     """The forward's kernel route for an ``[n, c, h, w]`` input under
-    ``[o, c, kh, kw]`` weights: ``"wide"`` in f32 where the wide tile
+    ``[o, c, kh, kw]`` weights (f32, bf16 or f16): ``"wide"`` where the
+    wide tile
     with the least wave-quantised work (ties: the larger tile; at a
     depth of at most WIDE_SHALLOW_K the lane-store tiles alone) has at
     least WIDE_MIN_TILES tiles and its ring and tap table fit a block,
@@ -272,7 +282,7 @@ def conv_block_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     fits = [t for t in WIDE_TILES
             if conv_wide_smem_bytes(*t, k_pad) <= BLOCK_SMEM_BYTES
             and not (k_pad <= WIDE_SHALLOW_K and WIDE_TILES[t][1])]
-    if (dtype != torch.float32 or h + ph >= WIDE_PAD_TAP or not fits
+    if (h + ph >= WIDE_PAD_TAP or not fits
             or c * h * w >= 2 ** 31):  # the tap table's int32 offsets
         return ConvRoute("direct")
     n_px = n * oh * ow
@@ -311,9 +321,9 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
         raise TypeError(f"{kernel}: unsupported dtype {x.dtype}")
     check_kernel_operand(kernel, "x", x, x.device, x.dtype, 4)
     check_kernel_operand(kernel, "w", w, x.device, x.dtype, 4)
-    if out_dtype != x.dtype:  # the f32 recompute takes an f32 x
-        raise TypeError(f"{kernel}: the kernel writes {x.dtype}, not "
-                        f"{out_dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{kernel}: the kernel writes {x.dtype} or "
+                        f"float32, not {out_dtype}")
     n, c, h, wd = (int(v) for v in x.shape)
     o, wc, kh, kw = (int(v) for v in w.shape)
     if wc != c:
@@ -329,7 +339,7 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
         check_kernel_operand(kernel, name, t, x.device, torch.float32, 1)
         if t.numel() != o:
             raise ValueError(f"{kernel}: {name} must hold {o} values")
-    out = torch.empty((n, o, oh, ow), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, o, oh, ow), dtype=out_dtype, device=x.device)
     lib = _build.load()
     plan = conv_block_route(n, c, h, wd, o, kh, kw, stride, padding, x.dtype)
     wt = taps = scratch = None
@@ -347,13 +357,16 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
         None if taps is None else taps.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        _build.DTYPE_CODES[x.dtype], n, c, h, wd, o, kh, kw, sh, sw, ph, pw,
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], n, c, h,
+        wd, o, kh, kw, sh, sw, ph, pw,
         oh, ow, EPILOGUE_CODES[activation], splits, ROUTE_CODES[plan.route],
         plan.tile_o, plan.tile_px, plan.k_pad,
         _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    tag = dispatch.DTYPE_TAGS[x.dtype]
+    dispatch.note_launch(kernel, tag if out_dtype == x.dtype
+                         else f"{tag}->f32")
     return out
 
 
@@ -663,14 +676,17 @@ def conv_bwd_data(dacc: torch.Tensor, w: torch.Tensor, x_hw,
 
 def conv_bwd_w(x: torch.Tensor, dacc: torch.Tensor, w_shape,
                stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
-    """dL/dW (f32 OIHW ``w_shape``) from the f32 input ``x`` and the f32
+    """dL/dW (f32 OIHW ``w_shape``) from the input ``x`` (f32, bf16 or
+    f16: the kernels convert it as they stage it) and the f32
     pre-epilogue gradient ``dacc``: the CUDA kernel for a CUDA ``x``,
     the plain version for a CPU one."""
     if not dispatch.is_kernel_tensor(x):
         return conv_bwd_w_reference(x, dacc, w_shape, stride, padding)
     kernel = "conv_bwd_w"
     f32 = torch.float32
-    check_kernel_operand(kernel, "x", x, x.device, f32, 4)
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{kernel}: unsupported dtype {x.dtype}")
+    check_kernel_operand(kernel, "x", x, x.device, x.dtype, 4)
     check_kernel_operand(kernel, "dacc", dacc, x.device, f32, 4)
     n, c, h, wd = (int(v) for v in x.shape)
     o, wc, kh, kw = (int(v) for v in w_shape)
@@ -689,17 +705,18 @@ def conv_bwd_w(x: torch.Tensor, dacc: torch.Tensor, w_shape,
         scratch = _build.split_scratch(plan.chunks, dw.numel(), x.device)
         rc = lib.dl4j_conv_bwd_w_resident(
             x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), *geo,
+            None if scratch is None else scratch.data_ptr(),
+            _build.DTYPE_CODES[x.dtype], *geo,
             plan.group, plan.pixel_groups, plan.images_per_chunk, stream)
     else:
         splits = lib.dl4j_conv_bwd_w_splits(n, c, o, kh, kw, oh, ow)
         scratch = _build.split_scratch(splits, dw.numel(), x.device)
         rc = lib.dl4j_conv_bwd_w(
             x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), *geo, splits,
-            stream)
+            None if scratch is None else scratch.data_ptr(),
+            _build.DTYPE_CODES[x.dtype], *geo, splits, stream)
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
     return dw
 
 
@@ -739,8 +756,9 @@ class _ConvBlockFn(torch.autograd.Function):
             dx = bwd_data(dacc, w.to(f32).contiguous(), x.shape[2:], stride,
                           padding).to(x.dtype)
         if ctx.needs_input_grad[1]:
+            # x in its own dtype: the kernel converts as it stages
             bwd_w = conv_bwd_w if kernels else conv_bwd_w_reference
-            dw = bwd_w(x.to(f32).contiguous(), dacc, w.shape, stride,
+            dw = bwd_w(x.contiguous(), dacc, w.shape, stride,
                        padding).to(w.dtype)
         return dx, dw, dscale, dshift, None, None, None, None
 

@@ -23,6 +23,12 @@ KERNELS = ("conv_block", "conv_bwd_data", "conv_bwd_w", "matmul_block",
            "lstm_cell", "lstm_seq_fwd", "lstm_seq_bwd", "flash_attention",
            "flash_attention_streamed", "matmul_block_residual")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# the same launches by dtype variant, "kernel[variant]": the operands'
+# dtype ("f32", "bf16", "f16"), with "->f32" where a half launch writes
+# f32 (the conv forward's recompute in the backward)
+_variants: Dict[str, int] = {}
+DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16"}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -55,14 +61,23 @@ def is_kernel_tensor(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for a tensor on {t.device}")
 
 
-def note_launch(kernel: str) -> None:
+def note_launch(kernel: str, variant: str = "f32") -> None:
     _launches[kernel] += 1
+    key = f"{kernel}[{variant}]"
+    _variants[key] = _variants.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def variant_counts() -> Dict[str, int]:
+    """Launches since the last reset by ``"kernel[variant]"`` (only the
+    variants launched)."""
+    return dict(_variants)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _variants.clear()

@@ -184,7 +184,7 @@ def _kernel_forward(q, k, v, causal: bool, streamed: bool):
         _build.current_stream_handle(q.device),
     )
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[q.dtype])
     return out
 
 

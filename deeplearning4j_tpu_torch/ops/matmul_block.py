@@ -111,7 +111,7 @@ def _kernel_forward(x, w, bias, residual, activation):
         splits, ROUTE_CODES[route], _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
     return out
 
 

@@ -19,6 +19,15 @@ import torch
 NEG = -1e9  # masked-score fill; exp(NEG - m) underflows to exactly 0
 
 
+def neg_fill(s: torch.Tensor) -> torch.Tensor:
+    """NEG in the scores' dtype, converted as JAX converts the Python
+    float it fills with: in f16 it overflows to -inf (torch's
+    ``masked_fill`` would refuse the number), which the softmax takes as
+    a zero weight all the same."""
+    return torch.tensor(NEG, dtype=torch.float32,
+                        device=s.device).to(s.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -31,8 +40,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         above = torch.ones((t, t), dtype=torch.bool,
                            device=q.device).triu(1)
-        s = s.masked_fill(above, NEG)
+        s = s.masked_fill(above, neg_fill(s))
     if mask is not None:
-        s = s.masked_fill((mask <= 0)[:, None, None, :], NEG)
+        s = s.masked_fill((mask <= 0)[:, None, None, :], neg_fill(s))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)

@@ -29,11 +29,17 @@ meet in collectives (NCCL on the card, gloo on the CPU):
   shard of it, the JAX layout;
 - a trailing batch that does not split into equal shards is padded with
   zero rows masked out of the loss (a model with batch statistics
-  raises instead).
+  raises instead);
+- dynamic loss scaling (the model's, under f16 compute) and the
+  divergence guard (``divergence_guard=``, the trainer's own, with its
+  statistical guard): the shared ``core.finish_step`` after the
+  gradient all-reduce, so the finite probe and the guard's select see
+  the global gradient and every rank takes the same branch; both run
+  the synchronous step, as in the JAX trainer.
 
-Tensor parallelism, the divergence guard, megastep dispatch
-(``fit_megachunk``), ``resume``, prefetching and batch validation are
-not ported: each raises, naming the slice that brings it.
+Tensor parallelism, megastep dispatch (``fit_megachunk``), ``resume``,
+prefetching and batch validation are not ported: each raises, naming
+the slice that brings it.
 """
 
 from __future__ import annotations
@@ -123,16 +129,13 @@ class DistributedTrainer:
                 "tensor_parallel: tensor parallelism is not ported yet "
                 "(ROADMAP queue 1: the distribution slice's tensor "
                 "parallelism)")
-        if divergence_guard is not None:
-            raise NotImplementedError(
-                "the divergence guard arrives with " + _RUNTIME_SLICE
-                + " (resilience/guard.py)")
         if zero and batch_stats == "local":
             raise ValueError(
                 "zero=True needs the synchronous step; batch_stats='local' "
                 "keeps per-rank replicated updater state, exactly what "
                 "zero removes")
         self.model = model
+        self.set_divergence_guard(divergence_guard)
         self.mesh = mesh if mesh is not None else build_mesh(
             device=model.device)
         self._check_device()
@@ -368,7 +371,10 @@ class DistributedTrainer:
         """The JAX trainer's ``_pick_shard_map``: per-rank statistics and
         losses where asked, or under ``"auto"`` where they equal the
         global ones."""
-        if self.zero or self.model.grad_accum > 1:
+        if (self.zero or self.model.grad_accum > 1
+                or core.loss_scale_active(self.model)
+                or self._sg_config() is not None):
+            # loss-scale and EWMA state ride the synchronous step
             return False
         if self.batch_stats != "auto":
             return self.batch_stats == "local"
@@ -421,6 +427,12 @@ class DistributedTrainer:
                           if ln not in recurrent else st)
                      for ln, st in state.items()}
         return grads, score, state
+
+    def _sg_config(self):
+        """The ``StatGuardConfig`` of the trainer's own guard (the
+        trainer's and the engine's guards are separate installs)."""
+        g = self.divergence_guard
+        return g.stats if g is not None else None
 
     def _zero_update(self, grads, lrs, t):
         """ZeRO-1: the rule on this rank's slice of every parameter, then
@@ -485,10 +497,16 @@ class DistributedTrainer:
         weights = [self._weights(fields, rows, j, local, k)
                    for j, rows in enumerate(micro)]
 
+        ls = (core.ensure_loss_scale_state(m)
+              if core.loss_scale_active(m) else None)
+        sg_cfg = self._sg_config()
+        sg = core.ensure_stat_guard_state(m) if sg_cfg is not None else None
+
         def micro_grads(j, st):
             x, y, lm, fm = batches[j]
             return core.grad_step(self._score_fn(weights[j]), m.params, st,
-                                  x, y, lm, fm)
+                                  x, y, lm, fm,
+                                  scale=None if ls is None else ls["scale"])
 
         # (the layers import the kernels, whose attention imports this
         # package: imported here, not at the top)
@@ -509,17 +527,23 @@ class DistributedTrainer:
             grads, score, new_state, local)
         lrs = m.updater_def.scheduled_lrs(m.iteration_count)
         t = m.iteration_count + 1
-        if self.zero:
-            m.params, m.updater_state = self._zero_update(grads, lrs, t)
-        else:
-            m.params, m.updater_state = m.updater_def.update(
-                grads, m.updater_state, m.params, lrs, t)
-        m.state = new_state
+        # after the all-reduce the gradients and score are the same on
+        # every rank, so the finite probe and the guard's select are too
+        out = core.finish_step(
+            m.updater_def, grads, score, new_state, m.params,
+            m.updater_state, m.state, lrs, t,
+            guarded=self.divergence_guard is not None, ls=ls, sg=sg,
+            sg_cfg=sg_cfg,
+            update=(functools.partial(self._zero_update, lrs=lrs, t=t)
+                    if self.zero else None))
+        core.apply_step_out(m, out)
         m.iteration_count += 1
-        m._last_score = score
+        m._last_score = out.score
         m._last_batch_rows = batch_n
+        if self.divergence_guard is not None:
+            self.divergence_guard.consult(m, out.ok)
         m._reset_recurrent_state()
-        return score
+        return out.score
 
     def fit(self, iterator, epochs: int = 1,
             prefetch: Optional[int] = None,
@@ -566,9 +590,18 @@ class DistributedTrainer:
                                   + _RUNTIME_SLICE)
 
     def set_divergence_guard(self, guard) -> None:
-        raise NotImplementedError(
-            "the divergence guard arrives with " + _RUNTIME_SLICE
-            + " (resilience/guard.py)")
+        """(Un)install a ``resilience.DivergenceGuard`` on the trainer's
+        step (the trainer's own, apart from any on the model); the
+        model keeps a back-reference for checkpoint capture."""
+        from deeplearning4j_tpu_torch.resilience.guard import (
+            DivergenceGuard,
+        )
+
+        if guard is not None and not isinstance(guard, DivergenceGuard):
+            raise TypeError("divergence_guard must be a DivergenceGuard or "
+                            f"None, got {type(guard).__name__}")
+        self.divergence_guard = guard
+        self.model._ckpt_guard = guard
 
     def resume(self, source, load_updater: bool = True) -> int:
         raise NotImplementedError(

@@ -122,9 +122,10 @@ class ParallelWrapper:
         home = m.device
         for rep, ds, dev in zip(self._replicas, batches, self.devices):
             x, y, lm, fm = m.batch_tensors(ds, dev)
-            rep["params"], rep["upd"], rep["state"], score = step(
-                rep["params"], rep["upd"], rep["state"], x, y, lm, lrs, t,
-                fm)
+            out = step(rep["params"], rep["upd"], rep["state"], x, y, lm,
+                       lrs, t, fm)
+            rep["params"], rep["upd"], rep["state"] = out[:3]
+            score = out.score
             for name in m.recurrent_names():
                 rep["state"][name] = {}
             scores.append(score.to(home))

@@ -9,7 +9,10 @@ checkpoint is the same zip, holding ``configuration.json``
 moment of that parameter's updater) and, where a layer keeps state,
 ``layerState.npz`` (``"<layer>/<key>"``: BatchNormalization's running
 ``mean`` and ``var``), so a zip written by either package restores, and
-resumes training, in the other. A ``ComputationGraph`` is written the
+resumes training, in the other. bf16 arrays cross as the JAX package
+writes them: numpy has no bf16, so each lands in the npz as its raw
+2-byte patterns, a ``|V2`` array (``to_numpy`` / ``from_numpy``); f16
+and f32 are numpy's own. A ``ComputationGraph`` is written the
 same way, keyed by vertex name, with ``"model_type":
 "ComputationGraph"``. Writes are atomic and durable: temp file, fsync,
 rename, directory fsync.
@@ -35,6 +38,27 @@ MODEL_TYPE = "MultiLayerNetwork"
 GRAPH_MODEL_TYPE = "ComputationGraph"
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; a bf16 tensor as its raw 2-byte patterns
+    (a ``|V2`` array), the form ``np.asarray`` gives the JAX package's
+    bf16 arrays in a checkpoint."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor of a host array: a 2-byte void array (a ``|V2`` npz
+    entry, or an ``ml_dtypes`` bf16 array) is bf16 bit patterns, taken
+    as they are; anything else is numpy's own dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.array(arr.view(np.int16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
 def params_from_numpy(flat: Dict[str, np.ndarray], device
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{"<layer>/<param>": array}`` (the npz layout, or a JAX model's
@@ -43,22 +67,21 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, arr in flat.items():
         ln, pn = key.rsplit("/", 1)
-        out.setdefault(ln, {})[pn] = torch.from_numpy(
-            np.array(arr, copy=True)).to(device)
+        out.setdefault(ln, {})[pn] = from_numpy(arr).to(device)
     return out
 
 
 def params_to_numpy(params) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_numpy``: host copies keyed
     ``"<layer>/<param>"``."""
-    return {f"{ln}/{pn}": t.detach().cpu().numpy()
+    return {f"{ln}/{pn}": to_numpy(t)
             for ln, lp in params.items() for pn, t in lp.items()}
 
 
 def updater_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Updater state ``{layer: {param: (tensor, ...)}}`` -> host copies
     keyed ``"<layer>/<param>/<i>"`` (the ``updaterState.npz`` layout)."""
-    return {f"{ln}/{pn}/{i}": t.detach().cpu().numpy()
+    return {f"{ln}/{pn}/{i}": to_numpy(t)
             for ln, lp in state.items() for pn, tup in lp.items()
             for i, t in enumerate(tup)}
 
@@ -70,8 +93,8 @@ def updater_state_from_numpy(flat: Dict[str, np.ndarray], template
     the number of moments of each parameter, their device and dtype).
     A moment the template expects and ``flat`` lacks raises KeyError."""
     return {ln: {pn: tuple(
-        torch.from_numpy(np.array(flat[f"{ln}/{pn}/{i}"], copy=True)).to(
-            device=t.device, dtype=t.dtype)
+        from_numpy(flat[f"{ln}/{pn}/{i}"]).to(device=t.device,
+                                              dtype=t.dtype)
         for i, t in enumerate(tup)) for pn, tup in lp.items()}
         for ln, lp in template.items()}
 

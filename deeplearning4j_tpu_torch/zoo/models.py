@@ -171,9 +171,10 @@ def resnet50(height=224, width=224, channels=3, n_classes=1000, *,
     ``depths`` (default [3, 4, 6, 3]) at widths ``base_width * 2**i``,
     the first block of each stage with a projection shortcut (stride 2
     from the second stage on), a global average pool and a softmax
-    output. ``remat`` and ``loss_scale`` take only their off values (the
-    Builder raises for others: they arrive with the runtime subsystems
-    slice)."""
+    output. ``remat`` (``none | dots_saveable | full``) recomputes each
+    layer vertex's activations in the backward (``nn/core.py``);
+    ``loss_scale`` arms dynamic loss scaling for
+    ``compute_dtype="float16"``."""
     # total stride: stem (1 or 4, incl. maxpool) x 2 per later stage
     div = (1 if cifar_stem else 4) * (2 ** (len(depths) - 1))
     if height % div or width % div:
@@ -238,9 +239,12 @@ def transformer_lm(vocab=77, d_model=256, n_layers=4, n_heads=8, *,
     """Decoder-only transformer language model: a dense input
     projection of the ``[b, vocab, t]`` one-hots, sinusoidal positional
     encoding, ``n_layers`` causal pre-norm TransformerBlocks (flash
-    attention), a softmax head over the vocabulary. The transform hints
-    take only their off values, and ``n_experts > 0`` raises (neither
-    is ported yet)."""
+    attention), a softmax head over the vocabulary. ``scan_layers``
+    (trajectory-neutral; the JAX package's scan over the blocks),
+    ``remat`` (``none | dots_saveable | full``) and ``loss_scale``
+    (dynamic loss scaling for ``compute_dtype="float16"``) are the
+    whole-net transform hints (``nn/core.py``); ``n_experts > 0`` raises
+    (the mixture-of-experts FFN is not ported yet)."""
     b = (
         NeuralNetConfiguration.Builder()
         .seed(seed).learning_rate(learning_rate).updater(updater)

@@ -37,7 +37,9 @@ bound beside the convs, and prints one JSON line: the data the route
 rules are fitted to. The conv shapes include every distinct kernel
 shape of VGG-16's and ResNet-50's training steps at batch 128;
 ``--only PREFIX`` keeps the shapes whose name starts so (``vgg16``,
-``resnet50``).
+``resnet50``). ``--dtype bfloat16`` (or ``float16``) sweeps the conv
+forward and ``conv_bwd_w`` on a half image instead (``conv_bwd_data``
+is f32 in every dtype), the library calls in the same dtype.
 
 ``--groups`` times the resident ``conv_bwd_data`` kernel at LeNet-5's
 conv2 with several channel-group sizes (20: one group of all the
@@ -161,23 +163,24 @@ def _lstm_operands(torch, kind, shape, gen):
                                         retain_graph=True))
 
 
-def _conv_operands(torch, shape, gen):
+def _conv_operands(torch, shape, gen, dtype=None):
     """(kernel, plain, library) calls of the conv forward at (x shape, w
-    shape, stride, padding), relu epilogue; library: ``F.conv2d`` +
-    relu (cuDNN, TF32 off)."""
+    shape, stride, padding), relu epilogue, in ``dtype`` (default f32);
+    library: ``F.conv2d`` + relu (cuDNN, TF32 off)."""
     from deeplearning4j_tpu_torch.ops import conv_block, conv_block_reference
 
     xs, ws, st, pad = shape
     dev = torch.device("cuda")
-    x = torch.randn(xs, device=dev, generator=gen)
-    w = torch.randn(ws, device=dev, generator=gen) / (
-        ws[1] * ws[2] * ws[3]) ** 0.5
+    dtype = dtype or torch.float32
+    x = torch.randn(xs, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(ws, device=dev, generator=gen) / (
+        ws[1] * ws[2] * ws[3]) ** 0.5).to(dtype)
     b = 0.1 * torch.randn(ws[0], device=dev, generator=gen)
     kw = dict(stride=st, padding=pad, activation="relu")
     return (lambda: conv_block(x, w, b, **kw),
             lambda: conv_block_reference(x, w, b, **kw),
             lambda: torch.relu_(torch.nn.functional.conv2d(
-                x, w, b, stride=st, padding=pad)))
+                x, w, b.to(dtype), stride=st, padding=pad)))
 
 
 def _cell_operands(torch, shape, gen):
@@ -200,8 +203,10 @@ def _cell_operands(torch, shape, gen):
             lambda: lstm_cell_reference(xproj, h, c, rw, peeps), None)
 
 
-def _operands(torch, kind, shape, gen):
-    """(kernel, plain, library) calls of ``kind`` at ``shape``."""
+def _operands(torch, kind, shape, gen, dtype=None):
+    """(kernel, plain, library) calls of ``kind`` at ``shape``; the conv
+    forward's operands and ``conv_bwd_w``'s image in ``dtype`` (default
+    f32)."""
     import importlib
 
     from deeplearning4j_tpu_torch.ops import (
@@ -219,7 +224,7 @@ def _operands(torch, kind, shape, gen):
     if kind.startswith("lstm"):
         return _lstm_operands(torch, kind, shape, gen)
     if kind == "conv_block":
-        return _conv_operands(torch, shape, gen)
+        return _conv_operands(torch, shape, gen, dtype)
     if kind.startswith("flash"):
         fa = importlib.import_module(
             "deeplearning4j_tpu_torch.ops.flash_attention")
@@ -240,10 +245,14 @@ def _operands(torch, kind, shape, gen):
             ws[1] * ws[2] * ws[3]) ** 0.5
         dacc = torch.randn((xs[0], ws[0], oh, ow), device=dev, generator=gen)
         if kind == "conv_bwd_w":
+            if dtype is not None:  # a half image, the library in its dtype
+                x, dacc_lib = x.to(dtype), dacc.to(dtype)
+            else:
+                dacc_lib = dacc
             return (lambda: conv_bwd_w(x, dacc, ws, st, pad),
                     lambda: conv_bwd_w_reference(x, dacc, ws, st, pad),
                     lambda: torch.nn.grad.conv2d_weight(
-                        x, ws, dacc, stride=st, padding=pad))
+                        x, ws, dacc_lib, stride=st, padding=pad))
         return (lambda: conv_bwd_data(dacc, w, xs[2:], st, pad),
                 lambda: conv_bwd_data_reference(dacc, w, xs[2:], st, pad),
                 lambda: torch.nn.grad.conv2d_input(xs, w, dacc, stride=st,
@@ -516,7 +525,7 @@ def rows(torch):
     return 0
 
 
-def _sweep_plans(cb, lc, kind, shape, ref):
+def _sweep_plans(cb, lc, kind, shape, ref, dtype):
     """(the rule's plan, {label: plan}) of every route ``kind`` has at
     ``shape``: the conv forward's direct route and each wide tile whose
     ring fits; ``conv_bwd_data``'s gemm route and the resident route at
@@ -541,7 +550,8 @@ def _sweep_plans(cb, lc, kind, shape, ref):
                                 k_pad)
             if plan.smem_bytes <= cb.BLOCK_SMEM_BYTES:
                 plans[f"wide {tile[0]}x{tile[1]}"] = plan
-        return cb.conv_block_route(n, c, h, w, o, kh, kw, st, pad), plans
+        return cb.conv_block_route(n, c, h, w, o, kh, kw, st, pad,
+                                   dtype), plans
     (n, c, h, w), (o, _, kh, kw), st, pad = _bwd_shape(shape)
     oh = (h + 2 * pad[0] - kh) // st[0] + 1
     ow = (w + 2 * pad[1] - kw) // st[1] + 1
@@ -570,7 +580,7 @@ def _sweep_plans(cb, lc, kind, shape, ref):
     return rule, plans
 
 
-def sweep(torch, only=None):
+def sweep(torch, only=None, dtype=None):
     """Every route (and wide tile or plan) of the conv forward, both
     conv backward kernels and the cell at each of their shapes (LeNet-5's,
     AlexNet's, the char-RNN's, VGG-16's and ResNet-50's; ``only``: the
@@ -592,13 +602,17 @@ def sweep(torch, only=None):
                 "conv_bwd_data": (cb, "conv_bwd_data_route"),
                 "conv_bwd_w": (cb, "conv_bwd_w_route"),
                 "lstm_cell": (lc, "lstm_cell_route")}
+    half = dtype is not None and dtype != torch.float32
     for name, kind, shape in tuple(SHAPES) + tuple(model_sweep_shapes()):
         if kind not in route_fn or (only and not name.startswith(only)):
             continue
-        kernel, plain, library = _operands(torch, kind, shape, gen)
+        if half and kind not in ("conv_block", "conv_bwd_w"):
+            continue  # dx and the LSTM cell take f32 in every dtype
+        kernel, plain, library = _operands(torch, kind, shape, gen, dtype)
         with torch.inference_mode():
             ref = plain()
-        rule, plans = _sweep_plans(cb, lc, kind, shape, ref)
+        rule, plans = _sweep_plans(cb, lc, kind, shape, ref,
+                                   dtype or torch.float32)
         rec = {"rule": rule._asdict()}
         if kind != "lstm_cell":
             (n, c, h, w), (o, _, kh, kw), st, pad = _bwd_shape(shape)
@@ -610,8 +624,12 @@ def sweep(torch, only=None):
             # backward the taps that touch the input (check_bwd_kernel)
             flops = (2.0 * out_elems * c * kh * kw if kind == "conv_block"
                      else 2.0 * useful_macs(geo))
-            nbytes = 4.0 * (n * c * h * w + o * c * kh * kw + out_elems
-                            + (o if kind == "conv_block" else 0))
+            x_bytes = 2.0 if half else 4.0
+            nbytes = (x_bytes * n * c * h * w
+                      + (x_bytes if kind == "conv_block" else 4.0)
+                      * (o * c * kh * kw)
+                      + (x_bytes if kind == "conv_block" else 4.0) * out_elems
+                      + 4.0 * (o if kind == "conv_block" else 0))
             with torch.inference_mode():
                 rec["library_ms"] = graph_ms(torch, library)
             rec["bound_ms"] = bound(flops, nbytes)[0]
@@ -627,7 +645,7 @@ def sweep(torch, only=None):
                         torch.cuda.synchronize()
                         pairs = (zip(got, ref) if kind == "lstm_cell"
                                  else [(got, ref)])
-                        err = max(float((a - r).abs().max())
+                        err = max(float((a.float() - r.float()).abs().max())
                                   for a, r in pairs)
                         ms = graph_ms(torch, kernel)
                 finally:
@@ -636,7 +654,8 @@ def sweep(torch, only=None):
                 r["ms"].append(ms)
         out[f"{kind}@{name}"] = rec
         print(f"[sweep] {kind}@{name} {json.dumps(rec)}", flush=True)
-    print(json.dumps({"card": card_line(), "sweep": out}))
+    print(json.dumps({"card": card_line(), "dtype": str(dtype or "f32"),
+                      "sweep": out}))
     return 0
 
 
@@ -709,6 +728,9 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--only", metavar="PREFIX",
                     help="--sweep: only the shapes whose name starts so")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
+                    help="--sweep: the conv forward's operands and the dW "
+                         "image in this dtype")
     ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--worker", metavar="ROOT")
@@ -731,7 +753,8 @@ def main() -> int:
     if args.rows:
         return rows(torch)
     if args.sweep:
-        return sweep(torch, args.only)
+        return sweep(torch, args.only,
+                     getattr(torch, args.dtype) if args.dtype else None)
     if not args.parent:
         ap.error("give --check, --groups, --rows, --sweep or --parent DIR")
     return compare(args.parent, args.rounds)

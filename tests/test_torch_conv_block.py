@@ -470,9 +470,11 @@ def test_conv_block_route_pins_the_main_paths(path, xs, ws, stride, padding,
         assert plan.tiles == (-(-n * oh * oh // plan.tile_px)
                               * -(-o // plan.tile_o))
         assert plan.tiles >= WIDE_MIN_TILES
-    # half precision keeps the direct tile at every shape
-    assert conv_block_route(n, c, h, w, o, kh, kw, stride, padding,
-                            torch.bfloat16).route == "direct"
+    # half precision takes the same route and tile: the wide ring holds
+    # f32 in every dtype
+    for dt in (torch.bfloat16, torch.float16):
+        assert conv_block_route(n, c, h, w, o, kh, kw, stride, padding,
+                                dt) == plan
 
 
 def test_conv_wide_reckoning_stays_within_shared_memory():

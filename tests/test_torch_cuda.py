@@ -177,14 +177,15 @@ def test_conv_block_every_wide_tile_matches_plain(cuda, monkeypatch, tile,
 
 
 def test_conv_block_wide_shapes_take_the_direct_route_in_bf16(cuda):
-    """The wide route takes f32 only: a wide shape in bf16 goes to the
-    direct tile, by the route rule, and still matches."""
+    """A wide shape in bf16 took the direct tile until the wide route
+    took half images; it now takes the wide route in bf16 too, by the
+    route rule, and still matches."""
     from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
 
     xs, ws, stride, padding = WIDE_CONV_CASES[2]
     geo = (*xs, ws[0], ws[2], ws[3], stride, padding)
     assert conv_block_route(*geo).route == "wide"
-    assert conv_block_route(*geo, dtype=torch.bfloat16).route == "direct"
+    assert conv_block_route(*geo, dtype=torch.bfloat16).route == "wide"
     x, w, b = _conv_operands(xs, ws, 32, torch.bfloat16)
     kw = dict(stride=stride, padding=padding, activation="relu")
     with torch.inference_mode():
@@ -475,14 +476,25 @@ def test_conv_block_skips_dx_when_x_needs_none(cuda):
 
 
 def test_half_precision_training_raises_on_the_card(cuda):
-    x = torch.randn(2, 3, 8, 8, device=cuda, dtype=torch.bfloat16)
-    w = torch.randn(4, 3, 3, 3, device=cuda, dtype=torch.bfloat16,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        conv_block(x, w, activation="relu")
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        matmul_block(x.reshape(2, -1), torch.randn(
-            192, 3, device=cuda, dtype=torch.bfloat16, requires_grad=True))
+    """Half-precision training runs the kernels now (it raised before
+    the mixed-precision slice); each gradient matches the plain
+    version's on the same operands."""
+    for dt in (torch.bfloat16, torch.float16):
+        x = torch.randn(2, 3, 8, 8, device=cuda, dtype=dt)
+        w = torch.randn(4, 3, 3, 3, device=cuda, dtype=dt,
+                        requires_grad=True)
+        dispatch.reset_launch_counts()
+        conv_block(x, w, activation="relu").float().sum().backward()
+        assert dispatch.launch_counts()["conv_bwd_w"] == 1
+        w_ref = w.detach().clone().requires_grad_(True)
+        conv_block_reference(x, w_ref, activation="relu").float().sum(
+        ).backward()
+        torch.testing.assert_close(w.grad.float(), w_ref.grad.float(),
+                                   rtol=2e-2, atol=8e-3)
+        xm = x.reshape(2, -1)
+        wm = torch.randn(192, 3, device=cuda, dtype=dt, requires_grad=True)
+        matmul_block(xm, wm).float().sum().backward()
+        assert wm.grad is not None and wm.grad.dtype == dt
 
 
 def test_matmul_block_grads_match_plain(cuda):
@@ -1762,3 +1774,161 @@ def test_sharded_lookup_on_the_card_equals_unsharded(cuda):
     plain.apply_sparse_grads(hot, grads, 0.1)
     np.testing.assert_allclose(t.to_host(), plain.to_host(), rtol=1e-5,
                                atol=1e-6)
+
+
+# -- half precision: the conv kernels' dtype variants ----------------------
+
+HALF = [torch.bfloat16, torch.float16]
+# bf16 / f16 outputs round once on the store: held at bf16 eps of the
+# output's scale; f32 outputs of half operands (the recompute, dW) sum
+# the same exact products in another order: 5e-5 of the scale
+HALF_OUT_REL = 1e-2
+
+# (x shape, w shape, stride, padding) at LeNet-5's, VGG-16's and
+# ResNet-50's widths, small batches: each is wide in every dtype
+HALF_WIDE_CASES = [
+    ((256, 1, 28, 28), (20, 1, 5, 5), 1, 0),
+    ((32, 64, 32, 32), (64, 64, 3, 3), 1, 1),
+    ((8, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+    ((8, 256, 56, 56), (512, 256, 1, 1), 2, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("xs,ws,stride,padding", HALF_WIDE_CASES)
+def test_conv_block_wide_route_half_in_half_out(cuda, dtype, xs, ws, stride,
+                                                padding):
+    """The wide route on a half image writes the image's dtype: against
+    the plain version (f32 sums of the half values, one cast), repeated
+    bitwise, one launch a call."""
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
+
+    plan = conv_block_route(*xs, ws[0], ws[2], ws[3], stride, padding, dtype)
+    assert plan.route == "wide"
+    assert plan == conv_block_route(*xs, ws[0], ws[2], ws[3], stride,
+                                    padding)
+    x, w, b = _conv_operands(xs, ws, 40, dtype)
+    kw = dict(stride=stride, padding=padding, activation="relu")
+    before = dispatch.launch_counts()["conv_block"]
+    with torch.inference_mode():
+        out = [conv_block(x, w, b, **kw) for _ in range(2)]
+        ref = conv_block_reference(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["conv_block"] == before + 2
+    assert out[0].dtype == dtype and torch.equal(out[0], out[1])
+    _close_to_scale(out[0].float(), ref.float(), HALF_OUT_REL)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("xs,ws,stride,padding,route",
+                         [c + ("wide",) for c in HALF_WIDE_CASES]
+                         + [c + ("direct",) for c in HALF_WIDE_CASES]
+                         + [CONV_CASES[1] + ("direct",)])
+def test_conv_block_half_in_f32_out(cuda, monkeypatch, route, dtype, xs, ws,
+                                    stride, padding):
+    """The backward's recompute: half operands, f32 accumulator out (JAX
+    ``_direct_conv_call(..., jnp.float32)``), on each route forced."""
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    plan = cb.conv_block_route(*xs, ws[0], ws[2], ws[3], stride, padding,
+                               dtype)
+    assert plan.route == ("direct" if xs == CONV_CASES[1][0] else "wide")
+    if route == "direct":
+        plan = cb.ConvRoute("direct")
+    monkeypatch.setattr(cb, "conv_block_route", lambda *a, **k: plan)
+    x, w, _ = _conv_operands(xs, ws, 41, dtype)
+    o = ws[0]
+    ones = torch.ones(o, device=cuda)
+    zeros = torch.zeros(o, device=cuda)
+    st, pad = cb._pair(stride), cb._pair(padding)
+    with torch.inference_mode():
+        got = [cb._kernel_forward(x, w, ones, zeros, st, pad, "identity",
+                                  torch.float32) for _ in range(2)]
+        ref = cb._plain_forward(x, w, ones, zeros, st, pad, "identity",
+                                torch.float32)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], got[1])
+    _close_to_scale(got[0], ref, 5e-5)
+
+
+# (x shape, w shape, stride, padding, route) of conv_bwd_w on a half
+# image: LeNet-5's convs at the training batch (image-resident), a VGG-16
+# conv and ResNet-50's stem and a 3 x 3 stride-2 conv (implicit GEMM)
+HALF_DW_CASES = [
+    ((256, 1, 28, 28), (20, 1, 5, 5), 1, 0, "image_resident"),
+    ((256, 20, 12, 12), (50, 20, 5, 5), 1, 0, "image_resident"),
+    ((32, 64, 32, 32), (64, 64, 3, 3), 1, 1, "gemm"),
+    ((8, 3, 224, 224), (64, 3, 7, 7), 2, 3, "gemm"),
+    ((8, 128, 56, 56), (128, 128, 3, 3), 2, 1, "gemm"),
+]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("xs,ws,stride,padding,route", HALF_DW_CASES)
+def test_conv_bwd_w_on_a_half_image(cuda, dtype, xs, ws, stride, padding,
+                                    route):
+    """dW from a half image and the f32 dacc: f32 out, against the plain
+    version (the same exact products in f32), repeated bitwise."""
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_bwd_w_route
+
+    assert conv_bwd_w_route(*xs, ws[0], ws[2], ws[3], stride,
+                            padding).route == route
+    x, _, dacc = _bwd_operands(xs, ws, stride, padding, 42)
+    xh = x.to(dtype)
+    got = [conv_bwd_w(xh, dacc, ws, stride, padding) for _ in range(2)]
+    ref = conv_bwd_w_reference(xh, dacc, ws, stride, padding)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], got[1])
+    _close_to_scale(got[0], ref, 5e-5)
+    # the half image's values exactly, in f32: the same sums
+    _close_to_scale(got[0], conv_bwd_w(xh.float(), dacc, ws, stride,
+                                       padding), 5e-5)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_conv_block_half_backward_matches_plain(cuda, dtype):
+    """One half-precision conv_block backward (x, w, bias all wanting a
+    gradient) on the kernels against the plain version on the same
+    operands, with the launches: the forward, the f32 recompute, dx and
+    dW."""
+    xs, ws = (16, 32, 14, 14), (48, 32, 3, 3)
+    x, w, b = _conv_operands(xs, ws, 43, dtype)
+    g = _t(np.random.RandomState(44).randn(16, 48, 14, 14), cuda, dtype)
+    grads = []
+    for fn in (conv_block, conv_block_reference):
+        xi, wi, bi = (t.detach().clone().requires_grad_(True)
+                      for t in (x, w, b))
+        dispatch.reset_launch_counts()
+        out = fn(xi, wi, bi, stride=1, padding=1, activation="relu")
+        out.backward(g)
+        torch.cuda.synchronize()
+        if fn is conv_block:
+            counts = dispatch.launch_counts()
+            assert (counts["conv_block"], counts["conv_bwd_data"],
+                    counts["conv_bwd_w"]) == (2, 1, 1)
+        assert xi.grad.dtype == dtype and wi.grad.dtype == dtype
+        grads.append((out.float(), xi.grad.float(), wi.grad.float(),
+                      bi.grad.float()))
+    for got, ref in zip(*grads):
+        _close_to_scale(got, ref, HALF_OUT_REL)
+
+
+def test_conv_routes_pinned_for_half_inputs(cuda):
+    """The forward's route and tile at every distinct conv shape of
+    LeNet-5's, VGG-16's and ResNet-50's steps are the same in bf16 and
+    f16 as in f32 (the wide ring holds f32 in every dtype), and the
+    backward routes take no dtype."""
+    from chip_smoke import kernel_shapes, resnet_shapes, vgg_shapes
+    from deeplearning4j_tpu_torch.ops.conv_block import conv_block_route
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    shapes = [geo for _, kind, geo in kernel_shapes(lenet(), 256)
+              if kind == "conv_block"]
+    shapes += [geo for _, kind, geo, _ in vgg_shapes() + resnet_shapes()
+               if kind == "conv_block"]
+    assert len(shapes) > 20
+    for geo in shapes:
+        args = (*geo["x"], geo["w"][0], *geo["w"][2:], tuple(geo["stride"]),
+                tuple(geo["padding"]))
+        f32 = conv_block_route(*args)
+        for dt in HALF:
+            assert conv_block_route(*args, dtype=dt) == f32, geo

@@ -418,8 +418,10 @@ def test_what_the_graph_does_not_carry_raises():
     x = np.zeros((2, 3, 8, 8), np.float32)
     with pytest.raises(NotImplementedError, match="rnn_time_step"):
         net.rnn_time_step(x)
-    with pytest.raises(NotImplementedError, match="transforms"):
-        net.set_transforms(remat="full")
+    # the transforms are carried now; megastep > 1 still raises
+    assert net.set_transforms(remat="full", scan_layers=True) is net
+    with pytest.raises(NotImplementedError, match="CUDA-graph step"):
+        net.set_transforms(megastep=2)
     with pytest.raises(NotImplementedError, match="evaluate"):
         net.evaluate([])
     with pytest.raises(NotImplementedError, match="megastep"):

@@ -270,16 +270,17 @@ def test_mesh_of_one_process_and_its_refusals():
         DistributedTrainer(net, batch_stats="bogus")
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         DistributedTrainer(net, tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="divergence guard"):
+    with pytest.raises(TypeError, match="DivergenceGuard"):
         DistributedTrainer(net, divergence_guard=object())
     with pytest.raises(ValueError, match="zero=True"):
         DistributedTrainer(net, zero=True, batch_stats="local")
     tr = DistributedTrainer(net)
     for call in (lambda: tr.fit_megachunk(None), lambda: tr.resume(None),
-                 lambda: tr.fit([], megastep=4),
-                 lambda: tr.set_divergence_guard(object())):
+                 lambda: tr.fit([], megastep=4)):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(TypeError, match="DivergenceGuard"):
+        tr.set_divergence_guard(object())
 
 
 def test_one_process_trainer_is_the_plain_fit_bitwise(rng):

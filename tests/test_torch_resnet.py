@@ -101,10 +101,11 @@ def test_resnet50_published_widths_count_the_parameters():
 def test_resnet50_refuses_what_it_cannot_build():
     with pytest.raises(ValueError, match="divisible by 32"):
         resnet50(height=100, width=100)
-    with pytest.raises(NotImplementedError, match="runtime subsystems"):
-        resnet50(remat="full")
-    with pytest.raises(NotImplementedError, match="runtime subsystems"):
-        resnet50(loss_scale=True)
+    # the transform hints are carried now; an unknown policy raises
+    assert resnet50(remat="full").remat == "full"
+    assert resnet50(loss_scale=True).loss_scale is True
+    with pytest.raises(ValueError, match="remat policy"):
+        resnet50(remat="everything")
 
 
 def _batch(rng, kw, n):

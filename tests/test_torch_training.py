@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import SubsamplingLayer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import dispatch
+from deeplearning4j_tpu_torch.resilience.guard import DivergenceGuard
 from deeplearning4j_tpu_torch.util.model_serializer import (
     params_from_numpy,
     restore_model,
@@ -331,12 +332,15 @@ def test_fit_refuses_what_it_does_not_carry():
     acc = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
     acc.fit(np.zeros((2, 784), np.float32), y, grad_accum=2)
     assert acc.iteration_count == 1 and acc.grad_accum == 2
-    with pytest.raises(NotImplementedError, match="megastep"):
+    with pytest.raises(NotImplementedError, match="CUDA-graph step"):
         net.fit(x, y, megastep=4)
-    with pytest.raises(NotImplementedError, match="divergence guard"):
-        net.set_divergence_guard(object())
-    with pytest.raises(NotImplementedError, match="loss scaling"):
-        net.set_transforms(loss_scale=True)
+    # the divergence guard and the transforms are carried now; the
+    # guard's rollback policy waits for the checkpoint manager
+    net.set_divergence_guard(DivergenceGuard("skip"))
+    assert net.divergence_guard is not None
+    assert net.set_transforms(loss_scale=True, remat="full") is net
+    with pytest.raises(NotImplementedError, match="resilience/checkpoint"):
+        DivergenceGuard("rollback")
     tbptt = MultiLayerConfiguration.from_dict(
         dict(lenet(dense_width=8).to_dict(), backprop_type="TruncatedBPTT"))
     # truncated BPTT is carried now: input without a time axis trains

@@ -280,11 +280,16 @@ def test_builder_transform_hints():
     for call in (lambda: b.scan_layers(), lambda: b.scan_layers(True),
                  lambda: b.remat("full"), lambda: b.remat(),
                  lambda: b.loss_scale(1024.0), lambda: b.loss_scale()):
-        with pytest.raises(NotImplementedError, match="runtime subsystems"):
-            call()
-    with pytest.raises(NotImplementedError):
-        transformer_lm(scan_layers=True)
-    assert "scan_layers" not in transformer_lm().to_dict()
+        assert call() is b
+    with pytest.raises(ValueError, match="remat policy"):
+        b.remat("everything")
+    conf = transformer_lm(scan_layers=True, remat="dots_saveable",
+                          loss_scale=1024.0)
+    assert (conf.scan_layers, conf.remat, conf.loss_scale) == (
+        True, "dots_saveable", 1024.0)
+    # the hints stay out of configuration.json, as in the JAX package
+    for key in ("scan_layers", "remat", "loss_scale"):
+        assert key not in conf.to_dict()
 
 
 def test_moe_and_ring_attention_raise():
