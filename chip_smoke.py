@@ -47,7 +47,16 @@ non-zero (nothing is caught):
    about 50 steps, and examples/s and ms/step are printed;
 5. AlexNet at 224x224x3 / 1000 classes through
    ``MultiLayerNetwork.output``, checked against the plain path and
-   timed;
+   timed; ``[alexnet-train]`` the zoo's AlexNet trained through ``fit``
+   (NESTEROVS lr 0.01, batch 128, dropout 0.5 on both dense layers, the
+   masks of ``nn/random.py``): one batch-4 step held against the CPU
+   twin (the same masks) with every kernel call held on its operands and
+   repeated bitwise, one step's launches exact (10 ``conv_block``, 4
+   ``conv_bwd_data``, 5 ``conv_bwd_w``, 2 ``matmul_block``), 6 steps
+   over which the score falls (host and device ms a step, busy share,
+   images/s, peak memory, the masks' device ms); every distinct kernel
+   shape of its step is among the ``[kernel]`` records
+   (``alexnet-train.``);
 6. the GravesLSTM char-RNN (main paths), with and without peepholes:
    truncated-BPTT ``fit`` on SURVEY.md's characters, ``output`` and
    ``rnn_time_step`` sampling, held against the CPU twin;
@@ -119,7 +128,12 @@ non-zero (nothing is caught):
    ``[guard]`` [train]'s LeNet-5 under ``DivergenceGuard("skip")`` with
    a ``StatGuardConfig``, a NaN minibatch and a mislabelled one both
    skipped bitwise, the guarded step's device time beside the
-   unguarded one's.
+   unguarded one's; ``[megastep]`` ``fit(megastep=K)``, each chunk one
+   CUDA-graph replay with one readback: [train]'s LeNet-5 over 48
+   minibatches per step and at K = 6 (trees bitwise equal, 8 readbacks,
+   host ms a step and busy share both ways), the narrow AlexNet with
+   dropout at K = 4 bitwise equal to its per-step run, and [guard]'s
+   poisoned run at K = 6 (the same skipped steps and trees).
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -144,6 +158,9 @@ LENET_BUCKET = 32
 LENET_TRAIN_BATCH = 256
 LENET_TRAIN_STEPS = 50
 ALEXNET_BATCH = 64
+ALEXNET_TRAIN_BATCH = 128
+ALEXNET_TWIN_BATCH = 4
+ALEXNET_TRAIN_STEPS = 6
 
 # the GravesLSTM char-RNN (BASELINE.json config #3, bench.py:533)
 CHAR_VOCAB = 77
@@ -890,6 +907,193 @@ def run_alexnet(torch, card):
            "launches_per_forward": per_forward,
            "max_abs_err_vs_plain": err, "params": net.num_params()}
     print(f"[alexnet] {json.dumps(res)} card={card}")
+
+
+def alexnet_train_shapes(batch=ALEXNET_TRAIN_BATCH):
+    """The distinct kernel shapes of one training step of the zoo's
+    AlexNet at ``batch`` (224 x 224): (first layer, kind, geometry,
+    layers)."""
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    return distinct_shapes(step_shapes(kernel_shapes(alexnet(), batch)))
+
+
+def dropout_ms(torch, conf, batch, seed=42):
+    """Device ms of one training step's dropout on the card: each layer
+    with a rate draws its input mask at ``batch`` rows and applies it
+    (``maybe_dropout``: the counter hash, the compare and the inverted
+    scaling), from its key as a step derives it on the host."""
+    from deeplearning4j_tpu_torch.nn import random
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step_key = random.fold_in(random.host_key(seed), 0)
+    drops = [(layer, random.fold_in(step_key, i),
+              torch.rand(batch, layer.n_in, device="cuda", generator=gen))
+             for i, layer in enumerate(conf.layers) if layer.dropout > 0.0]
+
+    def masks():
+        for layer, key, x in drops:
+            layer.maybe_dropout(x, train=True, rng=key)
+    return graph_ms(torch, masks, reps=3), [tuple(x.shape)
+                                             for _, _, x in drops]
+
+
+def run_alexnet_train(torch, card, records):
+    """[alexnet-train] the zoo's AlexNet (224 x 224 x 3, 1000 classes,
+    62.4 M parameters, NESTEROVS lr 0.01, dropout 0.5 on both dense
+    layers) trained through ``MultiLayerNetwork.fit`` at batch 128 on
+    synthetic standardized pixels placed on the card beforehand (raw
+    0-255 pixels diverge without a BN: the score went 56 -> 8e6 -> NaN
+    in three steps on the CPU): one batch-4 step held against the CPU twin
+    from the same state (the masks are integer arithmetic: the twin
+    drops the same units; every conv and dense kernel call held to its
+    plain version on its operands) and repeated bitwise, one step's
+    launches counted exactly, then the main path: a fresh network fits
+    2 minibatches of 128 for 3 epochs (6 steps), its training score on
+    the first minibatch finite and falling. Prints host and device ms a
+    step, the busy share, images/s, peak memory, each kernel's ms a
+    step beside its library call (``records``: the ``alexnet-train.``
+    kernel records, TF32 off) and the dropout masks' device ms. Returns
+    the launch counts of the main path."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import random
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    conf = alexnet()
+    lr = conf.layers[0].learning_rate
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    print(f"[alexnet-train] zoo.alexnet() ({net.num_params()} params), "
+          f"224x224x3, 1000 classes, NESTEROVS lr {lr}, dropout "
+          f"{[layer.dropout for layer in conf.layers if layer.dropout]}, "
+          f"batch {ALEXNET_TRAIN_BATCH}, f32, synthetic standardized "
+          f"pixels")
+
+    def expect(**counts):
+        want = {k: 0 for k in dispatch.KERNELS}
+        want.update(counts)
+        return want
+
+    # ImageNet-style standardized pixels ((p - 127.5) / 73.9) of uint8
+    # draws from a seed, on the card before the timed run
+    host = [DataSet((b.features.astype(np.float32) - 127.5) / 73.9,
+                    b.labels.astype(np.float32))
+            for b in resnet_batches(2, ALEXNET_TRAIN_BATCH, seed=13)]
+    batches = [DataSet(torch.from_numpy(b.features).cuda(),
+                       torch.from_numpy(b.labels).cuda()) for b in host]
+    # the masks on the card and on the CPU from one key: the same bits
+    key = random.fold_in(random.fold_in(random.host_key(conf.seed), 0), 9)
+    on_card = random.bernoulli(key, 0.5, (ALEXNET_TRAIN_BATCH, 9216),
+                               device="cuda")
+    if not torch.equal(on_card.cpu(), random.bernoulli(
+            key, 0.5, (ALEXNET_TRAIN_BATCH, 9216))):
+        raise RuntimeError("[alexnet-train] card and CPU masks differ")
+    # one step at batch 4 on the card and on the CPU twin from the same
+    # state, on standardized pixels: the score within rtol 1e-4, the
+    # weights as check_twin_step, every kernel call held on its operands;
+    # then the same step again on the card: the same bits
+    small = DataSet(host[0].features[:ALEXNET_TWIN_BATCH],
+                    host[0].labels[:ALEXNET_TWIN_BATCH])
+    a = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    twin = cpu_twin(torch, a)
+    before = {ln: {pn: t.cpu() for pn, t in lp.items()}
+              for ln, lp in a.params.items()}
+    held = held_on_operands(dense=True)
+    with held:
+        a.fit(small)
+    twin.fit(small)
+    np.testing.assert_allclose(a.score_value, twin.score_value, rtol=1e-4)
+    share = check_twin_step("alexnet-train", a, twin, before)
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "conv_block": 10, "conv_bwd_data": 4, "conv_bwd_w": 5,
+            "matmul_block": 2}:
+        raise RuntimeError(f"[alexnet-train] held calls: {held.errors}")
+    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    again.fit(small)
+    torch.cuda.synchronize()
+    for ln, lp in a.params.items():
+        for pn, t in lp.items():
+            if not torch.equal(t, again.params[ln][pn]):
+                raise RuntimeError(f"[alexnet-train] two card runs differ "
+                                   f"at {ln}/{pn}")
+    twin_scores = {"card": a.score_value, "cpu": twin.score_value}
+    del a, again, twin
+
+    # one step's launches, exactly: 5 forwards and 5 f32 recomputes, dW
+    # of all 5, dx of conv2-conv5 (the stem's input is the data), the
+    # two dense relu layers (the softmax head is torch.addmm)
+    dispatch.reset_launch_counts()
+    net.fit(batches[1])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    if per_step != expect(conv_block=10, conv_bwd_data=4, conv_bwd_w=5,
+                          matmul_block=2):
+        raise RuntimeError(f"[alexnet-train] one step launched {per_step}")
+    del net
+
+    # the main path: a fresh network fits the minibatches, timed
+    model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(batches, epochs=ALEXNET_TRAIN_STEPS // len(batches))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    steps = model.iteration_count
+    if steps != ALEXNET_TRAIN_STEPS or launches != {
+            k: v * steps for k, v in per_step.items()}:
+        raise RuntimeError(f"[alexnet-train] {steps} steps launched "
+                           f"{launches}")
+    peak = torch.cuda.max_memory_allocated()
+    # the training score of each minibatch, first and last epoch (the
+    # masks change with the iteration, so the same minibatch is scored
+    # on other units; the fall is large beside that)
+    probe = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    scores = [float(probe.fit_minibatch(ds))
+              for _ in range(ALEXNET_TRAIN_STEPS // len(batches))
+              for ds in batches]
+    if not all(np.isfinite(scores)) or not scores[-2] < scores[0]:
+        raise RuntimeError(f"[alexnet-train] the score did not fall: "
+                           f"{scores}")
+    for ln, lp in probe.params.items():
+        for pn, t in lp.items():
+            if not torch.equal(t, model.params[ln][pn]):
+                raise RuntimeError(f"[alexnet-train] two card runs differ "
+                                   f"at {ln}/{pn}")
+    del probe
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches))
+    device_ms /= len(batches)
+    mask_ms, mask_shapes = dropout_ms(torch, conf, ALEXNET_TRAIN_BATCH)
+    ms_per_step = wall / steps * 1e3
+    mine = [r for r in records if r["shape_of"].startswith("alexnet-train.")]
+    kinds = {}
+    for r in mine:
+        k = kinds.setdefault(r["kernel"], dict.fromkeys(
+            ("kernel_ms", "library_ms", "plain_ms", "bound_ms"), 0.0))
+        for key in k:
+            k[key] += r[key] * r["launches_per_step"]
+    res = {"steps": steps, "batch": ALEXNET_TRAIN_BATCH,
+           "examples_per_s": steps * ALEXNET_TRAIN_BATCH / wall,
+           "ms_per_step": ms_per_step, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_per_step,
+           "top_device_ms_per_step": {k[:60]: v / len(batches)
+                                      for k, v in top.items()},
+           "dropout_device_ms_per_step": mask_ms,
+           "dropout_shapes": mask_shapes,
+           "dropout_share_of_step": mask_ms / device_ms,
+           "kernel_ms_per_step": kinds,
+           "scores": scores, "max_memory_allocated_gb": peak / 1e9,
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "twin_scores": twin_scores, "twin_max_share_of_move": share,
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[alexnet-train] {json.dumps(res)} card={card}")
+    return launches
 
 
 def run_vgg16(torch, card):
@@ -1990,6 +2194,10 @@ def run_f16_loss_scale(torch, card, ids):
 
 
 GUARD_STEPS = 20
+MEGASTEP_K = 6  # bench.py:1541-1543
+MEGASTEP_LENET_STEPS = 48
+MEGASTEP_ALEX_K = 4
+MEGASTEP_ALEX_STEPS = 8
 GUARD_NAN_STEP = 8
 GUARD_SPIKE_STEP = 14
 # the anomalous minibatch's one-hot labels scaled by this: its loss and
@@ -1997,6 +2205,41 @@ GUARD_SPIKE_STEP = 14
 # mean of the still-falling loss on the card: 14 steps in, LeNet-5's
 # loss is ~0.02)
 GUARD_SPIKE = 1000.0
+
+
+def guard_batches(steps=GUARD_STEPS):
+    """[train]'s synthetic MNIST minibatches (batch 256) with minibatch
+    GUARD_NAN_STEP poisoned by a NaN and GUARD_SPIKE_STEP's one-hot
+    labels scaled by GUARD_SPIKE (a loss spike)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        MnistDataSetIterator,
+    )
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(LENET_TRAIN_BATCH, allow_synthetic=True,
+                                    num_examples=LENET_TRAIN_BATCH * steps)
+    batches = list(data)
+    x = batches[GUARD_NAN_STEP].features.copy()
+    x[3, 100] = np.nan
+    batches[GUARD_NAN_STEP] = DataSet(x, batches[GUARD_NAN_STEP].labels)
+    batches[GUARD_SPIKE_STEP] = DataSet(
+        batches[GUARD_SPIKE_STEP].features,
+        batches[GUARD_SPIKE_STEP].labels * GUARD_SPIKE)
+    return batches
+
+
+def guard_stats():
+    """[guard]'s ``StatGuardConfig``: the loss falls fast at lr 0.01, so
+    a z-score trip would flag good steps; the spike test (10x the
+    running mean) does the work."""
+    from deeplearning4j_tpu_torch.resilience.guard import StatGuardConfig
+
+    return StatGuardConfig(alpha=0.1, z_threshold=50.0, spike_factor=10.0,
+                           warmup=5)
 
 
 def run_guard(torch, card, device="cuda", steps=GUARD_STEPS, dense=None):
@@ -2010,37 +2253,15 @@ def run_guard(torch, card, device="cuda", steps=GUARD_STEPS, dense=None):
     replays) beside the unguarded step's. Returns the launch counts of
     the run. ``device`` / ``steps`` / ``dense`` cut it for a rehearsal
     on the CPU."""
-    import warnings
-
-    from deeplearning4j_tpu_torch.datasets import (
-        DataSet,
-        MnistDataSetIterator,
-    )
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
-    from deeplearning4j_tpu_torch.resilience.guard import (
-        DivergenceGuard,
-        StatGuardConfig,
-    )
+    from deeplearning4j_tpu_torch.resilience.guard import DivergenceGuard
     from deeplearning4j_tpu_torch.zoo import lenet
 
-    with warnings.catch_warnings():  # the synthetic-data warning
-        warnings.simplefilter("ignore", RuntimeWarning)
-        data = MnistDataSetIterator(LENET_TRAIN_BATCH, allow_synthetic=True,
-                                    num_examples=LENET_TRAIN_BATCH * steps)
-    batches = list(data)
-    x = batches[GUARD_NAN_STEP].features.copy()
-    x[3, 100] = np.nan
-    batches[GUARD_NAN_STEP] = DataSet(x, batches[GUARD_NAN_STEP].labels)
-    batches[GUARD_SPIKE_STEP] = DataSet(
-        batches[GUARD_SPIKE_STEP].features,
-        batches[GUARD_SPIKE_STEP].labels * GUARD_SPIKE)
+    batches = guard_batches(steps)
     conf = lenet() if dense is None else lenet(dense_width=dense)
     net = MultiLayerNetwork(conf, device=device).init()
-    # the loss falls fast at lr 0.01, so a z-score trip would flag good
-    # steps: the spike test (10x the running mean) does the work
-    cfg = StatGuardConfig(alpha=0.1, z_threshold=50.0, spike_factor=10.0,
-                          warmup=5)
+    cfg = guard_stats()
     guard = DivergenceGuard("skip", stats=cfg)
     net.set_divergence_guard(guard)
     print(f"[guard] LeNet-5 ({net.num_params()} params), Adam, batch "
@@ -2087,6 +2308,190 @@ def run_guard(torch, card, device="cuda", steps=GUARD_STEPS, dense=None):
             net.params, net.updater_state, net.state, x, y, None, lrs, t),
             reps=3)
     print(f"[guard] {json.dumps(res)} card={card}")
+    return launches
+
+
+def narrow_alexnet():
+    """AlexNet's geometry (11x11/s4/p2, 5x5/p2, three 3x3/p1, 3x3/s2
+    pools) on a 67x67x3 input at 8/16/16/16/8 channels, two dense 32
+    relu layers with dropout 0.5 and a softmax 10 (the CPU tests'
+    ``narrow_alexnet``)."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    def pool():
+        return SubsamplingLayer(pooling_type="MAX", kernel_size=(3, 3),
+                                stride=(2, 2))
+
+    b = (NeuralNetConfiguration.Builder().seed(11).updater("NESTEROVS")
+         .list()
+         .layer(ConvolutionLayer(n_out=8, kernel_size=(11, 11),
+                                 stride=(4, 4), padding=(2, 2),
+                                 activation="relu"))
+         .layer(pool())
+         .layer(ConvolutionLayer(n_out=16, kernel_size=(5, 5),
+                                 padding=(2, 2), activation="relu"))
+         .layer(pool()))
+    for n_out in (16, 16, 8):
+        b = b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                     padding=(1, 1), activation="relu"))
+    return (b.layer(pool())
+            .layer(DenseLayer(n_out=32, activation="relu", dropout=0.5))
+            .layer(DenseLayer(n_out=32, activation="relu", dropout=0.5))
+            .layer(OutputLayer(n_out=10, loss="MCXENT"))
+            .set_input_type(InputType.convolutional(67, 67, 3))
+            .build())
+
+
+def same_trees(torch, a, b) -> bool:
+    """Parameters, updater state and layer state of two models, bitwise."""
+    return (all(torch.equal(t, b.params[ln][pn])
+                for ln, lp in a.params.items() for pn, t in lp.items())
+            and all(torch.equal(x, y)
+                    for ln, lp in a.updater_state.items()
+                    for pn, tup in lp.items()
+                    for x, y in zip(tup, b.updater_state[ln][pn]))
+            and all(torch.equal(t, b.state[ln][k])
+                    for ln, st in a.state.items() for k, t in st.items()))
+
+
+def run_megastep(torch, card):
+    """[megastep] ``fit(megastep=K)`` on the card, each full chunk one
+    CUDA-graph replay with one readback, against the per-step loop:
+    [train]'s LeNet-5 (Adam lr 0.01, batch 256) over 48 minibatches a
+    epoch, per step and at K = 6 (bench.py's K), two epochs each (the
+    first captures the chunk; the second is timed): the trees bitwise
+    equal, 8 readbacks an epoch, host ms a step and the busy share both
+    ways (the device work a step from the chunk's replay over K); the
+    narrow AlexNet with dropout 0.5 at K = 4 over 8 minibatches, bitwise
+    equal to its per-step run (the chunk derives its keys on the device);
+    [guard]'s poisoned LeNet run under K = 6 with the SKIP guard and its
+    statistical guard: the same skipped steps and the same trees as per
+    step. Returns the launch counts of the phase (counted at capture,
+    where Python runs, and on the per-step runs)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn import core
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.resilience.guard import DivergenceGuard
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * MEGASTEP_LENET_STEPS)
+    batches = list(data)
+    conf = lenet()
+    init = MultiLayerNetwork(conf, device="cuda").init().params
+    readbacks = []
+    real_readback = core.megastep_readback
+
+    def counted(*args):
+        readbacks.append(args[0].k)
+        return real_readback(*args)
+
+    print(f"[megastep] LeNet-5, Adam, batch {LENET_TRAIN_BATCH}, "
+          f"{MEGASTEP_LENET_STEPS} minibatches an epoch, per step and at "
+          f"megastep={MEGASTEP_K}")
+    dispatch.reset_launch_counts()
+    runs = {}
+    core.megastep_readback = counted
+    try:
+        for k in (1, MEGASTEP_K):
+            net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+            net.fit(batches, megastep=k)  # the first epoch captures
+            torch.cuda.synchronize()
+            n0 = len(readbacks)
+            t0 = time.perf_counter()
+            net.fit(batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[k] = (net, wall / MEGASTEP_LENET_STEPS * 1e3,
+                       len(readbacks) - n0)
+    finally:
+        core.megastep_readback = real_readback
+    per_step, mega = runs[1][0], runs[MEGASTEP_K][0]
+    if not same_trees(torch, per_step, mega):
+        raise RuntimeError("[megastep] LeNet: the chunks differ from the "
+                           "per-step loop")
+    want = MEGASTEP_LENET_STEPS // MEGASTEP_K
+    if runs[MEGASTEP_K][2] != want or runs[1][2] != 0:
+        raise RuntimeError(f"[megastep] readbacks an epoch: "
+                           f"{runs[MEGASTEP_K][2]}, expected {want}")
+    if len(mega._megastep_graphs) != 1:
+        raise RuntimeError(f"[megastep] {len(mega._megastep_graphs)} "
+                           "captures, expected 1")
+    # the device work a step: the captured chunk replayed, over K (this
+    # trains the chunk's model on; nothing reads it afterwards)
+    g = next(iter(mega._megastep_graphs.values()))
+    chunk_ms, _ = events_ms(torch, g.graph.replay, reps=10)
+    dev_ms = chunk_ms / MEGASTEP_K
+    lenet_res = {
+        "steps": MEGASTEP_LENET_STEPS, "k": MEGASTEP_K,
+        "device_ms_per_step": dev_ms, "chunk_device_ms": chunk_ms,
+        "per_step_host_ms_per_step": runs[1][1],
+        "megastep_host_ms_per_step": runs[MEGASTEP_K][1],
+        "per_step_busy_share": dev_ms / runs[1][1],
+        "megastep_busy_share": dev_ms / runs[MEGASTEP_K][1],
+        "readbacks_per_epoch": runs[MEGASTEP_K][2], "bitwise": True}
+    del runs, per_step, mega, g
+
+    # the narrow AlexNet with dropout: the chunk's keys from a device
+    # tensor draw the masks the per-step loop draws on the host
+    rng = np.random.RandomState(5)
+    alex = [DataSet((rng.rand(16, 3, 67, 67) * 0.9 + 0.05).astype(
+        np.float32), np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
+        for _ in range(MEGASTEP_ALEX_STEPS)]
+    a1 = MultiLayerNetwork(narrow_alexnet(), device="cuda").init()
+    a4 = MultiLayerNetwork(narrow_alexnet(), device="cuda").init(
+        params=a1.params)
+    a1.fit(alex)
+    a4.fit(alex, megastep=MEGASTEP_ALEX_K)
+    torch.cuda.synchronize()
+    if a4.iteration_count != MEGASTEP_ALEX_STEPS or not same_trees(
+            torch, a1, a4):
+        raise RuntimeError("[megastep] narrow AlexNet with dropout: the "
+                           "chunks differ from the per-step loop")
+
+    # [guard]'s poisoned run: the bad steps inside chunks
+    gb = guard_batches()
+    guarded = []
+    for k in (1, MEGASTEP_K):
+        net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        net.set_divergence_guard(DivergenceGuard("skip", stats=guard_stats()))
+        net.fit(gb, megastep=k)
+        guarded.append(net)
+    skipped = [n.divergence_guard.skipped_batches for n in guarded]
+    if (skipped != [[GUARD_NAN_STEP, GUARD_SPIKE_STEP]] * 2
+            or not same_trees(torch, *guarded) or not all(
+                torch.equal(guarded[0]._stat_guard_state[k], v)
+                for k, v in guarded[1]._stat_guard_state.items())):
+        raise RuntimeError(f"[megastep] guarded: skipped {skipped}, or the "
+                           "trees differ")
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    res = {"lenet": lenet_res, "narrow_alexnet_dropout": {
+        "steps": MEGASTEP_ALEX_STEPS, "k": MEGASTEP_ALEX_K,
+        "bitwise": True, "score": a4.score_value},
+        "guard": {"k": MEGASTEP_K, "skipped_batches": skipped[1],
+                  "bitwise": True},
+        "launches_counted_at_capture": {k: v for k, v in launches.items()
+                                        if v}}
+    print(f"[megastep] {json.dumps(res)} card={card}")
     return launches
 
 
@@ -2705,7 +3110,8 @@ INTENDED_ROUTES = {
     # batch and its first at the serving bucket, VGG-16's convs down to
     # 4 x 4 at batch 128 and all of ResNet-50's; the direct tile (split
     # k) for LeNet's second at the bucket and VGG-16's 2 x 2 convs
-    "conv_block": (("alexnet.", "wide"), ("lenet256.", "wide"),
+    "conv_block": (("alexnet.", "wide"), ("alexnet-train.", "wide"),
+                   ("lenet256.", "wide"),
                    ("lenet.conv1", "wide"), ("lenet.conv2", "direct"),
                    ("vgg16.conv10", "direct"), ("vgg16.", "wide"),
                    ("resnet50.", "wide")),
@@ -2716,17 +3122,26 @@ INTENDED_ROUTES = {
     # groups: the GEMM multiplies the taps no output reaches) and at 7 x
     # 7, c 2048 (32-channel groups); the implicit GEMM elsewhere, and for
     # every dW
-    "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.", "gemm"),
+    # AlexNet: 4-channel resident groups at conv5 (13 x 13, o 256), the
+    # implicit GEMM at conv2-conv4; ResNet-50's 3 x 3 at 7 x 7 takes the
+    # 4-channel groups too
+    "conv_bwd_data": (("lenet256.", "resident"), ("alexnet.conv5",
+                                                  "resident"),
+                      ("alexnet-train.conv5", "resident"),
+                      ("alexnet.", "gemm"), ("alexnet-train.", "gemm"),
                       ("vgg16.conv1", "gemm"), ("vgg16.conv7", "gemm"),
                       ("vgg16.conv8", "gemm"), ("vgg16.", "resident"),
                       ("resnet50.s2b1_c1", "resident"),
                       ("resnet50.s3b0_c2", "resident"),
                       ("resnet50.s3b1_c1", "resident"),
+                      ("resnet50.s3b1_c2", "resident"),
                       ("resnet50.", "gemm")),
     "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm"),
+                   ("alexnet-train.", "gemm"),
                    ("vgg16.", "gemm"), ("resnet50.", "gemm")),
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
-                     ("alexnet.", "tiled"), ("vgg16.", "tiled"),
+                     ("alexnet.", "tiled"), ("alexnet-train.", "tiled"),
+                     ("vgg16.", "tiled"),
                      ("embedding-mlp.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
     # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
@@ -3612,7 +4027,8 @@ def main() -> int:
             print(f"[kernel] {json.dumps(rec)}")
 
     for model, shapes in (("vgg16", vgg_shapes()),
-                          ("resnet50", resnet_shapes())):
+                          ("resnet50", resnet_shapes()),
+                          ("alexnet-train", alexnet_train_shapes())):
         for name, kind_, geo, names in shapes:
             if kind_.startswith("conv_bwd"):
                 rec = check_bwd_kernel(torch, model, name, kind_, geo, gen)
@@ -3659,6 +4075,7 @@ def main() -> int:
     served = serve_lenet(torch, card)
     trained = train_lenet(torch, card)
     run_alexnet(torch, card)
+    alex_train = run_alexnet_train(torch, card, records)
     ids, alphabet = survey_corpus()
     char_peep = run_charrnn(torch, card, True, ids, alphabet)
     char_seq = run_charrnn(torch, card, False, ids, alphabet)
@@ -3678,6 +4095,7 @@ def main() -> int:
                   run_transformer_bf16(torch, card, tokens),
                   run_f16_loss_scale(torch, card, tokens)]
     guarded = run_guard(torch, card)
+    mega = run_megastep(torch, card)
     nlp = run_nlp(torch, card)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
     half_variants = {}
@@ -3714,7 +4132,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
                          + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
-                         + nlp[k] + sum(c[k] for c in half_launches)),
+                         + alex_train[k] + mega[k] + nlp[k]
+                         + sum(c[k] for c in half_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -3724,19 +4143,20 @@ def main() -> int:
         if k in INTENDED_ROUTES:  # the kernel route its main path took
             entry["kernel_route"] = "+".join(sorted(
                 {r["kernel_route"] for r in main}))
-        # VGG-16's and ResNet-50's training steps at batch 128: each
-        # shape's time by its launches a step, summed
-        for model in ("vgg16", "resnet50"):
+        # VGG-16's, ResNet-50's and AlexNet's training steps at batch
+        # 128: each shape's time by its launches a step, summed
+        for model in ("vgg16", "resnet50", "alexnet-train"):
             recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
             if not recs:
                 continue
-            entry.update({f"{model}_{key}_per_step": sum(
+            tag = model.replace("-", "_")
+            entry.update({f"{tag}_{key}_per_step": sum(
                 r[key] * r["launches_per_step"] for r in recs)
                 for key in ("kernel_ms", "plain_ms", "library_ms",
                             "bound_ms")})
-            entry.update({f"{model}_launches_per_step": sum(
+            entry.update({f"{tag}_launches_per_step": sum(
                 r["launches_per_step"] for r in recs),
-                f"{model}_route": "+".join(
+                f"{tag}_route": "+".join(
                     sorted({r["kernel_route"] for r in recs}))})
         if k == "conv_block":  # AlexNet's five convs at batch 64, summed
             alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]

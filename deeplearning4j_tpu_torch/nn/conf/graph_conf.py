@@ -49,7 +49,7 @@ class GraphVertexSpec:
     """Base vertex: its configuration and its forward."""
 
     def apply(self, params, inputs: Sequence, state, *, train=False,
-              gen=None, mask=None):
+              rng=None, mask=None):
         raise NotImplementedError
 
     def output_type(self, input_types: Sequence[InputType]) -> InputType:
@@ -131,12 +131,12 @@ class LayerVertex(GraphVertexSpec):
                                time=int(x.shape[2]) if x.dim() == 3 else -1)
         return self.preprocessor.preprocess(x, ctx)
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None, ctx: Optional[ShapeContext] = None):
         if len(inputs) != 1:
             raise ValueError("LayerVertex expects exactly one input")
         x = self.layer_input(inputs[0], ctx).contiguous()
-        return self.layer_conf.apply(params, x, state, train=train, gen=gen,
+        return self.layer_conf.apply(params, x, state, train=train, rng=rng,
                                      mask=mask)
 
     def output_type(self, input_types):
@@ -152,7 +152,7 @@ class MergeVertex(GraphVertexSpec):
     """Concatenate along the feature axis (axis 1 of [b, n], [b, n, t]
     and [b, c, h, w])."""
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         return torch.cat(list(inputs), dim=1), state
 
@@ -174,7 +174,7 @@ class ElementWiseVertex(GraphVertexSpec):
 
     op: str = "Add"
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         op = self.op.lower()
         if op == "add":
@@ -206,7 +206,7 @@ class SubsetVertex(GraphVertexSpec):
     from_idx: int = 0
     to_idx: int = 0
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         return inputs[0][:, self.from_idx:self.to_idx + 1], state
 
@@ -225,7 +225,7 @@ class L2Vertex(GraphVertexSpec):
 
     eps: float = 1e-8
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         a, b = inputs
         d = (a - b).reshape(a.shape[0], -1)
@@ -243,7 +243,7 @@ class L2NormalizeVertex(GraphVertexSpec):
 
     eps: float = 1e-8
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         x = inputs[0]
         flat = x.reshape(x.shape[0], -1)
@@ -256,7 +256,7 @@ class L2NormalizeVertex(GraphVertexSpec):
 class StackVertex(GraphVertexSpec):
     """Stack along the batch axis."""
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         return torch.cat(list(inputs), dim=0), state
 
@@ -269,7 +269,7 @@ class UnstackVertex(GraphVertexSpec):
     from_idx: int = 0
     stack_size: int = 1
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         x = inputs[0]
         n = x.shape[0] // self.stack_size
@@ -283,7 +283,7 @@ class PreprocessorVertex(GraphVertexSpec):
 
     preprocessor: InputPreProcessor = None  # type: ignore[assignment]
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         x = inputs[0]
         t = int(x.shape[2]) if x.dim() == 3 else -1
@@ -301,7 +301,7 @@ class ScaleVertex(GraphVertexSpec):
 
     scale: float = 1.0
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         return inputs[0] * self.scale, state
 
@@ -313,7 +313,7 @@ class ShiftVertex(GraphVertexSpec):
 
     shift: float = 0.0
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         return inputs[0] + self.shift, state
 
@@ -326,7 +326,7 @@ class LastTimeStepVertex(GraphVertexSpec):
 
     mask_input: str = ""
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None):
         x = inputs[0]
         if mask is None:
@@ -349,7 +349,7 @@ class DuplicateToTimeSeriesVertex(GraphVertexSpec):
 
     reference_input: str = ""
 
-    def apply(self, params, inputs, state, *, train=False, gen=None,
+    def apply(self, params, inputs, state, *, train=False, rng=None,
               mask=None, time: int = 1):
         x = inputs[0]
         return x[:, :, None].expand(-1, -1, int(time)), state

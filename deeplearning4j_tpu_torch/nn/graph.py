@@ -18,11 +18,15 @@ a step. Inputs cross to the device at their own width where they are
 uint8 / int8 / int16 and are cast there (``core.to_device``). The JAX
 engine's ``scan_chunk`` fuses 16 minibatches into one dispatch with the
 same trajectory; it is not ported. The step's flavours (loss scaling
-under f16 compute, the divergence and statistical guards) and the
-whole-net transforms (``remat`` per layer vertex, ``scan_layers``) are
-the sequential engine's (``nn/core.py``). Graph truncated BPTT,
-``rnn_time_step``, AOT export, megastep, ``pretrain`` and ``evaluate``
-are not ported: each raises, naming the slice that brings it.
+under f16 compute, the divergence and statistical guards), the
+whole-net transforms (``remat`` per layer vertex, ``scan_layers``) and
+``fit(megastep=K)`` (K steps a chunk, on the card one CUDA-graph
+replay) are the sequential engine's (``nn/core.py``), and so are
+dropout and drop-connect: vertex i of the topological order draws from
+``fold_in(step key, i)``, the output vertex's pre-output with the masks
+of its ``apply``. Graph truncated BPTT, ``rnn_time_step``, AOT export,
+``pretrain`` and ``evaluate`` are not ported: each raises, naming the
+slice that brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
@@ -155,11 +159,14 @@ class ComputationGraph:
 
     def _forward_values(self, params, state, inputs, *, train: bool,
                         fmasks=None, preout: bool = False,
-                        remat: str = "none"):
+                        remat: str = "none", rng=None):
         """Walk the topological order; returns ``({vertex: value},
         preouts, new_state)``. With ``preout`` an output vertex that
-        carries a loss gives its pre-activation (what its loss reads)
-        and runs its own forward only where another vertex reads it.
+        carries a loss gives its pre-activation (what its loss reads, on
+        the input dropout and drop-connect mask of its ``apply``) and
+        runs its own forward only where another vertex reads it. ``rng``
+        is the step's key: vertex i of the topological order draws from
+        ``fold_in(rng, i)`` (JAX ``lrng``).
         ``remat`` (training only) recomputes each layer vertex's forward
         in the backward (``core.maybe_remat``)."""
         conf = self.conf
@@ -183,7 +190,7 @@ class ComputationGraph:
         read = {s for ins in conf.vertex_inputs.values() for s in ins}
         new_state = dict(state)
         preouts: Dict[str, torch.Tensor] = {}
-        for name in self.topo:
+        for i, name in enumerate(self.topo):
             v = conf.vertices[name]
             srcs = conf.vertex_inputs[name]
             vin = [values[s] for s in srcs]
@@ -192,14 +199,18 @@ class ComputationGraph:
             if isinstance(v, LayerVertex):
                 layer = v.layer_conf
                 vparams = params.get(name, {})
+                lrng = core.layer_rng(rng, i, layer, train)
                 if preout and name in conf.outputs and layer.has_loss():
-                    layer.check_train(train)
+                    xin = layer.maybe_dropout(
+                        v.layer_input(vin[0], gctx).contiguous(),
+                        train=train, rng=lrng)
                     preouts[name] = layer.pre_output(
-                        vparams, v.layer_input(vin[0], gctx).contiguous())
+                        layer.maybe_drop_connect(vparams, train=train,
+                                                 rng=lrng), xin)
                     if name not in read:
                         continue
                 apply_vertex = core.maybe_remat(functools.partial(
-                    v.apply, train=train, mask=mask, ctx=gctx),
+                    v.apply, train=train, rng=lrng, mask=mask, ctx=gctx),
                     remat if train and not layer.has_loss() else "none")
                 out, new_state[name] = apply_vertex(
                     vparams, vin, state.get(name, {}))
@@ -220,7 +231,7 @@ class ComputationGraph:
         return values, preouts, new_state
 
     def _score_pure(self, params, state, inputs, labels, lmasks, *,
-                    train: bool, fmasks=None, weights=None):
+                    train: bool, fmasks=None, weights=None, rng=None):
         """The sum of the output vertices' losses plus the L1/L2 penalty;
         returns ``(score, new_state)``. ``weights`` = ``([one weight an
         output], penalty weight)`` scales the terms (a data-parallel
@@ -229,7 +240,7 @@ class ComputationGraph:
 
         _, preouts, new_state = self._forward_values(
             params, state, inputs, train=train, fmasks=fmasks, preout=True,
-            remat=self.remat if train else "none")
+            remat=self.remat if train else "none", rng=rng)
         score = 0.0
         for i, out_name in enumerate(self.conf.outputs):
             v = self.conf.vertices[out_name]
@@ -266,12 +277,16 @@ class ComputationGraph:
 
     def feed_forward(self, *inputs, train: bool = False
                      ) -> Dict[str, torch.Tensor]:
-        """The activation of every vertex (and input) by name."""
+        """The activation of every vertex (and input) by name; with
+        ``train`` the training-mode forward, dropout drawn from the key
+        of the next step, as in the JAX engine."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
             values, _, _ = self._forward_values(
-                self.params, self.state, self._tensors(inputs), train=train)
+                self.params, self.state, self._tensors(inputs), train=train,
+                rng=core.step_rng(self, self.iteration_count)
+                if train else None)
         return values
 
     def score(self, ds) -> float:
@@ -300,8 +315,6 @@ class ComputationGraph:
         if missing:
             raise NotImplementedError(
                 "fit: not ported yet: " + "; ".join(missing))
-        for n in self.layer_vertex_names:
-            self._layer(n).check_train(True)
 
     def recurrent_names(self) -> List[str]:
         return [n for n in self.layer_vertex_names
@@ -311,9 +324,10 @@ class ComputationGraph:
         return [self._layer(n) for n in self.layer_vertex_names]
 
     def _train_step(self):
-        def score_fn(params, state, inputs, labels, lmasks, fmasks):
+        def score_fn(params, state, inputs, labels, lmasks, fmasks, rng):
             return self._score_pure(params, state, inputs, labels,
-                                    lmasks, train=True, fmasks=fmasks)
+                                    lmasks, train=True, fmasks=fmasks,
+                                    rng=rng)
 
         return core.model_step(self, score_fn)
 
@@ -326,7 +340,8 @@ class ComputationGraph:
         (inputs, labels) pair. An iterator with ``reset()`` is reset
         after each epoch. ``grad_accum=K``: each optimizer step
         accumulates K equal microbatches (persists until changed;
-        BatchNormalization configurations refuse it)."""
+        BatchNormalization configurations refuse it). ``megastep=K``: K
+        same-shaped minibatches a chunk, as ``MultiLayerNetwork.fit``."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
         if megastep is not None:
@@ -343,10 +358,13 @@ class ComputationGraph:
         else:
             batches = data
         for epoch in range(epochs):
-            n_batches = 0
-            for ds in batches:
-                self.fit_minibatch(ds)
-                n_batches += 1
+            if core.can_megastep(self):
+                n_batches = core.fit_epoch_megastep(self, batches)
+            else:
+                n_batches = 0
+                for ds in batches:
+                    self.fit_minibatch(ds)
+                    n_batches += 1
             if epoch > 0 and n_batches == 0:
                 raise ValueError(
                     "Iterator yielded no batches after the first epoch — "
@@ -387,6 +405,30 @@ class ComputationGraph:
         (masks: None or lists)."""
         f, l, fm, lm = _ds_arrays(ds)
         return tuple(self._tensors(a, device) for a in (f, l, lm, fm))
+
+    def _ds_scan_sig(self, ds) -> tuple:
+        """The shapes and dtypes of a minibatch's fields: a megastep
+        chunk stacks minibatches of one signature."""
+        return tuple(None if v is None else tuple(core.field_sig(a)
+                                                  for a in v)
+                     for v in _ds_arrays(ds))
+
+    def _stack_chunk(self, batches) -> core.Chunk:
+        """Same-signature minibatches stacked into a ``core.Chunk``, one
+        tensor a graph input, output and mask."""
+        dtype = core.dtype_of(self.conf)
+        rows = [_ds_arrays(b) for b in batches]
+
+        def stack(idx):
+            first = rows[0][idx]
+            if first is None:
+                return None
+            return [None if first[j] is None else core.stack_fields(
+                [r[idx][j] for r in rows], dtype) for j in range(len(first))]
+
+        f, l, fm, lm = (stack(i) for i in range(4))
+        return core.Chunk(f, l, lm, fm, len(batches),
+                          int(np.shape(rows[0][0][0])[0]))
 
     def _reset_recurrent_state(self) -> None:
         """Each pass over a minibatch starts from a zero carry."""

@@ -23,7 +23,9 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     ActivationLayer,
     DenseLayer,
+    DropoutLayer,
     EmbeddingLayer,
+    LossLayer,
     OutputLayer,
     SparseEmbeddingLayer,
 )
@@ -39,6 +41,7 @@ __all__ = [
     "BatchNormalization",
     "ConvolutionLayer",
     "DenseLayer",
+    "DropoutLayer",
     "EmbeddingLayer",
     "FeedForwardLayerSpec",
     "GravesBidirectionalLSTM",
@@ -46,6 +49,7 @@ __all__ = [
     "LayerNormalization",
     "LayerSpec",
     "LocalResponseNormalization",
+    "LossLayer",
     "MultiHeadSelfAttention",
     "OutputLayer",
     "PositionalEncoding",

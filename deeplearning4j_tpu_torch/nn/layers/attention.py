@@ -167,8 +167,8 @@ class MultiHeadSelfAttention(LayerSpec):
         o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vc)
         return o, {**state, "k_cache": kc, "v_cache": vc, "pos": pos + t}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
         b, _, t = x.shape
         h, hd = self.n_heads, self._head_dim()
         xt = x.transpose(1, 2)                                 # [b, t, f]
@@ -278,8 +278,8 @@ class TransformerBlock(LayerSpec):
         p["b_ff2"] = torch.zeros(d, dtype=dtype)
         return p
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
         # attention sublayer (pre-norm); a KV cache in the state passes
         # through to the attention and back out
         h1 = _layer_norm(x, params["ln1_gamma"], params["ln1_beta"], 1e-5)
@@ -329,8 +329,7 @@ class LayerNormalization(LayerSpec):
         return {"gamma": torch.ones(self.n_out, dtype=dtype),
                 "beta": torch.zeros(self.n_out, dtype=dtype)}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         y = _layer_norm(x, params["gamma"], params["beta"], self.eps)
         return self.activate_fn()(y), state
 
@@ -356,8 +355,7 @@ class PositionalEncoding(LayerSpec):
     def init_stream_state(self, batch: int, dtype, device=None) -> dict:
         return {"pos": 0}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         n, t = int(x.shape[1]), int(x.shape[2])
         off = 0
         if "pos" in state:

@@ -9,14 +9,14 @@ packages unchanged.
 Contract:
 - ``init_params(gen, dtype) -> {name: tensor}`` on the CPU generator,
   named like the reference's param keys (``"W"``, ``"b"``).
-- ``apply(params, x, state, *, train=False, gen=None, mask=None) -> (y,
+- ``apply(params, x, state, *, train=False, rng=None, mask=None) -> (y,
   state)``: the forward; with ``train`` it is differentiable (autograd
-  through the kernels' backward). ``gen`` is the explicit
-  ``torch.Generator`` that dropout will draw from; ``mask`` the [batch,
-  time] features mask that recurrent layers read. Dropout and
-  drop-connect train with the AlexNet-training slice: a training
-  forward of a layer that sets a dropout rate raises (``check_train``)
-  instead of ignoring it.
+  through the kernels' backward). ``rng`` is the layer's key
+  (``nn/random.py``: the engine's ``fold_in(step key, layer index)``),
+  from which dropout and drop-connect draw the JAX package's masks
+  (``maybe_dropout`` / ``maybe_drop_connect``); layers without a
+  dropout site ignore the rate, as the JAX package's do. ``mask`` is
+  the [batch, time] features mask that recurrent layers read.
 - ``is_recurrent`` / ``can_stream`` / ``streams_state`` /
   ``stream_state_keys`` / ``stream_capacity``: what truncated BPTT and
   ``rnn_time_step`` carry between calls.
@@ -34,12 +34,19 @@ from typing import Dict, Type
 
 import torch
 
-from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn import activations, random
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.updaters import UpdaterSettings
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
 LAYER_REGISTRY: Dict[str, Type["LayerSpec"]] = {}
+
+
+def _full_like0(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device (made by
+    a fill, so a CUDA graph can capture it): dividing by it is a true
+    division on every device, as in the JAX package."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def register_layer(cls):
@@ -154,7 +161,7 @@ class LayerSpec:
 
     # -- forward -----------------------------------------------------------
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         """``mask``: optional [batch, time] features mask, consumed by
         recurrent layers; the others ignore it."""
         raise NotImplementedError
@@ -183,20 +190,55 @@ class LayerSpec:
         recurrent carry is O(1))."""
         return None
 
-    def check_train(self, train: bool) -> None:
-        """Dropout (on the input, or on the weights with drop-connect)
-        is not ported yet: refuse to train such a layer rather than
-        train it without its regularization."""
-        if train and self.dropout > 0.0:
-            kind = "drop-connect" if self.drop_connect else "dropout"
-            raise NotImplementedError(
-                f"{type(self).__name__} '{self.name}': training with "
-                f"{kind} (rate {self.dropout}) arrives with the "
-                "AlexNet-training slice"
-            )
-
     def activate_fn(self):
         return activations.get(self.activation)
+
+    def supports_drop_connect(self) -> bool:
+        """True for layers whose ``apply`` masks their weights through
+        ``maybe_drop_connect`` (dense, conv, LSTM). The others keep their
+        input dropout when ``drop_connect`` is set."""
+        return False
+
+    def maybe_dropout(self, x, *, train: bool, rng):
+        """Inverted dropout on the layer input, ``where(mask, x / keep,
+        0)`` with the mask ``bernoulli(rng, keep, x.shape)`` (JAX
+        ``maybe_dropout``); under a data-parallel ``row_window`` this
+        process's rows of the global mask. Off outside training, without
+        a key, and where ``drop_connect`` moves the rate to the
+        weights."""
+        if (not train or self.dropout <= 0.0 or rng is None
+                or (self.drop_connect and self.supports_drop_connect())):
+            return x
+        keep = 1.0 - self.dropout
+        m = random.bernoulli(rng, keep, x.shape, random.row_offset(x.shape),
+                             device=x.device)
+        return torch.where(m, x / _full_like0(keep, x), 0.0)
+
+    # the drop-connect masks' stream, apart from input dropout's: the
+    # mask of ``keys[i]`` draws from ``fold_in(rng, 0x7C + i)``
+    _DROP_CONNECT_SALT = 0x7C
+
+    def maybe_drop_connect(self, params, *, train: bool, rng,
+                           keys=("W",)):
+        """DropConnect: ``params`` with the tensors named in ``keys``
+        masked at rate ``dropout`` and scaled by ``1 / keep`` (JAX
+        ``maybe_drop_connect``). The mask is a function of ``rng`` alone,
+        so the engine's separate pre-output of a loss head sees the mask
+        of its ``apply``, and every data-parallel rank the same one."""
+        if (not train or not self.drop_connect or self.dropout <= 0.0
+                or rng is None or not self.supports_drop_connect()):
+            return params
+        keep = 1.0 - self.dropout
+        out = dict(params)
+        for i, k in enumerate(keys):
+            if k not in out:
+                continue
+            w = out[k]
+            m = random.bernoulli(
+                random.fold_in(rng, self._DROP_CONNECT_SALT + i), keep,
+                w.shape, device=w.device)
+            out[k] = torch.where(m, w / _full_like0(keep, w), 0.0)
+        return out
 
     def updater_settings(self) -> UpdaterSettings:
         return UpdaterSettings(

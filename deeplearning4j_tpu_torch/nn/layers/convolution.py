@@ -87,8 +87,14 @@ class ConvolutionLayer(LayerSpec):
                         stride=_pair(self.stride),
                         padding=_pair(self.padding))
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def supports_drop_connect(self) -> bool:
+        return True
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        # drop-connect: the masked W goes into the kernel, and autograd
+        # carries the kernel's dW back through the mask
+        params = self.maybe_drop_connect(params, train=train, rng=rng)
         act = self.activation.lower()
         if x.dim() == 4 and act in SUPPORTED_EPILOGUES:
             return conv_block(x, params["W"], params["b"],
@@ -122,8 +128,7 @@ class SubsamplingLayer(LayerSpec):
             it.channels,
         )
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         kh, kw = _pair(self.kernel_size)
         sh, sw = _pair(self.stride)
         ph, pw = _pair(self.padding)
@@ -210,8 +215,7 @@ class BatchNormalization(LayerSpec):
         return {"mean": torch.zeros(self.n_out, dtype=dtype),
                 "var": torch.ones(self.n_out, dtype=dtype)}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         if x.dim() == 4:
             axes, bshape = (0, 2, 3), (1, -1, 1, 1)
         else:
@@ -290,8 +294,7 @@ class LocalResponseNormalization(LayerSpec):
     def input_kind(self) -> str:
         return "convolutional"
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         half = self.n // 2
         sq = F.pad(x * x, (0, 0, 0, 0, half, self.n - 1 - half))
         # the windowed sum over channels: a sum pool along the c axis

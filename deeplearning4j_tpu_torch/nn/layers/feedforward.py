@@ -1,5 +1,5 @@
-"""Feed-forward layers: Dense, Output, Activation and the embedding
-lookups.
+"""Feed-forward layers: Dense, Output, Loss, Activation, Dropout and the
+embedding lookups.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py``.
 ``DenseLayer`` routes to the fused ``matmul_block`` kernel when its
@@ -8,7 +8,11 @@ activation is one of the kernel's epilogues; the softmax
 JAX package leaves it to XLA: the row-wise softmax is no per-element
 epilogue), followed by the plain softmax. ``W`` is ``[n_in, n_out]``
 and ``y = x @ W + b``, as in the JAX package. An output layer scores
-its pre-output with its loss (``compute_score``, ``nn/losses.py``).
+its pre-output with its loss (``compute_score``, ``nn/losses.py``);
+``LossLayer`` scores its input, with no parameters. Dense (and Output)
+layers drop their input, or with ``drop_connect`` their ``W``, in
+training (``LayerSpec.maybe_dropout`` / ``maybe_drop_connect``), and
+``DropoutLayer`` is input dropout alone.
 ``ActivationLayer`` applies its activation alone, to any input family
 (ResNet's ReLU after each residual add). ``EmbeddingLayer`` maps a
 column of integer indices to rows of ``W`` (plus ``b``, then the
@@ -52,8 +56,12 @@ class DenseLayer(FeedForwardLayerSpec):
     def pre_output(self, params, x):
         return torch.addmm(params["b"], x, params["W"])
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def supports_drop_connect(self) -> bool:
+        return True
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        params = self.maybe_drop_connect(params, train=train, rng=rng)
         act = self.activation.lower()
         if x.dim() == 2 and act in SUPPORTED_EPILOGUES:
             return matmul_block(x, params["W"], params["b"],
@@ -87,6 +95,29 @@ class OutputLayer(BaseOutputLayerSpec):
 
 @register_layer
 @dataclass(frozen=True)
+class LossLayer(LayerSpec):
+    """A loss without parameters: the activation and the loss on its
+    input (reference ``nn/conf/layers/LossLayer.java``)."""
+
+    loss: str = "MCXENT"
+    activation: str = "identity"
+
+    def has_loss(self) -> bool:
+        return True
+
+    def pre_output(self, params, x):
+        return x
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        return self.activate_fn()(x), state
+
+    def compute_score(self, params, x, labels, mask=None, average=True):
+        return losses_mod.score(self.loss, labels, x, self.activation, mask,
+                                average)
+
+
+@register_layer
+@dataclass(frozen=True)
 class ActivationLayer(LayerSpec):
     """Pure activation (reference ``nn/conf/layers/ActivationLayer``).
     Shape-agnostic: consumes any input family unchanged (e.g. the ReLU
@@ -95,9 +126,24 @@ class ActivationLayer(LayerSpec):
     def input_kind(self) -> str:
         return "any"
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         return self.activate_fn()(x), state
+
+
+@register_layer
+@dataclass(frozen=True)
+class DropoutLayer(LayerSpec):
+    """Dropout alone, on any input family (the JAX package's
+    convenience layer; the reference applies dropout as a per-layer
+    flag)."""
+
+    activation: str = "identity"
+
+    def input_kind(self) -> str:
+        return "any"
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        return self.maybe_dropout(x, train=train, rng=rng), state
 
 
 @register_layer
@@ -119,8 +165,7 @@ class EmbeddingLayer(FeedForwardLayerSpec):
         b = torch.full((self.n_out,), float(self.bias_init), dtype=dtype)
         return {"W": w, "b": b}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         idx = x.reshape(-1).long()
         return self.activate_fn()(params["W"][idx] + params["b"]), state
 

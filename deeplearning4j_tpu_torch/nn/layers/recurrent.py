@@ -153,8 +153,14 @@ class GravesLSTM(LayerSpec):
         return {"h": torch.zeros(shape, dtype=dtype, device=device),
                 "c": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def supports_drop_connect(self) -> bool:
+        return True
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        # the reference drops the input weights only (LSTMHelpers.java:93)
+        params = self.maybe_drop_connect(params, train=train, rng=rng,
+                                         keys=("W",))
         if "h" in state:
             h0, c0 = state["h"], state["c"]
         else:
@@ -193,8 +199,10 @@ class GravesBidirectionalLSTM(GravesLSTM):
             out.update({k + suffix: v for k, v in p.items()})
         return out
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        params = self.maybe_drop_connect(params, train=train, rng=rng,
+                                         keys=("WF", "WB"))
         zero = self.init_stream_state(x.shape[0], x.dtype, x.device)
         h0, c0 = zero["h"], zero["c"]
         pf = {k[:-1]: v for k, v in params.items() if k.endswith("F")}
@@ -247,8 +255,9 @@ class RnnOutputLayer(BaseOutputLayerSpec):
         return (torch.einsum("bit,io->bot", x, params["W"])
                 + params["b"][None, :, None])
 
-    def apply(self, params, x, state, *, train=False, gen=None, mask=None):
-        self.check_train(train)
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        params = self.maybe_drop_connect(params, train=train, rng=rng)
         pre = self.pre_output(params, x)
         if self.activation == "softmax":
             return torch.softmax(pre, dim=1), state  # the class axis

@@ -29,10 +29,14 @@ f16 compute (``set_transforms(loss_scale=...)`` or the Builder's
 (``set_divergence_guard``), each a select on the device, with the
 guard's host policy applied after each step (one read of its ok flag);
 ``remat`` recomputes each layer's activations in the backward and
-``scan_layers`` is taken (``nn/core.py``). ``fit`` raises, naming the
-slice that brings them, for what the port does not carry yet: dropout /
-drop-connect, the line-search solvers, layer-wise pretraining and
-megastep dispatch.
+``scan_layers`` is taken (``nn/core.py``). Dropout and drop-connect
+draw the JAX package's masks: the step's key is ``fold_in(PRNGKey(
+conf.seed), iteration)`` and layer i's ``fold_in(step key, i)``
+(``nn/random.py``), in training and in ``output(train=True)``.
+``fit(megastep=K)`` runs K steps a chunk with one readback, on the card
+one CUDA-graph replay (``core.run_megastep_chunk``); a chunk is
+bitwise the per-step loop. ``fit`` raises, naming the slice that brings
+them, for the line-search solvers and layer-wise pretraining.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.exceptions import DL4JInvalidConfigException
-from deeplearning4j_tpu_torch.nn import core
+from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration,
 )
@@ -139,8 +143,9 @@ class MultiLayerNetwork:
                features_mask=None) -> torch.Tensor:
         """Activated network output for ``x`` (numpy array or tensor),
         as a tensor on the network's device. ``train=True`` runs the
-        training-mode forward (no graph is kept either way);
-        ``features_mask`` is the [batch, time] RNN input mask."""
+        training-mode forward, dropout drawn from the key of the next
+        step (no graph is kept either way); ``features_mask`` is the
+        [batch, time] RNN input mask."""
         if self.params is None:
             self.init()
         dtype = core.dtype_of(self.conf)
@@ -150,8 +155,24 @@ class MultiLayerNetwork:
                   else self._to_device(features_mask, dtype))
             y, _ = core.sequential_forward(
                 self.conf, self.layer_names, self.params, self.state, xt,
-                train=train, fmask=fm)
+                train=train, fmask=fm,
+                rng=core.step_rng(self, self.iteration_count)
+                if train else None)
             return y
+
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """Every layer's activation (reference ``feedForward``); with
+        ``train`` the training-mode forward, dropout drawn from
+        ``PRNGKey(conf.seed)`` itself, as in the JAX package."""
+        if self.params is None:
+            self.init()
+        with torch.inference_mode():
+            acts, _ = core.sequential_forward(
+                self.conf, self.layer_names, self.params, self.state,
+                self._to_device(x, core.dtype_of(self.conf)), train=train,
+                collect=True,
+                rng=random.host_key(self.conf.seed) if train else None)
+        return acts
 
     def output_padded(self, x, n_valid: int) -> torch.Tensor:
         """Inference on a row-padded batch: the serving micro-batcher
@@ -206,8 +227,6 @@ class MultiLayerNetwork:
         if missing:
             raise NotImplementedError(
                 "fit: not ported yet: " + "; ".join(missing))
-        for layer in conf.layers:
-            layer.check_train(True)
 
     def set_divergence_guard(self, guard) -> None:
         """(Un)install a ``resilience.DivergenceGuard`` on the train step
@@ -221,8 +240,8 @@ class MultiLayerNetwork:
         """(Re)configure the whole-net transforms (``core.
         set_transforms``): ``scan_layers``, ``remat`` (``none |
         dots_saveable | full``), ``loss_scale`` (f16 compute; True: 2**15)
-        and ``megastep`` (only 1). The trajectory is the same with them
-        on or off."""
+        and ``megastep`` (K steps a chunk). The trajectory is the same
+        with them on or off."""
         core.set_transforms(self, scan_layers, remat, loss_scale, megastep)
         return self
 
@@ -231,14 +250,16 @@ class MultiLayerNetwork:
         return core.loss_scale_active(self)
 
     def _score_pure(self, params, state, x, labels, mask, *, train: bool,
-                    fmask=None, weights=None):
+                    fmask=None, weights=None, rng=None):
         """The loss plus the L1/L2 penalty of ``x`` (``core.
-        sequential_score``, training under the model's ``remat``);
-        returns ``(score, new_state)``."""
+        sequential_score``, training under the model's ``remat``, masks
+        drawn from the step's key ``rng``); returns ``(score,
+        new_state)``."""
         return core.sequential_score(self.conf, self.layer_names, params,
                                      state, x, labels, mask, train=train,
                                      fmask=fmask, weights=weights,
-                                     remat=self.remat if train else "none")
+                                     remat=self.remat if train else "none",
+                                     rng=rng)
 
     def recurrent_names(self) -> List[str]:
         return [n for n, layer in zip(self.layer_names, self.conf.layers)
@@ -248,9 +269,9 @@ class MultiLayerNetwork:
         return list(self.conf.layers)
 
     def _train_step(self):
-        def score_fn(params, state, x, labels, mask, fmask):
+        def score_fn(params, state, x, labels, mask, fmask, rng):
             return self._score_pure(params, state, x, labels, mask,
-                                    train=True, fmask=fmask)
+                                    train=True, fmask=fmask, rng=rng)
 
         return core.model_step(self, score_fn)
 
@@ -263,7 +284,11 @@ class MultiLayerNetwork:
         with ``reset()`` is reset after each epoch. ``grad_accum=K``:
         each optimizer step accumulates K equal microbatches (persists
         until changed; BatchNormalization configurations and truncated
-        BPTT refuse it)."""
+        BPTT refuse it). ``megastep=K`` runs each block of K same-shaped
+        minibatches as one chunk with one readback (``core.
+        fit_epoch_megastep``; persists until changed, 1 restores the
+        per-step loop; what ``core.can_megastep`` refuses runs per
+        step)."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
         if megastep is not None:
@@ -279,10 +304,13 @@ class MultiLayerNetwork:
         else:
             batches = data
         for epoch in range(epochs):
-            n_batches = 0
-            for ds in batches:
-                self.fit_minibatch(ds)
-                n_batches += 1
+            if core.can_megastep(self):
+                n_batches = core.fit_epoch_megastep(self, batches)
+            else:
+                n_batches = 0
+                for ds in batches:
+                    self.fit_minibatch(ds)
+                    n_batches += 1
             if epoch > 0 and n_batches == 0:
                 raise ValueError(
                     "Iterator yielded no batches after the first epoch — "
@@ -324,6 +352,28 @@ class MultiLayerNetwork:
                      for a in (ds.features, ds.labels,
                                getattr(ds, "labels_mask", None),
                                getattr(ds, "features_mask", None)))
+
+    def _ds_scan_sig(self, ds) -> tuple:
+        """The shapes and dtypes of a minibatch's fields: a megastep
+        chunk stacks minibatches of one signature."""
+        return tuple(core.field_sig(a) for a in (
+            ds.features, ds.labels, getattr(ds, "labels_mask", None),
+            getattr(ds, "features_mask", None)))
+
+    def _stack_chunk(self, batches) -> core.Chunk:
+        """Same-signature minibatches stacked into a ``core.Chunk``."""
+        dtype = core.dtype_of(self.conf)
+
+        def stack(get):
+            arrays = [get(b) for b in batches]
+            return (None if arrays[0] is None
+                    else core.stack_fields(arrays, dtype))
+
+        return core.Chunk(
+            stack(lambda b: b.features), stack(lambda b: b.labels),
+            stack(lambda b: getattr(b, "labels_mask", None)),
+            stack(lambda b: getattr(b, "features_mask", None)),
+            len(batches), int(np.shape(batches[0].features)[0]))
 
     def _one_step(self, x, y, mask, fmask) -> torch.Tensor:
         return core.run_step(self, self._train_step(), x, y, mask, fmask)

@@ -19,6 +19,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -105,26 +106,36 @@ def init_param_state(s: UpdaterSettings, param: torch.Tensor) -> tuple:
     return tuple(torch.zeros_like(param) for _ in range(n))
 
 
-def _bias_correction(decay: float, t: int, like: torch.Tensor) -> float:
-    """``1 - decay**t`` in the state's precision, as the JAX package
-    computes Adam's bias correction (in f32 for f32 moments: at
-    decay 0.999 the f64 value differs by 1e-5 relative)."""
-    return float(1.0 - torch.tensor(decay, dtype=like.dtype) ** t)
+def _bias_correction(decay: float, t, like: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**t`` in the state's precision on the state's device,
+    as the JAX package computes Adam's bias correction (``decay`` and
+    ``t`` cast to the moments' dtype: at decay 0.999 the f64 value
+    differs by 1e-5 relative in f32). ``t`` is an int or a 0-d tensor
+    (a CUDA-graph chunk's step count); both give the same value, by the
+    same device operations, and nothing here reads the device back."""
+    if not torch.is_tensor(t):
+        t = torch.full((), float(t), dtype=torch.float32,
+                        device=like.device)
+    base = torch.full((), decay, dtype=like.dtype, device=like.device)
+    return 1.0 - torch.pow(base, t.to(like.dtype))
 
 
-def _lr_times(lr: float, t: torch.Tensor) -> torch.Tensor:
+def _lr_times(lr, t: torch.Tensor) -> torch.Tensor:
     """``lr * t`` as the JAX package computes it: its learning rate is
     an f32 array, so a half-precision ``t`` is promoted to f32 (a Python
-    float would keep the product in bf16 / f16 and round it twice)."""
+    float would keep the product in bf16 / f16 and round it twice).
+    ``lr`` is a float or a 0-d f32 tensor holding the same f32 value:
+    either way one f32 multiply, so the two give the same bits."""
     return t.to(torch.promote_types(t.dtype, torch.float32)) * lr
 
 
 @torch.no_grad()
 def apply_updater(s: UpdaterSettings, grad: torch.Tensor, state: tuple,
-                  lr: float, t: int) -> Tuple[torch.Tensor, tuple]:
+                  lr, t) -> Tuple[torch.Tensor, tuple]:
     """Return ``(step, new_state)``; the caller applies ``param -=
     step``. ``t`` is the 1-based iteration count (Adam's bias
-    correction)."""
+    correction), an int or a 0-d tensor; ``lr`` a float or a 0-d f32
+    tensor."""
     u = s.updater.upper()
     if u == "SGD":
         return _lr_times(lr, grad), ()
@@ -211,14 +222,38 @@ class MultiLayerUpdaterDef:
         return {ln: scheduled_lr(s, iteration)
                 for ln, s in self.settings.items()}
 
-    def param_lr(self, ln: str, pn: str, lrs: Dict[str, float]) -> float:
-        """The learning rate of one parameter: biases (names in
-        ``bias_params``) take ``bias_learning_rate`` when it is set."""
+    def has_bias_lr(self, ln: str) -> bool:
         s = self.settings[ln]
-        if (pn in s.bias_params and s.bias_learning_rate is not None
-                and s.learning_rate != 0):
+        return s.bias_learning_rate is not None and s.learning_rate != 0
+
+    def param_lr(self, ln: str, pn: str, lrs: dict):
+        """The learning rate of one parameter: biases (names in
+        ``bias_params``) take ``bias_learning_rate`` when it is set,
+        from ``lrs[(ln, "bias")]`` where the caller resolved it (a
+        chunk's table of device values), else scaled from ``lrs[ln]``."""
+        s = self.settings[ln]
+        if pn in s.bias_params and self.has_bias_lr(ln):
+            if (ln, "bias") in lrs:
+                return lrs[(ln, "bias")]
             return lrs[ln] * (s.bias_learning_rate / s.learning_rate)
         return lrs[ln]
+
+    def lr_table(self, iteration: int, steps: int):
+        """The learning rates of ``steps`` steps from ``iteration`` as
+        ``(names, rows)``: ``names`` the keys ``update`` reads (each
+        layer, and ``(layer, "bias")`` where a bias rate is set), rows an
+        f32 ``[steps, len(names)]`` array of the values ``param_lr``
+        gives on the host."""
+        names = list(self.settings)
+        names += [(ln, "bias") for ln in self.settings if self.has_bias_lr(ln)]
+        rows = []
+        for i in range(steps):
+            lrs = self.scheduled_lrs(iteration + i)
+            rows.append([lrs[n] if isinstance(n, str) else
+                         self.param_lr(n[0], self.settings[n[0]].bias_params[0],
+                                       lrs) for n in names])
+        return names, np.asarray(rows, dtype=np.float32).reshape(
+            steps, len(names))
 
     @torch.no_grad()
     def update_param(self, ln: str, pn: str, g: torch.Tensor, state: tuple,

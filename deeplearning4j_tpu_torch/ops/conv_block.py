@@ -417,9 +417,16 @@ def _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, stride, padding, oh, ow):
 # one image's gradient map, a group of at most RESIDENT_MAX_GROUP input
 # channels' weights and the group's dx (channels padded to 4) in shared
 # memory, which must fit in the H100's 232,448 bytes a block. Groups
-# below RESIDENT_MIN_GROUP channels (of a layer with more) would stage
-# each gradient map so many times that the implicit GEMM is the better
-# route at stride 1; at a larger stride the implicit GEMM multiplies
+# below RESIDENT_MIN_GROUP channels (of a layer with more) stage each
+# gradient map many times: at stride 1 such a group takes the resident
+# route only where it still does RESIDENT_QUAD_MIN_SUMS multiply-adds a
+# staged float (batch 128 on an H100 80GB HBM3 at 700 W,
+# scripts/torch_route_ab.py --sweep: AlexNet's conv5 at 13 x 13, c 384
+# -> o 256, 4-channel groups at 29.7: 2.65 ms, the implicit GEMM 3.20;
+# ResNet-50's 3 x 3 at 7 x 7, c 512, 4-channel groups at 20.8: 2.40
+# against 2.59; VGG-16's 3 x 3 at 4 x 4 and 2 x 2, 8-channel groups at
+# 13.1 and 3.8: the GEMM 1.00-3.2x faster); at a larger stride the
+# implicit GEMM multiplies
 # stride² times the useful taps (zeros for the taps no output reaches),
 # and any group that fits takes the resident route (ResNet-50's 3 x 3
 # stride-2 conv at 14 x 14, c 512: 4-channel groups 2.41 ms, the GEMM
@@ -496,8 +503,9 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     """The kernel route of dL/dx for an ``[n, c, h, w]`` input under
     ``[o, c, kh, kw]`` weights: resident with the fewest channel groups
     whose working set fits (and as many tap groups as then fit; at
-    stride 1 groups of at least RESIDENT_MIN_GROUP channels), else the
-    implicit GEMM. Where that plan's block holds its SM alone and does
+    stride 1 a group of fewer than RESIDENT_MIN_GROUP channels only
+    where it does RESIDENT_QUAD_MIN_SUMS multiply-adds a staged float),
+    else the implicit GEMM. Where that plan's block holds its SM alone and does
     fewer than RESIDENT_OVERLAP_SUMS multiply-adds a float it stages,
     and 4-channel groups would keep two blocks on an SM while doing at
     least RESIDENT_QUAD_MIN_SUMS, it takes the 4-channel groups: the
@@ -506,20 +514,20 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     oh = conv_output_size(h, kh, sh, ph)
     ow = conv_output_size(w, kw, sw, pw)
-    floor = (min(_round4(c), RESIDENT_MIN_GROUP) if sh * sw == 1
-             else 4)
     groups = -(-c // RESIDENT_MAX_GROUP)
     while True:
         group = -(-c // groups)
         padded = _round4(group)
-        if padded < floor:
-            return BwdDataRoute("gemm")
         if (resident_smem_bytes(h, w, o, oh, ow, kh, kw, group)
                 <= RESIDENT_SMEM_BYTES):
             break
         if padded == 4:
             return BwdDataRoute("gemm")
         groups = -(-c // (padded - 4))  # the next smaller padded group
+    if (sh * sw == 1 and padded < min(_round4(c), RESIDENT_MIN_GROUP)
+            and _sums_per_staged(group, o, oh, ow, kh * kw)
+            < RESIDENT_QUAD_MIN_SUMS):
+        return BwdDataRoute("gemm")
     plan = _resident_plan(h, w, o, oh, ow, kh, kw, group)
     sums = group * oh * ow * kh * kw * o
     staged = o * oh * ow + kh * kw * o * group  # gradient map, weights

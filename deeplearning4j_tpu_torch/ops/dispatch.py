@@ -68,6 +68,10 @@ def note_launch(kernel: str, variant: str = "f32") -> None:
 
 
 def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by wrapper. A wrapper counts
+    where Python calls it: a CUDA graph's capture counts its launches
+    once, and its replays (a megastep chunk's, ``nn/core.py``) count
+    none."""
     return dict(_launches)
 
 

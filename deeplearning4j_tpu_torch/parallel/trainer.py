@@ -35,7 +35,12 @@ meet in collectives (NCCL on the card, gloo on the CPU):
   statistical guard): the shared ``core.finish_step`` after the
   gradient all-reduce, so the finite probe and the guard's select see
   the global gradient and every rank takes the same branch; both run
-  the synchronous step, as in the JAX trainer.
+  the synchronous step, as in the JAX trainer;
+- dropout and drop-connect: the synchronous step draws the global
+  batch's masks, each rank exactly its rows of them (``nn/random.py``
+  ``row_window``: the generator's counter is the flat index), so a
+  world of N draws what one process draws; ``"local"`` draws each
+  shard's own from ``fold_in(key, rank)``, as JAX's shard_map step.
 
 Tensor parallelism, megastep dispatch (``fit_megachunk``), ``resume``,
 prefetching and batch validation are not ported: each raises, naming
@@ -52,7 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from deeplearning4j_tpu_torch.nn import core
+from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grads
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, build_mesh
 
@@ -387,9 +392,9 @@ class DistributedTrainer:
         m = self.model
         kw = "fmasks" if self._is_graph else "fmask"
 
-        def score_fn(params, state, x, labels, lmask, fmask):
+        def score_fn(params, state, x, labels, lmask, fmask, rng):
             return m._score_pure(params, state, x, labels, lmask,
-                                 train=True, weights=weights,
+                                 train=True, weights=weights, rng=rng,
                                  **{kw: fmask})
         return score_fn
 
@@ -502,11 +507,24 @@ class DistributedTrainer:
         sg_cfg = self._sg_config()
         sg = core.ensure_stat_guard_state(m) if sg_cfg is not None else None
 
+        # dropout: the synchronous step draws the global mask, each rank
+        # its rows of it (microbatch j from fold_in(key, j), as in JAX's
+        # accumulation); the local step draws a mask of its own shard
+        # from fold_in(key, rank), as JAX's shard_map step does
+        rng = core.step_rng(m, m.iteration_count)
+        if rng is not None and local:
+            rng = random.fold_in(rng, self.mesh.rank)
+        shard = padded_n // (k * n)
+
         def micro_grads(j, st):
             x, y, lm, fm = batches[j]
-            return core.grad_step(self._score_fn(weights[j]), m.params, st,
-                                  x, y, lm, fm,
-                                  scale=None if ls is None else ls["scale"])
+            key = rng if k == 1 or rng is None else random.fold_in(rng, j)
+            window = (contextlib.nullcontext() if local else
+                      random.row_window(self.mesh.rank * shard, shard))
+            with window:
+                return core.grad_step(
+                    self._score_fn(weights[j]), m.params, st, x, y, lm, fm,
+                    scale=None if ls is None else ls["scale"], rng=key)
 
         # (the layers import the kernels, whose attention imports this
         # package: imported here, not at the top)

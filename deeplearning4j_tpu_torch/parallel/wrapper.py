@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -120,10 +121,14 @@ class ParallelWrapper:
         t = m.iteration_count + 1
         scores = []
         home = m.device
-        for rep, ds, dev in zip(self._replicas, batches, self.devices):
+        # replica i draws its masks from fold_in(step key, i), as in JAX
+        rng = core.step_rng(m, m.iteration_count)
+        for i, (rep, ds, dev) in enumerate(zip(self._replicas, batches,
+                                               self.devices)):
             x, y, lm, fm = m.batch_tensors(ds, dev)
             out = step(rep["params"], rep["upd"], rep["state"], x, y, lm,
-                       lrs, t, fm)
+                       lrs, t, fm,
+                       rng=None if rng is None else random.fold_in(rng, i))
             rep["params"], rep["upd"], rep["state"] = out[:3]
             score = out.score
             for name in m.recurrent_names():

@@ -35,9 +35,11 @@ a block, each forced through the wrapper (the route function patched),
 in turns, each held to its plain version, with the library call and the
 bound beside the convs, and prints one JSON line: the data the route
 rules are fitted to. The conv shapes include every distinct kernel
-shape of VGG-16's and ResNet-50's training steps at batch 128;
+shape of VGG-16's and ResNet-50's training steps at batch 128 and
+AlexNet's (``alexnet-train``);
 ``--only PREFIX`` keeps the shapes whose name starts so (``vgg16``,
-``resnet50``). ``--dtype bfloat16`` (or ``float16``) sweeps the conv
+``resnet50``, ``alexnet-train``), ``--kind KERNEL`` one kernel's
+shapes. ``--dtype bfloat16`` (or ``float16``) sweeps the conv
 forward and ``conv_bwd_w`` on a half image instead (``conv_bwd_data``
 is f32 in every dtype), the library calls in the same dtype.
 
@@ -281,16 +283,18 @@ def _bwd_shape(shape):
 
 def model_sweep_shapes():
     """(name, kind, shape) of every distinct kernel shape of VGG-16's
-    training step at batch 128 (chip_smoke.vgg_shapes) and ResNet-50's at
-    224 x 224, batch 128 (chip_smoke.resnet_shapes), the dense layers
+    training step at batch 128 (chip_smoke.vgg_shapes), ResNet-50's at
+    224 x 224, batch 128 (chip_smoke.resnet_shapes) and AlexNet's at 224 x
+    224, batch 128 (chip_smoke.alexnet_train_shapes), the dense layers
     left out (no routed choice is swept for them)."""
-    from chip_smoke import resnet_shapes, vgg_shapes
+    from chip_smoke import alexnet_train_shapes, resnet_shapes, vgg_shapes
 
     return [(f"{model}.{name}", kind, (tuple(geo["x"]), tuple(geo["w"]),
                                        tuple(geo["stride"]),
                                        tuple(geo["padding"])))
             for model, shapes in (("vgg16", vgg_shapes()),
-                                  ("resnet50", resnet_shapes()))
+                                  ("resnet50", resnet_shapes()),
+                                  ("alexnet-train", alexnet_train_shapes()))
             for name, kind, geo, _ in shapes if kind != "matmul_block"]
 
 
@@ -580,14 +584,14 @@ def _sweep_plans(cb, lc, kind, shape, ref, dtype):
     return rule, plans
 
 
-def sweep(torch, only=None, dtype=None):
+def sweep(torch, only=None, dtype=None, kind_only=None):
     """Every route (and wide tile or plan) of the conv forward, both
     conv backward kernels and the cell at each of their shapes (LeNet-5's,
     AlexNet's, the char-RNN's, VGG-16's and ResNet-50's; ``only``: the
     shapes whose name starts so), forced through the wrappers (the route functions
     patched), in turns, each held to its plain version, with the library
     call and the bound beside; the data the route rules are fitted
-    to."""
+    to. ``kind_only``: one kernel's shapes alone."""
     import importlib
 
     from chip_smoke import bound, card_line, conv_out, graph_ms, useful_macs
@@ -604,7 +608,8 @@ def sweep(torch, only=None, dtype=None):
                 "lstm_cell": (lc, "lstm_cell_route")}
     half = dtype is not None and dtype != torch.float32
     for name, kind, shape in tuple(SHAPES) + tuple(model_sweep_shapes()):
-        if kind not in route_fn or (only and not name.startswith(only)):
+        if (kind not in route_fn or (only and not name.startswith(only))
+                or (kind_only and kind != kind_only)):
             continue
         if half and kind not in ("conv_block", "conv_bwd_w"):
             continue  # dx and the LSTM cell take f32 in every dtype
@@ -728,6 +733,9 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--only", metavar="PREFIX",
                     help="--sweep: only the shapes whose name starts so")
+    ap.add_argument("--kind", choices=("conv_block", "conv_bwd_data",
+                                       "conv_bwd_w", "lstm_cell"),
+                    help="--sweep: only this kernel's shapes")
     ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
                     help="--sweep: the conv forward's operands and the dW "
                          "image in this dtype")
@@ -754,7 +762,8 @@ def main() -> int:
         return rows(torch)
     if args.sweep:
         return sweep(torch, args.only,
-                     getattr(torch, args.dtype) if args.dtype else None)
+                     getattr(torch, args.dtype) if args.dtype else None,
+                     args.kind)
     if not args.parent:
         ap.error("give --check, --groups, --rows, --sweep or --parent DIR")
     return compare(args.parent, args.rounds)

@@ -1932,3 +1932,172 @@ def test_conv_routes_pinned_for_half_inputs(cuda):
         f32 = conv_block_route(*args)
         for dt in HALF:
             assert conv_block_route(*args, dtype=dt) == f32, geo
+
+
+# -- dropout masks and megastep chunks on the card ---------------------------
+
+
+@pytest.mark.parametrize("shape", [(128, 9216), (7, 3, 5, 5), (1,)])
+def test_masks_on_the_card_are_the_cpus_bitwise(cuda, shape):
+    from deeplearning4j_tpu_torch.nn import random
+
+    for key in (random.fold_in(random.host_key(42), 3),
+                random.fold_in(random.key(42, cuda), torch.tensor(3,
+                                                                 device=cuda))):
+        on_card = random.bernoulli(key, 0.5, shape, offset=11, device=cuda)
+        assert on_card.is_cuda
+        cpu_key = key if isinstance(key, tuple) else key.cpu()
+        assert torch.equal(on_card.cpu(),
+                           random.bernoulli(cpu_key, 0.5, shape, offset=11))
+
+
+def _lenet_batches(n, batch=32, seed=0):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    return [DataSet(rng.rand(batch, 784).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[rng.randint(0, 10, batch)])
+            for _ in range(n)]
+
+
+def _alex_batches(n, batch=8, seed=1):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    return [DataSet((rng.rand(batch, 3, 67, 67) * 0.9 + 0.05).astype(
+        np.float32), np.eye(10, dtype=np.float32)[rng.randint(0, 10, batch)])
+        for _ in range(n)]
+
+
+def _models():
+    import chip_smoke
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    return {"lenet": (lambda: lenet(dense_width=64), _lenet_batches),
+            "narrow_alexnet": (chip_smoke.narrow_alexnet, _alex_batches)}
+
+
+def _same(a, b):
+    import chip_smoke
+
+    return chip_smoke.same_trees(torch, a, b)
+
+
+@pytest.mark.parametrize("name", ["lenet", "narrow_alexnet"])
+def test_graphed_chunk_is_the_eager_chunk_and_the_per_step_loop(cuda, name):
+    """A megastep fit replays one captured chunk a block, bitwise equal
+    to the per-step loop on the card and to the same chunk run eagerly
+    (``core.chunk_steps`` on the card, not captured)."""
+    from deeplearning4j_tpu_torch.nn import core, random
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    make, data = _models()[name]
+    batches = data(8)
+    ref = MultiLayerNetwork(make(), device=cuda).init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in ref.params.items()}
+    ref.fit(batches)
+    mega = MultiLayerNetwork(make(), device=cuda).init(params=init)
+    dispatch.reset_launch_counts()
+    mega.fit(batches, megastep=4)
+    at_capture = sum(dispatch.launch_counts().values())
+    mega.fit(batches)  # replays only: Python launches nothing
+    assert sum(dispatch.launch_counts().values()) == at_capture
+    assert len(mega._megastep_graphs) == 1
+    assert mega.iteration_count == 16
+    ref.fit(batches)
+    assert _same(ref, mega)
+    # the eager chunk on the card from the same state
+    eager = MultiLayerNetwork(make(), device=cuda).init(params=init)
+    chunk = eager._stack_chunk(batches[:4])
+    names, rows = eager.updater_def.lr_table(0, 4)
+    trees, _ = core.chunk_steps(
+        eager, eager._train_step(),
+        (eager.params, eager.updater_state, eager.state, None, None),
+        tuple(core._map_tree(lambda a: a.to(cuda), f)
+              for f in chunk[:4]),
+        names, torch.from_numpy(rows).to(cuda),
+        torch.tensor(0, device=cuda), random.key(eager.conf.seed, cuda), 4)
+    graphed = MultiLayerNetwork(make(), device=cuda).init(params=init)
+    graphed.fit(batches[:4], megastep=4)
+    eager.params, eager.updater_state, eager.state = trees[:3]
+    assert _same(eager, graphed)
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda):
+    from dataclasses import dataclass
+
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ActivationLayer,
+        DenseLayer,
+        OutputLayer,
+        register_layer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    @register_layer
+    @dataclass(frozen=True)
+    class HostSyncLayer(ActivationLayer):
+        def apply(self, params, x, state, *, train=False, rng=None,
+                  mask=None):
+            if float(x.abs().sum()) < 0:  # a device -> host read
+                x = -x
+            return x, state
+
+    conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(0.1)
+            .updater("SGD").list()
+            .layer(DenseLayer(n_in=784, n_out=16, activation="relu"))
+            .layer(HostSyncLayer())
+            .layer(OutputLayer(n_out=10)).build())
+    net = MultiLayerNetwork(conf, device=cuda).init()
+    batches = _lenet_batches(4)
+    net.fit(batches[:1])  # per step: the read is only slow
+    with pytest.raises(RuntimeError, match="capturing the 3-step chunk"):
+        net.fit(batches[1:], megastep=3)
+    assert net.iteration_count == 1
+
+
+def test_graph_engine_megastep_on_the_card_is_the_per_step_loop(cuda):
+    """A ComputationGraph with dropout and BatchNormalization: chunks of
+    3 (two captured replays, a per-step tail) bitwise its per-step run."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization,
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    conf = (NeuralNetConfiguration.Builder().seed(5).updater("NESTEROVS")
+            .learning_rate(0.05).graph_builder().add_inputs("in")
+            .add_layer("c0", ConvolutionLayer(
+                n_out=8, kernel_size=(3, 3), padding=(1, 1),
+                activation="identity"), "in")
+            .add_layer("bn", BatchNormalization(activation="relu"), "c0")
+            .add_layer("p0", SubsamplingLayer(pooling_type="MAX"), "bn")
+            .add_layer("fc", DenseLayer(n_out=32, activation="relu",
+                                        dropout=0.5), "p0")
+            .add_layer("out", OutputLayer(n_out=10, loss="MCXENT",
+                                          dropout=0.2, drop_connect=True),
+                       "fc")
+            .set_outputs("out")
+            .set_input_types(InputType.convolutional(16, 16, 3))
+            .build())
+    rng = np.random.RandomState(2)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    batches = [DataSet(rng.rand(16, 3, 16, 16).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
+               for _ in range(7)]
+    ref = ComputationGraph(conf, device=cuda).init()
+    mega = ComputationGraph(conf, device=cuda).init(params=ref.params)
+    ref.fit(batches)
+    mega.fit(batches, megastep=3)
+    assert mega.iteration_count == 7
+    assert _same(ref, mega)

@@ -508,8 +508,8 @@ def test_embedding_layer_gradient_matches_jax_on_one_step(rng):
         params=tser.params_from_numpy(params, "cpu"))
     xt, yt, _, _ = tnet.batch_tensors(DataSet(x, y))
     _, grads = core.grad_step(
-        lambda p, s, a, b, m, f: tnet._score_pure(p, s, a, b, m,
-                                                  train=True, fmask=f),
+        lambda p, s, a, b, m, f, rng: tnet._score_pure(
+            p, s, a, b, m, train=True, fmask=f, rng=rng),
         tnet.params, tnet.state, xt, yt, None, None)
     name = tnet.layer_names[0]
     w = grads[name]["W"].numpy()

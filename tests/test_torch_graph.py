@@ -390,6 +390,47 @@ def test_conv_graph_output_score_and_three_nesterovs_steps_match_jax():
     assert net.iteration_count == jnet.iteration_count == 3
 
 
+def jax_dropout_graph():
+    """``jax_conv_graph`` with dropout on the second conv's input, on the
+    dense vertex's input, and on the softmax head's weights
+    (drop-connect: its pre-output sees the mask of its apply)."""
+    return (JNeuralNetConfiguration.Builder().seed(5).updater("NESTEROVS")
+            .learning_rate(0.05).graph_builder().add_inputs("in")
+            .add_layer("c0", JConv(n_out=4, kernel_size=(3, 3),
+                                   padding=(1, 1), activation="relu"), "in")
+            .add_layer("p0", JPool(pooling_type="MAX"), "c0")
+            .add_layer("c1", JConv(n_out=6, kernel_size=(3, 3),
+                                   padding=(1, 1), activation="relu",
+                                   dropout=0.2), "p0")
+            .add_layer("p1", JPool(pooling_type="MAX"), "c1")
+            .add_layer("fc", JDense(n_out=16, activation="relu",
+                                    dropout=0.5), "p1")
+            .add_layer("out", JOutput(n_out=10, loss="MCXENT", dropout=0.3,
+                                      drop_connect=True), "fc")
+            .set_outputs("out")
+            .set_input_types(JInputType.convolutional(8, 8, 3))
+            .build())
+
+
+def test_graph_with_dropout_three_steps_match_jax():
+    """Vertex i of the topological order draws from ``fold_in(step key,
+    i)``, as in the JAX engine: the same masks, the same trajectory."""
+    jnet, net = _pair(jax_dropout_graph())
+    rng = np.random.RandomState(4)
+    rtol, atol = kernel_tols()
+    batches = [(_zero_free(rng, 6, 3, 8, 8), _onehot(rng, 6, 10))
+               for _ in range(3)]
+    js, ps = _fit_both(jnet, net, batches)
+    np.testing.assert_allclose(ps, js, rtol=rtol, atol=atol)
+    _check_params(net, jnet)
+    x = _zero_free(rng, 2, 3, 8, 8)
+    acts = net.feed_forward(x, train=True)
+    jacts = jnet.feed_forward(x, train=True)
+    for name in ("c1", "fc"):
+        np.testing.assert_allclose(_np(acts[name]), np.asarray(jacts[name]),
+                                   rtol=rtol, atol=atol, err_msg=name)
+
+
 def test_params_flat_round_trips_in_jax_order():
     jnet, net = _pair(jax_conv_graph())
     flat = net.params_flat()
@@ -418,14 +459,14 @@ def test_what_the_graph_does_not_carry_raises():
     x = np.zeros((2, 3, 8, 8), np.float32)
     with pytest.raises(NotImplementedError, match="rnn_time_step"):
         net.rnn_time_step(x)
-    # the transforms are carried now; megastep > 1 still raises
+    # the transforms are carried now, megastep too
     assert net.set_transforms(remat="full", scan_layers=True) is net
-    with pytest.raises(NotImplementedError, match="CUDA-graph step"):
-        net.set_transforms(megastep=2)
+    assert net.set_transforms(megastep=2).megastep == 2
     with pytest.raises(NotImplementedError, match="evaluate"):
         net.evaluate([])
-    with pytest.raises(NotImplementedError, match="megastep"):
-        net.fit(x, np.zeros((2, 10), np.float32), megastep=4)
+    # one minibatch is a partial block of 4: it runs per step
+    net.fit(x, np.eye(10, dtype=np.float32)[[0, 1]], megastep=4)
+    assert net.megastep == 4 and net.iteration_count == 1
     with pytest.raises(NotImplementedError, match="AOT"):
         net.aot_export_output((2, 3, 8, 8))
     with pytest.raises(NotImplementedError, match="ComputationGraph"):

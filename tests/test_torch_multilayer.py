@@ -273,3 +273,83 @@ def test_pooling_matches_jax(pooling_type, kernel, stride, padding):
 def test_port_import_keeps_jax_on_cpu():
     # both packages share this process; JAX stays on the CPU backend
     assert jax.default_backend() == "cpu"
+
+
+def test_narrow_alexnet_with_dropout_three_steps_match_jax():
+    """AlexNet's geometry trains as the JAX package trains it: dropout
+    0.5 on both dense layers, the same masks from the same keys
+    (``fold_in(PRNGKey(seed), iteration)``, then the layer index), three
+    NESTEROVS steps on zero-free pixels (no relu input is exactly 0)."""
+    from deeplearning4j_tpu.datasets import DataSet as JDataSet
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    jconf = narrow_alexnet()
+    jnet = JMultiLayerNetwork(jconf).init()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+        jconf.to_dict()), device="cpu").init(
+            params=params_from_numpy(_flat_params(jnet), "cpu"))
+    rng = np.random.RandomState(12)
+    rtol, atol = kernel_tols()
+    for _ in range(3):
+        x = (rng.rand(4, 3, 67, 67) * 0.9 + 0.05).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 4)]
+        jnet.fit(JDataSet(x, y))
+        net.fit(DataSet(x, y))
+        np.testing.assert_allclose(net.score_value, float(jnet.score_value),
+                                   rtol=rtol, atol=atol)
+    for key, ref in _flat_params(jnet).items():
+        ln, pn = key.rsplit("/", 1)
+        np.testing.assert_allclose(net.params[ln][pn].numpy(), ref,
+                                   rtol=rtol, atol=atol, err_msg=key)
+    # the training forward drops the dense layers' inputs as JAX does
+    x = (rng.rand(2, 3, 67, 67) * 0.9 + 0.05).astype(np.float32)
+    np.testing.assert_allclose(net.output(x, train=True).numpy(),
+                               np.asarray(jnet.output(x, train=True)),
+                               rtol=rtol, atol=atol)
+
+
+# The kernel route of each distinct conv of AlexNet's training step at
+# 224 x 224, batch 128: (forward tile, dx route, dW route), fitted to
+# scripts/torch_route_ab.py --sweep --only alexnet-train (PERF.md);
+# the stem takes no dx (its input is the data). conv5's dx takes
+# 4-channel resident groups (2.65 ms against the GEMM's 3.20 on an H100
+# 80GB HBM3 at 700 W).
+ALEXNET_TRAIN_ROUTES = {
+    "conv1": ("wide 96x128", None, "gemm"),
+    "conv2": ("wide 128x128", "gemm", "gemm"),
+    "conv3": ("wide 128x128", "gemm", "gemm"),
+    "conv4": ("wide 128x128", "gemm", "gemm"),
+    "conv5": ("wide 96x256", "resident g4", "gemm"),
+}
+
+
+def test_alexnet_train_step_shapes_and_routes_are_pinned():
+    import importlib
+
+    import chip_smoke
+
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
+
+    shapes = chip_smoke.alexnet_train_shapes()
+    assert len(shapes) == 16
+    got = {}
+    for name, kind, geo, names in shapes:
+        assert names == [name]
+        if kind == "matmul_block":
+            assert matmul_route(geo["m"], geo["n"]) == "tiled"
+            continue
+        args = (*geo["x"], geo["w"][0], *geo["w"][2:], tuple(geo["stride"]),
+                tuple(geo["padding"]))
+        if kind == "conv_block":
+            r = cb.conv_block_route(*args)
+            label = f"wide {r.tile_o}x{r.tile_px}"
+        elif kind == "conv_bwd_data":
+            r = cb.conv_bwd_data_route(*args)
+            label = (f"resident g{r.group}" if r.route == "resident"
+                     else r.route)
+        else:
+            label = cb.conv_bwd_w_route(*args).route
+        got.setdefault(name, [None, None, None])[
+            ("conv_block", "conv_bwd_data", "conv_bwd_w").index(kind)] = label
+    assert {k: tuple(v) for k, v in got.items()} == ALEXNET_TRAIN_ROUTES

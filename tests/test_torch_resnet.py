@@ -243,7 +243,7 @@ RESNET_ROUTES = {
     "s3b0_c2": ("wide 128x128", "resident g4", "gemm"),
     "s3b0_c3": ("wide 128x128", "gemm", "gemm"),
     "s3b1_c1": ("wide 128x128", "resident g32", "gemm"),
-    "s3b1_c2": ("wide 128x128", "gemm", "gemm"),
+    "s3b1_c2": ("wide 128x128", "resident g4", "gemm"),
 }
 
 

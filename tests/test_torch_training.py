@@ -320,20 +320,26 @@ def test_max_pool_gradient_goes_to_the_first_tied_maximum():
 
 
 def test_fit_refuses_what_it_does_not_carry():
-    # AlexNet's dense layers train with dropout 0.5
+    # AlexNet's dense layers train with dropout 0.5: carried now, the
+    # masks drawn from the step's key (tests/test_torch_dropout.py holds
+    # them against the JAX package's)
     net = MultiLayerNetwork(alexnet(height=67, width=67, n_classes=10),
-                            device="cpu")
-    x = np.zeros((2, 3, 67, 67), np.float32)
+                            device="cpu").init()
+    x = np.random.RandomState(0).rand(2, 3, 67, 67).astype(np.float32)
     y = np.eye(10, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="AlexNet-training"):
-        net.fit(x, y)
+    w0 = net.params[net.layer_names[-2]]["W"].clone()
+    net.fit(x, y)
+    assert net.iteration_count == 1 and np.isfinite(net.score_value)
+    assert not torch.equal(net.params[net.layer_names[-2]]["W"], w0)
     net = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
     # gradient accumulation is carried now: two microbatches, one step
     acc = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
     acc.fit(np.zeros((2, 784), np.float32), y, grad_accum=2)
     assert acc.iteration_count == 1 and acc.grad_accum == 2
-    with pytest.raises(NotImplementedError, match="CUDA-graph step"):
-        net.fit(x, y, megastep=4)
+    # megastep is carried now: one minibatch is a partial block, per step
+    ms = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
+    ms.fit(np.zeros((2, 784), np.float32), y, megastep=4)
+    assert ms.megastep == 4 and ms.iteration_count == 1
     # the divergence guard and the transforms are carried now; the
     # guard's rollback policy waits for the checkpoint manager
     net.set_divergence_guard(DivergenceGuard("skip"))

@@ -171,7 +171,7 @@ def test_gradients_match_jax():
 
     jgrads = jax.grad(jscore)(jnet.params)
 
-    def score_fn(p, state, xs, ys, mask, fmask):
+    def score_fn(p, state, xs, ys, mask, fmask, rng):
         return core.sequential_score(net.conf, net.layer_names, p, state, xs,
                                      ys, mask, train=True, fmask=fmask)
 
