@@ -133,7 +133,20 @@ non-zero (nothing is caught):
    minibatches per step and at K = 6 (trees bitwise equal, 8 readbacks,
    host ms a step and busy share both ways), the narrow AlexNet with
    dropout at K = 4 bitwise equal to its per-step run, and [guard]'s
-   poisoned run at K = 6 (the same skipped steps and trees).
+   poisoned run at K = 6 (the same skipped steps and trees);
+12. the training runtime (main paths): ``[resnet50-runtime]`` ResNet-50
+   at 224 x 224, batch 128, f32 through ``DistributedTrainer`` on an
+   NCCL world of one: A, the per-step ``fit`` of 8 batches through the
+   dispatch window (launches exact, 106 / 52 / 53 a step); B,
+   ``fit(prefetch=2, megastep=2)`` with a batch validator and quarantine
+   store, async checkpoints every 2 steps and a preemption notice after
+   step 4: the NaN batch quarantined, the emergency checkpoint at step 4
+   (stall, write and save times, bytes, the chunk's peak memory, the
+   prefetch wait); C, a fresh trainer resumes it and fits batches 5-8 as
+   chunks: bitwise run A (host ms a step and busy share of A and C, the
+   restore time); ``[lenet-rollback]`` ``DivergenceGuard("rollback")``
+   on [train]'s LeNet-5 restores the step-4 checkpoint bitwise, and a
+   SKIP guard read 2 steps late is bitwise one read at once.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -2495,6 +2508,438 @@ def run_megastep(torch, card):
     return launches
 
 
+# --- the training runtime (checkpoints, resume, preemption, prefetch,
+# batch validation, the dispatch window, the trainer's megastep) --------
+
+RUNTIME_STEPS = 8      # run A's batches; run B stops at RUNTIME_PREEMPT
+RUNTIME_PREEMPT = 4    # the simulated notice fires after this step
+RUNTIME_POISON_AFTER = 3  # the NaN batch follows this many clean ones
+RUNTIME_K = 2
+ROLLBACK_STEPS = 8
+ROLLBACK_NAN_STEP = 4  # minibatch 5 carries a NaN
+
+
+def host_trees(model) -> dict:
+    """Host copies of ``snapshot(model)`` (parameters, updater moments,
+    layer state) and the iteration count."""
+    out = {k: v.cpu() for k, v in snapshot(model).items()}
+    out["iteration_count"] = model.iteration_count
+    return out
+
+
+def same_as_host(torch, before, model) -> bool:
+    """``model``'s trees and iteration count bitwise ``before``
+    (``host_trees``)."""
+    now = host_trees(model)
+    return now.keys() == before.keys() and all(
+        (now[k] == v) if k == "iteration_count" else torch.equal(now[k], v)
+        for k, v in before.items())
+
+
+def hist_quantile(fam, q: float):
+    """The upper bound of the bucket of a registry histogram that holds
+    its ``q`` quantile (the histogram keeps counts by bucket only)."""
+    inst = fam._default()
+    total = inst.count
+    if not total:
+        return None
+    for bound, cum in inst.cumulative():
+        if cum >= q * total:
+            return bound
+    return None
+
+
+class StepClock:
+    """A listener noting the host time of each ``iteration_done``."""
+
+    def __init__(self):
+        self.steps = []
+
+    def iteration_done(self, model, iteration):
+        self.steps.append(time.perf_counter())
+
+
+class ChunkClock:
+    """A listener noting the host time of each chunk's readback."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def chunk_done(self, model, it0, k, host):
+        self.chunks.append((time.perf_counter(), k))
+
+
+def runtime_world(device, tmp):
+    """A world of one (NCCL on the card, gloo on the CPU) through a file
+    rendezvous in ``tmp``; returns its mesh."""
+    from deeplearning4j_tpu_torch.parallel import (
+        build_mesh,
+        init_distributed,
+    )
+
+    init_distributed(f"file://{tmp}/rdv", 1, 0, device=device,
+                     timeout_s=120)
+    return build_mesh()
+
+
+def run_resnet50_runtime(torch, card, device="cuda", conf=None,
+                         batch=RESNET_BATCH, hw=224):
+    """[resnet50-runtime] the training runtime under ResNet-50 at 224 x
+    224, batch 128, f32 (the zoo's ``ComputationGraph``, NESTEROVS),
+    through ``DistributedTrainer`` on an NCCL world of one, three runs
+    from the same seeded weights and batches: A, the yardstick, the
+    per-step ``fit`` over 8 batches through the dispatch window (host
+    copies of its trees kept, the model freed); B, ``fit(prefetch=2,
+    megastep=2, validator=BatchValidator(BatchSchema.from_model),
+    quarantine=QuarantineStore)`` over the batches with a NaN batch after
+    the third, a ``CheckpointListener`` of an async ``CheckpointManager``
+    every 2 steps and a ``PreemptionHandler`` notified after step 4: the
+    NaN batch is quarantined without a step, the emergency save at the
+    chunk boundary writes step 4 and ``PreemptedException.step`` is 4;
+    C, a fresh model and trainer ``resume`` the manager (step 4) and fit
+    batches 5-8 with ``prefetch=2, megastep=2``: its trees and iteration
+    count bitwise run A's. Each chunk is one CUDA-graph replay of the
+    trainer's step, its all-reduce inside. Returns the launch counts of
+    the three runs. ``device`` / ``conf`` / ``batch`` / ``hw`` cut it
+    for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.validate import (
+        BatchSchema,
+        BatchValidator,
+        QuarantineStore,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability.metrics import (
+        MetricsRegistry,
+        default_registry,
+    )
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointListener,
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.resilience.preemption import (
+        PreemptedException,
+        PreemptionHandler,
+    )
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    cuda = device == "cuda"
+    conf = conf if conf is not None else resnet50(learning_rate=0.01)
+    rng = np.random.RandomState(23)
+    batches = [DataSet(rng.randint(0, 256, (batch, 3, hw, hw),
+                                   dtype=np.uint8),
+                       np.eye(1000, dtype=np.uint8)[rng.randint(0, 1000,
+                                                                batch)])
+               for _ in range(RUNTIME_STEPS)]
+    poison = batches[RUNTIME_POISON_AFTER].features.astype(np.float32)
+    poison[1, 2, 3, 4] = np.nan
+    poisoned = (batches[:RUNTIME_POISON_AFTER]
+                + [DataSet(poison, batches[RUNTIME_POISON_AFTER].labels)]
+                + batches[RUNTIME_POISON_AFTER:])
+    init = ComputationGraph(conf, device="cpu").init().params
+    tmp = tempfile.mkdtemp(prefix="dl4j_runtime_")
+    launches = {k: 0 for k in dispatch.KERNELS}
+    res = {"batch": batch, "hw": hw, "world": 1}
+    handler = None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh(mesh):
+        model = ComputationGraph(conf, device=device).init(params=init)
+        return model, DistributedTrainer(model, mesh=mesh,
+                                         batch_stats="sync")
+
+    def count(tag, per_steps=None):
+        got = dispatch.launch_counts()
+        for k, v in got.items():
+            launches[k] += v
+        if cuda and not all(got[k] for k in ("conv_block", "conv_bwd_data",
+                                             "conv_bwd_w")):
+            raise RuntimeError(f"[resnet50-runtime] run {tag} launched "
+                               f"{got}")
+        res[f"launches_{tag}"] = {k: v for k, v in got.items() if v}
+        if per_steps and cuda:
+            want = {k: 0 for k in dispatch.KERNELS}
+            want.update(conv_block=106 * per_steps,
+                        conv_bwd_data=52 * per_steps,
+                        conv_bwd_w=53 * per_steps)
+            if got != want:
+                raise RuntimeError(f"[resnet50-runtime] run {tag}: "
+                                   f"{per_steps} steps launched {got}")
+
+    try:
+        mesh = runtime_world(device, tmp)
+        print(f"[resnet50-runtime] ResNet-50 {hw}x{hw}x3, batch {batch}, "
+              f"f32, DistributedTrainer over a {mesh.backend} world of "
+              f"{mesh.data}; A: per-step fit of {RUNTIME_STEPS} batches; "
+              f"B: prefetch=2, megastep={RUNTIME_K}, validator, async "
+              f"checkpoints every 2 steps, preempted after step "
+              f"{RUNTIME_PREEMPT}; C: resume + batches "
+              f"{RUNTIME_PREEMPT + 1}-{RUNTIME_STEPS}")
+        # -- run A: the yardstick --------------------------------------
+        model, tr = fresh(mesh)
+        clock = StepClock()
+        model.set_listeners(clock)
+        sync()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.fit(ListDataSetIterator(batches))
+        sync()
+        wall_a = time.perf_counter() - t0
+        count("A", per_steps=RUNTIME_STEPS)
+        if model.iteration_count != RUNTIME_STEPS:
+            raise RuntimeError(f"[resnet50-runtime] A took "
+                               f"{model.iteration_count} steps")
+        ref = host_trees(model)
+        res.update(steps_A=RUNTIME_STEPS,
+                   host_ms_per_step_A=wall_a / RUNTIME_STEPS * 1e3,
+                   steady_host_ms_per_step_A=(
+                       (clock.steps[-1] - clock.steps[1])
+                       / (len(clock.steps) - 2) * 1e3),
+                   score_A=model.score_value)
+        del model, tr
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        # -- run B: the whole runtime, preempted after step 4 -----------
+        reg = MetricsRegistry()
+        saves = []
+
+        class TimedManager(CheckpointManager):
+            """Each save's mode, step and training-thread time."""
+
+            def save(self, model, artifacts=None, mode=None):
+                t = time.perf_counter()
+                out = super().save(model, artifacts=artifacts, mode=mode)
+                saves.append({"mode": mode or self.mode,
+                              "step": model.iteration_count,
+                              "ms": (time.perf_counter() - t) * 1e3})
+                return out
+
+        mgr = TimedManager(f"{tmp}/ckpt", mode="async", keep_last=3,
+                           registry=reg, device=device)
+
+        class Notice:
+            def iteration_done(self, model, iteration):
+                if iteration == RUNTIME_PREEMPT:
+                    handler.notify("simulated")
+
+        model, tr = fresh(mesh)
+        model.set_listeners(CheckpointListener(mgr, frequency=2), Notice())
+        quarantine = QuarantineStore(f"{tmp}/quarantine", max_bytes=1 << 30)
+        validator = BatchValidator(BatchSchema.from_model(model))
+        wait_hist = default_registry().histogram(
+            "training_prefetch_wait_ms", buckets=(0.1, 0.5, 1.0, 2.5, 5.0,
+                                                  10.0, 25.0, 50.0, 100.0,
+                                                  250.0, 1000.0))
+        waits0 = wait_hist._default().count
+        handler = PreemptionHandler(manager=mgr).install()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            tr.fit(ListDataSetIterator(poisoned), prefetch=2,
+                   megastep=RUNTIME_K, validator=validator,
+                   quarantine=quarantine)
+            raise RuntimeError("[resnet50-runtime] B was not preempted")
+        except PreemptedException as e:
+            preempted = e
+        finally:
+            handler.uninstall()
+        sync()
+        wall_b = time.perf_counter() - t0
+        count("B")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        ents = quarantine.entries()
+        if (preempted.step != RUNTIME_PREEMPT
+                or preempted.checkpoint is None
+                or preempted.checkpoint.step != RUNTIME_PREEMPT
+                or preempted.exit_code != 75
+                or model.iteration_count != RUNTIME_PREEMPT
+                or [e["reasons"] for e in ents] != [["non_finite"]]
+                or ents[0]["offset"] != RUNTIME_POISON_AFTER):
+            raise RuntimeError(
+                f"[resnet50-runtime] B: preempted at {preempted.step} "
+                f"({preempted.checkpoint}), iteration "
+                f"{model.iteration_count}, quarantined {ents}")
+        mgr.flush()
+        write = reg.summary("checkpoint_write_ms")._default().snapshot()
+        modes = [(s["mode"], s["step"]) for s in saves]
+        if modes != [("async", 2), ("async", 4), ("sync", 4)]:
+            raise RuntimeError(f"[resnet50-runtime] B saved {modes}")
+        res.update(
+            preempted_step=preempted.step, exit_code=preempted.exit_code,
+            quarantined=[{k: e[k] for k in ("reasons", "offset", "size")}
+                         for e in ents],
+            checkpoint_steps=mgr.list_steps(),
+            checkpoint_bytes=preempted.checkpoint.size,
+            async_stall_ms=[s["ms"] for s in saves[:2]],
+            emergency_sync_save_ms=saves[2]["ms"],
+            background_write_ms=write,
+            wall_B_s=wall_b, chunk_peak_bytes=peak,
+            prefetch_waits=wait_hist._default().count - waits0,
+            prefetch_wait_ms_p50_le=hist_quantile(wait_hist, 0.5),
+            prefetch_wait_ms_p99_le=hist_quantile(wait_hist, 0.99))
+        del model, tr
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # -- run C: resume and finish ----------------------------------
+        model, tr = fresh(mesh)
+        chunks = ChunkClock()
+        model.set_listeners(chunks)
+        sync()
+        t0 = time.perf_counter()
+        step = tr.resume(mgr)
+        sync()
+        res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        if step != RUNTIME_PREEMPT:
+            raise RuntimeError(f"[resnet50-runtime] C resumed at {step}")
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.fit(ListDataSetIterator(batches[RUNTIME_PREEMPT:]), prefetch=2,
+               megastep=RUNTIME_K)
+        sync()
+        wall_c = time.perf_counter() - t0
+        count("C")
+        if not same_as_host(torch, ref, model):
+            raise RuntimeError("[resnet50-runtime] C differs from A")
+        res.update(bitwise=True, steps_C=RUNTIME_STEPS - RUNTIME_PREEMPT,
+                   host_ms_per_step_C=wall_c / (RUNTIME_STEPS
+                                                - RUNTIME_PREEMPT) * 1e3,
+                   chunks_C=len(chunks.chunks), score_C=model.score_value)
+        if len(chunks.chunks) >= 2:  # the second chunk: no capture
+            res["steady_host_ms_per_step_C"] = (
+                (chunks.chunks[-1][0] - chunks.chunks[-2][0])
+                / chunks.chunks[-1][1] * 1e3)
+        if cuda:
+            # the device work of a step: the captured chunk replayed (it
+            # trains the model on; nothing reads it afterwards)
+            graphs = list(model._megastep_graphs.values())
+            if len(graphs) != 1:
+                raise RuntimeError(f"[resnet50-runtime] {len(graphs)} "
+                                   "captures in C, expected 1")
+            chunk_ms, _ = events_ms(torch, graphs[0].graph.replay, reps=2)
+            dev = chunk_ms / RUNTIME_K
+            res.update(device_ms_per_step=dev,
+                       busy_share_A=dev / res["steady_host_ms_per_step_A"],
+                       busy_share_C=dev / res["steady_host_ms_per_step_C"])
+        del model, tr
+    finally:
+        if handler is not None:
+            handler.uninstall()
+        shutdown_distributed()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[resnet50-runtime] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_lenet_rollback(torch, card, device="cuda", dense=None):
+    """[lenet-rollback] [train]'s LeNet-5 (Adam, batch 256, synthetic
+    MNIST) through ``MultiLayerNetwork.fit`` with a ``CheckpointManager``
+    saving every 2 steps and ``DivergenceGuard("rollback",
+    checkpoint_manager=mgr)``, minibatch 5 poisoned by a NaN: the bad
+    step restores the step-4 checkpoint (bitwise the trees a listener
+    copied at step 4) and training goes on; then a SKIP-guarded run with
+    ``guard_lag=2`` bitwise the same run with ``guard_lag=0``. Returns
+    the launch counts of the phase."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointListener,
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.resilience.guard import DivergenceGuard
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(LENET_TRAIN_BATCH, allow_synthetic=True,
+                                    num_examples=LENET_TRAIN_BATCH
+                                    * ROLLBACK_STEPS)
+    batches = list(data)
+    x = batches[ROLLBACK_NAN_STEP].features.copy()
+    x[7, 300] = np.nan
+    batches[ROLLBACK_NAN_STEP] = DataSet(x, batches[ROLLBACK_NAN_STEP].labels)
+    conf = lenet() if dense is None else lenet(dense_width=dense)
+    init = MultiLayerNetwork(conf, device="cpu").init().params
+    tmp = tempfile.mkdtemp(prefix="dl4j_rollback_")
+    seen = {}
+
+    class AtStep4:
+        """Host copies of the trees the first time step 4 completes, and
+        the comparison when step 4 is reached again by the rollback."""
+
+        def iteration_done(self, model, iteration):
+            if iteration != ROLLBACK_NAN_STEP:
+                return
+            if "trees" not in seen:
+                seen["trees"] = host_trees(model)
+            else:
+                seen["restored_bitwise"] = same_as_host(
+                    torch, seen["trees"], model)
+
+    try:
+        mgr = CheckpointManager(tmp, keep_last=3, device=device)
+        net = MultiLayerNetwork(conf, device=device).init(params=init)
+        guard = DivergenceGuard("rollback", checkpoint_manager=mgr)
+        net.set_divergence_guard(guard)
+        net.set_listeners(CheckpointListener(mgr, frequency=2), AtStep4())
+        dispatch.reset_launch_counts()
+        net.fit(batches)
+        want = ROLLBACK_STEPS - 1  # the bad step is rolled back
+        if (guard.rollbacks != 1 or not seen.get("restored_bitwise")
+                or net.iteration_count != want
+                or not np.isfinite(net.score_value)):
+            raise RuntimeError(
+                f"[lenet-rollback] rollbacks {guard.rollbacks}, restored "
+                f"bitwise {seen.get('restored_bitwise')}, iteration "
+                f"{net.iteration_count} (expected {want}), score "
+                f"{net.score_value}")
+        res = {"steps": ROLLBACK_STEPS, "nan_minibatch": ROLLBACK_NAN_STEP + 1,
+               "rollbacks": guard.rollbacks, "restored_step": ROLLBACK_NAN_STEP,
+               "restored_bitwise": True, "iteration_count": net.iteration_count,
+               "checkpoints": mgr.list_steps(), "score": net.score_value}
+        lagged = []
+        for lag in (0, 2):
+            m = MultiLayerNetwork(conf, device=device).init(params=init)
+            m.guard_lag = lag
+            m.set_divergence_guard(DivergenceGuard("skip"))
+            m.fit(batches)
+            lagged.append(m)
+        if (not same_trees(torch, *lagged) or [
+                m.divergence_guard.skipped_batches for m in lagged]
+                != [[ROLLBACK_NAN_STEP]] * 2):
+            raise RuntimeError("[lenet-rollback] guard_lag=2 differs from "
+                               "guard_lag=0")
+        res.update(skip_lag2_bitwise_lag0=True,
+                   skip_skipped_batches=lagged[1].divergence_guard
+                   .skipped_batches)
+        launches = dispatch.launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[lenet-rollback] {json.dumps(res)} card={card}")
+    return launches
+
+
 def events_ms(torch, fn, reps: int = 20):
     """Device time of one ``fn()`` call over ``reps`` back-to-back calls
     timed with CUDA events, and the host's time to enqueue one: for
@@ -4096,6 +4541,10 @@ def main() -> int:
                   run_f16_loss_scale(torch, card, tokens)]
     guarded = run_guard(torch, card)
     mega = run_megastep(torch, card)
+    # the training runtime (resume, preemption, prefetch, validation, the
+    # window, the trainer's megastep) under ResNet-50, and the rollback
+    runtime = run_resnet50_runtime(torch, card)
+    rollback = run_lenet_rollback(torch, card)
     nlp = run_nlp(torch, card)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
     half_variants = {}
@@ -4132,7 +4581,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
                          + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
-                         + alex_train[k] + mega[k] + nlp[k]
+                         + alex_train[k] + mega[k] + nlp[k] + runtime[k]
+                         + rollback[k]
                          + sum(c[k] for c in half_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),

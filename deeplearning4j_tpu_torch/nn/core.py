@@ -21,12 +21,18 @@ launch, as the JAX package's does. Dropout keys: the step's is
 ``fold_in(step key, i)`` (``layer_rng``; ``nn/random.py``). ``megastep``
 (JAX's K steps a dispatch) runs K steps a chunk with one readback
 (``run_megastep_chunk``): eagerly on the CPU, on the card one replay of
-the chunk captured in a CUDA graph (``GraphedChunk``).
+the chunk captured in a CUDA graph (``GraphedChunk``). ``fit_batches``
+is both engines' epoch loop (JAX ``core.fit_batches``): the batch
+validator, the listeners' epoch hooks, the preemption check at each
+step (each chunk under megastep), and the per-step loop through an
+``AsyncDispatchWindow`` (``max_in_flight`` steps enqueued, the guard's
+flags read ``guard_lag`` steps late).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -64,15 +70,55 @@ def compute_dtype_of(conf) -> torch.dtype:
 NARROW_INTS = (torch.uint8, torch.int8, torch.int16)
 
 
-def to_device(a, device, dtype=None) -> torch.Tensor:
+def to_device(a, device, dtype=None, non_blocking: bool = False
+              ) -> torch.Tensor:
     """A host array or tensor as a contiguous tensor on ``device`` in
     ``dtype`` (JAX ``core.to_device``): uint8 / int8 / int16 data moves
     at its own width and is cast on the device, everything else is
     cast first."""
     t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
     if dtype is not None and t.dtype in NARROW_INTS:
-        t = t.to(device=device)
-    return t.to(device=device, dtype=dtype).contiguous()
+        t = t.to(device=device, non_blocking=non_blocking)
+    return t.to(device=device, dtype=dtype,
+                non_blocking=non_blocking).contiguous()
+
+
+_copy_streams = threading.local()
+
+
+def place_tree(tree, device, dtype):
+    """A tree (lists, tuples and None) of host arrays as tensors on
+    ``device`` (``to_device`` each) and the event after their copies.
+    On the card the arrays are staged in pinned memory and copied
+    non-blocking on a CUDA stream of the calling thread's own (an input
+    pipeline's worker overlaps the copies with the step on the compute
+    stream); the consumer waits on the event (``PlacedDataSet.wait``).
+    On the CPU the copies are done when this returns and the event is
+    None."""
+    tree = _map_tree_np(tree)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _map_tree(lambda t: to_device(t, device, dtype), tree), None
+    stream = getattr(_copy_streams, "stream", None)
+    if stream is None or stream.device != device:
+        stream = _copy_streams.stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        out = _map_tree(lambda t: to_device(
+            t if t.is_cuda else t.pin_memory(), device, dtype,
+            non_blocking=True), tree)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return out, ready
+
+
+def _map_tree_np(tree):
+    """Numpy arrays of a tree of lists, tuples and None as tensors (the
+    leaves ``_map_tree`` maps)."""
+    if tree is None or torch.is_tensor(tree):
+        return tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree_np(e) for e in tree)
+    return torch.from_numpy(np.ascontiguousarray(tree))
 
 
 # --- whole-net transform: activation rematerialization ----------------------
@@ -545,8 +591,9 @@ def init_transforms(model) -> None:
     """The whole-net transform knobs from the configuration's hints (JAX
     ``core.init_transforms``): ``scan_layers``, ``remat``, ``loss_scale``
     (True: DEFAULT_LOSS_SCALE), ``megastep`` 1, and no loss-scale or EWMA
-    state and no captured chunk yet. Called from both engines'
-    constructors."""
+    state and no captured chunk yet; and the runtime's: no listeners,
+    no batch validator, the dispatch window's defaults. Called from both
+    engines' constructors."""
     conf = model.conf
     model.scan_layers = bool(getattr(conf, "scan_layers", False))
     model.remat = check_remat_policy(getattr(conf, "remat", None) or "none")
@@ -557,6 +604,16 @@ def init_transforms(model) -> None:
     model._loss_scale_state = None
     model._stat_guard_state = None
     model.divergence_guard = None
+    # the runtime around the step: listeners, the batch validator and
+    # its quarantine, and the dispatch window's knobs (at most
+    # max_in_flight steps enqueued; the guard's flags read guard_lag
+    # steps late, None: max_in_flight)
+    model.listeners = []
+    model._batch_validator = None
+    model._quarantine_store = None
+    model.max_in_flight = 2
+    model.guard_lag = None
+    model._dispatch_window = None
 
 
 def set_transforms(model, scan_layers=None, remat=None, loss_scale=None,
@@ -641,9 +698,11 @@ def model_step(model, score_fn: Callable) -> Callable:
 def run_step(model, step, x, labels, mask, fmask):
     """One optimizer step of ``model`` (either engine) through ``step``:
     the scheduled learning rates, Adam's ``t``, the step's key, the
-    loss-scale and EWMA state in, the new trees, states and score out onto the model, then
-    the guard's host policy (one read of its ok flag). Returns the
-    score, a 0-d tensor on the device."""
+    loss-scale and EWMA state in, the new trees, states and score out
+    onto the model; then the guard's host policy (through the fit
+    loop's dispatch window where one is open: the flag read
+    ``guard_lag`` steps late, else at once) and the listeners. Returns
+    the score, a 0-d tensor on the device."""
     lrs = model.updater_def.scheduled_lrs(model.iteration_count)
     out = step(model.params, model.updater_state, model.state, x, labels,
                mask, lrs, model.iteration_count + 1, fmask,
@@ -655,9 +714,22 @@ def run_step(model, step, x, labels, mask, fmask):
     apply_step_out(model, out)
     model.iteration_count += 1
     model._last_score = out.score
-    if model.divergence_guard is not None:
-        model.divergence_guard.consult(model, out.ok)
+    after_step(model, model.divergence_guard, out.ok, model._dispatch_window)
     return out.score
+
+
+def after_step(model, guard, ok, window) -> None:
+    """The host side of one step: its completion event and ok flag into
+    the fit loop's dispatch window, or with none open the guard's policy
+    at once; then every listener's ``iteration_done``."""
+    from deeplearning4j_tpu_torch.parallel.dispatch import step_done_event
+
+    if window is not None:
+        window.push(step_done_event(model.device), ok)
+    elif guard is not None:
+        guard.consult(model, ok)
+    for listener in model.listeners:
+        listener.iteration_done(model, model.iteration_count)
 
 
 def apply_step_out(model, out: StepOut) -> None:
@@ -716,13 +788,20 @@ class Chunk(NamedTuple):
     """K minibatches stacked on a new leading axis (JAX ``_stack_chunk``):
     features, labels, labels masks and features masks (tensors for
     ``MultiLayerNetwork``, lists of tensors for ``ComputationGraph``;
-    masks may be None), the step count and the rows of a minibatch."""
+    masks may be None), the step count and the rows of a minibatch;
+    ``weights``: a [k, w] f32 table handed to step i as ``weights=``
+    row i (the distributed trainer's loss weights), or None."""
     xs: object
     ys: object
     lmasks: object
     fmasks: object
     k: int
     rows: int
+    weights: object = None
+
+    @property
+    def fields(self) -> tuple:
+        return (self.xs, self.ys, self.lmasks, self.fmasks, self.weights)
 
 
 def stack_fields(arrays, dtype) -> torch.Tensor:
@@ -759,9 +838,11 @@ def _leaves(tree) -> list:
 def chunk_steps(model, step, trees, fields, lr_names, lr_stack, it0,
                 base_key, steps: int):
     """``steps`` train steps of ``model`` through ``step`` (the engine's
-    cached step, any flavour): step i takes slot i of ``fields``
-    (features, labels, labels masks, features masks; narrow integers
-    cast here), the learning rates of row i of ``lr_stack`` (keys
+    cached step, any flavour, or the distributed trainer's): step i
+    takes slot i of ``fields`` (features, labels, labels masks,
+    features masks, narrow integers cast here; and a weights table,
+    row i handed on as ``weights=``, where it is not None), the
+    learning rates of row i of ``lr_stack`` (keys
     ``lr_names``, ``MultiLayerUpdaterDef.lr_table``), ``t = it0 + 1 +
     i`` and the key ``fold_in(base_key, it0 + i)`` (``it0`` a 0-d int64
     tensor, ``base_key`` ``random.key(conf.seed)``). ``trees`` = (params,
@@ -777,13 +858,16 @@ def chunk_steps(model, step, trees, fields, lr_names, lr_stack, it0,
         return _map_tree(lambda a: a[i].to(dtype) if a.dtype in NARROW_INTS
                            else a[i], tree)
 
+    weights = fields[4] if len(fields) > 4 else None
     scores, oks = [], []
     for i in range(steps):
         it = it0 + i
+        extra = {} if weights is None else {"weights": weights[i]}
         out = step(params, upd_state, state, *(slot(f, i) for f in fields[:3]),
                    {n: lr_stack[i, j] for j, n in enumerate(lr_names)},
                    (it + 1).to(torch.float32), slot(fields[3], i), ls=ls,
-                   sg=sg, rng=random.fold_in(base_key, it) if draws else None)
+                   sg=sg, rng=random.fold_in(base_key, it) if draws else None,
+                   **extra)
         params, upd_state, state = out[:3]
         ls = ls if out.loss_scale is None else out.loss_scale
         sg = sg if out.stat_guard is None else out.stat_guard
@@ -838,7 +922,7 @@ class GraphedChunk:
         self.k = chunk.k
         self.lr_names = list(lr_names)
         self.trees = _map_tree(lambda t: t.detach().clone(), trees)
-        fields = (chunk.xs, chunk.ys, chunk.lmasks, chunk.fmasks)
+        fields = chunk.fields
         self.inputs = _map_tree(
             lambda a: torch.empty(a.shape, dtype=a.dtype, device=dev), fields)
         # a pinned staging buffer for each host leaf of the fields
@@ -867,7 +951,7 @@ class GraphedChunk:
         replay."""
         if self.staged is not None:
             self.staged.synchronize()
-        fields = (chunk.xs, chunk.ys, chunk.lmasks, chunk.fmasks)
+        fields = chunk.fields
         for a, h, d in zip(_leaves(fields), self.staging,
                            _leaves(self.inputs), strict=True):
             if h is None:
@@ -889,7 +973,11 @@ class GraphedChunk:
             self._body(model, 1)
         torch.cuda.current_stream(dev).wait_stream(side)
         try:
-            with torch.cuda.graph(self.graph):
+            # thread-local capture: another thread's CUDA calls (an input
+            # pipeline's copies, the process group's watchdog) do not
+            # invalidate it
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 new_trees, self.metrics = self._body(model, self.k)
                 _copy_into(self.trees, new_trees)
         except Exception as e:
@@ -914,7 +1002,7 @@ def _graphed_chunk(model, step, chunk: Chunk, lr_names, trees) -> GraphedChunk:
     the minibatches' shapes and dtypes, the learning-rate keys, the
     remat policy and the step flavour: the engine's cached step), made
     and captured on its first use."""
-    fields = (chunk.xs, chunk.ys, chunk.lmasks, chunk.fmasks)
+    fields = chunk.fields
     sig = (chunk.k, tuple(str(f) if f is None else
                           tuple((tuple(a.shape), a.dtype)
                                 for a in _leaves(f)) for f in fields),
@@ -952,25 +1040,31 @@ def megastep_readback(chunk: Launched, guarded: bool) -> dict:
     return out
 
 
-def launch_megastep_chunk(model, chunk: Chunk) -> Launched:
+def launch_megastep_chunk(model, chunk: Chunk, step=None,
+                          stat_guard: Optional[bool] = None) -> Launched:
     """One K-step chunk of ``model`` (either engine; JAX
-    ``run_megastep_chunk``'s dispatch): eagerly on the CPU; on the card
-    the chunk's minibatches staged and one replay of its CUDA graph
-    (captured at the signature's first chunk), the metrics copied to the
-    host behind it. The model holds the chunk's trees and iteration
-    count at once (on the card, tensors the replay is still writing:
-    the stream orders every later use after it)."""
+    ``run_megastep_chunk``'s dispatch) through ``step`` (default the
+    engine's cached step; the distributed trainer passes its own):
+    eagerly on the CPU; on the card the chunk's minibatches staged and
+    one replay of its CUDA graph (captured at the signature's first
+    chunk), the metrics copied to the host behind it. The model holds
+    the chunk's trees and iteration count at once (on the card, tensors
+    the replay is still writing: the stream orders every later use
+    after it). ``stat_guard``: whether the step threads the EWMA state
+    (default: the engine's guard has a ``StatGuardConfig``)."""
     model._check_trainable()
-    canonicalize_updater_state(model)
-    check_grad_accum_batch(model.grad_accum, chunk.rows)
-    step = model._train_step()
+    if step is None:
+        canonicalize_updater_state(model)
+        check_grad_accum_batch(model.grad_accum, chunk.rows)
+        step = model._train_step()
     it0 = model.iteration_count
     lr_names, lr_rows = model.updater_def.lr_table(it0, chunk.k)
     trees = (model.params, model.updater_state, model.state,
              ensure_loss_scale_state(model) if loss_scale_active(model)
              else None,
              ensure_stat_guard_state(model)
-             if stat_guard_config(model) is not None else None)
+             if (stat_guard_config(model) is not None if stat_guard is None
+                 else stat_guard) else None)
     done = None
     if model.device.type == "cuda":
         g = _graphed_chunk(model, step, chunk, lr_names, trees)
@@ -985,8 +1079,7 @@ def launch_megastep_chunk(model, chunk: Chunk) -> Launched:
         done.record()
     else:
         fields = tuple(_map_tree(lambda a: a.to(model.device), f)
-                       for f in (chunk.xs, chunk.ys, chunk.lmasks,
-                                 chunk.fmasks))
+                       for f in chunk.fields)
         new_trees, host = chunk_steps(
             model, step, trees, fields, lr_names,
             torch.from_numpy(lr_rows), torch.tensor(it0),
@@ -1001,13 +1094,17 @@ def launch_megastep_chunk(model, chunk: Chunk) -> Launched:
     return Launched(host, done, chunk.k, chunk.rows, it0)
 
 
-def finish_megastep_chunk(model, chunk: Launched) -> dict:
+def finish_megastep_chunk(model, chunk: Launched, guard=None) -> dict:
     """The readback of a launched chunk (``megastep_readback``) and the
-    host fan-out of the guard's policy, once a chunk: ``good_step`` /
-    ``bad_step`` for each step's ok flag (the update of a bad step was
-    already suppressed on the device). Returns the read-back metrics,
-    with ``examples``."""
-    guard = model.divergence_guard
+    host fan-out of what the per-step loop does each step, once a
+    chunk: the guard's ``good_step`` / ``bad_step`` for each step's ok
+    flag (``guard``: default the engine's; the update of a bad step was
+    already suppressed on the device), then each listener's
+    ``chunk_done(model, it0, k, host)`` where it has one, else its
+    ``iteration_done`` for each step, ``score_value`` that step's score.
+    Returns the read-back metrics, with ``examples``."""
+    if guard is None:
+        guard = model.divergence_guard
     host = megastep_readback(chunk, guard is not None)
     host["examples"] = chunk.k * chunk.rows
     model._last_score = float(host["scores"][-1])
@@ -1017,6 +1114,19 @@ def finish_megastep_chunk(model, chunk: Launched) -> dict:
                 guard.good_step()
             else:
                 guard.bad_step(model, step_index=chunk.it0 + j)
+    if model.listeners:
+        per_step = []
+        for listener in model.listeners:
+            done = getattr(listener, "chunk_done", None)
+            if done is not None:
+                done(model, chunk.it0, chunk.k, host)
+            else:
+                per_step.append(listener)
+        for j in range(chunk.k):
+            model._last_score = float(host["scores"][j])
+            for listener in per_step:
+                listener.iteration_done(model, chunk.it0 + j + 1)
+        model._last_score = float(host["scores"][-1])
     return host
 
 
@@ -1025,37 +1135,114 @@ def run_megastep_chunk(model, chunk: Chunk) -> dict:
     return finish_megastep_chunk(model, launch_megastep_chunk(model, chunk))
 
 
-def fit_epoch_megastep(model, batches) -> int:
+class MegastepFeed:
+    """The megastep executor's launch-and-readback order: at most one
+    chunk in flight, read back after the next is launched, so the host
+    stages a chunk while the card runs the one before. With listeners
+    each chunk is read back as soon as it is launched, as in JAX: a
+    listener sees the model at its chunk's end, and what it does (a
+    checkpoint, a preemption notice) lands before the next chunk.
+    ``drain()`` reads the chunk in flight back (an epoch's end, a
+    preemption's quiesce)."""
+
+    def __init__(self, model, guard=None, scores: Optional[list] = None):
+        self.model = model
+        self.guard = guard
+        self.scores = scores
+        self.launched = None
+
+    def drain(self) -> None:
+        launched, self.launched = self.launched, None
+        if launched is not None:
+            host = finish_megastep_chunk(self.model, launched, self.guard)
+            if self.scores is not None:
+                self.scores.append(float(host["scores"][-1]))
+
+    def run(self, chunk: Chunk, step=None, stat_guard=None) -> None:
+        """Launch ``chunk`` (through ``step``, default the engine's),
+        then read the chunk before it back."""
+        launched = launch_megastep_chunk(self.model, chunk, step,
+                                         stat_guard)
+        self.drain()
+        self.launched = launched
+        if self.model.listeners:
+            self.drain()
+
+
+def prestacked_chunk(model, ds) -> Chunk:
+    """A ``ChunkedDataSet`` (host arrays) or ``PlacedChunk`` (tensors
+    already on the device, waited on here) as a ``Chunk`` for
+    ``model``: each field one tensor (a list of one for a
+    ``ComputationGraph``), narrow integers kept at their width."""
+    wait = getattr(ds, "wait", None)
+    if wait is not None:
+        wait()
+    dtype = dtype_of(model.conf)
+    graph = hasattr(model.conf, "vertices")
+
+    def one(a):
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+        return t if t.dtype in NARROW_INTS else t.to(dtype)
+
+    def field(a):
+        if a is None:
+            return None
+        if isinstance(a, (list, tuple)):
+            return [None if e is None else one(e) for e in a]
+        return [one(a)] if graph else one(a)
+
+    k = ds.k
+    rows = (ds.num_examples() // k)
+    return Chunk(field(ds.features), field(ds.labels),
+                 field(ds.labels_mask), field(ds.features_mask), k, rows,
+                 getattr(ds, "weights", None))
+
+
+def fit_epoch_megastep(model, batches, prefetch=None) -> int:
     """One epoch of ``batches`` (JAX ``fit_epoch_megastep``): same-shaped
     minibatches buffered into blocks of ``model.megastep`` (the engines'
-    ``_ds_scan_sig``), each block one chunk. A shorter block (the tail,
-    or one cut by a change of shapes) runs per step, as in JAX: the
-    trajectory is the same. One chunk stays in flight: the previous
-    one is read back after the next is launched, so the host stages a
-    chunk while the card runs the one before. Returns the minibatch
-    count."""
-    k = int(model.megastep)
-    state = {"buf": [], "sig": None, "launched": None}
+    ``_ds_scan_sig``), each block one chunk (``MegastepFeed``); a
+    pre-stacked block (``ChunkedDataSet`` / ``PlacedChunk``, from a
+    chunk-mode ``PrefetchIterator``) is one chunk as it comes. A shorter
+    block (the tail, or one cut by a change of shapes) runs per step, as
+    in JAX: the trajectory is the same. The preemption check runs before
+    each item; the chunk boundaries are the emergency checkpoint's
+    (staleness at most K - 1 steps). Returns the minibatch count."""
+    from deeplearning4j_tpu_torch.datasets.api import (
+        ChunkedDataSet,
+        PlacedChunk,
+    )
+    from deeplearning4j_tpu_torch.resilience import preemption
 
-    def drain():
-        if state["launched"] is not None:
-            finish_megastep_chunk(model, state["launched"])
-            state["launched"] = None
+    k = int(model.megastep)
+    feed = MegastepFeed(model)
+    state = {"buf": [], "sig": None}
 
     def flush_megastep():
         buf, state["buf"] = state["buf"], []
         if len(buf) < k:
-            drain()
+            feed.drain()
             for ds in buf:
                 model.fit_minibatch(ds)
             return
-        launched = launch_megastep_chunk(model, model._stack_chunk(buf))
-        drain()
-        state["launched"] = launched
+        feed.run(model._stack_chunk(buf))
 
     n = 0
     try:
         for ds in batches:
+            preemption.check_fit(model, window=feed, prefetch=prefetch)
+            if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
+                if state["buf"]:
+                    flush_megastep()
+                state["sig"] = None
+                if ds.k >= 2:
+                    feed.run(prestacked_chunk(model, ds))
+                else:
+                    feed.drain()
+                    for b in ds.to_datasets():
+                        model.fit_minibatch(b)
+                n += ds.k
+                continue
             s = model._ds_scan_sig(ds)
             if state["buf"] and s != state["sig"]:
                 flush_megastep()
@@ -1066,9 +1253,106 @@ def fit_epoch_megastep(model, batches) -> int:
                 flush_megastep()
         if state["buf"]:
             flush_megastep()
+        feed.drain()
     finally:
-        drain()
+        feed.launched = None
     return n
+
+
+def set_batch_validator(model, validator, quarantine=None) -> None:
+    """(Un)install the data-plane defense on a model's fit loop (JAX
+    ``core.set_batch_validator``): ``fit_batches`` wraps its iterator in
+    a ``ValidatingIterator`` that quarantines rejects to
+    ``quarantine``."""
+    model._batch_validator = validator
+    model._quarantine_store = quarantine
+
+
+def _batches_of(data, labels, graph: bool):
+    """What the engines' ``fit`` iterates: one (x, y) pair, one DataSet,
+    or the iterable itself."""
+    from deeplearning4j_tpu_torch.datasets.api import DataSet
+
+    if labels is not None:
+        if graph:
+            def as_list(v):
+                return list(v) if isinstance(v, (list, tuple)) else [v]
+            return [DataSet(features=as_list(data), labels=as_list(labels))]
+        return [DataSet(features=data, labels=labels)]
+    if hasattr(data, "features"):
+        return [data]
+    return data
+
+
+def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
+    """Both engines' epoch loop (JAX ``core.fit_batches``): the batch
+    validator (``set_batch_validator``) wraps the stream, each epoch
+    runs the listeners' ``on_epoch_start`` / ``on_epoch_end``, the
+    megastep executor where ``can_megastep`` allows it, else the
+    per-step loop through an ``AsyncDispatchWindow`` (the preemption
+    check before each step; the window drained at the epoch's end, where
+    a guard abort surfaces), and resets an iterator with ``reset()``
+    after the epoch. An exception drops the window's outstanding work
+    and dumps the flight recorder (a preemption has attached it to its
+    checkpoint already)."""
+    from deeplearning4j_tpu_torch.observability import flightrec
+    from deeplearning4j_tpu_torch.parallel.dispatch import (
+        AsyncDispatchWindow,
+    )
+    from deeplearning4j_tpu_torch.resilience import preemption
+
+    if model.params is None:
+        model.init()
+    iterator = _batches_of(data, labels, hasattr(model.conf, "vertices"))
+    validator = model._batch_validator
+    if validator is not None:
+        from deeplearning4j_tpu_torch.datasets.validate import (
+            ValidatingIterator,
+        )
+
+        if not isinstance(iterator, ValidatingIterator):
+            iterator = ValidatingIterator(
+                iterator, validator, quarantine=model._quarantine_store)
+    prefetch = iterator if hasattr(iterator, "shutdown") else None
+    window = AsyncDispatchWindow(
+        model=model, guard_fn=lambda: model.divergence_guard,
+        max_in_flight=model.max_in_flight, guard_lag=model.guard_lag)
+    try:
+        for epoch in range(epochs):
+            for listener in model.listeners:
+                if hasattr(listener, "on_epoch_start"):
+                    listener.on_epoch_start(model)
+            if can_megastep(model):
+                n_batches = fit_epoch_megastep(model, iter(iterator),
+                                               prefetch=prefetch)
+            else:
+                n_batches = 0
+                model._dispatch_window = window
+                try:
+                    for ds in iterator:
+                        preemption.check_fit(model, window=window,
+                                             prefetch=prefetch)
+                        model.fit_minibatch(ds)
+                        n_batches += 1
+                finally:
+                    model._dispatch_window = None
+                window.drain()
+            if epoch > 0 and n_batches == 0:
+                raise ValueError(
+                    "Iterator yielded no batches after the first epoch — "
+                    "a plain generator cannot be re-iterated; pass a list, "
+                    "a DataSetIterator with reset(), or epochs=1")
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for listener in model.listeners:
+                if hasattr(listener, "on_epoch_end"):
+                    listener.on_epoch_end(model)
+            model.epoch_count += 1
+    except BaseException as e:
+        window.abandon()
+        if not isinstance(e, preemption.PreemptedException):
+            flightrec.dump_on_crash("fit_exception")
+        raise
 
 
 def field_sig(a):

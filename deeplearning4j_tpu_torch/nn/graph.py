@@ -22,7 +22,9 @@ under f16 compute, the divergence and statistical guards), the
 whole-net transforms (``remat`` per layer vertex, ``scan_layers``) and
 ``fit(megastep=K)`` (K steps a chunk, on the card one CUDA-graph
 replay) are the sequential engine's (``nn/core.py``), and so are
-dropout and drop-connect: vertex i of the topological order draws from
+``fit``'s epoch loop (``core.fit_batches``: listeners, the batch
+validator, the preemption check, the dispatch window), ``resume`` /
+``fit(resume_from=)``, and dropout and drop-connect: vertex i of the topological order draws from
 ``fold_in(step key, i)``, the output vertex's pre-output with the masks
 of its ``apply``. Graph truncated BPTT, ``rnn_time_step``, AOT export,
 ``pretrain`` and ``evaluate`` are not ported: each raises, naming the
@@ -331,52 +333,54 @@ class ComputationGraph:
 
         return core.model_step(self, score_fn)
 
-    def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
-            megastep=None) -> None:
+    def fit(self, data, labels=None, *, epochs: int = 1, resume_from=None,
+            grad_accum=None, megastep=None) -> None:
         """fit(iterator) / fit(DataSet or MultiDataSet) / fit(inputs,
         labels) (reference ``ComputationGraph.fit``). ``data`` may be an
         iterable of objects with ``.features`` / ``.labels`` (a list of
         arrays each, or one array), one such object, or the inputs of an
         (inputs, labels) pair. An iterator with ``reset()`` is reset
-        after each epoch. ``grad_accum=K``: each optimizer step
-        accumulates K equal microbatches (persists until changed;
-        BatchNormalization configurations refuse it). ``megastep=K``: K
-        same-shaped minibatches a chunk, as ``MultiLayerNetwork.fit``."""
+        after each epoch. ``resume_from``, ``grad_accum=K`` (refused by
+        BatchNormalization configurations) and ``megastep=K``: as
+        ``MultiLayerNetwork.fit``; the loop is ``core.fit_batches``."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
         if megastep is not None:
             core.set_transforms(self, megastep=megastep)
-        if self.params is None:
-            self.init()
-        if labels is not None:
-            from deeplearning4j_tpu_torch.datasets.api import DataSet
+        if resume_from is not None:
+            self.resume(resume_from)
+        core.fit_batches(self, data, labels, epochs)
 
-            batches = [DataSet(features=_as_list(data),
-                               labels=_as_list(labels))]
-        elif hasattr(data, "features"):
-            batches = [data]
-        else:
-            batches = data
-        for epoch in range(epochs):
-            if core.can_megastep(self):
-                n_batches = core.fit_epoch_megastep(self, batches)
-            else:
-                n_batches = 0
-                for ds in batches:
-                    self.fit_minibatch(ds)
-                    n_batches += 1
-            if epoch > 0 and n_batches == 0:
-                raise ValueError(
-                    "Iterator yielded no batches after the first epoch — "
-                    "a plain generator cannot be re-iterated; pass a list, "
-                    "a DataSetIterator with reset(), or epochs=1")
-            if hasattr(batches, "reset"):
-                batches.reset()
-            self.epoch_count += 1
+    def resume(self, source, load_updater: bool = True) -> int:
+        """As ``MultiLayerNetwork.resume``: a checkpoint restored into
+        this graph; returns the restored step."""
+        from deeplearning4j_tpu_torch.resilience.checkpoint import (
+            restore_into,
+        )
+
+        _, step = restore_into(self, source, load_updater=load_updater)
+        return step
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def set_batch_validator(self, validator, quarantine=None) -> None:
+        """As ``MultiLayerNetwork.set_batch_validator``."""
+        core.set_batch_validator(self, validator, quarantine)
 
     def fit_minibatch(self, ds) -> torch.Tensor:
         """One minibatch through ``conf.iterations`` optimizer steps;
         returns the last step's score as a 0-d tensor on the device."""
+        from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
+
+        if isinstance(ds, ChunkedDataSet):
+            score = None
+            for b in ds.to_datasets():
+                score = self.fit_minibatch(b)
+            return score
         if self.params is None:
             self.init()
         self._check_trainable()
@@ -403,6 +407,8 @@ class ComputationGraph:
         or MultiDataSet as the step takes them: lists of tensors on the
         graph's device (or ``device``) in the configuration's dtype
         (masks: None or lists)."""
+        if hasattr(ds, "wait"):  # placed by an input pipeline
+            ds.wait()
         f, l, fm, lm = _ds_arrays(ds)
         return tuple(self._tensors(a, device) for a in (f, l, lm, fm))
 

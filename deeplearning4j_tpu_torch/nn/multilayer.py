@@ -35,8 +35,13 @@ conf.seed), iteration)`` and layer i's ``fold_in(step key, i)``
 (``nn/random.py``), in training and in ``output(train=True)``.
 ``fit(megastep=K)`` runs K steps a chunk with one readback, on the card
 one CUDA-graph replay (``core.run_megastep_chunk``); a chunk is
-bitwise the per-step loop. ``fit`` raises, naming the slice that brings
-them, for the line-search solvers and layer-wise pretraining.
+bitwise the per-step loop. ``fit`` runs the epoch loop of
+``core.fit_batches``: the listeners (``set_listeners``), the batch
+validator (``set_batch_validator``), the preemption check, and the
+dispatch window (``max_in_flight`` / ``guard_lag``); ``resume`` and
+``fit(resume_from=)`` restore a checkpoint into the network
+(``resilience/checkpoint.py``). ``fit`` raises, naming the slice that
+brings them, for the line-search solvers and layer-wise pretraining.
 """
 
 from __future__ import annotations
@@ -275,55 +280,70 @@ class MultiLayerNetwork:
 
         return core.model_step(self, score_fn)
 
-    def fit(self, data, labels=None, *, epochs: int = 1, grad_accum=None,
-            megastep=None) -> None:
+    def fit(self, data, labels=None, *, epochs: int = 1, resume_from=None,
+            grad_accum=None, megastep=None) -> None:
         """fit(DataSetIterator) / fit(DataSet) / fit(x, y) (reference
         ``fit:1048``). ``data`` may be an iterable of objects with
         ``.features`` / ``.labels`` (and optional ``.labels_mask``),
         one such object, or the features of an (x, y) pair. An iterator
-        with ``reset()`` is reset after each epoch. ``grad_accum=K``:
-        each optimizer step accumulates K equal microbatches (persists
-        until changed; BatchNormalization configurations and truncated
-        BPTT refuse it). ``megastep=K`` runs each block of K same-shaped
-        minibatches as one chunk with one readback (``core.
-        fit_epoch_megastep``; persists until changed, 1 restores the
-        per-step loop; what ``core.can_megastep`` refuses runs per
-        step)."""
+        with ``reset()`` is reset after each epoch. ``resume_from``: a
+        ``CheckpointManager`` or a checkpoint zip restored first
+        (``resume``); the caller feeds the stream from the restored
+        step. ``grad_accum=K``: each optimizer step accumulates K equal
+        microbatches (persists until changed; BatchNormalization
+        configurations and truncated BPTT refuse it). ``megastep=K``
+        runs each block of K same-shaped minibatches as one chunk with
+        one readback (``core.fit_epoch_megastep``; persists until
+        changed, 1 restores the per-step loop; what
+        ``core.can_megastep`` refuses runs per step). The loop itself is
+        ``core.fit_batches``."""
         if grad_accum is not None:
             core.set_grad_accum(self, grad_accum)
         if megastep is not None:
             core.set_transforms(self, megastep=megastep)
-        if self.params is None:
-            self.init()
-        if labels is not None:
-            from deeplearning4j_tpu_torch.datasets.api import DataSet
+        if resume_from is not None:
+            self.resume(resume_from)
+        core.fit_batches(self, data, labels, epochs)
 
-            batches = [DataSet(features=data, labels=labels)]
-        elif hasattr(data, "features"):
-            batches = [data]
-        else:
-            batches = data
-        for epoch in range(epochs):
-            if core.can_megastep(self):
-                n_batches = core.fit_epoch_megastep(self, batches)
-            else:
-                n_batches = 0
-                for ds in batches:
-                    self.fit_minibatch(ds)
-                    n_batches += 1
-            if epoch > 0 and n_batches == 0:
-                raise ValueError(
-                    "Iterator yielded no batches after the first epoch — "
-                    "a plain generator cannot be re-iterated; pass a list, "
-                    "a DataSetIterator with reset(), or epochs=1")
-            if hasattr(batches, "reset"):
-                batches.reset()
-            self.epoch_count += 1
+    def resume(self, source, load_updater: bool = True) -> int:
+        """Restore a checkpoint into this network (its configuration
+        must match): the parameters, updater state, layer state and the
+        iteration and epoch counts. ``source`` is a
+        ``resilience.CheckpointManager`` (its newest restorable version,
+        falling back past corrupted ones) or a checkpoint zip. Returns
+        the restored step. The continuation is exact: the step keys,
+        the learning-rate schedule and Adam's ``t`` derive from the
+        iteration count."""
+        from deeplearning4j_tpu_torch.resilience.checkpoint import (
+            restore_into,
+        )
+
+        _, step = restore_into(self, source, load_updater=load_updater)
+        return step
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def set_batch_validator(self, validator, quarantine=None) -> None:
+        """(Un)install the data-plane defense on ``fit`` (a
+        ``datasets.BatchValidator``; rejects go to ``quarantine``, a
+        ``QuarantineStore``, and do not advance the iteration count)."""
+        core.set_batch_validator(self, validator, quarantine)
 
     def fit_minibatch(self, ds) -> torch.Tensor:
         """One minibatch through ``conf.iterations`` optimizer steps, or
         under truncated BPTT one step a chunk; returns the last step's
         score as a 0-d tensor on the device."""
+        from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
+
+        if isinstance(ds, ChunkedDataSet):
+            score = None
+            for b in ds.to_datasets():
+                score = self.fit_minibatch(b)
+            return score
         if self.params is None:
             self.init()
         self._check_trainable()
@@ -348,6 +368,8 @@ class MultiLayerNetwork:
         ``device``) in the configuration's dtype (masks may be None)."""
         dtype = core.dtype_of(self.conf)
         dev = self.device if device is None else device
+        if hasattr(ds, "wait"):  # placed by an input pipeline
+            ds.wait()
         return tuple(None if a is None else core.to_device(a, dev, dtype)
                      for a in (ds.features, ds.labels,
                                getattr(ds, "labels_mask", None),

@@ -42,9 +42,19 @@ meet in collectives (NCCL on the card, gloo on the CPU):
   world of N draws what one process draws; ``"local"`` draws each
   shard's own from ``fold_in(key, rank)``, as JAX's shard_map step.
 
-Tensor parallelism, megastep dispatch (``fit_megachunk``), ``resume``,
-prefetching and batch validation are not ported: each raises, naming
-the slice that brings it.
+``fit`` is the JAX trainer's pipelined loop: ``prefetch=N`` runs the
+batch's host work and its copy to the device (``place_minibatch``: this
+rank's rows, pinned, copied on a CUDA stream of the prefetch worker's
+own) on a ``PrefetchIterator`` worker; ``validator`` / ``quarantine``
+screen every batch there first (``datasets/validate.py``); steps go
+through an ``AsyncDispatchWindow`` (``max_in_flight`` enqueued, the
+guard's flags read ``guard_lag`` steps late; a rollback guard reads at
+once); ``megastep=K`` runs blocks of K steps as one chunk of this
+trainer's own step, its fused all-reduce included (``fit_megachunk``,
+``place_chunk``): on the card one CUDA-graph replay, on gloo CPU ranks
+eagerly; the preemption check runs before each step (each chunk) and
+listeners fire per step. ``resume`` restores a checkpoint into the
+model. Tensor parallelism is not ported and raises.
 """
 
 from __future__ import annotations
@@ -60,8 +70,6 @@ import torch.distributed as dist
 from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grads
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, build_mesh
-
-_RUNTIME_SLICE = "the runtime subsystems slice"
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -119,13 +127,15 @@ class DistributedTrainer:
 
     def __init__(self, model, mesh: Optional[Mesh] = None,
                  tensor_parallel: bool = False, batch_stats: str = "auto",
-                 divergence_guard=None, zero: bool = False):
+                 divergence_guard=None, zero: bool = False,
+                 max_in_flight: int = 2, guard_lag: Optional[int] = None):
         """``batch_stats``: ``"sync"`` (BatchNormalization sees the global
         batch: the single-device math), ``"local"`` (each rank's own
         shard, the reference's worker semantics; running statistics
         averaged after each step) or ``"auto"`` (local exactly where it
         equals sync: no batch statistics, no dropout, no masks).
-        ``zero=True`` shards the optimizer state 1/N over the ranks."""
+        ``zero=True`` shards the optimizer state 1/N over the ranks.
+        ``max_in_flight`` / ``guard_lag``: ``fit``'s dispatch window."""
         if batch_stats not in ("auto", "sync", "local"):
             raise ValueError(
                 f"batch_stats must be auto|sync|local, got {batch_stats!r}")
@@ -140,6 +150,9 @@ class DistributedTrainer:
                 "keeps per-rank replicated updater state, exactly what "
                 "zero removes")
         self.model = model
+        self.max_in_flight = int(max_in_flight)
+        self.guard_lag = guard_lag
+        self._steps = {}
         self.set_divergence_guard(divergence_guard)
         self.mesh = mesh if mesh is not None else build_mesh(
             device=model.device)
@@ -386,6 +399,113 @@ class DistributedTrainer:
         return not (self._uses_batch_statistics() or has_masks or any(
             layer.dropout > 0.0 for layer in self.model.layer_confs()))
 
+    # -- placement --------------------------------------------------------------
+
+    def _prepare(self, ds):
+        """The host half of a step: the batch's fields (padded where a
+        trailing batch does not split over the ranks), this rank's rows
+        of each microbatch concatenated, each microbatch's loss weights,
+        whether the local step runs, and the global row count."""
+        m = self.model
+        fields = self._fields(ds)
+        batch_n = int(fields[0][0].shape[0])
+        n, k = self.mesh.data, int(m.grad_accum)
+        if k > 1 and batch_n % (k * n) != 0:
+            raise ValueError(
+                f"grad_accum={k} on a {n}-wide data mesh needs the batch "
+                f"to split into {k} microbatches of whole shards; got "
+                f"batch size {batch_n} (make it a multiple of {k * n})")
+        if batch_n % n != 0:
+            fields = self._pad(fields, batch_n)
+        padded_n = int(fields[0][0].shape[0])
+        has_masks = any(a is not None for v in fields[2:] if v
+                        for a in v)
+        local = self._use_local(has_masks)
+        micro = self._rows(padded_n, k)
+        weights = [self._weights(fields, rows, j, local, k)
+                   for j, rows in enumerate(micro)]
+        mine = self._local_dataset(fields, np.concatenate(micro))
+        return mine, weights, local, has_masks, batch_n
+
+    def _layout(self, ds):
+        """(features, labels, labels mask, features mask) of a host
+        batch in the engine's layout: arrays for a
+        ``MultiLayerNetwork``, lists for a ``ComputationGraph``."""
+        if self._is_graph:
+            from deeplearning4j_tpu_torch.nn.graph import _ds_arrays
+
+            f, l, fm, lm = _ds_arrays(ds)
+            return f, l, lm, fm
+        return (ds.features, ds.labels, getattr(ds, "labels_mask", None),
+                getattr(ds, "features_mask", None))
+
+    def place_minibatch(self, ds):
+        """This rank's rows of one global minibatch, padded and masked
+        where needed, cast and copied to the device (JAX
+        ``place_minibatch``): a ``PlacedDataSet`` with the microbatches'
+        loss weights. On the card the copies run on the calling thread's
+        own CUDA stream from pinned memory, so ``PrefetchIterator(base,
+        placement=trainer.place_minibatch)`` overlaps them with the step
+        (the step waits on their event). An already placed batch passes
+        through."""
+        from deeplearning4j_tpu_torch.datasets.api import PlacedDataSet
+
+        if isinstance(ds, PlacedDataSet):
+            return ds
+        mine, weights, local, has_masks, batch_n = self._prepare(ds)
+        x, y, lm, fm = self._layout(mine)
+        (x, y, lm, fm), ready = core.place_tree(
+            (x, y, lm, fm), self.model.device, core.dtype_of(self.model.conf))
+        return PlacedDataSet(x, y, features_mask=fm, labels_mask=lm,
+                             num_rows=batch_n, has_masks=has_masks,
+                             weights=weights, local=local, ready=ready)
+
+    def place_chunk(self, batches):
+        """K same-shaped global minibatches as one placed block (JAX
+        ``place_chunk``): this rank's rows of each stacked ``[k, ...]``
+        and copied to the device in one go, with a ``[k, w]`` table of
+        each step's loss weights; the megastep feed's placement, run on
+        the prefetch worker by ``PrefetchIterator(megastep=K,
+        chunk_placement=trainer.place_chunk)``. Accepts a list of host
+        batches or a ``ChunkedDataSet``."""
+        from deeplearning4j_tpu_torch.datasets.api import (
+            ChunkedDataSet,
+            PlacedChunk,
+        )
+
+        if isinstance(batches, PlacedChunk):
+            return batches
+        if isinstance(batches, ChunkedDataSet):
+            batches = batches.to_datasets()
+        prepared = [self._prepare(b) for b in batches]
+        locals_ = {p[2] for p in prepared}
+        if len(locals_) != 1:
+            raise ValueError("a megastep block mixes masked and unmasked "
+                             "batches; they take different steps")
+        laid = [self._layout(p[0]) for p in prepared]
+
+        def stack(i):
+            first = laid[0][i]
+            if first is None:
+                return None
+            if isinstance(first, list):
+                return [None if first[j] is None else
+                        np.stack([np.asarray(b[i][j]) for b in laid])
+                        for j in range(len(first))]
+            return np.stack([np.asarray(b[i]) for b in laid])
+
+        table = np.asarray([[w for ws, wr in p[1] for w in (*ws, wr)]
+                            for p in prepared], np.float32)
+        (x, y, lm, fm), ready = core.place_tree(
+            tuple(stack(i) for i in range(4)), self.model.device,
+            core.dtype_of(self.model.conf))
+        wt, wready = core.place_tree(table, self.model.device, None)
+        if wready is not None:  # one event after both copies
+            ready = wready
+        return PlacedChunk(x, y, features_mask=fm, labels_mask=lm,
+                           num_rows=sum(p[4] for p in prepared),
+                           weights=wt, local=locals_.pop(), ready=ready)
+
     # -- the step -------------------------------------------------------------
 
     def _score_fn(self, weights):
@@ -439,25 +559,24 @@ class DistributedTrainer:
         g = self.divergence_guard
         return g.stats if g is not None else None
 
-    def _zero_update(self, grads, lrs, t):
+    def _zero_update(self, grads, params, upd_state, lrs, t):
         """ZeRO-1: the rule on this rank's slice of every parameter, then
         one all-gather of the updated slices."""
-        m = self.model
-        upd = m.updater_def
+        upd = self.model.updater_def
         new_upd, mine, order = {}, [], []
         for ln, lg in grads.items():
             lg = normalize_layer_grads(upd.settings[ln], lg)
             new_upd[ln] = {}
             for pn, g in lg.items():
-                p_sl = self._flat_slice(m.params[ln][pn], ln, pn)
+                p_sl = self._flat_slice(params[ln][pn], ln, pn)
                 g_sl = self._flat_slice(g, ln, pn)
                 p_new, new_upd[ln][pn] = upd.update_param(
-                    ln, pn, g_sl, m.updater_state[ln][pn], p_sl, lrs, t)
+                    ln, pn, g_sl, upd_state[ln][pn], p_sl, lrs, t)
                 mine.append(p_new)
                 order.append((ln, pn))
-        new_params = {ln: {} for ln in m.params}
+        new_params = {ln: {} for ln in params}
         if not order:
-            return m.params, new_upd
+            return params, new_upd
         flat = torch.cat(mine)
         parts = ([flat] if not self._collective else
                  [torch.empty_like(flat) for _ in range(self.mesh.data)])
@@ -465,147 +584,344 @@ class DistributedTrainer:
             dist.all_gather(parts, flat)
         off = 0
         for (ln, pn), sl in zip(order, mine):
-            p = m.params[ln][pn]
+            p = params[ln][pn]
             size = sl.numel()
             full = torch.cat([q[off:off + size] for q in parts])
             new_params[ln][pn] = full[:p.numel()].view_as(p).clone()
             off += size
         return new_params, new_upd
 
-    def fit_minibatch(self, ds) -> torch.Tensor:
-        """One synchronous data-parallel step on the global minibatch
-        ``ds`` (every rank passes the same one); returns the global score
-        as a 0-d tensor on the device."""
+    def _step_for(self, local: bool):
+        """The trainer's step for the model's current flavours (cached:
+        a megastep chunk is captured once for each step function):
+        ``step(params, upd_state, state, x, labels, lmask, lrs, t,
+        fmask=None, ls=None, sg=None, rng=None, weights=None) ->
+        StepOut`` on this rank's rows (the microbatches' shards
+        concatenated), with ``weights`` each microbatch's ``([one an
+        output], penalty)`` loss weights, as host numbers or a row of
+        a chunk's table. The microbatches' gradients, the one fused
+        all-reduce, then ``core.finish_step`` (loss scaling, the guard,
+        ZeRO's sliced update)."""
+        m = self.model
+        key = (local, int(m.grad_accum), core.loss_scale_active(m),
+               id(self._sg_config()), self.divergence_guard is not None,
+               self.zero, m.remat)
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = self._build_step(local)
+        return step
+
+    def _build_step(self, local: bool):
+        m = self.model
+        k, n, rank = int(m.grad_accum), self.mesh.data, self.mesh.rank
+        n_out = len(m.conf.outputs) if self._is_graph else 1
+        guarded = self.divergence_guard is not None
+        sg_cfg = self._sg_config()
+        ls_on = core.loss_scale_active(m)
+        recurrent = m.recurrent_names()
+
+        def unpack(weights):
+            if not torch.is_tensor(weights):
+                return weights
+            w = n_out + 1
+            return [([weights[j * w + i] for i in range(n_out)],
+                     weights[j * w + n_out]) for j in range(k)]
+
+        def step(params, upd_state, state, x, labels, lmask, lrs, t,
+                 fmask=None, ls=None, sg=None, rng=None, weights=None):
+            wts = unpack(weights)
+            micro = list(zip(*(core.split_rows(a, k)
+                               for a in (x, labels, lmask, fmask))))
+            shard = int(core.split_rows(x, k)[0][0].shape[0]
+                        if self._is_graph else micro[0][0].shape[0])
+            # dropout: the synchronous step draws the global mask, each
+            # rank its rows of it (microbatch j from fold_in(key, j), as
+            # in JAX's accumulation); the local step draws a mask of its
+            # own shard from fold_in(key, rank), as JAX's shard_map step
+            key = rng
+            if key is not None and local:
+                key = random.fold_in(key, rank)
+            scale = None if ls is None else ls["scale"]
+
+            def micro_grads(j, st):
+                xj, yj, lmj, fmj = micro[j]
+                kj = key if k == 1 or key is None else random.fold_in(key, j)
+                window = (contextlib.nullcontext() if local else
+                          random.row_window(rank * shard, shard))
+                with window:
+                    return core.grad_step(self._score_fn(wts[j]), params,
+                                          st, xj, yj, lmj, fmj, scale=scale,
+                                          rng=kj)
+
+            # (the layers import the kernels, whose attention imports
+            # this package: imported here, not at the top)
+            from deeplearning4j_tpu_torch.nn.layers.convolution import (
+                global_batch_statistics,
+            )
+
+            # sync statistics over a group; one process's batch is global
+            ctx = (contextlib.nullcontext() if local or not self._collective
+                   else global_batch_statistics(_AllReduceSum.apply, n))
+            with ctx:
+                if k > 1:
+                    (score, new_state), grads = core.accum_grad_step(
+                        micro_grads, k, state, recurrent)
+                else:
+                    (score, new_state), grads = micro_grads(0, state)
+            grads, score, new_state = self._fused_all_reduce(
+                grads, score, new_state, local)
+            # after the all-reduce the gradients and score are the same on
+            # every rank, so the finite probe and the guard's select are
+            return core.finish_step(
+                m.updater_def, grads, score, new_state, params, upd_state,
+                state, lrs, t, guarded=guarded,
+                ls=ls if ls_on else None, sg=sg, sg_cfg=sg_cfg,
+                update=(functools.partial(self._zero_update, params=params,
+                                          upd_state=upd_state, lrs=lrs, t=t)
+                        if self.zero else None))
+
+        return step
+
+    def _check_zero_layout(self) -> None:
         m = self.model
         m._check_trainable()
         if self.zero and m._zero_layout != {"shards": self.mesh.data}:
-            # the engine's own fit gathered the moments in between
+            # the engine's own fit (or a restore) made the moments
+            # canonical in between
             core.canonicalize_updater_state(m)
             self._shard_updater_state()
-        fields = self._fields(ds)
-        batch_n = int(fields[0][0].shape[0])
-        n, k = self.mesh.data, int(m.grad_accum)
-        if k > 1 and batch_n % (k * n) != 0:
-            raise ValueError(
-                f"grad_accum={k} on a {n}-wide data mesh needs the batch "
-                f"to split into {k} microbatches of whole shards; got "
-                f"batch size {batch_n} (make it a multiple of {k * n})")
-        if batch_n % n != 0:
-            fields = self._pad(fields, batch_n)
-        padded_n = int(fields[0][0].shape[0])
-        has_masks = any(a is not None for v in fields[2:] if v
-                        for a in v)
-        local = self._use_local(has_masks)
-        micro = self._rows(padded_n, k)
-        batches = [m.batch_tensors(self._local_dataset(fields, rows))
-                   for rows in micro]
-        weights = [self._weights(fields, rows, j, local, k)
-                   for j, rows in enumerate(micro)]
 
+    def fit_minibatch(self, ds, _window=None) -> torch.Tensor:
+        """One synchronous data-parallel step on the global minibatch
+        ``ds`` (every rank passes the same one; or a ``PlacedDataSet``
+        from ``place_minibatch``); returns the global score as a 0-d
+        tensor on the device."""
+        m = self.model
+        self._check_zero_layout()
+        placed = self.place_minibatch(ds).wait()
         ls = (core.ensure_loss_scale_state(m)
               if core.loss_scale_active(m) else None)
-        sg_cfg = self._sg_config()
-        sg = core.ensure_stat_guard_state(m) if sg_cfg is not None else None
-
-        # dropout: the synchronous step draws the global mask, each rank
-        # its rows of it (microbatch j from fold_in(key, j), as in JAX's
-        # accumulation); the local step draws a mask of its own shard
-        # from fold_in(key, rank), as JAX's shard_map step does
-        rng = core.step_rng(m, m.iteration_count)
-        if rng is not None and local:
-            rng = random.fold_in(rng, self.mesh.rank)
-        shard = padded_n // (k * n)
-
-        def micro_grads(j, st):
-            x, y, lm, fm = batches[j]
-            key = rng if k == 1 or rng is None else random.fold_in(rng, j)
-            window = (contextlib.nullcontext() if local else
-                      random.row_window(self.mesh.rank * shard, shard))
-            with window:
-                return core.grad_step(
-                    self._score_fn(weights[j]), m.params, st, x, y, lm, fm,
-                    scale=None if ls is None else ls["scale"], rng=key)
-
-        # (the layers import the kernels, whose attention imports this
-        # package: imported here, not at the top)
-        from deeplearning4j_tpu_torch.nn.layers.convolution import (
-            global_batch_statistics,
-        )
-
-        # sync statistics over a group; one process's batch is global
-        ctx = (contextlib.nullcontext() if local or not self._collective
-               else global_batch_statistics(_AllReduceSum.apply, n))
-        with ctx:
-            if k > 1:
-                (score, new_state), grads = core.accum_grad_step(
-                    micro_grads, k, m.state, m.recurrent_names())
-            else:
-                (score, new_state), grads = micro_grads(0, m.state)
-        grads, score, new_state = self._fused_all_reduce(
-            grads, score, new_state, local)
-        lrs = m.updater_def.scheduled_lrs(m.iteration_count)
-        t = m.iteration_count + 1
-        # after the all-reduce the gradients and score are the same on
-        # every rank, so the finite probe and the guard's select are too
-        out = core.finish_step(
-            m.updater_def, grads, score, new_state, m.params,
-            m.updater_state, m.state, lrs, t,
-            guarded=self.divergence_guard is not None, ls=ls, sg=sg,
-            sg_cfg=sg_cfg,
-            update=(functools.partial(self._zero_update, lrs=lrs, t=t)
-                    if self.zero else None))
+        sg = (core.ensure_stat_guard_state(m)
+              if self._sg_config() is not None else None)
+        out = self._step_for(placed.local)(
+            m.params, m.updater_state, m.state, placed.features,
+            placed.labels, placed.labels_mask,
+            m.updater_def.scheduled_lrs(m.iteration_count),
+            m.iteration_count + 1, placed.features_mask, ls=ls, sg=sg,
+            rng=core.step_rng(m, m.iteration_count), weights=placed.weights)
         core.apply_step_out(m, out)
         m.iteration_count += 1
         m._last_score = out.score
-        m._last_batch_rows = batch_n
-        if self.divergence_guard is not None:
-            self.divergence_guard.consult(m, out.ok)
+        m._last_batch_rows = placed.num_examples()
+        core.after_step(m, self.divergence_guard, out.ok, _window)
         m._reset_recurrent_state()
         return out.score
+
+    def _can_megastep(self) -> bool:
+        """Megastep under this trainer (JAX ``_can_megastep``): the
+        model's eligibility (``core.can_megastep``) and no rollback
+        policy on the trainer's own guard."""
+        from deeplearning4j_tpu_torch.resilience.guard import ROLLBACK
+
+        g = self.divergence_guard
+        if g is not None and g.policy == ROLLBACK:
+            return False
+        return core.can_megastep(self.model)
+
+    def _launch_chunk(self, chunk, feed):
+        """One placed block through ``feed`` (``core.MegastepFeed``) as a
+        chunk of this trainer's step."""
+        self._check_zero_layout()
+        c = core.prestacked_chunk(self.model, chunk)
+        feed.run(c, step=self._step_for(chunk.local),
+                 stat_guard=self._sg_config() is not None)
+
+    def fit_megachunk(self, chunk) -> float:
+        """One K-step chunk of the trainer's step from a placed block
+        (``place_chunk``; a list of host batches is placed here), read
+        back at once: returns the chunk's last score."""
+        from deeplearning4j_tpu_torch.datasets.api import PlacedChunk
+
+        if not isinstance(chunk, PlacedChunk):
+            chunk = self.place_chunk(chunk)
+        feed = core.MegastepFeed(self.model, guard=self.divergence_guard)
+        self._launch_chunk(chunk, feed)
+        feed.drain()
+        return float(self.model._last_score)
+
+    def _fit_epoch_megastep(self, source, window) -> list:
+        """One megastep epoch (JAX ``_fit_epoch_megastep``): the stream
+        grouped into blocks of K (or taken as placed blocks from a
+        chunk-mode prefetch), each one chunk, one in flight; a lone or
+        multi-input batch takes the per-step step. The preemption check
+        runs before each item, so the chunk boundaries are the
+        emergency checkpoint's. Returns the scores (a step's as a
+        tensor, a chunk's last as a float), in order."""
+        from deeplearning4j_tpu_torch.datasets.api import (
+            ChunkedDataSet,
+            PlacedChunk,
+            PlacedDataSet,
+        )
+        from deeplearning4j_tpu_torch.datasets.prefetch import _chunk_sig
+        from deeplearning4j_tpu_torch.resilience import preemption
+
+        m = self.model
+        k_target = int(m.megastep)
+        scores = []
+        feed = core.MegastepFeed(m, guard=self.divergence_guard,
+                                 scores=scores)
+
+        class _Quiesce:  # the preemption path drains both
+            @staticmethod
+            def drain():
+                feed.drain()
+                window.drain()
+
+        buf, sig = [], None
+
+        def single(ds):
+            feed.drain()
+            scores.append(self.fit_minibatch(ds, _window=window))
+
+        def flush():
+            nonlocal buf
+            if len(buf) == 1:
+                single(buf[0])
+            elif buf:
+                window.drain()
+                self._launch_chunk(self.place_chunk(buf), feed)
+            buf = []
+
+        prefetch = source if hasattr(source, "shutdown") else None
+        try:
+            for ds in iter(source):
+                preemption.check_fit(m, window=_Quiesce, prefetch=prefetch)
+                if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
+                    flush()
+                    sig = None
+                    if ds.k >= 2:
+                        window.drain()
+                        self._launch_chunk(self.place_chunk(ds), feed)
+                    else:
+                        for b in ds.to_datasets():
+                            single(b)
+                    continue
+                if isinstance(ds, PlacedDataSet) or isinstance(
+                        ds.features, (list, tuple)):
+                    flush()
+                    sig = None
+                    single(ds)
+                    continue
+                s = _chunk_sig(ds)
+                if buf and s != sig:
+                    flush()
+                sig = s
+                buf.append(ds)
+                if len(buf) >= k_target:
+                    flush()
+            flush()
+            feed.drain()
+        finally:
+            feed.launched = None
+        return scores
 
     def fit(self, iterator, epochs: int = 1,
             prefetch: Optional[int] = None,
             grad_accum: Optional[int] = None,
             megastep: Optional[int] = None,
             validator=None, quarantine=None) -> list:
-        """``epochs`` passes of ``iterator`` (every rank iterates the
-        same global minibatches), one step each; returns the per-epoch
-        mean scores. ``grad_accum=K`` sets the model's microbatch count
-        (it persists, as on the engines). The iterator is reset after
-        each epoch, also when an exception unwinds it."""
-        if prefetch:
-            raise NotImplementedError(
-                "prefetch: the prefetching input pipeline arrives with "
-                + _RUNTIME_SLICE + " (datasets/prefetch.py)")
-        if validator is not None or quarantine is not None:
-            raise NotImplementedError(
-                "batch validation and quarantine arrive with "
-                + _RUNTIME_SLICE + " (datasets/validate.py)")
-        if megastep is not None and int(megastep) != 1:
-            raise NotImplementedError(
-                "megastep arrives with " + _RUNTIME_SLICE)
+        """``epochs`` passes of ``iterator`` (every rank iterates the same
+        global minibatches), pipelined (JAX ``DistributedTrainer.fit``):
+        ``prefetch=N`` wraps the iterator in a depth-N
+        ``PrefetchIterator`` placing each batch (``place_minibatch``; a
+        block of K under megastep, ``place_chunk``) on its worker;
+        ``validator`` (default the model's ``set_batch_validator`` one)
+        screens every batch first, on the worker when prefetching,
+        quarantining rejects to ``quarantine`` without advancing the
+        iteration count; steps go through an ``AsyncDispatchWindow``;
+        ``megastep=K`` runs blocks of K as chunks (``fit_megachunk``;
+        the knob persists on the model, as ``grad_accum=K`` does). The
+        trajectory is bitwise the synchronous per-step loop's. Returns
+        the per-epoch mean scores (the one read each epoch). The source
+        is reset after each epoch, also when an exception unwinds it."""
+        from deeplearning4j_tpu_torch.observability import flightrec
+        from deeplearning4j_tpu_torch.parallel.dispatch import (
+            AsyncDispatchWindow,
+        )
+        from deeplearning4j_tpu_torch.resilience import preemption
+
         m = self.model
         if grad_accum is not None:
             core.set_grad_accum(m, grad_accum)
+        if megastep is not None:
+            core.set_transforms(m, megastep=megastep)
+        use_mega = self._can_megastep()
+        if validator is None:
+            validator = m._batch_validator
+        if validator is not None:
+            from deeplearning4j_tpu_torch.datasets.validate import (
+                ValidatingIterator,
+            )
+
+            if quarantine is None:
+                quarantine = m._quarantine_store
+            if not isinstance(iterator, ValidatingIterator):
+                iterator = ValidatingIterator(iterator, validator,
+                                              quarantine=quarantine)
+        source = iterator
+        owned_prefetch = None
+        if prefetch is not None and int(prefetch) > 0:
+            from deeplearning4j_tpu_torch.datasets.prefetch import (
+                PrefetchIterator,
+            )
+
+            if not isinstance(iterator, PrefetchIterator):
+                source = owned_prefetch = PrefetchIterator(
+                    iterator, queue_depth=int(prefetch),
+                    placement=self.place_minibatch,
+                    megastep=int(m.megastep) if use_mega else 1,
+                    chunk_placement=self.place_chunk)
+        window = AsyncDispatchWindow(
+            model=m, guard_fn=lambda: self.divergence_guard,
+            max_in_flight=self.max_in_flight, guard_lag=self.guard_lag)
+        prefetching = source if hasattr(source, "shutdown") else None
         epoch_scores = []
-        for _ in range(epochs):
-            scores = []
-            try:
-                for ds in iterator:
-                    scores.append(self.fit_minibatch(ds))
-            finally:
-                if hasattr(iterator, "reset"):
-                    iterator.reset()
-            epoch_scores.append(float(torch.stack(scores).mean())
-                                if scores else float("nan"))
-            m.epoch_count += 1
+        try:
+            for _ in range(epochs):
+                for listener in m.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(m)
+                scores = []
+                try:
+                    if use_mega:
+                        scores = self._fit_epoch_megastep(source, window)
+                    else:
+                        for ds in iter(source):
+                            preemption.check_fit(m, window=window,
+                                                 prefetch=prefetching)
+                            scores.append(self.fit_minibatch(
+                                ds, _window=window))
+                    window.drain()
+                finally:
+                    if hasattr(source, "reset"):
+                        source.reset()
+                epoch_scores.append(float(torch.stack([
+                    (s if torch.is_tensor(s) else torch.tensor(s)).float()
+                    .to(m.device) for s in scores]).mean())
+                    if scores else float("nan"))
+                for listener in m.listeners:
+                    if hasattr(listener, "on_epoch_end"):
+                        listener.on_epoch_end(m)
+                m.epoch_count += 1
+        except BaseException as e:
+            window.abandon()
+            if not isinstance(e, preemption.PreemptedException):
+                flightrec.dump_on_crash("fit_exception")
+            raise
+        finally:
+            if owned_prefetch is not None:
+                owned_prefetch.shutdown()
         return epoch_scores
-
-    # -- what the port does not carry yet ------------------------------------
-
-    def fit_megachunk(self, chunk):
-        raise NotImplementedError("megastep (fit_megachunk) arrives with "
-                                  + _RUNTIME_SLICE)
 
     def set_divergence_guard(self, guard) -> None:
         """(Un)install a ``resilience.DivergenceGuard`` on the trainer's
@@ -622,7 +938,19 @@ class DistributedTrainer:
         self.model._ckpt_guard = guard
 
     def resume(self, source, load_updater: bool = True) -> int:
-        raise NotImplementedError(
-            "resume from a checkpoint manager arrives with "
-            + _RUNTIME_SLICE + " (resilience/checkpoint.py)")
+        """Restore a checkpoint into the trainer's model (JAX
+        ``DistributedTrainer.resume``): the parameters, updater state,
+        layer state and step count from ``source``, a
+        ``CheckpointManager`` (its newest restorable version) or a
+        checkpoint zip; every rank restores the same bytes, and a
+        ``zero=True`` trainer re-shards the canonical moments at its
+        next step. Returns the restored step, so the caller can skip the
+        batches already consumed. The continuation is exact: keys,
+        schedules and Adam's ``t`` derive from the step count."""
+        from deeplearning4j_tpu_torch.resilience.checkpoint import (
+            restore_into,
+        )
 
+        _, step = restore_into(self.model, source,
+                               load_updater=load_updater)
+        return step

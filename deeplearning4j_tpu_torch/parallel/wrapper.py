@@ -11,7 +11,9 @@ and steps them under ``vmap``; here each replica is a copy of the
 model's parameters, updater state and layer state on a device of the
 caller's (``devices``; all on the model's device by default, so on one
 card they all sit on it), stepped one after another by the model's own
-train step, and averaged on the model's device.
+train step, and averaged on the model's device. ``prefetch_buffer=N``
+(JAX's default, 2) materializes the minibatches on a
+``PrefetchIterator`` worker, N ahead of the rounds.
 """
 
 from __future__ import annotations
@@ -54,16 +56,14 @@ class ParallelWrapper:
     def __init__(self, model, workers: int = 2,
                  averaging_frequency: int = 1,
                  average_updaters: bool = True,
-                 prefetch_buffer: int = 0,
+                 prefetch_buffer: int = 2,
                  devices: Optional[Sequence] = None):
         """``workers`` replicas of ``model``, on ``devices`` (one a
         replica, cycled; default the model's device). ``prefetch_buffer``
-        > 0 raises: the prefetching input pipeline is not ported."""
-        if prefetch_buffer:
-            raise NotImplementedError(
-                "prefetch_buffer: the prefetching input pipeline arrives "
-                "with the runtime subsystems slice (datasets/prefetch.py)")
+        > 0 prefetches that many minibatches of an iterator with
+        ``has_next`` on a background thread (0: none)."""
         self.model = model
+        self.prefetch_buffer = int(prefetch_buffer)
         self.workers = int(workers)
         self.averaging_frequency = max(int(averaging_frequency), 1)
         self.average_updaters = average_updaters
@@ -90,25 +90,41 @@ class ParallelWrapper:
         MagicQueue spreading batches over the device queues); a trailing
         partial round recycles the epoch's batches to fill every
         replica. The averaged replicas are folded back into the model at
-        the end."""
+        the end. With ``prefetch_buffer`` the batches come through a
+        ``PrefetchIterator`` (worker faults surface as
+        ``DL4JFaultException``; the queue's metrics land in the
+        registry), shut down when the fit ends."""
+        from deeplearning4j_tpu_torch.datasets.prefetch import (
+            PrefetchIterator,
+        )
+
         m = self.model
         m._check_trainable()
         self._ensure_replicas()
-        for _ in range(epochs):
-            buf = []
-            for ds in iter(iterator):
-                buf.append(ds)
-                if len(buf) == self.workers:
+        owned = None
+        source = iterator
+        if self.prefetch_buffer > 0 and hasattr(iterator, "has_next"):
+            source = owned = PrefetchIterator(
+                iterator, queue_depth=self.prefetch_buffer)
+        try:
+            for _ in range(epochs):
+                buf = []
+                for ds in iter(source):
+                    buf.append(ds)
+                    if len(buf) == self.workers:
+                        self._round(buf)
+                        buf = []
+                if buf:
+                    orig = len(buf)
+                    while len(buf) < self.workers:
+                        buf.append(buf[len(buf) % orig])
                     self._round(buf)
-                    buf = []
-            if buf:
-                orig = len(buf)
-                while len(buf) < self.workers:
-                    buf.append(buf[len(buf) % orig])
-                self._round(buf)
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            m.epoch_count += 1
+                if hasattr(source, "reset"):
+                    source.reset()
+                m.epoch_count += 1
+        finally:
+            if owned is not None:
+                owned.shutdown()
         self._sync_model()
 
     def _round(self, batches) -> None:
@@ -139,6 +155,8 @@ class ParallelWrapper:
         if self._steps_since_avg >= self.averaging_frequency:
             self._average()
         m._last_score = torch.stack(scores).mean()
+        for listener in m.listeners:
+            listener.iteration_done(m, m.iteration_count)
 
     def _average(self) -> None:
         """The averaging round (reference ``Nd4j.averageAndPropagate``;

@@ -40,3 +40,15 @@ class Deadline:
 
     def expired(self) -> bool:
         return self.budget is not None and self.elapsed() >= self.budget
+
+    def check(self, what: str = "operation") -> None:
+        """Raise ``DeadlineExceededException`` if expired."""
+        if self.expired():
+            from deeplearning4j_tpu_torch.exceptions import (
+                DeadlineExceededException,
+            )
+
+            raise DeadlineExceededException(
+                f"{what} exceeded its deadline: "
+                f"{self.elapsed():.3f}s elapsed of {self.budget:.3f}s",
+                elapsed=self.elapsed(), budget=self.budget)

@@ -16,16 +16,20 @@ and the first ``warmup`` clean steps only accumulate.
 
 The host policy then decides what a bad step means. ``"skip"`` drops
 the minibatch's update and goes on (``skipped_steps`` and
-``skipped_batches`` record it); ``max_consecutive`` bad steps in a row
-raise ``DL4JFaultException`` instead of spinning. ``"rollback"`` (restore
-the last verified checkpoint) needs the checkpoint manager of
-``resilience/checkpoint.py``, which the port does not carry yet: it
-raises at construction, naming that module, and never runs as
-``"skip"``.
+``skipped_batches`` record it); ``"rollback"`` also restores the last
+verified checkpoint of its ``checkpoint_manager`` into the model
+(``resilience/checkpoint.py`` ``restore_into``): for slow-onset
+divergence whose bad state predates the first non-finite loss. A
+rollback reads the ok flag at once (the dispatch window's lag is 0
+under it) and a megastep chunk is refused under it: the restore must
+land before the next step. ``max_consecutive`` bad steps in a row raise
+``DL4JFaultException`` instead of spinning. A trip is recorded on the
+flight recorder, which then dumps its ring.
 
-The JAX package publishes the statistical guard's counters to its
-metrics registry (``observability/``, not in the port); here they are
-kept on the guard object under the same names, ``guard.metrics``.
+The statistical guard's counters go to the metrics registry under the
+JAX package's names (``guard_spike_trips_total{signal}``,
+``guard_loss_ewma``, ``guard_gradnorm_ewma``) and are mirrored on the
+guard object, ``guard.metrics``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,35 @@ from deeplearning4j_tpu_torch.exceptions import DL4JFaultException
 
 SKIP = "skip"
 ROLLBACK = "rollback"
+
+_GUARD_METRICS = None
+
+
+def _guard_metrics():
+    global _GUARD_METRICS
+    if _GUARD_METRICS is None:
+        from deeplearning4j_tpu_torch.observability.metrics import (
+            default_registry,
+        )
+
+        reg = default_registry()
+        _GUARD_METRICS = (
+            reg.counter(
+                "guard_spike_trips_total", labels=("signal",),
+                help="statistical-guard trips by signal "
+                     "(loss | gradnorm)",
+            ),
+            reg.gauge(
+                "guard_loss_ewma",
+                help="statistical guard: EWMA of the training loss",
+            )._default(),
+            reg.gauge(
+                "guard_gradnorm_ewma",
+                help="statistical guard: EWMA of the gradient "
+                     "global norm",
+            )._default(),
+        )
+    return _GUARD_METRICS
 
 
 def grad_global_norm_sq(grads) -> torch.Tensor:
@@ -220,20 +253,18 @@ class DivergenceGuard:
     :class:`StatGuardConfig`, or ``True`` for the defaults) the step
     also threads the statistical anomaly guard. Consulting the guard
     reads the step's ok flag back from the device, which waits for the
-    step: the cost of supervision."""
+    step: the cost of supervision, which the fit loops' dispatch window
+    defers by ``guard_lag`` steps."""
 
     def __init__(self, policy: str = SKIP, checkpoint_manager=None,
                  max_consecutive: int = 10, stats=None):
         if policy not in (SKIP, ROLLBACK):
             raise ValueError(
                 f"policy must be '{SKIP}' or '{ROLLBACK}', got {policy!r}")
-        if policy == ROLLBACK or checkpoint_manager is not None:
-            raise NotImplementedError(
-                "the rollback policy and its checkpoint_manager restore the "
-                "last verified checkpoint through resilience/checkpoint.py, "
-                "which is not ported yet (ROADMAP queue 1 item 7: the "
-                "runtime subsystems); use policy='skip' without one")
+        if policy == ROLLBACK and checkpoint_manager is None:
+            raise ValueError("rollback policy needs a checkpoint_manager")
         self.policy = policy
+        self.checkpoint_manager = checkpoint_manager
         self.max_consecutive = max_consecutive
         if stats is True:
             stats = StatGuardConfig()
@@ -242,6 +273,7 @@ class DivergenceGuard:
                              f"None; got {stats!r}")
         self.stats = stats
         self.skipped_steps = 0
+        self.rollbacks = 0
         self.consecutive_bad = 0
         # iteration indices whose update was suppressed
         self.skipped_batches: List[int] = []
@@ -255,33 +287,60 @@ class DivergenceGuard:
         self.consecutive_bad = 0
 
     def publish_stats(self, model) -> None:
-        """Mirror the device EWMA state of ``model`` into ``metrics``
-        (the trip counters are the state's own totals). A model without
-        statistical-guard state is left alone."""
+        """Mirror the device EWMA state of ``model`` into the registry's
+        gauges and its labeled trip counter (the increase since the last
+        publish) and into ``metrics`` (the state's own totals). A model
+        without statistical-guard state is left alone."""
         state = getattr(model, "_stat_guard_state", None)
         if state is None:
             return
+        trips_c, g_loss, g_gn = _guard_metrics()
         self.metrics["guard_loss_ewma"] = float(state["loss_mean"])
         self.metrics["guard_gradnorm_ewma"] = float(state["gnorm_mean"])
+        g_loss.set(self.metrics["guard_loss_ewma"])
+        g_gn.set(self.metrics["guard_gradnorm_ewma"])
         trips = self.metrics["guard_spike_trips_total"]
-        trips["loss"] = int(state["trips_loss"])
-        trips["gradnorm"] = int(state["trips_gnorm"])
+        for signal, key in (("loss", "trips_loss"),
+                            ("gradnorm", "trips_gnorm")):
+            now = int(state[key])
+            if now > trips[signal]:
+                trips_c.labels(signal).inc(now - trips[signal])
+            trips[signal] = now
 
-    def bad_step(self, model, step_index=None) -> None:
+    def bad_step(self, model, step_index=None, on_restore=None) -> None:
         """One bad step was seen (non-finite, or anomalous when
         ``stats`` is armed); its update was already suppressed in the
-        step. Records it and applies the policy."""
+        step. Records it and applies the policy: under ``"rollback"``
+        the manager's newest restorable checkpoint is restored into
+        ``model``, then ``on_restore()`` runs. ``step_index`` names the
+        offending step (the dispatch window reads flags late)."""
+        from deeplearning4j_tpu_torch.observability import flightrec
+
         if step_index is None:
             step_index = int(getattr(model, "iteration_count", 0)) - 1
         self.skipped_batches.append(int(step_index))
         if self.stats is not None:
             self.publish_stats(model)
         self.consecutive_bad += 1
+        flightrec.record_event("guard_trip", step=int(step_index),
+                               policy=self.policy,
+                               consecutive=self.consecutive_bad)
+        flightrec.dump_on_crash("guard_trip")
         if self.consecutive_bad > self.max_consecutive:
             raise DL4JFaultException(
                 f"divergence guard: {self.consecutive_bad} consecutive "
                 "non-finite steps — aborting instead of spinning")
-        self.skipped_steps += 1
+        if self.policy == SKIP:
+            self.skipped_steps += 1
+            return
+        from deeplearning4j_tpu_torch.resilience.checkpoint import (
+            restore_into,
+        )
+
+        restore_into(model, self.checkpoint_manager)
+        self.rollbacks += 1
+        if on_restore is not None:
+            on_restore()
 
     def consult(self, model, ok) -> None:
         """The host policy after one step: read ``ok`` (a device sync)
@@ -298,8 +357,11 @@ class DivergenceGuard:
 def guard_state_doc(model) -> Optional[dict]:
     """The manifest ``guard`` field of ``model``: the statistical
     guard's EWMA state (bitwise-exact floats) and the guard's
-    skipped-batch ledger; None when nothing is armed."""
-    guard = getattr(model, "divergence_guard", None)
+    skipped-batch ledger (a ``DistributedTrainer`` keeps its guard
+    apart and leaves the model a ``_ckpt_guard`` reference to it); None
+    when nothing is armed."""
+    guard = (getattr(model, "divergence_guard", None)
+             or getattr(model, "_ckpt_guard", None))
     sg = getattr(model, "_stat_guard_state", None)
     doc: dict = {}
     if sg is not None:
@@ -310,6 +372,11 @@ def guard_state_doc(model) -> Optional[dict]:
         doc["skipped"] = [int(i) for i in guard.skipped_batches]
         if guard.skipped_steps:
             doc["skipped_steps"] = int(guard.skipped_steps)
+        if guard.rollbacks:
+            doc["rollbacks"] = int(guard.rollbacks)
+    data = getattr(model, "_data_ledger", None)
+    if data:
+        doc["data"] = dict(data)
     return doc or None
 
 
@@ -323,11 +390,15 @@ def apply_guard_state_doc(model, doc: Optional[dict]) -> None:
     if ewma is not None:
         model._stat_guard_state = stat_guard_state_from_doc(
             ewma, getattr(model, "device", None))
-    guard = getattr(model, "divergence_guard", None)
+    guard = (getattr(model, "divergence_guard", None)
+             or getattr(model, "_ckpt_guard", None))
     if guard is not None:
         guard.skipped_batches = [int(i) for i in doc.get("skipped", [])]
         guard.skipped_steps = int(doc.get("skipped_steps", 0))
+        guard.rollbacks = int(doc.get("rollbacks", 0))
         if ewma is not None:
             guard.metrics["guard_spike_trips_total"] = {
                 "loss": int(ewma.get("trips_loss", 0)),
                 "gradnorm": int(ewma.get("trips_gnorm", 0))}
+    if doc.get("data"):
+        model._data_ledger = dict(doc["data"])

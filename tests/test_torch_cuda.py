@@ -2101,3 +2101,136 @@ def test_graph_engine_megastep_on_the_card_is_the_per_step_loop(cuda):
     mega.fit(batches, megastep=3)
     assert mega.iteration_count == 7
     assert _same(ref, mega)
+
+
+# -- the training runtime on the card ------------------------------------------
+
+
+def _lenet_net(cuda, init=None):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    return MultiLayerNetwork(lenet(dense_width=64), device=cuda).init(
+        params=init)
+
+
+def _flat_ckpt(path):
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            if name.endswith(".npz"):
+                import io
+
+                with np.load(io.BytesIO(zf.read(name))) as z:
+                    out.update({f"{name}:{k}": z[k] for k in z.files})
+    return out
+
+
+def test_async_save_taken_while_training_equals_a_sync_save(cuda, tmp_path):
+    """A write-behind save's non-blocking copies into pinned staging are
+    ordered before the next chunk's in-place writes (the graphed chunk
+    ``copy_``s its results into the same tensors): the async checkpoint
+    of step 4 equals the sync one of step 4, though training went on."""
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+
+    batches = _lenet_batches(12)
+    net = _lenet_net(cuda)
+    net.fit(batches[:4], megastep=4)
+    sync = CheckpointManager(tmp_path / "sync")
+    asyn = CheckpointManager(tmp_path / "async", mode="async")
+    info = sync.save(net)
+    handle = asyn.save(net)
+    net.fit(batches[4:])  # two more chunks write the same tensors
+    got = handle.wait(60)
+    assert got.step == info.step == 4 and net.iteration_count == 12
+    a = _flat_ckpt(tmp_path / "sync" / info.file)
+    b = _flat_ckpt(tmp_path / "async" / got.file)
+    assert a.keys() == b.keys()
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    asyn.stop()
+
+
+def test_prefetch_placed_batches_are_the_synchronously_placed(cuda):
+    """``place_minibatch`` on the prefetch worker (its own stream, pinned
+    staging, an event the consumer waits on) gives the tensors the
+    same call gives on the main thread, bit for bit."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.prefetch import PrefetchIterator
+    from deeplearning4j_tpu_torch.parallel import DistributedTrainer
+
+    batches = _lenet_batches(6)
+    tr = DistributedTrainer(_lenet_net(cuda))
+    pre = PrefetchIterator(ListDataSetIterator(batches), queue_depth=2,
+                           placement=tr.place_minibatch)
+    got = [p.wait() for p in pre]
+    pre.shutdown()
+    assert len(got) == len(batches)
+    for placed, ds in zip(got, batches):
+        ref = tr.place_minibatch(ds).wait()
+        assert placed.features.is_cuda
+        assert torch.equal(placed.features, ref.features)
+        assert torch.equal(placed.labels, ref.labels)
+        assert placed.weights == ref.weights
+
+
+def test_graphed_trainer_chunk_is_the_per_step_trainer(cuda, tmp_path):
+    """The trainer's megastep on an NCCL world of one: each block of 4
+    is one CUDA-graph replay of the trainer's step (its fused
+    all-reduce captured), bitwise the per-step trainer loop, with and
+    without prefetch."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    batches = _lenet_batches(8)
+    init_distributed(f"file://{tmp_path}/rdv", 1, 0, device="cuda",
+                     timeout_s=120)
+    try:
+        mesh = build_mesh()
+        assert mesh.backend == "nccl"
+        ref = _lenet_net(cuda)
+        init = {ln: {pn: t.clone() for pn, t in lp.items()}
+                for ln, lp in ref.params.items()}
+        DistributedTrainer(ref, mesh=mesh).fit(batches)
+        for prefetch in (None, 2):
+            mega = _lenet_net(cuda, init)
+            DistributedTrainer(mega, mesh=mesh).fit(
+                batches, megastep=4, prefetch=prefetch)
+            assert mega.iteration_count == 8
+            assert len(mega._megastep_graphs) == 1
+            assert _same(ref, mega)
+    finally:
+        shutdown_distributed()
+
+
+def test_dispatch_window_waits_on_events_not_values(cuda, monkeypatch):
+    """The per-step fit through the dispatch window reads nothing back:
+    it waits on each step's completion event, ``max_in_flight`` steps
+    late and at the epoch's end."""
+    batches = _lenet_batches(6)
+    net = _lenet_net(cuda)
+    net.fit(batches[:1])  # warm-up outside the spy
+    waits = []
+    real_sync = torch.cuda.Event.synchronize
+
+    def counted(self):
+        waits.append(1)
+        return real_sync(self)
+
+    def refuse(*a, **k):
+        raise AssertionError("a host readback in the per-step loop")
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted)
+    for name in ("item", "__float__", "cpu", "tolist", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    net.fit(batches)
+    monkeypatch.undo()
+    assert len(waits) == len(batches)
+    assert net.iteration_count == 1 + len(batches)

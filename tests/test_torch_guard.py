@@ -10,8 +10,8 @@ the JAX package (``resilience/guard.py``), on the CPU.
   bitwise unchanged, in both packages; the guard's counts and skipped
   iterations are JAX's, and training goes on.
 - The host policy: ``max_consecutive`` bad steps raise; ``rollback``
-  raises at construction, naming ``resilience/checkpoint.py`` (not
-  ported), and never runs as ``skip``.
+  needs its checkpoint manager, as in the JAX package (its restore is
+  held in ``tests/test_torch_resume.py``).
 - The manifest doc of the guard's state round-trips bitwise.
 - ``DistributedTrainer`` on 2 gloo ranks with f16 loss scaling and the
   guard (with its statistical half) against the JAX package's trainer on
@@ -152,11 +152,20 @@ def test_guard_state_doc_round_trips_bitwise():
                for k in guard.STAT_STATE_KEYS)
 
 
-def test_guard_policy_limits():
-    with pytest.raises(NotImplementedError, match="resilience/checkpoint"):
+def test_guard_policy_limits(tmp_path):
+    # the rollback policy is carried now (resilience/checkpoint.py): it
+    # needs its manager, as in the JAX package, and skip takes one too
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+
+    with pytest.raises(ValueError, match="checkpoint_manager"):
         guard.DivergenceGuard("rollback")
-    with pytest.raises(NotImplementedError, match="resilience/checkpoint"):
-        guard.DivergenceGuard("skip", checkpoint_manager=object())
+    mgr = CheckpointManager(tmp_path)
+    rb = guard.DivergenceGuard("rollback", checkpoint_manager=mgr)
+    assert rb.policy == guard.ROLLBACK and rb.checkpoint_manager is mgr
+    assert guard.DivergenceGuard(
+        "skip", checkpoint_manager=mgr).checkpoint_manager is mgr
     with pytest.raises(ValueError, match="policy"):
         guard.DivergenceGuard("retry")
     with pytest.raises(ValueError, match="stats"):

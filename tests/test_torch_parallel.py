@@ -257,7 +257,7 @@ def _single_fit(conf, ds, steps, init=None):
 # -- the mesh -------------------------------------------------------------
 
 
-def test_mesh_of_one_process_and_its_refusals():
+def test_mesh_of_one_process_and_its_refusals(tmp_path):
     mesh = build_mesh()
     assert mesh.shape == {"data": 1, "model": 1} and mesh.backend is None
     assert process_local_batch(64, mesh) == 64
@@ -275,10 +275,25 @@ def test_mesh_of_one_process_and_its_refusals():
     with pytest.raises(ValueError, match="zero=True"):
         DistributedTrainer(net, zero=True, batch_stats="local")
     tr = DistributedTrainer(net)
-    for call in (lambda: tr.fit_megachunk(None), lambda: tr.resume(None),
-                 lambda: tr.fit([], megastep=4)):
-        with pytest.raises(NotImplementedError):
-            call()
+    # megastep, fit_megachunk and resume are carried now (the runtime
+    # slice): K = 4 over four batches is one chunk, a chunk of two
+    # more, then a fresh trainer resumes the checkpoint of step 6
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+
+    x, y = blob_data(np.random.RandomState(0), n=24)
+    batches = [DataSet(x[i:i + 4], y[i:i + 4]) for i in range(0, 24, 4)]
+    assert np.isfinite(tr.fit(batches[:4], megastep=4)[0])
+    assert net.iteration_count == 4 and net.megastep == 4
+    assert tr.fit_megachunk(batches[4:]) == net.score_value
+    assert net.iteration_count == 6
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save(net)
+    fresh = MultiLayerNetwork(mlp_conf(), device="cpu").init()
+    assert DistributedTrainer(fresh).resume(mgr) == 6
+    assert all(torch.equal(t, net.params[ln][pn])
+               for ln, lp in fresh.params.items() for pn, t in lp.items())
     with pytest.raises(TypeError, match="DivergenceGuard"):
         tr.set_divergence_guard(object())
 
@@ -656,8 +671,11 @@ def test_parallel_wrapper_carries_and_averages_batchnorm_state(rng):
     conf = mlp_conf(seed=2, lr=0.1, bn=True)
     x, y = blob_data(rng, n=32)
     net = MultiLayerNetwork(conf, device="cpu").init()
+    pw_init = {ln: {pn: t.clone() for pn, t in lp.items()}
+               for ln, lp in net.params.items()}
     m0 = net.state["1"]["mean"].clone()
-    pw = ParallelWrapper(net, workers=4, averaging_frequency=1)
+    pw = ParallelWrapper(net, workers=4, averaging_frequency=1,
+                         prefetch_buffer=0)
     batches = [DataSet(x[i:i + 8], y[i:i + 8]) for i in range(0, 32, 8)]
     pw.fit(ListDataSetIterator(batches))
     assert not torch.allclose(net.state["1"]["mean"], m0)
@@ -670,5 +688,10 @@ def test_parallel_wrapper_carries_and_averages_batchnorm_state(rng):
     for k, v in want.items():
         torch.testing.assert_close(net.state["1"][k],
                                    torch.stack(v).mean(0))
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        ParallelWrapper(net, workers=2, prefetch_buffer=2)
+    # prefetch_buffer is carried now (JAX's default, 2): the same
+    # averaged statistics through the prefetching pipeline
+    pre = MultiLayerNetwork(conf, device="cpu").init(params=pw_init)
+    ParallelWrapper(pre, workers=4, averaging_frequency=1,
+                    prefetch_buffer=2).fit(ListDataSetIterator(batches))
+    for k in want:
+        assert torch.equal(pre.state["1"][k], net.state["1"][k])

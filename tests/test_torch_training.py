@@ -319,7 +319,7 @@ def test_max_pool_gradient_goes_to_the_first_tied_maximum():
     assert t.grad[0, 0, 0, 0] == 1.0 and t.grad[0, 0, 0, 1] == 0.0
 
 
-def test_fit_refuses_what_it_does_not_carry():
+def test_fit_refuses_what_it_does_not_carry(tmp_path):
     # AlexNet's dense layers train with dropout 0.5: carried now, the
     # masks drawn from the step's key (tests/test_torch_dropout.py holds
     # them against the JAX package's)
@@ -340,13 +340,19 @@ def test_fit_refuses_what_it_does_not_carry():
     ms = MultiLayerNetwork(lenet(dense_width=8), device="cpu").init()
     ms.fit(np.zeros((2, 784), np.float32), y, megastep=4)
     assert ms.megastep == 4 and ms.iteration_count == 1
-    # the divergence guard and the transforms are carried now; the
-    # guard's rollback policy waits for the checkpoint manager
+    # the divergence guard and the transforms are carried now, and so
+    # is the guard's rollback policy with its checkpoint manager
     net.set_divergence_guard(DivergenceGuard("skip"))
     assert net.divergence_guard is not None
     assert net.set_transforms(loss_scale=True, remat="full") is net
-    with pytest.raises(NotImplementedError, match="resilience/checkpoint"):
-        DivergenceGuard("rollback")
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+
+    rb = DivergenceGuard("rollback",
+                         checkpoint_manager=CheckpointManager(tmp_path))
+    net.set_divergence_guard(rb)
+    assert net.divergence_guard.policy == "rollback"
     tbptt = MultiLayerConfiguration.from_dict(
         dict(lenet(dense_width=8).to_dict(), backprop_type="TruncatedBPTT"))
     # truncated BPTT is carried now: input without a time axis trains
