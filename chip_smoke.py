@@ -146,7 +146,25 @@ non-zero (nothing is caught):
    chunks: bitwise run A (host ms a step and busy share of A and C, the
    restore time); ``[lenet-rollback]`` ``DivergenceGuard("rollback")``
    on [train]'s LeNet-5 restores the step-4 checkpoint bitwise, and a
-   SKIP guard read 2 steps late is bitwise one read at once.
+   SKIP guard read 2 steps late is bitwise one read at once;
+13. the scan path (main paths; every earlier phase runs per step,
+   ``scan_chunk = 1``, as ``per_step_loop`` sets): ``[lenet-cached]`` LeNet-5
+   at batch 256 fits 16 minibatches as a list for 3 epochs at the
+   default ``scan_chunk`` of 16 (one chunk, captured once, replayed with
+   the data on the card), ``[vgg16-cached]`` the VGG-16 graph at batch
+   128, 8 minibatches, 2 epochs, ``scan_chunk = 4``, and
+   ``[charrnn-fused]`` / ``[charrnn-seq-fused]`` the char-RNN with and
+   without peepholes, 24 minibatches x 2 epochs on the device-cached
+   fused-TBPTT plan (48 TBPTT chunks a replay): each bitwise its
+   ``scan_chunk = 1`` fit (the carry too), with launches counted at
+   capture, examples/s, device ms a step, the busy share both ways and
+   the peak memory; ``[telemetry]`` a LeNet-5 fit under a global tracer
+   with a JSONL sink, an active ``StepProfiler``, a ``TelemetryListener``
+   and a ``ProfilerListener`` over iterations [3, 6) (its trace names the
+   port's conv and dense kernels), with a checkpoint save and restore:
+   the split sums to each record's wall time within 1 %, MFU in (0, 1]
+   at the card's peak, the memory gauges, the Prometheus text parses;
+   then a LeNet ``ModelServer`` with a tracer: one trace id a request.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -290,6 +308,15 @@ def survey_bytes():
 
     raw = (Path(__file__).resolve().parent / "SURVEY.md").read_bytes()
     return np.frombuffer(raw, np.uint8).astype(np.int64)
+
+
+def per_step_loop(model):
+    """``model`` on the per-step loop (``scan_chunk = 1``): the phases
+    of the earlier slices count one step's launches and time one step,
+    which the engines' default scan path (16 minibatches a CUDA-graph
+    replay, launches counted once at capture) would change."""
+    model.scan_chunk = 1
+    return model
 
 
 def card_line() -> str:
@@ -675,7 +702,7 @@ def serve_lenet(torch, card):
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.zoo import lenet
 
-    net = MultiLayerNetwork(lenet(), device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(lenet(), device="cuda").init())
     server = ModelServer(net, device="cuda", workers=16, queue_depth=64,
                          max_batch_size=LENET_BUCKET)
     t0 = time.perf_counter()
@@ -788,7 +815,7 @@ def train_lenet(torch, card):
     batches = list(data)
     conf = lenet()
     lr = conf.layers[0].learning_rate
-    net = MultiLayerNetwork(conf, device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     twin = cpu_twin(torch, net)
@@ -819,7 +846,7 @@ def train_lenet(torch, card):
                 raise RuntimeError(f"card and CPU twin differ at {ln}/{pn}: "
                                    f"max {float(d.max())}, {off:.2%} off")
     # the same three steps again from the same start: the same bits
-    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    again = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     for ds in batches[:3]:
         again.fit(ds)
     torch.cuda.synchronize()
@@ -844,7 +871,7 @@ def train_lenet(torch, card):
                            f"{expected}")
 
     # the main path: a fresh network fits the iterator, timed
-    model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    model = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     probe = batches[0]
     before = model.score(probe)
     torch.cuda.synchronize()
@@ -887,7 +914,7 @@ def run_alexnet(torch, card):
     from deeplearning4j_tpu_torch.ops import dispatch
     from deeplearning4j_tpu_torch.zoo import alexnet
 
-    net = MultiLayerNetwork(alexnet(), device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(alexnet(), device="cuda").init())
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.rand(ALEXNET_BATCH, 3, 224, 224, device="cuda", generator=gen)
     dispatch.reset_launch_counts()
@@ -976,7 +1003,7 @@ def run_alexnet_train(torch, card, records):
 
     conf = alexnet()
     lr = conf.layers[0].learning_rate
-    net = MultiLayerNetwork(conf, device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     print(f"[alexnet-train] zoo.alexnet() ({net.num_params()} params), "
@@ -1010,7 +1037,7 @@ def run_alexnet_train(torch, card, records):
     # then the same step again on the card: the same bits
     small = DataSet(host[0].features[:ALEXNET_TWIN_BATCH],
                     host[0].labels[:ALEXNET_TWIN_BATCH])
-    a = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    a = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     twin = cpu_twin(torch, a)
     before = {ln: {pn: t.cpu() for pn, t in lp.items()}
               for ln, lp in a.params.items()}
@@ -1024,7 +1051,7 @@ def run_alexnet_train(torch, card, records):
             "conv_block": 10, "conv_bwd_data": 4, "conv_bwd_w": 5,
             "matmul_block": 2}:
         raise RuntimeError(f"[alexnet-train] held calls: {held.errors}")
-    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    again = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     again.fit(small)
     torch.cuda.synchronize()
     for ln, lp in a.params.items():
@@ -1048,7 +1075,7 @@ def run_alexnet_train(torch, card, records):
     del net
 
     # the main path: a fresh network fits the minibatches, timed
-    model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    model = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -1066,7 +1093,7 @@ def run_alexnet_train(torch, card, records):
     # the training score of each minibatch, first and last epoch (the
     # masks change with the iteration, so the same minibatch is scored
     # on other units; the fall is large beside that)
-    probe = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    probe = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     scores = [float(probe.fit_minibatch(ds))
               for _ in range(ALEXNET_TRAIN_STEPS // len(batches))
               for ds in batches]
@@ -1137,7 +1164,7 @@ def run_vgg16(torch, card):
     batches = list(data)
     conf = vgg16()
     lr = conf.vertices["conv0"].layer_conf.learning_rate
-    net = ComputationGraph(conf, device="cuda").init()
+    net = per_step_loop(ComputationGraph(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     print(f"[vgg16] zoo.vgg16() as a ComputationGraph ({net.num_params()} "
@@ -1175,7 +1202,7 @@ def run_vgg16(torch, card):
     # 1e-3 |w| (a max-pool tie or a relu kink decided the other way)
     small = [DataSet(b.features[:VGG_TWIN_BATCH], b.labels[:VGG_TWIN_BATCH])
              for b in batches[1:4]]
-    a = ComputationGraph(conf, device="cuda").init(params=init)
+    a = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     twin = cpu_twin(torch, a)
     card_scores, cpu_scores = [], []
     for ds in small:
@@ -1195,7 +1222,7 @@ def run_vgg16(torch, card):
                 raise RuntimeError(f"[vgg16] card and CPU twin differ at "
                                    f"{ln}/{pn}: max {float(d.max())}, "
                                    f"{off:.2%} off")
-    again = ComputationGraph(conf, device="cuda").init(params=init)
+    again = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     for ds in small:
         again.fit(ds)
     torch.cuda.synchronize()
@@ -1221,7 +1248,7 @@ def run_vgg16(torch, card):
         raise RuntimeError(f"[vgg16] one step launched {per_step}")
 
     # the main path: a fresh network fits the iterator, timed
-    model = ComputationGraph(conf, device="cuda").init(params=init)
+    model = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     del net
     before = model.score(probe)
     torch.cuda.synchronize()
@@ -1316,7 +1343,7 @@ def run_conv_bn(torch, card):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import conv_block, dispatch
 
-    net = MultiLayerNetwork(conv_bn_conf(), device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(conv_bn_conf(), device="cuda").init())
     rng = np.random.RandomState(3)
     c = CONV_BN_CHANNELS
     net.state["1"] = {
@@ -1495,7 +1522,7 @@ def run_resnet50(torch, card):
 
     conf = resnet50(learning_rate=0.01)
     lr = 0.01
-    net = ComputationGraph(conf, device="cuda").init()
+    net = per_step_loop(ComputationGraph(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     print(f"[resnet50] zoo.resnet50() as a ComputationGraph "
@@ -1539,7 +1566,7 @@ def run_resnet50(torch, card):
     small = [DataSet(((b.features[:RESNET_TWIN_BATCH].astype(np.float32)
                        - 127.5) / 73.9),
                      b.labels[:RESNET_TWIN_BATCH]) for b in batches]
-    a = ComputationGraph(conf, device="cuda").init(params=init)
+    a = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     twin = cpu_twin(torch, a)
     card_scores, cpu_scores = [], []
     worst_share = state_err = 0.0
@@ -1569,7 +1596,7 @@ def run_resnet50(torch, card):
     if {k: n for k, (n, _) in held.errors.items()} != {
             "conv_block": 212, "conv_bwd_data": 104, "conv_bwd_w": 106}:
         raise RuntimeError(f"[resnet50] held calls: {held.errors}")
-    again = ComputationGraph(conf, device="cuda").init(params=init)
+    again = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     for ds in small:
         again.fit(ds)
     torch.cuda.synchronize()
@@ -1591,7 +1618,7 @@ def run_resnet50(torch, card):
     del net
 
     # the main path: a fresh network fits the minibatches, timed
-    model = ComputationGraph(conf, device="cuda").init(params=init)
+    model = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -1671,7 +1698,8 @@ def run_resnet50_dp(torch, card, init, batches):
             raise RuntimeError(f"[resnet50-dp] formed {dist.get_backend()}")
         print(f"[resnet50-dp] NCCL world of {mesh.data} on {dev}, "
               f"batch_stats='sync', batch {RESNET_BATCH}")
-        plain = ComputationGraph(conf, device="cuda").init(params=init)
+        plain = per_step_loop(
+            ComputationGraph(conf, device="cuda").init(params=init))
         plain_scores, plain_ms = [], []
         for i in range(steps):
             torch.cuda.synchronize()
@@ -1679,7 +1707,8 @@ def run_resnet50_dp(torch, card, init, batches):
             plain_scores.append(float(plain.fit_minibatch(
                 batches[i % len(batches)])))
             plain_ms.append((time.perf_counter() - t0) * 1e3)
-        model = ComputationGraph(conf, device="cuda").init(params=init)
+        model = per_step_loop(
+            ComputationGraph(conf, device="cuda").init(params=init))
         tr = DistributedTrainer(model, mesh=mesh, batch_stats="sync")
         dp_scores, dp_ms = [], []
         dispatch.reset_launch_counts()
@@ -1716,7 +1745,8 @@ def run_resnet50_dp(torch, card, init, batches):
         # same weights: the same bits (every updater rule is elementwise)
         pair = []
         for zero in (False, True):
-            g = ComputationGraph(conf, device="cuda").init(params=init)
+            g = per_step_loop(
+                ComputationGraph(conf, device="cuda").init(params=init))
             t = DistributedTrainer(g, mesh=mesh, batch_stats="sync",
                                    zero=zero)
             s = float(t.fit_minibatch(batches[0]))
@@ -1912,7 +1942,7 @@ def run_resnet50_bf16(torch, card):
     from deeplearning4j_tpu_torch.zoo import resnet50
 
     conf = resnet50(dtype="bfloat16", learning_rate=0.01)
-    init_net = ComputationGraph(conf, device="cuda").init()
+    init_net = per_step_loop(ComputationGraph(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in init_net.params.items()}
     print(f"[resnet50-bf16] zoo.resnet50(dtype='bfloat16') "
@@ -1923,7 +1953,7 @@ def run_resnet50_bf16(torch, card):
     small = [DataSet(((b.features[:RESNET_TWIN_BATCH].astype(np.float32)
                        - 127.5) / 73.9),
                      b.labels[:RESNET_TWIN_BATCH]) for b in batches]
-    a = ComputationGraph(conf, device="cuda").init(params=init)
+    a = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     twin = cpu_twin(torch, a)
     card_scores, cpu_scores = [], []
     held = held_on_operands()
@@ -1948,7 +1978,7 @@ def run_resnet50_bf16(torch, card):
         raise RuntimeError(f"[resnet50-bf16] held calls: {held.errors}")
     del a, twin
 
-    model = ComputationGraph(conf, device="cuda").init(params=init)
+    model = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -2011,7 +2041,7 @@ def run_vgg16_bf16(torch, card):
                                     num_examples=VGG_BATCH * VGG_BATCHES)
     batches = list(data)
     conf = vgg16(dtype="bfloat16")
-    net = ComputationGraph(conf, device="cuda").init()
+    net = per_step_loop(ComputationGraph(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     print(f"[vgg16-bf16] zoo.vgg16(dtype='bfloat16') ({net.num_params()} "
@@ -2024,7 +2054,7 @@ def run_vgg16_bf16(torch, card):
             "matmul_block": 2}:
         raise RuntimeError(f"[vgg16-bf16] held calls: {held.errors}")
     del net
-    model = ComputationGraph(conf, device="cuda").init(params=init)
+    model = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -2072,8 +2102,8 @@ def run_transformer_bf16(torch, card, ids):
     from deeplearning4j_tpu_torch.ops import dispatch
     from deeplearning4j_tpu_torch.zoo import transformer_lm
 
-    net = MultiLayerNetwork(transformer_lm(compute_dtype="bfloat16", **TX),
-                            device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(
+        transformer_lm(compute_dtype="bfloat16", **TX), device="cuda").init())
     layers = TX["n_layers"]
     batches = char_batches(ids, TX_BATCH, TX_T, TX_STEPS, seed=6,
                            vocab=TX["vocab"])
@@ -2142,9 +2172,9 @@ def run_f16_loss_scale(torch, card, ids):
     from deeplearning4j_tpu_torch.ops import dispatch
     from deeplearning4j_tpu_torch.zoo import transformer_lm
 
-    net = MultiLayerNetwork(transformer_lm(
+    net = per_step_loop(MultiLayerNetwork(transformer_lm(
         compute_dtype="float16", loss_scale=F16_SCALE, **TX),
-        device="cuda").init()
+        device="cuda").init())
     if not net._loss_scale_active:
         raise RuntimeError("[f16-loss-scale] loss scaling is not active")
     batches = char_batches(ids, TX_BATCH, TX_T, F16_STEPS, seed=7,
@@ -2273,7 +2303,7 @@ def run_guard(torch, card, device="cuda", steps=GUARD_STEPS, dense=None):
 
     batches = guard_batches(steps)
     conf = lenet() if dense is None else lenet(dense_width=dense)
-    net = MultiLayerNetwork(conf, device=device).init()
+    net = per_step_loop(MultiLayerNetwork(conf, device=device).init())
     cfg = guard_stats()
     guard = DivergenceGuard("skip", stats=cfg)
     net.set_divergence_guard(guard)
@@ -2425,7 +2455,8 @@ def run_megastep(torch, card):
     core.megastep_readback = counted
     try:
         for k in (1, MEGASTEP_K):
-            net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+            net = per_step_loop(
+                MultiLayerNetwork(conf, device="cuda").init(params=init))
             net.fit(batches, megastep=k)  # the first epoch captures
             torch.cuda.synchronize()
             n0 = len(readbacks)
@@ -2469,7 +2500,7 @@ def run_megastep(torch, card):
     alex = [DataSet((rng.rand(16, 3, 67, 67) * 0.9 + 0.05).astype(
         np.float32), np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
         for _ in range(MEGASTEP_ALEX_STEPS)]
-    a1 = MultiLayerNetwork(narrow_alexnet(), device="cuda").init()
+    a1 = per_step_loop(MultiLayerNetwork(narrow_alexnet(), device="cuda").init())
     a4 = MultiLayerNetwork(narrow_alexnet(), device="cuda").init(
         params=a1.params)
     a1.fit(alex)
@@ -2484,7 +2515,8 @@ def run_megastep(torch, card):
     gb = guard_batches()
     guarded = []
     for k in (1, MEGASTEP_K):
-        net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        net = per_step_loop(
+            MultiLayerNetwork(conf, device="cuda").init(params=init))
         net.set_divergence_guard(DivergenceGuard("skip", stats=guard_stats()))
         net.fit(gb, megastep=k)
         guarded.append(net)
@@ -2655,7 +2687,8 @@ def run_resnet50_runtime(torch, card, device="cuda", conf=None,
             torch.cuda.synchronize()
 
     def fresh(mesh):
-        model = ComputationGraph(conf, device=device).init(params=init)
+        model = per_step_loop(
+            ComputationGraph(conf, device=device).init(params=init))
         return model, DistributedTrainer(model, mesh=mesh,
                                          batch_stats="sync")
 
@@ -2899,7 +2932,8 @@ def run_lenet_rollback(torch, card, device="cuda", dense=None):
 
     try:
         mgr = CheckpointManager(tmp, keep_last=3, device=device)
-        net = MultiLayerNetwork(conf, device=device).init(params=init)
+        net = per_step_loop(
+            MultiLayerNetwork(conf, device=device).init(params=init))
         guard = DivergenceGuard("rollback", checkpoint_manager=mgr)
         net.set_divergence_guard(guard)
         net.set_listeners(CheckpointListener(mgr, frequency=2), AtStep4())
@@ -2920,7 +2954,8 @@ def run_lenet_rollback(torch, card, device="cuda", dense=None):
                "checkpoints": mgr.list_steps(), "score": net.score_value}
         lagged = []
         for lag in (0, 2):
-            m = MultiLayerNetwork(conf, device=device).init(params=init)
+            m = per_step_loop(
+                MultiLayerNetwork(conf, device=device).init(params=init))
             m.guard_lag = lag
             m.set_divergence_guard(DivergenceGuard("skip"))
             m.fit(batches)
@@ -2937,6 +2972,437 @@ def run_lenet_rollback(torch, card, device="cuda", dense=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[lenet-rollback] {json.dumps(res)} card={card}")
+    return launches
+
+
+# --- the scan path: scan chunks, device-cached epochs, the fused TBPTT
+# scan, and the observability around them ------------------------------
+
+CACHED_LENET_BATCHES = 16  # one chunk at the default scan_chunk of 16
+CACHED_LENET_EPOCHS = 3
+CACHED_VGG_BATCHES = 8
+CACHED_VGG_EPOCHS = 2
+CACHED_VGG_CHUNK = 4
+FUSED_CHAR_EPOCHS = 2
+TELEMETRY_STEPS = 8
+TELEMETRY_TRACE = (3, 3)  # ProfilerListener: iterations [3, 6)
+
+
+def scan_launches_ok(launches, one_step, graphs) -> bool:
+    """A scan fit's launches, counted where Python runs: each captured
+    chunk's warm-up step and its k captured steps (replays count none)."""
+    steps = sum(1 + g.k for g in graphs)
+    return launches == {k: v * steps for k, v in one_step.items()}
+
+
+def cached_vs_per_step(torch, tag, make, batches, epochs, scan_chunk):
+    """[lenet-cached] / [vgg16-cached]: ``fit(batches, epochs)`` of a
+    list on the device-cached scan path (``scan_chunk``) against the same
+    fit per step (``scan_chunk = 1``) from the same weights: the trees
+    bitwise equal after the fit and after a second, timed one; the
+    launches counted at capture; examples/s both ways, the device ms a
+    step from the captured chunk replayed, the busy share both ways and
+    the peak memory of the cached fit. Returns (launches of the phase,
+    the result)."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    ref = per_step_loop(make(None))
+    model = make({ln: {pn: t.clone() for pn, t in lp.items()}
+                  for ln, lp in ref.params.items()})
+    model.scan_chunk = scan_chunk
+    n, rows = len(batches), int(np.shape(batches[0].features)[0])
+    steps = n * epochs
+    dispatch.reset_launch_counts()
+    ref.fit(batches, epochs=epochs)
+    torch.cuda.synchronize()
+    per_step_counts = dispatch.launch_counts()
+    one_step = {k: v // steps for k, v in per_step_counts.items()}
+    dispatch.reset_launch_counts()
+    model.fit(batches, epochs=epochs)  # the first replay captures
+    torch.cuda.synchronize()
+    scan_counts = dispatch.launch_counts()
+    graphs = list(model._megastep_graphs.values())
+    if not scan_launches_ok(scan_counts, one_step, graphs):
+        raise RuntimeError(f"[{tag}] the scan fit launched {scan_counts}, "
+                           f"one step {one_step}, chunks "
+                           f"{[g.k for g in graphs]}")
+    if not same_trees(torch, ref, model):
+        raise RuntimeError(f"[{tag}] the scan fit differs from the "
+                           "per-step loop")
+    t0 = time.perf_counter()
+    ref.fit(batches, epochs=epochs)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(batches, epochs=epochs)  # replays only
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not same_trees(torch, ref, model) or len(
+            model._megastep_graphs) != len(graphs):
+        raise RuntimeError(f"[{tag}] the timed scan fit differs")
+    # the device work a step: each captured chunk replayed, over its k
+    # (this trains the model on; nothing reads it afterwards)
+    dev_ms = sum(events_ms(torch, g.graph.replay, reps=3)[0]
+                 for g in graphs) / sum(g.k for g in graphs)
+    res = {"minibatches": n, "rows": rows, "epochs": epochs,
+           "scan_chunk": scan_chunk, "chunks": [g.k for g in graphs],
+           "examples_per_s": steps * rows / wall,
+           "per_step_examples_per_s": steps * rows / wall_ref,
+           "host_ms_per_step": wall / steps * 1e3,
+           "per_step_host_ms_per_step": wall_ref / steps * 1e3,
+           "device_ms_per_step": dev_ms,
+           "device_busy_share": dev_ms * steps / (wall * 1e3),
+           "per_step_busy_share": dev_ms * steps / (wall_ref * 1e3),
+           "peak_memory_mib": peak / 2 ** 20,
+           "launches_per_step": {k: v for k, v in one_step.items() if v},
+           "launches_counted_at_capture": {
+               k: v for k, v in scan_counts.items() if v},
+           "score": model.score_value, "bitwise": True}
+    launches = {k: per_step_counts[k] + scan_counts[k]
+                for k in per_step_counts}
+    return launches, res
+
+
+def run_lenet_cached(torch, card):
+    """[lenet-cached] ``zoo.lenet()`` (Adam 0.01) at batch 256 on 16
+    synthetic MNIST minibatches given as a list, ``fit(batches,
+    epochs=3)``: the default ``scan_chunk`` of 16 makes one 16-step
+    chunk, captured once and replayed 3 times with the data left on the
+    card, bitwise the ``scan_chunk = 1`` fit."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * CACHED_LENET_BATCHES))
+
+    def make(params):
+        return MultiLayerNetwork(lenet(), device="cuda").init(params=params)
+
+    print(f"[lenet-cached] LeNet-5, Adam lr 0.01, batch {LENET_TRAIN_BATCH},"
+          f" {CACHED_LENET_BATCHES} minibatches x {CACHED_LENET_EPOCHS} "
+          "epochs, scan_chunk 16 (device-cached) against scan_chunk 1")
+    launches, res = cached_vs_per_step(
+        torch, "lenet-cached", make, batches, CACHED_LENET_EPOCHS, 16)
+    if res["chunks"] != [CACHED_LENET_BATCHES]:
+        raise RuntimeError(f"[lenet-cached] chunks {res['chunks']}")
+    print(f"[lenet-cached] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_vgg16_cached(torch, card):
+    """[vgg16-cached] the VGG-16 ``ComputationGraph`` on synthetic
+    CIFAR-10 at batch 128, 8 minibatches, ``epochs=2``, ``scan_chunk =
+    4``: the graph engine's scan path (two 4-step chunks an epoch, one
+    capture), bitwise the ``scan_chunk = 1`` fit."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import CifarDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(CifarDataSetIterator(
+            VGG_BATCH, allow_synthetic=True,
+            num_examples=VGG_BATCH * CACHED_VGG_BATCHES))
+
+    def make(params):
+        return ComputationGraph(vgg16(), device="cuda").init(params=params)
+
+    print(f"[vgg16-cached] VGG-16 graph, batch {VGG_BATCH}, "
+          f"{CACHED_VGG_BATCHES} minibatches x {CACHED_VGG_EPOCHS} epochs, "
+          f"scan_chunk {CACHED_VGG_CHUNK} against scan_chunk 1")
+    launches, res = cached_vs_per_step(
+        torch, "vgg16-cached", make, batches, CACHED_VGG_EPOCHS,
+        CACHED_VGG_CHUNK)
+    if res["chunks"] != [CACHED_VGG_CHUNK]:
+        raise RuntimeError(f"[vgg16-cached] chunks {res['chunks']}")
+    print(f"[vgg16-cached] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_charrnn_fused(torch, card, peephole: bool, ids):
+    """[charrnn-fused] the zoo char-RNN (peepholes) or its ``peephole=
+    False`` twin at batch 32, 200-char segments (4 TBPTT chunks of 50)
+    and 24 minibatches, ``fit(batches, epochs=2)``: the device-cached
+    fused-TBPTT plan (the 24 minibatches split evenly at ``scan_chunk``
+    16: two replays of 12 minibatches, 48 TBPTT chunks, an epoch, one
+    capture), bitwise the per-chunk loop (``scan_chunk = 1``): parameters, RMSProp
+    state and the carry the last minibatch ended with. Returns the
+    launches of the phase."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    tag = "charrnn-fused" if peephole else "charrnn-seq-fused"
+    conf = charrnn_conf(peephole)
+    batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, CHAR_MINIBATCHES,
+                           seed=1)
+    chunks = CHAR_SEGMENT // CHAR_TBPTT
+    steps = CHAR_MINIBATCHES * chunks * FUSED_CHAR_EPOCHS
+    ref = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
+    model = MultiLayerNetwork(conf, device="cuda").init(params={
+        ln: {pn: t.clone() for pn, t in lp.items()}
+        for ln, lp in ref.params.items()})
+    print(f"[{tag}] 2 x GravesLSTM({CHAR_HIDDEN}, peephole={peephole}), "
+          f"batch {CHAR_BATCH}, {CHAR_MINIBATCHES} minibatches of "
+          f"{chunks} chunks x {FUSED_CHAR_EPOCHS} epochs, device-cached "
+          "fused TBPTT against the per-chunk loop")
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref.fit(batches, epochs=FUSED_CHAR_EPOCHS)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    ref_counts = dispatch.launch_counts()
+    one_chunk = {k: v // steps for k, v in ref_counts.items()}
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(batches, epochs=FUSED_CHAR_EPOCHS)  # captures, then replays
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    graphs = list(model._megastep_graphs.values())
+    groups = -(-CHAR_MINIBATCHES // model.scan_chunk)  # balanced: 2 of 12
+    if [g.k for g in graphs] != [CHAR_MINIBATCHES // groups * chunks]:
+        raise RuntimeError(f"[{tag}] chunks {[g.k for g in graphs]}")
+    if not scan_launches_ok(counts, one_chunk, graphs):
+        raise RuntimeError(f"[{tag}] the fused fit launched {counts}, one "
+                           f"chunk {one_chunk}")
+    carry_ok = all(torch.equal(model._tbptt_carry[n][k], v)
+                   for n, c in ref._tbptt_carry.items()
+                   for k, v in c.items())
+    if not same_trees(torch, ref, model) or not carry_ok:
+        raise RuntimeError(f"[{tag}] the fused fit differs from the "
+                           "per-chunk loop")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(batches, epochs=FUSED_CHAR_EPOCHS)  # replays only
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = sum(events_ms(torch, g.graph.replay, reps=2)[0]
+                 for g in graphs) / sum(g.k for g in graphs)
+    res = {"minibatches": CHAR_MINIBATCHES, "epochs": FUSED_CHAR_EPOCHS,
+           "chunks_per_replay": sorted(g.k for g in graphs),
+           "chars_per_s": steps * CHAR_BATCH * CHAR_TBPTT / wall,
+           "per_chunk_loop_chars_per_s":
+               steps * CHAR_BATCH * CHAR_TBPTT / wall_ref,
+           "host_ms_per_chunk": wall / steps * 1e3,
+           "per_chunk_loop_host_ms_per_chunk": wall_ref / steps * 1e3,
+           "capture_fit_s": wall_first,
+           "device_ms_per_chunk": dev_ms,
+           "device_busy_share": dev_ms * steps / (wall * 1e3),
+           "per_chunk_loop_busy_share": dev_ms * steps / (wall_ref * 1e3),
+           "peak_memory_mib": peak / 2 ** 20,
+           "launches_per_chunk": {k: v for k, v in one_chunk.items() if v},
+           "launches_counted_at_capture": {
+               k: v for k, v in counts.items() if v},
+           "score": model.score_value, "bitwise": True, "carry_bitwise": True}
+    print(f"[{tag}] {json.dumps(res)} card={card}")
+    return {k: ref_counts[k] + counts[k] for k in ref_counts}
+
+
+def parse_prometheus(text: str) -> dict:
+    """``{sample: value}`` of a Prometheus text exposition; raises on a
+    line that is neither a comment nor a sample."""
+    import re
+
+    sample = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*='
+        r'"([^"\\]|\\.)*",?)*\})? (-?[0-9.e+-]+|\+Inf|-Inf|NaN)$')
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# "):
+            continue
+        if not sample.match(line):
+            raise RuntimeError(f"not a Prometheus sample: {line!r}")
+        key, value = line.rsplit(" ", 1)
+        out[key] = float(value)
+    return out
+
+
+class RecordList:
+    """A step profiler's recorder: its records, in order."""
+
+    def __init__(self):
+        self.records = []
+
+    def record(self, **rec):
+        self.records.append(rec)
+
+
+def run_telemetry(torch, card):
+    """[telemetry] a LeNet-5 fit under the observability this slice
+    ports: a global ``Tracer`` with a ``JsonlSink``, an active
+    ``StepProfiler``, a ``TelemetryListener`` (step telemetry on), one
+    ``CheckpointManager`` save and restore, once on the scan path and
+    once per step (the listener's), a ``ProfilerListener`` over
+    iterations [3, 6) whose trace must name the port's conv and dense
+    kernels; then a LeNet ``ModelServer`` with a tracer answers a few
+    requests, each one trace id across its spans, and
+    ``/metrics?format=prometheus`` answers. Returns the launches."""
+    import tempfile
+    import urllib.request
+    import warnings
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.observability import (
+        JsonlSink,
+        MetricsRegistry,
+        StepProfiler,
+        TelemetryListener,
+        Tracer,
+        prometheus_text,
+        set_active_profiler,
+        set_global_tracer,
+    )
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.optimize.profiler import ProfilerListener
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * TELEMETRY_STEPS))
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j-telemetry-"))
+    sink = JsonlSink(tmp / "trace.jsonl")
+    tracer = Tracer(seed=15, sink=sink)
+    registry = MetricsRegistry()
+    recorder = RecordList()
+    prof = StepProfiler(registry=registry, tracer=tracer, recorder=recorder)
+    prev_tracer = set_global_tracer(tracer)
+    prev_prof = set_active_profiler(prof)
+    print(f"[telemetry] LeNet-5 at batch {LENET_TRAIN_BATCH}, "
+          f"{TELEMETRY_STEPS} minibatches per step under TelemetryListener "
+          "and ProfilerListener, then on the scan path; peak "
+          f"{prof.peak} FLOP/s ({prof.peak_source})")
+    dispatch.reset_launch_counts()
+    try:
+        net = MultiLayerNetwork(lenet(), device="cuda").init()
+        listener = TelemetryListener(registry=registry)
+        plistener = ProfilerListener(str(tmp / "prof"), *TELEMETRY_TRACE)
+        net.set_listeners(listener, plistener)
+        net.fit(batches)  # per step: the listeners refuse the scan
+        mgr = CheckpointManager(tmp / "ckpt", device="cuda")
+        mgr.save(net)
+        restored, info = mgr.restore_latest()
+        if not same_trees(torch, net, restored):
+            raise RuntimeError("[telemetry] the restored model differs")
+        net.set_listeners()
+        net.fit(batches)  # the scan: one chunk, one record
+        torch.cuda.synchronize()
+    finally:
+        set_active_profiler(prev_prof)
+        set_global_tracer(prev_tracer)
+        sink.close()
+    launches = dispatch.launch_counts()
+    recs = recorder.records
+    if len(recs) != TELEMETRY_STEPS + 1 or recs[-1]["rows"] != \
+            TELEMETRY_STEPS * LENET_TRAIN_BATCH:
+        raise RuntimeError(f"[telemetry] {len(recs)} records, the last "
+                           f"{recs[-1]}")
+    worst = 0.0
+    for r in recs:
+        parts = (r["input_stall_ms"] + r["host_ms"] + r["dispatch_ms"]
+                 + r["device_ms"])
+        worst = max(worst, abs(parts - r["wall_ms"]) / r["wall_ms"])
+    if worst > 0.01:
+        raise RuntimeError(f"[telemetry] the split misses the wall time by "
+                           f"{worst:.2%}")
+    mfus = [r["mfu"] for r in recs[:-1]]
+    if not all(0.0 < m <= 1.0 for m in mfus):
+        raise RuntimeError(f"[telemetry] step MFU out of (0, 1]: {mfus}")
+    mfu_gauge = registry.get("step_mfu")._default().value
+    dev_hist = registry.get("training_device_ms")._default()
+    if dev_hist.count != len(recs) or not 0.0 < mfu_gauge <= 1.0:
+        raise RuntimeError(f"[telemetry] training_device_ms counted "
+                           f"{dev_hist.count} of {len(recs)}, MFU "
+                           f"{mfu_gauge}")
+    samples = parse_prometheus(prometheus_text(registry))
+    memory = {k: v for k, v in samples.items()
+              if k.startswith("jax_device_memory_")}
+    if len(memory) < 2 or samples.get("training_steps_total") != \
+            TELEMETRY_STEPS or not samples.get("training_grad_global_norm"):
+        raise RuntimeError(f"[telemetry] gauges missing: {sorted(samples)}")
+    spans = tracer.finished_spans()
+    names = [s.name for s in spans]
+    save = next(s for s in spans if s.name == "checkpoint.save")
+    restore = next(s for s in spans if s.name == "checkpoint.restore")
+    if (sorted(save.attrs) != ["bytes", "prefix", "sharded", "step"]
+            or restore.attrs.get("step") != info.step
+            or restore.attrs.get("fallbacks") != 0
+            or names.count("train.step") != len(recs)
+            or "profiler.trace_ready" not in names):
+        raise RuntimeError(f"[telemetry] spans {sorted(set(names))}")
+    trace_doc = json.loads(Path(plistener.trace_path).read_text())
+    kernel_names = {e.get("name", "") for e in trace_doc["traceEvents"]
+                    if e.get("cat") == "kernel"}
+    ours = sorted({k for k in ("conv_block_kernel", "conv_wide_kernel",
+                               "conv_bwd_data_kernel",
+                               "conv_bwd_data_resident_kernel",
+                               "conv_bwd_w_kernel",
+                               "conv_bwd_w_resident_kernel",
+                               "matmul_block_kernel", "matmul_wide_kernel")
+                   if any(k in n for n in kernel_names)})
+    if not any(k.startswith("conv_") for k in ours) or not any(
+            k.startswith("matmul_") for k in ours):
+        raise RuntimeError(f"[telemetry] the trace names {ours} of the "
+                           "port's kernels")
+    lines = (tmp / "trace.jsonl").read_text().splitlines()
+
+    # the server: one trace id a request across its spans
+    stracer = Tracer(seed=16)
+    server = ModelServer(net, device="cuda", tracer=stracer).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        for rows in (1, 3, 5):
+            body = json.dumps({"features": np.asarray(
+                batches[0].features[:rows]).tolist()}).encode()
+            req = urllib.request.Request(f"{base}/predict", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 200:
+                    raise RuntimeError(f"[telemetry] predict {r.status}")
+        with urllib.request.urlopen(f"{base}/metrics?format=prometheus",
+                                    timeout=60) as r:
+            served = parse_prometheus(r.read().decode())
+    finally:
+        server.stop()
+    sspans = stracer.finished_spans()
+    roots = [s for s in sspans if s.name == "serving.request"]
+    per_request = [sorted({s.name for s in sspans
+                           if s.trace_id == root.trace_id}) for root in roots]
+    want = {"serving.request", "serving.admission", "serving.queue"}
+    if len(roots) != 3 or not all(want <= set(p) for p in per_request) \
+            or served.get("serving_predictions_total") != 3:
+        raise RuntimeError(f"[telemetry] serving spans {per_request}, "
+                           f"metrics {served}")
+    torch.cuda.synchronize()
+    res = {"records": len(recs), "scan_record": recs[-1],
+           "per_step_record": recs[-2],
+           "split_max_rel_err": worst, "step_mfu": mfu_gauge,
+           "peak_flops": prof.peak,
+           "memory_gauges": memory,
+           "trace_jsonl_lines": len(lines),
+           "span_names": sorted(set(names)),
+           "trace_kernels": ours,
+           "serving_spans_per_request": per_request[0],
+           "prometheus_samples": len(samples)}
+    print(f"[telemetry] {json.dumps(res)} card={card}")
     return launches
 
 
@@ -3193,7 +3659,7 @@ def run_charrnn(torch, card, peephole: bool, ids, alphabet):
     lstm_ops = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
     tag = "charrnn" if peephole else "charrnn-seq"
     conf = charrnn_conf(peephole)
-    net = MultiLayerNetwork(conf, device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     twin = cpu_twin(torch, net)
@@ -3241,7 +3707,8 @@ def run_charrnn(torch, card, peephole: bool, ids, alphabet):
                         f"{tag}: card and CPU twin differ at {ln}/{pn}: "
                         f"max {float(d.max())}, {off:.2%} off")
         # the same three chunks again from the same start: the same bits
-        again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        again = per_step_loop(
+            MultiLayerNetwork(conf, device="cuda").init(params=init))
         again.fit(three)
         torch.cuda.synchronize()
         for ln, lp in net.params.items():
@@ -3275,7 +3742,8 @@ def run_charrnn(torch, card, peephole: bool, ids, alphabet):
 
         # the main path: a fresh network fits the minibatches, then
         # answers output and samples through rnn_time_step
-        model = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        model = per_step_loop(
+            MultiLayerNetwork(conf, device="cuda").init(params=init))
         before = model.score(probe)
         torch.cuda.synchronize()
         del variants[:]
@@ -3641,7 +4109,7 @@ def run_transformer(torch, card, ids):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
 
-    net = MultiLayerNetwork(tx_conf(), device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(tx_conf(), device="cuda").init())
     layers = TX["n_layers"]
     batches = char_batches(ids, TX_BATCH, TX_T, TX_STEPS, seed=5,
                            vocab=TX["vocab"])
@@ -3700,7 +4168,7 @@ def run_transformer_twin(torch, card, ids):
     from deeplearning4j_tpu_torch.ops import dispatch
 
     layers = TX["n_layers"]
-    net = MultiLayerNetwork(tx_conf(), device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(tx_conf(), device="cuda").init())
     twin = cpu_twin(torch, net)
     lr = TX["learning_rate"]
     batches = char_batches(ids, 4, TX_T, 2, seed=6, vocab=TX["vocab"])
@@ -4299,7 +4767,7 @@ def run_embedding_mlp(torch, card):
 
     conf = mlp_conf()
     batches = [mlp_batch(0)] * MLP_STEPS
-    net = MultiLayerNetwork(conf, device="cuda").init()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     init = {ln: {pn: t.cpu() for pn, t in lp.items()}
             for ln, lp in net.params.items()}
     dispatch.reset_launch_counts()
@@ -4316,10 +4784,10 @@ def run_embedding_mlp(torch, card):
     if not scores[-1] < scores[0]:
         raise RuntimeError(f"[embedding-mlp] the score did not fall: "
                            f"{scores}")
-    twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+    twin = per_step_loop(MultiLayerNetwork(conf, device="cpu").init(params=init))
     cpu = [float(twin.fit_minibatch(b)) for b in batches]
     np.testing.assert_allclose(scores, cpu, rtol=1e-4)
-    again = MultiLayerNetwork(conf, device="cuda").init(params=init)
+    again = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(params=init))
     if [float(again.fit_minibatch(b)) for b in batches] != scores or any(
             not torch.equal(t, again.params[ln][pn])
             for ln, lp in net.params.items() for pn, t in lp.items()):
@@ -4351,7 +4819,8 @@ def run_zero(torch, card, mesh, tmp):
     init = MultiLayerNetwork(conf, device="cpu").init().params
     paths = {}
     for zero in (False, True):
-        net = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        net = per_step_loop(
+            MultiLayerNetwork(conf, device="cuda").init(params=init))
         tr = DistributedTrainer(net, mesh=mesh, zero=zero)
         for s in range(2):
             tr.fit_minibatch(mlp_batch(s))
@@ -4545,6 +5014,14 @@ def main() -> int:
     # window, the trainer's megastep) under ResNet-50, and the rollback
     runtime = run_resnet50_runtime(torch, card)
     rollback = run_lenet_rollback(torch, card)
+    # the scan path: device-cached chunks and the fused TBPTT scan, each
+    # against the per-step loop; then the observability around them
+    lenet_cached = run_lenet_cached(torch, card)
+    vgg_cached = run_vgg16_cached(torch, card)
+    fused_peep = run_charrnn_fused(torch, card, True, ids)
+    fused_seq = run_charrnn_fused(torch, card, False, ids)
+    telemetry = run_telemetry(torch, card)
+    scan_paths = (lenet_cached, vgg_cached, telemetry)
     nlp = run_nlp(torch, card)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
     half_variants = {}
@@ -4583,7 +5060,8 @@ def main() -> int:
                          + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
                          + alex_train[k] + mega[k] + nlp[k] + runtime[k]
                          + rollback[k]
-                         + sum(c[k] for c in half_launches)),
+                         + sum(c[k] for c in half_launches)
+                         + sum(c[k] for c in scan_paths)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -4654,7 +5132,8 @@ def main() -> int:
         entry = {
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": f"deeplearning4j_tpu/ops/lstm_cell.py:{line}",
-            "launches": char_peep[k] + char_seq[k],
+            "launches": (char_peep[k] + char_seq[k] + fused_peep[k]
+                         + fused_seq[k]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -4707,18 +5186,18 @@ def main() -> int:
         mine = [r for r in half_records
                 if r["kernel"] == k and r["variant"] == variant]
 
-        def per_step(key, recs=mine):
+        def per_step_sum(key, recs=mine):
             return sum(r[key] * r["launches_per_step"] for r in recs)
         kernels.append({
             "name": f"{k}[{variant}]", "route": "cuda",
             "source": csrc + src, "replaces": replaces,
             "launches": half_variants.get(f"{k}[{variant}]", 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
+            "ms": per_step_sum("kernel_ms"), "plain_ms": per_step_sum("plain_ms"),
+            "bound_ms": per_step_sum("bound_ms"),
             "bound_by": max(mine, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": per_step("library_ms"),
-            "bound_fp32_simt_ms": per_step("bound_fp32_simt_ms"),
+            "library_ms": per_step_sum("library_ms"),
+            "bound_fp32_simt_ms": per_step_sum("bound_fp32_simt_ms"),
             "shape_of": "resnet50-bf16 step, batch 128",
             "launches_per_step": sum(r["launches_per_step"] for r in mine),
             "kernel_route": "+".join(sorted({r["kernel_route"]

@@ -27,7 +27,8 @@ by ``reset()`` and ``close()``) cancels and joins the worker within its
 timeout, even when it is blocked on a full queue. Metrics (the JAX
 package's names): ``training_prefetch_queue_depth`` (batches ready at
 each take) and ``training_prefetch_wait_ms`` (the consumer's stall for
-the next batch).
+the next batch); the stall is also noted into the active step
+profiler's step (its ``input_stall_ms``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Callable, Optional
 from deeplearning4j_tpu_torch.datasets.api import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.datasets.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.exceptions import DL4JFaultException
+from deeplearning4j_tpu_torch.observability import profiler
 
 # fine buckets at the bottom (a fed pipeline waits ~0) and coarse at
 # the top (a starved one waits a whole batch-materialization)
@@ -240,6 +242,9 @@ class PrefetchIterator(AsyncDataSetIterator):
         super()._advance()
         wait_ms = (time.perf_counter() - t0) * 1000.0
         self._wait_hist.observe(wait_ms)
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            prof.note_input_wait_ms(wait_ms)
         q = self._queue
         if q is not None:
             self._depth_gauge.set(q.qsize())

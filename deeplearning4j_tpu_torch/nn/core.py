@@ -21,18 +21,31 @@ launch, as the JAX package's does. Dropout keys: the step's is
 ``fold_in(step key, i)`` (``layer_rng``; ``nn/random.py``). ``megastep``
 (JAX's K steps a dispatch) runs K steps a chunk with one readback
 (``run_megastep_chunk``): eagerly on the CPU, on the card one replay of
-the chunk captured in a CUDA graph (``GraphedChunk``). ``fit_batches``
-is both engines' epoch loop (JAX ``core.fit_batches``): the batch
+the chunk captured in a CUDA graph (``GraphedChunk``). The scan path
+(JAX ``build_multi_step`` / ``fit_epoch_scan``, the engines' default
+with ``scan_chunk = 16``) runs up to ``scan_chunk`` same-shaped
+minibatches of the bare step flavour as one such chunk, with no
+readback; ``fit_epochs_device_cached`` keeps a list's stacked chunks on
+the device across epochs (within ``device_cache_bytes``), and the
+fused truncated-BPTT scan threads the recurrent carry through a chunk
+of TBPTT segments, zeroed by a per-step reset flag. ``fit_batches`` is
+both engines' epoch loop (JAX ``core.fit_batches``): the batch
 validator, the listeners' epoch hooks, the preemption check at each
-step (each chunk under megastep), and the per-step loop through an
+step (each chunk under megastep and the scan), the order megastep,
+device-cached replay, scan epoch, per-step loop, the last through an
 ``AsyncDispatchWindow`` (``max_in_flight`` steps enqueued, the guard's
-flags read ``guard_lag`` steps late).
+flags read ``guard_lag`` steps late). The active ``StepProfiler``
+(``observability/profiler.py``) sees each step, or each chunk as one
+record; with step telemetry on (``enable_step_telemetry``) the step
+also returns the gradient's global norm, computed on the device.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import threading
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -361,8 +374,9 @@ def grad_step(score_fn: Callable, params, state, x, labels, mask,
 
 class StepOut(NamedTuple):
     """One train step's outputs: the new trees and score, then the new
-    loss-scale state, the new statistical-guard state and the guard's
-    ok flag (a 0-d bool tensor on the device), each None where that
+    loss-scale state, the new statistical-guard state, the guard's ok
+    flag (a 0-d bool tensor on the device) and the gradient's global L2
+    norm (step telemetry; f32 on the device), each None where that
     flavour is off."""
     params: dict
     upd_state: dict
@@ -371,12 +385,14 @@ class StepOut(NamedTuple):
     loss_scale: Optional[dict] = None
     stat_guard: Optional[dict] = None
     ok: Optional[torch.Tensor] = None
+    grad_norm: Optional[torch.Tensor] = None
 
 
 def finish_step(updater, grads, score, new_state, params, upd_state,
                 state, lrs: Dict[str, float], t: int, *,
                 guarded: bool = False, ls=None, sg=None, sg_cfg=None,
-                update: Optional[Callable] = None) -> StepOut:
+                update: Optional[Callable] = None,
+                telemetry: bool = False) -> StepOut:
     """The post-gradient half shared by the engine steps and the
     distributed trainer's (JAX ``finish_step``): with ``ls`` (the
     incoming loss-scale state; the caller scaled the loss through
@@ -388,7 +404,9 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
     default ``updater.update``), and with ``guarded`` the divergence
     guard's select, the statistical guard's too with ``sg`` / ``sg_cfg``
     (the incoming EWMA state and its ``StatGuardConfig``). Every branch
-    is a select on the device: nothing is read back on the host."""
+    is a select on the device: nothing is read back on the host. With
+    ``telemetry`` the step also returns the (unscaled) gradients' global
+    L2 norm, one more output of the same computation."""
     from deeplearning4j_tpu_torch.resilience.guard import (
         divergence_ok,
         grad_global_norm_sq,
@@ -405,11 +423,12 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
         inv = 1.0 / scale
         grads = _scale_tree(grads, inv)
         score = score * inv
-    if ls is not None or guarded:
+    if ls is not None or guarded or telemetry:
         # the squared global norm of the (unscaled) gradients, taken
-        # once: the overflow probe, the divergence guard's and the
-        # statistical guard's gradient norm all read it
+        # once: the overflow probe, the divergence guard's, the
+        # statistical guard's and the telemetry's gradient norm read it
         nsq = grad_global_norm_sq(grads)
+    gnorm = torch.sqrt(nsq) if telemetry else None
     if ls is not None:
         # the overflow probe: a non-finite gradient skips the update and
         # halves the scale; LOSS_SCALE_GROWTH_INTERVAL clean steps double
@@ -434,7 +453,8 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
     else:
         new_params, new_upd = update(grads)
     if not guarded:
-        return StepOut(new_params, new_upd, new_state, score, new_ls)
+        return StepOut(new_params, new_upd, new_state, score, new_ls,
+                       grad_norm=gnorm)
     ok = divergence_ok(score, norm_sq=nsq)
     new_sg = None
     if sg is not None:
@@ -443,7 +463,8 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
         ok = torch.logical_and(ok, sg_ok)
     new_params, new_upd, new_state = select_updates(
         ok, new_params, params, new_upd, upd_state, new_state, state)
-    return StepOut(new_params, new_upd, new_state, score, new_ls, new_sg, ok)
+    return StepOut(new_params, new_upd, new_state, score, new_ls, new_sg, ok,
+                   gnorm)
 
 
 def split_rows(tree, k: int) -> list:
@@ -522,6 +543,7 @@ def set_grad_accum(model, k) -> None:
     if k != model.grad_accum:
         model.grad_accum = k
         model._step = None
+        model._multi_step = None
 
 
 def check_grad_accum_batch(k: int, batch_n: int) -> None:
@@ -534,7 +556,7 @@ def check_grad_accum_batch(k: int, batch_n: int) -> None:
 def build_step(score_fn: Callable, updater, grad_accum: int = 1,
                recurrent_names: Sequence[str] = (), *,
                guarded: bool = False, loss_scale: bool = False,
-               stat_guard=None) -> Callable:
+               stat_guard=None, telemetry: bool = False) -> Callable:
     """One eager SGD-family train step: ``step(params, upd_state, state,
     x, labels, mask, lrs, t, fmask=None, ls=None, sg=None, rng=None) ->
     StepOut``. ``lrs`` and ``t`` are host numbers (the per-step loop) or
@@ -547,7 +569,8 @@ def build_step(score_fn: Callable, updater, grad_accum: int = 1,
     gradient; with ``guarded`` it returns the divergence guard's ok
     flag, and with ``stat_guard`` (a ``StatGuardConfig``; needs
     ``guarded``) it takes and returns the statistical guard's EWMA state
-    ``sg``."""
+    ``sg``; with ``telemetry`` it returns the gradients' global norm
+    (``StepOut.grad_norm``)."""
     if stat_guard is not None and not guarded:
         raise ValueError("stat_guard requires guarded=True (it shares the "
                          "divergence guard's select and ok flag)")
@@ -579,7 +602,7 @@ def build_step(score_fn: Callable, updater, grad_accum: int = 1,
                            upd_state, state, lrs, t, guarded=guarded,
                            ls=ls if loss_scale else None,
                            sg=sg if stat_guard is not None else None,
-                           sg_cfg=stat_guard)
+                           sg_cfg=stat_guard, telemetry=telemetry)
 
     return step
 
@@ -592,8 +615,9 @@ def init_transforms(model) -> None:
     ``core.init_transforms``): ``scan_layers``, ``remat``, ``loss_scale``
     (True: DEFAULT_LOSS_SCALE), ``megastep`` 1, and no loss-scale or EWMA
     state and no captured chunk yet; and the runtime's: no listeners,
-    no batch validator, the dispatch window's defaults. Called from both
-    engines' constructors."""
+    no batch validator, the dispatch window's defaults, ``scan_chunk``
+    16 and ``device_cache_bytes`` from ``util/device.py``, step
+    telemetry off. Called from both engines' constructors."""
     conf = model.conf
     model.scan_layers = bool(getattr(conf, "scan_layers", False))
     model.remat = check_remat_policy(getattr(conf, "remat", None) or "none")
@@ -614,6 +638,20 @@ def init_transforms(model) -> None:
     model.max_in_flight = 2
     model.guard_lag = None
     model._dispatch_window = None
+    # the scan path (JAX ``scan_chunk``): minibatches a chunk, and the
+    # bytes of a list that a multi-epoch fit keeps on the device
+    from deeplearning4j_tpu_torch.util.device import (
+        device_cache_budget_bytes,
+    )
+
+    model.scan_chunk = 16
+    model.device_cache_bytes = device_cache_budget_bytes(model.device)
+    model._multi_step = None
+    model._tbptt_multi_step = None
+    # step telemetry (``enable_step_telemetry``): the step also returns
+    # the gradient's global norm, kept on the device
+    model._telemetry_grad_norm = False
+    model._last_grad_norm = None
 
 
 def set_transforms(model, scan_layers=None, remat=None, loss_scale=None,
@@ -682,16 +720,29 @@ def set_divergence_guard(model, guard) -> None:
     model._step = None
 
 
+def enable_step_telemetry(model, enabled: bool = True) -> None:
+    """(Un)install step telemetry on either engine (JAX
+    ``enable_step_telemetry``): the step also returns the gradient's
+    global L2 norm, one more output computed on the device (no second
+    pass, no readback until something reads ``_last_grad_norm``). A
+    change drops the cached steps; ``TelemetryListener`` turns it on."""
+    if bool(enabled) != model._telemetry_grad_norm:
+        model._telemetry_grad_norm = bool(enabled)
+        model._step = None
+
+
 def model_step(model, score_fn: Callable) -> Callable:
     """The engine's cached step with its flavours: the guard and the
-    statistical guard as installed, loss scaling where it is active."""
+    statistical guard as installed, loss scaling where it is active,
+    the telemetry norm where it is on."""
     if model._step is None:
         guard = model.divergence_guard
         model._step = build_step(
             score_fn, model.updater_def, model.grad_accum,
             model.recurrent_names(), guarded=guard is not None,
             loss_scale=loss_scale_active(model),
-            stat_guard=stat_guard_config(model))
+            stat_guard=stat_guard_config(model),
+            telemetry=model._telemetry_grad_norm)
     return model._step
 
 
@@ -721,24 +772,35 @@ def run_step(model, step, x, labels, mask, fmask):
 def after_step(model, guard, ok, window) -> None:
     """The host side of one step: its completion event and ok flag into
     the fit loop's dispatch window, or with none open the guard's policy
-    at once; then every listener's ``iteration_done``."""
+    at once; then every listener's ``iteration_done`` (timed into the
+    active profiler's step)."""
     from deeplearning4j_tpu_torch.parallel.dispatch import step_done_event
 
     if window is not None:
         window.push(step_done_event(model.device), ok)
     elif guard is not None:
         guard.consult(model, ok)
-    for listener in model.listeners:
-        listener.iteration_done(model, model.iteration_count)
+    if model.listeners:
+        from deeplearning4j_tpu_torch.observability import profiler
+
+        t0 = time.perf_counter()
+        for listener in model.listeners:
+            listener.iteration_done(model, model.iteration_count)
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            prof.note_listener_ms((time.perf_counter() - t0) * 1e3)
 
 
 def apply_step_out(model, out: StepOut) -> None:
-    """The step's trees and flavour states onto the model."""
+    """The step's trees and flavour states onto the model (the telemetry
+    norm into ``_last_grad_norm``, a device scalar)."""
     model.params, model.updater_state, model.state = out[:3]
     if out.loss_scale is not None:
         model._loss_scale_state = out.loss_scale
     if out.stat_guard is not None:
         model._stat_guard_state = out.stat_guard
+    if out.grad_norm is not None:
+        model._last_grad_norm = out.grad_norm
 
 
 # --- megastep: K optimizer steps a chunk, one readback ----------------------
@@ -790,7 +852,10 @@ class Chunk(NamedTuple):
     ``MultiLayerNetwork``, lists of tensors for ``ComputationGraph``;
     masks may be None), the step count and the rows of a minibatch;
     ``weights``: a [k, w] f32 table handed to step i as ``weights=``
-    row i (the distributed trainer's loss weights), or None."""
+    row i (the distributed trainer's loss weights), or None;
+    ``resets``: a [k] f32 vector handed to step i as ``reset=`` (the
+    fused truncated-BPTT scan: 1 where a minibatch's first segment
+    zeroes the recurrent carry), or None."""
     xs: object
     ys: object
     lmasks: object
@@ -798,10 +863,12 @@ class Chunk(NamedTuple):
     k: int
     rows: int
     weights: object = None
+    resets: object = None
 
     @property
     def fields(self) -> tuple:
-        return (self.xs, self.ys, self.lmasks, self.fmasks, self.weights)
+        return (self.xs, self.ys, self.lmasks, self.fmasks, self.weights,
+                self.resets)
 
 
 def stack_fields(arrays, dtype) -> torch.Tensor:
@@ -835,21 +902,42 @@ def _leaves(tree) -> list:
     return out
 
 
+def _fresh_dicts(tree):
+    """``tree`` with new dicts at every level and the same tensors: what
+    the model holds of a captured chunk's static trees, so that a later
+    edit of the model's dictionaries never drops a tensor the graph
+    writes."""
+    if isinstance(tree, dict):
+        return {k: _fresh_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def nbytes(a) -> int:
+    """Bytes of a host array or tensor (None: 0)."""
+    if a is None:
+        return 0
+    if torch.is_tensor(a):
+        return a.numel() * a.element_size()
+    return int(np.asarray(a).nbytes)
+
+
 def chunk_steps(model, step, trees, fields, lr_names, lr_stack, it0,
                 base_key, steps: int):
     """``steps`` train steps of ``model`` through ``step`` (the engine's
-    cached step, any flavour, or the distributed trainer's): step i
-    takes slot i of ``fields`` (features, labels, labels masks,
-    features masks, narrow integers cast here; and a weights table,
-    row i handed on as ``weights=``, where it is not None), the
-    learning rates of row i of ``lr_stack`` (keys
-    ``lr_names``, ``MultiLayerUpdaterDef.lr_table``), ``t = it0 + 1 +
-    i`` and the key ``fold_in(base_key, it0 + i)`` (``it0`` a 0-d int64
-    tensor, ``base_key`` ``random.key(conf.seed)``). ``trees`` = (params,
+    cached step, any flavour, its bare scan step, or the distributed
+    trainer's): step i takes slot i of ``fields`` (features, labels,
+    labels masks, features masks, narrow integers cast here; a weights
+    table, row i handed on as ``weights=``, and a resets vector, entry
+    i handed on as ``reset=``, where they are not None), the learning
+    rates of row i of ``lr_stack`` (keys ``lr_names``,
+    ``MultiLayerUpdaterDef.lr_table``), ``t = it0 + 1 + i`` and the key
+    ``fold_in(base_key, it0 + i)`` (``it0`` a 0-d int64 tensor,
+    ``base_key`` ``random.key(conf.seed)``). ``trees`` = (params,
     updater state, layer state, loss-scale state or None, EWMA state or
     None). Returns the new trees and the metrics vector ``[scores (k),
-    their f32 sum, and with the guard its ok flags (k) and trips]``.
-    Nothing is read back: a CUDA graph captures this function whole."""
+    their f32 sum, with the guard its ok flags (k) and trips, with
+    telemetry the gradient norms (k)]``. Nothing is read back: a CUDA
+    graph captures this function whole."""
     params, upd_state, state, ls, sg = trees
     dtype = dtype_of(model.conf)
     draws = draws_masks(model)
@@ -859,10 +947,13 @@ def chunk_steps(model, step, trees, fields, lr_names, lr_stack, it0,
                            else a[i], tree)
 
     weights = fields[4] if len(fields) > 4 else None
-    scores, oks = [], []
+    resets = fields[5] if len(fields) > 5 else None
+    scores, oks, norms = [], [], []
     for i in range(steps):
         it = it0 + i
         extra = {} if weights is None else {"weights": weights[i]}
+        if resets is not None:
+            extra["reset"] = resets[i]
         out = step(params, upd_state, state, *(slot(f, i) for f in fields[:3]),
                    {n: lr_stack[i, j] for j, n in enumerate(lr_names)},
                    (it + 1).to(torch.float32), slot(fields[3], i), ls=ls,
@@ -874,11 +965,15 @@ def chunk_steps(model, step, trees, fields, lr_names, lr_stack, it0,
         scores.append(out.score.float().reshape(()))
         if out.ok is not None:
             oks.append(out.ok.reshape(()))
+        if out.grad_norm is not None:
+            norms.append(out.grad_norm.float().reshape(()))
     sc = torch.stack(scores)
     parts = [sc, sc.sum().reshape(1)]
     if oks:
         ok = torch.stack(oks).float()
         parts += [ok, (steps - ok.sum()).reshape(1)]
+    if norms:
+        parts.append(torch.stack(norms))
     return (params, upd_state, state, ls, sg), torch.cat(parts)
 
 
@@ -910,16 +1005,20 @@ class GraphedChunk:
     it reads at its start and ``copy_``-s its results into at its end,
     the static input buffers (minibatches, the learning-rate table,
     ``it0``) filled by non-blocking copies before each replay (JAX's
-    ``scan_consts`` stage the same values), the pinned host staging of
+    ``scan_consts`` stage the same values; a device-cached chunk's
+    minibatches are copied on the card), the pinned host staging of
     those copies, and the graph. The capture follows one eager warm-up
     step on a side stream (whose results are dropped): it loads the
     built kernel libraries and caches the conv kernels' tap tables. A
-    capture that fails raises; nothing falls back to the eager chunk."""
+    capture that fails raises; nothing falls back to the eager chunk.
+    ``hint`` names the knob that runs the path per step."""
 
-    def __init__(self, model, step, chunk: Chunk, lr_names, trees):
+    def __init__(self, model, step, chunk: Chunk, lr_names, trees,
+                 hint: str = "megastep=1"):
         dev = model.device
         self.step = step
         self.k = chunk.k
+        self.hint = hint
         self.lr_names = list(lr_names)
         self.trees = _map_tree(lambda t: t.detach().clone(), trees)
         fields = chunk.fields
@@ -933,6 +1032,7 @@ class GraphedChunk:
                               dtype=torch.float32, device=dev)
         self.lr_host = torch.empty(self.lr.shape, dtype=torch.float32,
                                    pin_memory=True)
+        self.lr_rows = None  # the table last staged
         self.it0 = torch.zeros((), dtype=torch.int64, device=dev)
         self.key = random.key(model.conf.seed, dev)
         self.graph = torch.cuda.CUDAGraph()
@@ -945,25 +1045,38 @@ class GraphedChunk:
 
     def fill(self, chunk: Chunk, lr_rows: np.ndarray, it0: int) -> None:
         """This chunk's minibatches, learning rates and ``it0`` into the
-        static buffers: non-blocking copies from the pinned staging,
-        which is rewritten only once the previous fill's copies are
-        done (``staged``); on the stream they follow the previous
-        replay."""
-        if self.staged is not None:
-            self.staged.synchronize()
+        static buffers, on the stream after the previous replay: a
+        minibatch already on the card (a device-cached chunk) by a
+        device copy, a host one through its pinned staging. As JAX's
+        ``scan_consts`` / ``note_it0`` keep a constant schedule and the
+        step count on the device, the learning-rate table is staged only
+        when it changed and ``it0`` is written on the device, so a
+        device-cached chunk under a constant schedule stages nothing on
+        the host. Pinned staging is rewritten only once the previous
+        fill's copies from it are done (``staged``)."""
         fields = chunk.fields
-        for a, h, d in zip(_leaves(fields), self.staging,
-                           _leaves(self.inputs), strict=True):
-            if h is None:
+        pairs = list(zip(_leaves(fields), self.staging, _leaves(self.inputs),
+                         strict=True))
+        lr_changed = self.lr_rows is None or not np.array_equal(
+            lr_rows, self.lr_rows)
+        staging = lr_changed or any(h is not None and not a.is_cuda
+                                    for a, h, _ in pairs)
+        if staging and self.staged is not None:
+            self.staged.synchronize()
+        for a, h, d in pairs:
+            if h is None or a.is_cuda:
                 d.copy_(a, non_blocking=True)
             else:
                 h.copy_(a)
                 d.copy_(h, non_blocking=True)
-        self.lr_host.copy_(torch.from_numpy(lr_rows))
-        self.lr.copy_(self.lr_host, non_blocking=True)
+        if lr_changed:
+            self.lr_host.copy_(torch.from_numpy(lr_rows))
+            self.lr.copy_(self.lr_host, non_blocking=True)
+            self.lr_rows = np.array(lr_rows, copy=True)
         self.it0.fill_(int(it0))
-        self.staged = torch.cuda.Event()
-        self.staged.record()
+        if staging:
+            self.staged = torch.cuda.Event()
+            self.staged.record()
 
     def capture(self, model) -> None:
         dev = model.device
@@ -972,6 +1085,13 @@ class GraphedChunk:
         with torch.cuda.stream(side):
             self._body(model, 1)
         torch.cuda.current_stream(dev).wait_stream(side)
+        # a model and its captured chunks form a reference cycle (the
+        # chunk's step closes over the model), so a dropped model's graphs
+        # are freed by the cyclic collector: never inside a capture, where
+        # destroying a graph is not permitted and breaks the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread-local capture: another thread's CUDA calls (an input
             # pipeline's copies, the process group's watchdog) do not
@@ -983,10 +1103,13 @@ class GraphedChunk:
         except Exception as e:
             self.graph = torch.cuda.CUDAGraph()  # the next chunk recaptures
             raise RuntimeError(
-                f"megastep: capturing the {self.k}-step chunk in a CUDA graph "
-                f"failed ({type(e).__name__}: {e}); a step that reads the "
-                "device back on the host cannot be captured: run it with "
-                "megastep=1") from e
+                f"capturing the {self.k}-step chunk in a CUDA graph failed "
+                f"({type(e).__name__}: {e}); a step that reads the device "
+                f"back on the host cannot be captured: run it with "
+                f"{self.hint}") from e
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self, trees):
         """One replay from ``trees`` (the model's; leaves that are not
@@ -997,11 +1120,12 @@ class GraphedChunk:
         return self.trees, self.metrics
 
 
-def _graphed_chunk(model, step, chunk: Chunk, lr_names, trees) -> GraphedChunk:
+def _graphed_chunk(model, step, chunk: Chunk, lr_names, trees,
+                   hint: str) -> GraphedChunk:
     """The model's captured chunk for this signature (the step count,
     the minibatches' shapes and dtypes, the learning-rate keys, the
-    remat policy and the step flavour: the engine's cached step), made
-    and captured on its first use."""
+    remat policy and the step flavour: the engine's cached step or its
+    scan step), made and captured on its first use."""
     fields = chunk.fields
     sig = (chunk.k, tuple(str(f) if f is None else
                           tuple((tuple(a.shape), a.dtype)
@@ -1009,15 +1133,16 @@ def _graphed_chunk(model, step, chunk: Chunk, lr_names, trees) -> GraphedChunk:
            tuple(lr_names), model.remat)
     g = model._megastep_graphs.get(sig)
     if g is None or g.step is not step:
-        g = model._megastep_graphs[sig] = GraphedChunk(model, step, chunk,
-                                                        lr_names, trees)
+        g = model._megastep_graphs[sig] = GraphedChunk(
+            model, step, chunk, lr_names, trees, hint)
     return g
 
 
 class Launched(NamedTuple):
-    """A chunk launched and not yet read back: its metrics vector (on
-    the card, a pinned host copy in flight, ``done`` recorded after it),
-    its step count and rows, and its first iteration."""
+    """A chunk launched: its metrics vector (with a readback on the
+    card a pinned host copy in flight, ``done`` recorded after it;
+    without one a tensor on the device), its step count and rows, and
+    its first iteration."""
     metrics: torch.Tensor
     done: Optional[object]
     k: int
@@ -1029,37 +1154,41 @@ def megastep_readback(chunk: Launched, guarded: bool) -> dict:
     """The megastep path's one host readback a chunk (JAX
     ``megastep_readback``), its one wait for the card: the metrics
     vector of ``chunk_steps`` to ``scores`` [k], ``loss_sum`` and, with
-    the guard, ``oks`` [k] and ``guard_trips``."""
+    the guard, ``oks`` [k] and ``guard_trips``; with step telemetry
+    ``grad_norms`` [k]."""
     if chunk.done is not None:
         chunk.done.synchronize()
     host, k = chunk.metrics.numpy(), chunk.k
     out = {"scores": host[:k], "loss_sum": float(host[k])}
+    at = k + 1
     if guarded:
         out["oks"] = host[k + 1:2 * k + 1] > 0.5
         out["guard_trips"] = int(host[2 * k + 1])
+        at = 2 * k + 2
+    if host.shape[0] >= at + k:
+        out["grad_norms"] = host[at:at + k]
     return out
 
 
-def launch_megastep_chunk(model, chunk: Chunk, step=None,
-                          stat_guard: Optional[bool] = None) -> Launched:
-    """One K-step chunk of ``model`` (either engine; JAX
-    ``run_megastep_chunk``'s dispatch) through ``step`` (default the
-    engine's cached step; the distributed trainer passes its own):
+def launch_chunk(model, chunk: Chunk, step, *, state=None,
+                 stat_guard: Optional[bool] = None, readback: bool = True,
+                 hint: str = "megastep=1") -> Launched:
+    """One K-step chunk of ``model`` (either engine) through ``step``:
     eagerly on the CPU; on the card the chunk's minibatches staged and
     one replay of its CUDA graph (captured at the signature's first
-    chunk), the metrics copied to the host behind it. The model holds
+    chunk), with ``readback`` the metrics copied to the host behind it,
+    without one a device copy of them (no wait at all). The model holds
     the chunk's trees and iteration count at once (on the card, tensors
     the replay is still writing: the stream orders every later use
-    after it). ``stat_guard``: whether the step threads the EWMA state
-    (default: the engine's guard has a ``StatGuardConfig``)."""
+    after it). ``state``: the layer state the chunk starts from
+    (default the model's; the fused TBPTT scan primes its carries).
+    ``stat_guard``: whether the step threads the EWMA state (default:
+    the engine's guard has a ``StatGuardConfig``)."""
     model._check_trainable()
-    if step is None:
-        canonicalize_updater_state(model)
-        check_grad_accum_batch(model.grad_accum, chunk.rows)
-        step = model._train_step()
     it0 = model.iteration_count
     lr_names, lr_rows = model.updater_def.lr_table(it0, chunk.k)
-    trees = (model.params, model.updater_state, model.state,
+    trees = (model.params, model.updater_state,
+             model.state if state is None else state,
              ensure_loss_scale_state(model) if loss_scale_active(model)
              else None,
              ensure_stat_guard_state(model)
@@ -1067,16 +1196,21 @@ def launch_megastep_chunk(model, chunk: Chunk, step=None,
                  else stat_guard) else None)
     done = None
     if model.device.type == "cuda":
-        g = _graphed_chunk(model, step, chunk, lr_names, trees)
+        g = _graphed_chunk(model, step, chunk, lr_names, trees, hint)
         g.fill(chunk, lr_rows, it0)
         if g.metrics is None:
             g.capture(model)
         new_trees, metrics = g.replay(trees)
-        host = torch.empty(metrics.shape, dtype=metrics.dtype,
-                           pin_memory=True)
-        host.copy_(metrics, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        new_trees = tuple(_fresh_dicts(t) for t in new_trees)
+        if readback:
+            host = torch.empty(metrics.shape, dtype=metrics.dtype,
+                               pin_memory=True)
+            host.copy_(metrics, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            # the next replay rewrites the static metrics
+            host = metrics.clone()
     else:
         fields = tuple(_map_tree(lambda a: a.to(model.device), f)
                        for f in chunk.fields)
@@ -1094,6 +1228,26 @@ def launch_megastep_chunk(model, chunk: Chunk, step=None,
     return Launched(host, done, chunk.k, chunk.rows, it0)
 
 
+def launch_megastep_chunk(model, chunk: Chunk, step=None,
+                          stat_guard: Optional[bool] = None) -> Launched:
+    """One K-step megastep chunk of ``model`` (either engine; JAX
+    ``run_megastep_chunk``'s dispatch) through ``step`` (default the
+    engine's cached step; the distributed trainer passes its own), its
+    metrics read back behind it (``launch_chunk``). The active
+    profiler's record of the chunk starts here."""
+    from deeplearning4j_tpu_torch.observability import profiler
+
+    if step is None:
+        canonicalize_updater_state(model)
+        check_grad_accum_batch(model.grad_accum, chunk.rows)
+        step = model._train_step()
+    prof = profiler.get_active_profiler()
+    if prof is not None:
+        prof.begin_step(model.iteration_count + chunk.k,
+                        device=model.device)
+    return launch_chunk(model, chunk, step, stat_guard=stat_guard)
+
+
 def finish_megastep_chunk(model, chunk: Launched, guard=None) -> dict:
     """The readback of a launched chunk (``megastep_readback``) and the
     host fan-out of what the per-step loop does each step, once a
@@ -1101,20 +1255,27 @@ def finish_megastep_chunk(model, chunk: Launched, guard=None) -> dict:
     flag (``guard``: default the engine's; the update of a bad step was
     already suppressed on the device), then each listener's
     ``chunk_done(model, it0, k, host)`` where it has one, else its
-    ``iteration_done`` for each step, ``score_value`` that step's score.
-    Returns the read-back metrics, with ``examples``."""
+    ``iteration_done`` for each step, ``score_value`` that step's score;
+    then the active profiler's record of the chunk. Returns the
+    read-back metrics, with ``examples``."""
+    from deeplearning4j_tpu_torch.observability import profiler
+
     if guard is None:
         guard = model.divergence_guard
     host = megastep_readback(chunk, guard is not None)
     host["examples"] = chunk.k * chunk.rows
     model._last_score = float(host["scores"][-1])
+    if "grad_norms" in host:
+        model._last_grad_norm = float(host["grad_norms"][-1])
     if guard is not None:
         for j in range(chunk.k):
             if host["oks"][j]:
                 guard.good_step()
             else:
                 guard.bad_step(model, step_index=chunk.it0 + j)
+    prof = profiler.get_active_profiler()
     if model.listeners:
+        t0 = time.perf_counter()
         per_step = []
         for listener in model.listeners:
             done = getattr(listener, "chunk_done", None)
@@ -1127,6 +1288,11 @@ def finish_megastep_chunk(model, chunk: Launched, guard=None) -> dict:
             for listener in per_step:
                 listener.iteration_done(model, chunk.it0 + j + 1)
         model._last_score = float(host["scores"][-1])
+        if prof is not None:
+            prof.note_listener_ms((time.perf_counter() - t0) * 1e3)
+    if prof is not None:
+        prof.end_step(score=model._last_score, rows=chunk.k * chunk.rows,
+                      chunk=chunk.k)
     return host
 
 
@@ -1139,9 +1305,10 @@ class MegastepFeed:
     """The megastep executor's launch-and-readback order: at most one
     chunk in flight, read back after the next is launched, so the host
     stages a chunk while the card runs the one before. With listeners
-    each chunk is read back as soon as it is launched, as in JAX: a
-    listener sees the model at its chunk's end, and what it does (a
-    checkpoint, a preemption notice) lands before the next chunk.
+    or an active profiler each chunk is read back as soon as it is
+    launched, as in JAX: a listener sees the model at its chunk's end,
+    and what it does (a checkpoint, a preemption notice) lands before
+    the next chunk; a profiler's record covers its chunk alone.
     ``drain()`` reads the chunk in flight back (an epoch's end, a
     preemption's quiesce)."""
 
@@ -1161,11 +1328,16 @@ class MegastepFeed:
     def run(self, chunk: Chunk, step=None, stat_guard=None) -> None:
         """Launch ``chunk`` (through ``step``, default the engine's),
         then read the chunk before it back."""
+        from deeplearning4j_tpu_torch.observability import profiler
+
+        if profiler.get_active_profiler() is not None:
+            self.drain()
         launched = launch_megastep_chunk(self.model, chunk, step,
                                          stat_guard)
         self.drain()
         self.launched = launched
-        if self.model.listeners:
+        if (self.model.listeners
+                or profiler.get_active_profiler() is not None):
             self.drain()
 
 
@@ -1259,6 +1431,299 @@ def fit_epoch_megastep(model, batches, prefetch=None) -> int:
     return n
 
 
+# --- the scan path: scan_chunk minibatches a chunk, no readback -------------
+#
+# JAX's default fit (``scan_chunk = 16``) runs up to 16 minibatches of
+# the bare step flavour (no guard, no loss scaling) as one ``lax.scan``
+# dispatch and reads nothing back; ``fit_epochs_device_cached`` keeps a
+# list's stacked chunks on the device and replays them every epoch, and
+# the fused truncated-BPTT scan runs many minibatches' TBPTT segments in
+# one dispatch, the recurrent carry threaded through it and zeroed at
+# each minibatch's first segment. Here each such chunk is
+# ``chunk_steps`` over ``build_multi_step``'s step: eagerly on the CPU,
+# one CUDA-graph replay on the card (``launch_chunk`` without a
+# readback). The chunk's trajectory is bitwise the per-step loop's.
+
+
+def build_multi_step(score_fn: Callable, updater, *,
+                     recurrent_names: Sequence[str] = (),
+                     tbptt: bool = False, grad_accum: int = 1) -> Callable:
+    """The scan path's step (JAX ``build_multi_step``'s scanned body), in
+    ``build_step``'s signature plus ``reset=``: the bare flavour (the
+    gradients, accumulated over ``grad_accum`` microbatches, and the
+    updater). Standard mode restores each recurrent layer's incoming
+    state entry after the step (the carry resets each minibatch).
+    ``tbptt=True`` threads the carry instead and multiplies it by ``1 -
+    reset`` first (a 0-d f32 tensor, 1 at a minibatch's first segment;
+    ``v * 0`` is bitwise the zeros of a primed carry), as JAX's ``v *
+    keep``. TBPTT refuses ``grad_accum`` > 1: the carry threads between
+    segments."""
+    if tbptt and int(grad_accum) > 1:
+        raise ValueError(
+            "grad_accum > 1 is incompatible with the fused TBPTT path: "
+            "the recurrent carry threads between chunks")
+    inner = build_step(score_fn, updater, int(grad_accum), recurrent_names)
+    names = tuple(recurrent_names)
+
+    def step(params, upd_state, state, x, labels, mask, lrs, t, fmask=None,
+             ls=None, sg=None, rng=None, reset=None):
+        if tbptt:
+            keep = 1.0 - reset
+            state = dict(state)
+            for name in names:
+                state[name] = {k: v * keep.to(v.dtype)
+                               for k, v in state[name].items()}
+        out = inner(params, upd_state, state, x, labels, mask, lrs, t,
+                    fmask, rng=rng)
+        if not tbptt and names:
+            new_state = dict(out.state)
+            for name in names:
+                new_state[name] = state[name]
+            out = out._replace(state=new_state)
+        return out
+
+    return step
+
+
+def scan_step(model, score_fn: Callable, tbptt: bool = False) -> Callable:
+    """The engine's cached scan step (``build_multi_step``; TBPTT mode
+    with ``tbptt``), dropped by ``set_grad_accum``."""
+    attr = "_tbptt_multi_step" if tbptt else "_multi_step"
+    step = getattr(model, attr)
+    if step is None:
+        step = build_multi_step(
+            score_fn, model.updater_def,
+            recurrent_names=model.recurrent_names(), tbptt=tbptt,
+            grad_accum=1 if tbptt else model.grad_accum)
+        setattr(model, attr, step)
+    return step
+
+
+def scan_active(model) -> bool:
+    """The scan epoch applies (JAX ``_can_scan_steps() and scan_chunk >
+    1``)."""
+    return model._can_scan_steps() and int(model.scan_chunk) > 1
+
+
+def batched_listeners(model) -> bool:
+    """Every listener takes a chunk's callbacks after the chunk (JAX
+    ``supports_batched_iterations``); one that does not forces the
+    per-step path."""
+    return all(getattr(listener, "supports_batched_iterations", False)
+               for listener in model.listeners)
+
+
+def finish_scan_chunk(model, launched: Launched, prof=None) -> None:
+    """The host side of a scan chunk (JAX ``run_scan_chunk`` after its
+    dispatch): ``score_value`` the chunk's last score (a device scalar:
+    nothing is read back), each listener's ``iteration_done`` for each
+    step with that step's score, then the active profiler's record of
+    the chunk."""
+    k, scores = launched.k, launched.metrics
+    model._last_score = scores[k - 1]
+    if model.listeners:
+        t0 = time.perf_counter()
+        for i in range(k):
+            model._last_score = scores[i]
+            for listener in model.listeners:
+                listener.iteration_done(model, launched.it0 + i + 1)
+        model._last_score = scores[k - 1]
+        if prof is not None:
+            prof.note_listener_ms((time.perf_counter() - t0) * 1e3)
+    if prof is not None:
+        prof.end_step(score=model._last_score, rows=k * launched.rows)
+
+
+def run_scan_chunk(model, chunk: Chunk) -> None:
+    """One scan chunk of ``model`` (JAX ``run_scan_chunk``): the bare
+    scan step over the chunk's k minibatches, one replay on the card,
+    no readback; one profiler record covers it."""
+    from deeplearning4j_tpu_torch.observability import profiler
+
+    prof = profiler.get_active_profiler()
+    if prof is not None:
+        prof.begin_step(model.iteration_count + chunk.k, device=model.device)
+    canonicalize_updater_state(model)
+    check_grad_accum_batch(model.grad_accum, chunk.rows)
+    launched = launch_chunk(model, chunk, model._scan_step(),
+                            readback=False, hint="scan_chunk=1")
+    finish_scan_chunk(model, launched, prof)
+
+
+def flush_scan_chunk(model, batches: list) -> None:
+    if len(batches) == 1:
+        model.fit_minibatch(batches[0])
+        return
+    run_scan_chunk(model, model._stack_chunk(batches))
+
+
+def run_prestacked_scan(model, ds) -> None:
+    """A ``ChunkedDataSet`` / ``PlacedChunk`` on the scan path: one chunk
+    (JAX ``_run_prestacked_chunk``; one minibatch runs per step)."""
+    if ds.k == 1:
+        model.fit_minibatch(ds)  # it unstacks a ChunkedDataSet
+        return
+    run_scan_chunk(model, prestacked_chunk(model, ds))
+
+
+def fit_epoch_scan(model, batches, prefetch=None) -> int:
+    """One epoch on the scan path (JAX ``fit_epoch_scan``): consecutive
+    same-shaped minibatches buffered into chunks of ``model.scan_chunk``
+    (a change of shapes cuts one), each chunk one ``run_scan_chunk``; a
+    chunk of one runs per step; a pre-stacked block is a chunk as it
+    comes. The preemption check runs before each item: an unflushed
+    buffer holds no launched work, so the emergency checkpoint is the
+    last flushed step's. Returns the minibatch count."""
+    from deeplearning4j_tpu_torch.datasets.api import (
+        ChunkedDataSet,
+        PlacedChunk,
+    )
+    from deeplearning4j_tpu_torch.resilience import preemption
+
+    model._reset_recurrent_state()  # the scan carries empty entries
+    buf: list = []
+    sig = None
+    n = 0
+    for ds in batches:
+        preemption.check_fit(model, prefetch=prefetch)
+        if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
+            if buf:
+                flush_scan_chunk(model, buf)
+                buf, sig = [], None
+            run_prestacked_scan(model, ds)
+            n += ds.k
+            continue
+        s = model._ds_scan_sig(ds)
+        if buf and s != sig:
+            flush_scan_chunk(model, buf)
+            buf = []
+        sig = s
+        buf.append(ds)
+        n += 1
+        if len(buf) >= model.scan_chunk:
+            flush_scan_chunk(model, buf)
+            buf = []
+    if buf:
+        flush_scan_chunk(model, buf)
+    return n
+
+
+def build_scan_plan(seq, sig_fn: Callable, stack_fn: Callable,
+                    scan_chunk: int) -> list:
+    """A device-cached plan (JAX ``build_scan_plan``): each run of n
+    consecutive same-signature items split into ``ceil(n / scan_chunk)``
+    groups of near-equal size, ``("chunk", stack_fn(group), last item)``
+    or ``("single", item, item)`` entries. JAX fills chunks and leaves a
+    shorter tail, as ``fit_epoch_scan`` does on a stream; a plan knows
+    its whole list, so it balances: 24 minibatches at 16 make two chunks
+    of 12, one CUDA graph to capture instead of two. The trajectory is
+    the same either way."""
+    plan: list = []
+
+    def flush(group):
+        if len(group) == 1:
+            plan.append(("single", group[0], group[0]))
+        elif group:
+            plan.append(("chunk", stack_fn(group), group[-1]))
+
+    def flush_run(run):
+        n_groups = -(-len(run) // scan_chunk)
+        size, extra = divmod(len(run), n_groups)
+        at = 0
+        for g in range(n_groups):
+            n = size + (1 if g < extra else 0)
+            flush(run[at:at + n])
+            at += n
+
+    run: list = []
+    sig = None
+    for item in seq:
+        s = sig_fn(item)
+        if run and s != sig:
+            flush_run(run)
+            run = []
+        sig = s
+        run.append(item)
+    flush_run(run)
+    return plan
+
+
+def chunk_to(chunk: Chunk, device) -> Chunk:
+    """``chunk`` with every field on ``device`` (narrow integers keep
+    their width)."""
+    def move(f):
+        return _map_tree(lambda a: a.to(device), f)
+
+    return chunk._replace(xs=move(chunk.xs), ys=move(chunk.ys),
+                          lmasks=move(chunk.lmasks),
+                          fmasks=move(chunk.fmasks),
+                          weights=move(chunk.weights),
+                          resets=move(chunk.resets))
+
+
+def cached_epoch_plan(model, batches, epochs: int, arrays_of: Callable):
+    """The device-cached plan of a multi-epoch fit (JAX
+    ``cached_epoch_plan``): None (the caller streams) for one epoch, an
+    input that is not a non-empty list of datasets, a configuration the
+    scan refuses, ``scan_chunk`` 1, or data larger than
+    ``model.device_cache_bytes`` (``arrays_of(ds)`` yields every array a
+    chunk holds); else the scan plan, its chunks stacked and placed on
+    the device once, its groups balanced (``build_scan_plan``)."""
+    if (epochs <= 1 or not isinstance(batches, (list, tuple))
+            or len(batches) == 0 or not scan_active(model)):
+        return None
+    total = 0
+    for ds in batches:
+        if not hasattr(ds, "features"):
+            return None
+        total += sum(nbytes(a) for a in arrays_of(ds))
+    if total > model.device_cache_bytes:
+        return None
+    return build_scan_plan(
+        batches, model._ds_scan_sig,
+        lambda group: chunk_to(model._stack_chunk(group), model.device),
+        model.scan_chunk)
+
+
+def fit_epochs_device_cached(model, batches, epochs: int,
+                             arrays_of: Callable,
+                             extra_plan_fn: Optional[Callable] = None
+                             ) -> bool:
+    """A multi-epoch fit of a list with its chunks kept on the device
+    (JAX ``fit_epochs_device_cached``): each chunk crosses to the device
+    once and is replayed every epoch (``run_scan_chunk``; a TBPTT plan's
+    items through the engine's ``_run_tbptt_stacked``; a single
+    minibatch per step). The learning rates and step counts are those of
+    the streamed epochs. Returns False, having done nothing, where no
+    plan applies (``extra_plan_fn(batches, epochs)`` first, then
+    ``cached_epoch_plan``)."""
+    from deeplearning4j_tpu_torch.resilience import preemption
+
+    plan = extra_plan_fn(batches, epochs) if extra_plan_fn else None
+    if plan is None:
+        plan = cached_epoch_plan(model, batches, epochs, arrays_of)
+    if plan is None:
+        return False
+    for _ in range(epochs):
+        for listener in model.listeners:
+            if hasattr(listener, "on_epoch_start"):
+                listener.on_epoch_start(model)
+        model._reset_recurrent_state()
+        for kind, item, _last in plan:
+            preemption.check_fit(model)
+            if kind == "chunk":
+                run_scan_chunk(model, item)
+            elif kind == "tbptt":
+                model._run_tbptt_stacked(item)
+            else:
+                model.fit_minibatch(item)
+        for listener in model.listeners:
+            if hasattr(listener, "on_epoch_end"):
+                listener.on_epoch_end(model)
+        model.epoch_count += 1
+    return True
+
+
 def set_batch_validator(model, validator, quarantine=None) -> None:
     """(Un)install the data-plane defense on a model's fit loop (JAX
     ``core.set_batch_validator``): ``fit_batches`` wraps its iterator in
@@ -1286,16 +1751,19 @@ def _batches_of(data, labels, graph: bool):
 
 def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
     """Both engines' epoch loop (JAX ``core.fit_batches``): the batch
-    validator (``set_batch_validator``) wraps the stream, each epoch
-    runs the listeners' ``on_epoch_start`` / ``on_epoch_end``, the
-    megastep executor where ``can_megastep`` allows it, else the
-    per-step loop through an ``AsyncDispatchWindow`` (the preemption
-    check before each step; the window drained at the epoch's end, where
-    a guard abort surfaces), and resets an iterator with ``reset()``
-    after the epoch. An exception drops the window's outstanding work
-    and dumps the flight recorder (a preemption has attached it to its
+    validator (``set_batch_validator``) wraps the stream; then the first
+    path that applies: the megastep executor where ``can_megastep``
+    allows it, the device-cached replay of a list over several epochs
+    (the engine's ``_fit_epochs_device_cached``), the scan epoch
+    (``scan_active``), else the per-step loop through an
+    ``AsyncDispatchWindow`` (the preemption check before each step; the
+    window drained at the epoch's end, where a guard abort surfaces).
+    Each epoch runs the listeners' ``on_epoch_start`` / ``on_epoch_end``
+    and resets an iterator with ``reset()`` after it. An exception drops
+    the window's outstanding work and the profiler's open step, and
+    dumps the flight recorder (a preemption has attached it to its
     checkpoint already)."""
-    from deeplearning4j_tpu_torch.observability import flightrec
+    from deeplearning4j_tpu_torch.observability import flightrec, profiler
     from deeplearning4j_tpu_torch.parallel.dispatch import (
         AsyncDispatchWindow,
     )
@@ -1318,6 +1786,11 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
         model=model, guard_fn=lambda: model.divergence_guard,
         max_in_flight=model.max_in_flight, guard_lag=model.guard_lag)
     try:
+        # megastep=K outranks the device-cached replay: the caller asked
+        # for the K-step executor and its one readback a chunk
+        if not can_megastep(model) and model._fit_epochs_device_cached(
+                iterator, epochs):
+            return
         for epoch in range(epochs):
             for listener in model.listeners:
                 if hasattr(listener, "on_epoch_start"):
@@ -1325,6 +1798,9 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
             if can_megastep(model):
                 n_batches = fit_epoch_megastep(model, iter(iterator),
                                                prefetch=prefetch)
+            elif scan_active(model):
+                n_batches = fit_epoch_scan(model, iter(iterator),
+                                           prefetch=prefetch)
             else:
                 n_batches = 0
                 model._dispatch_window = window
@@ -1350,6 +1826,9 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
             model.epoch_count += 1
     except BaseException as e:
         window.abandon()
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            prof.abandon_step()
         if not isinstance(e, preemption.PreemptedException):
             flightrec.dump_on_crash("fit_exception")
         raise

@@ -11,14 +11,19 @@ running statistics) and updater state are dictionaries keyed by vertex
 name, as the JAX engine's are, so a checkpoint's ``"<vertex>/<param>"``
 arrays map onto them 1:1.
 
-Training is the plain per-step loop of ``nn/core.py`` (``build_step``):
-each minibatch runs ``conf.iterations`` optimizer steps at the scheduled
+Training's unit is the step of ``nn/core.py`` (``build_step``; the
+scan path below runs it k times a chunk, bitwise the same): each
+minibatch runs ``conf.iterations`` optimizer steps at the scheduled
 learning rates, with ``fit(grad_accum=K)`` as K contiguous microbatches
 a step. Inputs cross to the device at their own width where they are
-uint8 / int8 / int16 and are cast there (``core.to_device``). The JAX
-engine's ``scan_chunk`` fuses 16 minibatches into one dispatch with the
-same trajectory; it is not ported. The step's flavours (loss scaling
-under f16 compute, the divergence and statistical guards), the
+uint8 / int8 / int16 and are cast there (``core.to_device``). As in the
+JAX engine, ``scan_chunk`` (default 16) runs that many same-shaped
+minibatches as one chunk of the bare step (``core.fit_epoch_scan``; on
+the card one CUDA-graph replay) and a multi-epoch fit of a list within
+``device_cache_bytes`` keeps its chunks on the device
+(``core.fit_epochs_device_cached``), with the per-step trajectory;
+``scan_chunk = 1`` is the per-step loop. The step's flavours (loss
+scaling under f16 compute, the divergence and statistical guards), the
 whole-net transforms (``remat`` per layer vertex, ``scan_layers``) and
 ``fit(megastep=K)`` (K steps a chunk, on the card one CUDA-graph
 replay) are the sequential engine's (``nn/core.py``), and so are
@@ -50,6 +55,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import ShapeContext
 from deeplearning4j_tpu_torch.nn.updaters import MultiLayerUpdaterDef
+from deeplearning4j_tpu_torch.observability import profiler
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -325,13 +331,46 @@ class ComputationGraph:
     def layer_confs(self) -> list:
         return [self._layer(n) for n in self.layer_vertex_names]
 
-    def _train_step(self):
+    def _score_fn(self):
         def score_fn(params, state, inputs, labels, lmasks, fmasks, rng):
             return self._score_pure(params, state, inputs, labels,
                                     lmasks, train=True, fmasks=fmasks,
                                     rng=rng)
 
-        return core.model_step(self, score_fn)
+        return score_fn
+
+    def _train_step(self):
+        return core.model_step(self, self._score_fn())
+
+    def _scan_step(self, tbptt: bool = False):
+        """The scan path's bare step (``core.build_multi_step``)."""
+        return core.scan_step(self, self._score_fn(), tbptt)
+
+    def enable_step_telemetry(self, enabled: bool = True) -> None:
+        """As ``MultiLayerNetwork.enable_step_telemetry``."""
+        core.enable_step_telemetry(self, enabled)
+
+    def _can_scan_steps(self) -> bool:
+        """The scan path applies (JAX ``_can_scan_steps``): one iteration
+        a minibatch, no truncated BPTT, the SGD solver, no divergence
+        guard, no loss scaling, no recurrent vertex, and listeners that
+        take a chunk's callbacks after it."""
+        conf = self.conf
+        return (conf.iterations == 1
+                and conf.backprop_type != "TruncatedBPTT"
+                and conf.optimization_algo == "STOCHASTIC_GRADIENT_DESCENT"
+                and self.divergence_guard is None
+                and not self._loss_scale_active
+                and not self.recurrent_names()
+                and core.batched_listeners(self))
+
+    def _fit_epochs_device_cached(self, batches, epochs: int) -> bool:
+        def arrays_of(ds):
+            for group in _ds_arrays(ds):
+                yield from group or []
+
+        return core.fit_epochs_device_cached(self, batches, epochs,
+                                             arrays_of)
 
     def fit(self, data, labels=None, *, epochs: int = 1, resume_from=None,
             grad_accum=None, megastep=None) -> None:
@@ -395,11 +434,20 @@ class ComputationGraph:
             raise NotImplementedError(
                 "fit: truncated BPTT over a ComputationGraph is not ported "
                 "yet (ROADMAP queue 1)")
-        step = self._train_step()
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            prof.begin_step(self.iteration_count + 1, device=self.device)
         score = None
         for _ in range(self.conf.iterations):
-            score = core.run_step(self, step, inputs, labels, lmasks, fmasks)
+            # a listener may change the step's flavour (telemetry, the
+            # guard) between iterations
+            score = core.run_step(self, self._train_step(), inputs, labels,
+                                  lmasks, fmasks)
             self._reset_recurrent_state()
+        if prof is not None:
+            prof.end_step(model=self, ds=ds, score=self._last_score,
+                          grad_norm=self._last_grad_norm,
+                          rows=self._last_batch_rows)
         return score
 
     def batch_tensors(self, ds, device=None):
@@ -413,8 +461,8 @@ class ComputationGraph:
         return tuple(self._tensors(a, device) for a in (f, l, lm, fm))
 
     def _ds_scan_sig(self, ds) -> tuple:
-        """The shapes and dtypes of a minibatch's fields: a megastep
-        chunk stacks minibatches of one signature."""
+        """The shapes and dtypes of a minibatch's fields: a megastep or
+        scan chunk stacks minibatches of one signature."""
         return tuple(None if v is None else tuple(core.field_sig(a)
                                                   for a in v)
                      for v in _ds_arrays(ds))

@@ -12,8 +12,9 @@ likewise maps onto ``"<layer>/<param>/<i>"``, and the layer state
 ``var``) onto ``"<layer>/<key>"``. At inference a Conv(identity) ->
 BatchNormalization pair runs as one conv kernel launch (``nn/core.py``).
 
-Training is the plain per-step loop (``nn/core.py`` ``build_step``):
-each minibatch runs ``conf.iterations`` optimizer steps at the
+Training's unit is the step of ``nn/core.py`` ``build_step`` (the scan
+path below runs it k times a chunk, bitwise the same): each minibatch
+runs ``conf.iterations`` optimizer steps at the
 scheduled learning rates, with Adam's ``t = iteration + 1`` (with
 ``fit(grad_accum=K)`` each step runs K contiguous microbatches), and
 the recurrent carry is reset after each. Inputs cross to the device at
@@ -21,8 +22,11 @@ their own width where they are uint8 / int8 / int16 and are cast there
 (``core.to_device``). Under truncated BPTT a minibatch
 longer than ``tbptt_fwd_length`` is cut into chunks along time, one
 optimizer step and one iteration a chunk, with the carry handed from
-chunk to chunk outside the graph (the JAX package's chunk loop; its
-fused single-dispatch scan has the same trajectory and is not ported).
+chunk to chunk (the JAX package's chunk loop); where ``_can_fuse_tbptt``
+allows it the segments run as one chunk of the fused TBPTT scan
+(``core.build_multi_step(tbptt=True)``: the carry threads through the
+chunk, zeroed at each minibatch's first segment), on the card one
+CUDA-graph replay.
 The step's flavours are the JAX engine's: dynamic loss scaling under
 f16 compute (``set_transforms(loss_scale=...)`` or the Builder's
 ``loss_scale``), the divergence guard and the statistical guard
@@ -35,7 +39,13 @@ conf.seed), iteration)`` and layer i's ``fold_in(step key, i)``
 (``nn/random.py``), in training and in ``output(train=True)``.
 ``fit(megastep=K)`` runs K steps a chunk with one readback, on the card
 one CUDA-graph replay (``core.run_megastep_chunk``); a chunk is
-bitwise the per-step loop. ``fit`` runs the epoch loop of
+bitwise the per-step loop. With its default ``scan_chunk = 16``
+``fit`` runs up to 16 same-shaped minibatches as one chunk of the bare
+step (``core.fit_epoch_scan``), and a multi-epoch fit of a list within
+``device_cache_bytes`` keeps its chunks on the device
+(``core.fit_epochs_device_cached``; the TBPTT plan ``_tbptt_cached_plan``
+up to 16 minibatches' segments a chunk); ``scan_chunk = 1`` is the
+per-step loop. ``fit`` runs the epoch loop of
 ``core.fit_batches``: the listeners (``set_listeners``), the batch
 validator (``set_batch_validator``), the preemption check, and the
 dispatch window (``max_in_flight`` / ``guard_lag``); ``resume`` and
@@ -57,6 +67,7 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.updaters import MultiLayerUpdaterDef
+from deeplearning4j_tpu_torch.observability import profiler
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -273,12 +284,38 @@ class MultiLayerNetwork:
     def layer_confs(self) -> list:
         return list(self.conf.layers)
 
-    def _train_step(self):
+    def _score_fn(self):
         def score_fn(params, state, x, labels, mask, fmask, rng):
             return self._score_pure(params, state, x, labels, mask,
                                     train=True, fmask=fmask, rng=rng)
 
-        return core.model_step(self, score_fn)
+        return score_fn
+
+    def _train_step(self):
+        return core.model_step(self, self._score_fn())
+
+    def _scan_step(self, tbptt: bool = False):
+        """The scan path's bare step (``core.build_multi_step``)."""
+        return core.scan_step(self, self._score_fn(), tbptt)
+
+    def enable_step_telemetry(self, enabled: bool = True) -> None:
+        """(Un)install step telemetry: the step also returns the
+        gradient's global L2 norm (``_last_grad_norm``, a device scalar;
+        ``core.enable_step_telemetry``)."""
+        core.enable_step_telemetry(self, enabled)
+
+    def _can_scan_steps(self) -> bool:
+        """The scan path applies (JAX ``_can_scan_steps``): one iteration
+        a minibatch, backprop without truncated BPTT, the SGD solver, no
+        divergence guard, no loss scaling, and listeners that take a
+        chunk's callbacks after it (``supports_batched_iterations``)."""
+        conf = self.conf
+        return (conf.iterations == 1 and conf.backprop
+                and conf.backprop_type != "TruncatedBPTT"
+                and conf.optimization_algo == "STOCHASTIC_GRADIENT_DESCENT"
+                and self.divergence_guard is None
+                and not self._loss_scale_active
+                and core.batched_listeners(self))
 
     def fit(self, data, labels=None, *, epochs: int = 1, resume_from=None,
             grad_accum=None, megastep=None) -> None:
@@ -355,11 +392,18 @@ class MultiLayerNetwork:
                 and x.shape[2] > self.conf.tbptt_fwd_length):
             return self._fit_tbptt(x, y, mask, fmask)
         core.check_grad_accum_batch(self.grad_accum, int(x.shape[0]))
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            prof.begin_step(self.iteration_count + 1, device=self.device)
         score = None
         for _ in range(self.conf.iterations):
             score = self._one_step(x, y, mask, fmask)
             # each pass over the minibatch starts from a zero carry
             self._reset_recurrent_state()
+        if prof is not None:
+            prof.end_step(model=self, ds=ds, score=self._last_score,
+                          grad_norm=self._last_grad_norm,
+                          rows=self._last_batch_rows)
         return score
 
     def batch_tensors(self, ds, device=None):
@@ -376,8 +420,8 @@ class MultiLayerNetwork:
                                getattr(ds, "features_mask", None)))
 
     def _ds_scan_sig(self, ds) -> tuple:
-        """The shapes and dtypes of a minibatch's fields: a megastep
-        chunk stacks minibatches of one signature."""
+        """The shapes and dtypes of a minibatch's fields: a megastep or
+        scan chunk stacks minibatches of one signature."""
         return tuple(core.field_sig(a) for a in (
             ds.features, ds.labels, getattr(ds, "labels_mask", None),
             getattr(ds, "features_mask", None)))
@@ -412,8 +456,13 @@ class MultiLayerNetwork:
         chunks and carry the recurrent state from chunk to chunk
         (reference ``doTruncatedBPTT:1210``, state carry ``:1259-1276``);
         the layers hand the carry on detached, so each chunk
-        backpropagates through itself alone."""
+        backpropagates through itself alone. Where ``_can_fuse_tbptt``
+        allows it the chunks run as one fused scan chunk
+        (``_run_tbptt_stacked``), else one step each."""
         fwd = self.conf.tbptt_fwd_length
+        if self._can_fuse_tbptt(x, y, fwd):
+            return self._run_tbptt_stacked(
+                self._stack_tbptt(x, y, mask, fmask))
         self._reset_recurrent_state()
         score = None
         for start in range(0, int(x.shape[2]), fwd):
@@ -423,8 +472,141 @@ class MultiLayerNetwork:
                 y[:, :, start:end].contiguous() if y.dim() == 3 else y,
                 None if mask is None else mask[:, start:end].contiguous(),
                 None if fmask is None else fmask[:, start:end].contiguous())
+        self._tbptt_carry = self._recurrent_carry()
         self._reset_recurrent_state()
         return score
+
+    def _recurrent_carry(self) -> dict:
+        """The recurrent layers' state entries (the carry a TBPTT
+        minibatch ended with, kept as ``_tbptt_carry``)."""
+        return {n: dict(self.state.get(n, {}))
+                for n in self.recurrent_names()}
+
+    def _can_fuse_tbptt(self, x, y, fwd: int) -> bool:
+        """The fused TBPTT scan applies (JAX ``_can_fuse_tbptt``): the
+        segments tile the sequence, the labels are per time step, one
+        iteration a minibatch, no guard, no loss scaling, every
+        recurrent layer keeps an h / c carry, listeners that take a
+        chunk's callbacks after it; and ``scan_chunk`` > 1 (1 is the
+        per-segment loop)."""
+        return (int(self.scan_chunk) > 1 and self.conf.iterations == 1
+                and np.ndim(x) == 3 and int(np.shape(x)[2]) % fwd == 0
+                and np.ndim(y) == 3
+                and int(np.shape(y)[2]) == int(np.shape(x)[2])
+                and self.divergence_guard is None
+                and not self._loss_scale_active
+                and all(layer.can_stream()
+                        and getattr(layer, "init_stream_state", None)
+                        is not None
+                        for layer in self.conf.layers
+                        if layer.is_recurrent())
+                and core.batched_listeners(self))
+
+    def _stack_tbptt(self, x, y, mask, fmask) -> core.Chunk:
+        """One minibatch's tensors as the fused scan's chunk of its k
+        TBPTT segments: [b, n, k * fwd] -> [k, b, n, fwd] (masks [b, k *
+        fwd] -> [k, b, fwd]), with the resets [1, 0, ..., 0] (JAX
+        ``_stack_tbptt``)."""
+        fwd = self.conf.tbptt_fwd_length
+        b = int(x.shape[0])
+        k = int(x.shape[2]) // fwd
+
+        def seg3(v):
+            return v.reshape(v.shape[0], v.shape[1], k, fwd).permute(
+                2, 0, 1, 3).contiguous()
+
+        def seg2(m):
+            return (None if m is None else
+                    m.reshape(b, k, fwd).permute(1, 0, 2).contiguous())
+
+        resets = torch.zeros(k, dtype=torch.float32, device=x.device)
+        resets[0] = 1.0
+        return core.Chunk(seg3(x), seg3(y), seg2(mask), seg2(fmask), k, b,
+                          resets=resets)
+
+    def _run_tbptt_stacked(self, chunk: core.Chunk) -> torch.Tensor:
+        """One chunk of the fused TBPTT scan (JAX ``_run_tbptt_stacked``):
+        the recurrent carries primed with zeros, the chunk's segments
+        through the TBPTT scan step (one replay on the card, no
+        readback), the listeners' callbacks for each step, the carry
+        dropped after it. Returns the last score (a device scalar)."""
+        cdt = core.compute_dtype_of(self.conf)
+        state = dict(self.state)
+        for name, layer in zip(self.layer_names, self.conf.layers):
+            if layer.is_recurrent():
+                state[name] = layer.init_stream_state(chunk.rows, cdt,
+                                                      self.device)
+        core.canonicalize_updater_state(self)
+        launched = core.launch_chunk(self, chunk, self._scan_step(True),
+                                     state=state, readback=False,
+                                     hint="scan_chunk=1")
+        core.finish_scan_chunk(self, launched)
+        self._tbptt_carry = self._recurrent_carry()
+        self._reset_recurrent_state()
+        return self._last_score
+
+    def _fit_epochs_device_cached(self, batches, epochs: int) -> bool:
+        return core.fit_epochs_device_cached(
+            self, batches, epochs,
+            lambda ds: (ds.features, ds.labels,
+                        getattr(ds, "labels_mask", None),
+                        getattr(ds, "features_mask", None)),
+            extra_plan_fn=self._tbptt_cached_plan)
+
+    def _tbptt_cached_plan(self, batches, epochs: int):
+        """The device-cached plan of a fused-TBPTT fit (JAX
+        ``_tbptt_cached_plan``): each minibatch's segment chunk placed on
+        the device once, consecutive same-shaped ones merged into
+        balanced chunks of up to ``scan_chunk`` minibatches (their resets
+        zero the carry at each minibatch's first segment), replayed every
+        epoch. None
+        where the configuration or the data does not qualify, or the
+        data exceeds ``device_cache_bytes``."""
+        conf = self.conf
+        if (epochs <= 1 or not isinstance(batches, (list, tuple))
+                or len(batches) == 0
+                or not all(hasattr(ds, "features") for ds in batches)
+                or conf.backprop_type != "TruncatedBPTT"
+                or conf.iterations != 1
+                or conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT"
+                or not core.batched_listeners(self)):
+            return None
+        fwd = conf.tbptt_fwd_length
+        total = 0
+        for ds in batches:
+            x, y = ds.features, ds.labels
+            if (np.ndim(x) != 3 or int(np.shape(x)[2]) <= fwd
+                    or not self._can_fuse_tbptt(x, y, fwd)):
+                return None
+            total += sum(core.nbytes(a) for a in (
+                x, y, getattr(ds, "labels_mask", None),
+                getattr(ds, "features_mask", None)))
+        if total > self.device_cache_bytes:
+            return None
+        stacks = [(self._stack_tbptt(*self.batch_tensors(ds)), ds)
+                  for ds in batches]
+
+        def merge(items):
+            parts = [c for c, _ in items]
+
+            def cat(get):
+                first = get(parts[0])
+                return (None if first is None else
+                        torch.cat([get(c) for c in parts]))
+
+            return core.Chunk(
+                cat(lambda c: c.xs), cat(lambda c: c.ys),
+                cat(lambda c: c.lmasks), cat(lambda c: c.fmasks),
+                sum(c.k for c in parts), parts[0].rows,
+                resets=cat(lambda c: c.resets))
+
+        plan = core.build_scan_plan(
+            stacks, lambda item: tuple(
+                None if a is None else tuple(a.shape)
+                for a in item[0].fields[:4]),
+            merge, self.scan_chunk)
+        return [("tbptt", item[0] if kind == "single" else item, last[1])
+                for kind, item, last in plan]
 
     # -- streaming RNN inference (reference rnnTimeStep:2290) ------------
 

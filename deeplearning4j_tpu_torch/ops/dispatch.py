@@ -9,6 +9,8 @@ Nothing falls back from the card to the plain version.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Optional, Union
 
 import torch
@@ -50,13 +52,32 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+_meta_plain = threading.local()
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Within this block (on this thread) a ``meta`` tensor takes the
+    plain version: shapes without data, which the step profiler's cost
+    model runs the plain path on to count its FLOPs. Elsewhere a meta
+    tensor raises."""
+    prev = getattr(_meta_plain, "on", False)
+    _meta_plain.on = True
+    try:
+        yield
+    finally:
+        _meta_plain.on = prev
+
+
 def is_kernel_tensor(t: torch.Tensor) -> bool:
     """True when ``t`` must go through a hand-written kernel (it lies
-    on a CUDA device), False when it takes the plain version (CPU)."""
+    on a CUDA device), False when it takes the plain version (CPU, and
+    ``meta`` inside ``plain_on_meta``)."""
     kind = t.device.type
     if kind == "cuda":
         return True
-    if kind == "cpu":
+    if kind == "cpu" or (kind == "meta"
+                         and getattr(_meta_plain, "on", False)):
         return False
     raise ValueError(f"no kernel or plain version for a tensor on {t.device}")
 

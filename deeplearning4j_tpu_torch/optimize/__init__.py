@@ -1,4 +1,5 @@
-"""Training listeners (``optimize/listeners.py``)."""
+"""Training listeners (``optimize/listeners.py``) and the profiler
+listener (``optimize/profiler.py``)."""
 
 from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: F401
     CollectScoresIterationListener,
@@ -7,4 +8,8 @@ from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: F401
     ParamAndGradientIterationListener,
     PerformanceListener,
     ScoreIterationListener,
+)
+from deeplearning4j_tpu_torch.optimize.profiler import (  # noqa: F401
+    ProfilerListener,
+    annotate,
 )

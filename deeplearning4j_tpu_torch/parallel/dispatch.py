@@ -25,7 +25,9 @@ divergence guard's ``bool(ok)``, or a listener reading
   lag 0: the synchronous consult.
 - **step gap**: ``training_step_gap_ms`` records the host time between
   consecutive dispatches (with ``training_prefetch_wait_ms`` it tells
-  a host-bound loop from a device-bound one).
+  a host-bound loop from a device-bound one). The window's blocks are
+  noted into the active step profiler's step (``dispatch_ms``; the
+  drain at an epoch's end as ``device_ms``).
 
 ``drain()`` collects every outstanding flag and completion (epoch
 boundaries, the end of a fit, a preemption's quiesce); ``abandon()``
@@ -37,6 +39,8 @@ from __future__ import annotations
 import time
 from collections import deque
 from typing import Callable, Optional
+
+from deeplearning4j_tpu_torch.observability import profiler
 
 GAP_MS_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
                   1000.0)
@@ -114,8 +118,15 @@ class AsyncDispatchWindow:
                 self._consult(self._flags.popleft(), guard)
         if done is not None:
             self._inflight.append(done)
-            while len(self._inflight) > self.max_in_flight:
-                self._inflight.popleft().synchronize()
+            if len(self._inflight) > self.max_in_flight:
+                # blocked here: device back-pressure, the step
+                # profiler's dispatch_ms
+                t0 = time.perf_counter()
+                while len(self._inflight) > self.max_in_flight:
+                    self._inflight.popleft().synchronize()
+                prof = profiler.get_active_profiler()
+                if prof is not None:
+                    prof.note_dispatch_ms((time.perf_counter() - t0) * 1e3)
 
     def _consult(self, flag, guard) -> None:
         step, ok = flag
@@ -138,8 +149,15 @@ class AsyncDispatchWindow:
             flag = self._flags.popleft()
             if guard is not None:
                 self._consult(flag, guard)
+        t0 = time.perf_counter()
+        had = bool(self._inflight)
         while self._inflight:
             self._inflight.popleft().synchronize()
+        if had:
+            prof = profiler.get_active_profiler()
+            if prof is not None:
+                # the wait for the card at an epoch's end
+                prof.note_device_ms((time.perf_counter() - t0) * 1e3)
 
     def abandon(self) -> None:
         """Drop the outstanding work without consulting the guard (the

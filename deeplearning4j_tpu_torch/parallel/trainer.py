@@ -54,7 +54,12 @@ trainer's own step, its fused all-reduce included (``fit_megachunk``,
 ``place_chunk``): on the card one CUDA-graph replay, on gloo CPU ranks
 eagerly; the preemption check runs before each step (each chunk) and
 listeners fire per step. ``resume`` restores a checkpoint into the
-model. Tensor parallelism is not ported and raises.
+model. The global tracer gets a ``train.fit`` span with a
+``train.epoch`` child an epoch, the active step profiler a record a
+step (parented on the epoch's span), and ``enable_step_telemetry``
+makes the step also return the global gradient's norm (after the
+all-reduce, on the device), as in the JAX trainer. Tensor parallelism
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grads
+from deeplearning4j_tpu_torch.observability import profiler
+from deeplearning4j_tpu_torch.observability.trace import get_tracer
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, build_mesh
 
 
@@ -153,6 +160,7 @@ class DistributedTrainer:
         self.max_in_flight = int(max_in_flight)
         self.guard_lag = guard_lag
         self._steps = {}
+        self._epoch_span = None  # the open train.epoch span
         self.set_divergence_guard(divergence_guard)
         self.mesh = mesh if mesh is not None else build_mesh(
             device=model.device)
@@ -605,7 +613,7 @@ class DistributedTrainer:
         m = self.model
         key = (local, int(m.grad_accum), core.loss_scale_active(m),
                id(self._sg_config()), self.divergence_guard is not None,
-               self.zero, m.remat)
+               self.zero, m.remat, m._telemetry_grad_norm)
         step = self._steps.get(key)
         if step is None:
             step = self._steps[key] = self._build_step(local)
@@ -618,6 +626,7 @@ class DistributedTrainer:
         guarded = self.divergence_guard is not None
         sg_cfg = self._sg_config()
         ls_on = core.loss_scale_active(m)
+        telemetry = m._telemetry_grad_norm
         recurrent = m.recurrent_names()
 
         def unpack(weights):
@@ -678,7 +687,7 @@ class DistributedTrainer:
                 ls=ls if ls_on else None, sg=sg, sg_cfg=sg_cfg,
                 update=(functools.partial(self._zero_update, params=params,
                                           upd_state=upd_state, lrs=lrs, t=t)
-                        if self.zero else None))
+                        if self.zero else None), telemetry=telemetry)
 
         return step
 
@@ -697,6 +706,12 @@ class DistributedTrainer:
         from ``place_minibatch``); returns the global score as a 0-d
         tensor on the device."""
         m = self.model
+        prof = profiler.get_active_profiler()
+        if prof is not None:
+            span = self._epoch_span
+            prof.begin_step(m.iteration_count + 1,
+                            parent=span.context if span is not None
+                            else None, device=m.device)
         self._check_zero_layout()
         placed = self.place_minibatch(ds).wait()
         ls = (core.ensure_loss_scale_state(m)
@@ -715,7 +730,18 @@ class DistributedTrainer:
         m._last_batch_rows = placed.num_examples()
         core.after_step(m, self.divergence_guard, out.ok, _window)
         m._reset_recurrent_state()
+        if prof is not None:
+            prof.end_step(model=m, ds=ds, score=out.score,
+                          grad_norm=m._last_grad_norm,
+                          rows=m._last_batch_rows)
         return out.score
+
+    def enable_step_telemetry(self, enabled: bool = True) -> None:
+        """(Un)install step telemetry on the trainer's steps (JAX
+        ``DistributedTrainer.enable_step_telemetry``): as the engines',
+        the step also returns the gradient's global norm, here of the
+        all-reduced gradient. The flag lives on the model."""
+        core.enable_step_telemetry(self.model, enabled)
 
     def _can_megastep(self) -> bool:
         """Megastep under this trainer (JAX ``_can_megastep``): the
@@ -886,8 +912,17 @@ class DistributedTrainer:
             max_in_flight=self.max_in_flight, guard_lag=self.guard_lag)
         prefetching = source if hasattr(source, "shutdown") else None
         epoch_scores = []
+        tracer = get_tracer()
+        fit_span = tracer.start_span(
+            "train.fit", attrs={"epochs": int(epochs),
+                                "engine": type(m).__name__,
+                                "max_in_flight": int(self.max_in_flight)})
         try:
             for _ in range(epochs):
+                epoch_span = tracer.start_span(
+                    "train.epoch", parent=fit_span.context,
+                    attrs={"epoch": int(m.epoch_count)})
+                self._epoch_span = epoch_span
                 for listener in m.listeners:
                     if hasattr(listener, "on_epoch_start"):
                         listener.on_epoch_start(m)
@@ -913,14 +948,25 @@ class DistributedTrainer:
                     if hasattr(listener, "on_epoch_end"):
                         listener.on_epoch_end(m)
                 m.epoch_count += 1
+                epoch_span.set_attr("score", epoch_scores[-1])
+                epoch_span.end()
+                self._epoch_span = None
         except BaseException as e:
             window.abandon()
+            prof = profiler.get_active_profiler()
+            if prof is not None:
+                prof.abandon_step()
+            span, self._epoch_span = self._epoch_span, None
+            if span is not None:
+                span.end(status=type(e).__name__)
+            fit_span.end(status=type(e).__name__)
             if not isinstance(e, preemption.PreemptedException):
                 flightrec.dump_on_crash("fit_exception")
             raise
         finally:
             if owned_prefetch is not None:
                 owned_prefetch.shutdown()
+        fit_span.end()
         return epoch_scores
 
     def set_divergence_guard(self, guard) -> None:

@@ -11,8 +11,9 @@ its own copy. The three-state breaker:
 In HALF_OPEN at most ``half_open_max_probes`` calls are admitted at a
 time; a rejected call raises ``CircuitOpenException`` with the seconds
 until the next probe. The clock is injectable and every transition is
-taken under a lock. Transitions are recorded on the flight recorder
-(the JAX package sends them to its tracer, which is not ported).
+taken under a lock. Transitions go to the global tracer as
+``breaker.transition`` events (the JAX package's name and attributes;
+a no-op unless a tracer is installed) and to the flight recorder.
 """
 
 from __future__ import annotations
@@ -67,10 +68,18 @@ class CircuitBreaker:
     # -- state ----------------------------------------------------------
 
     def _emit_transition(self, frm: str, to: str) -> None:
-        """A state change: recorded on the flight recorder (a no-op
-        unless one is installed). Called under the breaker lock."""
+        """A state change: a ``breaker.transition`` event on the global
+        tracer and a record on the flight recorder (each a no-op unless
+        installed). Called under the breaker lock; neither calls back
+        into the breaker."""
         from deeplearning4j_tpu_torch.observability import flightrec
+        from deeplearning4j_tpu_torch.observability.trace import get_tracer
 
+        get_tracer().event("breaker.transition", attrs={
+            "name": self.name, "from": frm, "to": to,
+            "consecutive_failures": self._consecutive_failures,
+            "trips": self.trips,
+        })
         flightrec.record_event(
             "breaker_transition", name=self.name, frm=frm, to=to,
             consecutive_failures=self._consecutive_failures,

@@ -628,26 +628,34 @@ class CheckpointManager:
     # -- the write itself -----------------------------------------------
 
     def _write_payload(self, payload: dict) -> CheckpointInfo:
+        from deeplearning4j_tpu_torch.observability.trace import get_tracer
+
         step = payload["step"]
         t0 = time.perf_counter()
-        if self.commit is not None:
-            with self._wcond:
-                self._active_steps.add(step)
-            try:
-                info = self._write_sharded(payload)
-            except CheckpointCommitAbortedException as e:
-                flightrec.record_event("checkpoint_abort", step=step,
-                                       reason=str(e)[:200])
-                raise
-            finally:
+        sharded = self.commit is not None
+        with get_tracer().start_span("checkpoint.save", attrs={
+                "step": step, "prefix": self.prefix,
+                "sharded": sharded}) as span:
+            if sharded:
                 with self._wcond:
-                    self._active_steps.discard(step)
-        else:
-            info = self._write_zip(payload)
-        ms = (time.perf_counter() - t0) * 1000.0
-        self._m_write.observe(ms)
-        flightrec.record_event("checkpoint_commit", step=step,
-                               ms=round(ms, 3), shards=info.nshards)
+                    self._active_steps.add(step)
+                try:
+                    info = self._write_sharded(payload)
+                except CheckpointCommitAbortedException as e:
+                    flightrec.record_event("checkpoint_abort", step=step,
+                                           reason=str(e)[:200])
+                    span.set_attr("outcome", "aborted")
+                    raise
+                finally:
+                    with self._wcond:
+                        self._active_steps.discard(step)
+            else:
+                info = self._write_zip(payload)
+            ms = (time.perf_counter() - t0) * 1000.0
+            self._m_write.observe(ms)
+            flightrec.record_event("checkpoint_commit", step=step,
+                                   ms=round(ms, 3), shards=info.nshards)
+            span.set_attr("bytes", info.size)
         return info
 
     def _write_zip(self, payload: dict) -> CheckpointInfo:
@@ -1176,31 +1184,45 @@ class CheckpointManager:
     def restore_latest(self, load_updater: bool = True, device=None):
         """(model, info) of the newest restorable version, falling back
         to earlier ones when the newest is corrupted or quarantined.
-        Raises ``CheckpointCorruptedException`` when none survives."""
-        versions = self.available()
-        if not versions:
+        Raises ``CheckpointCorruptedException`` when none survives. One
+        ``checkpoint.restore`` span brackets it (the JAX package's
+        name and attributes)."""
+        from deeplearning4j_tpu_torch.observability.trace import get_tracer
+
+        with get_tracer().start_span(
+                "checkpoint.restore", attrs={"prefix": self.prefix}) as span:
+            versions = self.available()
+            if not versions:
+                span.set_attr("outcome", "none_available")
+                raise CheckpointCorruptedException(
+                    f"no checkpoints under {self.directory}")
+            fallbacks = 0
+            for info in reversed(versions):
+                try:
+                    model = self.restore(info, load_updater=load_updater,
+                                         device=device)
+                except CheckpointCorruptedException:
+                    logger.warning("checkpoint step %d failed verification; "
+                                   "falling back to the previous version",
+                                   info.step)
+                    fallbacks += 1
+                    continue
+                except Exception:
+                    # a manifest that verifies but does not deserialize is
+                    # corruption too (a valid zip, a mangled npz member)
+                    logger.warning("checkpoint step %d failed to "
+                                   "deserialize; falling back to the "
+                                   "previous version", info.step,
+                                   exc_info=True)
+                    fallbacks += 1
+                    continue
+                span.set_attr("step", info.step)
+                span.set_attr("fallbacks", fallbacks)
+                return model, info
+            span.set_attr("outcome", "all_corrupted")
             raise CheckpointCorruptedException(
-                f"no checkpoints under {self.directory}")
-        for info in reversed(versions):
-            try:
-                model = self.restore(info, load_updater=load_updater,
-                                     device=device)
-            except CheckpointCorruptedException:
-                logger.warning("checkpoint step %d failed verification; "
-                               "falling back to the previous version",
-                               info.step)
-                continue
-            except Exception:
-                # a manifest that verifies but does not deserialize is
-                # corruption too (a valid zip, a mangled npz member)
-                logger.warning("checkpoint step %d failed to deserialize; "
-                               "falling back to the previous version",
-                               info.step, exc_info=True)
-                continue
-            return model, info
-        raise CheckpointCorruptedException(
-            f"all {len(versions)} checkpoint versions under "
-            f"{self.directory} failed verification")
+                f"all {len(versions)} checkpoint versions under "
+                f"{self.directory} failed verification")
 
 
 def restore_into(model, source, load_updater: bool = True):

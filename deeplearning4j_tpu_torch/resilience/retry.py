@@ -8,7 +8,10 @@ package's delays), ``retry_call`` (an allowlist of transient
 exceptions, an optional ``Deadline`` and ``total_timeout``; an
 exhausted budget raises ``RetryExhaustedException`` chained to the last
 cause) and the ``retrying`` decorator. ``sleep`` and ``clock`` are
-injectable, so tests pass no wall time.
+injectable, so tests pass no wall time. Each retried failure, a
+deadline cut and the exhaustion are ``retry.attempt`` /
+``retry.deadline`` / ``retry.exhausted`` events on the global tracer,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ def retry_call(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
     failure) instead of burning the remaining budget asleep.
     ``DeadlineExceededException`` is deliberately not a
     ``TimeoutError``, so it is never itself retried."""
+    from deeplearning4j_tpu_torch.observability.trace import get_tracer
     from deeplearning4j_tpu_torch.resilience.deadline import Deadline
 
     policy = policy or RetryPolicy()
@@ -92,6 +96,7 @@ def retry_call(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
     if policy.total_timeout is not None:
         deadlines.append(Deadline.after(policy.total_timeout,
                                         clock=policy.clock))
+    tracer = get_tracer()
     name = str(getattr(fn, "__name__", fn))
     last: Optional[BaseException] = None
     for attempt in range(policy.max_attempts):
@@ -109,6 +114,11 @@ def retry_call(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
             if bounded:
                 tightest = min(bounded, key=lambda d: d.remaining())
                 if tightest.remaining() <= delay:
+                    tracer.event("retry.deadline", attrs={
+                        "fn": name, "attempt": attempt + 1,
+                        "backoff_s": round(delay, 6),
+                        "remaining_s": round(tightest.remaining(), 6),
+                    })
                     from deeplearning4j_tpu_torch.exceptions import (
                         DeadlineExceededException,
                     )
@@ -121,7 +131,16 @@ def retry_call(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
                         elapsed=tightest.elapsed(),
                         budget=tightest.budget,
                     ) from e
+            tracer.event("retry.attempt", attrs={
+                "fn": name, "attempt": attempt + 1,
+                "error": type(e).__name__,
+                "backoff_s": round(delay, 6),
+            })
             policy.sleep(delay)
+    tracer.event("retry.exhausted", attrs={
+        "fn": name, "attempts": policy.max_attempts,
+        "error": type(last).__name__ if last else None,
+    })
     raise RetryExhaustedException(
         f"{name} failed after "
         f"{policy.max_attempts} attempts: {last!r}",

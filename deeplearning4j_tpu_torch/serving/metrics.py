@@ -4,8 +4,9 @@ A small counterpart of ``deeplearning4j_tpu/serving/metrics.py``: the
 counters ``/metrics`` reports, the in-flight count the k+q admission
 bound reads, a bounded reservoir of request latencies for p50/p99, and
 the number of requests per dispatched batch (the micro-batcher's
-occupancy). Prometheus export, per-tenant views and the drain-rate
-Retry-After wait for a later slice.
+occupancy). The server renders them in the Prometheus text format
+(``ModelServer.prometheus_metrics``); per-tenant views and the
+drain-rate Retry-After wait for a later slice.
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ class ServingMetrics:
     def record_batch(self, n_items: int) -> None:
         with self._lock:
             self._batch_items[n_items] += 1
+
+    def latencies(self) -> list:
+        """The reservoir's request latencies (seconds), oldest first."""
+        with self._lock:
+            return list(self._latencies)
 
     def latency_quantile(self, q: float) -> Optional[float]:
         with self._lock:

@@ -31,6 +31,16 @@ kernels on PyTorch's current stream of that thread. Hot reload,
 multi-tenancy, the circuit breaker, AOT bundles, shadow scoring and
 preemption handling come in later slices.
 
+Tracing (``tracer=``, a ``observability.trace.Tracer``; disabled by
+default): one ``serving.request`` root span a request with the JAX
+server's children, ``serving.admission``, ``serving.queue`` (ended
+when the drain thread takes the item), ``serving.batch_assembly`` and
+``serving.predict``. The work item carries its root span from the
+handler thread to the drain thread, so one trace id follows the
+request. ``GET /metrics?format=prometheus`` answers the counters, the
+in-flight and queue gauges and the latency summary in the Prometheus
+text format (``observability/export.py``); JSON stays the default.
+
 Input width: the JAX server validates against the first layer's
 ``n_in``, which for a ``convolutional_flat`` model such as LeNet is the
 channel count (1), so it refuses LeNet's 784-wide rows. The port
@@ -51,6 +61,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observability.export import (
+    CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE,
+)
+from deeplearning4j_tpu_torch.observability.export import (
+    parse_format_query,
+    prometheus_text,
+)
+from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
+from deeplearning4j_tpu_torch.observability.trace import Tracer
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
 from deeplearning4j_tpu_torch.resilience.deadline import Deadline
 from deeplearning4j_tpu_torch.serving.batcher import (
@@ -111,7 +130,8 @@ class _WorkItem:
     queue-expiry race (handler gives up vs drain thread starts)."""
 
     __slots__ = ("features", "deadline", "done", "response", "lock",
-                 "started", "cancelled", "timed_out", "rows", "squeeze")
+                 "started", "cancelled", "timed_out", "rows", "squeeze",
+                 "span", "queue_span", "assembly_span")
 
     def __init__(self, features: np.ndarray, deadline: Deadline):
         self.features = features
@@ -124,6 +144,12 @@ class _WorkItem:
         self.timed_out = False   # handler wrote a 504 already
         self.rows = int(features.shape[0]) if features.ndim >= 2 else 1
         self.squeeze = features.ndim == 1  # 1-d request: 1-d response
+        # the trace handoff: the handler thread sets the request's root
+        # span and its queue span; the drain thread ends the queue span
+        # and parents its assembly and predict spans on the root
+        self.span = None
+        self.queue_span = None
+        self.assembly_span = None
 
     def finish(self, code: int, body: dict, headers=None) -> bool:
         """Record the result; False when the handler already answered
@@ -150,7 +176,8 @@ class ModelServer:
     (seconds) bounds queue wait + predict per request; None disables.
     ``micro_batch=False`` runs one forward per request on ``workers``
     threads instead of the coalescing drain thread. ``transform`` maps
-    each request's features before the forward.
+    each request's features before the forward. ``tracer``: the
+    ``Tracer`` the request spans go to (default disabled).
     """
 
     def __init__(self, model_or_path, host: str = "127.0.0.1",
@@ -161,7 +188,8 @@ class ModelServer:
                  max_batch_size: int = 32,
                  batch_timeout_ms: float = 2.0,
                  bucket_ladder=None,
-                 device=None):
+                 device=None,
+                 tracer=None):
         if workers < 1:
             raise ValueError("workers must be >= 1")
         if queue_depth < 0:
@@ -200,6 +228,9 @@ class ModelServer:
             self.batcher = None
             self.batch_workers = workers
         self.metrics = ServingMetrics()
+        # disabled by default: every span operation a no-op
+        self.tracer = tracer if tracer is not None else Tracer(
+            enabled=False)
         self._draining = False
         self._stop_workers = False
         self._queue: "queue.Queue[_WorkItem]" = queue.Queue(
@@ -302,6 +333,8 @@ class ModelServer:
             if item.cancelled:
                 return False
             item.started = True
+        if item.queue_span is not None:
+            item.queue_span.end()  # idempotent
         if item.deadline.expired():
             self.metrics.incr("deadline_timeout_total")
             item.finish(504, deadline_envelope(
@@ -323,8 +356,11 @@ class ModelServer:
     def _process(self, item: _WorkItem) -> None:
         """One request alone: micro-batching off, or wider than the
         largest bucket."""
-        if not self._claim(item):
+        if not item.started and not self._claim(item):
             return
+        pspan = self.tracer.start_span(
+            "serving.predict", parent=item.span,
+            attrs={"mode": "solo", "model_version": self.model_version})
         try:
             feats = item.features
             if self.transform is not None:
@@ -333,8 +369,11 @@ class ModelServer:
             out = _host(self.model.output(
                 feats[None, :] if feats.ndim == 1 else feats))
         except Exception as e:
-            item.finish(500, self._model_error(e))
+            body = self._model_error(e)
+            pspan.set_attr("error_id", body["error"]["error_id"]).end("error")
+            item.finish(500, body)
             return
+        pspan.end()
         self.metrics.incr("predictions_total")
         self.metrics.record_batch(1)
         if not item.finish(200, self._body(out[0] if item.squeeze else out)):
@@ -346,11 +385,15 @@ class ModelServer:
         ladder = self.batcher.ladder
         ready = []
         for item in items:
+            if not self._claim(item):
+                continue
+            item.assembly_span = self.tracer.start_span(
+                "serving.batch_assembly", parent=item.span,
+                attrs={"batch_items": len(items)})
             if item.rows > ladder.max:
                 self.metrics.incr("solo_fallback_total")
+                item.assembly_span.set_attr("outcome", "solo_fallback").end()
                 self._process(item)
-                continue
-            if not self._claim(item):
                 continue
             try:
                 feats = item.features
@@ -361,6 +404,7 @@ class ModelServer:
                     feats = feats[None, :]
             except Exception as e:
                 # a bad transform poisons only its own request
+                item.assembly_span.end("error")
                 item.finish(500, self._model_error(e))
                 continue
             ready.append((item, feats))
@@ -374,16 +418,29 @@ class ModelServer:
     def _predict_chunk(self, chunk) -> None:
         """ONE padded forward for a chunk of (item, features) pairs,
         sliced back out and completed per request."""
+        for item, _ in chunk:
+            if item.assembly_span is not None:
+                item.assembly_span.end()
         n_valid = sum(int(f.shape[0]) for _, f in chunk)
         bucket = self.batcher.ladder.bucket_for(n_valid)
+        pspans = [self.tracer.start_span(
+            "serving.predict", parent=item.span,
+            attrs={"mode": "batched", "bucket": bucket, "n_valid": n_valid,
+                   "chunk_size": len(chunk),
+                   "model_version": self.model_version})
+            for item, _ in chunk]
         try:
             stacked = np.concatenate([f for _, f in chunk], axis=0)
             out = self._padded_forward(pad_rows(stacked, bucket), n_valid)
         except Exception as e:
             body = self._model_error(e, len(chunk))
+            for sp in pspans:
+                sp.end("error")
             for item, _ in chunk:
                 item.finish(500, body)
             return
+        for sp in pspans:
+            sp.end()
         self.metrics.record_batch(len(chunk))
         self.metrics.incr("predictions_total", len(chunk))
         off = 0
@@ -407,16 +464,32 @@ class ModelServer:
 
     def submit(self, features: np.ndarray):
         """Admit one predict and wait for it under the request deadline.
-        Returns ``(status, body, headers)``."""
+        Returns ``(status, body, headers)``. One ``serving.request``
+        root span brackets it; the admission decision, the queue wait,
+        the batch assembly and the predict are its children."""
+        shape = np.shape(features)
+        root = self.tracer.start_span("serving.request", attrs={
+            "rows": int(shape[0]) if len(shape) >= 2 else 1})
+        adm = self.tracer.start_span("serving.admission", parent=root)
         if self._draining:
+            adm.set_attr("outcome", "draining").end("shed")
+            root.set_attr("status_code", 503).end("shed")
             return self._shed("draining", "server is draining; not admitting")
         if not self.metrics.try_enter(self.workers + self.queue_depth):
+            adm.set_attr("outcome", "shed").end("shed")
+            root.set_attr("status_code", 503).end("shed")
             return self._shed("shed", "worker pool and queue are full")
+        adm.set_attr("outcome", "admitted").end()
         try:
             item = _WorkItem(features, Deadline.after(self.deadline))
+            item.span = root
+            item.queue_span = self.tracer.start_span("serving.queue",
+                                                     parent=root)
             try:
                 self._queue.put_nowait(item)
             except queue.Full:  # unreachable: sized to the bound
+                item.queue_span.end("shed")
+                root.set_attr("status_code", 503).end("shed")
                 return self._shed("shed", "worker pool and queue are full")
             remaining = item.deadline.remaining()
             if not item.done.wait(None if remaining is None
@@ -425,8 +498,13 @@ class ModelServer:
                     item.timed_out = True
                     if not item.started:
                         item.cancelled = True
+                        item.queue_span.end("timeout")
                 self.metrics.incr("deadline_timeout_total")
+                root.set_attr("status_code", 504).end("timeout")
                 return 504, deadline_envelope(item.deadline), {}
+            code = item.response[0]
+            root.set_attr("status_code", code).end(
+                "ok" if code < 400 else "error")
             return item.response
         finally:
             self.metrics.exit()
@@ -462,6 +540,29 @@ class ModelServer:
             "batch_workers": self.batch_workers,
         } if self.batcher is not None else {"enabled": False})
         return out
+
+    def prometheus_metrics(self) -> str:
+        """The server's metrics in the Prometheus text format (``GET
+        /metrics?format=prometheus``): each counter as
+        ``serving_<name>``, the in-flight count, the queue depth and the
+        model version as gauges, and the request latency summary."""
+        reg = MetricsRegistry()
+        snap = self.metrics.snapshot()
+        for name, value in sorted(snap["counters"].items()):
+            reg.counter(f"serving_{name}").inc(value)
+        reg.gauge("inflight_requests",
+                  help="requests admitted and not yet answered").set(
+            snap["inflight"])
+        reg.gauge("queue_depth",
+                  help="requests waiting in the bounded queue").set(
+            self._queue.qsize())
+        reg.gauge("model_version",
+                  help="active model version").set(self.model_version)
+        lat = reg.summary("request_latency_seconds",
+                          help="request latency, handler to response")
+        for v in self.metrics.latencies():
+            lat.observe(v)
+        return prometheus_text(reg)
 
     # -- request validation ---------------------------------------------
 
@@ -540,16 +641,31 @@ def _make_handler(server: ModelServer):
             except OSError:
                 pass  # client went away; nothing to tell it
 
+        def _text(self, text: str, content_type: str):
+            data = text.encode("utf-8")
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            except OSError:
+                pass
+
         def do_GET(self):
             server.metrics.incr("requests_total")
-            route = self.path.split("?", 1)[0]
+            route, fmt = parse_format_query(self.path)
             if route == "/healthz":
                 self._json(server.health())
             elif route == "/readyz":
                 code, body = server.readiness()
                 self._json(body, code)
             elif route == "/metrics":
-                self._json(server.metrics_snapshot())
+                if fmt == "prometheus":
+                    self._text(server.prometheus_metrics(),
+                               PROMETHEUS_CONTENT_TYPE)
+                else:  # JSON stays the default
+                    self._json(server.metrics_snapshot())
             else:
                 self._json(error_envelope("not_found", 404, "not found"),
                            404)

@@ -934,6 +934,7 @@ def test_char_rnn_fit_on_card_matches_cpu(cuda, peephole):
             .backprop_type("TruncatedBPTT").t_bptt_forward_length(5)
             .t_bptt_backward_length(5).build())
     net = MultiLayerNetwork(conf, device=cuda).init()
+    net.scan_chunk = 1  # the per-chunk loop, whose launches are counted
     twin = MultiLayerNetwork(conf, device="cpu").init(params={
         ln: {pn: t.cpu() for pn, t in lp.items()}
         for ln, lp in net.params.items()})
@@ -1994,6 +1995,7 @@ def test_graphed_chunk_is_the_eager_chunk_and_the_per_step_loop(cuda, name):
     make, data = _models()[name]
     batches = data(8)
     ref = MultiLayerNetwork(make(), device=cuda).init()
+    ref.scan_chunk = 1  # the per-step loop
     init = {ln: {pn: t.clone() for pn, t in lp.items()}
             for ln, lp in ref.params.items()}
     ref.fit(batches)
@@ -2096,6 +2098,7 @@ def test_graph_engine_megastep_on_the_card_is_the_per_step_loop(cuda):
                        np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
                for _ in range(7)]
     ref = ComputationGraph(conf, device=cuda).init()
+    ref.scan_chunk = 1  # the per-step loop
     mega = ComputationGraph(conf, device=cuda).init(params=ref.params)
     ref.fit(batches)
     mega.fit(batches, megastep=3)
@@ -2216,6 +2219,7 @@ def test_dispatch_window_waits_on_events_not_values(cuda, monkeypatch):
     late and at the epoch's end."""
     batches = _lenet_batches(6)
     net = _lenet_net(cuda)
+    net.scan_chunk = 1  # the per-step loop
     net.fit(batches[:1])  # warm-up outside the spy
     waits = []
     real_sync = torch.cuda.Event.synchronize
@@ -2234,3 +2238,73 @@ def test_dispatch_window_waits_on_events_not_values(cuda, monkeypatch):
     monkeypatch.undo()
     assert len(waits) == len(batches)
     assert net.iteration_count == 1 + len(batches)
+
+
+# -- the scan path on the card -------------------------------------------------
+
+
+def test_graphed_scan_chunk_is_the_per_step_loop(cuda):
+    """A two-epoch fit of a list takes the device-cached plan: its one
+    chunk of 8 minibatches captured once (launches counted at capture:
+    the warm-up step and the 8 captured ones), replayed every epoch,
+    bitwise equal to the per-step loop on the card."""
+    batches = _lenet_batches(8)
+    ref = _lenet_net(cuda)
+    ref.scan_chunk = 1
+    net = _lenet_net(cuda, ref.params)
+    dispatch.reset_launch_counts()
+    ref.fit(batches[:1])
+    one_step = dispatch.launch_counts()
+    ref.fit(batches[1:])
+    dispatch.reset_launch_counts()
+    net.fit(batches, epochs=2)
+    assert dispatch.launch_counts() == {k: 9 * v
+                                        for k, v in one_step.items()}
+    assert len(net._megastep_graphs) == 1 and net.iteration_count == 16
+    ref.fit(batches)
+    assert _same(ref, net)
+    dispatch.reset_launch_counts()
+    net.fit(batches, epochs=2)  # replays only
+    assert sum(dispatch.launch_counts().values()) == 0
+    ref.fit(batches, epochs=2)
+    assert _same(ref, net)
+
+
+@pytest.mark.parametrize("peephole", [True, False])
+def test_graphed_fused_tbptt_chunk_is_the_per_chunk_loop(cuda, peephole):
+    """The char-RNN's fused TBPTT plan on the card (3 minibatches of 4
+    segments a chunk, the carry threaded through the CUDA graph and
+    zeroed by the resets) against the per-chunk loop: parameters,
+    RMSProp state and the carry the last minibatch ended with, bit for
+    bit."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    vocab, hidden, tbptt, t, b = 12, 16, 5, 20, 4
+    conf = (NeuralNetConfiguration.Builder().seed(42).learning_rate(0.1)
+            .updater("RMSPROP").list()
+            .layer(GravesLSTM(n_in=vocab, n_out=hidden, peephole=peephole))
+            .layer(GravesLSTM(n_in=hidden, n_out=hidden, peephole=peephole))
+            .layer(RnnOutputLayer(n_out=vocab, loss="MCXENT"))
+            .backprop_type("TruncatedBPTT").t_bptt_forward_length(tbptt)
+            .t_bptt_backward_length(tbptt).build())
+    rng = np.random.RandomState(3)
+    eye = np.eye(vocab, dtype=np.float32)
+    data = []
+    for _ in range(3):
+        ids = rng.randint(0, vocab, (b, t + 1))
+        data.append(DataSet(
+            np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+            np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1))))
+    ref = MultiLayerNetwork(conf, device=cuda).init()
+    ref.scan_chunk = 1
+    net = MultiLayerNetwork(conf, device=cuda).init(params=ref.params)
+    ref.fit(data, epochs=2)
+    net.fit(data, epochs=2)
+    assert len(net._megastep_graphs) == 1 and net.iteration_count == 24
+    assert _same(ref, net)
+    for name, carry in ref._tbptt_carry.items():
+        for k, v in carry.items():
+            assert torch.equal(net._tbptt_carry[name][k], v), (name, k)

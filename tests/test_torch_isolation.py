@@ -65,6 +65,38 @@ def test_fresh_process_runs_lenet_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_fresh_process_imports_the_observability_modules_without_jax():
+    """The tracer, exporters, runtime telemetry, step profiler and
+    profiler listener import and run in a process that loads no JAX."""
+    code = (
+        "import sys, numpy as np\n"
+        "from deeplearning4j_tpu_torch.observability import (\n"
+        "    MetricsRegistry, StepProfiler, TelemetryListener, Tracer,\n"
+        "    prometheus_text)\n"
+        "from deeplearning4j_tpu_torch.optimize.profiler import "
+        "ProfilerListener\n"
+        "from deeplearning4j_tpu_torch.util.device import "
+        "device_cache_budget_bytes\n"
+        "reg = MetricsRegistry()\n"
+        "prof = StepProfiler(registry=reg, tracer=Tracer(seed=0))\n"
+        "prof.begin_step(1)\n"
+        "rec = prof.end_step(rows=2)\n"
+        "assert rec['step'] == 1 and 'trace_id' in rec\n"
+        "TelemetryListener(registry=reg)\n"
+        "assert prometheus_text(reg).endswith('\\n')\n"
+        "assert device_cache_budget_bytes('cpu') == 4 << 30\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_fresh_process_imports_the_layers_package_first():
     """``nn.layers`` imported before anything else (its base module needs
     ``nn.conf``, whose package imports the layers back): no import
