@@ -154,7 +154,7 @@ non-zero (nothing is caught):
    the data on the card), ``[vgg16-cached]`` the VGG-16 graph at batch
    128, 8 minibatches, 2 epochs, ``scan_chunk = 4``, and
    ``[charrnn-fused]`` / ``[charrnn-seq-fused]`` the char-RNN with and
-   without peepholes, 24 minibatches x 2 epochs on the device-cached
+   without peepholes, 12 minibatches x 2 epochs on the device-cached
    fused-TBPTT plan (48 TBPTT chunks a replay): each bitwise its
    ``scan_chunk = 1`` fit (the carry too), with launches counted at
    capture, examples/s, device ms a step, the busy share both ways and
@@ -165,6 +165,26 @@ non-zero (nothing is caught):
    the split sums to each record's wall time within 1 %, MFU in (0, 1]
    at the card's peak, the memory gauges, the Prometheus text parses;
    then a LeNet ``ModelServer`` with a tracer: one trace id a request.
+14. the elastic control plane and the default fit (main paths):
+   ``[elastic-resnet50]`` ResNet-50 (batch 128, f32) on an NCCL world of
+   one formed over a real ``LeaseCoordinator``'s rendezvous: A,
+   ``DistributedTrainer`` for 8 steps; B, ``HostElasticTrainer(
+   snapshot_every=4)``, a coordinator barrier a step, bitwise A (the
+   barrier's round trip, the snapshot push, host and device ms a step
+   and the busy share beside A's); C, the coordinator stopped after step
+   5: the retries exhaust within the agent's bound, a checkpoint, then
+   ``PreemptedException(step=5, reason="coordinator-lost")`` (exit 75);
+   a fresh model resumes it and fits steps 6-8 bitwise A;
+   ``[elastic-storm]`` LeNet-5 (global batch 256, 12 minibatches) under
+   ``HostElasticTrainer`` in two rank processes on a gloo group over the
+   card, rank 1 SIGKILLed after step 7: rank 0 exits 0 with one
+   recovery to the step-4 snapshot and 12 steps, bitwise a process
+   replaying the snapshot at survivor width (kill to plan, recovery ms,
+   steps lost, examples/s before and after); ``[default-fit]`` the
+   default ``fit`` (``scan_chunk`` 16, one CUDA-graph chunk of 16
+   minibatches) of ResNet-50, the transformer LM and AlexNet with
+   dropout, each bitwise its ``scan_chunk = 1`` fit (device ms a step,
+   the busy share, peak memory, the capture's seconds).
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -2984,6 +3004,7 @@ CACHED_VGG_BATCHES = 8
 CACHED_VGG_EPOCHS = 2
 CACHED_VGG_CHUNK = 4
 FUSED_CHAR_EPOCHS = 2
+FUSED_CHAR_MINIBATCHES = 12  # one replay of 48 TBPTT chunks an epoch
 TELEMETRY_STEPS = 8
 TELEMETRY_TRACE = (3, 3)  # ProfilerListener: iterations [3, 6)
 
@@ -3132,27 +3153,26 @@ def run_vgg16_cached(torch, card):
 def run_charrnn_fused(torch, card, peephole: bool, ids):
     """[charrnn-fused] the zoo char-RNN (peepholes) or its ``peephole=
     False`` twin at batch 32, 200-char segments (4 TBPTT chunks of 50)
-    and 24 minibatches, ``fit(batches, epochs=2)``: the device-cached
-    fused-TBPTT plan (the 24 minibatches split evenly at ``scan_chunk``
-    16: two replays of 12 minibatches, 48 TBPTT chunks, an epoch, one
-    capture), bitwise the per-chunk loop (``scan_chunk = 1``): parameters, RMSProp
-    state and the carry the last minibatch ended with. Returns the
-    launches of the phase."""
+    and 12 minibatches, ``fit(batches, epochs=2)``: the device-cached
+    fused-TBPTT plan (one replay of the 12 minibatches, 48 TBPTT chunks,
+    an epoch, one capture), bitwise the per-chunk loop (``scan_chunk =
+    1``): parameters, RMSProp state and the carry the last minibatch
+    ended with. Returns the launches of the phase."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
 
     tag = "charrnn-fused" if peephole else "charrnn-seq-fused"
     conf = charrnn_conf(peephole)
-    batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, CHAR_MINIBATCHES,
-                           seed=1)
+    batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT,
+                           FUSED_CHAR_MINIBATCHES, seed=1)
     chunks = CHAR_SEGMENT // CHAR_TBPTT
-    steps = CHAR_MINIBATCHES * chunks * FUSED_CHAR_EPOCHS
+    steps = FUSED_CHAR_MINIBATCHES * chunks * FUSED_CHAR_EPOCHS
     ref = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     model = MultiLayerNetwork(conf, device="cuda").init(params={
         ln: {pn: t.clone() for pn, t in lp.items()}
         for ln, lp in ref.params.items()})
     print(f"[{tag}] 2 x GravesLSTM({CHAR_HIDDEN}, peephole={peephole}), "
-          f"batch {CHAR_BATCH}, {CHAR_MINIBATCHES} minibatches of "
+          f"batch {CHAR_BATCH}, {FUSED_CHAR_MINIBATCHES} minibatches of "
           f"{chunks} chunks x {FUSED_CHAR_EPOCHS} epochs, device-cached "
           "fused TBPTT against the per-chunk loop")
     dispatch.reset_launch_counts()
@@ -3169,8 +3189,9 @@ def run_charrnn_fused(torch, card, peephole: bool, ids):
     wall_first = time.perf_counter() - t0
     counts = dispatch.launch_counts()
     graphs = list(model._megastep_graphs.values())
-    groups = -(-CHAR_MINIBATCHES // model.scan_chunk)  # balanced: 2 of 12
-    if [g.k for g in graphs] != [CHAR_MINIBATCHES // groups * chunks]:
+    groups = -(-FUSED_CHAR_MINIBATCHES // model.scan_chunk)  # one of 12
+    if [g.k for g in graphs] != [
+            FUSED_CHAR_MINIBATCHES // groups * chunks]:
         raise RuntimeError(f"[{tag}] chunks {[g.k for g in graphs]}")
     if not scan_launches_ok(counts, one_chunk, graphs):
         raise RuntimeError(f"[{tag}] the fused fit launched {counts}, one "
@@ -3189,7 +3210,8 @@ def run_charrnn_fused(torch, card, peephole: bool, ids):
     peak = torch.cuda.max_memory_allocated()
     dev_ms = sum(events_ms(torch, g.graph.replay, reps=2)[0]
                  for g in graphs) / sum(g.k for g in graphs)
-    res = {"minibatches": CHAR_MINIBATCHES, "epochs": FUSED_CHAR_EPOCHS,
+    res = {"minibatches": FUSED_CHAR_MINIBATCHES,
+           "epochs": FUSED_CHAR_EPOCHS,
            "chunks_per_replay": sorted(g.k for g in graphs),
            "chars_per_s": steps * CHAR_BATCH * CHAR_TBPTT / wall,
            "per_chunk_loop_chars_per_s":
@@ -4898,6 +4920,738 @@ def run_nlp(torch, card):
     return launches
 
 
+# -- the elastic control plane and the default fit (main paths) -----------
+
+ELASTIC_STEPS = 8          # runs A and B; C stops the coordinator after
+ELASTIC_SNAPSHOT = 4       # HostElasticTrainer(snapshot_every=4)
+ELASTIC_COORD_STOP = 5     # ... step 5
+ELASTIC_LEASE_S = 5.0
+STORM_BATCHES = 12         # LeNet-5, global batch 256
+STORM_SNAPSHOT = 4
+STORM_KILL = 7             # KillAtStep(7) on rank 1
+STORM_LEASE_S = 1.0
+STORM_TIMEOUT_S = 300
+DEFAULT_FIT_BATCHES = 16   # one chunk at the engines' scan_chunk of 16
+
+
+class TimedCalls:
+    """Wraps ``obj.name`` to note each call's host ms (and its result)."""
+
+    def __init__(self, obj, name):
+        self.ms, self.results = [], []
+        inner = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.results.append(out)
+            return out
+        setattr(obj, name, timed)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of ``{a: {b: tensor or tuple}}``."""
+    return sum(t.numel() * t.element_size() for lp in tree.values()
+               for v in lp.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
+
+
+def run_elastic_resnet50(torch, card, device="cuda", conf=None,
+                         batch=RESNET_BATCH, hw=224):
+    """[elastic-resnet50] ResNet-50 at 224 x 224, batch 128, f32 (the
+    zoo's ``ComputationGraph``, NESTEROVS), on an NCCL world of one
+    formed over the rendezvous a real ``LeaseCoordinator(1)`` grants
+    (TCP, in this process) to this process's ``WorkerAgent``; three
+    runs from the same seeded weights and batches: A, the yardstick,
+    ``DistributedTrainer.fit_minibatch`` over 8 batches; B,
+    ``HostElasticTrainer(snapshot_every=4)`` over them (a coordinator
+    barrier at every step, lockstep snapshots at steps 0 and 4): its
+    trees and iteration count bitwise A's, the barrier's round trip, the
+    snapshot push (ms, bytes), host ms a step and the busy share beside
+    A's (the device ms of the trainer's step, one profiled step); C, the
+    same with the coordinator stopped after step 5: the agent's retries
+    exhaust within its policy's bound, the trainer saves through a
+    ``CheckpointManager`` and raises
+    ``PreemptedException(step=5, reason="coordinator-lost")``, exit code
+    75; a fresh model resumes the checkpoint and fits steps 6-8 bitwise
+    A's. Returns the launch counts of the runs. ``device`` / ``conf`` /
+    ``batch`` / ``hw`` cut it for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        HostElasticTrainer,
+        LeaseCoordinator,
+        WorkerAgent,
+        build_mesh,
+        init_distributed_elastic,
+        shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.resilience.preemption import (
+        PreemptedException,
+    )
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    cuda = device == "cuda"
+    conf = conf if conf is not None else resnet50(learning_rate=0.01)
+    rng = np.random.RandomState(29)
+    batches = [DataSet(rng.randint(0, 256, (batch, 3, hw, hw),
+                                   dtype=np.uint8),
+                       np.eye(1000, dtype=np.uint8)[rng.randint(0, 1000,
+                                                                batch)])
+               for _ in range(ELASTIC_STEPS)]
+    init = ComputationGraph(conf, device="cpu").init().params
+    tmp = tempfile.mkdtemp(prefix="dl4j_elastic_")
+    launches = {k: 0 for k in dispatch.KERNELS}
+    res = {"batch": batch, "hw": hw, "world": 1,
+           "snapshot_every": ELASTIC_SNAPSHOT}
+    coord = agent = None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh():
+        return per_step_loop(
+            ComputationGraph(conf, device=device).init(params=init))
+
+    def count(tag, steps):
+        got = dispatch.launch_counts()
+        for k, v in got.items():
+            launches[k] += v
+        res[f"launches_{tag}"] = {k: v for k, v in got.items() if v}
+        if cuda:
+            want = {k: 0 for k in dispatch.KERNELS}
+            want.update(conv_block=106 * steps, conv_bwd_data=52 * steps,
+                        conv_bwd_w=53 * steps)
+            if got != want:
+                raise RuntimeError(f"[elastic-resnet50] run {tag}: {steps} "
+                                   f"steps launched {got}")
+
+    def timed_run(fn):
+        """``fn()`` on the host clock, synchronised: seconds."""
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t0
+
+    try:
+        coord = LeaseCoordinator(1, lease_s=ELASTIC_LEASE_S,
+                                 registry=MetricsRegistry()).start()
+        agent = WorkerAgent(coord.address, rank_hint=0,
+                            registry=MetricsRegistry())
+        grant = agent.join(timeout_s=60)
+        agent.start_renewals()
+        init_distributed_elastic(grant.rendezvous, grant.num, grant.rank,
+                                 device=device, timeout_s=60)
+        mesh = build_mesh()
+        if cuda and mesh.backend != "nccl":
+            raise RuntimeError(f"[elastic-resnet50] formed {mesh.backend}")
+        print(f"[elastic-resnet50] ResNet-50 {hw}x{hw}x3, batch {batch}, "
+              f"f32, a {mesh.backend} world of {mesh.data} over the lease "
+              f"coordinator's rendezvous {grant.rendezvous} (epoch "
+              f"{grant.epoch}); A: DistributedTrainer, {ELASTIC_STEPS} steps;"
+              f" B: HostElasticTrainer(snapshot_every={ELASTIC_SNAPSHOT}); "
+              f"C: the coordinator stopped after step {ELASTIC_COORD_STOP}, "
+              "then a resume")
+
+        # -- run A: the yardstick --------------------------------------
+        model = fresh()
+        tr = DistributedTrainer(model, mesh=mesh, batch_stats="sync")
+        dispatch.reset_launch_counts()
+        wall = timed_run(lambda: [tr.fit_minibatch(ds) for ds in batches])
+        count("A", ELASTIC_STEPS)
+        ref = host_trees(model)
+        res.update(host_ms_per_step_A=wall / ELASTIC_STEPS * 1e3,
+                   score_A=model.score_value)
+        dev = None
+        if cuda:
+            # the device work of the trainer's step: the profiler's sum
+            # over one more step (the profiler slows the host ~10x, so
+            # the timed runs go without it; A's trees are kept above)
+            dev, _ = profiled_device_ms(
+                torch, lambda: tr.fit_minibatch(batches[0]))
+            res.update(device_ms_per_step=dev,
+                       busy_share_A=dev * ELASTIC_STEPS / (wall * 1e3))
+        del model, tr
+
+        # -- run B: HostElasticTrainer, a barrier every step -----------
+        model = fresh()
+        reg = MetricsRegistry()
+        tr = HostElasticTrainer(model, agent, mesh=mesh,
+                                snapshot_every=ELASTIC_SNAPSHOT,
+                                registry=reg, batch_stats="sync")
+        barriers = TimedCalls(agent, "step_barrier")
+        pushes = TimedCalls(tr.ring, "push")
+        dispatch.reset_launch_counts()
+        wall = timed_run(lambda: tr.fit(batches))
+        del agent.step_barrier  # the agent's own method again
+        count("B", ELASTIC_STEPS)
+        if (model.iteration_count != ELASTIC_STEPS
+                or not same_as_host(torch, ref, model)):
+            raise RuntimeError("[elastic-resnet50] B differs from A")
+        if (any(p is not None for p in barriers.results)
+                or len(barriers.ms) != ELASTIC_STEPS
+                or len(pushes.ms) != 2 or tr.recoveries):
+            raise RuntimeError(
+                f"[elastic-resnet50] B: barriers {barriers.results}, "
+                f"{len(pushes.ms)} snapshots, {tr.recoveries} recoveries")
+        snap = tr.ring.latest()
+        res.update(
+            bitwise_B=True,
+            barrier_ms_p50=float(np.percentile(barriers.ms, 50)),
+            barrier_ms_max=max(barriers.ms),
+            snapshot_push_ms=pushes.ms,
+            snapshot_bytes=sum(tree_bytes(snap[k]) for k in (
+                "params", "updater_state", "state")),
+            host_ms_per_step_B=wall / ELASTIC_STEPS * 1e3,
+            score_B=model.score_value)
+        if dev is not None:  # B's step is A's, the pushes beside it
+            res["busy_share_B"] = dev * ELASTIC_STEPS / (wall * 1e3)
+        del model, tr, snap
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # -- run C: the coordinator lost after step 5 ------------------
+        saves = []
+
+        class TimedManager(CheckpointManager):
+            def save(self, model, artifacts=None, mode=None):
+                t = time.perf_counter()
+                out = super().save(model, artifacts=artifacts, mode=mode)
+                saves.append({"t0": t, "step": model.iteration_count,
+                              "ms": (time.perf_counter() - t) * 1e3})
+                return out
+
+        mgr = TimedManager(f"{tmp}/ckpt", keep_last=2, device=device)
+        model = fresh()
+        tr = HostElasticTrainer(model, agent, mesh=mesh,
+                                snapshot_every=ELASTIC_SNAPSHOT,
+                                checkpoint_manager=mgr,
+                                registry=MetricsRegistry(),
+                                batch_stats="sync")
+        stopped = []
+
+        class StopCoordinator:
+            def iteration_done(self, model, iteration):
+                if iteration == ELASTIC_COORD_STOP and not stopped:
+                    coord.stop()
+                    stopped.append(time.perf_counter())
+
+        model.set_listeners(StopCoordinator())
+        dispatch.reset_launch_counts()
+        try:
+            tr.fit(batches)
+            raise RuntimeError("[elastic-resnet50] C was not preempted")
+        except PreemptedException as e:
+            t_exc = time.perf_counter()
+            lost = e
+        sync()
+        count("C", ELASTIC_COORD_STOP)
+        bound_s = agent.policy.total_timeout
+        exhausted_s = saves[0]["t0"] - stopped[0] if saves else None
+        if (lost.step != ELASTIC_COORD_STOP
+                or lost.reason != "coordinator-lost"
+                or lost.exit_code != 75 or lost.checkpoint is None
+                or lost.checkpoint.step != ELASTIC_COORD_STOP
+                or [s["step"] for s in saves] != [ELASTIC_COORD_STOP]
+                or model.iteration_count != ELASTIC_COORD_STOP
+                or exhausted_s is None or exhausted_s > bound_s):
+            raise RuntimeError(
+                f"[elastic-resnet50] C: {lost!r} at step {lost.step} "
+                f"({lost.reason}, exit {lost.exit_code}), saves {saves}, "
+                f"retries exhausted after {exhausted_s} s (bound {bound_s})")
+        res.update(preempted_step=lost.step, reason=lost.reason,
+                   exit_code=lost.exit_code,
+                   retries_exhausted_s=exhausted_s, retry_bound_s=bound_s,
+                   stop_to_exception_s=t_exc - stopped[0],
+                   save_ms=saves[0]["ms"],
+                   checkpoint_bytes=lost.checkpoint.size)
+        agent.close()
+        del model, tr
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ... then a fresh model resumes the checkpoint: steps 6-8
+        model = fresh()
+        tr = DistributedTrainer(model, mesh=mesh, batch_stats="sync")
+        sync()
+        t0 = time.perf_counter()
+        step = tr.resume(mgr)
+        sync()
+        res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        if step != ELASTIC_COORD_STOP:
+            raise RuntimeError(f"[elastic-resnet50] resumed at {step}")
+        dispatch.reset_launch_counts()
+        for ds in batches[ELASTIC_COORD_STOP:]:
+            tr.fit_minibatch(ds)
+        sync()
+        count("resume", ELASTIC_STEPS - ELASTIC_COORD_STOP)
+        if not same_as_host(torch, ref, model):
+            raise RuntimeError("[elastic-resnet50] the resumed run differs "
+                               "from A")
+        res.update(bitwise_resumed=True, score_resumed=model.score_value)
+        del model, tr
+    finally:
+        if agent is not None:
+            agent.close()
+        if coord is not None:
+            coord.stop()
+        shutdown_distributed()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[elastic-resnet50] {json.dumps(res)} card={card}")
+    return launches
+
+
+# One rank of [elastic-storm]: joins the lease coordinator, forms the
+# world over its rendezvous, trains LeNet-5 under HostElasticTrainer;
+# rank 1 notes the time and SIGKILLs itself after step 7. argv[1]: a
+# JSON spec.
+_STORM_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.observability.metrics import default_registry
+from deeplearning4j_tpu_torch.ops import dispatch
+from deeplearning4j_tpu_torch.parallel import (
+    HostElasticTrainer, WorkerAgent, build_mesh, init_distributed_elastic,
+    shutdown_distributed)
+from deeplearning4j_tpu_torch.resilience.chaos import KillAtStep
+from deeplearning4j_tpu_torch.util.model_serializer import (
+    params_from_numpy, params_to_numpy, updater_state_to_numpy)
+from deeplearning4j_tpu_torch.zoo import lenet
+
+spec = json.loads(sys.argv[1])
+rank, dev = spec["rank"], spec["device"]
+data = np.load(spec["data"])
+batches = [DataSet(data[f"x{i}"], data[f"y{i}"])
+           for i in range(len(data.files) // 2)]
+agent = WorkerAgent(spec["control"], rank_hint=rank)
+grant = agent.join(timeout_s=120)
+agent.start_renewals()  # before the bring-up: keep renewing
+init_distributed_elastic(grant.rendezvous, grant.num, grant.rank,
+                         device=dev, backend="gloo", timeout_s=120)
+net = MultiLayerNetwork(lenet(), device=dev).init(
+    params=params_from_numpy(dict(np.load(spec["init"])), dev))
+tr = HostElasticTrainer(net, agent, mesh=build_mesh(data=grant.num),
+                        snapshot_every=spec["snap_every"],
+                        reform_timeout_s=120)
+steps, plans = [], []
+
+
+class Clock:
+    def iteration_done(self, model, it):
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        steps.append((int(it), time.time()))
+        if it == spec["kill_at"]:
+            with open(spec["kill_note"], "w") as f:
+                f.write(repr(time.time()))
+
+
+barrier = agent.step_barrier
+
+
+def noted(step, timeout_s=None):
+    plan = barrier(step, timeout_s)
+    if plan is not None:
+        plans.append(time.time())
+    return plan
+
+
+agent.step_barrier = noted
+net.listeners.append(Clock())
+if spec["kill_at"] >= 0:
+    net.listeners.append(KillAtStep(spec["kill_at"]))
+dispatch.reset_launch_counts()
+tr.fit(batches, epochs=1)
+if dev != "cpu":
+    torch.cuda.synchronize()
+launches = dispatch.launch_counts()
+rec_ms = default_registry().get("host_recovery_ms")._default().snapshot()
+snap = tr.last_recovery_snapshot
+torch.save(snap, spec["snapshot"])
+out = {"p:" + k: v for k, v in params_to_numpy(net.params).items()}
+out.update({"u:" + k: v for k, v in
+            updater_state_to_numpy(tr.trainer.gather_updater_state()).items()})
+np.savez(spec["trees"], **out)
+with open(spec["out"], "w") as f:
+    json.dump({"iteration": int(net.iteration_count),
+               "recoveries": tr.recoveries, "last_recovery": tr.last_recovery,
+               "epoch": agent.epoch, "world": tr.mesh.data,
+               "backend": tr.mesh.backend, "steps": steps, "plans": plans,
+               "recovery_ms": rec_ms, "launches": launches}, f)
+agent.close()
+shutdown_distributed()
+"""
+
+# The piecewise reference of [elastic-storm]: the recovery snapshot
+# replayed at survivor width (a gloo world of one on the same device).
+_STORM_REFERENCE = r"""
+import json, sys
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
+from deeplearning4j_tpu_torch.parallel import (
+    DistributedTrainer, SnapshotRing, build_mesh, init_distributed,
+    shutdown_distributed)
+from deeplearning4j_tpu_torch.util.model_serializer import (
+    params_to_numpy, updater_state_to_numpy)
+from deeplearning4j_tpu_torch.zoo import lenet
+
+spec = json.loads(sys.argv[1])
+dev = spec["device"]
+data = np.load(spec["data"])
+batches = [DataSet(data[f"x{i}"], data[f"y{i}"])
+           for i in range(len(data.files) // 2)]
+snap = torch.load(spec["snapshot"], weights_only=False)
+net = MultiLayerNetwork(lenet(), device=dev).init()
+ring = SnapshotRing(registry=MetricsRegistry())
+ring._ring.append(snap)
+ring.restore_into_model(net)
+init_distributed("file://" + spec["rdv"], 1, 0, device=dev, backend="gloo",
+                 timeout_s=120)
+tr = DistributedTrainer(net, mesh=build_mesh(data=1))
+for ds in batches[snap["epoch_index"]:]:
+    tr.fit_minibatch(ds)
+out = {"p:" + k: v for k, v in params_to_numpy(net.params).items()}
+out.update({"u:" + k: v for k, v in
+            updater_state_to_numpy(tr.gather_updater_state()).items()})
+out["iteration"] = np.asarray(net.iteration_count)
+np.savez(spec["trees"], **out)
+shutdown_distributed()
+"""
+
+
+def spawn_ranks(tag, script, specs, timeout_s, logdir):
+    """``script`` in one process a spec (``PYTHONPATH`` this checkout,
+    stderr to ``<logdir>/<tag>-<i>.err``); every process is waited for,
+    or killed once ``timeout_s`` has passed. Returns their (return
+    code, stderr tail)."""
+    import os
+    import pathlib
+
+    root = str(pathlib.Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="4")
+    procs, logs = [], []
+    for i, spec in enumerate(specs):
+        logs.append(os.path.join(logdir, f"{tag}-{i}.err"))
+        with open(logs[-1], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script, json.dumps(spec)], cwd=root,
+                env=env, stdout=subprocess.DEVNULL, stderr=err))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"[{tag}] a process ran past "
+                                   f"{timeout_s} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, log in zip(procs, logs):
+        with open(log) as fh:
+            out.append((p.returncode, fh.read()[-3000:]))
+    return out
+
+
+def run_elastic_storm(torch, card, device="cuda"):
+    """[elastic-storm] LeNet-5 at full width (the zoo's, Adam) on
+    synthetic MNIST, global batch 256, 12 minibatches, under
+    ``HostElasticTrainer(snapshot_every=4)`` in two rank processes on
+    the card: a ``LeaseCoordinator(2, lease_s=1)`` in this process, the
+    world a gloo group over CUDA tensors (``backend="gloo"`` named:
+    NCCL refuses two ranks on one card), ``KillAtStep(7)`` SIGKILLs
+    rank 1. Rank 0 must exit 0 and rank 1 by SIGKILL; rank 0 recovers
+    once, rolled back to step 4 (within one snapshot window of the
+    kill), takes 12 steps, and its parameters and updater state are
+    bitwise a piecewise reference: a process that restores the recovery
+    snapshot and replays at survivor width on the card. Prints the time
+    from the kill to the plan, the recovery ms, the steps lost and the
+    survivor's examples/s before and after the loss. Returns rank 0's
+    launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import LeaseCoordinator
+    from deeplearning4j_tpu_torch.util.model_serializer import params_to_numpy
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * STORM_BATCHES))
+    tmp = tempfile.mkdtemp(prefix="dl4j_storm_")
+    f = os.path.join
+    np.savez(f(tmp, "data.npz"),
+             **{f"x{i}": np.asarray(b.features)
+                for i, b in enumerate(batches)},
+             **{f"y{i}": np.asarray(b.labels)
+                for i, b in enumerate(batches)})
+    np.savez(f(tmp, "init.npz"), **params_to_numpy(
+        MultiLayerNetwork(lenet(), device="cpu").init().params))
+    common = {"device": device, "data": f(tmp, "data.npz")}
+    print(f"[elastic-storm] LeNet-5 full width, Adam, global batch "
+          f"{LENET_TRAIN_BATCH}, {STORM_BATCHES} minibatches, "
+          f"HostElasticTrainer(snapshot_every={STORM_SNAPSHOT}) on 2 rank "
+          f"processes over a gloo group on {device}, lease {STORM_LEASE_S} "
+          f"s, KillAtStep({STORM_KILL}) on rank 1")
+    coord = LeaseCoordinator(2, lease_s=STORM_LEASE_S,
+                             barrier_timeout_s=60.0,
+                             registry=MetricsRegistry()).start()
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("elastic-storm", _STORM_RANK, [dict(
+            common, rank=r, control=coord.address, init=f(tmp, "init.npz"),
+            snap_every=STORM_SNAPSHOT,
+            kill_at=STORM_KILL if r == 1 else -1,
+            kill_note=f(tmp, f"kill{r}.txt"), out=f(tmp, f"rank{r}.json"),
+            trees=f(tmp, f"trees{r}.npz"),
+            snapshot=f(tmp, f"snapshot{r}.pt")) for r in range(2)],
+            STORM_TIMEOUT_S, tmp)
+        wall = time.perf_counter() - t0
+    finally:
+        coord.stop()
+    try:
+        (rc0, err0), (rc1, err1) = ranks
+        if rc1 != -9 or rc0 != 0:
+            raise RuntimeError(f"[elastic-storm] rank 0 exit {rc0}, rank 1 "
+                               f"exit {rc1} (want 0, -9):\n{err0}\n---\n"
+                               f"{err1}")
+        with open(f(tmp, "rank0.json")) as fh:
+            surv = json.load(fh)
+        with open(f(tmp, "kill1.txt")) as fh:
+            killed = float(fh.read())
+        rec = surv["last_recovery"]
+        if (surv["recoveries"] != 1 or surv["iteration"] != STORM_BATCHES
+                or rec["dead"] != [1] or rec["survivors"] != 1
+                or rec["rolled_back_to"] != STORM_SNAPSHOT
+                or not STORM_KILL - STORM_SNAPSHOT <= rec["rolled_back_to"]
+                <= STORM_KILL or surv["world"] != 1
+                or surv["backend"] != "gloo" or len(surv["plans"]) != 1):
+            raise RuntimeError(f"[elastic-storm] survivor: {surv}")
+        ref = spawn_ranks("elastic-storm-ref", _STORM_REFERENCE, [dict(
+            common, snapshot=f(tmp, "snapshot0.pt"), rdv=f(tmp, "ref_rdv"),
+            trees=f(tmp, "ref.npz"))], STORM_TIMEOUT_S, tmp)
+        if ref[0][0] != 0:
+            raise RuntimeError(f"[elastic-storm] reference: {ref[0][1]}")
+        got, want = (dict(np.load(f(tmp, "trees0.npz"))),
+                     dict(np.load(f(tmp, "ref.npz"))))
+        if int(want.pop("iteration")) != surv["iteration"] or (
+                got.keys() != want.keys()) or not all(
+                np.array_equal(got[k], want[k]) for k in want):
+            raise RuntimeError("[elastic-storm] the survivor differs from "
+                               "the piecewise reference")
+        plan_t = surv["plans"][0]
+        steps = surv["steps"]
+        before = [t for it, t in steps if t < plan_t]
+        after = [t for it, t in steps if t > plan_t]
+
+        def rate(ts):
+            return (LENET_TRAIN_BATCH * (len(ts) - 1) / (ts[-1] - ts[0])
+                    if len(ts) >= 2 else None)
+
+        launches = {k: surv["launches"].get(k, 0) for k in dispatch.KERNELS}
+        one_step = {"conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
+                    "matmul_block": 1}
+        taken = len(steps)  # rank 0's steps, the replayed ones included
+        if device == "cuda" and launches != {
+                k: one_step.get(k, 0) * taken for k in dispatch.KERNELS}:
+            raise RuntimeError(f"[elastic-storm] {taken} steps launched "
+                               f"{launches}")
+        res = {"ranks": 2, "exit_codes": [rc0, rc1], "recoveries": 1,
+               "rolled_back_to": rec["rolled_back_to"],
+               "killed_after_step": STORM_KILL,
+               "steps_lost": STORM_KILL - rec["rolled_back_to"],
+               "steps_taken": taken, "iteration": surv["iteration"],
+               "kill_to_plan_s": plan_t - killed,
+               "recovery_ms": surv["recovery_ms"],
+               "examples_per_s_before": rate(before),
+               "examples_per_s_after": rate(after),
+               "storm_wall_s": wall, "bitwise": True,
+               "launches": {k: v for k, v in launches.items() if v}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[elastic-storm] {json.dumps(res)} card={card}")
+    return launches
+
+
+def default_vs_per_step(torch, tag, make, batches):
+    """[default-fit] ``fit(batches)`` of a list at the engine's default
+    ``scan_chunk`` (16: one chunk of the 16 minibatches, one CUDA-graph
+    capture) against the same fit at ``scan_chunk = 1`` from the same
+    weights: the trees bitwise equal (parameters, updater and layer
+    state) after the first fit of each and again after a second, timed
+    one (the scan fit's second replays only); the launches counted at
+    capture; the device ms a step from CUDA events around the timed
+    fit's replay, the busy share both ways, the peak memory of the
+    capturing fit and of the replaying one, and the capture's host
+    seconds. Returns (launches of the phase, the result)."""
+    from deeplearning4j_tpu_torch.nn import core
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    ref = per_step_loop(make(None))
+    model = make({ln: {pn: t.clone() for pn, t in lp.items()}
+                  for ln, lp in ref.params.items()})
+    if model.scan_chunk != 16:
+        raise RuntimeError(f"[{tag}] default scan_chunk {model.scan_chunk}")
+    n, rows = len(batches), int(np.shape(batches[0].features)[0])
+    dispatch.reset_launch_counts()
+    ref.fit(batches)
+    torch.cuda.synchronize()
+    per_step_counts = dispatch.launch_counts()
+    one_step = {k: v // n for k, v in per_step_counts.items()}
+    captures, replays = [], []
+    capture, replay = core.GraphedChunk.capture, core.GraphedChunk.replay
+
+    def timed_capture(self, m):
+        t = time.perf_counter()
+        capture(self, m)
+        captures.append(time.perf_counter() - t)
+
+    def timed_replay(self, trees):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = replay(self, trees)
+        end.record()
+        replays.append((start, end))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    core.GraphedChunk.capture = timed_capture
+    try:
+        t0 = time.perf_counter()
+        model.fit(batches)  # captures, then replays
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+    finally:
+        core.GraphedChunk.capture = capture
+    peak_first = torch.cuda.max_memory_allocated()
+    scan_counts = dispatch.launch_counts()
+    graphs = list(model._megastep_graphs.values())
+    if [g.k for g in graphs] != [n] or len(captures) != 1:
+        raise RuntimeError(f"[{tag}] chunks {[g.k for g in graphs]}, "
+                           f"{len(captures)} captures")
+    if not scan_launches_ok(scan_counts, one_step, graphs):
+        raise RuntimeError(f"[{tag}] the scan fit launched {scan_counts}, "
+                           f"one step {one_step}")
+    if not same_trees(torch, ref, model):
+        raise RuntimeError(f"[{tag}] the default fit differs from its "
+                           "scan_chunk = 1 fit")
+    # the second fits, timed: the per-step loop, then the scan path's
+    # replay of the captured chunk (its device time on the events)
+    t0 = time.perf_counter()
+    ref.fit(batches)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    core.GraphedChunk.replay = timed_replay
+    try:
+        t0 = time.perf_counter()
+        model.fit(batches)  # replays only
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        core.GraphedChunk.replay = replay
+    peak = torch.cuda.max_memory_allocated()
+    if len(model._megastep_graphs) != 1 or len(replays) != 1:
+        raise RuntimeError(f"[{tag}] the second fit captured again or "
+                           f"replayed {len(replays)} times")
+    if not same_trees(torch, ref, model):
+        raise RuntimeError(f"[{tag}] the second default fit differs")
+    dev_ms = replays[0][0].elapsed_time(replays[0][1]) / n
+    res = {"minibatches": n, "rows": rows, "scan_chunk": model.scan_chunk,
+           "chunks": [g.k for g in graphs], "bitwise": True,
+           "examples_per_s": n * rows / wall,
+           "per_step_examples_per_s": n * rows / wall_ref,
+           "host_ms_per_step": wall / n * 1e3,
+           "per_step_host_ms_per_step": wall_ref / n * 1e3,
+           "device_ms_per_step": dev_ms,
+           "device_busy_share": dev_ms * n / (wall * 1e3),
+           "per_step_busy_share": dev_ms * n / (wall_ref * 1e3),
+           "capture_s": captures[0], "capture_fit_s": wall_first,
+           "peak_memory_capture_mib": peak_first / 2 ** 20,
+           "peak_memory_replay_mib": peak / 2 ** 20,
+           "launches_per_step": {k: v for k, v in one_step.items() if v},
+           "launches_counted_at_capture": {
+               k: v for k, v in scan_counts.items() if v},
+           "score": model.score_value}
+    del ref, model, graphs
+    torch.cuda.empty_cache()
+    return {k: per_step_counts[k] + scan_counts[k]
+            for k in per_step_counts}, res
+
+
+def run_default_fit(torch, card, tokens):
+    """[default-fit] the default ``fit`` (``scan_chunk`` 16) of the large
+    models, each over 16 minibatches against its ``scan_chunk = 1`` fit
+    (``default_vs_per_step``): ResNet-50 (batch 128, 224 x 224, f32,
+    NESTEROVS), the transformer LM of bench.py:866 (d 768, 12 layers, 16
+    x 512, Adam, f32) and AlexNet (batch 128, NESTEROVS, dropout 0.5 on
+    both dense layers: the masks' keys derived inside the replay).
+    Returns the launch counts of the three."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import alexnet, resnet50
+
+    n = DEFAULT_FIT_BATCHES
+    launches = {}
+    rn_conf, ax_conf = resnet50(learning_rate=0.01), alexnet()
+    models = (
+        ("resnet50", lambda p: ComputationGraph(rn_conf, device="cuda")
+         .init(params=p), lambda: resnet_batches(n, RESNET_BATCH, seed=31)),
+        ("transformer", lambda p: MultiLayerNetwork(tx_conf(), device="cuda")
+         .init(params=p), lambda: char_batches(
+             tokens, TX_BATCH, TX_T, n, seed=37, vocab=TX["vocab"])),
+        ("alexnet", lambda p: MultiLayerNetwork(ax_conf, device="cuda")
+         .init(params=p), lambda: [
+             DataSet((b.features.astype(np.float32) - 127.5) / 73.9,
+                     b.labels.astype(np.float32))
+             for b in resnet_batches(n, ALEXNET_TRAIN_BATCH, seed=41)]))
+    print(f"[default-fit] the default fit (scan_chunk 16) of ResNet-50 "
+          f"(batch {RESNET_BATCH}), the transformer LM ({TX_BATCH} x "
+          f"{TX_T}) and AlexNet with dropout (batch {ALEXNET_TRAIN_BATCH}),"
+          f" {n} minibatches each, against scan_chunk 1")
+    for tag, make, data in models:
+        t0 = time.perf_counter()
+        got, res = default_vs_per_step(torch, f"default-fit {tag}", make,
+                                       data())
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        res["phase_s"] = time.perf_counter() - t0
+        print(f"[default-fit] {tag} {json.dumps(res)} card={card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5022,6 +5776,15 @@ def main() -> int:
     fused_seq = run_charrnn_fused(torch, card, False, ids)
     telemetry = run_telemetry(torch, card)
     scan_paths = (lenet_cached, vgg_cached, telemetry)
+    # the elastic control plane under ResNet-50 and LeNet-5, then the
+    # default fit of the large models
+    elastic_paths = []
+    for tag, fn, args in (("elastic-resnet50", run_elastic_resnet50, ()),
+                          ("elastic-storm", run_elastic_storm, ()),
+                          ("default-fit", run_default_fit, (tokens,))):
+        t0 = time.perf_counter()
+        elastic_paths.append(fn(torch, card, *args))
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
     nlp = run_nlp(torch, card)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
     half_variants = {}
@@ -5061,7 +5824,8 @@ def main() -> int:
                          + alex_train[k] + mega[k] + nlp[k] + runtime[k]
                          + rollback[k]
                          + sum(c[k] for c in half_launches)
-                         + sum(c[k] for c in scan_paths)),
+                         + sum(c[k] for c in scan_paths)
+                         + sum(c[k] for c in elastic_paths)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -5164,7 +5928,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": replaces,
             "launches": (sum(c[k] for c in tx_paths)
-                         + sum(c[k] for c in half_launches)),
+                         + sum(c[k] for c in half_launches)
+                         + elastic_paths[-1].get(k, 0)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -1384,6 +1384,7 @@ def fit_epoch_megastep(model, batches, prefetch=None) -> int:
         ChunkedDataSet,
         PlacedChunk,
     )
+    from deeplearning4j_tpu_torch.parallel import control_plane
     from deeplearning4j_tpu_torch.resilience import preemption
 
     k = int(model.megastep)
@@ -1403,6 +1404,7 @@ def fit_epoch_megastep(model, batches, prefetch=None) -> int:
     try:
         for ds in batches:
             preemption.check_fit(model, window=feed, prefetch=prefetch)
+            control_plane.check_fit(model)
             if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
                 if state["buf"]:
                     flush_megastep()
@@ -1578,6 +1580,7 @@ def fit_epoch_scan(model, batches, prefetch=None) -> int:
         ChunkedDataSet,
         PlacedChunk,
     )
+    from deeplearning4j_tpu_torch.parallel import control_plane
     from deeplearning4j_tpu_torch.resilience import preemption
 
     model._reset_recurrent_state()  # the scan carries empty entries
@@ -1586,6 +1589,7 @@ def fit_epoch_scan(model, batches, prefetch=None) -> int:
     n = 0
     for ds in batches:
         preemption.check_fit(model, prefetch=prefetch)
+        control_plane.check_fit(model)
         if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
             if buf:
                 flush_scan_chunk(model, buf)
@@ -1697,6 +1701,7 @@ def fit_epochs_device_cached(model, batches, epochs: int,
     the streamed epochs. Returns False, having done nothing, where no
     plan applies (``extra_plan_fn(batches, epochs)`` first, then
     ``cached_epoch_plan``)."""
+    from deeplearning4j_tpu_torch.parallel import control_plane
     from deeplearning4j_tpu_torch.resilience import preemption
 
     plan = extra_plan_fn(batches, epochs) if extra_plan_fn else None
@@ -1711,6 +1716,7 @@ def fit_epochs_device_cached(model, batches, epochs: int,
         model._reset_recurrent_state()
         for kind, item, _last in plan:
             preemption.check_fit(model)
+            control_plane.check_fit(model)
             if kind == "chunk":
                 run_scan_chunk(model, item)
             elif kind == "tbptt":
@@ -1767,6 +1773,7 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
     from deeplearning4j_tpu_torch.parallel.dispatch import (
         AsyncDispatchWindow,
     )
+    from deeplearning4j_tpu_torch.parallel import control_plane
     from deeplearning4j_tpu_torch.resilience import preemption
 
     if model.params is None:
@@ -1808,6 +1815,7 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
                     for ds in iterator:
                         preemption.check_fit(model, window=window,
                                              prefetch=prefetch)
+                        control_plane.check_fit(model)
                         model.fit_minibatch(ds)
                         n_batches += 1
                 finally:

@@ -30,7 +30,10 @@ Routing:
 Not ported yet, and refused where a configuration asks for them: the
 Switch mixture-of-experts FFN (``n_experts > 0``; ROADMAP queue 1, MoE)
 and ring attention over a sequence-sharded mesh axis (``seq_axis``; the
-distribution slice). Training with dropout raises, as for every layer.
+distribution slice). Training with a dropout rate drops the input of
+both blocks (``SelfAttentionLayer`` and ``TransformerBlock``, through
+``LayerSpec.maybe_dropout``) with the JAX package's masks bit for bit
+(``nn/random.py``), as every layer does.
 """
 
 from __future__ import annotations
@@ -158,8 +161,8 @@ class MultiHeadSelfAttention(LayerSpec):
         kc[:, :, pos:pos + t] = k.to(kc.dtype)
         vc[:, :, pos:pos + t] = v.to(vc.dtype)
         hd = int(q.shape[-1])
-        scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=q.dtype,
-                                              device=q.device))
+        scale = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=q.dtype,
+                                            device=q.device))
         s = torch.einsum("bhqd,bhkd->bhqk", q, kc) * scale
         key_idx = torch.arange(self.kv_cache, device=q.device)
         q_idx = pos + torch.arange(t, device=q.device)
@@ -363,8 +366,10 @@ class PositionalEncoding(LayerSpec):
             state = {**state, "pos": off + t}
         pos = (off + torch.arange(t, device=x.device)).to(x.dtype)
         i = torch.arange(n, device=x.device)
-        freq = torch.tensor(self.max_wavelength, dtype=x.dtype,
-                            device=x.device) ** (
+        # filled on the device: a copy from the host could not be
+        # captured in a CUDA graph (the scan path's chunk)
+        freq = torch.full((), self.max_wavelength, dtype=x.dtype,
+                          device=x.device) ** (
             -((i // 2) * 2 / n).to(x.dtype))
         angle = freq[:, None] * pos[None, :]                  # [n, t]
         pe = torch.where((i % 2 == 0)[:, None], torch.sin(angle),

@@ -1,22 +1,53 @@
 """Parallel and distributed training (replaces the reference's
 ``parallelism/ParallelWrapper`` and ``deeplearning4j-scaleout/spark``
 with ``torch.distributed``: one process a device, NCCL on the card,
-gloo on the CPU), and sequence parallelism's materialized reference
-attention (``sequence.attention``; ring attention arrives with a later
+gloo on the CPU), the elastic control plane (``control_plane.py``:
+lease coordinator, worker agents) and elastic training
+(``elastic.py``: the snapshot ring, survivor-world recovery), and
+sequence parallelism's materialized reference attention
+(``sequence.attention``; ring attention arrives with a later
 distribution slice, ROADMAP)."""
 
+from deeplearning4j_tpu_torch.parallel.control_plane import (
+    ControlPlaneException,
+    CoordinatorLostException,
+    HostFencedException,
+    LeaseCoordinator,
+    LeaseState,
+    LocalTransport,
+    RecoveryPlan,
+    TcpTransport,
+    WorkerAgent,
+)
 from deeplearning4j_tpu_torch.parallel.dispatch import AsyncDispatchWindow
+from deeplearning4j_tpu_torch.parallel.elastic import (
+    DeviceLostException,
+    ElasticTrainer,
+    HeartbeatMonitor,
+    HostElasticTrainer,
+    SnapshotRing,
+    StragglerDetector,
+)
 from deeplearning4j_tpu_torch.parallel.mesh import (
     Mesh,
     build_mesh,
     init_distributed,
+    init_distributed_elastic,
     process_local_batch,
+    reform_distributed,
     shutdown_distributed,
 )
 from deeplearning4j_tpu_torch.parallel.sequence import attention
 from deeplearning4j_tpu_torch.parallel.trainer import DistributedTrainer
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 
-__all__ = ["AsyncDispatchWindow", "DistributedTrainer", "Mesh", "ParallelWrapper", "attention",
-           "build_mesh", "init_distributed", "process_local_batch",
+__all__ = ["AsyncDispatchWindow", "ControlPlaneException",
+           "CoordinatorLostException", "DeviceLostException",
+           "DistributedTrainer", "ElasticTrainer", "HeartbeatMonitor",
+           "HostElasticTrainer", "HostFencedException", "LeaseCoordinator",
+           "LeaseState", "LocalTransport", "Mesh", "ParallelWrapper",
+           "RecoveryPlan", "SnapshotRing", "StragglerDetector",
+           "TcpTransport", "WorkerAgent", "attention", "build_mesh",
+           "init_distributed", "init_distributed_elastic",
+           "process_local_batch", "reform_distributed",
            "shutdown_distributed"]

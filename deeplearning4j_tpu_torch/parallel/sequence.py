@@ -23,9 +23,11 @@ def neg_fill(s: torch.Tensor) -> torch.Tensor:
     """NEG in the scores' dtype, converted as JAX converts the Python
     float it fills with: in f16 it overflows to -inf (torch's
     ``masked_fill`` would refuse the number), which the softmax takes as
-    a zero weight all the same."""
-    return torch.tensor(NEG, dtype=torch.float32,
-                        device=s.device).to(s.dtype)
+    a zero weight all the same. A CPU scalar tensor whatever the scores'
+    device: ``masked_fill`` reads its value on the host, and reading a
+    CUDA one would wait for the card, which a CUDA-graph capture (the
+    scan path's chunk) refuses."""
+    return torch.tensor(NEG, dtype=torch.float32).to(s.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -33,8 +35,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax attention over the key axis; ``mask`` is the ``[b, t]``
     validity of the keys (> 0: valid)."""
-    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]),
-                                          dtype=q.dtype, device=q.device))
+    scale = 1.0 / torch.sqrt(torch.full((), float(q.shape[-1]),
+                                        dtype=q.dtype, device=q.device))
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     t = q.shape[2]
     if causal:

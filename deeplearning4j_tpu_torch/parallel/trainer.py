@@ -168,6 +168,11 @@ class DistributedTrainer:
         self._check_row_sharded()
         self.batch_stats = batch_stats
         self.zero = bool(zero)
+        if (self.zero and self.mesh.data > 1 and self.mesh.backend == "gloo"
+                and model.device.type == "cuda"):
+            raise ValueError(
+                "zero=True over a gloo group of CUDA tensors: gloo has no "
+                "all_gather or reduce_scatter on CUDA tensors")
         self._is_graph = hasattr(model.conf, "vertices")
         if model.params is None:
             model.init()
@@ -185,13 +190,20 @@ class DistributedTrainer:
     def _check_device(self) -> None:
         """One rank drives one device: the model lies on the mesh's
         device, CUDA models talk over NCCL and CPU models over gloo. A
-        CUDA model never goes on over gloo or on the CPU."""
+        CUDA model goes on over gloo only where the world's caller named
+        that backend (``init_distributed(backend="gloo")``, several
+        ranks on one card), and never on the CPU."""
+        from deeplearning4j_tpu_torch.parallel.mesh import backend_named
+
         m, mesh = self.model, self.mesh
         if mesh.backend is None:
             if mesh.data != 1:
                 raise ValueError("a mesh of several ranks needs a group")
             return
         want = "nccl" if m.device.type == "cuda" else "gloo"
+        if (m.device.type == "cuda" and mesh.backend == "gloo"
+                and backend_named()):
+            want = "gloo"
         if mesh.backend != want:
             raise RuntimeError(
                 f"a {m.device.type} model needs a {want} group, the world "
@@ -789,6 +801,7 @@ class DistributedTrainer:
             PlacedDataSet,
         )
         from deeplearning4j_tpu_torch.datasets.prefetch import _chunk_sig
+        from deeplearning4j_tpu_torch.parallel import control_plane
         from deeplearning4j_tpu_torch.resilience import preemption
 
         m = self.model
@@ -822,6 +835,7 @@ class DistributedTrainer:
         try:
             for ds in iter(source):
                 preemption.check_fit(m, window=_Quiesce, prefetch=prefetch)
+                control_plane.check_fit(m)
                 if isinstance(ds, (ChunkedDataSet, PlacedChunk)):
                     flush()
                     sig = None
@@ -874,6 +888,7 @@ class DistributedTrainer:
         from deeplearning4j_tpu_torch.parallel.dispatch import (
             AsyncDispatchWindow,
         )
+        from deeplearning4j_tpu_torch.parallel import control_plane
         from deeplearning4j_tpu_torch.resilience import preemption
 
         m = self.model
@@ -934,6 +949,7 @@ class DistributedTrainer:
                         for ds in iter(source):
                             preemption.check_fit(m, window=window,
                                                  prefetch=prefetching)
+                            control_plane.check_fit(m)
                             scores.append(self.fit_minibatch(
                                 ds, _window=window))
                     window.drain()

@@ -5,11 +5,21 @@ checkpoints with a sharded two-phase commit, scrub and repair
 circuit breaking (``breaker.py``); deadlines (``deadline.py``); the
 retrying object store (``store.py``); the divergence guard with its
 skip and rollback policies (``guard.py``); preemption handling
-(``preemption.py``). The JAX package's fault injection (``chaos.py``)
-is not ported."""
+(``preemption.py``); deterministic fault injection (``chaos.py``:
+seeded failure schedules, the faulty store and iterators, the control
+channel's drops, delays and partitions, and the SIGKILL at a step)."""
 
 from deeplearning4j_tpu_torch.resilience.breaker import (  # noqa: F401
     CircuitBreaker,
+)
+from deeplearning4j_tpu_torch.resilience.chaos import (  # noqa: F401
+    ChaosError,
+    ChaosPolicy,
+    ControlChannelChaos,
+    FaultyObjectStore,
+    FlakyIterator,
+    KillAtStep,
+    PoisonIterator,
 )
 from deeplearning4j_tpu_torch.resilience.checkpoint import (  # noqa: F401
     AsyncSaveHandle,

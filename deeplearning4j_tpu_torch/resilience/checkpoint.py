@@ -51,7 +51,7 @@ releases the peers. A directory without a manifest is uncommitted:
 ``available()`` ignores it and GC removes it. ``LocalCommitBarrier``
 is the one-process barrier and ``ProcessGroupCommitBarrier`` the
 port's over a ``torch.distributed`` world; ``LeaseCommitBarrier`` rides
-the JAX package's control plane, which is not ported.
+the control plane's lease coordinator (``parallel/control_plane.py``).
 
 **Scrub and repair**: ``scrub_once()`` (or the background scrubber)
 re-verifies every retained checkpoint's CRCs at shard granularity,
@@ -263,8 +263,8 @@ class LocalCommitBarrier:
 
 
 class ProcessGroupCommitBarrier:
-    """The commit fence of a ``torch.distributed`` world (the port's
-    ranks; the JAX package fences over its control plane instead): each
+    """The commit fence of a ``torch.distributed`` world without a
+    control plane (``LeaseCommitBarrier`` fences over one): each
     rank's shard digest is all-gathered over a gloo group of its own
     (made here, on every rank, in lockstep), so the barrier may run on
     the write-behind writer while the training thread's collectives use
@@ -302,14 +302,44 @@ class ProcessGroupCommitBarrier:
 
 
 class LeaseCommitBarrier:
-    """The cross-host commit fence of the JAX package, over its control
-    plane's lease coordinator (``parallel/control_plane.py``), which is
-    not ported: constructing one raises."""
+    """The cross-host commit fence: rides ``WorkerAgent.sync_barrier``
+    (``parallel/control_plane.py``: a payload-carrying named barrier
+    over the lease coordinator), so commit membership is exactly the
+    lease membership: a host dying mid-save bumps the epoch, the
+    barrier reports it, and the commit aborts instead of publishing a
+    manifest over a missing shard. ``rank`` / ``nshards`` track the
+    agent's current grant, so an elastic downscale narrows the shard
+    layout of the next save."""
 
     def __init__(self, agent, timeout_s: Optional[float] = None):
-        raise NotImplementedError(
-            "LeaseCommitBarrier rides parallel/control_plane.py, which is "
-            "not ported yet (ROADMAP queue 1); use LocalCommitBarrier")
+        self.agent = agent
+        self.timeout_s = timeout_s
+
+    @property
+    def rank(self) -> int:
+        return int(self.agent.rank or 0)
+
+    @property
+    def nshards(self) -> int:
+        return int(self.agent.num or 1)
+
+    def barrier(self, token: str, payload: dict) -> Dict[int, dict]:
+        from deeplearning4j_tpu_torch.parallel.control_plane import (
+            ControlPlaneException,
+        )
+
+        try:
+            got = self.agent.sync_barrier(
+                token, payload, timeout_s=self.timeout_s)
+        except ControlPlaneException as e:
+            raise CheckpointCommitAbortedException(
+                f"commit barrier {token!r} failed: {e}") from e
+        if got is None:
+            raise CheckpointCommitAbortedException(
+                f"membership changed during commit barrier {token!r}: "
+                "the epoch the shards were written under no longer "
+                "exists")
+        return got
 
 
 class CheckpointManager:

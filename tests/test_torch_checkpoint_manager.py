@@ -479,8 +479,27 @@ def test_artifacts_ride_the_manifest_and_never_gate_a_restore(tmp_path):
 
 
 def test_lease_barrier_names_the_control_plane():
-    with pytest.raises(NotImplementedError, match="control_plane"):
-        LeaseCommitBarrier(agent=None)
+    """``LeaseCommitBarrier`` rides the control plane's agent: its
+    rank and shard count are the agent's grant, and a control-plane
+    failure aborts the commit naming it."""
+    from deeplearning4j_tpu_torch.exceptions import (
+        CheckpointCommitAbortedException,
+    )
+    from deeplearning4j_tpu_torch.parallel.control_plane import (
+        CoordinatorLostException,
+    )
+
+    class Agent:
+        rank, num = 1, 3
+
+        def sync_barrier(self, token, payload, timeout_s=None):
+            raise CoordinatorLostException("control coordinator unreachable")
+
+    barrier = LeaseCommitBarrier(agent=Agent())
+    assert (barrier.rank, barrier.nshards) == (1, 3)
+    with pytest.raises(CheckpointCommitAbortedException,
+                       match="control coordinator"):
+        barrier.barrier("step-1", {})
 
 
 # -- retry, breaker, retrying store ---------------------------------------------

@@ -2308,3 +2308,102 @@ def test_graphed_fused_tbptt_chunk_is_the_per_chunk_loop(cuda, peephole):
     for name, carry in ref._tbptt_carry.items():
         for k, v in carry.items():
             assert torch.equal(net._tbptt_carry[name][k], v), (name, k)
+
+
+def test_snapshot_ring_round_trip_of_cuda_trees(cuda):
+    """``SnapshotRing`` on the card: the snapshot holds host copies (no
+    storage shared with the live trees), a rollback puts fresh tensors
+    back on the card in fresh dicts, never the static trees of a
+    captured chunk, and the replay after it is bitwise the run that
+    never rolled back."""
+    from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import SnapshotRing
+
+    batches = _lenet_batches(6)
+    ref = _lenet_net(cuda)
+    ref.scan_chunk = 1
+    net = _lenet_net(cuda, ref.params)
+    net.fit(batches[:2])  # two steps captured as a scan chunk
+    ring = SnapshotRing(registry=MetricsRegistry())
+    snap = ring.push(net, epoch_index=2)
+    assert all(t.device.type == "cpu" for lp in snap["params"].values()
+               for t in lp.values())
+    static = [t.data_ptr() for g in net._megastep_graphs.values()
+              for lp in g.trees[0].values() for t in lp.values()]
+    net.fit(batches[2:4])
+    before = net.params
+    assert ring.restore_into_model(net)["step"] == net.iteration_count == 2
+    assert net.params is not before
+    for lp in net.params.values():
+        for t in lp.values():
+            assert t.device.type == "cuda" and t.data_ptr() not in static
+    for ds in batches[2:]:
+        net.fit(ds)
+    ref.fit(batches)
+    assert _same(ref, net)
+
+
+def test_reform_distributed_world_of_one_on_the_card(cuda):
+    """The re-formation cycle on the card: an NCCL world of one over a
+    ``tcp://`` rendezvous, aborted and re-formed over a plan's fresh
+    one; the new world all-reduces on the card and trains a step
+    bitwise the one before the re-formation."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        RecoveryPlan,
+        init_distributed,
+        reform_distributed,
+        shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.parallel.control_plane import (
+        _ephemeral_port,
+    )
+
+    batches = _lenet_batches(2)
+    try:
+        init_distributed(f"tcp://127.0.0.1:{_ephemeral_port()}", 1, 0,
+                         device="cuda", timeout_s=60)
+        a = _lenet_net(cuda)
+        b = _lenet_net(cuda, a.params)
+        DistributedTrainer(a).fit_minibatch(batches[0])
+        plan = RecoveryPlan(epoch=2, term=2, members=(0,), num=1,
+                            rendezvous=f"tcp://127.0.0.1:{_ephemeral_port()}",
+                            member=0, rank=0)
+        mesh = reform_distributed(plan, device="cuda")
+        assert (mesh.data, mesh.backend) == (1, "nccl")
+        x = torch.ones(3, device="cuda")
+        torch.distributed.all_reduce(x)
+        assert x.tolist() == [1.0, 1.0, 1.0]
+        DistributedTrainer(b, mesh=mesh).fit_minibatch(batches[0])
+        assert _same(a, b)
+    finally:
+        shutdown_distributed()
+
+
+def test_transformer_default_fit_captures_and_is_the_per_step_loop(cuda):
+    """The transformer LM's default fit (``scan_chunk`` 16: the
+    minibatches as one CUDA-graph chunk) captures on the card (the
+    positional encoding's and the attention backward's scalars are
+    filled on the device, never copied from the host inside the
+    capture) and is bitwise its ``scan_chunk = 1`` fit."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    conf = transformer_lm(vocab=32, d_model=64, n_layers=2, n_heads=4,
+                          learning_rate=3e-4)
+    rng = np.random.RandomState(5)
+    eye = np.eye(32, dtype=np.float32)
+    data = []
+    for _ in range(3):
+        ids = rng.randint(0, 32, (4, 65))
+        data.append(DataSet(
+            np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+            np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1))))
+    ref = MultiLayerNetwork(conf, device=cuda).init()
+    ref.scan_chunk = 1
+    net = MultiLayerNetwork(conf, device=cuda).init(params=ref.params)
+    ref.fit(data)
+    net.fit(data)
+    assert len(net._megastep_graphs) == 1 and net.iteration_count == 3
+    assert _same(ref, net)
