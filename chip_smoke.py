@@ -185,6 +185,20 @@ non-zero (nothing is caught):
    minibatches) of ResNet-50, the transformer LM and AlexNet with
    dropout, each bitwise its ``scan_chunk = 1`` fit (device ms a step,
    the busy share, peak memory, the capture's seconds).
+15. the serving tier (main paths): ``[fleet]`` one ``ModelServer`` over
+   VGG-16 (the default tenant, restored from a ``CheckpointManager``),
+   LeNet-5 and ResNet-50 at 224 x 224, f32, ``max_device_models=2``: a
+   ResNet-50 evict -> fault-in bitwise, seeded concurrent HTTP traffic
+   over the three with a VGG-16 hot reload in the middle (every answer
+   against its version's CPU twin, zero 5xx, the shape counters flat),
+   an overload's adaptive ``Retry-After``, the breaker opened and
+   closed, and a ``ServingRouter`` over two servers losing no request
+   when one stops (per-tenant p50 / p99, requests/s, page-in / page-out
+   ms and bytes, reload ms); ``[aot-restart]`` LeNet-5 and ResNet-50
+   saved with a serving bundle and served by a fresh process on an empty
+   kernel-library cache: no nvcc build, answers bitwise this process's,
+   boot-to-ready seconds beside this run's build, and a corrupt artifact
+   counted in ``aot_fallback_total``.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -5652,6 +5666,620 @@ def run_default_fit(torch, card, tokens):
     return launches
 
 
+# -- the serving tier: a fleet of tenants and the AOT restart ------------------
+
+FLEET_CLIENTS = 12
+FLEET_REQUESTS = 12        # a client; tenants drawn from FLEET_MIX
+FLEET_AFTER_RELOAD = 3     # a client's requests after the VGG-16 reload
+FLEET_MIX = (("lenet", 0.4), (None, 0.35), ("resnet50", 0.25))
+FLEET_OVERLOAD = 160       # in-process submits at once (bound 16 + 64)
+RETRY_LO = 0.05            # the server's RETRY_AFTER_MIN
+FLEET_ROUTER_CLIENTS = 6
+FLEET_ROUTER_REQUESTS = 8
+VGG_IMAGE = (3, 32, 32)
+RESNET_IMAGE = (3, 224, 224)
+# the fleet transform waits on this while the overload check holds the
+# drain thread (set: no wait)
+FLEET_GATE = threading.Event()
+FLEET_GATE.set()
+
+
+def fleet_transform(feats):
+    """The fleet's request transform: flat rows of VGG-16's CIFAR width
+    become [n, 3, 32, 32], ResNet-50's uint8 pixels become [n, 3, 224,
+    224] standardized as ``[resnet50]``'s twin steps feed them ((p -
+    127.5) / 73.9), LeNet-5's 784-wide rows pass as they are; a LeNet-5
+    row starting with -1 is a poisoned request (the breaker's trip)."""
+    FLEET_GATE.wait(timeout=120)
+    feats = np.asarray(feats, np.float32)
+    width = feats.shape[-1]
+    if width == int(np.prod(VGG_IMAGE)):
+        return feats.reshape((-1,) + VGG_IMAGE)
+    if width == int(np.prod(RESNET_IMAGE)):
+        return ((feats - 127.5) / 73.9).reshape((-1,) + RESNET_IMAGE)
+    if feats.reshape(-1, width)[0, 0] == -1.0:
+        raise ValueError("poisoned request")
+    return feats
+
+
+def fleet_rows(tenant, rng):
+    """One request's rows for ``tenant`` (None: the default, VGG-16)."""
+    if tenant == "lenet":
+        return rng.rand(int(rng.randint(1, 5)), 784).astype(np.float32)
+    if tenant is None:
+        return rng.rand(int(rng.randint(1, 5)),
+                        int(np.prod(VGG_IMAGE))).astype(np.float32)
+    return rng.randint(0, 256, (int(rng.randint(1, 3)),
+                                int(np.prod(RESNET_IMAGE))), dtype=np.uint8)
+
+
+def post_json(port, body, path="/predict"):
+    """(status, JSON body, headers, seconds) of one POST."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        return resp.status, out, dict(resp.getheaders()), \
+            time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def check_answers(tag, records, twins):
+    """Every 200 answer against its twin's ``output`` (CPU, plain
+    path) on the same rows, to kernel_tols (rtol 2e-4, atol 2e-5).
+    ``records``: (tenant, version, rows, output); ``twins``: {(tenant,
+    version): CPU model}. Returns the largest absolute error."""
+    worst = 0.0
+    for key, twin in twins.items():
+        mine = [r for r in records if (r[0], r[1]) == key]
+        if not mine:
+            continue
+        x = fleet_transform(np.concatenate([r[2] for r in mine]))
+        ref = twin.output(x)
+        ref = (ref[0] if isinstance(ref, list) else ref).numpy()
+        got = np.concatenate([r[3] for r in mine])
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5,
+                                   err_msg=f"[{tag}] {key}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    return worst
+
+
+def quantiles_ms(values):
+    return {"p50_ms": float(np.quantile(values, 0.5)) * 1e3,
+            "p99_ms": float(np.quantile(values, 0.99)) * 1e3}
+
+
+def run_fleet(torch, card, device="cuda", confs=None):
+    """[fleet] one ``ModelServer`` over three f32 tenants on the card,
+    ``max_device_models=2``: VGG-16 (``zoo.vgg16``, 32 x 32 CIFAR width)
+    as the default tenant restored from a ``CheckpointManager``, LeNet-5
+    and ResNet-50 at 224 x 224 (``zoo.resnet50``), random weights from
+    seeds. A ResNet-50 evict -> fault-in answers bitwise as before;
+    seeded concurrent traffic over all three through HTTP with one hot
+    reload of VGG-16 (step 2 of the manager) in the middle: every answer
+    against its version's CPU twin, zero 5xx, the shape counters flat
+    across the paging; an overload (128 LeNet-5 answers, then the drain
+    held) shed with the adaptive Retry-After, queue depth over the
+    drain rate; the breaker
+    opened by poisoned requests (503 circuit_open, half-open, closed);
+    then a ``ServingRouter`` over this server and a second
+    one (copies of the same weights): the rendezvous owners, and zero
+    lost requests when one server stops mid-load. Returns the launch
+    counts of the traffic. ``confs`` ({"lenet", "vgg16", "vgg16b",
+    "resnet50"}) and ``device="cpu"`` rehearse it at a small size."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.resilience.breaker import CircuitBreaker
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.serving import ModelServer, ServingRouter
+    from deeplearning4j_tpu_torch.zoo import lenet, resnet50, vgg16
+
+    tmp = tempfile.mkdtemp(prefix="dl4j_fleet_")
+    servers = []
+    router = None
+    try:
+        confs = confs or {"lenet": lenet(), "resnet50": resnet50(),
+                          "vgg16": vgg16(), "vgg16b": vgg16(seed=43)}
+        lenet_m = MultiLayerNetwork(confs["lenet"], device=device).init()
+        resnet_m = ComputationGraph(confs["resnet50"], device=device).init()
+        vgg_a = ComputationGraph(confs["vgg16"], device=device).init()
+        vgg_b = ComputationGraph(confs["vgg16b"], device=device).init()
+        mgr = CheckpointManager(f"{tmp}/vgg16", device=device)
+        vgg_a.iteration_count = 1
+        mgr.save(vgg_a)
+        twins = {("lenet", 1): cpu_twin(torch, lenet_m),
+                 ("resnet50", 1): cpu_twin(torch, resnet_m),
+                 (None, 1): cpu_twin(torch, vgg_a),
+                 (None, 2): cpu_twin(torch, vgg_b)}
+        sizes = {"lenet": lenet_m.num_params(),
+                 "resnet50": resnet_m.num_params(),
+                 "vgg16": vgg_a.num_params()}
+        breaker = CircuitBreaker(failure_threshold=3, reset_timeout=0.5,
+                                 name="predict")
+        t0 = time.perf_counter()
+        server = ModelServer(
+            checkpoint_manager=mgr, device=device, transform=fleet_transform,
+            models={"lenet": lenet_m, "resnet50": resnet_m},
+            max_device_models=2, workers=16, queue_depth=64,
+            breaker=breaker, retry_after=5.0, max_batch_size=32,
+            batch_timeout_ms=2.0)
+        servers.append(server)
+        server.start()
+        start_s = time.perf_counter() - t0
+        entry = server.model_registry.entry
+        print(f"[fleet] ModelServer over VGG-16 (default, {sizes['vgg16']} "
+              f"params, step 1 of a CheckpointManager), LeNet-5 "
+              f"({sizes['lenet']}) and ResNet-50 224x224 ({sizes['resnet50']}"
+              f"), f32, max_device_models=2, buckets "
+              f"{server.batcher.ladder.buckets}: started in {start_s:.2f} s")
+        vgg_b.iteration_count = 2
+        mgr.save(vgg_b)  # the reload's target: step 2
+
+        # ResNet-50's bucket-32 forward on the device clock (resident
+        # after start: the warm-up's LRU victim is VGG-16), and LeNet-5's
+        # solo latency with nothing else in flight
+        rng0 = np.random.RandomState(3)
+        if entry("resnet50").resident != "device":
+            raise RuntimeError("[fleet] ResNet-50 is not resident at start")
+        x32 = torch.from_numpy(fleet_transform(
+            rng0.randint(0, 256, (32, int(np.prod(RESNET_IMAGE)))))
+        ).to(device)
+        resnet_b32_ms = (graph_ms(torch, lambda: resnet_m.output(x32))
+                         if device == "cuda" else None)
+        solo_s = [post_json(server.port, {
+            "features": fleet_rows("lenet", rng0)[:1].tolist(),
+            "model": "lenet"})[3] for _ in range(16)]
+
+        # a ResNet-50 evict -> fault-in: the same kernels on the same
+        # operands, so the answers are bitwise those before the eviction
+        rng = np.random.RandomState(5)
+        probe = fleet_rows("resnet50", rng)[:1].repeat(2, axis=0)
+        probe[1] = rng.randint(0, 256, probe.shape[1])
+        code, before, _ = server.submit(probe, model="resnet50")
+        for other in (None, "lenet"):
+            code2, _, _ = server.submit(fleet_rows(other, rng), model=other)
+            if code2 != 200:
+                raise RuntimeError(f"[fleet] warm request answered {code2}")
+        if code != 200 or entry("resnet50").resident != "host":
+            raise RuntimeError("[fleet] ResNet-50 was not evicted")
+        paged_before = server.model_registry.stats()
+        t1 = time.perf_counter()
+        code, after, _ = server.submit(probe, model="resnet50")
+        fault_ms = (time.perf_counter() - t1) * 1e3
+        if code != 200 or after["output"] != before["output"]:
+            raise RuntimeError("[fleet] ResNet-50's answers after the "
+                               "fault-in differ from those before")
+        paged = server.model_registry.stats()
+
+        # seeded concurrent traffic over the three tenants, with the
+        # VGG-16 reload in the middle
+        snap0 = server.metrics_snapshot()["counters"]
+        dispatch.reset_launch_counts()
+        records, lat = [], {}
+        lock = threading.Lock()
+        halfway, reloaded = threading.Event(), threading.Event()
+        names = [t for t, _ in FLEET_MIX]
+        probs = [p for _, p in FLEET_MIX]
+
+        def client(i):
+            # FLEET_REQUESTS requests, and at least FLEET_AFTER_RELOAD
+            # of them sent after the reload has swapped
+            crng = np.random.RandomState(100 + i)
+            n = after = 0
+            while n < FLEET_REQUESTS or after < FLEET_AFTER_RELOAD:
+                swapped = reloaded.is_set()
+                n += 1
+                after += swapped
+                tenant = names[int(crng.choice(len(names), p=probs))]
+                x = fleet_rows(tenant, crng)
+                body = {"features": x.tolist()}
+                if tenant is not None:
+                    body["model"] = tenant
+                code, out, _, dt = post_json(server.port, body)
+                with lock:
+                    records.append((tenant, out.get("model_version"), x,
+                                    np.asarray(out.get("output"), np.float32)
+                                    if code == 200 else None, code))
+                    lat.setdefault(tenant, []).append(dt)
+                    if len(records) >= FLEET_CLIENTS * FLEET_REQUESTS // 3:
+                        halfway.set()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if not halfway.wait(timeout=300):
+            raise RuntimeError("[fleet] the traffic stalled")
+        code, reload_body = server.reload({})
+        reloaded.set()
+        if code != 200 or reload_body["version"] != 2:
+            raise RuntimeError(f"[fleet] reload answered {code}: "
+                               f"{reload_body}")
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise RuntimeError("[fleet] a client did not finish")
+        wall = time.perf_counter() - t0
+        codes = [r[4] for r in records]
+        if set(codes) != {200}:
+            raise RuntimeError(f"[fleet] non-200 answers under traffic: "
+                               f"{sorted(set(codes))}")
+        versions = sorted({r[1] for r in records if r[0] is None})
+        if versions != [1, 2]:
+            raise RuntimeError(f"[fleet] VGG-16 answered from versions "
+                               f"{versions}, not both")
+        # overload: the drain thread held in the transform, more
+        # in-process submits at once than the bound (16 + 64): the
+        # excess sheds with Retry-After = queue depth / drain rate
+        shed, ok = [], [0]
+
+        def burst(i):
+            x = fleet_rows("resnet50", np.random.RandomState(900 + i))
+            code, body, headers = server.submit(x, model="resnet50")
+            with lock:
+                if code == 503:
+                    shed.append((body["error"]["retry_after"],
+                                 int(headers["Retry-After"])))
+                elif code == 200:
+                    ok[0] += 1
+
+        def lenet_client(i):  # the recent drain: 128 LeNet-5 answers
+            prng = np.random.RandomState(700 + i)
+            for _ in range(8):
+                server.submit(fleet_rows("lenet", prng), model="lenet")
+
+        primers = [threading.Thread(target=lenet_client, args=(i,))
+                   for i in range(16)]
+        for t in primers:
+            t.start()
+        for t in primers:
+            t.join(timeout=300)
+        bound = server.workers + server.queue_depth
+        FLEET_GATE.clear()
+        bursts = [threading.Thread(target=burst, args=(i,))
+                  for i in range(FLEET_OVERLOAD)]
+        try:
+            for t in bursts:
+                t.start()
+            for _ in range(3000):
+                with lock:
+                    if len(shed) >= FLEET_OVERLOAD - bound:
+                        break
+                time.sleep(0.01)
+            # nothing completes while the drain is held: the queue and
+            # the drain rate stand still, so every shed saw this value
+            held_queue = server._queue.qsize()
+            held_rate = server.metrics.drain_rate()
+            expect = server.retry_after_value()
+        finally:
+            FLEET_GATE.set()
+        for t in bursts:
+            t.join(timeout=600)
+        retry = [s[0] for s in shed]
+        if (ok[0] != bound or len(shed) != FLEET_OVERLOAD - bound
+                or not RETRY_LO <= expect < server.retry_after
+                or any(r != round(expect, 3) for r in retry)
+                or any(h != max(1, int(np.ceil(expect))) for _, h in shed)):
+            raise RuntimeError(f"[fleet] overload: {ok[0]} ok, "
+                               f"{len(shed)} shed, retry_after {shed[:8]}, "
+                               f"queue {held_queue}, rate {held_rate}")
+
+        snap1 = server.metrics_snapshot()
+        c1 = snap1["counters"]
+        n_vgg_buckets = len(server.batcher.ladder.buckets)
+        if (c1["post_warmup_compiles_total"] != 0
+                or c1["xla_compiles_total"]
+                != snap0["xla_compiles_total"] + n_vgg_buckets):
+            raise RuntimeError(f"[fleet] the shape counters moved under "
+                               f"paging: {snap0} -> {c1}")
+        err = check_answers("fleet", [r for r in records], twins)
+
+        # the breaker: poisoned requests trip it, a good one closes it
+        poison = np.full((1, 784), -1.0, np.float32)
+        for _ in range(3):
+            code, _, _, _ = post_json(server.port, {
+                "features": poison.tolist(), "model": "lenet"})
+            if code != 500:
+                raise RuntimeError(f"[fleet] a poisoned request got {code}")
+        code, open_body, open_headers, _ = post_json(server.port, {
+            "features": fleet_rows("lenet", rng).tolist(), "model": "lenet"})
+        ready_code, ready = server.readiness()
+        if (code != 503 or open_body["error"]["status"] != "circuit_open"
+                or "breaker_open" not in ready.get("reasons", [])):
+            raise RuntimeError(f"[fleet] the open breaker answered {code} "
+                               f"{open_body}, readiness {ready}")
+        time.sleep(0.6)
+        code, _, _, _ = post_json(server.port, {
+            "features": fleet_rows("lenet", rng).tolist(), "model": "lenet"})
+        if code != 200 or breaker.state != "closed":
+            raise RuntimeError(f"[fleet] the breaker did not close: {code}, "
+                               f"{breaker.state}")
+
+        # a router over this server and a second one: copies of the
+        # same weights (VGG-16 at version 2, as this server serves now)
+        second = ModelServer(
+            vgg_b.copy(), device=device, transform=fleet_transform,
+            models={"lenet": lenet_m.copy(), "resnet50": resnet_m.copy()},
+            max_device_models=2, workers=16, queue_depth=64,
+            max_batch_size=32, batch_timeout_ms=2.0).start()
+        servers.append(second)
+        router = ServingRouter([f"127.0.0.1:{s.port}" for s in servers],
+                               health_interval=0.1).start()
+        owners = {str(n): router.candidates(n or "")[0].address
+                  for n in ("", "lenet", "resnet50")}
+        victim_port = router.candidates("lenet")[0].port
+        victim = next(s for s in servers if s.port == victim_port)
+        routed = []
+        third = threading.Event()
+
+        def router_client(i):
+            crng = np.random.RandomState(500 + i)
+            for _ in range(FLEET_ROUTER_REQUESTS):
+                tenant = names[int(crng.choice(len(names),
+                                               p=(0.5, 0.35, 0.15)))]
+                x = fleet_rows(tenant, crng)
+                body = {"features": x.tolist()}
+                if tenant is not None:
+                    body["model"] = tenant
+                code, out, _, _ = post_json(router.port, body)
+                with lock:
+                    routed.append((tenant, 2 if tenant is None else 1, x,
+                                   np.asarray(out.get("output"), np.float32)
+                                   if code == 200 else None, code))
+                    if len(routed) >= (FLEET_ROUTER_CLIENTS
+                                       * FLEET_ROUTER_REQUESTS // 3):
+                        third.set()
+
+        rthreads = [threading.Thread(target=router_client, args=(i,))
+                    for i in range(FLEET_ROUTER_CLIENTS)]
+        for t in rthreads:
+            t.start()
+        if not third.wait(timeout=300):
+            raise RuntimeError("[fleet] the routed traffic stalled")
+        victim.stop(drain_timeout=10.0)
+        for t in rthreads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise RuntimeError("[fleet] a routed client did not finish")
+        launches = dispatch.launch_counts()
+        lost = sum(1 for r in routed if r[4] != 200)
+        if lost:
+            raise RuntimeError(f"[fleet] {lost} routed requests lost")
+        err = max(err, check_answers("fleet-router", routed, twins))
+        for k in ("conv_block", "matmul_block"):
+            if device == "cuda" and launches[k] <= 0:
+                raise RuntimeError(f"[fleet] the traffic launched no {k}")
+        rsnap = router.metrics_snapshot()
+        per_tenant = {str(t or "vgg16"): {
+            **quantiles_ms(v), "requests": len(v)} for t, v in lat.items()}
+        res = {
+            "requests": len(records), "requests_per_s": len(records) / wall,
+            "resnet50_bucket32_device_ms": resnet_b32_ms,
+            "lenet_solo_p50_ms": float(np.median(solo_s)) * 1e3,
+            "per_tenant": per_tenant,
+            "max_abs_err_vs_twin": err,
+            "resnet50_fault_in_request_ms": fault_ms,
+            "pagein_ms_max_at_probe": paged["weight_pagein_ms"]["max"],
+            "pageout_ms_max_at_probe": paged["weight_pageout_ms"]["max"],
+            "bytes": {t: entry(t).nbytes
+                      for t in server.model_registry.names()},
+            "pagein_ms": snap1["paging"]["weight_pagein_ms"],
+            "pageout_ms": snap1["paging"]["weight_pageout_ms"],
+            "bytes_paged_in": snap1["paging"]["bytes_paged_in"],
+            "bytes_paged_out": snap1["paging"]["bytes_paged_out"],
+            "pageins": snap1["paging"]["weight_pagein_total"],
+            "evictions": snap1["paging"]["weight_evict_total"],
+            "pageins_before_probe": paged_before["weight_pagein_total"],
+            "xla_compiles_total": c1["xla_compiles_total"],
+            "post_warmup_compiles_total": c1["post_warmup_compiles_total"],
+            "reload_ms": reload_body["reload_ms"],
+            "breaker_rejected_total": server.metrics.get(
+                "breaker_rejected_total"),
+            "overload": {"ok": ok[0], "shed": len(shed),
+                         "retry_after_s": expect,
+                         "retry_after_header": shed[0][1],
+                         "queue": held_queue, "drain_rate_per_s": held_rate,
+                         "cap_s": server.retry_after},
+            "router": {"owners": owners, "victim": victim_port,
+                       "requests": len(routed), "lost": lost,
+                       "retries": rsnap["router_retries_total"],
+                       "forwarded": {b["address"]: b["forwarded"]
+                                     for b in rsnap["backends"]}},
+            "launches": launches,
+        }
+        print(f"[fleet] {json.dumps(res)} card={card}")
+        return launches
+    finally:
+        if router is not None:
+            router.stop()
+        for s in servers:
+            if not s._draining:
+                s.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+_AOT_CHILD = r"""
+import json, sys, time
+t_spawn, work, device = float(sys.argv[1]), sys.argv[2], sys.argv[3]
+import numpy as np
+import chip_smoke as cs
+cs.RESNET_IMAGE = tuple(json.loads(sys.argv[4]))  # the parent's
+from deeplearning4j_tpu_torch.compile.persistent import cache_stats
+from deeplearning4j_tpu_torch.ops import _build, dispatch
+from deeplearning4j_tpu_torch.resilience.checkpoint import CheckpointManager
+from deeplearning4j_tpu_torch.serving import ModelServer
+
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+probes = dict(np.load(work + "/probes.npz"))
+servers, out, res = [], {}, {"servers": {}}
+res["imports_s"] = time.time() - t_spawn
+for tag in ("lenet", "resnet50", "lenet-corrupt"):
+    t0 = time.time()
+    mgr = CheckpointManager(f"{work}/{tag}", device=device)
+    s = ModelServer(checkpoint_manager=mgr, device=device, aot=True,
+                    transform=cs.fleet_transform)
+    t1 = time.time()
+    s.start()
+    servers.append(s)
+    if tag == "resnet50":
+        res["boot_to_ready_s"] = time.time() - t_spawn
+    x = probes[tag.split("-")[0]]
+    code, body, _ = s.submit(x)
+    assert code == 200, body
+    out[tag] = np.asarray(body["output"], np.float32)
+    reg = s.metrics.registry
+    res["servers"][tag] = {
+        "aot_buckets": s._aot_buckets,
+        "aot_fallback_total": reg.get("aot_fallback_total").value,
+        "xla_compiles_total": s.metrics.get("xla_compiles_total"),
+        "compile_cache_hits_total": reg.get(
+            "compile_cache_hits_total").value,
+        "compile_cache_misses_total": reg.get(
+            "compile_cache_misses_total").value,
+        "restore_s": t1 - t0, "start_s": time.time() - t1}
+res["build_seconds"] = _build.build_seconds
+res["loaded_path"] = str(_build.loaded_path)
+res["cache_stats"] = cache_stats()
+res["launches"] = dispatch.launch_counts()
+for s in servers:
+    s.stop()
+np.savez(work + "/child.npz", **{k.replace("-", "_"): v
+                                 for k, v in out.items()})
+print("[aot-child] " + json.dumps(res))
+"""
+
+
+def run_aot_restart(torch, card, build_s, device="cuda", confs=None):
+    """[aot-restart] LeNet-5 and ResNet-50 (224 x 224, f32) saved through
+    ``CheckpointManager``s with a serving bundle (the built kernel
+    library and one shape record a bucket); a fresh process with
+    ``DL4J_TPU_COMPILE_CACHE_DIR`` set to an empty temporary directory
+    starts ``ModelServer(aot=True)`` on each: zero nvcc builds
+    (``build_seconds`` None, ``compile_cache_misses_total`` 0), no first
+    forward counted at warm-up, and answers bitwise this process's on the
+    same padded bucket. Then a third server on a checkpoint whose
+    bucket-2 record is corrupt: ``aot_fallback_total`` 1, the answers
+    still bitwise. Returns the child's launch counts. ``confs``
+    ({"lenet", "resnet50"}) and ``device="cpu"`` rehearse it at a small
+    size (no library is loaded there)."""
+    import os
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.compile.aot import export_serving_bundle
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.serving import BucketLadder, pad_rows
+    from deeplearning4j_tpu_torch.zoo import lenet, resnet50
+
+    work = tempfile.mkdtemp(prefix="dl4j_aot_")
+    cache = tempfile.mkdtemp(prefix="dl4j_kcache_")
+    try:
+        rng = np.random.RandomState(17)
+        buckets = BucketLadder(None, 32).buckets
+        confs = confs or {"lenet": lenet(), "resnet50": resnet50()}
+        width = int(np.prod(RESNET_IMAGE))
+        models = {"lenet": (MultiLayerNetwork(confs["lenet"],
+                                              device=device).init(),
+                            rng.rand(4, 784).astype(np.float32), (784,)),
+                  "resnet50": (ComputationGraph(confs["resnet50"],
+                                                device=device).init(),
+                               rng.randint(0, 256, (2, width))
+                               .astype(np.float32), RESNET_IMAGE)}
+        want, t0 = {}, time.perf_counter()
+        for tag, (net, x, feature) in models.items():
+            bundle = export_serving_bundle(net, buckets,
+                                           feature_shape=feature)
+            CheckpointManager(f"{work}/{tag}", device=device).save(
+                net, artifacts=bundle)
+            if tag == "lenet":
+                bad = dict(bundle, **{"aot-output-b2": bundle[
+                    "aot-output-b2"][:20]})
+                CheckpointManager(f"{work}/lenet-corrupt",
+                                  device=device).save(net, artifacts=bad)
+            feats = fleet_transform(x)
+            bucket = next(b for b in buckets if b >= len(x))
+            out = net.output_padded(pad_rows(feats, bucket), n_valid=len(x))
+            want[tag] = (out[0] if isinstance(out, list) else out
+                         ).float().cpu().numpy()
+        save_s = time.perf_counter() - t0
+        np.savez(f"{work}/probes.npz", lenet=models["lenet"][1],
+                 resnet50=models["resnet50"][1])
+        env = dict(os.environ, DL4J_TPU_COMPILE_CACHE_DIR=cache,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t_spawn = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", _AOT_CHILD, repr(t_spawn), work, device,
+             json.dumps(RESNET_IMAGE)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=600)
+        child_s = time.time() - t_spawn
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("[aot-child] ")), None)
+        if proc.returncode != 0 or line is None:
+            raise RuntimeError(f"[aot-restart] the restarted process "
+                               f"failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res = json.loads(line[len("[aot-child] "):])
+        got = dict(np.load(f"{work}/child.npz"))
+        for tag, key in (("lenet", "lenet"), ("resnet50", "resnet50"),
+                         ("lenet-corrupt", "lenet_corrupt")):
+            if not np.array_equal(got[key], want[tag.split("-")[0]]):
+                raise RuntimeError(f"[aot-restart] {tag}'s answers differ "
+                                   "from this process's")
+        srv = res["servers"]
+        loaded = device != "cuda" or (
+            res["loaded_path"].startswith(cache)
+            and srv["lenet"]["compile_cache_hits_total"] == 1)
+        if (res["build_seconds"] is not None
+                or res["cache_stats"]["misses"] != 0
+                or any(s["compile_cache_misses_total"] for s in srv.values())
+                or not loaded or not os.path.exists(
+                    os.path.join(cache, _build.library_name()))):
+            raise RuntimeError(f"[aot-restart] the restart built kernels: "
+                               f"{res}")
+        if (srv["lenet"]["aot_buckets"] != len(buckets)
+                or srv["resnet50"]["aot_buckets"] != len(buckets)
+                or srv["lenet"]["xla_compiles_total"] != 0
+                or srv["resnet50"]["xla_compiles_total"] != 0
+                or srv["lenet"]["aot_fallback_total"] != 0):
+            raise RuntimeError(f"[aot-restart] the bundle did not install: "
+                               f"{srv}")
+        bad = srv["lenet-corrupt"]
+        if (bad["aot_fallback_total"] != 1
+                or bad["aot_buckets"] != len(buckets) - 1
+                or bad["xla_compiles_total"] != 1):
+            raise RuntimeError(f"[aot-restart] the corrupt artifact: {bad}")
+        out = {"boot_to_ready_s": res["boot_to_ready_s"],
+               "child_imports_s": res["imports_s"],
+               "child_s": child_s, "first_build_s": build_s,
+               "save_s": save_s, "nvcc_builds": res["cache_stats"]["misses"],
+               "library_hits": res["cache_stats"]["hits"],
+               "servers": srv, "launches": res["launches"]}
+        print(f"[aot-restart] {json.dumps(out)} card={card}")
+        return res["launches"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5671,7 +6299,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.load()
-    print(f"[env] kernel build: {time.perf_counter() - t0:.2f} s "
+    build_s = time.perf_counter() - t0
+    print(f"[env] kernel build: {build_s:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.2f} s;"
           f" 0 = library already built)")
     torch.backends.cudnn.allow_tf32 = False
@@ -5781,7 +6410,9 @@ def main() -> int:
     elastic_paths = []
     for tag, fn, args in (("elastic-resnet50", run_elastic_resnet50, ()),
                           ("elastic-storm", run_elastic_storm, ()),
-                          ("default-fit", run_default_fit, (tokens,))):
+                          ("default-fit", run_default_fit, (tokens,)),
+                          ("fleet", run_fleet, ()),
+                          ("aot-restart", run_aot_restart, (build_s,))):
         t0 = time.perf_counter()
         elastic_paths.append(fn(torch, card, *args))
         print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")

@@ -31,7 +31,9 @@ replay) are the sequential engine's (``nn/core.py``), and so are
 validator, the preemption check, the dispatch window), ``resume`` /
 ``fit(resume_from=)``, and dropout and drop-connect: vertex i of the topological order draws from
 ``fold_in(step key, i)``, the output vertex's pre-output with the masks
-of its ``apply``. Graph truncated BPTT, ``rnn_time_step``, AOT export,
+of its ``apply``. ``output_padded`` (the serving bucket's forward),
+``copy``, ``summary`` and the ``aot_*`` entry points are the shared
+ones of ``nn/engine_api.py``. Graph truncated BPTT, ``rnn_time_step``,
 ``pretrain`` and ``evaluate`` are not ported: each raises, naming the
 slice that brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
@@ -54,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import ShapeContext
+from deeplearning4j_tpu_torch.nn.engine_api import EngineApi
 from deeplearning4j_tpu_torch.nn.updaters import MultiLayerUpdaterDef
 from deeplearning4j_tpu_torch.observability import profiler
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
@@ -78,7 +81,7 @@ def _ds_arrays(ds):
             lmasks or None)
 
 
-class ComputationGraph:
+class ComputationGraph(EngineApi):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         """``device`` defaults to ``"cuda"`` and raises without a card;
         pass ``"cpu"`` for the plain PyTorch versions of the kernels."""
@@ -104,6 +107,10 @@ class ComputationGraph:
         # {"shards": n} while the updater state lies in ZeRO-1's flat
         # layout (set by the distributed trainer); None: parameter-shaped
         self._zero_layout = None
+        # (shape, dtype) signatures of the inference forwards run, and
+        # the input shapes of installed AOT artifacts (engine_api.py)
+        self._output_signatures: set = set()
+        self._aot_outputs: dict = {}
 
     @property
     def score_value(self) -> float:
@@ -278,10 +285,45 @@ class ComputationGraph:
         if self.params is None:
             self.init()
         with torch.inference_mode():
+            xs = self._tensors(inputs)
+            self._note_output(xs)
             values, _, _ = self._forward_values(
-                self.params, self.state, self._tensors(inputs), train=False,
+                self.params, self.state, xs, train=False,
                 fmasks=self._tensors(_as_list(features_masks)) or None)
             return [values[n] for n in self.conf.outputs]
+
+    def output_padded(self, *inputs, n_valid: int, features_masks=None
+                      ) -> List[torch.Tensor]:
+        """Inference on row-padded inputs (the serving micro-batcher's
+        bucket): ``output``'s forward, each output vertex sliced to its
+        first ``n_valid`` rows. Padding rows cannot perturb the valid
+        ones (every inference-mode vertex is row-independent); a
+        features mask covering only the ``n_valid`` rows gets all-ones
+        rows for the padding (an all-zero row would poison masked
+        reductions with 0/0), as in JAX's ``output_padded``."""
+        n = int(n_valid)
+        if not inputs:
+            raise ValueError("output_padded needs at least one input")
+        b = int(np.shape(inputs[0])[0])
+        if not 0 < n <= b:
+            raise ValueError(
+                f"n_valid must be in [1, {b}] for a {b}-row batch; got {n}")
+        fms = features_masks
+        if fms is not None:
+            padded = []
+            for m in _as_list(fms):
+                if m is not None:
+                    m = np.asarray(m.cpu() if torch.is_tensor(m) else m)
+                    if m.shape[0] == n and n < b:
+                        m = np.concatenate(
+                            [m, np.ones((b - n,) + m.shape[1:], m.dtype)])
+                    elif m.shape[0] != b:
+                        raise ValueError(
+                            f"features_mask covers {m.shape[0]} rows; "
+                            f"expected {n} (valid) or {b} (padded)")
+                padded.append(m)
+            fms = padded
+        return [o[:n] for o in self.output(*inputs, features_masks=fms)]
 
     def feed_forward(self, *inputs, train: bool = False
                      ) -> Dict[str, torch.Tensor]:
@@ -525,11 +567,6 @@ class ComputationGraph:
         raise NotImplementedError(
             "evaluate arrives with the periphery (eval/)")
 
-    def aot_export_output(self, shapes, registry=None):
-        raise NotImplementedError(
-            "AOT export arrives with the runtime subsystems slice "
-            "(compile/)")
-
     # -- parameters ---------------------------------------------------------
 
     def num_params(self) -> int:
@@ -538,35 +575,30 @@ class ComputationGraph:
         return sum(t.numel() for lp in self.params.values()
                    for t in lp.values())
 
-    def _flat_order(self) -> List[Tuple[str, str]]:
-        """(vertex, param) in the JAX engine's flat order: topological,
-        W and b first, the rest sorted."""
-        order = []
-        for name in self.layer_vertex_names:
-            pnames = list(self.params[name])
-            first = [p for p in ("W", "b") if p in pnames]
-            order += [(name, p) for p in
-                      first + sorted(p for p in pnames if p not in first)]
-        return order
+    def _param_owners(self) -> List[str]:
+        return self.layer_vertex_names
 
-    def params_flat(self) -> np.ndarray:
-        """Every parameter, raveled and concatenated on the host."""
-        if self.params is None:
-            self.init()
-        parts = [self.params[ln][pn].detach().cpu().numpy().ravel()
-                 for ln, pn in self._flat_order()]
-        return np.concatenate(parts) if parts else np.zeros((0,))
+    def _aot_shape_key(self, shapes) -> tuple:
+        """One shape -> a 1-tuple of shape tuples (the engine takes a
+        list of inputs), as JAX's ``_aot_shape_key``."""
+        shapes = tuple(shapes)
+        if shapes and not isinstance(shapes[0], (tuple, list)):
+            shapes = (shapes,)
+        return tuple(tuple(int(d) for d in s) for s in shapes)
 
-    def set_params_flat(self, vec) -> None:
-        """The inverse of ``params_flat``."""
-        vec = np.asarray(vec)
-        off = 0
-        for ln, pn in self._flat_order():
-            p = self.params[ln][pn]
-            n = p.numel()
-            self.params[ln][pn] = self._to_device(
-                vec[off:off + n].reshape(tuple(p.shape)), p.dtype)
-            off += n
-        if off != vec.size:
-            raise ValueError(f"set_params_flat: {vec.size} values for "
-                             f"{off} parameters")
+    def summary(self) -> str:
+        """The JAX engine's table: one line a vertex, its parameter
+        count, the total."""
+        lines = ["=" * 72, f"{'vertex':<20}{'type':<30}{'params':>10}",
+                 "-" * 72]
+        total = 0
+        for name in self.topo:
+            v = self.conf.vertices[name]
+            n = (sum(p.numel() for p in self.params[name].values())
+                 if self.params and name in self.params else 0)
+            total += n
+            tname = (type(v.layer_conf).__name__
+                     if isinstance(v, LayerVertex) else type(v).__name__)
+            lines.append(f"{name:<20}{tname:<30}{n:>10}")
+        lines += ["-" * 72, f"Total params: {total}", "=" * 72]
+        return "\n".join(lines)

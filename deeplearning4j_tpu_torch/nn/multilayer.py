@@ -1,8 +1,11 @@
 """``MultiLayerNetwork``: the sequential-network engine.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` for ``init``,
-``output``, ``output_padded``, ``fit``, ``fit_minibatch``, ``score``,
-truncated BPTT, ``rnn_time_step`` and ``rnn_clear_previous_state``.
+``output``, ``output_padded``, ``predict``, ``feed_forward_to_layer``,
+``summary``, ``fit``, ``fit_minibatch``, ``score``, truncated BPTT,
+``rnn_time_step`` and ``rnn_clear_previous_state``; ``params_flat`` /
+``set_params_flat``, ``copy`` and the ``aot_*`` entry points are
+``nn/engine_api.py``'s, shared with the graph engine.
 Parameters are a plain dictionary ``{layer name: {param name: tensor}}``
 on the network's device, keyed as in the JAX package (layer names are
 ``conf.layer_name(i)``), so a checkpoint's ``"<layer>/<param>"`` arrays
@@ -66,12 +69,13 @@ from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.engine_api import EngineApi
 from deeplearning4j_tpu_torch.nn.updaters import MultiLayerUpdaterDef
 from deeplearning4j_tpu_torch.observability import profiler
 from deeplearning4j_tpu_torch.ops.dispatch import resolve_device
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(EngineApi):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         """``device`` defaults to ``"cuda"`` and raises without a card;
         pass ``"cpu"`` for the plain PyTorch versions of the kernels."""
@@ -105,6 +109,10 @@ class MultiLayerNetwork:
         # rnn_time_step's carried state (the reference's stateMap)
         self._rnn_state: Dict[str, dict] = {}
         self._stream_steps = 0
+        # (shape, dtype) signatures of the inference forwards run, and
+        # the input shapes of installed AOT artifacts (engine_api.py)
+        self._output_signatures: set = set()
+        self._aot_outputs: dict = {}
 
     @property
     def score_value(self) -> float:
@@ -167,6 +175,7 @@ class MultiLayerNetwork:
         dtype = core.dtype_of(self.conf)
         with torch.inference_mode():
             xt = self._to_device(x, dtype)
+            self._note_output((xt,))
             fm = (None if features_mask is None
                   else self._to_device(features_mask, dtype))
             y, _ = core.sequential_forward(
@@ -189,6 +198,16 @@ class MultiLayerNetwork:
                 collect=True,
                 rng=random.host_key(self.conf.seed) if train else None)
         return acts
+
+    def feed_forward_to_layer(self, layer_idx: int, x,
+                              train: bool = False) -> List[torch.Tensor]:
+        """The activations of layers ``[0, layer_idx]`` (JAX
+        ``feed_forward_to_layer``): ``feed_forward`` cut there."""
+        return self.feed_forward(x, train=train)[:int(layer_idx) + 1]
+
+    def predict(self, x) -> np.ndarray:
+        """Argmax class predictions (reference ``predict``)."""
+        return self.output(x).argmax(dim=1).cpu().numpy()
 
     def output_padded(self, x, n_valid: int) -> torch.Tensor:
         """Inference on a row-padded batch: the serving micro-batcher
@@ -653,3 +672,23 @@ class MultiLayerNetwork:
             self.init()
         return sum(t.numel() for lp in self.params.values()
                    for t in lp.values())
+
+    def _param_owners(self) -> List[str]:
+        return self.layer_names
+
+    def _aot_shape_key(self, shape) -> tuple:
+        return tuple(int(d) for d in shape)
+
+    def summary(self) -> str:
+        """The JAX engine's table: one line a layer, its parameter
+        count, the total."""
+        lines = ["=" * 70, f"{'idx/name':<16}{'type':<28}{'params':>10}",
+                 "-" * 70]
+        total = 0
+        for name, layer in zip(self.layer_names, self.conf.layers):
+            n = sum(p.numel() for p in self.params[name].values()
+                    ) if self.params else 0
+            total += n
+            lines.append(f"{name:<16}{type(layer).__name__:<28}{n:>10}")
+        lines += ["-" * 70, f"Total params: {total}", "=" * 70]
+        return "\n".join(lines)

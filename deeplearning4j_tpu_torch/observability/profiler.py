@@ -352,9 +352,10 @@ def train_step_cost_model(model, ds) -> Optional[CostModel]:
 
 def output_cost_model(model, batch_shape,
                       dtype="float32") -> Optional[CostModel]:
-    """The ``CostModel`` of the model's inference forward at one padded
-    bucket shape (a serving warm-up): ``FlopCounterMode`` over the plain
-    forward on meta tensors; bytes: the parameters and the input read
+    """The ``CostModel`` of the model's inference forward (either engine;
+    a graph's first input and output) at one padded bucket shape (a
+    serving warm-up): ``FlopCounterMode`` over the plain forward on meta
+    tensors; bytes: the parameters and the input read
     once, the output written once."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -368,9 +369,14 @@ def output_cost_model(model, batch_shape,
                     dtype=core.torch_dtype(dtype), device="meta")
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad(), dispatch.plain_on_meta():
-        y, _ = core.sequential_forward(model.conf, model.layer_names,
-                                       _meta(model.params),
-                                       _meta(model.state), x)
+        if hasattr(model, "layer_vertex_names"):  # a ComputationGraph
+            values, _, _ = model._forward_values(
+                _meta(model.params), _meta(model.state), [x], train=False)
+            y = values[model.conf.outputs[0]]
+        else:
+            y, _ = core.sequential_forward(model.conf, model.layer_names,
+                                           _meta(model.params),
+                                           _meta(model.state), x)
     return CostModel(output_cost_key(model, batch_shape, dtype),
                      float(counter.get_total_flops()),
                      float(_tree_bytes(model.params) + core.nbytes(x)

@@ -6,9 +6,13 @@ interface, loaded with ``ctypes``. The build runs at the first kernel
 launch, never at import, so the package imports on a machine without
 ``nvcc`` (the CPU tests never build). Each source compiles in its own
 ``nvcc`` process, all started together, then one link step joins them.
-The library lands in ``deeplearning4j_tpu_torch/build/`` (git-ignored),
-named by a hash of the sources and flags, so a changed source rebuilds
-and an unchanged one loads at once.
+The library lands in the cache directory (``cache_dir()``: the one
+``compile.persistent.enable_persistent_cache`` chose, else
+``DL4J_TPU_COMPILE_CACHE_DIR``, else ``deeplearning4j_tpu_torch/build/``,
+git-ignored), named by a hash of the sources and flags (``_digest``), so
+a changed source rebuilds and an unchanged one loads at once. Each
+lookup tells the listeners (``add_listener``) whether it found the
+library (``"hit"``) or built it (``"miss"``, with the build's seconds).
 """
 
 from __future__ import annotations
@@ -21,13 +25,19 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
+ENV_CACHE_DIR = "DL4J_TPU_COMPILE_CACHE_DIR"
+# env values that mean "no cache directory of its own" (the default)
+DISABLED_VALUES = {"", "0", "off", "none", "disabled", "false"}
+LIB_PREFIX = "libdl4j_kernels-"
+# what the library is built for (part of an AOT bundle's fingerprint)
+ARCH_TAG = "cuda:sm_90a"
 SOURCES = ("conv_block.cu", "conv_bwd.cu", "flash_attention.cu",
            "lstm_cell.cu", "lstm_seq.cu", "matmul_block.cu")
 HEADERS = ("common.cuh",)
@@ -42,6 +52,12 @@ _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took in this process (None: loaded a cached
 # library or never built)
 build_seconds: Optional[float] = None
+# the library this process loaded (never pruned from the cache)
+loaded_path: Optional[Path] = None
+# the directory ``enable_persistent_cache`` chose (None: resolve anew)
+_cache_dir: Optional[Path] = None
+# callables ``fn(outcome, path, seconds)`` told of each lookup
+_listeners: List[Callable] = []
 
 
 def _nvcc() -> str:
@@ -75,18 +91,64 @@ def _run_all(cmds: List[List[str]]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
+def env_cache_dir() -> Optional[str]:
+    """``DL4J_TPU_COMPILE_CACHE_DIR`` when it names a directory, else
+    None (unset, or off)."""
+    env = os.environ.get(ENV_CACHE_DIR)
+    if env is None or env.strip().lower() in DISABLED_VALUES:
+        return None
+    return env
+
+
+def cache_dir() -> Path:
+    """Where the library is looked up and built: the directory set by
+    ``set_cache_dir``, else ``DL4J_TPU_COMPILE_CACHE_DIR``, else
+    ``BUILD_DIR``."""
+    if _cache_dir is not None:
+        return _cache_dir
+    env = env_cache_dir()
+    return Path(env) if env is not None else BUILD_DIR
+
+
+def set_cache_dir(directory) -> None:
+    global _cache_dir
+    _cache_dir = None if directory is None else Path(directory)
+
+
+def library_name(digest: Optional[str] = None) -> str:
+    """The library's file name for ``digest`` (default this checkout's
+    sources)."""
+    return f"{LIB_PREFIX}{digest or _digest()}.so"
+
+
+def add_listener(fn: Callable) -> None:
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def _notify(outcome: str, path: Path, seconds: float = 0.0) -> None:
+    for fn in list(_listeners):
+        fn(outcome, path, seconds)
+
+
 def build() -> Path:
-    """Compile the kernels (unless this exact build exists) and return
-    the shared library's path."""
+    """Compile the kernels (unless this exact build exists in the cache
+    directory) and return the shared library's path."""
     global build_seconds
-    lib_path = BUILD_DIR / f"libdl4j_kernels-{_digest()}.so"
+    directory = cache_dir()
+    lib_path = directory / library_name()
     if lib_path.exists():
+        try:
+            os.utime(lib_path)  # recency for bound_cache_size
+        except OSError:
+            pass
+        _notify("hit", lib_path)
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    directory.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
     tag = f"{os.getpid()}-{threading.get_ident()}"
-    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
+    objs = [directory / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
     _run_all([
         [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", str(o)]
         for s, o in zip(SOURCES, objs)
@@ -98,6 +160,7 @@ def build() -> Path:
     for o in objs:
         o.unlink()
     build_seconds = time.perf_counter() - t0
+    _notify("miss", lib_path, build_seconds)
     return lib_path
 
 
@@ -148,10 +211,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The bound kernel library, built at the first call."""
-    global _lib
+    global _lib, loaded_path
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            path = build()
+            _lib = _bind(ctypes.CDLL(str(path)))
+            loaded_path = path
         return _lib
 
 

@@ -2407,3 +2407,140 @@ def test_transformer_default_fit_captures_and_is_the_per_step_loop(cuda):
     net.fit(data)
     assert len(net._megastep_graphs) == 1 and net.iteration_count == 3
     assert _same(ref, net)
+
+
+# -- the serving tier on the card ----------------------------------------------
+
+def _tiny_resnet(cuda, seed=42):
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import resnet50
+
+    return ComputationGraph(resnet50(height=16, width=16, channels=3,
+                                     n_classes=7, depths=(1, 1),
+                                     base_width=4, cifar_stem=True,
+                                     seed=seed), device=cuda).init()
+
+
+def _to_image(feats):
+    return np.asarray(feats, np.float32).reshape(-1, 3, 16, 16)
+
+
+def test_graph_tenant_bucketed_answers_are_its_solo_answers(cuda):
+    """A ComputationGraph tenant on the card: requests coalesced into one
+    padded bucket answer bitwise as each request alone on that bucket
+    (the same kernels on the same operands; padding rows inert)."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving import ModelServer
+
+    gate = threading.Event()
+    gate.set()
+
+    def held(feats):  # holds the drain thread while the gate is shut
+        gate.wait(timeout=30)
+        return _to_image(feats)
+
+    server = ModelServer(models={"g": _tiny_resnet(cuda)}, device=cuda,
+                         transform=held, bucket_ladder=[8],
+                         batch_timeout_ms=2000).start()
+    rng = np.random.RandomState(3)
+    feats = [rng.randint(0, 256, (2, 768)).astype(np.float32)
+             for _ in range(4)]
+    try:
+        solo = [server.submit(f, model="g")[1]["output"] for f in feats]
+        results = [None] * 5
+        threads = [threading.Thread(target=lambda: results.__setitem__(
+            4, server.submit(feats[0][:1], model="g")))]
+        gate.clear()
+        threads[0].start()
+        for i, f in enumerate(feats):
+            while server.metrics.inflight < i + 1:
+                threading.Event().wait(0.005)
+            threads.append(threading.Thread(
+                target=lambda i=i, f=f: results.__setitem__(
+                    i, server.submit(f, model="g"))))
+            threads[-1].start()
+        while server.metrics.inflight < 5:
+            threading.Event().wait(0.005)
+        gate.set()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        for (code, body, _), want in zip(results, solo):
+            assert code == 200 and body["output"] == want
+        assert server.metrics.snapshot()["batch_items"].get("4") == 1
+    finally:
+        gate.set()
+        server.stop()
+
+
+def test_page_in_before_a_forward_equals_never_evicting(cuda):
+    """Paging on the card: parameters and BN state to pinned host
+    tensors and back into fresh dicts, then a forward bitwise the one
+    of a model never evicted."""
+    from deeplearning4j_tpu_torch.serving.registry import (
+        page_in_model,
+        page_out_model,
+    )
+
+    kept, paged = _tiny_resnet(cuda), _tiny_resnet(cuda)
+    x = np.random.RandomState(4).rand(8, 3, 16, 16).astype(np.float32)
+    want = kept.output(x)[0]
+    nbytes = page_out_model(paged)
+    assert nbytes > 0
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for tree in (paged.params, paged.state)
+               for d in tree.values() for t in d.values())
+    assert page_in_model(paged) == nbytes
+    assert all(t.device.type == "cuda"
+               for tree in (paged.params, paged.state)
+               for d in tree.values() for t in d.values())
+    assert torch.equal(paged.output(x)[0], want)
+    # a second cycle reuses the pinned copies
+    host = dict(paged._paged_host)
+    page_out_model(paged)
+    assert all(paged._paged_host[k] is v for k, v in host.items())
+    page_in_model(paged)
+    assert torch.equal(paged.output(x)[0], want)
+
+
+def test_library_from_a_bundle_loads_without_a_build(cuda, tmp_path):
+    """The built kernel library, carried as an AOT artifact, installed
+    into an empty cache directory by a fresh process: that process loads
+    it (no nvcc) and launches a kernel that matches its plain version."""
+    import os
+    import subprocess
+    import sys
+
+    from deeplearning4j_tpu_torch.compile import aot
+
+    art = tmp_path / "lib.aot"
+    art.write_bytes(aot.export_library())
+    cache = tmp_path / "cache"
+    code = (
+        "import sys, torch\n"
+        "from deeplearning4j_tpu_torch.compile import aot\n"
+        "from deeplearning4j_tpu_torch.ops import _build, conv_block, "
+        "conv_block_reference\n"
+        "path = aot.install_library(open(sys.argv[1], 'rb').read())\n"
+        "assert path is not None and path.parent == _build.cache_dir()\n"
+        "torch.backends.cudnn.allow_tf32 = False\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "x = torch.randn(2, 3, 8, 8, device='cuda', generator=g)\n"
+        "w = torch.randn(4, 3, 3, 3, device='cuda', generator=g)\n"
+        "b = torch.zeros(4, device='cuda')\n"
+        "y = conv_block(x, w, b, stride=(1, 1), padding=(1, 1), "
+        "activation='relu')\n"
+        "r = conv_block_reference(x, w, b, stride=(1, 1), padding=(1, 1), "
+        "activation='relu')\n"
+        "torch.testing.assert_close(y, r, rtol=1e-4, atol=1e-4)\n"
+        "assert _build.build_seconds is None\n"
+        "assert _build.loaded_path == path\n"
+        "print('ok')\n")
+    env = dict(os.environ, DL4J_TPU_COMPILE_CACHE_DIR=str(cache),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    out = subprocess.run([sys.executable, "-c", code, str(art)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"

@@ -243,3 +243,53 @@ def test_cpu_forward_launches_no_kernel():
         "matmul_block": 0, "lstm_cell": 0, "lstm_seq_fwd": 0,
         "lstm_seq_bwd": 0, "flash_attention": 0,
         "flash_attention_streamed": 0, "matmul_block_residual": 0}
+
+
+def test_fresh_process_serves_a_graph_with_the_serving_slice_without_jax(
+        tmp_path):
+    """The serving slice's modules (``compile/``, the registry, the
+    router, the shape record) import and serve a ComputationGraph tenant
+    beside a MultiLayerNetwork, with paging, in a process that loads no
+    JAX."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("compile/__init__.py", "compile/aot.py",
+                   "compile/persistent.py", "serving/compile_cache.py",
+                   "serving/registry.py", "serving/router.py",
+                   "nn/engine_api.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+    code = (
+        "import sys, numpy as np\n"
+        "from deeplearning4j_tpu_torch.compile import aot, persistent\n"
+        "from deeplearning4j_tpu_torch.nn.graph import ComputationGraph\n"
+        "from deeplearning4j_tpu_torch.nn.multilayer import "
+        "MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.serving import ModelServer, "
+        "ServingRouter\n"
+        "from deeplearning4j_tpu_torch.zoo import lenet, resnet50\n"
+        "g = ComputationGraph(resnet50(height=8, width=8, channels=1, "
+        "n_classes=3, cifar_stem=True, depths=(1, 1), base_width=4), "
+        "device='cpu').init()\n"
+        "m = MultiLayerNetwork(lenet(), device='cpu').init()\n"
+        "s = ModelServer(models={'g': g, 'm': m}, device='cpu', "
+        "max_device_models=1, compile_cache=sys.argv[1], "
+        "transform=lambda f: f.reshape(-1, 1, 8, 8) if f.shape[-1] == 64 "
+        "else f).start()\n"
+        "for name, w in (('g', 64), ('m', 784), ('g', 64)):\n"
+        "    code, body, _ = s.submit(np.ones((2, w), np.float32), "
+        "model=name)\n"
+        "    assert code == 200, body\n"
+        "assert s.model_registry.stats()['weight_pagein_total'] >= 2\n"
+        "s.stop()\n"
+        "assert aot.unpack_artifact(aot.pack_artifact({'a': 1}, b'x')) "
+        "== ({'a': 1}, b'x')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
