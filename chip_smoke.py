@@ -199,6 +199,23 @@ non-zero (nothing is caught):
    kernel-library cache: no nvcc build, answers bitwise this process's,
    boot-to-ready seconds beside this run's build, and a corrupt artifact
    counted in ``aot_fallback_total``.
+16. the continuous-learning loop, early stopping and evaluate (main
+   paths): ``[loop]`` LeNet-5 (Adam, batch 256) under a
+   ``ContinualTrainer`` publishing every 8 steps with the serving bundle,
+   a ``ModelServer`` on its store, a ``Promoter`` and 4 HTTP clients:
+   A a good candidate shadowed, canaried, promoted and sealed (ms from
+   publish to each state, agreement, p99 delta, answers against a CPU
+   twin); B a byte-flipped candidate quarantined; C a candidate with
+   rolled classes rejected; D a regression bomb promoted and rolled back
+   once the clients' pixel (0, 0) turns hot (no new shape, no 5xx, no
+   request lost, answers bitwise the pre-bomb version's); E a promoter
+   killed after journaling ``canarying``, recovered forward by a fresh
+   one; F a trainer resumed from the store publishing bitwise an
+   uninterrupted trainer's parameters. ``[earlystop]``
+   ``EarlyStoppingTrainer`` on LeNet-5 (best score against its CPU
+   twin, the best model's accuracy); ``[evaluate]``
+   ``ComputationGraph.evaluate`` and ``ROCMultiClass`` of VGG-16 at
+   batch 128 against its CPU twin.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -6280,6 +6297,706 @@ def run_aot_restart(torch, card, build_s, device="cuda", confs=None):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+# --- the continuous-learning loop, early stopping and evaluate ----------
+
+LOOP_PUBLISH = 8           # optimizer steps between publishes
+LOOP_BUCKETS = (1, 8, 32)  # the serving ladder and the AOT bundle's
+LOOP_CLIENTS = 4
+LOOP_POOL = 512            # held-out rows the clients draw from
+LOOP_HOT = 255.0           # the shift: pixel (0, 0) sent raw, unscaled
+LOOP_BOMB_LOGIT = 40.0     # the bomb's output weights, +-
+LOOP_MIN_AGREEMENT = 0.8  # step 8 vs 16 agree on 0.94 of the pool (CPU)
+LOOP_SHADOW_REQUESTS = 32
+LOOP_WAIT_S = 180.0
+EARLYSTOP_BATCHES = 8      # minibatches of 256 an epoch
+EARLYSTOP_HOLDOUT = 4
+EARLYSTOP_MAX_EPOCHS = 6
+EARLYSTOP_PATIENCE = 2
+EVAL_BATCH = 128           # VGG-16's (bench.py:480)
+EVAL_BATCHES = 2
+TWIN_RTOL, TWIN_ATOL = 2e-4, 2e-5  # [fleet]'s twin tolerance
+
+
+def wait_for(cond, what, timeout=None, every=0.01, detail=None):
+    """Poll ``cond`` until true; raise naming ``what`` (and ``detail()``)
+    at the deadline (``timeout`` seconds, default LOOP_WAIT_S)."""
+    timeout = LOOP_WAIT_S if timeout is None else timeout
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out after {timeout:.0f} s waiting "
+                               f"for {what}"
+                               + (f": {detail()}" if detail else ""))
+        time.sleep(every)
+
+
+def loop_pool(seed=0):
+    """LOOP_POOL held-out synthetic MNIST rows (``datasets/mnist.py``,
+    the test split), pixel (0, 0) set to 0."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        x = next(iter(MnistDataSetIterator(
+            LOOP_POOL, train=False, allow_synthetic=True,
+            num_examples=LOOP_POOL, seed=seed))).features.copy()
+    x[:, 0] = 0.0
+    return x
+
+
+def hot(rows):
+    """``rows`` with pixel (0, 0) at LOOP_HOT."""
+    out = np.array(rows, np.float32)
+    out[:, 0] = LOOP_HOT
+    return out
+
+
+class LoopClients:
+    """LOOP_CLIENTS HTTP clients, each sending 1-4 seeded rows of the pool
+    a request (``shift`` set: with pixel (0, 0) hot; ``pause`` set:
+    none) until stopped.
+    ``records``: (wall start, seconds, status or None when the request
+    was lost, model_version, rows, output, shifted)."""
+
+    def __init__(self, port, pool):
+        self.port, self.pool = port, pool
+        self.shift = threading.Event()
+        self.pause = threading.Event()
+        self._stop = threading.Event()
+        self.lock = threading.Lock()
+        self.records = []
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         daemon=True)
+                        for i in range(LOOP_CLIENTS)]
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _run(self, i):
+        rng = np.random.RandomState(300 + i)
+        while not self._stop.is_set():
+            if self.pause.is_set():
+                time.sleep(0.01)
+                continue
+            x = self.pool[rng.randint(0, len(self.pool),
+                                      rng.randint(1, 5))]
+            shifted = self.shift.is_set()
+            if shifted:
+                x = hot(x)
+            t0 = time.time()
+            try:
+                code, body, _, dt = post_json(self.port,
+                                              {"features": x.tolist()})
+            except OSError:
+                code, body, dt = None, {}, time.time() - t0
+            out = (np.asarray(body["output"], np.float32) if code == 200
+                   else None)
+            with self.lock:
+                self.records.append((t0, dt, code, body.get("model_version"),
+                                     x, out, shifted))
+
+    def count(self):
+        with self.lock:
+            return len(self.records)
+
+    def wait(self, n, what):
+        """Until ``n`` more requests are answered."""
+        base = self.count()
+        wait_for(lambda: self.count() >= base + n, what)
+
+    def stop(self):
+        self._stop.set()
+        for t in self.threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                raise RuntimeError("[loop] a client did not stop")
+
+
+def journal_times(journal, since):
+    """{state or "sealed": wall seconds} of the first transition into
+    each state journaled after ``since``."""
+    out = {}
+    for h in journal.read()["history"]:
+        if h["at"] < since:
+            continue
+        key = ("sealed" if h["state"] == "promoted" and not h.get("probation")
+               else h["state"])
+        out.setdefault(key, h["at"])
+    return out
+
+
+def regression_bomb(torch, live, pool):
+    """A copy of ``live`` (LeNet-5) that answers every ``pool`` row
+    bitwise as ``live`` does and diverges once pixel (0, 0) is hot.
+
+    A conv weight multiplies every position of its input, so no conv1
+    tap sees pixel (0, 0) alone; the last pool's position-(0, 0)
+    features are the only ones the pixel reaches. The dense unit that is
+    most surely dead (relu 0) on every pool row is rewired into a
+    detector of those features' shift, thresholded halfway between the
+    pool's largest projection and the hot pool's smallest, with output
+    weights +-LOOP_BOMB_LOGIT: on the pool the unit stays exactly 0 and
+    adds exact zeros to the logits. Returns (bomb, unit, agreement with
+    ``live`` on the hot pool)."""
+    dense, out_layer = live.layer_names[4], live.layer_names[5]
+    acts = live.feed_forward(pool)
+    ahot = live.feed_forward(hot(pool))
+    flat = acts[3].reshape(len(pool), -1)
+    pre = flat @ live.params[dense]["W"] + live.params[dense]["b"]
+    worst = pre.max(dim=0).values
+    unit = int(worst.argmin())
+    if float(worst[unit]) >= -1e-3:
+        raise RuntimeError("[loop] no dense unit is dead on the pool")
+    f0, f1 = acts[3][:, :, 0, 0], ahot[3][:, :, 0, 0]
+    w = (f1 - f0).mean(dim=0)
+    p0, p1 = f0 @ w, f1 @ w
+    top, low = float(p0.max()), float(p1.min())
+    if not low > top:
+        raise RuntimeError(f"[loop] the hot corner does not separate: "
+                           f"{low} <= {top}")
+    gain = 2.0 / (low - top)
+    bomb = live.copy()
+    bomb.iteration_count = live.iteration_count
+    wd = bomb.params[dense]["W"]
+    wd[:, unit] = 0.0
+    channels = acts[3].shape[1]
+    wd[torch.arange(channels, device=wd.device) * (flat.shape[1] // channels),
+       unit] = gain * w
+    bomb.params[dense]["b"][unit] = -gain * (top + low) / 2.0
+    sign = torch.ones(bomb.params[out_layer]["W"].shape[1],
+                      device=wd.device)
+    sign[1::2] = -1.0
+    bomb.params[out_layer]["W"][unit] = LOOP_BOMB_LOGIT * sign
+    if not torch.equal(bomb.output(pool), live.output(pool)):
+        raise RuntimeError("[loop] the bomb changes answers on the pool")
+    agree = float((bomb.output(hot(pool)).argmax(1)
+                   == live.output(hot(pool)).argmax(1)).float().mean())
+    return bomb, unit, agree
+
+
+def run_loop(torch, card, device="cuda", conf=None):
+    """[loop] the continuous-learning loop on LeNet-5 (Adam, batch 256 as
+    bench.py:239, seeded synthetic MNIST) under live HTTP traffic: a
+    ``ContinualTrainer`` publishing every 8 steps with the serving bundle
+    of buckets 1, 8, 32; a ``ModelServer`` on its ``CheckpointManager``;
+    a ``Promoter`` with its journal; LOOP_CLIENTS clients sending held-out
+    rows whose pixel (0, 0) is 0. Stages: A a good candidate (step 16)
+    shadowed, canaried, promoted, sealed, its answers against a CPU twin;
+    B a byte-flipped candidate quarantined; C a candidate with its output
+    classes rolled rejected at the shadow gates; D ``regression_bomb``
+    promoted, the clients' pixel (0, 0) turned hot, the promotion rolled
+    back (no new shape, no 5xx, no request lost, the answers bitwise the
+    pre-bomb version's); E ``fail_after_journal="canarying"`` and a fresh
+    promoter's ``recover()`` rolling forward; F a second trainer resumed
+    from the store, its next publish bitwise an uninterrupted trainer's.
+    Returns the launch counts of the phase. ``conf`` and ``device="cpu"``
+    rehearse it (without the bundle: no library there)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.loop import (
+        ContinualTrainer,
+        Promoter,
+        PromotionGates,
+        PromotionJournal,
+        SimulatedKill,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    conf = conf or lenet()
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=LENET_TRAIN_BATCH * 5 * LOOP_PUBLISH))
+    pool = loop_pool()
+    tmp = tempfile.mkdtemp(prefix="dl4j_loop_")
+    server = clients = pr = None
+    try:
+        dispatch.reset_launch_counts()
+        mgr = CheckpointManager(f"{tmp}/ckpt", keep_last=10, device=device)
+        journal = PromotionJournal(f"{tmp}/journal.json")
+        model = MultiLayerNetwork(conf, device=device).init()
+        ct = ContinualTrainer(model, mgr, publish_every=LOOP_PUBLISH,
+                              aot_buckets=list(LOOP_BUCKETS), journal=journal)
+
+        def train():
+            """The next LOOP_PUBLISH minibatches, published at their end."""
+            n = model.iteration_count
+            t0 = time.perf_counter()
+            ct.run(batches[n:n + LOOP_PUBLISH])
+            return ct.last_published, time.perf_counter() - t0
+
+        def until(cond, what):
+            """``wait_for`` showing the journal and the promoter."""
+            def detail():
+                doc = {k: v for k, v in journal.read().items()
+                       if k != "history"}
+                return json.dumps({"journal": doc, "promoter": pr.snapshot()
+                                   if pr is not None else None},
+                                  default=str)
+            wait_for(cond, what, detail=detail)
+
+        boot, boot_s = train()
+        t0 = time.perf_counter()
+        server = ModelServer(
+            checkpoint_manager=mgr, device=device, workers=8, queue_depth=64,
+            bucket_ladder=list(LOOP_BUCKETS), batch_timeout_ms=2.0).start()
+        start_s = time.perf_counter() - t0
+        installed = []  # every scorer the promoter installs, in order
+        set_shadow = server.set_shadow
+
+        def record_shadow(scorer):
+            if scorer is not None:
+                installed.append(scorer)
+            set_shadow(scorer)
+
+        server.set_shadow = record_shadow
+        m = server.metrics.get
+        post_warmup0, compiles0 = (m("post_warmup_compiles_total"),
+                                   m("xla_compiles_total"))
+        clients = LoopClients(server.port, pool).start()
+        t_base = time.time()
+        clients.wait(64, "the baseline traffic")
+        # no latency gate (JAX's default): the shadow forward runs just
+        # after the responses, while the handler threads parse the next
+        # requests, so its host clock carries their interpreter-lock
+        # contention (PERF.md §6); the delta is printed
+        gates = PromotionGates(
+            min_shadow_requests=LOOP_SHADOW_REQUESTS,
+            min_agreement=LOOP_MIN_AGREEMENT, max_shadow_errors=0,
+            probation_requests=LOOP_SHADOW_REQUESTS)
+        pr = Promoter(server, mgr, journal, gates=gates, seed=1337)
+        if pr.recover() != "idle":
+            raise RuntimeError("[loop] a fresh journal did not recover idle")
+        res = {"boot_step": boot.step, "boot_train_publish_s": boot_s,
+               "server_start_s": start_s,
+               "aot_buckets_at_start": server._aot_buckets}
+
+        # A: a good candidate, shadow -> canary -> promoted -> sealed
+        pr.run(interval=0.02)
+        t_train = time.time()
+        info_a, train_s = train()
+        t_pub = time.time()
+        until(lambda: (journal.read()["promoted_step"] == info_a.step
+                       and not journal.read()["probation"]),
+              "stage A's promotion to seal")
+        times = journal_times(journal, t_pub)
+        cand, prob = installed[0].snapshot(), installed[1].snapshot()
+        t_seal = times["sealed"]
+        v_a = server.model_version
+        clients.wait(64, "traffic on the sealed version")
+        # the candidate's forward on 8 rows with the handler threads idle
+        # (clients paused), beside its ms in the post-response window
+        clients.pause.set()
+        time.sleep(0.2)
+        idle = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            installed[0]._forward(pool[:8])
+            idle.append((time.perf_counter() - t0) * 1e3)
+        clients.pause.clear()
+        recs = list(clients.records)
+
+        def p50_ms(lo, hi):
+            """The p50 latency of the requests sent in [lo, hi)."""
+            s = [r[1] for r in recs if lo <= r[0] < hi and r[2] == 200]
+            return float(np.median(s)) * 1e3 if s else None
+
+        twins = {1: mgr.restore(boot, load_updater=False, device="cpu"),
+                 v_a: mgr.restore(info_a, load_updater=False, device="cpu")}
+        err = 0.0
+        for version, twin in twins.items():
+            mine = [r for r in recs if r[3] == version and r[2] == 200]
+            got = np.concatenate([r[5] for r in mine])
+            ref = twin.output(np.concatenate([r[4] for r in mine])).numpy()
+            np.testing.assert_allclose(got, ref, rtol=TWIN_RTOL,
+                                       atol=TWIN_ATOL,
+                                       err_msg=f"[loop] version {version}")
+            err = max(err, float(np.abs(got - ref).max()))
+        res["A"] = {
+            "step": info_a.step, "train_and_publish_s": train_s,
+            "ms_from_publish": {k: (v - t_pub) * 1e3
+                                for k, v in times.items()},
+            "shadow_agreement": cand["agreement"],
+            "shadow_mirrored": cand["shadowed"],
+            "shadow_p99_delta_ms": cand["p99_delta_ms"],
+            "shadow_candidate_p99_ms": cand["candidate_p99_ms"],
+            "shadow_live_p99_ms": cand["live_p99_ms"],
+            "shadow_candidate_p50_ms": cand["candidate_p50_ms"],
+            "shadow_live_p50_ms": cand["live_p50_ms"],
+            "candidate_idle_p50_ms": float(np.median(idle)),
+            "probation_agreement": prob["agreement"],
+            "probation_shadow_p50_ms": prob["candidate_p50_ms"],
+            "probation_live_p50_ms": prob["live_p50_ms"],
+            "p50_ms_no_shadow": p50_ms(t_base, t_train),
+            "p50_ms_training": p50_ms(t_train, t_pub),
+            "p50_ms_shadowing": p50_ms(times["shadowing"],
+                                       times["canarying"]),
+            "p50_ms_sealed": p50_ms(t_seal, float("inf")),
+            "twin_max_abs_err": err, "version": v_a}
+
+        # B: a byte-flipped candidate is quarantined
+        pr.stop()
+        info_b, _ = train()
+        path = mgr.directory / info_b.file
+        raw = bytearray(path.read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        path.write_bytes(bytes(raw))
+        t_pub = time.time()
+        pr.run(interval=0.02)
+        until(lambda: info_b.step in journal.read()["quarantined_steps"],
+              "stage B's quarantine")
+        clients.wait(32, "traffic after the quarantine")
+        if server.model_version != v_a or server._watched_step != info_a.step:
+            raise RuntimeError("[loop] the quarantine moved the live version")
+        res["B"] = {"step": info_b.step, "ms_to_quarantine": (
+            journal_times(journal, t_pub)["quarantined"] - t_pub) * 1e3}
+
+        # C: the live weights with the output classes rolled by one
+        pr.stop()
+        rolled = mgr.restore(info_a, load_updater=False, device=device)
+        last = rolled.layer_names[-1]
+        rolled.params[last] = {
+            "W": torch.roll(rolled.params[last]["W"], 1, dims=1),
+            "b": torch.roll(rolled.params[last]["b"], 1, dims=0)}
+        rolled.iteration_count = info_b.step + 1
+        info_c = mgr.save(rolled)
+        n_installed = len(installed)
+        t_pub = time.time()
+        pr.run(interval=0.02)
+        until(lambda: info_c.step in journal.read()["rejected_steps"],
+              "stage C's rejection")
+        if server.model_version != v_a:
+            raise RuntimeError("[loop] the rejected candidate took traffic")
+        res["C"] = {"step": info_c.step,
+                    "shadow_agreement": installed[n_installed].snapshot()[
+                        "agreement"],
+                    "reason": journal.read()["reason"],
+                    "ms_to_reject": (journal_times(journal, t_pub)[
+                        "rolled_back"] - t_pub) * 1e3}
+
+        # D: the regression bomb, promoted, then the shift goes live
+        pr.stop()
+        live = mgr.restore(info_a, load_updater=False, device=device)
+        bomb, unit, hot_agree = regression_bomb(torch, live, pool)
+        bomb.iteration_count = info_c.step + 1
+        info_d = mgr.save(bomb)
+        probe = np.concatenate([pool[:4], hot(pool[4:8])])
+        before = server.submit(probe)[1]["output"]
+        pr.gates = PromotionGates(
+            min_shadow_requests=LOOP_SHADOW_REQUESTS,
+            min_agreement=LOOP_MIN_AGREEMENT, max_shadow_errors=0,
+            probation_requests=10 ** 9,  # only the shift ends probation
+            probation_min_agreement=LOOP_MIN_AGREEMENT)
+        n_records = clients.count()
+        t_pub = time.time()
+        pr.run(interval=0.02)
+        until(lambda: (journal.read()["promoted_step"] == info_d.step
+                       and journal.read()["probation"]),
+              "stage D's promotion")
+        # the promotion's reload warmed the bomb's buckets; from here on
+        # no shape may be new
+        compiles, post_warmup = (m("xla_compiles_total"),
+                                 m("post_warmup_compiles_total"))
+        clients.wait(32, "traffic on the promoted bomb")
+        t_shift = time.time()
+        clients.shift.set()
+        until(lambda: info_d.step in journal.read()["rejected_steps"],
+              "stage D's rollback")
+        clients.wait(32, "shifted traffic after the rollback")
+        clients.shift.clear()
+        clients.wait(32, "traffic after the shift")
+        after = server.submit(probe)[1]["output"]
+        times = journal_times(journal, t_pub)
+        lost = [r for r in clients.records[n_records:] if r[2] != 200]
+        if (after != before or lost
+                or m("xla_compiles_total") != compiles
+                or m("post_warmup_compiles_total") != post_warmup
+                or server.model_version != v_a
+                or journal.read()["promoted_step"] != info_a.step):
+            raise RuntimeError(
+                f"[loop] the rollback: answers bitwise {after == before}, "
+                f"{len(lost)} lost or non-200, compiles {compiles} -> "
+                f"{m('xla_compiles_total')}, post-warmup {post_warmup} -> "
+                f"{m('post_warmup_compiles_total')}, version "
+                f"{server.model_version} (want {v_a})")
+        snap = pr.snapshot()
+        res["D"] = {"step": info_d.step, "dead_unit": unit,
+                    "hot_pool_agreement": hot_agree,
+                    "ms_from_publish": {k: (v - t_pub) * 1e3
+                                        for k, v in times.items()},
+                    "rollback_ms_from_shift": (times["rolled_back"]
+                                               - t_shift) * 1e3,
+                    "rollback_swap_ms": snap["rollback_swap_ms"],
+                    "snapshot_pagein_ms": snap["snapshot_pagein_ms"],
+                    "reason": journal.read()["reason"],
+                    "requests": clients.count() - n_records, "lost": 0,
+                    "answers_bitwise_pre_bomb": True}
+        pr.gates = gates
+
+        # E: killed right after journaling canarying; a fresh promoter
+        # recovers and rolls forward
+        pr.stop()
+        info_e, _ = train()
+        pr.fail_after_journal = "canarying"
+        t_pub = time.time()
+        deadline = time.monotonic() + LOOP_WAIT_S
+        while True:
+            try:
+                pr.poll()
+            except SimulatedKill:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError("[loop] stage E never reached canarying")
+            time.sleep(0.02)
+        t_kill = time.perf_counter()
+        split = journal.read()["state"]
+        pr = Promoter(server, mgr, journal, gates=gates, seed=1337)
+        state = pr.recover()
+        recover_ms = (time.perf_counter() - t_kill) * 1e3
+        if (split != "canarying" or state != "promoted"
+                or journal.read()["promoted_step"] != info_e.step
+                or server._watched_step != info_e.step):
+            raise RuntimeError(f"[loop] recovery: journal {split} -> {state},"
+                               f" serving step {server._watched_step}")
+        pr.run(interval=0.02)
+        until(lambda: not journal.read()["probation"],
+              "stage E's promotion to seal")
+        res["E"] = {"step": info_e.step, "split_state": split,
+                    "recover_ms": recover_ms,
+                    "ms_publish_to_canarying": (journal_times(
+                        journal, t_pub)["canarying"] - t_pub) * 1e3,
+                    "serving_step": server._watched_step,
+                    "journal_recoveries": pr.snapshot()[
+                        "journal_recoveries"]}
+        pr.stop()
+        clients.stop()
+        statuses = [r[2] for r in clients.records]
+        if set(statuses) != {200} or m("server_error_total"):
+            raise RuntimeError(f"[loop] statuses "
+                               f"{sorted(set(statuses), key=str)}, server "
+                               f"errors {m('server_error_total')}")
+        if m("post_warmup_compiles_total") != post_warmup0:
+            raise RuntimeError("[loop] a shape escaped the warmed ladder")
+
+        # F: a second trainer resumed from the store against the
+        # uninterrupted one, over the same next minibatches
+        ct2 = ContinualTrainer(
+            MultiLayerNetwork(conf, device=device).init(),
+            CheckpointManager(f"{tmp}/ckpt", keep_last=10, device=device),
+            publish_every=LOOP_PUBLISH, journal=journal)
+        resumed = ct2.resume()
+        n = model.iteration_count
+        ct2.run(batches[n:n + LOOP_PUBLISH])
+        for ds in batches[n:n + LOOP_PUBLISH]:
+            model.fit_minibatch(ds)
+        pub = mgr.restore(ct2.last_published, device=device)
+        same = same_trees(torch, model, pub)
+        if resumed != info_e.step or not same:
+            raise RuntimeError(f"[loop] resume from step {resumed}: the next "
+                               f"publish bitwise the uninterrupted trainer's:"
+                               f" {same}")
+        res["F"] = {"resumed_step": resumed,
+                    "published_step": ct2.last_published.step,
+                    "bitwise_uninterrupted": True}
+        launches = dispatch.launch_counts()
+        res.update(requests=len(statuses), non_200=0,
+                   server_error_total=m("server_error_total"),
+                   xla_compiles_total=m("xla_compiles_total") - compiles0,
+                   post_warmup_compiles_total=m("post_warmup_compiles_total"),
+                   aot_fallback_total=getattr(server.metrics.registry.get(
+                       "aot_fallback_total"), "value", 0),
+                   journal=[(h["state"], h.get("candidate_step"),
+                             h.get("promoted_step"), h.get("probation"))
+                            for h in journal.read()["history"]],
+                   launches=launches)
+        print(f"[loop] {json.dumps(res)} card={card}")
+        return launches
+    finally:
+        if pr is not None:
+            pr.stop()
+        if clients is not None:
+            clients.stop()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_earlystop(torch, card, device="cuda", conf=None):
+    """[earlystop] ``EarlyStoppingTrainer`` on LeNet-5 (Adam, batch 256,
+    seeded synthetic MNIST): EARLYSTOP_BATCHES minibatches an epoch,
+    ``MaxEpochsTerminationCondition(6)`` and
+    ``ScoreImprovementEpochTerminationCondition(2)``, a
+    ``DataSetLossCalculator`` over EARLYSTOP_HOLDOUT held-out minibatches
+    and an ``InMemoryModelSaver``; the best model's ``evaluate`` on the
+    holdout; the calculator's best score against the same calculator on
+    the best model's CPU twin. Returns the launch counts of the phase."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        ListDataSetIterator,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        train = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True, seed=11,
+            num_examples=LENET_TRAIN_BATCH * EARLYSTOP_BATCHES))
+        holdout = list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, train=False, allow_synthetic=True, seed=12,
+            num_examples=LENET_TRAIN_BATCH * EARLYSTOP_HOLDOUT))
+    net = MultiLayerNetwork(conf or lenet(), device=device).init()
+    calc = DataSetLossCalculator(ListDataSetIterator(holdout))
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=calc,
+        epoch_terminations=[
+            MaxEpochsTerminationCondition(EARLYSTOP_MAX_EPOCHS),
+            ScoreImprovementEpochTerminationCondition(EARLYSTOP_PATIENCE)],
+        model_saver=InMemoryModelSaver())
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = EarlyStoppingTrainer(cfg, net, ListDataSetIterator(train)).fit()
+    fit_s = time.perf_counter() - t0
+    best = result.best_model
+    t1 = time.perf_counter()
+    ev = best.evaluate(ListDataSetIterator(holdout))
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    launches = dispatch.launch_counts()
+    twin_score = calc.calculate_score(cpu_twin(torch, best))
+    if not (best is not net and result.best_model_epoch >= 0
+            and abs(twin_score - result.best_model_score)
+            <= TWIN_ATOL + TWIN_RTOL * abs(twin_score)):
+        raise RuntimeError(f"[earlystop] best score {result.best_model_score}"
+                           f" against the CPU twin's {twin_score}")
+    if device == "cuda" and min(launches[k] for k in (
+            "conv_block", "conv_bwd_data", "conv_bwd_w", "matmul_block")) <= 0:
+        raise RuntimeError(f"[earlystop] a kernel did not launch: {launches}")
+    res = {"epochs": result.total_epochs,
+           "best_epoch": result.best_model_epoch,
+           "termination": [result.termination_reason,
+                           result.termination_details],
+           "scores": {str(k): v for k, v in result.score_vs_epoch.items()},
+           "best_score": result.best_model_score,
+           "twin_best_score": twin_score,
+           "ms_per_epoch": fit_s * 1e3 / result.total_epochs,
+           "best_accuracy": ev.accuracy(), "best_f1": ev.f1(),
+           "evaluate_ms": eval_ms, "steps": net.iteration_count,
+           "launches": launches}
+    print(f"[earlystop] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_evaluate(torch, card, device="cuda", conf=None):
+    """[evaluate] ``ComputationGraph.evaluate`` of VGG-16 (``zoo.vgg16``,
+    BASELINE #2, seeded random weights) over EVAL_BATCHES held-out
+    synthetic CIFAR minibatches of 128, with ``Evaluation`` and
+    ``ROCMultiClass``; the predicted classes against the CPU twin's on
+    every row whose top-2 margin clears the twin tolerance. Returns the
+    launch counts of the phase."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        CifarDataSetIterator,
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.eval import ROCMultiClass
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import vgg16
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = list(CifarDataSetIterator(
+            EVAL_BATCH, train=False, allow_synthetic=True, seed=13,
+            num_examples=EVAL_BATCH * EVAL_BATCHES))
+    graph = ComputationGraph(conf or vgg16(), device=device).init()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = graph.evaluate(ListDataSetIterator(data))
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    roc = ROCMultiClass()
+    outs = []
+    for ds in data:
+        out = graph.output(ds.features)[0]
+        roc.eval(ds.labels, out)
+        outs.append(out.float().cpu().numpy())
+    launches = dispatch.launch_counts()
+    got = np.concatenate(outs)
+    labels = np.concatenate([ds.labels for ds in data])
+    own = np.zeros((10, 10), np.int64)
+    np.add.at(own, (labels.argmax(1), got.argmax(1)), 1)
+    if not np.array_equal(ev.confusion.matrix, own):
+        raise RuntimeError("[evaluate] evaluate's confusion matrix is not "
+                           "the one of the graph's own outputs")
+    twin = cpu_twin(torch, graph)
+    ref = np.concatenate([twin.output(ds.features)[0].numpy()
+                          for ds in data])
+    np.testing.assert_allclose(got, ref, rtol=TWIN_RTOL, atol=TWIN_ATOL,
+                               err_msg="[evaluate] outputs vs the CPU twin")
+    # a row's class is held against the twin's where its top-2 margin is
+    # more than the twin tolerance either side of it
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * (TWIN_ATOL
+                                             + TWIN_RTOL * top2[:, 1])
+    if not np.array_equal(got[clear].argmax(1), ref[clear].argmax(1)):
+        raise RuntimeError("[evaluate] classes differ from the CPU twin's "
+                           "on rows with a clear margin")
+    err = float(np.abs(got - ref).max())
+    beyond_err = (top2[:, 1] - top2[:, 0]) > 2 * err
+    same_class = got.argmax(1) == ref.argmax(1)
+    twin_roc = ROCMultiClass()
+    for ds, r in zip(data, np.split(ref, EVAL_BATCHES)):
+        twin_roc.eval(ds.labels, r)
+    if device == "cuda" and min(launches[k] for k in (
+            "conv_block", "matmul_block")) <= 0:
+        raise RuntimeError(f"[evaluate] a kernel did not launch: {launches}")
+    res = {"rows": int(len(got)), "accuracy": ev.accuracy(),
+           "confusion_total": ev.confusion.total(),
+           "evaluate_ms": eval_ms,
+           "rows_under_margin": int((~clear).sum()),
+           "max_abs_err_vs_twin": err,
+           "output_range": [float(got.min()), float(got.max())],
+           "rows_margin_over_2x_err": int(beyond_err.sum()),
+           "same_class_as_twin": int(same_class.sum()),
+           "average_auc": roc.calculate_average_auc(),
+           "twin_average_auc": twin_roc.calculate_average_auc(),
+           "launches": launches}
+    print(f"[evaluate] {json.dumps(res)} card={card}")
+    return launches
+
+
+def path_launches(kernel, paths, tags=None) -> int:
+    """``kernel``'s launches summed over the main paths ``paths`` ({tag:
+    launch counts}), or over the ``tags`` among them."""
+    return sum(paths[t].get(kernel, 0) for t in (paths if tags is None
+                                                  else tags))
+
+
 def main() -> int:
     import torch
 
@@ -6405,16 +7122,20 @@ def main() -> int:
     fused_seq = run_charrnn_fused(torch, card, False, ids)
     telemetry = run_telemetry(torch, card)
     scan_paths = (lenet_cached, vgg_cached, telemetry)
-    # the elastic control plane under ResNet-50 and LeNet-5, then the
-    # default fit of the large models
-    elastic_paths = []
+    # the elastic control plane under ResNet-50 and LeNet-5, the default
+    # fit of the large models, the serving tier, then the
+    # continuous-learning loop, early stopping and evaluate
+    runtime_paths = {}
     for tag, fn, args in (("elastic-resnet50", run_elastic_resnet50, ()),
                           ("elastic-storm", run_elastic_storm, ()),
                           ("default-fit", run_default_fit, (tokens,)),
                           ("fleet", run_fleet, ()),
-                          ("aot-restart", run_aot_restart, (build_s,))):
+                          ("aot-restart", run_aot_restart, (build_s,)),
+                          ("loop", run_loop, ()),
+                          ("earlystop", run_earlystop, ()),
+                          ("evaluate", run_evaluate, ())):
         t0 = time.perf_counter()
-        elastic_paths.append(fn(torch, card, *args))
+        runtime_paths[tag] = fn(torch, card, *args)
         print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
     nlp = run_nlp(torch, card)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
@@ -6456,7 +7177,7 @@ def main() -> int:
                          + rollback[k]
                          + sum(c[k] for c in half_launches)
                          + sum(c[k] for c in scan_paths)
-                         + sum(c[k] for c in elastic_paths)),
+                         + path_launches(k, runtime_paths)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -6560,7 +7281,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (sum(c[k] for c in tx_paths)
                          + sum(c[k] for c in half_launches)
-                         + elastic_paths[-1].get(k, 0)),
+                         + path_launches(k, runtime_paths,
+                                         ["default-fit"])),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -1,11 +1,12 @@
-"""The public methods both engines share: the flat parameter view,
-``copy``, and the AOT entry points.
+"""The public methods both engines share: ``evaluate``, the flat
+parameter view, ``copy``, and the AOT entry points.
 
 Counterpart of the same-named methods of the JAX package's
 ``MultiLayerNetwork`` and ``ComputationGraph`` (JAX
 ``nn/multilayer.py:1064-1199, :1400-1433``, ``nn/graph.py:911-1055,
 :1236-1275``). An engine supplies ``_param_owners()`` (its layer names
-in the flat order) and ``_aot_shape_key(shape)``.
+in the flat order), ``_aot_shape_key(shape)`` and ``_evaluate_one(e,
+ds)``.
 
 AOT on the port (``compile/aot.py``): no program is compiled per shape,
 so an ``output`` artifact is a shape record under the model's
@@ -48,6 +49,26 @@ class EngineApi:
         self._output_signatures.add(tuple(
             (tuple(int(d) for d in t.shape), str(t.dtype))
             for t in tensors))
+
+    # -- evaluation ---------------------------------------------------------
+
+    def evaluate(self, iterator):
+        """An ``eval.Evaluation`` over ``iterator`` (DataSets or
+        MultiDataSets, or chunks of them): one ``output`` a minibatch,
+        its predictions copied to the host once (the engine's
+        ``_evaluate_one``). Resets the iterator after."""
+        from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        e = Evaluation()
+        for item in iterator:
+            batches = (item.to_datasets() if isinstance(item, ChunkedDataSet)
+                       else [item])
+            for ds in batches:
+                self._evaluate_one(e, ds)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return e
 
     # -- the flat parameter view ------------------------------------------
 

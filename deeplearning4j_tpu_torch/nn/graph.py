@@ -32,10 +32,10 @@ validator, the preemption check, the dispatch window), ``resume`` /
 ``fit(resume_from=)``, and dropout and drop-connect: vertex i of the topological order draws from
 ``fold_in(step key, i)``, the output vertex's pre-output with the masks
 of its ``apply``. ``output_padded`` (the serving bucket's forward),
-``copy``, ``summary`` and the ``aot_*`` entry points are the shared
-ones of ``nn/engine_api.py``. Graph truncated BPTT, ``rnn_time_step``,
-``pretrain`` and ``evaluate`` are not ported: each raises, naming the
-slice that brings it.
+``copy``, ``summary``, ``evaluate`` (of the first output vertex) and the
+``aot_*`` entry points are the shared ones of ``nn/engine_api.py``. Graph truncated BPTT, ``rnn_time_step``
+and ``pretrain`` are not ported: each raises, naming the slice that
+brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
@@ -563,9 +563,23 @@ class ComputationGraph(EngineApi):
             "layer-wise pretraining is not ported yet (periphery: "
             "pretrainable layers)")
 
-    def evaluate(self, iterator):
-        raise NotImplementedError(
-            "evaluate arrives with the periphery (eval/)")
+    def _evaluate_one(self, e, ds) -> None:
+        from deeplearning4j_tpu_torch.eval.evaluation import host_array
+
+        fm = (getattr(ds, "features_masks", None)
+              or getattr(ds, "features_mask", None))
+        out = self.output(*_as_list(ds.features), features_masks=fm)[0]
+        labels = host_array(_as_list(ds.labels)[0])
+        m = _as_list(getattr(ds, "labels_masks", None)
+                     or getattr(ds, "labels_mask", None))
+        mask = m[0] if m else None
+        if mask is None and labels.ndim == 3:
+            # per-timestep labels without a labels mask: fall back to
+            # the features mask (same rule as MultiLayerNetwork's);
+            # 2-d per-sequence labels must not take a [b, t] mask
+            fml = _as_list(fm)
+            mask = fml[0] if fml else None
+        e.eval(labels, out, mask=mask)
 
     # -- parameters ---------------------------------------------------------
 

@@ -3,9 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` for ``init``,
 ``output``, ``output_padded``, ``predict``, ``feed_forward_to_layer``,
 ``summary``, ``fit``, ``fit_minibatch``, ``score``, truncated BPTT,
-``rnn_time_step`` and ``rnn_clear_previous_state``; ``params_flat`` /
-``set_params_flat``, ``copy`` and the ``aot_*`` entry points are
-``nn/engine_api.py``'s, shared with the graph engine.
+``rnn_time_step`` and ``rnn_clear_previous_state``; ``evaluate``
+(``eval/``), ``params_flat`` / ``set_params_flat``, ``copy`` and the
+``aot_*`` entry points are ``nn/engine_api.py``'s, shared with the graph
+engine.
 Parameters are a plain dictionary ``{layer name: {param name: tensor}}``
 on the network's device, keyed as in the JAX package (layer names are
 ``conf.layer_name(i)``), so a checkpoint's ``"<layer>/<param>"`` arrays
@@ -208,6 +209,20 @@ class MultiLayerNetwork(EngineApi):
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions (reference ``predict``)."""
         return self.output(x).argmax(dim=1).cpu().numpy()
+
+    def _evaluate_one(self, e, ds) -> None:
+        from deeplearning4j_tpu_torch.eval.evaluation import host_array
+
+        out = self.output(ds.features,
+                          features_mask=getattr(ds, "features_mask", None))
+        labels = host_array(ds.labels)
+        m = getattr(ds, "labels_mask", None)
+        if m is None and labels.ndim == 3:
+            # per-timestep eval falls back to the features mask; 2-d
+            # (per-sequence) labels must NOT — a [b, t] mask cannot
+            # index b rows
+            m = getattr(ds, "features_mask", None)
+        e.eval(labels, out, mask=m)
 
     def output_padded(self, x, n_valid: int) -> torch.Tensor:
         """Inference on a row-padded batch: the serving micro-batcher

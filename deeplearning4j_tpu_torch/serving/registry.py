@@ -147,6 +147,25 @@ def page_in_model(model) -> int:
     return moved
 
 
+def weights_on_host(model) -> bool:
+    """True when a model of the card holds its pageable tensors on the
+    host (``page_out_model`` ran and no page-in since)."""
+    if torch.device(model.device).type == "cpu":
+        return False
+    return any(t.device.type == "cpu" for t in _leaves(model))
+
+
+def fault_in(model) -> Optional[float]:
+    """Page a paged-out model's weights back onto its device; the
+    milliseconds it took, or None when they were there (a version held
+    outside the registry: the loop's retained snapshot)."""
+    if not weights_on_host(model):
+        return None
+    t0 = time.perf_counter()
+    page_in_model(model)
+    return (time.perf_counter() - t0) * 1000.0
+
+
 class ModelEntry:
     """One tenant: current version, admission policy, paging state.
     Residency and LRU fields are guarded by the registry's lock; the
@@ -316,7 +335,8 @@ class ModelRegistry:
 
     def swap(self, entry: ModelEntry, new_version: ModelVersion) -> None:
         """Hot-reload swap for one tenant; the new weights are on the
-        device (restore and warm-up just ran them)."""
+        device (restore and warm-up just ran them; the loop's retained
+        snapshot is faulted in at its promotion, ``fault_in``)."""
         with self._lock:
             entry.current = new_version
             entry.resident = DEVICE

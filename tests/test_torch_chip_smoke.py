@@ -1,0 +1,52 @@
+"""Pieces of ``chip_smoke.py`` that run without a card: the kernel
+line's launch sums and the ``[loop]`` phase's regression bomb, on the
+CPU (LeNet-5 at full width, a few Adam steps on synthetic MNIST)."""
+
+import warnings
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.zoo import lenet
+
+
+def test_path_launches_sums_the_named_main_paths():
+    """The transformer kernels' launches come from ``[default-fit]`` by
+    name, wherever it stands among the runtime phases (the phases after
+    it launch none of them)."""
+    paths = {"default-fit": {"flash_attention": 204, "conv_block": 7},
+             "fleet": {"conv_block": 3},
+             "aot-restart": {"conv_block": 2},
+             "loop": {"conv_block": 11, "matmul_block": 5}}
+    assert cs.path_launches("flash_attention", paths, ["default-fit"]) == 204
+    assert cs.path_launches("conv_block", paths) == 23
+    assert cs.path_launches("matmul_block", paths) == 5
+    assert cs.path_launches("lstm_cell", paths) == 0
+
+
+def test_regression_bomb_is_dormant_on_the_pool_and_fires_when_hot():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        batches = list(MnistDataSetIterator(
+            cs.LENET_TRAIN_BATCH, allow_synthetic=True,
+            num_examples=cs.LENET_TRAIN_BATCH * 8))
+    live = MultiLayerNetwork(lenet(), device="cpu").init()
+    for ds in batches:
+        live.fit_minibatch(ds)
+    pool = cs.loop_pool()
+    assert pool.shape == (cs.LOOP_POOL, 784) and not pool[:, 0].any()
+    assert (cs.hot(pool)[:, 0] == cs.LOOP_HOT).all()
+    before = {k: {n: t.clone() for n, t in v.items()}
+              for k, v in live.params.items()}
+    bomb, unit, agree = cs.regression_bomb(torch, live, pool)
+    # the live model is untouched; the bomb answers the pool bitwise
+    for k, v in before.items():
+        for n, t in v.items():
+            assert torch.equal(live.params[k][n], t)
+    assert torch.equal(bomb.output(pool), live.output(pool))
+    assert bomb.feed_forward(pool)[4][:, unit].eq(0).all()
+    assert agree < cs.LOOP_MIN_AGREEMENT
+    assert bomb.feed_forward(cs.hot(pool))[4][:, unit].gt(0).all()

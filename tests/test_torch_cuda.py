@@ -2544,3 +2544,157 @@ def test_library_from_a_bundle_loads_without_a_build(cuda, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "ok"
+
+
+# -- the continuous-learning loop and evaluate on the card -----------------
+
+
+def _loop_net(cuda, seed=7):
+    """4 -> 8 tanh -> 3 softmax, Adam (the loop tests' net)."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(seed).learning_rate(0.05)
+            .updater("ADAM").list()
+            .layer(DenseLayer(n_in=4, n_out=8, activation="tanh"))
+            .layer(OutputLayer(n_out=3)).build())
+    return MultiLayerNetwork(conf, device=cuda).init()
+
+
+def _loop_rows(rng, rows=2, shifted=False):
+    x = rng.randn(rows, 4).astype(np.float32)
+    x[:, 3] = rng.randn(rows).astype(np.float32) * 8.0 if shifted else 0.0
+    return x
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_promote_then_rollback_on_the_card_adds_no_new_shape(cuda, tmp_path,
+                                                             paged):
+    """A candidate equal on today's traffic (feature 3 held at 0) but
+    divergent once it moves is promoted on the card, then rolled back in
+    probation: no new shape, no 5xx, and the answers after are bitwise
+    the pre-promotion version's. ``paged``: the tenant was paged out to
+    the host when the candidate's reload landed, so the promotion faults
+    the retained snapshot back in (its probation shadow and the rollback
+    then run on device weights)."""
+    import threading
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.loop import (
+        ContinualTrainer,
+        Promoter,
+        PromotionGates,
+        PromotionJournal,
+    )
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.serving import ModelServer
+
+    rng = np.random.RandomState(12345)
+
+    def stream(n):
+        out = []
+        for _ in range(n):
+            x = _loop_rows(rng, rows=8)
+            y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 8)]
+            out.append(DataSet(x, y))
+        return ListDataSetIterator(out)
+
+    mgr = CheckpointManager(tmp_path / "c", keep_last=10)
+    journal = PromotionJournal(tmp_path / "j.json")
+    ct = ContinualTrainer(_loop_net(cuda), mgr, publish_every=4,
+                          journal=journal)
+    ct.run(stream(4))
+    server = ModelServer(checkpoint_manager=mgr, device=cuda, workers=2,
+                         max_batch_size=4, aot=False).start()
+    try:
+        pr = Promoter(server, mgr, journal, gates=PromotionGates(
+            min_shadow_requests=3, min_agreement=0.5, probation_requests=100,
+            probation_min_agreement=0.9), seed=1337)
+        probe = _loop_rows(np.random.RandomState(77), shifted=True)
+        before = server.submit(probe)[1]["output"]
+        bomb, info = mgr.restore_latest(load_updater=False, device=cuda)
+        bomb.params["0"]["W"][3, :] = torch.where(
+            torch.arange(8, device=cuda) % 2 == 0, 40.0, -40.0)
+        bomb.iteration_count = info.step + 1
+        mgr.save(bomb)
+
+        def drive(n, shifted=False):
+            sh = server.shadow
+            base = sh.snapshot()["requests"]
+            for _ in range(n):
+                code, body, _ = server.submit(_loop_rows(rng,
+                                                         shifted=shifted))
+                assert code == 200, body
+            for _ in range(4000):
+                s = sh.snapshot()
+                if s["requests"] >= base + n and s["shadowed"] == s[
+                        "requests"]:
+                    break
+                threading.Event().wait(0.005)
+
+        assert pr.poll() == "shadowing"
+        drive(4)
+        entry = server.model_registry.entry()
+        if paged:
+            with server.model_registry._lock:
+                server.model_registry._evict(entry)
+            assert entry.current.model.params["0"]["W"].device.type == "cpu"
+        assert pr.poll() == "promoted"
+        assert (pr.snapshot_pagein_ms is not None) == paged
+        compiles = server.metrics.get("xla_compiles_total")
+        drive(6, shifted=True)
+        assert pr.poll() == "rolled_back"
+        assert server.metrics.get("xla_compiles_total") == compiles
+        assert server.metrics.get("post_warmup_compiles_total") == 0
+        assert server.metrics.get("server_error_total") == 0
+        assert journal.read()["promoted_step"] == 4
+        assert server.submit(probe)[1]["output"] == before
+    finally:
+        server.stop(drain_timeout=1)
+
+
+def test_evaluate_on_the_card_matches_the_cpu_twin(cuda, tmp_path):
+    """Both engines' ``evaluate`` on the card against their CPU twins on
+    the same minibatches: the same confusion matrix on rows whose top-2
+    margin clears f32 noise."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model,
+        write_model,
+    )
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    def cpu_twin(model):
+        path = str(tmp_path / f"{id(model)}.zip")
+        write_model(model, path)
+        return restore_model(path, device="cpu")
+
+    rng = np.random.RandomState(5)
+    net = MultiLayerNetwork(lenet(), device=cuda).init()
+    twin = cpu_twin(net)
+    x = rng.rand(256, 784).astype(np.float32)
+    out = np.sort(twin.output(x).numpy(), axis=1)
+    x = x[(out[:, -1] - out[:, -2]) > 1e-4][:192]
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, len(x))]
+    parts = [DataSet(x[i:i + 64], y[i:i + 64]) for i in range(0, len(x), 64)]
+    got, want = net.evaluate(parts), twin.evaluate(parts)
+    np.testing.assert_array_equal(got.confusion.matrix,
+                                  want.confusion.matrix)
+    assert got.stats() == want.stats()
+    graph = _tiny_resnet(cuda)
+    gtwin = cpu_twin(graph)
+    img = rng.rand(64, 3, 16, 16).astype(np.float32)
+    out = np.sort(gtwin.output(img)[0].numpy(), axis=1)
+    img = img[(out[:, -1] - out[:, -2]) > 1e-4]
+    lab = np.eye(7, dtype=np.float32)[rng.randint(0, 7, len(img))]
+    got = graph.evaluate([DataSet(img, lab)])
+    want = gtwin.evaluate([DataSet(img, lab)])
+    np.testing.assert_array_equal(got.confusion.matrix,
+                                  want.confusion.matrix)

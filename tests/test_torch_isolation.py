@@ -293,3 +293,61 @@ def test_fresh_process_serves_a_graph_with_the_serving_slice_without_jax(
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_files_cover_the_loop_eval_and_earlystopping_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("loop/__init__.py", "loop/journal.py", "loop/shadow.py",
+                   "loop/trainer.py", "loop/promoter.py", "eval/__init__.py",
+                   "eval/evaluation.py", "eval/roc.py",
+                   "earlystopping/__init__.py", "earlystopping/core.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("first", ["loop", "eval", "earlystopping"])
+def test_fresh_process_runs_the_loop_eval_and_earlystopping_without_jax(
+        first):
+    """``loop``, ``eval`` and ``earlystopping`` import in a fresh process
+    (each one first: no import cycle) without JAX; a continual trainer
+    publishes, a shadow scorer mirrors, LeNet evaluates and an
+    early-stopping fit runs on the CPU."""
+    code = (
+        "import sys, tempfile, numpy as np\n"
+        f"import deeplearning4j_tpu_torch.{first}\n"
+        "from deeplearning4j_tpu_torch.datasets import DataSet\n"
+        "from deeplearning4j_tpu_torch.earlystopping import (\n"
+        "    DataSetLossCalculator, EarlyStoppingConfiguration,\n"
+        "    EarlyStoppingTrainer, MaxEpochsTerminationCondition)\n"
+        "from deeplearning4j_tpu_torch.loop import (\n"
+        "    ContinualTrainer, PromotionJournal, ShadowScorer)\n"
+        "from deeplearning4j_tpu_torch.nn.multilayer import "
+        "MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.resilience.checkpoint import "
+        "CheckpointManager\n"
+        "from deeplearning4j_tpu_torch.zoo import lenet\n"
+        "net = MultiLayerNetwork(lenet(dense_width=8), device='cpu').init()\n"
+        "x = np.random.RandomState(0).rand(4, 784).astype(np.float32)\n"
+        "ds = DataSet(x, np.eye(10, dtype=np.float32)[[0, 1, 2, 3]])\n"
+        "d = tempfile.mkdtemp()\n"
+        "j = PromotionJournal(d + '/j.json')\n"
+        "ct = ContinualTrainer(net, CheckpointManager(d + '/c'), "
+        "publish_every=1, journal=j)\n"
+        "assert ct.run([ds]) == 1 and ct.manager.list_steps() == [1]\n"
+        "sc = ShadowScorer(net.copy())\n"
+        "sc.observe(x, net.output(x))\n"
+        "assert sc.snapshot()['agreement'] == 1.0\n"
+        "assert net.evaluate([ds]).confusion.total() == 4\n"
+        "cfg = EarlyStoppingConfiguration(DataSetLossCalculator([ds]), "
+        "[MaxEpochsTerminationCondition(2)])\n"
+        "assert EarlyStoppingTrainer(cfg, net, [ds]).fit().total_epochs "
+        "== 2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
