@@ -98,10 +98,16 @@ non-zero (nothing is caught):
 10. the NLP / embeddings slice (main paths): ``[word2vec]`` bench.py's
    Word2Vec configuration exactly (a Zipf corpus of 200,000 words over
    2,000, D 128, W 5, K 5, B 16,384) through ``Word2Vec.fit`` with
-   on-device epoch generation: words/s (best of 3 windows of 20
-   epochs), the cold rate, device ms an epoch and busy share, peak
-   memory, two fits from the seed equal bit for bit and one epoch held
-   to the CPU twin on the card's draws; ``[word2vec-host]`` one epoch of
+   on-device epoch generation, each epoch a CUDA-graph replay beside the
+   eager epoch: words/s (best of 3 windows of 20 epochs; the eager
+   route's of 2), the cold rate, the capture's seconds and launches,
+   device ms an epoch and busy share both ways, peak memory, the graph
+   route bitwise the eager one over 2 epochs, two fits from the seed
+   equal bit for bit, one epoch held to the CPU twin on the card's
+   draws, the VP-tree nearest words the flat scan's;
+   ``[nlp-periphery]`` (on ``[word2vec]``'s tables) k-means on the card
+   at 100,000 x 128, K 64, against its CPU twin, ``StaticWord2Vec``
+   and TF-IDF over the corpus; ``[word2vec-host]`` one epoch of
    the chunked host-pair route against its CPU twin; ``[deepwalk]``
    (a graph of BlogCatalog's counts), ``[glove]`` and
    ``[paragraph-vectors]``, each with its rate and a CPU twin (every
@@ -154,8 +160,8 @@ non-zero (nothing is caught):
    the data on the card), ``[vgg16-cached]`` the VGG-16 graph at batch
    128, 8 minibatches, 2 epochs, ``scan_chunk = 4``, and
    ``[charrnn-fused]`` / ``[charrnn-seq-fused]`` the char-RNN with and
-   without peepholes, 12 minibatches x 2 epochs on the device-cached
-   fused-TBPTT plan (48 TBPTT chunks a replay): each bitwise its
+   without peepholes, 6 minibatches x 2 epochs on the device-cached
+   fused-TBPTT plan (24 TBPTT chunks a replay): each bitwise its
    ``scan_chunk = 1`` fit (the carry too), with launches counted at
    capture, examples/s, device ms a step, the busy share both ways and
    the peak memory; ``[telemetry]`` a LeNet-5 fit under a global tracer
@@ -181,7 +187,7 @@ non-zero (nothing is caught):
    recovery to the step-4 snapshot and 12 steps, bitwise a process
    replaying the snapshot at survivor width (kill to plan, recovery ms,
    steps lost, examples/s before and after); ``[default-fit]`` the
-   default ``fit`` (``scan_chunk`` 16, one CUDA-graph chunk of 16
+   default ``fit`` (``scan_chunk`` 16, one CUDA-graph chunk of 8
    minibatches) of ResNet-50, the transformer LM and AlexNet with
    dropout, each bitwise its ``scan_chunk = 1`` fit (device ms a step,
    the busy share, peak memory, the capture's seconds).
@@ -216,12 +222,21 @@ non-zero (nothing is caught):
    twin, the best model's accuracy); ``[evaluate]``
    ``ComputationGraph.evaluate`` and ``ROCMultiClass`` of VGG-16 at
    batch 128 against its CPU twin.
+17. the row-sharded trainer (a main path, after every phase that forms
+   a world in this process): ``[semb-dp]`` SparseEmbeddingLayer(1,048,576
+   -> 128) -> Dense 256 relu (``matmul_block``) -> softmax over 10, Adam,
+   on two gloo ranks sharing the card, 8 steps of 1024 Zipf ids: half
+   the table a rank, each table's change against a replicated world of
+   one, a step-4 checkpoint resumed at width 1 bitwise the world of
+   one's own, and ``ClusterWord2Vec`` (2 epochs of bench.py's corpus)
+   against one process.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
 a CUDA device, and when the port's package is not beside it.
 """
 
+import faulthandler
 import http.client
 import importlib
 import json
@@ -293,6 +308,7 @@ W2V_NEG = 5
 W2V_BATCH = 16384
 W2V_SEED = 1
 W2V_REPS = 20  # epochs a timed window
+W2V_PROFILED = 2  # eager epochs under the profiler, replays under events
 W2V_TWIN_SENTENCES = 1000  # the host route's CPU twin, cut
 # DeepWalk on a graph of BlogCatalog's counts (the DeepWalk paper's)
 DW_VERTICES = 10312
@@ -302,7 +318,7 @@ DW_WINDOW = 10
 DW_WALK = 40
 DW_SEED = 7
 DW_TWIN_WALKS = 256
-GLOVE_EPOCHS = 5
+GLOVE_EPOCHS = 3
 PV_DOCS = 1000
 PV_EPOCHS = 5
 # the embedding MLP: EmbeddingLayer(2000 -> 128) -> Dense 256 -> softmax
@@ -310,6 +326,19 @@ MLP_VOCAB = 2000
 MLP_BATCH = 1024
 MLP_HIDDEN = 256
 MLP_STEPS = 5
+# [semb-dp]: SparseEmbeddingLayer(1,048,576 -> 128) -> Dense 256 relu ->
+# softmax over 10, Adam, on two gloo ranks on one card: a global batch of
+# 1024 Zipf ids (exponent 1.0), 8 steps, a checkpoint at step 4
+SEMB_VOCAB = 1 << 20
+SEMB_BATCH = 1024
+SEMB_STEPS = 8
+SEMB_SAVE_AT = 4
+SEMB_TIMEOUT_S = 600
+# [nlp-periphery]: k-means over seeded blobs
+KMEANS_ROWS = 100_000
+KMEANS_DIM = 128
+KMEANS_K = 64
+KMEANS_ITERS = 3
 # a CPU twin holds each table's change within this share of the twin's
 # largest change (f32 both sides, sums in another order)
 TWIN_REL = 1e-3
@@ -3035,7 +3064,7 @@ CACHED_VGG_BATCHES = 8
 CACHED_VGG_EPOCHS = 2
 CACHED_VGG_CHUNK = 4
 FUSED_CHAR_EPOCHS = 2
-FUSED_CHAR_MINIBATCHES = 12  # one replay of 48 TBPTT chunks an epoch
+FUSED_CHAR_MINIBATCHES = 6  # one replay of 24 TBPTT chunks an epoch
 TELEMETRY_STEPS = 8
 TELEMETRY_TRACE = (3, 3)  # ProfilerListener: iterations [3, 6)
 
@@ -3184,8 +3213,8 @@ def run_vgg16_cached(torch, card):
 def run_charrnn_fused(torch, card, peephole: bool, ids):
     """[charrnn-fused] the zoo char-RNN (peepholes) or its ``peephole=
     False`` twin at batch 32, 200-char segments (4 TBPTT chunks of 50)
-    and 12 minibatches, ``fit(batches, epochs=2)``: the device-cached
-    fused-TBPTT plan (one replay of the 12 minibatches, 48 TBPTT chunks,
+    and 6 minibatches, ``fit(batches, epochs=2)``: the device-cached
+    fused-TBPTT plan (one replay of the 6 minibatches, 24 TBPTT chunks,
     an epoch, one capture), bitwise the per-chunk loop (``scan_chunk =
     1``): parameters, RMSProp state and the carry the last minibatch
     ended with. Returns the launches of the phase."""
@@ -3220,7 +3249,7 @@ def run_charrnn_fused(torch, card, peephole: bool, ids):
     wall_first = time.perf_counter() - t0
     counts = dispatch.launch_counts()
     graphs = list(model._megastep_graphs.values())
-    groups = -(-FUSED_CHAR_MINIBATCHES // model.scan_chunk)  # one of 12
+    groups = -(-FUSED_CHAR_MINIBATCHES // model.scan_chunk)  # one of 6
     if [g.k for g in graphs] != [
             FUSED_CHAR_MINIBATCHES // groups * chunks]:
         raise RuntimeError(f"[{tag}] chunks {[g.k for g in graphs]}")
@@ -3671,10 +3700,11 @@ def charrnn_conf(peephole: bool):
             .t_bptt_backward_length(CHAR_TBPTT).build())
 
 
-def profiled_device_ms(torch, fn):
-    """Device time of ``fn()`` under ``torch.profiler``: the sum of the
-    traced device activities' own times (kernels and copies), and the
-    five largest activities by name (ms)."""
+def profiled_device(torch, fn):
+    """``fn()`` under ``torch.profiler``: the sum of the traced device
+    activities' own times (kernels, copies and memsets; ms), their
+    count (each a launch, whether from the host or from a CUDA graph's
+    replay), and the five largest activities by name (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3683,10 +3713,11 @@ def profiled_device_ms(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
+        count += int(evt.count)
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             v = getattr(evt, attr, None)
             if v is not None:
@@ -3696,7 +3727,15 @@ def profiled_device_ms(torch, fn):
     if total <= 0.0:
         raise RuntimeError("the profiler traced no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return total, dict(top)
+    return total, count, dict(top)
+
+
+def profiled_device_ms(torch, fn):
+    """Device time of ``fn()`` under ``torch.profiler`` and the five
+    largest activities by name (ms): ``profiled_device`` without the
+    count."""
+    total, _, top = profiled_device(torch, fn)
+    return total, top
 
 
 def run_charrnn(torch, card, peephole: bool, ids, alphabet):
@@ -4108,7 +4147,7 @@ INTENDED_ROUTES = {
     "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
                      ("alexnet.", "tiled"), ("alexnet-train.", "tiled"),
                      ("vgg16.", "tiled"),
-                     ("embedding-mlp.", "tiled")),
+                     ("embedding-mlp.", "tiled"), ("semb-dp.", "tiled")),
     "matmul_block_residual": (("transformer.", "wide"),),
     # ops.lstm_cell.lstm_seq_route: the char-RNN's chunk and sampling
     # launch on a cluster, bench.py's saturated shape on the grid
@@ -4395,11 +4434,12 @@ def zipf_sentences(n_sentences, sent_len, vocab, seed):
             for _ in range(n_sentences)]
 
 
-def w2v_corpus():
-    """bench.py's Word2Vec corpus, vocabulary and id sequences."""
+def w2v_corpus(n_sentences=W2V_SENTENCES):
+    """bench.py's Word2Vec corpus, vocabulary and id sequences (its
+    first ``n_sentences`` sentences)."""
     from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
 
-    sentences = zipf_sentences(W2V_SENTENCES, W2V_SENT_LEN, W2V_VOCAB, 0)
+    sentences = zipf_sentences(n_sentences, W2V_SENT_LEN, W2V_VOCAB, 0)
     cache = VocabConstructor(min_word_frequency=1).build_vocab_from_tokens(
         sentences)
     ids = [np.asarray([cache.index_of(w) for w in s if w in cache],
@@ -4445,17 +4485,108 @@ def hold_change(torch, tag, got, want, start, rel=TWIN_REL):
     return err, atol
 
 
+def w2v_windows(torch, sv, reps=3, fit=None):
+    """``reps`` timed windows of ``W2V_REPS`` epochs of ``fit()``
+    (default ``sv.fit``) after a warm epoch (s each)."""
+    fit = fit or sv.fit
+    sv.epochs = 1
+    fit()
+    torch.cuda.synchronize()
+    sv.epochs = W2V_REPS
+    windows = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        float(sv.lookup.syn0[0, 0])
+        windows.append(time.perf_counter() - t0)
+    return windows
+
+
+def hold_change_l2(torch, tag, got, want, start, rel=TWIN_REL):
+    """Hold what an Adam run changed, table by table, in the L2 sense:
+    ``|(got - start) - (want - start)| <= rel * |want - start|``. Adam
+    divides each step by the gradient's own scale, so where a gradient
+    component is a sum that cancels, its last-bit noise (the same sum
+    added up in another order) moves the step by up to the learning
+    rate, and a few elements of a large sparse table leave any
+    elementwise bound while the table agrees (``adam_past_elements``
+    shows it on the moments). Returns the
+    largest relative L2 difference, the largest elementwise difference
+    and the count of elements past ``rel`` of the largest change (both
+    reported, not held)."""
+    worst, err, past = 0.0, 0.0, 0
+    for g, w, s in zip(got, want, start):
+        g, w, s = (t.detach().cpu().double() for t in (g, w, s))
+        moved = w - s
+        scale = float(moved.norm())
+        if scale == 0.0:
+            raise RuntimeError(f"[{tag}] the twin left a table as it was")
+        diff = (g - s) - moved
+        r = float(diff.norm()) / scale
+        if r > rel:
+            raise RuntimeError(f"[{tag}] a table's change differs from the "
+                               f"twin's by {r} of its norm (> {rel})")
+        worst = max(worst, r)
+        err = max(err, float(diff.abs().max()))
+        past += int((diff.abs() > rel * float(moved.abs().max())).sum())
+    return worst, err, past
+
+
+def adam_past_elements(torch, got, want, start, got_m, want_mv, t,
+                       rel=TWIN_REL, decay=(0.9, 0.999)):
+    """Where an Adam run's table leaves the twin's elementwise bound
+    (``|(got - start) - (want - start)| > rel * max|want - start|``),
+    what the moments say of the gradient there, beside all the elements
+    a gradient reached (``v > 0``): the twin's gradient scale
+    ``sqrt(v / (1 - b2^t))`` and the two runs' first moments' relative
+    difference ``|m_got - m_want| / |m_want|`` (medians; the scale's
+    largest too). A cancelling sum has a small scale and a large
+    relative difference of ``m`` where the bound is left."""
+    dev = want.device
+    g, w, s = (torch.as_tensor(a).to(dev, torch.float64)
+               for a in (got, want, start))
+    moved = w - s
+    past = ((g - s) - moved).abs() > rel * float(moved.abs().max())
+    m_w, v_w = (a.to(torch.float64) for a in want_mv)
+    m_g = torch.as_tensor(got_m).to(dev, torch.float64)
+    scale = (v_w / (1.0 - decay[1] ** t)).sqrt()
+    m_rel = (m_g - m_w).abs() / m_w.abs().clamp_min(1e-30)
+    reached = v_w > 0
+
+    def med(a):
+        return float(a.median()) if a.numel() else None
+
+    return {"elements": int(past.sum()),
+            "grad_scale_max": (float(scale[past].max())
+                               if past.any() else None),
+            "grad_scale_median": med(scale[past]),
+            "reached_grad_scale_median": med(scale[reached]),
+            "m_rel_diff_median": med(m_rel[past]),
+            "reached_m_rel_diff_median": med(m_rel[reached])}
+
+
 def run_word2vec(torch, card, cache, ids):
     """[word2vec] bench.py:699's configuration exactly (200,000 words of
     a Zipf corpus over 2,000 words, D 128, W 5, K 5, B 16,384, seed 1)
-    through ``Word2Vec.fit`` with on-device epoch generation: a warm fit,
-    then words/s as the best of 3 windows of 20 epochs; the cold rate
-    (a fresh trainer's corpus upload + one epoch, best of 3); the device
-    time of 2 epochs (``torch.profiler``) and its share of a window's
-    epoch; peak memory. Two fresh trainers from the seed must give the
-    same tables bit for bit, and one epoch's draws taken on the card, fed
-    to the CPU from the same tables, must change the tables as on the
-    card (``hold_change``)."""
+    through ``Word2Vec.fit`` with on-device epoch generation, each epoch
+    a CUDA-graph replay (``EpochGraph``), beside the eager route
+    (``_fit_device_gen(eager=True)``) in the same run: the capture's
+    seconds; words/s as the best of 3 windows of 20 epochs (2 for the
+    eager route); the cold rate (a fresh trainer's corpus upload,
+    capture and one epoch, best of 3); the eager epoch under
+    ``torch.profiler``: the device ms of an epoch's kernels and their
+    launches (the device activities traced), which both routes run, and
+    each route's busy share (that device ms over its host ms an epoch);
+    a replay timed with CUDA events (never profiled: see below); peak
+    memory.
+    Two epochs through the graph route must be bitwise two through the
+    eager route from the same seed (tables and losses), two fresh
+    trainers the same tables bit for bit, one epoch's draws taken on the
+    card and fed to the CPU from the same tables must change the tables
+    as on the card (``hold_change``), and the VP-tree nearest words
+    (``TreeModelUtils``) must be the flat scan's (``FlatModelUtils``)."""
+    from deeplearning4j_tpu_torch.nlp import FlatModelUtils, TreeModelUtils
     from deeplearning4j_tpu_torch.nlp import word2vec as w2v
 
     total_words = sum(len(s) for s in ids)
@@ -4468,8 +4599,11 @@ def run_word2vec(torch, card, cache, ids):
         torch.cuda.synchronize()
         float(v.lookup.syn0[0, 0])
 
-    sv.fit()  # warm-up: the corpus upload and the first launches
+    sv.fit()  # warm-up: the corpus upload and the capture
     sync(sv)
+    graph = sv._dev_graph
+    if graph is None or graph.graph is None:
+        raise RuntimeError("[word2vec] the device route captured no graph")
     cold = []
     for _ in range(3):
         sv2 = make_w2v(cache, ids)
@@ -4479,33 +4613,60 @@ def run_word2vec(torch, card, cache, ids):
         sync(sv2)
         cold.append(time.perf_counter() - t0)
     upload = sv2._dev_upload_bytes
+    capture_s = [sv2._dev_graph.capture_s, graph.capture_s]
     del sv2
-    sv.epochs = W2V_REPS
-    sv.fit()
-    sync(sv)
-    windows = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sv.fit()
-        sync(sv)
-        windows.append(time.perf_counter() - t0)
-    sv.epochs = 2
-    device_ms, top = profiled_device_ms(torch, sv.fit)
+    windows = w2v_windows(torch, sv)
     best = min(windows)
+    # the captured epoch replayed back to back under CUDA events (this
+    # trains sv on; its tables are only checked for finiteness and
+    # queried afterwards): the device's time for a replay, the graph's
+    # own gaps in. A replay is never run under torch.profiler: this late
+    # in the script one crashed the process there (SIGSEGV in
+    # CUDAGraph.replay).
+    replay_ms = events_ms(torch, graph.graph.replay, reps=W2V_PROFILED)[0]
+    eager = make_w2v(cache, ids)
+
+    def eager_fit():
+        eager._fit_device_gen(eager=True)
+
+    eager_windows = w2v_windows(torch, eager, reps=2, fit=eager_fit)
+    eager.epochs = W2V_PROFILED
+    # the eager epoch under the profiler: its kernels' sum and launches,
+    # an epoch's device work on both routes (the graph route runs the
+    # same kernels: the draws from the host, the rest replayed)
+    dev_ms, dev_n, top = profiled_device(torch, eager_fit)
+    eager_best = min(eager_windows)
+    dev_epoch_ms = dev_ms / W2V_PROFILED
+    del eager
     corpus = sv.device_corpus()
     n_batches = corpus.ids.shape[0] // W2V_BATCH
     rows = W2V_BATCH * (1 + 2 * W2V_WINDOW + W2V_NEG)
     # the step's own traffic: each gathered row read, its gradient
     # written and read back, each updated row read and written
     reckoned = n_batches * 4 * rows * W2V_DIM * 4
-    dev_epoch_ms = device_ms / 2
     for t in w2v_tables(torch, sv):
         if not torch.isfinite(t).all():
             raise RuntimeError("[word2vec] a table is not finite")
     near = sv.words_nearest("w3", 10)
     if len(near) != 10 or "w3" in near:
         raise RuntimeError(f"[word2vec] words_nearest: {near}")
+    flat_near = FlatModelUtils(sv).words_nearest("w3", 10)
+    tree_near = TreeModelUtils(sv).words_nearest("w3", 10)
+    if tree_near != flat_near:
+        raise RuntimeError(f"[word2vec] nearest words: tree {tree_near}, "
+                           f"flat {flat_near}, model {near}")
 
+    # the graph route against the eager route: two epochs from the seed
+    routes = []
+    for eager_route in (False, True):
+        r = make_w2v(cache, ids, epochs=2)
+        losses = r._fit_device_gen(eager=eager_route)
+        routes.append((losses.cpu(), w2v_tables(torch, r)))
+    (lg, tg), (le, te) = routes
+    if not torch.equal(lg, le) or not all(
+            torch.equal(a, b) for a, b in zip(tg, te)):
+        raise RuntimeError("[word2vec] the graph route differs from the "
+                           "eager route")
     # repeatability: two fresh trainers, two epochs each
     runs = []
     for _ in range(2):
@@ -4534,25 +4695,38 @@ def run_word2vec(torch, card, cache, ids):
     twin_err, twin_atol = hold_change(torch, "word2vec",
                                       w2v_tables(torch, sv),
                                       w2v_tables(torch, twin), start)
+    host_ms = best / W2V_REPS * 1e3
+    eager_host_ms = eager_best / W2V_REPS * 1e3
     res = {"words": total_words, "vocab": len(cache), "dim": W2V_DIM,
            "window": W2V_WINDOW, "negative": W2V_NEG, "batch": W2V_BATCH,
            "batches_per_epoch": n_batches, "epochs_per_window": W2V_REPS,
+           "route": "graph",
+           "capture_s": capture_s,
+           "launches_per_epoch": dev_n / W2V_PROFILED,
+           "launches_per_batch": dev_n / W2V_PROFILED / n_batches,
+           "replay_event_ms_per_epoch": replay_ms,
            "words_per_s": W2V_REPS * total_words / best,
            "window_s": windows,
            "cold_words_per_s": total_words / min(cold), "cold_s": cold,
            "cold_upload_bytes": upload,
            "device_ms_per_epoch": dev_epoch_ms,
-           "host_ms_per_epoch": best / W2V_REPS * 1e3,
-           "device_busy_share": dev_epoch_ms / (best / W2V_REPS * 1e3),
-           "top_device_ms_per_epoch": {k[:60]: v / 2
+           "host_ms_per_epoch": host_ms,
+           "device_busy_share": dev_epoch_ms / host_ms,
+           "eager_words_per_s": W2V_REPS * total_words / eager_best,
+           "eager_window_s": eager_windows,
+           "eager_host_ms_per_epoch": eager_host_ms,
+           "eager_device_busy_share": dev_epoch_ms / eager_host_ms,
+           "top_device_ms_per_epoch": {k[:60]: v / W2V_PROFILED
                                        for k, v in top.items()},
+           "graph_bitwise_eager": True,
            "reckoned_bytes_per_epoch": reckoned,
            "reckoned_hbm_share": reckoned / PEAK_HBM_BYTES * 1e3
            / dev_epoch_ms,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "repeat_bitwise": True, "twin_max_abs_diff": twin_err,
            "twin_tolerance": TWIN_TOLERANCE, "twin_tightest_atol": twin_atol,
-           "twin_s": time.perf_counter() - t_twin, "nearest_w3": near}
+           "twin_s": time.perf_counter() - t_twin, "nearest_w3": near,
+           "tree_nearest_is_flat": True}
     print(f"[word2vec] {json.dumps(res)} card={card}")
     return sv
 
@@ -4703,7 +4877,7 @@ def run_deepwalk(torch, card):
 
 def run_glove(torch, card):
     """[glove] ``Glove.fit`` on a Zipf corpus from ``RandomState(3)``
-    (1,000 sentences of 40 words over 1,000), D 100, window 5, 5 epochs
+    (1,000 sentences of 40 words over 1,000), D 100, window 5, 3 epochs
     (cut from the reference's 25), triples/s; the CPU twin fits the same
     triples from the same state, which must change W, W̃ and the two
     biases as on the card (``hold_change``)."""
@@ -4906,10 +5080,125 @@ def run_zero(torch, card, mesh, tmp):
     print(f"[zero] {json.dumps(res)} card={card}")
 
 
+def run_nlp_periphery(torch, card, sv, cache, ids, device="cuda",
+                      rows=KMEANS_ROWS):
+    """[nlp-periphery] ``KMeansClustering`` on the card over ``rows`` x
+    128 seeded blobs, K 64, 3 Lloyd iterations (ms an iteration): every
+    row whose two nearest centers (of the CPU twin's run) lie further
+    apart than the twin tolerance gets the twin's cluster, and the
+    centers agree within it; ``save_static`` of ``[word2vec]``'s
+    tables, read back by ``StaticWord2Vec`` bit for bit with the same
+    nearest words; TF-IDF over the corpus (its sentences as documents,
+    labelled by parity) on the card, equal to the CPU vectorizer's."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.kmeans import (
+        _distances,
+        lloyd_step,
+    )
+    from deeplearning4j_tpu_torch.nlp import (
+        StaticWord2Vec,
+        TfidfVectorizer,
+        save_static,
+    )
+
+    rng = np.random.RandomState(3)
+    centers = rng.randn(KMEANS_K, KMEANS_DIM).astype(np.float32) * 4.0
+    x = (centers[rng.randint(0, KMEANS_K, rows)]
+         + rng.randn(rows, KMEANS_DIM).astype(np.float32))
+    on_card = device != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    km = KMeansClustering.setup(KMEANS_K, KMEANS_ITERS, seed=5, device=device)
+    t0 = time.perf_counter()
+    c_dev, a_dev = km.fit_tensors(x)
+    sync()
+    km_fit_s = time.perf_counter() - t0
+    xd = torch.from_numpy(x).to(device)
+    if on_card:  # one Lloyd iteration's device time
+        km_ms = events_ms(torch, lambda: lloyd_step(
+            xd, c_dev, KMEANS_K, "euclidean"), reps=5)[0]
+    else:
+        t0 = time.perf_counter()
+        lloyd_step(xd, c_dev, KMEANS_K, "euclidean")
+        km_ms = (time.perf_counter() - t0) * 1e3
+    del xd
+    t_twin = time.perf_counter()
+    twin = KMeansClustering.setup(KMEANS_K, KMEANS_ITERS, seed=5,
+                                  device="cpu")
+    c_cpu, a_cpu = twin.fit_tensors(x)
+    d = _distances(torch.from_numpy(x), c_cpu, "euclidean")
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    scale = float(d.max())
+    clear = (two[:, 1] - two[:, 0]) > TWIN_REL * scale
+    agree = a_dev.cpu() == a_cpu
+    if not bool(agree[clear].all()):
+        raise RuntimeError(f"[nlp-periphery] k-means: "
+                           f"{int((~agree[clear]).sum())} clear rows differ "
+                           "from the CPU twin")
+    c_err = float((c_dev.cpu() - c_cpu).abs().max())
+    c_scale = float(c_cpu.abs().max())
+    if c_err > TWIN_REL * c_scale:
+        raise RuntimeError(f"[nlp-periphery] k-means centers differ by "
+                           f"{c_err} (scale {c_scale})")
+    twin_s = time.perf_counter() - t_twin
+
+    tmp = tempfile.mkdtemp(prefix="dl4j_static_")
+    try:
+        t0 = time.perf_counter()
+        save_static(sv, tmp)
+        static = StaticWord2Vec(tmp)
+        same = np.array_equal(np.asarray(static.syn0),
+                              sv.lookup.syn0.cpu().numpy())
+        # the same ten words (a near tie may order two of them apart:
+        # the store divides by the norms' product, the model's table is
+        # normalized first)
+        near = static.words_nearest("w3", 10)
+        if not same or set(near) != set(sv.words_nearest("w3", 10)):
+            raise RuntimeError(f"[nlp-periphery] StaticWord2Vec: rows "
+                               f"equal {same}, nearest {near}")
+        static_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    docs = [(" ".join(cache.word_at(int(i)) for i in s), f"c{n % 2}")
+            for n, s in enumerate(ids)]
+    t0 = time.perf_counter()
+    tfidf = TfidfVectorizer(device=device)
+    tfidf.fit(docs)
+    ds = tfidf.vectorize_all(docs)
+    sync()
+    tfidf_s = time.perf_counter() - t0
+    cpu_tfidf = TfidfVectorizer(device="cpu")
+    cpu_tfidf.fit(docs)
+    want = cpu_tfidf.vectorize_all(docs)
+    if ds.features.device.type != torch.device(device).type or not torch.equal(
+            ds.features.cpu(), want.features) or not torch.equal(
+            ds.labels.cpu(), want.labels):
+        raise RuntimeError("[nlp-periphery] TF-IDF differs from the CPU's")
+    res = {"kmeans_rows": rows, "kmeans_dim": KMEANS_DIM,
+           "kmeans_k": KMEANS_K, "kmeans_iterations": KMEANS_ITERS,
+           "kmeans_ms_per_iteration": km_ms, "kmeans_fit_s": km_fit_s,
+           "kmeans_clear_rows": int(clear.sum()),
+           "kmeans_clear_rows_agree": True,
+           "kmeans_center_max_abs_diff": c_err, "kmeans_twin_s": twin_s,
+           "static_rows_bitwise": True, "static_s": static_s,
+           "tfidf_docs": len(docs), "tfidf_vocab": len(tfidf.cache),
+           "tfidf_s": tfidf_s, "tfidf_equal_cpu": True,
+           "twin_tolerance": TWIN_TOLERANCE}
+    print(f"[nlp-periphery] {json.dumps(res)} card={card}")
+
+
 def run_nlp(torch, card):
     """The NLP / embeddings slice: ``[word2vec]`` and ``[word2vec-host]``
     on bench.py's corpus, ``[deepwalk]``, ``[glove]``,
-    ``[paragraph-vectors]``, ``[embedding-mlp]``, then
+    ``[paragraph-vectors]``, ``[embedding-mlp]``, ``[nlp-periphery]``
+    (after ``[word2vec]``, on its tables), then
     ``[word2vec-sharded]`` and ``[zero]`` on an NCCL world of one formed
     through a file rendezvous in a temporary directory. Returns the
     launch counts of the main paths (the embedding MLP's steps)."""
@@ -4929,7 +5218,9 @@ def run_nlp(torch, card):
         return out
 
     cache, ids = w2v_corpus()
-    timed("word2vec", run_word2vec, cache, ids)
+    sv = timed("word2vec", run_word2vec, cache, ids)
+    timed("nlp-periphery", run_nlp_periphery, sv, cache, ids)
+    del sv
     host = timed("word2vec-host", run_word2vec_host, cache, ids)
     timed("deepwalk", run_deepwalk)
     timed("glove", run_glove)
@@ -4951,6 +5242,341 @@ def run_nlp(torch, card):
     return launches
 
 
+# -- the row-sharded trainer ([semb-dp]) -------------------------------------
+
+# One rank of [semb-dp]: forms a gloo world of two on the device, trains the
+# row-sharded model on the global batches under DistributedTrainer (a
+# sharded checkpoint at SEMB_SAVE_AT), writes the gathered parameters
+# (rank 0), then trains ClusterWord2Vec on bench.py's corpus over the same
+# world. argv[1]: a JSON spec.
+_SEMB_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.embeddings.table import gauges
+from deeplearning4j_tpu_torch.nn import core
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.ops import dispatch
+from deeplearning4j_tpu_torch.parallel import (
+    ClusterWord2Vec, DistributedTrainer, build_mesh, init_distributed,
+    shutdown_distributed)
+from deeplearning4j_tpu_torch.resilience.checkpoint import (
+    CheckpointManager, ProcessGroupCommitBarrier)
+from deeplearning4j_tpu_torch.util.model_serializer import (
+    params_to_numpy, updater_state_to_numpy)
+
+spec = json.loads(sys.argv[1])
+rank, dev = spec["rank"], spec["device"]
+cuda = dev != "cpu"
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def peak():
+    return torch.cuda.max_memory_allocated() if cuda else 0
+
+
+init_distributed("file://" + spec["rdv"], 2, rank, device=dev,
+                 backend="gloo", timeout_s=120)
+mesh = build_mesh(data=2)
+data = np.load(spec["data"])
+conf = MultiLayerConfiguration.from_json(open(spec["conf"]).read())
+t0 = time.perf_counter()
+net = MultiLayerNetwork(conf, device=dev).init()
+tr = DistributedTrainer(net, mesh=mesh)
+sync()
+out = {"setup_s": time.perf_counter() - t0, "init_peak_bytes": peak(),
+       "shard_bytes": gauges()["embedding_shard_bytes"],
+       "w_rows": int(net.params["0"]["W"].shape[0]),
+       "moment_rows": [int(a.shape[0]) for a in net.updater_state["0"]["W"]],
+       "layout": net._row_layout}
+if cuda:
+    torch.cuda.reset_peak_memory_stats()
+mgr = CheckpointManager(spec["ckpt"], commit=ProcessGroupCommitBarrier(),
+                        device=dev)
+dispatch.reset_launch_counts()
+ms, scores = [], []
+for s in range(len(data["x"])):
+    if s == spec["save_at"]:
+        t0 = time.perf_counter()
+        mgr.save(net)
+        out["save_s"] = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    scores.append(float(tr.fit_minibatch(DataSet(data["x"][s],
+                                                 data["y"][s]))))
+    ms.append((time.perf_counter() - t0) * 1e3)
+out["launches"] = dispatch.launch_counts()
+out.update(ms_per_step=ms, scores=scores, step_peak_bytes=peak())
+params, upd = core.canonical_trees(net)
+if rank == 0:
+    np.savez(spec["trees"], **params_to_numpy(params),
+             **updater_state_to_numpy(upd))
+del params, upd, net, tr
+cache, ids = cs.w2v_corpus(spec["w2v_sentences"])
+w2v = ClusterWord2Vec(cache, ids, mesh=mesh, layer_size=cs.W2V_DIM,
+                      window=cs.W2V_WINDOW, negative=cs.W2V_NEG,
+                      batch_size=cs.W2V_BATCH, epochs=2, seed=cs.W2V_SEED,
+                      device=dev)
+sync()
+t0 = time.perf_counter()
+w2v.fit()
+sync()
+out["w2v_s"] = time.perf_counter() - t0
+if rank == 0:
+    np.savez(spec["w2v"], syn0=w2v.lookup.syn0.cpu().numpy(),
+             syn1neg=w2v.lookup.syn1neg.cpu().numpy())
+with open(spec["out"], "w") as fh:
+    json.dump(out, fh)
+shutdown_distributed()
+"""
+
+
+def semb_conf(vocab=SEMB_VOCAB, row_sharded=True):
+    """SparseEmbeddingLayer(vocab -> 128) -> Dense 256 relu -> softmax
+    output over 10 classes, Adam (the embedding MLP's widths)."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer,
+        OutputLayer,
+        SparseEmbeddingLayer,
+    )
+
+    return (NeuralNetConfiguration.Builder().seed(12).learning_rate(1e-2)
+            .updater("ADAM").list()
+            .layer(SparseEmbeddingLayer(n_in=vocab, n_out=W2V_DIM,
+                                        row_sharded=row_sharded))
+            .layer(DenseLayer(n_in=W2V_DIM, n_out=MLP_HIDDEN,
+                              activation="relu"))
+            .layer(OutputLayer(n_in=MLP_HIDDEN, n_out=10))
+            .build())
+
+
+def semb_batches(vocab=SEMB_VOCAB, seed=0):
+    """``SEMB_STEPS`` global batches of ``SEMB_BATCH`` ids drawn from a
+    Zipf distribution of exponent 1.0 over ``vocab`` ids (``p ∝ 1/k``),
+    labelled by the id modulo 10: ``(x [S, B, 1], y [S, B, 10])``."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    x = rng.choice(vocab, size=(SEMB_STEPS, SEMB_BATCH), p=p / p.sum())
+    y = np.eye(10, dtype=np.float32)[x % 10]
+    return x[..., None].astype(np.float32), y
+
+
+def run_semb_dp(torch, card, device="cuda", vocab=SEMB_VOCAB,
+                w2v_sentences=W2V_SENTENCES):
+    """[semb-dp] the row-sharded trainer on two gloo ranks on one card (as
+    ``[elastic-storm]`` forms them: NCCL refuses two ranks a device): the
+    ``semb_conf`` model over ``semb_batches``, 8 steps. Each rank must
+    hold half of ``W`` and of its Adam moments (``embedding_shard_bytes``
+    half the table); each table's change after 8 steps must lie within
+    the twin tolerance (in L2: ``hold_change_l2``) of a world of one on
+    the card with ``row_sharded=False`` on the same data; a world of one
+    resumed from the two ranks' step-4 checkpoint must take steps 5-8
+    bitwise as a world of one resumed from the checkpoint it wrote
+    itself right after that resume, and its parameters and Adam moments
+    must change over steps 5-8 as the two ranks' own did (twin
+    tolerance, in L2: a wrong row or moment in the width-2 save shows
+    there); where the 8-step twin leaves the elementwise bound, the
+    moments there are printed (``adam_past_elements``);
+    ``ClusterWord2Vec`` (2 epochs of bench.py's corpus, the host-pair
+    route, over the same two ranks) must change its tables as
+    a single-process ``Word2Vec`` on the same batches does (twin
+    tolerance; whether bitwise is printed). Prints each rank's shard
+    bytes, peak memory and ms a step, and the ``matmul_block``
+    launches. Returns the launches of both ranks' steps."""
+    import os
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import DistributedTrainer
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+        LocalCommitBarrier,
+    )
+
+    on_card = device != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    x, y = semb_batches(vocab)
+    tmp = tempfile.mkdtemp(prefix="dl4j_semb_")
+    f = os.path.join
+    try:
+        np.savez(f(tmp, "data.npz"), x=x, y=y)
+        with open(f(tmp, "conf.json"), "w") as fh:
+            fh.write(semb_conf(vocab).to_json())
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("semb-dp", _SEMB_RANK, [dict(
+            rank=r, device=device, rdv=f(tmp, "rdv"),
+            data=f(tmp, "data.npz"), conf=f(tmp, "conf.json"),
+            ckpt=f(tmp, "ck2"), save_at=SEMB_SAVE_AT,
+            trees=f(tmp, "trees.npz"), w2v=f(tmp, "w2v.npz"),
+            w2v_sentences=w2v_sentences, out=f(tmp, f"rank{r}.json"))
+            for r in range(2)], SEMB_TIMEOUT_S, tmp)
+        ranks_s = time.perf_counter() - t0
+        if any(rc != 0 for rc, _ in ranks):
+            raise RuntimeError("[semb-dp] a rank failed:\n" + "\n---\n".join(
+                f"exit {rc}: {err}" for rc, err in ranks))
+        outs = []
+        for r in range(2):
+            with open(f(tmp, f"rank{r}.json")) as fh:
+                outs.append(json.load(fh))
+        half = vocab // 2 * W2V_DIM * 4
+        for r, o in enumerate(outs):
+            if (o["shard_bytes"] != half or o["w_rows"] != vocab // 2
+                    or o["moment_rows"] != [vocab // 2] * 2
+                    or o["layout"] != {"shards": 2, "rank": r,
+                                       "layers": ["0"]}):
+                raise RuntimeError(f"[semb-dp] rank {r} holds {o}")
+        launches = {k: sum(o["launches"].get(k, 0) for o in outs)
+                    for k in dispatch.KERNELS}
+        want = {k: 0 for k in dispatch.KERNELS}
+        if on_card:
+            want["matmul_block"] = 2 * SEMB_STEPS
+        if launches != want:
+            raise RuntimeError(f"[semb-dp] the ranks launched {launches}")
+        if outs[0]["scores"] != outs[1]["scores"]:
+            raise RuntimeError("[semb-dp] the ranks' scores differ")
+
+        # the world of one, replicated, on the same data
+        t_twin = time.perf_counter()
+        batches = [DataSet(x[s], y[s]) for s in range(SEMB_STEPS)]
+        twin = MultiLayerNetwork(semb_conf(vocab, row_sharded=False),
+                                 device=device).init()
+        start = {f"{ln}/{pn}": t.detach().cpu().clone()
+                 for ln, lp in twin.params.items() for pn, t in lp.items()}
+        tr = DistributedTrainer(twin)
+        twin_ms = []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            tr.fit_minibatch(b)
+            sync()
+            twin_ms.append((time.perf_counter() - t0) * 1e3)
+        # the two ranks' step-8 parameters ("layer/param") and updater
+        # state ("layer/param/i"), gathered
+        got = dict(np.load(f(tmp, "trees.npz")))
+        keys = sorted(start)
+        rel_l2, err, past = hold_change_l2(
+            torch, "semb-dp", [torch.from_numpy(got[k]) for k in keys],
+            [twin.params[k.split("/")[0]][k.split("/")[1]] for k in keys],
+            [start[k] for k in keys])
+        past_w = adam_past_elements(
+            torch, got["0/W"], twin.params["0"]["W"], start["0/W"],
+            got["0/W/0"], twin.updater_state["0"]["W"], SEMB_STEPS)
+        del twin, tr, start
+        twin_s = time.perf_counter() - t_twin
+
+        # the cross-width resume: A from the ranks' checkpoint, B from
+        # the one A writes right after its resume
+        def world_of_one(source, save_to=None):
+            net = MultiLayerNetwork(semb_conf(vocab), device=device).init()
+            trainer = DistributedTrainer(net)
+            step = trainer.resume(CheckpointManager(source, device=device))
+            if step != SEMB_SAVE_AT:
+                raise RuntimeError(f"[semb-dp] resumed at step {step}")
+            resumed = trees_of(net)
+            if save_to is not None:
+                CheckpointManager(save_to, commit=LocalCommitBarrier(),
+                                  device=device).save(net)
+            for b in batches[SEMB_SAVE_AT:]:
+                trainer.fit_minibatch(b)
+            return net, resumed
+
+        def trees_of(net):
+            return {**{f"{ln}/{pn}": t.detach().cpu().clone()
+                       for ln, lp in net.params.items()
+                       for pn, t in lp.items()},
+                    **{f"{ln}/{pn}/{i}": a.detach().cpu().clone()
+                       for ln, lp in net.updater_state.items()
+                       for pn, tup in lp.items()
+                       for i, a in enumerate(tup)}}
+
+        t_resume = time.perf_counter()
+        a, a_start = world_of_one(f(tmp, "ck2"), save_to=f(tmp, "ck1"))
+        b, _ = world_of_one(f(tmp, "ck1"))
+        if not same_trees(torch, a, b):
+            raise RuntimeError("[semb-dp] a world of one resumed from the "
+                               "two ranks' checkpoint differs from one "
+                               "resumed from its own")
+        del b
+        # A's steps 5-8 against the two ranks' own steps 5-8, parameters
+        # and Adam's moments: the width-2 save carried each rank's rows
+        # and moments where a width-1 restore finds them
+        a_end = trees_of(a)
+        rkeys = sorted(a_end)
+        if sorted(got) != rkeys:
+            raise RuntimeError(f"[semb-dp] the ranks wrote {sorted(got)}, "
+                               f"a world of one holds {rkeys}")
+        resume_rel_l2, resume_err, resume_past = hold_change_l2(
+            torch, "semb-dp resume", [torch.from_numpy(got[k])
+                                      for k in rkeys],
+            [a_end[k] for k in rkeys], [a_start[k] for k in rkeys])
+        del a, a_end, a_start, got
+        resume_s = time.perf_counter() - t_resume
+
+        # ClusterWord2Vec against one process on the same batches
+        t_w2v = time.perf_counter()
+        cache, ids = w2v_corpus(w2v_sentences)
+        single = make_w2v(cache, ids, device=device, epochs=2)
+        single.device_epoch_gen = False
+        w_start = w2v_tables(torch, single)
+        single.fit()
+        mine = dict(np.load(f(tmp, "w2v.npz")))
+        w_got = [torch.from_numpy(mine["syn0"]),
+                 torch.from_numpy(mine["syn1neg"])]
+        w_want = w2v_tables(torch, single)
+        w_err, w_atol = hold_change(torch, "semb-dp cluster-word2vec",
+                                    w_got, w_want, w_start)
+        w_bitwise = all(torch.equal(g, w) for g, w in zip(w_got, w_want))
+        w2v_twin_s = time.perf_counter() - t_w2v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"vocab": vocab, "dim": W2V_DIM, "batch": SEMB_BATCH,
+           "steps": SEMB_STEPS, "ranks": 2, "backend": "gloo",
+           "table_bytes": vocab * W2V_DIM * 4,
+           "embedding_shard_bytes": [o["shard_bytes"] for o in outs],
+           "init_peak_memory_gb": [o["init_peak_bytes"] / 1e9 for o in outs],
+           "step_peak_memory_gb": [o["step_peak_bytes"] / 1e9 for o in outs],
+           "ms_per_step": [o["ms_per_step"] for o in outs],
+           "mean_ms_per_step": [float(np.mean(o["ms_per_step"][1:]))
+                                for o in outs],
+           "world_of_one_ms_per_step": twin_ms,
+           "scores": outs[0]["scores"], "setup_s": [o["setup_s"]
+                                                    for o in outs],
+           "save_s": [o.get("save_s") for o in outs], "ranks_s": ranks_s,
+           "twin_s": twin_s, "resume_s": resume_s,
+           "cluster_word2vec_twin_s": w2v_twin_s,
+           "twin_rel_l2": rel_l2, "twin_max_abs_diff": err,
+           "twin_elements_past_elementwise": past,
+           "twin_w_past_elements": past_w,
+           "twin_tolerance": f"each table's change within {TWIN_REL:g} of "
+                             "the twin's, in L2",
+           "resume_width1_bitwise_own_checkpoint": True,
+           "resume_vs_ranks_rel_l2": resume_rel_l2,
+           "resume_vs_ranks_max_abs_diff": resume_err,
+           "resume_vs_ranks_elements_past_elementwise": resume_past,
+           "cluster_word2vec_s": [o["w2v_s"] for o in outs],
+           "cluster_word2vec_max_abs_diff": w_err,
+           "cluster_word2vec_tightest_atol": w_atol,
+           "cluster_word2vec_bitwise": w_bitwise,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"[semb-dp] {json.dumps(res)} card={card}")
+    return launches
+
+
 # -- the elastic control plane and the default fit (main paths) -----------
 
 ELASTIC_STEPS = 8          # runs A and B; C stops the coordinator after
@@ -4962,7 +5588,7 @@ STORM_SNAPSHOT = 4
 STORM_KILL = 7             # KillAtStep(7) on rank 1
 STORM_LEASE_S = 1.0
 STORM_TIMEOUT_S = 300
-DEFAULT_FIT_BATCHES = 16   # one chunk at the engines' scan_chunk of 16
+DEFAULT_FIT_BATCHES = 8    # one chunk at the engines' scan_chunk of 16
 
 
 class TimedCalls:
@@ -5370,7 +5996,8 @@ shutdown_distributed()
 
 def spawn_ranks(tag, script, specs, timeout_s, logdir):
     """``script`` in one process a spec (``PYTHONPATH`` this checkout,
-    stderr to ``<logdir>/<tag>-<i>.err``); every process is waited for,
+    stderr to ``<logdir>/<tag>-<i>.err``, a crash's Python stacks
+    included: ``-X faulthandler``); every process is waited for,
     or killed once ``timeout_s`` has passed. Returns their (return
     code, stderr tail)."""
     import os
@@ -5383,7 +6010,8 @@ def spawn_ranks(tag, script, specs, timeout_s, logdir):
         logs.append(os.path.join(logdir, f"{tag}-{i}.err"))
         with open(logs[-1], "w") as err:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", script, json.dumps(spec)], cwd=root,
+                [sys.executable, "-X", "faulthandler", "-c", script,
+                 json.dumps(spec)], cwd=root,
                 env=env, stdout=subprocess.DEVNULL, stderr=err))
     deadline = time.monotonic() + timeout_s
     try:
@@ -5430,7 +6058,8 @@ def run_elastic_storm(torch, card, device="cuda"):
     from deeplearning4j_tpu_torch.observability.metrics import MetricsRegistry
     from deeplearning4j_tpu_torch.ops import dispatch
     from deeplearning4j_tpu_torch.parallel import LeaseCoordinator
-    from deeplearning4j_tpu_torch.util.model_serializer import params_to_numpy
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+    params_to_numpy, updater_state_to_numpy)
     from deeplearning4j_tpu_torch.zoo import lenet
 
     with warnings.catch_warnings():  # the synthetic-data warning
@@ -5535,7 +6164,7 @@ def run_elastic_storm(torch, card, device="cuda"):
 
 def default_vs_per_step(torch, tag, make, batches):
     """[default-fit] ``fit(batches)`` of a list at the engine's default
-    ``scan_chunk`` (16: one chunk of the 16 minibatches, one CUDA-graph
+    ``scan_chunk`` (16: one chunk of the list's minibatches, one CUDA-graph
     capture) against the same fit at ``scan_chunk = 1`` from the same
     weights: the trees bitwise equal (parameters, updater and layer
     state) after the first fit of each and again after a second, timed
@@ -5643,7 +6272,7 @@ def default_vs_per_step(torch, tag, make, batches):
 
 def run_default_fit(torch, card, tokens):
     """[default-fit] the default ``fit`` (``scan_chunk`` 16) of the large
-    models, each over 16 minibatches against its ``scan_chunk = 1`` fit
+    models, each over 8 minibatches against its ``scan_chunk = 1`` fit
     (``default_vs_per_step``): ResNet-50 (batch 128, 224 x 224, f32,
     NESTEROVS), the transformer LM of bench.py:866 (d 768, 12 layers, 16
     x 512, Adam, f32) and AlexNet (batch 128, NESTEROVS, dropout 0.5 on
@@ -6998,6 +7627,9 @@ def path_launches(kernel, paths, tags=None) -> int:
 
 
 def main() -> int:
+    # a fatal signal (a crash in native code) prints every thread's
+    # Python stack on stderr, so the phase it hit is named
+    faulthandler.enable(all_threads=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -7072,6 +7704,14 @@ def main() -> int:
     rec["launches_per_step"] = 1
     records.append(rec)
     print(f"[kernel] {json.dumps(rec)}")
+    # [semb-dp]'s dense layer at a rank's half of the global batch (the
+    # tiled route's split plan follows the shape), once a step a rank
+    rec = check_kernel(torch, F, "semb-dp", "dense", "matmul_block",
+                       {"m": SEMB_BATCH // 2, "k": W2V_DIM, "n": MLP_HIDDEN,
+                        "activation": "relu"}, gen)
+    rec["launches_per_step"] = 1
+    records.append(rec)
+    print(f"[kernel] {json.dumps(rec)}")
     check_routes(records)
     # the conv kernels' half-precision variants at ResNet-50's shapes
     half_records = check_half_kernels(torch, F, gen)
@@ -7086,41 +7726,55 @@ def main() -> int:
         layers.append(rec)
         print(f"[layer] {json.dumps(rec)}")
 
-    served = serve_lenet(torch, card)
-    trained = train_lenet(torch, card)
-    run_alexnet(torch, card)
-    alex_train = run_alexnet_train(torch, card, records)
+    print(f"[kernel-checks] phase "
+          f"{time.perf_counter() - t_start - build_s:.1f} s")
+
+    def phase(tag, fn, *args, **kw):
+        """``fn(torch, card, ...)``, its wall time printed."""
+        t0 = time.perf_counter()
+        out = fn(torch, card, *args, **kw)
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+        return out
+
+    served = phase("serve", serve_lenet)
+    trained = phase("train", train_lenet)
+    phase("alexnet", run_alexnet)
+    alex_train = phase("alexnet-train", run_alexnet_train, records)
     ids, alphabet = survey_corpus()
-    char_peep = run_charrnn(torch, card, True, ids, alphabet)
-    char_seq = run_charrnn(torch, card, False, ids, alphabet)
+    char_peep = phase("charrnn", run_charrnn, True, ids, alphabet)
+    char_seq = phase("charrnn-seq", run_charrnn, False, ids, alphabet)
     tokens = survey_bytes()
-    lm, tx_fit = run_transformer(torch, card, tokens)
-    run_transformer_twin(torch, card, tokens)
-    tx_sample = sample_transformer(torch, card, lm, tokens, seed=7)
-    tx_long = run_transformer_long(torch, card, lm, tokens, seed=8)
+    lm, tx_fit = phase("transformer", run_transformer, tokens)
+    phase("transformer-twin", run_transformer_twin, tokens)
+    tx_sample = phase("transformer-sample", sample_transformer, lm, tokens,
+                      seed=7)
+    tx_long = phase("transformer-long", run_transformer_long, lm, tokens,
+                    seed=8)
     tx_paths = (tx_fit, tx_sample, tx_long)
-    vgg = run_vgg16(torch, card)
-    conv_bn = run_conv_bn(torch, card)
-    resnet, resnet_init, resnet_data = run_resnet50(torch, card)
-    resnet_dp = run_resnet50_dp(torch, card, resnet_init, resnet_data)
+    vgg = phase("vgg16", run_vgg16)
+    conv_bn = phase("conv-bn", run_conv_bn)
+    resnet, resnet_init, resnet_data = phase("resnet50", run_resnet50)
+    resnet_dp = phase("resnet50-dp", run_resnet50_dp, resnet_init,
+                      resnet_data)
     del resnet_init, resnet_data
     # half-precision training (each returns launches and variant counts)
-    half_paths = [run_resnet50_bf16(torch, card), run_vgg16_bf16(torch, card),
-                  run_transformer_bf16(torch, card, tokens),
-                  run_f16_loss_scale(torch, card, tokens)]
-    guarded = run_guard(torch, card)
-    mega = run_megastep(torch, card)
+    half_paths = [phase("resnet50-bf16", run_resnet50_bf16),
+                  phase("vgg16-bf16", run_vgg16_bf16),
+                  phase("transformer-bf16", run_transformer_bf16, tokens),
+                  phase("f16-loss-scale", run_f16_loss_scale, tokens)]
+    guarded = phase("guard", run_guard)
+    mega = phase("megastep", run_megastep)
     # the training runtime (resume, preemption, prefetch, validation, the
     # window, the trainer's megastep) under ResNet-50, and the rollback
-    runtime = run_resnet50_runtime(torch, card)
-    rollback = run_lenet_rollback(torch, card)
+    runtime = phase("resnet50-runtime", run_resnet50_runtime)
+    rollback = phase("lenet-rollback", run_lenet_rollback)
     # the scan path: device-cached chunks and the fused TBPTT scan, each
     # against the per-step loop; then the observability around them
-    lenet_cached = run_lenet_cached(torch, card)
-    vgg_cached = run_vgg16_cached(torch, card)
-    fused_peep = run_charrnn_fused(torch, card, True, ids)
-    fused_seq = run_charrnn_fused(torch, card, False, ids)
-    telemetry = run_telemetry(torch, card)
+    lenet_cached = phase("lenet-cached", run_lenet_cached)
+    vgg_cached = phase("vgg16-cached", run_vgg16_cached)
+    fused_peep = phase("charrnn-fused", run_charrnn_fused, True, ids)
+    fused_seq = phase("charrnn-seq-fused", run_charrnn_fused, False, ids)
+    telemetry = phase("telemetry", run_telemetry)
     scan_paths = (lenet_cached, vgg_cached, telemetry)
     # the elastic control plane under ResNet-50 and LeNet-5, the default
     # fit of the large models, the serving tier, then the
@@ -7134,10 +7788,11 @@ def main() -> int:
                           ("loop", run_loop, ()),
                           ("earlystop", run_earlystop, ()),
                           ("evaluate", run_evaluate, ())):
-        t0 = time.perf_counter()
-        runtime_paths[tag] = fn(torch, card, *args)
-        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+        runtime_paths[tag] = phase(tag, fn, *args)
     nlp = run_nlp(torch, card)
+    # the row-sharded trainer on two ranks (after every phase that forms
+    # a world in this process)
+    runtime_paths["semb-dp"] = phase("semb-dp", run_semb_dp)
     half_launches = [launches for launches, _ in half_paths] + [guarded]
     half_variants = {}
     for _, variants in half_paths:
@@ -7225,6 +7880,11 @@ def main() -> int:
             mlp = next(r for r in mine
                        if r["shape_of"] == "embedding-mlp.dense")
             entry.update({f"embedding_mlp_{key}": mlp[key] for key in (
+                "kernel_route", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "max_abs_err")})
+            # and [semb-dp]'s, at a rank's half batch (one a step a rank)
+            semb = next(r for r in mine if r["shape_of"] == "semb-dp.dense")
+            entry.update({f"semb_dp_{key}": semb[key] for key in (
                 "kernel_route", "kernel_ms", "plain_ms", "library_ms",
                 "bound_ms", "max_abs_err")})
         kernels.append(entry)

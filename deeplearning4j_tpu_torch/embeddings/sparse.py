@@ -145,6 +145,43 @@ def rows_grad(loss_of_rows: Callable, *rows):
     return loss.detach(), grads
 
 
+class BatchSplit:
+    """How a step's batch rows are split over the ranks of a world, and
+    how its per-occurrence row gradients come back whole. This base is
+    one process holding every row (identity everywhere); the ranked
+    version (``parallel/row_exchange.RankSplit``) keeps a contiguous
+    shard of the rows and gathers the occurrences of every rank, in
+    the one-process order. The embedding steps (Word2Vec's, GloVe's)
+    take one as ``split``."""
+
+    n, rank = 1, 0
+
+    def rows(self, a):
+        """This rank's rows of a ``[B, ...]`` batch array."""
+        return a
+
+    def count(self, mask):
+        """The global batch's unmasked rows (at least 1)."""
+        return mask.sum().clamp_min(1.0)
+
+    def total(self, loss):
+        """The global batch's loss from this rank's part."""
+        return loss
+
+    def occurrences(self, *parts):
+        """``(ids [N], grads [N, ...])`` of the global batch from this
+        rank's ``(ids, grads)`` parts: each part flattened, the parts
+        concatenated in order."""
+        ids = torch.cat([i.reshape(-1) for i, _ in parts])
+        grads = torch.cat([g.reshape(i.numel(), *g.shape[i.dim():])
+                           for i, g in parts])
+        return ids, grads
+
+
+#: The one-process split.
+LOCAL = BatchSplit()
+
+
 def flatten_occurrences(ids, grads):
     """Collapse leading batch dims: ``[..., D]`` gradient rows and
     matching ``[...]`` ids into flat ``[N]`` / ``[N, D]`` occurrence

@@ -1,9 +1,8 @@
 """Graph embeddings (reference ``deeplearning4j-graph``): adjacency-list
 graph, vectorized random walks, DeepWalk with hierarchical softmax over
-a degree-based Huffman tree.
+a degree-based Huffman tree, edge-list loaders, txt serialization.
 
-Counterpart of ``deeplearning4j_tpu/graph``. The edge-list loaders and
-the txt vector serializer are not ported yet (ROADMAP queue 1)."""
+Counterpart of ``deeplearning4j_tpu/graph``."""
 
 from deeplearning4j_tpu_torch.graph.api import (
     Edge,
@@ -20,6 +19,15 @@ from deeplearning4j_tpu_torch.graph.deepwalk import (
     InMemoryGraphLookupTable,
 )
 from deeplearning4j_tpu_torch.graph.graph import Graph, generate_random_walks
+from deeplearning4j_tpu_torch.graph.loader import (
+    load_undirected_graph_edge_list_file,
+    load_vertex_values,
+    load_weighted_edge_list_file,
+)
+from deeplearning4j_tpu_torch.graph.serializer import (
+    load_txt_vectors,
+    write_graph_vectors,
+)
 from deeplearning4j_tpu_torch.graph.walks import (
     RandomWalkGraphIteratorProvider,
     RandomWalkIterator,
@@ -31,7 +39,9 @@ __all__ = [
     "Edge", "NoEdgeHandling", "NoEdgesException", "ParseException",
     "Vertex", "VertexSequence", "DeepWalk", "GraphHuffman",
     "GraphVectorsImpl", "InMemoryGraphLookupTable", "Graph",
-    "generate_random_walks",
+    "generate_random_walks", "load_undirected_graph_edge_list_file",
+    "load_vertex_values", "load_weighted_edge_list_file",
+    "load_txt_vectors", "write_graph_vectors",
     "RandomWalkGraphIteratorProvider", "RandomWalkIterator",
     "WeightedRandomWalkGraphIteratorProvider",
     "WeightedRandomWalkIterator",

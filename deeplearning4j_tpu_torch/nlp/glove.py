@@ -40,10 +40,14 @@ def _adagrad_rows_(table, hist, ids, grads, lr, eps=1e-8) -> None:
     table.index_add_(0, sid, torch.where(last[bcast], step, zero))
 
 
-def _glove_step(state, rows, cols, logx, fx, mask, lr):
+def _glove_step(state, rows, cols, logx, fx, mask, lr, split=sparse.LOCAL):
     """One AdaGrad batch, in place. state = (W, Wc, b, bc, hW, hWc, hb,
-    hbc). Returns the batch loss (a 0-d tensor)."""
+    hbc). Returns the batch loss (a 0-d tensor). ``split``: which rows
+    of the batch this process computes and how the row gradients come
+    back whole (``sparse.BatchSplit``; ``ClusterGlove``'s)."""
     W, Wc, b, bc, hW, hWc, hb, hbc = state
+    rows, cols, logx, fx, mask = (split.rows(a) for a in (
+        rows, cols, logx, fx, mask))
 
     def loss_fn(wi, wj, bi, bj):
         diff = (wi * wj).sum(-1) + bi + bj - logx
@@ -51,11 +55,11 @@ def _glove_step(state, rows, cols, logx, fx, mask, lr):
 
     loss, (gwi, gwj, gbi, gbj) = sparse.rows_grad(
         loss_fn, W[rows], Wc[cols], b[rows], bc[cols])
-    _adagrad_rows_(W, hW, rows, gwi, lr)
-    _adagrad_rows_(Wc, hWc, cols, gwj, lr)
-    _adagrad_rows_(b, hb, rows, gbi, lr)
-    _adagrad_rows_(bc, hbc, cols, gbj, lr)
-    return loss
+    _adagrad_rows_(W, hW, *split.occurrences((rows, gwi)), lr)
+    _adagrad_rows_(Wc, hWc, *split.occurrences((cols, gwj)), lr)
+    _adagrad_rows_(b, hb, *split.occurrences((rows, gbi)), lr)
+    _adagrad_rows_(bc, hbc, *split.occurrences((cols, gbj)), lr)
+    return split.total(loss)
 
 
 class CoOccurrences:
@@ -150,6 +154,9 @@ class Glove:
         self.syn0: Optional[np.ndarray] = None
         self._normalized: Optional[np.ndarray] = None
         self.last_loss = float("nan")
+        # the batch rows this process computes (ClusterGlove's split
+        # over its ranks; one process: all of them)
+        self._split = sparse.LOCAL
 
     def load_state(self, state) -> None:
         """Adopt ``(W, Wc, b, bc, hW, hWc, hb, hbc)`` host arrays (the
@@ -197,7 +204,7 @@ class Glove:
                     self._state,
                     self._put(rb), self._put(cb),
                     self._put(lb), self._put(fb),
-                    self._put(mask), lr,
+                    self._put(mask), lr, self._split,
                 )
                 epoch_losses.append(loss)  # device scalar; no sync
             self.last_loss = float(

@@ -24,7 +24,11 @@ Routes of ``SequenceVectors.fit``, as in the JAX package:
   ``torch.Generator``, one function (``epoch_draws``) making the three
   draws and the epoch body (``sg_device_epoch``) taking them as
   arguments. ``device_epoch_gen="auto"`` is on for a table on the card
-  and off on the CPU;
+  and off on the CPU. On the card an epoch is one CUDA-graph replay
+  (``EpochGraph``; the JAX package runs all epochs as one dispatch):
+  captured once for each corpus and pair of tables, its draws and
+  alphas taken eagerly into static buffers before each replay, in the
+  eager route's generator order, so the two routes give the same bits;
 - chunked host pairs: ``scan_chunk`` batches a chunk, prepared on the
   host (numpy draws, the JAX package's streams exactly) and replayed
   from a device-resident epoch cache;
@@ -86,9 +90,15 @@ def _dot_rows(v, u):
 # ---------------------------------------------------------------------------
 
 
-def _ns_step_raw(syn0, syn1neg, centers, contexts, negs, mask, alpha):
+def _ns_step_raw(syn0, syn1neg, centers, contexts, negs, mask, alpha,
+                 split=sparse.LOCAL):
     """Negative-sampling step (SkipGram: centers = input word ids,
-    contexts = predicted word ids)."""
+    contexts = predicted word ids). ``split``: which rows of the batch
+    this process computes and how the row gradients come back whole
+    (``sparse.BatchSplit``; the cluster trainers')."""
+    centers, contexts, negs, mask = (split.rows(a) for a in (
+        centers, contexts, negs, mask))
+    count = split.count(mask)
     v = syn0[centers]                        # [B, D]
     u_pos = syn1neg[contexts]                # [B, D]
     u_neg = syn1neg[negs]                    # [B, K, D]
@@ -99,36 +109,40 @@ def _ns_step_raw(syn0, syn1neg, centers, contexts, negs, mask, alpha):
     def loss_fn(v_, up_, un_):
         pos = F.logsigmoid((v_ * up_).sum(-1))
         neg = (nvalid * F.logsigmoid(-_dot_rows(v_, un_))).sum(-1)
-        return -(mask * (pos + neg)).sum() / mask.sum().clamp_min(1.0)
+        return -(mask * (pos + neg)).sum() / count
 
     loss, (gv, gp, gn) = sparse.rows_grad(loss_fn, v, u_pos, u_neg)
-    sparse.sgd_rows_(syn0, centers, gv, alpha)
-    sparse.sgd_rows_(syn1neg, torch.cat([contexts, negs.reshape(-1)]),
-                     torch.cat([gp, gn.reshape(-1, gn.shape[-1])]), alpha)
-    return loss
+    sparse.sgd_rows_(syn0, *split.occurrences((centers, gv)), alpha)
+    sparse.sgd_rows_(syn1neg, *split.occurrences((contexts, gp),
+                                                 (negs, gn)), alpha)
+    return split.total(loss)
 
 
 def _hs_step_raw(syn0, syn1, centers, codes, points, path_mask, mask,
-                 alpha):
+                 alpha, split=sparse.LOCAL):
     """Hierarchical-softmax step: codes/points are the context word's
     padded Huffman path ([B, L]); loss per node is
     -log σ((1-2·code)·(v_center · syn1[point]))."""
+    centers, codes, points, path_mask, mask = (split.rows(a) for a in (
+        centers, codes, points, path_mask, mask))
+    count = split.count(mask)
     v = syn0[centers]                        # [B, D]
     u = syn1[points]                         # [B, L, D]
     sign = 1.0 - 2.0 * codes
 
     def loss_fn(v_, u_):
         ll = F.logsigmoid(sign * _dot_rows(v_, u_)) * path_mask
-        return -(mask * ll.sum(-1)).sum() / mask.sum().clamp_min(1.0)
+        return -(mask * ll.sum(-1)).sum() / count
 
     loss, (gv, gu) = sparse.rows_grad(loss_fn, v, u)
-    sparse.sgd_rows_(syn0, centers, gv, alpha)
-    sparse.sgd_rows_(syn1, points, gu, alpha)
-    return loss
+    sparse.sgd_rows_(syn0, *split.occurrences((centers, gv)), alpha)
+    sparse.sgd_rows_(syn1, *split.occurrences((points, gu)), alpha)
+    return split.total(loss)
 
 
 def _sg_scan_steps(syn0, syn1, syn1neg, centers_k, contexts_k, codes_k,
-                   points_k, pmask_k, negs_k, mask_k, alphas_k):
+                   points_k, pmask_k, negs_k, mask_k, alphas_k,
+                   split=sparse.LOCAL):
     """``k`` skip-gram batches of a prepared chunk, in order (the JAX
     package's ``lax.scan``); the HS and NS legs run where their table
     exists. Returns the ``[k]`` losses."""
@@ -138,11 +152,11 @@ def _sg_scan_steps(syn0, syn1, syn1neg, centers_k, contexts_k, codes_k,
         if syn1 is not None:
             loss = loss + _hs_step_raw(
                 syn0, syn1, centers_k[i], codes_k[i], points_k[i],
-                pmask_k[i], mask_k[i], alphas_k[i])
+                pmask_k[i], mask_k[i], alphas_k[i], split)
         if syn1neg is not None:
             loss = loss + _ns_step_raw(
                 syn0, syn1neg, centers_k[i], contexts_k[i], negs_k[i],
-                mask_k[i], alphas_k[i])
+                mask_k[i], alphas_k[i], split)
         losses.append(loss)
     return torch.stack(losses)
 
@@ -264,15 +278,102 @@ def sg_device_epoch(syn0, syn1neg, corpus: DeviceCorpus, draws, alphas, *,
     return torch.stack(losses)
 
 
+class EpochGraph:
+    """One epoch of ``sg_device_epoch`` over ``corpus`` writing the
+    tables ``syn0`` / ``syn1neg`` in place, as one CUDA-graph replay.
+
+    The graph reads static buffers: the epoch's draws (``keep``, ``b``,
+    ``shift``) and its ``alphas``. ``fill`` takes the draws from the
+    generator with ``epoch_draws`` (the eager route's calls, in its
+    order) and copies them and the alphas in before each replay, so a
+    replay computes what the eager epoch computes from the same
+    generator state. The graph holds the tables by address: it serves
+    only the tensors it was captured on (``bound_to``); a table that is
+    rebound (``InMemoryLookupTable.load_numpy``) gets a new graph, and
+    the old tensors are never written again. The capture follows one
+    warm-up epoch on copies of the tables (on a side stream, its result
+    dropped); ``capture_s`` is the warm-up and capture's wall time.
+    ``replay`` needs the card; the buffers and ``fill`` work anywhere."""
+
+    def __init__(self, syn0, syn1neg, corpus: "DeviceCorpus", *,
+                 negative: int, batch: int):
+        self.syn0, self.syn1neg = syn0, syn1neg
+        self.corpus = corpus
+        self.negative, self.batch = int(negative), int(batch)
+        dev = syn0.device
+        n = corpus.ids.shape[0]
+        self.keep = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.b = torch.ones(n, dtype=torch.int64, device=dev)
+        self.shift = torch.zeros((), dtype=torch.int64, device=dev)
+        self.alphas = torch.zeros(n // self.batch, dtype=torch.float32,
+                                  device=dev)
+        self.graph = None
+        self.losses = None
+        self.capture_s = None
+
+    def bound_to(self, syn0, syn1neg) -> bool:
+        return self.syn0 is syn0 and self.syn1neg is syn1neg
+
+    def fill(self, gen: torch.Generator, alphas: torch.Tensor) -> None:
+        """The next epoch's draws from ``gen`` and its ``[n_batches]``
+        alphas into the static buffers."""
+        keep, b, shift = epoch_draws(gen, self.corpus)
+        self.keep.copy_(keep)
+        self.b.copy_(b)
+        self.shift.copy_(shift.reshape(()))
+        self.alphas.copy_(alphas)
+
+    def _body(self, syn0, syn1neg) -> torch.Tensor:
+        return sg_device_epoch(syn0, syn1neg, self.corpus,
+                               (self.keep, self.b, self.shift), self.alphas,
+                               negative=self.negative, batch=self.batch)
+
+    def capture(self) -> None:
+        import gc
+        import time
+
+        t0 = time.perf_counter()
+        dev = self.syn0.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(self.syn0.clone(), self.syn1neg.clone())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.losses = self._body(self.syn0, self.syn1neg)
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> torch.Tensor:
+        """One epoch from the filled buffers; returns its ``[n_batches]``
+        losses (a copy)."""
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        return self.losses.clone()
+
+
 def _cbow_hidden(ctx_rows, ctx_mask):
     denom = ctx_mask.sum(-1, keepdim=True).clamp_min(1.0)
     return (ctx_rows * ctx_mask[..., None]).sum(1) / denom   # [B, D]
 
 
 def _cbow_ns_step(syn0, syn1neg, ctx_ids, ctx_mask, targets, negs, mask,
-                  alpha):
+                  alpha, split=sparse.LOCAL):
     """CBOW + negative sampling: mean of context vectors predicts the
     center word (reference ``CBOW.java`` iterateSample)."""
+    ctx_ids, ctx_mask, targets, negs, mask = (split.rows(a) for a in (
+        ctx_ids, ctx_mask, targets, negs, mask))
+    count = split.count(mask)
     ctx = syn0[ctx_ids]                      # [B, W, D]
     u_pos = syn1neg[targets]
     u_neg = syn1neg[negs]
@@ -282,19 +383,23 @@ def _cbow_ns_step(syn0, syn1neg, ctx_ids, ctx_mask, targets, negs, mask,
         h = _cbow_hidden(c_, ctx_mask)
         pos = F.logsigmoid((h * up_).sum(-1))
         neg = (nvalid * F.logsigmoid(-_dot_rows(h, un_))).sum(-1)
-        return -(mask * (pos + neg)).sum() / mask.sum().clamp_min(1.0)
+        return -(mask * (pos + neg)).sum() / count
 
     loss, (gc, gp, gn) = sparse.rows_grad(loss_fn, ctx, u_pos, u_neg)
-    sparse.sgd_rows_(syn0, ctx_ids, gc, alpha)
-    sparse.sgd_rows_(syn1neg, torch.cat([targets, negs.reshape(-1)]),
-                     torch.cat([gp, gn.reshape(-1, gn.shape[-1])]), alpha)
-    return loss
+    sparse.sgd_rows_(syn0, *split.occurrences((ctx_ids, gc)), alpha)
+    sparse.sgd_rows_(syn1neg, *split.occurrences((targets, gp),
+                                                 (negs, gn)), alpha)
+    return split.total(loss)
 
 
 def _cbow_hs_step(syn0, syn1, ctx_ids, ctx_mask, codes, points, path_mask,
-                  mask, alpha):
+                  mask, alpha, split=sparse.LOCAL):
     """CBOW + hierarchical softmax: context mean against the TARGET
     word's Huffman path."""
+    ctx_ids, ctx_mask, codes, points, path_mask, mask = (
+        split.rows(a) for a in (ctx_ids, ctx_mask, codes, points,
+                                path_mask, mask))
+    count = split.count(mask)
     ctx = syn0[ctx_ids]
     u = syn1[points]                         # [B, L, D]
     sign = 1.0 - 2.0 * codes
@@ -302,12 +407,12 @@ def _cbow_hs_step(syn0, syn1, ctx_ids, ctx_mask, codes, points, path_mask,
     def loss_fn(c_, u_):
         h = _cbow_hidden(c_, ctx_mask)
         ll = F.logsigmoid(sign * _dot_rows(h, u_)) * path_mask
-        return -(mask * ll.sum(-1)).sum() / mask.sum().clamp_min(1.0)
+        return -(mask * ll.sum(-1)).sum() / count
 
     loss, (gc, gu) = sparse.rows_grad(loss_fn, ctx, u)
-    sparse.sgd_rows_(syn0, ctx_ids, gc, alpha)
-    sparse.sgd_rows_(syn1, points, gu, alpha)
-    return loss
+    sparse.sgd_rows_(syn0, *split.occurrences((ctx_ids, gc)), alpha)
+    sparse.sgd_rows_(syn1, *split.occurrences((points, gu)), alpha)
+    return split.total(loss)
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +536,11 @@ class SequenceVectors:
         self.device_epoch_gen = "auto"
         self._dev_gen: Optional[torch.Generator] = None
         self._dev_corpus = None  # (key, DeviceCorpus)
+        # on the card, an epoch as one CUDA-graph replay (EpochGraph)
+        self._dev_graph: Optional[EpochGraph] = None
+        # the batch rows this process computes (the cluster trainers'
+        # split over their ranks; one process: all of them)
+        self._split = sparse.LOCAL
         self._dev_upload_bytes = 0
         # device-route continuation: a repeated fit() draws fresh epochs
         # (the generator runs on) and continues the lr schedule where
@@ -555,6 +665,7 @@ class SequenceVectors:
         self._epoch_cache.clear()
         self._epoch_cache_bytes = 0
         self._dev_corpus = None
+        self._dev_graph = None
 
     def _epoch_cache_key(self, ep_seed: int, step: int):
         """Everything that shapes the prepared chunk arrays: epoch
@@ -629,6 +740,7 @@ class SequenceVectors:
         dev_key = (B, self.negative, self.sample, self.seed)
         if self._dev_corpus is not None and self._dev_corpus[0] != dev_key:
             self._dev_corpus = None
+            self._dev_graph = None
         if self._dev_corpus is None:
             flat = self._flat_corpus_static()
             if flat is None:
@@ -659,12 +771,29 @@ class SequenceVectors:
                 *host, n, self.window, self.lookup.syn0.device))
         return self._dev_corpus[1]
 
-    def _fit_device_gen(self, draws=None) -> Optional[torch.Tensor]:
+    def epoch_graph(self, corpus: DeviceCorpus) -> EpochGraph:
+        """The captured epoch of ``corpus`` over the current tables: the
+        kept one while it was built for this corpus and these table
+        tensors, else a new one (captured at its first replay)."""
+        lk = self.lookup
+        g = self._dev_graph
+        if g is None or g.corpus is not corpus or not g.bound_to(
+                lk.syn0, lk.syn1neg):
+            g = self._dev_graph = EpochGraph(
+                lk.syn0, lk.syn1neg, corpus, negative=self.negative,
+                batch=self.batch_size)
+        return g
+
+    def _fit_device_gen(self, draws=None,
+                        eager: bool = False) -> Optional[torch.Tensor]:
         """The on-device generation route: ``epochs`` epochs, each drawn
         from the trainer's ``torch.Generator`` (seeded with ``seed`` at
         the first device fit and running on across fits) unless
-        ``draws`` (one ``(keep, b, shift)`` per epoch) are given.
-        Returns the ``[epochs, n_batches]`` losses on the device."""
+        ``draws`` (one ``(keep, b, shift)`` per epoch) are given. On the
+        card, without ``draws`` and unless ``eager`` (the reference the
+        replays are held to), each epoch is a replay of the captured
+        epoch (``epoch_graph``). Returns the ``[epochs, n_batches]``
+        losses on the device."""
         corpus = self.device_corpus()
         if corpus is None:
             return None
@@ -681,7 +810,13 @@ class SequenceVectors:
             self.learning_rate, self.min_learning_rate, float(total),
             float(self._dev_steps_done), E, n_batches, B)).to(dev)
         losses = []
+        graph = (self.epoch_graph(corpus) if draws is None
+                 and dev.type == "cuda" and not eager else None)
         for e in range(E):
+            if graph is not None:
+                graph.fill(self._dev_gen, alphas[e])
+                losses.append(graph.replay())
+                continue
             d = (epoch_draws(self._dev_gen, corpus) if draws is None
                  else tuple(torch.as_tensor(np.array(a)).to(dev)
                             for a in draws[e]))
@@ -837,7 +972,7 @@ class SequenceVectors:
         lk = self.lookup
         for (ck, ok, ckd, ptd, pmd, negs, mk, alphas, k) in chunks:
             _sg_scan_steps(lk.syn0, lk.syn1, lk.syn1neg, ck, ok, ckd, ptd,
-                           pmd, negs, mk, alphas)
+                           pmd, negs, mk, alphas, self._split)
             step += k
         return step
 
@@ -863,11 +998,12 @@ class SequenceVectors:
         if self.use_hs:
             codes, points, pmask = self._path_arrays(contexts)
             _hs_step_raw(lk.syn0, lk.syn1, cb, codes, points, pmask, mask,
-                         alpha)
+                         alpha, self._split)
         if self.negative > 0:
             negs = _to_device(self._sample_negatives(len(centers), step),
                               dev)
-            _ns_step_raw(lk.syn0, lk.syn1neg, cb, ob, negs, mask, alpha)
+            _ns_step_raw(lk.syn0, lk.syn1neg, cb, ob, negs, mask, alpha,
+                         self._split)
 
     def _apply_cbow_batch(self, targets, ctx_ids, ctx_mask, mask, alpha,
                           step):
@@ -880,12 +1016,12 @@ class SequenceVectors:
         if self.use_hs:
             codes, points, pmask = self._path_arrays(targets)
             _cbow_hs_step(lk.syn0, lk.syn1, cb, cm, codes, points, pmask,
-                          mask, alpha)
+                          mask, alpha, self._split)
         if self.negative > 0:
             negs = _to_device(self._sample_negatives(len(targets), step),
                               dev)
             _cbow_ns_step(lk.syn0, lk.syn1neg, cb, cm, tb, negs, mask,
-                          alpha)
+                          alpha, self._split)
 
     def _sample_negatives(self, b: int, step: int) -> np.ndarray:
         rng = np.random.RandomState((self.seed + step) % (2**31))

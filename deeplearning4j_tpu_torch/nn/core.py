@@ -167,16 +167,19 @@ def maybe_remat(fn: Callable, policy: str) -> Callable:
 
 
 def reg_penalty(layer, layer_params):
-    """L1/L2 penalty for one layer (reference calcL1/calcL2)."""
+    """L1/L2 penalty for one layer (reference calcL1/calcL2), each
+    parameter's term the whole parameter's (``layer.whole_sum``)."""
     reg = 0.0
     if layer.l1 > 0.0 or layer.l2 > 0.0:
         for pn in layer.regularizable_params():
             if pn in layer_params:
                 w = layer_params[pn]
                 if layer.l2 > 0.0:
-                    reg = reg + 0.5 * layer.l2 * torch.sum(w * w)
+                    reg = reg + layer.whole_sum(
+                        pn, w, 0.5 * layer.l2 * torch.sum(w * w))
                 if layer.l1 > 0.0:
-                    reg = reg + layer.l1 * torch.sum(torch.abs(w))
+                    reg = reg + layer.whole_sum(
+                        pn, w, layer.l1 * torch.sum(torch.abs(w)))
     return reg
 
 
@@ -392,7 +395,8 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
                 state, lrs: Dict[str, float], t: int, *,
                 guarded: bool = False, ls=None, sg=None, sg_cfg=None,
                 update: Optional[Callable] = None,
-                telemetry: bool = False) -> StepOut:
+                telemetry: bool = False,
+                norm_sq: Optional[Callable] = None) -> StepOut:
     """The post-gradient half shared by the engine steps and the
     distributed trainer's (JAX ``finish_step``): with ``ls`` (the
     incoming loss-scale state; the caller scaled the loss through
@@ -406,7 +410,9 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
     (the incoming EWMA state and its ``StatGuardConfig``). Every branch
     is a select on the device: nothing is read back on the host. With
     ``telemetry`` the step also returns the (unscaled) gradients' global
-    L2 norm, one more output of the same computation."""
+    L2 norm, one more output of the same computation. ``norm_sq(grads)``
+    replaces the squared global norm's sum (the distributed trainer's,
+    over row-sharded tables)."""
     from deeplearning4j_tpu_torch.resilience.guard import (
         divergence_ok,
         grad_global_norm_sq,
@@ -427,7 +433,7 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
         # the squared global norm of the (unscaled) gradients, taken
         # once: the overflow probe, the divergence guard's, the
         # statistical guard's and the telemetry's gradient norm read it
-        nsq = grad_global_norm_sq(grads)
+        nsq = (norm_sq or grad_global_norm_sq)(grads)
     gnorm = torch.sqrt(nsq) if telemetry else None
     if ls is not None:
         # the overflow probe: a non-finite gradient skips the update and
@@ -842,8 +848,30 @@ def can_megastep(model) -> bool:
             and conf.optimization_algo == "STOCHASTIC_GRADIENT_DESCENT"
             and not model.recurrent_names()
             and (guard is None or guard.policy != ROLLBACK)
-            and not any(getattr(layer, "row_sharded", False)
-                        for layer in model.layer_confs()))
+            and not has_row_sharded_embedding(model))
+
+
+def named_layer_confs(model) -> list:
+    """``(name, layer spec)`` of every layer of either engine: the
+    sequential list's, or the layer-bearing vertices of a graph."""
+    if hasattr(model.conf, "vertices"):
+        return list(zip(model.layer_vertex_names, model.layer_confs()))
+    return list(zip(model.layer_names, model.conf.layers))
+
+
+def has_row_sharded_embedding(model) -> bool:
+    """True when either engine's config carries a
+    ``SparseEmbeddingLayer`` with ``row_sharded=True`` (JAX
+    ``has_row_sharded_embedding``): the marker the gates key on.
+    ``DistributedTrainer`` shards that layer's ``W`` rows over its ranks,
+    megastep refuses the model, and the step kind carries ``+semb``."""
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        SparseEmbeddingLayer,
+    )
+
+    return any(isinstance(lc, SparseEmbeddingLayer)
+               and getattr(lc, "row_sharded", False)
+               for lc in model.layer_confs())
 
 
 class Chunk(NamedTuple):
@@ -1908,14 +1936,59 @@ def zero_gather_updater_state(upd_state, params, shards: int):
             for ln, lp in upd_state.items()}
 
 
+def row_gather_trees(params, upd_state, layout):
+    """The row-sharded layout back to the whole tables
+    (``layout = {"shards": n, "rank": r, "layers": [names]}``, set by
+    the distributed trainer): each named layer's ``W`` and its updater
+    rows gathered from every rank through the all_reduce-only exchange
+    (``parallel/row_exchange.py``, bit for bit; every rank must call
+    this, in lockstep). Returns new ``(params, updater state)``; the
+    other leaves are the same tensors."""
+    from deeplearning4j_tpu_torch.parallel import row_exchange
+
+    n, rank = int(layout["shards"]), int(layout["rank"])
+    if n > 1 and not (torch.distributed.is_available()
+                      and torch.distributed.is_initialized()):
+        raise RuntimeError(
+            f"an embedding table is row-sharded over {n} ranks and "
+            "torch.distributed is not initialized: gather it (write_model, "
+            "fit) before leaving the world")
+    params = {ln: dict(lp) for ln, lp in params.items()}
+    upd = (None if upd_state is None else
+           {ln: dict(lp) for ln, lp in upd_state.items()})
+    for ln in layout["layers"]:
+        params[ln]["W"] = row_exchange.gather_table(params[ln]["W"], n,
+                                                    rank)
+        if upd is not None and "W" in upd.get(ln, {}):
+            upd[ln]["W"] = tuple(row_exchange.gather_table(a, n, rank)
+                                 for a in upd[ln]["W"])
+    return params, upd
+
+
+def canonical_trees(model):
+    """``(params, updater state)`` of ``model`` in the canonical,
+    replicated layout, without changing the model: a ZeRO-1 flat layout
+    and row-sharded tables gathered (collectives every rank joins). What
+    a checkpoint holds."""
+    params, upd = model.params, model.updater_state
+    rows = getattr(model, "_row_layout", None)
+    if rows:
+        params, upd = row_gather_trees(params, upd, rows)
+    layout = getattr(model, "_zero_layout", None)
+    if upd is not None and layout:
+        upd = zero_gather_updater_state(upd, params, layout["shards"])
+    return params, upd
+
+
 def canonicalize_updater_state(model) -> None:
     """Bring a model whose updater state is in ZeRO-1's flat layout
-    (``model._zero_layout = {"shards": n}``, set by the distributed
-    trainer) back to parameter-shaped moments, in place. A collective
-    on more than one rank: the engines' ``fit`` and a new trainer call
-    it on every rank."""
-    layout = getattr(model, "_zero_layout", None)
-    if layout:
-        model.updater_state = zero_gather_updater_state(
-            model.updater_state, model.params, layout["shards"])
+    (``model._zero_layout = {"shards": n}``) or whose embedding tables
+    are row-sharded (``model._row_layout``), both set by the distributed
+    trainer, back to parameter-shaped, whole trees, in place. A
+    collective on more than one rank: the engines' ``fit`` and a new
+    trainer call it on every rank."""
+    if getattr(model, "_zero_layout", None) or getattr(
+            model, "_row_layout", None):
+        model.params, model.updater_state = canonical_trees(model)
     model._zero_layout = None
+    model._row_layout = None

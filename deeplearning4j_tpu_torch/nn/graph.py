@@ -107,6 +107,9 @@ class ComputationGraph(EngineApi):
         # {"shards": n} while the updater state lies in ZeRO-1's flat
         # layout (set by the distributed trainer); None: parameter-shaped
         self._zero_layout = None
+        # {"shards", "rank", "layers"} while SparseEmbeddingLayer tables
+        # hold this rank's rows only (the distributed trainer); None: whole
+        self._row_layout = None
         # (shape, dtype) signatures of the inference forwards run, and
         # the input shapes of installed AOT artifacts (engine_api.py)
         self._output_signatures: set = set()
@@ -168,6 +171,7 @@ class ComputationGraph(EngineApi):
             for n in self.layer_vertex_names}
         self.updater_state = self.updater_def.init(self.params)
         self._zero_layout = None
+        self._row_layout = None
         return self
 
     # ------------------------------------------------------------------

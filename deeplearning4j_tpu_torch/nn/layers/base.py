@@ -159,6 +159,12 @@ class LayerSpec:
     def regularizable_params(self) -> tuple:
         return ("W",)
 
+    def whole_sum(self, name: str, p: torch.Tensor, term):
+        """A sum over parameter ``name`` (``p``), its L1/L2 penalty
+        term, as the whole parameter's: here ``term`` itself (a
+        row-sharded table's shard sums it over the ranks)."""
+        return term
+
     # -- forward -----------------------------------------------------------
 
     def apply(self, params, x, state, *, train=False, rng=None, mask=None):

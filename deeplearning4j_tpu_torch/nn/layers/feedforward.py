@@ -173,12 +173,44 @@ class EmbeddingLayer(FeedForwardLayerSpec):
 @register_layer
 @dataclass(frozen=True)
 class SparseEmbeddingLayer(EmbeddingLayer):
-    """``EmbeddingLayer`` whose ``[vocab, dim]`` table is meant to shard
-    its rows over the data-parallel world (the ``embeddings/``
-    subsystem's layout). The forward is the base layer's gather. The
-    JAX trainer's row-sharded branch is not ported yet:
-    ``DistributedTrainer`` over more than one rank refuses a layer with
-    ``row_sharded=True`` (ROADMAP queue 1); at one rank, or with
-    ``row_sharded=False``, it trains as the base layer does."""
+    """``EmbeddingLayer`` whose ``[vocab, dim]`` table shards its rows
+    over the data-parallel world (the ``embeddings/`` subsystem's
+    layout). ``DistributedTrainer`` over ``N`` ranks keeps on rank ``i``
+    rows ``[i·V/N, (i+1)·V/N)`` of ``W`` and of its updater state, and
+    nothing else of them (``row_sharded=False``, ``zero=True``, or a
+    vocabulary ``N`` does not divide: replicated, as in the JAX
+    trainer). A ``W`` that holds fewer rows than ``n_in`` is such a
+    shard: the forward then gathers the batch's rows from their owners
+    and the backward sends each row's gradient to its owner
+    (``parallel/row_exchange.py``), a collective every rank of the
+    default group joins with the same batch size. With the whole table
+    the forward is the base layer's gather."""
 
     row_sharded: bool = True
+
+    def apply(self, params, x, state, *, train=False, rng=None, mask=None):
+        w = params["W"]
+        if w.shape[0] == self.n_in:
+            return super().apply(params, x, state, train=train, rng=rng,
+                                 mask=mask)
+        from deeplearning4j_tpu_torch.parallel import row_exchange
+
+        n, rank = row_exchange.world()
+        if w.shape[0] * n != self.n_in:
+            raise RuntimeError(
+                f"SparseEmbeddingLayer: W holds {w.shape[0]} of "
+                f"{self.n_in} rows, which is not one shard of a world of "
+                f"{n}; gather the table (the engines' fit, write_model) "
+                "before leaving the world")
+        rows = row_exchange.gather_rows(w, x.reshape(-1), n, rank)
+        return self.activate_fn()(rows + params["b"]), state
+
+    def whole_sum(self, name, p, term):
+        """A shard's penalty term summed over the ranks (each rank's
+        score then holds the whole table's term, and each owner the
+        gradient of its rows)."""
+        if name != "W" or p.shape[0] == self.n_in:
+            return term
+        from deeplearning4j_tpu_torch.parallel import row_exchange
+
+        return row_exchange.sum_ranks(term)

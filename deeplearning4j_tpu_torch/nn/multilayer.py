@@ -107,6 +107,9 @@ class MultiLayerNetwork(EngineApi):
         # {"shards": n} while the updater state lies in ZeRO-1's flat
         # layout (set by the distributed trainer); None: parameter-shaped
         self._zero_layout = None
+        # {"shards", "rank", "layers"} while SparseEmbeddingLayer tables
+        # hold this rank's rows only (the distributed trainer); None: whole
+        self._row_layout = None
         # rnn_time_step's carried state (the reference's stateMap)
         self._rnn_state: Dict[str, dict] = {}
         self._stream_steps = 0
@@ -160,6 +163,7 @@ class MultiLayerNetwork(EngineApi):
         }
         self.updater_state = self.updater_def.init(self.params)
         self._zero_layout = None
+        self._row_layout = None
         return self
 
     # -- inference ---------------------------------------------------------

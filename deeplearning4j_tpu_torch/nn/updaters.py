@@ -15,9 +15,10 @@ a caller may keep the previous step's parameters and state.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -178,30 +179,35 @@ def apply_updater(s: UpdaterSettings, grad: torch.Tensor, state: tuple,
 
 @torch.no_grad()
 def normalize_layer_grads(s: UpdaterSettings,
-                          grads: Dict[str, torch.Tensor]
+                          grads: Dict[str, torch.Tensor],
+                          sq: Optional[Callable] = None
                           ) -> Dict[str, torch.Tensor]:
-    """Reference ``GradientNormalization``, on one layer's gradients."""
+    """Reference ``GradientNormalization``, on one layer's gradients.
+    ``sq(name, g)`` is the sum of a gradient's squares the norms take
+    (default ``torch.sum(g * g)``; the distributed trainer's sums a
+    row-sharded table's over the ranks)."""
     gn = s.gradient_normalization
     if gn in ("None", None):
         return grads
+    if sq is None:
+        def sq(_, g):
+            return torch.sum(g * g)
     thr = s.gradient_normalization_threshold
     if gn == "RenormalizeL2PerLayer":
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values())
-                          + 1e-12)
+        norm = torch.sqrt(sum(sq(k, g) for k, g in grads.items()) + 1e-12)
         return {k: g / norm for k, g in grads.items()}
     if gn == "RenormalizeL2PerParamType":
-        return {k: g / torch.sqrt(torch.sum(g * g) + 1e-12)
+        return {k: g / torch.sqrt(sq(k, g) + 1e-12)
                 for k, g in grads.items()}
     if gn == "ClipElementWiseAbsoluteValue":
         return {k: torch.clamp(g, -thr, thr) for k, g in grads.items()}
     if gn == "ClipL2PerLayer":
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values())
-                          + 1e-12)
+        norm = torch.sqrt(sum(sq(k, g) for k, g in grads.items()) + 1e-12)
         scale = torch.clamp(thr / norm, max=1.0)
         return {k: g * scale for k, g in grads.items()}
     if gn == "ClipL2PerParamType":
-        return {k: g * torch.clamp(thr / torch.sqrt(torch.sum(g * g)
-                                                    + 1e-12), max=1.0)
+        return {k: g * torch.clamp(thr / torch.sqrt(sq(k, g) + 1e-12),
+                                   max=1.0)
                 for k, g in grads.items()}
     raise ValueError(f"Unknown gradient normalization '{gn}'")
 
@@ -268,8 +274,11 @@ class MultiLayerUpdaterDef:
 
     @torch.no_grad()
     def update(self, grads: Params, state: State, params: Params,
-               lrs: Dict[str, float], t: int) -> Tuple[Params, State]:
-        """Return ``(new_params, new_state)``.
+               lrs: Dict[str, float], t: int,
+               sq: Optional[Callable] = None) -> Tuple[Params, State]:
+        """Return ``(new_params, new_state)``. ``sq(layer, name, g)``:
+        the sum of squares the gradient normalization takes
+        (``normalize_layer_grads``).
 
         L1/L2 are not added here: the penalty is part of the network's
         score, so the gradient already holds it once. Biases (names in
@@ -278,7 +287,9 @@ class MultiLayerUpdaterDef:
         new_params: Params = {}
         new_state: State = {}
         for ln, lgrads in grads.items():
-            lgrads = normalize_layer_grads(self.settings[ln], lgrads)
+            lgrads = normalize_layer_grads(
+                self.settings[ln], lgrads,
+                None if sq is None else functools.partial(sq, ln))
             np_, ns_ = {}, {}
             for pn, g in lgrads.items():
                 np_[pn], ns_[pn] = self.update_param(

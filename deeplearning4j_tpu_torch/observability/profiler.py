@@ -173,7 +173,9 @@ def transform_kind_suffix(model) -> str:
     """The step's flavour as a key suffix (JAX
     ``transform_kind_suffix``'s parts that the port has): remat, loss
     scaling, the statistical guard, gradient accumulation, megastep and
-    ZeRO's layout."""
+    ZeRO's layout, and ``+semb`` for a row-sharded embedding table (an
+    artifact traced with the table sharded is refused by a replicated
+    model, and the other way round)."""
     from deeplearning4j_tpu_torch.nn import core
 
     parts = []
@@ -191,6 +193,8 @@ def transform_kind_suffix(model) -> str:
         parts.append(f"mega:{model.megastep}")
     if getattr(model, "_zero_layout", None):
         parts.append("zero")
+    if core.has_row_sharded_embedding(model):
+        parts.append("semb")
     return "".join("+" + p for p in parts)
 
 

@@ -3,7 +3,9 @@
 with ``torch.distributed``: one process a device, NCCL on the card,
 gloo on the CPU), the elastic control plane (``control_plane.py``:
 lease coordinator, worker agents) and elastic training
-(``elastic.py``: the snapshot ring, survivor-world recovery), and
+(``elastic.py``: the snapshot ring, survivor-world recovery), the
+cluster NLP trainers (``cluster_nlp.py``: a batch split over the
+ranks, its row gradients folded whole on every rank), and
 sequence parallelism's materialized reference attention
 (``sequence.attention``; ring attention arrives with a later
 distribution slice, ROADMAP)."""
@@ -41,7 +43,8 @@ from deeplearning4j_tpu_torch.parallel.sequence import attention
 from deeplearning4j_tpu_torch.parallel.trainer import DistributedTrainer
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 
-__all__ = ["AsyncDispatchWindow", "ControlPlaneException",
+__all__ = ["AsyncDispatchWindow", "ClusterGlove", "ClusterSequenceVectors",
+           "ClusterWord2Vec", "ControlPlaneException",
            "CoordinatorLostException", "DeviceLostException",
            "DistributedTrainer", "ElasticTrainer", "HeartbeatMonitor",
            "HostElasticTrainer", "HostFencedException", "LeaseCoordinator",
@@ -50,4 +53,17 @@ __all__ = ["AsyncDispatchWindow", "ControlPlaneException",
            "TcpTransport", "WorkerAgent", "attention", "build_mesh",
            "init_distributed", "init_distributed_elastic",
            "process_local_batch", "reform_distributed",
-           "shutdown_distributed"]
+           "shutdown_distributed", "TextPipeline"]
+
+# the cluster NLP trainers import nlp/, which imports the kernels, whose
+# attention imports this package: resolved at first use
+_CLUSTER_NLP = ("ClusterGlove", "ClusterSequenceVectors", "ClusterWord2Vec",
+                "TextPipeline")
+
+
+def __getattr__(name):
+    if name in _CLUSTER_NLP:
+        from deeplearning4j_tpu_torch.parallel import cluster_nlp
+
+        return getattr(cluster_nlp, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

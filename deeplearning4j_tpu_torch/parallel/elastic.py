@@ -335,19 +335,16 @@ class SnapshotRing:
         to its canonical shapes first (a collective: every rank pushes
         at the same step): the ring holds ONE host copy of each moment,
         never N padded slices, and it re-shards onto whatever world
-        recovery builds."""
+        recovery builds. Row-sharded embedding tables are gathered the
+        same way."""
         from deeplearning4j_tpu_torch.nn import core
 
-        upd = model.updater_state
-        layout = getattr(model, "_zero_layout", None)
-        if layout:
-            upd = core.zero_gather_updater_state(upd, model.params,
-                                                 layout["shards"])
+        params, upd = core.canonical_trees(model)
         snap = {
             "step": int(model.iteration_count),
             "epoch": int(model.epoch_count),
             "epoch_index": int(epoch_index),
-            "params": self._host(model.params),
+            "params": self._host(params),
             "updater_state": self._host(upd),
             "state": self._host(model.state),
             "rng": self._base_key(model),
@@ -386,8 +383,8 @@ class SnapshotRing:
         model.state = back(snap["state"])
         # ring snapshots are canonical-shaped: any ZeRO flat layout is
         # gone until the next trainer re-places (and re-shards) state
-        if getattr(model, "_zero_layout", None):
-            model._zero_layout = None
+        model._zero_layout = None
+        model._row_layout = None
         model.iteration_count = snap["step"]
         model.epoch_count = snap["epoch"]
         return snap

@@ -24,6 +24,22 @@ meet in collectives (NCCL on the card, gloo on the CPU):
   flattened optimizer moment and all-gathers the updated parameters
   (the trajectory is bitwise the replicated one's: every rule is
   elementwise);
+- a ``SparseEmbeddingLayer(row_sharded=True)``'s table is sharded by
+  rows (JAX ``_row_sharded_embedding_param``): rank ``i`` of ``N`` holds
+  rows ``[i·V/N, (i+1)·V/N)`` of ``W`` and of its updater state, and
+  nothing else of them; the forward gathers the batch's rows from their
+  owners, the backward sends each row's gradient to its owner, and the
+  owner's rule updates its shard with the dense gradient of its rows
+  (Adam's moments decay on rows no batch touched, as JAX's GSPMD step
+  does). The exchange is ``all_reduce`` alone (``parallel/
+  row_exchange.py``), so a gloo world on one card runs it too. The
+  other gradients ride the flat bucket; the guard's and telemetry's
+  global norm, a per-layer or per-parameter gradient normalization's
+  norm and the L1/L2 penalty sum the shards' terms over the ranks.
+  Under ``zero=True`` or a vocabulary the ranks do not divide, ``W``
+  stays replicated with the JAX trainer's warning. A save gathers the table
+  (``core.canonical_trees``), so the file is a replicated run's; a
+  restore re-shards at the new world's width;
 - ``grad_accum=K`` (on the model, ``fit(grad_accum=K)``): microbatch j
   is global rows ``[j·b/K, (j+1)·b/K)``, each rank taking its whole
   shard of it, the JAX layout;
@@ -66,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -77,24 +94,6 @@ from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grads
 from deeplearning4j_tpu_torch.observability import profiler
 from deeplearning4j_tpu_torch.observability.trace import get_tracer
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, build_mesh
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks, differentiable: the gradient of each rank's
-    input is the sum over the ranks of the output's gradients (the loss
-    is the sum of the ranks' weighted losses)."""
-
-    @staticmethod
-    def forward(ctx, t):
-        out = t.clone()
-        dist.all_reduce(out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
 
 
 def _host(a):
@@ -165,7 +164,6 @@ class DistributedTrainer:
         self.mesh = mesh if mesh is not None else build_mesh(
             device=model.device)
         self._check_device()
-        self._check_row_sharded()
         self.batch_stats = batch_stats
         self.zero = bool(zero)
         if (self.zero and self.mesh.data > 1 and self.mesh.backend == "gloo"
@@ -176,11 +174,14 @@ class DistributedTrainer:
         self._is_graph = hasattr(model.conf, "vertices")
         if model.params is None:
             model.init()
-        # a model that arrives sharded (an earlier zero=True trainer) is
-        # gathered to parameter shapes first, never sliced twice
+        # a model that arrives sharded (an earlier zero=True or
+        # row-sharded trainer) is gathered whole first, never sliced twice
         core.canonicalize_updater_state(model)
         self._broadcast_model()
         self._zero_ranges: Dict[str, Dict[str, tuple]] = {}
+        self._row_layers = self._plan_row_sharding()
+        if self._row_layers:
+            self._shard_rows()
         if self.zero:
             self._shard_updater_state()
         self._publish_updater_bytes()
@@ -212,22 +213,57 @@ class DistributedTrainer:
             raise RuntimeError(f"the model lies on {m.device}, this rank "
                                f"drives {mesh.device}")
 
-    def _check_row_sharded(self) -> None:
-        """The JAX trainer shards a ``SparseEmbeddingLayer``'s rows over
-        the data axis; that branch is not ported, so a world of several
-        ranks refuses such a layer rather than replicate it silently."""
+    def _plan_row_sharding(self) -> List[str]:
+        """The layers whose ``W`` rows shard over the ranks (JAX
+        ``_spec_for``'s row branch): every ``SparseEmbeddingLayer`` with
+        ``row_sharded=True`` over more than one rank, except where a
+        fallback keeps ``W`` replicated, loudly, with the JAX trainer's
+        words: ``zero=True`` and an indivisible vocabulary."""
         from deeplearning4j_tpu_torch.nn.layers.feedforward import (
             SparseEmbeddingLayer,
         )
 
-        if self.mesh.data > 1 and any(
-                isinstance(lc, SparseEmbeddingLayer) and lc.row_sharded
-                for lc in self.model.layer_confs()):
-            raise NotImplementedError(
-                "SparseEmbeddingLayer(row_sharded=True) over more than one "
-                "rank: the trainer's row-sharded embedding branch is not "
-                "ported yet (ROADMAP queue 1: the row-sharded trainer "
-                "branch for SparseEmbeddingLayer); use row_sharded=False")
+        n = self.mesh.data
+        if n == 1 or not core.has_row_sharded_embedding(self.model):
+            return []
+        out = []
+        for lname, lc in core.named_layer_confs(self.model):
+            if not (isinstance(lc, SparseEmbeddingLayer)
+                    and lc.row_sharded):
+                continue
+            if self.zero:
+                warnings.warn(
+                    f"SparseEmbeddingLayer {lname!r}: row sharding "
+                    "falls back to replication under zero=True (the "
+                    "flat P('data') updater layout owns the data "
+                    "axis); use the embeddings/ subsystem for tables "
+                    "that need both", stacklevel=3)
+            elif lc.n_in % n != 0:
+                warnings.warn(
+                    f"SparseEmbeddingLayer {lname!r}: vocab {lc.n_in} not "
+                    f"divisible by data axis {n}; falling back to "
+                    "replication", stacklevel=3)
+            else:
+                out.append(lname)
+        return out
+
+    def _shard_rows(self) -> None:
+        """Keep this rank's rows of each row-sharded ``W`` and of its
+        updater moments, nothing else of them; the model is marked
+        ``_row_layout`` (``canonicalize_updater_state`` and a save gather
+        it back)."""
+        from deeplearning4j_tpu_torch.parallel import row_exchange
+
+        m, n, r = self.model, self.mesh.data, self.mesh.rank
+        for ln in self._row_layers:
+            m.params[ln]["W"] = row_exchange.shard_rows(m.params[ln]["W"],
+                                                        n, r)
+            if ln in m.updater_state and "W" in m.updater_state[ln]:
+                m.updater_state[ln]["W"] = tuple(
+                    row_exchange.shard_rows(a, n, r)
+                    for a in m.updater_state[ln]["W"])
+        m._row_layout = {"shards": n, "rank": r,
+                         "layers": list(self._row_layers)}
 
     @property
     def _collective(self) -> bool:
@@ -299,17 +335,35 @@ class DistributedTrainer:
                     for t in self._leaves(self.model.updater_state))
         self.updater_state_bytes_per_device = int(total)
         self.zero_shard_bytes = int(total) if self.zero else 0
+        self._publish_embedding_gauge()
+
+    def _publish_embedding_gauge(self) -> None:
+        """``embedding_shard_bytes`` (JAX ``_publish_embedding_gauge``,
+        the gauge ``embeddings/table.py`` also sets): the bytes of this
+        rank's shard of every row-sharded ``W``, summed (a replicated
+        fallback's whole table)."""
+        if not core.has_row_sharded_embedding(self.model):
+            return
+        from deeplearning4j_tpu_torch.embeddings.table import (
+            note_shard_bytes,
+        )
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            SparseEmbeddingLayer,
+        )
+
+        total = 0
+        for ln, lc in core.named_layer_confs(self.model):
+            if isinstance(lc, SparseEmbeddingLayer) and lc.row_sharded:
+                w = self.model.params[ln]["W"]
+                total += w.numel() * w.element_size()
+        self.embedding_shard_bytes = int(total)
+        note_shard_bytes(total)
 
     def gather_updater_state(self):
         """The updater state in the canonical (parameter-shaped) layout:
-        the model's own where it is not sharded, all-gathered (on every
+        the model's own where it is not sharded, gathered (on every
         rank) where it is."""
-        m = self.model
-        layout = getattr(m, "_zero_layout", None)
-        if not layout:
-            return m.updater_state
-        return core.zero_gather_updater_state(m.updater_state, m.params,
-                                              layout["shards"])
+        return core.canonical_trees(self.model)[1]
 
     # -- the batch ------------------------------------------------------------
 
@@ -542,10 +596,15 @@ class DistributedTrainer:
         """Sum the gradients and the score over the ranks in ONE flat
         all-reduce (JAX ``_fused_pmean``: one collective, not one a
         leaf); under ``local`` the running statistics ride along and are
-        averaged."""
+        averaged. A row-sharded ``W``'s gradient is already its owner's
+        sum over the ranks (the row exchange's backward) and stays out."""
         if not self._collective:
             return grads, score, state
         n = self.mesh.data
+        sharded = {ln: grads[ln]["W"] for ln in self._row_layers}
+        grads = {ln: {pn: g for pn, g in lg.items()
+                      if not (pn == "W" and ln in sharded)}
+                 for ln, lg in grads.items()}
         g_leaves = [g for lg in grads.values() for g in lg.values()]
         recurrent = set(self.model.recurrent_names())
         s_leaves = ([t for ln, st in state.items() if ln not in recurrent
@@ -565,6 +624,8 @@ class DistributedTrainer:
 
         grads = {ln: {pn: take(g) for pn, g in lg.items()}
                  for ln, lg in grads.items()}
+        for ln, g in sharded.items():
+            grads[ln]["W"] = g
         score = take(score.reshape(1)).reshape(())
         if s_leaves:
             state = {ln: ({k: (take(t) / n if t.is_floating_point() else t)
@@ -572,6 +633,35 @@ class DistributedTrainer:
                           if ln not in recurrent else st)
                      for ln, st in state.items()}
         return grads, score, state
+
+    def _norm_sq(self, grads) -> torch.Tensor:
+        """The squared global norm of the gradients where tables are
+        row-sharded: the replicated leaves' (the same on every rank)
+        plus the shards' squares summed over the ranks."""
+        from deeplearning4j_tpu_torch.resilience.guard import (
+            grad_global_norm_sq,
+        )
+
+        rest = {ln: {pn: g for pn, g in lg.items()
+                     if not (pn == "W" and ln in self._row_layers)}
+                for ln, lg in grads.items()}
+        shards = grad_global_norm_sq(
+            [grads[ln]["W"] for ln in self._row_layers]).reshape(1)
+        dist.all_reduce(shards)
+        return grad_global_norm_sq(rest) + shards[0]
+
+    def _row_update(self, grads, params, upd_state, lrs, t):
+        """The updater's rule where tables are row-sharded: a gradient
+        normalization's norms sum a shard's squares over the ranks."""
+        from deeplearning4j_tpu_torch.parallel.row_exchange import sum_ranks
+
+        def sq(ln, pn, g):
+            s = torch.sum(g * g)
+            return (sum_ranks(s) if pn == "W" and ln in self._row_layers
+                    else s)
+
+        return self.model.updater_def.update(grads, upd_state, params, lrs,
+                                             t, sq=sq)
 
     def _sg_config(self):
         """The ``StatGuardConfig`` of the trainer's own guard (the
@@ -679,10 +769,13 @@ class DistributedTrainer:
             from deeplearning4j_tpu_torch.nn.layers.convolution import (
                 global_batch_statistics,
             )
+            from deeplearning4j_tpu_torch.parallel.row_exchange import (
+                sum_ranks,
+            )
 
             # sync statistics over a group; one process's batch is global
             ctx = (contextlib.nullcontext() if local or not self._collective
-                   else global_batch_statistics(_AllReduceSum.apply, n))
+                   else global_batch_statistics(sum_ranks, n))
             with ctx:
                 if k > 1:
                     (score, new_state), grads = core.accum_grad_step(
@@ -699,18 +792,29 @@ class DistributedTrainer:
                 ls=ls if ls_on else None, sg=sg, sg_cfg=sg_cfg,
                 update=(functools.partial(self._zero_update, params=params,
                                           upd_state=upd_state, lrs=lrs, t=t)
-                        if self.zero else None), telemetry=telemetry)
+                        if self.zero else
+                        functools.partial(self._row_update, params=params,
+                                          upd_state=upd_state, lrs=lrs, t=t)
+                        if self._row_layers else None), telemetry=telemetry,
+                norm_sq=self._norm_sq if self._row_layers else None)
 
         return step
 
     def _check_zero_layout(self) -> None:
         m = self.model
         m._check_trainable()
-        if self.zero and m._zero_layout != {"shards": self.mesh.data}:
-            # the engine's own fit (or a restore) made the moments
-            # canonical in between
+        want_rows = ({"shards": self.mesh.data, "rank": self.mesh.rank,
+                      "layers": list(self._row_layers)}
+                     if self._row_layers else None)
+        if ((self.zero and m._zero_layout != {"shards": self.mesh.data})
+                or getattr(m, "_row_layout", None) != want_rows):
+            # the engine's own fit (or a restore) made the trees whole
+            # in between
             core.canonicalize_updater_state(m)
-            self._shard_updater_state()
+            if self._row_layers:
+                self._shard_rows()
+            if self.zero:
+                self._shard_updater_state()
 
     def fit_minibatch(self, ds, _window=None) -> torch.Tensor:
         """One synchronous data-parallel step on the global minibatch
@@ -1004,15 +1108,16 @@ class DistributedTrainer:
         ``DistributedTrainer.resume``): the parameters, updater state,
         layer state and step count from ``source``, a
         ``CheckpointManager`` (its newest restorable version) or a
-        checkpoint zip; every rank restores the same bytes, and a
-        ``zero=True`` trainer re-shards the canonical moments at its
-        next step. Returns the restored step, so the caller can skip the
-        batches already consumed. The continuation is exact: keys,
-        schedules and Adam's ``t`` derive from the step count."""
+        checkpoint zip; every rank restores the same bytes, and the
+        trainer re-shards them (ZeRO's moments, row-sharded tables) at
+        this world's width. Returns the restored step, so the caller can
+        skip the batches already consumed. The continuation is exact:
+        keys, schedules and Adam's ``t`` derive from the step count."""
         from deeplearning4j_tpu_torch.resilience.checkpoint import (
             restore_into,
         )
 
         _, step = restore_into(self.model, source,
                                load_updater=load_updater)
+        self._check_zero_layout()
         return step

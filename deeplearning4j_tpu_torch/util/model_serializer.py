@@ -190,29 +190,21 @@ def tree_signature(tree) -> tuple:
         for ln, lp in tree.items() for k, v in lp.items())
 
 
-def _canonical_updater(model):
-    """The updater state in its parameter-shaped layout (a ZeRO-1
-    model's slices all-gathered: a collective every rank joins)."""
-    from deeplearning4j_tpu_torch.nn import core
-
-    upd = model.updater_state
-    layout = getattr(model, "_zero_layout", None)
-    if upd is not None and layout:
-        upd = core.zero_gather_updater_state(upd, model.params,
-                                             layout["shards"])
-    return upd
-
-
 def snapshot_trees(model, save_updater: bool = True) -> dict:
     """The device trees a checkpoint holds: the parameters, the layer
     state of the layers that keep some, and the canonical updater state
-    (None without one, or with ``save_updater=False``)."""
+    (None without one, or with ``save_updater=False``). A ZeRO-1 model's
+    moment slices and a row-sharded table's rows are gathered first
+    (``core.canonical_trees``: collectives every rank joins), so the
+    file is the one a replicated run writes."""
+    from deeplearning4j_tpu_torch.nn import core
+
     if model.params is None:
         model.init()
-    return {"params": model.params,
+    params, upd = core.canonical_trees(model)
+    return {"params": params,
             "state": {ln: st for ln, st in model.state.items() if st},
-            "updater": (_canonical_updater(model) if save_updater
-                        else None)}
+            "updater": upd if save_updater else None}
 
 
 def snapshot_model(model, save_updater: bool = True, pinned=None) -> dict:

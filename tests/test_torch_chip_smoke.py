@@ -1,7 +1,10 @@
 """Pieces of ``chip_smoke.py`` that run without a card: the kernel
-line's launch sums and the ``[loop]`` phase's regression bomb, on the
-CPU (LeNet-5 at full width, a few Adam steps on synthetic MNIST)."""
+line's launch sums, the ``[loop]`` phase's regression bomb (LeNet-5 at
+full width, a few Adam steps on synthetic MNIST), and rehearsals of the
+``[semb-dp]`` and ``[nlp-periphery]`` phases at small sizes, on the
+CPU."""
 
+import json
 import warnings
 
 import numpy as np
@@ -50,3 +53,32 @@ def test_regression_bomb_is_dormant_on_the_pool_and_fires_when_hot():
     assert bomb.feed_forward(pool)[4][:, unit].eq(0).all()
     assert agree < cs.LOOP_MIN_AGREEMENT
     assert bomb.feed_forward(cs.hot(pool))[4][:, unit].gt(0).all()
+
+
+def test_semb_dp_phase_rehearses_on_cpu_ranks(capsys):
+    """``[semb-dp]`` at a small vocabulary on two gloo CPU ranks: each
+    rank holds half the table, the world of one and the cross-width
+    resume hold, and ClusterWord2Vec equals one process (no kernel runs
+    on the CPU, so no launch is counted)."""
+    launches = cs.run_semb_dp(torch, "cpu", device="cpu", vocab=4096,
+                              w2v_sentences=200)
+    assert not any(launches.values())
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[semb-dp] {"))
+    res = json.loads(line[len("[semb-dp] "):line.rindex(" card=")])
+    assert res["embedding_shard_bytes"] == [4096 // 2 * 128 * 4] * 2
+    assert res["resume_width1_bitwise_own_checkpoint"]
+    assert res["resume_vs_ranks_rel_l2"] <= cs.TWIN_REL
+    assert res["twin_w_past_elements"]["elements"] >= 0
+    assert res["cluster_word2vec_bitwise"]
+
+
+def test_nlp_periphery_phase_rehearses_on_cpu(capsys):
+    cache, ids = cs.w2v_corpus(200)
+    sv = cs.make_w2v(cache, ids, device="cpu")
+    sv.device_epoch_gen = True
+    sv.fit()
+    cs.run_nlp_periphery(torch, "cpu", sv, cache, ids, device="cpu",
+                         rows=3000)
+    out = capsys.readouterr().out
+    assert "[nlp-periphery] {" in out and '"tfidf_equal_cpu": true' in out

@@ -2698,3 +2698,65 @@ def test_evaluate_on_the_card_matches_the_cpu_twin(cuda, tmp_path):
     want = gtwin.evaluate([DataSet(img, lab)])
     np.testing.assert_array_equal(got.confusion.matrix,
                                   want.confusion.matrix)
+
+
+# -- Word2Vec's device epochs as CUDA-graph replays ------------------------
+
+
+def _w2v_on_card(epochs=2, vocab=300, seed=4):
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    sents = [[f"w{i}" for i in rng.choice(vocab, 20, p=p / p.sum())]
+             for _ in range(400)]
+    cache = VocabConstructor(1).build_vocab_from_tokens(sents)
+    ids = [np.asarray([cache.index_of(w) for w in s], np.int32)
+           for s in sents]
+    m = Word2Vec(cache, ids, layer_size=32, window=3, negative=4,
+                 batch_size=512, epochs=epochs, seed=7, device="cuda")
+    return m
+
+
+def test_word2vec_graph_route_is_the_eager_route_bitwise(cuda):
+    """Two epochs replayed from the captured epoch give the eager
+    route's tables and losses bit for bit (same generator, same
+    tables); the capture was timed."""
+    g, e = _w2v_on_card(), _w2v_on_card()
+    lg, le = g._fit_device_gen(), e._fit_device_gen(eager=True)
+    assert torch.equal(lg, le)
+    for a, b in zip(g.lookup.to_numpy(), e.lookup.to_numpy()):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert g._dev_graph.graph is not None and g._dev_graph.capture_s > 0
+    assert e._dev_graph is None
+
+
+def test_word2vec_graph_second_fit_continues_the_schedule(cuda):
+    """A second fit replays the same graph with fresh draws and the
+    continued alphas: bitwise the eager route's second fit."""
+    g, e = _w2v_on_card(epochs=1), _w2v_on_card(epochs=1)
+    for _ in range(2):
+        g.fit()
+        e._fit_device_gen(eager=True)
+    first = g._dev_graph
+    assert g._dev_steps_done == e._dev_steps_done
+    assert g._dev_fit_no == 2 and first is g._dev_graph
+    assert torch.equal(g.lookup.syn0, e.lookup.syn0)
+    assert torch.equal(g.lookup.syn1neg, e.lookup.syn1neg)
+
+
+def test_word2vec_rebound_table_is_never_written_by_a_stale_graph(cuda):
+    """After ``load_numpy`` rebinds the tables, a fit captures a new
+    graph on the new tensors; the old ones keep their bits."""
+    m = _w2v_on_card(epochs=1)
+    m.fit()
+    old = (m.lookup.syn0, m.lookup.syn1neg)
+    kept = [t.clone() for t in old]
+    syn0, _, syn1neg = m.lookup.to_numpy()
+    m.lookup.load_numpy(syn0, None, syn1neg)
+    m.fit()
+    assert all(torch.equal(a, b) for a, b in zip(old, kept))
+    assert m._dev_graph.bound_to(m.lookup.syn0, m.lookup.syn1neg)
+    assert not torch.equal(m.lookup.syn0, kept[0])

@@ -127,6 +127,9 @@ elif kind == "sparse_layer":
         out["error"] = np.asarray("")
     except NotImplementedError as e:
         out["error"] = np.asarray(str(e))
+    out["w_rows"] = np.asarray(net.params[net.layer_names[0]]["W"].shape[0])
+    out["m_rows"] = np.asarray([a.shape[0] for a in
+                                net.updater_state[net.layer_names[0]]["W"]])
 np.savez(spec["out"], **out)
 shutdown_distributed()
 """
@@ -556,19 +559,23 @@ def test_sparse_embedding_layer_json_round_trips_with_jax():
 
 
 def test_sparse_embedding_layer_row_sharded_refuses_several_ranks(tmp_path):
-    """The JAX trainer's row-sharded branch is not ported: two ranks
-    refuse ``row_sharded=True`` naming the ROADMAP item; one rank, or
-    ``row_sharded=False``, trains as the base layer."""
+    """The row-sharded branch over several ranks (the name is kept from
+    when the branch refused them): two ranks take ``row_sharded=True``
+    and each keeps half of ``W``'s rows and of its Adam moments
+    (``tests/test_torch_semb.py`` trains it); ``row_sharded=False``
+    stays replicated; one rank trains as the base layer."""
     sharded = _emb_conf(NeuralNetConfiguration.Builder, EmbeddingLayer,
                         DenseLayer, OutputLayer, SparseEmbeddingLayer)
     plain = _emb_conf(NeuralNetConfiguration.Builder, EmbeddingLayer,
                       DenseLayer, OutputLayer, SparseEmbeddingLayer,
                       row_sharded=False)
     res = run_ranks(tmp_path, 2, "sparse_layer", corpus=sharded.to_json())
-    assert all("row-sharded" in str(r["error"]) and "ROADMAP" in
-               str(r["error"]) for r in res)
+    assert all(str(r["error"]) == "" for r in res)
+    assert all(int(r["w_rows"]) == 20 and list(r["m_rows"]) == [20, 20]
+               for r in res)
     res = run_ranks(tmp_path, 2, "sparse_layer", corpus=plain.to_json())
     assert all(str(r["error"]) == "" for r in res)
+    assert all(int(r["w_rows"]) == 40 for r in res)
     from deeplearning4j_tpu_torch.datasets import DataSet
 
     x, y = _emb_batch(np.random.RandomState(1))

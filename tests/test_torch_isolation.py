@@ -351,3 +351,59 @@ def test_fresh_process_runs_the_loop_eval_and_earlystopping_without_jax(
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_files_cover_the_clustering_and_nlp_periphery_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("clustering/__init__.py", "clustering/vptree.py",
+                   "clustering/kdtree.py", "clustering/cluster.py",
+                   "clustering/kmeans.py", "nlp/model_utils.py",
+                   "nlp/static_word2vec.py", "nlp/vectorizers.py",
+                   "nlp/inverted_index.py", "graph/loader.py",
+                   "graph/serializer.py", "parallel/cluster_nlp.py",
+                   "parallel/row_exchange.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("first", ["clustering", "parallel.cluster_nlp",
+                                   "nlp.model_utils", "graph.serializer"])
+def test_fresh_process_runs_the_periphery_without_jax(first):
+    """``clustering``, the cluster NLP trainers, the model utilities and
+    the graph serializer import first in a fresh process (no import
+    cycle) without JAX, and k-means, a cluster Word2Vec of one rank, the
+    VP-tree nearest words, TF-IDF and the inverted index run on the
+    CPU."""
+    code = (
+        "import sys, numpy as np\n"
+        f"import deeplearning4j_tpu_torch.{first}\n"
+        "from deeplearning4j_tpu_torch.clustering import KMeansClustering\n"
+        "from deeplearning4j_tpu_torch.nlp import (InvertedIndex, "
+        "TfidfVectorizer, TreeModelUtils)\n"
+        "from deeplearning4j_tpu_torch.parallel import ClusterWord2Vec, "
+        "TextPipeline\n"
+        "x = np.random.RandomState(0).randn(40, 3).astype(np.float32)\n"
+        "cs = KMeansClustering.setup(3, 5, device='cpu').apply_to(x)\n"
+        "assert cs.get_cluster_count() == 3\n"
+        "s = ['a b c a d'] * 20\n"
+        "tp = TextPipeline()\n"
+        "c = tp.build_vocab(s)\n"
+        "w = ClusterWord2Vec(c, tp.to_id_sequences(s, c), layer_size=4, "
+        "batch_size=16, device='cpu')\n"
+        "w.fit()\n"
+        "assert len(TreeModelUtils(w).words_nearest('a', 2)) == 2\n"
+        "v = TfidfVectorizer(device='cpu')\n"
+        "v.fit([(t, 'x') for t in s])\n"
+        "assert tuple(v.vectorize('a b', 'x').features.shape) == (1, 4)\n"
+        "ix = InvertedIndex()\n"
+        "ix.add_doc(['a', 'b'])\n"
+        "assert ix.documents('a') == [0]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

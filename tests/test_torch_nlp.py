@@ -580,3 +580,74 @@ def test_chip_smoke_twin_holds_what_the_epoch_changed(corpus, fault):
     else:
         with pytest.raises(RuntimeError, match="differ|as it was"):
             chip_smoke.hold_change(torch, "t", got, want, start)
+
+
+# -- the device route's captured epoch (EpochGraph) --------------------------
+
+
+def test_epoch_graph_fill_takes_the_eager_draws_in_order(corpus):
+    """``EpochGraph.fill`` draws from the generator exactly what the
+    eager route's ``epoch_draws`` takes, epoch after epoch, leaving the
+    generator where the eager route leaves it, and its static buffers
+    hold those draws and the epoch's alphas (the graph's body reads them
+    as the eager epoch reads its arguments)."""
+    _, _, tc, ids = corpus
+    kw = dict(layer_size=8, window=3, batch_size=64, epochs=1, seed=9)
+    m = _TSeq(tc, ids, **kw)
+    m.device_epoch_gen = True
+    corpus_d = m.device_corpus()
+    g = m.epoch_graph(corpus_d)
+    assert m.epoch_graph(corpus_d) is g
+    n_b = corpus_d.ids.shape[0] // 64
+    alphas = torch.from_numpy(tw2v.alpha_schedule(
+        0.5, 1e-4, 2.0 * n_b * 64, 0.0, 2, n_b, 64))
+    gen_a = torch.Generator().manual_seed(3)
+    gen_b = torch.Generator().manual_seed(3)
+    for e in range(2):
+        g.fill(gen_a, alphas[e])
+        keep, b, shift = tw2v.epoch_draws(gen_b, corpus_d)
+        assert torch.equal(g.keep, keep) and torch.equal(g.b, b)
+        assert int(g.shift) == int(shift)
+        assert torch.equal(g.alphas, alphas[e])
+        assert torch.equal(gen_a.get_state(), gen_b.get_state())
+    assert g.graph is None  # captured at the first replay, on the card
+
+
+def test_epoch_graph_is_dropped_when_a_table_is_rebound(corpus):
+    """``load_numpy`` rebinds the tables: the captured epoch no longer
+    serves them, the next one is built on the new tensors, and the old
+    tensors are never written again. A new corpus drops it too."""
+    _, _, tc, ids = corpus
+    m = _TSeq(tc, ids, layer_size=8, window=3, batch_size=64, epochs=1,
+              seed=9)
+    m.device_epoch_gen = True
+    g = m.epoch_graph(m.device_corpus())
+    old = m.lookup.syn0
+    kept = old.clone()
+    syn0, _, syn1neg = m.lookup.to_numpy()
+    m.lookup.load_numpy(syn0, None, syn1neg)
+    assert not g.bound_to(m.lookup.syn0, m.lookup.syn1neg)
+    g2 = m.epoch_graph(m.device_corpus())
+    assert g2 is not g and g2.bound_to(m.lookup.syn0, m.lookup.syn1neg)
+    m.fit()  # eager on the CPU: it trains the new tensors alone
+    assert torch.equal(old, kept)
+    assert not torch.equal(m.lookup.syn0, old)
+    m.batch_size = 32
+    assert m.epoch_graph(m.device_corpus()) is not g2
+    m.clear_epoch_cache()
+    assert m._dev_graph is None
+
+
+def test_device_route_on_the_cpu_stays_eager(corpus):
+    """On the CPU ``fit`` runs the eager epoch (no graph is built): the
+    tables of the explicitly eager route."""
+    _, _, tc, ids = corpus
+    kw = dict(layer_size=8, window=3, batch_size=64, epochs=2, seed=9)
+    a, b = _TSeq(tc, ids, **kw), _TSeq(tc, ids, **kw)
+    for m in (a, b):
+        m.device_epoch_gen = True
+    a.fit()
+    b._fit_device_gen(eager=True)
+    assert a._dev_graph is None
+    assert torch.equal(a.lookup.syn0, b.lookup.syn0)
+    assert torch.equal(a.lookup.syn1neg, b.lookup.syn1neg)
