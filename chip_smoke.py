@@ -160,8 +160,8 @@ non-zero (nothing is caught):
    the data on the card), ``[vgg16-cached]`` the VGG-16 graph at batch
    128, 8 minibatches, 2 epochs, ``scan_chunk = 4``, and
    ``[charrnn-fused]`` / ``[charrnn-seq-fused]`` the char-RNN with and
-   without peepholes, 6 minibatches x 2 epochs on the device-cached
-   fused-TBPTT plan (24 TBPTT chunks a replay): each bitwise its
+   without peepholes, 3 minibatches x 2 epochs on the device-cached
+   fused-TBPTT plan (12 TBPTT chunks a replay): each bitwise its
    ``scan_chunk = 1`` fit (the carry too), with launches counted at
    capture, examples/s, device ms a step, the busy share both ways and
    the peak memory; ``[telemetry]`` a LeNet-5 fit under a global tracer
@@ -187,7 +187,7 @@ non-zero (nothing is caught):
    recovery to the step-4 snapshot and 12 steps, bitwise a process
    replaying the snapshot at survivor width (kill to plan, recovery ms,
    steps lost, examples/s before and after); ``[default-fit]`` the
-   default ``fit`` (``scan_chunk`` 16, one CUDA-graph chunk of 8
+   default ``fit`` (``scan_chunk`` 16, one CUDA-graph chunk of 4
    minibatches) of ResNet-50, the transformer LM and AlexNet with
    dropout, each bitwise its ``scan_chunk = 1`` fit (device ms a step,
    the busy share, peak memory, the capture's seconds).
@@ -230,6 +230,24 @@ non-zero (nothing is caught):
    one, a step-4 checkpoint resumed at width 1 bitwise the world of
    one's own, and ``ClusterWord2Vec`` (2 epochs of bench.py's corpus)
    against one process.
+18. the networks of the MoE / GoogLeNet / graph-RNN slice (main paths,
+   after ``[evaluate]``; NETWORK_PATHS): ``[googlenet]`` the zoo's
+   GoogLeNet at 224 x 224, batch 128, f32 (``output`` on uint8 pixels, a
+   batch-4 twin with every conv call held on its operands, one step's
+   launches exact, 6 steps; its 146 distinct step shapes among the
+   ``[kernel]`` records, ``googlenet.``); ``[moe-transformer]`` the LM
+   of bench.py:866 with a Switch MoE of 4 experts in every block (each
+   MoE call of a step held against the dense plain version and its
+   routing against the CPU's, 20 steps, the default fit as one
+   CUDA-graph chunk bitwise its per-step fit, ``output``, KV-cache
+   sampling against the CPU twin's stream); ``[moe-ep]``
+   ``ExpertParallelMoE`` over an NCCL world of one, bitwise the
+   single-device MoE; ``[graph-charrnn]`` the char-RNN as a
+   ComputationGraph (graph TBPTT, ``rnn_time_step``) with and without
+   peepholes, bitwise the ``MultiLayerNetwork`` one; ``[conv-lstm]``
+   LeNet's conv stages over 16-frame sequences (``RnnToCnn``,
+   ``CnnToRnn``, ``RnnToFeedForward``) into GravesLSTM 200 (its 5
+   distinct conv shapes among the records, ``conv-lstm.``).
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -265,7 +283,7 @@ CHAR_HIDDEN = 200
 CHAR_BATCH = 32
 CHAR_SEGMENT = 200
 CHAR_TBPTT = 50
-CHAR_MINIBATCHES = 24
+CHAR_MINIBATCHES = 16
 CHAR_SAMPLE = 200
 # bench.py:596's saturated LSTM shape
 SATURATED = (128, 256, 1024)
@@ -342,6 +360,11 @@ KMEANS_ITERS = 3
 # a CPU twin holds each table's change within this share of the twin's
 # largest change (f32 both sides, sums in another order)
 TWIN_REL = 1e-3
+# the timing window of each [kernel] record of a training step's
+# distinct shapes (VGG-16, ResNet-50, AlexNet, GoogLeNet, the conv ->
+# LSTM net) and of the half-precision conv records (50 ms before the
+# script held these networks)
+KERNEL_WINDOW_MS = 15.0
 TWIN_TOLERANCE = f"each table's change within {TWIN_REL:g} of the twin's"
 
 
@@ -522,10 +545,10 @@ def resnet_shapes(batch=RESNET_BATCH):
                                                            batch)))
 
 
-def graph_ms(torch, fn, reps: int = 10) -> float:
+def graph_ms(torch, fn, reps: int = 10, window_ms: float = 50.0) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in a
-    CUDA graph, replayed until ~50 ms have run, timed with events (so
-    host launch overhead does not count)."""
+    CUDA graph, replayed until ~``window_ms`` have run, timed with events
+    (so host launch overhead does not count)."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -544,7 +567,8 @@ def graph_ms(torch, fn, reps: int = 10) -> float:
     g.replay()
     end.record()
     end.synchronize()
-    n = max(1, min(200, int(50.0 / max(start.elapsed_time(end), 1e-3))))
+    n = max(1, min(200, int(window_ms / max(start.elapsed_time(end),
+                                            1e-3))))
     start.record()
     for _ in range(n):
         g.replay()
@@ -578,9 +602,11 @@ def useful_macs(geo):
     return n * o * c * taps(h, kh, sh, ph) * taps(w_, kw, sw, pw)
 
 
-def check_bwd_kernel(torch, model, name, kind, geo, gen):
+def check_bwd_kernel(torch, model, name, kind, geo, gen,
+                     window_ms: float = 50.0):
     """A backward kernel vs its plain version on the card at ``geo``;
-    returns one record with the error, the times and the bound."""
+    returns one record with the error, the times (each over a
+    ``window_ms`` timing window) and the bound."""
     from deeplearning4j_tpu_torch.ops import (
         conv_bwd_data,
         conv_bwd_data_reference,
@@ -635,9 +661,9 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise RuntimeError(f"{model}.{name} {kind}: two launches differ")
-    ms = graph_ms(torch, kernel)
-    plain_ms = graph_ms(torch, plain)
-    library_ms = graph_ms(torch, library)
+    ms = graph_ms(torch, kernel, window_ms=window_ms)
+    plain_ms = graph_ms(torch, plain, window_ms=window_ms)
+    library_ms = graph_ms(torch, library, window_ms=window_ms)
     bound_ms, bound_by = bound(flops, nbytes)
     pick = conv_bwd_data_route if kind == "conv_bwd_data" else \
         conv_bwd_w_route
@@ -651,9 +677,11 @@ def check_bwd_kernel(torch, model, name, kind, geo, gen):
             "gflop": flops / 1e9, "mb": nbytes / 1e6}
 
 
-def check_kernel(torch, F, model, name, kind, geo, gen):
+def check_kernel(torch, F, model, name, kind, geo, gen,
+                 window_ms: float = 50.0):
     """Kernel vs plain version on the card at ``geo``; returns one
-    record with the error, the times and the bound."""
+    record with the error, the times (each over a ``window_ms`` timing
+    window) and the bound."""
     from deeplearning4j_tpu_torch.ops import (
         conv_block,
         conv_block_reference,
@@ -727,9 +755,9 @@ def check_kernel(torch, F, model, name, kind, geo, gen):
                 rb = matmul_block_reference(xb, wb, b, activation=act)
             torch.testing.assert_close(gb.float(), rb.float(), rtol=2e-2,
                                        atol=2e-2)
-        ms = graph_ms(torch, kernel)
-        plain_ms = graph_ms(torch, plain)
-        library_ms = graph_ms(torch, library)
+        ms = graph_ms(torch, kernel, window_ms=window_ms)
+        plain_ms = graph_ms(torch, plain, window_ms=window_ms)
+        library_ms = graph_ms(torch, library, window_ms=window_ms)
     bound_ms, bound_by = bound(flops, nbytes)
     tile = None
     if kind == "conv_block":
@@ -1953,9 +1981,10 @@ def check_half_kernels(torch, F, gen):
                 if err > rel * max(scale, 1.0):
                     raise RuntimeError(f"{kind}[{variant}] resnet50.{name}: "
                                        f"{err} against scale {scale}")
-                ms = graph_ms(torch, kernel)
-                plain_ms = graph_ms(torch, plain)
-                library_ms = graph_ms(torch, library)
+                ms = graph_ms(torch, kernel, window_ms=KERNEL_WINDOW_MS)
+                plain_ms = graph_ms(torch, plain, window_ms=KERNEL_WINDOW_MS)
+                library_ms = graph_ms(torch, library,
+                                      window_ms=KERNEL_WINDOW_MS)
             bound_ms, bound_by = bound(flops, nbytes, peak)
             records.append({
                 "kernel": kind, "variant": variant, "kernel_route": route,
@@ -3064,7 +3093,7 @@ CACHED_VGG_BATCHES = 8
 CACHED_VGG_EPOCHS = 2
 CACHED_VGG_CHUNK = 4
 FUSED_CHAR_EPOCHS = 2
-FUSED_CHAR_MINIBATCHES = 6  # one replay of 24 TBPTT chunks an epoch
+FUSED_CHAR_MINIBATCHES = 3  # one replay of 12 TBPTT chunks an epoch
 TELEMETRY_STEPS = 8
 TELEMETRY_TRACE = (3, 3)  # ProfilerListener: iterations [3, 6)
 
@@ -3213,8 +3242,8 @@ def run_vgg16_cached(torch, card):
 def run_charrnn_fused(torch, card, peephole: bool, ids):
     """[charrnn-fused] the zoo char-RNN (peepholes) or its ``peephole=
     False`` twin at batch 32, 200-char segments (4 TBPTT chunks of 50)
-    and 6 minibatches, ``fit(batches, epochs=2)``: the device-cached
-    fused-TBPTT plan (one replay of the 6 minibatches, 24 TBPTT chunks,
+    and 3 minibatches, ``fit(batches, epochs=2)``: the device-cached
+    fused-TBPTT plan (one replay of the 3 minibatches, 12 TBPTT chunks,
     an epoch, one capture), bitwise the per-chunk loop (``scan_chunk =
     1``): parameters, RMSProp state and the carry the last minibatch
     ended with. Returns the launches of the phase."""
@@ -3249,7 +3278,7 @@ def run_charrnn_fused(torch, card, peephole: bool, ids):
     wall_first = time.perf_counter() - t0
     counts = dispatch.launch_counts()
     graphs = list(model._megastep_graphs.values())
-    groups = -(-FUSED_CHAR_MINIBATCHES // model.scan_chunk)  # one of 6
+    groups = -(-FUSED_CHAR_MINIBATCHES // model.scan_chunk)  # one of 3
     if [g.k for g in graphs] != [
             FUSED_CHAR_MINIBATCHES // groups * chunks]:
         raise RuntimeError(f"[{tag}] chunks {[g.k for g in graphs]}")
@@ -3892,18 +3921,18 @@ def run_charrnn(torch, card, peephole: bool, ids, alphabet):
     eye = np.eye(CHAR_VOCAB, dtype=np.float32)
     whole = model.output(eye[sample[:-1]].T[None])[0]
     sample_err = close_to_scale(torch, stepped, whole, 1e-4)
-    # device time of the fit, from the profiler, over two minibatches
-    prof_batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, 2, seed=3)
+    # device time of the fit, from the profiler, over one minibatch
+    prof_batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT, 1, seed=3)
     device_ms, top = profiled_device_ms(torch,
                                         lambda: model.fit(prof_batches))
-    device_ms /= 2 * chunks
+    device_ms /= chunks
     ms_per_chunk = wall / n_chunks * 1e3
     res = {"minibatches": CHAR_MINIBATCHES, "chunks": n_chunks,
            "chars_per_s": CHAR_MINIBATCHES * CHAR_BATCH * CHAR_SEGMENT / wall,
            "host_ms_per_chunk": ms_per_chunk,
            "device_ms_per_chunk": device_ms,
            "device_busy_share": device_ms / ms_per_chunk,
-           "top_device_ms_per_chunk": {k[:60]: v / (2 * chunks)
+           "top_device_ms_per_chunk": {k[:60]: v / chunks
                                        for k, v in top.items()},
            "minibatch_scores": scores,
            "probe_score_before": before, "probe_score_after": after,
@@ -4185,7 +4214,8 @@ def tx_conf(n_layers=None):
     return transformer_lm(**kw)
 
 
-def tx_expected(**counts):
+def expected_counts(**counts):
+    """Launch counts of every kernel: ``counts`` and zero elsewhere."""
     from deeplearning4j_tpu_torch.ops import dispatch
 
     want = {k: 0 for k in dispatch.KERNELS}
@@ -4219,7 +4249,7 @@ def run_transformer(torch, card, ids):
         scores.append(net.score_value)  # waits for the card
     wall = time.perf_counter() - t0
     launches = dispatch.launch_counts()
-    want = tx_expected(flash_attention=layers * TX_STEPS,
+    want = expected_counts(flash_attention=layers * TX_STEPS,
                        matmul_block=TX_STEPS,
                        matmul_block_residual=layers * TX_STEPS)
     if launches != want:
@@ -4272,7 +4302,7 @@ def run_transformer_twin(torch, card, ids):
         card_scores.append(net.score_value)
         cpu_scores.append(twin.score_value)
     launches = dispatch.launch_counts()
-    want = tx_expected(flash_attention=2 * layers, matmul_block=2,
+    want = expected_counts(flash_attention=2 * layers, matmul_block=2,
                        matmul_block_residual=2 * layers)
     if launches != want:
         raise RuntimeError(f"[transformer-twin] launched {launches}")
@@ -4333,7 +4363,7 @@ def sample_transformer(torch, card, model, ids, seed):
     step_ms = (time.perf_counter() - t0) / TX_SAMPLE * 1e3
     launches = dispatch.launch_counts()
     calls = 1 + TX_SAMPLE
-    want = tx_expected(matmul_block=calls,
+    want = expected_counts(matmul_block=calls,
                        matmul_block_residual=layers * calls)
     if launches != want:
         raise RuntimeError(f"[transformer-sample] launched {launches}, "
@@ -4386,7 +4416,7 @@ def run_transformer_long(torch, card, model, ids, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     long_counts = dispatch.launch_counts()
-    want = tx_expected(flash_attention_streamed=layers,
+    want = expected_counts(flash_attention_streamed=layers,
                        matmul_block=1, matmul_block_residual=layers)
     if long_counts != want:
         raise RuntimeError(f"[transformer-long] launched {long_counts}, "
@@ -5588,7 +5618,7 @@ STORM_SNAPSHOT = 4
 STORM_KILL = 7             # KillAtStep(7) on rank 1
 STORM_LEASE_S = 1.0
 STORM_TIMEOUT_S = 300
-DEFAULT_FIT_BATCHES = 8    # one chunk at the engines' scan_chunk of 16
+DEFAULT_FIT_BATCHES = 4    # one chunk at the engines' scan_chunk of 16
 
 
 class TimedCalls:
@@ -6272,13 +6302,12 @@ def default_vs_per_step(torch, tag, make, batches):
 
 def run_default_fit(torch, card, tokens):
     """[default-fit] the default ``fit`` (``scan_chunk`` 16) of the large
-    models, each over 8 minibatches against its ``scan_chunk = 1`` fit
+    models, each over 4 minibatches against its ``scan_chunk = 1`` fit
     (``default_vs_per_step``): ResNet-50 (batch 128, 224 x 224, f32,
     NESTEROVS), the transformer LM of bench.py:866 (d 768, 12 layers, 16
     x 512, Adam, f32) and AlexNet (batch 128, NESTEROVS, dropout 0.5 on
     both dense layers: the masks' keys derived inside the replay).
     Returns the launch counts of the three."""
-    from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.zoo import alexnet, resnet50
@@ -6293,10 +6322,8 @@ def run_default_fit(torch, card, tokens):
          .init(params=p), lambda: char_batches(
              tokens, TX_BATCH, TX_T, n, seed=37, vocab=TX["vocab"])),
         ("alexnet", lambda p: MultiLayerNetwork(ax_conf, device="cuda")
-         .init(params=p), lambda: [
-             DataSet((b.features.astype(np.float32) - 127.5) / 73.9,
-                     b.labels.astype(np.float32))
-             for b in resnet_batches(n, ALEXNET_TRAIN_BATCH, seed=41)]))
+         .init(params=p), lambda: standardized(
+             resnet_batches(n, ALEXNET_TRAIN_BATCH, seed=41))))
     print(f"[default-fit] the default fit (scan_chunk 16) of ResNet-50 "
           f"(batch {RESNET_BATCH}), the transformer LM ({TX_BATCH} x "
           f"{TX_T}) and AlexNet with dropout (batch {ALEXNET_TRAIN_BATCH}),"
@@ -7619,11 +7646,863 @@ def run_evaluate(torch, card, device="cuda", conf=None):
     return launches
 
 
+# -- the networks of the MoE / GoogLeNet / graph-RNN slice ---------------------
+
+GOOGLENET_BATCH = 128       # ImageNet at bench.py:823's batch, as [resnet50]
+GOOGLENET_TWIN_BATCH = 4
+GOOGLENET_STEPS = 6
+MOE_EXPERTS = 4             # examples/transformer_lm.py:62
+MOE_STEPS = 20
+MOE_DEFAULT_FIT_BATCHES = 4
+MOE_SAMPLE = 32
+MOE_MIN_AGREEMENT = 0.99    # card / CPU routing of the same operands
+GRAPH_CHAR_MINIBATCHES = 2
+CONV_LSTM_BATCH = 32        # sequences of CONV_LSTM_T 28 x 28 frames
+CONV_LSTM_T = 16
+CONV_LSTM_STEPS = 16
+CONV_LSTM_TWIN_BATCH = 2
+# the main paths of this slice, in the order main() runs them; the
+# kernels line sums each kernel's launches over them by name
+NETWORK_PATHS = ("googlenet", "moe-transformer", "moe-ep", "graph-charrnn",
+                 "conv-lstm")
+
+
+def network_phases(records, tokens, ids):
+    """(tag, function, extra arguments) of each phase of NETWORK_PATHS."""
+    return (("googlenet", run_googlenet, (records,)),
+            ("moe-transformer", run_moe_transformer, (tokens,)),
+            ("moe-ep", run_moe_ep, ()),
+            ("graph-charrnn", run_graph_charrnn, (ids,)),
+            ("conv-lstm", run_conv_lstm, ()))
+
+
+def googlenet_shapes(batch=GOOGLENET_BATCH):
+    """The distinct kernel shapes of one GoogLeNet training step at
+    ``batch`` (224 x 224): (first vertex, kind, geometry, vertices)."""
+    from deeplearning4j_tpu_torch.zoo import googlenet
+
+    return distinct_shapes(step_shapes(graph_kernel_shapes(googlenet(),
+                                                           batch)))
+
+
+def standardized(batches):
+    """uint8 ImageNet minibatches as standardized f32 pixels ((p - 127.5)
+    / 73.9): a net without BatchNormalization diverges on raw 0-255
+    pixels."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    return [DataSet((b.features.astype(np.float32) - 127.5) / 73.9,
+                    b.labels.astype(np.float32)) for b in batches]
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_googlenet(torch, card, records):
+    """[googlenet] the zoo's GoogLeNet (Inception v1 without the
+    auxiliary heads) at 224 x 224 x 3, 1000 classes, f32, NESTEROVS lr
+    0.01, as a ``ComputationGraph``: ``output`` at batch 128 on uint8
+    pixels (57 conv launches); two batch-4 steps each held against the
+    CPU twin from the same state, every conv kernel call held against
+    its plain version on the same operands; one step's launches exact
+    (114 ``conv_block``, 56 ``conv_bwd_data``, 57 ``conv_bwd_w``); then
+    the main path, 6 steps at batch 128 over which the first
+    minibatch's score falls. ``records``: the [kernel] records, which
+    must hold each of its step's distinct shapes. Returns the launch
+    counts of the main path."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import googlenet
+
+    shapes = googlenet_shapes()
+    held_shapes = {(r["kernel"], r["shape_of"]) for r in records}
+    missing = [(k, n) for n, k, _, _ in shapes
+               if (k, f"googlenet.{n}") not in held_shapes]
+    if missing:
+        raise RuntimeError(f"[googlenet] shapes not held: {missing[:5]}")
+    conf = googlenet(learning_rate=0.01)
+    net = per_step_loop(ComputationGraph(conf, device="cuda").init())
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    n_conv = sum(len(s[3]) for s in shapes if s[1] == "conv_block")
+    print(f"[googlenet] zoo.googlenet() as a ComputationGraph "
+          f"({net.num_params()} params, {n_conv} convs, "
+          f"{sum(1 for s in shapes if s[1] == 'conv_block')} distinct), "
+          f"224x224x3, 1000 classes, NESTEROVS lr 0.01, batch "
+          f"{GOOGLENET_BATCH}, f32")
+    main = {}
+    raw = resnet_batches(2, GOOGLENET_BATCH, seed=51)
+    dispatch.reset_launch_counts()
+    out = net.output(raw[0].features)[0]
+    torch.cuda.synchronize()
+    per_output = dispatch.launch_counts()
+    if per_output != expected_counts(conv_block=n_conv):
+        raise RuntimeError(f"[googlenet] output launched {per_output}")
+    add_counts(main, per_output)
+    if out.shape != (GOOGLENET_BATCH, 1000) or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"[googlenet] bad output {tuple(out.shape)}")
+    batches = standardized(raw)
+    # two batch-4 steps, card and CPU twin from the same state each
+    small = [type(b)(b.features[:GOOGLENET_TWIN_BATCH],
+                     b.labels[:GOOGLENET_TWIN_BATCH]) for b in batches]
+    a = per_step_loop(ComputationGraph(conf, device="cuda").init(params=init))
+    twin = cpu_twin(torch, a)
+    out_err = close_to_scale(torch, a.output(small[0].features)[0].cpu(),
+                             twin.output(small[0].features)[0], 1e-4)
+    card_scores, cpu_scores, worst = [], [], 0.0
+    held = held_on_operands()
+    for ds in small:
+        before = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                  for ln, lp in a.params.items()}
+        twin.params = before
+        twin.updater_state = {ln: {pn: tuple(t.cpu() for t in tup)
+                                   for pn, tup in lp.items()}
+                              for ln, lp in a.updater_state.items()}
+        with held:
+            a.fit(ds)
+        twin.fit(ds)
+        card_scores.append(a.score_value)
+        cpu_scores.append(twin.score_value)
+        worst = max(worst, check_twin_step("googlenet", a, twin, before))
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-4)
+    want_held = {"conv_block": 4 * n_conv, "conv_bwd_data": 2 * (n_conv - 1),
+                 "conv_bwd_w": 2 * n_conv}
+    if {k: n for k, (n, _) in held.errors.items()} != want_held:
+        raise RuntimeError(f"[googlenet] held calls: {held.errors}")
+    del a, twin
+    dispatch.reset_launch_counts()
+    net.fit(batches[1])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    if per_step != expected_counts(conv_block=2 * n_conv,
+                                   conv_bwd_data=n_conv - 1,
+                                   conv_bwd_w=n_conv):
+        raise RuntimeError(f"[googlenet] one step launched {per_step}")
+    del net
+    model = per_step_loop(ComputationGraph(conf, device="cuda").init(
+        params=init))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for _ in range(GOOGLENET_STEPS // len(batches)):
+        for ds in batches:
+            scores.append(model.fit_minibatch(ds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    if launches != {k: v * GOOGLENET_STEPS for k, v in per_step.items()}:
+        raise RuntimeError(f"[googlenet] the main path launched {launches}")
+    add_counts(main, launches)
+    peak = torch.cuda.max_memory_allocated()
+    scores = [float(s) for s in scores]
+    if not all(np.isfinite(scores)) or not scores[-2] < scores[0]:
+        raise RuntimeError(f"[googlenet] the score did not fall: {scores}")
+    device_ms, top = profiled_device_ms(torch, lambda: model.fit(batches))
+    device_ms /= len(batches)
+    ms = wall / GOOGLENET_STEPS * 1e3
+    res = {"steps": GOOGLENET_STEPS, "batch": GOOGLENET_BATCH,
+           "examples_per_s": GOOGLENET_STEPS * GOOGLENET_BATCH / wall,
+           "host_ms_per_step": ms, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms,
+           "top_device_ms_per_step": {k[:60]: v / len(batches)
+                                      for k, v in top.items()},
+           "scores": scores, "peak_memory_gb": peak / 1e9,
+           "launches_per_output": {k: v for k, v in per_output.items() if v},
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "twin_output_max_abs_err": out_err,
+           "twin_scores": {"card": card_scores, "cpu": cpu_scores},
+           "twin_max_share_of_move": worst,
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()},
+           "distinct_kernel_shapes_held": len(shapes)}
+    print(f"[googlenet] {json.dumps(res)} card={card}")
+    return main
+
+
+def moe_conf():
+    """bench.py:866's transformer LM with a Switch MoE FFN of 4 experts
+    in every block (hidden 3072, capacity factor 1.25)."""
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    return transformer_lm(**TX, n_experts=MOE_EXPERTS)
+
+
+class held_moe:
+    """Within the block, every ``moe_ffn`` call (the slot dispatch of the
+    main path) is held against the dense plain version
+    (``moe_ffn_reference``: the one-hot ``einsum``s) on the same
+    operands on the card, and its routing against the CPU's routing of
+    copies of the same operands: ``calls``, ``worst`` (the largest
+    error relative to the plain result's largest entry), ``tokens`` and
+    ``agree`` (tokens routed to the same slot on both)."""
+
+    def __init__(self, torch, rel: float = 1e-6):
+        self.torch, self.rel = torch, rel
+        self.calls = self.tokens = self.agree = 0
+        self.worst = 0.0
+
+    def __enter__(self):
+        ex = importlib.import_module("deeplearning4j_tpu_torch.parallel.expert")
+        self._ex, self._saved = ex, ex.moe_ffn
+        fast, torch = ex.moe_ffn, self.torch
+
+        def call(params, x, capacity_factor=1.25, token_mask=None):
+            got = fast(params, x, capacity_factor, token_mask)
+            with torch.no_grad():
+                p = {k: v.detach() for k, v in params.items()}
+                xd = x.detach()
+                ref = ex.moe_ffn_reference(p, xd, capacity_factor, token_mask)
+                scale = max(float(ref.abs().max()), 1e-30)
+                rel = float((got.detach() - ref).abs().max()) / scale
+                if rel > self.rel:
+                    raise RuntimeError(f"moe_ffn {tuple(x.shape)}: {rel:.2e} "
+                                       "of the dense plain result")
+                e = int(p["router"].shape[1])
+                cap = ex.moe_capacity(int(x.shape[0]), capacity_factor, e)
+                slot, _, _ = ex.switch_route(xd @ p["router"], cap, token_mask)
+                cpu_slot, _, _ = ex.switch_route(
+                    xd.cpu() @ p["router"].cpu(), cap,
+                    None if token_mask is None else token_mask.cpu())
+            self.calls += 1
+            self.worst = max(self.worst, rel)
+            self.tokens += int(slot.numel())
+            self.agree += int((slot.cpu() == cpu_slot).sum())
+            return got
+
+        ex.moe_ffn = call
+        return self
+
+    def __exit__(self, *exc):
+        self._ex.moe_ffn = self._saved
+        return False
+
+
+class routing_log:
+    """Within the block, each ``switch_route`` call's slots (a host
+    copy) appended to ``slots``."""
+
+    def __init__(self):
+        self.slots = []
+
+    def __enter__(self):
+        ex = importlib.import_module("deeplearning4j_tpu_torch.parallel.expert")
+        self._ex, self._saved = ex, ex.switch_route
+        route = ex.switch_route
+
+        def call(*args, **kw):
+            out = route(*args, **kw)
+            self.slots.append(out[0].cpu())
+            return out
+
+        ex.switch_route = call
+        return self
+
+    def __exit__(self, *exc):
+        self._ex.switch_route = self._saved
+        return False
+
+
+def run_moe_transformer(torch, card, tokens):
+    """[moe-transformer] the transformer LM of bench.py:866 (d 768, 12
+    layers, 12 heads, vocab 256) with a Switch MoE FFN of 4 experts
+    (hidden 3072, capacity factor 1.25: 8,192 tokens a block, 2,560
+    slots an expert) in every block, Adam lr 3e-4, f32, 16 x 512 bytes of
+    SURVEY.md: one step with every MoE call held against the dense plain
+    version on the same operands and its routing against the CPU's; the
+    main path's 20 steps (launches exact: 12 ``flash_attention`` and 1
+    ``matmul_block`` a step); the default ``fit`` as one CUDA-graph chunk
+    of 4 minibatches bitwise its per-step fit; ``output``; and sampling
+    through ``rnn_time_step`` (a 256-byte prompt, then 32 bytes), each
+    call's routing held against the CPU twin's and its probabilities
+    where the routing agrees. Returns the launch counts."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    layers = TX["n_layers"]
+    conf = moe_conf()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
+    batches = char_batches(tokens, TX_BATCH, TX_T, MOE_STEPS, seed=45,
+                           vocab=TX["vocab"])
+    n_tok = TX_BATCH * TX_T
+    cap = int(np.ceil(n_tok * 1.25 / MOE_EXPERTS))
+    print(f"[moe-transformer] transformer_lm({TX}, n_experts={MOE_EXPERTS}) "
+          f"({net.num_params()} params), {n_tok} tokens a block, capacity "
+          f"{cap} an expert, Adam, batch {TX_BATCH} x t {TX_T}, f32")
+    main = {}
+    held = held_moe(torch)
+    with held:
+        net.fit(batches[0])
+        torch.cuda.synchronize()
+    if held.calls != layers:
+        raise RuntimeError(f"[moe-transformer] held {held.calls} MoE calls")
+    agreement = held.agree / held.tokens
+    if agreement < MOE_MIN_AGREEMENT:
+        raise RuntimeError(f"[moe-transformer] card and CPU route "
+                           f"{agreement:.4f} of tokens alike")
+    # the main path: per-step fit, timed
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for ds in batches:
+        net.fit(ds)
+        scores.append(net.score_value)
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    want = expected_counts(flash_attention=layers * MOE_STEPS,
+                           matmul_block=MOE_STEPS)
+    if launches != want:
+        raise RuntimeError(f"[moe-transformer] {MOE_STEPS} steps launched "
+                           f"{launches}, expected {want}")
+    add_counts(main, launches)
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"[moe-transformer] a score is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, top = profiled_device_ms(torch, lambda: net.fit(batches[:2]))
+    device_ms /= 2
+    ms = wall / MOE_STEPS * 1e3
+    # the default fit: one CUDA-graph chunk, bitwise the per-step fit
+    got, default = default_vs_per_step(
+        torch, "moe-transformer default-fit",
+        lambda p: MultiLayerNetwork(conf, device="cuda").init(params=p),
+        char_batches(tokens, TX_BATCH, TX_T, MOE_DEFAULT_FIT_BATCHES,
+                     seed=47, vocab=TX["vocab"]))
+    add_counts(main, got)
+    # output at t 512
+    dispatch.reset_launch_counts()
+    out = net.output(batches[0].features)
+    torch.cuda.synchronize()
+    per_output = dispatch.launch_counts()
+    if per_output != expected_counts(flash_attention=layers,
+                                     matmul_block=1):
+        raise RuntimeError(f"[moe-transformer] output launched {per_output}")
+    add_counts(main, per_output)
+    if tuple(out.shape) != (TX_BATCH, TX["vocab"], TX_T) or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"[moe-transformer] bad output {tuple(out.shape)}")
+    sample = sample_moe(torch, net, tokens)
+    add_counts(main, sample.pop("launches"))
+    res = {"steps": MOE_STEPS, "batch": TX_BATCH, "t": TX_T,
+           "experts": MOE_EXPERTS, "capacity": cap,
+           "tokens_per_s": MOE_STEPS * n_tok / wall,
+           "host_ms_per_step": ms, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms,
+           "top_device_ms_per_step": {k[:60]: v / 2 for k, v in top.items()},
+           "peak_memory_gb": peak / 1e9, "scores": scores,
+           "launches_per_step": {k: v // MOE_STEPS for k, v in
+                                 launches.items() if v},
+           "moe_calls_held": held.calls,
+           "moe_vs_dense_plain_max_rel_err": held.worst,
+           "routing_agreement_card_vs_cpu": agreement,
+           "default_fit": default, "sample": sample}
+    print(f"[moe-transformer] {json.dumps(res)} card={card}")
+    return main
+
+
+def sample_moe(torch, model, tokens, seed=9):
+    """KV-cache sampling of the MoE LM: a 256-byte prompt of SURVEY.md,
+    then MOE_SAMPLE bytes drawn one at a time (seeded numpy). The CPU
+    twin streams the same bytes; each call's routing (every block's
+    slots) is compared, and where a call routes alike in every block
+    its probabilities are held within 1e-3 of the largest. Each call
+    takes a capacity of its own tokens (as in the JAX package), so the
+    stream is not ``output``."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    vocab = TX["vocab"]
+    rng = np.random.RandomState(seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    start = rng.randint(0, len(tokens) - TX_PROMPT)
+    fed = [int(i) for i in tokens[start:start + TX_PROMPT]]
+    model.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    probs = []
+    card_log = routing_log()
+    t0 = time.perf_counter()
+    with card_log:
+        out = model.rnn_time_step(np.ascontiguousarray(eye[fed].T[None]))
+        probs.append(out[0].cpu())
+        prompt_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(MOE_SAMPLE):
+            q = probs[-1][:, -1].double().numpy()
+            fed.append(int(rng.choice(vocab, p=q / q.sum())))
+            probs.append(model.rnn_time_step(eye[fed[-1]][None]).cpu()
+                         .T)
+        step_ms = (time.perf_counter() - t0) / MOE_SAMPLE * 1e3
+    launches = dispatch.launch_counts()
+    calls = 1 + MOE_SAMPLE
+    if launches != expected_counts(matmul_block=calls):
+        raise RuntimeError(f"[moe-transformer] sampling launched {launches}")
+    model.rnn_clear_previous_state()
+    twin = cpu_twin(torch, model)
+    cpu_log = routing_log()
+    with cpu_log:
+        ref = [twin.rnn_time_step(np.ascontiguousarray(
+            eye[fed[:TX_PROMPT]].T[None]))[0]]
+        for b in fed[TX_PROMPT:]:
+            ref.append(twin.rnn_time_step(eye[b][None]).T)
+    layers = TX["n_layers"]
+    if len(ref) != calls or len(cpu_log.slots) != len(card_log.slots):
+        raise RuntimeError("[moe-transformer] the twin streamed "
+                           f"{len(ref)} calls of {calls}")
+    same_calls, tok, agree, err = 0, 0, 0, 0.0
+    for i, (got, want) in enumerate(zip(probs, ref)):
+        cs = card_log.slots[i * layers:(i + 1) * layers]
+        rs = cpu_log.slots[i * layers:(i + 1) * layers]
+        eq = [int((a == b).sum()) for a, b in zip(cs, rs)]
+        tok += sum(int(a.numel()) for a in cs)
+        agree += sum(eq)
+        if all(e == a.numel() for e, a in zip(eq, cs)):
+            same_calls += 1
+            err = max(err, close_to_scale(torch, got, want, 1e-3))
+    if agree / tok < MOE_MIN_AGREEMENT:
+        raise RuntimeError(f"[moe-transformer] sampling routed "
+                           f"{agree / tok:.4f} of tokens as the CPU did")
+    return {"prompt": TX_PROMPT, "sampled": MOE_SAMPLE,
+            "prompt_ms": prompt_ms, "ms_per_sampled_byte": step_ms,
+            "routing_agreement": agree / tok,
+            "calls_routed_alike": same_calls, "calls": calls,
+            "max_abs_err_vs_cpu_where_routed_alike": err,
+            "launches": launches}
+
+
+def moe_step_reference(torch, ex, params, x, tgt, lr, aux_weight):
+    """One SGD step of ``ExpertParallelMoE.train_step``'s loss through
+    the single-device MoE (``moe_ffn``, the load-balancing loss on its
+    router logits): (new parameters, loss)."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in
+         params.items()}
+    y, aux = ex.moe_ffn(p, x, 1.25, with_aux=True)
+    n, d = int(x.shape[0]), int(x.shape[1])
+    loss = ((y - tgt) ** 2).sum() / (n * d) + aux_weight * aux / 1
+    loss.backward()
+    return ({k: (v - (lr * v.grad).to(v.dtype)).detach()
+             for k, v in p.items()}, loss.detach())
+
+
+def run_moe_ep(torch, card):
+    """[moe-ep] ``ExpertParallelMoE`` over an NCCL world of one, formed
+    through a file rendezvous in a temporary directory, at the MoE LM's
+    block shapes (8,192 tokens of d 768, 4 experts of hidden 3072,
+    capacity 2,560; weights from a seed):
+    ``apply`` bitwise the single-device MoE, two SGD ``train_step``s
+    bitwise the single-device step (both exchanges and the router's
+    all-reduce through NCCL), and the times of both beside the single
+    device's. Returns launch counts (the MoE launches no kernel of its
+    own: all zero)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    ex = importlib.import_module("deeplearning4j_tpu_torch.parallel.expert")
+    d, h = TX["d_model"], 4 * TX["d_model"]
+    n = TX_BATCH * TX_T
+    gen = torch.Generator().manual_seed(61)
+    params = {k: v.cuda() for k, v in ex.init_moe_params(
+        gen, d, h, MOE_EXPERTS).items()}
+    x = torch.randn((n, d), generator=gen).cuda()
+    tgt = (0.1 * torch.randn((n, d), generator=gen)).cuda()
+    tmp = tempfile.mkdtemp(prefix="dl4j_rdv_")
+    dispatch.reset_launch_counts()
+    try:
+        init_distributed(f"file://{tmp}/rdv", 1, 0, device="cuda",
+                         timeout_s=120)
+        mesh = ex.build_expert_mesh()
+        if dist.get_backend() != "nccl" or mesh.backend != "nccl":
+            raise RuntimeError(f"[moe-ep] formed {dist.get_backend()}")
+        ep = ex.ExpertParallelMoE(mesh, n_experts=MOE_EXPERTS)
+        mine = ep.shard_params(params)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            single = ex.moe_ffn(params, x, 1.25)
+        got = ep.apply(mine, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, single):
+            raise RuntimeError("[moe-ep] the world of one differs from the "
+                               "single-device MoE: "
+                               f"{float((got - single).abs().max())}")
+        p_ep, p_one = mine, params
+        losses = []
+        for _ in range(2):
+            p_ep, l_ep = ep.train_step(p_ep, x, tgt, lr=0.05,
+                                       aux_weight=0.01)
+            p_one, l_one = moe_step_reference(torch, ex, p_one, x, tgt,
+                                              0.05, 0.01)
+            losses.append((float(l_ep), float(l_one)))
+            if not torch.equal(l_ep, l_one) or not all(
+                    torch.equal(p_ep[k], p_one[k]) for k in p_one):
+                raise RuntimeError("[moe-ep] a train_step differs from the "
+                                   "single-device step")
+        peak = torch.cuda.max_memory_allocated()
+        apply_ms, apply_host = events_ms(torch, lambda: ep.apply(mine, x),
+                                         reps=10)
+        one_ms, one_host = events_ms(
+            torch, lambda: ex.moe_ffn(params, x, 1.25), reps=10)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            p_ep, _ = ep.train_step(p_ep, x, tgt, lr=0.05)
+        torch.cuda.synchronize()
+        step_host = (time.perf_counter() - t0) / 4 * 1e3
+        step_ms, _ = events_ms(
+            torch, lambda: ep.train_step(p_ep, x, tgt, lr=0.05), reps=4)
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dispatch.launch_counts()
+    res = {"world": 1, "backend": "nccl", "tokens": n, "d": d, "hidden": h,
+           "experts": MOE_EXPERTS,
+           "capacity": ex.moe_capacity(n, 1.25, MOE_EXPERTS),
+           "apply_bitwise_single_device": True,
+           "train_steps_bitwise_single_device": 2, "losses": losses,
+           "apply_device_ms": apply_ms, "apply_host_ms": apply_host,
+           "single_device_ms": one_ms, "single_device_host_ms": one_host,
+           "train_step_device_ms": step_ms,
+           "train_step_host_ms": step_host,
+           "train_step_busy_share": step_ms / step_host,
+           "tokens_per_s": n / step_host * 1e3,
+           "peak_memory_gb": peak / 1e9}
+    print(f"[moe-ep] {json.dumps(res)} card={card}")
+    return launches
+
+
+def graph_charrnn_conf(peephole: bool):
+    """BASELINE.json config #3 (GravesLSTM x 2, hidden 200, vocab 77,
+    TBPTT 50, RMSPROP lr 0.1) built as a ComputationGraph: vertices l0,
+    l1, out."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+
+    return (NeuralNetConfiguration.Builder().seed(42).learning_rate(0.1)
+            .updater("RMSPROP").graph_builder().add_inputs("in")
+            .add_layer("l0", GravesLSTM(n_in=CHAR_VOCAB, n_out=CHAR_HIDDEN,
+                                        activation="tanh", peephole=peephole),
+                       "in")
+            .add_layer("l1", GravesLSTM(n_in=CHAR_HIDDEN, n_out=CHAR_HIDDEN,
+                                        activation="tanh", peephole=peephole),
+                       "l0")
+            .add_layer("out", RnnOutputLayer(n_in=CHAR_HIDDEN,
+                                             n_out=CHAR_VOCAB,
+                                             loss="MCXENT"), "l1")
+            .set_outputs("out")
+            .backprop_type("TruncatedBPTT")
+            .t_bptt_forward_length(CHAR_TBPTT)
+            .t_bptt_backward_length(CHAR_TBPTT).build())
+
+
+def run_graph_charrnn(torch, card, ids):
+    """[graph-charrnn] the char-RNN as a ComputationGraph (graph
+    truncated BPTT and ``rnn_time_step``), with peepholes (``lstm_cell``)
+    and without (``lstm_seq_fwd`` / ``lstm_seq_bwd``): 2 minibatches of
+    32 x 200 characters of SURVEY.md (8 TBPTT segments) beside the
+    ``MultiLayerNetwork`` char-RNN on the same weights and data, scores
+    and parameters within kernel_tols (rtol 2e-4, atol 2e-5; bitwise
+    noted), launches exact, ``output`` and 200 characters sampled
+    through the graph's ``rnn_time_step`` held against the network's.
+    Returns the graph's launch counts (the main path)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    chunks = CHAR_SEGMENT // CHAR_TBPTT
+    batches = char_batches(ids, CHAR_BATCH, CHAR_SEGMENT,
+                           GRAPH_CHAR_MINIBATCHES, seed=71)
+    names = ("l0", "l1", "out")
+    main = {}
+    for peephole in (True, False):
+        tag = "graph-charrnn" + ("" if peephole else "-seq")
+        g = per_step_loop(ComputationGraph(graph_charrnn_conf(peephole),
+                                           device="cuda").init())
+        net = per_step_loop(MultiLayerNetwork(charrnn_conf(peephole),
+                                              device="cuda").init(params={
+            str(i): {k: t.clone() for k, t in g.params[n].items()}
+            for i, n in enumerate(names)}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g_scores, n_scores, wall = [], [], 0.0
+        dispatch.reset_launch_counts()
+        for ds in batches:
+            t0 = time.perf_counter()
+            g.fit(ds)
+            g_scores.append(g.score_value)
+            wall += time.perf_counter() - t0
+        fit_counts = dispatch.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for ds in batches:
+            net.fit(ds)
+            n_scores.append(net.score_value)
+        np.testing.assert_allclose(g_scores, n_scores, rtol=2e-4, atol=2e-5)
+        bitwise = True
+        for i, n in enumerate(names):
+            for k, t in g.params[n].items():
+                ref = net.params[str(i)][k]
+                torch.testing.assert_close(t, ref, rtol=2e-4, atol=2e-5)
+                bitwise = bitwise and torch.equal(t, ref)
+        steps = 2 * CHAR_TBPTT * chunks * GRAPH_CHAR_MINIBATCHES
+        segs = chunks * GRAPH_CHAR_MINIBATCHES
+        want = (expected_counts(lstm_cell=steps) if peephole else
+                expected_counts(lstm_seq_fwd=2 * segs, lstm_seq_bwd=2 * segs))
+        if fit_counts != want:
+            raise RuntimeError(f"[{tag}] fit launched {fit_counts}, "
+                               f"expected {want}")
+        if g.iteration_count != segs:
+            raise RuntimeError(f"[{tag}] {g.iteration_count} steps")
+        seg = batches[0].features[:4]
+        dispatch.reset_launch_counts()
+        out = g.output(seg)[0]
+        # 200 characters through the graph's rnn_time_step, the network
+        # streaming the same ones after
+        rng = np.random.RandomState(7)
+        eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+        g.rnn_clear_previous_state()
+        net.rnn_clear_previous_state()
+        fed = [int(rng.randint(0, CHAR_VOCAB - 1))]
+        t0 = time.perf_counter()
+        stream = []
+        for _ in range(CHAR_SAMPLE):
+            p = g.rnn_time_step(eye[fed[-1]][None])[0][0]
+            stream.append(p)
+            q = p.double().cpu().numpy()
+            fed.append(int(rng.choice(CHAR_VOCAB, p=q / q.sum())))
+        sample_ms = (time.perf_counter() - t0) / CHAR_SAMPLE * 1e3
+        stream_counts = dispatch.launch_counts()
+        out_err = close_to_scale(torch, out, net.output(seg), 1e-4)
+        ref_stream = [net.rnn_time_step(eye[c][None])[0]
+                      for c in fed[:-1]]
+        sample_err = close_to_scale(torch, torch.stack(stream),
+                                    torch.stack(ref_stream), 1e-4)
+        g.rnn_clear_previous_state()
+        per_call = ({"lstm_cell": 2} if peephole else {"lstm_seq_fwd": 2})
+        want_stream = expected_counts(**{
+            k: v * (CHAR_SAMPLE + (CHAR_SEGMENT if k == "lstm_cell" else 1))
+            for k, v in per_call.items()})
+        if stream_counts != want_stream:
+            raise RuntimeError(f"[{tag}] output and sampling launched "
+                               f"{stream_counts}, expected {want_stream}")
+        add_counts(main, fit_counts)
+        add_counts(main, stream_counts)
+        device_ms, _ = profiled_device_ms(torch, lambda: g.fit(batches[0]))
+        device_ms /= chunks
+        ms = wall / segs * 1e3
+        res = {"peephole": peephole, "minibatches": GRAPH_CHAR_MINIBATCHES,
+               "segments": segs,
+               "chars_per_s": GRAPH_CHAR_MINIBATCHES * CHAR_BATCH
+               * CHAR_SEGMENT / wall,
+               "host_ms_per_segment": ms, "device_ms_per_segment": device_ms,
+               "device_busy_share": device_ms / ms,
+               "peak_memory_gb": peak / 1e9,
+               "scores": g_scores, "multilayer_scores": n_scores,
+               "bitwise_multilayer": bitwise,
+               "output_max_abs_err_vs_multilayer": out_err,
+               "ms_per_sampled_char": sample_ms,
+               "sample_max_abs_err_vs_multilayer": sample_err,
+               "launches": {k: v for k, v in add_counts(
+                   dict(fit_counts), stream_counts).items() if v},
+               "sample_ids_head": fed[:20]}
+        print(f"[{tag}] {json.dumps(res)} card={card}")
+        del g, net
+    return main
+
+
+def conv_lstm_conf(t=CONV_LSTM_T):
+    """LeNet-5's two conv stages over each 28 x 28 frame of a sequence
+    (``RnnToCnn`` on the input, ``CnnToRnn`` inferred), GravesLSTM 200,
+    then a softmax of 10 on every frame (``RnnToFeedForward``
+    inferred); Adam lr 0.01 as the zoo's LeNet."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+        RnnToCnnPreProcessor,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        GravesLSTM,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    return (NeuralNetConfiguration.Builder().seed(42).learning_rate(0.01)
+            .updater("ADAM").list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="MAX"))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="MAX"))
+            .layer(GravesLSTM(n_out=CHAR_HIDDEN, activation="tanh"))
+            .layer(OutputLayer(n_out=10, loss="MCXENT"))
+            .input_pre_processor(0, RnnToCnnPreProcessor(28, 28, 1))
+            .set_input_type(InputType.recurrent(784, t))
+            .build())
+
+
+def conv_lstm_shapes(batch=CONV_LSTM_BATCH * CONV_LSTM_T):
+    """The distinct conv kernel shapes of one conv -> LSTM step over
+    ``batch`` frames."""
+    return distinct_shapes(step_shapes(kernel_shapes(conv_lstm_conf(),
+                                                     batch)))
+
+
+def conv_lstm_batches(n, batch, seed):
+    """Sequences of CONV_LSTM_T synthetic MNIST digits (the iterator's
+    seeded digits): features [batch, 784, t], one label row a frame in
+    RnnToFeedForward's order (example-major, time within)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, MnistDataSetIterator
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        it = MnistDataSetIterator(batch * CONV_LSTM_T, allow_synthetic=True,
+                                  num_examples=n * batch * CONV_LSTM_T,
+                                  seed=seed)
+        digits = list(it)
+    out = []
+    for ds in digits:
+        f = np.asarray(ds.features, np.float32).reshape(batch, CONV_LSTM_T,
+                                                        784)
+        out.append(DataSet(np.ascontiguousarray(f.transpose(0, 2, 1)),
+                           np.asarray(ds.labels, np.float32)))
+    return out
+
+
+def run_conv_lstm(torch, card):
+    """[conv-lstm] ``conv_lstm_conf``: 32 sequences of 16 frames (512
+    frames a step through LeNet's convs, the LSTM at b 32, n 200): one
+    step at 2 sequences against the CPU twin with every conv kernel call
+    held on its operands, one step's launches exact, then 16 steps of
+    ``fit`` (the main path) and ``output`` on a held-out minibatch. Returns the main path's
+    launch counts."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    conf = conv_lstm_conf()
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    kinds = [type(p).__name__ for _, p in sorted(conf.preprocessors.items())]
+    print(f"[conv-lstm] RnnToCnn -> conv 5x5 20 -> pool -> conv 5x5 50 -> "
+          f"pool -> GravesLSTM {CHAR_HIDDEN} -> softmax 10 "
+          f"({net.num_params()} params; preprocessors {kinds}), "
+          f"{CONV_LSTM_BATCH} sequences x {CONV_LSTM_T} frames, Adam")
+    if kinds != ["RnnToCnnPreProcessor", "CnnToRnnPreProcessor",
+                 "RnnToFeedForwardPreProcessor"]:
+        raise RuntimeError(f"[conv-lstm] preprocessors {kinds}")
+    batches = conv_lstm_batches(CONV_LSTM_STEPS + 1, CONV_LSTM_BATCH, seed=3)
+    # one step at 2 sequences, card and CPU twin from the same weights:
+    # Adam moves a weight by about lr whatever its gradient's size, so
+    # every weight within 3 lr and at most 1 % of a parameter's entries
+    # beyond 1e-4 + 1e-3 |w|
+    small = type(batches[0])(
+        batches[0].features[:CONV_LSTM_TWIN_BATCH],
+        batches[0].labels[:CONV_LSTM_TWIN_BATCH * CONV_LSTM_T])
+    a = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(
+        params=init))
+    twin = cpu_twin(torch, a)
+    out_err = close_to_scale(torch, a.output(small.features).cpu(),
+                             twin.output(small.features), 1e-4)
+    held = held_on_operands()
+    with held:
+        a.fit(small)
+    twin.fit(small)
+    np.testing.assert_allclose(a.score_value, twin.score_value, rtol=1e-4)
+    max_off = 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            dlt = (a.params[ln][pn].cpu() - ref).abs()
+            off = float((dlt > 1e-4 + 1e-3 * ref.abs()).float().mean())
+            max_off = max(max_off, off)
+            if float(dlt.max()) > 3 * 0.01 or off > 0.01:
+                raise RuntimeError(f"[conv-lstm] card and CPU differ at "
+                                   f"{ln}/{pn}: {float(dlt.max())}, {off}")
+    if {k: n for k, (n, _) in held.errors.items()} != {
+            "conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2}:
+        raise RuntimeError(f"[conv-lstm] held calls: {held.errors}")
+    del a, twin
+    dispatch.reset_launch_counts()
+    net.fit(batches[-1])
+    torch.cuda.synchronize()
+    per_step = dispatch.launch_counts()
+    want = expected_counts(conv_block=4, conv_bwd_data=1, conv_bwd_w=2,
+                           lstm_cell=CONV_LSTM_T)
+    if per_step != want:
+        raise RuntimeError(f"[conv-lstm] one step launched {per_step}, "
+                           f"expected {want}")
+    model = per_step_loop(MultiLayerNetwork(conf, device="cuda").init(
+        params=init))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores = []
+    t0 = time.perf_counter()
+    for ds in batches[:CONV_LSTM_STEPS]:
+        model.fit(ds)
+        scores.append(model.score_value)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = model.output(batches[-1].features)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    want = {k: v * CONV_LSTM_STEPS for k, v in per_step.items()}
+    add_counts(want, {"conv_block": 2, "lstm_cell": CONV_LSTM_T})
+    if launches != want:
+        raise RuntimeError(f"[conv-lstm] the main path launched {launches}, "
+                           f"expected {want}")
+    if tuple(out.shape) != (CONV_LSTM_BATCH * CONV_LSTM_T, 10) or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"[conv-lstm] bad output {tuple(out.shape)}")
+    # Adam at lr 0.01 leaps over the first steps (a fresh 200-unit LSTM
+    # under the softmax): held to the mean of the last four
+    if not all(np.isfinite(scores)) or not np.mean(scores[-4:]) < scores[0]:
+        raise RuntimeError(f"[conv-lstm] the score did not fall: {scores}")
+    accuracy = float((out.argmax(1).cpu().numpy()
+                      == batches[-1].labels.argmax(1)).mean())
+    device_ms, top = profiled_device_ms(torch,
+                                        lambda: model.fit(batches[0]))
+    ms = wall / CONV_LSTM_STEPS * 1e3
+    res = {"steps": CONV_LSTM_STEPS, "sequences": CONV_LSTM_BATCH,
+           "frames_per_s": CONV_LSTM_STEPS * CONV_LSTM_BATCH * CONV_LSTM_T
+           / wall,
+           "host_ms_per_step": ms, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms,
+           "top_device_ms_per_step": {k[:60]: v for k, v in top.items()},
+           "peak_memory_gb": peak / 1e9, "scores": scores,
+           "held_out_accuracy": accuracy,
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "twin_output_max_abs_err": out_err,
+           "twin_max_share_off": max_off,
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()}}
+    print(f"[conv-lstm] {json.dumps(res)} card={card}")
+    return launches
+
+
 def path_launches(kernel, paths, tags=None) -> int:
     """``kernel``'s launches summed over the main paths ``paths`` ({tag:
     launch counts}), or over the ``tags`` among them."""
     return sum(paths[t].get(kernel, 0) for t in (paths if tags is None
                                                   else tags))
+
+
+def network_launches(kernel, paths) -> dict:
+    """``kernel``'s launches on each main path of NETWORK_PATHS that ran
+    it ({tag: launches})."""
+    return {t: paths[t].get(kernel, 0) for t in NETWORK_PATHS
+            if paths.get(t, {}).get(kernel, 0)}
 
 
 def main() -> int:
@@ -7674,12 +8553,16 @@ def main() -> int:
 
     for model, shapes in (("vgg16", vgg_shapes()),
                           ("resnet50", resnet_shapes()),
-                          ("alexnet-train", alexnet_train_shapes())):
+                          ("alexnet-train", alexnet_train_shapes()),
+                          ("googlenet", googlenet_shapes()),
+                          ("conv-lstm", conv_lstm_shapes())):
         for name, kind_, geo, names in shapes:
             if kind_.startswith("conv_bwd"):
-                rec = check_bwd_kernel(torch, model, name, kind_, geo, gen)
+                rec = check_bwd_kernel(torch, model, name, kind_, geo, gen,
+                                       KERNEL_WINDOW_MS)
             else:
-                rec = check_kernel(torch, F, model, name, kind_, geo, gen)
+                rec = check_kernel(torch, F, model, name, kind_, geo, gen,
+                                   KERNEL_WINDOW_MS)
             # a step launches the conv forward twice (the f32 recompute)
             rec.update(vertices=names, launches_per_step=len(names) * (
                 2 if kind_ == "conv_block" else 1))
@@ -7789,6 +8672,10 @@ def main() -> int:
                           ("earlystop", run_earlystop, ()),
                           ("evaluate", run_evaluate, ())):
         runtime_paths[tag] = phase(tag, fn, *args)
+    # the networks of the MoE / GoogLeNet / graph-RNN slice: each a main
+    # path, its launches summed into the kernels line by name
+    net_paths = {tag: phase(tag, fn, *args)
+                 for tag, fn, args in network_phases(records, tokens, ids)}
     nlp = run_nlp(torch, card)
     # the row-sharded trainer on two ranks (after every phase that forms
     # a world in this process)
@@ -7832,7 +8719,9 @@ def main() -> int:
                          + rollback[k]
                          + sum(c[k] for c in half_launches)
                          + sum(c[k] for c in scan_paths)
-                         + path_launches(k, runtime_paths)),
+                         + path_launches(k, runtime_paths)
+                         + path_launches(k, net_paths)),
+            "launches_by_path": network_launches(k, net_paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["kernel_ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -7844,7 +8733,8 @@ def main() -> int:
                 {r["kernel_route"] for r in main}))
         # VGG-16's, ResNet-50's and AlexNet's training steps at batch
         # 128: each shape's time by its launches a step, summed
-        for model in ("vgg16", "resnet50", "alexnet-train"):
+        for model in ("vgg16", "resnet50", "alexnet-train", "googlenet",
+                      "conv-lstm"):
             recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
             if not recs:
                 continue
@@ -7909,7 +8799,8 @@ def main() -> int:
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": f"deeplearning4j_tpu/ops/lstm_cell.py:{line}",
             "launches": (char_peep[k] + char_seq[k] + fused_peep[k]
-                         + fused_seq[k]),
+                         + fused_seq[k] + path_launches(k, net_paths)),
+            "launches_by_path": network_launches(k, net_paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -7942,7 +8833,9 @@ def main() -> int:
             "launches": (sum(c[k] for c in tx_paths)
                          + sum(c[k] for c in half_launches)
                          + path_launches(k, runtime_paths,
-                                         ["default-fit"])),
+                                         ["default-fit"])
+                         + path_launches(k, net_paths)),
+            "launches_by_path": network_launches(k, net_paths),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

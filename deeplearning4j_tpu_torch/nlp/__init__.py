@@ -10,9 +10,17 @@ one step applies gather -> dot -> sigmoid -> row update for the whole
 batch (synchronous large-batch updates: parity with the reference is
 statistical). The bag-of-words / TF-IDF vectorizers, the inverted
 index, ``StaticWord2Vec`` and the model utilities (flat and VP-tree
-nearest words) are here too; the CJK / Japanese segmenters and the tree
-parser and POS tagger are not ported yet (ROADMAP queue 1).
+nearest words) are here too, and the host-only text periphery: the CJK
+tokenizers (``cjk.py``: script-class segmentation, registered as
+``"japanese_script"`` and ``"korean"``), the Japanese lattice and Viterbi
+segmenter (``japanese.py``, registered as ``"japanese"``), the tree
+parser (``treeparser.py``: sentence segmentation, Porter stemming,
+``Tree``, ``TreeParser``, ``TreeVectorizer``) and the averaged-perceptron
+POS tagger (``pos_tagger.py``).
 """
+
+from deeplearning4j_tpu_torch.nlp import cjk  # noqa: F401 (registers ja/ko)
+from deeplearning4j_tpu_torch.nlp import japanese  # noqa: F401 (dictionary)
 
 from deeplearning4j_tpu_torch.nlp.glove import Glove
 from deeplearning4j_tpu_torch.nlp.inverted_index import InvertedIndex
@@ -45,6 +53,14 @@ from deeplearning4j_tpu_torch.nlp.tokenization import (
     register_tokenizer_factory,
     tokenizer_factory,
 )
+from deeplearning4j_tpu_torch.nlp.treeparser import (
+    Tree,
+    TreeParser,
+    TreeVectorizer,
+    porter_stem,
+    pos_tag,
+    segment_sentences,
+)
 from deeplearning4j_tpu_torch.nlp.vectorizers import (
     BagOfWordsVectorizer,
     TfidfVectorizer,
@@ -63,8 +79,10 @@ __all__ = [
     "FileSentenceIterator", "FlatModelUtils", "Glove", "Huffman",
     "InvertedIndex", "LineSentenceIterator", "NGramTokenizerFactory",
     "ParagraphVectors", "RegexTokenizerFactory", "StaticWord2Vec",
-    "TfidfVectorizer", "TreeModelUtils", "VocabCache", "VocabConstructor",
-    "VocabWord", "Word2Vec", "load_binary", "load_txt",
+    "TfidfVectorizer", "Tree", "TreeModelUtils", "TreeParser",
+    "TreeVectorizer", "VocabCache", "VocabConstructor", "VocabWord",
+    "Word2Vec", "load_binary", "load_txt", "porter_stem", "pos_tag",
     "read_word_vectors", "register_tokenizer_factory", "save_static",
-    "tokenizer_factory", "write_binary", "write_txt", "write_word_vectors",
+    "segment_sentences", "tokenizer_factory", "write_binary", "write_txt",
+    "write_word_vectors",
 ]

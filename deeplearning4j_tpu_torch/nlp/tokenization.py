@@ -144,8 +144,9 @@ register_tokenizer_factory("default", DefaultTokenizerFactory)
 register_tokenizer_factory("ngram", NGramTokenizerFactory)
 register_tokenizer_factory("regex", RegexTokenizerFactory)
 register_tokenizer_factory("char", CharTokenizerFactory)
-# The CJK entries (the JAX package's nlp/cjk.py) are not ported yet
-# (ROADMAP queue 1); register_tokenizer_factory adds any factory.
+# The CJK entries ("japanese", "japanese_script", "korean") are
+# registered by nlp/cjk.py and nlp/japanese.py (the package imports
+# both); register_tokenizer_factory adds any factory.
 
 
 # ---------------------------------------------------------------------------

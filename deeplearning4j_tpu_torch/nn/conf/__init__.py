@@ -10,15 +10,23 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    ComposableInputPreProcessor,
     FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
     InputPreProcessor,
+    ReshapePreProcessor,
+    RnnToCnnPreProcessor,
     RnnToFeedForwardPreProcessor,
     ShapeContext,
+    UnitVarianceProcessor,
+    ZeroMeanPrePreProcessor,
 )
 
 __all__ = [
     "CnnToFeedForwardPreProcessor",
+    "CnnToRnnPreProcessor",
+    "ComposableInputPreProcessor",
     "ComputationGraphConfiguration",
     "FeedForwardToCnnPreProcessor",
     "FeedForwardToRnnPreProcessor",
@@ -28,6 +36,10 @@ __all__ = [
     "ListBuilder",
     "MultiLayerConfiguration",
     "NeuralNetConfiguration",
+    "ReshapePreProcessor",
+    "RnnToCnnPreProcessor",
     "RnnToFeedForwardPreProcessor",
     "ShapeContext",
+    "UnitVarianceProcessor",
+    "ZeroMeanPrePreProcessor",
 ]

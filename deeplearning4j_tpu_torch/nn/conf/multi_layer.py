@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
     FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
     InputPreProcessor,
@@ -174,9 +175,9 @@ def _auto_preprocessor(current: InputType,
         if have in ("feedforward", "convolutionalFlat"):
             return FeedForwardToRnnPreProcessor()
         if have == "convolutional":
-            raise ValueError(
-                "CnnToRnnPreProcessor is not ported yet (ROADMAP.md "
-                "queue 1: the CNN <-> RNN adapters)")
+            return CnnToRnnPreProcessor(
+                current.height, current.width, current.channels
+            )
     return None
 
 

@@ -1,13 +1,19 @@
 """Input preprocessors: shape adapters between layer families.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py`` for the
-two adapters the convolutional stacks use (``[b, c, h, w] <-> [b,
-c*h*w]``) and the two between recurrent and feed-forward layers (``[b,
-size, t] <-> [b*t, size]``, one row per timestep), with the same
-reshape orders and the same JSON. A ``ShapeContext`` carries the
-minibatch size and the sequence length, which the 2-d -> 3-d adapter
-needs. The CNN <-> RNN adapters and the rest are not ported yet; a
-configuration that names one fails to load with a clear error.
+Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py``, all ten
+adapters with the same reshape orders and the same JSON (each
+registered by its ``@class``): between convolutional and feed-forward
+layers (``[b, c, h, w] <-> [b, c*h*w]``), between recurrent and
+feed-forward layers (``[b, size, t] <-> [b*t, size]``, one row per
+timestep), between convolutional and recurrent layers (``[b*t, c, h,
+w] <-> [b, c*h*w, t]``: the frames of a sequence stacked along the
+batch, timestep-major within each example), a free-form reshape, the
+per-minibatch standardizers (``ZeroMeanPrePreProcessor``,
+``UnitVarianceProcessor``: population statistics over the batch axis)
+and a composition. A ``ShapeContext`` carries the minibatch size and
+the sequence length, which the adapters into the recurrent layout
+need. Backprop through them is autograd's, as it is ``jax.grad``'s in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ class InputPreProcessor:
                 f"Preprocessor '{name}' is not ported yet (known: "
                 f"{sorted(PREPROCESSOR_REGISTRY)})"
             ) from None
+        if cls.from_json is not InputPreProcessor.from_json:
+            return cls.from_json({"@class": cls.__name__, **d})
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{
             k: (tuple(v) if isinstance(v, list) else v)
@@ -119,3 +127,97 @@ class FeedForwardToRnnPreProcessor(InputPreProcessor):
 
     def output_type(self, it: InputType) -> InputType:
         return InputType.recurrent(it.size)
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class CnnToRnnPreProcessor(InputPreProcessor):
+    """[b*t, c, h, w] (the frames of each sequence stacked along the
+    batch) -> [b, c*h*w, t]."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+    def preprocess(self, x, ctx):
+        flat = x.reshape(x.shape[0], -1)                     # [b*t, chw]
+        return flat.reshape(-1, ctx.time, flat.shape[-1]).permute(0, 2, 1)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(it.channels * it.height * it.width)
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class RnnToCnnPreProcessor(InputPreProcessor):
+    """[b, c*h*w, t] -> [b*t, c, h, w]."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+    def preprocess(self, x, ctx):
+        rows = x.permute(0, 2, 1).reshape(-1, x.shape[1])
+        return rows.reshape(-1, self.channels, self.height, self.width)
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.convolutional(self.height, self.width,
+                                       self.channels)
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class ReshapePreProcessor(InputPreProcessor):
+    """A free-form reshape keeping the batch axis (reference
+    ``ReshapePreProcessor.java``)."""
+
+    shape: tuple = ()
+
+    def preprocess(self, x, ctx):
+        return x.reshape((x.shape[0],) + tuple(self.shape))
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class ZeroMeanPrePreProcessor(InputPreProcessor):
+    """Subtract the minibatch's mean over the batch axis."""
+
+    def preprocess(self, x, ctx):
+        return x - x.mean(dim=0, keepdim=True)
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class UnitVarianceProcessor(InputPreProcessor):
+    """Divide by the minibatch's population standard deviation over the
+    batch axis (plus 1e-8)."""
+
+    def preprocess(self, x, ctx):
+        return x / (x.std(dim=0, keepdim=True, correction=0) + 1e-8)
+
+
+@register_preprocessor
+@dataclass(frozen=True)
+class ComposableInputPreProcessor(InputPreProcessor):
+    """The given preprocessors applied in order."""
+
+    processors: tuple = ()
+
+    def preprocess(self, x, ctx):
+        for p in self.processors:
+            x = p.preprocess(x, ctx)
+        return x
+
+    def output_type(self, it: InputType) -> InputType:
+        for p in self.processors:
+            it = p.output_type(it)
+        return it
+
+    def to_json(self) -> dict:
+        return {"@class": type(self).__name__,
+                "processors": [p.to_json() for p in self.processors]}
+
+    @staticmethod
+    def from_json(d: dict) -> "ComposableInputPreProcessor":
+        return ComposableInputPreProcessor(processors=tuple(
+            InputPreProcessor.from_json(p) for p in d["processors"]))

@@ -1899,6 +1899,35 @@ def stream_guard_and_prime(named_layers, rnn_state, stream_steps: int,
             rnn_state[name] = lc.init_stream_state(batch, dtype, device)
 
 
+def refuse_unstreamable(named_layers, what: str) -> None:
+    """Raise for a layer that needs the whole sequence (a bidirectional
+    RNN): ``rnn_time_step`` cannot feed it a timestep at a time."""
+    for name, lc in named_layers:
+        if not lc.can_stream():
+            raise ValueError(
+                f"{what} '{name}' ({type(lc).__name__}) cannot be used "
+                "with rnn_time_step: it needs the full sequence "
+                "(reference throws UnsupportedOperationException)")
+
+
+def stream_forward(model, named_layers, t_new: int, batch: int, forward):
+    """One ``rnn_time_step`` call of either engine: prime the carries
+    (``stream_guard_and_prime``), run ``forward(state)`` on the layer
+    state merged with them, keep the new carries and count the
+    timesteps. ``forward`` returns ``(out, new_state)``; returns
+    ``out``."""
+    stream_guard_and_prime(named_layers, model._rnn_state,
+                           model._stream_steps, t_new, batch,
+                           dtype_of(model.conf), model.device)
+    merged = dict(model.state)
+    for name, carry in model._rnn_state.items():
+        merged[name] = {**merged.get(name, {}), **carry}
+    out, new_state = forward(merged)
+    extract_stream_state(named_layers, new_state, model._rnn_state)
+    model._stream_steps += t_new
+    return out
+
+
 def extract_stream_state(named_layers, new_state, rnn_state) -> None:
     """Pull each streaming layer's carry out of a forward's state into
     the held ``rnn_state`` (the reference's stateMap)."""

@@ -33,9 +33,14 @@ validator, the preemption check, the dispatch window), ``resume`` /
 ``fold_in(step key, i)``, the output vertex's pre-output with the masks
 of its ``apply``. ``output_padded`` (the serving bucket's forward),
 ``copy``, ``summary``, ``evaluate`` (of the first output vertex) and the
-``aot_*`` entry points are the shared ones of ``nn/engine_api.py``. Graph truncated BPTT, ``rnn_time_step``
-and ``pretrain`` are not ported: each raises, naming the slice that
-brings it.
+``aot_*`` entry points are the shared ones of ``nn/engine_api.py``.
+Truncated BPTT (``_fit_tbptt``: every time-bearing input, label and mask
+cut into ``tbptt_fwd_length`` segments, one step each, the recurrent
+carry handed from segment to segment; inputs without a time axis ride
+along whole) and ``rnn_time_step`` / ``rnn_clear_previous_state`` (the
+streaming carry of every layer vertex, the JAX engine's 2-d / 3-d
+convention) are the JAX engine's. ``pretrain`` is not ported: it raises,
+naming the slice that brings it.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
@@ -114,6 +119,9 @@ class ComputationGraph(EngineApi):
         # the input shapes of installed AOT artifacts (engine_api.py)
         self._output_signatures: set = set()
         self._aot_outputs: dict = {}
+        # rnn_time_step's carry by vertex and the timesteps it has seen
+        self._rnn_state: Dict[str, dict] = {}
+        self._stream_steps = 0
 
     @property
     def score_value(self) -> float:
@@ -477,9 +485,7 @@ class ComputationGraph(EngineApi):
         if (self.conf.backprop_type == "TruncatedBPTT" and any(
                 x.dim() == 3 and x.shape[2] > self.conf.tbptt_fwd_length
                 for x in inputs)):
-            raise NotImplementedError(
-                "fit: truncated BPTT over a ComputationGraph is not ported "
-                "yet (ROADMAP queue 1)")
+            return self._fit_tbptt(inputs, labels, lmasks, fmasks)
         prof = profiler.get_active_profiler()
         if prof is not None:
             prof.begin_step(self.iteration_count + 1, device=self.device)
@@ -535,17 +541,87 @@ class ComputationGraph(EngineApi):
         for n in self.recurrent_names():
             self.state[n] = {}
 
-    # -- what the port does not carry yet ------------------------------------
+    def _fit_tbptt(self, inputs, labels, lmasks, fmasks) -> torch.Tensor:
+        """Truncated BPTT over the graph (JAX ``_fit_tbptt``, reference
+        ``ComputationGraph.doTruncatedBPTT``): every [b, n, T] input and
+        label and every [b, T] mask cut into ``tbptt_fwd_length``
+        segments, one optimizer step each, the recurrent carry handed on
+        detached in the layer state; arrays without the time axis ride
+        along whole. Returns the last segment's score."""
+        fwd = self.conf.tbptt_fwd_length
+        t_lens = {int(x.shape[2]) for x in inputs if x.dim() == 3}
+        for group in (labels, lmasks, fmasks):
+            for v in group or []:
+                if v is not None and v.dim() == 3:
+                    t_lens.add(int(v.shape[2]))
+        if len(t_lens) > 1:
+            raise ValueError(
+                "TruncatedBPTT requires every time-series input/label to "
+                f"share one sequence length; got {sorted(t_lens)} "
+                "(chunking mixed lengths would re-feed the shorter series "
+                "each chunk with stale recurrent carry)")
+        t_total = t_lens.pop()
 
-    def rnn_time_step(self, *inputs):
-        raise NotImplementedError(
-            "ComputationGraph.rnn_time_step is not ported yet (ROADMAP "
-            "queue 1); MultiLayerNetwork has it")
+        def cut3(vs, s, e):
+            if vs is None:
+                return None
+            return [v[:, :, s:e].contiguous() if v is not None
+                    and v.dim() == 3 and v.shape[2] == t_total else v
+                    for v in vs]
+
+        def cut_mask(vs, s, e):
+            if vs is None:
+                return None
+            return [m[:, s:e].contiguous() if m is not None
+                    and m.dim() == 2 and m.shape[1] == t_total else m
+                    for m in vs]
+
+        self._reset_recurrent_state()
+        score = None
+        for start in range(0, t_total, fwd):
+            end = min(start + fwd, t_total)
+            score = core.run_step(
+                self, self._train_step(), cut3(inputs, start, end),
+                cut3(labels, start, end), cut_mask(lmasks, start, end),
+                cut_mask(fmasks, start, end))
+        self._reset_recurrent_state()
+        return score
+
+    # -- streaming inference (reference rnnTimeStep) -------------------------
+
+    def rnn_time_step(self, *inputs) -> List[torch.Tensor]:
+        """Feed one (or a few) timesteps of each input, carrying the
+        recurrent state across calls (reference
+        ``ComputationGraph.rnnTimeStep``). Inputs [b, size] or [b, size,
+        t]; each 2-d input gets a time axis of its own, and the outputs
+        come back 2-d only when every input arrived 2-d."""
+        if self.params is None:
+            self.init()
+        named = [(n, self._layer(n)) for n in self.layer_vertex_names]
+        core.refuse_unstreamable(named, "Vertex")
+        with torch.inference_mode():
+            arr = self._tensors(inputs)
+            was_2d = [x.dim() == 2 for x in arr]
+            squeeze = bool(arr) and all(was_2d)
+            arr = [x[:, :, None] if w else x for x, w in zip(arr, was_2d)]
+
+            def forward(state):
+                values, _, new_state = self._forward_values(
+                    self.params, state, arr, train=False)
+                return values, new_state
+
+            values = core.stream_forward(
+                self, named,
+                max((int(x.shape[2]) for x in arr if x.dim() == 3),
+                    default=1),
+                int(arr[0].shape[0]) if arr else 1, forward)
+        return [values[n][:, :, 0] if squeeze and values[n].dim() == 3
+                else values[n] for n in self.conf.outputs]
 
     def rnn_clear_previous_state(self) -> None:
-        raise NotImplementedError(
-            "ComputationGraph.rnn_time_step is not ported yet (ROADMAP "
-            "queue 1)")
+        """Reference ``rnnClearPreviousState``."""
+        self._rnn_state = {}
+        self._stream_steps = 0
 
     def set_transforms(self, scan_layers=None, remat=None, loss_scale=None,
                        megastep=None) -> "ComputationGraph":

@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     OutputLayer,
     SparseEmbeddingLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.moe import MixtureOfExperts
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GravesBidirectionalLSTM,
     GravesLSTM,
@@ -50,6 +51,7 @@ __all__ = [
     "LayerSpec",
     "LocalResponseNormalization",
     "LossLayer",
+    "MixtureOfExperts",
     "MultiHeadSelfAttention",
     "OutputLayer",
     "PositionalEncoding",

@@ -27,10 +27,14 @@ Routing:
   order of operations); under a features mask, which multiplies the
   product before the add, they stay two plain steps.
 
-Not ported yet, and refused where a configuration asks for them: the
-Switch mixture-of-experts FFN (``n_experts > 0``; ROADMAP queue 1, MoE)
-and ring attention over a sequence-sharded mesh axis (``seq_axis``; the
-distribution slice). Training with a dropout rate drops the input of
+``TransformerBlock(n_experts > 0)`` swaps the dense FFN for the Switch
+mixture-of-experts FFN (``parallel/expert.py``'s ``moe_ffn``: top-1
+routing, per-call capacity, dispatch by slot index; its parameters
+``router [d, E]``, ``w1 [E, d, h]``, ``b1``, ``w2 [E, h, d]``, ``b2``
+replace ``w_ff*`` / ``b_ff*``); its residual add stays a plain step, as
+in the JAX block. Not ported yet, and refused where a configuration asks
+for it: ring attention over a sequence-sharded mesh axis
+(``seq_axis``; the distribution slice). Training with a dropout rate drops the input of
 both blocks (``SelfAttentionLayer`` and ``TransformerBlock``, through
 ``LayerSpec.maybe_dropout``) with the JAX package's masks bit for bit
 (``nn/random.py``), as every layer does.
@@ -52,6 +56,7 @@ from deeplearning4j_tpu_torch.ops import matmul_block, mha
 from deeplearning4j_tpu_torch.parallel.sequence import neg_fill
 
 _ATTN_PARAMS = ("Wq", "Wk", "Wv", "Wo", "bo")
+_MOE_PARAMS = ("router", "w1", "b1", "w2", "b2")
 
 
 def _refuse_ring(layer) -> None:
@@ -204,7 +209,7 @@ class TransformerBlock(LayerSpec):
     n_heads: int = 4
     ffn_hidden: int = 0   # 0 -> 4 * n_in
     causal: bool = True
-    n_experts: int = 0    # > 0: Switch MoE, not ported yet
+    n_experts: int = 0    # 0 -> dense FFN; > 0 -> Switch MoE
     capacity_factor: float = 1.25
     activation: str = "identity"
     seq_axis: str = ""
@@ -212,11 +217,6 @@ class TransformerBlock(LayerSpec):
     kv_cache: int = 1024  # incremental-decode cache (see MHSA)
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                f"TransformerBlock(n_experts={self.n_experts}): the Switch "
-                "mixture-of-experts FFN is not ported yet (ROADMAP queue 1: "
-                "MoE, nn/layers/moe.py and parallel/expert.py)")
         _refuse_ring(self)
 
     def input_kind(self) -> str:
@@ -271,6 +271,13 @@ class TransformerBlock(LayerSpec):
         for ln in ("ln1", "ln2"):
             p[f"{ln}_gamma"] = torch.ones(d, dtype=dtype)
             p[f"{ln}_beta"] = torch.zeros(d, dtype=dtype)
+        if self.n_experts > 0:
+            from deeplearning4j_tpu_torch.parallel.expert import (
+                init_moe_params,
+            )
+
+            p.update(init_moe_params(gen, d, h, self.n_experts, dtype))
+            return p
         p["w_ff1"] = init_weights(gen, (d, h), self.weight_init, fan_in=d,
                                   fan_out=h, distribution=self.dist,
                                   dtype=dtype)
@@ -294,6 +301,14 @@ class TransformerBlock(LayerSpec):
         h2 = _layer_norm(x, params["ln2_gamma"], params["ln2_beta"], 1e-5)
         b, f, t = h2.shape
         rows = h2.transpose(1, 2).reshape(b * t, f)
+        if self.n_experts > 0:
+            from deeplearning4j_tpu_torch.parallel.expert import moe_ffn
+
+            upd = moe_ffn({k: params[k] for k in _MOE_PARAMS}, rows,
+                          self.capacity_factor,
+                          mask.reshape(b * t) if mask is not None else None)
+            x = x + upd.reshape(b, t, f).transpose(1, 2)
+            return self.activate_fn()(x), state
         hidden = activations.get("gelu")(
             torch.matmul(rows, params["w_ff1"]) + params["b_ff1"])
         if mask is None:

@@ -654,31 +654,18 @@ class MultiLayerNetwork(EngineApi):
         ``stateMap``). Input ``[b, size]`` or ``[b, size, t]``."""
         if self.params is None:
             self.init()
-        for name, layer in zip(self.layer_names, self.conf.layers):
-            if not layer.can_stream():
-                raise ValueError(
-                    f"Layer '{name}' ({type(layer).__name__}) cannot be "
-                    "used with rnn_time_step: it needs the full sequence "
-                    "(reference throws UnsupportedOperationException)")
-        dtype = core.dtype_of(self.conf)
         named = list(zip(self.layer_names, self.conf.layers))
+        core.refuse_unstreamable(named, "Layer")
         with torch.inference_mode():
-            xt = self._to_device(x, dtype)
+            xt = self._to_device(x, core.dtype_of(self.conf))
             squeeze = xt.dim() == 2
             if squeeze:
                 xt = xt[:, :, None]
-            t_new = int(xt.shape[2])
-            core.stream_guard_and_prime(named, self._rnn_state,
-                                        self._stream_steps, t_new,
-                                        int(xt.shape[0]), dtype, self.device)
-            merged = dict(self.state)
-            for name, carry in self._rnn_state.items():
-                merged[name] = {**merged.get(name, {}), **carry}
-            out, new_state = core.sequential_forward(
-                self.conf, self.layer_names, self.params, merged, xt,
-                train=False)
-            core.extract_stream_state(named, new_state, self._rnn_state)
-        self._stream_steps += t_new
+            out = core.stream_forward(
+                self, named, int(xt.shape[2]), int(xt.shape[0]),
+                lambda state: core.sequential_forward(
+                    self.conf, self.layer_names, self.params, state, xt,
+                    train=False))
         return out[:, :, 0] if squeeze else out
 
     def rnn_clear_previous_state(self) -> None:

@@ -1,16 +1,19 @@
 """Model zoo: builders for the configurations the port serves so far.
 
 Counterpart of ``deeplearning4j_tpu/zoo/models.py`` for ``lenet``,
-``alexnet``, ``vgg16``, ``resnet50``, ``transformer_lm`` and
-``graves_lstm_char_rnn``, with the JAX package's defaults, so each
+``alexnet``, ``vgg16``, ``resnet50``, ``googlenet``, ``transformer_lm``
+and ``graves_lstm_char_rnn``, with the JAX package's defaults, so each
 builder here gives the same ``configuration.json`` as its counterpart
 there. Callers wrap the configuration in ``MultiLayerNetwork(conf,
-device=...)`` (``vgg16``, ``resnet50``: in ``ComputationGraph(conf,
-device=...)``) and ``.init()`` it.
+device=...)`` (``vgg16``, ``resnet50``, ``googlenet``: in
+``ComputationGraph(conf, device=...)``) and ``.init()`` it.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
-from deeplearning4j_tpu_torch.nn.conf.graph_conf import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ElementWiseVertex,
+    MergeVertex,
+)
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer,
     BatchNormalization,
@@ -231,6 +234,104 @@ def resnet50(height=224, width=224, channels=3, n_classes=1000, *,
     return b.build()
 
 
+def _inception_module(b, name, in_name, c1, c3r, c3, c5r, c5, pp):
+    """GoogLeNet inception module: 1x1 / 1x1->3x3 / 1x1->5x5 /
+    maxpool->1x1 branches concatenated over channels (MergeVertex)."""
+    b.add_layer(f"{name}_b1", ConvolutionLayer(
+        n_out=c1, kernel_size=(1, 1), activation="relu"), in_name)
+    b.add_layer(f"{name}_b3r", ConvolutionLayer(
+        n_out=c3r, kernel_size=(1, 1), activation="relu"), in_name)
+    b.add_layer(f"{name}_b3", ConvolutionLayer(
+        n_out=c3, kernel_size=(3, 3), padding=(1, 1),
+        activation="relu"), f"{name}_b3r")
+    b.add_layer(f"{name}_b5r", ConvolutionLayer(
+        n_out=c5r, kernel_size=(1, 1), activation="relu"), in_name)
+    b.add_layer(f"{name}_b5", ConvolutionLayer(
+        n_out=c5, kernel_size=(5, 5), padding=(2, 2),
+        activation="relu"), f"{name}_b5r")
+    b.add_layer(f"{name}_pool", SubsamplingLayer(
+        pooling_type="MAX", kernel_size=(3, 3), stride=(1, 1),
+        padding=(1, 1)), in_name)
+    b.add_layer(f"{name}_pp", ConvolutionLayer(
+        n_out=pp, kernel_size=(1, 1), activation="relu"), f"{name}_pool")
+    b.add_vertex(f"{name}_cat", MergeVertex(), f"{name}_b1", f"{name}_b3",
+                 f"{name}_b5", f"{name}_pp")
+    return f"{name}_cat"
+
+
+# the inception modules (name, 1x1, 3x3 reduce, 3x3, 5x5 reduce, 5x5,
+# pool projection); "pool" rows are the stride-2 max pools between them
+GOOGLENET_MODULES = (
+    ("3a", 64, 96, 128, 16, 32, 32),
+    ("3b", 128, 128, 192, 32, 96, 64),
+    ("pool", 0, 0, 0, 0, 0, 0),
+    ("4a", 192, 96, 208, 16, 48, 64),
+    ("4b", 160, 112, 224, 24, 64, 64),
+    ("4c", 128, 128, 256, 24, 64, 64),
+    ("4d", 112, 144, 288, 32, 64, 64),
+    ("4e", 256, 160, 320, 32, 128, 128),
+    ("pool", 0, 0, 0, 0, 0, 0),
+    ("5a", 256, 160, 320, 32, 128, 128),
+    ("5b", 384, 192, 384, 48, 128, 128),
+)
+
+
+def googlenet(height=224, width=224, channels=3, n_classes=1000, *,
+              updater="NESTEROVS", learning_rate=0.01, seed=42,
+              dtype="float32", compute_dtype=None):
+    """GoogLeNet / Inception v1 (Szegedy et al. 2014) as a
+    ComputationGraph, without the auxiliary heads: a 7x7 stride-2 stem,
+    max pools, a 1x1 -> 3x3 stem pair, nine inception modules
+    (``GOOGLENET_MODULES``), a global average pool and a softmax output
+    with dropout 0.4. ~6M parameters."""
+    if height % 32 or width % 32:
+        raise ValueError(
+            "googlenet input extent must be divisible by 32; got "
+            f"{height}x{width}")
+    b = (
+        NeuralNetConfiguration.Builder()
+        .seed(seed).learning_rate(learning_rate).updater(updater)
+        .data_type(dtype).compute_data_type(compute_dtype)
+        .graph_builder()
+        .add_inputs("in")
+    )
+    b.add_layer("stem1", ConvolutionLayer(
+        n_out=64, kernel_size=(7, 7), stride=(2, 2), padding=(3, 3),
+        activation="relu"), "in")
+    b.add_layer("pool1", SubsamplingLayer(
+        pooling_type="MAX", kernel_size=(3, 3), stride=(2, 2),
+        padding=(1, 1)), "stem1")
+    b.add_layer("stem2r", ConvolutionLayer(
+        n_out=64, kernel_size=(1, 1), activation="relu"), "pool1")
+    b.add_layer("stem2", ConvolutionLayer(
+        n_out=192, kernel_size=(3, 3), padding=(1, 1),
+        activation="relu"), "stem2r")
+    b.add_layer("pool2", SubsamplingLayer(
+        pooling_type="MAX", kernel_size=(3, 3), stride=(2, 2),
+        padding=(1, 1)), "stem2")
+    prev = "pool2"
+    n_pools = 0
+    for name, c1, c3r, c3, c5r, c5, pp in GOOGLENET_MODULES:
+        if name == "pool":
+            n_pools += 1
+            pname = f"pool{2 + n_pools}"
+            b.add_layer(pname, SubsamplingLayer(
+                pooling_type="MAX", kernel_size=(3, 3), stride=(2, 2),
+                padding=(1, 1)), prev)
+            prev = pname
+        else:
+            prev = _inception_module(b, f"inc{name}", prev, c1, c3r, c3,
+                                     c5r, c5, pp)
+    gap = (height // 32, width // 32)
+    b.add_layer("gap", SubsamplingLayer(
+        pooling_type="AVG", kernel_size=gap, stride=gap), prev)
+    b.add_layer("out", OutputLayer(n_out=n_classes, loss="MCXENT",
+                                   dropout=0.4), "gap")
+    b.set_outputs("out")
+    b.set_input_types(InputType.convolutional(height, width, channels))
+    return b.build()
+
+
 def transformer_lm(vocab=77, d_model=256, n_layers=4, n_heads=8, *,
                    ffn_hidden=None, n_experts=0, updater="ADAM",
                    learning_rate=1e-3, seed=42, dtype="float32",
@@ -243,8 +344,9 @@ def transformer_lm(vocab=77, d_model=256, n_layers=4, n_heads=8, *,
     (trajectory-neutral; the JAX package's scan over the blocks),
     ``remat`` (``none | dots_saveable | full``) and ``loss_scale``
     (dynamic loss scaling for ``compute_dtype="float16"``) are the
-    whole-net transform hints (``nn/core.py``); ``n_experts > 0`` raises
-    (the mixture-of-experts FFN is not ported yet)."""
+    whole-net transform hints (``nn/core.py``); ``n_experts > 0`` swaps
+    each block's dense FFN for a Switch mixture-of-experts FFN
+    (``parallel/expert.py``)."""
     b = (
         NeuralNetConfiguration.Builder()
         .seed(seed).learning_rate(learning_rate).updater(updater)

@@ -82,3 +82,49 @@ def test_nlp_periphery_phase_rehearses_on_cpu(capsys):
                          rows=3000)
     out = capsys.readouterr().out
     assert "[nlp-periphery] {" in out and '"tfidf_equal_cpu": true' in out
+
+
+def test_network_phases_are_registered_and_summed_by_path():
+    """The slice's five main paths run in NETWORK_PATHS's order, each a
+    phase function; a kernel's launches on them are summed into its
+    ``launches`` and listed by path name (``launches_by_path``), paths
+    that did not launch it left out."""
+    phases = cs.network_phases([], None, None)
+    assert [t for t, _, _ in phases] == list(cs.NETWORK_PATHS) == [
+        "googlenet", "moe-transformer", "moe-ep", "graph-charrnn",
+        "conv-lstm"]
+    assert all(callable(fn) for _, fn, _ in phases)
+    paths = {"googlenet": {"conv_block": 741, "conv_bwd_w": 342},
+             "moe-transformer": {"flash_attention": 360, "matmul_block": 63},
+             "moe-ep": {"conv_block": 0},
+             "graph-charrnn": {"lstm_cell": 2000, "lstm_seq_fwd": 416},
+             "conv-lstm": {"conv_block": 66, "lstm_cell": 272}}
+    assert cs.path_launches("conv_block", paths) == 807
+    assert cs.network_launches("conv_block", paths) == {
+        "googlenet": 741, "conv-lstm": 66}
+    assert cs.network_launches("lstm_cell", paths) == {
+        "graph-charrnn": 2000, "conv-lstm": 272}
+    assert cs.network_launches("matmul_block_residual", paths) == {}
+
+
+def test_network_phase_shapes_and_configurations():
+    """GoogLeNet's 146 distinct step shapes and the conv -> LSTM net's 5
+    are among the [kernel] records main() builds; the conv -> LSTM net
+    infers its CNN <-> RNN adapters; the MoE LM is bench.py:866's LM
+    with 4 experts."""
+    assert len(cs.googlenet_shapes()) == 146
+    assert [(n, k) for n, k, _, _ in cs.conv_lstm_shapes()] == [
+        ("conv1", "conv_block"), ("conv1", "conv_bwd_w"),
+        ("conv2", "conv_block"), ("conv2", "conv_bwd_data"),
+        ("conv2", "conv_bwd_w")]
+    conf = cs.conv_lstm_conf()
+    assert [type(p).__name__ for _, p in sorted(conf.preprocessors.items())
+            ] == ["RnnToCnnPreProcessor", "CnnToRnnPreProcessor",
+                  "RnnToFeedForwardPreProcessor"]
+    assert conf.layers[4].n_in == 800
+    moe = cs.moe_conf()
+    assert moe.layers[2].n_experts == cs.MOE_EXPERTS == 4
+    assert moe.layers[2].ffn_hidden == 3072
+    ds = cs.conv_lstm_batches(1, 2, seed=3)[0]
+    assert ds.features.shape == (2, 784, cs.CONV_LSTM_T)
+    assert ds.labels.shape == (2 * cs.CONV_LSTM_T, 10)

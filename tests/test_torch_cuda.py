@@ -2760,3 +2760,229 @@ def test_word2vec_rebound_table_is_never_written_by_a_stale_graph(cuda):
     assert all(torch.equal(a, b) for a, b in zip(old, kept))
     assert m._dev_graph.bound_to(m.lookup.syn0, m.lookup.syn1neg)
     assert not torch.equal(m.lookup.syn0, kept[0])
+
+
+# -- the MoE transformer, GoogLeNet, graph TBPTT and the conv -> LSTM net ------
+
+def _moe_lm(cuda, **kw):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+
+    conf = transformer_lm(vocab=32, d_model=64, n_layers=2, n_heads=4,
+                          learning_rate=3e-4, n_experts=4, **kw)
+    return conf, MultiLayerNetwork(conf, device=cuda).init()
+
+
+def _byte_batches(n, b=4, t=64, vocab=32, seed=5):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.RandomState(seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, vocab, (b, t + 1))
+        out.append(DataSet(
+            np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+            np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1))))
+    return out
+
+
+def test_moe_slot_dispatch_is_the_dense_plain_version_on_the_card(cuda):
+    """The slot-index dispatch against the dense one-hot ``einsum``s on
+    the same operands on the card: one nonzero term a sum, bitwise;
+    with a token mask and drops (capacity factor 1)."""
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    gen = torch.Generator().manual_seed(3)
+    p = {k: v.to(cuda) for k, v in expert.init_moe_params(
+        gen, 64, 256, 4).items()}
+    x = torch.randn((512, 64), generator=gen).to(cuda)
+    mask = (torch.rand(512, generator=gen) > 0.2).float().to(cuda)
+    for m in (None, mask):
+        fast = expert.moe_ffn(p, x, 1.0, m)
+        assert torch.equal(fast, expert.moe_ffn_reference(p, x, 1.0, m))
+        cpu = expert.moe_ffn({k: v.cpu() for k, v in p.items()}, x.cpu(),
+                             1.0, None if m is None else m.cpu())
+        torch.testing.assert_close(fast.cpu(), cpu, rtol=1e-4, atol=1e-5)
+
+
+def test_moe_transformer_default_fit_captures_and_is_the_per_step_loop(cuda):
+    """The MoE LM's default fit: the routing (argmax, the position
+    cumsum, the slot scatter and gather) holds static shapes, so the
+    minibatches capture as one CUDA-graph chunk, bitwise the
+    ``scan_chunk = 1`` fit."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf, ref = _moe_lm(cuda)
+    ref.scan_chunk = 1
+    net = MultiLayerNetwork(conf, device=cuda).init(params=ref.params)
+    data = _byte_batches(3)
+    ref.fit(data)
+    net.fit(data)
+    assert len(net._megastep_graphs) == 1 and net.iteration_count == 3
+    assert _same(ref, net)
+
+
+def test_moe_transformer_launches_and_sampling_on_the_card(cuda):
+    """A step launches flash attention a block and the dense kernel once
+    (the MoE replaces the residual FFN product); ``rnn_time_step``
+    streams the prompt and one byte at a time through the KV cache."""
+    conf, net = _moe_lm(cuda)
+    net.scan_chunk = 1
+    ds = _byte_batches(1)[0]
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    counts = dispatch.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["matmul_block"] == 1
+    assert counts["matmul_block_residual"] == 0
+    net.rnn_clear_previous_state()
+    out = net.rnn_time_step(ds.features[:1, :, :8])
+    step = net.rnn_time_step(ds.features[:1, :, 8])
+    assert out.shape == (1, 32, 8) and step.shape == (1, 32)
+    assert bool(torch.isfinite(step).all())
+
+
+def test_expert_parallel_world_of_one_over_nccl_is_the_single_device(
+        cuda, tmp_path):
+    from deeplearning4j_tpu_torch.parallel import (
+        init_distributed,
+        shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    gen = torch.Generator().manual_seed(4)
+    p = {k: v.to(cuda) for k, v in expert.init_moe_params(
+        gen, 64, 256, 4).items()}
+    x = torch.randn((256, 64), generator=gen).to(cuda)
+    init_distributed(f"file://{tmp_path}/rdv", 1, 0, device="cuda",
+                     timeout_s=60)
+    try:
+        mesh = expert.build_expert_mesh()
+        assert mesh.backend == "nccl"
+        ep = expert.ExpertParallelMoE(mesh, n_experts=4)
+        assert torch.equal(ep.apply(ep.shard_params(p), x),
+                           expert.moe_ffn(p, x, 1.25))
+    finally:
+        shutdown_distributed()
+
+
+def test_googlenet_step_on_the_card_matches_the_cpu_twin(cuda):
+    """A 64 x 64 GoogLeNet step on the card (57 convs: 114 forward
+    launches with the recompute, 56 dx, 57 dW) against the plain path."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import googlenet
+
+    conf = googlenet(height=64, width=64, n_classes=10)
+    net = ComputationGraph(conf, device=cuda).init()
+    net.scan_chunk = 1
+    twin = ComputationGraph(conf, device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    rng = np.random.RandomState(0)
+    ds = DataSet(rng.rand(2, 3, 64, 64).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[rng.randint(0, 10, 2)])
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    twin.fit(ds)
+    counts = dispatch.launch_counts()
+    assert (counts["conv_block"], counts["conv_bwd_data"],
+            counts["conv_bwd_w"]) == (114, 56, 57)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            torch.testing.assert_close(net.params[ln][pn].cpu(), ref,
+                                       rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("peephole", [True, False])
+def test_graph_tbptt_and_rnn_time_step_are_the_multilayer_ones(cuda,
+                                                               peephole):
+    """The char-RNN as a ComputationGraph on the card, truncated BPTT and
+    streaming, against the ``MultiLayerNetwork`` char-RNN on the same
+    weights and data (the same kernels: bitwise)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def lstm(n_in):
+        return GravesLSTM(n_in=n_in, n_out=24, activation="tanh",
+                          peephole=peephole)
+
+    base = (NeuralNetConfiguration.Builder().seed(1).learning_rate(0.1)
+            .updater("RMSPROP"))
+    gconf = (base.graph_builder().add_inputs("in")
+             .add_layer("l0", lstm(11), "in").add_layer("l1", lstm(24), "l0")
+             .add_layer("out", RnnOutputLayer(n_in=24, n_out=11), "l1")
+             .set_outputs("out").backprop_type("TruncatedBPTT")
+             .t_bptt_forward_length(8).t_bptt_backward_length(8).build())
+    lconf = (NeuralNetConfiguration.Builder().seed(1).learning_rate(0.1)
+             .updater("RMSPROP").list().layer(lstm(11)).layer(lstm(24))
+             .layer(RnnOutputLayer(n_out=11)).backprop_type("TruncatedBPTT")
+             .t_bptt_forward_length(8).t_bptt_backward_length(8).build())
+    g = ComputationGraph(gconf, device=cuda).init()
+    net = MultiLayerNetwork(lconf, device=cuda).init(params={
+        str(i): {k: t.clone() for k, t in g.params[n].items()}
+        for i, n in enumerate(("l0", "l1", "out"))})
+    g.scan_chunk = net.scan_chunk = 1
+    rng = np.random.RandomState(2)
+    eye = np.eye(11, dtype=np.float32)
+    ids = rng.randint(0, 11, (4, 33))
+    ds = DataSet(np.ascontiguousarray(eye[ids[:, :-1]].transpose(0, 2, 1)),
+                 np.ascontiguousarray(eye[ids[:, 1:]].transpose(0, 2, 1)))
+    g.fit(ds)
+    net.fit(ds)
+    assert g.iteration_count == net.iteration_count == 4
+    for i, n in enumerate(("l0", "l1", "out")):
+        for k, t in g.params[n].items():
+            assert torch.equal(t, net.params[str(i)][k]), (n, k)
+    for t in range(3):
+        assert torch.equal(g.rnn_time_step(ds.features[:, :, t])[0],
+                           net.rnn_time_step(ds.features[:, :, t]))
+
+
+def test_conv_lstm_step_on_the_card_matches_the_cpu_twin(cuda):
+    """Frames -> RnnToCnn -> two conv stages -> CnnToRnn -> GravesLSTM
+    -> RnnToFeedForward -> softmax: one step's launches and scores
+    against the plain path."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+        RnnToCnnPreProcessor,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        GravesLSTM,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(0.01)
+            .updater("ADAM").list()
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="MAX"))
+            .layer(GravesLSTM(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=4))
+            .input_pre_processor(0, RnnToCnnPreProcessor(10, 10, 1))
+            .set_input_type(InputType.recurrent(100, 5)).build())
+    net = MultiLayerNetwork(conf, device=cuda).init()
+    net.scan_chunk = 1
+    twin = MultiLayerNetwork(conf, device="cpu").init(params={
+        ln: {pn: t.cpu() for pn, t in lp.items()}
+        for ln, lp in net.params.items()})
+    rng = np.random.RandomState(4)
+    ds = DataSet(rng.rand(3, 100, 5).astype(np.float32),
+                 np.eye(4, dtype=np.float32)[rng.randint(0, 4, 15)])
+    dispatch.reset_launch_counts()
+    net.fit(ds)
+    twin.fit(ds)
+    counts = dispatch.launch_counts()
+    assert (counts["conv_block"], counts["conv_bwd_w"],
+            counts["lstm_cell"]) == (2, 1, 5)
+    np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
+    assert net.output(ds.features).shape == (15, 4)

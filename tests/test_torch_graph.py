@@ -457,8 +457,11 @@ def test_what_the_graph_does_not_carry_raises():
     conf = port_conv_graph()
     net = ComputationGraph(conf, device="cpu").init()
     x = np.zeros((2, 3, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="rnn_time_step"):
-        net.rnn_time_step(x)
+    # rnn_time_step is carried since the graph TBPTT slice: over a graph
+    # of stateless vertices it is the forward, as in the JAX engine
+    # (tests/test_torch_graph_tbptt.py holds the recurrent ones)
+    assert torch.equal(net.rnn_time_step(x)[0], net.output(x)[0])
+    net.rnn_clear_previous_state()
     # the transforms are carried now, megastep too
     assert net.set_transforms(remat="full", scan_layers=True) is net
     assert net.set_transforms(megastep=2).megastep == 2

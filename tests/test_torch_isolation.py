@@ -407,3 +407,71 @@ def test_fresh_process_runs_the_periphery_without_jax(first):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_files_cover_the_moe_parsers_and_networks_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("nn/layers/moe.py", "parallel/expert.py",
+                   "nlp/treeparser.py", "nlp/pos_tagger.py", "nlp/cjk.py",
+                   "nlp/japanese.py", "nn/conf/preprocessors.py",
+                   "zoo/models.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names
+
+
+@pytest.mark.parametrize("first", ["parallel.expert", "nn.layers.moe",
+                                   "nlp.japanese", "nlp.treeparser"])
+def test_fresh_process_runs_the_moe_and_parsers_without_jax(first):
+    """The MoE modules and the parsers import first in a fresh process
+    (no import cycle) without JAX; a MoE transformer LM and a GoogLeNet
+    graph build, the expert-parallel runtime and graph ``rnn_time_step``
+    run on the CPU, and the Japanese lattice segments."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"import deeplearning4j_tpu_torch.{first}\n"
+        "from deeplearning4j_tpu_torch.nn.graph import ComputationGraph\n"
+        "from deeplearning4j_tpu_torch.nn.multilayer import "
+        "MultiLayerNetwork\n"
+        "from deeplearning4j_tpu_torch.parallel import expert\n"
+        "from deeplearning4j_tpu_torch.zoo import googlenet, transformer_lm\n"
+        "from deeplearning4j_tpu_torch.nlp import tokenizer_factory, "
+        "TreeParser\n"
+        "net = MultiLayerNetwork(transformer_lm(vocab=8, d_model=16, "
+        "n_layers=1, n_heads=2, n_experts=2), device='cpu').init()\n"
+        "x = np.eye(8, dtype=np.float32)[[1, 2, 3]].T[None]\n"
+        "assert tuple(net.output(x).shape) == (1, 8, 3)\n"
+        "assert tuple(net.rnn_time_step(x[:, :, 0]).shape) == (1, 8)\n"
+        "g = ComputationGraph(googlenet(height=32, width=32, n_classes=3), "
+        "device='cpu').init()\n"
+        "assert g.num_params() > 5e6\n"
+        "ep = expert.ExpertParallelMoE(expert.build_expert_mesh("
+        "device='cpu'), 2)\n"
+        "p = expert.init_moe_params(torch.Generator(), 4, 8, 2)\n"
+        "assert tuple(ep.apply(ep.shard_params(p), torch.randn(6, 4))"
+        ".shape) == (6, 4)\n"
+        "toks = tokenizer_factory('japanese').create('すもももももももものうち')"
+        ".get_tokens()\n"
+        "assert toks[0] == 'すもも', toks\n"
+        "assert TreeParser().parse('The dog ran').label == 'S'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_new_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import googlenet, transformer_lm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiLayerNetwork(transformer_lm(n_experts=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ComputationGraph(googlenet())

@@ -262,10 +262,12 @@ def test_model_utils_match_jax_on_a_trained_model():
 def test_tokenizer_registry_spi():
     tf = tokenizer_factory("default")
     assert tf.create("a b c").get_tokens() == ["a", "b", "c"]
-    # the CJK segmenters (nlp/cjk.py) wait with the parsers: no
-    # "japanese" entry until they are ported
-    with pytest.raises(KeyError, match="no TokenizerFactory"):
-        tokenizer_factory("japanese")
+    # the CJK segmenters are registered with the package (nlp/cjk.py,
+    # nlp/japanese.py; tests/test_torch_parsers.py holds them to JAX)
+    assert tokenizer_factory("japanese").create(
+        "すもももももももものうち").get_tokens()[:3] == ["すもも", "も", "もも"]
+    assert tokenizer_factory("korean").create("안녕 세계").get_tokens() == [
+        "안녕", "세계"]
     rx = tokenizer_factory("regex", pattern=r"[,;]")
     assert rx.create("a,b;c").get_tokens() == ["a", "b", "c"]
 

@@ -11,7 +11,8 @@ into the port through its ``configuration.json`` and
   streaming contract (cache overflow, non-causal blocks, the carry
   surviving ``fit``'s reset);
 - the configuration round trip in both directions, the Builder's
-  transform hints, the refused MoE and ring-attention options;
+  transform hints, the MoE option loading and the refused
+  ring-attention option;
 - GELU (tanh) and LayerNorm (population variance over axis 1) pinned
   against JAX;
 - a JAX checkpoint restoring, Adam state included, and resuming.
@@ -293,14 +294,18 @@ def test_builder_transform_hints():
 
 
 def test_moe_and_ring_attention_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerBlock(n_in=8, n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer_lm(n_experts=2)
+    """The MoE option is ported (``tests/test_torch_moe.py`` holds it
+    against JAX): it builds, and a JAX MoE configuration loads; ring
+    attention still raises."""
+    TransformerBlock(n_in=8, n_experts=4)
+    assert transformer_lm(n_experts=2).layers[2].n_experts == 2
     jconf = jax_lm(vocab=VOCAB, d_model=D, n_layers=1, n_heads=HEADS,
                    n_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        MultiLayerConfiguration.from_json(jconf.to_json())
+    conf = MultiLayerConfiguration.from_json(jconf.to_json())
+    assert conf.to_dict() == jconf.to_dict()
+    params = MultiLayerNetwork(conf, device="cpu").init().params["2"]
+    assert {"router", "w1", "b1", "w2", "b2"} <= set(params)
+    assert not any(k.startswith(("w_ff", "b_ff")) for k in params)
     for cls in (TransformerBlock, MultiHeadSelfAttention):
         with pytest.raises(NotImplementedError, match="distribution slice"):
             cls(n_in=8, seq_axis="seq", seq_axis_size=4)
