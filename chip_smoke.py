@@ -64,8 +64,8 @@ non-zero (nothing is caught):
    layers, 12 heads, vocab 256): ``[transformer]`` 20 Adam steps of
    ``fit`` at batch 16 x t 512 on SURVEY.md's bytes (tokens/s, ms/step,
    device ms/step and busy share, launches exact);
-   ``[transformer-twin]`` the same model at batch 4, 2 steps against the
-   CPU twin;
+   ``[transformer-twin]`` the same widths at 6 layers and batch 4, 2
+   steps against the CPU twin;
    ``[transformer-sample]`` KV-cache sampling through ``rnn_time_step``
    held against ``output``; ``[transformer-long]`` ``output`` at t 16384
    (the streamed entry) against ``output`` on its first 512 bytes;
@@ -228,7 +228,7 @@ non-zero (nothing is caught):
    on two gloo ranks sharing the card, 8 steps of 1024 Zipf ids: half
    the table a rank, each table's change against a replicated world of
    one, a step-4 checkpoint resumed at width 1 bitwise the world of
-   one's own, and ``ClusterWord2Vec`` (2 epochs of bench.py's corpus)
+   one's own, and ``ClusterWord2Vec`` (1 epoch of bench.py's corpus)
    against one process.
 18. the networks of the MoE / GoogLeNet / graph-RNN slice (main paths,
    after ``[evaluate]``; NETWORK_PATHS): ``[googlenet]`` the zoo's
@@ -236,7 +236,8 @@ non-zero (nothing is caught):
    batch-4 twin with every conv call held on its operands, one step's
    launches exact, 6 steps; its 146 distinct step shapes among the
    ``[kernel]`` records, ``googlenet.``); ``[moe-transformer]`` the LM
-   of bench.py:866 with a Switch MoE of 4 experts in every block (each
+   of bench.py:866 at 6 of its 12 layers with a Switch MoE of 4 experts
+   in every block (each
    MoE call of a step held against the dense plain version and its
    routing against the CPU's, 20 steps, the default fit as one
    CUDA-graph chunk bitwise its per-step fit, ``output``, KV-cache
@@ -248,6 +249,37 @@ non-zero (nothing is caught):
    LeNet's conv stages over 16-frame sequences (``RnnToCnn``,
    ``CnnToRnn``, ``RnnToFeedForward``) into GravesLSTM 200 (its 5
    distinct conv shapes among the records, ``conv-lstm.``).
+19. the last of the distribution slice (main paths, after the networks;
+   WORLD_PHASES on one spawned world of two gloo ranks sharing the
+   card, its start paid once): ``[alexnet-tp]`` the zoo's AlexNet at
+   full width (224 x 224, 1000 classes, batch 128, dropout 0.5) under
+   ``DistributedTrainer(build_mesh(data=1, model=2),
+   tensor_parallel=True)``, 4 steps held against the same 4 steps of a
+   world of one from the same seed (scores to TP_SCORE_RTOL, every
+   weight within TP_SHARE of its move, ``check_twin_step``), each
+   rank's launches exact, host and device ms
+   a step (its shard shapes among the ``[kernel]`` records,
+   ``alexnet-tp.``); ``[ring-attention]`` the ``[transformer]`` phase's
+   12 trained blocks as ``TransformerBlock(seq_axis="seq",
+   seq_axis_size=2)``: the forward of 16,384 bytes' states (8,192 a
+   rank) and one backward of the next-byte loss at 16 x 512 (256 a
+   rank) held against the unsharded blocks; ``[gpipe]`` two stages of
+   the dense kernel (relu, 4096 -> 4096) on batch 128 as 4
+   microbatches, ``apply`` and two ``train_step``s against the serial
+   composition (its m 32 shape among the records, ``gpipe.``); then in
+   this process ``[cluster]`` ``ClusterDl4jMultiLayer`` over LeNet-5
+   (SGD), 4 workers x 64 averaging every step, against one machine on
+   the concatenated batch, the sharded ``evaluate`` against the plain
+   one, and ``ClusterEarlyStoppingTrainer`` for 3 epochs.
+
+``python3 chip_smoke.py --phases tag[,tag...]`` runs the named phases
+alone (and the phases they read: ``[transformer]`` for the ring and
+the sampling phases, ``[resnet50]`` for ``[resnet50-dp]``; ``kernels``
+names the kernel checks, ``nlp`` the embeddings phases), for work on
+a few phases: the kernels are still built, and its kernels line (the
+same builder as a run of every phase, ``kernels_line``) lists only the
+kernels its phases launched or made records of, the main path's times
+null where it made none of their records.
 
 The last lines are the card line, one JSON object with the per-kernel
 numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
@@ -297,6 +329,7 @@ TX_STEPS = 20
 TX_PROMPT = 256
 TX_SAMPLE = 64
 TX_LONG_T = 16384
+TWIN_LAYERS = 6  # [transformer-twin]'s depth, cut from 12 for time
 # H100 SXM dense tensor-core peaks: bf16 / f16 operands, and TF32 (the
 # rate of a product with an f32 operand on the tensor cores)
 PEAK_BF16_FLOPS = 989e12
@@ -352,6 +385,7 @@ SEMB_BATCH = 1024
 SEMB_STEPS = 8
 SEMB_SAVE_AT = 4
 SEMB_TIMEOUT_S = 600
+SEMB_W2V_EPOCHS = 1  # ClusterWord2Vec's epochs, cut from 2 for time
 # [nlp-periphery]: k-means over seeded blobs
 KMEANS_ROWS = 100_000
 KMEANS_DIM = 128
@@ -731,12 +765,12 @@ def check_kernel(torch, F, model, name, kind, geo, gen,
             return matmul_block_reference(x, w, b, activation=act)
 
         def library():
-            return torch.relu_(torch.addmm(b, x, w))
+            y = torch.addmm(b, x, w)
+            return torch.relu_(y) if act == "relu" else y
         flops = 2.0 * m * k * n
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + m * n)
         shape = {"m": m, "k": k, "n": n}
-    if act not in ("relu", "identity") or (kind != "conv_block"
-                                           and act != "relu"):
+    if act not in ("relu", "identity"):
         raise ValueError(f"{name}: no library yardstick for {act}")
     with torch.inference_mode():
         got, ref = kernel(), plain()
@@ -4283,14 +4317,15 @@ def run_transformer(torch, card, ids):
 
 
 def run_transformer_twin(torch, card, ids):
-    """[transformer-twin] the full model (every width and all 12 layers)
-    at batch 4, t 512: two Adam steps on the card and on the CPU twin
+    """[transformer-twin] the model at every width and TWIN_LAYERS of its
+    12 layers at batch 4, t 512: two Adam steps on the card and on the CPU twin
     (the plain path), scores and every weight held."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
 
-    layers = TX["n_layers"]
-    net = per_step_loop(MultiLayerNetwork(tx_conf(), device="cuda").init())
+    layers = TWIN_LAYERS
+    net = per_step_loop(MultiLayerNetwork(tx_conf(layers),
+                                          device="cuda").init())
     twin = cpu_twin(torch, net)
     lr = TX["learning_rate"]
     batches = char_batches(ids, 4, TX_T, 2, seed=6, vocab=TX["vocab"])
@@ -5352,7 +5387,8 @@ del params, upd, net, tr
 cache, ids = cs.w2v_corpus(spec["w2v_sentences"])
 w2v = ClusterWord2Vec(cache, ids, mesh=mesh, layer_size=cs.W2V_DIM,
                       window=cs.W2V_WINDOW, negative=cs.W2V_NEG,
-                      batch_size=cs.W2V_BATCH, epochs=2, seed=cs.W2V_SEED,
+                      batch_size=cs.W2V_BATCH, epochs=cs.SEMB_W2V_EPOCHS,
+                      seed=cs.W2V_SEED,
                       device=dev)
 sync()
 t0 = time.perf_counter()
@@ -5415,7 +5451,7 @@ def run_semb_dp(torch, card, device="cuda", vocab=SEMB_VOCAB,
     tolerance, in L2: a wrong row or moment in the width-2 save shows
     there); where the 8-step twin leaves the elementwise bound, the
     moments there are printed (``adam_past_elements``);
-    ``ClusterWord2Vec`` (2 epochs of bench.py's corpus, the host-pair
+    ``ClusterWord2Vec`` (1 epoch of bench.py's corpus, the host-pair
     route, over the same two ranks) must change its tables as
     a single-process ``Word2Vec`` on the same batches does (twin
     tolerance; whether bitwise is printed). Prints each rank's shard
@@ -5560,7 +5596,8 @@ def run_semb_dp(torch, card, device="cuda", vocab=SEMB_VOCAB,
         # ClusterWord2Vec against one process on the same batches
         t_w2v = time.perf_counter()
         cache, ids = w2v_corpus(w2v_sentences)
-        single = make_w2v(cache, ids, device=device, epochs=2)
+        single = make_w2v(cache, ids, device=device,
+                          epochs=SEMB_W2V_EPOCHS)
         single.device_epoch_gen = False
         w_start = w2v_tables(torch, single)
         single.fit()
@@ -7652,11 +7689,12 @@ GOOGLENET_BATCH = 128       # ImageNet at bench.py:823's batch, as [resnet50]
 GOOGLENET_TWIN_BATCH = 4
 GOOGLENET_STEPS = 6
 MOE_EXPERTS = 4             # examples/transformer_lm.py:62
+MOE_LAYERS = 6              # depth cut from bench.py:866's 12 for time
 MOE_STEPS = 20
 MOE_DEFAULT_FIT_BATCHES = 4
 MOE_SAMPLE = 32
 MOE_MIN_AGREEMENT = 0.99    # card / CPU routing of the same operands
-GRAPH_CHAR_MINIBATCHES = 2
+GRAPH_CHAR_MINIBATCHES = 1  # cut from 2 for time
 CONV_LSTM_BATCH = 32        # sequences of CONV_LSTM_T 28 x 28 frames
 CONV_LSTM_T = 16
 CONV_LSTM_STEPS = 16
@@ -7826,11 +7864,13 @@ def run_googlenet(torch, card, records):
 
 
 def moe_conf():
-    """bench.py:866's transformer LM with a Switch MoE FFN of 4 experts
-    in every block (hidden 3072, capacity factor 1.25)."""
+    """bench.py:866's transformer LM at MOE_LAYERS of its 12 layers (full
+    width) with a Switch MoE FFN of 4 experts in every block (hidden
+    3072, capacity factor 1.25)."""
     from deeplearning4j_tpu_torch.zoo import transformer_lm
 
-    return transformer_lm(**TX, n_experts=MOE_EXPERTS)
+    return transformer_lm(**dict(TX, n_layers=MOE_LAYERS),
+                          n_experts=MOE_EXPERTS)
 
 
 class held_moe:
@@ -7910,13 +7950,14 @@ class routing_log:
 
 def run_moe_transformer(torch, card, tokens):
     """[moe-transformer] the transformer LM of bench.py:866 (d 768, 12
-    layers, 12 heads, vocab 256) with a Switch MoE FFN of 4 experts
-    (hidden 3072, capacity factor 1.25: 8,192 tokens a block, 2,560
-    slots an expert) in every block, Adam lr 3e-4, f32, 16 x 512 bytes of
+    heads, vocab 256; 6 of its 12 layers) with a Switch MoE FFN of 4
+    experts (hidden 3072, capacity factor 1.25: 8,192 tokens a block,
+    2,560 slots an expert) in every block, Adam lr 3e-4, f32, 16 x 512 bytes of
     SURVEY.md: one step with every MoE call held against the dense plain
     version on the same operands and its routing against the CPU's; the
-    main path's 20 steps (launches exact: 12 ``flash_attention`` and 1
-    ``matmul_block`` a step); the default ``fit`` as one CUDA-graph chunk
+    main path's 20 steps (launches exact: a ``flash_attention`` a layer
+    and 1 ``matmul_block`` a step); the default ``fit`` as one CUDA-graph
+    chunk
     of 4 minibatches bitwise its per-step fit; ``output``; and sampling
     through ``rnn_time_step`` (a 256-byte prompt, then 32 bytes), each
     call's routing held against the CPU twin's and its probabilities
@@ -7924,14 +7965,15 @@ def run_moe_transformer(torch, card, tokens):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import dispatch
 
-    layers = TX["n_layers"]
+    layers = MOE_LAYERS
     conf = moe_conf()
     net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
     batches = char_batches(tokens, TX_BATCH, TX_T, MOE_STEPS, seed=45,
                            vocab=TX["vocab"])
     n_tok = TX_BATCH * TX_T
     cap = int(np.ceil(n_tok * 1.25 / MOE_EXPERTS))
-    print(f"[moe-transformer] transformer_lm({TX}, n_experts={MOE_EXPERTS}) "
+    print(f"[moe-transformer] transformer_lm({dict(TX, n_layers=layers)}, "
+          f"n_experts={MOE_EXPERTS}) "
           f"({net.num_params()} params), {n_tok} tokens a block, capacity "
           f"{cap} an expert, Adam, batch {TX_BATCH} x t {TX_T}, f32")
     main = {}
@@ -8049,7 +8091,7 @@ def sample_moe(torch, model, tokens, seed=9):
             eye[fed[:TX_PROMPT]].T[None]))[0]]
         for b in fed[TX_PROMPT:]:
             ref.append(twin.rnn_time_step(eye[b][None]).T)
-    layers = TX["n_layers"]
+    layers = MOE_LAYERS
     if len(ref) != calls or len(cpu_log.slots) != len(card_log.slots):
         raise RuntimeError("[moe-transformer] the twin streamed "
                            f"{len(ref)} calls of {calls}")
@@ -8208,7 +8250,7 @@ def run_graph_charrnn(torch, card, ids):
     """[graph-charrnn] the char-RNN as a ComputationGraph (graph
     truncated BPTT and ``rnn_time_step``), with peepholes (``lstm_cell``)
     and without (``lstm_seq_fwd`` / ``lstm_seq_bwd``): 2 minibatches of
-    32 x 200 characters of SURVEY.md (8 TBPTT segments) beside the
+    32 x 200 characters of SURVEY.md (4 TBPTT segments) beside the
     ``MultiLayerNetwork`` char-RNN on the same weights and data, scores
     and parameters within kernel_tols (rtol 2e-4, atol 2e-5; bitwise
     noted), launches exact, ``output`` and 200 characters sampled
@@ -8491,50 +8533,789 @@ def run_conv_lstm(torch, card):
     return launches
 
 
-def path_launches(kernel, paths, tags=None) -> int:
-    """``kernel``'s launches summed over the main paths ``paths`` ({tag:
-    launch counts}), or over the ``tags`` among them."""
-    return sum(paths[t].get(kernel, 0) for t in (paths if tags is None
-                                                  else tags))
+# -- the distribution slice's last raises: tensor, sequence and pipeline
+# parallelism on one spawned gloo world of two ranks on the card, and the
+# cluster master in this process
+
+TP_MODEL = 2              # [alexnet-tp]: build_mesh(data=1, model=2)
+TP_STEPS = 4
+RING_SEQ = 2              # [ring-attention]: build_seq_mesh(data=1, seq=2)
+RING_T = TX_LONG_T        # 16,384 bytes, 8,192 a rank
+RING_REL = 1e-3           # of the reference's largest entry
+GPIPE_STAGES = 2
+GPIPE_D = 4096            # AlexNet's fc7: 4096 -> 4096
+GPIPE_BATCH = 128
+GPIPE_MICRO = 4
+GPIPE_LR = 0.01
+GPIPE_REL = 1e-4          # of the reference's largest entry (or move)
+CLUSTER_WORKERS = 4
+CLUSTER_BATCH = 64
+CLUSTER_MINIBATCHES = 16
+CLUSTER_HOLDOUT = 4
+CLUSTER_ES_EPOCHS = 3
+CLUSTER_SHARE = 0.05      # of a weight's 4-step move
+TP_SCORE_RTOL = 1e-4      # [alexnet-tp]'s scores against the world of one
+TP_SHARE = 0.1            # of a weight's 4-step move
+WORLD_PHASES = ("alexnet-tp", "ring-attention", "gpipe")
+WORLD_TIMEOUT_S = 600
 
 
-def network_launches(kernel, paths) -> dict:
-    """``kernel``'s launches on each main path of NETWORK_PATHS that ran
-    it ({tag: launches})."""
-    return {t: paths[t].get(kernel, 0) for t in NETWORK_PATHS
-            if paths.get(t, {}).get(kernel, 0)}
+def alexnet_tp_shapes(batch=ALEXNET_TRAIN_BATCH, model=TP_MODEL):
+    """The distinct kernel shapes of one tensor-parallel AlexNet step on
+    one of ``model`` ranks: each conv at its rank's out-channels (48 /
+    128 / 192 / 192 / 128), each dense layer at its rank's columns, and
+    the softmax head's product at its 500 columns with the identity
+    epilogue (its softmax follows the gather)."""
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    conf = alexnet()
+    shards = []
+    for name, kind, geo in kernel_shapes(conf, batch):
+        geo = dict(geo)
+        if kind == "conv_block":
+            geo["w"] = (geo["w"][0] // model,) + tuple(geo["w"][1:])
+        else:
+            geo["n"] //= model
+        shards.append((name, kind, geo))
+    head = conf.layers[-1]
+    shards.append(("output", "matmul_block", dict(
+        m=batch, k=head.n_in, n=head.n_out // model, activation="identity")))
+    return distinct_shapes(step_shapes(shards))
 
 
-def main() -> int:
-    # a fatal signal (a crash in native code) prints every thread's
-    # Python stack on stderr, so the phase it hit is named
-    faulthandler.enable(all_threads=True)
-    import torch
+def shard_records(torch, F, records, model, shapes, gen):
+    """``[kernel]`` records of ``shapes`` (distinct_shapes' tuples) at
+    KERNEL_WINDOW_MS, each with its launches a step, appended and
+    printed."""
+    for name, kind_, geo, names in shapes:
+        if kind_.startswith("conv_bwd"):
+            rec = check_bwd_kernel(torch, model, name, kind_, geo, gen,
+                                   KERNEL_WINDOW_MS)
+        else:
+            rec = check_kernel(torch, F, model, name, kind_, geo, gen,
+                               KERNEL_WINDOW_MS)
+        rec.update(vertices=names, launches_per_step=len(names) * (
+            2 if kind_ == "conv_block" else 1))
+        records.append(rec)
+        print(f"[kernel] {json.dumps(rec)}")
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
+
+def tp_batches(torch):
+    """[alexnet-train]'s two minibatches of standardized pixels, on the
+    card."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    return [DataSet(torch.from_numpy((b.features.astype(np.float32) - 127.5)
+                                     / 73.9).cuda(),
+                    torch.from_numpy(b.labels.astype(np.float32)).cuda())
+            for b in resnet_batches(2, ALEXNET_TRAIN_BATCH, seed=13)]
+
+
+def ring_blocks():
+    """The transformer LM's 12 blocks with the ring over a seq axis of
+    RING_SEQ ranks, and its head."""
+    import dataclasses
+
+    conf = tx_conf()
+    blocks = [dataclasses.replace(layer, seq_axis="seq",
+                                  seq_axis_size=RING_SEQ)
+              for layer in conf.layers[2:2 + TX["n_layers"]]]
+    return blocks, conf.layers[-1]
+
+
+def next_byte_loss(torch, head, head_params, h, labels, count):
+    """The next-byte MCXENT of the head on ``h`` ([b, d, t]) summed over
+    its positions and divided by ``count`` (all ranks' positions)."""
+    logits = head.pre_output(head_params, h)
+    return -(labels * torch.log_softmax(logits, dim=1)).sum() / count
+
+
+def load_tree(torch, path, prefix=""):
+    """``{layer: {param: tensor on the card}}`` of an ``.npz`` keyed
+    ``layer/param``."""
+    tree = {}
+    with np.load(path) as z:
+        for k in z.files:
+            if k.startswith(prefix):
+                ln, pn = k[len(prefix):].split("/")
+                tree.setdefault(ln, {})[pn] = torch.from_numpy(z[k]).cuda()
+    return tree
+
+
+def rank_alexnet_tp(torch, rank, spec):
+    """One rank of [alexnet-tp]: the zoo's AlexNet from its seed under
+    ``DistributedTrainer(build_mesh(data=1, model=2),
+    tensor_parallel=True)``, TP_STEPS steps over [alexnet-train]'s two
+    minibatches; the scores, launches, host and event ms of each step,
+    the gathered weights (rank 0 writes them) and the device ms of one
+    more step."""
+    from deeplearning4j_tpu_torch.nn import core
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedTrainer,
+        build_mesh,
+    )
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    net = per_step_loop(MultiLayerNetwork(alexnet(), device="cuda").init())
+    tr = DistributedTrainer(net, mesh=build_mesh(data=1, model=TP_MODEL),
+                            tensor_parallel=True)
+    shapes = {f"{ln}/{pn}": list(t.shape) for ln, lp in net.params.items()
+              for pn, t in lp.items()}
+    batches = tp_batches(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    scores, host_ms, event_ms = [], [], []
+    for i in range(TP_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        score = tr.fit_minibatch(batches[i % len(batches)])
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        scores.append(float(score))
+    launches = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params, _ = core.canonical_trees(net)
+    if rank == 0:
+        np.savez(spec["alexnet_tp_out"], **{
+            f"{ln}/{pn}": t.cpu().numpy() for ln, lp in params.items()
+            for pn, t in lp.items()})
+    del params
+    device_ms, top = profiled_device_ms(
+        torch, lambda: tr.fit_minibatch(batches[0]))
+    return {"scores": scores, "launches": launches, "host_ms": host_ms,
+            "event_ms": event_ms, "device_ms_one_step": device_ms,
+            "top_device_ms": {k[:60]: v for k, v in top.items()},
+            "shapes": shapes, "peak_gb": peak / 1e9}
+
+
+def rank_ring(torch, rank, spec):
+    """One rank of [ring-attention]: the LM's 12 trained blocks as
+    ``TransformerBlock(seq_axis="seq", seq_axis_size=2)`` over
+    ``build_seq_mesh(data=1, seq=2)``. Forward (no grad) of this rank's
+    8,192 of the 16,384 positions, held against the unsharded blocks'
+    output on them; one backward of the next-byte loss at 16 x 512, this
+    rank's 256 positions, the blocks' and the head's gradients summed
+    over the ranks and held (rank 0) against the unsharded ones."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel.sequence import build_seq_mesh
+
+    build_seq_mesh(data=1, seq=RING_SEQ)
+    blocks, head = ring_blocks()
+    params = load_tree(torch, spec["ring_params"])
+    names = [str(2 + i) for i in range(len(blocks))]
+    head_name = str(2 + len(blocks))
+    dispatch.reset_launch_counts()
+    with np.load(spec["ring_fwd"]) as z:
+        tl = z["h"].shape[2] // RING_SEQ
+        cols = slice(rank * tl, (rank + 1) * tl)
+        x = torch.from_numpy(np.ascontiguousarray(z["h"][:, :, cols])).cuda()
+        ref = torch.from_numpy(np.ascontiguousarray(z["y"][:, :, cols]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for blk, n in zip(blocks, names):
+            x, _ = blk.apply(params[n], x, {})
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_peak = torch.cuda.max_memory_allocated()
+    got = x.cpu()
+    del x
+    fwd_err = float((got - ref).abs().max())
+    fwd_scale = float(ref.abs().max())
+    fwd_launches = dispatch.launch_counts()
+    # the backward at 16 x 512, this rank's 256 positions
+    with np.load(spec["ring_bwd"]) as z:
+        tl = z["h"].shape[2] // RING_SEQ
+        cols = slice(rank * tl, (rank + 1) * tl)
+        h = torch.from_numpy(np.ascontiguousarray(z["h"][:, :, cols])).cuda()
+        lab = torch.from_numpy(np.ascontiguousarray(
+            z["labels"][:, :, cols])).cuda()
+        count = float(z["labels"].shape[0] * z["labels"].shape[2])
+    leaves = {n: {pn: t.requires_grad_() for pn, t in params[n].items()}
+              for n in names + [head_name]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = h
+    for blk, n in zip(blocks, names):
+        x, _ = blk.apply(leaves[n], x, {})
+    loss = next_byte_loss(torch, head, leaves[head_name], x, lab, count)
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = dispatch.launch_counts()
+    total = loss.detach().reshape(1).clone()
+    dist.all_reduce(total)
+    errs = {}
+    grads = {n: {pn: t.grad for pn, t in lp.items()}
+             for n, lp in leaves.items()}
+    for n, lp in grads.items():
+        for pn, g in lp.items():
+            dist.all_reduce(g)  # the weights are replicated over the ring
+    if rank == 0:
+        with np.load(spec["ring_grads"]) as z:
+            for k in z.files:
+                ln, pn = k.split("/")
+                want = torch.from_numpy(z[k])
+                err = float((grads[ln][pn].cpu() - want).abs().max())
+                errs[k] = [err, float(want.abs().max())]
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_err": fwd_err,
+            "fwd_scale": fwd_scale, "loss": float(total[0]),
+            "grad_errs": errs, "launches": launches,
+            "fwd_launches": fwd_launches, "fwd_peak_gb": fwd_peak / 1e9,
+            "positions_fwd": RING_T // RING_SEQ}
+
+
+def gpipe_stage(params, x):
+    """[gpipe]'s stage: the dense kernel with its relu epilogue."""
+    from deeplearning4j_tpu_torch.ops import matmul_block
+
+    return matmul_block(x, params["w"], params["b"], activation="relu")
+
+
+def mse(torch, out, y):
+    return torch.mean((out - y) ** 2)
+
+
+def rank_gpipe(torch, rank, spec):
+    """One rank of [gpipe]: ``GPipe(build_pipe_mesh(2), gpipe_stage,
+    n_micro=4)`` on batch 128: ``apply`` and two ``train_step``s (MSE,
+    SGD), each held against the serial composition in one process
+    (``spec["gpipe"]``: its output, losses and weights)."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        GPipe,
+        build_pipe_mesh,
+    )
+
+    pipe = GPipe(build_pipe_mesh(GPIPE_STAGES), gpipe_stage,
+                 n_micro=GPIPE_MICRO)
+    z = dict(np.load(spec["gpipe"]))
+    params = pipe.shard_params({"w": z["w"], "b": z["b"]}, device="cuda")
+    x = torch.from_numpy(z["x"]).cuda()
+    y = torch.from_numpy(z["y"]).cuda()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.apply(params, x)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    q, losses, step_ms = params, [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        q, loss = pipe.train_step(q, x, y, lambda o, t: mse(torch, o, t),
+                                  lr=GPIPE_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = dispatch.launch_counts()
+    s = rank
+    move = {k: z[f"ref_{k}"][s] - z[k][s] for k in ("w", "b")}
+    return {"apply_ms": apply_ms, "step_ms": step_ms, "losses": losses,
+            "ref_losses": z["ref_losses"].tolist(),
+            "out_err": float(np.abs(out.cpu().numpy() - z["ref_out"]).max()),
+            "out_scale": float(np.abs(z["ref_out"]).max()),
+            "param_errs": {k: [float(np.abs(q[k].cpu().numpy()
+                                            - z[f"ref_{k}"][s]).max()),
+                               float(np.abs(move[k]).max())]
+                           for k in ("w", "b")},
+            "launches": launches}
+
+
+RANK_PHASES = {"alexnet-tp": rank_alexnet_tp, "ring-attention": rank_ring,
+               "gpipe": rank_gpipe}
+
+_WORLD_RANK = r"""
+import json, sys, time
+import torch
+import chip_smoke as cs
+from deeplearning4j_tpu_torch.parallel import (
+    init_distributed, shutdown_distributed)
+
+spec = json.loads(sys.argv[1])
+rank = spec["rank"]
+# gloo: two ranks on one card (NCCL refuses two ranks a device); NCCL:
+# a card a rank (scripts/torch_parallel_nccl.py)
+init_distributed("file://" + spec["rdv"], 2, rank, device="cuda",
+                 backend=spec.get("backend", "gloo"), timeout_s=120)
+out = {}
+for tag in spec["phases"]:
+    t0 = time.perf_counter()
+    out[tag] = cs.RANK_PHASES[tag](torch, rank, spec)
+    out[tag]["rank_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+with open(spec["out"], "w") as fh:
+    json.dump(out, fh)
+shutdown_distributed()
+"""
+
+
+def world_inputs(torch, lm, tokens, tags, tmp):
+    """What the world's phases read, made in this process: [alexnet-tp]'s
+    world of one (TP_STEPS steps from the same seed: its weights before
+    and after, its scores), [ring-attention]'s trained blocks, the states
+    entering block 1 at 16,384 bytes and at 16 x 512 with the unsharded
+    blocks' output and gradients, and [gpipe]'s weights, batch and the
+    serial composition's output, losses and weights."""
+    import os
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    f = os.path.join
+    spec, ref = {}, {}
+    if "alexnet-tp" in tags:
+        net = per_step_loop(MultiLayerNetwork(alexnet(),
+                                              device="cuda").init())
+        ref["before"] = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                         for ln, lp in net.params.items()}
+        batches = tp_batches(torch)
+        ref["scores"] = [float(net.fit_minibatch(batches[i % 2]))
+                         for i in range(TP_STEPS)]
+        ref["after"] = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                        for ln, lp in net.params.items()}
+        del net, batches
+        spec["alexnet_tp_out"] = f(tmp, "alexnet_tp.npz")
+    if "ring-attention" in tags:
+        blocks, head = ring_blocks()
+        names = [str(2 + i) for i in range(len(blocks) + 1)]
+        np.savez(f(tmp, "ring_params.npz"), **{
+            f"{n}/{pn}": t.detach().cpu().numpy() for n in names
+            for pn, t in lm.params[n].items()})
+        # 16,384 bytes: the states entering block 1 and leaving block 12
+        x = char_batches(tokens, 1, RING_T, 1, seed=11,
+                         vocab=TX["vocab"])[0].features
+        with torch.no_grad():
+            acts = lm.feed_forward(x)
+        np.savez(f(tmp, "ring_fwd.npz"), h=acts[1].cpu().numpy(),
+                 y=acts[1 + len(blocks)].cpu().numpy())
+        del acts
+        # 16 x 512: the next-byte loss's gradients of the unsharded blocks
+        ds = char_batches(tokens, TX_BATCH, TX_T, 1, seed=12,
+                          vocab=TX["vocab"])[0]
+        # (a clone: an inference-mode tensor cannot enter a backward)
+        h = lm.feed_forward(ds.features)[1].clone()
+        plain = [unsharded(b) for b in blocks]
+        leaves = {n: {pn: t.detach().clone().requires_grad_()
+                      for pn, t in lm.params[n].items()} for n in names}
+        xh = h
+        for blk, n in zip(plain, names):
+            xh, _ = blk.apply(leaves[n], xh, {})
+        lab = torch.as_tensor(ds.labels, dtype=torch.float32).cuda()
+        loss = next_byte_loss(torch, head, leaves[names[-1]], xh, lab,
+                              float(lab.shape[0] * lab.shape[2]))
+        loss.backward()
+        np.savez(f(tmp, "ring_bwd.npz"), h=h.cpu().numpy(),
+                 labels=lab.cpu().numpy())
+        np.savez(f(tmp, "ring_grads.npz"), **{
+            f"{n}/{pn}": t.grad.cpu().numpy() for n, lp in leaves.items()
+            for pn, t in lp.items()})
+        ref["ring_loss"] = float(loss.detach())
+        del leaves, xh, h
+        spec.update(ring_params=f(tmp, "ring_params.npz"),
+                    ring_fwd=f(tmp, "ring_fwd.npz"),
+                    ring_bwd=f(tmp, "ring_bwd.npz"),
+                    ring_grads=f(tmp, "ring_grads.npz"))
+    if "gpipe" in tags:
+        rng = np.random.RandomState(21)
+        d = GPIPE_D
+        z = {"w": (rng.randn(GPIPE_STAGES, d, d) / np.sqrt(d)).astype(
+                 np.float32),
+             "b": (0.1 * rng.randn(GPIPE_STAGES, d)).astype(np.float32),
+             "x": rng.randn(GPIPE_BATCH, d).astype(np.float32),
+             "y": rng.rand(GPIPE_BATCH, d).astype(np.float32)}
+        # the serial composition of the stages in this process
+        p = [{k: torch.from_numpy(z[k][s]).cuda() for k in ("w", "b")}
+             for s in range(GPIPE_STAGES)]
+        x, y = torch.from_numpy(z["x"]).cuda(), torch.from_numpy(z["y"]).cuda()
+
+        def serial(ps):
+            h = x
+            for q in ps:
+                h = gpipe_stage(q, h)
+            return h
+        with torch.no_grad():
+            z["ref_out"] = serial(p).cpu().numpy()
+        losses = []
+        for _ in range(2):
+            leaves = [{k: t.detach().requires_grad_() for k, t in q.items()}
+                      for q in p]
+            loss = mse(torch, serial(leaves), y)
+            grads = torch.autograd.grad(loss, [t for q in leaves
+                                               for t in q.values()])
+            it = iter(grads)
+            p = [{k: (t - GPIPE_LR * next(it)).detach() for k, t in q.items()}
+                 for q in leaves]
+            losses.append(float(loss.detach()))
+        z["ref_losses"] = np.asarray(losses)
+        for k in ("w", "b"):
+            z[f"ref_{k}"] = np.stack([q[k].cpu().numpy() for q in p])
+        np.savez(f(tmp, "gpipe.npz"), **z)
+        spec["gpipe"] = f(tmp, "gpipe.npz")
+    return spec, ref
+
+
+def unsharded(block):
+    """``block`` without its seq axis: the unsharded reference."""
+    import dataclasses
+
+    return dataclasses.replace(block, seq_axis="", seq_axis_size=0)
+
+
+def run_rank_world(torch, card, records, lm, tokens, tags,
+                   backend="gloo"):
+    """[alexnet-tp], [ring-attention] and [gpipe] (those of ``tags``) on
+    one spawned world of two ranks (gloo: both on the card, the world's
+    start paid once, as NCCL refuses two ranks a device; ``"nccl"``: a
+    card a rank), each held against its
+    reference made here (``world_inputs``); the new kernel shapes get
+    ``[kernel]`` records first. Prints each phase's line and wall time;
+    returns {tag: launch counts of both ranks' main path}."""
+    import os
+    import shutil
+    import tempfile
+
     import torch.nn.functional as F
 
-    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    import gc
+
+    tags = [t for t in WORLD_PHASES if t in tags]
+    # the earlier phases' cached blocks back to the card: two ranks'
+    # score tiles (3.2 GB each a block) share it with this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if "alexnet-tp" in tags:
+        shard_records(torch, F, records, "alexnet-tp", alexnet_tp_shapes(),
+                      gen)
+    if "gpipe" in tags:
+        shard_records(torch, F, records, "gpipe", [(
+            "stage", "matmul_block", dict(
+                m=GPIPE_BATCH // GPIPE_MICRO, k=GPIPE_D, n=GPIPE_D,
+                activation="relu"), ["stage0", "stage1"])], gen)
+    tmp = tempfile.mkdtemp(prefix="dl4j_world_")
+    try:
+        t0 = time.perf_counter()
+        spec, ref = world_inputs(torch, lm, tokens, tags, tmp)
+        torch.cuda.empty_cache()
+        inputs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("world", _WORLD_RANK, [dict(
+            spec, rank=r, phases=tags, rdv=os.path.join(tmp, "rdv"),
+            backend=backend, out=os.path.join(tmp, f"rank{r}.json"))
+            for r in range(2)], WORLD_TIMEOUT_S, tmp)
+        world_s = time.perf_counter() - t0
+        if any(rc != 0 for rc, _ in ranks):
+            raise RuntimeError("[world] a rank failed:\n" + "\n---\n".join(
+                f"exit {rc}: {err}" for rc, err in ranks))
+        outs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                outs.append(json.load(fh))
+        print(f"[world] 2 {backend} ranks: inputs {inputs_s:.1f} s, "
+              f"world {world_s:.1f} s")
+        paths = {}
+        for tag in tags:
+            t0 = time.perf_counter()
+            check = {"alexnet-tp": check_alexnet_tp,
+                     "ring-attention": check_ring,
+                     "gpipe": check_gpipe}[tag]
+            mine = [o[tag] for o in outs]
+            check(torch, card, mine, ref, spec, records)
+            paths[tag] = {k: sum(o["launches"].get(k, 0) for o in mine)
+                          for k in dispatch.KERNELS}
+            print(f"[{tag}] phase {max(o['rank_s'] for o in mine) + time.perf_counter() - t0:.1f} s")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_alexnet_tp(torch, card, outs, ref, spec, records):
+    """[alexnet-tp] against the world of one: each step's score (rtol
+    TP_SCORE_RTOL), both ranks' scores equal, every weight within
+    TP_SHARE of its 4-step move (``check_twin_step``), the shards half of each conv's out-channels and
+    each dense layer's columns, and each rank's launches exactly TP_STEPS
+    times one step's (10 conv_block, 4 conv_bwd_data, 5 conv_bwd_w, 3
+    matmul_block: the head's product runs on the kernel under tensor
+    parallelism)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    a, b = outs
+    if a["scores"] != b["scores"]:
+        raise RuntimeError(f"[alexnet-tp] the ranks' scores differ: "
+                           f"{a['scores']} {b['scores']}")
+    np.testing.assert_allclose(a["scores"], ref["scores"],
+                               rtol=TP_SCORE_RTOL)
+    want = expected_counts(conv_block=10 * TP_STEPS,
+                           conv_bwd_data=4 * TP_STEPS,
+                           conv_bwd_w=5 * TP_STEPS,
+                           matmul_block=3 * TP_STEPS)
+    for o in outs:
+        if o["launches"] != want:
+            raise RuntimeError(f"[alexnet-tp] a rank launched "
+                               f"{o['launches']}, expected {want}")
+    if (a["shapes"]["0/W"] != [48, 3, 11, 11]
+            or a["shapes"]["8/W"] != [9216, 2048]
+            or a["shapes"]["10/W"] != [4096, 500]
+            or a["shapes"]["10/b"] != [1000]):
+        raise RuntimeError(f"[alexnet-tp] shards: {a['shapes']}")
+    got = MultiLayerNetwork(alexnet(), device="cpu")
+    with np.load(spec["alexnet_tp_out"]) as z:
+        got.params = {}
+        for k in z.files:
+            ln, pn = k.split("/")
+            got.params.setdefault(ln, {})[pn] = torch.from_numpy(z[k])
+    twin = MultiLayerNetwork(alexnet(), device="cpu")
+    twin.params = ref["after"]
+    share = check_twin_step("alexnet-tp", got, twin, ref["before"],
+                            share=TP_SHARE)
+    mine = [r for r in records if r["shape_of"].startswith("alexnet-tp.")]
+    kinds = {}
+    for r in mine:
+        k = kinds.setdefault(r["kernel"], dict.fromkeys(
+            ("kernel_ms", "library_ms", "plain_ms", "bound_ms"), 0.0))
+        for key in k:
+            k[key] += r[key] * r["launches_per_step"]
+    res = {"steps": TP_STEPS, "batch": ALEXNET_TRAIN_BATCH,
+           "mesh": {"data": 1, "model": TP_MODEL},
+           "scores": a["scores"], "world_of_one_scores": ref["scores"],
+           "max_share_of_move": share,
+           "host_ms_per_step": a["host_ms"], "event_ms_per_step": a["event_ms"],
+           "device_ms_one_step_rank0": a["device_ms_one_step"],
+           "device_ms_one_step_rank1": b["device_ms_one_step"],
+           "top_device_ms_rank0": a["top_device_ms"],
+           "launches_per_step_per_rank": {
+               k: v // TP_STEPS for k, v in a["launches"].items() if v},
+           "kernel_ms_per_step_per_rank": kinds,
+           "peak_gb_per_rank": [o["peak_gb"] for o in outs]}
+    print(f"[alexnet-tp] {json.dumps(res)} card={card}")
+
+
+def check_ring(torch, card, outs, ref, spec, records):
+    """[ring-attention] against the unsharded blocks: each rank's forward
+    rows and (rank 0) every gradient within RING_REL of the reference's
+    largest entry, the loss of the two ranks' halves the reference's
+    (rtol 1e-5), and each rank's launches 12 ``matmul_block_residual``
+    a pass (two passes: the forward and the backward's) and no flash
+    attention (the ring's products are einsums)."""
+    for r, o in enumerate(outs):
+        if o["fwd_err"] > RING_REL * o["fwd_scale"]:
+            raise RuntimeError(f"[ring-attention] rank {r}'s forward is off "
+                               f"by {o['fwd_err']} (scale {o['fwd_scale']})")
+        want = expected_counts(matmul_block_residual=2 * TX["n_layers"])
+        if o["launches"] != want:
+            raise RuntimeError(f"[ring-attention] rank {r} launched "
+                               f"{o['launches']}, expected {want}")
+    worst = 0.0
+    for k, (err, scale) in outs[0]["grad_errs"].items():
+        if err > RING_REL * max(scale, 1e-30):
+            raise RuntimeError(f"[ring-attention] gradient {k} is off by "
+                               f"{err} (scale {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    with np.load(spec["ring_grads"]) as z:
+        n_grads = len(z.files)
+    if len(outs[0]["grad_errs"]) != n_grads:
+        raise RuntimeError(f"[ring-attention] held "
+                           f"{len(outs[0]['grad_errs'])} of {n_grads} "
+                           "gradients")
+    np.testing.assert_allclose(outs[0]["loss"], ref["ring_loss"], rtol=1e-5)
+    res = {"t_fwd": RING_T, "positions_a_rank_fwd": outs[0]["positions_fwd"],
+           "bwd_batch": TX_BATCH, "bwd_t": TX_T,
+           "fwd_ms": [o["fwd_ms"] for o in outs],
+           "bwd_ms": [o["bwd_ms"] for o in outs],
+           "fwd_max_rel_err": max(o["fwd_err"] / o["fwd_scale"]
+                                  for o in outs),
+           "grad_max_rel_err": worst, "loss": outs[0]["loss"],
+           "reference_loss": ref["ring_loss"],
+           "fwd_peak_gb": [o["fwd_peak_gb"] for o in outs],
+           "launches_per_rank": {k: v for k, v in outs[0]["launches"].items()
+                                 if v}}
+    print(f"[ring-attention] {json.dumps(res)} card={card}")
+
+
+def check_gpipe(torch, card, outs, ref, spec, records):
+    """[gpipe] against the serial composition: the output on every rank
+    and each stage's weights after two steps within GPIPE_REL of the
+    reference's largest entry (the weights: of their move), the losses
+    (rtol 1e-5), and each rank's launches: a forward tick a launch, 3
+    passes (``apply`` and two steps) of n_micro + n_stages - 1 ticks."""
+    ticks = GPIPE_MICRO + GPIPE_STAGES - 1
+    for r, o in enumerate(outs):
+        if o["out_err"] > GPIPE_REL * o["out_scale"]:
+            raise RuntimeError(f"[gpipe] rank {r}'s output is off by "
+                               f"{o['out_err']}")
+        for k, (err, move) in o["param_errs"].items():
+            if err > GPIPE_REL * move + 1e-7:
+                raise RuntimeError(f"[gpipe] stage {r}'s {k} is off by {err}"
+                                   f" (its move {move})")
+        np.testing.assert_allclose(o["losses"], o["ref_losses"], rtol=1e-5)
+        want = expected_counts(matmul_block=3 * ticks)
+        if o["launches"] != want:
+            raise RuntimeError(f"[gpipe] rank {r} launched {o['launches']},"
+                               f" expected {want}")
+    res = {"stages": GPIPE_STAGES, "n_micro": GPIPE_MICRO,
+           "batch": GPIPE_BATCH, "d": GPIPE_D,
+           "apply_ms": [o["apply_ms"] for o in outs],
+           "train_step_ms": [o["step_ms"] for o in outs],
+           "losses": outs[0]["losses"], "serial_losses": outs[0]["ref_losses"],
+           "out_max_rel_err": max(o["out_err"] / o["out_scale"] for o in outs),
+           "launches_per_rank": {k: v for k, v in outs[0]["launches"].items()
+                                 if v}}
+    print(f"[gpipe] {json.dumps(res)} card={card}")
+
+
+def run_cluster(torch, card, device="cuda"):
+    """[cluster] ``ClusterDl4jMultiLayer`` over the zoo's LeNet-5 (SGD) with
+    a ``ParameterAveragingTrainingMaster`` of 4 workers x 64, averaging
+    every step, on 16 minibatches of synthetic MNIST (4 rounds), held
+    against one machine on each round's concatenated 256 rows (JAX
+    ``tests/test_cluster.py:51``'s equivalence: each weight within
+    CLUSTER_SHARE of its move); the sharded ``evaluate`` equal to the
+    plain one; ``ClusterEarlyStoppingTrainer`` for at most 3 epochs on a
+    holdout. Returns the launch counts of the main path: the cluster's
+    ``fit`` and ``evaluate`` and the early-stopping trainer's ``fit``,
+    each read just after it (the single-machine reference, the plain
+    ``evaluate`` and the initial holdout score run outside them);
+    ``device`` "cpu" rehearses it on the plain path, where no kernel
+    launches."""
+    from collections import Counter
+
+    import warnings
+
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ListDataSetIterator,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.parallel import (
+        ClusterDl4jMultiLayer,
+        ParameterAveragingTrainingMaster,
+    )
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(
+            CLUSTER_BATCH, allow_synthetic=True,
+            num_examples=CLUSTER_BATCH * (CLUSTER_MINIBATCHES
+                                          + CLUSTER_HOLDOUT))
+    batches = list(data)
+    train, holdout = batches[:CLUSTER_MINIBATCHES], batches[
+        CLUSTER_MINIBATCHES:]
+    conf = lenet(updater="SGD")
+    on_card = device != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    net = per_step_loop(MultiLayerNetwork(conf, device=device).init())
+    before = {ln: {pn: t.cpu() for pn, t in lp.items()}
+              for ln, lp in net.params.items()}
+    single = per_step_loop(MultiLayerNetwork(conf, device=device).init(
+        params={ln: {pn: t.clone() for pn, t in lp.items()}
+                for ln, lp in net.params.items()}))
+
+    def master():
+        return ParameterAveragingTrainingMaster(
+            workers=CLUSTER_WORKERS, batch_size_per_worker=CLUSTER_BATCH,
+            averaging_frequency=1, prefetch_num_batches=0,
+            collect_training_stats=True)
+    launches = Counter()
+
+    def main_path(fn):
+        """``fn()`` with its launches added to ``launches``."""
+        sync()
+        dispatch.reset_launch_counts()
+        out = fn()
+        sync()
+        launches.update(dispatch.launch_counts())
+        return out
+    tm = master()
+    cluster = ClusterDl4jMultiLayer(net, tm)
+    t0 = time.perf_counter()
+    main_path(lambda: cluster.fit(ListDataSetIterator(train)))
+    fit_s = time.perf_counter() - t0
+    for r in range(CLUSTER_MINIBATCHES // CLUSTER_WORKERS):
+        part = train[r * CLUSTER_WORKERS:(r + 1) * CLUSTER_WORKERS]
+        single.fit_minibatch(DataSet(
+            np.concatenate([b.features for b in part]),
+            np.concatenate([b.labels for b in part])))
+    twin = MultiLayerNetwork(conf, device="cpu")
+    twin.params = {ln: {pn: t.cpu() for pn, t in lp.items()}
+                   for ln, lp in single.params.items()}
+    share = check_twin_step("cluster", net, twin, before,
+                            share=CLUSTER_SHARE)
+    merged = main_path(lambda: cluster.evaluate(holdout))
+    plain = net.evaluate(ListDataSetIterator(holdout))
+    if (merged.accuracy(), merged.f1()) != (plain.accuracy(), plain.f1()):
+        raise RuntimeError(f"[cluster] sharded evaluate {merged.accuracy()}"
+                           f" / {merged.f1()}, plain {plain.accuracy()} / "
+                           f"{plain.f1()}")
+    es_net = per_step_loop(MultiLayerNetwork(conf, device=device).init())
+    cfg = es.EarlyStoppingConfiguration(
+        score_calculator=es.DataSetLossCalculator(
+            ListDataSetIterator(holdout)),
+        epoch_terminations=[es.MaxEpochsTerminationCondition(
+            CLUSTER_ES_EPOCHS)],
+        model_saver=es.InMemoryModelSaver())
+    s0 = es.DataSetLossCalculator(ListDataSetIterator(
+        holdout)).calculate_score(es_net)
+    trainer = es.ClusterEarlyStoppingTrainer(cfg, es_net, master(),
+                                             ListDataSetIterator(train))
+    t0 = time.perf_counter()
+    result = main_path(trainer.fit)
+    es_s = time.perf_counter() - t0
+    scores = [result.score_vs_epoch[e] for e in sorted(result.score_vs_epoch)]
+    if (result.total_epochs != CLUSTER_ES_EPOCHS
+            or not all(np.isfinite(scores))
+            or not result.best_model_score < s0):
+        raise RuntimeError(f"[cluster] early stopping: {result.total_epochs}"
+                           f" epochs, scores {scores} from {s0}")
+    for k in ("conv_block", "conv_bwd_w", "matmul_block"):
+        if on_card and not launches.get(k):
+            raise RuntimeError(f"[cluster] {k} never launched: {launches}")
+    # LeNet's step launches conv_bwd_data once (conv2's dx): one a
+    # cluster minibatch and one an early-stopping minibatch
+    steps = CLUSTER_MINIBATCHES * (1 + CLUSTER_ES_EPOCHS)
+    if on_card and launches.get("conv_bwd_data") != steps:
+        raise RuntimeError(f"[cluster] {launches.get('conv_bwd_data')} "
+                           f"conv_bwd_data launches, {steps} steps")
+    res = {"workers": CLUSTER_WORKERS, "batch_per_worker": CLUSTER_BATCH,
+           "minibatches": CLUSTER_MINIBATCHES, "fit_s": fit_s,
+           "examples_per_s": CLUSTER_MINIBATCHES * CLUSTER_BATCH / fit_s,
+           "max_share_of_move": share,
+           "stats": tm.get_training_stats().as_dict(),
+           "eval_accuracy": plain.accuracy(),
+           "early_stopping": {"epochs": result.total_epochs,
+                              "holdout_scores": scores, "initial": s0,
+                              "best_epoch": result.best_model_epoch,
+                              "seconds": es_s},
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"[cluster] {json.dumps(res)} card={card}")
+    return launches
+
+
+def kernel_checks(torch, F, records, half_records, layers):
+    """The kernel checks: ``[kernel]`` and ``[layer]`` records appended to
+    ``records``, ``half_records`` and ``layers``."""
     from deeplearning4j_tpu_torch.zoo import alexnet, lenet
 
-    t_start = time.perf_counter()
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[env] card: {card}")
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    _build.load()
-    build_s = time.perf_counter() - t0
-    print(f"[env] kernel build: {build_s:.2f} s "
-          f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.2f} s;"
-          f" 0 = library already built)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records = []
     for model, conf, batch in (("lenet", lenet(), LENET_BUCKET),
                                ("lenet256", lenet(), LENET_TRAIN_BATCH),
                                ("alexnet", alexnet(), ALEXNET_BATCH)):
@@ -8597,10 +9378,9 @@ def main() -> int:
     print(f"[kernel] {json.dumps(rec)}")
     check_routes(records)
     # the conv kernels' half-precision variants at ResNet-50's shapes
-    half_records = check_half_kernels(torch, F, gen)
+    half_records.extend(check_half_kernels(torch, F, gen))
     for rec in half_records:
         print(f"[kernel] {json.dumps(rec)}")
-    layers = []
     for model, n_in, (T, b, n) in (
             ("charrnn", CHAR_VOCAB, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
             ("charrnn", CHAR_HIDDEN, (CHAR_TBPTT, CHAR_BATCH, CHAR_HIDDEN)),
@@ -8609,259 +9389,172 @@ def main() -> int:
         layers.append(rec)
         print(f"[layer] {json.dumps(rec)}")
 
-    print(f"[kernel-checks] phase "
-          f"{time.perf_counter() - t_start - build_s:.1f} s")
 
-    def phase(tag, fn, *args, **kw):
-        """``fn(torch, card, ...)``, its wall time printed."""
-        t0 = time.perf_counter()
-        out = fn(torch, card, *args, **kw)
-        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
-        return out
 
-    served = phase("serve", serve_lenet)
-    trained = phase("train", train_lenet)
-    phase("alexnet", run_alexnet)
-    alex_train = phase("alexnet-train", run_alexnet_train, records)
-    ids, alphabet = survey_corpus()
-    char_peep = phase("charrnn", run_charrnn, True, ids, alphabet)
-    char_seq = phase("charrnn-seq", run_charrnn, False, ids, alphabet)
-    tokens = survey_bytes()
-    lm, tx_fit = phase("transformer", run_transformer, tokens)
-    phase("transformer-twin", run_transformer_twin, tokens)
-    tx_sample = phase("transformer-sample", sample_transformer, lm, tokens,
-                      seed=7)
-    tx_long = phase("transformer-long", run_transformer_long, lm, tokens,
-                    seed=8)
-    tx_paths = (tx_fit, tx_sample, tx_long)
-    vgg = phase("vgg16", run_vgg16)
-    conv_bn = phase("conv-bn", run_conv_bn)
-    resnet, resnet_init, resnet_data = phase("resnet50", run_resnet50)
-    resnet_dp = phase("resnet50-dp", run_resnet50_dp, resnet_init,
-                      resnet_data)
-    del resnet_init, resnet_data
-    # half-precision training (each returns launches and variant counts)
-    half_paths = [phase("resnet50-bf16", run_resnet50_bf16),
-                  phase("vgg16-bf16", run_vgg16_bf16),
-                  phase("transformer-bf16", run_transformer_bf16, tokens),
-                  phase("f16-loss-scale", run_f16_loss_scale, tokens)]
-    guarded = phase("guard", run_guard)
-    mega = phase("megastep", run_megastep)
-    # the training runtime (resume, preemption, prefetch, validation, the
-    # window, the trainer's megastep) under ResNet-50, and the rollback
-    runtime = phase("resnet50-runtime", run_resnet50_runtime)
-    rollback = phase("lenet-rollback", run_lenet_rollback)
-    # the scan path: device-cached chunks and the fused TBPTT scan, each
-    # against the per-step loop; then the observability around them
-    lenet_cached = phase("lenet-cached", run_lenet_cached)
-    vgg_cached = phase("vgg16-cached", run_vgg16_cached)
-    fused_peep = phase("charrnn-fused", run_charrnn_fused, True, ids)
-    fused_seq = phase("charrnn-seq-fused", run_charrnn_fused, False, ids)
-    telemetry = phase("telemetry", run_telemetry)
-    scan_paths = (lenet_cached, vgg_cached, telemetry)
-    # the elastic control plane under ResNet-50 and LeNet-5, the default
-    # fit of the large models, the serving tier, then the
-    # continuous-learning loop, early stopping and evaluate
-    runtime_paths = {}
-    for tag, fn, args in (("elastic-resnet50", run_elastic_resnet50, ()),
-                          ("elastic-storm", run_elastic_storm, ()),
-                          ("default-fit", run_default_fit, (tokens,)),
-                          ("fleet", run_fleet, ()),
-                          ("aot-restart", run_aot_restart, (build_s,)),
-                          ("loop", run_loop, ()),
-                          ("earlystop", run_earlystop, ()),
-                          ("evaluate", run_evaluate, ())):
-        runtime_paths[tag] = phase(tag, fn, *args)
-    # the networks of the MoE / GoogLeNet / graph-RNN slice: each a main
-    # path, its launches summed into the kernels line by name
-    net_paths = {tag: phase(tag, fn, *args)
-                 for tag, fn, args in network_phases(records, tokens, ids)}
-    nlp = run_nlp(torch, card)
-    # the row-sharded trainer on two ranks (after every phase that forms
-    # a world in this process)
-    runtime_paths["semb-dp"] = phase("semb-dp", run_semb_dp)
-    half_launches = [launches for launches, _ in half_paths] + [guarded]
-    half_variants = {}
-    for _, variants in half_paths:
-        for k, v in variants.items():
-            half_variants[k] = half_variants.get(k, 0) + v
+def path_launches(kernel, paths, tags=None) -> int:
+    """``kernel``'s launches summed over the main paths ``paths`` ({tag:
+    launch counts}), or over the ``tags`` among them."""
+    return sum(paths[t].get(kernel, 0) for t in (paths if tags is None
+                                                  else tags))
 
+
+def network_launches(kernel, paths, tags=None) -> dict:
+    """``kernel``'s launches on each main path of ``tags`` (default
+    NETWORK_PATHS) that ran it ({tag: launches})."""
+    return {t: paths[t].get(kernel, 0)
+            for t in (NETWORK_PATHS if tags is None else tags)
+            if paths.get(t, {}).get(kernel, 0)}
+
+
+# the distribution slice's main paths, listed by path in the kernels line
+NEW_PATHS = ("alexnet-tp", "ring-attention", "gpipe", "cluster")
+
+# phases whose main path reads what another phase returns
+PHASE_NEEDS = {"transformer-sample": "transformer",
+               "transformer-long": "transformer",
+               "ring-attention": "transformer", "resnet50-dp": "resnet50"}
+
+
+def parse_phases(argv):
+    """The tags of ``--phases tag[,tag...]`` (None: every phase)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "NVIDIA card")
+    ap.add_argument("--phases", default=None, help="comma-separated phase "
+                    "tags to run (default: every phase; 'kernels' is the "
+                    "kernel checks, 'nlp' the embeddings phases)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    return {t.strip() for t in args.phases.split(",") if t.strip()}
+
+
+def launch_dicts(out):
+    """Every launch-count dict in a phase's return value."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    if isinstance(out, dict):
+        if out and set(out) <= set(dispatch.KERNELS):
+            return [out]
+        return [d for v in out.values() for d in launch_dicts(v)]
+    if isinstance(out, (tuple, list)):
+        return [d for v in out for d in launch_dicts(v)]
+    return []
+
+
+def summed_launches(out) -> dict:
+    """{kernel: launches} of a phase's main path: the launch counts in
+    its return value ``out``, summed."""
+    total = {}
+    for d in launch_dicts(out):
+        for k, v in d.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# Each kernel of the kernels line: its source, the TPU kernel it
+# replaces, and which of its f32 [kernel] records are the main path's
+# launches whose times the line sums: LeNet's serving forward at bucket
+# 32 for the forward kernels, one LeNet training step at batch 256 for
+# the backward, the char-RNN's chunk (T 50, b 32, n 200) in the variant
+# its training runs (the zoo model's peephole cell, the sequence
+# forward that writes c_seq), the transformer's training shape, the
+# streamed attention at t 16384.
+KERNEL_TABLE = {
+    "conv_block": ("conv_block.cu", "conv_block.py:104",
+                   lambda r: r["shape_of"].startswith("lenet.")),
+    "conv_bwd_data": ("conv_bwd.cu", "conv_block.py:104",
+                      lambda r: r["shape_of"].startswith("lenet256.")),
+    "conv_bwd_w": ("conv_bwd.cu", "conv_block.py:184",
+                   lambda r: r["shape_of"].startswith("lenet256.")),
+    "matmul_block": ("matmul_block.cu", "matmul_block.py:53",
+                     lambda r: r["shape_of"].startswith("lenet.")),
+    "lstm_cell": ("lstm_cell.cu", "lstm_cell.py:28",
+                  lambda r: (r["shape_of"], r["variant"])
+                  == ("charrnn", "peephole")),
+    "lstm_seq_fwd": ("lstm_seq.cu", "lstm_cell.py:202",
+                     lambda r: (r["shape_of"], r["variant"])
+                     == ("charrnn", "c_seq")),
+    "lstm_seq_bwd": ("lstm_seq.cu", "lstm_cell.py:217",
+                     lambda r: (r["shape_of"], r["variant"])
+                     == ("charrnn", "")),
+    "flash_attention": ("flash_attention.cu", "flash_attention.py:32",
+                        lambda r: r["shape_of"] == "transformer"),
+    "flash_attention_streamed": ("flash_attention.cu",
+                                 "flash_attention.py:180",
+                                 lambda r: r["shape_of"] == "long"),
+    "matmul_block_residual": ("matmul_block.cu", "matmul_block.py:59",
+                              lambda r: r["shape_of"] == "transformer.ffn2"),
+}
+
+# the conv kernels' half-precision variants: ResNet-50's step at batch
+# 128 in bf16 (kernel, variant, source, the TPU kernel it replaces)
+HALF_TABLE = (("conv_block", "bf16", "conv_block.cu", "conv_block.py:104"),
+              ("conv_block", "bf16->f32", "conv_block.cu",
+               "conv_block.py:104"),
+              ("conv_bwd_w", "bf16", "conv_bwd.cu", "conv_block.py:184"))
+
+# the models whose training step's shapes give per-step keys: each
+# shape's time by its launches a step, summed
+PER_STEP_MODELS = ("vgg16", "resnet50", "alexnet-train", "googlenet",
+                   "conv-lstm", "alexnet-tp", "gpipe")
+
+
+def kernels_line(records, half_records, layers, paths, half_variants
+                 ) -> list:
+    """The kernels line of a run: every kernel its phases launched or
+    its records hold (a run of every phase: all of them), its launches
+    summed over the phases' main paths (``paths``: {tag: {kernel:
+    launches}}) and listed on those of NETWORK_PATHS and NEW_PATHS, its
+    times those
+    of its main-path records (null where the run made none), and the
+    per-step keys of the training steps' records; then the conv kernels'
+    half-precision variants (``half_variants``: their launches)."""
+    csrc, tpu = "deeplearning4j_tpu_torch/csrc/", "deeplearning4j_tpu/ops/"
     kernels = []
-    csrc = "deeplearning4j_tpu_torch/csrc/"
-    # (source, TPU kernel, the main-path forward or step whose launches
-    # the times sum: LeNet's serving forward at bucket 32 for the forward
-    # kernels, one LeNet training step at batch 256 for the backward)
-    sources = {
-        "conv_block": (csrc + "conv_block.cu",
-                       "deeplearning4j_tpu/ops/conv_block.py:104", "lenet."),
-        "conv_bwd_data": (csrc + "conv_bwd.cu",
-                          "deeplearning4j_tpu/ops/conv_block.py:104",
-                          "lenet256."),
-        "conv_bwd_w": (csrc + "conv_bwd.cu",
-                       "deeplearning4j_tpu/ops/conv_block.py:184",
-                       "lenet256."),
-        "matmul_block": (csrc + "matmul_block.cu",
-                         "deeplearning4j_tpu/ops/matmul_block.py:53",
-                         "lenet."),
-    }
-    for k, (src, replaces, main_of) in sources.items():
-        mine = [r for r in records if r["kernel"] == k]
-        main = [r for r in mine if r["shape_of"].startswith(main_of)]
-        # the launches run one after another: the least time is the sum
-        # of their bounds, named by the launch that bounds the most
-        bound_ms = sum(r["bound_ms"] for r in main)
-        bound_by = max(main, key=lambda r: r["bound_ms"])["bound_by"]
-        entry = {
-            "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": (served[k] + trained[k] + sum(c[k] for c in tx_paths)
-                         + vgg[k] + conv_bn[k] + resnet[k] + resnet_dp[k]
-                         + alex_train[k] + mega[k] + nlp[k] + runtime[k]
-                         + rollback[k]
-                         + sum(c[k] for c in half_launches)
-                         + sum(c[k] for c in scan_paths)
-                         + path_launches(k, runtime_paths)
-                         + path_launches(k, net_paths)),
-            "launches_by_path": network_launches(k, net_paths),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["kernel_ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sum(r["library_ms"] for r in main),
-        }
-        if k in INTENDED_ROUTES:  # the kernel route its main path took
-            entry["kernel_route"] = "+".join(sorted(
-                {r["kernel_route"] for r in main}))
-        # VGG-16's, ResNet-50's and AlexNet's training steps at batch
-        # 128: each shape's time by its launches a step, summed
-        for model in ("vgg16", "resnet50", "alexnet-train", "googlenet",
-                      "conv-lstm"):
-            recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
-            if not recs:
-                continue
-            tag = model.replace("-", "_")
-            entry.update({f"{tag}_{key}_per_step": sum(
-                r[key] * r["launches_per_step"] for r in recs)
-                for key in ("kernel_ms", "plain_ms", "library_ms",
-                            "bound_ms")})
-            entry.update({f"{tag}_launches_per_step": sum(
-                r["launches_per_step"] for r in recs),
-                f"{tag}_route": "+".join(
-                    sorted({r["kernel_route"] for r in recs}))})
-        if k == "conv_block":  # AlexNet's five convs at batch 64, summed
-            alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
-            entry.update(alexnet_route="+".join(sorted(
-                {r["kernel_route"] for r in alex})),
-                alexnet_ms=sum(r["kernel_ms"] for r in alex),
-                alexnet_library_ms=sum(r["library_ms"] for r in alex),
-                alexnet_bound_ms=sum(r["bound_ms"] for r in alex))
-        if k == "conv_bwd_w":  # each layer of the step, library beside
-            for r in main:
-                layer = r["shape_of"].split(".")[1]
-                entry.update({f"{layer}_ms": r["kernel_ms"],
-                              f"{layer}_library_ms": r["library_ms"],
-                              f"{layer}_bound_ms": r["bound_ms"]})
-        if k == "matmul_block":  # the transformer's input projection
-            tx_in = next(r for r in mine
-                         if r["shape_of"] == "transformer.input")
-            entry.update(transformer_route=tx_in["kernel_route"],
-                         transformer_ms=tx_in["kernel_ms"],
-                         transformer_library_ms=tx_in["library_ms"])
-            # and the embedding MLP's dense layer (one launch a step)
-            mlp = next(r for r in mine
-                       if r["shape_of"] == "embedding-mlp.dense")
-            entry.update({f"embedding_mlp_{key}": mlp[key] for key in (
-                "kernel_route", "kernel_ms", "plain_ms", "library_ms",
-                "bound_ms", "max_abs_err")})
-            # and [semb-dp]'s, at a rank's half batch (one a step a rank)
-            semb = next(r for r in mine if r["shape_of"] == "semb-dp.dense")
-            entry.update({f"semb_dp_{key}": semb[key] for key in (
-                "kernel_route", "kernel_ms", "plain_ms", "library_ms",
-                "bound_ms", "max_abs_err")})
-        kernels.append(entry)
-    # the LSTM kernels: one launch at the char-RNN's chunk (T 50, b 32,
-    # n 200) in the variant its training runs (the zoo model's peephole
-    # cell, the sequence forward that writes c_seq); launches of both
-    # char-RNN main paths. library_ms: torch.nn.LSTM (cuDNN), a
-    # layer-level time (input projection included) at n_in 200, beside
-    # the port's own layer time (port_fwd_ms / port_bwd_ms) from the same
-    # [layer] record
-    cudnn = next(r for r in layers if r["shape_of"] == "charrnn"
-                 and r["n_in"] == CHAR_HIDDEN)
-    for k, src, line, variant, lib in (
-            ("lstm_cell", "lstm_cell.cu", 28, "peephole", None),
-            ("lstm_seq_fwd", "lstm_seq.cu", 202, "c_seq",
-             cudnn["cudnn_fwd_ms"]),
-            ("lstm_seq_bwd", "lstm_seq.cu", 217, "", cudnn["cudnn_bwd_ms"])):
-        mine = [r for r in records if r["kernel"] == k]
-        main = next(r for r in mine if r["shape_of"] == "charrnn"
-                    and r["variant"] == variant)
-        entry = {
-            "name": k, "route": "cuda", "source": csrc + src,
-            "replaces": f"deeplearning4j_tpu/ops/lstm_cell.py:{line}",
-            "launches": (char_peep[k] + char_seq[k] + fused_peep[k]
-                         + fused_seq[k] + path_launches(k, net_paths)),
-            "launches_by_path": network_launches(k, net_paths),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": lib,
-        }
-        entry["kernel_route"] = main["kernel_route"]
-        if k != "lstm_cell":  # the sequence kernels' own layer time
-            side = k[-3:]  # fwd / bwd
-            entry[f"port_{side}_ms"] = cudnn[f"port_{side}_ms"]
-        kernels.append(entry)
-    # the transformer's kernels: f32 at the main path's shapes (flash
-    # attention's resident entry and the residual matmul at the training
-    # shape, the streamed entry at t 16384); launches of the transformer's
-    # main paths (fit, sampling, long-context output). library_ms:
-    # scaled_dot_product_attention, torch.addmm + the residual add
-    for k, src, replaces, shape_of in (
-            ("flash_attention", "flash_attention.cu",
-             "deeplearning4j_tpu/ops/flash_attention.py:32", "transformer"),
-            ("flash_attention_streamed", "flash_attention.cu",
-             "deeplearning4j_tpu/ops/flash_attention.py:180", "long"),
-            ("matmul_block_residual", "matmul_block.cu",
-             "deeplearning4j_tpu/ops/matmul_block.py:59",
-             "transformer.ffn2")):
+    for k, (src, replaces, is_main) in KERNEL_TABLE.items():
         mine = [r for r in records if r["kernel"] == k
                 and r.get("dtype", "float32") == "float32"]
-        main = next(r for r in mine if r["shape_of"] == shape_of)
+        launches = path_launches(k, paths)
+        if not launches and not mine:
+            continue
+        main = [r for r in mine if is_main(r)]
+
+        # the launches run one after another: the least time is the sum
+        # of their bounds, named by the launch that bounds the most
+        def total(key, recs=main):
+            vals = [r[key] for r in recs]
+            return (sum(vals) if vals and None not in vals else None)
         entry = {
             "name": k, "route": "cuda", "source": csrc + src,
-            "replaces": replaces,
-            "launches": (sum(c[k] for c in tx_paths)
-                         + sum(c[k] for c in half_launches)
-                         + path_launches(k, runtime_paths,
-                                         ["default-fit"])
-                         + path_launches(k, net_paths)),
-            "launches_by_path": network_launches(k, net_paths),
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
+            "replaces": tpu + replaces, "launches": launches,
+            "launches_by_path": network_launches(
+                k, paths, NETWORK_PATHS + NEW_PATHS),
+            "max_abs_err": max((r["max_abs_err"] for r in mine),
+                               default=None),
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": (max(main, key=lambda r: r["bound_ms"])["bound_by"]
+                         if main else None),
+            "library_ms": total("library_ms"),
         }
-        if k in INTENDED_ROUTES:
-            entry["kernel_route"] = main["kernel_route"]
+        routes = {r["kernel_route"] for r in main if "kernel_route" in r}
+        if routes:  # the kernel route its main path took
+            entry["kernel_route"] = "+".join(sorted(routes))
+        entry.update(kernel_extras(k, mine, main, layers))
         kernels.append(entry)
-    # the conv kernels' half-precision variants: ResNet-50's step at
-    # batch 128 in bf16, each shape's time by its launches a step; the
-    # launches of every half-precision main path by variant
-    for k, variant, src, replaces in (
-            ("conv_block", "bf16", "conv_block.cu",
-             "deeplearning4j_tpu/ops/conv_block.py:104"),
-            ("conv_block", "bf16->f32", "conv_block.cu",
-             "deeplearning4j_tpu/ops/conv_block.py:104"),
-            ("conv_bwd_w", "bf16", "conv_bwd.cu",
-             "deeplearning4j_tpu/ops/conv_block.py:184")):
+    for k, variant, src, replaces in HALF_TABLE:
         mine = [r for r in half_records
                 if r["kernel"] == k and r["variant"] == variant]
+        if not mine:
+            continue
 
         def per_step_sum(key, recs=mine):
             return sum(r[key] * r["launches_per_step"] for r in recs)
         kernels.append({
             "name": f"{k}[{variant}]", "route": "cuda",
-            "source": csrc + src, "replaces": replaces,
+            "source": csrc + src, "replaces": tpu + replaces,
             "launches": half_variants.get(f"{k}[{variant}]", 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_step_sum("kernel_ms"), "plain_ms": per_step_sum("plain_ms"),
@@ -8873,6 +9566,208 @@ def main() -> int:
             "launches_per_step": sum(r["launches_per_step"] for r in mine),
             "kernel_route": "+".join(sorted({r["kernel_route"]
                                              for r in mine}))})
+    return kernels
+
+
+def kernel_extras(k, mine, main, layers) -> dict:
+    """The keys of ``k``'s entry beside the contract's, from the records
+    this run made: the per-step sums of PER_STEP_MODELS' training steps,
+    AlexNet's five convs at batch 64, dW by LeNet layer, the
+    transformer's input projection, the embedding MLP's and [semb-dp]'s
+    dense layer, and the LSTM kernels' layer-level times beside
+    torch.nn.LSTM's (cuDNN, input projection included, n_in 200) as
+    their library_ms."""
+    extra = {}
+    for model in PER_STEP_MODELS:
+        recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
+        if not recs:
+            continue
+        tag = model.replace("-", "_")
+        extra.update({f"{tag}_{key}_per_step": sum(
+            r[key] * r["launches_per_step"] for r in recs)
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")})
+        extra.update({f"{tag}_launches_per_step": sum(
+            r["launches_per_step"] for r in recs),
+            f"{tag}_route": "+".join(
+                sorted({r["kernel_route"] for r in recs}))})
+    alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
+    if k == "conv_block" and alex:
+        extra.update(alexnet_route="+".join(sorted(
+            {r["kernel_route"] for r in alex})),
+            alexnet_ms=sum(r["kernel_ms"] for r in alex),
+            alexnet_library_ms=sum(r["library_ms"] for r in alex),
+            alexnet_bound_ms=sum(r["bound_ms"] for r in alex))
+    if k == "conv_bwd_w":  # each layer of the step, library beside
+        for r in main:
+            layer = r["shape_of"].split(".")[1]
+            extra.update({f"{layer}_ms": r["kernel_ms"],
+                          f"{layer}_library_ms": r["library_ms"],
+                          f"{layer}_bound_ms": r["bound_ms"]})
+    if k == "matmul_block":
+        by_shape = {r["shape_of"]: r for r in mine}
+        tx_in = by_shape.get("transformer.input")
+        if tx_in:
+            extra.update(transformer_route=tx_in["kernel_route"],
+                         transformer_ms=tx_in["kernel_ms"],
+                         transformer_library_ms=tx_in["library_ms"])
+        # the embedding MLP's dense layer (one launch a step) and
+        # [semb-dp]'s, at a rank's half batch (one a step a rank)
+        for shape, tag in (("embedding-mlp.dense", "embedding_mlp"),
+                           ("semb-dp.dense", "semb_dp")):
+            if shape in by_shape:
+                extra.update({f"{tag}_{key}": by_shape[shape][key]
+                              for key in ("kernel_route", "kernel_ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms", "max_abs_err")})
+    cudnn = next((r for r in layers if r["shape_of"] == "charrnn"
+                  and r["n_in"] == CHAR_HIDDEN), None)
+    if k.startswith("lstm_seq") and cudnn:
+        side = k[-3:]  # fwd / bwd
+        extra.update(library_ms=cudnn[f"cudnn_{side}_ms"],
+                     **{f"port_{side}_ms": cudnn[f"port_{side}_ms"]})
+    if k == "lstm_cell":
+        extra["library_ms"] = None
+    return extra
+
+
+def main(argv=None) -> int:
+    # a fatal signal (a crash in native code) prints every thread's
+    # Python stack on stderr, so the phase it hit is named
+    faulthandler.enable(all_threads=True)
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[env] card: {card}")
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    print(f"[env] kernel build: {build_s:.2f} s "
+          f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.2f} s;"
+          f" 0 = library already built)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from collections import Counter
+
+    needed = None if phases is None else set(phases) | {
+        PHASE_NEEDS[t] for t in phases if t in PHASE_NEEDS}
+
+    def wanted(tag) -> bool:
+        return needed is None or tag in needed
+
+    if phases is not None:
+        print(f"[env] phases: {sorted(phases)} (with {sorted(needed)})")
+    records, half_records, layers = [], [], []
+    if wanted("kernels"):
+        kernel_checks(torch, F, records, half_records, layers)
+    print(f"[kernel-checks] phase "
+          f"{time.perf_counter() - t_start - build_s:.1f} s")
+
+    paths = {}  # {tag: the launches of its main path}
+
+    def phase(tag, fn, *args, default=None, **kw):
+        """``fn(torch, card, ...)``, its wall time printed; a phase not
+        selected returns ``default`` (no launches)."""
+        if not wanted(tag):
+            return Counter() if default is None else default
+        t0 = time.perf_counter()
+        out = fn(torch, card, *args, **kw)
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+        paths[tag] = summed_launches(out)
+        return out
+
+    phase("serve", serve_lenet)
+    phase("train", train_lenet)
+    phase("alexnet", run_alexnet)
+    phase("alexnet-train", run_alexnet_train, records)
+    ids, alphabet = survey_corpus()
+    phase("charrnn", run_charrnn, True, ids, alphabet)
+    phase("charrnn-seq", run_charrnn, False, ids, alphabet)
+    tokens = survey_bytes()
+    lm, _ = phase("transformer", run_transformer, tokens,
+                  default=(None, Counter()))
+    phase("transformer-twin", run_transformer_twin, tokens)
+    phase("transformer-sample", sample_transformer, lm, tokens, seed=7)
+    phase("transformer-long", run_transformer_long, lm, tokens, seed=8)
+    phase("vgg16", run_vgg16)
+    phase("conv-bn", run_conv_bn)
+    _, resnet_init, resnet_data = phase("resnet50", run_resnet50,
+                                        default=(Counter(), None, None))
+    phase("resnet50-dp", run_resnet50_dp, resnet_init, resnet_data)
+    del resnet_init, resnet_data
+    # half-precision training (each returns launches and variant counts)
+    half_paths = [phase("resnet50-bf16", run_resnet50_bf16,
+                        default=(Counter(), {})),
+                  phase("vgg16-bf16", run_vgg16_bf16,
+                        default=(Counter(), {})),
+                  phase("transformer-bf16", run_transformer_bf16, tokens,
+                        default=(Counter(), {})),
+                  phase("f16-loss-scale", run_f16_loss_scale, tokens,
+                        default=(Counter(), {}))]
+    phase("guard", run_guard)
+    phase("megastep", run_megastep)
+    # the training runtime (resume, preemption, prefetch, validation, the
+    # window, the trainer's megastep) under ResNet-50, and the rollback
+    phase("resnet50-runtime", run_resnet50_runtime)
+    phase("lenet-rollback", run_lenet_rollback)
+    # the scan path: device-cached chunks and the fused TBPTT scan, each
+    # against the per-step loop; then the observability around them
+    phase("lenet-cached", run_lenet_cached)
+    phase("vgg16-cached", run_vgg16_cached)
+    phase("charrnn-fused", run_charrnn_fused, True, ids)
+    phase("charrnn-seq-fused", run_charrnn_fused, False, ids)
+    phase("telemetry", run_telemetry)
+    # the elastic control plane under ResNet-50 and LeNet-5, the default
+    # fit of the large models, the serving tier, then the
+    # continuous-learning loop, early stopping and evaluate
+    for tag, fn, args in (("elastic-resnet50", run_elastic_resnet50, ()),
+                          ("elastic-storm", run_elastic_storm, ()),
+                          ("default-fit", run_default_fit, (tokens,)),
+                          ("fleet", run_fleet, ()),
+                          ("aot-restart", run_aot_restart, (build_s,)),
+                          ("loop", run_loop, ()),
+                          ("earlystop", run_earlystop, ()),
+                          ("evaluate", run_evaluate, ())):
+        phase(tag, fn, *args)
+    # the networks of the MoE / GoogLeNet / graph-RNN slice
+    for tag, fn, args in network_phases(records, tokens, ids):
+        phase(tag, fn, *args)
+    # the distribution slice's last raises: tensor parallelism, the ring
+    # and GPipe on one spawned world of two ranks, the cluster master here
+    world = [t for t in WORLD_PHASES if wanted(t)]
+    if world:
+        paths.update(run_rank_world(torch, card, records, lm, tokens, world))
+    phase("cluster", run_cluster)
+    if wanted("nlp"):
+        paths["nlp"] = summed_launches(run_nlp(torch, card))
+    # the row-sharded trainer on two ranks (after every phase that forms
+    # a world in this process)
+    phase("semb-dp", run_semb_dp)
+    half_variants = {}
+    for _, variants in half_paths:
+        for k, v in variants.items():
+            half_variants[k] = half_variants.get(k, 0) + v
+    kernels = kernels_line(records, half_records, layers, paths,
+                           half_variants)
+    if phases is None:  # every kernel launched and timed at its main path
+        names = {e["name"]: e for e in kernels}
+        want = list(KERNEL_TABLE) + [f"{k}[{v}]" for k, v, _, _ in HALF_TABLE]
+        short = [k for k in want if k not in names or not names[k]["launches"]
+                 or names[k]["ms"] is None]
+        if short:
+            raise RuntimeError(f"kernels not launched or not timed at "
+                               f"their main path: {short}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

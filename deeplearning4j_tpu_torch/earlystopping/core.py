@@ -8,7 +8,7 @@ Counterpart of ``deeplearning4j_tpu/earlystopping/core.py``: the same
 conditions, calculator, savers and loop over the port's engines, its
 ``ParallelWrapper`` and preemption check. ``LocalFileModelSaver``
 restores onto the device of the model it saved. The cluster flavour
-needs ``parallel/cluster.py``, which is not ported: it raises."""
+runs each epoch through a ``parallel/cluster.py`` training master."""
 
 from __future__ import annotations
 
@@ -390,12 +390,21 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
 
 class ClusterEarlyStoppingTrainer(EarlyStoppingTrainer):
     """Early stopping over cluster training (reference
-    ``spark/earlystopping/SparkEarlyStoppingTrainer.java``; JAX: each
-    epoch runs through a ``parallel/cluster.py`` TrainingMaster). That
-    module is not ported, so this trainer raises."""
+    ``spark/earlystopping/SparkEarlyStoppingTrainer.java``; JAX
+    ``ClusterEarlyStoppingTrainer``): each epoch runs through the
+    training master of ``parallel/cluster.py`` instead of per-batch
+    fitting."""
 
     def __init__(self, config: EarlyStoppingConfiguration, net,
                  training_master, train_data):
-        raise NotImplementedError(
-            "ClusterEarlyStoppingTrainer needs the cluster training "
-            "master of parallel/cluster.py, which is not ported yet")
+        super().__init__(config, net, train_data)
+        self.training_master = training_master
+
+    def _train_epoch(self):
+        self.training_master.execute_training(
+            self.model, self.train_iterator
+        )
+        for c in self.config.iteration_terminations:
+            if c.terminate(self.model.score_value):
+                return c
+        return None

@@ -166,20 +166,27 @@ def maybe_remat(fn: Callable, policy: str) -> Callable:
     return remat
 
 
-def reg_penalty(layer, layer_params):
+def reg_penalty(layer, layer_params, name: Optional[str] = None,
+                tp: Optional[dict] = None):
     """L1/L2 penalty for one layer (reference calcL1/calcL2), each
-    parameter's term the whole parameter's (``layer.whole_sum``)."""
+    parameter's term the whole parameter's (``layer.whole_sum``; a shard
+    of layer ``name`` under the model's tensor-parallel layout ``tp``:
+    summed over the model ranks)."""
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel
+
     reg = 0.0
     if layer.l1 > 0.0 or layer.l2 > 0.0:
         for pn in layer.regularizable_params():
             if pn in layer_params:
                 w = layer_params[pn]
+
+                def whole(term):
+                    term = layer.whole_sum(pn, w, term)
+                    return tensor_parallel.penalty_term(tp, name, pn, term)
                 if layer.l2 > 0.0:
-                    reg = reg + layer.whole_sum(
-                        pn, w, 0.5 * layer.l2 * torch.sum(w * w))
+                    reg = reg + whole(0.5 * layer.l2 * torch.sum(w * w))
                 if layer.l1 > 0.0:
-                    reg = reg + layer.whole_sum(
-                        pn, w, layer.l1 * torch.sum(torch.abs(w)))
+                    reg = reg + whole(layer.l1 * torch.sum(torch.abs(w)))
     return reg
 
 
@@ -212,7 +219,8 @@ def sequential_forward(conf, layer_names: Sequence[str],
                        x: torch.Tensor, *, train: bool = False,
                        rng=None, preout: bool = False,
                        fmask: Optional[torch.Tensor] = None,
-                       remat: str = "none", collect: bool = False):
+                       remat: str = "none", collect: bool = False,
+                       tp: Optional[dict] = None):
     """Forward through every layer of ``conf``; returns ``(y,
     new_state)``. ``y`` is the last layer's activation, or with
     ``preout`` its pre-activation when it carries a loss (what the
@@ -227,8 +235,13 @@ def sequential_forward(conf, layer_names: Sequence[str],
     precision; gradients flow back through the cast to the stored
     params). ``remat`` (training only) recomputes each layer's forward
     in the backward instead of keeping its activations
-    (``maybe_remat``; the recompute draws the same masks)."""
+    (``maybe_remat``; the recompute draws the same masks). ``tp`` is the
+    model's tensor-parallel layout (``model._tp_layout``), None where
+    nothing is sharded (``tensor_parallel.layer_params``)."""
     from deeplearning4j_tpu_torch.nn.conf.preprocessors import ShapeContext
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        layer_params,
+    )
 
     cdt = compute_dtype_of(conf)
     if cdt != dtype_of(conf):
@@ -259,22 +272,23 @@ def sequential_forward(conf, layer_names: Sequence[str],
 
             nxt = layer_names[i + 1]
             fused = maybe_fused_conv_bn(
-                layer, conf.layers[i + 1], params.get(name, {}),
+                layer, conf.layers[i + 1],
+                layer_params(tp, name, layer, params.get(name, {})),
                 params.get(nxt, {}), state.get(nxt, {}), x)
             if fused is not None:
                 x = fused
                 i += 2
                 continue
         lrng = layer_rng(rng, i, layer, train)
+        lp = layer_params(tp, name, layer, params.get(name, {}))
         if preout and i == n - 1 and layer.has_loss():
             xin = layer.maybe_dropout(x, train=train, rng=lrng)
-            pw = layer.maybe_drop_connect(params[name], train=train,
-                                          rng=lrng)
+            pw = layer.maybe_drop_connect(lp, train=train, rng=lrng)
             return layer.pre_output(pw, xin), new_state
         apply_one = maybe_remat(functools.partial(
             layer.apply, train=train, rng=lrng, mask=fmask),
             remat if train and not layer.has_loss() else "none")
-        x, new_state[name] = apply_one(params[name], x, state.get(name, {}))
+        x, new_state[name] = apply_one(lp, x, state.get(name, {}))
         if collect:
             acts.append(x)
         i += 1
@@ -287,14 +301,16 @@ def sequential_score(conf, layer_names: Sequence[str],
                      mask: Optional[torch.Tensor] = None, *,
                      train: bool, rng=None,
                      fmask: Optional[torch.Tensor] = None,
-                     weights=None, remat: str = "none"):
+                     weights=None, remat: str = "none",
+                     tp: Optional[dict] = None):
     """Loss score plus the L1/L2 penalty (the reference's
     computeGradientAndScore adds calcL1/calcL2 to the loss); returns
     ``(score, new_state)``. ``mask`` is the labels mask; for 3-d labels
     without one the features mask ``fmask`` masks the loss (the
     reference's output-layer masking). ``weights`` = ``([loss weight],
     penalty weight)`` scales the two terms (a data-parallel rank's share
-    of the global score); None: both 1. ``rng``: the step's key."""
+    of the global score); None: both 1. ``rng``: the step's key. ``tp``:
+    the model's tensor-parallel layout (``sequential_forward``)."""
     from deeplearning4j_tpu_torch.nn import losses
 
     last = conf.layers[-1]
@@ -303,14 +319,14 @@ def sequential_score(conf, layer_names: Sequence[str],
             "Last layer has no loss function; use an OutputLayer/LossLayer")
     preout, new_state = sequential_forward(
         conf, layer_names, params, state, x, train=train, rng=rng,
-        preout=True, fmask=fmask, remat=remat)
+        preout=True, fmask=fmask, remat=remat, tp=tp)
     if mask is None and labels.dim() == 3:
         mask = fmask
     score = losses.score(last.loss, labels, preout, last.activation, mask,
                          True)
     reg = 0.0
     for lname, layer in zip(layer_names, conf.layers):
-        reg = reg + reg_penalty(layer, params[lname])
+        reg = reg + reg_penalty(layer, params[lname], lname, tp)
     if weights is not None:
         (w_out,), w_reg = weights
         return score * w_out + reg * w_reg, new_state
@@ -1994,12 +2010,38 @@ def row_gather_trees(params, upd_state, layout):
     return params, upd
 
 
+def tp_gather_trees(params, upd_state, layout):
+    """Tensor-parallel shards back to whole parameters and moments
+    (``layout = {"mesh": mesh, "params": {layer: {param: (axis, shard
+    shape)}}}``, set by the distributed trainer), gathered over the
+    model ranks (every rank must call this, in lockstep). Returns new
+    ``(params, updater state)``; the other leaves are the same tensors."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        gather_whole,
+    )
+
+    mesh = layout["mesh"]
+    params = {ln: dict(lp) for ln, lp in params.items()}
+    upd = (None if upd_state is None else
+           {ln: dict(lp) for ln, lp in upd_state.items()})
+    for ln, entries in layout["params"].items():
+        for pn, (axis, _) in entries.items():
+            params[ln][pn] = gather_whole(params[ln][pn], axis, mesh)
+            if upd is not None and pn in upd.get(ln, {}):
+                upd[ln][pn] = tuple(gather_whole(a, axis, mesh)
+                                    for a in upd[ln][pn])
+    return params, upd
+
+
 def canonical_trees(model):
     """``(params, updater state)`` of ``model`` in the canonical,
-    replicated layout, without changing the model: a ZeRO-1 flat layout
-    and row-sharded tables gathered (collectives every rank joins). What
-    a checkpoint holds."""
+    replicated layout, without changing the model: a ZeRO-1 flat layout,
+    row-sharded tables and tensor-parallel shards gathered (collectives
+    every rank joins). What a checkpoint holds."""
     params, upd = model.params, model.updater_state
+    tp = getattr(model, "_tp_layout", None)
+    if tp:
+        params, upd = tp_gather_trees(params, upd, tp)
     rows = getattr(model, "_row_layout", None)
     if rows:
         params, upd = row_gather_trees(params, upd, rows)
@@ -2016,8 +2058,10 @@ def canonicalize_updater_state(model) -> None:
     trainer, back to parameter-shaped, whole trees, in place. A
     collective on more than one rank: the engines' ``fit`` and a new
     trainer call it on every rank."""
-    if getattr(model, "_zero_layout", None) or getattr(
-            model, "_row_layout", None):
+    if (getattr(model, "_zero_layout", None)
+            or getattr(model, "_row_layout", None)
+            or getattr(model, "_tp_layout", None)):
         model.params, model.updater_state = canonical_trees(model)
     model._zero_layout = None
     model._row_layout = None
+    model._tp_layout = None

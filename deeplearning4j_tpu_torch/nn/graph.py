@@ -115,6 +115,7 @@ class ComputationGraph(EngineApi):
         # {"shards", "rank", "layers"} while SparseEmbeddingLayer tables
         # hold this rank's rows only (the distributed trainer); None: whole
         self._row_layout = None
+        self._tp_layout = None
         # (shape, dtype) signatures of the inference forwards run, and
         # the input shapes of installed AOT artifacts (engine_api.py)
         self._output_signatures: set = set()
@@ -180,6 +181,7 @@ class ComputationGraph(EngineApi):
         self.updater_state = self.updater_def.init(self.params)
         self._zero_layout = None
         self._row_layout = None
+        self._tp_layout = None
         return self
 
     # ------------------------------------------------------------------
@@ -196,6 +198,10 @@ class ComputationGraph(EngineApi):
         ``fold_in(rng, i)`` (JAX ``lrng``).
         ``remat`` (training only) recomputes each layer vertex's forward
         in the backward (``core.maybe_remat``)."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            layer_params,
+        )
+
         conf = self.conf
         cdt = core.compute_dtype_of(conf)
         if cdt != core.dtype_of(conf):
@@ -225,7 +231,8 @@ class ComputationGraph(EngineApi):
                          if vmask.get(s) is not None), None)
             if isinstance(v, LayerVertex):
                 layer = v.layer_conf
-                vparams = params.get(name, {})
+                vparams = layer_params(self._tp_layout, name, layer,
+                                       params.get(name, {}))
                 lrng = core.layer_rng(rng, i, layer, train)
                 if preout and name in conf.outputs and layer.has_loss():
                     xin = layer.maybe_dropout(
@@ -282,7 +289,8 @@ class ComputationGraph(EngineApi):
                              else term * weights[0][i])
         reg = 0.0
         for n in self.layer_vertex_names:
-            reg = reg + core.reg_penalty(self._layer(n), params[n])
+            reg = reg + core.reg_penalty(self._layer(n), params[n], n,
+                                         self._tp_layout)
         if weights is not None:
             reg = reg * weights[1]
         return score + reg, new_state

@@ -32,9 +32,12 @@ mixture-of-experts FFN (``parallel/expert.py``'s ``moe_ffn``: top-1
 routing, per-call capacity, dispatch by slot index; its parameters
 ``router [d, E]``, ``w1 [E, d, h]``, ``b1``, ``w2 [E, h, d]``, ``b2``
 replace ``w_ff*`` / ``b_ff*``); its residual add stays a plain step, as
-in the JAX block. Not ported yet, and refused where a configuration asks
-for it: ring attention over a sequence-sharded mesh axis
-(``seq_axis``; the distribution slice). Training with a dropout rate drops the input of
+in the JAX block. With ``seq_axis`` and ``seq_axis_size > 1`` the layer
+reads its input as this rank's time shard of the sequence and attends
+through ``parallel/sequence.py``'s ``ring_attention`` over the seq mesh
+that ``build_seq_mesh`` installed in this process (without one it
+raises); the KV-cache branch comes first, as in the JAX layer. Training
+with a dropout rate drops the input of
 both blocks (``SelfAttentionLayer`` and ``TransformerBlock``, through
 ``LayerSpec.maybe_dropout``) with the JAX package's masks bit for bit
 (``nn/random.py``), as every layer does.
@@ -53,18 +56,10 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import LayerSpec, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops import matmul_block, mha
-from deeplearning4j_tpu_torch.parallel.sequence import neg_fill
+from deeplearning4j_tpu_torch.parallel.sequence import neg_fill, ring_attention
 
 _ATTN_PARAMS = ("Wq", "Wk", "Wv", "Wo", "bo")
 _MOE_PARAMS = ("router", "w1", "b1", "w2", "b2")
-
-
-def _refuse_ring(layer) -> None:
-    if layer.seq_axis and layer.seq_axis_size > 1:
-        raise NotImplementedError(
-            f"{type(layer).__name__}: ring attention over the sequence "
-            f"axis '{layer.seq_axis}' arrives with the distribution slice "
-            "(ROADMAP queue 1)")
 
 
 def _layer_norm(x, gamma, beta, eps: float):
@@ -93,9 +88,6 @@ class MultiHeadSelfAttention(LayerSpec):
     # most timesteps incremental decoding (rnn_time_step) can hold: the
     # KV cache is a fixed [b, h, kv_cache, hd] buffer
     kv_cache: int = 1024
-
-    def __post_init__(self):
-        _refuse_ring(self)
 
     def input_kind(self) -> str:
         return "recurrent"
@@ -189,6 +181,11 @@ class MultiHeadSelfAttention(LayerSpec):
         decoding = "k_cache" in state
         if decoding:
             o, state = self._decode(q, k, v, state)
+        elif self.seq_axis and self.seq_axis_size > 1:
+            # x is this rank's time shard of the sequence
+            o = ring_attention(q, k, v, axis_name=self.seq_axis,
+                               axis_size=self.seq_axis_size,
+                               causal=self.causal, mask=mask)
         else:
             o = mha(q, k, v, causal=self.causal, mask=mask)
         o = o.transpose(1, 2).reshape(b, t, h * hd)
@@ -215,9 +212,6 @@ class TransformerBlock(LayerSpec):
     seq_axis: str = ""
     seq_axis_size: int = 0
     kv_cache: int = 1024  # incremental-decode cache (see MHSA)
-
-    def __post_init__(self):
-        _refuse_ring(self)
 
     def input_kind(self) -> str:
         return "recurrent"

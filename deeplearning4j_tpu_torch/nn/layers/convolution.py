@@ -17,7 +17,11 @@ one ``conv_block`` launch whose epilogue takes that affine
 (``maybe_fused_conv_bn``). Under ``global_batch_statistics`` (the
 data-parallel trainer's ``batch_stats="sync"``) a training forward
 takes its statistics over every rank's rows. LRN is plain PyTorch (the
-JAX package has no kernel for it either).
+JAX package has no kernel for it either). A convolution handed a
+tensor-parallel shard of its out-channels (a ``ShardParams``, which
+carries the mesh), and its inference fold with a BatchNormalization,
+splits its product over the model ranks (``parallel/
+tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import LayerSpec, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops import SUPPORTED_EPILOGUES, conv_block
 from deeplearning4j_tpu_torch.ops.conv_block import _pair, conv_output_size
+from deeplearning4j_tpu_torch.parallel import tensor_parallel
 
 
 @register_layer
@@ -96,6 +101,10 @@ class ConvolutionLayer(LayerSpec):
         # carries the kernel's dW back through the mask
         params = self.maybe_drop_connect(params, train=train, rng=rng)
         act = self.activation.lower()
+        if tensor_parallel.holds_shard(params):
+            return tensor_parallel.conv(
+                self, params, x,
+                act if act in SUPPORTED_EPILOGUES else None), state
         if x.dim() == 4 and act in SUPPORTED_EPILOGUES:
             return conv_block(x, params["W"], params["b"],
                               stride=_pair(self.stride),
@@ -323,6 +332,8 @@ def maybe_fused_conv_bn(conv, bn, conv_params, bn_params, bn_state, x
     if act not in SUPPORTED_EPILOGUES:
         return None
     a, b = bn.folded_affine(bn_params, bn_state)
+    if tensor_parallel.holds_shard(conv_params):
+        return tensor_parallel.conv(conv, conv_params, x, act, a, b)
     return conv_block(x, conv_params["W"], conv_params["b"], a, b,
                       stride=_pair(conv.stride), padding=_pair(conv.padding),
                       activation=act)

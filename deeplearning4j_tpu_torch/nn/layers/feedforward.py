@@ -18,9 +18,17 @@ training (``LayerSpec.maybe_dropout`` / ``maybe_drop_connect``), and
 column of integer indices to rows of ``W`` (plus ``b``, then the
 activation); its gradient is autograd's indexed accumulate, which sums
 duplicate indices in a fixed order on the card. ``SparseEmbeddingLayer``
-is the same layer marked for row sharding: under a data-parallel world
-of more than one rank it raises until the trainer's row-sharded branch
-is ported (ROADMAP queue 1).
+is the same layer marked for row sharding: under ``DistributedTrainer``
+over more than one rank, rank ``i`` of ``N`` holds rows ``[i·V/N,
+(i+1)·V/N)`` of the table, the forward gathers the batch's rows from
+their owners and the backward scatters each row's gradient to its
+owner, both through ``parallel/row_exchange.py``. Its one raise is the
+check that a ``W`` holding fewer rows than ``n_in`` is one shard of the
+world it runs in. Under tensor parallelism (``parallel/
+tensor_parallel.py``) the engine hands a dense or output layer its
+column shard, and an ``EmbeddingLayer`` its row shard, as a
+``ShardParams`` that carries the mesh; they split their product over
+its model ranks.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops import SUPPORTED_EPILOGUES, matmul_block
+from deeplearning4j_tpu_torch.parallel import tensor_parallel
 
 
 @register_layer
@@ -54,6 +63,8 @@ class DenseLayer(FeedForwardLayerSpec):
         return {"W": w, "b": b}
 
     def pre_output(self, params, x):
+        if tensor_parallel.holds_shard(params):
+            return tensor_parallel.dense(self, params, x, "pre")
         return torch.addmm(params["b"], x, params["W"])
 
     def supports_drop_connect(self) -> bool:
@@ -63,6 +74,10 @@ class DenseLayer(FeedForwardLayerSpec):
         x = self.maybe_dropout(x, train=train, rng=rng)
         params = self.maybe_drop_connect(params, train=train, rng=rng)
         act = self.activation.lower()
+        if tensor_parallel.holds_shard(params):
+            return tensor_parallel.dense(
+                self, params, x,
+                act if act in SUPPORTED_EPILOGUES else None), state
         if x.dim() == 2 and act in SUPPORTED_EPILOGUES:
             return matmul_block(x, params["W"], params["b"],
                                 activation=act), state
@@ -167,7 +182,9 @@ class EmbeddingLayer(FeedForwardLayerSpec):
 
     def apply(self, params, x, state, *, train=False, rng=None, mask=None):
         idx = x.reshape(-1).long()
-        return self.activate_fn()(params["W"][idx] + params["b"]), state
+        rows = (tensor_parallel.lookup(params, idx)
+                if tensor_parallel.holds_shard(params) else params["W"][idx])
+        return self.activate_fn()(rows + params["b"]), state
 
 
 @register_layer

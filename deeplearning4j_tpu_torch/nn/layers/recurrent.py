@@ -19,6 +19,15 @@ configuration alone, as the JAX package's ``_lstm_scan`` does
   around it: masked steps carry h and c through and output zeros;
 - any other activation: the plain per-step math, on either device.
 A CPU tensor takes each kernel's plain version.
+
+Under tensor parallelism (``DistributedTrainer(tensor_parallel=True)``)
+``W``, ``RW``, ``WF``, ``WB``, ``RWF`` and ``RWB`` are split by columns
+over the model ranks, as in the JAX trainer. A recurrence needs every
+gate at every step, so the engine gathers the whole weights before the
+layer (``parallel/tensor_parallel.py`` ``layer_params``), the unchanged
+kernels run, and each rank keeps its columns of the weights' gradients:
+the compute is replicated over the model ranks, the parameters and the
+updater state are not.
 """
 
 from __future__ import annotations

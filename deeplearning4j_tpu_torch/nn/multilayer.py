@@ -110,6 +110,7 @@ class MultiLayerNetwork(EngineApi):
         # {"shards", "rank", "layers"} while SparseEmbeddingLayer tables
         # hold this rank's rows only (the distributed trainer); None: whole
         self._row_layout = None
+        self._tp_layout = None
         # rnn_time_step's carried state (the reference's stateMap)
         self._rnn_state: Dict[str, dict] = {}
         self._stream_steps = 0
@@ -164,6 +165,7 @@ class MultiLayerNetwork(EngineApi):
         self.updater_state = self.updater_def.init(self.params)
         self._zero_layout = None
         self._row_layout = None
+        self._tp_layout = None
         return self
 
     # -- inference ---------------------------------------------------------
@@ -187,7 +189,7 @@ class MultiLayerNetwork(EngineApi):
                 self.conf, self.layer_names, self.params, self.state, xt,
                 train=train, fmask=fm,
                 rng=core.step_rng(self, self.iteration_count)
-                if train else None)
+                if train else None, tp=self._tp_layout)
             return y
 
     def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
@@ -200,7 +202,7 @@ class MultiLayerNetwork(EngineApi):
             acts, _ = core.sequential_forward(
                 self.conf, self.layer_names, self.params, self.state,
                 self._to_device(x, core.dtype_of(self.conf)), train=train,
-                collect=True,
+                collect=True, tp=self._tp_layout,
                 rng=random.host_key(self.conf.seed) if train else None)
         return acts
 
@@ -259,7 +261,8 @@ class MultiLayerNetwork(EngineApi):
                 self.conf, self.layer_names, self.params, self.state,
                 self._to_device(x, dtype), self._to_device(labels, dtype),
                 self._maybe_to_device(mask, dtype), train=False,
-                fmask=self._maybe_to_device(fmask, dtype))
+                fmask=self._maybe_to_device(fmask, dtype),
+                tp=self._tp_layout)
         return float(s)
 
     def _maybe_to_device(self, a, dtype) -> Optional[torch.Tensor]:
@@ -313,7 +316,7 @@ class MultiLayerNetwork(EngineApi):
                                      state, x, labels, mask, train=train,
                                      fmask=fmask, weights=weights,
                                      remat=self.remat if train else "none",
-                                     rng=rng)
+                                     rng=rng, tp=self._tp_layout)
 
     def recurrent_names(self) -> List[str]:
         return [n for n, layer in zip(self.layer_names, self.conf.layers)
@@ -665,7 +668,7 @@ class MultiLayerNetwork(EngineApi):
                 self, named, int(xt.shape[2]), int(xt.shape[0]),
                 lambda state: core.sequential_forward(
                     self.conf, self.layer_names, self.params, state, xt,
-                    train=False))
+                    train=False, tp=self._tp_layout))
         return out[:, :, 0] if squeeze else out
 
     def rnn_clear_previous_state(self) -> None:

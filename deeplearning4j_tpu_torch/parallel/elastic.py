@@ -385,6 +385,7 @@ class SnapshotRing:
         # gone until the next trainer re-places (and re-shards) state
         model._zero_layout = None
         model._row_layout = None
+        model._tp_layout = None
         model.iteration_count = snap["step"]
         model.epoch_count = snap["epoch"]
         return snap

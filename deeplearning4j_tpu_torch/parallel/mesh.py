@@ -26,7 +26,16 @@ counters in the file and a second one over it would not meet its
 peers. The host-loss cycle is ``shutdown_distributed`` (the group is
 aborted, never waited on: a dead peer cannot block it) and
 ``reform_distributed(plan)`` over the control plane's fresh rendezvous.
-Tensor parallelism (a ``model`` axis above 1) is not in this slice.
+
+``build_mesh(data, model)`` lays the world out as the JAX package's
+row-major ``reshape(data, model)``: rank ``r`` sits at ``(r // model, r
+% model)``. Its ``data_group`` is the ranks that share its model index
+(the gradient all-reduce's group), its ``model_group`` the ranks that
+share its data index (tensor parallelism's gathers and sums,
+``parallel/tensor_parallel.py``). Every rank forms every group, in one
+order. On a gloo group of CUDA tensors a gather is the all-reduce of
+zero-filled buffers (``row_exchange.stack_ranks``); on NCCL it is
+``all_gather_into_tensor``: the choice follows the group's backend.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import logging
 import math
 import os
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -52,19 +61,34 @@ _world = {"device": None, "named_backend": False, "init_method": None}
 
 @dataclass(frozen=True)
 class Mesh:
-    """The data-parallel group: ``data`` ranks (the ``model`` axis is
-    always 1), this process's ``rank`` and ``device``, and the collective
+    """The ``(data, model)`` layout of the world: ``data`` x ``model``
+    ranks, this process's ``rank`` and ``device``, the collective
     ``backend`` (None for a world of one process that never formed a
-    group: its collectives are the identity)."""
+    group: its collectives are the identity), and this rank's
+    ``data_group`` / ``model_group`` (None: the default group, which is
+    the axis's whole group where the other axis is 1)."""
 
     data: int
     rank: int
     device: torch.device
     backend: Optional[str]
+    model: int = 1
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data, "model": 1}
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def data_index(self) -> int:
+        """This rank's position on the data axis (its row shard)."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's position on the model axis (its weight shard)."""
+        return self.rank % self.model
 
 
 def _world_backend(dev: torch.device, backend: Optional[str]) -> str:
@@ -200,18 +224,33 @@ def init_distributed_elastic(rendezvous: str, num_processes: int,
                             timeout_s=timeout_s, policy=policy)
 
 
+def _axis_groups(data: int, model: int):
+    """``(data group, model group)`` of this rank: every rank forms every
+    group of both axes, in one order (``dist.new_group`` is a collective
+    of the whole world)."""
+    rank = dist.get_rank()
+    data_group = model_group = None
+    for j in range(model):
+        g = dist.new_group([i * model + j for i in range(data)])
+        if rank % model == j:
+            data_group = g
+    for i in range(data):
+        g = dist.new_group([i * model + j for j in range(model)])
+        if rank // model == i:
+            model_group = g
+    return data_group, model_group
+
+
 def build_mesh(data: Optional[int] = None, model: int = 1,
                device: Union[str, torch.device, None] = None) -> Mesh:
-    """The data-parallel mesh over the initialised world (all ranks on
-    the ``data`` axis, the reference's only mode). Without an
-    initialised world it is a mesh of this one process (``device``:
-    the model's). ``data`` must equal the world size where given;
-    ``model > 1`` raises (tensor parallelism is not in this slice)."""
-    if int(model) != 1:
-        raise NotImplementedError(
-            "build_mesh: a model axis (tensor parallelism) is not ported "
-            "yet (ROADMAP queue 1: the distribution slice's tensor "
-            "parallelism)")
+    """The ``(data, model)`` mesh over the initialised world (JAX
+    ``build_mesh``: by default every rank on the ``data`` axis, the
+    reference's only mode). Without an initialised world it is a mesh of
+    this one process (``device``: the model's). ``data * model`` must
+    equal the world size; rank ``r`` sits at ``(r // model, r %
+    model)``. With ``model > 1`` every rank must call this (it forms the
+    axes' groups)."""
+    model = int(model)
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         backend = dist.get_backend()
@@ -222,10 +261,19 @@ def build_mesh(data: Optional[int] = None, model: int = 1,
     else:
         world, rank, backend = 1, 0, None
         dev = torch.device("cpu" if device is None else device)
-    if data is not None and int(data) != world:
+    if data is None:
+        if world % model != 0:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"model={model}")
+        data = world // model
+    data = int(data)
+    if data * model != world:
         raise ValueError(f"data({data}) x model({model}) != world size "
                          f"({world}): one rank drives one device")
-    return Mesh(data=world, rank=rank, device=dev, backend=backend)
+    groups = (_axis_groups(data, model) if model > 1 and backend
+              else (None, None))
+    return Mesh(data=data, rank=rank, device=dev, backend=backend,
+                model=model, data_group=groups[0], model_group=groups[1])
 
 
 def backend_named() -> bool:

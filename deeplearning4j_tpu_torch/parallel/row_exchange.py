@@ -46,18 +46,20 @@ def world() -> Tuple[int, int]:
     return 1, 0
 
 
-def stack_ranks(local: torch.Tensor, n: int, rank: int) -> torch.Tensor:
+def stack_ranks(local: torch.Tensor, n: int, rank: int,
+                group=None) -> torch.Tensor:
     """Every rank's ``local`` (the same shape and dtype on each rank)
     as one ``[n, *local.shape]`` tensor on every rank: slot ``rank``
     written here, the others ``-0.0`` (0 for integers), one
-    ``all_reduce`` sums. Exact (module docstring)."""
+    ``all_reduce`` over ``group`` (default: the default group; ``n``
+    and ``rank`` are within it) sums. Exact (module docstring)."""
     if n == 1:
         return local.unsqueeze(0)
     fill = -0.0 if local.is_floating_point() else 0
     buf = torch.full((n, *local.shape), fill, dtype=local.dtype,
                      device=local.device)
     buf[rank] = local
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     return buf
 
 
@@ -67,22 +69,24 @@ class _SumRanks(torch.autograd.Function):
     is the sum of the ranks' weighted losses)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def sum_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks of the default group, on every rank;
-    its gradient is the ranks' gradients summed (``_SumRanks``)."""
-    return _SumRanks.apply(t)
+def sum_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (default: the default
+    group), on every rank; its gradient is the ranks' gradients summed
+    (``_SumRanks``)."""
+    return _SumRanks.apply(t, group)
 
 
 def _owned_rows(shard: torch.Tensor, ids: torch.Tensor, rank: int):

@@ -74,8 +74,24 @@ model. The global tracer gets a ``train.fit`` span with a
 ``train.epoch`` child an epoch, the active step profiler a record a
 step (parented on the epoch's span), and ``enable_step_telemetry``
 makes the step also return the global gradient's norm (after the
-all-reduce, on the device), as in the JAX trainer. Tensor parallelism
-is not ported and raises.
+all-reduce, on the device), as in the JAX trainer.
+
+``tensor_parallel=True`` over a mesh with a ``model`` axis
+(``build_mesh(data, model)``) splits every parameter the JAX trainer's
+``default_partition_rules`` split (``parallel/tensor_parallel.py``;
+replicated where the axis does not divide, silently, as in JAX) and its
+updater moments alike; the layers split their products over the model
+ranks with explicit collectives, so a step equals the replicated step up
+to the order of its sums. The gradient and score all-reduce runs over
+the data group only; the global norms (the guard's and telemetry's,
+gradient normalization's) and the L1/L2 penalty sum the shards' terms
+over the model group; every model rank draws the same dropout masks
+(the rows of its data index). A save gathers the shards, so the file is
+a replicated run's; a restore re-shards at the new mesh. The JAX
+trainer's refusals hold: ``zero=True`` and ``batch_stats="local"`` with
+tensor parallelism. Not in this slice, and refused with a message: a
+megastep chunk under tensor parallelism, drop-connect (its mask is drawn
+on the whole weight) and a ``SparseEmbeddingLayer`` (ROADMAP).
 """
 
 from __future__ import annotations
@@ -145,11 +161,16 @@ class DistributedTrainer:
         if batch_stats not in ("auto", "sync", "local"):
             raise ValueError(
                 f"batch_stats must be auto|sync|local, got {batch_stats!r}")
-        if tensor_parallel:
-            raise NotImplementedError(
-                "tensor_parallel: tensor parallelism is not ported yet "
-                "(ROADMAP queue 1: the distribution slice's tensor "
-                "parallelism)")
+        if batch_stats == "local" and tensor_parallel:
+            raise ValueError(
+                "batch_stats='local' is incompatible with "
+                "tensor_parallel=True: sharded weights need the GSPMD "
+                "step, which computes global (sync) batch statistics")
+        if zero and tensor_parallel:
+            raise ValueError(
+                "zero=True shards optimizer state over the data axis; "
+                "tensor_parallel=True already shards it with the "
+                "params — combining the two layouts is not supported")
         if zero and batch_stats == "local":
             raise ValueError(
                 "zero=True needs the synchronous step; batch_stats='local' "
@@ -166,6 +187,7 @@ class DistributedTrainer:
         self._check_device()
         self.batch_stats = batch_stats
         self.zero = bool(zero)
+        self.tensor_parallel = bool(tensor_parallel) and self.mesh.model > 1
         if (self.zero and self.mesh.data > 1 and self.mesh.backend == "gloo"
                 and model.device.type == "cuda"):
             raise ValueError(
@@ -182,6 +204,9 @@ class DistributedTrainer:
         self._row_layers = self._plan_row_sharding()
         if self._row_layers:
             self._shard_rows()
+        self._tp_layout = self._plan_tensor_parallel()
+        if self._tp_layout:
+            self._shard_tensor_parallel()
         if self.zero:
             self._shard_updater_state()
         self._publish_updater_bytes()
@@ -247,6 +272,63 @@ class DistributedTrainer:
                 out.append(lname)
         return out
 
+    def _plan_tensor_parallel(self) -> Optional[dict]:
+        """``{"mesh": mesh, "params": {layer: {param: (axis, shard
+        shape)}}}`` of the parameters the partition rules split over the
+        model axis (JAX ``_spec_for``), or None without tensor
+        parallelism."""
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            SparseEmbeddingLayer,
+        )
+        from deeplearning4j_tpu_torch.parallel import tensor_parallel
+
+        if not self.tensor_parallel:
+            return None
+        n = self.mesh.model
+        plan = {}
+        for lname, lc in core.named_layer_confs(self.model):
+            if isinstance(lc, SparseEmbeddingLayer):
+                raise NotImplementedError(
+                    f"SparseEmbeddingLayer {lname!r} under "
+                    "tensor_parallel=True: its rows shard over the data "
+                    "axis; the two layouts together are not ported "
+                    "(ROADMAP)")
+            if lc.dropout > 0.0 and getattr(lc, "drop_connect", False):
+                raise NotImplementedError(
+                    f"layer {lname!r}: drop-connect under "
+                    "tensor_parallel=True (its mask is drawn on the whole "
+                    "weight) is not ported (ROADMAP)")
+            for pn, p in self.model.params.get(lname, {}).items():
+                axis = tensor_parallel.spec_for(lc, pn, p.shape, n)
+                if axis is None:
+                    continue
+                shape = list(p.shape)
+                shape[axis] //= n
+                plan.setdefault(lname, {})[pn] = (axis, tuple(shape))
+        return {"mesh": self.mesh, "params": plan}
+
+    def _shard_tensor_parallel(self) -> None:
+        """Keep this rank's shard of every split parameter and of its
+        updater moments; the model is marked ``_tp_layout``, which its
+        forward hands to the layers (``canonicalize_updater_state`` and
+        a save gather it back)."""
+        from deeplearning4j_tpu_torch.parallel import tensor_parallel
+
+        m, mesh = self.model, self.mesh
+        for ln, entries in self._tp_layout["params"].items():
+            for pn, (axis, _) in entries.items():
+                m.params[ln][pn] = tensor_parallel.shard_of(
+                    m.params[ln][pn], axis, mesh)
+                if pn in m.updater_state.get(ln, {}):
+                    m.updater_state[ln][pn] = tuple(
+                        tensor_parallel.shard_of(a, axis, mesh)
+                        for a in m.updater_state[ln][pn])
+        m._tp_layout = self._tp_layout
+
+    def _tp_sharded(self, ln: str, pn: str) -> bool:
+        return bool(self._tp_layout) and pn in self._tp_layout[
+            "params"].get(ln, {})
+
     def _shard_rows(self) -> None:
         """Keep this rank's rows of each row-sharded ``W`` and of its
         updater moments, nothing else of them; the model is marked
@@ -283,7 +365,7 @@ class DistributedTrainer:
     def _broadcast_model(self) -> None:
         """Rank 0's parameters, layer state and updater state to every
         rank (the reference's broadcast step, done once), in place."""
-        if not self._collective or self.mesh.data == 1:
+        if not self._collective or self.mesh.data * self.mesh.model == 1:
             return
         m = self.model
         leaves = (self._leaves(m.params) + self._leaves(m.state)
@@ -417,7 +499,7 @@ class DistributedTrainer:
         """This rank's rows of a ``batch_n`` batch: for each of the ``k``
         microbatches (global rows ``[j·b/k, (j+1)·b/k)``) its contiguous
         shard."""
-        n, r = self.mesh.data, self.mesh.rank
+        n, r = self.mesh.data, self.mesh.data_index
         m = batch_n // (k * n)
         return [np.arange(j * batch_n // k + r * m,
                           j * batch_n // k + (r + 1) * m) for j in range(k)]
@@ -463,7 +545,8 @@ class DistributedTrainer:
         """The JAX trainer's ``_pick_shard_map``: per-rank statistics and
         losses where asked, or under ``"auto"`` where they equal the
         global ones."""
-        if (self.zero or self.model.grad_accum > 1
+        if (self.zero or self.tensor_parallel
+                or self.model.grad_accum > 1
                 or core.loss_scale_active(self.model)
                 or self._sg_config() is not None):
             # loss-scale and EWMA state ride the synchronous step
@@ -613,7 +696,7 @@ class DistributedTrainer:
         leaves = g_leaves + [score.reshape(1)] + s_leaves
         dt = _common_dtype(leaves)
         flat = torch.cat([t.reshape(-1).to(dt) for t in leaves])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.mesh.data_group)
         off = 0
 
         def take(t):
@@ -634,31 +717,44 @@ class DistributedTrainer:
                      for ln, st in state.items()}
         return grads, score, state
 
+    def _is_shard(self, ln: str, pn: str) -> bool:
+        """True for a row-sharded table's ``W`` and a tensor-parallel
+        shard."""
+        return ((pn == "W" and ln in self._row_layers)
+                or self._tp_sharded(ln, pn))
+
+    @property
+    def _shard_group(self):
+        """The group a shard's terms sum over: the model ranks under
+        tensor parallelism, else (row-sharded tables) every rank."""
+        return self.mesh.model_group if self._tp_layout else None
+
     def _norm_sq(self, grads) -> torch.Tensor:
-        """The squared global norm of the gradients where tables are
-        row-sharded: the replicated leaves' (the same on every rank)
-        plus the shards' squares summed over the ranks."""
+        """The squared global norm of the gradients where parameters are
+        sharded: the replicated leaves' (the same on every rank) plus the
+        shards' squares summed over the shards' ranks."""
         from deeplearning4j_tpu_torch.resilience.guard import (
             grad_global_norm_sq,
         )
 
         rest = {ln: {pn: g for pn, g in lg.items()
-                     if not (pn == "W" and ln in self._row_layers)}
+                     if not self._is_shard(ln, pn)}
                 for ln, lg in grads.items()}
         shards = grad_global_norm_sq(
-            [grads[ln]["W"] for ln in self._row_layers]).reshape(1)
-        dist.all_reduce(shards)
+            [g for ln, lg in grads.items() for pn, g in lg.items()
+             if self._is_shard(ln, pn)]).reshape(1)
+        dist.all_reduce(shards, group=self._shard_group)
         return grad_global_norm_sq(rest) + shards[0]
 
     def _row_update(self, grads, params, upd_state, lrs, t):
-        """The updater's rule where tables are row-sharded: a gradient
-        normalization's norms sum a shard's squares over the ranks."""
+        """The updater's rule where parameters are sharded: a gradient
+        normalization's norms sum a shard's squares over its ranks."""
         from deeplearning4j_tpu_torch.parallel.row_exchange import sum_ranks
 
         def sq(ln, pn, g):
             s = torch.sum(g * g)
-            return (sum_ranks(s) if pn == "W" and ln in self._row_layers
-                    else s)
+            return (sum_ranks(s, self._shard_group)
+                    if self._is_shard(ln, pn) else s)
 
         return self.model.updater_def.update(grads, upd_state, params, lrs,
                                              t, sq=sq)
@@ -723,13 +819,14 @@ class DistributedTrainer:
 
     def _build_step(self, local: bool):
         m = self.model
-        k, n, rank = int(m.grad_accum), self.mesh.data, self.mesh.rank
+        k, n, rank = int(m.grad_accum), self.mesh.data, self.mesh.data_index
         n_out = len(m.conf.outputs) if self._is_graph else 1
         guarded = self.divergence_guard is not None
         sg_cfg = self._sg_config()
         ls_on = core.loss_scale_active(m)
         telemetry = m._telemetry_grad_norm
         recurrent = m.recurrent_names()
+        sharded = bool(self._row_layers or self._tp_layout)
 
         def unpack(weights):
             if not torch.is_tensor(weights):
@@ -775,7 +872,8 @@ class DistributedTrainer:
 
             # sync statistics over a group; one process's batch is global
             ctx = (contextlib.nullcontext() if local or not self._collective
-                   else global_batch_statistics(sum_ranks, n))
+                   else global_batch_statistics(functools.partial(
+                       sum_ranks, group=self.mesh.data_group), n))
             with ctx:
                 if k > 1:
                     (score, new_state), grads = core.accum_grad_step(
@@ -795,8 +893,8 @@ class DistributedTrainer:
                         if self.zero else
                         functools.partial(self._row_update, params=params,
                                           upd_state=upd_state, lrs=lrs, t=t)
-                        if self._row_layers else None), telemetry=telemetry,
-                norm_sq=self._norm_sq if self._row_layers else None)
+                        if sharded else None), telemetry=telemetry,
+                norm_sq=self._norm_sq if sharded else None)
 
         return step
 
@@ -807,7 +905,8 @@ class DistributedTrainer:
                       "layers": list(self._row_layers)}
                      if self._row_layers else None)
         if ((self.zero and m._zero_layout != {"shards": self.mesh.data})
-                or getattr(m, "_row_layout", None) != want_rows):
+                or getattr(m, "_row_layout", None) != want_rows
+                or getattr(m, "_tp_layout", None) is not self._tp_layout):
             # the engine's own fit (or a restore) made the trees whole
             # in between
             core.canonicalize_updater_state(m)
@@ -815,6 +914,8 @@ class DistributedTrainer:
                 self._shard_rows()
             if self.zero:
                 self._shard_updater_state()
+            if self._tp_layout:
+                self._shard_tensor_parallel()
 
     def fit_minibatch(self, ds, _window=None) -> torch.Tensor:
         """One synchronous data-parallel step on the global minibatch
@@ -868,11 +969,21 @@ class DistributedTrainer:
         g = self.divergence_guard
         if g is not None and g.policy == ROLLBACK:
             return False
+        if self.tensor_parallel and core.can_megastep(self.model):
+            self._refuse_chunk()
         return core.can_megastep(self.model)
+
+    def _refuse_chunk(self) -> None:
+        raise NotImplementedError(
+            "a megastep chunk under tensor_parallel=True is not ported "
+            "(ROADMAP: tensor parallelism inside a megastep or scan "
+            "chunk); fit per step (megastep=1)")
 
     def _launch_chunk(self, chunk, feed):
         """One placed block through ``feed`` (``core.MegastepFeed``) as a
         chunk of this trainer's step."""
+        if self.tensor_parallel:
+            self._refuse_chunk()
         self._check_zero_layout()
         c = core.prestacked_chunk(self.model, chunk)
         feed.run(c, step=self._step_for(chunk.local),

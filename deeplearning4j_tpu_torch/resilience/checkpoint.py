@@ -1286,10 +1286,12 @@ def restore_into(model, source, load_updater: bool = True):
             "checkpoint configuration does not match this model — "
             "restore into a fresh model via CheckpointManager.restore_"
             "latest()/restore_model() instead")
-    if getattr(model, "_row_layout", None):
-        # the file's trees are whole: a row-sharded table's moments are
-        # gathered too (every rank restores), and the next trainer
-        # re-shards at whatever width its world has
+    if getattr(model, "_row_layout", None) or getattr(
+            model, "_tp_layout", None):
+        # the file's trees are whole: a row-sharded table's (or a
+        # tensor-parallel shard's) moments are gathered too (every rank
+        # restores), and the next trainer re-shards at whatever width
+        # its world has
         from deeplearning4j_tpu_torch.nn import core
 
         core.canonicalize_updater_state(model)

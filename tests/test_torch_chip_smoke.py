@@ -128,3 +128,71 @@ def test_network_phase_shapes_and_configurations():
     ds = cs.conv_lstm_batches(1, 2, seed=3)[0]
     assert ds.features.shape == (2, 784, cs.CONV_LSTM_T)
     assert ds.labels.shape == (2 * cs.CONV_LSTM_T, 10)
+
+
+def test_phase_selector_and_the_selected_kernels_line():
+    """``--phases`` names the phases of a run (none: every phase); the
+    one kernels line of any run lists the kernels its phases launched,
+    summed and by path, with the main path's times where the run made
+    their records (null where not) and the per-step keys of the records
+    it made."""
+    assert cs.parse_phases([]) is None
+    assert cs.parse_phases(["--phases", "gpipe, cluster"]) == {"gpipe",
+                                                                "cluster"}
+    paths = {"gpipe": {"matmul_block": 30, "conv_block": 0},
+             "cluster": {"conv_block": 320, "matmul_block": 92},
+             "transformer": cs.summed_launches(
+                 (None, {"flash_attention": 240},
+                  [{"flash_attention": 1}]))}
+    assert paths["transformer"] == {"flash_attention": 241}
+    rec = {"kernel": "matmul_block", "shape_of": "gpipe.stage",
+           "kernel_route": "tiled", "launches_per_step": 2,
+           "max_abs_err": 1e-6, "kernel_ms": 0.5, "plain_ms": 0.25,
+           "bound_ms": 0.125, "bound_by": "operations", "library_ms": 0.375}
+    line = {k["name"]: k for k in cs.kernels_line([rec], [], [], paths, {})}
+    assert set(line) == {"matmul_block", "conv_block", "flash_attention"}
+    mm = line["matmul_block"]
+    assert mm["launches"] == 122
+    assert mm["launches_by_path"] == {"gpipe": 30, "cluster": 92}
+    assert mm["ms"] is None and mm["bound_by"] is None
+    assert (mm["gpipe_kernel_ms_per_step"], mm["gpipe_bound_ms_per_step"],
+            mm["gpipe_library_ms_per_step"]) == (1.0, 0.25, 0.75)
+    assert line["conv_block"]["ms"] is None
+    assert line["flash_attention"]["replaces"].endswith(
+        "flash_attention.py:32")
+    # a record of the main path's shape gives the contract's times
+    main = dict(rec, shape_of="lenet.dense", launches_per_step=1,
+                kernel_ms=0.125)
+    mm = {k["name"]: k for k in cs.kernels_line(
+        [rec, main], [], [], paths, {})}["matmul_block"]
+    assert (mm["ms"], mm["bound_ms"], mm["bound_by"],
+            mm["kernel_route"]) == (0.125, 0.125, "operations", "tiled")
+    assert cs.network_launches("conv_block", {
+        "cluster": {"conv_block": 320}, "fleet": {"conv_block": 3}},
+        cs.NEW_PATHS) == {"cluster": 320}
+
+
+def test_tensor_parallel_shapes_are_alexnets_halves():
+    """[alexnet-tp]'s [kernel] shapes: each conv at half its
+    out-channels, each dense layer at half its columns, the softmax
+    head's product at 500 columns with the identity epilogue."""
+    shapes = cs.alexnet_tp_shapes()
+    convs = [g["w"][0] for n, k, g, _ in shapes if k == "conv_block"]
+    assert convs == [48, 128, 192, 192, 128]
+    dense = [(g["k"], g["n"], g["activation"]) for n, k, g, _ in shapes
+             if k == "matmul_block"]
+    assert dense == [(9216, 2048, "relu"), (4096, 2048, "relu"),
+                     (4096, 500, "identity")]
+    assert sum(k == "conv_bwd_data" for _, k, _, _ in shapes) == 4
+
+
+def test_cluster_phase_rehearses_on_cpu(capsys):
+    """``[cluster]`` on the plain path: the master's 4 rounds against one
+    machine, the sharded evaluate, early stopping for 3 epochs."""
+    launches = cs.run_cluster(torch, "cpu", device="cpu")
+    assert not any(launches.values())
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[cluster] {"))
+    res = json.loads(line[len("[cluster] "):line.rindex(" card=")])
+    assert res["max_share_of_move"] <= cs.CLUSTER_SHARE
+    assert res["early_stopping"]["epochs"] == cs.CLUSTER_ES_EPOCHS

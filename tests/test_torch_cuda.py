@@ -16,6 +16,7 @@ about 5e-5 of the scale).
 """
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -2986,3 +2987,136 @@ def test_conv_lstm_step_on_the_card_matches_the_cpu_twin(cuda):
             counts["lstm_cell"]) == (2, 1, 5)
     np.testing.assert_allclose(net.score_value, twin.score_value, rtol=1e-4)
     assert net.output(ds.features).shape == (15, 4)
+
+
+# -- tensor parallelism, the ring and GPipe on the card -------------------
+
+# Two gloo ranks on one card (NCCL refuses two ranks a device): a narrow
+# LeNet under tensor parallelism (model=2) against one process on the
+# card, ring attention (seq 2) against the plain attention, and a
+# two-stage GPipe of dense-kernel stages against their serial
+# composition. Rank 0 computes the references.
+_CARD_WORLD = r"""
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn import core
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.ops import dispatch, matmul_block
+from deeplearning4j_tpu_torch.parallel import (
+    DistributedTrainer, GPipe, attention, build_mesh, build_pipe_mesh,
+    build_seq_mesh, ring_attention)
+from deeplearning4j_tpu_torch.zoo import lenet
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+rng = np.random.RandomState(0)
+x = torch.from_numpy(rng.rand(16, 256).astype(np.float32)).cuda()
+y = torch.from_numpy(np.eye(4, dtype=np.float32)[rng.randint(0, 4, 16)]).cuda()
+conf = lenet(height=16, width=16, n_classes=4, dense_width=64,
+             updater="SGD", learning_rate=0.1)
+if RANK == 0:
+    one = MultiLayerNetwork(conf, device="cuda").init()
+    for _ in range(3):
+        one.fit_minibatch(DataSet(x, y))
+    for ln, lp in one.params.items():
+        for pn, t in lp.items():
+            OUT[f"one:{ln}/{pn}"] = t.cpu().numpy()
+net = MultiLayerNetwork(conf, device="cuda").init()
+tr = DistributedTrainer(net, mesh=build_mesh(data=1, model=2),
+                        tensor_parallel=True)
+dispatch.reset_launch_counts()
+OUT["tp_scores"] = np.asarray([float(tr.fit_minibatch(DataSet(x, y)))
+                               for _ in range(3)])
+OUT["tp_launches"] = np.asarray(json.dumps(dispatch.launch_counts()))
+for ln, lp in core.canonical_trees(net)[0].items():
+    for pn, t in lp.items():
+        OUT[f"tp:{ln}/{pn}"] = t.cpu().numpy()
+# the ring: q, k, v [1, 2, 64, 16], each rank its 32 positions
+q, k, v = (torch.from_numpy(rng.randn(1, 2, 64, 16).astype(np.float32))
+           .cuda() for _ in range(3))
+build_seq_mesh(data=1, seq=2)
+rows = slice(RANK * 32, (RANK + 1) * 32)
+mine = [t[:, :, rows].clone().requires_grad_() for t in (q, k, v)]
+out = ring_attention(*mine, axis_name="seq", axis_size=2, causal=True)
+(out ** 2).sum().backward()
+OUT["ring"] = out.detach().cpu().numpy()
+for name, t in zip("qkv", mine):
+    OUT["ring_d" + name] = t.grad.cpu().numpy()
+if RANK == 0:
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attention(*full, causal=True)
+    (ref ** 2).sum().backward()
+    OUT["ring_ref"] = ref.detach().cpu().numpy()
+    for name, t in zip("qkv", full):
+        OUT["ring_ref_d" + name] = t.grad.cpu().numpy()
+# GPipe: two dense-kernel stages (relu), batch 32 in 4 microbatches
+w = torch.from_numpy((rng.randn(2, 64, 64) / 8).astype(np.float32))
+b = torch.from_numpy((0.1 * rng.randn(2, 64)).astype(np.float32))
+gx = torch.from_numpy(rng.randn(32, 64).astype(np.float32)).cuda()
+
+
+def stage(p, h):
+    return matmul_block(h, p["w"], p["b"], activation="relu")
+
+
+pipe = GPipe(build_pipe_mesh(2), stage, n_micro=4)
+dispatch.reset_launch_counts()
+OUT["pipe"] = pipe.apply(pipe.shard_params({"w": w, "b": b},
+                                           device="cuda"), gx).cpu().numpy()
+OUT["pipe_launches"] = np.asarray(dispatch.launch_counts()["matmul_block"])
+if RANK == 0:
+    h = gx
+    for s in range(2):
+        h = stage({"w": w[s].cuda(), "b": b[s].cuda()}, h)
+    OUT["pipe_ref"] = h.cpu().numpy()
+save()
+shutdown_distributed()
+"""
+
+
+@pytest.fixture(scope="module")
+def card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_world import RankWorld
+
+    world = RankWorld.start(tmp_path_factory.mktemp("card_world"), 2,
+                            _CARD_WORLD, {"device": "cuda",
+                                          "backend": "gloo"})
+    try:
+        return world.wait()
+    finally:
+        world.kill()
+
+
+def test_tensor_parallel_lenet_on_the_card(card_world):
+    """The shard kernels' SGD steps against one process's: the same
+    weights to f32 rounding of sums in another order (each conv at
+    half its out-channels, each dense layer at half its columns, the
+    head's product on the kernel with the identity epilogue)."""
+    a, b = card_world
+    np.testing.assert_array_equal(a["tp_scores"], b["tp_scores"])
+    for key in [k for k in a if k.startswith("one:")]:
+        np.testing.assert_allclose(a["tp:" + key[4:]], a[key], rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+    launches = json.loads(str(a["tp_launches"]))
+    assert launches["conv_block"] == 3 * 4 and launches["matmul_block"] == 6
+
+
+def test_ring_attention_on_the_card(card_world):
+    a, b = card_world
+    got = np.concatenate([a["ring"], b["ring"]], axis=2)
+    np.testing.assert_allclose(got, a["ring_ref"], rtol=1e-4, atol=1e-5)
+    for name in "qkv":
+        np.testing.assert_allclose(
+            np.concatenate([a["ring_d" + name], b["ring_d" + name]], axis=2),
+            a["ring_ref_d" + name], rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_gpipe_on_the_card(card_world):
+    """Every rank gets the serial composition's output; each stage
+    launches the dense kernel once a tick (4 microbatches + 1)."""
+    a, b = card_world
+    for r in (a, b):
+        np.testing.assert_allclose(r["pipe"], a["pipe_ref"], rtol=1e-5,
+                                   atol=1e-6)
+        assert int(r["pipe_launches"]) == 5

@@ -335,10 +335,35 @@ def test_no_best_model_when_the_first_step_is_invalid():
 
 
 def test_cluster_trainer_raises_naming_the_missing_module():
-    with pytest.raises(NotImplementedError, match="parallel/cluster.py"):
-        es.ClusterEarlyStoppingTrainer(
-            es.EarlyStoppingConfiguration(score_calculator=None), None,
-            None, None)
+    """``parallel/cluster.py`` is ported, so the cluster trainer no longer
+    raises: each epoch runs through a ``ParameterAveragingTrainingMaster``
+    (two workers, averaging every round) and matches JAX's."""
+    from deeplearning4j_tpu.parallel import (
+        ParameterAveragingTrainingMaster as JMaster,
+    )
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster,
+    )
+
+    jnet, net = _pair(lr=0.3, seed=3)
+    x, y = _blobs(n=64)
+    train = _batches(x, y, 16)
+    results = []
+    for pkg, model, master, ds, it in (
+            (jes, jnet, JMaster, JDataSet, JListDataSetIterator),
+            (es, net, ParameterAveragingTrainingMaster, DataSet,
+             ListDataSetIterator)):
+        cfg = pkg.EarlyStoppingConfiguration(
+            score_calculator=pkg.DataSetLossCalculator(it([ds(x, y)])),
+            epoch_terminations=[pkg.MaxEpochsTerminationCondition(3)],
+            model_saver=pkg.InMemoryModelSaver())
+        tm = master(workers=2, batch_size_per_worker=16,
+                    averaging_frequency=1, prefetch_num_batches=0)
+        results.append(pkg.ClusterEarlyStoppingTrainer(
+            cfg, model, tm, it([ds(a, b) for a, b in train])).fit())
+    _same_result(results[1], results[0])
+    assert results[1].total_epochs == 3
+    _close_params(net, jnet)
 
 
 # -- preemption -------------------------------------------------------------

@@ -295,8 +295,10 @@ def test_builder_transform_hints():
 
 def test_moe_and_ring_attention_raise():
     """The MoE option is ported (``tests/test_torch_moe.py`` holds it
-    against JAX): it builds, and a JAX MoE configuration loads; ring
-    attention still raises."""
+    against JAX): it builds, and a JAX MoE configuration loads. Ring
+    attention is ported too (``tests/test_torch_sequence_parallel.py``):
+    a layer with a seq axis builds, and raises at its forward without
+    the seq mesh of ``build_seq_mesh``."""
     TransformerBlock(n_in=8, n_experts=4)
     assert transformer_lm(n_experts=2).layers[2].n_experts == 2
     jconf = jax_lm(vocab=VOCAB, d_model=D, n_layers=1, n_heads=HEADS,
@@ -306,9 +308,19 @@ def test_moe_and_ring_attention_raise():
     params = MultiLayerNetwork(conf, device="cpu").init().params["2"]
     assert {"router", "w1", "b1", "w2", "b2"} <= set(params)
     assert not any(k.startswith(("w_ff", "b_ff")) for k in params)
-    for cls in (TransformerBlock, MultiHeadSelfAttention):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            cls(n_in=8, seq_axis="seq", seq_axis_size=4)
+    from deeplearning4j_tpu_torch.parallel import sequence
+
+    installed = sequence._installed["mesh"]
+    sequence._installed["mesh"] = None
+    try:
+        for cls in (TransformerBlock, MultiHeadSelfAttention):
+            layer = cls(n_in=8, n_out=8, n_heads=2, seq_axis="seq",
+                        seq_axis_size=4)
+            params = layer.init_params(torch.Generator().manual_seed(0))
+            with pytest.raises(RuntimeError, match="build_seq_mesh"):
+                layer.apply(params, torch.zeros(2, 8, 4), {})
+    finally:
+        sequence._installed["mesh"] = installed
     # a one-device axis is local attention, as in the JAX layer
     TransformerBlock(n_in=8, seq_axis="seq", seq_axis_size=1)
 
