@@ -271,6 +271,23 @@ non-zero (nothing is caught):
    (SGD), 4 workers x 64 averaging every step, against one machine on
    the concatenated batch, the sharded ``evaluate`` against the plain
    one, and ``ClusterEarlyStoppingTrainer`` for 3 epochs.
+20. the rest of ``fit`` (main paths, after ``[cluster]``; FIT_PATHS):
+   ``[deep-ae]`` the DeepAutoEncoder of deeplearning4j-examples (9 RBMs
+   784 -> 1000 -> 500 -> 250 -> 100 -> 30 -> ... -> 1000, a sigmoid
+   output 1000 -> 784, 2,882,028 parameters) on binarized synthetic
+   MNIST in batches of 1000: one CD-1 iteration of each RBM and two line
+   gradient descent steps held against the CPU twin, then ``fit``
+   (pretraining, then a solver step a batch), zero kernel launches, the
+   score falling; ``[vae]`` the MNIST VAE (784 -> 2, 256 / 256,
+   535,828 parameters, RMSPROP, batch 128): step one against the twin,
+   ``fit`` (pretraining only), the negative ELBO falling,
+   ``reconstruction_probability`` and ``generate_at_mean_given_z`` over
+   a 10 x 10 grid against the twin; ``[lenet-lbfgs]`` LeNet-5 at full
+   width under LBFGS and CONJUGATE_GRADIENT, batch 256: two steps against
+   the twin (the same accepted alpha), each ``fit_minibatch``'s kernel
+   launches exactly its line-search trials' (``solver_step_launches``).
+   Each times its steps and profiles one off its main path (device ms,
+   busy share).
 
 ``python3 chip_smoke.py --phases tag[,tag...]`` runs the named phases
 alone (and the phases they read: ``[transformer]`` for the ring and
@@ -286,6 +303,7 @@ numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero without
 a CUDA device, and when the port's package is not beside it.
 """
 
+import contextlib
 import faulthandler
 import http.client
 import importlib
@@ -9310,6 +9328,538 @@ def run_cluster(torch, card, device="cuda"):
     return launches
 
 
+# --- the rest of fit: the line-search solvers and layer-wise pretraining ----
+
+DEEP_AE_WIDTHS = (784, 1000, 500, 250, 100, 30)  # DeepAutoEncoderExample
+DEEP_AE_BATCH = 1000
+DEEP_AE_BATCHES = 4        # the example's 60 an epoch, cut for time
+VAE_BATCH = 128            # VariationalAutoEncoderExample
+VAE_STEPS = 16
+VAE_GRID = 10              # generate_at_mean_given_z over 10 x 10 z
+LBFGS_BATCH = 256
+LBFGS_MINIBATCHES = 4      # fit_minibatch calls an algorithm
+SOLVER_TWIN_STEPS = 2
+FLIP_SHARE = 1e-4          # chain samples the card and the CPU may flip
+FIT_PATHS = ("deep-ae", "vae", "lenet-lbfgs")
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """``owner.name`` replaced by ``value`` within the block."""
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def host_params(model):
+    return {ln: {pn: t.detach().cpu().clone() for pn, t in lp.items()}
+            for ln, lp in model.params.items()}
+
+
+def hold_params(tag, model, twin, rtol, atol):
+    """Every parameter of ``model`` within (rtol, atol) of the CPU
+    twin's; returns the largest absolute difference."""
+    worst = 0.0
+    for ln, lp in twin.params.items():
+        for pn, ref in lp.items():
+            got = model.params[ln][pn].detach().cpu()
+            d = (got - ref).abs()
+            worst = max(worst, float(d.max()))
+            if bool((d > atol + rtol * ref.abs()).any()):
+                raise RuntimeError(f"[{tag}] {ln}/{pn} differs from the twin "
+                                   f"by {float(d.max())}")
+    return worst
+
+
+def sync_if(torch, on_card):
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def deep_ae_conf(widths=DEEP_AE_WIDTHS):
+    """DeepAutoEncoderExample (deeplearning4j-examples,
+    unsupervised/deepbelief): RBMs 784 -> 1000 -> 500 -> 250 -> 100 -> 30
+    and back to 1000, a sigmoid OutputLayer 1000 -> 784 under MSE, line
+    gradient descent, pretrain and backprop, one iteration a minibatch.
+    Reduced: the example's KL_DIVERGENCE loss on each RBM is dropped (the
+    RBM trains CD-k through its free energy and has no loss field)."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import RBM, OutputLayer
+
+    sizes = list(widths) + list(widths[-2:0:-1])
+    b = (NeuralNetConfiguration.Builder().seed(123).iterations(1)
+         .optimization_algo("LINE_GRADIENT_DESCENT").list())
+    for n_in, n_out in zip(sizes[:-1], sizes[1:]):
+        b = b.layer(RBM(n_in=n_in, n_out=n_out))
+    return (b.layer(OutputLayer(n_in=sizes[-1], n_out=widths[0],
+                                activation="sigmoid", loss="MSE"))
+            .pretrain(True).backprop(True).build())
+
+
+def run_deep_ae(torch, card, device="cuda", widths=DEEP_AE_WIDTHS,
+                batch=DEEP_AE_BATCH, n_batches=DEEP_AE_BATCHES):
+    """[deep-ae] the DeepAutoEncoder (``deep_ae_conf``, 2,882,028
+    parameters) on binarized synthetic MNIST in batches of 1000, each
+    batch its own label. First one pretrain iteration of each of the 9
+    RBMs against the CPU twin: both run ``pretrain`` on the batch, each
+    RBM on its own side's input; the twin's CD-1 chain replays the
+    card's samples (the same draws of ``nn/random.py``; the samples the
+    two sides' own chains flip at the margin of a Bernoulli draw are
+    counted, at most FLIP_SHARE of them), so its update is held to
+    kernel_tols. Then two line-search steps from the same weights: the
+    scores and parameters to kernel_tols, the same accepted alpha. The
+    main path is one ``fit`` of a fresh network over the batches: CD-1
+    pretraining of the 9 RBMs, then a line-gradient-descent step a
+    batch; the reconstruction score must fall. Every product here is
+    plain torch (RBM and output layer, as in JAX, outside any Pallas
+    kernel): the phase asserts zero kernel launches. The score on the
+    first batch falls over the solver steps (from where pretraining left
+    it; the times leave that read out). Reduced: the
+    example's 60 batches an epoch cut to DEEP_AE_BATCHES; the RBMs'
+    KL_DIVERGENCE loss dropped (``deep_ae_conf``). On the card a
+    pretrain pass over one batch and one solver step are profiled after
+    the main path (device ms, busy share against the main path's host
+    ms). ``device`` "cpu" (and smaller ``widths`` / ``batch``) rehearses
+    it."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import RBM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(batch, allow_synthetic=True,
+                                    binarize=True,
+                                    num_examples=batch * n_batches)
+    batches = [DataSet(features=ds.features, labels=ds.features)
+               for ds in data]
+    conf = deep_ae_conf(widths)
+    on_card = device != "cpu"
+    rtol, atol = TWIN_RTOL, TWIN_ATOL
+    init = host_params(MultiLayerNetwork(conf, device="cpu").init())
+    n_rbm = sum(isinstance(layer, RBM) for layer in conf.layers)
+
+    # one pretrain iteration of each RBM, card and twin
+    chain = RBM.gibbs_chain
+    card_chains, flips = [], []
+
+    def spy(self, params, v0, rng):
+        v = chain(self, params, v0, rng)
+        card_chains.append(v)
+        return v
+
+    def replay(self, params, v0, rng):
+        own = chain(self, params, v0, rng)
+        card_v = card_chains[len(flips)].cpu()
+        flips.append((int((own != card_v).sum()), own.numel()))
+        return card_v
+
+    held = MultiLayerNetwork(conf, device=device).init(params=init)
+    twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+    with patched(RBM, "gibbs_chain", spy):
+        held.pretrain([batches[0]])
+    with patched(RBM, "gibbs_chain", replay):
+        twin.pretrain([batches[0]])
+    flipped = sum(f for f, _ in flips)
+    if len(flips) != n_rbm or flipped > FLIP_SHARE * sum(n for _, n in flips):
+        raise RuntimeError(f"[deep-ae] chains {len(flips)}, flipped samples "
+                           f"{flips}")
+    pretrain_diff = hold_params("deep-ae", held, twin, rtol, atol)
+    # two line-search steps from the same weights
+    twin.params = host_params(held)
+    twin_scores, alphas = [], []
+    for ds in batches[:SOLVER_TWIN_STEPS]:
+        got = float(held.fit_minibatch(ds))
+        ref = float(twin.fit_minibatch(ds))
+        a = [float(s["alpha"]) for s in held._solver.last_steps]
+        b = [float(s["alpha"]) for s in twin._solver.last_steps]
+        if a != b or abs(got - ref) > atol + rtol * abs(ref):
+            raise RuntimeError(f"[deep-ae] solver step: card {got} alpha {a},"
+                               f" twin {ref} alpha {b}")
+        twin_scores.append((got, ref))
+        alphas.append(a[0])
+    solver_diff = hold_params("deep-ae", held, twin, rtol, atol)
+    del held, twin
+
+    # the main path: fit pretrains the 9 RBMs, then a solver step a batch
+    net = per_step_loop(MultiLayerNetwork(conf, device=device).init(
+        params=init))
+    initial = net.score(batches[0])
+    clock = {}
+    pretrain = net.pretrain
+
+    def timed_pretrain(data, epochs=1):
+        sync_if(torch, on_card)
+        t0 = time.perf_counter()
+        pretrain(data, epochs)
+        sync_if(torch, on_card)
+        t1 = time.perf_counter()
+        clock["pretrain_s"] = t1 - t0
+        # the score the fine-tuning starts from (taken out of the times)
+        clock["pretrained_score"] = net.score(batches[0])
+        clock["read_s"] = time.perf_counter() - t1
+
+    class Trials:
+        supports_batched_iterations = False
+
+        def __init__(self):
+            self.trials = []
+
+        def iteration_done(self, model, iteration):
+            self.trials += [s["trials"] for s in model._solver.last_steps]
+
+    log = Trials()
+    net.set_listeners(log)
+    net.pretrain = timed_pretrain
+    if on_card:  # the fit's own peak, above what was allocated before it
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated()
+    sync_if(torch, on_card)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    net.fit(batches)
+    sync_if(torch, on_card)
+    fit_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held_bytes if on_card
+            else None)
+    before, after = clock["pretrained_score"], net.score(batches[0])
+    if any(launches.values()):
+        raise RuntimeError(f"[deep-ae] a kernel launched: {launches}")
+    if (not net._pretrain_done or net.iteration_count != n_batches
+            or not after < before):
+        raise RuntimeError(f"[deep-ae] fit: {net.iteration_count} steps, "
+                           f"score {before} -> {after}")
+    fit_s -= clock["read_s"]
+    solve_s = fit_s - clock["pretrain_s"]
+    pretrain_ms = clock["pretrain_s"] / (n_rbm * n_batches) * 1e3
+    solver_ms = solve_s / n_batches * 1e3
+    profile = {}
+    if on_card:  # where a pretrain pass and a solver step spend the card
+        for key, fn, n, host_ms in (
+                ("pretrain_iteration", lambda: pretrain([batches[0]]), n_rbm,
+                 pretrain_ms),
+                ("solver_step", lambda: net.fit_minibatch(batches[1]), 1,
+                 solver_ms)):
+            dev, count, top = profiled_device(torch, fn)
+            profile.update({f"device_ms_per_{key}": dev / n,
+                            f"{key}_busy_share": dev / n / host_ms,
+                            f"{key}_device_activities": count // n,
+                            f"{key}_top_device_ms": top})
+    res = {"params": net.num_params(), "rbms": n_rbm, "batch": batch,
+           "batches": n_batches, "fit_s": fit_s,
+           "ms_per_pretrain_iteration": pretrain_ms,
+           "ms_per_solver_step": solver_ms, **profile,
+           "line_search_trials": log.trials, "score_initial": initial,
+           "score_pretrained": before, "score_after": after,
+           "fit_peak_bytes": peak,
+           "twin_pretrain_max_abs_diff": pretrain_diff,
+           "twin_chain_flips": [f for f, _ in flips],
+           "twin_solver_scores": twin_scores, "twin_alphas": alphas,
+           "twin_solver_max_abs_diff": solver_diff,
+           "launches": sum(launches.values())}
+    print(f"[deep-ae] {json.dumps(res)} card={card}")
+    return launches
+
+
+def vae_conf(n_in=784, hidden=(256, 256)):
+    """VariationalAutoEncoderExample (deeplearning4j-examples,
+    unsupervised/variational): a VAE 784 -> 2 with encoder and decoder
+    256, 256, leaky relu, an identity p(z|x), Bernoulli reconstruction
+    through a sigmoid, RMSPROP at 1e-3, l2 1e-4, pretrain only."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BernoulliReconstructionDistribution,
+        VariationalAutoencoder,
+    )
+
+    return (NeuralNetConfiguration.Builder().seed(123).learning_rate(1e-3)
+            .updater("RMSPROP").weight_init("XAVIER").l2(1e-4).list()
+            .layer(VariationalAutoencoder(
+                n_in=n_in, n_out=2, encoder_layer_sizes=hidden,
+                decoder_layer_sizes=hidden, activation="leakyrelu",
+                pzx_activation="identity",
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution("sigmoid"))))
+            .pretrain(True).backprop(False).build())
+
+
+def run_vae(torch, card, device="cuda", hidden=(256, 256), batch=VAE_BATCH,
+            steps=VAE_STEPS):
+    """[vae] the MNIST VAE (``vae_conf``, 535,828 parameters) on
+    synthetic MNIST in batches of 128. Step one against the CPU twin:
+    the negative ELBO and its gradient at the step's key (its
+    reparameterisation noise drawn by ``nn/random.py`` on each side) to
+    kernel_tols of each gradient's largest entry; after the step
+    (RMSPROP moves a weight by about lr / sqrt(0.05) whatever its
+    gradient's size, so a gradient near zero can move either way) every
+    weight within 3 such moves and at most 1 % of a parameter's entries
+    beyond 1e-4 + 1e-3 |w|. The main path is ``fit`` over the batches,
+    which pretrains (``backprop(False)``: no backprop after it); the
+    negative ELBO at the posterior's mean on a probe batch must fall.
+    Then ``reconstruction_probability`` of one batch and
+    ``generate_at_mean_given_z`` over a 10 x 10 grid of z in [-2, 2]²,
+    against the twin. Plain torch throughout (no Pallas kernel in JAX's
+    VAE): zero kernel launches. Reduced: VAE_STEPS minibatches, not the
+    example's epochs. On the card one more step runs under the profiler
+    (device ms, busy share against the main path's host ms)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import random
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(batch, allow_synthetic=True,
+                                    num_examples=batch * steps)
+    batches = list(data)
+    conf = vae_conf(hidden=hidden)
+    layer = conf.layers[0]
+    on_card = device != "cpu"
+    init = host_params(MultiLayerNetwork(conf, device="cpu").init())
+    name = conf.layer_name(0)
+    # step one's key: fold_in(fold_in(PRNGKey(seed), 7919 + 0), 0)
+    key = random.fold_in(random.fold_in(random.host_key(conf.seed), 7919), 0)
+
+    def loss_and_grads(params, x):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = layer.pretrain_loss(leaves, x, key)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), {k: g.cpu()
+                                      for k, g in zip(leaves, grads)}
+
+    held = MultiLayerNetwork(conf, device=device).init(params=init)
+    twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+    x0 = batches[0].features
+    loss, grads = loss_and_grads(held.params[name],
+                                 torch.from_numpy(x0).to(device))
+    tloss, tgrads = loss_and_grads(twin.params[name], torch.from_numpy(x0))
+    rtol, atol = TWIN_RTOL, TWIN_ATOL
+    if abs(loss - tloss) > atol + rtol * abs(tloss):
+        raise RuntimeError(f"[vae] step one's loss {loss}, twin {tloss}")
+    grad_share = 0.0
+    for k, ref in tgrads.items():
+        scale = max(float(ref.abs().max()), 1e-30)
+        share = float((grads[k] - ref).abs().max()) / scale
+        grad_share = max(grad_share, share)
+        if share > 10 * rtol:
+            raise RuntimeError(f"[vae] d{k} differs by {share:.2e} of its "
+                               "largest entry")
+    held.pretrain([batches[0]])
+    twin.pretrain([batches[0]])
+    move = layer.learning_rate / (1.0 - layer.rms_decay) ** 0.5
+    max_off = 0.0
+    for pn, ref in twin.params[name].items():
+        d = (held.params[name][pn].cpu() - ref).abs()
+        off = float((d > 1e-4 + 1e-3 * ref.abs()).float().mean())
+        max_off = max(max_off, off)
+        if float(d.max()) > 3 * move or off > 0.01:
+            raise RuntimeError(f"[vae] {pn} after step one: max "
+                               f"{float(d.max())}, {off:.2%} off")
+
+    # the main path: fit pretrains the VAE over the batches
+    net = per_step_loop(MultiLayerNetwork(conf, device=device).init(
+        params=init))
+    probe = torch.from_numpy(batches[0].features).to(device)
+    with torch.no_grad():
+        before = float(layer.pretrain_loss(net.params[name], probe, None))
+    sync_if(torch, on_card)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    net.fit(batches)
+    sync_if(torch, on_card)
+    fit_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    with torch.no_grad():
+        after = float(layer.pretrain_loss(net.params[name], probe, None))
+    if any(launches.values()):
+        raise RuntimeError(f"[vae] a kernel launched: {launches}")
+    if not net._pretrain_done or net.iteration_count != 0 or not after < before:
+        raise RuntimeError(f"[vae] fit: pretrained {net._pretrain_done}, "
+                           f"{net.iteration_count} backprop steps, negative "
+                           f"ELBO {before} -> {after}")
+    profile = {}
+    if on_card:  # one more step under the profiler, off the main path
+        dev, count, top = profiled_device(
+            torch, lambda: net.pretrain([batches[0]]))
+        profile = {"device_ms_per_step": dev,
+                   "busy_share": dev / (fit_s / steps * 1e3),
+                   "device_activities": count, "top_device_ms": top}
+    # scoring and generation against the twin on the trained weights
+    twin = cpu_twin(torch, net)
+    rp_key = random.fold_in(random.host_key(conf.seed), 1)
+    g = np.linspace(-2.0, 2.0, VAE_GRID, dtype=np.float32)
+    z = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+    with torch.no_grad():
+        rp = layer.reconstruction_probability(net.params[name], probe,
+                                              rp_key).cpu()
+        trp = layer.reconstruction_probability(
+            twin.params[name], probe.cpu(), rp_key)
+        gen = layer.generate_at_mean_given_z(
+            net.params[name], torch.from_numpy(z).to(device)).cpu()
+        tgen = layer.generate_at_mean_given_z(twin.params[name],
+                                              torch.from_numpy(z))
+    if (tuple(rp.shape) != (batch,) or not bool(torch.isfinite(rp).all())
+            or tuple(gen.shape) != (VAE_GRID ** 2, 784)
+            or not bool(((gen >= 0) & (gen <= 1)).all())):
+        raise RuntimeError(f"[vae] reconstruction probability "
+                           f"{tuple(rp.shape)}, generated {tuple(gen.shape)}")
+    rp_diff = float(((rp - trp).abs() / trp.abs().clamp_min(1.0)).max())
+    gen_diff = float((gen - tgen).abs().max())
+    if rp_diff > 10 * rtol or gen_diff > atol + rtol:
+        raise RuntimeError(f"[vae] against the twin: reconstruction "
+                           f"probability {rp_diff:.2e}, generation "
+                           f"{gen_diff:.2e}")
+    res = {"params": net.num_params(), "batch": batch, "steps": steps,
+           "fit_s": fit_s, "ms_per_step": fit_s / steps * 1e3,
+           "samples_per_s": steps * batch / fit_s, **profile,
+           "neg_elbo_before": before, "neg_elbo_after": after,
+           "last_pretrain_score": net.score_value,
+           "twin_step1_loss": (loss, tloss),
+           "twin_step1_grad_share": grad_share,
+           "twin_step1_share_off": max_off,
+           "reconstruction_probability_mean": float(rp.mean()),
+           "twin_reconstruction_probability_rel": rp_diff,
+           "twin_generation_max_abs_diff": gen_diff,
+           "launches": sum(launches.values())}
+    print(f"[vae] {json.dumps(res)} card={card}")
+    return launches
+
+
+def fit_phases():
+    """(tag, phase function) of the rest-of-fit slice's main paths, in
+    FIT_PATHS's order."""
+    fns = {"deep-ae": run_deep_ae, "vae": run_vae,
+           "lenet-lbfgs": run_lenet_lbfgs}
+    return [(tag, fns[tag]) for tag in FIT_PATHS]
+
+
+def solver_step_launches(algo, trials, first_call):
+    """One ``fit_minibatch``'s kernel launches under ``algo`` on LeNet-5
+    (one iteration): a gradient launches conv_block 4 (each conv's
+    forward and its f32 recompute), conv_bwd_data 1 (conv2's dx),
+    conv_bwd_w 2 and matmul_block 1, a forward conv_block 2 and
+    matmul_block 1; a step is one gradient (LBFGS two: the new point's)
+    and ``1 + trials`` forwards, CG's first call one more gradient."""
+    grad = {"conv_block": 4, "conv_bwd_data": 1, "conv_bwd_w": 2,
+            "matmul_block": 1}
+    fwd = {"conv_block": 2, "matmul_block": 1}
+    grads = sum(2 if algo == "LBFGS" else 1 for _ in trials)
+    if algo == "CONJUGATE_GRADIENT" and first_call:
+        grads += 1
+    forwards = sum(1 + t for t in trials)
+    return {k: grads * grad.get(k, 0) + forwards * fwd.get(k, 0)
+            for k in set(grad) | set(fwd)}
+
+
+def run_lenet_lbfgs(torch, card, device="cuda", batch=LBFGS_BATCH,
+                    minibatches=LBFGS_MINIBATCHES, dense_width=512):
+    """[lenet-lbfgs] ``zoo.lenet()`` at full width with its
+    optimization_algo set to LBFGS, then CONJUGATE_GRADIENT, on synthetic
+    MNIST in batches of 256: the solvers on the kernels (the gradient
+    through conv_block, conv_bwd_data, conv_bwd_w and matmul_block, each
+    line-search trial a forward through conv_block and matmul_block).
+    Two steps against the CPU twin from the same weights: the scores and
+    parameters to kernel_tols, the same accepted alpha. The main path is
+    LBFGS_MINIBATCHES ``fit_minibatch`` calls of a fresh network each,
+    every call's launches exactly ``solver_step_launches`` of its
+    line-search trials; the score must fall. On the card one more call
+    runs under the profiler (device ms, busy share against the main
+    path's median host ms)."""
+    import warnings
+
+    from collections import Counter
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = MnistDataSetIterator(batch, allow_synthetic=True,
+                                    num_examples=batch * minibatches)
+    batches = list(data)
+    on_card = device != "cpu"
+    rtol, atol = TWIN_RTOL, TWIN_ATOL
+    base = lenet(dense_width=dense_width).to_dict()
+    launches = Counter()
+    res = {"batch": batch, "minibatches": minibatches}
+    for algo in ("LBFGS", "CONJUGATE_GRADIENT"):
+        conf = MultiLayerConfiguration.from_dict(
+            dict(base, optimization_algo=algo))
+        init = host_params(MultiLayerNetwork(conf, device="cpu").init())
+        held = MultiLayerNetwork(conf, device=device).init(params=init)
+        twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+        twin_scores, alphas = [], []
+        for ds in batches[:SOLVER_TWIN_STEPS]:
+            got = float(held.fit_minibatch(ds))
+            ref = float(twin.fit_minibatch(ds))
+            a = [float(s["alpha"]) for s in held._solver.last_steps]
+            b = [float(s["alpha"]) for s in twin._solver.last_steps]
+            if a != b or abs(got - ref) > atol + rtol * abs(ref):
+                raise RuntimeError(f"[lenet-lbfgs] {algo}: card {got} alpha "
+                                   f"{a}, twin {ref} alpha {b}")
+            twin_scores.append((got, ref))
+            alphas += a
+        diff = hold_params("lenet-lbfgs", held, twin, rtol, atol)
+        del held, twin
+        # the main path: a fresh network, each call's launches exact
+        net = per_step_loop(MultiLayerNetwork(conf, device=device).init(
+            params=init))
+        before = net.score(batches[0])
+        ms, trials, scores = [], [], []
+        for i, ds in enumerate(batches):
+            sync_if(torch, on_card)
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            score = net.fit_minibatch(ds)
+            sync_if(torch, on_card)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = dispatch.launch_counts()
+            steps = [s["trials"] for s in net._solver.last_steps]
+            want = solver_step_launches(algo, steps, i == 0)
+            if on_card and any(got.get(k, 0) != want.get(k, 0)
+                               for k in set(got) | set(want)):
+                raise RuntimeError(f"[lenet-lbfgs] {algo} call {i}: "
+                                   f"launched {got}, expected {want}")
+            launches.update(got)
+            trials += steps
+            scores.append(float(score))
+        after = net.score(batches[0])
+        if not np.isfinite(after) or not after < before:
+            raise RuntimeError(f"[lenet-lbfgs] {algo}: score {before} -> "
+                               f"{after}")
+        profile = {}
+        if on_card:  # one more call under the profiler, off the main path
+            dev, count, top = profiled_device(
+                torch, lambda: net.fit_minibatch(batches[0]))
+            profile = {"device_ms_per_solver_step": dev,
+                       "busy_share": dev / float(np.median(ms)),
+                       "device_activities": count, "top_device_ms": top}
+        res[algo] = {"ms_per_solver_step": ms, "line_search_trials": trials,
+                     "scores": scores, "score_before": before,
+                     "score_after": after, "twin_scores": twin_scores,
+                     "twin_alphas": alphas, "twin_max_abs_diff": diff,
+                     "launches_first_call": solver_step_launches(
+                         algo, trials[:1], True), **profile}
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    print(f"[lenet-lbfgs] {json.dumps(res)} card={card}")
+    return launches
+
+
 def kernel_checks(torch, F, records, half_records, layers):
     """The kernel checks: ``[kernel]`` and ``[layer]`` records appended to
     ``records``, ``half_records`` and ``layers``."""
@@ -9506,9 +10056,8 @@ def kernels_line(records, half_records, layers, paths, half_variants
     """The kernels line of a run: every kernel its phases launched or
     its records hold (a run of every phase: all of them), its launches
     summed over the phases' main paths (``paths``: {tag: {kernel:
-    launches}}) and listed on those of NETWORK_PATHS and NEW_PATHS, its
-    times those
-    of its main-path records (null where the run made none), and the
+    launches}}) and listed on those of NETWORK_PATHS, NEW_PATHS and
+    FIT_PATHS, its times those of its main-path records (null where the run made none), and the
     per-step keys of the training steps' records; then the conv kernels'
     half-precision variants (``half_variants``: their launches)."""
     csrc, tpu = "deeplearning4j_tpu_torch/csrc/", "deeplearning4j_tpu/ops/"
@@ -9530,7 +10079,7 @@ def kernels_line(records, half_records, layers, paths, half_variants
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": tpu + replaces, "launches": launches,
             "launches_by_path": network_launches(
-                k, paths, NETWORK_PATHS + NEW_PATHS),
+                k, paths, NETWORK_PATHS + NEW_PATHS + FIT_PATHS),
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
@@ -9749,6 +10298,9 @@ def main(argv=None) -> int:
     if world:
         paths.update(run_rank_world(torch, card, records, lm, tokens, world))
     phase("cluster", run_cluster)
+    # the rest of fit: pretraining and the line-search solvers
+    for tag, fn in fit_phases():
+        phase(tag, fn)
     if wanted("nlp"):
         paths["nlp"] = summed_launches(run_nlp(torch, card))
     # the row-sharded trainer on two ranks (after every phase that forms

@@ -30,7 +30,9 @@ the device across epochs (within ``device_cache_bytes``), and the
 fused truncated-BPTT scan threads the recurrent carry through a chunk
 of TBPTT segments, zeroed by a per-step reset flag. ``fit_batches`` is
 both engines' epoch loop (JAX ``core.fit_batches``): the batch
-validator, the listeners' epoch hooks, the preemption check at each
+validator, layer-wise pretraining first where the configuration asks
+for it (``pretrain``; no backprop after it with ``backprop=False``),
+the listeners' epoch hooks, the preemption check at each
 step (each chunk under megastep and the scan), the order megastep,
 device-cached replay, scan epoch, per-step loop, the last through an
 ``AsyncDispatchWindow`` (``max_in_flight`` steps enqueued, the guard's
@@ -38,6 +40,11 @@ flags read ``guard_lag`` steps late). The active ``StepProfiler``
 (``observability/profiler.py``) sees each step, or each chunk as one
 record; with step telemetry on (``enable_step_telemetry``) the step
 also returns the gradient's global norm, computed on the device.
+``build_pretrain_step`` is one pretrainable layer's update on its
+precomputed input (both engines' ``pretrain``). The line-search solvers
+(``optimize/solvers.py``) take the engines' ``fit_minibatch`` instead of
+the step; the chunk paths and the data-parallel trainers run the SGD
+step alone and refuse them (``check_sgd_step``).
 """
 
 from __future__ import annotations
@@ -487,6 +494,109 @@ def finish_step(updater, grads, score, new_state, params, upd_state,
         ok, new_params, params, new_upd, upd_state, new_state, state)
     return StepOut(new_params, new_upd, new_state, score, new_ls, new_sg, ok,
                    gnorm)
+
+
+def build_pretrain_step(layer, name: str, upd_def) -> Callable:
+    """One pretrainable layer's update (JAX ``build_pretrain_step``):
+    ``step(lparams, upd_state, xin, lrs, t, rng) -> (new params, new
+    updater state, loss)``, the loss ``layer.pretrain_loss`` plus the
+    layer's L1/L2 penalty, its gradient by autograd, then the layer's
+    updater rule (``upd_def``, keyed by ``name``). ``xin`` is the
+    layer's input, computed once a batch by the engine (the frozen
+    stack below runs once a batch, not once an iteration)."""
+
+    def step(lparams, upd_state, xin, lrs, t, rng):
+        leaves = {pn: p.detach().requires_grad_(True)
+                  for pn, p in lparams.items()}
+        with torch.enable_grad():
+            loss = layer.pretrain_loss(leaves, xin, rng) + reg_penalty(
+                layer, leaves)
+            got = torch.autograd.grad(loss, list(leaves.values()),
+                                      allow_unused=True)
+        grads = {pn: torch.zeros_like(t) if g is None else g
+                 for (pn, t), g in zip(leaves.items(), got)}
+        new_p, new_upd = upd_def.update({name: grads}, upd_state,
+                                        {name: lparams}, lrs, t)
+        return new_p[name], new_upd, loss.detach()
+
+    return step
+
+
+def pretrain_layer(model, name: str, layer, layer_key, data, epochs: int,
+                   layer_input: Callable) -> None:
+    """Both engines' greedy pretraining of one layer (JAX ``pretrain``'s
+    inner loop): a fresh updater state of the layer's own settings, then
+    for each epoch and batch its input ``layer_input(ds)`` (the frozen
+    stack below, once a batch) and ``conf.iterations`` updates, update
+    ``it`` (counted from 0, as the learning-rate schedule) drawing from
+    ``fold_in(layer_key, it)``; ``data`` is reset after each epoch where
+    it can be."""
+    from deeplearning4j_tpu_torch.nn.updaters import MultiLayerUpdaterDef
+
+    upd_def = MultiLayerUpdaterDef({name: layer.updater_settings()})
+    upd_state = upd_def.init({name: model.params[name]})
+    step = build_pretrain_step(layer, name, upd_def)
+    it = 0
+    for _ in range(epochs):
+        for ds in iter_unchunked(data):
+            xin = layer_input(ds)
+            for _ in range(model.conf.iterations):
+                model.params[name], upd_state, loss = step(
+                    model.params[name], upd_state, xin,
+                    upd_def.scheduled_lrs(it), it + 1,
+                    random.fold_in(layer_key, it))
+                model._last_score = loss
+                it += 1
+        if hasattr(data, "reset"):
+            data.reset()
+
+
+def iter_unchunked(data):
+    """The minibatches of ``data``, a ``ChunkedDataSet`` among them
+    unstacked (JAX ``core.iter_unchunked``)."""
+    from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
+
+    for d in data:
+        if isinstance(d, ChunkedDataSet):
+            yield from d.to_datasets()
+        else:
+            yield d
+
+
+def pretrain_batches(data):
+    """What an engine's ``pretrain`` iterates once a layer and an epoch:
+    a list for one DataSet, a ``ChunkedDataSet`` or a one-shot
+    generator (each layer needs its own pass), else ``data`` itself (a
+    list, or an iterator with ``reset()``)."""
+    from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
+
+    if isinstance(data, ChunkedDataSet):
+        return data.to_datasets()
+    if hasattr(data, "features"):
+        return [data]
+    if not isinstance(data, (list, tuple)) and not hasattr(data, "reset"):
+        return list(data)
+    return data
+
+
+def check_sgd_step(model, who: str, pretrain: bool = True) -> None:
+    """Refuse, naming what to use instead, a configuration whose training
+    is not the SGD-family step that ``who`` runs: a line-search solver
+    (it runs through the engines' ``fit_minibatch``), and with
+    ``pretrain`` layer-wise pretraining (the engines' ``fit`` /
+    ``pretrain``)."""
+    conf = model.conf
+    if conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
+        raise ValueError(
+            f"{who} runs the SGD-family step; the {conf.optimization_algo} "
+            "solver runs on one device through the model's own fit / "
+            "fit_minibatch (a solver here is deferred: ROADMAP)")
+    if pretrain and conf.pretrain:
+        raise ValueError(
+            f"{who} runs no layer-wise pretraining; pretrain on one "
+            "device with the model's own fit / pretrain first, then "
+            "train a backprop=True configuration here (deferred: "
+            "ROADMAP)")
 
 
 def split_rows(tree, k: int) -> list:
@@ -1228,7 +1338,7 @@ def launch_chunk(model, chunk: Chunk, step, *, state=None,
     (default the model's; the fused TBPTT scan primes its carries).
     ``stat_guard``: whether the step threads the EWMA state (default:
     the engine's guard has a ``StatGuardConfig``)."""
-    model._check_trainable()
+    check_sgd_step(model, "a chunk of steps", pretrain=False)
     it0 = model.iteration_count
     lr_names, lr_rows = model.updater_def.lr_table(it0, chunk.k)
     trees = (model.params, model.updater_state,
@@ -1832,6 +1942,14 @@ def fit_batches(model, data, labels=None, epochs: int = 1) -> None:
         if not isinstance(iterator, ValidatingIterator):
             iterator = ValidatingIterator(
                 iterator, validator, quarantine=model._quarantine_store)
+    if model.conf.pretrain and not model._pretrain_done:
+        # reference fit():1064: layer-wise pretraining before backprop
+        if not hasattr(iterator, "reset") and not isinstance(
+                iterator, (list, tuple)):
+            iterator = list(iterator)
+        model.pretrain(iterator)
+    if not model.conf.backprop:
+        return
     prefetch = iterator if hasattr(iterator, "shutdown") else None
     window = AsyncDispatchWindow(
         model=model, guard_fn=lambda: model.divergence_guard,

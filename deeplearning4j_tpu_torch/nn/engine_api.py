@@ -1,5 +1,6 @@
 """The public methods both engines share: ``evaluate``, the flat
-parameter view, ``copy``, and the AOT entry points.
+parameter view, ``copy``, the AOT entry points, and the line-search
+solvers' minibatch.
 
 Counterpart of the same-named methods of the JAX package's
 ``MultiLayerNetwork`` and ``ComputationGraph`` (JAX
@@ -49,6 +50,24 @@ class EngineApi:
         self._output_signatures.add(tuple(
             (tuple(int(d) for d in t.shape), str(t.dtype))
             for t in tensors))
+
+    # -- the line-search solvers ------------------------------------------
+
+    def _solver_minibatch(self, x, y, mask=None, fmask=None):
+        """A minibatch through the line-search ``optimize.Solver``, built
+        at the first one and kept (JAX ``fit_minibatch``'s solver
+        route); an unknown ``optimization_algo`` raises ``ValueError``."""
+        from deeplearning4j_tpu_torch.optimize.solvers import (
+            Solver,
+            is_solver_algo,
+        )
+
+        if not is_solver_algo(self.conf.optimization_algo):
+            raise ValueError("Unknown optimization_algo "
+                             f"'{self.conf.optimization_algo}'")
+        if self._solver is None:
+            self._solver = Solver(self)
+        return self._solver.optimize(x, y, mask=mask, fmask=fmask)
 
     # -- evaluation ---------------------------------------------------------
 

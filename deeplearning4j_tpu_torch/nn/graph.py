@@ -39,8 +39,14 @@ cut into ``tbptt_fwd_length`` segments, one step each, the recurrent
 carry handed from segment to segment; inputs without a time axis ride
 along whole) and ``rnn_time_step`` / ``rnn_clear_previous_state`` (the
 streaming carry of every layer vertex, the JAX engine's 2-d / 3-d
-convention) are the JAX engine's. ``pretrain`` is not ported: it raises,
-naming the slice that brings it.
+convention) are the JAX engine's. So are the line-search solvers
+(``optimize/solvers.py``'s ``Solver`` on the lists of inputs, labels
+and masks, through ``fit_minibatch``) and ``pretrain``: each
+pretrainable layer vertex in topological order fits its
+``pretrain_loss`` on what the frozen graph feeds it, vertex ``i`` of the
+order drawing iteration ``it`` from ``fold_in(fold_in(PRNGKey(seed),
+7919 + i), it)``; ``fit`` pretrains once first where ``conf.pretrain``
+asks for it, and stops there with ``backprop=False``.
 Like the JAX engine, this one folds no Conv -> BatchNormalization pair
 (that peephole is the sequential engine's, ``nn/core.py``).
 """
@@ -53,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.nn import core
+from deeplearning4j_tpu_torch.nn import core, random
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
     DuplicateToTimeSeriesVertex,
@@ -107,6 +113,8 @@ class ComputationGraph(EngineApi):
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        self._solver = None  # built at the first line-search minibatch
+        self._pretrain_done = False
         # the transform knobs, the guard and their device states
         core.init_transforms(self)
         # {"shards": n} while the updater state lies in ZeRO-1's flat
@@ -182,6 +190,7 @@ class ComputationGraph(EngineApi):
         self._zero_layout = None
         self._row_layout = None
         self._tp_layout = None
+        self._pretrain_done = False  # fresh parameters: pretrain again
         return self
 
     # ------------------------------------------------------------------
@@ -373,19 +382,6 @@ class ComputationGraph(EngineApi):
 
     # -- training ----------------------------------------------------------
 
-    def _check_trainable(self) -> None:
-        conf = self.conf
-        missing = []
-        if conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
-            missing.append(f"the {conf.optimization_algo} solver "
-                           "(periphery: optimize/)")
-        if conf.pretrain:
-            missing.append("layer-wise pretraining (periphery: "
-                           "pretrainable layers)")
-        if missing:
-            raise NotImplementedError(
-                "fit: not ported yet: " + "; ".join(missing))
-
     def recurrent_names(self) -> List[str]:
         return [n for n in self.layer_vertex_names
                 if self._layer(n).is_recurrent()]
@@ -473,7 +469,8 @@ class ComputationGraph(EngineApi):
         core.set_batch_validator(self, validator, quarantine)
 
     def fit_minibatch(self, ds) -> torch.Tensor:
-        """One minibatch through ``conf.iterations`` optimizer steps;
+        """One minibatch through ``conf.iterations`` optimizer steps (a
+        line-search solver's where ``optimization_algo`` names one);
         returns the last step's score as a 0-d tensor on the device."""
         from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
 
@@ -484,7 +481,9 @@ class ComputationGraph(EngineApi):
             return score
         if self.params is None:
             self.init()
-        self._check_trainable()
+        if self.conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
+            f, l, fm, lm = _ds_arrays(ds)
+            return self._solver_minibatch(f, l, lm, fm)
         # a model left sharded by a zero=True trainer steps canonical
         core.canonicalize_updater_state(self)
         inputs, labels, lmasks, fmasks = self.batch_tensors(ds)
@@ -646,10 +645,37 @@ class ComputationGraph(EngineApi):
         """As ``MultiLayerNetwork.set_divergence_guard``."""
         core.set_divergence_guard(self, guard)
 
+    def _pretrain_input(self, name: str, inputs) -> torch.Tensor:
+        """What vertex ``name`` sees: its first input's value in the
+        frozen graph's inference forward, through its preprocessor."""
+        with torch.no_grad():
+            values, _, _ = self._forward_values(self.params, self.state,
+                                                inputs, train=False)
+            x = values[self.conf.vertex_inputs[name][0]]
+            return self.conf.vertices[name].layer_input(x).contiguous()
+
     def pretrain(self, data, epochs: int = 1) -> None:
-        raise NotImplementedError(
-            "layer-wise pretraining is not ported yet (periphery: "
-            "pretrainable layers)")
+        """Greedy layer-wise unsupervised pretraining of every
+        pretrainable layer vertex (AutoEncoder, RBM,
+        VariationalAutoencoder) in topological order, each on what the
+        frozen graph feeds it (reference ``ComputationGraph.pretrain``),
+        computed once a batch; ``conf.iterations`` updates a batch with
+        the vertex's own updater (fresh state, the schedule counted from
+        0)."""
+        if self.params is None:
+            self.init()
+        data = core.pretrain_batches(data)
+        base = random.host_key(self.conf.seed)
+        for topo_idx, n in enumerate(self.topo):
+            v = self.conf.vertices[n]
+            if not (isinstance(v, LayerVertex)
+                    and v.layer_conf.is_pretrainable()):
+                continue
+            core.pretrain_layer(
+                self, n, v.layer_conf, random.fold_in(base, 7919 + topo_idx),
+                data, epochs, lambda ds, n=n: self._pretrain_input(
+                    n, self._tensors(_as_list(ds.features))))
+        self._pretrain_done = True
 
     def _evaluate_one(self, e, ds) -> None:
         from deeplearning4j_tpu_torch.eval.evaluation import host_array

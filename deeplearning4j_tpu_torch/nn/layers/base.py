@@ -24,6 +24,9 @@ Contract:
   reference's InputType shape inference.
 - ``updater_settings()`` / ``regularizable_params()``: what the updater
   and the L1/L2 penalty read.
+- ``is_pretrainable()`` / ``pretrain_loss(params, x, rng)``: the
+  layer-wise unsupervised objective the engines' ``pretrain`` fits
+  (``nn/layers/pretrain.py``, ``nn/layers/variational.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ def layer_to_json(layer: "LayerSpec") -> dict:
             v = {"@input_type": True, **v.to_json()}
         elif isinstance(v, LayerSpec):
             v = layer_to_json(v)
+        elif hasattr(v, "to_json") and hasattr(v, "neg_log_prob"):
+            v = v.to_json()  # a ReconstructionDistribution (@dist_class)
         elif isinstance(v, tuple):
             v = list(v)
         d[f.name] = v
@@ -94,6 +99,12 @@ def layer_from_json(d: dict) -> "LayerSpec":
             v = InputType.from_json({
                 kk: vv for kk, vv in v.items() if kk != "@input_type"
             })
+        elif isinstance(v, dict) and "@dist_class" in v:
+            from deeplearning4j_tpu_torch.nn.layers.variational import (
+                ReconstructionDistribution,
+            )
+
+            v = ReconstructionDistribution.from_json(v)
         elif isinstance(v, dict) and "@class" in v:
             v = layer_from_json(v)
         elif isinstance(v, list):
@@ -271,6 +282,12 @@ class LayerSpec:
         )
 
     def has_loss(self) -> bool:
+        return False
+
+    def is_pretrainable(self) -> bool:
+        """True for the layers the engines' ``pretrain`` fits on their
+        own (AutoEncoder, RBM, VariationalAutoencoder: a
+        ``pretrain_loss``)."""
         return False
 
     def uses_batch_statistics(self) -> bool:

@@ -54,8 +54,17 @@ per-step loop. ``fit`` runs the epoch loop of
 validator (``set_batch_validator``), the preemption check, and the
 dispatch window (``max_in_flight`` / ``guard_lag``); ``resume`` and
 ``fit(resume_from=)`` restore a checkpoint into the network
-(``resilience/checkpoint.py``). ``fit`` raises, naming the slice that
-brings them, for the line-search solvers and layer-wise pretraining.
+(``resilience/checkpoint.py``). A configuration whose
+``optimization_algo`` is LBFGS, CONJUGATE_GRADIENT or
+LINE_GRADIENT_DESCENT trains each minibatch through
+``optimize/solvers.py``'s ``Solver`` (built once, its LBFGS / CG state
+kept across calls), which the per-step loop reaches through
+``fit_minibatch`` (the chunk paths are the SGD step's). ``pretrain``
+fits each pretrainable layer (AutoEncoder, RBM, VariationalAutoencoder)
+on the frozen stack's activations, layer ``idx``'s iteration ``it``
+drawing from ``fold_in(fold_in(PRNGKey(conf.seed), 7919 + idx), it)``;
+``fit`` pretrains once first where ``conf.pretrain`` asks for it, and
+stops there with ``backprop=False``.
 """
 
 from __future__ import annotations
@@ -102,6 +111,8 @@ class MultiLayerNetwork(EngineApi):
         self._last_batch_rows = 0
         self.grad_accum = 1
         self._step = None
+        self._solver = None  # built at the first line-search minibatch
+        self._pretrain_done = False
         # the transform knobs, the guard and their device states
         core.init_transforms(self)
         # {"shards": n} while the updater state lies in ZeRO-1's flat
@@ -166,6 +177,7 @@ class MultiLayerNetwork(EngineApi):
         self._zero_layout = None
         self._row_layout = None
         self._tp_layout = None
+        self._pretrain_done = False  # fresh parameters: pretrain again
         return self
 
     # -- inference ---------------------------------------------------------
@@ -269,21 +281,6 @@ class MultiLayerNetwork(EngineApi):
         return None if a is None else self._to_device(a, dtype)
 
     # -- training ----------------------------------------------------------
-
-    def _check_trainable(self) -> None:
-        """Refuse, naming the slice that brings it, what this port's
-        training loop does not carry yet."""
-        conf = self.conf
-        missing = []
-        if conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
-            missing.append(f"the {conf.optimization_algo} solver "
-                           "(periphery: optimize/)")
-        if conf.pretrain:
-            missing.append("layer-wise pretraining (periphery: "
-                           "pretrainable layers)")
-        if missing:
-            raise NotImplementedError(
-                "fit: not ported yet: " + "; ".join(missing))
 
     def set_divergence_guard(self, guard) -> None:
         """(Un)install a ``resilience.DivergenceGuard`` on the train step
@@ -412,7 +409,8 @@ class MultiLayerNetwork(EngineApi):
         core.set_batch_validator(self, validator, quarantine)
 
     def fit_minibatch(self, ds) -> torch.Tensor:
-        """One minibatch through ``conf.iterations`` optimizer steps, or
+        """One minibatch through ``conf.iterations`` optimizer steps (a
+        line-search solver's where ``optimization_algo`` names one), or
         under truncated BPTT one step a chunk; returns the last step's
         score as a 0-d tensor on the device."""
         from deeplearning4j_tpu_torch.datasets.api import ChunkedDataSet
@@ -424,7 +422,10 @@ class MultiLayerNetwork(EngineApi):
             return score
         if self.params is None:
             self.init()
-        self._check_trainable()
+        if self.conf.optimization_algo != "STOCHASTIC_GRADIENT_DESCENT":
+            return self._solver_minibatch(
+                ds.features, ds.labels, getattr(ds, "labels_mask", None),
+                getattr(ds, "features_mask", None))
         # a model left sharded by a zero=True trainer steps canonical
         core.canonicalize_updater_state(self)
         x, y, mask, fmask = self.batch_tensors(ds)
@@ -446,6 +447,63 @@ class MultiLayerNetwork(EngineApi):
                           grad_norm=self._last_grad_norm,
                           rows=self._last_batch_rows)
         return score
+
+    # -- layer-wise pretraining (reference pretrain(iter)) -----------------
+
+    def _input_to_layer_pure(self, params, state, x, idx: int):
+        """The input layer ``idx`` sees: the inference forward through
+        layers ``[0, idx)``, then ``idx``'s own preprocessor."""
+        from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+            ShapeContext,
+        )
+
+        ctx = ShapeContext(batch=int(x.shape[0]),
+                           time=int(x.shape[2]) if x.dim() == 3 else -1)
+        for i in range(idx):
+            if i in self.conf.preprocessors:
+                x = self.conf.preprocessors[i].preprocess(x, ctx)
+            name = self.layer_names[i]
+            x, _ = self.conf.layers[i].apply(
+                params[name], x.contiguous(), state.get(name, {}),
+                train=False, rng=None)
+        if idx in self.conf.preprocessors:
+            x = self.conf.preprocessors[idx].preprocess(x, ctx)
+        return x.contiguous()
+
+    def pretrain(self, data, epochs: int = 1) -> None:
+        """Greedy layer-wise unsupervised pretraining (reference
+        ``pretrain(DataSetIterator)``): each pretrainable layer in order
+        fits its ``pretrain_loss`` on the activations of the frozen
+        stack below it, computed once a batch, ``conf.iterations``
+        updates a batch with the layer's own updater (fresh state, the
+        learning-rate schedule counted from 0). ``data``: a DataSet, a
+        list or iterator of them, or an ``(x, y)`` pair."""
+        from deeplearning4j_tpu_torch.datasets.api import DataSet
+
+        if self.params is None:
+            self.init()
+        if (isinstance(data, tuple) and len(data) == 2
+                and not hasattr(data[0], "features")):
+            data = [DataSet(features=data[0], labels=data[1])]
+        data = core.pretrain_batches(data)
+        dtype = core.dtype_of(self.conf)
+        base = random.host_key(self.conf.seed)
+        for idx, (name, layer) in enumerate(zip(self.layer_names,
+                                                self.conf.layers)):
+            if not layer.is_pretrainable():
+                continue
+
+            @torch.no_grad()
+            def layer_input(ds, idx=idx):
+                x = self._to_device(
+                    ds.features if hasattr(ds, "features") else ds, dtype)
+                return self._input_to_layer_pure(self.params, self.state, x,
+                                                 idx)
+
+            core.pretrain_layer(self, name, layer,
+                                random.fold_in(base, 7919 + idx), data,
+                                epochs, layer_input)
+        self._pretrain_done = True
 
     def batch_tensors(self, ds, device=None):
         """(features, labels, labels mask, features mask) of a DataSet as

@@ -1,11 +1,13 @@
 """A counter-based generator that draws the JAX package's bits.
 
 Counterpart of the ``jax.random`` calls that the layers and engines of
-the JAX package make (``PRNGKey``, ``fold_in``, ``random_bits``,
-``uniform``, ``bernoulli``) under JAX's default threefry2x32 generator
-with ``jax_threefry_partitionable`` on. Threefry-2x32 (20 rounds) runs
-in ``int64`` arithmetic masked to 32 bits, so the same seed, iteration
-and layer index give the JAX package's masks bit for bit.
+the JAX package make (``PRNGKey``, ``fold_in``, ``split``,
+``random_bits``, ``uniform``, ``bernoulli``, ``normal``) under JAX's
+default threefry2x32 generator with ``jax_threefry_partitionable`` on.
+Threefry-2x32 (20 rounds) runs in ``int64`` arithmetic masked to 32
+bits, so the same seed, iteration and layer index give the JAX
+package's masks and samples bit for bit (``normal`` to within its
+``erfinv``: see there).
 
 A key is two 32-bit words. It lives either in a 2-element ``int64``
 tensor (``key(seed, device)``; every function below is then plain torch
@@ -91,6 +93,13 @@ def fold_in(k: Key, data) -> Key:
     return y0, y1
 
 
+def split(k: Key, n: int) -> list:
+    """``jax.random.split(k, n)`` as a list of ``n`` keys in ``k``'s
+    form: under the partitionable threefry key ``i`` is the output pair
+    of counter ``i``, which is ``fold_in(k, i)``."""
+    return [fold_in(k, i) for i in range(int(n))]
+
+
 def bits(k: Key, shape: Sequence[int], offset: int = 0,
          device=None) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (uint32 words, held in ``int64``)
@@ -108,19 +117,52 @@ def bits(k: Key, shape: Sequence[int], offset: int = 0,
 
 
 def uniform(k: Key, shape: Sequence[int], offset: int = 0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` in f32 on ``[0, 1)``: the top 23
-    bits as the mantissa of a float in ``[1, 2)``, minus one."""
+            device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=, maxval=)`` in f32: the
+    top 23 bits as the mantissa of a float in ``[1, 2)``, minus one,
+    then ``max(minval, u * (maxval - minval) + minval)`` (skipped for
+    ``[0, 1)``, where it is the identity). XLA fuses that product and
+    sum into one fused multiply-add; it is taken here in f64 (the
+    product exact) and rounded once to f32, which is the fused result
+    but for a double rounding of odds about 2**-29 an element."""
     b = bits(k, shape, offset, device)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return f
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    fused = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused)
 
 
-def bernoulli(k: Key, p: float, shape: Sequence[int], offset: int = 0,
-              device=None) -> torch.Tensor:
+def bernoulli(k: Key, p, shape: Optional[Sequence[int]] = None,
+              offset: int = 0, device=None) -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)``: a bool tensor, True where
-    the f32 uniform is below f32 ``p``."""
+    the f32 uniform is below ``p``. ``p`` is a float (taken in f32) or
+    a tensor of probabilities (its shape the default ``shape``, its
+    device the draw's), as the RBM samples its units."""
+    if torch.is_tensor(p):
+        shape = tuple(p.shape) if shape is None else shape
+        return uniform(k, shape, offset, p.device) < p
     return uniform(k, shape, offset, device) < float(p)
+
+
+# the lower end of JAX's normal draw: nextafter(-1, 0) in f32
+_NORMAL_LO = -0.99999994039535522
+_SQRT2_F32 = 1.4142135381698608
+
+
+def normal(k: Key, shape: Sequence[int], offset: int = 0,
+           device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in f32: ``sqrt(2) *
+    erfinv(uniform(k, shape, nextafter(-1, 0), 1))``. The uniform is JAX's
+    bit for bit; ``torch.erfinv`` is not XLA's polynomial, so a sample
+    may differ from JAX's in its last bits, most in the tails: within
+    1e-5 absolute plus 1e-5 relative on the CPU
+    (``tests/test_torch_pretrain.py``)."""
+    u = uniform(k, shape, offset, device, minval=_NORMAL_LO, maxval=1.0)
+    return torch.erfinv(u) * _SQRT2_F32
 
 
 # --- the data-parallel row window -------------------------------------------

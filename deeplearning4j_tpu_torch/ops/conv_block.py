@@ -10,7 +10,8 @@ BN affine fold into one f32 ``(scale, shift)`` pair outside the kernel
 gradients of bias, gamma and beta flow through the fold by autograd;
 padding is done inside the kernel by bounds checks, so no padded copy
 of x is made. f32, bf16 and f16 inputs are taken; the sum is f32 and is
-cast once, as on the TPU. When the output has too few tiles to fill the
+cast once, as on the TPU. The plain version also takes f64, summed in
+f64 (``acc_dtype``; the gradient check's). When the output has too few tiles to fill the
 card, the library splits the reduction and the wrapper hands it an f32
 scratch for the partial sums (``_build.split_scratch``). The output is
 x's dtype, or f32 for the backward's recompute of the accumulator (half
@@ -123,10 +124,18 @@ def _pair(v) -> tuple:
     return (int(v), int(v))
 
 
-def _fold_epilogue(o: int, bias, bn_scale, bn_shift, device):
-    """Collapse bias + BN affine to one f32 (scale, shift) pair:
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a conv of ``dtype`` operands sums in: f32, or f64 for
+    f64 (the plain version's, for the f64 gradient check; the kernels
+    take no f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _fold_epilogue(o: int, bias, bn_scale, bn_shift, device,
+                   f32=torch.float32):
+    """Collapse bias + BN affine to one (scale, shift) pair in the sum's
+    dtype ``f32`` (f32 but in the f64 plain version):
     act((conv + bias) * a + b) == act(conv * a + (bias * a + b))."""
-    f32 = torch.float32
     if bn_scale is None and bn_shift is None and bias is not None:
         # the conv layers' case: no BN, so shift is the bias as it is
         return (torch.ones(o, dtype=f32, device=device),
@@ -155,10 +164,8 @@ def conv_output_size(size: int, k: int, s: int, p: int) -> int:
 
 def _plain_forward(x, w, scale, shift, stride, padding, activation,
                    out_dtype):
-    xf, wf = x, w
-    if x.dtype != torch.float32:  # f32 accumulation for half inputs
-        xf, wf = x.float(), w.float()
-    y = F.conv2d(xf, wf, stride=stride, padding=padding)
+    acc = acc_dtype(x.dtype)  # f32 accumulation for half inputs
+    y = F.conv2d(x.to(acc), w.to(acc), stride=stride, padding=padding)
     z = y * scale.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
     return _EPILOGUES[activation](z).to(out_dtype)
 
@@ -380,8 +387,9 @@ def conv_bwd_data_reference(dacc, w, x_hw, stride=(1, 1), padding=(0, 0)):
     stride, padding = _pair(stride), _pair(padding)
     n, o, oh, ow = (int(v) for v in dacc.shape)
     _, c, kh, kw = (int(v) for v in w.shape)
-    cols = torch.matmul(w.float().reshape(o, c * kh * kw).t(),
-                        dacc.float().reshape(n, o, oh * ow))
+    acc = acc_dtype(dacc.dtype)
+    cols = torch.matmul(w.to(acc).reshape(o, c * kh * kw).t(),
+                        dacc.to(acc).reshape(n, o, oh * ow))
     return F.fold(cols, output_size=tuple(int(v) for v in x_hw),
                   kernel_size=(kh, kw), stride=stride, padding=padding)
 
@@ -393,8 +401,9 @@ def conv_bwd_w_reference(x, dacc, w_shape, stride=(1, 1), padding=(0, 0)):
     stride, padding = _pair(stride), _pair(padding)
     o, c, kh, kw = (int(v) for v in w_shape)
     n = int(dacc.shape[0])
-    cols = F.unfold(x.float(), (kh, kw), padding=padding, stride=stride)
-    g = dacc.float().reshape(n, o, -1)
+    acc = acc_dtype(dacc.dtype)
+    cols = F.unfold(x.to(acc), (kh, kw), padding=padding, stride=stride)
+    g = dacc.to(acc).reshape(n, o, -1)
     dw = torch.einsum("nol,nkl->ok", g, cols)
     return dw.reshape(o, c, kh, kw)
 
@@ -748,7 +757,7 @@ class _ConvBlockFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w, scale, shift = ctx.saved_tensors
         stride, padding, activation, kernels = ctx.geometry
-        f32 = torch.float32
+        f32 = acc_dtype(x.dtype)
         fwd = _kernel_forward if kernels else _plain_forward
         acc = fwd(x, w, torch.ones_like(scale), torch.zeros_like(shift),
                   stride, padding, "identity", f32)
@@ -781,7 +790,8 @@ def _conv(x, w, bias, bn_scale, bn_shift, stride, padding, activation,
             if t is not None and (t.device != x.device or t.numel() != o):
                 raise ValueError(f"conv_block: {name} must hold {o} values "
                                  f"on {x.device}")
-    scale, shift = _fold_epilogue(o, bias, bn_scale, bn_shift, x.device)
+    scale, shift = _fold_epilogue(o, bias, bn_scale, bn_shift, x.device,
+                                  acc_dtype(x.dtype))
     stride, padding = _pair(stride), _pair(padding)
     if not wants_grad(x, w, scale, shift):
         fwd = _kernel_forward if kernels else _plain_forward

@@ -9,6 +9,8 @@ variant, ``_matmul_res_kernel``; it counts its launches apart, as
 ``matmul_block_residual``). Any m, k, n is taken: the kernel
 masks ragged edges, so there is no counterpart of ``matmul_block_ok``.
 f32, bf16 and f16 inputs are taken; the sum is f32 and is cast once.
+The plain version also takes f64 (the gradient check's), summed in f64
+(``acc_dtype``).
 The kernel has two routes, picked from the shape alone by
 ``matmul_route``: ``"wide"`` (128 x 192 tiles, a cp.async ring) for
 products whose grid fills the card, ``"tiled"`` (64 x 64 tiles) for the
@@ -36,6 +38,7 @@ from deeplearning4j_tpu_torch.ops.conv_block import (
     _EPILOGUE_GRADS,
     _EPILOGUES,
     EPILOGUE_CODES,
+    acc_dtype,
     check_epilogue,
     check_kernel_operand,
     check_trainable,
@@ -61,19 +64,17 @@ def matmul_route(m: int, n: int) -> str:
     return "wide" if tiles >= WIDE_MIN_TILES else "tiled"
 
 
-def _bias_f32(b, n: int, device) -> torch.Tensor:
+def _bias_acc(b, n: int, device, dtype) -> torch.Tensor:
     if b is None:
-        return torch.zeros(n, dtype=torch.float32, device=device)
-    return b.to(torch.float32).contiguous()
+        return torch.zeros(n, dtype=dtype, device=device)
+    return b.to(dtype).contiguous()
 
 
 def _plain_z(x, w, bias, residual=None):
-    xf, wf = x, w
-    if x.dtype != torch.float32:
-        xf, wf = x.float(), w.float()
-    z = torch.matmul(xf, wf) + bias
+    acc = acc_dtype(x.dtype)
+    z = torch.matmul(x.to(acc), w.to(acc)) + bias
     if residual is not None:
-        z = z + residual.to(torch.float32)
+        z = z + residual.to(acc)
     return z
 
 
@@ -129,9 +130,9 @@ class _MatmulBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, bias, residual = ctx.saved_tensors
-        f32 = torch.float32
-        xf, wf = x.to(f32), w.to(f32)
-        dz = g.to(f32)
+        acc = acc_dtype(x.dtype)
+        xf, wf = x.to(acc), w.to(acc)
+        dz = g.to(acc)
         if ctx.activation != "identity":
             dz = dz * _EPILOGUE_GRADS[ctx.activation](
                 _plain_z(xf, wf, bias, residual))
@@ -150,7 +151,7 @@ def _matmul(x, w, b, residual, activation, kernels: bool):
                                       or b.numel() != n):
         raise ValueError(f"matmul_block: b must hold {n} values on "
                          f"{x.device}")
-    bias = _bias_f32(b, n, x.device)
+    bias = _bias_acc(b, n, x.device, acc_dtype(x.dtype))
     if not wants_grad(x, w, bias, residual):
         fwd = _kernel_forward if kernels else _plain_forward
         return fwd(x, w, bias, residual, activation)

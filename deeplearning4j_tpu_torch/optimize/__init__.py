@@ -1,5 +1,6 @@
-"""Training listeners (``optimize/listeners.py``) and the profiler
-listener (``optimize/profiler.py``)."""
+"""Training listeners (``optimize/listeners.py``), the profiler
+listener (``optimize/profiler.py``) and the line-search solvers
+(``optimize/solvers.py``)."""
 
 from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: F401
     CollectScoresIterationListener,
@@ -12,4 +13,9 @@ from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: F401
 from deeplearning4j_tpu_torch.optimize.profiler import (  # noqa: F401
     ProfilerListener,
     annotate,
+)
+from deeplearning4j_tpu_torch.optimize.solvers import (  # noqa: F401
+    Solver,
+    backtrack_line_search,
+    is_solver_algo,
 )

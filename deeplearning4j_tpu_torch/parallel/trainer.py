@@ -176,6 +176,7 @@ class DistributedTrainer:
                 "zero=True needs the synchronous step; batch_stats='local' "
                 "keeps per-rank replicated updater state, exactly what "
                 "zero removes")
+        core.check_sgd_step(model, "DistributedTrainer")
         self.model = model
         self.max_in_flight = int(max_in_flight)
         self.guard_lag = guard_lag
@@ -900,7 +901,7 @@ class DistributedTrainer:
 
     def _check_zero_layout(self) -> None:
         m = self.model
-        m._check_trainable()
+        core.check_sgd_step(m, "DistributedTrainer")
         want_rows = ({"shards": self.mesh.data, "rank": self.mesh.rank,
                       "layers": list(self._row_layers)}
                      if self._row_layers else None)

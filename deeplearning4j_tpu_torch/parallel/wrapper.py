@@ -99,7 +99,7 @@ class ParallelWrapper:
         )
 
         m = self.model
-        m._check_trainable()
+        core.check_sgd_step(m, "ParallelWrapper")
         self._ensure_replicas()
         owned = None
         source = iterator

@@ -8,6 +8,7 @@ import json
 import warnings
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke as cs
@@ -196,3 +197,82 @@ def test_cluster_phase_rehearses_on_cpu(capsys):
     res = json.loads(line[len("[cluster] "):line.rindex(" card=")])
     assert res["max_share_of_move"] <= cs.CLUSTER_SHARE
     assert res["early_stopping"]["epochs"] == cs.CLUSTER_ES_EPOCHS
+
+
+def _phase_result(out: str, tag: str) -> dict:
+    line = next(ln for ln in out.splitlines() if ln.startswith(f"[{tag}] {{"))
+    return json.loads(line[len(f"[{tag}] "):line.rindex(" card=")])
+
+
+def test_fit_phases_are_registered_and_on_the_kernels_line():
+    """``[deep-ae]``, ``[vae]`` and ``[lenet-lbfgs]`` run in FIT_PATHS's
+    order and answer ``--phases``; the LeNet solver path's launches are
+    summed into the kernels line and listed by path; a solver call's
+    launches follow its line-search trials."""
+    assert [t for t, _ in cs.fit_phases()] == list(cs.FIT_PATHS) == [
+        "deep-ae", "vae", "lenet-lbfgs"]
+    assert cs.parse_phases(["--phases", "deep-ae,vae,lenet-lbfgs"]) == set(
+        cs.FIT_PATHS)
+    # LBFGS: two gradients a step, a forward a trial; CG's first call
+    # one gradient more
+    assert cs.solver_step_launches("LBFGS", [0, 2], False) == {
+        "conv_block": 2 * 2 * 4 + 4 * 2, "conv_bwd_data": 4,
+        "conv_bwd_w": 8, "matmul_block": 4 + 4}
+    assert cs.solver_step_launches("CONJUGATE_GRADIENT", [1], True) == {
+        "conv_block": 2 * 4 + 2 * 2, "conv_bwd_data": 2, "conv_bwd_w": 4,
+        "matmul_block": 2 + 2}
+    paths = {"deep-ae": {"conv_block": 0}, "vae": {},
+             "lenet-lbfgs": {"conv_block": 90, "conv_bwd_data": 11,
+                             "conv_bwd_w": 22, "matmul_block": 45},
+             "train": {"conv_block": 200}}
+    line = {k["name"]: k for k in cs.kernels_line([], [], [], paths, {})}
+    assert set(line) == {"conv_block", "conv_bwd_data", "conv_bwd_w",
+                         "matmul_block"}
+    assert line["conv_block"]["launches"] == 290
+    assert line["conv_block"]["launches_by_path"] == {"lenet-lbfgs": 90}
+    assert line["matmul_block"]["launches_by_path"] == {"lenet-lbfgs": 45}
+
+
+def test_fit_phase_configurations_are_the_examples():
+    """The DeepAutoEncoder and the MNIST VAE at their published widths:
+    the JAX package's parameter counts."""
+    deep = cs.deep_ae_conf()
+    assert [(layer.n_in, layer.n_out) for layer in deep.layers] == [
+        (784, 1000), (1000, 500), (500, 250), (250, 100), (100, 30),
+        (30, 100), (100, 250), (250, 500), (500, 1000), (1000, 784)]
+    assert (deep.optimization_algo, deep.pretrain, deep.backprop,
+            deep.iterations) == ("LINE_GRADIENT_DESCENT", True, True, 1)
+    assert MultiLayerNetwork(deep, device="cpu").init().num_params() == \
+        2_882_028
+    vae = cs.vae_conf()
+    layer = vae.layers[0]
+    assert (layer.updater, layer.learning_rate, layer.l2, layer.activation,
+            vae.pretrain, vae.backprop) == ("RMSPROP", 1e-3, 1e-4,
+                                            "leakyrelu", True, False)
+    assert MultiLayerNetwork(vae, device="cpu").init().num_params() == \
+        535_828
+
+
+@pytest.mark.parametrize("tag,kw", [
+    ("deep-ae", {"widths": (784, 64, 32, 8), "batch": 64, "n_batches": 3}),
+    ("vae", {"hidden": (32, 32), "batch": 32, "steps": 6}),
+    ("lenet-lbfgs", {"batch": 32, "minibatches": 3, "dense_width": 64}),
+])
+def test_fit_phases_rehearse_on_cpu(capsys, tag, kw):
+    """Each phase on the plain path at small widths: the twin holds (on
+    the CPU bitwise), the score falls, no kernel launches."""
+    fn = dict(cs.fit_phases())[tag]
+    launches = fn(torch, "cpu", device="cpu", **kw)
+    assert not any(launches.values())
+    res = _phase_result(capsys.readouterr().out, tag)
+    if tag == "deep-ae":
+        assert res["score_after"] < res["score_pretrained"]
+        assert res["twin_pretrain_max_abs_diff"] == 0.0
+        assert res["twin_chain_flips"] == [0] * res["rbms"]
+    elif tag == "vae":
+        assert res["neg_elbo_after"] < res["neg_elbo_before"]
+        assert res["twin_step1_grad_share"] == 0.0
+    else:
+        for algo in ("LBFGS", "CONJUGATE_GRADIENT"):
+            assert res[algo]["score_after"] < res[algo]["score_before"]
+            assert len(res[algo]["line_search_trials"]) == 3

@@ -3120,3 +3120,58 @@ def test_gpipe_on_the_card(card_world):
         np.testing.assert_allclose(r["pipe"], a["pipe_ref"], rtol=1e-5,
                                    atol=1e-6)
         assert int(r["pipe_launches"]) == 5
+
+
+@pytest.mark.parametrize("algo", ["LBFGS", "CONJUGATE_GRADIENT",
+                                  "LINE_GRADIENT_DESCENT"])
+def test_lenet_solver_step_launches_on_the_card(cuda, algo):
+    """[lenet-lbfgs]'s solver on LeNet-5: each ``fit_minibatch`` launches
+    exactly ``chip_smoke.solver_step_launches`` of its line-search
+    trials (the gradient through the four kernels, a forward a trial),
+    and two steps hold the CPU twin: the scores and parameters to rtol
+    2e-4 / atol 2e-5, the same accepted alpha. A first trial step of 1
+    makes the line search backtrack."""
+    import chip_smoke
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    conf = MultiLayerConfiguration.from_dict(dict(
+        lenet(dense_width=64, learning_rate=1.0).to_dict(),
+        optimization_algo=algo))
+    init = chip_smoke.host_params(MultiLayerNetwork(conf,
+                                                    device="cpu").init())
+    net = MultiLayerNetwork(conf, device=cuda).init(params=init)
+    twin = MultiLayerNetwork(conf, device="cpu").init(params=init)
+    backtracked = 0
+    for i, ds in enumerate(_lenet_batches(2, batch=64)):
+        dispatch.reset_launch_counts()
+        got = float(net.fit_minibatch(ds))
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        ref = float(twin.fit_minibatch(ds))
+        trials = [s["trials"] for s in net._solver.last_steps]
+        backtracked += sum(trials)
+        want = chip_smoke.solver_step_launches(algo, trials, i == 0)
+        assert {k: v for k, v in counts.items() if v} == want
+        assert [float(s["alpha"]) for s in net._solver.last_steps] == [
+            float(s["alpha"]) for s in twin._solver.last_steps]
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
+    assert backtracked > 0
+    chip_smoke.hold_params("solver", net, twin, 2e-4, 2e-5)
+
+
+def test_f64_gradient_check_refuses_the_kernels(cuda):
+    """``check_gradients(device="cuda")`` builds its f64 copy on the card
+    and the first kernel it reaches refuses f64; it does not move to the
+    CPU on its own."""
+    from deeplearning4j_tpu_torch.nn.gradient_check import check_gradients
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    net = MultiLayerNetwork(lenet(dense_width=16), device=cuda).init()
+    ds = _lenet_batches(1, batch=2)[0]
+    with pytest.raises((TypeError, NotImplementedError), match="float64"):
+        check_gradients(net, ds.features, ds.labels, device="cuda",
+                        max_per_param=2)
+    assert torch.get_default_dtype() == torch.float32

@@ -360,10 +360,17 @@ def test_fit_refuses_what_it_does_not_carry(tmp_path):
     flat = MultiLayerNetwork(tbptt, device="cpu")
     flat.fit(np.zeros((2, 784), np.float32), y)
     assert flat.iteration_count == 1
+    # the line-search solvers are carried now (tests/test_torch_solvers.py
+    # holds them against the JAX package's); an unknown one is refused
     lbfgs = MultiLayerConfiguration.from_dict(
         dict(lenet(dense_width=8).to_dict(), optimization_algo="LBFGS"))
-    with pytest.raises(NotImplementedError, match="LBFGS"):
-        MultiLayerNetwork(lbfgs, device="cpu").fit(x, y)
+    solved = MultiLayerNetwork(lbfgs, device="cpu")
+    solved.fit(x[:, :1, :28, :28].reshape(2, 784), y)
+    assert solved.iteration_count == 1 and np.isfinite(solved.score_value)
+    odd = MultiLayerConfiguration.from_dict(
+        dict(lenet(dense_width=8).to_dict(), optimization_algo="NEWTON"))
+    with pytest.raises(ValueError, match="NEWTON"):
+        MultiLayerNetwork(odd, device="cpu").fit(x, y)
     assert net.iteration_count == 0
 
 
