@@ -288,6 +288,25 @@ non-zero (nothing is caught):
    launches exactly its line-search trials' (``solver_step_launches``).
    Each times its steps and profiles one off its main path (device ms,
    busy share).
+21. model import and the kernel tuner (main paths, after the rest of
+   ``fit``; TUNE_PATHS): ``[keras-vgg16]`` Keras 1.2's VGG-16
+   (``VGG16(include_top=True)``'s layers as a Sequential config, ``th``,
+   224 x 224 x 3, 1000 classes, 138,357,544 parameters) imported by
+   ``modelimport.keras`` from its config JSON and seeded Keras-layout
+   weights: the import exact, ``output`` at batch 16 with every conv and
+   dense kernel call held against its plain version on its operands, a
+   batch-2 CPU twin of the same import at kernel_tols, 2 ``fit`` steps
+   at batch 16 with each step's launches exact, forward and step ms,
+   images/s, device ms, busy share, peak memory (its 28 distinct step
+   shapes among the ``[kernel]`` records, ``keras-vgg16.``);
+   ``[autotune]`` two subprocesses on one temporary tuning cache: with
+   ``DL4J_TPU_TUNE=on`` every kernel shape of that forward and step is
+   measured (heuristic, winner and the plans measured printed, no winner
+   slower than its heuristic as measured) and persisted; with
+   ``cached`` the same step measures nothing, runs the persisted
+   winners, each kernel call held against its plain version; then an
+   entry with a changed torch version is refused as stale, counted, and
+   resolved to the heuristic.
 
 ``python3 chip_smoke.py --phases tag[,tag...]`` runs the named phases
 alone (and the phases they read: ``[transformer]`` for the ring and
@@ -308,6 +327,7 @@ import faulthandler
 import http.client
 import importlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -9860,6 +9880,496 @@ def run_lenet_lbfgs(torch, card, device="cuda", batch=LBFGS_BATCH,
     return launches
 
 
+# --- Keras's VGG-16 imported at 224 x 224, and the kernel tuner on it ------
+
+KERAS_VGG_IMAGE = 224        # keras.applications.vgg16.VGG16's input
+KERAS_VGG_WIDTHS = (64, 128, 256, 512, 512)
+KERAS_VGG_CONVS = (2, 2, 3, 3, 3)
+KERAS_VGG_FC = 4096
+KERAS_VGG_CLASSES = 1000
+KERAS_VGG_PARAMS = 138_357_544  # VGG16(include_top=True)
+KERAS_VGG_BATCH = 16
+KERAS_VGG_TWIN_BATCH = 2
+KERAS_VGG_STEPS = 2
+KERAS_VGG_SEED = 16
+# Keras 1.x model configs carry no optimizer (compile() sets it): the
+# phase trains the import with SGD at this rate, set after the import as
+# a user would (the port's default of 0.1 diverges this un-normalized
+# VGG-16 in one step: 15.5 -> 8.6e8, measured on one H100)
+KERAS_VGG_LR = 1e-3
+# the CPU twin's hold: the tests' kernel_tols on the CPU (f32 on both
+# sides, TF32 off: sums in another order)
+KERAS_VGG_RTOL, KERAS_VGG_ATOL = 2e-4, 2e-5
+TUNE_BUDGET_MS = 500         # a search's measuring; 28 searches a step
+TUNE_TIMEOUT_S = 300
+TUNE_MARK = "[tune-child] "
+TUNE_STALE_TORCH = "0.0.0-stale"
+
+
+def keras_vgg16_config(image=KERAS_VGG_IMAGE, widths=KERAS_VGG_WIDTHS,
+                       convs=KERAS_VGG_CONVS, fc=KERAS_VGG_FC,
+                       classes=KERAS_VGG_CLASSES) -> str:
+    """Keras 1.2's ``keras.applications.vgg16.VGG16(include_top=True)``
+    layer stack (its layer names) as a Sequential ``to_json()`` config,
+    ``dim_ordering="th"``: 3 x 3 ``Convolution2D`` with
+    ``border_mode="same"`` and relu, 2 x 2 ``MaxPooling2D`` after each
+    block, ``Flatten``, ``Dense`` fc1 / fc2 (relu) and predictions
+    (softmax). Sequential, since the importer refuses the functional API
+    (as the JAX importer does)."""
+    layers = []
+    for b, (width, n) in enumerate(zip(widths, convs), start=1):
+        for i in range(1, n + 1):
+            cfg = {"name": f"block{b}_conv{i}", "nb_filter": width,
+                   "nb_row": 3, "nb_col": 3, "activation": "relu",
+                   "border_mode": "same", "subsample": [1, 1],
+                   "dim_ordering": "th", "init": "glorot_uniform",
+                   "W_regularizer": None, "b_regularizer": None,
+                   "bias": True}
+            if not layers:
+                cfg["batch_input_shape"] = [None, 3, image, image]
+            layers.append({"class_name": "Convolution2D", "config": cfg})
+        layers.append({"class_name": "MaxPooling2D", "config": {
+            "name": f"block{b}_pool", "pool_size": [2, 2],
+            "strides": [2, 2], "border_mode": "valid",
+            "dim_ordering": "th"}})
+    layers.append({"class_name": "Flatten", "config": {"name": "flatten"}})
+    for name, width, act in (("fc1", fc, "relu"), ("fc2", fc, "relu"),
+                             ("predictions", classes, "softmax")):
+        layers.append({"class_name": "Dense", "config": {
+            "name": name, "output_dim": width, "activation": act,
+            "init": "glorot_uniform", "bias": True}})
+    return json.dumps({"class_name": "Sequential", "config": layers,
+                       "keras_version": "1.2.2"})
+
+
+def keras_vgg16_weights(config_json: str, seed: int = KERAS_VGG_SEED) -> dict:
+    """Seeded weights in Keras's own ``th`` layout for the layers of
+    ``config_json`` (``keras_vgg16_config``'s): conv ``W`` [out, in,
+    kh, kw] and Dense ``W`` [in, out], He-normal (relu keeps the
+    activations O(1) through 16 layers), biases 0.01-normal; f32 from
+    numpy's ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    cfg = json.loads(config_json)["config"]
+    c, hw = 3, cfg[0]["config"]["batch_input_shape"][2]
+    n_in = None
+    out = {}
+    for entry in cfg:
+        kind, lc = entry["class_name"], entry["config"]
+        if kind == "Convolution2D":
+            shape = (lc["nb_filter"], c, lc["nb_row"], lc["nb_col"])
+            fan, n_b = c * lc["nb_row"] * lc["nb_col"], lc["nb_filter"]
+            c = lc["nb_filter"]
+        elif kind == "MaxPooling2D":
+            hw //= 2
+            continue
+        elif kind == "Flatten":
+            n_in = c * hw * hw
+            continue
+        else:
+            shape = (n_in, lc["output_dim"])
+            fan, n_b = n_in, lc["output_dim"]
+            n_in = lc["output_dim"]
+        w = rng.standard_normal(shape, dtype=np.float32)
+        w *= np.float32((2.0 / fan) ** 0.5)
+        b = rng.standard_normal(n_b, dtype=np.float32) * np.float32(0.01)
+        out[lc["name"]] = {"W": w, "b": b}
+    return out
+
+
+def keras_vgg16_batch(batch, image=KERAS_VGG_IMAGE,
+                      classes=KERAS_VGG_CLASSES, seed=KERAS_VGG_SEED + 1):
+    """One minibatch from a seed: standardized uint8 pixels ((p - 127.5)
+    / 73.9) and one-hot labels."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    rng = np.random.default_rng(seed)
+    pix = rng.integers(0, 256, (batch, 3, image, image), dtype=np.uint8)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, batch)]
+    return DataSet((pix.astype(np.float32) - 127.5) / 73.9, y)
+
+
+def keras_vgg16_shapes(batch=KERAS_VGG_BATCH, config=None):
+    """The distinct kernel shapes of one training step of the imported
+    VGG-16 at ``batch``: (first layer, kind, geometry, layers)."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_sequential_model_config,
+    )
+
+    conf = import_sequential_model_config(config or keras_vgg16_config())
+    return distinct_shapes(step_shapes(kernel_shapes(conf, batch)))
+
+
+def with_learning_rate(net, lr):
+    """``net`` (not yet trained) with every layer at learning rate
+    ``lr``: the same parameters under a configuration that says so."""
+    import dataclasses
+
+    conf = dataclasses.replace(net.conf, layers=tuple(
+        dataclasses.replace(layer, learning_rate=lr)
+        for layer in net.conf.layers))
+    return type(net)(conf, device=net.device).init(params=net.params)
+
+
+class _no_hold:
+    """``held_on_operands``'s stand-in where nothing is held (the CPU,
+    and the tuning run)."""
+
+    errors = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def run_keras_vgg16(torch, card, device="cuda", config=None,
+                    batch=KERAS_VGG_BATCH, twin_batch=KERAS_VGG_TWIN_BATCH,
+                    steps=KERAS_VGG_STEPS):
+    """[keras-vgg16] Keras 1.2's VGG-16 (include_top, 224 x 224 x 3,
+    1000 classes, ``th``) imported through ``modelimport.keras`` from its
+    config JSON and seeded Keras-layout weights (no h5py): the import
+    held exact; ``output`` at batch 16 with every conv and dense kernel
+    call held against its plain version on its own operands; a batch-2
+    CPU twin of the same import held at kernel_tols; 2 ``fit`` steps at
+    batch 16, each step's launches exact. ``config``: another Keras
+    config (the CPU rehearsal's narrow one). Returns the main path's
+    launch counts."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_sequential_model_arrays,
+    )
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    on_card = device == "cuda"
+    full = config is None
+    config = keras_vgg16_config() if full else config
+    first = json.loads(config)["config"][0]["config"]["batch_input_shape"]
+    image = first[2]
+    t0 = time.perf_counter()
+    weights = keras_vgg16_weights(config)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = per_step_loop(import_sequential_model_arrays(config, weights,
+                                                       device=device))
+    sync_if(torch, on_card)
+    import_s = time.perf_counter() - t0
+    net = per_step_loop(with_learning_rate(net, KERAS_VGG_LR))
+    n_params = net.num_params()
+    if full and n_params != KERAS_VGG_PARAMS:
+        raise RuntimeError(f"[keras-vgg16] {n_params} params, expected "
+                           f"{KERAS_VGG_PARAMS}")
+    for ln, lp in weights.items():  # the th import is exact
+        for pn, arr in lp.items():
+            if not np.array_equal(net.params[ln][pn].cpu().numpy(), arr):
+                raise RuntimeError(f"[keras-vgg16] {ln}/{pn} is not the "
+                                   "Keras array")
+    shapes = kernel_shapes(net.conf, batch)
+    n_conv = sum(1 for s in shapes if s[1] == "conv_block")
+    n_dense = sum(1 for s in shapes if s[1] == "matmul_block")
+    classes = int(net.conf.layers[-1].n_out)
+    print(f"[keras-vgg16] Keras 1.2 VGG16(include_top=True) as a Sequential "
+          f"config ({len(json.loads(config)['config'])} Keras layers, "
+          f"{n_conv} convs, {n_dense} fused dense, {n_params} params), "
+          f"{image}x{image}x3 th, {classes} classes, batch {batch}, f32; "
+          f"weights {weights_s:.2f} s, import {import_s:.2f} s")
+    ds = keras_vgg16_batch(batch, image, classes)
+    main = {}
+    held = held_on_operands(dense=True) if on_card else _no_hold()
+    dispatch.reset_launch_counts()
+    with held:
+        out = net.output(ds.features)
+    sync_if(torch, on_card)
+    per_output = dispatch.launch_counts()
+    if on_card:
+        if per_output != expected_counts(conv_block=n_conv,
+                                         matmul_block=n_dense):
+            raise RuntimeError(f"[keras-vgg16] output launched {per_output}")
+        if {k: n for k, (n, _) in held.errors.items()} != {
+                "conv_block": n_conv, "matmul_block": n_dense}:
+            raise RuntimeError(f"[keras-vgg16] held calls: {held.errors}")
+    add_counts(main, per_output)
+    out = out.float().cpu()
+    if tuple(out.shape) != (batch, classes) or not bool(
+            torch.isfinite(out).all()) or not torch.allclose(
+                out.sum(1), torch.ones(batch), atol=1e-4):
+        raise RuntimeError(f"[keras-vgg16] bad output {tuple(out.shape)}")
+    # the CPU twin: the same import on the CPU, on the first rows
+    twin_err = None
+    if on_card:
+        twin = import_sequential_model_arrays(config, weights, device="cpu")
+        small = ds.features[:twin_batch]
+        want = twin.output(small)
+        got = net.output(small).cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=KERAS_VGG_RTOL, atol=KERAS_VGG_ATOL)
+        twin_err = float((got - want).abs().max())
+        del twin
+    reps = 3
+    net.output(ds.features)
+    sync_if(torch, on_card)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        net.output(ds.features)
+    sync_if(torch, on_card)
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    # the main path's steps, each one's launches exact
+    want_step = expected_counts(conv_block=2 * n_conv,
+                                conv_bwd_data=n_conv - 1, conv_bwd_w=n_conv,
+                                matmul_block=n_dense)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    scores, step_ms = [], []
+    for _ in range(steps):
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores.append(float(net.fit_minibatch(ds)))
+        sync_if(torch, on_card)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dispatch.launch_counts()
+        if on_card and launches != want_step:
+            raise RuntimeError(f"[keras-vgg16] a step launched {launches}")
+        add_counts(main, launches)
+    if not all(np.isfinite(scores)) or not scores[-1] < scores[0]:
+        raise RuntimeError(f"[keras-vgg16] the score did not fall: {scores}")
+    res = {"batch": batch, "params": n_params, "forward_ms": fwd_ms,
+           "learning_rate": KERAS_VGG_LR,
+           "forward_images_per_s": batch / fwd_ms * 1e3,
+           "step_ms": step_ms, "images_per_s": batch / step_ms[-1] * 1e3,
+           "scores": scores, "twin_batch": twin_batch,
+           "twin_output_max_abs_err": twin_err,
+           "twin_tolerance": f"rtol {KERAS_VGG_RTOL}, atol {KERAS_VGG_ATOL}",
+           "launches_per_output": {k: v for k, v in per_output.items() if v},
+           "launches_per_step": {k: v for k, v in want_step.items() if v},
+           "kernels_on_operands_max_rel_err": {
+               k: e for k, (_, e) in held.errors.items()},
+           "weights_s": weights_s, "import_s": import_s}
+    if on_card:
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        device_ms, top = profiled_device_ms(
+            torch, lambda: net.fit_minibatch(ds))
+        res.update(device_ms_per_step=device_ms,
+                   device_busy_share=device_ms / step_ms[-1],
+                   top_device_ms_per_step={k[:60]: v for k, v in top.items()})
+    print(f"[keras-vgg16] {json.dumps(res)} card={card}")
+    return main
+
+
+def metric_total(name, **labels):
+    """The default registry's ``name`` summed over its series (those
+    with ``labels``): a counter's value, a histogram's count."""
+    from deeplearning4j_tpu_torch.observability.metrics import (
+        default_registry,
+    )
+
+    fam = default_registry().get(name)
+    if fam is None:
+        return 0
+    kids = [k for k in fam.children()
+            if dict(zip(fam.label_names, k.label_values)).items()
+            >= labels.items()]
+    return sum(k.count if hasattr(k, "count") else k.value for k in kids)
+
+
+def tune_report(mode, held) -> dict:
+    """Every plan this process resolved, each with its persisted entry's
+    times (the heuristic's, the winner's, every plan measured), and the
+    tuner's counters."""
+    from deeplearning4j_tpu_torch.ops import autotune, tiling
+
+    shapes = []
+    for (kernel, items), plan in sorted(autotune.resolved().items()):
+        ident = dict(items)
+        entry = autotune.read_entry(kernel, ident) or {}
+        times = entry.get("timings_ms", {})
+        heur = entry.get("heuristic")
+        shapes.append({
+            "kernel": kernel, "identity": ident,
+            "plan": tiling.plan_tag(plan),
+            "persisted": entry.get("config") == list(plan),
+            "heuristic": None if heur is None else tiling.plan_tag(heur),
+            "heuristic_ms": None if heur is None
+            else times.get(tiling.plan_tag(heur)),
+            "winner_ms": times.get(tiling.plan_tag(plan)),
+            "measured": times})
+    return {"mode": mode, "shapes": shapes,
+            "searches": metric_total("tuner_searches_total"),
+            "measurements": metric_total("tuner_measure_ms"),
+            "hits": metric_total("tuner_cache_hits_total"),
+            "fallbacks": metric_total("tuner_fallback_total"),
+            "held_max_rel_err": {k: e for k, (_, e) in held.errors.items()},
+            "held_calls": {k: n for k, (n, _) in held.errors.items()}}
+
+
+def make_stale(torch, net, x) -> dict:
+    """Rewrite the first persisted forward entry as if another torch had
+    measured it, re-read the tuner's environment, run the forward again:
+    that shape's entry must be refused as stale, counted, and its plan
+    the heuristic's."""
+    from deeplearning4j_tpu_torch.ops import autotune, dispatch, tiling
+
+    key, plan = next((k, p) for k, p in sorted(autotune.resolved().items())
+                     if k[0] == "conv_block")
+    ident = dict(key[1])
+    path = autotune.entry_path("conv_block", ident)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["fingerprint"]["torch"] = TUNE_STALE_TORCH
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    dispatch.reset_for_tests()
+    stale0 = metric_total("tuner_fallback_total", kernel="conv_block",
+                          reason="stale")
+    net.output(x)
+    torch.cuda.synchronize()
+    heur = tiling.conv_fwd_heuristic(
+        ident["n"], ident["c"], ident["h"], ident["w"], ident["o"],
+        ident["kh"], ident["kw"], (ident["sh"], ident["sw"]),
+        (ident["ph"], ident["pw"]), torch.float32)
+    return {"identity": ident, "was": tiling.plan_tag(plan),
+            "resolved": tiling.plan_tag(autotune.resolved()[key]),
+            "heuristic": tiling.plan_tag(heur),
+            "counted": metric_total("tuner_fallback_total",
+                                    kernel="conv_block", reason="stale")
+            - stale0}
+
+
+def tune_child() -> dict:
+    """One [autotune] subprocess (``DL4J_TPU_TUNE`` and the cache
+    directory in its environment): the imported VGG-16's forward and one
+    training step at batch 16 (random weights: the tuner times shapes),
+    then ``tune_report``. In ``cached`` mode each kernel call is held
+    against its plain version on its operands, and then ``make_stale``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_sequential_model_config,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import _build, autotune
+
+    _build.load()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mode = autotune.tuning_mode()
+    conf = import_sequential_model_config(keras_vgg16_config())
+    net = per_step_loop(MultiLayerNetwork(conf, device="cuda").init())
+    ds = keras_vgg16_batch(KERAS_VGG_BATCH)
+    held = held_on_operands(dense=True) if mode == "cached" else _no_hold()
+    t0 = time.perf_counter()
+    with held:
+        out = net.output(ds.features)
+        score = float(net.fit_minibatch(ds))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(out).all()) or not np.isfinite(score):
+        raise RuntimeError(f"tune child ({mode}): output or score not finite")
+    rep = dict(tune_report(mode, held), wall_s=wall_s, score=score)
+    if mode == "cached":
+        rep["stale"] = make_stale(torch, net, ds.features)
+    return rep
+
+
+def _tune_subprocess(mode, cache, timeout_s=TUNE_TIMEOUT_S) -> dict:
+    env = dict(os.environ, DL4J_TPU_TUNE=mode, DL4J_TPU_TUNE_CACHE_DIR=cache,
+               DL4J_TPU_TUNE_BUDGET_MS=str(TUNE_BUDGET_MS))
+    code = ("import json, chip_smoke as cs; "
+            "print(cs.TUNE_MARK + json.dumps(cs.tune_child()))")
+    proc = subprocess.run(
+        [sys.executable, "-X", "faulthandler", "-c", code], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout_s)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TUNE_MARK)]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"[autotune] the {mode} child failed "
+                           f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    return json.loads(lines[-1][len(TUNE_MARK):])
+
+
+def check_tuning(on, cached, n_shapes) -> dict:
+    """The [autotune] holds: the tuning run persisted a winner for every
+    shape, none slower than its heuristic as measured; the cached run
+    measured nothing and used those winners; the stale entry was
+    refused, counted and resolved to the heuristic."""
+    if len(on["shapes"]) != n_shapes or on["searches"] != n_shapes:
+        raise RuntimeError(f"[autotune] tuned {len(on['shapes'])} shapes in "
+                           f"{on['searches']} searches, expected {n_shapes}")
+    for s in on["shapes"]:
+        if not s["persisted"] or s["heuristic_ms"] is None:
+            raise RuntimeError(f"[autotune] not persisted: {s}")
+        if s["winner_ms"] > s["heuristic_ms"]:
+            raise RuntimeError(f"[autotune] winner slower than the "
+                               f"heuristic as measured: {s}")
+
+    def plans(rep):
+        return {(s["kernel"], json.dumps(s["identity"], sort_keys=True)):
+                s["plan"] for s in rep["shapes"]}
+    if plans(cached) != plans(on):
+        raise RuntimeError("[autotune] the cached run's plans differ from "
+                           "the persisted winners")
+    if cached["searches"] or cached["measurements"] or \
+            cached["hits"] != n_shapes or cached["fallbacks"]:
+        raise RuntimeError(f"[autotune] the cached run searched "
+                           f"{cached['searches']}, measured "
+                           f"{cached['measurements']}, hit {cached['hits']}, "
+                           f"fell back {cached['fallbacks']}")
+    stale = cached["stale"]
+    if stale["counted"] != 1 or stale["resolved"] != stale["heuristic"]:
+        raise RuntimeError(f"[autotune] stale entry not refused: {stale}")
+    return {"shapes": n_shapes, "changed": sum(
+        s["plan"] != s["heuristic"] for s in on["shapes"])}
+
+
+def run_autotune(torch, card):
+    """[autotune] the kernel tuner on [keras-vgg16]'s shapes, in two
+    subprocesses on one temporary cache directory: ``DL4J_TPU_TUNE=on``
+    measures every kernel shape of the forward and one training step at
+    batch 16 (the heuristic and the top 4 by prior, best of 3 rounds of
+    4 calls, TUNE_BUDGET_MS a search) and persists the winners;
+    ``cached`` runs the same step measuring nothing, on those winners,
+    each kernel call held against its plain version; then a stale entry
+    is refused. The launches run in the children: this process's main
+    path launches nothing."""
+    import shutil
+    import tempfile
+
+    n_shapes = len(keras_vgg16_shapes())
+    cache = tempfile.mkdtemp(prefix="dl4j-tune-")
+    try:
+        on = _tune_subprocess("on", cache)
+        cached = _tune_subprocess("cached", cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    summary = check_tuning(on, cached, n_shapes)
+    for s in on["shapes"]:
+        print(f"[autotune] {s['kernel']} {json.dumps(s['identity'])}: "
+              f"heuristic {s['heuristic']} {s['heuristic_ms']:.4f} ms -> "
+              f"winner {s['plan']} {s['winner_ms']:.4f} ms "
+              f"({len(s['measured'])} measured: "
+              f"{json.dumps(s['measured'])})")
+    res = dict(summary, tune_wall_s=on["wall_s"],
+               cached_wall_s=cached["wall_s"],
+               heuristic_ms_sum=sum(s["heuristic_ms"] for s in on["shapes"]),
+               winner_ms_sum=sum(s["winner_ms"] for s in on["shapes"]),
+               cached_searches=cached["searches"],
+               cached_measurements=cached["measurements"],
+               cached_hits=cached["hits"], stale=cached["stale"],
+               cached_held_max_rel_err=cached["held_max_rel_err"],
+               cached_held_calls=cached["held_calls"])
+    print(f"[autotune] {json.dumps(res)} card={card}")
+    return {}
+
+
+TUNE_PATHS = ("keras-vgg16", "autotune")
+
+
+def tune_phases():
+    """(tag, function, extra arguments) of the tuning slice's phases, in
+    order: [autotune] reads the shapes [keras-vgg16] launched."""
+    return (("keras-vgg16", run_keras_vgg16, ()),
+            ("autotune", run_autotune, ()))
+
+
 def kernel_checks(torch, F, records, half_records, layers):
     """The kernel checks: ``[kernel]`` and ``[layer]`` records appended to
     ``records``, ``half_records`` and ``layers``."""
@@ -9886,7 +10396,8 @@ def kernel_checks(torch, F, records, half_records, layers):
                           ("resnet50", resnet_shapes()),
                           ("alexnet-train", alexnet_train_shapes()),
                           ("googlenet", googlenet_shapes()),
-                          ("conv-lstm", conv_lstm_shapes())):
+                          ("conv-lstm", conv_lstm_shapes()),
+                          ("keras-vgg16", keras_vgg16_shapes())):
         for name, kind_, geo, names in shapes:
             if kind_.startswith("conv_bwd"):
                 rec = check_bwd_kernel(torch, model, name, kind_, geo, gen,
@@ -10048,7 +10559,7 @@ HALF_TABLE = (("conv_block", "bf16", "conv_block.cu", "conv_block.py:104"),
 # the models whose training step's shapes give per-step keys: each
 # shape's time by its launches a step, summed
 PER_STEP_MODELS = ("vgg16", "resnet50", "alexnet-train", "googlenet",
-                   "conv-lstm", "alexnet-tp", "gpipe")
+                   "conv-lstm", "alexnet-tp", "gpipe", "keras-vgg16")
 
 
 def kernels_line(records, half_records, layers, paths, half_variants
@@ -10079,7 +10590,8 @@ def kernels_line(records, half_records, layers, paths, half_variants
             "name": k, "route": "cuda", "source": csrc + src,
             "replaces": tpu + replaces, "launches": launches,
             "launches_by_path": network_launches(
-                k, paths, NETWORK_PATHS + NEW_PATHS + FIT_PATHS),
+                k, paths, NETWORK_PATHS + NEW_PATHS + FIT_PATHS
+                + TUNE_PATHS),
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
@@ -10301,6 +10813,9 @@ def main(argv=None) -> int:
     # the rest of fit: pretraining and the line-search solvers
     for tag, fn in fit_phases():
         phase(tag, fn)
+    # Keras's VGG-16 imported at 224 x 224, then the kernel tuner on it
+    for tag, fn, args in tune_phases():
+        phase(tag, fn, *args)
     if wanted("nlp"):
         paths["nlp"] = summed_launches(run_nlp(torch, card))
     # the row-sharded trainer on two ranks (after every phase that forms

@@ -114,8 +114,11 @@ inline int allow_dynamic_smem(Kernel kernel, int bytes, unsigned* done) {
 // (a multiple of the kernels' 16-deep k slice), one per blockIdx.z.
 // Each chunk writes its raw f32 sums to partial[z][...] (output
 // layout); splitk_finish adds the chunks in order and applies the
-// epilogue. The wrapper asks for the plan (kernel_splits), allocates
-// the scratch and passes it in, so the kernels allocate nothing.
+// epilogue. The wrapper picks the count (ops/tiling.py holds the rule),
+// allocates the scratch and passes both in, so the kernels allocate
+// nothing. plan_splits and plan_dw_splits below are that rule's C form,
+// kept only for the dl4j_*_splits queries the card tests hold the
+// Python rule to.
 constexpr int kSmCount = 132;        // H100 SXM
 constexpr int kTargetBlocks = 2 * kSmCount;
 constexpr int kMinKPerSplit = 64;

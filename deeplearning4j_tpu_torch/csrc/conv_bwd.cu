@@ -1069,3 +1069,41 @@ extern "C" int dl4j_conv_bwd_w_resident(const void* x, const void* dacc,
 #undef DL4J_DW_RESIDENT_KS
 #undef DL4J_DW_RESIDENT
 }
+
+// The image-resident dW kernel's registers a thread and most threads a
+// block as built, at kernel size k (1..5) for x of `x_dtype` (enum
+// DType): what ops/tiling.py's BWD_W_REGISTERS budgets
+// (cudaFuncGetAttributes). Returns the cudaError_t.
+extern "C" int dl4j_conv_bwd_w_resident_attrs(int k, int x_dtype, int* regs,
+                                              int* max_threads) {
+  cudaFuncAttributes a;
+  int rc = (int)cudaErrorInvalidValue;
+#define DL4J_DW_ATTRS(K, TX)                                              \
+  if (k == K)                                                             \
+    rc = (int)cudaFuncGetAttributes(&a, conv_bwd_w_resident_kernel<K, TX>);
+#define DL4J_DW_ATTRS_KS(TX) \
+  DL4J_DW_ATTRS(1, TX)       \
+  DL4J_DW_ATTRS(2, TX)       \
+  DL4J_DW_ATTRS(3, TX)       \
+  DL4J_DW_ATTRS(4, TX)       \
+  DL4J_DW_ATTRS(5, TX)
+  switch (x_dtype) {
+    case dl4j::kF32:
+      DL4J_DW_ATTRS_KS(float)
+      break;
+    case dl4j::kBF16:
+      DL4J_DW_ATTRS_KS(__nv_bfloat16)
+      break;
+    case dl4j::kF16:
+      DL4J_DW_ATTRS_KS(__half)
+      break;
+    default:
+      break;
+  }
+#undef DL4J_DW_ATTRS_KS
+#undef DL4J_DW_ATTRS
+  if (rc != 0) return rc;
+  *regs = a.numRegs;
+  *max_threads = a.maxThreadsPerBlock;
+  return 0;
+}

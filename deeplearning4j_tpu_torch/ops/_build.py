@@ -206,6 +206,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dl4j_lstm_cluster_plan.restype = i
     lib.dl4j_lstm_cell_plan.argtypes = [i] * 5 + [ip, ip]
     lib.dl4j_lstm_cell_plan.restype = i
+    lib.dl4j_conv_bwd_w_resident_attrs.argtypes = [i, i, ip, ip]
+    lib.dl4j_conv_bwd_w_resident_attrs.restype = i
     return lib
 
 

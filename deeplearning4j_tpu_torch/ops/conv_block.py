@@ -23,7 +23,10 @@ for a CPU tensor. The forward kernel takes one of two routes, picked
 from the shape alone by ``conv_block_route``: the wide implicit GEMM
 (large tiles fed by a ring of staged slices, the image converted to f32
 as it is staged) where its grid fills the card, the direct 64 x 64 tile
-with split-K elsewhere.
+with split-K elsewhere. Each kernel's plan (route, tile, channel group,
+split count) comes from ``ops/autotune.py`` ``resolve`` over
+``ops/tiling.py``'s candidates: the route function's unless a tuning
+cache holds a measured winner for the shape.
 When a gradient is wanted, the kernels and the plain version alike
 run through ``_ConvBlockFn``, the backward of the JAX package's ``_conv_block_bwd``:
 recompute the f32 accumulator (the forward kernel, identity epilogue,
@@ -52,7 +55,16 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import _build, dispatch
+from deeplearning4j_tpu_torch.ops import _build, autotune, dispatch, tiling
+# the H100's budgets the routes are sized by (ops/tiling.py holds them)
+from deeplearning4j_tpu_torch.ops.tiling import (  # noqa: F401
+    BLOCK_SMEM_BYTES,
+    BWD_W_REGISTERS,
+    SM_COUNT,
+    SM_REGISTERS,
+    SM_SMEM_BYTES,
+    SM_THREADS,
+)
 
 # Epilogue nonlinearities applied to the f32 accumulator before the
 # single cast; numerics match nn/activations.py (leaky slope 0.01).
@@ -201,9 +213,6 @@ WIDE_MIN_TILES = 64
 WIDE_SOLO_ROWS = 64
 WIDE_SHALLOW_K = 64
 WIDE_PAD_TAP = 0x7FFF  # a tap-table dh that fails every bounds check
-BLOCK_SMEM_BYTES = 232_448  # a block's shared memory on an H100
-SM_COUNT = 132  # H100 SXM
-SM_SMEM_BYTES = 233_472  # an SM's shared memory for blocks (228 KB)
 
 
 class ConvRoute(NamedTuple):
@@ -321,6 +330,24 @@ def _device_tap_table(geometry, device) -> torch.Tensor:
     return conv_tap_table(*geometry).to(device)
 
 
+def _conv_identity(n, c, h, wd, o, kh, kw, stride, padding, dtype=None):
+    ident = {"n": n, "c": c, "h": h, "w": wd, "o": o, "kh": kh, "kw": kw,
+             "sh": stride[0], "sw": stride[1], "ph": padding[0],
+             "pw": padding[1]}
+    if dtype is not None:
+        ident["dtype"] = dispatch.DTYPE_TAGS[dtype]
+    return ident
+
+
+def _resolve(kernel, family, ident, args, measure, heur_args=None):
+    """``autotune.resolve`` of ``kernel`` over ``tiling``'s ``family`` at
+    ``args``: the heuristic, candidates and prior of that family."""
+    heuristic, candidates, prior = tiling.FAMILIES[family]
+    return autotune.resolve(
+        kernel, ident, lambda: heuristic(*(heur_args or args)),
+        lambda: candidates(*args), lambda p: prior(p, *args), measure)
+
+
 def _kernel_forward(x, w, scale, shift, stride, padding, activation,
                     out_dtype):
     kernel = "conv_block"
@@ -340,25 +367,53 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
     if sh < 1 or sw < 1 or ph < 0 or pw < 0:
         raise ValueError(f"{kernel}: bad stride {stride} / padding "
                          f"{padding}")
-    oh = conv_output_size(h, kh, sh, ph)
-    ow = conv_output_size(wd, kw, sw, pw)
+    conv_output_size(h, kh, sh, ph)
+    conv_output_size(wd, kw, sw, pw)
     for name, t in (("scale", scale), ("shift", shift)):
         check_kernel_operand(kernel, name, t, x.device, torch.float32, 1)
         if t.numel() != o:
             raise ValueError(f"{kernel}: {name} must hold {o} values")
+    args = (n, c, h, wd, o, kh, kw, stride, padding)
+    plan = _resolve(
+        kernel, "conv_block",
+        _conv_identity(*args, x.dtype), args,
+        lambda p: lambda: _launch_forward(x, w, scale, shift, stride,
+                                          padding, activation, out_dtype,
+                                          p, count=False),
+        args + (x.dtype,))
+    return _launch_forward(x, w, scale, shift, stride, padding, activation,
+                           out_dtype, plan)
+
+
+def _launch_forward(x, w, scale, shift, stride, padding, activation,
+                    out_dtype, plan, count=True):
+    """One launch of the forward kernel with ``plan`` (``("wide", tile_o,
+    tile_px)`` or ``("direct", splits)``), on checked operands. Adds to
+    the launch count unless ``count`` is False (the tuner's timing
+    launches)."""
+    kernel = "conv_block"
+    n, c, h, wd = (int(v) for v in x.shape)
+    o, _, kh, kw = (int(v) for v in w.shape)
+    (sh, sw), (ph, pw) = stride, padding
+    oh = conv_output_size(h, kh, sh, ph)
+    ow = conv_output_size(wd, kw, sw, pw)
     out = torch.empty((n, o, oh, ow), dtype=out_dtype, device=x.device)
     lib = _build.load()
-    plan = conv_block_route(n, c, h, wd, o, kh, kw, stride, padding, x.dtype)
     wt = taps = scratch = None
-    splits = 1
-    if plan.route == "wide":
-        o_pad = -(-o // plan.tile_o) * plan.tile_o
-        wt = torch.empty(plan.k_pad * o_pad, dtype=torch.float32,
+    splits, tile_o, tile_px, k_pad = 1, 0, 0, 0
+    if plan[0] == "wide":
+        tile_o, tile_px = plan[1], plan[2]  # a tile the build lacks: refused
+        k_pad = -(-c * kh * kw // WIDE_K_SLICE) * WIDE_K_SLICE
+        o_pad = -(-o // tile_o) * tile_o
+        wt = torch.empty(k_pad * o_pad, dtype=torch.float32,
                          device=x.device)
-        taps = _device_tap_table((c, h, wd, kh, kw, plan.k_pad), x.device)
-    else:
-        splits = lib.dl4j_conv_block_splits(n, c, o, kh, kw, oh, ow)
+        taps = _device_tap_table((c, h, wd, kh, kw, k_pad), x.device)
+    elif plan[0] == "direct":
+        splits = plan[1]
+        tiling.check_splits(kernel, c * kh * kw, splits)
         scratch = _build.split_scratch(splits, out.numel(), x.device)
+    else:
+        raise ValueError(f"{kernel}: unknown plan {plan}")
     rc = lib.dl4j_conv_block(
         x.data_ptr(), w.data_ptr(), None if wt is None else wt.data_ptr(),
         None if taps is None else taps.data_ptr(), scale.data_ptr(),
@@ -366,14 +421,15 @@ def _kernel_forward(x, w, scale, shift, stride, padding, activation,
         None if scratch is None else scratch.data_ptr(),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], n, c, h,
         wd, o, kh, kw, sh, sw, ph, pw,
-        oh, ow, EPILOGUE_CODES[activation], splits, ROUTE_CODES[plan.route],
-        plan.tile_o, plan.tile_px, plan.k_pad,
+        oh, ow, EPILOGUE_CODES[activation], splits, ROUTE_CODES[plan[0]],
+        tile_o, tile_px, k_pad,
         _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
-    tag = dispatch.DTYPE_TAGS[x.dtype]
-    dispatch.note_launch(kernel, tag if out_dtype == x.dtype
-                         else f"{tag}->f32")
+    if count:
+        tag = dispatch.DTYPE_TAGS[x.dtype]
+        dispatch.note_launch(kernel, tag if out_dtype == x.dtype
+                             else f"{tag}->f32")
     return out
 
 
@@ -562,7 +618,6 @@ def conv_bwd_data_route(n: int, c: int, h: int, w: int, o: int, kh: int,
 # chunks, one a block, for about one wave of blocks, as long as the
 # chunks' f32 partial sums stay within BWD_W_MAX_SCRATCH bytes.
 BWD_W_MAX_THREADS = 384
-BWD_W_REGISTERS = 85
 BWD_W_MAX_K = 5
 BWD_W_MAX_SCRATCH = 16 << 20
 # Where the channel groups alone fill the grid, the chunks collapse and
@@ -572,8 +627,6 @@ BWD_W_MAX_SCRATCH = 16 << 20
 # (scripts/torch_route_ab.py --sweep, PERF.md). Past this many images a
 # block, the implicit GEMM.
 BWD_W_MAX_IMAGES = 16
-SM_THREADS = 2048
-SM_REGISTERS = 65_536
 
 
 class BwdWRoute(NamedTuple):
@@ -667,27 +720,44 @@ def conv_bwd_data(dacc: torch.Tensor, w: torch.Tensor, x_hw,
     h, wd = (int(v) for v in x_hw)
     geo = _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, _pair(stride),
                         _pair(padding), oh, ow)
+    args = (n, c, h, wd, o, kh, kw, geo[7:9], geo[9:11])
+    plan = _resolve(kernel, "conv_bwd_data", _conv_identity(*args), args,
+                    lambda p: lambda: _launch_bwd_data(dacc, w, geo, p,
+                                                       count=False))
+    return _launch_bwd_data(dacc, w, geo, plan)
+
+
+def _launch_bwd_data(dacc, w, geo, plan, count=True):
+    """One launch of dL/dx with ``plan`` (``("resident", group,
+    tap_groups)`` or ``("gemm", splits)``) at the checked geometry
+    ``geo``."""
+    kernel = "conv_bwd_data"
+    f32 = torch.float32
+    n, c, h, wd, o, kh, kw = geo[:7]
     dx = torch.empty((n, c, h, wd), dtype=f32, device=dacc.device)
     lib = _build.load()
     stream = _build.current_stream_handle(dacc.device)
-    plan = conv_bwd_data_route(n, c, h, wd, o, kh, kw, stride, padding)
-    if plan.route == "resident":
+    if plan[0] == "resident":
+        group, tap_groups = plan[1], plan[2]
         # the weights, transposed per channel group (one pass a call)
-        wt = torch.empty(-(-c // plan.group) * kh * kw * o
-                         * _round4(plan.group), dtype=f32,
-                         device=dacc.device)
+        wt = torch.empty(-(-c // group) * kh * kw * o * _round4(group),
+                         dtype=f32, device=dacc.device)
         rc = lib.dl4j_conv_bwd_data_resident(
             dacc.data_ptr(), w.data_ptr(), wt.data_ptr(), dx.data_ptr(),
-            *geo, plan.group, plan.tap_groups, stream)
-    else:
-        splits = lib.dl4j_conv_bwd_data_splits(n, c, h, wd, o, kh, kw)
+            *geo, group, tap_groups, stream)
+    elif plan[0] == "gemm":
+        splits = plan[1]
+        tiling.check_splits(kernel, o * kh * kw, splits)
         scratch = _build.split_scratch(splits, dx.numel(), dacc.device)
         rc = lib.dl4j_conv_bwd_data(
             dacc.data_ptr(), w.data_ptr(), dx.data_ptr(),
             None if scratch is None else scratch.data_ptr(), *geo, splits,
             stream)
+    else:
+        raise ValueError(f"{kernel}: unknown plan {plan}")
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    if count:
+        dispatch.note_launch(kernel)
     return dx
 
 
@@ -714,26 +784,47 @@ def conv_bwd_w(x: torch.Tensor, dacc: torch.Tensor, w_shape,
                          "disagree")
     geo = _bwd_geometry(kernel, n, c, h, wd, o, kh, kw, _pair(stride),
                         _pair(padding), oh, ow)
-    dw = torch.empty((o, c, kh, kw), dtype=f32, device=x.device)
+    args = (n, c, h, wd, o, kh, kw, geo[7:9], geo[9:11])
+    plan = _resolve(kernel, "conv_bwd_w", _conv_identity(*args, x.dtype),
+                    args,
+                    lambda p: lambda: _launch_bwd_w(x, dacc, geo, p,
+                                                    count=False))
+    return _launch_bwd_w(x, dacc, geo, plan)
+
+
+def _launch_bwd_w(x, dacc, geo, plan, count=True):
+    """One launch of dL/dW with ``plan`` (``("image_resident", group,
+    pixel_groups, images_per_chunk)`` or ``("gemm", splits)``) at the
+    checked geometry ``geo``."""
+    kernel = "conv_bwd_w"
+    n, c, h, wd, o, kh, kw = geo[:7]
+    oh, ow = geo[11], geo[12]
+    dw = torch.empty((o, c, kh, kw), dtype=torch.float32, device=x.device)
     lib = _build.load()
     stream = _build.current_stream_handle(x.device)
-    plan = conv_bwd_w_route(n, c, h, wd, o, kh, kw, stride, padding)
-    if plan.route == "image_resident":
-        scratch = _build.split_scratch(plan.chunks, dw.numel(), x.device)
+    if plan[0] == "image_resident":
+        group, pixel_groups, per_chunk = plan[1:]
+        scratch = _build.split_scratch(-(-n // per_chunk), dw.numel(),
+                                       x.device)
         rc = lib.dl4j_conv_bwd_w_resident(
             x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _build.DTYPE_CODES[x.dtype], *geo,
-            plan.group, plan.pixel_groups, plan.images_per_chunk, stream)
-    else:
-        splits = lib.dl4j_conv_bwd_w_splits(n, c, o, kh, kw, oh, ow)
+            group, pixel_groups, per_chunk, stream)
+    elif plan[0] == "gemm":
+        splits = plan[1]
+        tiling.check_splits(kernel, n * oh * ow, splits,
+                            tiling.MAX_DW_SPLITS)
         scratch = _build.split_scratch(splits, dw.numel(), x.device)
         rc = lib.dl4j_conv_bwd_w(
             x.data_ptr(), dacc.data_ptr(), dw.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _build.DTYPE_CODES[x.dtype], *geo, splits, stream)
+    else:
+        raise ValueError(f"{kernel}: unknown plan {plan}")
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
+    if count:
+        dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
     return dw
 
 

@@ -102,6 +102,16 @@ def variant_counts() -> Dict[str, int]:
     return dict(_variants)
 
 
+def reset_for_tests() -> None:
+    """Drop the kernel tuner's environment reads, resolution memo and
+    fingerprint (``autotune.reset_for_tests``), so the next launch
+    re-reads ``DL4J_TPU_TUNE*``: the one way to flip tuning inside a
+    process (tests, A/B runs)."""
+    from deeplearning4j_tpu_torch.ops import autotune
+
+    autotune.reset_for_tests()
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0

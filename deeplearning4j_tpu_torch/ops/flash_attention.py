@@ -41,10 +41,10 @@ from typing import NamedTuple
 import torch
 
 from deeplearning4j_tpu_torch.ops import _build, dispatch
-from deeplearning4j_tpu_torch.ops.conv_block import (
-    RESIDENT_SMEM_BYTES,
+from deeplearning4j_tpu_torch.ops.conv_block import wants_grad
+from deeplearning4j_tpu_torch.ops.tiling import (
+    FLASH_SMEM_BYTES,
     SM_SMEM_BYTES,
-    wants_grad,
 )
 from deeplearning4j_tpu_torch.parallel.sequence import NEG, attention
 
@@ -66,7 +66,6 @@ _BLOCK = 128  # the plain version's key block (the TPU kernels' default)
 # shared memory, else one K and one V buffer refilled in turn.
 FLASH_BLOCK_Q = 128
 FLASH_BLOCK_K = 64
-FLASH_SMEM_BYTES = RESIDENT_SMEM_BYTES  # a block's most
 
 
 class FlashPlan(NamedTuple):

@@ -27,6 +27,9 @@ picked from the shape alone by ``lstm_seq_route``: a thread-block
 cluster owning a few batch rows for the whole sequence, RW's columns
 resident across its blocks (n <= 256), else the cooperative grid split
 by hidden units. A refused cluster launch raises; it never falls back.
+Each launch's plan comes from ``ops/autotune.py`` ``resolve`` over
+``ops/tiling.py``'s candidates: the route function's unless a tuning
+cache holds a measured winner for the shape.
 The kernels take float32 only; a bf16 / f16 CUDA tensor raises (ROADMAP.md queue 1, item 3: bf16 / f16 LSTM
 kernels). The plain versions take every float type and compute in at
 least float32, as the kernels accumulate.
@@ -40,7 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, dispatch
+from deeplearning4j_tpu_torch.ops import _build, autotune, dispatch, tiling
 from deeplearning4j_tpu_torch.ops.conv_block import (
     check_kernel_operand,
     wants_grad,
@@ -112,7 +115,7 @@ CELL_UNITS = 2
 CELL_ROWS = 32
 CELL_MAX_THREADS = 256
 CELL_MAX_SPLITS = 32
-CELL_SMEM_BYTES = 48 * 1024
+CELL_SMEM_BYTES = tiling.CELL_SMEM_BYTES
 
 
 class CellRoute(NamedTuple):
@@ -200,16 +203,35 @@ def _kernel_cell(xproj, h, c, rw, peepholes: Peepholes):
                 raise ValueError(f"{kernel}: {name} must hold {n} values")
         peeps = tuple(p.data_ptr() for p in peepholes)
     _check_int32(kernel, xproj, rw)
+    plan = autotune.resolve(
+        kernel, {"b": b, "n": n},
+        lambda: tiling.lstm_cell_heuristic(b, n),
+        lambda: tiling.lstm_cell_candidates(b, n),
+        lambda p: tiling.lstm_cell_prior(p, b, n),
+        lambda p: lambda: _launch_cell(xproj, h, c, rw, peeps, p,
+                                       count=False))
+    return _launch_cell(xproj, h, c, rw, peeps, plan)
+
+
+def _launch_cell(xproj, h, c, rw, peeps, plan, count=True):
+    """One launch of the step with ``plan`` (``("latency", rows, units,
+    splits)`` or ``("slice",)``) on checked operands; counted unless
+    ``count`` is False (the tuner's timing launches)."""
+    kernel = "lstm_cell"
+    b, n = (int(v) for v in h.shape)
+    if plan[0] not in CELL_ROUTE_CODES:
+        raise ValueError(f"{kernel}: unknown plan {plan}")
+    rows, units, splits = plan[1:] if plan[0] == "latency" else (0, 0, 0)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
-    route = lstm_cell_route(b, n)
     rc = _build.load().dl4j_lstm_cell(
         xproj.data_ptr(), h.data_ptr(), c.data_ptr(), rw.data_ptr(), *peeps,
         h_out.data_ptr(), c_out.data_ptr(), b, n,
-        CELL_ROUTE_CODES[route.route], route.rows, route.units, route.splits,
-        _build.current_stream_handle(dev))
+        CELL_ROUTE_CODES[plan[0]], rows, units, splits,
+        _build.current_stream_handle(h.device))
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
+    if count:
+        dispatch.note_launch(kernel)
     return h_out, c_out
 
 
@@ -319,7 +341,7 @@ LSTM_CLUSTER_ROWS = (1, 2, 4, 8)
 LSTM_CLUSTER_SLOTS = 8
 LSTM_CLUSTER_MAX_SPLITS = 16
 LSTM_THREADS = 256
-MAX_SMEM_BYTES = 232448  # a block's shared memory on an H100
+MAX_SMEM_BYTES = tiling.BLOCK_SMEM_BYTES  # a block's on an H100
 
 
 class LstmSeqRoute(NamedTuple):
@@ -382,12 +404,27 @@ def lstm_seq_route(T: int, b: int, n: int, bwd: bool) -> LstmSeqRoute:
                         lstm_cluster_smem_bytes(n, c, rows, bwd))
 
 
-def _route_args(route: LstmSeqRoute, dev):
-    """(barrier or None, cluster, rows) for the C entries: the grid
-    route's barrier words, or the cluster plan (no barrier)."""
-    if route.route == "cluster":
-        return None, route.cluster, route.rows
+def _route_args(plan, dev):
+    """(barrier or None, cluster, rows) for the C entries of ``plan``
+    (``("cluster", blocks, rows)`` or ``("grid",)``): the grid route's
+    barrier words, or the cluster plan (no barrier)."""
+    if plan[0] == "cluster":
+        return None, plan[1], plan[2]
+    if plan != ("grid",):
+        raise ValueError(f"lstm_seq: unknown plan {plan}")
     return _barrier(dev), 0, 0
+
+
+def _seq_plan(kernel, T, b, n, bwd, launch):
+    """The sequence kernel's plan: ``autotune.resolve`` over tiling's
+    candidates (``launch(plan)`` runs one uncounted launch)."""
+    args = (T, b, n, bwd)
+    return autotune.resolve(
+        kernel, {"T": T, "b": b, "n": n},
+        lambda: tiling.lstm_seq_heuristic(*args),
+        lambda: tiling.lstm_seq_candidates(*args),
+        lambda p: tiling.lstm_seq_prior(p, *args),
+        lambda p: lambda: launch(p, False))
 
 
 def _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq: bool):
@@ -399,19 +436,24 @@ def _kernel_seq_fwd(xproj, h0, c0, rw, save_cseq: bool):
         ("xproj", xproj, (T, b, 4 * n)), ("rw", rw, (n, 4 * n)),
         ("h0", h0, (b, n)), ("c0", c0, (b, n))))
     _check_int32(kernel, xproj)
-    hseq = torch.empty((T, b, n), dtype=torch.float32, device=dev)
-    cseq = torch.empty_like(hseq) if save_cseq else None
-    hT = torch.empty((b, n), dtype=torch.float32, device=dev)
-    cT = torch.empty_like(hT)
-    bar, cluster, rows = _route_args(lstm_seq_route(T, b, n, False), dev)
-    rc = _build.load().dl4j_lstm_seq_fwd(
-        xproj.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        hseq.data_ptr(), None if cseq is None else cseq.data_ptr(),
-        hT.data_ptr(), cT.data_ptr(), None if bar is None else bar.data_ptr(),
-        T, b, n, cluster, rows, _build.current_stream_handle(dev))
-    _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
-    return hseq, cseq, hT, cT
+
+    def launch(plan, count=True):
+        hseq = torch.empty((T, b, n), dtype=torch.float32, device=dev)
+        cseq = torch.empty_like(hseq) if save_cseq else None
+        hT = torch.empty((b, n), dtype=torch.float32, device=dev)
+        cT = torch.empty_like(hT)
+        bar, cluster, rows = _route_args(plan, dev)
+        rc = _build.load().dl4j_lstm_seq_fwd(
+            xproj.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            hseq.data_ptr(), None if cseq is None else cseq.data_ptr(),
+            hT.data_ptr(), cT.data_ptr(),
+            None if bar is None else bar.data_ptr(),
+            T, b, n, cluster, rows, _build.current_stream_handle(dev))
+        _build.check(rc, kernel)
+        if count:
+            dispatch.note_launch(kernel)
+        return hseq, cseq, hT, cT
+    return launch(_seq_plan(kernel, T, b, n, False, launch))
 
 
 def lstm_seq_fwd(xproj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
@@ -466,19 +508,23 @@ def _kernel_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):
         ("cprev", cprev, seq), ("cseq", cseq, seq), ("rw", rw, (n, 4 * n)),
         ("dhseq", dhseq, seq), ("dhT", dhT, (b, n)), ("dcT", dcT, (b, n))))
     _check_int32(kernel, xproj)
-    dgates = torch.empty((T, b, 4 * n), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((b, n), dtype=torch.float32, device=dev)
-    dc0 = torch.empty_like(dh0)
-    bar, cluster, rows = _route_args(lstm_seq_route(T, b, n, True), dev)
-    rc = _build.load().dl4j_lstm_seq_bwd(
-        xproj.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
-        cseq.data_ptr(), rw.data_ptr(), dhseq.data_ptr(), dhT.data_ptr(),
-        dcT.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        None if bar is None else bar.data_ptr(), T, b, n, cluster, rows,
-        _build.current_stream_handle(dev))
-    _build.check(rc, kernel)
-    dispatch.note_launch(kernel)
-    return dgates, dh0, dc0
+
+    def launch(plan, count=True):
+        dgates = torch.empty((T, b, 4 * n), dtype=torch.float32, device=dev)
+        dh0 = torch.empty((b, n), dtype=torch.float32, device=dev)
+        dc0 = torch.empty_like(dh0)
+        bar, cluster, rows = _route_args(plan, dev)
+        rc = _build.load().dl4j_lstm_seq_bwd(
+            xproj.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
+            cseq.data_ptr(), rw.data_ptr(), dhseq.data_ptr(), dhT.data_ptr(),
+            dcT.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), None if bar is None else bar.data_ptr(), T, b, n,
+            cluster, rows, _build.current_stream_handle(dev))
+        _build.check(rc, kernel)
+        if count:
+            dispatch.note_launch(kernel)
+        return dgates, dh0, dc0
+    return launch(_seq_plan(kernel, T, b, n, True, launch))
 
 
 def lstm_seq_bwd(xproj, hprev, cprev, cseq, rw, dhseq, dhT, dcT):

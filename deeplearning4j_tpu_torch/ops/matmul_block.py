@@ -15,7 +15,10 @@ The kernel has two routes, picked from the shape alone by
 ``matmul_route``: ``"wide"`` (128 x 192 tiles, a cp.async ring) for
 products whose grid fills the card, ``"tiled"`` (64 x 64 tiles) for the
 rest, where a skinny product (few output tiles, deep K) splits K over
-an f32 scratch that the wrapper allocates (``_build.split_scratch``).
+an f32 scratch that the wrapper allocates (``_build.split_scratch``),
+the split count by ``ops/tiling.py``'s ``matmul_splits``. The plan
+(route and split count) comes from ``autotune.resolve``: the heuristic
+unless the tuning cache holds a measured winner for the shape.
 
 ``matmul_block`` launches the kernel for a CUDA tensor and runs
 ``matmul_block_reference`` (the plain PyTorch version) for a CPU one.
@@ -33,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build, dispatch
+from deeplearning4j_tpu_torch.ops import _build, autotune, dispatch, tiling
 from deeplearning4j_tpu_torch.ops.conv_block import (
     _EPILOGUE_GRADS,
     _EPILOGUES,
@@ -99,10 +102,31 @@ def _kernel_forward(x, w, bias, residual, activation):
         if tuple(residual.shape) != (m, n):
             raise ValueError(f"{kernel}: residual is "
                              f"{list(residual.shape)}, expected [{m}, {n}]")
+    args = (m, k, n)
+    plan = autotune.resolve(
+        kernel, {"m": m, "k": k, "n": n,
+                 "dtype": dispatch.DTYPE_TAGS[x.dtype]},
+        lambda: tiling.matmul_heuristic(*args),
+        lambda: tiling.matmul_candidates(*args),
+        lambda p: tiling.matmul_prior(p, *args),
+        lambda p: lambda: _launch(x, w, bias, residual, activation, p,
+                                  count=False))
+    return _launch(x, w, bias, residual, activation, plan)
+
+
+def _launch(x, w, bias, residual, activation, plan, count=True):
+    """One launch of the dense kernel with ``plan`` (``("wide", 1)`` or
+    ``("tiled", splits)``) on checked operands; counted unless ``count``
+    is False (the tuner's timing launches)."""
+    kernel = "matmul_block" if residual is None else "matmul_block_residual"
+    m, k = (int(v) for v in x.shape)
+    n = int(w.shape[1])
+    route, splits = plan
+    if route not in ROUTE_CODES or (route == "wide" and splits != 1):
+        raise ValueError(f"{kernel}: unknown plan {plan}")
+    tiling.check_splits(kernel, k, splits)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load()
-    route = matmul_route(m, n)
-    splits = 1 if route == "wide" else lib.dl4j_matmul_block_splits(m, k, n)
     scratch = _build.split_scratch(splits, out.numel(), x.device)
     rc = lib.dl4j_matmul_block(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(),
@@ -112,7 +136,8 @@ def _kernel_forward(x, w, bias, residual, activation):
         splits, ROUTE_CODES[route], _build.current_stream_handle(x.device),
     )
     _build.check(rc, kernel)
-    dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
+    if count:
+        dispatch.note_launch(kernel, dispatch.DTYPE_TAGS[x.dtype])
     return out
 
 

@@ -7,7 +7,8 @@ For every shape of the serving slice whose split-K plan splits the
 reduction (LeNet-5's second conv and dense layer at the serving bucket
 of 32 rows, AlexNet's two dense layers at batch 64), it times the
 kernel with the plan forced to one chunk (the unsplit path: one fused
-launch) and with the plan as the library makes it, in turns (A B B A,
+launch) and with the plan as ``ops/tiling.py``'s split rule makes it
+(the tuner's default, with no cache directory), in turns (A B B A,
 five rounds), with CUDA events around CUDA-graph replays. Both results
 are held against the plain PyTorch version first. Prints one JSON line
 per shape with every run, the medians and the card's name and power
@@ -35,21 +36,18 @@ def main() -> int:
         return 2
     from chip_smoke import card_line, graph_ms
     from deeplearning4j_tpu_torch.ops import (
-        _build,
         conv_block,
         conv_block_reference,
         matmul_block,
         matmul_block_reference,
+        tiling,
     )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    lib = _build.load()
-    planned = {"conv": lib.dl4j_conv_block_splits,
-               "dense": lib.dl4j_matmul_block_splits}
-    attr = {"conv": "dl4j_conv_block_splits",
-            "dense": "dl4j_matmul_block_splits"}
+    planned = {"conv": tiling.direct_splits, "dense": tiling.matmul_splits}
+    attr = {"conv": "direct_splits", "dense": "matmul_splits"}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [
@@ -86,15 +84,15 @@ def main() -> int:
         with torch.inference_mode():
             want = ref()
             for side, plan in sides.items():
-                setattr(lib, attr[kind], plan)
+                setattr(tiling, attr[kind], plan)
                 got = run()
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
             for _ in range(ROUNDS):
                 for side in ("unsplit", "split", "split", "unsplit"):
-                    setattr(lib, attr[kind], sides[side])
+                    setattr(tiling, attr[kind], sides[side])
                     times[side].append(graph_ms(torch, run))
-        setattr(lib, attr[kind], planned[kind])
+        setattr(tiling, attr[kind], planned[kind])
         splits = (planned[kind](xs[0], xs[1], ws[0], ws[2], ws[3],
                                 xs[2] - ws[2] + 1, xs[3] - ws[3] + 1)
                   if kind == "conv" else planned[kind](xs[0], xs[1], ws[1]))

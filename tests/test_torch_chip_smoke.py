@@ -276,3 +276,103 @@ def test_fit_phases_rehearse_on_cpu(capsys, tag, kw):
         for algo in ("LBFGS", "CONJUGATE_GRADIENT"):
             assert res[algo]["score_after"] < res[algo]["score_before"]
             assert len(res[algo]["line_search_trials"]) == 3
+
+
+def test_tune_phases_are_registered_and_on_the_kernels_line():
+    assert [t for t, _, _ in cs.tune_phases()] == list(cs.TUNE_PATHS) == [
+        "keras-vgg16", "autotune"]
+    assert "keras-vgg16" in cs.PER_STEP_MODELS
+    paths = {"keras-vgg16": {"conv_block": 65, "matmul_block": 6}}
+    kernels = cs.kernels_line([], [], [], paths, {})
+    conv = next(k for k in kernels if k["name"] == "conv_block")
+    assert conv["launches_by_path"] == {"keras-vgg16": 65}
+
+
+def test_keras_vgg16_configuration_is_keras_applications_vgg16():
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_sequential_model_config,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SubsamplingLayer,
+    )
+
+    raw = json.loads(cs.keras_vgg16_config())
+    assert raw["class_name"] == "Sequential"
+    assert raw["config"][0]["config"]["batch_input_shape"] == [
+        None, 3, 224, 224]
+    assert {e["config"].get("dim_ordering") for e in raw["config"]
+            if "dim_ordering" in e["config"]} == {"th"}
+    conf = import_sequential_model_config(cs.keras_vgg16_config())
+    convs = [l for l in conf.layers if isinstance(l, ConvolutionLayer)]
+    assert len(convs) == 13 and all(
+        tuple(l.padding) == (1, 1) for l in convs)
+    assert sum(isinstance(l, SubsamplingLayer) for l in conf.layers) == 5
+    dense = [l for l in conf.layers if isinstance(l, DenseLayer)]
+    assert [(l.n_in, l.n_out) for l in dense] == [(25088, 4096),
+                                                  (4096, 4096), (4096, 1000)]
+    assert isinstance(conf.layers[-1], OutputLayer)
+    assert conf.layers[-1].activation == "softmax"
+    params = sum(l.n_out * l.n_in * 9 + l.n_out for l in convs) + sum(
+        l.n_in * l.n_out + l.n_out for l in dense)
+    assert params == cs.KERAS_VGG_PARAMS == 138_357_544
+    shapes = cs.keras_vgg16_shapes()
+    assert len(shapes) == 28
+    assert sum(len(s[3]) for s in shapes if s[1] == "conv_bwd_data") == 12
+
+
+def test_keras_vgg16_phase_rehearses_on_cpu(capsys):
+    cfg = cs.keras_vgg16_config(image=32, widths=(4, 8, 8, 16, 16), fc=32,
+                                classes=10)
+    weights = cs.keras_vgg16_weights(cfg)
+    assert weights["block1_conv1"]["W"].shape == (4, 3, 3, 3)
+    assert weights["fc1"]["W"].shape == (16, 32)
+    cs.run_keras_vgg16(torch, "cpu", device="cpu", config=cfg, batch=4,
+                       steps=2)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[keras-vgg16] {")]
+    res = json.loads(lines[0][len("[keras-vgg16] "):].rsplit(" card=", 1)[0])
+    assert res["learning_rate"] == cs.KERAS_VGG_LR
+    assert res["scores"][1] < res["scores"][0]
+    assert res["launches_per_step"] == {"conv_block": 26,
+                                        "conv_bwd_data": 12,
+                                        "conv_bwd_w": 13, "matmul_block": 2}
+
+
+def _tune_reports():
+    ident = {"n": 16, "c": 3, "h": 224, "w": 224, "o": 64}
+    on = {"searches": 1, "wall_s": 1.0, "shapes": [
+        {"kernel": "conv_block", "identity": ident, "plan": "wide:96x256",
+         "persisted": True, "heuristic": "wide:32x256", "heuristic_ms": 2.0,
+         "winner_ms": 1.5, "measured": {}}]}
+    cached = {"searches": 0, "measurements": 0, "hits": 1, "fallbacks": 0,
+              "wall_s": 1.0, "shapes": [dict(on["shapes"][0])],
+              "stale": {"counted": 1, "resolved": "wide:32x256",
+                        "heuristic": "wide:32x256"},
+              "held_max_rel_err": {}, "held_calls": {}}
+    return on, cached
+
+
+def test_check_tuning_holds_what_autotune_promises():
+    on, cached = _tune_reports()
+    assert cs.check_tuning(on, cached, 1) == {"shapes": 1, "changed": 1}
+    on["shapes"][0]["winner_ms"] = 2.5
+    with pytest.raises(RuntimeError, match="slower than the heuristic"):
+        cs.check_tuning(on, cached, 1)
+    on, cached = _tune_reports()
+    cached["measurements"] = 3
+    with pytest.raises(RuntimeError, match="measured 3"):
+        cs.check_tuning(on, cached, 1)
+    on, cached = _tune_reports()
+    cached["shapes"][0]["plan"] = "wide:32x256"
+    with pytest.raises(RuntimeError, match="persisted winners"):
+        cs.check_tuning(on, cached, 1)
+    on, cached = _tune_reports()
+    cached["stale"]["counted"] = 0
+    with pytest.raises(RuntimeError, match="stale"):
+        cs.check_tuning(on, cached, 1)
+    on, cached = _tune_reports()
+    with pytest.raises(RuntimeError, match="expected 2"):
+        cs.check_tuning(on, cached, 2)

@@ -3175,3 +3175,234 @@ def test_f64_gradient_check_refuses_the_kernels(cuda):
         check_gradients(net, ds.features, ds.labels, device="cuda",
                         max_per_param=2)
     assert torch.get_default_dtype() == torch.float32
+
+
+# --- the kernel tuner's plans (ops/tiling.py, ops/autotune.py) ---------------
+# Every candidate plan of each tuned family, forced by replacing
+# autotune.resolve, against the plain version at 2-3 shapes each: LeNet's
+# conv2 at its bucket, AlexNet's conv2 at batch 16, a VGG 3 x 3 at 28 x
+# 28; dense at the transformer's skinny and the embedding MLP's shapes
+# and a deep skinny fc; the char-RNN's cell and sequence shapes.
+
+TUNED_CONV = [((32, 20, 12, 12), (50, 20, 5, 5), (1, 1), (0, 0)),
+              ((16, 96, 27, 27), (256, 96, 5, 5), (1, 1), (2, 2)),
+              ((8, 64, 28, 28), (128, 64, 3, 3), (1, 1), (1, 1))]
+TUNED_DENSE = [(16, 768, 768), (1024, 128, 256), (16, 6272, 512)]
+TUNED_CELL = [(32, 200), (1, 200), (8, 48)]
+TUNED_SEQ = [(6, 32, 200), (4, 3, 40)]
+
+
+def _forced(monkeypatch, plan):
+    at = importlib.import_module("deeplearning4j_tpu_torch.ops.autotune")
+    monkeypatch.setattr(at, "resolve", lambda *a, **k: plan)
+
+
+@pytest.mark.parametrize("xs,ws,stride,padding", TUNED_CONV)
+def test_every_conv_candidate_matches_the_plain_version(cuda, monkeypatch,
+                                                        xs, ws, stride,
+                                                        padding):
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(xs, device=cuda, generator=gen)
+    w = torch.randn(ws, device=cuda, generator=gen) / (ws[1] * 9) ** 0.5
+    b = 0.1 * torch.randn(ws[0], device=cuda, generator=gen)
+    args = (*xs, ws[0], ws[2], ws[3], stride, padding)
+    ref = conv_block_reference(x, w, b, stride=stride, padding=padding,
+                               activation="relu")
+    oh, ow = ref.shape[2:]
+    dacc = torch.randn((xs[0], ws[0], oh, ow), device=cuda, generator=gen)
+    ref_dx = conv_bwd_data_reference(dacc, w, xs[2:], stride, padding)
+    ref_dw = conv_bwd_w_reference(x, dacc, ws, stride, padding)
+    tried = 0
+    for plan in tiling.conv_fwd_candidates(*args):
+        _forced(monkeypatch, plan)
+        got = conv_block(x, w, b, stride=stride, padding=padding,
+                         activation="relu")
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{plan}: {m}")
+        tried += 1
+    for plan in tiling.conv_bwd_data_candidates(*args):
+        _forced(monkeypatch, plan)
+        got = conv_bwd_data(dacc, w, xs[2:], stride, padding)
+        torch.testing.assert_close(got, ref_dx, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{plan}: {m}")
+        tried += 1
+    scale = float(ref_dw.abs().max())
+    for plan in tiling.conv_bwd_w_candidates(*args):
+        _forced(monkeypatch, plan)
+        got = conv_bwd_w(x, dacc, ws, stride, padding)
+        torch.testing.assert_close(got, ref_dw, rtol=0, atol=5e-5 * scale,
+                                   msg=lambda m: f"{plan}: {m}")
+        tried += 1
+    assert tried >= 8
+
+
+@pytest.mark.parametrize("m,k,n", TUNED_DENSE)
+def test_every_dense_candidate_matches_the_plain_version(cuda, monkeypatch,
+                                                         m, k, n):
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(m, k, device=cuda, generator=gen)
+    w = torch.randn(k, n, device=cuda, generator=gen) / k ** 0.5
+    b = 0.1 * torch.randn(n, device=cuda, generator=gen)
+    r = torch.randn(m, n, device=cuda, generator=gen)
+    ref = matmul_block_reference(x, w, b, activation="relu")
+    ref_r = matmul_block_reference(x, w, b, r, activation="relu")
+    for plan in tiling.matmul_candidates(m, k, n):
+        _forced(monkeypatch, plan)
+        torch.testing.assert_close(matmul_block(x, w, b, activation="relu"),
+                                   ref, rtol=1e-4, atol=1e-4,
+                                   msg=lambda s: f"{plan}: {s}")
+        torch.testing.assert_close(
+            matmul_block(x, w, b, r, activation="relu"), ref_r, rtol=1e-4,
+            atol=1e-4, msg=lambda s: f"{plan} residual: {s}")
+
+
+@pytest.mark.parametrize("b,n", TUNED_CELL)
+def test_every_lstm_cell_candidate_matches_the_plain_version(cuda,
+                                                             monkeypatch,
+                                                             b, n):
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xp = torch.randn(b, 4 * n, device=cuda, generator=gen)
+    h = torch.randn(b, n, device=cuda, generator=gen)
+    c = torch.randn(b, n, device=cuda, generator=gen)
+    rw = torch.randn(n, 4 * n, device=cuda, generator=gen) / n ** 0.5
+    peeps = tuple(0.1 * torch.randn(n, device=cuda, generator=gen)
+                  for _ in range(3))
+    want = lc.lstm_cell_reference(xp, h, c, rw, peeps)
+    for plan in tiling.lstm_cell_candidates(b, n):
+        _forced(monkeypatch, plan)
+        got = lc.lstm_cell(xp, h, c, rw, peeps)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5,
+                                       msg=lambda s: f"{plan}: {s}")
+
+
+@pytest.mark.parametrize("T,b,n", TUNED_SEQ)
+def test_every_lstm_sequence_candidate_matches_the_plain_version(
+        cuda, monkeypatch, T, b, n):
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    xp = torch.randn(T, b, 4 * n, device=cuda, generator=gen)
+    h0 = torch.randn(b, n, device=cuda, generator=gen)
+    c0 = torch.randn(b, n, device=cuda, generator=gen)
+    rw = torch.randn(n, 4 * n, device=cuda, generator=gen) / n ** 0.5
+    want = lc.lstm_seq_fwd_reference(xp, h0, c0, rw)
+    hseq, cseq = want[0], want[1]
+    hprev = torch.cat([h0[None], hseq[:-1]]).contiguous()
+    cprev = torch.cat([c0[None], cseq[:-1]]).contiguous()
+    dh = torch.randn(T, b, n, device=cuda, generator=gen)
+    dhT = torch.randn(b, n, device=cuda, generator=gen)
+    dcT = torch.randn(b, n, device=cuda, generator=gen)
+    want_b = lc.lstm_seq_bwd_reference(xp, hprev, cprev, cseq, rw, dh, dhT,
+                                       dcT)
+    for bwd in (False, True):
+        for plan in tiling.lstm_seq_candidates(T, b, n, bwd):
+            _forced(monkeypatch, plan)
+            got = (lc.lstm_seq_bwd(xp, hprev, cprev, cseq, rw, dh, dhT, dcT)
+                   if bwd else lc.lstm_seq_fwd(xp, h0, c0, rw))
+            for g, r in zip(got, want_b if bwd else want):
+                torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4,
+                                           msg=lambda s: f"{plan}: {s}")
+
+
+def test_python_split_rule_is_the_librarys(cuda):
+    """The split counts ops/tiling.py computes are the C library's
+    former rule, as its query entry points still report it, over a grid
+    of shapes from one tile to well past two waves."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    lib = _build.load()
+    n_checked = 0
+    for n in (1, 2, 16, 128):
+        for c in (1, 3, 20, 96, 512):
+            for o in (1, 10, 64, 256):
+                for k in (1, 3, 5):
+                    for hw in (1, 4, 13, 28, 56):
+                        assert tiling.direct_splits(n, c, o, k, k, hw, hw) \
+                            == lib.dl4j_conv_block_splits(n, c, o, k, k, hw,
+                                                          hw)
+                        assert tiling.data_splits(n, c, hw, hw, o, k, k) \
+                            == lib.dl4j_conv_bwd_data_splits(n, c, hw, hw, o,
+                                                             k, k)
+                        assert tiling.weight_splits(n, c, o, k, k, hw, hw) \
+                            == lib.dl4j_conv_bwd_w_splits(n, c, o, k, k, hw,
+                                                          hw)
+                        n_checked += 3
+    for m in (1, 16, 64, 1024):
+        for k in (1, 100, 768, 4096, 25088):
+            for n in (1, 10, 256, 4096):
+                assert tiling.matmul_splits(m, k, n) == \
+                    lib.dl4j_matmul_block_splits(m, k, n)
+                n_checked += 1
+    assert n_checked > 3000
+
+
+def test_register_budget_is_the_built_kernels(cuda):
+    """BWD_W_REGISTERS (ops/tiling.py) is what the image-resident dW
+    kernel was built to: cudaFuncGetAttributes' registers a thread stay
+    within it (two blocks of 384 threads an SM) in every kernel size and
+    dtype, and a block takes the 384 threads."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    tiling = importlib.import_module("deeplearning4j_tpu_torch.ops.tiling")
+    cb = importlib.import_module("deeplearning4j_tpu_torch.ops.conv_block")
+    lib = _build.load()
+    for dtype, code in _build.DTYPE_CODES.items():
+        for k in range(1, cb.BWD_W_MAX_K + 1):
+            regs, threads = ctypes.c_int(0), ctypes.c_int(0)
+            assert lib.dl4j_conv_bwd_w_resident_attrs(
+                k, code, ctypes.byref(regs), ctypes.byref(threads)) == 0
+            assert 0 < regs.value <= tiling.BWD_W_REGISTERS, (dtype, k)
+            assert 2 * cb.BWD_W_MAX_THREADS * regs.value \
+                <= tiling.SM_REGISTERS
+            assert threads.value >= cb.BWD_W_MAX_THREADS
+
+
+def test_tuner_measures_persists_and_refuses_a_capture_on_the_card(
+        cuda, monkeypatch, tmp_path):
+    """DL4J_TPU_TUNE=on measures a conv's candidates on the card with
+    CUDA events and persists the winner, which a fresh memo in cached
+    mode uses without measuring; a miss inside a CUDA-graph capture
+    raises, naming the kernel."""
+    at = importlib.import_module("deeplearning4j_tpu_torch.ops.autotune")
+    monkeypatch.setenv("DL4J_TPU_TUNE", "on")
+    monkeypatch.setenv("DL4J_TPU_TUNE_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("DL4J_TPU_TUNE_BUDGET_MS", "200")
+    dispatch.reset_for_tests()
+    try:
+        x = torch.randn(8, 64, 28, 28, device=cuda)
+        w = torch.randn(128, 64, 3, 3, device=cuda) / 24.0
+        ref = conv_block_reference(x, w, padding=(1, 1))
+        got = conv_block(x, w, padding=(1, 1))
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        ident = {"n": 8, "c": 64, "h": 28, "w": 28, "o": 128, "kh": 3,
+                 "kw": 3, "sh": 1, "sw": 1, "ph": 1, "pw": 1, "dtype": "f32"}
+        entry = at.read_entry("conv_block", ident)
+        assert entry is not None and entry["measured"] >= 2
+        assert entry["best_ms"] <= entry["timings_ms"][
+            "{}:{}".format(entry["heuristic"][0],
+                           "x".join(str(v) for v in entry["heuristic"][1:]))]
+        monkeypatch.setenv("DL4J_TPU_TUNE", "cached")
+        dispatch.reset_for_tests()
+        got = conv_block(x, w, padding=(1, 1))
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        assert at.resolved()[("conv_block", tuple(ident.items()))] == \
+            tuple(entry["config"])
+        monkeypatch.setenv("DL4J_TPU_TUNE", "on")
+        dispatch.reset_for_tests()
+        x2 = torch.randn(8, 64, 14, 14, device=cuda)
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="conv_block.*capture"):
+            with torch.cuda.graph(g):
+                conv_block(x2, w, padding=(1, 1))
+    finally:
+        monkeypatch.delenv("DL4J_TPU_TUNE_CACHE_DIR")
+        monkeypatch.delenv("DL4J_TPU_TUNE")
+        dispatch.reset_for_tests()

@@ -475,3 +475,49 @@ def test_new_entry_points_default_to_cuda_and_raise_without_it():
         MultiLayerNetwork(transformer_lm(n_experts=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ComputationGraph(googlenet())
+
+
+def test_port_files_cover_the_tuning_import_and_reader_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("ops/tiling.py", "ops/autotune.py", "modelimport/keras.py",
+                "modelimport/__init__.py", "util/model_guesser.py",
+                "util/flops.py", "datasets/record_reader.py",
+                "datasets/iris.py", "datasets/curves.py",
+                "datasets/realdata.py", "datasets/lfw.py"):
+        assert f"deeplearning4j_tpu_torch/{mod}" in names
+
+
+def test_fresh_process_imports_every_module_without_h5py_pil_or_sklearn():
+    """h5py, PIL and scikit-learn are imported inside the functions that
+    read their files (the card's machine has none of them): every module
+    of the package imports with the three blocked, and without JAX."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for m in ('h5py', 'PIL', 'sklearn'):\n"
+        "    sys.modules[m] = None\n"
+        "import deeplearning4j_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from deeplearning4j_tpu_torch.modelimport import "
+        "import_sequential_model_arrays\n"
+        "import json, numpy as np\n"
+        "cfg = json.dumps({'class_name': 'Sequential', 'config': [\n"
+        "    {'class_name': 'Dense', 'config': {'name': 'd', "
+        "'output_dim': 2, 'activation': 'softmax', "
+        "'batch_input_shape': [None, 3]}}]})\n"
+        "net = import_sequential_model_arrays(cfg, {'d': {'W': "
+        "np.ones((3, 2), np.float32), 'b': np.zeros(2, np.float32)}}, "
+        "device='cpu')\n"
+        "assert tuple(net.output(np.ones((1, 3), np.float32)).shape) == "
+        "(1, 2)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'deeplearning4j_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
