@@ -307,6 +307,34 @@ non-zero (nothing is caught):
    winners, each kernel call held against its plain version; then an
    entry with a changed torch version is refused as stale, counted, and
    resolved to the heuristic.
+22. the host periphery (main paths, after the tuner; PERIPHERY_PATHS):
+   ``[ui]`` the zoo's AlexNet (224 x 224, batch 128, f32) fits 10 steps
+   under ``StatsListener(frequency=5, collect_histograms=True)`` (to an
+   ``InMemoryStatsStorage``, a ``FileStatsStorage`` and, through a
+   ``RemoteUIStatsStorageRouter``, a second ``UIServer``) and
+   ``ConvolutionalIterationListener(frequency=5)`` (its batch-1 kernel
+   calls held on their operands; the ``alexnet-b1.`` records), both on a
+   ``UIServer`` at port 0: scores equal the net's, magnitudes the
+   card's f64 means within numpy's f32 rounding of a mean, every
+   endpoint 200 and the card named,
+   the grids within 1 gray level of the plain batch-1 forward's tiles
+   (read with the script's own PNG reader), the step's ms with and
+   without a sampled report; ``[ui-chunk]`` LeNet-5 (batch 256) through
+   the default fit's CUDA-graph chunks with the conv listener: one
+   capture, two replays, the grids of the last minibatch, the snapshot
+   unchanged by a later fill; ``[tsne]`` ``plot.Tsne`` on the card at N
+   5,000 x d 128 (10 clusters), 1,000 iterations: its first 10 steps
+   each held to the CPU's, the KL falling, 10-NN cluster agreement >=
+   0.9, ms an iteration, the host joint P's seconds, peak memory;
+   ``[stream]`` 20 LeNet-5 minibatches over a loopback
+   ``NDArrayPublisher`` -> ``NDArrayConsumer`` ->
+   ``StreamingDataSetIterator`` -> ``fit``, bitwise a list-fed fit
+   (examples/s, busy share), one POST to ``streaming.ModelServer``;
+   ``[cloud-data]`` the same minibatches as shards in a
+   ``LocalObjectStore`` through ``CloudDataSetIterator``, bitwise;
+   ``[native]`` the C++ loader built from the checkout, bit for bit its
+   numpy route at MNIST's 60,000 rows and a CIFAR-10 batch, both timed
+   (the numpy route refused).
 
 ``python3 chip_smoke.py --phases tag[,tag...]`` runs the named phases
 alone (and the phases they read: ``[transformer]`` for the ring and
@@ -4216,7 +4244,10 @@ INTENDED_ROUTES = {
     # batch and its first at the serving bucket, VGG-16's convs down to
     # 4 x 4 at batch 128 and all of ResNet-50's; the direct tile (split
     # k) for LeNet's second at the bucket and VGG-16's 2 x 2 convs
+    # at batch 1 (the conv listener's forward) every conv of AlexNet and
+    # LeNet is short of WIDE_MIN_TILES: the direct tile
     "conv_block": (("alexnet.", "wide"), ("alexnet-train.", "wide"),
+                   ("alexnet-b1.", "direct"), ("lenet-b1.", "direct"),
                    ("lenet256.", "wide"),
                    ("lenet.conv1", "wide"), ("lenet.conv2", "direct"),
                    ("vgg16.conv10", "direct"), ("vgg16.", "wide"),
@@ -4245,7 +4276,9 @@ INTENDED_ROUTES = {
     "conv_bwd_w": (("lenet256.", "image_resident"), ("alexnet.", "gemm"),
                    ("alexnet-train.", "gemm"),
                    ("vgg16.", "gemm"), ("resnet50.", "gemm")),
-    "matmul_block": (("transformer.", "wide"), ("lenet", "tiled"),
+    # the conv listener's batch-1 forward streams w on the skinny route
+    "matmul_block": (("transformer.", "wide"), ("lenet-b1.", "skinny"),
+                     ("lenet", "tiled"), ("alexnet-b1.", "skinny"),
                      ("alexnet.", "tiled"), ("alexnet-train.", "tiled"),
                      ("vgg16.", "tiled"),
                      ("embedding-mlp.", "tiled"), ("semb-dp.", "tiled")),
@@ -10370,15 +10403,807 @@ def tune_phases():
             ("autotune", run_autotune, ()))
 
 
+# --- the host periphery: the training UI, t-SNE, streaming, object-store
+# datasets and the native loader (PERIPHERY_PATHS) ---------------------------
+
+UI_STEPS = 10
+UI_FREQUENCY = 5
+UI_CHUNK_BATCHES = 32  # two chunks of 16 at the default scan_chunk
+UI_CHUNK_FREQUENCY = 16
+TSNE_N = 5000
+TSNE_DIM = 128
+TSNE_CLUSTERS = 10
+TSNE_ITERS = 1000
+TSNE_TWIN_ITERS = 10
+TSNE_TWIN_REL = 1e-5
+TSNE_MIN_AGREEMENT = 0.9
+STREAM_BATCHES = 20
+NATIVE_MNIST_ROWS = 60000
+NATIVE_CIFAR_ROWS = 10000
+UI_ENDPOINTS = ("/", "/train", "/train/sessions", "/train/overview?sid={sid}",
+                "/train/histograms?sid={sid}", "/train/model?sid={sid}",
+                "/train/system?sid={sid}", "/train/tsne",
+                "/train/graph?sid={sid}", "/train/activations", "/debugz",
+                "/metrics", "/metrics?format=prometheus")
+PERIPHERY_PATHS = ("ui", "ui-chunk", "tsne", "stream", "cloud-data",
+                   "native")
+
+
+def http_get(port: int, path: str) -> bytes:
+    """GET ``path`` of a local server; raises unless it answers 200."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"GET {path} answered {resp.status}: {body[:200]}")
+    return body
+
+
+def read_png_gray(data: bytes) -> np.ndarray:
+    """An 8-bit grayscale PNG (one or more IDAT chunks, filter 0 rows, as
+    the conv listener writes them) as a [H, W] uint8 array, each chunk's
+    CRC checked."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError("not a PNG")
+    at, idat, size = 8, b"", None
+    while at < len(data):
+        (n,) = struct.unpack(">I", data[at:at + 4])
+        kind, body = data[at + 4:at + 8], data[at + 8:at + 8 + n]
+        (crc,) = struct.unpack(">I", data[at + 8 + n:at + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise RuntimeError(f"bad CRC in the PNG's {kind!r} chunk")
+        if kind == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+            if (depth, colour) != (8, 0):
+                raise RuntimeError(f"not 8-bit grayscale: {depth}, {colour}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        at += 12 + n
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise RuntimeError("a scanline filter other than 0")
+    return rows[:, 1:].copy()
+
+
+def grid_diffs(tag, grids, acts, names):
+    """The conv listener's base64 PNG ``grids`` decoded with
+    ``read_png_gray`` against the tiles of ``acts`` (a forward's
+    activations, one per layer of ``names``): {layer: the largest
+    gray-level difference} over every 4-d layer."""
+    import base64
+
+    from deeplearning4j_tpu_torch.ui.conv_listener import _tile_grid
+
+    want = {str(n): a for n, a in zip(names, acts) if a.dim() == 4}
+    if sorted(grids) != sorted(want):
+        raise RuntimeError(f"[{tag}] grids of {sorted(grids)}, the forward "
+                           f"has 4-d layers {sorted(want)}")
+    diffs = {}
+    for name, act in want.items():
+        got = read_png_gray(base64.b64decode(grids[name]))
+        ref = _tile_grid(act[0].detach().float().cpu().numpy())
+        if got.shape != ref.shape:
+            raise RuntimeError(f"[{tag}] layer {name}: grid {got.shape}, "
+                               f"tiles {ref.shape}")
+        diffs[name] = int(np.abs(got.astype(int) - ref.astype(int)).max())
+    return diffs
+
+
+def grids_against(tag, grids, acts, names):
+    """``grid_diffs``, each grid within 1 gray level of its tiles."""
+    diffs = grid_diffs(tag, grids, acts, names)
+    off = {k: v for k, v in diffs.items() if v > 1}
+    if off:
+        raise RuntimeError(f"[{tag}] grids off their tiles by {off} gray "
+                           "levels")
+    return diffs
+
+
+def f32_mean_rtol(n: int) -> float:
+    """The bound on the relative rounding of numpy's float32 mean of ``n``
+    non-negative values (the StatsListener's ``np.mean(np.abs(a))``): a
+    unit roundoff (2**-24) for each addition on the longest path of its
+    pairwise sum (15 within one of 8 accumulators of a 128-value block,
+    3 joining them, one a level above the blocks) and one for the
+    division. At fc6's 37,748,736 weights that is 2.3e-6 (1.87e-6 seen
+    on normal draws): tighter than the f64 means of the card it is held
+    to cannot be asked."""
+    levels = int(np.ceil(np.log2(max(n / 128, 1))))
+    return 2.0 ** -24 * (15 + 3 + levels + 1)
+
+
+class ScoreTap:
+    """A listener keeping each step's score (a device scalar, read after
+    the fit) and, every ``frequency`` iterations, the parameters' mean
+    magnitudes and their updates since the last sample, computed on the
+    card in f64 (device scalars), and each parameter's size."""
+
+    supports_batched_iterations = True
+
+    def __init__(self, frequency: int):
+        self.frequency = frequency
+        self.scores = {}
+        self.mags = {}
+        self.updates = {}
+        self.sizes = {}
+        self._prev = None
+
+    def iteration_done(self, model, iteration: int) -> None:
+        self.scores[iteration] = model._last_score
+        if iteration % self.frequency:
+            return
+        cur = {f"{ln}_{pn}": t.detach() for ln, lp in model.params.items()
+               for pn, t in lp.items()}
+        self.sizes = {k: t.numel() for k, t in cur.items()}
+        self.mags[iteration] = {k: t.double().abs().mean()
+                                for k, t in cur.items()}
+        if self._prev is not None:
+            self.updates[iteration] = {
+                k: (t - self._prev[k]).double().abs().mean()
+                for k, t in cur.items()}
+        self._prev = {k: t.clone() for k, t in cur.items()}
+
+
+class SyncClock:
+    """A listener noting, after waiting for the card, the host time at
+    each ``iteration_done``: each interval is a step and its listeners."""
+
+    supports_batched_iterations = True
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.times = []
+
+    def iteration_done(self, model, iteration: int) -> None:
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+
+
+class FanOut:
+    """A stats router over several (the reference's
+    ``StatsStorageRouter`` fan-out): each record to every router."""
+
+    def __init__(self, *routers):
+        self.routers = routers
+
+    def put_static_info(self, rec) -> None:
+        for r in self.routers:
+            r.put_static_info(rec)
+
+    def put_update(self, rec) -> None:
+        for r in self.routers:
+            r.put_update(rec)
+
+
+def alexnet_card_batches(torch):
+    """[alexnet-train]'s two minibatches of 128 standardized pixels, on
+    the card."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    return [DataSet(torch.from_numpy(
+        (b.features.astype(np.float32) - 127.5) / 73.9).cuda(),
+        torch.from_numpy(b.labels.astype(np.float32)).cuda())
+        for b in resnet_batches(2, ALEXNET_TRAIN_BATCH, seed=13)]
+
+
+def run_ui(torch, card):
+    """[ui] the zoo's AlexNet (224 x 224 x 3, 1000 classes, f32, batch
+    128, [alexnet-train]'s minibatches) fits 10 steps through ``fit``
+    under ``StatsListener(frequency=5, collect_histograms=True)``
+    (routed to an ``InMemoryStatsStorage``, a ``FileStatsStorage`` and a
+    ``RemoteUIStatsStorageRouter`` posting to a second ``UIServer``) and
+    ``ConvolutionalIterationListener(frequency=5)`` (each of its batch-1
+    kernel calls held to its plain version on its operands), both
+    feeding a ``UIServer`` on port 0: the sampled scores equal the net's,
+    the magnitudes equal the card's own f64 means within numpy's float32
+    rounding of a mean (``f32_mean_rtol``: 1.1e-6 to 2.3e-6), the
+    remote server and the file hold every update, every endpoint answers
+    200, ``/train/system`` and ``/debugz`` name the card, and each grid
+    decodes to the tiles of the plain version's batch-1 forward within 1
+    gray level. Then a second run of 10 steps times a step with and
+    without a sampled report. Returns the launches of the first run."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.ui import (
+        ConvolutionalIterationListener,
+        FileStatsStorage,
+        InMemoryStatsStorage,
+        RemoteUIStatsStorageRouter,
+        StatsListener,
+        UIServer,
+    )
+    from deeplearning4j_tpu_torch.zoo import alexnet
+
+    kind = torch.cuda.get_device_name(0)
+    conf = alexnet()
+    batches = alexnet_card_batches(torch)
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in net.params.items()}
+    print(f"[ui] zoo.alexnet() ({net.num_params()} params), batch "
+          f"{ALEXNET_TRAIN_BATCH}, {UI_STEPS} steps, StatsListener and "
+          f"ConvolutionalIterationListener every {UI_FREQUENCY}")
+    tmp = tempfile.mkdtemp(prefix="dl4j_ui_")
+    server, remote = UIServer(port=0), UIServer(port=0)
+    held = held_on_operands(dense=True)
+
+    class HeldConvListener(ConvolutionalIterationListener):
+        def iteration_done(self, model, iteration):
+            with held:
+                super().iteration_done(model, iteration)
+
+    try:
+        remote.enable_remote_listener()
+        mem = InMemoryStatsStorage()
+        file_path = os.path.join(tmp, "stats.jsonl")
+        router = RemoteUIStatsStorageRouter(
+            f"http://127.0.0.1:{remote.port}", raise_on_error=True)
+        server.attach(mem)
+        stats = StatsListener(FanOut(mem, FileStatsStorage(file_path),
+                                     router),
+                              frequency=UI_FREQUENCY,
+                              collect_histograms=True, session_id="alexnet")
+        conv = HeldConvListener(server, frequency=UI_FREQUENCY)
+        tap = ScoreTap(UI_FREQUENCY)
+        net.set_listeners(stats, conv, tap)
+        dispatch.reset_launch_counts()
+        net.fit(batches, epochs=UI_STEPS // len(batches))
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        step = expected_counts(conv_block=10, conv_bwd_data=4, conv_bwd_w=5,
+                               matmul_block=2)
+        samples = UI_STEPS // UI_FREQUENCY
+        want = {k: v * UI_STEPS for k, v in step.items()}
+        want["conv_block"] += 5 * samples   # the listener's batch-1 forward
+        want["matmul_block"] += 2 * samples
+        if net.iteration_count != UI_STEPS or launches != want:
+            raise RuntimeError(f"[ui] {net.iteration_count} steps launched "
+                               f"{launches}, expected {want}")
+        if {k: n for k, (n, _) in held.errors.items()} != {
+                "conv_block": 5 * samples, "matmul_block": 2 * samples}:
+            raise RuntimeError(f"[ui] held calls: {held.errors}")
+        # the records: scores, magnitudes, the remote copy, the file
+        ups = mem.get_all_updates("alexnet", "worker-0")
+        its = [u.iteration for u in ups]
+        if its != list(range(UI_FREQUENCY, UI_STEPS + 1, UI_FREQUENCY)):
+            raise RuntimeError(f"[ui] sampled iterations {its}")
+        worst_mag = 0.0
+        for u in ups:
+            if u.score != float(tap.scores[u.iteration]):
+                raise RuntimeError(f"[ui] iteration {u.iteration}: sampled "
+                                   f"score {u.score}, the net's "
+                                   f"{float(tap.scores[u.iteration])}")
+            for got, ref in ((u.param_mean_magnitudes,
+                              tap.mags[u.iteration]),
+                             (u.update_mean_magnitudes,
+                              tap.updates.get(u.iteration, {}))):
+                if sorted(got) != sorted(ref):
+                    raise RuntimeError(f"[ui] keys {sorted(got)} against "
+                                       f"{sorted(ref)}")
+                for k, v in got.items():
+                    r = float(ref[k])
+                    rel = abs(v - r) / max(abs(r), 1e-30)
+                    worst_mag = max(worst_mag, rel / f32_mean_rtol(
+                        tap.sizes[k]))
+                    if rel > f32_mean_rtol(tap.sizes[k]):
+                        raise RuntimeError(f"[ui] {k} at {u.iteration}: {v} "
+                                           f"against the card's {r}")
+            if sorted(u.param_histograms) != sorted(u.param_mean_magnitudes):
+                raise RuntimeError("[ui] a histogram is missing")
+        if not ups[-1].update_mean_magnitudes:
+            raise RuntimeError("[ui] no update magnitudes at the 2nd sample")
+        held_remote = remote.primary_storage().get_all_updates(
+            "alexnet", "worker-0")
+        on_file = FileStatsStorage(file_path).get_all_updates(
+            "alexnet", "worker-0")
+        for where, recs in (("remote", held_remote), ("file", on_file)):
+            if [r.encode() for r in recs] != [u.encode() for u in ups]:
+                raise RuntimeError(f"[ui] the {where} copy holds "
+                                   f"{len(recs)} updates, not the {len(ups)}"
+                                   " local ones")
+        # every endpoint, then the t-SNE post (run on the CPU)
+        sizes = {}
+        for where, srv in (("local", server), ("remote", remote)):
+            for path in UI_ENDPOINTS:
+                p = path.format(sid="alexnet")
+                sizes[where + p] = len(http_get(srv.port, p))
+        tsne_in = np.random.RandomState(3).randn(64, 16).tolist()
+        code, posted, _, _ = post_json(
+            server.port, {"vectors": tsne_in,
+                          "labels": [str(i % 4) for i in range(64)]},
+            path="/tsne/post")
+        coords = json.loads(http_get(server.port, "/train/tsne"))["coords"]
+        if code != 200 or posted["points"] != 64 or np.shape(coords) != (
+                64, 2) or not np.all(np.isfinite(coords)):
+            raise RuntimeError(f"[ui] /tsne/post gave {posted}, "
+                               f"{np.shape(coords)}")
+        system = http_get(server.port, "/train/system?sid=alexnet").decode()
+        debugz = http_get(server.port, "/debugz").decode()
+        for name, body in (("/train/system", system), ("/debugz", debugz)):
+            if kind not in body:
+                raise RuntimeError(f"[ui] {name} does not name {kind}")
+        # the grids: the last sample's snapshot through the plain version
+        grids = json.loads(http_get(server.port, "/train/activations")
+                           )["grids"]
+        x1 = net._last_features[:1]
+        if x1.data_ptr() != batches[-1].features.data_ptr():
+            raise RuntimeError("[ui] the snapshot is not the last batch")
+        twin = cpu_twin(torch, net)
+        diffs = grids_against("ui", grids, twin.feed_forward(
+            x1.cpu()), net.layer_names)
+        if len(diffs) != 8:
+            raise RuntimeError(f"[ui] {len(diffs)} grids, not 8")
+        del twin
+
+        # timing: 10 more steps from the same start, no held calls, each
+        # step waited for: a step with and without a sampled report
+        timed = MultiLayerNetwork(conf, device="cuda").init(params=init)
+        clock = SyncClock(torch)
+        timed_mem = InMemoryStatsStorage()
+        timed.set_listeners(
+            StatsListener(timed_mem, frequency=UI_FREQUENCY,
+                          collect_histograms=True),
+            ConvolutionalIterationListener(server, frequency=UI_FREQUENCY),
+            clock)
+        timed.fit(batches[0])  # the first step, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.fit(batches, epochs=UI_STEPS // len(batches))
+        ticks = [t0] + clock.times[1:]
+        steps = np.diff(ticks) * 1e3
+        sampled = [ms for i, ms in enumerate(steps, start=2)
+                   if i % UI_FREQUENCY == 0]
+        plain = [ms for i, ms in enumerate(steps, start=2)
+                 if i % UI_FREQUENCY]
+        res = {"steps": UI_STEPS, "batch": ALEXNET_TRAIN_BATCH,
+               "samples": len(ups), "score_first": ups[0].score,
+               "score_last": ups[-1].score,
+               "magnitudes_max_share_of_f32_mean_rtol": worst_mag,
+               "f32_mean_rtol_fc6": f32_mean_rtol(9216 * 4096),
+               "params_read_per_report": net.num_params(),
+               "histograms_per_report": len(ups[-1].param_histograms),
+               "remote_updates": len(held_remote),
+               "file_updates": len(on_file),
+               "endpoint_bytes": sizes,
+               "grids_gray_level_max_diff": diffs,
+               "held_batch1_max_rel_err": {k: e for k, (_, e)
+                                           in held.errors.items()},
+               "step_ms_without_report_median": float(np.median(plain)),
+               "step_ms_with_report": sampled,
+               "report_ms": float(np.mean(sampled) - np.median(plain)),
+               "launches_per_step": {k: v for k, v in step.items() if v}}
+    finally:
+        server.stop()
+        remote.stop()
+    print(f"[ui] {json.dumps(res)} card={card}")
+    return launches
+
+
+def lenet_batches(n, seed=123):
+    """``n`` synthetic MNIST minibatches of 256 (host arrays)."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+
+    with warnings.catch_warnings():  # the synthetic-data warning
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return list(MnistDataSetIterator(
+            LENET_TRAIN_BATCH, allow_synthetic=True, seed=seed,
+            num_examples=LENET_TRAIN_BATCH * n))
+
+
+def run_ui_chunk(torch, card):
+    """[ui-chunk] LeNet-5 at full width, batch 256, 32 minibatches through
+    the default ``fit`` (scan_chunk 16: two chunks of one captured CUDA
+    graph) with only ``ConvolutionalIterationListener(frequency=16)``:
+    one capture, two replays; the grids are the last minibatch's first
+    row through the card's forward (and not the one before's); the
+    snapshot is the caller's array, unchanged after another chunk's fill
+    rewrote the static input buffer. Returns the launches."""
+    import base64
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.ui import ConvolutionalIterationListener
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    batches = lenet_batches(UI_CHUNK_BATCHES)
+    more = lenet_batches(16, seed=7)
+    net = MultiLayerNetwork(lenet(), device="cuda").init()
+    conv = ConvolutionalIterationListener(frequency=UI_CHUNK_FREQUENCY)
+    net.set_listeners(conv)
+    dispatch.reset_launch_counts()
+    net.fit(batches)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    graphs = list(net._megastep_graphs.values())
+    captures = sum(g.metrics is not None for g in graphs)
+    replays = sum(g.replays for g in graphs)
+    if (captures, replays, [g.k for g in graphs]) != (1, 2, [16]):
+        raise RuntimeError(f"[ui-chunk] {captures} captures, {replays} "
+                           f"replays, chunks {[g.k for g in graphs]}")
+    snap = net._last_features
+    if snap is not batches[-1].features:
+        raise RuntimeError("[ui-chunk] the snapshot is not the caller's "
+                           "last minibatch")
+    kept = snap.copy()
+    names = net.layer_names
+    diffs = grids_against("ui-chunk", conv.last_grids,
+                          net.feed_forward(snap[:1]), names)
+    # and not the minibatch before the last
+    prev = grid_diffs("ui-chunk", conv.last_grids,
+                      net.feed_forward(batches[-2].features[:1]), names)
+    if max(prev.values()) <= 1:
+        raise RuntimeError("[ui-chunk] the grids also match the minibatch "
+                           "before the last")
+    # another chunk: its fill rewrites the static input buffer
+    static = graphs[0].inputs[0]
+    net.set_listeners()
+    net.fit(more)
+    torch.cuda.synchronize()
+    if graphs[0].replays != 3 or not np.array_equal(snap, kept) \
+            or np.array_equal(static[-1].cpu().numpy(), kept):
+        raise RuntimeError("[ui-chunk] the snapshot moved with the static "
+                           "buffer's fill")
+    shown = base64.b64decode(conv.last_grids[names[0]])
+    res = {"minibatches": UI_CHUNK_BATCHES, "rows": LENET_TRAIN_BATCH,
+           "captures": captures, "replays_after_fit": replays,
+           "grids": sorted(conv.last_grids),
+           "grids_gray_level_max_diff": diffs,
+           "first_grid_png_bytes": len(shown),
+           "snapshot_unchanged_after_fill": True,
+           "launches_counted_at_capture": {k: v for k, v in launches.items()
+                                           if v}}
+    print(f"[ui-chunk] {json.dumps(res)} card={card}")
+    return launches
+
+
+def tsne_points(seed=11):
+    """``TSNE_N`` points in ``TSNE_DIM`` dimensions from ``TSNE_CLUSTERS``
+    seeded Gaussian clusters (centres of spread 2, unit noise), and their
+    cluster labels."""
+    rng = np.random.RandomState(seed)
+    centres = rng.randn(TSNE_CLUSTERS, TSNE_DIM) * 2.0
+    labels = rng.randint(0, TSNE_CLUSTERS, TSNE_N)
+    return centres[labels] + rng.randn(TSNE_N, TSNE_DIM), labels
+
+
+def run_tsne(torch, card):
+    """[tsne] ``plot.Tsne`` on the card at N 5,000, d 128 (10 seeded
+    clusters), ``max_iter`` 1,000, the defaults otherwise: the joint P on
+    the host (f64, timed apart), its first 10 iterations each held to the
+    CPU's step from the card's state (y and its increment within 1e-5 of
+    y's scale, the gains equal, the KL within rtol 1e-5), then the whole
+    fit on the card: its final KL is below that of the first step on the
+    true P (a second fit cut at ``stop_lying_iteration + 1``), each
+    point's 10 nearest embedded neighbours share its cluster >= 0.9 of
+    the time; ms an iteration (CUDA events) and peak memory. The
+    iterations are plain torch (the JAX step is jnp, no Pallas kernel):
+    no kernel launches."""
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    ptsne = importlib.import_module("deeplearning4j_tpu_torch.plot.tsne")
+    x, labels = tsne_points()
+    t = Tsne(device="cuda", max_iter=TSNE_ITERS)
+    t0 = time.perf_counter()
+    p = t._joint_p(x)
+    joint_s = time.perf_counter() - t0
+    # the first iterations, each step against the CPU's from its state
+    rng = np.random.RandomState(t.seed)
+    y = torch.from_numpy((rng.randn(TSNE_N, 2) * 1e-4).astype(
+        np.float32)).cuda()
+    y_inc, gains = torch.zeros_like(y), torch.ones_like(y)
+    p_lied = torch.from_numpy((p * t.lie_factor).astype(np.float32))
+    worst = {"y": 0.0, "y_inc": 0.0, "kl": 0.0}
+    for it in range(TSNE_TWIN_ITERS):
+        cur = p_lied  # every twin iteration is in the exaggeration
+        host = [a.cpu() for a in (y, y_inc, gains)]
+        card_out = ptsne._tsne_step(cur.cuda(), y, y_inc, gains,
+                                    t.initial_momentum, t.learning_rate,
+                                    want_kl=True)
+        ref = ptsne._tsne_step(cur, *host, t.initial_momentum,
+                               t.learning_rate, want_kl=True)
+        scale = float(ref[0].abs().max())
+        worst["y"] = max(worst["y"], float((card_out[0].cpu() - ref[0])
+                                           .abs().max()) / scale)
+        worst["y_inc"] = max(worst["y_inc"], float(
+            (card_out[1].cpu() - ref[1]).abs().max()) / scale)
+        worst["kl"] = max(worst["kl"], abs(float(card_out[3]) - float(
+            ref[3])) / abs(float(ref[3])))
+        if (worst["y"] > TSNE_TWIN_REL or worst["y_inc"] > TSNE_TWIN_REL
+                or worst["kl"] > TSNE_TWIN_REL
+                or not torch.equal(card_out[2].cpu(), ref[2])):
+            raise RuntimeError(f"[tsne] iteration {it} off the CPU's step: "
+                               f"{worst}")
+        y, y_inc, gains = card_out[:3]
+    # the free-running 10 iterations both ways (reported: the gains'
+    # sign test makes the trajectory chaotic)
+    free = Tsne(device="cuda", max_iter=TSNE_TWIN_ITERS)._fit_p(p)
+    free_cpu = Tsne(device="cpu", max_iter=TSNE_TWIN_ITERS)._fit_p(p)
+    free_rel = float(np.abs(free - free_cpu).max() / np.abs(free_cpu).max())
+    del p_lied
+    # the fit on the card
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    emb = t._fit_p(p)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if emb.shape != (TSNE_N, 2) or not np.all(np.isfinite(emb)):
+        raise RuntimeError(f"[tsne] embedding {emb.shape}")
+    # the KL of the first step on the true P: a second fit cut there
+    cut = Tsne(device="cuda", max_iter=t.stop_lying_iteration + 1)
+    cut._fit_p(p)
+    if not t.kl < cut.kl:
+        raise RuntimeError(f"[tsne] the KL did not fall: {cut.kl} at "
+                           f"iteration {t.stop_lying_iteration}, final "
+                           f"{t.kl}")
+    ye = torch.from_numpy(emb).cuda()
+    d = torch.cdist(ye, ye)
+    d.fill_diagonal_(float("inf"))
+    nn = d.topk(10, largest=False).indices.cpu().numpy()
+    agree = float((labels[nn] == labels[:, None]).mean())
+    if agree < TSNE_MIN_AGREEMENT:
+        raise RuntimeError(f"[tsne] 10-NN cluster agreement {agree}")
+    res = {"n": TSNE_N, "d": TSNE_DIM, "clusters": TSNE_CLUSTERS,
+           "iterations": t.max_iter, "perplexity": t.perplexity,
+           "joint_p_host_s": joint_s,
+           "ms_per_iteration": start.elapsed_time(end) / t.max_iter,
+           "fit_wall_s": wall, "peak_memory_mib": peak / 2 ** 20,
+           "kl_after_lie": cut.kl, "kl_final": t.kl,
+           "knn10_cluster_agreement": agree,
+           "twin_iterations": TSNE_TWIN_ITERS,
+           "twin_max_rel": worst, "twin_tolerance": TSNE_TWIN_REL,
+           "free_running_10_iterations_rel": free_rel}
+    print(f"[tsne] {json.dumps(res)} card={card}")
+    return launches
+
+
+def lenet_reference(torch, batches):
+    """A LeNet-5 on the card and its initial weights, fit on ``batches``
+    from a ``ListDataSetIterator`` by the default ``fit`` (the reference
+    the streamed and stored fits are held to, bitwise)."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    ref = MultiLayerNetwork(lenet(), device="cuda").init()
+    init = {ln: {pn: t.clone() for pn, t in lp.items()}
+            for ln, lp in ref.params.items()}
+    ref.fit(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    return ref, init
+
+
+def run_stream(torch, card):
+    """[stream] LeNet-5, batch 256: 20 synthetic MNIST minibatches
+    published row by row by an ``NDArrayPublisher`` (a thread) to an
+    ``NDArrayConsumer`` over loopback, through
+    ``StreamingDataSetIterator`` into the default ``fit`` on the card:
+    the parameters bitwise a second net's from the same init fed the same
+    minibatches from a list; examples/s and the busy share (the captured
+    chunks' device time over the streamed fit's wall); then one POST to
+    ``streaming.ModelServer``. Returns the launches."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.streaming import (
+        ModelServer,
+        NDArrayConsumer,
+        NDArrayPublisher,
+        StreamingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    batches = lenet_batches(STREAM_BATCHES)
+    ref, init = lenet_reference(torch, batches)
+    net = MultiLayerNetwork(lenet(), device="cuda").init(params=init)
+    consumer = NDArrayConsumer(port=0).listen()
+    pub = NDArrayPublisher("127.0.0.1", consumer.port)
+    failed = []
+
+    def publish():
+        try:
+            for ds in batches:
+                for row, lab in zip(ds.features, ds.labels):
+                    pub.publish(row, labels=lab)
+        except Exception as e:  # surfaced after the join
+            failed.append(e)
+
+    sender = threading.Thread(target=publish, daemon=True)
+    dispatch.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        sender.start()
+        net.fit(StreamingDataSetIterator(consumer, LENET_TRAIN_BATCH,
+                                         total_batches=STREAM_BATCHES,
+                                         timeout=60))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sender.join(timeout=60)
+    finally:
+        pub.close()
+        consumer.close()
+    if failed or sender.is_alive():
+        raise RuntimeError(f"[stream] the publisher failed: {failed}")
+    if net.iteration_count != STREAM_BATCHES or not same_trees(torch, net,
+                                                               ref):
+        raise RuntimeError("[stream] the streamed fit differs from the "
+                           "list's")
+    graphs = list(net._megastep_graphs.values())
+    dev_ms = sum(events_ms(torch, g.graph.replay, reps=3)[0]
+                 for g in graphs)  # one replay of each chunk: every step
+    x = batches[0].features[:4]
+    server = ModelServer(net, device="cuda")
+    server.start()
+    try:
+        out, post_s = post(server.port, x)
+    finally:
+        server.stop()
+    launches = dispatch.launch_counts()
+    np.testing.assert_allclose(out, net.output(x).cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    res = {"minibatches": STREAM_BATCHES, "rows": LENET_TRAIN_BATCH,
+           "examples_per_s": STREAM_BATCHES * LENET_TRAIN_BATCH / wall,
+           "wall_s": wall, "chunks": [g.k for g in graphs],
+           "device_ms": dev_ms, "device_busy_share": dev_ms / (wall * 1e3),
+           "bitwise_list_fit": True, "model_server_post_ms": post_s * 1e3}
+    print(f"[stream] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_cloud_data(torch, card):
+    """[cloud-data] [stream]'s 20 minibatches exported by
+    ``save_dataset_shards`` into a ``LocalObjectStore`` in a temporary
+    directory, then ``CloudDataSetIterator`` into the default ``fit`` on
+    the card: bitwise the list-iterator run. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.cloud import (
+        CloudDataSetIterator,
+        LocalObjectStore,
+        save_dataset_shards,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import dispatch
+    from deeplearning4j_tpu_torch.zoo import lenet
+
+    batches = lenet_batches(STREAM_BATCHES)
+    ref, init = lenet_reference(torch, batches)
+    tmp = tempfile.mkdtemp(prefix="dl4j_shards_")
+    try:
+        store = LocalObjectStore(tmp)
+        t0 = time.perf_counter()
+        keys = save_dataset_shards(batches, store)
+        save_s = time.perf_counter() - t0
+        net = MultiLayerNetwork(lenet(), device="cuda").init(params=init)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        net.fit(CloudDataSetIterator(store))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        shard_bytes = sum(len(store.read(k)) for k in keys)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if net.iteration_count != STREAM_BATCHES or not same_trees(torch, net,
+                                                               ref):
+        raise RuntimeError("[cloud-data] the stored fit differs from the "
+                           "list's")
+    res = {"shards": len(keys), "shard_bytes": shard_bytes,
+           "save_s": save_s, "fit_wall_s": wall,
+           "examples_per_s": STREAM_BATCHES * LENET_TRAIN_BATCH / wall,
+           "bitwise_list_fit": True}
+    print(f"[cloud-data] {json.dumps(res)} card={card}")
+    return launches
+
+
+def run_native(torch, card):
+    """[native] the loader built from the port's source: on seeded IDX
+    bytes at MNIST's 60,000 x 28 x 28 and CIFAR-10's 10,000-record batch,
+    ``parse_idx3``, ``normalize_u8``, ``assemble_batch`` (the whole
+    shuffled set) and ``split_cifar`` bit for bit the numpy route's;
+    ``route()`` must be ``"native"``. Prints both routes' times."""
+    import struct
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.ops import dispatch
+
+    t0 = time.perf_counter()
+    route = native.route()
+    build_s = time.perf_counter() - t0
+    if route != "native":
+        raise RuntimeError(f"[native] the loader took the {route} route "
+                           f"({native._failure})")
+    rng = np.random.RandomState(17)
+    images = rng.randint(0, 256, (NATIVE_MNIST_ROWS, 784)).astype(np.uint8)
+    labels = rng.randint(0, 10, NATIVE_MNIST_ROWS).astype(np.uint8)
+    idx = struct.pack(">IIII", 2051, NATIVE_MNIST_ROWS, 28, 28) + \
+        images.tobytes()
+    perm = rng.permutation(NATIVE_MNIST_ROWS)
+    crec = np.concatenate([rng.randint(0, 10, (NATIVE_CIFAR_ROWS, 1)),
+                           rng.randint(0, 256, (NATIVE_CIFAR_ROWS, 3072))],
+                          1).astype(np.uint8).tobytes()
+
+    def run_all():
+        out, ms = {}, {}
+        for name, fn in (("parse_idx3", lambda: native.parse_idx3(idx)),
+                         ("normalize_u8",
+                          lambda: native.normalize_u8(images)),
+                         ("assemble_batch", lambda: native.assemble_batch(
+                             images, labels, perm, 10)),
+                         ("split_cifar", lambda: native.split_cifar(crec))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        return out, ms
+
+    got, native_ms = run_all()
+    lib, failure = native._lib, native._failure
+    native._lib, native._failure = None, "the numpy route, for comparison"
+    try:
+        ref, numpy_ms = run_all()
+    finally:
+        native._lib, native._failure = lib, failure
+    for name in got:
+        g = got[name] if isinstance(got[name], tuple) else (got[name],)
+        r = ref[name] if isinstance(ref[name], tuple) else (ref[name],)
+        for a, b in zip(g, r):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise RuntimeError(f"[native] {name} differs from the numpy "
+                                   "route")
+    if not np.array_equal(got["parse_idx3"], images):
+        raise RuntimeError("[native] parse_idx3 is not the images")
+    res = {"route": route, "library": native.library_path().name,
+           "build_or_load_s": build_s, "mnist_rows": NATIVE_MNIST_ROWS,
+           "cifar_rows": NATIVE_CIFAR_ROWS, "native_ms": native_ms,
+           "numpy_ms": numpy_ms, "bitwise_numpy_route": True}
+    print(f"[native] {json.dumps(res)} card={card}")
+    return {k: 0 for k in dispatch.KERNELS}
+
+
+def periphery_phases():
+    """(tag, function) of the host periphery's phases, in
+    PERIPHERY_PATHS's order."""
+    fns = {"ui": run_ui, "ui-chunk": run_ui_chunk, "tsne": run_tsne,
+           "stream": run_stream, "cloud-data": run_cloud_data,
+           "native": run_native}
+    return [(tag, fns[tag]) for tag in PERIPHERY_PATHS]
+
+
 def kernel_checks(torch, F, records, half_records, layers):
     """The kernel checks: ``[kernel]`` and ``[layer]`` records appended to
     ``records``, ``half_records`` and ``layers``."""
     from deeplearning4j_tpu_torch.zoo import alexnet, lenet
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the forward shapes of LeNet's serving bucket and training batch, of
+    # AlexNet's batch of 64, and the conv listener's batch-1 forward of
+    # both ([ui], [ui-chunk])
     for model, conf, batch in (("lenet", lenet(), LENET_BUCKET),
                                ("lenet256", lenet(), LENET_TRAIN_BATCH),
-                               ("alexnet", alexnet(), ALEXNET_BATCH)):
+                               ("alexnet", alexnet(), ALEXNET_BATCH),
+                               ("lenet-b1", lenet(), 1),
+                               ("alexnet-b1", alexnet(), 1)):
         for name, kind_, geo in kernel_shapes(conf, batch):
             rec = check_kernel(torch, F, model, name, kind_, geo, gen)
             records.append(rec)
@@ -10591,7 +11416,7 @@ def kernels_line(records, half_records, layers, paths, half_variants
             "replaces": tpu + replaces, "launches": launches,
             "launches_by_path": network_launches(
                 k, paths, NETWORK_PATHS + NEW_PATHS + FIT_PATHS
-                + TUNE_PATHS),
+                + TUNE_PATHS + PERIPHERY_PATHS),
             "max_abs_err": max((r["max_abs_err"] for r in mine),
                                default=None),
             "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
@@ -10651,6 +11476,15 @@ def kernel_extras(k, mine, main, layers) -> dict:
             r["launches_per_step"] for r in recs),
             f"{tag}_route": "+".join(
                 sorted({r["kernel_route"] for r in recs}))})
+    for model in ("alexnet-b1", "lenet-b1"):  # the conv listener's forward
+        recs = [r for r in mine if r["shape_of"].startswith(model + ".")]
+        if recs and k in ("conv_block", "matmul_block"):
+            tag = model.replace("-", "_")
+            extra.update({f"{tag}_{key}": sum(r[key] for r in recs)
+                          for key in ("kernel_ms", "plain_ms", "library_ms",
+                                      "bound_ms")})
+            extra[f"{tag}_route"] = "+".join(sorted(
+                {r["kernel_route"] for r in recs}))
     alex = [r for r in mine if r["shape_of"].startswith("alexnet.")]
     if k == "conv_block" and alex:
         extra.update(alexnet_route="+".join(sorted(
@@ -10816,6 +11650,10 @@ def main(argv=None) -> int:
     # Keras's VGG-16 imported at 224 x 224, then the kernel tuner on it
     for tag, fn, args in tune_phases():
         phase(tag, fn, *args)
+    # the host periphery: the training UI, t-SNE, the NDArray stream,
+    # object-store shards and the native loader
+    for tag, fn in periphery_phases():
+        phase(tag, fn)
     if wanted("nlp"):
         paths["nlp"] = summed_launches(run_nlp(torch, card))
     # the row-sharded trainer on two ranks (after every phase that forms

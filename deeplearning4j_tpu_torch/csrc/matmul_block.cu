@@ -56,7 +56,23 @@
 //   shape is taken. The epilogue runs on the accumulators and stores 16
 //   bytes at a time where it can. bf16 and f16 inputs take the same tile, widened to
 //   f32 as they are staged (through registers: cp.async cannot widen).
-//   Neither route uses atomics: two launches give the same bits.
+//
+// - skinny (kRouteSkinny): at most kM = 8 rows, the conv listener's
+//   batch-1 forward and a sampler's one-row step. A 64 x 64 tile there
+//   multiplies 63 rows of zeros: AlexNet's two dense layers at m 1 took
+//   0.455 ms on the tiled route, 5.5x addmm, against the 0.065 ms that
+//   reading their 218 MB of weights takes (NVIDIA H100 80GB HBM3,
+//   700 W, chip_smoke.py). The product is a stream of w: each thread
+//   owns 4 adjacent columns (one 16-byte load of a w row where n is a
+//   multiple of 4 and the pointers are aligned) and all m rows of them
+//   in registers, a block's 256 threads are 64 column threads by 4 k
+//   lanes (a warp reads 512 contiguous bytes of one w row), each lane
+//   walks every 4th k of the block's k chunk with kUnroll rows of w in
+//   flight, and the lanes' sums are added in shared memory in a fixed
+//   order. x is read through the read-only cache (every thread of a
+//   warp reads the same element). K is split over blockIdx.y into the
+//   same f32 scratch and finish pass as the tiled route.
+//   No route uses atomics: two launches give the same bits.
 #include <stdint.h>
 
 #include <type_traits>
@@ -159,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
 // --- the wide route ---------------------------------------------------------
 
 // route codes shared with ops/matmul_block.py (ROUTE_CODES)
-enum Route { kRouteTiled = 0, kRouteWide = 1 };
+enum Route { kRouteTiled = 0, kRouteWide = 1, kRouteSkinny = 2 };
 
 namespace wide {
 constexpr int kM = 128;                   // output rows per block
@@ -378,6 +394,157 @@ int launch_wide(const void* x, const void* w, const float* bias,
                                   stream);
 }
 
+// --- the skinny route -------------------------------------------------------
+
+namespace skinny {
+constexpr int kM = 8;                      // most rows (SKINNY_MAX_M)
+constexpr int kCols = 4;                   // adjacent columns a thread owns
+constexpr int kColThreads = 64;
+constexpr int kLanes = 4;                  // k lanes of a block
+constexpr int kThreads = kColThreads * kLanes;
+constexpr int kN = kColThreads * kCols;    // 256 columns a block
+constexpr int kUnroll = 4;                 // w rows a lane has in flight
+}  // namespace skinny
+
+// The kCols values of w row `row` from column c0 (the columns past n
+// read as 0).
+template <typename T, bool kVec>
+__device__ __forceinline__ void skinny_row(const T* __restrict__ row, int c0,
+                                           int n, float (&v)[skinny::kCols]) {
+  if constexpr (kVec) {
+    const float4 q = *reinterpret_cast<const float4*>(row + c0);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < skinny::kCols; ++j)
+      v[j] = c0 + j < n ? dl4j::to_f32(row[c0 + j]) : 0.0f;
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(skinny::kThreads)
+    matmul_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ res, T* __restrict__ out,
+                         float* __restrict__ partial, int m, int k_len,
+                         int n, int k_chunk, int act) {
+  using namespace skinny;
+  __shared__ float red[kLanes - 1][kM][kN];
+  const int ct = threadIdx.x % kColThreads;
+  const int lane = threadIdx.x / kColThreads;
+  const int c0 = blockIdx.x * kN + ct * kCols;
+  const int k_lo = blockIdx.y * k_chunk;
+  const int k_hi = min(k_len, k_lo + k_chunk);
+
+  float acc[kM][kCols];
+#pragma unroll
+  for (int r = 0; r < kM; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.0f;
+
+  if (c0 < n) {
+    int k = k_lo + lane;
+    // kUnroll rows of w loaded before any is used
+    for (; k + (kUnroll - 1) * kLanes < k_hi; k += kUnroll * kLanes) {
+      float v[kUnroll][kCols];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        skinny_row<T, kVec>(w + (size_t)(k + u * kLanes) * n, c0, n, v[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int r = 0; r < kM; ++r) {
+          if (r >= m) break;
+          const float xv =
+              dl4j::to_f32(x[(size_t)r * k_len + k + u * kLanes]);
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            acc[r][j] = fmaf(xv, v[u][j], acc[r][j]);
+        }
+      }
+    }
+    for (; k < k_hi; k += kLanes) {
+      float v[kCols];
+      skinny_row<T, kVec>(w + (size_t)k * n, c0, n, v);
+#pragma unroll
+      for (int r = 0; r < kM; ++r) {
+        if (r >= m) break;
+        const float xv = dl4j::to_f32(x[(size_t)r * k_len + k]);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(xv, v[j], acc[r][j]);
+      }
+    }
+  }
+
+  // lanes 1..3 hand their sums to lane 0, which adds them in lane order
+  if (lane > 0) {
+#pragma unroll
+    for (int r = 0; r < kM; ++r)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        red[lane - 1][r][ct * kCols + j] = acc[r][j];
+  }
+  __syncthreads();
+  if (lane != 0) return;
+#pragma unroll
+  for (int r = 0; r < kM; ++r) {
+    if (r >= m) break;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = c0 + j;
+      if (col >= n) continue;
+      float z = acc[r][j];
+#pragma unroll
+      for (int l = 0; l < kLanes - 1; ++l) z += red[l][r][ct * kCols + j];
+      const size_t idx = (size_t)r * n + col;
+      if (partial != nullptr) {
+        partial[(size_t)blockIdx.y * m * n + idx] = z;
+      } else {
+        z += bias[col];
+        if (res != nullptr) z += dl4j::to_f32(res[idx]);
+        out[idx] = dl4j::from_f32<T>(dl4j::apply_act(z, act));
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_skinny(const void* x, const void* w, const float* bias,
+                  const void* res, void* out, float* partial, int m, int k,
+                  int n, int act, int splits, cudaStream_t stream) {
+  if (m > skinny::kM) return (int)cudaErrorInvalidValue;
+  int k_chunk = k;
+  int z = 1;
+  if (splits > 1) {
+    if (partial == nullptr || k <= 0) return (int)cudaErrorInvalidValue;
+    k_chunk = dl4j::k_chunk_for(k, splits);
+    z = dl4j::ceil_div(k, k_chunk);
+    if (z > splits) return (int)cudaErrorInvalidValue;
+  }
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  float* ws = z > 1 ? partial : nullptr;
+  dim3 grid((unsigned)dl4j::ceil_div(n, skinny::kN), (unsigned)z);
+  bool vec = false;
+  if constexpr (std::is_same<T, float>::value)
+    vec = n % 4 == 0 && aligned16(w);
+  if (vec)
+    matmul_skinny_kernel<T, true><<<grid, skinny::kThreads, 0, stream>>>(
+        xt, wt, bias, rt, ot, ws, m, k, n, k_chunk, act);
+  else
+    matmul_skinny_kernel<T, false><<<grid, skinny::kThreads, 0, stream>>>(
+        xt, wt, bias, rt, ot, ws, m, k, n, k_chunk, act);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || z == 1) return rc;
+  return dl4j::launch_splitk_finish<T>(partial, z, (long long)m * n, nullptr,
+                                       bias, 1, n, act, ot, stream, rt);
+}
+
 // --- the tiled route's launch -----------------------------------------------
 
 long long tiles(int m, int n) {
@@ -424,8 +591,8 @@ extern "C" int dl4j_matmul_block_splits(int m, int k, int n) {
 // Returns the cudaError_t of the launch (0 on success). Shapes are
 // validated by the Python wrapper (ops/matmul_block.py), which also picks
 // `route` (enum Route) from the shape; `res` is the [m, n] residual
-// (null: none); `partial` is the tiled route's split-K scratch (null when
-// splits is 1; the wide route never splits).
+// (null: none); `partial` is the tiled or skinny route's split-K scratch
+// (null when splits is 1; the wide route never splits).
 extern "C" int dl4j_matmul_block(const void* x, const void* w,
                                  const void* bias, const void* res,
                                  void* out, void* partial, int dtype, int m,
@@ -445,6 +612,21 @@ extern "C" int dl4j_matmul_block(const void* x, const void* w,
                                           st);
       case dl4j::kF16:
         return launch_wide<__half>(x, w, b, res, out, m, k, n, act, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route == kRouteSkinny) {
+    switch (dtype) {
+      case dl4j::kF32:
+        return launch_skinny<float>(x, w, b, res, out, ws, m, k, n, act,
+                                    splits, st);
+      case dl4j::kBF16:
+        return launch_skinny<__nv_bfloat16>(x, w, b, res, out, ws, m, k, n,
+                                            act, splits, st);
+      case dl4j::kF16:
+        return launch_skinny<__half>(x, w, b, res, out, ws, m, k, n, act,
+                                     splits, st);
       default:
         return (int)cudaErrorInvalidValue;
     }

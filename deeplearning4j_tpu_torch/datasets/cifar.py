@@ -10,9 +10,10 @@ only with an explicit opt-in (``allow_synthetic=True`` or
 synthetic images (``_synthetic_cifar``, the same numbers from the same
 seed), flagged by ``.synthetic`` and a warning. The python-pickle
 distribution, which the JAX package also reads, is not read here: the
-port unpickles no downloaded file. Batches are assembled in numpy
-(gather by the shuffled order, uint8 -> float32 / 255, one-hot labels):
-the same bits as the JAX package's native loader. Features are NCHW
+port unpickles no downloaded file. The records are split and batches
+assembled (gather by the shuffled order, uint8 -> float32 / 255,
+one-hot labels) by the port's native loader (``native/``), or by its
+numpy route with the same bits (``native.route()``). Features are NCHW
 ``[b, 3, 32, 32]`` (``InputType.convolutional(32, 32, 3)``), or ``[b,
 3072]`` rows with ``flat=True``.
 """
@@ -44,13 +45,14 @@ LABELS = [
 def read_bin(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """A CIFAR-10 binary batch -> (uint8 images ``[n, 3, 32, 32]``,
     uint8 labels ``[n]``)."""
+    from deeplearning4j_tpu_torch.native import split_cifar
+
     with open(path, "rb") as f:
-        buf = np.frombuffer(f.read(), np.uint8)
-    if buf.size % _REC:
-        raise ValueError(f"{path}: size {buf.size} not a multiple of {_REC}")
-    rec = buf.reshape(-1, _REC)
-    return (rec[:, 1:].reshape(-1, CHANNELS, HEIGHT, WIDTH).copy(),
-            rec[:, 0].copy())
+        buf = f.read()
+    if len(buf) % _REC:
+        raise ValueError(f"{path}: size {len(buf)} not a multiple of {_REC}")
+    images, labels = split_cifar(buf)
+    return images.reshape(-1, CHANNELS, HEIGHT, WIDTH), labels
 
 
 def _candidate_dirs(data_dir: Optional[str]) -> List[str]:

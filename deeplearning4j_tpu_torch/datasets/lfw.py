@@ -3,7 +3,7 @@
 ``LFWLoader`` with ``ParentPathLabelGenerator``).
 
 Reads any image tree laid out person-per-directory
-(``lfw/<person>/<person>_0001.jpg``) via PIL, labels by parent
+(``lfw/<person>/<person>_0001.jpg``), labels by parent
 directory name, resizes to ``img_dim`` and splits train/test by
 ``split_train_test`` with a seeded shuffle — the same knobs the
 reference constructor exposes (batchSize, numExamples, imgDim,
@@ -14,7 +14,10 @@ Resolution order: ``data_dir`` arg, ``DL4J_TPU_LFW_DIR`` env var,
 be faked meaningfully; missing data raises.
 
 Counterpart of ``deeplearning4j_tpu/datasets/lfw.py``, host code
-copied as it is (the port imports nothing of the JAX package).
+copied as it is (the port imports nothing of the JAX package), but for
+the decode: JAX's goes through PIL, which the card's machine lacks, so
+the port's reads the files with ``datasets/imagefile.py`` (JPEG, PNG,
+PPM, BMP), bit for bit PIL's ``open(path).convert(mode).resize(size)``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.datasets import imagefile
 from deeplearning4j_tpu_torch.datasets.api import DataSet, DataSetIterator
 
 HEIGHT, WIDTH, CHANNELS = 250, 250, 3
@@ -52,8 +56,6 @@ class LFWDataSetIterator(DataSetIterator):
                  num_labels: Optional[int] = None, train: bool = True,
                  split_train_test: float = 1.0, seed: int = 42,
                  data_dir: Optional[str] = None, flat: bool = False):
-        from PIL import Image
-
         root = (
             data_dir
             or os.environ.get("DL4J_TPU_LFW_DIR")
@@ -95,12 +97,9 @@ class LFWDataSetIterator(DataSetIterator):
         self._pos = 0
 
     def _decode(self, path: str) -> np.ndarray:
-        from PIL import Image
-
         h, w, c = self._img_dim
-        img = Image.open(path)
-        img = img.convert("RGB" if c == 3 else "L").resize((w, h))
-        a = np.asarray(img, np.float32) / 255.0  # [h, w, c?]
+        img = imagefile.load(path, w, h, "RGB" if c == 3 else "L")
+        a = img.astype(np.float32) / 255.0  # [h, w, c?]
         if c == 1:
             a = a[:, :, None]
         return a.transpose(2, 0, 1)

@@ -6,9 +6,11 @@ order for the four IDX files (gz or raw): the ``data_dir`` argument or
 only with an explicit opt-in (``allow_synthetic=True`` or
 ``DL4J_TPU_ALLOW_SYNTHETIC=1``), the JAX package's deterministic
 synthetic digits (``_synthetic_mnist``, the same numbers from the same
-seed), flagged by ``.synthetic`` and a warning. Batches are assembled
-in numpy (gather by the shuffled order, uint8 -> float32 / 255,
-one-hot labels): the same bits as the JAX package's native loader.
+seed), flagged by ``.synthetic`` and a warning. The IDX3 images are parsed
+and batches assembled (gather by the shuffled order, uint8 -> float32 /
+255, one-hot labels) by the port's native loader (``native/``, as the
+JAX package's readers use its own), or by its numpy route with the same
+bits where the loader cannot be built (``native.route()``).
 """
 
 from __future__ import annotations
@@ -47,15 +49,14 @@ def _read_maybe_gz(path: str) -> bytes:
 
 def read_idx_images(path: str) -> np.ndarray:
     """An IDX3 image file -> uint8 ``[n, rows * cols]`` (reference
-    MnistManager.readImage: big-endian magic 2051)."""
-    buf = _read_maybe_gz(path)
-    magic, n, rows, cols = struct.unpack(">IIII", buf[:16])
-    if magic != 2051:
-        raise ValueError(f"bad IDX3 magic {magic} in {path}")
-    d = rows * cols
-    if len(buf) < 16 + n * d:
-        raise ValueError(f"truncated IDX3 data in {path}")
-    return np.frombuffer(buf, np.uint8, n * d, 16).reshape(n, d).copy()
+    MnistManager.readImage: big-endian magic 2051), parsed by the
+    native loader."""
+    from deeplearning4j_tpu_torch.native import parse_idx3
+
+    try:
+        return parse_idx3(_read_maybe_gz(path))
+    except ValueError as e:
+        raise ValueError(f"{e} in {path}") from None
 
 
 def read_idx_labels(path: str) -> np.ndarray:
@@ -92,11 +93,10 @@ def assemble_batch(images: np.ndarray, labels: np.ndarray,
                    order: np.ndarray,
                    n_classes: int) -> Tuple[np.ndarray, np.ndarray]:
     """Rows ``order`` of the uint8 images as float32 in [0, 1], and
-    their one-hot float32 labels."""
-    x = images[order].astype(np.float32) / np.float32(255.0)
-    y = np.zeros((order.size, n_classes), np.float32)
-    y[np.arange(order.size), labels[order]] = 1.0
-    return x, y
+    their one-hot float32 labels (the native loader's fused pass)."""
+    from deeplearning4j_tpu_torch import native
+
+    return native.assemble_batch(images, labels, order, n_classes)
 
 
 class MnistDataSetIterator(DataSetIterator):

@@ -1161,10 +1161,11 @@ class GraphedChunk:
     ``it0``) filled by non-blocking copies before each replay (JAX's
     ``scan_consts`` stage the same values; a device-cached chunk's
     minibatches are copied on the card), the pinned host staging of
-    those copies, and the graph. The capture follows one eager warm-up
-    step on a side stream (whose results are dropped): it loads the
-    built kernel libraries and caches the conv kernels' tap tables. A
-    capture that fails raises; nothing falls back to the eager chunk.
+    those copies, and the graph (``replays`` counts its replays). The
+    capture follows one eager warm-up step on a side stream (whose
+    results are dropped): it loads the built kernel libraries and
+    caches the conv kernels' tap tables. A capture that fails raises;
+    nothing falls back to the eager chunk.
     ``hint`` names the knob that runs the path per step."""
 
     def __init__(self, model, step, chunk: Chunk, lr_names, trees,
@@ -1192,6 +1193,7 @@ class GraphedChunk:
         self.graph = torch.cuda.CUDAGraph()
         self.metrics = None
         self.staged = None
+        self.replays = 0
 
     def _body(self, model, steps: int):
         return chunk_steps(model, self.step, self.trees, self.inputs,
@@ -1271,6 +1273,7 @@ class GraphedChunk:
         trees, now holding the chunk's results, and its metrics."""
         _copy_into(self.trees, trees)
         self.graph.replay()
+        self.replays += 1
         return self.trees, self.metrics
 
 
@@ -1552,7 +1555,9 @@ def fit_epoch_megastep(model, batches, prefetch=None) -> int:
             for ds in buf:
                 model.fit_minibatch(ds)
             return
-        feed.run(model._stack_chunk(buf))
+        chunk = model._stack_chunk(buf)  # waits on placed minibatches
+        note_last_features(model, buf[-1].features)
+        feed.run(chunk)
 
     n = 0
     try:
@@ -1564,7 +1569,9 @@ def fit_epoch_megastep(model, batches, prefetch=None) -> int:
                     flush_megastep()
                 state["sig"] = None
                 if ds.k >= 2:
-                    feed.run(prestacked_chunk(model, ds))
+                    chunk = prestacked_chunk(model, ds)  # waits on copies
+                    note_last_features(model, ds.features[-1])
+                    feed.run(chunk)
                 else:
                     feed.drain()
                     for b in ds.to_datasets():
@@ -1706,11 +1713,29 @@ def run_scan_chunk(model, chunk: Chunk) -> None:
     finish_scan_chunk(model, launched, prof)
 
 
+def note_last_features(model, features) -> None:
+    """Where a listener asks for it (JAX ``_wants_last_features``: the
+    graph engine has no such method and takes no snapshot, as JAX's
+    takes none), ``model._last_features`` is ``features``, the caller's
+    features of a chunk's last minibatch: a host array as it came, a
+    tensor (a placed chunk's last rows) cloned, so neither a chunk's
+    static input buffer nor a pipeline's reused one backs it. The caller
+    has waited on a placed payload's copies first (``prestacked_chunk``,
+    ``_stack_chunk``): the clone runs on the current stream and must
+    not read a buffer the prefetch worker's copy stream still fills."""
+    wants = getattr(model, "_wants_last_features", None)
+    if wants is not None and wants():
+        model._last_features = (features.clone() if torch.is_tensor(features)
+                                else features)
+
+
 def flush_scan_chunk(model, batches: list) -> None:
     if len(batches) == 1:
         model.fit_minibatch(batches[0])
         return
-    run_scan_chunk(model, model._stack_chunk(batches))
+    chunk = model._stack_chunk(batches)  # waits on placed minibatches
+    note_last_features(model, batches[-1].features)
+    run_scan_chunk(model, chunk)
 
 
 def run_prestacked_scan(model, ds) -> None:
@@ -1719,7 +1744,9 @@ def run_prestacked_scan(model, ds) -> None:
     if ds.k == 1:
         model.fit_minibatch(ds)  # it unstacks a ChunkedDataSet
         return
-    run_scan_chunk(model, prestacked_chunk(model, ds))
+    chunk = prestacked_chunk(model, ds)  # waits on a placed chunk's copies
+    note_last_features(model, ds.features[-1])
+    run_scan_chunk(model, chunk)
 
 
 def fit_epoch_scan(model, batches, prefetch=None) -> int:
@@ -1868,12 +1895,14 @@ def fit_epochs_device_cached(model, batches, epochs: int,
             if hasattr(listener, "on_epoch_start"):
                 listener.on_epoch_start(model)
         model._reset_recurrent_state()
-        for kind, item, _last in plan:
+        for kind, item, last in plan:
             preemption.check_fit(model)
             control_plane.check_fit(model)
             if kind == "chunk":
+                note_last_features(model, last.features)
                 run_scan_chunk(model, item)
             elif kind == "tbptt":
+                note_last_features(model, last.features)
                 model._run_tbptt_stacked(item)
             else:
                 model.fit_minibatch(item)

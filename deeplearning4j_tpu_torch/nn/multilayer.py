@@ -433,6 +433,8 @@ class MultiLayerNetwork(EngineApi):
         if (self.conf.backprop_type == "TruncatedBPTT" and x.dim() == 3
                 and x.shape[2] > self.conf.tbptt_fwd_length):
             return self._fit_tbptt(x, y, mask, fmask)
+        if self._wants_last_features():
+            self._last_features = ds.features  # activation listeners
         core.check_grad_accum_batch(self.grad_accum, int(x.shape[0]))
         prof = profiler.get_active_profiler()
         if prof is not None:
@@ -447,6 +449,16 @@ class MultiLayerNetwork(EngineApi):
                           grad_norm=self._last_grad_norm,
                           rows=self._last_batch_rows)
         return score
+
+    def _wants_last_features(self) -> bool:
+        """Snapshot the minibatch (``_last_features``) only when a
+        listener asks for it (``needs_last_features``): holding it
+        unconditionally would pin the caller's features for the model's
+        lifetime. Each fit path takes the caller's own features of its
+        last minibatch (``core.note_last_features``), never a chunk's
+        static input buffer, which the next chunk's fill overwrites."""
+        return any(getattr(listener, "needs_last_features", False)
+                   for listener in self.listeners)
 
     # -- layer-wise pretraining (reference pretrain(iter)) -----------------
 
@@ -526,8 +538,13 @@ class MultiLayerNetwork(EngineApi):
             getattr(ds, "features_mask", None)))
 
     def _stack_chunk(self, batches) -> core.Chunk:
-        """Same-signature minibatches stacked into a ``core.Chunk``."""
+        """Same-signature minibatches stacked into a ``core.Chunk``; a
+        placed minibatch (``PlacedDataSet``) is waited on first, so the
+        stack reads its copies after they land."""
         dtype = core.dtype_of(self.conf)
+        for b in batches:
+            if hasattr(b, "wait"):
+                b.wait()
 
         def stack(get):
             arrays = [get(b) for b in batches]

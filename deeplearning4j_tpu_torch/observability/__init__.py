@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.observability.metrics import (  # noqa: F401
     Reservoir,
     array_histograms,
     default_registry,
+    host_arrays,
     mean_magnitudes,
 )
 from deeplearning4j_tpu_torch.observability.profiler import (  # noqa: F401

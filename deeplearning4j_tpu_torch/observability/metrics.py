@@ -16,7 +16,7 @@ window (``training_step_gap_ms``), the checkpoint manager
 ``quarantine_bytes``), preemption (``preemption_*``) and the
 divergence guard (``guard_*``). ``Reservoir`` and ``Histogram`` are the
 primitives; ``mean_magnitudes`` / ``array_histograms`` summarize a
-parameter tree.
+parameter tree (``host_arrays`` reads one back from the card).
 """
 
 from __future__ import annotations
@@ -120,28 +120,65 @@ class Histogram:
 # -- array-summary helpers (shared with the UI stats listener) ----------
 
 
+def host_arrays(tree: dict, fresh: bool = False) -> dict:
+    """``{layer: {param: array}}`` as host numpy arrays, read in one pass:
+    every tensor on a card is queued as a non-blocking ``.detach().to(
+    "cpu")`` copy (pinned memory) and the card is waited on once, after
+    the last copy, rather than once a parameter. A CPU tensor is read in
+    place (bfloat16, which numpy lacks, as float32), a numpy array as it
+    is. ``fresh``: every array is a copy that later in-place writes to
+    the tree's tensors do not reach."""
+    import numpy as np
+    import torch
+
+    out: dict = {}
+    pending = []  # (row, name, pinned copy of a device tensor)
+    cards = set()
+    for lname, params in tree.items():
+        row = out[lname] = {}
+        for pname, arr in params.items():
+            if not torch.is_tensor(arr):
+                a = np.asarray(arr)
+                row[pname] = np.array(a) if fresh else a
+                continue
+            t = arr.detach()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            if t.device.type == "cpu":
+                row[pname] = t.numpy().copy() if fresh else t.numpy()
+            else:
+                pending.append((row, pname, t.to("cpu", non_blocking=True)))
+                cards.add(t.device)
+    for dev in cards:
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    for row, pname, t in pending:
+        row[pname] = t.numpy()
+    return out
+
+
 def mean_magnitudes(tree: dict) -> dict:
-    """``{layer: {param: array}}`` -> ``{"layer_param": mean |x|}``."""
+    """``{layer: {param: array}}`` -> ``{"layer_param": mean |x|}``
+    (tensors on a card read back in one pass, ``host_arrays``)."""
     import numpy as np
 
     out = {}
-    for lname, params in tree.items():
-        for pname, arr in params.items():
-            a = np.asarray(arr)
+    for lname, params in host_arrays(tree).items():
+        for pname, a in params.items():
             out[f"{lname}_{pname}"] = float(np.mean(np.abs(a)))
     return out
 
 
 def array_histograms(tree: dict, bins: int = 20) -> dict:
     """Per-param value histograms of a param tree (the UI's histogram
-    tab payload: min/max/counts per ``layer_param``)."""
+    tab payload: min/max/counts per ``layer_param``; tensors on a card
+    read back in one pass, ``host_arrays``)."""
     import numpy as np
 
     out = {}
-    for lname, params in tree.items():
-        for pname, arr in params.items():
-            a = np.asarray(arr).ravel()
-            counts, edges = np.histogram(a, bins=bins)
+    for lname, params in host_arrays(tree).items():
+        for pname, a in params.items():
+            counts, edges = np.histogram(a.ravel(), bins=bins)
             out[f"{lname}_{pname}"] = {
                 "min": float(edges[0]), "max": float(edges[-1]),
                 "counts": counts.tolist(),

@@ -11,14 +11,17 @@ masks ragged edges, so there is no counterpart of ``matmul_block_ok``.
 f32, bf16 and f16 inputs are taken; the sum is f32 and is cast once.
 The plain version also takes f64 (the gradient check's), summed in f64
 (``acc_dtype``).
-The kernel has two routes, picked from the shape alone by
-``matmul_route``: ``"wide"`` (128 x 192 tiles, a cp.async ring) for
-products whose grid fills the card, ``"tiled"`` (64 x 64 tiles) for the
-rest, where a skinny product (few output tiles, deep K) splits K over
-an f32 scratch that the wrapper allocates (``_build.split_scratch``),
-the split count by ``ops/tiling.py``'s ``matmul_splits``. The plan
-(route and split count) comes from ``autotune.resolve``: the heuristic
-unless the tuning cache holds a measured winner for the shape.
+The kernel has three routes, picked from the shape alone by
+``matmul_route``: ``"skinny"`` (a stream of w, each thread 4 columns of
+all rows) for at most ``SKINNY_MAX_M`` rows, ``"wide"`` (128 x 192
+tiles, a cp.async ring) for products whose grid fills the card,
+``"tiled"`` (64 x 64 tiles) for the rest. The tiled and skinny routes
+split K over an f32 scratch that the wrapper allocates
+(``_build.split_scratch``) where a product has few output blocks and a
+deep K, the split count by ``ops/tiling.py``'s ``matmul_splits`` /
+``skinny_splits``. The plan (route and split count) comes from
+``autotune.resolve``: the heuristic unless the tuning cache holds a
+measured winner for the shape.
 
 ``matmul_block`` launches the kernel for a CUDA tensor and runs
 ``matmul_block_reference`` (the plain PyTorch version) for a CPU one.
@@ -55,14 +58,22 @@ from deeplearning4j_tpu_torch.ops.conv_block import (
 # in flight.
 WIDE_TILE = (128, 192)
 WIDE_MIN_TILES = 132
+# The skinny route's most rows (csrc/matmul_block.cu skinny::kM), and the
+# columns one of its blocks owns (skinny::kN). A 64 x 64 tile at so few
+# rows multiplies mostly zeros: the product is a read of w.
+SKINNY_MAX_M = 8
+SKINNY_COLS = 256
 # route codes of csrc/matmul_block.cu (enum Route)
-ROUTE_CODES = {"tiled": 0, "wide": 1}
+ROUTE_CODES = {"tiled": 0, "wide": 1, "skinny": 2}
 
 
 def matmul_route(m: int, n: int) -> str:
-    """The kernel route of an ``[m, k] @ [k, n]`` product: ``"wide"``
-    when its 128 x 192 grid holds at least one wave of blocks, else
-    ``"tiled"``. Depth and element type do not change it."""
+    """The kernel route of an ``[m, k] @ [k, n]`` product: ``"skinny"``
+    for at most ``SKINNY_MAX_M`` rows, ``"wide"`` when its 128 x 192 grid
+    holds at least one wave of blocks, else ``"tiled"``. Depth and
+    element type do not change it."""
+    if m <= SKINNY_MAX_M:
+        return "skinny"
     tiles = -(-m // WIDE_TILE[0]) * -(-n // WIDE_TILE[1])
     return "wide" if tiles >= WIDE_MIN_TILES else "tiled"
 
@@ -115,15 +126,17 @@ def _kernel_forward(x, w, bias, residual, activation):
 
 
 def _launch(x, w, bias, residual, activation, plan, count=True):
-    """One launch of the dense kernel with ``plan`` (``("wide", 1)`` or
-    ``("tiled", splits)``) on checked operands; counted unless ``count``
-    is False (the tuner's timing launches)."""
+    """One launch of the dense kernel with ``plan`` (``("wide", 1)``,
+    ``("tiled", splits)`` or, for at most ``SKINNY_MAX_M`` rows,
+    ``("skinny", splits)``) on checked operands; counted unless
+    ``count`` is False (the tuner's timing launches)."""
     kernel = "matmul_block" if residual is None else "matmul_block_residual"
     m, k = (int(v) for v in x.shape)
     n = int(w.shape[1])
     route, splits = plan
-    if route not in ROUTE_CODES or (route == "wide" and splits != 1):
-        raise ValueError(f"{kernel}: unknown plan {plan}")
+    if (route not in ROUTE_CODES or (route == "wide" and splits != 1)
+            or (route == "skinny" and m > SKINNY_MAX_M)):
+        raise ValueError(f"{kernel}: unknown plan {plan} for {m} rows")
     tiling.check_splits(kernel, k, splits)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load()

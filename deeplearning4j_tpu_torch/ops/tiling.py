@@ -31,8 +31,9 @@ are ints, so that the tuner's cache stores it as JSON:
 - ``conv_bwd_w``: ``("image_resident", group, pixel_groups,
   images_per_chunk)`` (the chunks are its split of the batch) or
   ``("gemm", splits)``;
-- ``matmul_block`` (and its residual variant): ``("wide", 1)`` or
-  ``("tiled", splits)``;
+- ``matmul_block`` (and its residual variant): ``("wide", 1)``,
+  ``("tiled", splits)`` or, at most ``SKINNY_MAX_M`` rows,
+  ``("skinny", splits)``;
 - ``lstm_cell``: ``("latency", rows, units, splits)`` or ``("slice",)``;
 - ``lstm_seq_fwd`` / ``lstm_seq_bwd``: ``("cluster", blocks, rows)`` or
   ``("grid",)``.
@@ -82,6 +83,7 @@ INT32_MAX = 2 ** 31 - 1
 # reduction the same way, each chunk at least MIN_R_PER_SPLIT deep.
 TARGET_BLOCKS = 2 * SM_COUNT
 MIN_K_PER_SPLIT = 64
+SKINNY_MIN_K_PER_SPLIT = 32  # the skinny route's chunks read w alone
 MAX_SPLITS = 32
 K_SLICE = 16
 MIN_R_PER_SPLIT = 128
@@ -107,13 +109,14 @@ def chunks_of(k_len: int, splits: int) -> int:
     return _cdiv(k_len, k_chunk_for(k_len, splits))
 
 
-def plan_splits(tiles: int, k_len: int) -> int:
+def plan_splits(tiles: int, k_len: int,
+                min_k: int = MIN_K_PER_SPLIT) -> int:
     """The split-K count for ``tiles`` output tiles over a reduction of
-    ``k_len`` (``csrc/common.cuh``'s former ``plan_splits``)."""
-    if tiles >= TARGET_BLOCKS or k_len < 2 * MIN_K_PER_SPLIT:
+    ``k_len`` (``csrc/common.cuh``'s former ``plan_splits``), each chunk
+    at least ``min_k`` deep."""
+    if tiles >= TARGET_BLOCKS or k_len < 2 * min_k:
         return 1
-    s = max(1, min(_cdiv(TARGET_BLOCKS, tiles), k_len // MIN_K_PER_SPLIT,
-                   MAX_SPLITS))
+    s = max(1, min(_cdiv(TARGET_BLOCKS, tiles), k_len // min_k, MAX_SPLITS))
     return chunks_of(k_len, s)
 
 
@@ -189,6 +192,20 @@ def matmul_tiles(m: int, n: int) -> int:
 def matmul_splits(m: int, k: int, n: int) -> int:
     """The dense kernel's tiled route split count."""
     return plan_splits(matmul_tiles(m, n), k)
+
+
+def skinny_blocks(n: int) -> int:
+    return _cdiv(n, _mod("matmul_block").SKINNY_COLS)
+
+
+def skinny_splits(m: int, k: int, n: int) -> int:
+    """The dense kernel's skinny route split count: the tiled rule's two
+    waves of blocks, each chunk at least SKINNY_MIN_K_PER_SPLIT deep.
+    Fitted to ``scripts/torch_dense_m1_ab.py`` on an H100 80GB HBM3 at
+    700 W: AlexNet's 4096-column layers at m 1 fastest at 16 splits (17
+    by this rule; 32 was 10% slower), LeNet's 500 columns at 25 (chunks
+    of 32) and a sampler's 768 at 32."""
+    return plan_splits(skinny_blocks(n), k, SKINNY_MIN_K_PER_SPLIT)
 
 
 def fits_registers(threads: int, regs_per_thread: int,
@@ -416,26 +433,40 @@ def conv_bwd_w_prior(plan: Plan, n, c, h, w, o, kh, kw, stride=(1, 1),
 
 
 def matmul_heuristic(m: int, k: int, n: int) -> Plan:
-    mb = _mod("matmul_block")
-    if mb.matmul_route(m, n) == "wide":
+    route = _mod("matmul_block").matmul_route(m, n)
+    if route == "wide":
         return ("wide", 1)
+    if route == "skinny":
+        return ("skinny", skinny_splits(m, k, n))
     return ("tiled", matmul_splits(m, k, n))
 
 
 def matmul_candidates(m: int, k: int, n: int) -> List[Plan]:
-    """The wide route (it takes any shape; it never splits), then the
-    tiled route at each split count it takes."""
-    heur = matmul_splits(m, k, n)
-    return [("wide", 1)] + [("tiled", s) for s in
-                            _split_choices(k, heur, SPLIT_OPTIONS,
-                                           MAX_SPLITS)]
+    """The wide route (it takes any shape; it never splits), the tiled
+    route at each split count it takes, and, at most ``SKINNY_MAX_M``
+    rows, the skinny route at each of its split counts."""
+    plans = [("wide", 1)] + [("tiled", s) for s in
+                             _split_choices(k, matmul_splits(m, k, n),
+                                            SPLIT_OPTIONS, MAX_SPLITS)]
+    if m <= _mod("matmul_block").SKINNY_MAX_M:
+        plans += [("skinny", s) for s in
+                  _split_choices(k, skinny_splits(m, k, n), SPLIT_OPTIONS,
+                                 MAX_SPLITS)]
+    return plans
 
 
 def matmul_prior(plan: Plan, m: int, k: int, n: int) -> float:
+    mb = _mod("matmul_block")
     if plan[0] == "wide":
-        mb = _mod("matmul_block")
         to, tn = mb.WIDE_TILE
         return float(_waves(_cdiv(m, to) * _cdiv(n, tn), 1) * to * tn * k)
+    if plan[0] == "skinny":
+        # a block's columns times its chunk, four rows' worth of work
+        # (it reads w once; its rows are registers), eight blocks an SM
+        chunk = k_chunk_for(k, plan[1])
+        work = (_waves(skinny_blocks(n) * plan[1], 8) * mb.SKINNY_COLS
+                * chunk * 4)
+        return float(work + (m * n * plan[1] if plan[1] > 1 else 0))
     return _gemm_prior(matmul_tiles(m, n), k, plan[1], m * n)
 
 

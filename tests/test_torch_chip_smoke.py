@@ -376,3 +376,87 @@ def test_check_tuning_holds_what_autotune_promises():
     on, cached = _tune_reports()
     with pytest.raises(RuntimeError, match="expected 2"):
         cs.check_tuning(on, cached, 2)
+
+
+def test_periphery_phases_are_registered_and_on_the_kernels_line():
+    """``[ui]``, ``[ui-chunk]``, ``[tsne]``, ``[stream]``, ``[cloud-data]``
+    and ``[native]`` run in PERIPHERY_PATHS's order and answer
+    ``--phases``; their launches are summed into the kernels line and
+    listed by path; the conv listener's batch-1 records give the
+    ``alexnet_b1_*`` keys."""
+    assert [t for t, _ in cs.periphery_phases()] == list(
+        cs.PERIPHERY_PATHS) == ["ui", "ui-chunk", "tsne", "stream",
+                                "cloud-data", "native"]
+    assert cs.parse_phases(
+        ["--phases", "ui,ui-chunk,tsne,stream,cloud-data,native"]) == set(
+        cs.PERIPHERY_PATHS)
+    paths = {"ui": {"conv_block": 110, "conv_bwd_data": 40,
+                    "conv_bwd_w": 50, "matmul_block": 24},
+             "ui-chunk": {"conv_block": 70, "matmul_block": 19},
+             "tsne": {}, "native": {"conv_block": 0},
+             "stream": {"conv_block": 140}, "cloud-data": {"conv_block": 68}}
+    b1 = {"kernel": "conv_block", "shape_of": "alexnet-b1.conv1",
+          "kernel_route": "direct", "max_abs_err": 1e-6, "kernel_ms": 0.25,
+          "plain_ms": 0.5, "bound_ms": 0.0625, "bound_by": "operations",
+          "library_ms": 0.125}
+    line = {k["name"]: k for k in cs.kernels_line([b1], [], [], paths, {})}
+    conv = line["conv_block"]
+    assert conv["launches"] == 388
+    assert conv["launches_by_path"] == {"ui": 110, "ui-chunk": 70,
+                                        "stream": 140, "cloud-data": 68}
+    assert line["matmul_block"]["launches_by_path"] == {"ui": 24,
+                                                        "ui-chunk": 19}
+    assert (conv["alexnet_b1_kernel_ms"], conv["alexnet_b1_route"]) == (
+        0.25, "direct")
+    cs.check_routes([b1])
+    with pytest.raises(RuntimeError, match="expected direct"):
+        cs.check_routes([dict(b1, kernel_route="wide")])
+
+
+def test_png_reader_reads_the_conv_listeners_png():
+    from deeplearning4j_tpu_torch.ui.conv_listener import png_gray
+
+    grid = np.random.RandomState(2).randint(0, 256, (9, 31)).astype(np.uint8)
+    data = png_gray(grid)
+    np.testing.assert_array_equal(cs.read_png_gray(data), grid)
+    bad = bytearray(data)
+    bad[40] ^= 1  # inside the IDAT chunk
+    with pytest.raises(RuntimeError, match="CRC"):
+        cs.read_png_gray(bytes(bad))
+
+
+def test_grids_of_a_cpu_conv_listener_are_its_snapshots_tiles():
+    """The [ui-chunk] check on the CPU: a LeNet fit on the scan path with
+    the conv listener; its grids are the last minibatch's first row's
+    tiles, not the minibatch before's."""
+    from deeplearning4j_tpu_torch.ui import ConvolutionalIterationListener
+
+    batches = cs.lenet_batches(4)
+    net = MultiLayerNetwork(lenet(), device="cpu").init()
+    conv = ConvolutionalIterationListener(frequency=4)
+    net.set_listeners(conv)
+    net.fit(batches)
+    assert net._last_features is batches[-1].features
+    diffs = cs.grids_against("t", conv.last_grids, net.feed_forward(
+        batches[-1].features[:1]), net.layer_names)
+    assert diffs == {"0": 0, "1": 0, "2": 0, "3": 0}
+    prev = cs.grid_diffs("t", conv.last_grids, net.feed_forward(
+        batches[-2].features[:1]), net.layer_names)
+    assert max(prev.values()) > 1
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_f32_mean_rtol_bounds_numpys_float32_mean(n):
+    rng = np.random.RandomState(n % 97)
+    for scale in (1e-2, 1.0):
+        a = np.abs(rng.randn(n).astype(np.float32) * scale)
+        exact = float(np.mean(a.astype(np.float64)))
+        assert abs(float(np.mean(a)) - exact) / exact <= cs.f32_mean_rtol(n)
+
+
+def test_tsne_points_are_seeded_clusters():
+    x, labels = cs.tsne_points()
+    assert x.shape == (cs.TSNE_N, cs.TSNE_DIM) == (5000, 128)
+    assert set(np.unique(labels)) == set(range(cs.TSNE_CLUSTERS))
+    x2, _ = cs.tsne_points()
+    np.testing.assert_array_equal(x, x2)

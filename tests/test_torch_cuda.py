@@ -1354,6 +1354,62 @@ def test_wide_matmul_grads_match_plain(cuda, monkeypatch, residual):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+# (m, k, n, residual): the dense kernel's skinny route (at most
+# SKINNY_MAX_M rows): AlexNet's first dense layer at batch 1 (16-byte
+# loads of w, split K), LeNet's at batch 1 (n 500), eight rows with the
+# residual, a ragged n and k (scalar loads, a k tail short of the
+# unrolled rows) and a k too short to split
+SKINNY_CASES = [(1, 9216, 4096, False), (1, 800, 500, False),
+                (8, 4096, 1000, True), (3, 1001, 770, True),
+                (5, 40, 130, False)]
+
+
+@pytest.mark.parametrize("m,k,n,residual", SKINNY_CASES)
+@pytest.mark.parametrize("activation", sorted(SUPPORTED_EPILOGUES))
+def test_skinny_matmul_kernel_matches_plain(cuda, m, k, n, residual,
+                                            activation):
+    mb = importlib.import_module("deeplearning4j_tpu_torch.ops.matmul_block")
+    assert mb.matmul_route(m, n) == "skinny"
+    x, w, b, r = _wide_operands(m, k, n, residual, 46)
+    name = "matmul_block_residual" if residual else "matmul_block"
+    before = dispatch.launch_counts()[name]
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation=activation)
+        again = matmul_block(x, w, b, r, activation=activation)
+        ref = matmul_block_reference(x, w, b, r, activation=activation)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()[name] == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_skinny_matmul_kernel_half_inputs(cuda, dtype):
+    x, w, b, r = _wide_operands(4, 3000, 516, True, 47, dtype)
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, r, activation="relu")
+        ref = matmul_block_reference(x, w, b, r, activation="relu")
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_skinny_matmul_unaligned_operands(cuda):
+    """A w that starts 4 bytes into its storage: the skinny route reads
+    it one element at a time."""
+    m, k, n = 2, 96, 132
+    rng = np.random.RandomState(48)
+    x = _t(rng.randn(m, k), cuda)
+    w = _t(rng.randn(k * n + 1) / np.sqrt(k), cuda)[1:].view(k, n)
+    b = _t(rng.randn(n + 1) * 0.1, cuda)[1:]
+    with torch.inference_mode():
+        out = matmul_block(x, w, b, activation="tanh")
+        ref = matmul_block_reference(x, w, b, activation="tanh")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
 # (x shape, w shape, stride, padding, group): conv_bwd_data's resident
 # route at LeNet conv2 (batch 256, c 20), stride 2 with padding, c 3
 # under an asymmetric stride, and two channel-grouped cases (40 channels
@@ -2179,6 +2235,43 @@ def test_prefetch_placed_batches_are_the_synchronously_placed(cuda):
         assert torch.equal(placed.features, ref.features)
         assert torch.equal(placed.labels, ref.labels)
         assert placed.weights == ref.weights
+
+
+@pytest.mark.parametrize("megastep", [1, 4])
+def test_conv_listener_snapshot_of_a_prefetched_chunk(cuda, megastep):
+    """A chunk-mode ``PrefetchIterator`` places each block of 4 on its
+    worker's copy stream (pinned staging, an event); the engines wait on
+    the block's copies before they clone the conv listener's snapshot on
+    the compute stream, so the snapshot is the last minibatch's rows and
+    the listener draws its grids from them (scan and megastep paths)."""
+    from deeplearning4j_tpu_torch import ui
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.api import PlacedChunk
+    from deeplearning4j_tpu_torch.datasets.prefetch import PrefetchIterator
+    from deeplearning4j_tpu_torch.nn import core
+
+    batches = _lenet_batches(8, batch=256)
+
+    def place(buf):
+        (x, y), ready = core.place_tree(
+            (np.stack([b.features for b in buf]),
+             np.stack([b.labels for b in buf])), cuda, torch.float32)
+        return PlacedChunk(x, y, ready=ready)
+
+    net = _lenet_net(cuda)
+    conv = ui.ConvolutionalIterationListener(frequency=1)
+    net.set_listeners(conv)
+    pre = PrefetchIterator(ListDataSetIterator(batches), queue_depth=2,
+                           megastep=4, chunk_placement=place)
+    try:
+        net.fit(pre, megastep=megastep)
+    finally:
+        pre.shutdown()
+    torch.cuda.synchronize()
+    got = net._last_features
+    assert torch.is_tensor(got) and got.is_cuda
+    assert torch.equal(got.cpu(), torch.from_numpy(batches[-1].features))
+    assert net.iteration_count == 8 and conv.last_grids
 
 
 def test_graphed_trainer_chunk_is_the_per_step_trainer(cuda, tmp_path):
@@ -3187,7 +3280,8 @@ def test_f64_gradient_check_refuses_the_kernels(cuda):
 TUNED_CONV = [((32, 20, 12, 12), (50, 20, 5, 5), (1, 1), (0, 0)),
               ((16, 96, 27, 27), (256, 96, 5, 5), (1, 1), (2, 2)),
               ((8, 64, 28, 28), (128, 64, 3, 3), (1, 1), (1, 1))]
-TUNED_DENSE = [(16, 768, 768), (1024, 128, 256), (16, 6272, 512)]
+TUNED_DENSE = [(16, 768, 768), (1024, 128, 256), (16, 6272, 512),
+               (1, 4096, 1000), (7, 1001, 770)]
 TUNED_CELL = [(32, 200), (1, 200), (8, 48)]
 TUNED_SEQ = [(6, 32, 200), (4, 3, 40)]
 
@@ -3406,3 +3500,26 @@ def test_tuner_measures_persists_and_refuses_a_capture_on_the_card(
         monkeypatch.delenv("DL4J_TPU_TUNE_CACHE_DIR")
         monkeypatch.delenv("DL4J_TPU_TUNE")
         dispatch.reset_for_tests()
+
+
+def test_tree_summaries_read_cuda_tensors_as_their_host_copies(cuda):
+    """``mean_magnitudes`` / ``array_histograms`` of a tree of CUDA
+    tensors (one read back a tensor, one wait) equal those of its host
+    copy exactly, and ``host_arrays(fresh=True)`` does not see a later
+    in-place write on the card."""
+    from deeplearning4j_tpu_torch.observability import metrics
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"0": {"W": torch.randn(300, 70, device=cuda, generator=gen),
+                  "b": torch.randn(70, device=cuda, generator=gen)},
+            "1": {"W": torch.randn(9, 9, device=cuda,
+                                   generator=gen).requires_grad_()}}
+    host = {ln: {pn: t.detach().cpu() for pn, t in lp.items()}
+            for ln, lp in tree.items()}
+    assert metrics.mean_magnitudes(tree) == metrics.mean_magnitudes(host)
+    assert (json.dumps(metrics.array_histograms(tree))
+            == json.dumps(metrics.array_histograms(host)))
+    fresh = metrics.host_arrays(tree, fresh=True)
+    with torch.no_grad():
+        tree["0"]["W"].add_(1.0)
+    np.testing.assert_array_equal(fresh["0"]["W"], host["0"]["W"].numpy())

@@ -521,3 +521,16 @@ def test_fresh_process_imports_every_module_without_h5py_pil_or_sklearn():
                          text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+def test_port_covers_every_module_of_the_jax_package():
+    """Each Python module and C++ source of the JAX package has a
+    counterpart at the same path in the port, but JAX's
+    ``parallel/compat.py`` (a ``shard_map`` version shim for jax)."""
+    def files(pkg):
+        root = ROOT / pkg
+        return {str(p.relative_to(root)) for ext in ("*.py", "*.cpp")
+                for p in root.rglob(ext) if "__pycache__" not in p.parts}
+
+    missing = files("deeplearning4j_tpu") - files("deeplearning4j_tpu_torch")
+    assert missing == {"parallel/compat.py"}

@@ -141,22 +141,23 @@ def test_matmul_block_relu_tie_takes_half_the_gradient():
 # (path, m, k, n, route): the dense kernel's products on the main paths.
 # The transformer LM (d 768, batch 16 x t 512 = 8192 rows; t 16384 in
 # the long-context output) takes the wide 128 x 192 route; LeNet-5's
-# dense layers (800 -> 500 -> 10) at serving buckets 1 / 32 and the
-# training batch 256, AlexNet's (9216 -> 4096 -> 4096 -> 1000) at batch
-# 64 and KV-cache sampling (one byte, or the 256-byte prompt, a call)
-# keep the 64 x 64 tiled route and its split-K plan.
+# dense layers (800 -> 500 -> 10) at serving bucket 32 and the training
+# batch 256, AlexNet's (9216 -> 4096 -> 4096 -> 1000) at batch 64 and
+# KV-cache sampling's 256-byte prompt keep the 64 x 64 tiled route and
+# its split-K plan; the one-row calls (LeNet's bucket of 1, sampling one
+# byte) stream w on the skinny route.
 ROUTE_CASES = [
     ("transformer.input", 8192, 256, 768, "wide"),
     ("transformer.ffn2", 8192, 3072, 768, "wide"),
     ("transformer-long.ffn2", 16384, 3072, 768, "wide"),
-    ("lenet.dense1@1", 1, 800, 500, "tiled"),
+    ("lenet.dense1@1", 1, 800, 500, "skinny"),
     ("lenet.dense1@32", 32, 800, 500, "tiled"),
     ("lenet.dense1@256", 256, 800, 500, "tiled"),
     ("lenet.output@256", 256, 500, 10, "tiled"),
     ("alexnet.dense1", 64, 9216, 4096, "tiled"),
     ("alexnet.dense2", 64, 4096, 4096, "tiled"),
     ("alexnet.output", 64, 4096, 1000, "tiled"),
-    ("sample.ffn2@byte", 1, 3072, 768, "tiled"),
+    ("sample.ffn2@byte", 1, 3072, 768, "skinny"),
     ("sample.ffn2@prompt", 256, 3072, 768, "tiled"),
 ]
 
@@ -167,6 +168,23 @@ def test_matmul_route_pins_the_main_paths(path, m, k, n, route):
     from deeplearning4j_tpu_torch.ops.matmul_block import matmul_route
 
     assert matmul_route(m, n) == route
+
+
+@pytest.mark.parametrize("path,m,k,n", [
+    ("alexnet-b1.dense1", 1, 9216, 4096), ("alexnet-b1.dense2", 1, 4096, 4096),
+    ("lenet-b1.dense1", 1, 800, 500), ("eight-rows", 8, 9216, 4096)])
+def test_matmul_route_is_skinny_up_to_eight_rows(path, m, k, n):
+    """The conv listener's batch-1 forward and a sampler's one-row step
+    stream w on the skinny route (a 64 x 64 tile multiplies 63 rows of
+    zeros there); one row more takes the tiled route."""
+    from deeplearning4j_tpu_torch.ops.matmul_block import (
+        SKINNY_MAX_M,
+        matmul_route,
+    )
+
+    assert SKINNY_MAX_M == 8  # csrc/matmul_block.cu skinny::kM
+    assert matmul_route(m, n) == "skinny"
+    assert matmul_route(SKINNY_MAX_M + 1, n) == "tiled"
 
 
 def test_matmul_route_turns_wide_at_one_wave_of_tiles():

@@ -71,6 +71,33 @@ def test_registry_rules_are_jax():
             == json.dumps(jmetrics.array_histograms(tree, bins=4)))
 
 
+def test_tree_summaries_of_cpu_tensors_are_the_numpy_trees():
+    """``mean_magnitudes`` / ``array_histograms`` read a tree of CPU
+    tensors (one requiring grad, one bfloat16) exactly as the same tree
+    of numpy arrays, and as the JAX package's helpers read it."""
+    import torch
+
+    rng = np.random.RandomState(4)
+    arrays = {"0": {"W": rng.randn(5, 7).astype(np.float32),
+                    "b": rng.randn(7).astype(np.float32)},
+              "1": {"W": rng.randn(3, 3).astype(np.float32)}}
+    tensors = {"0": {"W": torch.from_numpy(arrays["0"]["W"]).requires_grad_(),
+                     "b": torch.from_numpy(arrays["0"]["b"])},
+               "1": {"W": torch.from_numpy(arrays["1"]["W"])}}
+    assert metrics.mean_magnitudes(tensors) == metrics.mean_magnitudes(
+        arrays) == jmetrics.mean_magnitudes(arrays)
+    assert (json.dumps(metrics.array_histograms(tensors, bins=5))
+            == json.dumps(metrics.array_histograms(arrays, bins=5))
+            == json.dumps(jmetrics.array_histograms(arrays, bins=5)))
+    before = arrays["1"]["W"].copy()
+    host = metrics.host_arrays(tensors, fresh=True)
+    tensors["1"]["W"].add_(1.0)  # fresh: the copy does not see it
+    np.testing.assert_array_equal(host["1"]["W"], before)
+    half = {"h": {"W": torch.from_numpy(arrays["1"]["W"]).bfloat16()}}
+    ref = {"h": {"W": half["h"]["W"].float().numpy()}}
+    assert metrics.mean_magnitudes(half) == metrics.mean_magnitudes(ref)
+
+
 def _families(reg, names):
     return {n: (reg.get(n).kind, reg.get(n).help, reg.get(n).label_names,
                 tuple(reg.get(n).buckets or ()))

@@ -47,7 +47,10 @@ DENSE = sorted({(g["m"], g["k"], g["n"]) for _, kind, g in SHAPES
                | {(16 * 512, 768, 768), (16 * 512, 768, 3072),
                   (16 * 512, 3072, 768), (16 * 512, 768, 256),
                   (cs.MLP_BATCH, cs.W2V_DIM, cs.MLP_HIDDEN),
-                  (cs.SEMB_BATCH // 2, cs.W2V_DIM, cs.MLP_HIDDEN)})
+                  (cs.SEMB_BATCH // 2, cs.W2V_DIM, cs.MLP_HIDDEN),
+                  # the conv listener's batch-1 dense layers (skinny)
+                  (1, 9216, 4096), (1, 4096, 4096), (1, 800, 500),
+                  (8, 1001, 770)})
 CELLS = [(cs.CHAR_BATCH, cs.CHAR_HIDDEN), (1, cs.CHAR_HIDDEN),
          (cs.SATURATED[1], cs.SATURATED[2]), (8, 48), (300, 13)]
 SEQS = [(cs.CHAR_TBPTT, cs.CHAR_BATCH, cs.CHAR_HIDDEN),
@@ -162,13 +165,26 @@ def test_every_conv_candidate_fits_the_budgets(name, kind, g):
 def test_dense_heuristic_candidates_and_budgets(m, k, n):
     plan = tiling.matmul_heuristic(m, k, n)
     assert plan[0] == mb.matmul_route(m, n)
-    assert plan == (("wide", 1) if plan[0] == "wide"
-                    else ("tiled", tiling.matmul_splits(m, k, n)))
+    splits = {"wide": lambda *a: 1, "tiled": tiling.matmul_splits,
+              "skinny": tiling.skinny_splits}[plan[0]]
+    assert plan == (plan[0], splits(m, k, n))
     plans = tiling.matmul_candidates(m, k, n)
     assert plan in plans and ("wide", 1) in plans
+    assert any(p[0] == "skinny" for p in plans) == (m <= mb.SKINNY_MAX_M)
     for p in plans:
-        assert tiling.split_ok(k, p[1]) and (p[0] == "tiled" or p[1] == 1)
+        assert tiling.split_ok(k, p[1]) and (p[0] != "wide" or p[1] == 1)
         assert tiling.matmul_prior(p, m, k, n) > 0
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (1, 9216, 4096, 17), (1, 4096, 4096, 16), (1, 800, 500, 25),
+    (1, 3072, 768, 32), (8, 9216, 4096, 17), (5, 40, 130, 1)])
+def test_skinny_splits_are_the_measured_winners(m, k, n, splits):
+    """The skinny route's split rule at the shapes it was fitted to
+    (``scripts/torch_dense_m1_ab.py``): two waves of 256-column blocks,
+    chunks at least 32 deep, at most MAX_SPLITS."""
+    assert tiling.skinny_splits(m, k, n) == splits
+    assert tiling.matmul_heuristic(m, k, n) == ("skinny", splits)
 
 
 @pytest.mark.parametrize("b,n", CELLS)
